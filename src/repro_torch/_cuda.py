@@ -1,0 +1,156 @@
+"""Build and load the hand-written CUDA kernels.
+
+Every ``csrc/*.cu`` source is compiled by ONE ``nvcc`` call for Hopper
+(``sm_90a``) into a shared library with a plain C interface, which is loaded
+through ``ctypes``.  The library is built at first use — never on import, so
+the CPU tests need no ``nvcc`` — from the sources in this package and
+nothing else, into ``build/repro_torch/`` at the root of the checkout.  Its
+file name carries a hash of the sources and flags, so an edited source is
+rebuilt.  A failed build raises with nvcc's command line and output.
+
+Each C entry point launches on the caller's stream, does not synchronise,
+allocates nothing and returns ``cudaGetLastError()`` after its launch;
+:class:`Kernel` raises when that is not 0 and counts the launches.
+"""
+
+from __future__ import annotations
+
+import ctypes
+import functools
+import hashlib
+import os
+import shutil
+import subprocess
+from pathlib import Path
+
+import torch
+
+__all__ = ["Kernel", "build", "library", "check_tensor",
+           "CSRC", "BUILD_DIR", "NVCC_FLAGS"]
+
+CSRC = Path(__file__).resolve().parent / "csrc"
+BUILD_DIR = Path(__file__).resolve().parents[2] / "build" / "repro_torch"
+NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
+              "-shared", "-Xcompiler", "-fPIC")
+
+_P = ctypes.c_void_p     # device pointer (and the stream)
+_I = ctypes.c_int
+_L = ctypes.c_longlong
+_F = ctypes.c_float
+
+# C signature of every entry point (all return the launch's cudaError_t as
+# int; the trailing _P is the stream).
+SIGNATURES = {
+    "rt_site_g5": (_P, _P, _I, _L, _I, _I, _P),
+    "rt_site_mul": (_P, _P, _P, _L, _I, _P),
+    "rt_site_axpy": (_F, _P, _P, _P, _L, _I, _P),
+    "rt_reduce_partials": (_P, _P, _I, _L, _I, _I, _P),
+    "rt_reduce_fold": (_P, _P, _L, _I, _I, _P),
+    "rt_cg_update": (_P, _P, _P, _P, _P, _P, _P, _P, _P, _L, _I, _P),
+    "rt_cg_xpay": (_P, _P, _P, _P, _L, _I, _P),
+    "rt_dslash": (_P, _P, _P, _I, _I, _I, _I, _I, _P),
+    "rt_wilson_normal_t": (_P, _P, _P, _F, _I, _I, _I, _I, _I, _P),
+    "rt_wilson_normal_ap": (_P, _P, _P, _P, _P, _F, _I, _I, _I, _I, _I, _P),
+}
+
+
+def _nvcc() -> str:
+    for cand in (os.path.join(os.environ.get("CUDA_HOME", "/usr/local/cuda"), "bin", "nvcc"),
+                 shutil.which("nvcc")):
+        if cand and os.path.exists(cand):
+            return cand
+    raise RuntimeError(
+        "nvcc not found (looked in $CUDA_HOME/bin, /usr/local/cuda/bin and "
+        "PATH): the CUDA toolkit is needed to build the cuda engine's kernels")
+
+
+def _sources():
+    srcs = sorted(CSRC.glob("*.cu"))
+    if not srcs:
+        raise RuntimeError(f"no CUDA sources under {CSRC}")
+    return srcs, sorted(CSRC.glob("*.cuh"))
+
+
+def _digest() -> str:
+    h = hashlib.sha256(" ".join(NVCC_FLAGS).encode())
+    srcs, headers = _sources()
+    for f in srcs + headers:
+        h.update(f.name.encode())
+        h.update(f.read_bytes())
+    return h.hexdigest()[:16]
+
+
+def build() -> Path:
+    """Compile every ``csrc/*.cu`` into one shared library (once per source
+    hash) and return its path."""
+    lib = BUILD_DIR / f"librepro_torch_{_digest()}.so"
+    if lib.exists():
+        return lib
+    BUILD_DIR.mkdir(parents=True, exist_ok=True)
+    srcs, _ = _sources()
+    tmp = lib.with_suffix(f".{os.getpid()}.tmp")
+    cmd = [_nvcc(), *NVCC_FLAGS, "-o", str(tmp), *map(str, srcs)]
+    proc = subprocess.run(cmd, capture_output=True, text=True)
+    if proc.returncode != 0:
+        raise RuntimeError(
+            f"nvcc failed (exit {proc.returncode}):\n{' '.join(cmd)}\n"
+            f"{proc.stdout}\n{proc.stderr}")
+    os.replace(tmp, lib)
+    return lib
+
+
+@functools.lru_cache(maxsize=1)
+def library() -> ctypes.CDLL:
+    """The loaded kernel library (built on first call), with every entry
+    point's argument and result types declared."""
+    lib = ctypes.CDLL(str(build()))
+    for name, argtypes in SIGNATURES.items():
+        fn = getattr(lib, name)
+        fn.argtypes = list(argtypes)
+        fn.restype = ctypes.c_int
+    lib.rt_error_string.argtypes = [ctypes.c_int]
+    lib.rt_error_string.restype = ctypes.c_char_p
+    return lib
+
+
+def check_tensor(name: str, t: torch.Tensor, shape, device: torch.device) -> None:
+    """Raise ValueError unless ``t`` is a contiguous fp32 tensor of
+    ``shape`` on ``device`` — what every kernel of the library takes."""
+    if not isinstance(t, torch.Tensor):
+        raise ValueError(f"{name}: expected a torch.Tensor, got {type(t).__name__}")
+    if t.device != device:
+        raise ValueError(f"{name}: on {t.device}, expected {device}")
+    if t.dtype != torch.float32:
+        raise ValueError(f"{name}: dtype {t.dtype}; the kernels take float32 only")
+    if tuple(t.shape) != tuple(shape):
+        raise ValueError(f"{name}: shape {tuple(t.shape)}, expected {tuple(shape)}")
+    if not t.is_contiguous():
+        raise ValueError(f"{name}: not contiguous")
+
+
+class Kernel:
+    """One kernel of the library as the port's main path uses it.
+
+    ``launches`` counts the launches of the C entry point ``symbol`` made
+    through :meth:`launch` — a plain integer a run reads to show that its
+    path went through the kernel."""
+
+    def __init__(self, name: str, symbol: str):
+        if symbol not in SIGNATURES:
+            raise ValueError(f"unknown kernel entry point {symbol!r}")
+        self.name = name
+        self.symbol = symbol
+        self.launches = 0
+
+    def launch(self, device: torch.device, *args) -> None:
+        """Launch on ``device``'s current stream; raise if the launch failed."""
+        lib = library()
+        rc = getattr(lib, self.symbol)(*args, torch.cuda.current_stream(device).cuda_stream)
+        if rc != 0:
+            raise RuntimeError(
+                f"{self.name}: launch of {self.symbol} failed: CUDA error {rc} "
+                f"({lib.rt_error_string(rc).decode()})")
+        self.launches += 1
+
+    def __repr__(self):  # pragma: no cover - cosmetic
+        return f"Kernel({self.name}, {self.symbol}, launches={self.launches})"

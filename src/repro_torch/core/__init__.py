@@ -1,0 +1,20 @@
+"""targetDP core in PyTorch: the paper's abstraction layer, for one GPU.
+
+Layout (INDEX macro)  ->  core.layout
+Field                  ->  core.field
+Lowering plans (VVL)   ->  core.plan
+Engines / launch       ->  core.target   (engine "torch" or "cuda")
+Reductions             ->  core.reduce   (targetDoubleSum ...)
+Stencils               ->  core.stencil
+Kernel fusion          ->  core.fuse     (LaunchGraph)
+"""
+
+from .layout import (  # noqa: F401
+    AOS, SOA, Layout, LayoutKind, aosoa, parse_layout, tileable_layout,
+)
+from .field import Field  # noqa: F401
+from .plan import LoweringPlan, choose_vvl  # noqa: F401
+from .target import TargetConfig, TargetKernel, kernel, launch  # noqa: F401
+from .reduce import target_max, target_sum  # noqa: F401
+from .fuse import BoundLaunch, LaunchGraph, ReduceSpec  # noqa: F401
+from . import plan, stencil  # noqa: F401

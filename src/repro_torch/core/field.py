@@ -1,0 +1,99 @@
+"""Field: a multi-valued lattice quantity stored in a configurable Layout.
+
+A Field is ``ncomp`` components at every site of a lattice, physically
+stored per its Layout (paper §3.1) in a ``torch.Tensor`` on some device.
+Kernels (core.target) consume and produce Fields; a kernel body only ever
+sees canonical ``(ncomp, sites)`` tensors.
+"""
+
+from __future__ import annotations
+
+import dataclasses
+import math
+from typing import Tuple
+
+import numpy as np
+import torch
+
+from .layout import Layout, SOA
+
+__all__ = ["Field", "resolve_device"]
+
+
+def resolve_device(device) -> torch.device:
+    """``torch.device(device)``, raising when it names CUDA and no card is
+    present: a caller that wants the CPU asks for it."""
+    dev = torch.device(device)
+    if dev.type == "cuda" and not torch.cuda.is_available():
+        raise RuntimeError(
+            f"device {str(dev)!r} requested but torch.cuda.is_available() is "
+            f"false; pass device='cpu' (e.g. TargetConfig('torch', "
+            f"device='cpu')) to run on the CPU")
+    return dev
+
+
+@dataclasses.dataclass
+class Field:
+    """ncomp values per site on a lattice, in a given physical layout.
+
+    data      physical tensor, shape == layout.physical_shape(ncomp, nsites)
+    lattice   site-space shape, e.g. (nx, ny, nz, nt); nsites = prod(lattice)
+    """
+
+    name: str
+    ncomp: int
+    lattice: Tuple[int, ...]
+    layout: Layout
+    data: torch.Tensor
+
+    @classmethod
+    def from_canonical(cls, name, canonical, lattice, layout=SOA):
+        """canonical: (ncomp, *lattice) or (ncomp, nsites) tensor."""
+        ncomp = canonical.shape[0]
+        flat = canonical.reshape(ncomp, math.prod(lattice))
+        return cls(name, ncomp, tuple(lattice), layout, layout.pack(flat))
+
+    @classmethod
+    def from_numpy(cls, name, array_cs, lattice, layout=SOA,
+                   dtype=torch.float32, device="cpu"):
+        """Upload a canonical numpy array to ``device`` in ``layout``."""
+        t = torch.from_numpy(np.ascontiguousarray(array_cs)).to(dtype)
+        return cls.from_canonical(name, t.to(resolve_device(device)),
+                                  lattice, layout)
+
+    @property
+    def nsites(self) -> int:
+        return math.prod(self.lattice)
+
+    @property
+    def dtype(self):
+        return self.data.dtype
+
+    @property
+    def device(self) -> torch.device:
+        return self.data.device
+
+    def canonical(self) -> torch.Tensor:
+        """(ncomp, nsites) logical view (layout-independent)."""
+        return self.layout.unpack(self.data)
+
+    def canonical_nd(self) -> torch.Tensor:
+        """(ncomp, *lattice) logical view — stencil/geometry operations."""
+        return self.canonical().reshape((self.ncomp,) + self.lattice)
+
+    def to_numpy(self) -> np.ndarray:
+        return self.canonical_nd().detach().cpu().numpy()
+
+    def with_data(self, data: torch.Tensor) -> "Field":
+        return dataclasses.replace(self, data=data)
+
+    def with_canonical(self, canonical: torch.Tensor) -> "Field":
+        flat = canonical.reshape(self.ncomp, self.nsites)
+        return dataclasses.replace(self, data=self.layout.pack(flat))
+
+    def __repr__(self) -> str:  # pragma: no cover - cosmetic
+        return (
+            f"Field({self.name!r}, ncomp={self.ncomp}, lattice={self.lattice}, "
+            f"layout={self.layout.name}, dtype={self.dtype}, "
+            f"device={self.device})"
+        )

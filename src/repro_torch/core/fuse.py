@@ -1,0 +1,702 @@
+"""Launch graphs: chains of kernels that run as one fused launch.
+
+A :class:`LaunchGraph` is an ordered chain of stages whose outputs feed
+later inputs (paper §2.1.1 site-local and stencil kernels, §3.2.3
+reductions):
+
+``add``          site-local stage: the body sees canonical ``(ncomp, L)``
+                 tensors, one value per site.
+``add_stencil``  stencil stage: the body also receives ``gather(name,
+                 disp)``, the input window displaced by ``disp``
+                 (``out(r) = in(r - disp)``, ``|disp| <= width`` per dim).
+``add_reduce``   terminal reduction (``target_sum``/``target_max``
+                 semantics), returned per component as an ``(ncomp,)``
+                 tensor.
+
+Engines:
+
+``"torch"``  runs the composed bodies over whole-lattice tensors.  Stencil
+             graphs pad every external input periodically by the ring the
+             backward width analysis (:meth:`LaunchGraph.halo_widths`)
+             assigns it; site-local stages recompute on halo sites, so a
+             later stencil stage can gather neighbours of an intermediate.
+``"cuda"``   sends the graph's signature (:meth:`LaunchGraph.structure`) to
+             the hand-written kernel registered for it
+             (:func:`register_cuda_graph`) and raises for any other
+             signature.  Stage params are not part of the signature: the
+             kernel reads them from the graph.
+
+Only ``halo="periodic"`` (single device) is ported; the sharded ``"pre"``
+and ``"overlap"`` strategies raise.  This module also holds K3, the flat
+fused CG kernels (``csrc/fused_flat.cu``) that replace the JAX package's
+``LaunchGraph._build_flat`` for the ``cg_update`` and ``cg_xpay`` graphs,
+each beside its plain PyTorch version.
+"""
+
+from __future__ import annotations
+
+import dataclasses
+import math
+from typing import Callable, Dict, List, Mapping, Optional, Sequence, Tuple, Union
+
+import torch
+
+from .._cuda import Kernel, check_tensor
+from .field import Field
+from .layout import Layout
+from .plan import plan_for_launch
+from .reduce import fold_partials
+from .stencil import halo_pad
+from .target import TargetConfig, TargetKernel, require_cuda
+
+__all__ = ["LaunchGraph", "BoundLaunch", "ReduceSpec", "register_cuda_graph",
+           "cg_update", "cg_xpay", "CG_UPDATE", "CG_XPAY"]
+
+_RED_COMBINE = {"sum": torch.add, "max": torch.maximum}
+_RED_FOLD = {"sum": lambda x, dim: x.sum(dim=dim),
+             "max": lambda x, dim: x.amax(dim=dim)}
+
+
+@dataclasses.dataclass(frozen=True)
+class ReduceSpec:
+    """One terminal reduction's metadata: the reduction monoid.
+
+    op       "sum" | "max".
+    source   the graph value being folded (None for a bare-op spec).
+    ncomp    per-component width when known from the producing stage.
+    dtype    the accumulate dtype (None: the launch's default).
+    """
+
+    op: str
+    source: Optional[str] = None
+    ncomp: Optional[int] = None
+    dtype: Optional[object] = None
+
+    def __post_init__(self):
+        if self.op not in _RED_COMBINE:
+            raise ValueError(
+                f"unknown reduction op {self.op!r}; have {list(_RED_COMBINE)}")
+
+    @property
+    def combine(self) -> Callable:
+        """The monoid combine fn — how any two partials merge."""
+        return _RED_COMBINE[self.op]
+
+    def fold(self, x: torch.Tensor, axis: int = -1) -> torch.Tensor:
+        """Fold along ``axis`` (the site axis)."""
+        return _RED_FOLD[self.op](x, axis)
+
+
+
+def _crop_ring(arr: torch.Tensor, r_from: int, r_to: int) -> torch.Tensor:
+    """Shrink an (ncomp, *window) value from valid ring r_from to r_to."""
+    if r_from == r_to:
+        return arr
+    d = r_from - r_to
+    sl = (slice(None),) + tuple(slice(d, s - d) for s in arr.shape[1:])
+    return arr[sl]
+
+
+@dataclasses.dataclass(frozen=True)
+class _Stage:
+    kernel: Optional[TargetKernel]
+    ins: Tuple[Tuple[str, str], ...]              # (body arg, graph value name)
+    outs: Tuple[Tuple[str, str, Optional[int], object], ...]
+    params: Tuple[Tuple[str, object], ...]
+    kind: str = "map"                             # "map" | "stencil" | "reduce"
+    width: int = 0                                # stencil halo reach
+    op: str = ""                                  # reduce monoid
+
+    def structure(self):
+        """The stage's shape without its param values (see
+        :meth:`LaunchGraph.structure`)."""
+        body = self.kernel.body if self.kernel is not None else None
+        return (self.kind, self.width, self.op, body, self.ins, self.outs,
+                tuple(k for k, _ in self.params))
+
+
+# LaunchGraph.structure() -> (impl, outputs the kernel produces)
+_CUDA_GRAPHS: Dict[tuple, Tuple[Callable, Tuple[str, ...]]] = {}
+
+
+def register_cuda_graph(graph: "LaunchGraph", impl: Callable,
+                        outputs: Sequence[str]) -> None:
+    """Run ``impl(graph, ins, scalars, lattice=, vvl=)`` for every graph of
+    ``graph``'s structure on the cuda engine.  ``ins`` maps value names to
+    canonical (ncomp, nsites) SoA tensors, ``scalars`` to 0-d device
+    tensors; ``impl`` returns every name in ``outputs`` (fields canonical,
+    reductions (ncomp,))."""
+    _CUDA_GRAPHS[graph.structure()] = (impl, tuple(outputs))
+
+
+class LaunchGraph:
+    """An ordered chain of kernel stages fused into one launch."""
+
+    def __init__(self, name: str = "fused"):
+        self.name = name
+        self._stages: List[_Stage] = []
+
+    def __repr__(self):  # pragma: no cover - cosmetic
+        names = [s.kernel.name if s.kernel else f"reduce:{s.op}"
+                 for s in self._stages]
+        return f"LaunchGraph({self.name}, stages={names})"
+
+    # -- construction ----------------------------------------------------------
+
+    def _check_not_after_reduce(self, kind: str, name: str) -> None:
+        if any(s.kind == "reduce" for s in self._stages):
+            raise ValueError(
+                f"{kind} stage {name!r} cannot follow a reduction stage: a "
+                f"reduction changes the value shape (per-site lattice -> "
+                f"per-component), so only further terminal reductions may "
+                f"come after it")
+
+    def _prepare_stage(self, kern, ins, out_specs, params, rename):
+        if not isinstance(kern, TargetKernel):
+            kern = TargetKernel(kern)
+        params = dict(params or {})
+        for k, v in params.items():
+            if isinstance(v, torch.Tensor):
+                raise TypeError(
+                    f"stage {kern.name!r} param {k!r} is a tensor; pass runtime "
+                    f"values via launch(..., scalars={{...}})")
+        rename = dict(rename or {})
+        produced = {v for st in self._stages for (_, v, _, _) in st.outs}
+        outs = []
+        for body_key, spec in out_specs.items():
+            ncomp, dtype = spec if isinstance(spec, tuple) else (spec, None)
+            vname = rename.get(body_key, body_key)
+            if vname in produced:
+                raise ValueError(
+                    f"graph value {vname!r} produced twice; use rename= to "
+                    f"give stage {kern.name!r}'s output a fresh name")
+            produced.add(vname)
+            outs.append((body_key, vname, int(ncomp), dtype))
+        return kern, tuple(sorted(ins.items())), tuple(outs), tuple(
+            sorted(params.items()))
+
+    def add(self, kern, ins: Mapping[str, str], out_specs, *,
+            params: Optional[Mapping] = None,
+            rename: Optional[Mapping[str, str]] = None) -> "LaunchGraph":
+        """Append a site-local stage.  Returns self (chainable).
+
+        ins        body argument name -> graph value name.
+        out_specs  body output key -> ncomp (or (ncomp, dtype)).
+        rename     body output key -> graph value name (default: the key).
+        params     static keyword arguments of the body."""
+        kern, ins_t, outs, params_t = self._prepare_stage(
+            kern, ins, out_specs, params, rename)
+        self._check_not_after_reduce("site-local", kern.name)
+        self._stages.append(_Stage(kern, ins_t, outs, params_t))
+        return self
+
+    def add_stencil(self, kern, ins: Mapping[str, str], out_specs, *,
+                    width: int = 1, params: Optional[Mapping] = None,
+                    rename: Optional[Mapping[str, str]] = None) -> "LaunchGraph":
+        """Append a stencil stage reaching ``width`` sites per lattice dim.
+        The body is ``body(v, gather, **params)``: ``v[arg]`` is the centred
+        (ncomp, *window) value, ``gather(arg, d)`` the window displaced by
+        ``d``."""
+        if width < 1:
+            raise ValueError(f"stencil stage needs width >= 1, got {width}")
+        kern, ins_t, outs, params_t = self._prepare_stage(
+            kern, ins, out_specs, params, rename)
+        self._check_not_after_reduce("stencil", kern.name)
+        self._stages.append(_Stage(kern, ins_t, outs, params_t, kind="stencil",
+                                   width=int(width)))
+        return self
+
+    def add_reduce(self, value: str, op: str = "sum", *,
+                   name: Optional[str] = None) -> "LaunchGraph":
+        """Append a terminal reduction of graph value ``value`` over all
+        (interior) sites, returned by launch() as an ``(ncomp,)`` tensor
+        named ``name`` (default ``"{value}_{op}"``)."""
+        if op not in _RED_COMBINE:
+            raise ValueError(
+                f"unknown reduction op {op!r}; have {list(_RED_COMBINE)}")
+        out_name = name or f"{value}_{op}"
+        reduced = {v for st in self._stages if st.kind == "reduce"
+                   for (_, v, _, _) in st.outs}
+        if value in reduced:
+            raise ValueError(
+                f"cannot reduce {value!r}: it is itself a reduction result")
+        produced = {v for st in self._stages for (_, v, _, _) in st.outs}
+        if out_name in produced:
+            raise ValueError(f"graph value {out_name!r} produced twice")
+        self._stages.append(
+            _Stage(None, (("x", value),), (("out", out_name, None, None),),
+                   (), kind="reduce", op=op))
+        return self
+
+    # -- graph structure -------------------------------------------------------
+
+    @property
+    def has_stencil(self) -> bool:
+        return any(st.kind == "stencil" for st in self._stages)
+
+    def structure(self) -> tuple:
+        """The signature the cuda engine dispatches on: every stage's kind,
+        width, monoid, body function, wiring and param *names*."""
+        return tuple(st.structure() for st in self._stages)
+
+    def stage_params(self) -> List[Dict[str, object]]:
+        """Each stage's static params, in stage order."""
+        return [dict(st.params) for st in self._stages]
+
+    def external_inputs(self) -> List[str]:
+        """Value names consumed but never produced by an earlier stage, in
+        first-use order — what launch() must be fed as Fields or scalars."""
+        produced, ext = set(), []
+        for st in self._stages:
+            for _, vname in st.ins:
+                if vname not in produced and vname not in ext:
+                    ext.append(vname)
+            for _, vname, _, _ in st.outs:
+                produced.add(vname)
+        return ext
+
+    def _produced(self) -> Dict[str, Tuple[Optional[int], object]]:
+        return {vname: (ncomp, dtype) for st in self._stages
+                for (_, vname, ncomp, dtype) in st.outs}
+
+    def _reduce_outputs(self) -> List[str]:
+        return [v for st in self._stages if st.kind == "reduce"
+                for (_, v, _, _) in st.outs]
+
+    def reduce_specs(self) -> Dict[str, ReduceSpec]:
+        """reduce output name -> :class:`ReduceSpec`."""
+        prod = self._produced()
+        specs: Dict[str, ReduceSpec] = {}
+        for st in self._stages:
+            if st.kind != "reduce":
+                continue
+            ((_, vname),) = st.ins
+            for (_, out, _, dtype) in st.outs:
+                specs[out] = ReduceSpec(
+                    op=st.op, source=vname,
+                    ncomp=prod.get(vname, (None, None))[0], dtype=dtype)
+        return specs
+
+    def _required_rings(self, outputs: Sequence[str]) -> Dict[str, int]:
+        """Backward width analysis: minimum valid halo ring each graph value
+        needs so the requested outputs are exact on the interior."""
+        need: Dict[str, int] = {o: 0 for o in outputs}
+        for st in reversed(self._stages):
+            if st.kind == "reduce":
+                for _, v in st.ins:
+                    need[v] = max(need.get(v, 0), 0)
+                continue
+            r = max((need.get(v, 0) for (_, v, _, _) in st.outs), default=0)
+            w = st.width if st.kind == "stencil" else 0
+            for _, v in st.ins:
+                need[v] = max(need.get(v, 0), r + w)
+        return need
+
+    def halo_widths(self, outputs: Optional[Sequence[str]] = None) -> Dict[str, int]:
+        """Halo ring each external input needs (0 for site-local-only graphs)."""
+        if outputs is None:
+            outputs = [v for (_, v, _, _) in self._stages[-1].outs]
+        need = self._required_rings(tuple(outputs))
+        return {n: need.get(n, 0) for n in self.external_inputs()}
+
+    def bytes_moved(self, ins_ncomp: Mapping[str, int], nsites: int,
+                    outputs: Optional[Sequence[str]] = None,
+                    itemsize: int = 4) -> Dict[str, int]:
+        """Device-memory traffic model of this chain, fused vs unfused
+        (reads + writes, ``itemsize`` bytes per element).  unfused: every
+        stage reads its inputs and writes its outputs; fused: each external
+        input is read once and only the requested non-reduction outputs are
+        written.  Halo re-reads and scalars are not modelled."""
+        ncomp = dict(ins_ncomp)
+        for vname, (nc, _) in self._produced().items():
+            ncomp[vname] = 0 if nc is None else nc
+        if outputs is None:
+            outputs = [v for (_, v, _, _) in self._stages[-1].outs]
+        unfused = 0
+        for st in self._stages:
+            for _, vname in st.ins:
+                unfused += ncomp.get(vname, 0)
+            for _, vname, nc, _ in st.outs:
+                unfused += 0 if nc is None else nc
+        fused = sum(ncomp.get(n, 0) for n in self.external_inputs())
+        fused += sum(ncomp[o] for o in outputs)
+        return {"unfused": unfused * nsites * itemsize,
+                "fused": fused * nsites * itemsize}
+
+    # -- execution --------------------------------------------------------------
+
+    def bind(self, *, config: Optional[TargetConfig] = None,
+             outputs: Optional[Sequence[str]] = None,
+             out_layouts: Optional[Mapping[str, Layout]] = None,
+             halo: str = "periodic") -> "BoundLaunch":
+        """Freeze the launch keywords into a reusable callable."""
+        return BoundLaunch(
+            self, config=config,
+            outputs=tuple(outputs) if outputs is not None else None,
+            out_layouts=dict(out_layouts) if out_layouts else None,
+            halo=halo)
+
+    def launch(
+        self,
+        ins: Dict[str, Field],
+        *,
+        config: Optional[TargetConfig] = None,
+        outputs: Optional[Sequence[str]] = None,
+        scalars: Optional[Mapping] = None,
+        out_layouts: Optional[Mapping[str, Layout]] = None,
+        halo: str = "periodic",
+    ) -> Dict[str, Union[Field, torch.Tensor]]:
+        """Execute the fused chain.
+
+        ins         graph value name -> input Field (all sharing a lattice).
+        outputs     graph value names to return (default: the last stage's
+                    outputs).  Reductions come back as (ncomp,) tensors,
+                    everything else as Fields.
+        scalars     graph value name -> runtime scalar (a number or a 0-d
+                    tensor; the cuda kernels read it on the device).
+        out_layouts graph output name -> Layout (default: first input's).
+        halo        "periodic" (single device); "pre"/"overlap" are not yet
+                    ported.
+        """
+        if not self._stages:
+            raise ValueError("LaunchGraph has no stages")
+        if not ins:
+            raise ValueError("fused launch needs at least one input Field")
+        if halo in ("pre", "overlap"):
+            raise ValueError(
+                f"halo={halo!r} (the sharded path) is not yet ported; only "
+                f"halo='periodic' is")
+        if halo != "periodic":
+            raise ValueError(f"halo must be 'periodic', got {halo!r}")
+        config = config or TargetConfig()
+        scalars = dict(scalars or {})
+        stencil = self.has_stencil
+
+        first = next(iter(ins.values()))
+        double = sorted(set(ins) & set(scalars))
+        if double:
+            raise ValueError(
+                f"value(s) {double} supplied as both input Fields and "
+                f"scalars; each graph value must have exactly one binding")
+        ext = self.external_inputs()
+        missing = [n for n in ext if n not in ins and n not in scalars]
+        if missing:
+            raise ValueError(
+                f"graph consumes value(s) {missing} produced by no earlier "
+                f"stage and not supplied as inputs or scalars")
+        ordered_ins = [n for n in ext if n in ins]
+        ordered_scalars = [n for n in ext if n in scalars]
+
+        prod = self._produced()
+        if outputs is None:
+            outputs = [v for (_, v, _, _) in self._stages[-1].outs]
+        outputs = tuple(outputs)
+        unknown = [o for o in outputs if o not in prod]
+        if unknown:
+            raise ValueError(f"requested outputs {unknown} produced by no stage")
+        red_names = set(self._reduce_outputs())
+        field_outputs = tuple(o for o in outputs if o not in red_names)
+
+        lattice = first.lattice
+        bad = {k: f.lattice for k, f in ins.items() if f.lattice != lattice}
+        if bad:
+            raise ValueError(
+                f"all Fields in a fused launch must share nsites and lattice "
+                f"shape: {first.name!r} has {lattice}, mismatched {bad}")
+        nsites = int(math.prod(lattice))
+
+        out_layouts = dict(out_layouts or {})
+        for o in field_outputs:
+            out_layouts.setdefault(o, first.layout)
+        out_info = {}
+        for o in outputs:
+            nc, dt = prod[o]
+            if nc is None:  # reduction: ncomp of the reduced value
+                src = self.reduce_specs()[o].source
+                nc = prod.get(src, (None, None))[0]
+                if nc is None:
+                    nc = ins[src].ncomp
+            out_info[o] = (int(nc), dt or first.dtype)
+
+        all_layouts = ([ins[n].layout for n in ordered_ins]
+                       + [out_layouts[o] for o in field_outputs])
+        plan = plan_for_launch(config, nsites, all_layouts)
+
+        if plan.engine == "torch":
+            vals = self._launch_torch(ins, ordered_ins, scalars, ordered_scalars,
+                                      outputs, stencil, lattice, first)
+        else:
+            vals = self._launch_cuda(ins, ordered_ins, scalars, ordered_scalars,
+                                     outputs, lattice, plan, first)
+
+        out: Dict[str, Union[Field, torch.Tensor]] = {}
+        for o in outputs:
+            ncomp, dtype = out_info[o]
+            val = vals[o].to(dtype)
+            if o in red_names:
+                out[o] = val
+            else:
+                out[o] = Field(o, ncomp, lattice, out_layouts[o],
+                               out_layouts[o].pack(val.reshape(ncomp, nsites)))
+        return out
+
+    def _launch_torch(self, ins, ordered_ins, scalars, ordered_scalars,
+                      outputs, stencil, lattice, first) -> Dict[str, torch.Tensor]:
+        def scalar(n):
+            return torch.as_tensor(scalars[n], dtype=first.dtype,
+                                   device=first.device).reshape(1, 1)
+
+        if not stencil:
+            values = {n: ins[n].canonical() for n in ordered_ins}
+            values.update({n: scalar(n) for n in ordered_scalars})
+            values, partials = self._run_stages(values)
+            values.update(partials)
+            return {o: values[o] for o in outputs}
+
+        site_dims = tuple(range(1, len(lattice) + 1))
+        need = self._required_rings(outputs)
+        values = {}
+        for n in ordered_ins:
+            ring = need.get(n, 0)
+            nd = ins[n].canonical_nd()
+            values[n] = (halo_pad(nd, ring, site_dims) if ring else nd, ring)
+        values.update({n: (scalar(n), None) for n in ordered_scalars})
+        values, partials = self._run_stages_nd(values, len(lattice))
+        res = dict(partials)
+        for o in outputs:
+            if o not in res:
+                arr, r = values[o]
+                res[o] = _crop_ring(arr, r, 0)
+        return {o: res[o] for o in outputs}
+
+    def _launch_cuda(self, ins, ordered_ins, scalars, ordered_scalars,
+                     outputs, lattice, plan, first) -> Dict[str, torch.Tensor]:
+        entry = _CUDA_GRAPHS.get(self.structure())
+        if entry is None:
+            raise ValueError(
+                f"cuda engine: no hand-written CUDA kernel is registered for "
+                f"the signature of graph {self.name!r} (register one with "
+                f"register_cuda_graph, or use engine='torch')")
+        impl, produces = entry
+        extra = [o for o in outputs if o not in produces]
+        if extra:
+            raise ValueError(
+                f"cuda engine: the kernel for graph {self.name!r} produces "
+                f"{list(produces)}, not {extra}")
+        for n in ordered_ins:
+            require_cuda(f"input {n!r}", ins[n].data)
+        svals = {}
+        for n in ordered_scalars:
+            v = scalars[n]
+            if isinstance(v, torch.Tensor):
+                require_cuda(f"scalar {n!r}", v)
+                v = v.to(first.dtype).reshape(())
+            else:
+                v = torch.tensor(float(v), dtype=first.dtype, device=first.device)
+            svals[n] = v.contiguous()
+        return impl(self, {n: ins[n].data for n in ordered_ins}, svals,
+                    lattice=lattice, vvl=plan.vvl)
+
+    def _run_stages(self, values: Dict[str, torch.Tensor]) -> Tuple[
+            Dict[str, torch.Tensor], Dict[str, torch.Tensor]]:
+        """Flat composed body (site-local graphs): one pass over all stages
+        on (ncomp, L) tensors plus (1, 1) scalars.  Returns (values,
+        partials) where partials holds the reduction folds."""
+        partials: Dict[str, torch.Tensor] = {}
+        for st in self._stages:
+            if st.kind == "reduce":
+                ((_, vname),) = st.ins
+                partials[st.outs[0][1]] = _RED_FOLD[st.op](values[vname], 1)
+                continue
+            chunks = {arg: values[v] for arg, v in st.ins}
+            outs = st.kernel.body(chunks, **dict(st.params))
+            for body_key, vname, ncomp, _ in st.outs:
+                arr = outs[body_key]
+                if arr.shape[0] != ncomp:
+                    raise ValueError(
+                        f"stage {st.kernel.name!r} output {body_key!r} has "
+                        f"ncomp {arr.shape[0]}, declared {ncomp}")
+                values[vname] = arr
+        return values, partials
+
+    def _run_stages_nd(
+        self,
+        values: Dict[str, Tuple[torch.Tensor, Optional[int]]],
+        site_ndim: int,
+    ) -> Tuple[Dict[str, Tuple[torch.Tensor, Optional[int]]],
+               Dict[str, torch.Tensor]]:
+        """Stencil composed body: values are (tensor, ring) pairs where the
+        tensor has shape (ncomp, *window) and ring counts the valid halo
+        sites around the window's interior.  Site-local stages run over the
+        whole window (recomputing on halo sites); stencil stages shrink the
+        ring by their width; reductions fold the ring-0 interior."""
+        partials: Dict[str, torch.Tensor] = {}
+        for st in self._stages:
+            if st.kind == "reduce":
+                ((_, vname),) = st.ins
+                arr, r = values[vname]
+                a0 = _crop_ring(arr, r, 0)
+                partials[st.outs[0][1]] = _RED_FOLD[st.op](
+                    a0.reshape(a0.shape[0], -1), 1)
+                continue
+
+            stage_ins = [(arg, values[v]) for arg, v in st.ins]
+            rings = [r for _, (_, r) in stage_ins if r is not None]
+            if not rings:
+                raise ValueError(f"stage {st.kernel.name!r} has no Field inputs")
+            r_in = min(rings)
+
+            if st.kind == "stencil":
+                r_out = r_in - st.width
+                if r_out < 0:
+                    raise ValueError(
+                        f"stencil stage {st.kernel.name!r} (width {st.width}) "
+                        f"consumes a value valid only on ring {r_in}; its "
+                        f"inputs need ring >= {st.width} — pad external "
+                        f"inputs by halo_widths(), and do not chain it after a "
+                        f"stage that already consumed the halo")
+                by_arg = dict(stage_ins)
+                width = st.width
+
+                def gather(name, disp, _by_arg=by_arg, _r_out=r_out,
+                           _width=width):
+                    if name not in _by_arg:
+                        raise KeyError(
+                            f"gather({name!r}): not an input of this stage")
+                    arr, r = _by_arg[name]
+                    if r is None:
+                        raise ValueError(
+                            f"gather({name!r}): scalars have no geometry")
+                    disp = tuple(int(d) for d in disp)
+                    if len(disp) != site_ndim:
+                        raise ValueError(
+                            f"gather({name!r}): disp {disp} must have one "
+                            f"entry per lattice dim ({site_ndim})")
+                    if any(abs(d) > _width for d in disp):
+                        raise ValueError(
+                            f"gather({name!r}): |disp|={disp} exceeds stage "
+                            f"width {_width}")
+                    off = r - _r_out
+                    sl = (slice(None),) + tuple(
+                        slice(off - d, arr.shape[j + 1] - off - d)
+                        for j, d in enumerate(disp))
+                    return arr[sl]
+
+                zeros = (0,) * site_ndim
+                chunks = {}
+                for arg, (arr, r) in stage_ins:
+                    if r is None:  # scalar: broadcast over the nd window
+                        chunks[arg] = arr.reshape((1,) * (1 + site_ndim))
+                    else:
+                        chunks[arg] = gather(arg, zeros)
+                outs = st.kernel.body(chunks, gather, **dict(st.params))
+                for body_key, vname, ncomp, _ in st.outs:
+                    arr = outs[body_key]
+                    if arr.shape[0] != ncomp:
+                        raise ValueError(
+                            f"stage {st.kernel.name!r} output {body_key!r} "
+                            f"has ncomp {arr.shape[0]}, declared {ncomp}")
+                    values[vname] = (arr, r_out)
+                continue
+
+            # site-local: crop all inputs to the common ring, flatten, run
+            win_shape = None
+            chunks = {}
+            for arg, (arr, r) in stage_ins:
+                if r is None:
+                    chunks[arg] = arr  # (1, 1) broadcasts against (ncomp, L)
+                else:
+                    w = _crop_ring(arr, r, r_in)
+                    win_shape = w.shape[1:]
+                    chunks[arg] = w.reshape(w.shape[0], -1)
+            outs = st.kernel.body(chunks, **dict(st.params))
+            for body_key, vname, ncomp, _ in st.outs:
+                arr = outs[body_key]
+                if arr.shape[0] != ncomp:
+                    raise ValueError(
+                        f"stage {st.kernel.name!r} output {body_key!r} has "
+                        f"ncomp {arr.shape[0]}, declared {ncomp}")
+                values[vname] = (arr.reshape((ncomp,) + tuple(win_shape)), r_in)
+        return values, partials
+
+
+@dataclasses.dataclass(frozen=True)
+class BoundLaunch:
+    """A :meth:`LaunchGraph.launch` with its keywords frozen
+    (:meth:`LaunchGraph.bind`).  Per-call keywords override the bound ones
+    (``out_layouts`` merges, call entries winning)."""
+
+    graph: LaunchGraph
+    config: Optional[TargetConfig] = None
+    outputs: Optional[Tuple[str, ...]] = None
+    out_layouts: Optional[Mapping[str, Layout]] = None
+    halo: str = "periodic"
+
+    def __call__(self, ins: Dict[str, Field], *, scalars: Optional[Mapping] = None,
+                 config: Optional[TargetConfig] = None,
+                 outputs: Optional[Sequence[str]] = None,
+                 out_layouts: Optional[Mapping[str, Layout]] = None,
+                 halo: Optional[str] = None):
+        layouts = dict(self.out_layouts or {})
+        if out_layouts:
+            layouts.update(out_layouts)
+        return self.graph.launch(
+            ins,
+            config=config if config is not None else self.config,
+            outputs=outputs if outputs is not None else self.outputs,
+            scalars=scalars,
+            out_layouts=layouts or None,
+            halo=halo if halo is not None else self.halo,
+        )
+
+
+# -- K3: the flat fused CG kernels ------------------------------------------------
+
+CG_UPDATE = Kernel("cg_update", "rt_cg_update")
+CG_XPAY = Kernel("cg_xpay", "rt_cg_xpay")
+
+
+def cg_update_plain(x, r, p, ap, alpha, neg_alpha):
+    """x + alpha p, r + neg_alpha ap, and the per-component sum of the new
+    residual squared — the cg_update graph's arithmetic in torch ops."""
+    x_new = x + alpha * p
+    r_new = r + neg_alpha * ap
+    return x_new, r_new, (r_new * r_new).sum(dim=1)
+
+
+def cg_update(x, r, p, ap, alpha, neg_alpha, vvl: int = 128):
+    """(24, nsites) SoA x, r, p, ap and 0-d device scalars alpha, neg_alpha
+    -> (x_new, r_new, rr (24,)).  One launch plus the partial fold."""
+    if x.device.type == "cpu":
+        return cg_update_plain(x, r, p, ap, alpha, neg_alpha)
+    shape = (24, x.shape[-1])
+    for name, t in (("x", x), ("r", r), ("p", p), ("ap", ap)):
+        check_tensor(name, t, shape, x.device)
+    for name, t in (("alpha", alpha), ("neg_alpha", neg_alpha)):
+        check_tensor(name, t, (), x.device)
+    nsites = shape[1]
+    x_new, r_new = torch.empty_like(x), torch.empty_like(r)
+    partials = torch.empty((-(-nsites // vvl), 24), dtype=x.dtype, device=x.device)
+    CG_UPDATE.launch(x.device, x.data_ptr(), r.data_ptr(), p.data_ptr(),
+                     ap.data_ptr(), alpha.data_ptr(), neg_alpha.data_ptr(),
+                     x_new.data_ptr(), r_new.data_ptr(), partials.data_ptr(),
+                     nsites, vvl)
+    return x_new, r_new, fold_partials(partials, "sum")
+
+
+def cg_xpay_plain(x, y, a):
+    return y + a * x
+
+
+def cg_xpay(x, y, a, vvl: int = 128):
+    """y + a x for same-shape contiguous fp32 tensors and a 0-d device
+    scalar a."""
+    if x.device.type == "cpu":
+        return cg_xpay_plain(x, y, a)
+    check_tensor("x", x, x.shape, x.device)
+    check_tensor("y", y, x.shape, x.device)
+    check_tensor("a", a, (), x.device)
+    out = torch.empty_like(x)
+    CG_XPAY.launch(x.device, x.data_ptr(), y.data_ptr(), a.data_ptr(),
+                   out.data_ptr(), x.numel(), vvl)
+    return out

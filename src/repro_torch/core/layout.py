@@ -1,0 +1,140 @@
+"""Data-layout abstraction: the PyTorch analogue of the targetDP ``INDEX()`` macro.
+
+The paper (Gray & Stratford 2016, §3.1) abstracts the linearization of
+multi-valued lattice data — ``ncomp`` numerical components stored at each of
+``nsites`` lattice sites — behind a macro so the layout can be switched per
+architecture without touching application code:
+
+  AoS    |rgb|rgb|rgb|rgb|          index = site*ncomp + comp
+  SoA    |rrrr|gggg|bbbb|           index = comp*nsites + site
+  AoSoA  ||rr|gg|bb|||rr|gg|bb||    index = (site/SAL)*ncomp*SAL
+                                            + comp*SAL + (site - (site/SAL)*SAL)
+
+A layout is the axis *order* of a contiguous (row-major) ``torch.Tensor``:
+
+  SoA    physical shape (ncomp, nsites)
+  AoS    physical shape (nsites, ncomp)
+  AoSoA  physical shape (nsites//SAL, ncomp, SAL)
+
+The canonical (logical) view every kernel body sees is ``(ncomp, nsites)``.
+``pack`` always returns a contiguous tensor, so the flat memory order of the
+physical array is the paper's linearization; ``unpack`` returns a view.
+
+On the GPU, SoA puts neighbouring sites of one component at neighbouring
+addresses: one thread per site then reads coalesced, which is why the
+hand-written CUDA kernels take SoA (the engine raises for the others).
+"""
+
+from __future__ import annotations
+
+import dataclasses
+import enum
+from typing import Tuple
+
+__all__ = ["LayoutKind", "Layout", "AOS", "SOA", "aosoa", "tileable_layout",
+           "parse_layout"]
+
+
+class LayoutKind(enum.Enum):
+    AOS = "aos"
+    SOA = "soa"
+    AOSOA = "aosoa"
+
+
+@dataclasses.dataclass(frozen=True)
+class Layout:
+    """A concrete data layout: kind + short-array length (AoSoA only)."""
+
+    kind: LayoutKind
+    sal: int = 1
+
+    def __post_init__(self):
+        if self.kind is LayoutKind.AOSOA and self.sal < 1:
+            raise ValueError(f"AoSoA needs sal >= 1, got {self.sal}")
+
+    def physical_shape(self, ncomp: int, nsites: int) -> Tuple[int, ...]:
+        if self.kind is LayoutKind.SOA:
+            return (ncomp, nsites)
+        if self.kind is LayoutKind.AOS:
+            return (nsites, ncomp)
+        if nsites % self.sal:
+            raise ValueError(
+                f"AoSoA(sal={self.sal}) requires sal | nsites, got nsites={nsites}"
+            )
+        return (nsites // self.sal, ncomp, self.sal)
+
+    def fits(self, nsites: int) -> bool:
+        """Whether this layout can tile ``nsites`` sites (AoSoA needs
+        SAL | nsites; SoA/AoS always fit)."""
+        return self.kind is not LayoutKind.AOSOA or nsites % self.sal == 0
+
+    def flat_index(self, comp, site, ncomp: int, nsites: int):
+        """The paper's INDEX(comp, site) linearization (scalars or integer
+        arrays); matches the flat memory order of :meth:`pack`'s output."""
+        if self.kind is LayoutKind.SOA:
+            return comp * nsites + site
+        if self.kind is LayoutKind.AOS:
+            return site * ncomp + comp
+        sal = self.sal
+        return (site // sal) * ncomp * sal + comp * sal + (site - (site // sal) * sal)
+
+    def pack(self, canonical):
+        """(ncomp, nsites) canonical -> contiguous physical tensor."""
+        ncomp, nsites = canonical.shape
+        if self.kind is LayoutKind.SOA:
+            return canonical.contiguous()
+        if self.kind is LayoutKind.AOS:
+            return canonical.T.contiguous()
+        sal = self.sal
+        if nsites % sal:
+            raise ValueError(f"AoSoA(sal={sal}): sal must divide nsites={nsites}")
+        return (canonical.reshape(ncomp, nsites // sal, sal)
+                .permute(1, 0, 2).contiguous())
+
+    def unpack(self, physical):
+        """Physical tensor in this layout -> canonical (ncomp, nsites) view."""
+        if self.kind is LayoutKind.SOA:
+            return physical
+        if self.kind is LayoutKind.AOS:
+            return physical.T
+        nblk, ncomp, sal = physical.shape
+        return physical.permute(1, 0, 2).reshape(ncomp, nblk * sal)
+
+    @property
+    def name(self) -> str:
+        if self.kind is LayoutKind.AOSOA:
+            return f"aosoa{self.sal}"
+        return self.kind.value
+
+    def __repr__(self) -> str:  # pragma: no cover - cosmetic
+        return f"Layout({self.name})"
+
+
+AOS = Layout(LayoutKind.AOS)
+SOA = Layout(LayoutKind.SOA)
+
+
+def aosoa(sal: int) -> Layout:
+    """AoSoA with short-array length ``sal``."""
+    return Layout(LayoutKind.AOSOA, sal)
+
+
+def tileable_layout(layout: Layout, lattice) -> Layout:
+    """``layout`` when it can tile this lattice, else SOA (the drivers'
+    fallback for halo'd temporaries)."""
+    nsites = 1
+    for s in lattice:
+        nsites *= int(s)
+    return layout if layout.fits(nsites) else SOA
+
+
+def parse_layout(spec: str) -> Layout:
+    """Parse 'aos' | 'soa' | 'aosoa<N>' — the config-file entry point."""
+    s = spec.strip().lower()
+    if s == "aos":
+        return AOS
+    if s == "soa":
+        return SOA
+    if s.startswith("aosoa"):
+        return aosoa(int(s[len("aosoa"):] or 128))
+    raise ValueError(f"unknown layout spec {spec!r}")

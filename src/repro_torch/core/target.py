@@ -1,0 +1,203 @@
+"""Engine dispatch: one kernel body, two targets (paper §3.2).
+
+A kernel body is a Python function over canonical ``(ncomp, sites)``
+tensors.  Two engines run it:
+
+  engine="torch"  the body itself over whole-lattice tensors, on whatever
+                  device the Fields live on — the paper's host build, and
+                  the oracle.
+  engine="cuda"   the hand-written CUDA kernel registered for the body
+                  (:func:`register_cuda_body`).  The JAX package's Pallas
+                  engine traces any body into a kernel; CUDA cannot, so a
+                  body with no registered kernel raises rather than falling
+                  back to torch ops.  The kernels take SoA fp32 Fields on a
+                  CUDA device and raise for anything else.
+
+This module also holds K1, the site-local kernels (``csrc/site_local.cu``)
+that replace ``core/target.py::TargetKernel._run_pallas`` of the JAX
+package for the bodies on the MILC solve's path, each beside its plain
+PyTorch version.
+"""
+
+from __future__ import annotations
+
+import dataclasses
+from typing import Callable, Dict, Mapping, Optional, Union
+
+import torch
+
+from .._cuda import Kernel, check_tensor
+from .field import Field
+from .layout import Layout
+from .plan import LoweringPlan, plan_for_launch
+
+__all__ = ["TargetConfig", "TargetKernel", "kernel", "launch",
+           "register_cuda_body", "require_cuda", "site_g5", "site_mul",
+           "site_axpy", "G5", "MUL", "AXPY"]
+
+
+@dataclasses.dataclass(frozen=True)
+class TargetConfig:
+    """Build options of a launch.
+
+    engine       "cuda" (the hand-written kernels) or "torch" (torch ops).
+    device       where the drivers place the Fields they create ("cuda" or
+                 "cpu"); a CUDA device with no card present raises.
+    vvl          sites per CUDA block (the paper's Virtual Vector Length).
+    """
+
+    engine: str = "cuda"
+    device: str = "cuda"
+    vvl: int = 128
+
+
+def require_cuda(what: str, t: torch.Tensor) -> None:
+    """Raise ValueError unless ``t`` lies on a CUDA device: the cuda engine
+    never runs on the CPU instead."""
+    if t.device.type != "cuda":
+        raise ValueError(
+            f"cuda engine: {what} lies on {t.device}; the cuda engine's "
+            f"kernels run on a CUDA device only (use TargetConfig('torch', "
+            f"device='cpu') for the CPU)")
+
+
+# -- K1: site-local kernels ------------------------------------------------------
+
+G5 = Kernel("g5", "rt_site_g5")
+MUL = Kernel("mul", "rt_site_mul")
+AXPY = Kernel("axpy", "rt_site_axpy")
+
+
+def g5_plain(x: torch.Tensor, flip_from: int) -> torch.Tensor:
+    return torch.cat([x[:flip_from], -x[flip_from:]], dim=0)
+
+
+def site_g5(x: torch.Tensor, flip_from: int, vvl: int = 128) -> torch.Tensor:
+    """(ncomp, nsites) SoA -> the same with components >= flip_from
+    negated (gamma5 on a spinor at flip_from=12)."""
+    if x.device.type == "cpu":
+        return g5_plain(x, flip_from)
+    check_tensor("x", x, x.shape, x.device)
+    if x.dim() != 2 or not 0 <= flip_from <= x.shape[0]:
+        raise ValueError(f"site_g5: need (ncomp, nsites) and 0 <= flip_from <= "
+                         f"ncomp, got {tuple(x.shape)}, {flip_from}")
+    out = torch.empty_like(x)
+    G5.launch(x.device, x.data_ptr(), out.data_ptr(), x.shape[0], x.shape[1],
+              flip_from, vvl)
+    return out
+
+
+def site_mul(x: torch.Tensor, y: torch.Tensor, vvl: int = 128) -> torch.Tensor:
+    """x * y elementwise."""
+    if x.device.type == "cpu":
+        return x * y
+    check_tensor("x", x, x.shape, x.device)
+    check_tensor("y", y, x.shape, x.device)
+    out = torch.empty_like(x)
+    MUL.launch(x.device, x.data_ptr(), y.data_ptr(), out.data_ptr(), x.numel(), vvl)
+    return out
+
+
+def site_axpy(a: float, x: torch.Tensor, y: torch.Tensor, vvl: int = 128) -> torch.Tensor:
+    """x * a + y elementwise, a a Python float."""
+    if x.device.type == "cpu":
+        return x * a + y
+    check_tensor("x", x, x.shape, x.device)
+    check_tensor("y", y, x.shape, x.device)
+    out = torch.empty_like(x)
+    AXPY.launch(x.device, float(a), x.data_ptr(), y.data_ptr(), out.data_ptr(),
+                x.numel(), vvl)
+    return out
+
+
+# body function -> fn(ins: {arg: (ncomp, nsites) tensor}, params, vvl) -> {key: tensor}
+_CUDA_BODIES: Dict[Callable, Callable] = {}
+
+
+def register_cuda_body(body: Callable, impl: Callable) -> None:
+    """Run ``impl(ins, params, vvl)`` for ``body`` on the cuda engine."""
+    _CUDA_BODIES[body] = impl
+
+
+class TargetKernel:
+    """A site-local data-parallel kernel (the paper's __targetEntry__ unit)."""
+
+    def __init__(self, body: Callable, name: Optional[str] = None):
+        self.body = body
+        self.name = name or getattr(body, "__name__", "kernel")
+
+    def __repr__(self):  # pragma: no cover - cosmetic
+        return f"TargetKernel({self.name})"
+
+    def _run_torch(self, ins: Dict[str, Field], params: Mapping) -> Dict[str, torch.Tensor]:
+        return self.body({k: f.canonical() for k, f in ins.items()}, **dict(params))
+
+    def _run_cuda(self, ins: Dict[str, Field], params: Mapping,
+                  plan: LoweringPlan) -> Dict[str, torch.Tensor]:
+        impl = _CUDA_BODIES.get(self.body)
+        if impl is None:
+            raise ValueError(
+                f"cuda engine: no hand-written CUDA kernel is registered for "
+                f"site-local body {self.name!r} (register one with "
+                f"register_cuda_body, or use engine='torch')")
+        for k, f in ins.items():
+            require_cuda(f"input {k!r}", f.data)
+        return impl({k: f.data for k, f in ins.items()}, dict(params), plan.vvl)
+
+
+def kernel(fn: Optional[Callable] = None, *, name: Optional[str] = None):
+    """Decorator: wrap a site-local kernel body in a TargetKernel."""
+
+    def wrap(f):
+        return TargetKernel(f, name=name)
+
+    return wrap(fn) if fn is not None else wrap
+
+
+def launch(
+    kern: Union[TargetKernel, Callable],
+    ins: Dict[str, Field],
+    out_specs: Mapping[str, Union[int, tuple]],
+    *,
+    config: Optional[TargetConfig] = None,
+    params: Optional[Mapping] = None,
+    out_layouts: Optional[Mapping[str, Layout]] = None,
+) -> Dict[str, Field]:
+    """Execute a kernel over the lattice (the paper's __targetLaunch__).
+
+    ins         name -> input Field (all sharing nsites).
+    out_specs   name -> ncomp (or (ncomp, dtype)) of each output Field.
+    Returns     name -> output Field (layout = out_layouts[name] or the
+                first input's layout).
+    """
+    if not isinstance(kern, TargetKernel):
+        kern = TargetKernel(kern)
+    config = config or TargetConfig()
+    params = params or {}
+    first = next(iter(ins.values()))
+    for k, f in ins.items():
+        if f.nsites != first.nsites:
+            raise ValueError(f"all fields in one launch must share nsites; "
+                             f"{k!r} has {f.nsites}, expected {first.nsites}")
+    specs = {k: (v if isinstance(v, tuple) else (int(v), first.dtype))
+             for k, v in out_specs.items()}
+    out_layouts = dict(out_layouts or {})
+    for k in specs:
+        out_layouts.setdefault(k, first.layout)
+    plan = plan_for_launch(
+        config, first.nsites,
+        [f.layout for f in ins.values()] + [out_layouts[k] for k in specs])
+    if plan.engine == "torch":
+        outs = kern._run_torch(ins, params)
+    else:
+        outs = kern._run_cuda(ins, params, plan)
+
+    fields = {}
+    for k, (ncomp, dtype) in specs.items():
+        arr = outs[k].to(dtype)
+        if tuple(arr.shape) != (ncomp, first.nsites):
+            raise ValueError(f"kernel {kern.name!r} output {k!r} has shape "
+                             f"{tuple(arr.shape)}, declared ({ncomp}, {first.nsites})")
+        fields[k] = Field(k, ncomp, first.lattice, out_layouts[k],
+                          out_layouts[k].pack(arr))
+    return fields

@@ -1,0 +1,77 @@
+// K2: per-component sum / max over all sites of a SoA field, in two passes.
+//
+// Replaces the TPU kernel core/reduce.py::_reduce (inner kern :106,
+// pallas_call :128).  That kernel initialises a (ncomp, vvl) accumulator at
+// program 0 and read-modify-writes it from every later program, which is
+// well defined only because a Pallas grid runs in order on one core.  Here:
+//
+//   pass 1  rt_reduce_partials: block (b, c) folds sites [b*block, (b+1)*block)
+//           of component c and writes partials[b * ncomp + c];
+//   pass 2  rt_reduce_fold: one block per component folds the partial rows
+//           in a fixed order (strided per thread, then a fixed tree).
+//
+// No atomics: a fixed plan gives the same bits on every run, and max is
+// exact whatever the order.  The fused kernels (fused_flat.cu,
+// wilson_normal.cu) write partial rows of the same shape and reuse pass 2.
+//
+// Bound on the H100: bytes.  Pass 1 reads each input element once (96 B a
+// site for a 24-component field) and does one add per element; pass 2 reads
+// nblocks * ncomp partials, under 1% of pass 1 at block 128.
+
+#include "common.cuh"
+
+#define RT_FOLD_THREADS 256
+
+// Fold one value per thread over the block; the result is valid in thread 0.
+__device__ __forceinline__ float rt_block_fold(float x, int op) {
+  __shared__ float smem[RT_MAX_WARPS];
+  const int lane = threadIdx.x & 31;
+  const int warp = threadIdx.x >> 5;
+  x = rt_warp_fold(x, op);
+  if (lane == 0) smem[warp] = x;
+  __syncthreads();
+  float acc = smem[0];
+  if (threadIdx.x == 0)
+    for (int w = 1; w < (int)(blockDim.x >> 5); ++w) acc = rt_combine(acc, smem[w], op);
+  return acc;
+}
+
+__global__ void reduce_partials_kernel(const float* __restrict__ x, float* __restrict__ partials,
+                                       int ncomp, long long nsites, int op) {
+  const int c = blockIdx.y;
+  const long long s = blockIdx.x * (long long)blockDim.x + threadIdx.x;
+  const float v = s < nsites ? x[(long long)c * nsites + s] : rt_identity(op);
+  const float acc = rt_block_fold(v, op);
+  if (threadIdx.x == 0) partials[(long long)blockIdx.x * ncomp + c] = acc;
+}
+
+__global__ void reduce_fold_kernel(const float* __restrict__ partials, float* __restrict__ out,
+                                   long long nblocks, int ncomp, int op) {
+  const int c = blockIdx.x;
+  float acc = rt_identity(op);
+  for (long long k = threadIdx.x; k < nblocks; k += blockDim.x)
+    acc = rt_combine(acc, partials[k * ncomp + c], op);
+  acc = rt_block_fold(acc, op);
+  if (threadIdx.x == 0) out[c] = acc;
+}
+
+extern "C" {
+
+// x: (ncomp, nsites) SoA; partials: (ceil(nsites / block), ncomp).
+int rt_reduce_partials(const float* x, float* partials, int ncomp, long long nsites, int op,
+                       int block, cudaStream_t stream) {
+  if (nsites == 0 || ncomp == 0) return 0;
+  const dim3 grid(rt_grid(nsites, block), ncomp);
+  reduce_partials_kernel<<<grid, block, 0, stream>>>(x, partials, ncomp, nsites, op);
+  RT_LAUNCH_RESULT();
+}
+
+// partials: (nblocks, ncomp) -> out: (ncomp,).
+int rt_reduce_fold(const float* partials, float* out, long long nblocks, int ncomp, int op,
+                   cudaStream_t stream) {
+  if (ncomp == 0) return 0;
+  reduce_fold_kernel<<<ncomp, RT_FOLD_THREADS, 0, stream>>>(partials, out, nblocks, ncomp, op);
+  RT_LAUNCH_RESULT();
+}
+
+}  // extern "C"

@@ -1,0 +1,173 @@
+// The Wilson hopping term at one site, shared by dslash.cu (K4) and
+// wilson_normal.cu (K5).
+//
+//   D psi(x) = sum_mu [ (1 - gamma_mu) U_mu(x)        psi(x + mu)
+//                     + (1 + gamma_mu) U_mu^dag(x-mu) psi(x - mu) ]
+//
+// in the DeGrand-Rossi basis, as kernels/wilson_dslash/ref.py::
+// dslash_site_chunk computes it: spin-project to a half spinor, multiply by
+// the SU(3) link, reconstruct.  Storage is SoA fp32 with split re/im:
+//   spinor  (24, V): component (spin*3 + color)*2 + reim
+//   gauge   (72, V): component ((mu*3 + a)*3 + b)*2 + reim
+// over a periodic (X, Y, Z, T) lattice, site = ((x*Y + y)*Z + z)*T + t.
+//
+// The neighbours are found by periodic index arithmetic, so neither the
+// 192-component neighbour pack nor the backward-link copy of the TPU path
+// (ops.py:53-54) is ever materialised: each thread reads its 8 neighbour
+// spinors and 4 backward links straight from psi and u.
+#pragma once
+
+#include "common.cuh"
+
+struct rt_cplx {
+  float re, im;
+};
+
+__device__ __forceinline__ rt_cplx rt_cadd(rt_cplx a, rt_cplx b) { return {a.re + b.re, a.im + b.im}; }
+__device__ __forceinline__ rt_cplx rt_csub(rt_cplx a, rt_cplx b) { return {a.re - b.re, a.im - b.im}; }
+
+// Multiply by a unit: 0 -> +1, 1 -> -1, 2 -> +i, 3 -> -i (exact in fp32).
+__device__ __forceinline__ rt_cplx rt_unit(rt_cplx a, int k) {
+  switch (k) {
+    case 0: return a;
+    case 1: return {-a.re, -a.im};
+    case 2: return {-a.im, a.re};
+    default: return {a.im, -a.re};
+  }
+}
+
+#define RT_ONE 0
+#define RT_MONE 1
+#define RT_I 2
+#define RT_MI 3
+
+// The projector (1 - gamma_mu) keeps h0 = p0 + A0 p[J0], h1 = p1 + A1 p[J1];
+// (1 + gamma_mu) negates A.  Reconstruction of (1 - gamma_mu) psi sets
+// row 2 = B2 h[K2], row 3 = B3 h[K3]; (1 + gamma_mu) negates B.  The tables
+// are su3.project_minus / reconstruct_minus of the reference, per mu.
+template <int MU> struct rt_gamma;
+template <> struct rt_gamma<0> {  // x
+  enum { J0 = 3, A0 = RT_MI, J1 = 2, A1 = RT_MI, K2 = 1, B2 = RT_I, K3 = 0, B3 = RT_I };
+};
+template <> struct rt_gamma<1> {  // y
+  enum { J0 = 3, A0 = RT_ONE, J1 = 2, A1 = RT_MONE, K2 = 1, B2 = RT_MONE, K3 = 0, B3 = RT_ONE };
+};
+template <> struct rt_gamma<2> {  // z
+  enum { J0 = 2, A0 = RT_MI, J1 = 3, A1 = RT_I, K2 = 0, B2 = RT_I, K3 = 1, B3 = RT_MI };
+};
+template <> struct rt_gamma<3> {  // t
+  enum { J0 = 2, A0 = RT_MONE, J1 = 3, A1 = RT_MONE, K2 = 0, B2 = RT_MONE, K3 = 1, B3 = RT_MONE };
+};
+
+// The negated unit: +1 <-> -1, +i <-> -i.
+__device__ __forceinline__ int rt_neg_unit(int k) { return k ^ 1; }
+
+__device__ __forceinline__ rt_cplx rt_load_c(const float* __restrict__ f, int comp,
+                                             long long V, long long site) {
+  return {__ldg(f + (long long)(2 * comp) * V + site), __ldg(f + (long long)(2 * comp + 1) * V + site)};
+}
+
+// Upper two spin rows of (1 -/+ gamma_mu) psi(site): h[s][color].
+template <int MU, bool PLUS>
+__device__ __forceinline__ void rt_project(const float* __restrict__ psi, long long V,
+                                           long long site, rt_cplx (&h)[2][3]) {
+  typedef rt_gamma<MU> G;
+  const int a0 = PLUS ? rt_neg_unit(G::A0) : G::A0;
+  const int a1 = PLUS ? rt_neg_unit(G::A1) : G::A1;
+#pragma unroll
+  for (int c = 0; c < 3; ++c) {
+    h[0][c] = rt_cadd(rt_load_c(psi, 0 * 3 + c, V, site), rt_unit(rt_load_c(psi, G::J0 * 3 + c, V, site), a0));
+    h[1][c] = rt_cadd(rt_load_c(psi, 1 * 3 + c, V, site), rt_unit(rt_load_c(psi, G::J1 * 3 + c, V, site), a1));
+  }
+}
+
+// out[s][a] = sum_b U[a][b] h[s][b]      (ADJ = false)
+// out[s][a] = sum_b conj(U[b][a]) h[s][b] (ADJ = true)
+// with U the link of direction MU at `site`.
+template <int MU, bool ADJ>
+__device__ __forceinline__ void rt_su3_mult(const float* __restrict__ u, long long V,
+                                            long long site, const rt_cplx (&h)[2][3],
+                                            rt_cplx (&out)[2][3]) {
+  rt_cplx m[3][3];
+#pragma unroll
+  for (int a = 0; a < 3; ++a)
+#pragma unroll
+    for (int b = 0; b < 3; ++b) m[a][b] = rt_load_c(u, (MU * 3 + a) * 3 + b, V, site);
+#pragma unroll
+  for (int s = 0; s < 2; ++s)
+#pragma unroll
+    for (int a = 0; a < 3; ++a) {
+      float re = 0.0f, im = 0.0f;
+#pragma unroll
+      for (int b = 0; b < 3; ++b) {
+        const rt_cplx w = ADJ ? m[b][a] : m[a][b];
+        const rt_cplx v = h[s][b];
+        if (ADJ) {  // conj(w) * v
+          re += w.re * v.re + w.im * v.im;
+          im += w.re * v.im - w.im * v.re;
+        } else {
+          re += w.re * v.re - w.im * v.im;
+          im += w.re * v.im + w.im * v.re;
+        }
+      }
+      out[s][a] = {re, im};
+    }
+}
+
+// acc += (1 - gamma_mu) U_mu(site) psi(fwd) + (1 + gamma_mu) U_mu^dag(bwd) psi(bwd).
+template <int MU>
+__device__ __forceinline__ void rt_hop_dir(const float* __restrict__ psi,
+                                           const float* __restrict__ u, long long V,
+                                           long long site, long long fwd, long long bwd,
+                                           rt_cplx (&acc)[4][3]) {
+  typedef rt_gamma<MU> G;
+  rt_cplx h[2][3], uh[2][3], hb[2][3], uhb[2][3];
+  rt_project<MU, false>(psi, V, fwd, h);
+  rt_su3_mult<MU, false>(u, V, site, h, uh);
+  rt_project<MU, true>(psi, V, bwd, hb);
+  rt_su3_mult<MU, true>(u, V, bwd, hb, uhb);
+#pragma unroll
+  for (int c = 0; c < 3; ++c) {
+    acc[0][c] = rt_cadd(acc[0][c], rt_cadd(uh[0][c], uhb[0][c]));
+    acc[1][c] = rt_cadd(acc[1][c], rt_cadd(uh[1][c], uhb[1][c]));
+    // B*x + (-B)*y == B*(x - y) exactly: units multiply exactly
+    acc[2][c] = rt_cadd(acc[2][c], rt_unit(rt_csub(uh[G::K2][c], uhb[G::K2][c]), G::B2));
+    acc[3][c] = rt_cadd(acc[3][c], rt_unit(rt_csub(uh[G::K3][c], uhb[G::K3][c]), G::B3));
+  }
+}
+
+struct rt_lattice {
+  int X, Y, Z, T;
+};
+
+// D psi at `site` into d[24] (component order of the spinor field).
+__device__ __forceinline__ void rt_wilson_hop(const float* __restrict__ psi,
+                                              const float* __restrict__ u, rt_lattice L,
+                                              long long site, float (&d)[24]) {
+  const long long V = (long long)L.X * L.Y * L.Z * L.T;
+  const long long st = 1, sz = L.T, sy = (long long)L.Z * L.T, sx = (long long)L.Y * sy;
+  const int t = (int)(site % L.T);
+  const int z = (int)((site / sz) % L.Z);
+  const int y = (int)((site / sy) % L.Y);
+  const int x = (int)(site / sx);
+  rt_cplx acc[4][3];
+#pragma unroll
+  for (int s = 0; s < 4; ++s)
+#pragma unroll
+    for (int c = 0; c < 3; ++c) acc[s][c] = {0.0f, 0.0f};
+  rt_hop_dir<0>(psi, u, V, site, site + (x == L.X - 1 ? -(L.X - 1) * sx : sx),
+                site - (x == 0 ? -(L.X - 1) * sx : sx), acc);
+  rt_hop_dir<1>(psi, u, V, site, site + (y == L.Y - 1 ? -(L.Y - 1) * sy : sy),
+                site - (y == 0 ? -(L.Y - 1) * sy : sy), acc);
+  rt_hop_dir<2>(psi, u, V, site, site + (z == L.Z - 1 ? -(L.Z - 1) * sz : sz),
+                site - (z == 0 ? -(L.Z - 1) * sz : sz), acc);
+  rt_hop_dir<3>(psi, u, V, site, site + (t == L.T - 1 ? -(L.T - 1) * st : st),
+                site - (t == 0 ? -(L.T - 1) * st : st), acc);
+#pragma unroll
+  for (int s = 0; s < 4; ++s)
+#pragma unroll
+    for (int c = 0; c < 3; ++c) {
+      d[(s * 3 + c) * 2] = acc[s][c].re;
+      d[(s * 3 + c) * 2 + 1] = acc[s][c].im;
+    }
+}

@@ -1,0 +1,89 @@
+// K5: the fused normal operator of the CG solve,
+//
+//   t  = g5(p - kappa D p)
+//   ap = g5(t - kappa D t)          (= M^dag M p)
+//   pap[c] = sum_sites p[c] * ap[c]
+//
+// Replaces the TPU kernel core/fuse.py::LaunchGraph._build_nd (inner
+// fused_kernel :1721, tail finish_tile :1697, pallas_call :1914) for the
+// wilson_normal graph of apps/milc/cg.py.  The TPU kernel stages the whole
+// ring-2 halo'd lattice in VMEM and recomputes t on the halo ring so both
+// dslash stages run in one program (fuse.py:1741-1779).  A Hopper block has
+// at most 227 KB of shared memory and blocks cannot see each other's
+// results, so neither is possible here.  The simple design is two launches
+// that share K4's site function (wilson.cuh) with periodic indexing:
+//
+//   rt_wilson_normal_t   writes t to a scratch spinor;
+//   rt_wilson_normal_ap  writes ap and the per-block partials of p . ap,
+//                        which reduce.cu's pass 2 folds (no atomics).
+//
+// No halo copy is made.  Bound on the H100: bytes.  Compulsory traffic is
+// p + u in, ap out: 480 B a site.  This design also writes and re-reads t
+// (a further 192 B a site) and reads u twice; removing that round trip is
+// the first thing a later PR does.
+
+#include "wilson.cuh"
+
+__device__ __forceinline__ float rt_g5_sign(int c) { return c >= 12 ? -1.0f : 1.0f; }
+
+__global__ void wilson_normal_t_kernel(const float* __restrict__ p, const float* __restrict__ u,
+                                       float* __restrict__ t, float kappa, rt_lattice L) {
+  const long long V = (long long)L.X * L.Y * L.Z * L.T;
+  const long long s = blockIdx.x * (long long)blockDim.x + threadIdx.x;
+  if (s >= V) return;
+  float d[24];
+  rt_wilson_hop(p, u, L, s, d);
+#pragma unroll
+  for (int c = 0; c < 24; ++c) {
+    const long long i = (long long)c * V + s;
+    t[i] = rt_g5_sign(c) * (p[i] - kappa * d[c]);
+  }
+}
+
+__global__ void wilson_normal_ap_kernel(const float* __restrict__ p, const float* __restrict__ t,
+                                        const float* __restrict__ u, float* __restrict__ ap,
+                                        float* __restrict__ partials, float kappa,
+                                        rt_lattice L) {
+  const long long V = (long long)L.X * L.Y * L.Z * L.T;
+  const long long s = blockIdx.x * (long long)blockDim.x + threadIdx.x;
+  float prod[24];
+#pragma unroll
+  for (int c = 0; c < 24; ++c) prod[c] = 0.0f;
+  if (s < V) {
+    float d[24];
+    rt_wilson_hop(t, u, L, s, d);
+#pragma unroll
+    for (int c = 0; c < 24; ++c) {
+      const long long i = (long long)c * V + s;
+      const float a = rt_g5_sign(c) * (t[i] - kappa * d[c]);
+      ap[i] = a;
+      prod[c] = p[i] * a;
+    }
+  }
+  rt_block_partials<24>(prod, RT_OP_SUM, partials);
+}
+
+extern "C" {
+
+// p, t: (24, V) SoA; u: (72, V) SoA.
+int rt_wilson_normal_t(const float* p, const float* u, float* t, float kappa, int X, int Y,
+                       int Z, int T, int block, cudaStream_t stream) {
+  const long long V = (long long)X * Y * Z * T;
+  if (V == 0) return 0;
+  wilson_normal_t_kernel<<<rt_grid(V, block), block, 0, stream>>>(p, u, t, kappa,
+                                                                   rt_lattice{X, Y, Z, T});
+  RT_LAUNCH_RESULT();
+}
+
+// p, t, ap: (24, V) SoA; u: (72, V) SoA; partials: (ceil(V / block), 24).
+int rt_wilson_normal_ap(const float* p, const float* t, const float* u, float* ap,
+                        float* partials, float kappa, int X, int Y, int Z, int T, int block,
+                        cudaStream_t stream) {
+  const long long V = (long long)X * Y * Z * T;
+  if (V == 0) return 0;
+  wilson_normal_ap_kernel<<<rt_grid(V, block), block, 0, stream>>>(
+      p, t, u, ap, partials, kappa, rt_lattice{X, Y, Z, T});
+  RT_LAUNCH_RESULT();
+}
+
+}  // extern "C"

@@ -1,0 +1,95 @@
+"""The port's CUDA kernels against their plain PyTorch versions, on the card.
+
+Every test here needs a CUDA card: it carries the ``cuda`` marker and skips
+(inside the ``card`` fixture) when ``torch.cuda.is_available()`` is false.
+The file imports no JAX, so it runs where only PyTorch is installed::
+
+    PYTHONPATH=src python -m pytest -q -m cuda tests/test_torch_cuda.py
+"""
+
+import pytest
+
+torch = pytest.importorskip("torch")
+
+import numpy as np  # noqa: E402
+
+from repro_torch.apps.milc import MilcConfig, fields, init_problem, residual_check, solve  # noqa: E402
+from repro_torch.core import TargetConfig, fuse, reduce, target  # noqa: E402
+from repro_torch.kernels.wilson_dslash import kernel as K  # noqa: E402
+
+FIELD_RTOL = 1e-5  # max|kernel - plain| <= FIELD_RTOL * max|plain|
+SUM_RTOL = 1e-5    # |kernel - plain| <= SUM_RTOL * sum|terms|
+
+
+@pytest.fixture
+def card():
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA card (torch.cuda.is_available() is false)")
+    return torch.device("cuda")
+
+
+def _close_field(got, want):
+    assert (got - want).abs().max() <= FIELD_RTOL * want.abs().max()
+
+
+def _close_sum(got, want, terms):
+    assert bool(((got - want).abs() <= SUM_RTOL * terms.abs().sum(dim=-1)).all())
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("nsites,vvl", [(4096, 128), (480, 32), (1000, 64)])
+def test_site_and_reduce_kernels(card, nsites, vvl, rng):
+    x, y = (torch.from_numpy(rng.normal(size=(24, nsites)).astype(np.float32)).to(card)
+            for _ in range(2))
+    a = torch.tensor(0.3, device=card)
+    assert torch.equal(target.site_g5(x, 12, vvl), target.g5_plain(x, 12))
+    assert torch.equal(target.site_mul(x, y, vvl), x * y)
+    _close_field(target.site_axpy(0.5, x, y, vvl), x * 0.5 + y)
+    assert torch.equal(reduce.reduce_sites(x, "max", vvl), x.amax(dim=1))
+    _close_sum(reduce.reduce_sites(x, "sum", vvl), x.sum(dim=1), x)
+    # a fixed plan gives the same bits on every run (no atomics)
+    assert torch.equal(reduce.reduce_sites(x, "sum", vvl), reduce.reduce_sites(x, "sum", vvl))
+    x_new, r_new, rr = fuse.cg_update(x, y, y, x, a, -a, vvl)
+    w = fuse.cg_update_plain(x, y, y, x, a, -a)
+    _close_field(x_new, w[0])
+    _close_field(r_new, w[1])
+    _close_sum(rr, w[2], w[1] * w[1])
+    _close_field(fuse.cg_xpay(x, y, a, vvl), y + a * x)
+
+
+@pytest.mark.cuda
+def test_wrappers_refuse_what_they_do_not_take(card):
+    x = torch.zeros((24, 256), device=card)
+    with pytest.raises(ValueError, match="float32"):
+        target.site_mul(x.double(), x.double())
+    with pytest.raises(ValueError, match="contiguous"):
+        target.site_mul(x.T, x.T)
+    with pytest.raises(ValueError, match="shape"):
+        K.dslash_cuda(x, torch.zeros((72, 128), device=card), (4, 4, 4, 4))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("lat", [(4, 4, 4, 4), (2, 6, 4, 10), (1, 3, 5, 8)])
+def test_wilson_kernels(card, lat, rng):
+    V = int(np.prod(lat))
+    psi = torch.from_numpy(rng.normal(size=(24, V)).astype(np.float32)).to(card)
+    u = torch.from_numpy(fields.random_su3_gauge(lat, seed=1).reshape(72, -1)).to(card)
+    _close_field(K.dslash_cuda(psi, u, lat, vvl=32), K.dslash_plain(psi, u, lat))
+    ap, pap = K.wilson_normal_cuda(psi, u, 0.12, lat, vvl=32)
+    ap2, pap2 = K.wilson_normal_plain(psi, u, 0.12, lat)
+    _close_field(ap, ap2)
+    _close_sum(pap, pap2, psi * ap2)
+
+
+@pytest.mark.cuda
+def test_cuda_engine_solve_matches_torch_engine(card):
+    kw = dict(lattice=(4, 4, 4, 8), kappa=0.10, tol=1e-10, max_iter=2000)
+    cfg = MilcConfig(target=TargetConfig("cuda", device="cuda"), **kw)
+    tcfg = MilcConfig(target=TargetConfig("torch", device="cuda"), **kw)
+    u, b = init_problem(cfg)
+    launches = fuse.CG_UPDATE.launches
+    rc, rt = solve(cfg, u, b), solve(tcfg, u, b)
+    assert fuse.CG_UPDATE.launches - launches == rc.iterations
+    assert abs(rc.iterations - rt.iterations) <= 1
+    assert (torch.linalg.norm(rc.x.data - rt.x.data) / torch.linalg.norm(rt.x.data)) < 1e-5
+    assert residual_check(cfg, u, b, rc.x) < 1e-3
