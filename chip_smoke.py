@@ -1,6 +1,8 @@
-"""Drive the PyTorch/CUDA port of the MILC Wilson-CG solve on one GPU.
+"""Drive the PyTorch/CUDA port on one GPU: the MILC Wilson-CG solve and the
+Ludwig LC-LB timestep.
 
     python3 chip_smoke.py [--lattice X Y Z T] [--small X Y Z T]
+                          [--ludwig X Y Z] [--ludwig-small X Y Z]
 
 Phases (any failure raises and exits non-zero; nothing is caught):
 
@@ -8,7 +10,7 @@ Phases (any failure raises and exits non-zero; nothing is caught):
 2. build the hand-written kernels (src/repro_torch/csrc, one nvcc call)
    while the host generates the problem (random SU(3) gauge field and
    source at ``--lattice``, default (64, 64, 64, 32));
-3. hold every kernel against its plain PyTorch version on the card at
+3. hold every MILC kernel against its plain PyTorch version on the card at
    that lattice and time both (CUDA events, median of several runs);
 4. with every launch count set to 0, solve M x = b on the "cuda" engine
    (kappa 0.12, hot 0.6, tol 1e-10, max_iter 2000), check
@@ -16,7 +18,22 @@ Phases (any failure raises and exits non-zero; nothing is caught):
 5. at ``--small`` (default (16, 16, 16, 16)) solve on the "cuda" and the
    "torch" engine, both on the card: iterations within +-1, x within
    rel-L2 1e-4;
-6. print the kernel table as one JSON line, then the result line.
+L1. Ludwig ``init_state`` at ``--ludwig`` (default (256, 256, 256), the
+   ludwig_small lattice of benchmarks/fig5_scaling.py) on the card;
+L2. every Ludwig kernel against its plain version there, timed as in 3;
+L3. with every launch count set to 0: ``diagnostics``, 10 ``step``s and one
+   ``step_timed`` on the "cuda" engine, ``diagnostics`` again; check that
+   every value is finite, the mass drifts by less than 1e-4 relative, the
+   free energy does not rise, and every kernel of the step launched;
+L4. with every count set to 0: the paper's unfused LB half-step
+   ``propagate(collide(d, f))`` against the fused ``collide_propagate(d, f)``
+   (benchmarks/fig3_kernels.py:244-247), both timed; dist2 must agree
+   bitwise and the collision and propagation kernels must have launched;
+L5. at ``--ludwig-small`` (default (32, 32, 32)) 5 steps on the "cuda" and
+   the "torch" engine, both on the card: q and dist within rtol 1e-4,
+   atol 1e-6;
+6. print the kernel table of both applications as one JSON line, then the
+   result line.
 """
 
 from __future__ import annotations
@@ -36,9 +53,17 @@ import torch
 sys.path.insert(0, os.path.join(os.path.dirname(os.path.abspath(__file__)), "src"))
 
 from repro_torch import _cuda  # noqa: E402
+from repro_torch.apps.ludwig import LudwigConfig, init_state, step  # noqa: E402
+from repro_torch.apps.ludwig import driver as ludwig  # noqa: E402
+from repro_torch.apps.ludwig import kernel as lk  # noqa: E402
 from repro_torch.apps.milc import MilcConfig, init_problem, residual_check, solve  # noqa: E402
-from repro_torch.core import TargetConfig  # noqa: E402
+from repro_torch.core import Field, TargetConfig  # noqa: E402
 from repro_torch.core import fuse, reduce, target  # noqa: E402
+from repro_torch.kernels.lb_collision import collide  # noqa: E402
+from repro_torch.kernels.lb_collision import kernel as k7  # noqa: E402
+from repro_torch.kernels.lb_propagation import kernel as k8  # noqa: E402
+from repro_torch.kernels.lb_propagation import propagate  # noqa: E402
+from repro_torch.kernels.lb_propagation.ops import collide_propagate  # noqa: E402
 from repro_torch.kernels.wilson_dslash import kernel as wk  # noqa: E402
 
 HBM_BYTES_PER_S = 3.35e12   # H100 SXM data sheet
@@ -46,10 +71,17 @@ FP32_FLOP_PER_S = 67e12     # H100 SXM data sheet, fp32 outside the tensor cores
 FIELD_RTOL = 1e-5           # fields: max|kernel - plain| <= FIELD_RTOL * max|plain|
 SUM_RTOL = 1e-5             # sums: |kernel - plain| <= SUM_RTOL * sum|terms| per component
 KAPPA, HOT, TOL, MAX_ITER = 0.12, 0.6, 1e-10, 2000
+LUDWIG_STEPS = 10
+MASS_DRIFT = 1e-4            # |mass after - mass before| / mass before
+ENGINE_RTOL, ENGINE_ATOL = 1e-4, 1e-6   # Ludwig cuda vs torch engine, 5 steps
 
 KERNELS = [target.G5, target.MUL, target.AXPY, reduce.REDUCE_SUM,
            reduce.REDUCE_MAX, reduce.REDUCE_FOLD, fuse.CG_UPDATE, fuse.CG_XPAY,
-           wk.DSLASH, wk.WILSON_NORMAL_T, wk.WILSON_NORMAL_AP]
+           wk.DSLASH, wk.WILSON_NORMAL_T, wk.WILSON_NORMAL_AP, k7.COLLIDE,
+           k8.PROPAGATE, k8.LB_STEP, lk.CHEM_STRESS, lk.LC_UPDATE, lk.FED]
+
+# flops a site, counted from the sources (all these kernels are bound by bytes)
+FLOPS = {"collide": 450, "lb_step": 462, "chem_stress": 600, "lc_update": 320, "fed": 160}
 
 # the solve's path: name -> (counters, source, TPU kernel it replaces)
 PATH = {
@@ -62,6 +94,24 @@ PATH = {
     "dslash": ([wk.DSLASH], "dslash.cu", "src/repro/kernels/wilson_dslash/kernel.py:27"),
     "wilson_normal": ([wk.WILSON_NORMAL_T, wk.WILSON_NORMAL_AP], "wilson_normal.cu",
                       "src/repro/core/fuse.py:1721"),
+}
+
+# the Ludwig step's path (diagnostics, steps, step_timed): same layout
+LUDWIG_PATH = {
+    "lb_step": ([k8.LB_STEP], "lb.cu", "src/repro/core/fuse.py:1721"),
+    "ludwig_chem_stress": ([lk.CHEM_STRESS], "ludwig_flat.cu", "src/repro/core/fuse.py:1411"),
+    "ludwig_lc_update": ([lk.LC_UPDATE], "ludwig_flat.cu", "src/repro/core/fuse.py:1411"),
+    "ludwig_fed": ([lk.FED], "ludwig_flat.cu", "src/repro/core/target.py:387"),
+    "ludwig_reduce_sum": ([reduce.REDUCE_SUM], "reduce.cu", "src/repro/core/reduce.py:106"),
+    "ludwig_reduce_fold": ([reduce.REDUCE_FOLD], "reduce.cu", "src/repro/core/reduce.py:106"),
+}
+
+# the paper's unfused-versus-fused LB exhibit (collide, propagate,
+# collide_propagate)
+LB_EXHIBIT_PATH = {
+    "lb_collide": ([k7.COLLIDE], "lb.cu", "src/repro/kernels/lb_collision/kernel.py:30"),
+    "lb_propagate": ([k8.PROPAGATE], "lb.cu", "src/repro/kernels/lb_propagation/kernel.py:30"),
+    "lb_collide_propagate": ([k8.LB_STEP], "lb.cu", "src/repro/core/fuse.py:1721"),
 }
 
 
@@ -115,6 +165,26 @@ def bound(nbytes: float, flops: float):
     return (tb, "bytes") if tb >= tf else (tf, "operations")
 
 
+def add_row(rows, name, err, ms, plain_ms, nbytes, flops, library_ms=None):
+    """One kernel's measured row: its error against the plain version, its
+    time, the plain version's, its bound and the library call's time."""
+    b_ms, b_by = bound(nbytes, flops)
+    rows[name] = dict(max_abs_err=err, ms=ms, plain_ms=plain_ms, bound_ms=b_ms,
+                      bound_by=b_by, library_ms=library_ms)
+    log(f"  {name:20s} err {err:.3e}  {ms:.4f} ms  plain {plain_ms:.4f} ms  "
+        f"bound {b_ms:.4f} ms ({b_by})"
+        + (f"  library {library_ms:.4f} ms" if library_ms is not None else ""))
+
+
+def reset_counts():
+    for k in KERNELS:
+        k.launches = 0
+
+
+def path_counts(path):
+    return {name: sum(k.launches for k in ks) for name, (ks, _, _) in path.items()}
+
+
 def check_kernels(u, b, lattice, vvl):
     """Phase 3: every kernel against its plain version at the path's shapes."""
     V = math.prod(lattice)
@@ -126,13 +196,8 @@ def check_kernels(u, b, lattice, vvl):
     neg_alpha = -alpha
     rows = {}
 
-    def row(name, err, ms, plain_ms, nbytes, flops, library_ms=None):
-        b_ms, b_by = bound(nbytes, flops)
-        rows[name] = dict(max_abs_err=err, ms=ms, plain_ms=plain_ms, bound_ms=b_ms,
-                          bound_by=b_by, library_ms=library_ms)
-        log(f"  {name:14s} err {err:.3e}  {ms:.4f} ms  plain {plain_ms:.4f} ms  "
-            f"bound {b_ms:.4f} ms ({b_by})"
-            + (f"  library {library_ms:.4f} ms" if library_ms is not None else ""))
+    def row(*a, **kw):
+        add_row(rows, *a, **kw)
 
     err = exact_err(target.site_g5(psi, 12, vvl), target.g5_plain(psi, 12), "g5")
     row("g5", err, time_ms(lambda: target.site_g5(psi, 12, vvl)),
@@ -197,6 +262,185 @@ def check_kernels(u, b, lattice, vvl):
     return rows
 
 
+def check_ludwig_kernels(state, cfg, vvl):
+    """L2: every Ludwig kernel against its plain version at the step's
+    shapes: the state's q and its gradients, dist perturbed off equilibrium
+    and a small force, w, h and adv."""
+    lat = cfg.lattice
+    V = math.prod(lat)
+    dev = state.q.data.device
+    gen = torch.Generator(device=dev).manual_seed(2)
+
+    def randn(rows, scale):
+        return scale * torch.randn((rows, V), generator=gen, device=dev)
+
+    tau = cfg.tau
+    dist = state.dist.data * (1.0 + randn(19, 0.05))
+    force = randn(3, 1e-3)
+    q = state.q.data
+    dq_nd, lapq_nd = ludwig.stage_gradients(state.q.canonical_nd())
+    dq, lapq = dq_nd.reshape(15, V), lapq_nd.reshape(5, V)
+    h, w, adv = randn(5, 1e-3), randn(9, 1e-3), randn(5, 1e-4)
+    rows = {}
+
+    def row(*a, **kw):
+        add_row(rows, *a, **kw)
+
+    def slow(fn):
+        return time_ms(fn, reps=3, warm=1)
+
+    c = k7.collide_cuda(dist, force, tau, vvl)
+    err = field_err(c, k7.collide_plain(dist, force, tau), "lb_collide")
+    row("lb_collide", err, time_ms(lambda: k7.collide_cuda(dist, force, tau, vvl)),
+        slow(lambda: k7.collide_plain(dist, force, tau)), 164 * V, FLOPS["collide"] * V)
+
+    p = k8.propagate_cuda(c, lat, vvl)
+    err = exact_err(p, k8.propagate_plain(c, lat), "lb_propagate")
+    row("lb_propagate", err, time_ms(lambda: k8.propagate_cuda(c, lat, vvl)),
+        slow(lambda: k8.propagate_plain(c, lat)), 152 * V, 0)
+
+    d2, u = k8.lb_step_cuda(dist, force, tau, lat, vvl)
+    want2, want_u = k8.lb_step_plain(dist, force, tau, lat)
+    err = max(field_err(d2, want2, "lb_step dist2"), field_err(u, want_u, "lb_step u"))
+    exact_err(d2, p, "lb_step dist2 against propagate(collide)")
+    row("lb_step", err, time_ms(lambda: k8.lb_step_cuda(dist, force, tau, lat, vvl)),
+        slow(lambda: k8.lb_step_plain(dist, force, tau, lat)), 176 * V,
+        FLOPS["lb_step"] * V)
+
+    d3, _ = k8.lb_step_cuda(dist, force, tau, lat, vvl, with_u=False)
+    err = field_err(d3, want2, "lb_collide_propagate")
+    exact_err(d3, d2, "lb_collide_propagate against lb_step")
+    row("lb_collide_propagate", err,
+        time_ms(lambda: k8.lb_step_cuda(dist, force, tau, lat, vvl, with_u=False)),
+        slow(lambda: k8.lb_step_plain(dist, force, tau, lat, with_u=False)), 164 * V,
+        FLOPS["collide"] * V)
+    del c, p, d2, u, want2, want_u, d3
+
+    kw = dict(a0=cfg.a0, gamma=cfg.gamma, kappa_m=cfg.kappa, kappa_s=cfg.kappa, xi=cfg.xi)
+    got = lk.chem_stress_cuda(q, lapq, dq, vvl=vvl, **kw)
+    want = lk.chem_stress_plain(q, lapq, dq, **kw)
+    err = max(field_err(got[0], want[0], "chem_stress h"),
+              field_err(got[1], want[1], "chem_stress sigma"))
+    row("ludwig_chem_stress", err, time_ms(lambda: lk.chem_stress_cuda(q, lapq, dq, vvl=vvl, **kw)),
+        slow(lambda: lk.chem_stress_plain(q, lapq, dq, **kw)), 156 * V,
+        FLOPS["chem_stress"] * V)
+
+    kw = dict(gamma_rot=cfg.gamma_rot, xi=cfg.xi, dt=cfg.dt)
+    err = field_err(lk.lc_update_cuda(q, h, w, adv, vvl=vvl, **kw),
+                    lk.lc_update_plain(q, h, w, adv, **kw), "lc_update")
+    row("ludwig_lc_update", err, time_ms(lambda: lk.lc_update_cuda(q, h, w, adv, vvl=vvl, **kw)),
+        slow(lambda: lk.lc_update_plain(q, h, w, adv, **kw)), 116 * V,
+        FLOPS["lc_update"] * V)
+
+    kw = dict(a0=cfg.a0, gamma=cfg.gamma, kappa=cfg.kappa)
+    err = field_err(lk.fed_cuda(q, dq, vvl=vvl, **kw), lk.fed_plain(q, dq, **kw), "fed")
+    row("ludwig_fed", err, time_ms(lambda: lk.fed_cuda(q, dq, vvl=vvl, **kw)),
+        slow(lambda: lk.fed_plain(q, dq, **kw)), 84 * V, FLOPS["fed"] * V)
+
+    err = sum_err(reduce.reduce_sites(dist, "sum", vvl), reduce.reduce_plain(dist, "sum"),
+                  dist, "reduce_sum of dist")
+    row("ludwig_reduce_sum", err, time_ms(lambda: reduce.reduce_sites(dist, "sum", vvl)),
+        time_ms(lambda: reduce.reduce_plain(dist, "sum")), 76 * V, 19 * V,
+        library_ms=time_ms(lambda: torch.sum(dist, dim=1)))
+
+    partials = torch.randn((-(-V // vvl), 19), generator=gen, device=dev)
+    err = sum_err(reduce.fold_partials(partials, "sum"), partials.sum(dim=0),
+                  partials.T, "reduce_fold of the dist partials")
+    row("ludwig_reduce_fold", err, time_ms(lambda: reduce.fold_partials(partials, "sum")),
+        time_ms(lambda: partials.sum(dim=0)), partials.numel() * 4 + 76,
+        partials.numel(), library_ms=time_ms(lambda: torch.sum(partials, dim=0)))
+    del dist, force, dq, lapq, dq_nd, lapq_nd, h, w, adv, got, want, partials
+    torch.cuda.empty_cache()
+    return rows
+
+
+def run_ludwig(state, cfg):
+    """L3: diagnostics, LUDWIG_STEPS steps and one step_timed on the cuda
+    engine, diagnostics again; returns the last state and the path's
+    launch counts."""
+    reset_counts()
+    d0 = ludwig.diagnostics(state, cfg)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    s = state
+    for _ in range(LUDWIG_STEPS):
+        s = step(s, cfg)
+    torch.cuda.synchronize()
+    step_s = (time.perf_counter() - t0) / LUDWIG_STEPS
+    s, stages = ludwig.step_timed(s, cfg)
+    d1 = ludwig.diagnostics(s, cfg)
+    counts = path_counts(LUDWIG_PATH)
+    m0, m1 = float(d0["mass"]), float(d1["mass"])
+    fe0, fe1 = float(d0["free_energy"]), float(d1["free_energy"])
+    log(f"ludwig {cfg.lattice} on {cfg.target.engine}: {step_s * 1e3:.3f} ms/step over {LUDWIG_STEPS} "
+        f"steps; mass {m0!r} -> {m1!r} (drift {abs(m1 - m0) / m0:.3e}), free energy "
+        f"{fe0!r} -> {fe1!r}, momentum {d1['momentum'].tolist()}")
+    total = sum(stages.values())
+    log("step_timed (ms): " + ", ".join(f"{k} {v * 1e3:.3f}" for k, v in stages.items())
+        + f"; sum {total * 1e3:.3f}")
+    log(f"launches on the step's path: {counts}")
+    log(f"max memory allocated: {torch.cuda.max_memory_allocated() / 2**30:.2f} GiB")
+    for name, t in (("q", s.q.data), ("dist", s.dist.data)):
+        if not torch.isfinite(t).all():
+            raise AssertionError(f"ludwig {name} has non-finite values")
+    for k, v in list(d0.items()) + list(d1.items()):
+        if not torch.isfinite(v).all():
+            raise AssertionError(f"ludwig diagnostic {k} is not finite")
+    if not abs(m1 - m0) / m0 < MASS_DRIFT:
+        raise AssertionError(f"mass drifted from {m0} to {m1}")
+    if not fe1 <= fe0:
+        raise AssertionError(f"free energy rose from {fe0} to {fe1}")
+    idle = [n for n, c in counts.items() if c == 0]
+    if idle:
+        raise AssertionError(f"kernels of the step's path never launched: {idle}")
+    return s, counts, step_s
+
+
+def lb_exhibit(state, cfg):
+    """L4: propagate(collide(d, f)) against collide_propagate(d, f) through
+    the public entry points on the cuda engine."""
+    reset_counts()
+    V = math.prod(cfg.lattice)
+    gen = torch.Generator(device=state.dist.data.device).manual_seed(3)
+    force = Field.from_canonical(
+        "force", 1e-3 * torch.randn((3, V), generator=gen, device=state.dist.data.device),
+        cfg.lattice)
+    d, tgt, tau = state.dist, cfg.target, cfg.tau
+    unfused = propagate(collide(d, force, tau=tau, config=tgt), config=tgt)
+    fused = collide_propagate(d, force, tau=tau, config=tgt)
+    exact_err(fused.data, unfused.data, "collide_propagate against propagate(collide)")
+    t_unfused = time_ms(lambda: propagate(collide(d, force, tau=tau, config=tgt), config=tgt))
+    t_fused = time_ms(lambda: collide_propagate(d, force, tau=tau, config=tgt))
+    counts = path_counts(LB_EXHIBIT_PATH)
+    log(f"LB half-step {cfg.lattice}: unfused propagate(collide) {t_unfused:.4f} ms, fused "
+        f"collide_propagate {t_fused:.4f} ms, dist2 bitwise equal; launches {counts}")
+    idle = [n for n, c in counts.items() if c == 0]
+    if idle:
+        raise AssertionError(f"kernels of the LB exhibit never launched: {idle}")
+    return counts
+
+
+def ludwig_engines(small):
+    """L5: 5 steps on the cuda and the torch engine, both on the card."""
+    cfgs = [LudwigConfig(lattice=small, target=TargetConfig(e, device="cuda"))
+            for e in ("cuda", "torch")]
+    states = [init_state(c, seed=0) for c in cfgs]
+    for _ in range(5):
+        states = [step(s, c) for s, c in zip(states, cfgs)]
+    (sc, st) = states
+    for name, a, b in (("q", sc.q.data, st.q.data), ("dist", sc.dist.data, st.dist.data)):
+        err = (a - b).abs().max().item()
+        log(f"ludwig {small}, 5 steps: {name} cuda vs torch engine max abs diff {err:.3e}")
+        if not torch.allclose(a, b, rtol=ENGINE_RTOL, atol=ENGINE_ATOL):
+            raise AssertionError(f"ludwig cuda and torch engines disagree on {name}")
+
+
+def table_rows(path, counts, rows):
+    return [dict(name=name, route="cuda", source=f"src/repro_torch/csrc/{src}",
+                 replaces=rep, launches=counts[name], **rows[name])
+            for name, (_, src, rep) in path.items()]
+
+
 def solve_timed(cfg, u, b):
     torch.cuda.synchronize()
     t0 = time.perf_counter()
@@ -209,6 +453,8 @@ def main():
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     ap.add_argument("--lattice", type=int, nargs=4, default=[64, 64, 64, 32])
     ap.add_argument("--small", type=int, nargs=4, default=[16, 16, 16, 16])
+    ap.add_argument("--ludwig", type=int, nargs=3, default=[256, 256, 256])
+    ap.add_argument("--ludwig-small", type=int, nargs=3, default=[32, 32, 32])
     args = ap.parse_args()
     lattice, small = tuple(args.lattice), tuple(args.small)
 
@@ -243,11 +489,10 @@ def main():
     rows = check_kernels(u, b, lattice, vvl)
 
     # 4. the main path, counted
-    for k in KERNELS:
-        k.launches = 0
+    reset_counts()
     res, solve_s = solve_timed(cfg, u, b)
     rc = residual_check(cfg, u, b, res.x)
-    counts = {name: sum(k.launches for k in ks) for name, (ks, _, _) in PATH.items()}
+    counts = path_counts(PATH)
     log(f"solve {lattice} on cuda: {res.iterations} iterations, {solve_s:.3f} s, "
         f"{solve_s / max(res.iterations, 1) * 1e3:.3f} ms/iter, residual "
         f"{float(res.residual):.3e}, |Mx-b|/|b| = {rc:.3e}")
@@ -278,10 +523,37 @@ def main():
     if abs(rc_.iterations - rt_.iterations) > 1 or not rel < 1e-4:
         raise AssertionError("cuda and torch engines disagree")
 
+    del su, sb, rc_, rt_
+    torch.cuda.empty_cache()
+
+    # L1. the Ludwig state at full size
+    lcfg = LudwigConfig(lattice=tuple(args.ludwig), target=TargetConfig("cuda", device="cuda"))
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    state = init_state(lcfg, seed=0)
+    torch.cuda.synchronize()
+    log(f"ludwig state {lcfg.lattice} (V = {math.prod(lcfg.lattice)}) on the card in "
+        f"{time.perf_counter() - t0:.1f} s, "
+        f"{(state.dist.data.numel() + state.q.data.numel()) * 4 / 1e9:.2f} GB")
+
+    # L2. every Ludwig kernel against its plain version
+    log(f"ludwig kernels at {lcfg.lattice}, vvl {lcfg.target.vvl}:")
+    lrows = check_ludwig_kernels(state, lcfg, lcfg.target.vvl)
+
+    # L3. the Ludwig step, counted
+    last, lcounts, _ = run_ludwig(state, lcfg)
+
+    # L4. the unfused and the fused LB half-step, counted
+    xcounts = lb_exhibit(last, lcfg)
+    del state, last
+    torch.cuda.empty_cache()
+
+    # L5. the cuda engine against the torch engine, both on the card
+    ludwig_engines(tuple(args.ludwig_small))
+
     # 6. the kernel table, then the result
-    table = [dict(name=name, route="cuda", source=f"src/repro_torch/csrc/{src}",
-                  replaces=rep, launches=counts[name], **rows[name])
-             for name, (_, src, rep) in PATH.items()]
+    table = (table_rows(PATH, counts, rows) + table_rows(LUDWIG_PATH, lcounts, lrows)
+             + table_rows(LB_EXHIBIT_PATH, xcounts, lrows))
     print(json.dumps({"kernels": table}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

@@ -51,6 +51,12 @@ SIGNATURES = {
     "rt_dslash": (_P, _P, _P, _I, _I, _I, _I, _I, _P),
     "rt_wilson_normal_t": (_P, _P, _P, _F, _I, _I, _I, _I, _I, _P),
     "rt_wilson_normal_ap": (_P, _P, _P, _P, _P, _F, _I, _I, _I, _I, _I, _P),
+    "rt_lb_collide": (_P, _P, _P, _L, _F, _F, _F, _F, _I, _P),
+    "rt_lb_propagate": (_P, _P, _I, _I, _I, _I, _P),
+    "rt_lb_step": (_P, _P, _P, _P, _I, _I, _I, _F, _F, _F, _F, _I, _P),
+    "rt_ludwig_chem_stress": (_P, _P, _P, _P, _P, _L, _F, _F, _F, _F, _F, _F, _F, _I, _P),
+    "rt_ludwig_lc_update": (_P, _P, _P, _P, _P, _L, _F, _F, _F, _F, _I, _P),
+    "rt_ludwig_fed": (_P, _P, _P, _L, _F, _F, _F, _F, _I, _P),
 }
 
 

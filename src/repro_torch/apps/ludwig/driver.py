@@ -1,0 +1,338 @@
+"""Ludwig liquid-crystal timestep driver (single device).
+
+One timestep reproduces the paper's kernel decomposition (§2.1.1):
+
+  Order Parameter Gradients   stencil   grad Q, lap Q          [torch ops]
+  (molecular field)           local     H(Q, lap Q)            [K3L]
+  Chemical Stress             local     sigma(Q, H, grad Q)    [K3L]
+  (force)                     stencil   F = div sigma          [torch ops]
+  Collision                   local     BGK + Guo forcing      [K5L]
+  Propagation                 stencil   streaming              [K5L]
+  Advection (+ Boundaries)    stencil   upwind div(u Q)        [torch ops]
+  LC Update                   local     Beris-Edwards          [K3L]
+
+Site-local stages run through the launch machinery, so the engine
+("torch" or "cuda") and the data layout are configuration.  Adjacent
+site-local stages are fused LaunchGraphs (molecular field + stress; BE rhs
++ Q update), and the LB half of the step (moments, collision, streaming)
+is one stencil graph.  On the "cuda" engine each graph and body below is
+registered against its hand-written kernel (``csrc/lb.cu``,
+``csrc/ludwig_flat.cu``); the stencils marked "torch ops" are plain torch
+ops on both engines, as the JAX package computes them with jnp ops outside
+any Pallas kernel.
+
+Not yet ported: the mixed-precision LB storage (``LudwigConfig.storage``
+raises), the plan tuner (``tune_step_graphs``) and the sharded driver
+(``make_sharded_step``, ``run_steps``).
+"""
+
+from __future__ import annotations
+
+import dataclasses
+import time
+from typing import Dict, Tuple
+
+import numpy as np
+import torch
+
+from repro_torch.core import (
+    Field, LaunchGraph, Layout, SOA, TargetConfig, launch, target_sum,
+    tileable_layout,
+)
+from repro_torch.core.field import resolve_device
+from repro_torch.core.fuse import register_cuda_graph
+from repro_torch.core.target import register_cuda_body
+from repro_torch.kernels.lb_collision import ref as lbref
+from repro_torch.kernels.lb_collision.ops import collide_kernel
+from repro_torch.kernels.lb_propagation import kernel as lbk
+from repro_torch.kernels.lb_propagation import ops as prop_ops
+from . import gradients as gr
+from . import kernel as lck
+from . import lc
+
+
+@dataclasses.dataclass(frozen=True)
+class LudwigConfig:
+    lattice: Tuple[int, int, int] = (16, 16, 16)
+    tau: float = 0.8            # LB relaxation time; nu = cs2 (tau - 1/2)
+    a0: float = 0.01            # Landau-de Gennes bulk scale
+    gamma: float = 3.0          # effective temperature (>2.7: nematic)
+    kappa: float = 0.01         # elastic constant (one-constant approx.)
+    gamma_rot: float = 0.3     # rotational diffusion Gamma
+    xi: float = 0.7             # flow-aligning parameter
+    dt: float = 1.0
+    layout: Layout = SOA
+    target: TargetConfig = TargetConfig()
+    # mixed-precision storage of the LB half-step: not yet ported, must
+    # stay unset
+    storage: str = ""
+
+
+def _require_full_precision(cfg: LudwigConfig) -> None:
+    if cfg.storage:
+        raise ValueError(
+            f"LudwigConfig.storage={cfg.storage!r} selects the mixed-precision "
+            f"LB half-step, which is not yet ported")
+
+
+@dataclasses.dataclass
+class LudwigState:
+    dist: Field   # (19,) distributions
+    q: Field      # (5,)  order parameter
+
+
+def init_state(cfg: LudwigConfig, seed: int = 0, q_amp: float = 1e-2) -> LudwigState:
+    """Equilibrium at rest and a small random Q, on ``cfg.target.device``;
+    the same bits as the JAX package's init_state from the same seed."""
+    rng = np.random.default_rng(seed)
+    nsites = int(np.prod(cfg.lattice))
+    dev = resolve_device(cfg.target.device)
+    rho = torch.ones((nsites,), dtype=torch.float32, device=dev)
+    u = torch.zeros((3, nsites), dtype=torch.float32, device=dev)
+    f0 = lbref.equilibrium(rho, u)
+    dist = Field.from_canonical("dist", f0, cfg.lattice, cfg.layout)
+    q0 = q_amp * rng.normal(size=(5, nsites)).astype(np.float32)
+    q = Field.from_numpy("q", q0, cfg.lattice, cfg.layout, device=dev)
+    return LudwigState(dist=dist, q=q)
+
+
+# -- site-local kernel bodies wrapped for core.launch -------------------------------
+
+def _mol_field_body(v, *, a0, gamma, kappa):
+    return {"h": lc.molecular_field_chunk(v["q"], v["lapq"], a0=a0, gamma=gamma, kappa=kappa)}
+
+
+def _stress_body(v, *, kappa, xi):
+    return {"sigma": lc.stress_chunk(v["q"], v["h"], v["dq"], kappa=kappa, xi=xi)}
+
+
+def _be_rhs_body(v, *, gamma_rot, xi):
+    return {"rhs": lc.beris_edwards_rhs_chunk(v["q"], v["h"], v["w"], gamma_rot=gamma_rot, xi=xi)}
+
+
+def _q_update_body(v, *, dt):
+    return {"q": lc.q_update_chunk(v["q"], v["rhs"], v["adv"], dt=dt)}
+
+
+def _moments_body(v):
+    rho, u = lbref.moments(v["dist"])
+    # half-force velocity correction (consistent with Guo forcing)
+    u = u + 0.5 * v["force"] / rho[None, :]
+    return {"rho": rho[None, :], "u": u}
+
+
+def _fed_body(v, *, a0, gamma, kappa):
+    return {"fed": lc.free_energy_density_chunk(v["q"], v["dq"], a0=a0, gamma=gamma, kappa=kappa)}
+
+
+def _mkfield(name: str, arr_nd: torch.Tensor, cfg: LudwigConfig) -> Field:
+    lat = tuple(arr_nd.shape[1:])
+    return Field.from_canonical(name, arr_nd, lat, tileable_layout(cfg.layout, lat))
+
+
+# -- stage functions (single device, periodic) ---------------------------------------
+
+def stage_gradients(q_nd: torch.Tensor):
+    """Order Parameter Gradients."""
+    return gr.grad_central(q_nd), gr.laplacian(q_nd)
+
+
+# stage stanzas shared by every graph builder below — one definition per
+# kernel so the step and the benchmark/test chains cannot drift
+def _add_mol_field(g: LaunchGraph, cfg: LudwigConfig) -> LaunchGraph:
+    return g.add(_mol_field_body, {"q": "q", "lapq": "lapq"}, {"h": 5},
+                 params=dict(a0=cfg.a0, gamma=cfg.gamma, kappa=cfg.kappa))
+
+
+def _add_stress(g: LaunchGraph, cfg: LudwigConfig) -> LaunchGraph:
+    return g.add(_stress_body, {"q": "q", "h": "h", "dq": "dq"}, {"sigma": 9},
+                 params=dict(kappa=cfg.kappa, xi=cfg.xi))
+
+
+def _add_be_rhs(g: LaunchGraph, cfg: LudwigConfig) -> LaunchGraph:
+    return g.add(_be_rhs_body, {"q": "q", "h": "h", "w": "w"}, {"rhs": 5},
+                 params=dict(gamma_rot=cfg.gamma_rot, xi=cfg.xi))
+
+
+def _add_q_update(g: LaunchGraph, cfg: LudwigConfig) -> LaunchGraph:
+    return g.add(_q_update_body, {"q": "q", "rhs": "rhs", "adv": "adv"},
+                 {"q": 5}, rename={"q": "q_new"}, params=dict(dt=cfg.dt))
+
+
+def chem_stress_graph(cfg: LudwigConfig) -> LaunchGraph:
+    """molecular field -> stress as one fused chain (H also materialized:
+    the BE update needs it later in the step)."""
+    return _add_stress(_add_mol_field(LaunchGraph("ludwig_chem_stress"), cfg), cfg)
+
+
+def lc_update_graph(cfg: LudwigConfig) -> LaunchGraph:
+    """BE rhs -> Q update as one fused chain; rhs is never stored."""
+    return _add_q_update(_add_be_rhs(LaunchGraph("ludwig_lc_update"), cfg), cfg)
+
+
+def lc_chain_graph(cfg: LudwigConfig) -> LaunchGraph:
+    """The 3-kernel LC chain (molecular field -> BE rhs -> Q update) fused
+    into one launch — the benchmarks' fused-vs-unfused exhibit.  Not on the
+    step's path: the "cuda" engine has no kernel for it and raises."""
+    g = _add_mol_field(LaunchGraph("ludwig_lc_chain"), cfg)
+    return _add_q_update(_add_be_rhs(g, cfg), cfg)
+
+
+def lb_step_graph(cfg: LudwigConfig) -> LaunchGraph:
+    """The whole LB half of a timestep — moments, BGK collision and the
+    streaming stencil — as one launch: dist and force are read once and
+    the post-collision distributions are never stored."""
+    return (
+        LaunchGraph("ludwig_lb_step")
+        .add(_moments_body, {"dist": "dist", "force": "force"},
+             {"rho": 1, "u": 3})
+        .add(collide_kernel, {"dist": "dist", "force": "force"}, {"dist": 19},
+             rename={"dist": "dist1"}, params=dict(tau=cfg.tau))
+        .add_stencil(prop_ops.propagate_body, {"dist": "dist1"}, {"dist": 19},
+                     width=1, rename={"dist": "dist2"})
+    )
+
+
+def stage_chemical_stress(state_q: Field, dq_nd, lapq_nd, cfg: LudwigConfig):
+    """molecular field + stress (one fused launch) + force divergence."""
+    out = chem_stress_graph(cfg).bind(
+        config=cfg.target, outputs=("h", "sigma"),
+    )({"q": state_q, "lapq": _mkfield("lapq", lapq_nd, cfg),
+       "dq": _mkfield("dq", dq_nd, cfg)})
+    force_nd = gr.divergence(out["sigma"].canonical_nd())
+    return out["h"], force_nd
+
+
+def stage_advection(q_nd, u_nd):
+    """Advection (+ periodic boundaries: no correction term)."""
+    return gr.advective_divergence(q_nd, u_nd)
+
+
+def stage_lc_update(state_q: Field, h: Field, w_nd, adv_nd, cfg: LudwigConfig) -> Field:
+    q_new = lc_update_graph(cfg).bind(
+        config=cfg.target, outputs=("q_new",),
+    )({"q": state_q, "h": h, "w": _mkfield("w", w_nd, cfg),
+       "adv": _mkfield("adv", adv_nd, cfg)})["q_new"]
+    # keep the Field name stable across steps
+    return dataclasses.replace(q_new, name=state_q.name)
+
+
+def _w_tensor(u_nd: torch.Tensor) -> torch.Tensor:
+    """W_ab = d u_a / d x_b as (9,) row-major from grad_central layout."""
+    g = gr.grad_central(u_nd)  # [d/dx u(3), d/dy u(3), d/dz u(3)] => g[b*3+a]
+    return torch.stack([g[b * 3 + a] for a in range(3) for b in range(3)])
+
+
+def _lb_half_step(state: LudwigState, force: Field, cfg: LudwigConfig):
+    lb = lb_step_graph(cfg).bind(config=cfg.target, outputs=("dist2", "u"))(
+        {"dist": state.dist, "force": force})
+    return dataclasses.replace(lb["dist2"], name=state.dist.name), lb["u"]
+
+
+def step(state: LudwigState, cfg: LudwigConfig) -> LudwigState:
+    """One full LC-LB timestep (single device, periodic)."""
+    _require_full_precision(cfg)
+    q_nd = state.q.canonical_nd()
+    dq_nd, lapq_nd = stage_gradients(q_nd)
+    h, force_nd = stage_chemical_stress(state.q, dq_nd, lapq_nd, cfg)
+    force = _mkfield("force", force_nd, cfg)
+
+    # moments + collision + streaming fused: one launch, dist and force read
+    # once, post-collision dist never stored
+    dist2, u = _lb_half_step(state, force, cfg)
+    u_nd = u.canonical_nd()
+    w_nd = _w_tensor(u_nd)
+    adv_nd = stage_advection(q_nd, u_nd)
+
+    q_new = stage_lc_update(state.q, h, w_nd, adv_nd, cfg)
+    return LudwigState(dist=dist2, q=q_new)
+
+
+def step_timed(state: LudwigState, cfg: LudwigConfig) -> Tuple[LudwigState, Dict[str, float]]:
+    """One step with each stage timed in seconds on the host clock, the
+    device synchronised around every stage (so the stages do not overlap).
+    The stage names are the JAX package's, plus ``velocity_gradients``
+    (``_w_tensor``), which the reference leaves untimed."""
+    _require_full_precision(cfg)
+    dev = state.q.device
+    t: Dict[str, float] = {}
+
+    def sync():
+        if dev.type == "cuda":
+            torch.cuda.synchronize(dev)
+
+    def timed(name, fn, *a):
+        sync()
+        t0 = time.perf_counter()
+        out = fn(*a)
+        sync()
+        t[name] = time.perf_counter() - t0
+        return out
+
+    q_nd = state.q.canonical_nd()
+    dq_nd, lapq_nd = timed("order_parameter_gradients", stage_gradients, q_nd)
+    h, force_nd = timed(
+        "chemical_stress", stage_chemical_stress, state.q, dq_nd, lapq_nd, cfg
+    )
+    force = _mkfield("force", force_nd, cfg)
+    dist2, u = timed("lb_step", _lb_half_step, state, force, cfg)
+    u_nd = u.canonical_nd()
+    w_nd = timed("velocity_gradients", _w_tensor, u_nd)
+    adv_nd = timed("advection", stage_advection, q_nd, u_nd)
+    q_new = timed("lc_update", stage_lc_update, state.q, h, w_nd, adv_nd, cfg)
+    return LudwigState(dist=dist2, q=q_new), t
+
+
+# -- diagnostics ---------------------------------------------------------------------
+
+def diagnostics(state: LudwigState, cfg: LudwigConfig) -> Dict[str, torch.Tensor]:
+    """Total mass, momentum, free energy (targetDP reduction API), each a
+    tensor on the state's device."""
+    mass = target_sum(state.dist, cfg.target).sum()
+    q_nd = state.q.canonical_nd()
+    dq_nd = gr.grad_central(q_nd)
+    dq = _mkfield("dq", dq_nd, cfg)
+    fed = launch(
+        _fed_body, {"q": state.q, "dq": dq}, {"fed": 1},
+        config=cfg.target,
+        params=dict(a0=cfg.a0, gamma=cfg.gamma, kappa=cfg.kappa),
+    )["fed"]
+    free_energy = target_sum(fed, cfg.target)[0]
+    rho, u = lbref.moments(state.dist.canonical())
+    mom = torch.sum(rho[None] * u, dim=1)
+    return {"mass": mass, "free_energy": free_energy, "momentum": mom}
+
+
+# -- the hand-written kernels behind these bodies and graphs on "cuda" -----------------
+
+def _chem_stress_cuda(graph, ins, scalars, *, lattice, vvl):
+    mol, stress = graph.stage_params()
+    h, sigma = lck.chem_stress_cuda(
+        ins["q"], ins["lapq"], ins["dq"], a0=mol["a0"], gamma=mol["gamma"],
+        kappa_m=mol["kappa"], kappa_s=stress["kappa"], xi=stress["xi"], vvl=vvl)
+    return {"h": h, "sigma": sigma}
+
+
+def _lc_update_cuda(graph, ins, scalars, *, lattice, vvl):
+    be, upd = graph.stage_params()
+    q_new = lck.lc_update_cuda(ins["q"], ins["h"], ins["w"], ins["adv"],
+                               gamma_rot=be["gamma_rot"], xi=be["xi"], dt=upd["dt"],
+                               vvl=vvl)
+    return {"q_new": q_new}
+
+
+def _lb_step_cuda(graph, ins, scalars, *, lattice, vvl):
+    tau = graph.stage_params()[1]["tau"]
+    dist2, u = lbk.lb_step_cuda(ins["dist"], ins["force"], tau, lattice, vvl)
+    return {"dist2": dist2, "u": u}
+
+
+def _fed_cuda(ins, params, vvl):
+    return {"fed": lck.fed_cuda(ins["q"], ins["dq"], a0=params["a0"],
+                                gamma=params["gamma"], kappa=params["kappa"], vvl=vvl)}
+
+
+register_cuda_graph(chem_stress_graph(LudwigConfig()), _chem_stress_cuda, ("h", "sigma"))
+register_cuda_graph(lc_update_graph(LudwigConfig()), _lc_update_cuda, ("q_new",))
+register_cuda_graph(lb_step_graph(LudwigConfig()), _lb_step_cuda, ("dist2", "u"))
+register_cuda_body(_fed_body, _fed_cuda)

@@ -4,7 +4,9 @@ A Field crosses as plain numpy data: its physical array, lattice, layout
 name and ncomp.  Physical shapes are the same in both packages, so the
 numbers pass through unchanged (bitwise).  This module does not import the
 JAX package: a caller holding a JAX Field passes ``np.asarray(f.data)``,
-``f.lattice``, ``f.layout.name`` and ``f.ncomp``.
+``f.lattice``, ``f.layout.name`` and ``f.ncomp``; for a Ludwig state, the
+physical arrays of its ``dist`` and ``q`` with their shared lattice and
+layout name.
 """
 
 from __future__ import annotations
@@ -15,10 +17,11 @@ from typing import Sequence, Tuple
 import numpy as np
 import torch
 
+from repro_torch.apps.ludwig.driver import LudwigState
 from repro_torch.core.field import Field, resolve_device
 from repro_torch.core.layout import parse_layout
 
-__all__ = ["to_field", "from_field"]
+__all__ = ["to_field", "from_field", "to_ludwig_state", "from_ludwig_state"]
 
 
 def to_field(name: str, physical: np.ndarray, lattice: Sequence[int],
@@ -40,3 +43,19 @@ def from_field(field: Field) -> Tuple[np.ndarray, Tuple[int, ...], str, int]:
     """(physical array, lattice, layout name, ncomp) of a port Field."""
     return (field.data.detach().cpu().numpy(), field.lattice, field.layout.name,
             field.ncomp)
+
+
+def to_ludwig_state(dist_phys: np.ndarray, q_phys: np.ndarray, lattice: Sequence[int],
+                    layout_name: str, device="cpu") -> LudwigState:
+    """The port's LudwigState holding a Ludwig state's physical dist (19
+    components) and q (5 components) arrays (bitwise) on ``device``."""
+    return LudwigState(dist=to_field("dist", dist_phys, lattice, layout_name, 19, device),
+                       q=to_field("q", q_phys, lattice, layout_name, 5, device))
+
+
+def from_ludwig_state(state: LudwigState) -> Tuple[np.ndarray, np.ndarray, Tuple[int, ...], str]:
+    """(dist physical array, q physical array, lattice, layout name) of a
+    port LudwigState — the inverse of :func:`to_ludwig_state`."""
+    dist, lattice, layout_name, _ = from_field(state.dist)
+    q, _, _, _ = from_field(state.q)
+    return dist, q, lattice, layout_name

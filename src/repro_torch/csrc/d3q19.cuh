@@ -1,0 +1,116 @@
+// The D3Q19 velocity set and the BGK collision with Guo forcing at one site,
+// shared by lb.cu's K7 (collide) and K5L (the fused LB step).
+//
+// The tables are Ludwig's ordering (maths/d3q19.py): rest, 6 faces, 12
+// edges.  They are compile-time constants: every loop over velocities is
+// fully unrolled, so c_i and w_i fold into the instructions and a dot
+// product with c_i becomes adds and subtracts, as in the reference's
+// unrolled oracle (kernels/lb_collision/ref.py::collide_chunk).
+//
+// rt_collide_site follows collide_chunk term by term and in its order.  The
+// Python-float coefficients of the reference reach it as fp32 values: the
+// weights w_i are fp32(w_i) here; omega = 1/tau and pref * w_i (three
+// values, one per weight class) are computed in double by the host and
+// passed as fp32, which is what the reference's weak-typed Python floats
+// become.  nvcc contracts a*b + c into fused multiply-adds, so the result
+// agrees with the plain version to a tolerance, not bitwise.
+#pragma once
+
+#include "common.cuh"
+
+#define RT_NVEL 19
+
+// c_ia of velocity i on axis a (constant once the caller's loops unroll).
+__host__ __device__ constexpr int rt_cv(int i, int a) {
+  constexpr int t[RT_NVEL][3] = {
+      {0, 0, 0},
+      {1, 0, 0},  {-1, 0, 0}, {0, 1, 0},  {0, -1, 0}, {0, 0, 1},  {0, 0, -1},
+      {1, 1, 0},  {1, -1, 0}, {-1, 1, 0}, {-1, -1, 0},
+      {1, 0, 1},  {1, 0, -1}, {-1, 0, 1}, {-1, 0, -1},
+      {0, 1, 1},  {0, 1, -1}, {0, -1, 1}, {0, -1, -1},
+  };
+  return t[i][a];
+}
+
+// Weight class of velocity i: 0 rest (1/3), 1 face (1/18), 2 edge (1/36).
+__host__ __device__ constexpr int rt_wclass(int i) { return i == 0 ? 0 : (i < 7 ? 1 : 2); }
+
+__device__ __forceinline__ float rt_w(int i) {
+  const int k = rt_wclass(i);
+  return k == 0 ? (float)(1.0 / 3.0) : (k == 1 ? (float)(1.0 / 18.0) : (float)(1.0 / 36.0));
+}
+
+// What the host computes from tau: omega = 1/tau, pw[k] = (1 - 0.5/tau) w_k.
+struct rt_lb_params {
+  float omega;
+  float pw[3];
+};
+
+// Periodic neighbour coordinate v + d for |d| <= 1 on an axis of extent n >= 1.
+__device__ __forceinline__ int rt_wrap(int v, int n) {
+  return v < 0 ? v + n : (v >= n ? v - n : v);
+}
+
+// c_i . v, the reference's _cdot: signed terms added in axis order; 0 for the
+// rest velocity.
+__device__ __forceinline__ float rt_cdot(int i, const float (&v)[3]) {
+  float out = 0.0f;
+  bool started = false;
+#pragma unroll
+  for (int a = 0; a < 3; ++a) {
+    const int c = rt_cv(i, a);
+    if (c == 0) continue;
+    const float term = c == 1 ? v[a] : -v[a];
+    out = started ? out + term : term;
+    started = true;
+  }
+  return out;
+}
+
+// rho = sum_i f_i in velocity order.
+__device__ __forceinline__ float rt_density(const float (&f)[RT_NVEL]) {
+  float rho = f[0];
+#pragma unroll
+  for (int i = 1; i < RT_NVEL; ++i) rho += f[i];
+  return rho;
+}
+
+// mom_a = sum_i c_ia f_i, unrolled in velocity order.
+__device__ __forceinline__ void rt_momentum(const float (&f)[RT_NVEL], float (&mom)[3]) {
+  bool started[3] = {false, false, false};
+#pragma unroll
+  for (int a = 0; a < 3; ++a) mom[a] = 0.0f;
+#pragma unroll
+  for (int i = 0; i < RT_NVEL; ++i) {
+#pragma unroll
+    for (int a = 0; a < 3; ++a) {
+      const int c = rt_cv(i, a);
+      if (c == 0) continue;
+      const float term = c == 1 ? f[i] : -f[i];
+      mom[a] = started[a] ? mom[a] + term : term;
+      started[a] = true;
+    }
+  }
+}
+
+// Post-collision distributions of one site (collide_chunk).
+__device__ __forceinline__ void rt_collide_site(const float (&f)[RT_NVEL], const float (&frc)[3],
+                                                const rt_lb_params& p,
+                                                float (&out)[RT_NVEL]) {
+  const float rho = rt_density(f);
+  float mom[3];
+  rt_momentum(f, mom);
+  float u[3];
+#pragma unroll
+  for (int a = 0; a < 3; ++a) u[a] = (mom[a] + 0.5f * frc[a]) / rho;
+  const float usq = u[0] * u[0] + u[1] * u[1] + u[2] * u[2];
+  const float uf = u[0] * frc[0] + u[1] * frc[1] + u[2] * frc[2];
+#pragma unroll
+  for (int i = 0; i < RT_NVEL; ++i) {
+    const float cu = rt_cdot(i, u);
+    const float cf = rt_cdot(i, frc);
+    const float feq = rt_w(i) * rho * (1.0f + 3.0f * cu + 4.5f * cu * cu - 1.5f * usq);
+    const float fi = p.pw[rt_wclass(i)] * (3.0f * (cf - uf) + 9.0f * cu * cf);
+    out[i] = f[i] - p.omega * (f[i] - feq) + fi;
+  }
+}

@@ -1,0 +1,75 @@
+"""Public wrapper for LB propagation (engine dispatch) and the fused
+collision -> propagation LB step.
+
+Propagation is a stencil (site-neighbour gather).  The fused step runs it
+as a stencil stage of a ``core.fuse.LaunchGraph``; on the "cuda" engine the
+graph runs as K5L, one launch in which the post-collision distributions
+never reach device memory.  The halo'd form of the sharded path
+(``propagate_halo``) is not yet ported.
+"""
+
+from __future__ import annotations
+
+import torch
+
+from repro_torch.core import Field, LaunchGraph, TargetConfig
+from repro_torch.core.fuse import register_cuda_graph
+from repro_torch.core.plan import plan_for_launch
+from repro_torch.core.target import require_cuda
+from repro_torch.kernels.lb_collision.ops import collide_kernel
+from repro_torch.maths import d3q19
+from . import kernel, ref
+
+
+def propagate(dist: Field, *, config: TargetConfig) -> Field:
+    """Periodic streaming step on a single device."""
+    plan = plan_for_launch(config, dist.nsites, [dist.layout])
+    if plan.engine == "torch":
+        out = ref.propagate_ref(dist.canonical_nd())
+        return dist.with_canonical(out.reshape(dist.ncomp, dist.nsites))
+    require_cuda("dist", dist.data)
+    return dist.with_data(kernel.propagate_cuda(dist.data, dist.lattice, vvl=plan.vvl))
+
+
+def propagate_body(v, gather):
+    """Propagation as a fused stencil-stage body: f'_i(r) = f_i(r - c_i)."""
+    return {
+        "dist": torch.stack([
+            gather("dist", tuple(int(c) for c in d3q19.CV[i]))[i]
+            for i in range(d3q19.NVEL)
+        ])
+    }
+
+
+def collide_propagate_graph(tau: float) -> LaunchGraph:
+    """BGK collision fused into propagation's gather: one launch."""
+    return (
+        LaunchGraph("lb_collide_propagate")
+        .add(collide_kernel, {"dist": "dist", "force": "force"}, {"dist": 19},
+             rename={"dist": "dist1"}, params=dict(tau=tau))
+        .add_stencil(propagate_body, {"dist": "dist1"}, {"dist": 19},
+                     width=1, rename={"dist": "dist2"})
+    )
+
+
+def collide_propagate(dist: Field, force: Field, *, tau: float,
+                      config: TargetConfig) -> Field:
+    """Fused LB step: BGK collision immediately followed by streaming, as a
+    single launch."""
+    out = collide_propagate_graph(float(tau)).launch(
+        {"dist": dist, "force": force},
+        config=config,
+        outputs=("dist2",),
+        out_layouts={"dist2": dist.layout},
+    )["dist2"]
+    return dist.with_data(out.data)
+
+
+def _collide_propagate_cuda(graph, ins, scalars, *, lattice, vvl):
+    tau = graph.stage_params()[0]["tau"]
+    dist2, _ = kernel.lb_step_cuda(ins["dist"], ins["force"], tau, lattice, vvl,
+                                   with_u=False)
+    return {"dist2": dist2}
+
+
+register_cuda_graph(collide_propagate_graph(0.0), _collide_propagate_cuda, ("dist2",))

@@ -13,8 +13,12 @@ torch = pytest.importorskip("torch")
 
 import numpy as np  # noqa: E402
 
+from repro_torch.apps.ludwig import LudwigConfig, init_state, step  # noqa: E402
+from repro_torch.apps.ludwig import kernel as LK  # noqa: E402
 from repro_torch.apps.milc import MilcConfig, fields, init_problem, residual_check, solve  # noqa: E402
 from repro_torch.core import TargetConfig, fuse, reduce, target  # noqa: E402
+from repro_torch.kernels.lb_collision import kernel as K7  # noqa: E402
+from repro_torch.kernels.lb_propagation import kernel as K8  # noqa: E402
 from repro_torch.kernels.wilson_dslash import kernel as K  # noqa: E402
 
 FIELD_RTOL = 1e-5  # max|kernel - plain| <= FIELD_RTOL * max|plain|
@@ -93,3 +97,64 @@ def test_cuda_engine_solve_matches_torch_engine(card):
     assert abs(rc.iterations - rt.iterations) <= 1
     assert (torch.linalg.norm(rc.x.data - rt.x.data) / torch.linalg.norm(rt.x.data)) < 1e-5
     assert residual_check(cfg, u, b, rc.x) < 1e-3
+
+
+LB_LATTICES = [(4, 4, 8), (3, 5, 7), (1, 6, 4), (2, 1, 3)]
+
+
+def _dev(rng, shape, card, scale=1.0, offset=0.0):
+    return torch.from_numpy((offset + scale * rng.normal(size=shape)).astype(np.float32)).to(card)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("vvl", [32, 64, 128])
+@pytest.mark.parametrize("lat", LB_LATTICES, ids=str)
+def test_lb_kernels(card, lat, vvl, rng):
+    V = int(np.prod(lat))
+    f = _dev(rng, (19, V), card, 0.1, 1.0)
+    g = _dev(rng, (3, V), card, 0.01)
+    c = K7.collide_cuda(f, g, 0.8, vvl)
+    _close_field(c, K7.collide_plain(f, g, 0.8))
+    # streaming moves data only: bitwise, and the same kernel on any vvl
+    p = K8.propagate_cuda(c, lat, vvl)
+    assert torch.equal(p, K8.propagate_plain(c, lat))
+    dist2, u = K8.lb_step_cuda(f, g, 0.8, lat, vvl)
+    want2, want_u = K8.lb_step_plain(f, g, 0.8, lat)
+    _close_field(dist2, want2)
+    _close_field(u, want_u)
+    # K5L's streaming half moves K7's values: bitwise equal to K8(K7(f))
+    assert torch.equal(dist2, p)
+    only2, none = K8.lb_step_cuda(f, g, 0.8, lat, vvl, with_u=False)
+    assert none is None and torch.equal(only2, dist2)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("vvl", [32, 64, 128])
+@pytest.mark.parametrize("lat", LB_LATTICES, ids=str)
+def test_ludwig_flat_kernels(card, lat, vvl, rng):
+    V = int(np.prod(lat))
+    q, lapq, h, adv = (_dev(rng, (5, V), card, 0.05) for _ in range(4))
+    dq, w = _dev(rng, (15, V), card, 0.02), _dev(rng, (9, V), card, 0.01)
+    kw = dict(a0=0.01, gamma=3.0, kappa_m=0.01, kappa_s=0.01, xi=0.7)
+    got = LK.chem_stress_cuda(q, lapq, dq, vvl=vvl, **kw)
+    want = LK.chem_stress_plain(q, lapq, dq, **kw)
+    _close_field(got[0], want[0])
+    _close_field(got[1], want[1])
+    kw = dict(gamma_rot=0.3, xi=0.7, dt=1.0)
+    _close_field(LK.lc_update_cuda(q, h, w, adv, vvl=vvl, **kw),
+                 LK.lc_update_plain(q, h, w, adv, **kw))
+    kw = dict(a0=0.01, gamma=3.0, kappa=0.01)
+    _close_field(LK.fed_cuda(q, dq, vvl=vvl, **kw), LK.fed_plain(q, dq, **kw))
+
+
+@pytest.mark.cuda
+def test_cuda_engine_step_matches_torch_engine(card):
+    cfg = LudwigConfig(lattice=(8, 8, 8), target=TargetConfig("cuda", device="cuda"))
+    tcfg = LudwigConfig(lattice=(8, 8, 8), target=TargetConfig("torch", device="cuda"))
+    launches = K8.LB_STEP.launches
+    s, t = init_state(cfg, seed=0), init_state(tcfg, seed=0)
+    for _ in range(3):
+        s, t = step(s, cfg), step(t, tcfg)
+    assert K8.LB_STEP.launches - launches == 3
+    for a, b in ((s.q.data, t.q.data), (s.dist.data, t.dist.data)):
+        assert torch.allclose(a, b, rtol=3e-5, atol=1e-7)
