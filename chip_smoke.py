@@ -1,5 +1,5 @@
 """Drive the PyTorch/CUDA port on one GPU: the MILC Wilson-CG solve and the
-Ludwig LC-LB timestep.
+Ludwig LC-LB timestep, untiled and under a shared-memory budget.
 
     python3 chip_smoke.py [--lattice X Y Z T] [--small X Y Z T]
                           [--ludwig X Y Z] [--ludwig-small X Y Z]
@@ -32,6 +32,21 @@ L4. with every count set to 0: the paper's unfused LB half-step
 L5. at ``--ludwig-small`` (default (32, 32, 32)) 5 steps on the "cuda" and
    the "torch" engine, both on the card: q and dist within rtol 1e-4,
    atol 1e-6;
+T1. on the L1 state, the plan ``default_plan`` picks for the LB half-step
+   under a 227 KiB shared-memory budget (at (256, 256, 256): bx 1, by 4,
+   bz 64) and K9's shared memory beside the device's own limit; K9 against
+   K5L bitwise for both LB graphs and against the plain LB step
+   (``lb_step_plain``) on the whole lattice within 1e-5 x max|plain|, timed
+   beside both; then against ``tiled_plain``, the tile-by-tile plain
+   version, on a slice of 4 x 4 x 2 tiles ((4, 16, 128) there), logged;
+T2. with every count set to 0: 10 steps from the L1 state with
+   ``TargetConfig("cuda", smem_bytes=227 * 1024)``: dist and q must equal
+   L3's first 10 steps bitwise, K9 must have launched and K5L not; then
+   ``collide_propagate`` under the budget, bitwise equal to the untiled one,
+   through K9 alone;
+T3. at ``--ludwig-small``, 5 steps on the "cuda" engine under a budget of
+   6512 B, which tiles the LB half-step at (1, 1, 2), against 5 untiled
+   steps of the "torch" engine, within L5's tolerance;
 6. print the kernel table of both applications as one JSON line, then the
    result line.
 """
@@ -40,6 +55,7 @@ from __future__ import annotations
 
 import argparse
 import concurrent.futures
+import dataclasses
 import json
 import math
 import os
@@ -57,8 +73,8 @@ from repro_torch.apps.ludwig import LudwigConfig, init_state, step  # noqa: E402
 from repro_torch.apps.ludwig import driver as ludwig  # noqa: E402
 from repro_torch.apps.ludwig import kernel as lk  # noqa: E402
 from repro_torch.apps.milc import MilcConfig, init_problem, residual_check, solve  # noqa: E402
-from repro_torch.core import Field, TargetConfig  # noqa: E402
-from repro_torch.core import fuse, reduce, target  # noqa: E402
+from repro_torch.core import SOA, Field, TargetConfig  # noqa: E402
+from repro_torch.core import fuse, plan, reduce, target  # noqa: E402
 from repro_torch.kernels.lb_collision import collide  # noqa: E402
 from repro_torch.kernels.lb_collision import kernel as k7  # noqa: E402
 from repro_torch.kernels.lb_propagation import kernel as k8  # noqa: E402
@@ -78,7 +94,8 @@ ENGINE_RTOL, ENGINE_ATOL = 1e-4, 1e-6   # Ludwig cuda vs torch engine, 5 steps
 KERNELS = [target.G5, target.MUL, target.AXPY, reduce.REDUCE_SUM,
            reduce.REDUCE_MAX, reduce.REDUCE_FOLD, fuse.CG_UPDATE, fuse.CG_XPAY,
            wk.DSLASH, wk.WILSON_NORMAL_T, wk.WILSON_NORMAL_AP, k7.COLLIDE,
-           k8.PROPAGATE, k8.LB_STEP, lk.CHEM_STRESS, lk.LC_UPDATE, lk.FED]
+           k8.PROPAGATE, k8.LB_STEP, k8.LB_STEP_TILED, lk.CHEM_STRESS, lk.LC_UPDATE,
+           lk.FED]
 
 # flops a site, counted from the sources (all these kernels are bound by bytes)
 FLOPS = {"collide": 450, "lb_step": 462, "chem_stress": 600, "lc_update": 320, "fed": 160}
@@ -113,6 +130,19 @@ LB_EXHIBIT_PATH = {
     "lb_propagate": ([k8.PROPAGATE], "lb.cu", "src/repro/kernels/lb_propagation/kernel.py:30"),
     "lb_collide_propagate": ([k8.LB_STEP], "lb.cu", "src/repro/core/fuse.py:1721"),
 }
+
+# the Ludwig step under the shared-memory budget (T2), and the fused LB
+# half-step under it
+SMEM_BUDGET = plan.SMEM_PER_BLOCK_OPTIN   # 227 KiB, the H100's opt-in limit
+TILED_PATH = {
+    "lb_step_tiled": ([k8.LB_STEP_TILED], "lb_tiled.cu", "src/repro/core/fuse.py:1804"),
+}
+TILED_EXHIBIT_PATH = {
+    "lb_collide_propagate_tiled": ([k8.LB_STEP_TILED], "lb_tiled.cu",
+                                   "src/repro/core/fuse.py:1804"),
+}
+T1_SLICE_TILES = (4, 4, 2)  # tiles a side of the sub-lattice tiled_plain runs on in T1
+T3_BUDGET, T3_TILE = 6512, (1, 1, 2)   # T3's budget and the tile it picks
 
 
 def log(msg: str) -> None:
@@ -356,8 +386,8 @@ def check_ludwig_kernels(state, cfg, vvl):
 
 def run_ludwig(state, cfg):
     """L3: diagnostics, LUDWIG_STEPS steps and one step_timed on the cuda
-    engine, diagnostics again; returns the last state and the path's
-    launch counts."""
+    engine, diagnostics again; returns the state after the LUDWIG_STEPS
+    steps, the last state and the path's launch counts."""
     reset_counts()
     d0 = ludwig.diagnostics(state, cfg)
     torch.cuda.synchronize()
@@ -367,6 +397,7 @@ def run_ludwig(state, cfg):
         s = step(s, cfg)
     torch.cuda.synchronize()
     step_s = (time.perf_counter() - t0) / LUDWIG_STEPS
+    after_steps = s
     s, stages = ludwig.step_timed(s, cfg)
     d1 = ludwig.diagnostics(s, cfg)
     counts = path_counts(LUDWIG_PATH)
@@ -393,7 +424,7 @@ def run_ludwig(state, cfg):
     idle = [n for n, c in counts.items() if c == 0]
     if idle:
         raise AssertionError(f"kernels of the step's path never launched: {idle}")
-    return s, counts, step_s
+    return after_steps, s, counts
 
 
 def lb_exhibit(state, cfg):
@@ -433,6 +464,155 @@ def ludwig_engines(small):
         log(f"ludwig {small}, 5 steps: {name} cuda vs torch engine max abs diff {err:.3e}")
         if not torch.allclose(a, b, rtol=ENGINE_RTOL, atol=ENGINE_ATOL):
             raise AssertionError(f"ludwig cuda and torch engines disagree on {name}")
+
+
+def lb_smem_views(cfg):
+    """The LB half-step's footprint descriptor, as LaunchGraph.launch
+    builds it: (ncomp, ring, itemsize) of dist and force, (ncomp, itemsize)
+    of dist2 and u."""
+    rings = ludwig.lb_step_graph(cfg).halo_widths(("dist2", "u"))
+    return (((19, rings["dist"], 4), (3, rings["force"], 4)), ((19, 4), (3, 4)))
+
+
+def check_tiled_kernel(state, cfg, vvl):
+    """T1: the budget's plan, K9 against K5L bitwise and against the plain LB
+    step on the whole lattice, K9 timed beside both, and K9 against
+    tiled_plain on a slice."""
+    lat = cfg.lattice
+    V = math.prod(lat)
+    dev = state.dist.data.device
+    budget_cfg = dataclasses.replace(cfg.target, smem_bytes=SMEM_BUDGET)
+    views = lb_smem_views(cfg)
+    p = plan.default_plan(budget_cfg, nsites=V, layouts=[SOA], stencil=True, lattice=lat,
+                          smem_views=views)
+    tile = (p.bx, p.by, p.bz)
+    smem = k8.tiled_smem_bytes(plan.tile_extents(lat, *tile))
+    optin = _cuda.smem_per_block_optin(dev)
+    log(f"T1: budget {SMEM_BUDGET} B -> plan {p.describe()} (model "
+        f"{plan.estimate_smem_bytes(p, lattice=lat, in_views=views[0], out_views=views[1])} B); "
+        f"K9 dynamic shared memory {smem} B a block; per-block opt-in limit "
+        f"{plan.SMEM_PER_BLOCK_OPTIN} B planned for, {optin} B on the card")
+    if lat == (256, 256, 256) and tile != (1, 4, 64):
+        raise AssertionError(f"expected the tile (1, 4, 64) at {lat}, got {tile}")
+    if not p.tiled or smem > optin:
+        raise AssertionError(f"plan {p} is not a tiled plan that fits the card")
+
+    gen = torch.Generator(device=dev).manual_seed(4)
+    dist = state.dist.data * (1.0 + 0.05 * torch.randn((19, V), generator=gen, device=dev))
+    force = 1e-3 * torch.randn((3, V), generator=gen, device=dev)
+    tau = cfg.tau
+    d9, u9 = k8.lb_step_tiled_cuda(dist, force, tau, lat, tile)
+    d5, u5 = k8.lb_step_cuda(dist, force, tau, lat, vvl)
+    exact_err(d9, d5, "K9 lb_step dist2 against K5L")
+    exact_err(u9, u5, "K9 lb_step u against K5L")
+    c9, _ = k8.lb_step_tiled_cuda(dist, force, tau, lat, tile, with_u=False)
+    exact_err(c9, d5, "K9 lb_collide_propagate against K5L")
+    del d5, u5
+    want2, want_u = k8.lb_step_plain(dist, force, tau, lat)
+    err = max(field_err(d9, want2, "K9 lb_step dist2 against lb_step_plain"),
+              field_err(u9, want_u, "K9 lb_step u against lb_step_plain"))
+    err_cp = field_err(c9, want2, "K9 lb_collide_propagate against lb_step_plain")
+    del c9, u9, want2, want_u
+    plain_ms = time_ms(lambda: k8.lb_step_plain(dist, force, tau, lat), reps=3, warm=1)
+    plain_cp_ms = time_ms(lambda: k8.lb_step_plain(dist, force, tau, lat, with_u=False),
+                          reps=3, warm=1)
+
+    # tiled_plain runs tile by tile in torch ops: a slice of the lattice, a
+    # periodic lattice of its own
+    slat = tuple(min(n, k * e) for n, k, e in
+                 zip(lat, T1_SLICE_TILES, plan.tile_extents(lat, *tile)))
+    sl = (slice(None),) + tuple(slice(0, n) for n in slat)
+    ds = dist.reshape((19,) + lat)[sl].reshape(19, -1).contiguous()
+    fs = force.reshape((3,) + lat)[sl].reshape(3, -1).contiguous()
+    got2, got_u = k8.lb_step_tiled_cuda(ds, fs, tau, slat, tile)
+    want2, want_u = k8.lb_step_tiled_plain(ds, fs, tau, slat, tile)
+    slice_err = max(field_err(got2, want2, "K9 dist2 against tiled_plain"),
+                    field_err(got_u, want_u, "K9 u against tiled_plain"))
+    tp_ms = time_ms(lambda: k8.lb_step_tiled_plain(ds, fs, tau, slat, tile), reps=3, warm=1)
+    slice_ms = time_ms(lambda: k8.lb_step_tiled_cuda(ds, fs, tau, slat, tile))
+    log(f"  K9 against tiled_plain on the slice {slat}: err {slice_err:.3e}; "
+        f"K9 {slice_ms:.4f} ms, tiled_plain {tp_ms:.4f} ms there")
+
+    k9_ms = time_ms(lambda: k8.lb_step_tiled_cuda(dist, force, tau, lat, tile))
+    k5_ms = time_ms(lambda: k8.lb_step_cuda(dist, force, tau, lat, vvl))
+    k9c_ms = time_ms(lambda: k8.lb_step_tiled_cuda(dist, force, tau, lat, tile, with_u=False))
+    log(f"  K9 at {lat}: lb_step {k9_ms:.4f} ms against K5L {k5_ms:.4f} ms; "
+        f"lb_collide_propagate {k9c_ms:.4f} ms; both against lb_step_plain on the whole "
+        f"lattice (the rows' error and plain time)")
+    rows = {}
+    add_row(rows, "lb_step_tiled", err, k9_ms, plain_ms, 176 * V, FLOPS["lb_step"] * V)
+    add_row(rows, "lb_collide_propagate_tiled", err_cp, k9c_ms, plain_cp_ms, 164 * V,
+            FLOPS["collide"] * V)
+    del dist, force, d9, ds, fs, got2, got_u, want2, want_u
+    torch.cuda.empty_cache()
+    return rows, p
+
+
+def run_tiled(state, after_steps, cfg):
+    """T2: LUDWIG_STEPS steps under the budget from the L1 state, bitwise
+    equal to L3's, through K9 alone; then the fused LB half-step under the
+    budget through K9 alone."""
+    tcfg = dataclasses.replace(
+        cfg, target=dataclasses.replace(cfg.target, smem_bytes=SMEM_BUDGET))
+    reset_counts()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    s = state
+    for _ in range(LUDWIG_STEPS):
+        s = step(s, tcfg)
+    torch.cuda.synchronize()
+    step_s = (time.perf_counter() - t0) / LUDWIG_STEPS
+    counts = path_counts(TILED_PATH)
+    untiled = k8.LB_STEP.launches
+    log(f"T2: ludwig {cfg.lattice} under a {SMEM_BUDGET} B budget: {step_s * 1e3:.3f} ms/step "
+        f"over {LUDWIG_STEPS} steps; launches K9 {counts}, K5L {untiled}")
+    exact_err(s.dist.data, after_steps.dist.data, "tiled steps' dist against L3's")
+    exact_err(s.q.data, after_steps.q.data, "tiled steps' q against L3's")
+    if counts["lb_step_tiled"] != LUDWIG_STEPS or untiled:
+        raise AssertionError("the tiled step did not run K9 once a step and K5L never")
+    del s
+
+    V = math.prod(cfg.lattice)
+    gen = torch.Generator(device=state.dist.data.device).manual_seed(3)
+    force = Field.from_canonical(
+        "force", 1e-3 * torch.randn((3, V), generator=gen, device=state.dist.data.device),
+        cfg.lattice)
+    want = collide_propagate(state.dist, force, tau=cfg.tau, config=cfg.target)
+    reset_counts()
+    got = collide_propagate(state.dist, force, tau=cfg.tau, config=tcfg.target)
+    xcounts = path_counts(TILED_EXHIBIT_PATH)
+    log(f"  collide_propagate under the budget: bitwise equal to the untiled launch; "
+        f"launches {xcounts}, K5L {k8.LB_STEP.launches}")
+    exact_err(got.data, want.data, "collide_propagate under the budget against untiled")
+    if xcounts["lb_collide_propagate_tiled"] != 1 or k8.LB_STEP.launches:
+        raise AssertionError("the budgeted collide_propagate did not run K9 alone")
+    return counts, xcounts, step_s
+
+
+def ludwig_tiled_small(small):
+    """T3: 5 steps on the cuda engine under a budget that picks an odd tile
+    against 5 untiled steps on the torch engine, both on the card."""
+    cfgs = [LudwigConfig(lattice=small, target=TargetConfig("cuda", device="cuda",
+                                                            smem_bytes=T3_BUDGET)),
+            LudwigConfig(lattice=small, target=TargetConfig("torch", device="cuda"))]
+    p = plan.default_plan(cfgs[0].target, nsites=math.prod(small), layouts=[SOA],
+                          stencil=True, lattice=small, smem_views=lb_smem_views(cfgs[0]))
+    log(f"T3: budget {T3_BUDGET} B -> plan {p.describe()} at {small}")
+    if (p.bx, p.by, p.bz) != T3_TILE:
+        raise AssertionError(f"expected the tile {T3_TILE} at {small}, got {p}")
+    launches = k8.LB_STEP_TILED.launches
+    states = [init_state(c, seed=0) for c in cfgs]
+    for _ in range(5):
+        states = [step(s, c) for s, c in zip(states, cfgs)]
+    if k8.LB_STEP_TILED.launches - launches != 5:
+        raise AssertionError("T3's steps did not run K9")
+    (sc, st) = states
+    for name, a, b in (("q", sc.q.data, st.q.data), ("dist", sc.dist.data, st.dist.data)):
+        err = (a - b).abs().max().item()
+        log(f"T3: ludwig {small}, tile {T3_TILE}, 5 steps: {name} tiled cuda vs torch engine "
+            f"max abs diff {err:.3e}")
+        if not torch.allclose(a, b, rtol=ENGINE_RTOL, atol=ENGINE_ATOL):
+            raise AssertionError(f"tiled cuda and torch engines disagree on {name}")
 
 
 def table_rows(path, counts, rows):
@@ -541,19 +721,33 @@ def main():
     lrows = check_ludwig_kernels(state, lcfg, lcfg.target.vvl)
 
     # L3. the Ludwig step, counted
-    last, lcounts, _ = run_ludwig(state, lcfg)
+    after_steps, last, lcounts = run_ludwig(state, lcfg)
 
     # L4. the unfused and the fused LB half-step, counted
     xcounts = lb_exhibit(last, lcfg)
-    del state, last
+    del last
     torch.cuda.empty_cache()
 
     # L5. the cuda engine against the torch engine, both on the card
     ludwig_engines(tuple(args.ludwig_small))
 
+    # T1. the tiled kernel at the budget's plan
+    trows, _ = check_tiled_kernel(state, lcfg, lcfg.target.vvl)
+
+    # T2. the Ludwig step under the budget, counted
+    tcounts, txcounts, _ = run_tiled(state, after_steps, lcfg)
+    log(f"max memory allocated over L1-T2: {torch.cuda.max_memory_allocated() / 2**30:.2f} GiB")
+    del state, after_steps
+    torch.cuda.empty_cache()
+
+    # T3. explicit tiles at the small lattice against the torch engine
+    ludwig_tiled_small(tuple(args.ludwig_small))
+
     # 6. the kernel table, then the result
     table = (table_rows(PATH, counts, rows) + table_rows(LUDWIG_PATH, lcounts, lrows)
-             + table_rows(LB_EXHIBIT_PATH, xcounts, lrows))
+             + table_rows(LB_EXHIBIT_PATH, xcounts, lrows)
+             + table_rows(TILED_PATH, tcounts, trows)
+             + table_rows(TILED_EXHIBIT_PATH, txcounts, trows))
     print(json.dumps({"kernels": table}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

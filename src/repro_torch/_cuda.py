@@ -25,7 +25,7 @@ from pathlib import Path
 
 import torch
 
-__all__ = ["Kernel", "build", "library", "check_tensor",
+__all__ = ["Kernel", "build", "library", "check_tensor", "smem_per_block_optin",
            "CSRC", "BUILD_DIR", "NVCC_FLAGS"]
 
 CSRC = Path(__file__).resolve().parent / "csrc"
@@ -54,6 +54,7 @@ SIGNATURES = {
     "rt_lb_collide": (_P, _P, _P, _L, _F, _F, _F, _F, _I, _P),
     "rt_lb_propagate": (_P, _P, _I, _I, _I, _I, _P),
     "rt_lb_step": (_P, _P, _P, _P, _I, _I, _I, _F, _F, _F, _F, _I, _P),
+    "rt_lb_step_tiled": (_P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _F, _F, _F, _F, _I, _P),
     "rt_ludwig_chem_stress": (_P, _P, _P, _P, _P, _L, _F, _F, _F, _F, _F, _F, _F, _I, _P),
     "rt_ludwig_lc_update": (_P, _P, _P, _P, _P, _L, _F, _F, _F, _F, _I, _P),
     "rt_ludwig_fed": (_P, _P, _P, _L, _F, _F, _F, _F, _I, _P),
@@ -116,7 +117,20 @@ def library() -> ctypes.CDLL:
         fn.restype = ctypes.c_int
     lib.rt_error_string.argtypes = [ctypes.c_int]
     lib.rt_error_string.restype = ctypes.c_char_p
+    lib.rt_smem_per_block_optin.argtypes = [ctypes.c_int]
+    lib.rt_smem_per_block_optin.restype = ctypes.c_int
     return lib
+
+
+@functools.lru_cache(maxsize=None)
+def smem_per_block_optin(device: torch.device) -> int:
+    """The most shared memory one block may opt in to on ``device``
+    (cudaDevAttrMaxSharedMemoryPerBlockOptin), in bytes."""
+    index = device.index if device.index is not None else torch.cuda.current_device()
+    v = library().rt_smem_per_block_optin(index)
+    if v < 0:
+        raise RuntimeError(f"cudaDeviceGetAttribute on {device} failed: CUDA error {-v}")
+    return v
 
 
 def check_tensor(name: str, t: torch.Tensor, shape, device: torch.device) -> None:

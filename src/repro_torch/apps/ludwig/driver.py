@@ -6,8 +6,8 @@ One timestep reproduces the paper's kernel decomposition (§2.1.1):
   (molecular field)           local     H(Q, lap Q)            [K3L]
   Chemical Stress             local     sigma(Q, H, grad Q)    [K3L]
   (force)                     stencil   F = div sigma          [torch ops]
-  Collision                   local     BGK + Guo forcing      [K5L]
-  Propagation                 stencil   streaming              [K5L]
+  Collision                   local     BGK + Guo forcing      [K5L; K9 tiled]
+  Propagation                 stencil   streaming              [K5L; K9 tiled]
   Advection (+ Boundaries)    stencil   upwind div(u Q)        [torch ops]
   LC Update                   local     Beris-Edwards          [K3L]
 
@@ -20,6 +20,10 @@ registered against its hand-written kernel (``csrc/lb.cu``,
 ``csrc/ludwig_flat.cu``); the stencils marked "torch ops" are plain torch
 ops on both engines, as the JAX package computes them with jnp ops outside
 any Pallas kernel.
+
+A shared-memory budget in ``LudwigConfig.target`` (``smem_bytes``, or
+``$TARGETDP_TORCH_SMEM_BYTES``) tiles the LB half-step, the step's one
+stencil graph, which then runs as K9 (``csrc/lb_tiled.cu``).
 
 Not yet ported: the mixed-precision LB storage (``LudwigConfig.storage``
 raises), the plan tuner (``tune_step_graphs``) and the sharded driver
@@ -327,6 +331,13 @@ def _lb_step_cuda(graph, ins, scalars, *, lattice, vvl):
     return {"dist2": dist2, "u": u}
 
 
+def _lb_step_tiled_cuda(graph, ins, scalars, *, lattice, plan):
+    tau = graph.stage_params()[1]["tau"]
+    dist2, u = lbk.lb_step_tiled_cuda(ins["dist"], ins["force"], tau, lattice,
+                                      (plan.bx, plan.by, plan.bz))
+    return {"dist2": dist2, "u": u}
+
+
 def _fed_cuda(ins, params, vvl):
     return {"fed": lck.fed_cuda(ins["q"], ins["dq"], a0=params["a0"],
                                 gamma=params["gamma"], kappa=params["kappa"], vvl=vvl)}
@@ -334,5 +345,6 @@ def _fed_cuda(ins, params, vvl):
 
 register_cuda_graph(chem_stress_graph(LudwigConfig()), _chem_stress_cuda, ("h", "sigma"))
 register_cuda_graph(lc_update_graph(LudwigConfig()), _lc_update_cuda, ("q_new",))
-register_cuda_graph(lb_step_graph(LudwigConfig()), _lb_step_cuda, ("dist2", "u"))
+register_cuda_graph(lb_step_graph(LudwigConfig()), _lb_step_cuda, ("dist2", "u"),
+                    tiled=_lb_step_tiled_cuda)
 register_cuda_body(_fed_body, _fed_cuda)

@@ -1,4 +1,5 @@
-"""Carry Field state between the JAX package and the port.
+"""Carry Field state and lowering plans between the JAX package and the
+port.
 
 A Field crosses as plain numpy data: its physical array, lattice, layout
 name and ncomp.  Physical shapes are the same in both packages, so the
@@ -6,13 +7,14 @@ numbers pass through unchanged (bitwise).  This module does not import the
 JAX package: a caller holding a JAX Field passes ``np.asarray(f.data)``,
 ``f.lattice``, ``f.layout.name`` and ``f.ncomp``; for a Ludwig state, the
 physical arrays of its ``dist`` and ``q`` with their shared lattice and
-layout name.
+layout name.  A plan crosses as the JAX package's
+``LoweringPlan.to_json()`` dictionary (:func:`to_plan`).
 """
 
 from __future__ import annotations
 
 import math
-from typing import Sequence, Tuple
+from typing import Mapping, Sequence, Tuple
 
 import numpy as np
 import torch
@@ -20,8 +22,11 @@ import torch
 from repro_torch.apps.ludwig.driver import LudwigState
 from repro_torch.core.field import Field, resolve_device
 from repro_torch.core.layout import parse_layout
+from repro_torch.core.plan import LoweringPlan
 
-__all__ = ["to_field", "from_field", "to_ludwig_state", "from_ludwig_state"]
+__all__ = ["to_field", "from_field", "to_ludwig_state", "from_ludwig_state", "to_plan"]
+
+_ENGINES = {"pallas": "cuda", "jnp": "torch"}
 
 
 def to_field(name: str, physical: np.ndarray, lattice: Sequence[int],
@@ -59,3 +64,29 @@ def from_ludwig_state(state: LudwigState) -> Tuple[np.ndarray, np.ndarray, Tuple
     dist, lattice, layout_name, _ = from_field(state.dist)
     q, _, _, _ = from_field(state.q)
     return dist, q, lattice, layout_name
+
+
+def to_plan(ref: Mapping) -> LoweringPlan:
+    """The port's plan for a JAX package ``LoweringPlan.to_json()``: engine
+    "pallas" -> "cuda" and "jnp" -> "torch"; vvl, bx, by and bz kept;
+    interpret dropped.  Raises for what the port has not yet ported: a
+    split reduction, the native AoSoA stencil view, the sharded halo
+    strategies and dtype policies."""
+    engine = ref.get("engine", "jnp")
+    if engine not in _ENGINES:
+        raise ValueError(f"unknown reference engine {engine!r}; have {list(_ENGINES)}")
+    bx = int(ref.get("bx", 0))
+    missing = []
+    if int(ref.get("rsplit", 1)) != 1:
+        missing.append(f"rsplit={ref['rsplit']} (split reductions)")
+    if bx and ref.get("view", "auto") == "block":
+        missing.append("view='block' (the native AoSoA stencil lowering)")
+    if ref.get("halo", "periodic") != "periodic":
+        missing.append(f"halo={ref['halo']!r} (the sharded path)")
+    if ref.get("dtypes"):
+        missing.append(f"dtypes={ref['dtypes']!r} (mixed precision)")
+    if missing:
+        raise ValueError(f"reference plan {dict(ref)} uses what is not yet ported: "
+                         + "; ".join(missing))
+    return LoweringPlan(_ENGINES[engine], vvl=int(ref.get("vvl", 0)), bx=bx,
+                        by=int(ref.get("by", 0)), bz=int(ref.get("bz", 0)))

@@ -24,7 +24,14 @@ Engines:
              the hand-written kernel registered for it
              (:func:`register_cuda_graph`) and raises for any other
              signature.  Stage params are not part of the signature: the
-             kernel reads them from the graph.
+             kernel reads them from the graph.  A tiled plan (by or bz set,
+             see ``core.plan``) runs the graph's registered tiled kernel
+             instead, and raises when there is none or when its two window
+             slots exceed the shared memory one block may hold: it never
+             falls back to the untiled kernel or to torch ops.
+
+:func:`tiled_plain` is the tiled lowering in torch ops, tile by tile in the
+tiled kernels' order: the plain version every tiled kernel is held against.
 
 Only ``halo="periodic"`` (single device) is ported; the sharded ``"pre"``
 and ``"overlap"`` strategies raise.  This module also holds K3, the flat
@@ -44,13 +51,14 @@ import torch
 from .._cuda import Kernel, check_tensor
 from .field import Field
 from .layout import Layout
-from .plan import plan_for_launch
+from .plan import (SMEM_PER_BLOCK_OPTIN, LoweringPlan, default_plan,
+                   estimate_smem_bytes, policy_plan)
 from .reduce import fold_partials
-from .stencil import halo_pad
+from .stencil import halo_pad, tile_boxes
 from .target import TargetConfig, TargetKernel, require_cuda
 
 __all__ = ["LaunchGraph", "BoundLaunch", "ReduceSpec", "register_cuda_graph",
-           "cg_update", "cg_xpay", "CG_UPDATE", "CG_XPAY"]
+           "tiled_plain", "cg_update", "cg_xpay", "CG_UPDATE", "CG_XPAY"]
 
 _RED_COMBINE = {"sum": torch.add, "max": torch.maximum}
 _RED_FOLD = {"sum": lambda x, dim: x.sum(dim=dim),
@@ -115,18 +123,20 @@ class _Stage:
                 tuple(k for k, _ in self.params))
 
 
-# LaunchGraph.structure() -> (impl, outputs the kernel produces)
-_CUDA_GRAPHS: Dict[tuple, Tuple[Callable, Tuple[str, ...]]] = {}
+# LaunchGraph.structure() -> (impl, outputs the kernels produce, tiled impl)
+_CUDA_GRAPHS: Dict[tuple, Tuple[Callable, Tuple[str, ...], Optional[Callable]]] = {}
 
 
 def register_cuda_graph(graph: "LaunchGraph", impl: Callable,
-                        outputs: Sequence[str]) -> None:
+                        outputs: Sequence[str],
+                        tiled: Optional[Callable] = None) -> None:
     """Run ``impl(graph, ins, scalars, lattice=, vvl=)`` for every graph of
-    ``graph``'s structure on the cuda engine.  ``ins`` maps value names to
-    canonical (ncomp, nsites) SoA tensors, ``scalars`` to 0-d device
-    tensors; ``impl`` returns every name in ``outputs`` (fields canonical,
-    reductions (ncomp,))."""
-    _CUDA_GRAPHS[graph.structure()] = (impl, tuple(outputs))
+    ``graph``'s structure on the cuda engine, and ``tiled(graph, ins,
+    scalars, lattice=, plan=)`` under a tiled plan.  ``ins`` maps value
+    names to canonical (ncomp, nsites) SoA tensors, ``scalars`` to 0-d
+    device tensors; both return every name in ``outputs`` (fields
+    canonical, reductions (ncomp,))."""
+    _CUDA_GRAPHS[graph.structure()] = (impl, tuple(outputs), tiled)
 
 
 class LaunchGraph:
@@ -328,13 +338,14 @@ class LaunchGraph:
     def bind(self, *, config: Optional[TargetConfig] = None,
              outputs: Optional[Sequence[str]] = None,
              out_layouts: Optional[Mapping[str, Layout]] = None,
-             halo: str = "periodic") -> "BoundLaunch":
+             halo: str = "periodic",
+             plan: Optional[LoweringPlan] = None) -> "BoundLaunch":
         """Freeze the launch keywords into a reusable callable."""
         return BoundLaunch(
             self, config=config,
             outputs=tuple(outputs) if outputs is not None else None,
             out_layouts=dict(out_layouts) if out_layouts else None,
-            halo=halo)
+            halo=halo, plan=plan)
 
     def launch(
         self,
@@ -345,6 +356,7 @@ class LaunchGraph:
         scalars: Optional[Mapping] = None,
         out_layouts: Optional[Mapping[str, Layout]] = None,
         halo: str = "periodic",
+        plan: Optional[LoweringPlan] = None,
     ) -> Dict[str, Union[Field, torch.Tensor]]:
         """Execute the fused chain.
 
@@ -357,6 +369,8 @@ class LaunchGraph:
         out_layouts graph output name -> Layout (default: first input's).
         halo        "periodic" (single device); "pre"/"overlap" are not yet
                     ported.
+        plan        explicit LoweringPlan for this launch (overrides
+                    config.plan_policy).
         """
         if not self._stages:
             raise ValueError("LaunchGraph has no stages")
@@ -418,16 +432,34 @@ class LaunchGraph:
                     nc = ins[src].ncomp
             out_info[o] = (int(nc), dt or first.dtype)
 
+        # the footprint descriptor the shared-memory planner prices a
+        # stencil launch by: (ncomp, ring, itemsize) per input, (ncomp,
+        # itemsize) per field output
+        smem_views = None
+        if stencil:
+            need = self._required_rings(outputs)
+            smem_views = (
+                tuple((ins[n].ncomp, need.get(n, 0), ins[n].data.element_size())
+                      for n in ordered_ins),
+                tuple((out_info[o][0], out_info[o][1].itemsize) for o in field_outputs))
+
         all_layouts = ([ins[n].layout for n in ordered_ins]
                        + [out_layouts[o] for o in field_outputs])
-        plan = plan_for_launch(config, nsites, all_layouts)
+        if plan is None:
+            plan = policy_plan(config)
+        if plan is None:
+            plan = default_plan(config, nsites=nsites, layouts=all_layouts,
+                                stencil=stencil, lattice=lattice, smem_views=smem_views)
+        else:
+            plan.validate(nsites=nsites, lattice=lattice, layouts=all_layouts,
+                          stencil=stencil)
 
         if plan.engine == "torch":
             vals = self._launch_torch(ins, ordered_ins, scalars, ordered_scalars,
                                       outputs, stencil, lattice, first)
         else:
             vals = self._launch_cuda(ins, ordered_ins, scalars, ordered_scalars,
-                                     outputs, lattice, plan, first)
+                                     outputs, lattice, plan, first, smem_views)
 
         out: Dict[str, Union[Field, torch.Tensor]] = {}
         for o in outputs:
@@ -470,14 +502,19 @@ class LaunchGraph:
         return {o: res[o] for o in outputs}
 
     def _launch_cuda(self, ins, ordered_ins, scalars, ordered_scalars,
-                     outputs, lattice, plan, first) -> Dict[str, torch.Tensor]:
+                     outputs, lattice, plan, first, smem_views) -> Dict[str, torch.Tensor]:
         entry = _CUDA_GRAPHS.get(self.structure())
-        if entry is None:
+        if plan.tiled:
+            impl, produces = self._tiled_entry(entry, plan, lattice, smem_views)
+            kw = dict(lattice=lattice, plan=plan)
+        elif entry is None:
             raise ValueError(
                 f"cuda engine: no hand-written CUDA kernel is registered for "
                 f"the signature of graph {self.name!r} (register one with "
                 f"register_cuda_graph, or use engine='torch')")
-        impl, produces = entry
+        else:
+            impl, produces, _ = entry
+            kw = dict(lattice=lattice, vvl=plan.vvl)
         extra = [o for o in outputs if o not in produces]
         if extra:
             raise ValueError(
@@ -494,8 +531,27 @@ class LaunchGraph:
             else:
                 v = torch.tensor(float(v), dtype=first.dtype, device=first.device)
             svals[n] = v.contiguous()
-        return impl(self, {n: ins[n].data for n in ordered_ins}, svals,
-                    lattice=lattice, vvl=plan.vvl)
+        return impl(self, {n: ins[n].data for n in ordered_ins}, svals, **kw)
+
+    def _tiled_entry(self, entry, plan, lattice, smem_views):
+        """(tiled impl, outputs) for a tiled plan, after the plan-time checks:
+        the two window slots must fit one block's shared memory, and the
+        graph must have a registered tiled kernel."""
+        window = estimate_smem_bytes(plan, lattice=lattice, in_views=smem_views[0])
+        what = (f"tiled plan {plan.describe(footprint=window)} on lattice "
+                f"{tuple(lattice)} ({window} B of window slots a block; the "
+                f"limit is {SMEM_PER_BLOCK_OPTIN} B)")
+        if window > SMEM_PER_BLOCK_OPTIN:
+            raise ValueError(
+                f"cuda engine: graph {self.name!r} under {what}: the two halo'd "
+                f"windows exceed the shared memory one block may opt in to on "
+                f"the H100; choose smaller tiles")
+        if entry is None or entry[2] is None:
+            raise ValueError(
+                f"cuda engine: no hand-written tiled kernel is registered for "
+                f"graph {self.name!r} under {what}; its tiled lowering is still "
+                f"to be ported (ROADMAP queue 2, item 8)")
+        return entry[2], entry[1]
 
     def _run_stages(self, values: Dict[str, torch.Tensor]) -> Tuple[
             Dict[str, torch.Tensor], Dict[str, torch.Tensor]]:
@@ -631,12 +687,14 @@ class BoundLaunch:
     outputs: Optional[Tuple[str, ...]] = None
     out_layouts: Optional[Mapping[str, Layout]] = None
     halo: str = "periodic"
+    plan: Optional[LoweringPlan] = None
 
     def __call__(self, ins: Dict[str, Field], *, scalars: Optional[Mapping] = None,
                  config: Optional[TargetConfig] = None,
                  outputs: Optional[Sequence[str]] = None,
                  out_layouts: Optional[Mapping[str, Layout]] = None,
-                 halo: Optional[str] = None):
+                 halo: Optional[str] = None,
+                 plan: Optional[LoweringPlan] = None):
         layouts = dict(self.out_layouts or {})
         if out_layouts:
             layouts.update(out_layouts)
@@ -647,7 +705,58 @@ class BoundLaunch:
             scalars=scalars,
             out_layouts=layouts or None,
             halo=halo if halo is not None else self.halo,
+            plan=plan if plan is not None else self.plan,
         )
+
+
+def tiled_plain(graph: LaunchGraph, values: Mapping[str, torch.Tensor],
+                lattice: Sequence[int], bx: int, by: int = 0, bz: int = 0, *,
+                outputs: Optional[Sequence[str]] = None) -> Dict[str, torch.Tensor]:
+    """The tiled stencil lowering in torch ops: the plain version of every
+    tiled kernel (the counterpart of the JAX package's interpret-mode tiled
+    ``fused_kernel`` with ``finish_tile``).
+
+    values   graph value name -> canonical (ncomp, *lattice) tensor, or a
+             runtime scalar (a number or a 0-d tensor).
+    Returns  output name -> canonical (ncomp, *lattice) tensor for fields,
+             (ncomp,) for reductions.
+
+    For each tile of :func:`tile_boxes` (x-slab outermost, z-tile fastest)
+    it cuts the halo'd window from the periodic-padded inputs, runs the
+    graph's stages on it, writes the interior tile and folds each
+    reduction's per-tile partial into the running result in tile order."""
+    lattice = tuple(int(s) for s in lattice)
+    ndim = len(lattice)
+    if outputs is None:
+        outputs = [v for (_, v, _, _) in graph._stages[-1].outs]
+    outputs = tuple(outputs)
+    combine = {o: spec.combine for o, spec in graph.reduce_specs().items()}
+    need = graph._required_rings(outputs)
+    fields = {n: v for n, v in values.items()
+              if isinstance(v, torch.Tensor) and v.dim() == ndim + 1}
+    first = next(iter(fields.values()))
+    padded = {n: (halo_pad(v, need.get(n, 0), range(1, ndim + 1)), need.get(n, 0))
+              for n, v in fields.items()}
+    scalars = {n: (torch.as_tensor(v, dtype=first.dtype, device=first.device).reshape(1, 1),
+                   None) for n, v in values.items() if n not in fields}
+    res: Dict[str, torch.Tensor] = {}
+    for box in tile_boxes(lattice, bx, by, bz):
+        win = dict(scalars)
+        for n, (arr, ring) in padded.items():
+            win[n] = (arr[(slice(None),) + tuple(slice(s, s + e + 2 * ring)
+                                                 for s, e in box)], ring)
+        win, partials = graph._run_stages_nd(win, ndim)
+        for o in outputs:
+            if o in combine:
+                res[o] = combine[o](res[o], partials[o]) if o in res else partials[o]
+                continue
+            arr, ring = win[o]
+            if o not in res:
+                res[o] = torch.empty((arr.shape[0],) + lattice, dtype=arr.dtype,
+                                     device=arr.device)
+            res[o][(slice(None),) + tuple(slice(s, s + e) for s, e in box)] = \
+                _crop_ring(arr, ring, 0)
+    return res
 
 
 # -- K3: the flat fused CG kernels ------------------------------------------------

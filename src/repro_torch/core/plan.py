@@ -1,34 +1,60 @@
 """Lowering plans: every launch decision as one explicit, hashable value.
 
-The subset the single-device MILC solve needs.  A :class:`LoweringPlan`
-names the engine and the block size:
+A :class:`LoweringPlan` names the engine, the block size and, for stencil
+graphs, the tiles:
 
   engine "torch"  whole-lattice torch ops (the counterpart of the JAX
                   package's "jnp" engine, and the oracle);
   engine "cuda"   the hand-written kernels under ``repro_torch/csrc``.
-  vvl             sites per CUDA block (one thread per site).  Unused by
-                  the torch engine.
+  vvl             sites per CUDA block of the untiled kernels (one thread
+                  per site).  Unused by the torch engine and by tiled plans.
+  bx, by, bz      the tiled stencil lowering: each tile is bx x-planes by
+                  by y-rows by bz z-sites (0 = the whole axis); every further
+                  lattice dim is whole.  A plan with by or bz set is *tiled*:
+                  the cuda engine runs the graph's tiled kernel, whose blocks
+                  copy each tile's halo'd window into shared memory.  A plan
+                  without them runs the untiled kernel, which ignores bx.
 
-The TPU-only decisions of the JAX package (interpret mode, the VMEM budget
-and its tiles, x-slabs, canonical views, split reductions, dtype policies)
-have no meaning here or are not yet ported, and so are explicit and
-autotuned plan policies.
+The shared-memory budget (``TargetConfig.smem_bytes`` or
+``$TARGETDP_TORCH_SMEM_BYTES``) makes :func:`default_plan` tile a stencil
+launch whose whole-lattice staging would exceed it.  The footprint model
+(:func:`estimate_smem_bytes`) and the planners (:func:`choose_slab`,
+:func:`choose_tiles`) are the JAX package's VMEM ones, so both packages pick
+the same tiles from the same budget.  Without a budget every plan is the
+untiled one.
+
+Not yet ported: split reductions (rsplit), canonical views, dtype policies,
+the halo strategies of the sharded path and the autotuned plan policy.
 """
 
 from __future__ import annotations
 
 import dataclasses
 import functools
+import logging
+import math
+import os
 from typing import Optional, Sequence, Tuple
 
 from .layout import Layout, LayoutKind
 
-__all__ = ["LoweringPlan", "divisors", "choose_vvl", "default_plan",
-           "plan_for_launch", "ENGINES", "WARP", "MAX_BLOCK"]
+__all__ = ["LoweringPlan", "divisors", "choose_vvl", "choose_slab", "choose_tiles",
+           "tile_extents", "estimate_smem_bytes", "resolved_smem_bytes",
+           "default_plan", "plan_for_launch", "policy_plan", "ENGINES", "WARP",
+           "MAX_BLOCK", "SMEM_ENV", "SMEM_PER_BLOCK_OPTIN"]
+
+log = logging.getLogger(__name__)
 
 ENGINES = ("torch", "cuda")
 WARP = 32          # a CUDA block is a whole number of warps
 MAX_BLOCK = 1024   # the most threads one CUDA block may hold
+# the port's own shared-memory budget variable ($TARGETDP_VMEM_BYTES is the
+# JAX package's); unset or empty means unbounded
+SMEM_ENV = "TARGETDP_TORCH_SMEM_BYTES"
+# the most shared memory one block may opt in to on the H100
+# (cudaDevAttrMaxSharedMemoryPerBlockOptin); the tiled kernels check the
+# device's own value again at their first launch
+SMEM_PER_BLOCK_OPTIN = 232448
 
 
 @functools.lru_cache(maxsize=4096)
@@ -68,52 +94,270 @@ def choose_vvl(nsites: int, preferred: int = 128, multiple_of: int = 1) -> int:
     )
 
 
+@functools.lru_cache(maxsize=4096)
+def choose_slab(x_dim: int, inner_sites: int, vvl: int, site_bytes: int = 0,
+                smem_bytes: Optional[int] = None) -> int:
+    """The largest divisor ``bx`` of the leading lattice dim whose slab
+    (bx * inner_sites sites) stays within ``max(vvl, inner_sites)`` sites,
+    further capped at ``smem_bytes // site_bytes`` sites when a byte budget
+    is given (``site_bytes``: the launch's input + output bytes a site).
+    A single x-plane (bx = 1) is always valid."""
+    budget = max(int(vvl), inner_sites)
+    if smem_bytes and site_bytes:
+        budget = min(budget, max(smem_bytes // site_bytes, 1))
+    best = 1
+    for bx in divisors(x_dim):
+        if bx * inner_sites <= budget:
+            best = bx
+    return best
+
+
+def tile_extents(lattice: Sequence[int], bx: int, by: int = 0,
+                 bz: int = 0) -> Tuple[int, ...]:
+    """Per-dim tile extents: ``bx`` planes on the leading dim, ``by``/``bz``
+    on the next two when set (0 = whole axis), every further dim whole."""
+    ext = [bx or lattice[0]]
+    if len(lattice) > 1:
+        ext.append(by or lattice[1])
+    if len(lattice) > 2:
+        ext.append(bz or lattice[2])
+    ext.extend(lattice[3:])
+    return tuple(ext)
+
+
+def resolved_smem_bytes(config) -> Optional[int]:
+    """The shared-memory byte budget in effect: an explicit
+    ``TargetConfig.smem_bytes`` wins, else ``$TARGETDP_TORCH_SMEM_BYTES``,
+    else None (unbounded).  0 means unbounded; a non-integer variable is
+    ignored with a warning."""
+    sb = getattr(config, "smem_bytes", None)
+    if sb is not None:
+        return int(sb) or None
+    env = os.environ.get(SMEM_ENV, "")
+    if env:
+        try:
+            return int(env) or None
+        except ValueError:
+            log.warning("ignoring non-integer $%s=%r", SMEM_ENV, env)
+    return None
+
+
+def estimate_smem_bytes(plan: "LoweringPlan", *, lattice: Sequence[int],
+                        in_views: Sequence[Tuple[int, int, int]],
+                        out_views: Sequence[Tuple[int, int]] = ()) -> int:
+    """The JAX package's per-program footprint model of a stencil launch,
+    in bytes.
+
+    in_views    (ncomp, halo ring, itemsize) per external input
+    out_views   (ncomp, itemsize) per field output
+
+    Untiled plans stage every input whole (the halo'd lattice) plus one
+    output slab.  Tiled plans hold two halo'd tile windows per input (the
+    double-buffered copy slots) plus one output tile.  With no
+    ``out_views`` the tiled figure is the two window slots alone, which is
+    what a tiled cuda kernel allocates: its outputs go from registers to
+    device memory."""
+    bx = plan.bx or lattice[0]
+    tiled = bool(plan.by or plan.bz)
+    total = 0
+    for ncomp, ring, isz in in_views:
+        if tiled:
+            win = [s + 2 * ring for s in tile_extents(lattice, bx, plan.by, plan.bz)]
+            total += 2 * ncomp * math.prod(win) * isz
+        else:
+            total += ncomp * math.prod(s + 2 * ring for s in lattice) * isz
+    tile_sites = math.prod(tile_extents(lattice, bx, plan.by, plan.bz))
+    for ncomp, isz in out_views:
+        total += ncomp * tile_sites * isz
+    return total
+
+
+def choose_tiles(lattice: Sequence[int], bx: int, *,
+                 in_views: Sequence[Tuple[int, int, int]],
+                 out_views: Sequence[Tuple[int, int]],
+                 smem_bytes: int) -> Tuple[int, int]:
+    """The largest (by, bz) tile whose estimated footprint fits the budget,
+    preferring to keep the minor (z) axis whole on ties.  (0, 0) when the
+    untiled staging already fits; the finest tile when nothing fits."""
+
+    def fp(by, bz):
+        probe = LoweringPlan("cuda", bx=bx, by=by, bz=bz)
+        return estimate_smem_bytes(probe, lattice=lattice, in_views=in_views,
+                                   out_views=out_views)
+
+    if fp(0, 0) <= smem_bytes:
+        return (0, 0)
+    bys = list(divisors(lattice[1])) if len(lattice) > 1 else [0]
+    bzs = list(divisors(lattice[2])) if len(lattice) > 2 else [0]
+    pairs = [(by, bz) for by in bys for bz in bzs]
+    pairs.sort(key=lambda p: ((p[0] or 1) * (p[1] or 1), p[1] or 1), reverse=True)
+    for by, bz in pairs:
+        by_eff = 0 if (len(lattice) > 1 and by == lattice[1]) else by
+        bz_eff = 0 if (len(lattice) > 2 and bz == lattice[2]) else bz
+        if not (by_eff or bz_eff):
+            continue  # the untiled probe already failed
+        if fp(by_eff, bz_eff) <= smem_bytes:
+            return (by_eff, bz_eff)
+    return (1 if len(lattice) > 1 and lattice[1] > 1 else 0,
+            1 if len(lattice) > 2 and lattice[2] > 1 else 0)
+
+
 @dataclasses.dataclass(frozen=True)
 class LoweringPlan:
-    """One launch's lowering decisions: the engine and the block size."""
+    """One launch's lowering decisions: the engine, the block size and the
+    stencil tiles (0 = whole axis)."""
 
     engine: str = "torch"
     vvl: int = 0
+    bx: int = 0
+    by: int = 0
+    bz: int = 0
+
+    @property
+    def tiled(self) -> bool:
+        return bool(self.by or self.bz)
+
+    def to_json(self) -> dict:
+        return dataclasses.asdict(self)
+
+    @classmethod
+    def from_json(cls, d: dict) -> "LoweringPlan":
+        known = {f.name for f in dataclasses.fields(cls)}
+        return cls(**{k: v for k, v in d.items() if k in known})
+
+    def describe(self, footprint: Optional[int] = None) -> str:
+        """Short label; ``footprint`` (bytes, from
+        :func:`estimate_smem_bytes`) appends the shared memory a block
+        needs."""
+        fp = f" [~{footprint / 1024:.0f}KiB/block]" if footprint else ""
+        if self.engine != "cuda":
+            return self.engine + fp
+        knob = f"bx={self.bx}" if self.bx else f"vvl={self.vvl}"
+        tile = (f"/ty{self.by}" if self.by else "") + (f"/tz{self.bz}" if self.bz else "")
+        return f"cuda/{knob}{tile}{fp}"
 
     def validate(
         self,
         *,
         nsites: Optional[int] = None,
+        lattice: Optional[Tuple[int, ...]] = None,
         layouts: Sequence[Layout] = (),
+        stencil: bool = False,
     ) -> "LoweringPlan":
         """Check this plan against a concrete launch; raises ValueError with
         the violated rule.  Returns self (chainable)."""
         if self.engine not in ENGINES:
             raise ValueError(f"unknown engine {self.engine!r}; have {ENGINES}")
+        if min(self.bx, self.by, self.bz) < 0:
+            raise ValueError(
+                f"tile extents must be >= 0 (0 = whole axis), got bx={self.bx} "
+                f"by={self.by} bz={self.bz}")
         if self.engine == "torch":
+            if self.tiled:
+                raise ValueError(
+                    "by/bz tile the cuda stencil grid; the torch engine runs "
+                    "whole-lattice ops and has no grid to tile")
             return self
+        for lay in layouts:
+            if lay.kind is not LayoutKind.SOA:
+                raise ValueError(
+                    f"the cuda engine's kernels take SoA fields only; layout "
+                    f"{lay.name} is not yet ported")
+        if not stencil:
+            if self.bx:
+                raise ValueError(f"site-local lowering takes no x-slab (bx={self.bx})")
+            if self.tiled:
+                raise ValueError(
+                    f"site-local lowering takes no y/z tiles (by={self.by}, "
+                    f"bz={self.bz}); tiles partition the halo'd stencil grid")
+        else:
+            self._validate_tiles(lattice)
+        if self.tiled:
+            return self  # the tiled kernels choose their own block size
         if self.vvl < WARP or self.vvl % WARP or self.vvl > MAX_BLOCK:
             raise ValueError(
                 f"vvl={self.vvl} sites per CUDA block must be a multiple of "
                 f"{WARP} in [{WARP}, {MAX_BLOCK}]")
         if nsites is not None and nsites % self.vvl:
             raise ValueError(f"vvl={self.vvl} must divide nsites={nsites}")
-        for lay in layouts:
-            if lay.kind is not LayoutKind.SOA:
-                raise ValueError(
-                    f"the cuda engine's kernels take SoA fields only; layout "
-                    f"{lay.name} is not yet ported")
         return self
 
+    def _validate_tiles(self, lattice: Optional[Tuple[int, ...]]) -> None:
+        for d, name, ext in ((1, "by", self.by), (2, "bz", self.bz)):
+            if not ext or lattice is None:
+                continue
+            if len(lattice) <= d:
+                raise ValueError(
+                    f"{name}={ext} tiles lattice dim {d}, but the lattice "
+                    f"{lattice} has no {'yz'[d - 1]} axis")
+            if lattice[d] % ext:
+                raise ValueError(
+                    f"{name}={ext} must divide the {'yz'[d - 1]} lattice dim "
+                    f"{lattice[d]} so the tile cover is exact and disjoint")
+        if self.tiled and self.bx < 1:
+            raise ValueError(
+                f"a tiled stencil plan needs an x-slab bx >= 1, got plan "
+                f"{self.describe()}")
+        if self.bx and lattice is not None and lattice[0] % self.bx:
+            raise ValueError(
+                f"bx={self.bx} must divide the leading lattice dim {lattice[0]}")
 
-def default_plan(config, *, nsites: int, layouts: Sequence[Layout]) -> LoweringPlan:
-    """The heuristic plan: the torch engine lowers whole-lattice; the cuda
+
+def _site_bytes(smem_views) -> int:
+    """Input + output bytes a site, from a (in_views, out_views)
+    footprint descriptor (see :func:`estimate_smem_bytes`)."""
+    in_views, out_views = smem_views
+    return (sum(ncomp * isz for ncomp, _ring, isz in in_views)
+            + sum(ncomp * isz for ncomp, isz in out_views))
+
+
+def default_plan(config, *, nsites: int, layouts: Sequence[Layout],
+                 stencil: bool = False, lattice: Optional[Tuple[int, ...]] = None,
+                 smem_views=None) -> LoweringPlan:
+    """The heuristic plan.  The torch engine lowers whole-lattice; the cuda
     engine takes the largest whole-warp block size <= ``config.vvl`` that
-    divides the lattice."""
+    divides the lattice.  A cuda stencil launch with a shared-memory budget
+    and its footprint descriptor ``smem_views = (in_views, out_views)``
+    also gets bx from :func:`choose_slab` and (by, bz) from
+    :func:`choose_tiles`; without a budget the plan is the untiled one."""
     if config.engine == "torch":
         return LoweringPlan("torch")
     if config.engine != "cuda":
         raise ValueError(f"unknown engine {config.engine!r}; have {ENGINES}")
     vvl = choose_vvl(nsites, max(config.vvl, WARP), multiple_of=WARP)
+    budget = resolved_smem_bytes(config) if stencil else None
+    if budget and smem_views:
+        if lattice is None:
+            raise ValueError("stencil plans need the lattice shape")
+        bx = choose_slab(lattice[0], math.prod(lattice[1:]), config.vvl,
+                         _site_bytes(smem_views), budget)
+        by, bz = choose_tiles(lattice, bx, in_views=smem_views[0],
+                              out_views=smem_views[1], smem_bytes=budget)
+        return LoweringPlan("cuda", vvl=vvl, bx=bx, by=by, bz=bz).validate(
+            nsites=nsites, lattice=lattice, layouts=layouts, stencil=True)
     return LoweringPlan("cuda", vvl=vvl).validate(nsites=nsites, layouts=layouts)
 
 
+def policy_plan(config) -> Optional[LoweringPlan]:
+    """The explicit plan of ``config.plan_policy``, or None for "default"."""
+    policy = getattr(config, "plan_policy", "default")
+    if isinstance(policy, LoweringPlan):
+        return policy
+    if policy == "tuned":
+        raise ValueError(
+            "plan_policy='tuned' (the plan autotuner, ROADMAP item 19) is not "
+            "yet ported; use 'default' or an explicit LoweringPlan")
+    if policy != "default":
+        raise ValueError(
+            f"unknown plan_policy {policy!r}; use 'default' or an explicit "
+            f"LoweringPlan")
+    return None
+
+
 def plan_for_launch(config, nsites: int, layouts: Sequence[Layout]) -> LoweringPlan:
-    """Plan one launch: :func:`default_plan` (explicit and autotuned plan
-    policies are not yet ported)."""
+    """Plan one site-local launch: the explicit plan of
+    ``config.plan_policy`` (validated) or :func:`default_plan`."""
+    plan = policy_plan(config)
+    if plan is not None:
+        return plan.validate(nsites=nsites, layouts=layouts)
     return default_plan(config, nsites=nsites, layouts=layouts)

@@ -7,11 +7,49 @@ stencil kernels are held against.  Convention: ``out(r) = in(r - disp)``.
 
 from __future__ import annotations
 
-from typing import Sequence
+import math
+from typing import List, Sequence, Tuple
 
 import torch
 
-__all__ = ["shift_periodic", "halo_pad", "interior"]
+__all__ = ["shift_periodic", "halo_pad", "interior", "tile_boxes"]
+
+
+def tile_boxes(lattice: Sequence[int], bx: int, by: int = 0,
+               bz: int = 0) -> List[Tuple[Tuple[int, int], ...]]:
+    """The tile cover of a tiled stencil lowering (``LoweringPlan``
+    bx/by/bz): one box per tile, each a per-dim ``(start, extent)`` tuple
+    over the interior lattice.  ``by``/``bz`` of 0 mean the whole axis;
+    every extent must divide its dim, so the cover is exact and disjoint.
+    The order is the tiled kernels' linear tile order: x-slab outermost,
+    z-tiles fastest (tile t = (i * nty + j) * ntz + k)."""
+    lattice = tuple(int(s) for s in lattice)
+    exts = []
+    for d, s in enumerate(lattice):
+        if d == 0:
+            exts.append(int(bx))
+        elif d == 1 and by:
+            exts.append(int(by))
+        elif d == 2 and bz:
+            exts.append(int(bz))
+        else:
+            exts.append(s)
+    counts = []
+    for d, e in enumerate(exts):
+        if e <= 0 or lattice[d] % e:
+            raise ValueError(
+                f"tile extent {e} does not divide lattice[{d}]={lattice[d]}")
+        counts.append(lattice[d] // e)
+    boxes = []
+    idx = [0] * len(lattice)
+    for _ in range(math.prod(counts)):
+        boxes.append(tuple((idx[d] * exts[d], exts[d]) for d in range(len(lattice))))
+        for d in reversed(range(len(lattice))):  # z fastest
+            idx[d] += 1
+            if idx[d] < counts[d]:
+                break
+            idx[d] = 0
+    return boxes
 
 
 def shift_periodic(x_nd: torch.Tensor, disp: Sequence[int]) -> torch.Tensor:

@@ -29,7 +29,7 @@ import torch
 from .._cuda import Kernel, check_tensor
 from .field import Field
 from .layout import Layout
-from .plan import LoweringPlan, plan_for_launch
+from .plan import LoweringPlan, plan_for_launch, resolved_smem_bytes
 
 __all__ = ["TargetConfig", "TargetKernel", "kernel", "launch",
            "register_cuda_body", "require_cuda", "site_g5", "site_mul",
@@ -44,11 +44,22 @@ class TargetConfig:
     device       where the drivers place the Fields they create ("cuda" or
                  "cpu"); a CUDA device with no card present raises.
     vvl          sites per CUDA block (the paper's Virtual Vector Length).
+    plan_policy  "default" (core.plan.default_plan) or an explicit
+                 LoweringPlan for every launch; "tuned" is not yet ported.
+    smem_bytes   shared-memory byte budget of a stencil launch's block.  None
+                 defers to $TARGETDP_TORCH_SMEM_BYTES, 0 means unbounded; a
+                 budget makes the default plans tile stencil launches whose
+                 whole-lattice staging would exceed it.
     """
 
     engine: str = "cuda"
     device: str = "cuda"
     vvl: int = 128
+    plan_policy: Union[str, LoweringPlan] = "default"
+    smem_bytes: Optional[int] = None
+
+    def resolved_smem_bytes(self) -> Optional[int]:
+        return resolved_smem_bytes(self)
 
 
 def require_cuda(what: str, t: torch.Tensor) -> None:

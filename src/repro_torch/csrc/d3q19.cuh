@@ -1,5 +1,6 @@
 // The D3Q19 velocity set and the BGK collision with Guo forcing at one site,
-// shared by lb.cu's K7 (collide) and K5L (the fused LB step).
+// shared by lb.cu's K7 (collide) and K5L (the fused LB step) and by
+// lb_tiled.cu's K9 (the tiled LB step).
 //
 // The tables are Ludwig's ordering (maths/d3q19.py): rest, 6 faces, 12
 // edges.  They are compile-time constants: every loop over velocities is
@@ -20,15 +21,19 @@
 
 #define RT_NVEL 19
 
+// The velocity table c_ia, row i, as an initializer.
+#define RT_D3Q19_CV                                                    \
+  {                                                                    \
+    {0, 0, 0},                                                         \
+    {1, 0, 0},  {-1, 0, 0}, {0, 1, 0},  {0, -1, 0}, {0, 0, 1},  {0, 0, -1}, \
+    {1, 1, 0},  {1, -1, 0}, {-1, 1, 0}, {-1, -1, 0},                   \
+    {1, 0, 1},  {1, 0, -1}, {-1, 0, 1}, {-1, 0, -1},                   \
+    {0, 1, 1},  {0, 1, -1}, {0, -1, 1}, {0, -1, -1},                   \
+  }
+
 // c_ia of velocity i on axis a (constant once the caller's loops unroll).
 __host__ __device__ constexpr int rt_cv(int i, int a) {
-  constexpr int t[RT_NVEL][3] = {
-      {0, 0, 0},
-      {1, 0, 0},  {-1, 0, 0}, {0, 1, 0},  {0, -1, 0}, {0, 0, 1},  {0, 0, -1},
-      {1, 1, 0},  {1, -1, 0}, {-1, 1, 0}, {-1, -1, 0},
-      {1, 0, 1},  {1, 0, -1}, {-1, 0, 1}, {-1, 0, -1},
-      {0, 1, 1},  {0, 1, -1}, {0, -1, 1}, {0, -1, -1},
-  };
+  constexpr int t[RT_NVEL][3] = RT_D3Q19_CV;
   return t[i][a];
 }
 
@@ -45,6 +50,15 @@ struct rt_lb_params {
   float omega;
   float pw[3];
 };
+
+static inline rt_lb_params rt_make_lb_params(float omega, float pw0, float pw1, float pw2) {
+  rt_lb_params p;
+  p.omega = omega;
+  p.pw[0] = pw0;
+  p.pw[1] = pw1;
+  p.pw[2] = pw2;
+  return p;
+}
 
 // Periodic neighbour coordinate v + d for |d| <= 1 on an axis of extent n >= 1.
 __device__ __forceinline__ int rt_wrap(int v, int n) {

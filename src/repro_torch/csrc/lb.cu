@@ -112,15 +112,6 @@ __global__ void lb_step_kernel(const float* __restrict__ f, const float* __restr
   }
 }
 
-static inline rt_lb_params rt_make_lb_params(float omega, float pw0, float pw1, float pw2) {
-  rt_lb_params p;
-  p.omega = omega;
-  p.pw[0] = pw0;
-  p.pw[1] = pw1;
-  p.pw[2] = pw2;
-  return p;
-}
-
 extern "C" {
 
 // f, out: (19, V) SoA; force: (3, V) SoA.

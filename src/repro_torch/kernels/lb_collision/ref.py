@@ -35,6 +35,18 @@ def _cdot(c, vec3):
     return out
 
 
+def _density(f: torch.Tensor) -> torch.Tensor:
+    """rho = sum_i f_i, added in velocity order.  ``torch.sum`` over the
+    velocity axis rounds differently with the number of sites in the chunk
+    (its vectorized reduction handles a ragged tail apart), so the same
+    site would get other bits under another tiling; the JAX package's
+    ``jnp.sum`` adds in this order."""
+    rho = f[0]
+    for i in range(1, f.shape[0]):
+        rho = rho + f[i]
+    return rho
+
+
 def _momentum(f: torch.Tensor):
     """sum_i c_i f_i per axis, unrolled in velocity order."""
     mom = [None, None, None]
@@ -54,7 +66,7 @@ def collide_chunk(f: torch.Tensor, force: torch.Tensor, tau: float) -> torch.Ten
     tau    relaxation time (static)
     returns (19, L) post-collision distributions
     """
-    rho = torch.sum(f, dim=0)
+    rho = _density(f)
     mom = _momentum(f)
     frc = [force[a] for a in range(3)]
     u = [(mom[a] + 0.5 * frc[a]) / rho for a in range(3)]
@@ -82,7 +94,7 @@ def collide_ref(f: torch.Tensor, force: torch.Tensor, tau: float) -> torch.Tenso
 
 def moments(f: torch.Tensor):
     """(rho, u (3, N)) hydrodynamic moments of (19, N) distributions."""
-    rho = torch.sum(f, dim=0)
+    rho = _density(f)
     mom = _momentum(f)
     u = torch.stack([mom[a] / rho for a in range(3)])
     return rho, u

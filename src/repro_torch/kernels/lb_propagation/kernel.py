@@ -1,5 +1,6 @@
 """CUDA wrappers for D3Q19 streaming: K8 (propagation) and K5L (the fused
-LB step), both in ``csrc/lb.cu``, each beside its plain PyTorch version.
+LB step), both in ``csrc/lb.cu``, and K9 (the tiled LB step,
+``csrc/lb_tiled.cu``), each beside its plain PyTorch version.
 
 K8 replaces ``kernels/lb_propagation/kernel.py::propagate_pallas`` of the
 JAX package: a pull gather ``out_i(r) = f_i(r - c_i)`` with the periodic
@@ -12,6 +13,13 @@ without u, for ``lb_collide_propagate``.  It streams by push: each site's
 thread collides in registers and writes its post-collision values to the
 neighbours, so the post-collision distributions never reach device memory.
 
+K9 replaces the same function's ``dma_kernel`` for both graphs under a
+tiled plan: persistent blocks copy each (bx, by, bz) tile's halo'd window
+of dist and force into one of two shared-memory slots with ``cp.async``
+while the previous tile computes, collide the whole window in place and
+pull-stream the interior.  Its plain version is ``core.fuse.tiled_plain``
+on the collide -> propagate graph, and its fields equal K5L's bitwise.
+
 On a CPU tensor each wrapper returns its plain version; on a CUDA tensor it
 launches its kernel or raises.
 """
@@ -23,16 +31,21 @@ from typing import Optional, Sequence, Tuple
 
 import torch
 
-from repro_torch._cuda import Kernel, check_tensor
+from repro_torch._cuda import Kernel, check_tensor, smem_per_block_optin
+from repro_torch.core.fuse import tiled_plain
+from repro_torch.core.plan import tile_extents
 from repro_torch.kernels.lb_collision.kernel import collide_plain, lb_params
 from repro_torch.kernels.lb_collision.ref import moments
 from . import ref
 
 __all__ = ["propagate_cuda", "propagate_plain", "lb_step_cuda", "lb_step_plain",
-           "PROPAGATE", "LB_STEP"]
+           "lb_step_tiled_cuda", "lb_step_tiled_plain", "tiled_smem_bytes",
+           "PROPAGATE", "LB_STEP", "LB_STEP_TILED"]
 
 PROPAGATE = Kernel("lb_propagate", "rt_lb_propagate")
 LB_STEP = Kernel("lb_step", "rt_lb_step")
+LB_STEP_TILED = Kernel("lb_step_tiled", "rt_lb_step_tiled")
+K9_BLOCK = 512   # threads a K9 block (at most RT_K9_MAX_THREADS in lb_tiled.cu)
 
 
 def _check_3d(lattice: Sequence[int]) -> Tuple[int, int, int]:
@@ -89,4 +102,53 @@ def lb_step_cuda(dist: torch.Tensor, force: torch.Tensor, tau: float, lattice,
     u = torch.empty_like(force) if with_u else None
     LB_STEP.launch(dist.device, dist.data_ptr(), force.data_ptr(), dist2.data_ptr(),
                    u.data_ptr() if with_u else None, *lat, *lb_params(float(tau)), vvl)
+    return dist2, u
+
+
+def tiled_smem_bytes(tile: Sequence[int]) -> int:
+    """K9's dynamic shared memory for a (bx, by, bz) tile: two slots of the
+    ring-1 window, 19 + 3 fp32 values a site."""
+    return 2 * 22 * math.prod(e + 2 for e in tile) * 4
+
+
+def lb_step_tiled_plain(dist: torch.Tensor, force: torch.Tensor, tau: float, lattice,
+                        tile: Sequence[int], with_u: bool = True
+                        ) -> Tuple[torch.Tensor, Optional[torch.Tensor]]:
+    """The collide -> propagate graph tile by tile (``tiled_plain``), and
+    (with_u) the half-force velocity, which is site-local."""
+    from .ops import collide_propagate_graph  # ops imports this module
+
+    lat = _check_3d(lattice)
+    nd = {"dist": dist.reshape((19,) + lat), "force": force.reshape((3,) + lat)}
+    dist2 = tiled_plain(collide_propagate_graph(float(tau)), nd, lat,
+                        *tile_extents(lat, *tile))["dist2"]
+    return dist2.reshape(19, -1), (moments_velocity(dist, force) if with_u else None)
+
+
+def lb_step_tiled_cuda(dist: torch.Tensor, force: torch.Tensor, tau: float, lattice,
+                       tile: Sequence[int], with_u: bool = True, block: int = K9_BLOCK
+                       ) -> Tuple[torch.Tensor, Optional[torch.Tensor]]:
+    """K9: :func:`lb_step_cuda`'s outputs computed tile by tile, ``tile`` =
+    (bx, by, bz) with 0 for a whole axis.  Raises when the tile does not
+    divide the lattice or its window slots exceed the device's shared
+    memory per block."""
+    lat = _check_3d(lattice)
+    tile = tile_extents(lat, *tile)
+    if any(e < 1 or s % e for s, e in zip(lat, tile)):
+        raise ValueError(f"K9: tile {tile} does not divide the lattice {lat}")
+    if dist.device.type == "cpu":
+        return lb_step_tiled_plain(dist, force, tau, lat, tile, with_u)
+    V = math.prod(lat)
+    check_tensor("dist", dist, (19, V), dist.device)
+    check_tensor("force", force, (3, V), dist.device)
+    smem, limit = tiled_smem_bytes(tile), smem_per_block_optin(dist.device)
+    if smem > limit:
+        raise ValueError(
+            f"K9: tile {tile} needs {smem} B of shared memory a block, over the "
+            f"{limit} B {torch.cuda.get_device_name(dist.device)} allows")
+    dist2 = torch.empty_like(dist)
+    u = torch.empty_like(force) if with_u else None
+    LB_STEP_TILED.launch(dist.device, dist.data_ptr(), force.data_ptr(), dist2.data_ptr(),
+                         u.data_ptr() if with_u else None, *lat, *tile,
+                         *lb_params(float(tau)), block)
     return dist2, u

@@ -4,15 +4,17 @@ collision -> propagation LB step.
 Propagation is a stencil (site-neighbour gather).  The fused step runs it
 as a stencil stage of a ``core.fuse.LaunchGraph``; on the "cuda" engine the
 graph runs as K5L, one launch in which the post-collision distributions
-never reach device memory.  The halo'd form of the sharded path
+never reach device memory, and under a tiled plan as K9.  The halo'd form of the sharded path
 (``propagate_halo``) is not yet ported.
 """
 
 from __future__ import annotations
 
+from typing import Optional
+
 import torch
 
-from repro_torch.core import Field, LaunchGraph, TargetConfig
+from repro_torch.core import Field, LaunchGraph, LoweringPlan, TargetConfig
 from repro_torch.core.fuse import register_cuda_graph
 from repro_torch.core.plan import plan_for_launch
 from repro_torch.core.target import require_cuda
@@ -53,14 +55,15 @@ def collide_propagate_graph(tau: float) -> LaunchGraph:
 
 
 def collide_propagate(dist: Field, force: Field, *, tau: float,
-                      config: TargetConfig) -> Field:
+                      config: TargetConfig, plan: Optional[LoweringPlan] = None) -> Field:
     """Fused LB step: BGK collision immediately followed by streaming, as a
-    single launch."""
+    single launch (``plan``: an explicit plan for it)."""
     out = collide_propagate_graph(float(tau)).launch(
         {"dist": dist, "force": force},
         config=config,
         outputs=("dist2",),
         out_layouts={"dist2": dist.layout},
+        plan=plan,
     )["dist2"]
     return dist.with_data(out.data)
 
@@ -72,4 +75,12 @@ def _collide_propagate_cuda(graph, ins, scalars, *, lattice, vvl):
     return {"dist2": dist2}
 
 
-register_cuda_graph(collide_propagate_graph(0.0), _collide_propagate_cuda, ("dist2",))
+def _collide_propagate_tiled_cuda(graph, ins, scalars, *, lattice, plan):
+    tau = graph.stage_params()[0]["tau"]
+    dist2, _ = kernel.lb_step_tiled_cuda(ins["dist"], ins["force"], tau, lattice,
+                                         (plan.bx, plan.by, plan.bz), with_u=False)
+    return {"dist2": dist2}
+
+
+register_cuda_graph(collide_propagate_graph(0.0), _collide_propagate_cuda, ("dist2",),
+                    tiled=_collide_propagate_tiled_cuda)

@@ -158,3 +158,47 @@ def test_cuda_engine_step_matches_torch_engine(card):
     assert K8.LB_STEP.launches - launches == 3
     for a, b in ((s.q.data, t.q.data), (s.dist.data, t.dist.data)):
         assert torch.allclose(a, b, rtol=3e-5, atol=1e-7)
+
+
+# K9 tiles: odd extents, extents that are no multiple of a warp, and windows
+# that wrap across lattice edges (a whole axis, an extent of 1, the last tile)
+K9_CASES = [((8, 8, 8), (1, 1, 2)), ((8, 8, 8), (4, 4, 8)), ((8, 8, 8), (8, 8, 8)),
+            ((4, 14, 16), (2, 7, 4)), ((4, 14, 16), (1, 14, 16)), ((4, 14, 16), (4, 2, 1)),
+            ((16, 16, 32), (4, 4, 8)), ((16, 16, 32), (1, 4, 32)), ((16, 16, 32), (16, 1, 2))]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("lat,tile", K9_CASES, ids=str)
+def test_k9_tiled_lb_step(card, lat, tile, rng):
+    V = int(np.prod(lat))
+    f = _dev(rng, (19, V), card, 0.1, 1.0)
+    g = _dev(rng, (3, V), card, 0.01)
+    launches = K8.LB_STEP_TILED.launches
+    dist2, u = K8.lb_step_tiled_cuda(f, g, 0.8, lat, tile)
+    k5, k5u = K8.lb_step_cuda(f, g, 0.8, lat, 32)
+    # the same collision code as K5L, and streaming only moves its values
+    assert torch.equal(dist2, k5) and torch.equal(u, k5u)
+    only2, none = K8.lb_step_tiled_cuda(f, g, 0.8, lat, tile, with_u=False)
+    assert none is None and torch.equal(only2, k5)
+    assert K8.LB_STEP_TILED.launches - launches == 2
+    want2, want_u = K8.lb_step_tiled_plain(f, g, 0.8, lat, tile)
+    _close_field(dist2, want2)
+    _close_field(u, want_u)
+
+
+@pytest.mark.cuda
+def test_tiled_steps_equal_untiled_steps(card):
+    """Three steps under a shared-memory budget (the LB half-step tiled, K9),
+    at 227 KiB and at a budget small enough for the odd tile (1, 1, 2),
+    equal three untiled steps (K5L) bitwise."""
+    lat = (16, 16, 16)
+    cfgs = [LudwigConfig(lattice=lat, target=TargetConfig("cuda", device="cuda", smem_bytes=b))
+            for b in (None, 227 * 1024, 6512)]
+    tiled, untiled = K8.LB_STEP_TILED.launches, K8.LB_STEP.launches
+    states = [init_state(c, seed=0) for c in cfgs]
+    for _ in range(3):
+        states = [step(s, c) for s, c in zip(states, cfgs)]
+    assert K8.LB_STEP_TILED.launches - tiled == 6 and K8.LB_STEP.launches - untiled == 3
+    for s in states[1:]:
+        assert torch.equal(s.dist.data, states[0].dist.data)
+        assert torch.equal(s.q.data, states[0].q.data)

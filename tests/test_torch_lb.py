@@ -147,12 +147,31 @@ def test_collide_propagate_matches_reference(lays, rng):
                                config=JTC("jnp"))
     np.testing.assert_allclose(got.to_numpy(), np.asarray(want.to_numpy()),
                                rtol=COLLIDE_RTOL, atol=COLLIDE_ATOL)
-    # the fused graph is collide then propagate; torch sums rho over a
-    # halo'd window there, in an order that may differ in the last bit
+    # the fused graph is collide then propagate, collision running on the
+    # halo'd window there: rho is added in velocity order whatever the
+    # chunk's size, so the two agree bit for bit
     unfused = propagate(collide(PField.from_numpy("dist", f0, lat, lay),
                                 PField.from_numpy("force", frc, lat, lay), tau=0.8,
                                 config=TORCH), config=TORCH)
-    np.testing.assert_allclose(got.to_numpy(), unfused.to_numpy(), rtol=1e-6, atol=0)
+    np.testing.assert_array_equal(got.to_numpy(), unfused.to_numpy())
+
+
+def test_collision_bits_do_not_depend_on_the_chunk(rng):
+    """A site's post-collision values and moments are the same bits whatever
+    chunk of sites it is collided in (a tile's window or the whole lattice):
+    rho is added in velocity order, not by torch.sum, whose vectorized
+    reduction rounds a ragged tail apart.  It also equals the JAX package's
+    jnp.sum bitwise."""
+    n = 1728
+    f = torch.from_numpy((1.0 + 0.1 * rng.normal(size=(19, n))).astype(np.float32))
+    g = torch.from_numpy((0.01 * rng.normal(size=(3, n))).astype(np.float32))
+    whole, (rho, u) = lbref.collide_chunk(f, g, 0.8), lbref.moments(f)
+    for m in (7, 16, 100, 216):
+        assert torch.equal(lbref.collide_chunk(f[:, :m].contiguous(), g[:, :m].contiguous(),
+                                               0.8), whole[:, :m])
+        rho_m, u_m = lbref.moments(f[:, :m].contiguous())
+        assert torch.equal(rho_m, rho[:m]) and torch.equal(u_m, u[:, :m])
+    np.testing.assert_array_equal(rho.numpy(), np.asarray(jnp.sum(jnp.asarray(f.numpy()), axis=0)))
 
 
 @pytest.mark.parametrize("lat", [(4, 4, 8), (1, 6, 4)], ids=str)

@@ -1,0 +1,445 @@
+"""Port parity for the tiled stencil lowering under a shared-memory budget.
+
+The planner (tile_extents, choose_slab, choose_tiles, the footprint model
+and default_plan) against the JAX package's VMEM planner on the same
+inputs; the JAX package's tests/test_tile.py plan tests on the port;
+``tiled_plain`` against the JAX package's interpret-mode tiled launch and
+against the port's own untiled torch engine (fields bitwise, sums to a
+tolerance, max exact); K9's wrapper on the CPU; and the cuda engine's
+refusals of tiled plans, which come before any device check and so need
+no card.
+"""
+
+import dataclasses
+import itertools
+import logging
+import math
+
+import pytest
+
+torch = pytest.importorskip("torch")
+
+import numpy as np  # noqa: E402
+
+from repro.apps.milc import cg as JCG  # noqa: E402
+from repro.apps.milc import fields as JF  # noqa: E402
+from repro.apps.ludwig import LudwigConfig as JLudwigConfig  # noqa: E402
+from repro.apps.ludwig import driver as JD  # noqa: E402
+from repro.core import Field as JField  # noqa: E402
+from repro.core import LaunchGraph as JLaunchGraph  # noqa: E402
+from repro.core import LoweringPlan as JPlan  # noqa: E402
+from repro.core import SOA as J_SOA  # noqa: E402
+from repro.core import TargetConfig as JTC  # noqa: E402
+from repro.core import plan as jplan  # noqa: E402
+from repro.core.stencil import tile_boxes as j_tile_boxes  # noqa: E402
+from repro.kernels.lb_propagation.ops import collide_propagate_graph as j_cp_graph  # noqa: E402
+from repro_torch import convert  # noqa: E402
+from repro_torch.apps.ludwig import LudwigConfig, init_state, step  # noqa: E402
+from repro_torch.apps.ludwig import driver as PD  # noqa: E402
+from repro_torch.apps.milc import cg as PCG  # noqa: E402
+from repro_torch.core import Field, LaunchGraph, LoweringPlan, SOA, TargetConfig  # noqa: E402
+from repro_torch.core import plan as pplan  # noqa: E402
+from repro_torch.core.fuse import tiled_plain  # noqa: E402
+from repro_torch.core.stencil import tile_boxes  # noqa: E402
+from repro_torch.kernels.lb_propagation import kernel as K8  # noqa: E402
+from repro_torch.kernels.lb_propagation.ops import collide_propagate, collide_propagate_graph  # noqa: E402
+
+TORCH = TargetConfig("torch", device="cpu")
+CUDA_ON_CPU = TargetConfig("cuda", device="cpu")
+PCFG = JTC("pallas", vvl=128)
+LAT = (6, 4, 8)
+# fp32 site-local arithmetic on both sides; sums fold per-tile partials in
+# tile order (the reference's rsplit contract): tolerance, never bitwise
+FIELD_RTOL, SUM_RTOL = 1e-6, 1e-6
+H100_BUDGET = 227 * 1024   # 232,448 B: the H100's opt-in shared memory a block
+
+# footprint descriptors: (ncomp, ring, itemsize) per input, (ncomp, itemsize)
+# per field output
+LB_VIEWS = (((19, 1, 4), (3, 1, 4)), ((19, 4), (3, 4)))   # ludwig_lb_step
+MILC_VIEWS = (((24, 2, 4), (72, 2, 4)), ((24, 4),))        # wilson_normal
+IN_VIEWS, OUT_VIEWS = ((3, 1, 4),), ((3, 4),)              # tile_g
+
+
+@pytest.fixture(autouse=True)
+def _no_budget_variables(monkeypatch):
+    monkeypatch.delenv(pplan.SMEM_ENV, raising=False)
+    monkeypatch.delenv(jplan.VMEM_ENV, raising=False)
+
+
+def _scale(v, *, a):
+    return {"y": a * v["x"]}
+
+
+def _lap(v, gather, *, c):
+    return {"z": (c * v["y"] + gather("y", (1, 0, 0)) + gather("y", (0, -1, 0))) ** 2}
+
+
+def _tile_g(cls):
+    """tests/test_tile.py's graph, built in either package."""
+    return (cls("tile_g")
+            .add(_scale, {"x": "x"}, {"y": 3}, params=dict(a=2.0))
+            .add_stencil(_lap, {"y": "y"}, {"z": 3}, width=1, params=dict(c=-2.0))
+            .add_reduce("z", op="sum", name="zt")
+            .add_reduce("z", op="max", name="zm"))
+
+
+# -- the planner against the JAX package's ------------------------------------------
+
+@pytest.mark.parametrize("budget", [16, 4096, 64 * 1024, H100_BUDGET, 10 ** 9, 0])
+@pytest.mark.parametrize("views", [LB_VIEWS, MILC_VIEWS], ids=["lb", "milc"])
+@pytest.mark.parametrize("lat", [(16, 32, 32), (256, 256, 256), (64, 64, 64, 32)], ids=str)
+def test_planner_matches_reference(lat, views, budget):
+    ins, outs = views
+    inner = math.prod(lat[1:])
+    bx = pplan.choose_slab(lat[0], inner, 128, pplan._site_bytes(views), budget or None)
+    assert bx == jplan.choose_slab(lat[0], inner, 128, jplan._site_bytes(views), budget or None)
+    if budget:
+        tiles = pplan.choose_tiles(lat, bx, in_views=ins, out_views=outs, smem_bytes=budget)
+        assert tiles == jplan.choose_tiles(lat, bx, in_views=ins, out_views=outs,
+                                           vmem_bytes=budget)
+    else:
+        tiles = (0, 0)
+    assert pplan.tile_extents(lat, bx, *tiles) == jplan.tile_extents(lat, bx, *tiles)
+    fp = pplan.estimate_smem_bytes(LoweringPlan("cuda", bx=bx, by=tiles[0], bz=tiles[1]),
+                                   lattice=lat, in_views=ins, out_views=outs)
+    assert fp == jplan.estimate_vmem_bytes(JPlan("pallas", bx=bx, by=tiles[0], bz=tiles[1]),
+                                           lattice=lat, in_views=ins, out_views=outs)
+
+    kw = dict(nsites=math.prod(lat), stencil=True, lattice=lat)
+    got = pplan.default_plan(TargetConfig("cuda", device="cpu", smem_bytes=budget),
+                             layouts=[SOA], smem_views=views, **kw)
+    want = convert.to_plan(jplan.default_plan(
+        dataclasses.replace(PCFG, vmem_bytes=budget), layouts=[J_SOA], vmem_views=views,
+        **kw).to_json())
+    assert (got.engine, got.by, got.bz) == (want.engine, want.by, want.bz) == (
+        "cuda",) + tiles
+    if budget:
+        assert got.bx == want.bx == bx
+    else:  # no budget: the untiled plan of the slices before tiling
+        assert got == LoweringPlan("cuda", vvl=128)
+    if lat == (256, 256, 256) and views is LB_VIEWS and budget == H100_BUDGET:
+        assert (bx, *tiles) == (1, 4, 64) and fp == 231616
+    if lat == (64, 64, 64, 32) and views is MILC_VIEWS and budget == H100_BUDGET:
+        assert (bx, *tiles) == (1, 1, 1) and fp == 3459072
+
+
+def test_collide_propagate_plan_at_the_h100_budget():
+    """lb_collide_propagate (no u output) gets the lb_step's tile."""
+    lat = (256, 256, 256)
+    views = (LB_VIEWS[0], ((19, 4),))
+    got = pplan.default_plan(TargetConfig("cuda", device="cpu", smem_bytes=H100_BUDGET),
+                             nsites=math.prod(lat), layouts=[SOA], stencil=True,
+                             lattice=lat, smem_views=views)
+    assert (got.bx, got.by, got.bz) == (1, 4, 64)
+    assert pplan.estimate_smem_bytes(got, lattice=lat, in_views=views[0],
+                                     out_views=views[1]) == 228544
+    # K9 allocates the two window slots and no output tile
+    assert pplan.estimate_smem_bytes(got, lattice=lat, in_views=views[0]) == \
+        K8.tiled_smem_bytes((1, 4, 64)) == 209088
+
+
+def test_no_budget_keeps_every_plan_untiled():
+    """Without a budget the MILC and Ludwig launches plan as before tiling."""
+    cuda = TargetConfig("cuda", device="cpu")
+    for lat, views in (((64, 64, 64, 32), MILC_VIEWS), ((256, 256, 256), LB_VIEWS)):
+        n = math.prod(lat)
+        assert pplan.default_plan(cuda, nsites=n, layouts=[SOA], stencil=True, lattice=lat,
+                                  smem_views=views) == LoweringPlan("cuda", 128)
+        assert pplan.plan_for_launch(cuda, n, [SOA]) == LoweringPlan("cuda", 128)
+    assert cuda.resolved_smem_bytes() is None
+
+
+# -- tests/test_tile.py's plan tests, on the port ----------------------------------
+
+def test_smem_budget_precedence(monkeypatch, caplog):
+    cfg = TargetConfig("cuda", device="cpu")
+    assert pplan.resolved_smem_bytes(cfg) is None
+    monkeypatch.setenv(pplan.SMEM_ENV, str(1 << 20))
+    assert pplan.resolved_smem_bytes(cfg) == 1 << 20
+    assert cfg.resolved_smem_bytes() == 1 << 20
+    assert dataclasses.replace(cfg, smem_bytes=1 << 16).resolved_smem_bytes() == 1 << 16
+    assert dataclasses.replace(cfg, smem_bytes=0).resolved_smem_bytes() is None
+    # the reference's variable is not the port's
+    monkeypatch.delenv(pplan.SMEM_ENV)
+    monkeypatch.setenv(jplan.VMEM_ENV, str(1 << 20))
+    assert pplan.resolved_smem_bytes(cfg) is None
+    monkeypatch.setenv(pplan.SMEM_ENV, "not-a-number")
+    with caplog.at_level(logging.WARNING, logger="repro_torch.core.plan"):
+        assert pplan.resolved_smem_bytes(cfg) is None
+    assert "not-a-number" in caplog.text
+    monkeypatch.setenv(pplan.SMEM_ENV, "0")
+    assert pplan.resolved_smem_bytes(cfg) is None
+
+
+def test_estimate_smem_bytes_model():
+    lat = (16, 32, 32)
+    untiled = pplan.estimate_smem_bytes(LoweringPlan("cuda", bx=1), lattice=lat,
+                                        in_views=IN_VIEWS, out_views=OUT_VIEWS)
+    assert untiled == 3 * 18 * 34 * 34 * 4 + 3 * 32 * 32 * 4
+    tiled = pplan.estimate_smem_bytes(LoweringPlan("cuda", bx=1, by=4, bz=4), lattice=lat,
+                                      in_views=IN_VIEWS, out_views=OUT_VIEWS)
+    assert tiled == 2 * 3 * 3 * 6 * 6 * 4 + 3 * 4 * 4 * 4
+    assert pplan.choose_tiles(lat, 1, in_views=IN_VIEWS, out_views=OUT_VIEWS,
+                              smem_bytes=10 ** 9) == (0, 0)
+    assert pplan.choose_tiles(lat, 1, in_views=IN_VIEWS, out_views=OUT_VIEWS,
+                              smem_bytes=16) == (1, 1)
+
+
+def test_validate_rejects_bad_tiles():
+    n = math.prod(LAT)
+    with pytest.raises(ValueError, match="by=3 must divide"):
+        LoweringPlan("cuda", bx=2, by=3).validate(nsites=n, lattice=LAT, stencil=True)
+    with pytest.raises(ValueError, match="bz=5 must divide"):
+        LoweringPlan("cuda", bx=2, bz=5).validate(nsites=n, lattice=LAT, stencil=True)
+    with pytest.raises(ValueError, match="bx=4 must divide"):
+        LoweringPlan("cuda", bx=4, by=2).validate(nsites=n, lattice=LAT, stencil=True)
+    with pytest.raises(ValueError, match="no z axis"):
+        LoweringPlan("cuda", bx=2, bz=2).validate(lattice=(6, 4), stencil=True)
+    with pytest.raises(ValueError, match="no y axis"):
+        LoweringPlan("cuda", bx=2, by=2).validate(lattice=(6,), stencil=True)
+    with pytest.raises(ValueError, match="x-slab bx >= 1"):
+        LoweringPlan("cuda", by=2).validate(nsites=n, lattice=LAT, stencil=True)
+    with pytest.raises(ValueError, match="torch engine"):
+        LoweringPlan("torch", by=2).validate(nsites=n, lattice=LAT, stencil=True)
+    with pytest.raises(ValueError, match="no y/z tiles"):
+        LoweringPlan("cuda", 32, by=2).validate(nsites=n)
+    with pytest.raises(ValueError, match="no x-slab"):
+        LoweringPlan("cuda", 32, bx=2).validate(nsites=n)
+    with pytest.raises(ValueError, match=">= 0"):
+        LoweringPlan("cuda", bx=2, by=-1).validate(lattice=LAT, stencil=True)
+    # dividing tiles pass; a tiled plan needs no vvl, an untiled one does
+    LoweringPlan("cuda", bx=2, by=2, bz=4).validate(nsites=n, lattice=LAT, stencil=True)
+    with pytest.raises(ValueError, match="vvl"):
+        LoweringPlan("cuda", bx=2).validate(nsites=n, lattice=LAT, stencil=True)
+
+
+def test_describe_and_json():
+    p = LoweringPlan("cuda", bx=2, by=2, bz=4)
+    d = p.describe()
+    assert "/ty2" in d and "/tz4" in d and "KiB" not in d
+    assert "KiB/block" in p.describe(footprint=48 * 1024)
+    assert "/ty" not in LoweringPlan("cuda", 128).describe()
+    assert LoweringPlan.from_json(p.to_json()) == p
+    # a plan written before the tile axes loads untiled
+    q = LoweringPlan.from_json({"engine": "cuda", "vvl": 64, "bx": 2})
+    assert (q.by, q.bz) == (0, 0) and not q.tiled
+
+
+def test_tile_boxes_cover_and_errors():
+    for lat, tile in ((LAT, (2, 2, 4)), ((4, 14, 16), (2, 7, 4)), ((4, 4, 4, 8), (2, 2, 0)),
+                      ((3, 5), (1, 0, 0))):
+        boxes = tile_boxes(lat, *tile)
+        assert boxes == j_tile_boxes(lat, *tile)
+        sites = [pt for box in boxes
+                 for pt in itertools.product(*[range(s, s + e) for s, e in box])]
+        assert len(sites) == len(set(sites)) == math.prod(lat)
+    with pytest.raises(ValueError, match="divide"):
+        tile_boxes(LAT, 2, 3, 0)
+    with pytest.raises(ValueError, match="divide"):
+        tile_boxes(LAT, 0, 2, 0)
+
+
+def test_to_plan_maps_and_refuses():
+    got = convert.to_plan(JPlan("pallas", bx=1, by=4, bz=64, interpret=True).to_json())
+    assert got == LoweringPlan("cuda", bx=1, by=4, bz=64)
+    assert convert.to_plan(JPlan("jnp").to_json()) == LoweringPlan("torch")
+    assert convert.to_plan(JPlan("pallas", vvl=128, view="block").to_json()) == \
+        LoweringPlan("cuda", 128)
+    for bad, what in ((JPlan("pallas", bx=2, rsplit=2), "rsplit"),
+                      (JPlan("pallas", bx=2, view="block"), "view"),
+                      (JPlan("pallas", bx=2, halo="pre"), "halo"),
+                      (JPlan("pallas", vvl=128, dtypes=jplan.DtypePolicy(storage="bfloat16")),
+                       "dtypes")):
+        with pytest.raises(ValueError, match=what):
+            convert.to_plan(bad.to_json())
+
+
+def test_plan_policy():
+    x = Field.from_numpy("x", np.ones((3,) + LAT, np.float32), LAT)
+    g = _tile_g(LaunchGraph)
+    with pytest.raises(ValueError, match="not yet ported"):
+        g.launch({"x": x}, config=TargetConfig("cuda", device="cpu", plan_policy="tuned"))
+    with pytest.raises(ValueError, match="unknown plan_policy"):
+        pplan.plan_for_launch(TargetConfig(plan_policy="fast"), 128, [SOA])
+    # an explicit plan wins over the config's engine, for graphs and single launches
+    explicit = TargetConfig("cuda", device="cpu", plan_policy=LoweringPlan("torch"))
+    out = g.launch({"x": x}, config=explicit, outputs=("z",))
+    want = g.launch({"x": x}, config=TORCH, outputs=("z",))
+    assert torch.equal(out["z"].data, want["z"].data)
+    assert pplan.plan_for_launch(explicit, 128, [SOA]) == LoweringPlan("torch")
+    with pytest.raises(ValueError, match="no x-slab"):
+        pplan.plan_for_launch(TargetConfig(plan_policy=LoweringPlan("cuda", 32, bx=1, by=2)),
+                              128, [SOA])
+    # launch(plan=) and bind(plan=) override the policy
+    bound = g.bind(config=CUDA_ON_CPU, outputs=("z",), plan=LoweringPlan("torch"))
+    assert torch.equal(bound({"x": x})["z"].data, want["z"].data)
+
+
+# -- tiled_plain against the reference and against the untiled torch engine ---------
+
+def _lb_arrays(rng, lat):
+    f0 = (1.0 + 0.1 * rng.normal(size=(19,) + lat)).astype(np.float32)
+    frc = (0.01 * rng.normal(size=(3,) + lat)).astype(np.float32)
+    return {"dist": f0, "force": frc}
+
+
+def _milc_arrays(rng, lat):
+    return {"p": rng.normal(size=(24,) + lat).astype(np.float32),
+            "u": JF.random_su3_gauge(lat, seed=2, hot=0.6)}
+
+
+# name -> (port graph, reference graph, lattice, inputs, outputs, (bx, by, bz))
+CASES = {
+    **{f"tile_g-{by}-{bz}": (lambda: _tile_g(LaunchGraph), lambda: _tile_g(JLaunchGraph),
+                             LAT, lambda rng: {"x": rng.normal(size=(3,) + LAT).astype(
+                                 np.float32)}, ("z", "zt", "zm"), (2, by, bz))
+       for by, bz in [(2, 0), (0, 4), (2, 4), (1, 2), (4, 8)]},
+    "collide_propagate": (lambda: collide_propagate_graph(0.8), lambda: j_cp_graph(0.8),
+                          (4, 14, 16), lambda rng: _lb_arrays(rng, (4, 14, 16)),
+                          ("dist2",), (2, 7, 4)),
+    "lb_step": (lambda: PD.lb_step_graph(LudwigConfig()),
+                lambda: JD.lb_step_graph(JLudwigConfig()), (4, 14, 16),
+                lambda rng: _lb_arrays(rng, (4, 14, 16)), ("dist2", "u"), (1, 2, 8)),
+    "wilson_normal": (lambda: PCG.wilson_normal_graph(0.12),
+                      lambda: JCG.wilson_normal_graph(0.12), (4, 4, 4, 8),
+                      lambda rng: _milc_arrays(rng, (4, 4, 4, 8)), ("ap", "pap"), (2, 2, 2)),
+}
+
+
+def _check(got, want, graph, exact_fields):
+    red = graph.reduce_specs()
+    for o, w in want.items():
+        g = np.asarray(got[o])
+        w = np.asarray(w)
+        if o in red and red[o].op == "sum":
+            np.testing.assert_allclose(g, w, rtol=SUM_RTOL, atol=SUM_RTOL * np.abs(w).max())
+        elif o in red or exact_fields:
+            np.testing.assert_array_equal(g, w)
+        else:
+            np.testing.assert_allclose(g, w, rtol=FIELD_RTOL, atol=FIELD_RTOL * np.abs(w).max())
+
+
+@pytest.mark.parametrize("case", list(CASES))
+def test_tiled_plain_matches_reference_tiled_launch(case, rng):
+    """The reference's interpret-mode tiled launch (its windowed fallback of
+    dma_kernel) and tiled_plain, on the same inputs and tiles."""
+    pg, jg, lat, mk, outs, (bx, by, bz) = CASES[case]
+    arrs = mk(rng)
+    jg = jg()
+    jout = jg.launch({n: JField.from_numpy(n, a, lat) for n, a in arrs.items()}, config=PCFG,
+                     outputs=outs, plan=JPlan("pallas", bx=bx, by=by, bz=bz, interpret=True))
+    red = jg.reduce_specs()
+    want = {o: np.asarray(v).reshape(-1) if o in red else
+            np.asarray(v.to_numpy()).reshape((-1,) + lat) for o, v in jout.items()}
+    got = tiled_plain(pg(), {n: torch.from_numpy(a) for n, a in arrs.items()}, lat,
+                      bx, by, bz, outputs=outs)
+    _check({o: v.numpy().reshape(want[o].shape) for o, v in got.items()}, want, jg, False)
+
+
+@pytest.mark.parametrize("case", list(CASES))
+def test_tiled_plain_matches_untiled_torch_engine(case, rng):
+    """The port's own contract: fields bitwise equal to the untiled
+    torch engine, sums to a tolerance, max exact."""
+    pg, _, lat, mk, outs, tile = CASES[case]
+    arrs = mk(rng)
+    pg = pg()
+    want = pg.launch({n: Field.from_numpy(n, a, lat) for n, a in arrs.items()}, config=TORCH,
+                     outputs=outs)
+    want = {o: (v if o in pg.reduce_specs() else v.canonical_nd()).numpy()
+            for o, v in want.items()}
+    got = tiled_plain(pg, {n: torch.from_numpy(a) for n, a in arrs.items()}, lat, *tile,
+                      outputs=outs)
+    _check({o: v.numpy() for o, v in got.items()}, want, pg, True)
+
+
+@pytest.mark.parametrize("lat,tile", [((4, 14, 16), (2, 7, 4)), ((3, 5, 7), (1, 1, 7)),
+                                      ((8, 8, 8), (1, 1, 2)), ((2, 1, 3), (2, 0, 0))],
+                         ids=str)
+def test_k9_wrapper_on_cpu_is_tiled_plain(lat, tile, rng):
+    arrs = _lb_arrays(rng, lat)
+    f, g = (torch.from_numpy(arrs[n].reshape(arrs[n].shape[0], -1)) for n in ("dist", "force"))
+    before = K8.LB_STEP_TILED.launches
+    dist2, u = K8.lb_step_tiled_cuda(f, g, 0.8, lat, tile)
+    want2, want_u = K8.lb_step_tiled_plain(f, g, 0.8, lat, tile)
+    assert torch.equal(dist2, want2) and torch.equal(u, want_u)
+    # the tiled fields are K5L's (its plain version) bit for bit
+    k5, k5u = K8.lb_step_cuda(f, g, 0.8, lat)
+    assert torch.equal(dist2, k5) and torch.equal(u, k5u)
+    assert K8.lb_step_tiled_cuda(f, g, 0.8, lat, tile, with_u=False)[1] is None
+    assert K8.LB_STEP_TILED.launches == before
+    with pytest.raises(ValueError, match="does not divide"):
+        K8.lb_step_tiled_cuda(f, g, 0.8, lat, (lat[0] + 1, 0, 0))
+
+
+def test_budgeted_step_on_torch_engine_matches_reference_tiled_step():
+    """The slice as a whole on the CPU: the reference's Ludwig step with a
+    VMEM budget that tiles its LB half-step, against the port's step (the
+    torch engine, which ignores the budget), and the same tiles planned by
+    both packages for that half-step."""
+    import jax
+
+    lat, budget = (4, 8, 8), 8 * 1024
+    cfg = LudwigConfig(lattice=lat, target=TargetConfig("torch", device="cpu",
+                                                        smem_bytes=budget))
+    jcfg = JLudwigConfig(lattice=lat, target=dataclasses.replace(PCFG, vmem_bytes=budget))
+    views = (LB_VIEWS[0], LB_VIEWS[1])
+    want = convert.to_plan(jplan.default_plan(
+        jcfg.target, nsites=math.prod(lat), layouts=[J_SOA], stencil=True, lattice=lat,
+        vmem_views=views).to_json())
+    got = pplan.default_plan(dataclasses.replace(cfg.target, engine="cuda"),
+                             nsites=math.prod(lat), layouts=[SOA], stencil=True,
+                             lattice=lat, smem_views=views)
+    assert want.tiled and (got.bx, got.by, got.bz) == (want.bx, want.by, want.bz)
+    s, js = init_state(cfg, seed=0), JD.init_state(jcfg, seed=0)
+    jstep = jax.jit(JD.step, static_argnums=1)
+    for _ in range(2):
+        s, js = step(s, cfg), jstep(js, jcfg)
+    for a, b in ((s.q, js.q), (s.dist, js.dist)):
+        np.testing.assert_allclose(a.to_numpy(), np.asarray(b.to_numpy()), rtol=3e-5,
+                                   atol=1e-7)
+
+
+# -- the cuda engine's refusals of tiled plans (no card needed) ---------------------
+
+def test_cuda_engine_refuses_unregistered_tiled_graphs(rng):
+    x = Field.from_numpy("x", rng.normal(size=(3,) + LAT).astype(np.float32), LAT)
+    plan = LoweringPlan("cuda", bx=2, by=2, bz=4)
+    with pytest.raises(ValueError, match=r"no hand-written tiled kernel.*cuda/bx=2/ty2/tz4.*"
+                                         r"232448 B.*ROADMAP"):
+        _tile_g(LaunchGraph).launch({"x": x}, config=CUDA_ON_CPU, plan=plan)
+    lat = (4, 4, 4, 8)
+    arrs = _milc_arrays(rng, lat)
+    p, u = (Field.from_numpy(n, arrs[n], lat) for n in ("p", "u"))
+    # wilson_normal keeps the whole t axis and a ring of 2 in every window, so
+    # even a small lattice's window is over the limit before the registry is asked
+    with pytest.raises(ValueError, match="wilson_normal.*exceed the shared memory"):
+        PCG.wilson_normal_graph(0.12).launch({"p": p, "u": u}, config=CUDA_ON_CPU,
+                                             outputs=("ap", "pap"), plan=plan)
+    # a registered graph under a tiled plan passes both checks and then
+    # refuses the CPU tensors: it never runs the plain version instead
+    d, f = (Field.from_numpy(n, a, LAT) for n, a in _lb_arrays(rng, LAT).items())
+    with pytest.raises(ValueError, match="CUDA device"):
+        collide_propagate(d, f, tau=0.8, config=CUDA_ON_CPU, plan=plan)
+
+
+def test_cuda_engine_refuses_windows_over_the_block_limit():
+    """The MILC instance at (64, 64, 64, 32): the H100 budget's finest tile
+    needs 15x the shared memory a block may hold.  Meta tensors: the plan
+    checks need shapes only."""
+    lat = (64, 64, 64, 32)
+    n = math.prod(lat)
+    p, u = (Field(name, nc, lat, SOA, torch.empty((nc, n), device="meta"))
+            for name, nc in (("p", 24), ("u", 72)))
+    budget = TargetConfig("cuda", device="cpu", smem_bytes=H100_BUDGET)
+    with pytest.raises(ValueError, match=r"cuda/bx=1/ty1/tz1.*3456000 B.*limit is 232448 B"):
+        PCG.make_fused_normal(u, 0.12, budget)(p)
+    # an explicit LB tile whose window is over the limit, on a registered graph
+    lat = (4, 64, 64)
+    d, f = (Field(name, nc, lat, SOA, torch.empty((nc, math.prod(lat)), device="meta"))
+            for name, nc in (("dist", 19), ("force", 3)))
+    with pytest.raises(ValueError, match="exceed the shared memory"):
+        collide_propagate(d, f, tau=0.8, config=CUDA_ON_CPU,
+                          plan=LoweringPlan("cuda", bx=4, by=32, bz=0))
+    # the budget's own tile passes the plan checks
+    with pytest.raises(ValueError, match="CUDA device"):
+        collide_propagate(d, f, tau=0.8, config=budget)
