@@ -1,5 +1,6 @@
-"""Drive the PyTorch/CUDA port on one GPU: the MILC Wilson-CG solve and the
-Ludwig LC-LB timestep, untiled and under a shared-memory budget.
+"""Drive the PyTorch/CUDA port on one GPU: the MILC Wilson-CG solve, the
+Ludwig LC-LB timestep, untiled and under a shared-memory budget, and
+RWKV6-7B serving (prefill and greedy decode).
 
     python3 chip_smoke.py [--lattice X Y Z T] [--small X Y Z T]
                           [--ludwig X Y Z] [--ludwig-small X Y Z]
@@ -47,8 +48,27 @@ T2. with every count set to 0: 10 steps from the L1 state with
 T3. at ``--ludwig-small``, 5 steps on the "cuda" engine under a budget of
    6512 B, which tiles the LB half-step at (1, 1, 2), against 5 untiled
    steps of the "torch" engine, within L5's tolerance;
-6. print the kernel table of both applications as one JSON line, then the
-   result line.
+R1. K10 (the RWKV6 WKV recurrence) against its plain version
+   (``ref.rwkv6_chunked``) at the prefill's shapes, (B, H, T, dk, dv) =
+   (4, 64, 2048, 64, 64) with chunk 64, and at T 100 (chunk 50) with
+   dk = dv = 16, on the reference test's inputs (strong decay, random u):
+   o and the final state within rtol 1e-5, atol 2e-5 x max|plain|; against
+   the scan oracle on a short sequence within the reference's 1e-3; timed;
+R2. rwkv6-7b at full width and depth (7,534,813,184 parameters, bf16, drawn
+   from seed 0 on the card) prefills B 4 x T 2048 random tokens (cut from
+   prefill_32k's (32, 32768), whose bf16 logits alone would take 137 GB):
+   with every count set to 0, ``build_prefill`` must launch K10 once a layer
+   (32); the logits are finite, and their rel-L2 distance from the same
+   prefill with the plain WKV (``wkv_engine="torch"``) is at most twice that
+   between two plain prefills with chunks of 64 and of 32; on an fp32 copy
+   of the weights K10's prefill lies within rel-L2 1e-3 of the plain one;
+   prefill timed, and one prefill traced with torch.profiler: its kernels'
+   device time (matmuls, K10, the rest) against the host clock;
+R3. ``generate`` serves 4 requests: a prompt of 16 tokens fed token by
+   token, then 16 greedy tokens; shape and vocab checked, ms a decode step
+   beside the weight-read bound; one decode step traced as in R2;
+6. print the kernel table of every path as one JSON line, then the result
+   line.
 """
 
 from __future__ import annotations
@@ -68,11 +88,12 @@ import torch
 
 sys.path.insert(0, os.path.join(os.path.dirname(os.path.abspath(__file__)), "src"))
 
-from repro_torch import _cuda  # noqa: E402
+from repro_torch import _cuda, tuning  # noqa: E402
 from repro_torch.apps.ludwig import LudwigConfig, init_state, step  # noqa: E402
 from repro_torch.apps.ludwig import driver as ludwig  # noqa: E402
 from repro_torch.apps.ludwig import kernel as lk  # noqa: E402
 from repro_torch.apps.milc import MilcConfig, init_problem, residual_check, solve  # noqa: E402
+from repro_torch.configs import get_arch  # noqa: E402
 from repro_torch.core import SOA, Field, TargetConfig  # noqa: E402
 from repro_torch.core import fuse, plan, reduce, target  # noqa: E402
 from repro_torch.kernels.lb_collision import collide  # noqa: E402
@@ -80,7 +101,11 @@ from repro_torch.kernels.lb_collision import kernel as k7  # noqa: E402
 from repro_torch.kernels.lb_propagation import kernel as k8  # noqa: E402
 from repro_torch.kernels.lb_propagation import propagate  # noqa: E402
 from repro_torch.kernels.lb_propagation.ops import collide_propagate  # noqa: E402
+from repro_torch.kernels.rwkv6_scan import kernel as k10  # noqa: E402
+from repro_torch.kernels.rwkv6_scan import ref as wkv_ref  # noqa: E402
 from repro_torch.kernels.wilson_dslash import kernel as wk  # noqa: E402
+from repro_torch.models import init_cache, init_params  # noqa: E402
+from repro_torch.train.serve_step import build_prefill, build_serve_step, generate  # noqa: E402
 
 HBM_BYTES_PER_S = 3.35e12   # H100 SXM data sheet
 FP32_FLOP_PER_S = 67e12     # H100 SXM data sheet, fp32 outside the tensor cores
@@ -95,7 +120,7 @@ KERNELS = [target.G5, target.MUL, target.AXPY, reduce.REDUCE_SUM,
            reduce.REDUCE_MAX, reduce.REDUCE_FOLD, fuse.CG_UPDATE, fuse.CG_XPAY,
            wk.DSLASH, wk.WILSON_NORMAL_T, wk.WILSON_NORMAL_AP, k7.COLLIDE,
            k8.PROPAGATE, k8.LB_STEP, k8.LB_STEP_TILED, lk.CHEM_STRESS, lk.LC_UPDATE,
-           lk.FED]
+           lk.FED, k10.WKV]
 
 # flops a site, counted from the sources (all these kernels are bound by bytes)
 FLOPS = {"collide": 450, "lb_step": 462, "chem_stress": 600, "lc_update": 320, "fed": 160}
@@ -141,6 +166,25 @@ TILED_EXHIBIT_PATH = {
     "lb_collide_propagate_tiled": ([k8.LB_STEP_TILED], "lb_tiled.cu",
                                    "src/repro/core/fuse.py:1804"),
 }
+# RWKV6 serving (R1-R3)
+RWKV_PATH = {
+    "rwkv6_wkv": ([k10.WKV], "rwkv6.cu", "src/repro/kernels/rwkv6_scan/kernel.py:31"),
+}
+RWKV_PARAMS = 7_534_813_184       # rwkv6-7b, counted from the reference's init
+PREFILL_B, PREFILL_T = 4, 2048    # cut from prefill_32k's (32, 32768)
+SERVE_B, SERVE_PROMPT, SERVE_NEW = 4, 16, 16
+WKV_RTOL, WKV_ATOL_REL = 1e-5, 2e-5   # K10 vs its plain version: rtol, atol / max|plain|
+WKV_SCAN_TOL = 1e-3               # chunked vs the scan oracle (tests/test_kernels_rwkv.py)
+# K10's prefill logits against the plain-WKV prefill's.  The random 32-layer
+# model amplifies any change of the WKV's fp32 sum order: two plain prefills
+# that differ only in the chunk (64 against 32) differ by rel-L2 7.9e-2 in
+# bf16 on the card (4.6e-2 at 32 layers, 5.7e-3 at 2 on a width-512 copy of
+# the config on the CPU).  So K10 is held to PREFILL_SPREAD x that spread,
+# measured in the same run, in bf16 and on an fp32 copy of the weights, and
+# in fp32 also to PREFILL_REL_L2_FP32.
+PREFILL_SPREAD = 2.0
+PREFILL_REL_L2_FP32 = 1e-3
+
 T1_SLICE_TILES = (4, 4, 2)  # tiles a side of the sub-lattice tiled_plain runs on in T1
 T3_BUDGET, T3_TILE = 6512, (1, 1, 2)   # T3's budget and the tile it picks
 
@@ -230,8 +274,12 @@ def check_kernels(u, b, lattice, vvl):
         add_row(rows, *a, **kw)
 
     err = exact_err(target.site_g5(psi, 12, vvl), target.g5_plain(psi, 12), "g5")
+    sign = torch.ones((24, 1), device=dev)
+    sign[12:] = -1.0
+    exact_err(torch.mul(psi, sign), target.g5_plain(psi, 12), "g5 as torch.mul by the sign column")
     row("g5", err, time_ms(lambda: target.site_g5(psi, 12, vvl)),
-        time_ms(lambda: target.g5_plain(psi, 12)), 2 * 96 * V, 12 * V)
+        time_ms(lambda: target.g5_plain(psi, 12)), 2 * 96 * V, 12 * V,
+        library_ms=time_ms(lambda: torch.mul(psi, sign)))
 
     prod = target.site_mul(psi, y, vvl)
     err = exact_err(prod, psi * y, "mul")
@@ -615,6 +663,216 @@ def ludwig_tiled_small(small):
             raise AssertionError(f"tiled cuda and torch engines disagree on {name}")
 
 
+def wkv_work(BH, T, C, dk, dv):
+    """(bytes, operations) of one K10 call: r, k, v, w read and o written
+    once, u, s0 and sT; per chunk the causal pairs only, each exp and log
+    counted as one operation (the kernel's note has the breakdown)."""
+    nbytes = 4 * (BH * T * (3 * dk + 2 * dv) + BH * dk + 2 * BH * dk * dv)
+    pairs = C * (C - 1) // 2
+    per_chunk = (11 * C * dk + 6 * pairs * dk + 2 * pairs * dv + 4 * C * dk * dv
+                 + 3 * C * dv + dk + 2 * dk * dv)
+    return nbytes, per_chunk * BH * (T // C)
+
+
+def wkv_problem(gen, BH, T, dk, dv):
+    """tests/test_kernels_rwkv.py's inputs in K10's (BH, T, d) layout:
+    strong decay w = exp(-exp(1 + N(0, 1))) and a random u."""
+    def n(*shape, scale=1.0):
+        return scale * torch.randn(shape, generator=gen, device="cuda")
+    w = torch.exp(-torch.exp(1.0 + n(BH, T, dk)))
+    return n(BH, T, dk), n(BH, T, dk, scale=0.3), n(BH, T, dv), w, n(BH, dk, scale=0.5), \
+        n(BH, dk, dv, scale=0.1)
+
+
+def wkv_err(got, want, name, rtol=WKV_RTOL, atol_rel=WKV_ATOL_REL):
+    err = (got - want).abs()
+    lim = atol_rel * want.abs().max() + rtol * want.abs()
+    if not bool((err <= lim).all()):
+        raise AssertionError(f"{name}: max abs err {err.max().item()} beyond rtol {rtol}, "
+                             f"atol {atol_rel} x max|want| = {lim.min().item()}")
+    return err.max().item()
+
+
+def check_wkv_kernel():
+    """R1: K10 against its plain version at the prefill's shapes and at
+    T 100 with small heads, and against the scan oracle; timed."""
+    gen = torch.Generator(device="cuda").manual_seed(5)
+    H, dk = 64, 64
+    rows = {}
+    for B, T, d, C in ((PREFILL_B, PREFILL_T, dk, 64), (PREFILL_B, 100, 16, 50)):
+        BH = B * H
+        r, k, v, w, u, s0 = wkv_problem(gen, BH, T, d, d)
+        o, sT = k10.rwkv6_cuda(r, k, v, w, u, s0, chunk=C)
+        o_p, s_p = k10.rwkv6_plain(r, k, v, w, u, s0, chunk=C)
+        err = max(wkv_err(o, o_p, f"K10 o at {(B, H, T, d, d)}, chunk {C}"),
+                  wkv_err(sT, s_p, f"K10 state at {(B, H, T, d, d)}, chunk {C}"))
+        log(f"  K10 at (B, H, T, dk, dv) = {(B, H, T, d, d)}, chunk {C}: max abs err {err:.3e} "
+            f"(max|o| {o_p.abs().max().item():.3e}, max|S| {s_p.abs().max().item():.3e})")
+        if T == PREFILL_T:
+            ms = time_ms(lambda: k10.rwkv6_cuda(r, k, v, w, u, s0, chunk=C))
+            plain_ms = time_ms(lambda: k10.rwkv6_plain(r, k, v, w, u, s0, chunk=C), reps=3, warm=1)
+            add_row(rows, "rwkv6_wkv", err, ms, plain_ms, *wkv_work(BH, T, C, d, d))
+        del r, k, v, w, u, s0, o, sT, o_p, s_p
+    # the scan oracle on a short sequence: two chunks of 64
+    B, H, T = 1, 8, 128
+    r, k, v, w, u, s0 = wkv_problem(gen, B * H, T, dk, dk)
+    o, sT = k10.rwkv6_cuda(r, k, v, w, u, s0, chunk=64)
+    o_s, s_s = wkv_ref.rwkv6_scan_ref(r[None], k[None], v[None], w[None], u, s0[None])
+    err = max(wkv_err(o, o_s[0], "K10 o against the scan oracle", WKV_SCAN_TOL, WKV_SCAN_TOL),
+              wkv_err(sT, s_s[0], "K10 state against the scan oracle", WKV_SCAN_TOL,
+                      WKV_SCAN_TOL))
+    log(f"  K10 against rwkv6_scan_ref at {(B, H, T, dk, dk)}: max abs err {err:.3e}")
+    torch.cuda.empty_cache()
+    return rows
+
+
+def param_stats(params):
+    """(count, bytes) of a parameter tree of dictionaries and lists."""
+    if isinstance(params, torch.Tensor):
+        return params.numel(), params.numel() * params.element_size()
+    vals = params.values() if isinstance(params, dict) else params
+    stats = [param_stats(v) for v in vals]
+    return sum(n for n, _ in stats), sum(b for _, b in stats)
+
+
+def device_profile(fn, what):
+    """fn() under torch.profiler: the device time of its kernels in three
+    groups (matmuls, K10, the rest), against the host clock."""
+    from torch.profiler import ProfilerActivity, profile
+
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        fn()
+        torch.cuda.synchronize()
+        wall = (time.perf_counter() - t0) * 1e3
+    kernels = [e for e in prof.key_averages()
+               if e.device_type == torch.autograd.DeviceType.CUDA and e.self_device_time_total > 0]
+    groups = {"matmul": 0.0, "rwkv6_wkv": 0.0, "other": 0.0}
+    for e in kernels:
+        name = e.key.lower()
+        g = ("rwkv6_wkv" if "rwkv6_wkv" in name else
+             "matmul" if any(m in name for m in ("gemm", "nvjet", "cutlass", "sm90_xmma")) else
+             "other")
+        groups[g] += e.self_device_time_total / 1e3
+    busy = sum(groups.values())
+    log(f"{what} profile: host clock {wall:.3f} ms, kernels {busy:.3f} ms (idle share "
+        f"{1 - busy / wall:.3f}): " + ", ".join(f"{k} {v:.3f} ms" for k, v in groups.items()))
+    for e in sorted(kernels, key=lambda e: -e.self_device_time_total)[:8]:
+        log(f"  {e.self_device_time_total / 1e3:10.3f} ms  {e.count:5d}x  {e.key[:90]}")
+
+
+def logit_diff(got, want):
+    """(rel-L2 distance, argmax agreement) of two logit tensors."""
+    rel = ((got.float() - want.float()).norm() / want.float().norm()).item()
+    return rel, (got.argmax(-1) == want.argmax(-1)).float().mean().item()
+
+
+def check_prefill_against_plain(cfg, params, batch, logits, what):
+    """K10's prefill logits against the plain-WKV prefill's, within
+    PREFILL_SPREAD x the distance between two plain prefills with chunks of
+    64 and 32; returns the rel-L2 distance."""
+    plain = build_prefill(cfg, wkv_engine="torch")(params, batch)
+    rel, agree = logit_diff(logits, plain)
+    tuning.set_tuning(rwkv_chunk=32)
+    try:
+        plain32 = build_prefill(cfg, wkv_engine="torch")(params, batch)
+    finally:
+        tuning.reset()
+    spread, spread_agree = logit_diff(plain32, plain)
+    del plain, plain32
+    log(f"R2: {what}: logits against the plain-WKV prefill rel-L2 {rel:.3e}, argmax agreement "
+        f"{agree:.4f}; two plain prefills (chunk 32 against 64) rel-L2 {spread:.3e}, argmax "
+        f"agreement {spread_agree:.4f}")
+    if not rel <= PREFILL_SPREAD * spread:
+        raise AssertionError(f"{what}: prefill logits rel-L2 {rel} > {PREFILL_SPREAD} x the "
+                             f"plain prefills' spread {spread}")
+    return rel
+
+
+def cast_params(params, dtype):
+    """A copy of a parameter tree with its bf16 leaves cast to ``dtype``."""
+    if isinstance(params, torch.Tensor):
+        return params.to(dtype) if params.dtype == torch.bfloat16 else params
+    if isinstance(params, dict):
+        return {k: cast_params(v, dtype) for k, v in params.items()}
+    return [cast_params(v, dtype) for v in params]
+
+
+def rwkv_prefill():
+    """R2: rwkv6-7b at full width prefills PREFILL_B x PREFILL_T tokens on
+    the card, counted; against the plain-WKV prefill; timed."""
+    cfg = get_arch("rwkv6-7b")
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    params = init_params(cfg, torch.Generator("cuda").manual_seed(0))
+    torch.cuda.synchronize()
+    n, nbytes = param_stats(params)
+    log(f"R2: {cfg.name} initialised on the card in {time.perf_counter() - t0:.1f} s: {n} "
+        f"parameters, {nbytes} B")
+    if n != RWKV_PARAMS:
+        raise AssertionError(f"{cfg.name} has {n} parameters, expected {RWKV_PARAMS}")
+    gen = torch.Generator(device="cuda").manual_seed(6)
+    batch = {"tokens": torch.randint(0, cfg.vocab, (PREFILL_B, PREFILL_T), generator=gen,
+                                     device="cuda")}
+    prefill = build_prefill(cfg)
+    reset_counts()
+    logits = prefill(params, batch)
+    torch.cuda.synchronize()
+    counts = path_counts(RWKV_PATH)
+    log(f"R2: prefill {PREFILL_B} x {PREFILL_T} -> logits {tuple(logits.shape)} "
+        f"{logits.dtype}; launches on the prefill's path: {counts}")
+    if counts["rwkv6_wkv"] != cfg.n_layers:
+        raise AssertionError(f"K10 launched {counts['rwkv6_wkv']} times, not once a layer")
+    if not torch.isfinite(logits).all():
+        raise AssertionError("prefill logits have non-finite values")
+    check_prefill_against_plain(cfg, params, batch, logits, "bf16")
+    del logits
+    p32 = cast_params(params, torch.float32)
+    cfg32 = dataclasses.replace(cfg, dtype=torch.float32)
+    rel32 = check_prefill_against_plain(cfg32, p32, batch, build_prefill(cfg32)(p32, batch),
+                                        "fp32 copy")
+    del p32
+    torch.cuda.empty_cache()
+    if not rel32 < PREFILL_REL_L2_FP32:
+        raise AssertionError(f"fp32 prefill logits rel-L2 {rel32} >= {PREFILL_REL_L2_FP32}")
+    ms = time_ms(lambda: prefill(params, batch), reps=3, warm=1)
+    log(f"R2: prefill {ms:.3f} ms, {PREFILL_B * PREFILL_T / ms * 1e3:.1f} tokens/s; peak memory "
+        f"{torch.cuda.max_memory_allocated() / 2**30:.2f} GiB")
+    device_profile(lambda: prefill(params, batch), "R2: one prefill")
+    return cfg, params, nbytes, counts, ms
+
+
+def rwkv_serve(cfg, params, nbytes):
+    """R3: generate SERVE_NEW greedy tokens for SERVE_B requests after a
+    prompt of SERVE_PROMPT tokens fed token by token."""
+    gen = torch.Generator(device="cuda").manual_seed(7)
+    prompt = torch.randint(0, cfg.vocab, (SERVE_B, SERVE_PROMPT), generator=gen, device="cuda")
+    generate(params, cfg, prompt[:, :2], steps=2, s_max=SERVE_PROMPT + SERVE_NEW)   # warm-up
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    out = generate(params, cfg, prompt, steps=SERVE_NEW, s_max=SERVE_PROMPT + SERVE_NEW)
+    torch.cuda.synchronize()
+    dt = time.perf_counter() - t0
+    steps = SERVE_PROMPT + SERVE_NEW
+    bound_ms = nbytes / HBM_BYTES_PER_S * 1e3
+    log(f"R3: generate {SERVE_B} requests, prompt {SERVE_PROMPT}, {SERVE_NEW} new tokens: "
+        f"{dt:.3f} s, {steps} decode steps, {dt / steps * 1e3:.3f} ms a step (weight-read "
+        f"bound {bound_ms:.3f} ms), {SERVE_B * SERVE_NEW / dt:.1f} new tokens/s")
+    log(f"R3: first request's new tokens {out[0, SERVE_PROMPT:].tolist()}")
+    if tuple(out.shape) != (SERVE_B, SERVE_PROMPT + SERVE_NEW):
+        raise AssertionError(f"generate returned shape {tuple(out.shape)}")
+    if not torch.equal(out[:, :SERVE_PROMPT], prompt):
+        raise AssertionError("generate did not return the prompt first")
+    if not (0 <= int(out.min()) and int(out.max()) < cfg.vocab):
+        raise AssertionError("generated tokens outside the vocab")
+    step = build_serve_step(cfg)
+    cache = init_cache(cfg, SERVE_B, steps, device="cuda")
+    with torch.inference_mode():
+        device_profile(lambda: step(params, cache, out[:, 0]), "R3: one decode step")
+    return dt / steps * 1e3
+
+
 def table_rows(path, counts, rows):
     return [dict(name=name, route="cuda", source=f"src/repro_torch/csrc/{src}",
                  replaces=rep, launches=counts[name], **rows[name])
@@ -743,11 +1001,27 @@ def main():
     # T3. explicit tiles at the small lattice against the torch engine
     ludwig_tiled_small(tuple(args.ludwig_small))
 
+    # R1. K10 against its plain version and the scan oracle
+    log("R1: K10 (rwkv6_wkv):")
+    rrows = check_wkv_kernel()
+
+    # R2. the full-width prefill, counted
+    rcfg, params, nbytes, rcounts, prefill_ms = rwkv_prefill()
+    wkv_ms = rcfg.n_layers * rrows["rwkv6_wkv"]["ms"]
+    log(f"R2: {rcfg.n_layers} K10 launches at R1's time: {wkv_ms:.3f} ms, "
+        f"{wkv_ms / prefill_ms:.3f} of the prefill")
+
+    # R3. serving
+    rwkv_serve(rcfg, params, nbytes)
+    del params
+    torch.cuda.empty_cache()
+
     # 6. the kernel table, then the result
     table = (table_rows(PATH, counts, rows) + table_rows(LUDWIG_PATH, lcounts, lrows)
              + table_rows(LB_EXHIBIT_PATH, xcounts, lrows)
              + table_rows(TILED_PATH, tcounts, trows)
-             + table_rows(TILED_EXHIBIT_PATH, txcounts, trows))
+             + table_rows(TILED_EXHIBIT_PATH, txcounts, trows)
+             + table_rows(RWKV_PATH, rcounts, rrows))
     print(json.dumps({"kernels": table}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

@@ -58,6 +58,7 @@ SIGNATURES = {
     "rt_ludwig_chem_stress": (_P, _P, _P, _P, _P, _L, _F, _F, _F, _F, _F, _F, _F, _I, _P),
     "rt_ludwig_lc_update": (_P, _P, _P, _P, _P, _L, _F, _F, _F, _F, _I, _P),
     "rt_ludwig_fed": (_P, _P, _P, _L, _F, _F, _F, _F, _I, _P),
+    "rt_rwkv6_wkv": (_P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _P),
 }
 
 

@@ -1,5 +1,5 @@
-"""Carry Field state and lowering plans between the JAX package and the
-port.
+"""Carry Field state, lowering plans and LM parameters between the JAX
+package and the port.
 
 A Field crosses as plain numpy data: its physical array, lattice, layout
 name and ncomp.  Physical shapes are the same in both packages, so the
@@ -8,7 +8,9 @@ JAX package: a caller holding a JAX Field passes ``np.asarray(f.data)``,
 ``f.lattice``, ``f.layout.name`` and ``f.ncomp``; for a Ludwig state, the
 physical arrays of its ``dist`` and ``q`` with their shared lattice and
 layout name.  A plan crosses as the JAX package's
-``LoweringPlan.to_json()`` dictionary (:func:`to_plan`).
+``LoweringPlan.to_json()`` dictionary (:func:`to_plan`).  LM parameters
+cross as the reference's parameter pytree of numpy arrays
+(:func:`to_lm_params`).
 """
 
 from __future__ import annotations
@@ -24,7 +26,8 @@ from repro_torch.core.field import Field, resolve_device
 from repro_torch.core.layout import parse_layout
 from repro_torch.core.plan import LoweringPlan
 
-__all__ = ["to_field", "from_field", "to_ludwig_state", "from_ludwig_state", "to_plan"]
+__all__ = ["to_field", "from_field", "to_ludwig_state", "from_ludwig_state", "to_plan",
+           "to_lm_params"]
 
 _ENGINES = {"pallas": "cuda", "jnp": "torch"}
 
@@ -90,3 +93,33 @@ def to_plan(ref: Mapping) -> LoweringPlan:
                          + "; ".join(missing))
     return LoweringPlan(_ENGINES[engine], vvl=int(ref.get("vvl", 0)), bx=bx,
                         by=int(ref.get("by", 0)), bz=int(ref.get("bz", 0)))
+
+
+def _lm_leaf(a, device) -> torch.Tensor:
+    a = np.asarray(a)
+    if a.dtype.name == "bfloat16":
+        # ml_dtypes' bfloat16, which torch.from_numpy refuses: carry the bits
+        bits = torch.from_numpy(np.array(a.view(np.uint16), copy=True))
+        return bits.view(torch.bfloat16).to(device)
+    return torch.from_numpy(np.array(a, copy=True)).to(device)
+
+
+def _lm_tree(tree: Mapping, fn):
+    return {k: _lm_tree(v, fn) if isinstance(v, Mapping) else fn(v) for k, v in tree.items()}
+
+
+def to_lm_params(tree: Mapping, device="cpu"):
+    """The port's LM parameters for the JAX package's parameter pytree given
+    as nested dictionaries of numpy arrays (``jax.tree.map(np.asarray,
+    params)``): every leaf bitwise, on ``device``.  The reference stacks the
+    layers' leaves on a leading (L,) axis; the port keeps a list of one
+    dictionary a layer, so the stacked leaves are split."""
+    out = {k: _lm_tree(v, lambda a: _lm_leaf(a, device)) for k, v in tree.items()
+           if k != "layers"}
+    stacked = _lm_tree(tree["layers"], lambda a: _lm_leaf(a, device))
+    first = stacked
+    while isinstance(first, Mapping):
+        first = next(iter(first.values()))
+    out["layers"] = [_lm_tree(stacked, lambda t, i=i: t[i].clone())
+                     for i in range(first.shape[0])]
+    return out

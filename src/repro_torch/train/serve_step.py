@@ -1,0 +1,64 @@
+"""Serving steps: prefill and batched autoregressive decode.
+
+``build_serve_step`` is the decode unit: one new token a sequence against
+the recurrent state cache.  ``generate`` drives it over a batch of requests:
+the prompt goes in token by token, then greedy or temperature sampling.
+"""
+
+from __future__ import annotations
+
+import torch
+
+from repro_torch.configs.base import ArchConfig
+from repro_torch.models import decode_step, forward, init_cache
+
+
+def build_serve_step(cfg: ArchConfig):
+    """(params, cache, tokens (B,)) -> (logits (B, vocab), cache)."""
+
+    def step(params, cache, tokens):
+        return decode_step(params, cfg, cache, tokens)
+
+    return step
+
+
+def build_prefill(cfg: ArchConfig, *, wkv_engine: str = "auto"):
+    """(params, batch) -> logits: the prefill unit.  On parameters on the
+    card ``"auto"`` runs K10 in every layer."""
+
+    def prefill(params, batch):
+        with torch.inference_mode():
+            logits, _ = forward(params, cfg, batch, wkv_engine=wkv_engine)
+        return logits
+
+    return prefill
+
+
+def generate(params, cfg: ArchConfig, prompt_tokens, *, steps: int, s_max: int,
+             temperature: float = 0.0, generator: torch.Generator = None):
+    """Greedy or sampled generation.  prompt_tokens: (B, P) integers on the
+    parameters' device.  Returns (B, P + steps) int64 tokens.
+
+    ``generator`` is only consulted when ``temperature > 0``; it defaults to
+    one seeded 0 on the tokens' device, so sampling is reproducible out of
+    the box (its bits are not the reference's ``jax.random``)."""
+    B, P = prompt_tokens.shape
+    dev = prompt_tokens.device
+    if temperature > 0.0 and generator is None:
+        generator = torch.Generator(device=dev).manual_seed(0)
+    step = build_serve_step(cfg)
+    with torch.inference_mode():
+        cache = init_cache(cfg, B, s_max, device=dev)
+        out = [prompt_tokens[:, i].long() for i in range(P)]
+        logits = None
+        for tok in out[:P]:
+            logits, cache = step(params, cache, tok)
+        for _ in range(steps):
+            if temperature > 0.0:
+                probs = torch.softmax(logits.float() / temperature, dim=-1)
+                nxt = torch.multinomial(probs, 1, generator=generator)[:, 0]
+            else:
+                nxt = torch.argmax(logits, dim=-1)
+            out.append(nxt)
+            logits, cache = step(params, cache, nxt)
+    return torch.stack(out, dim=1)

@@ -19,6 +19,9 @@ from repro_torch.apps.milc import MilcConfig, fields, init_problem, residual_che
 from repro_torch.core import TargetConfig, fuse, reduce, target  # noqa: E402
 from repro_torch.kernels.lb_collision import kernel as K7  # noqa: E402
 from repro_torch.kernels.lb_propagation import kernel as K8  # noqa: E402
+from repro_torch.kernels.rwkv6_scan import kernel as K10  # noqa: E402
+from repro_torch.kernels.rwkv6_scan import ref as wkv_ref  # noqa: E402
+from repro_torch.kernels.rwkv6_scan import rwkv6  # noqa: E402
 from repro_torch.kernels.wilson_dslash import kernel as K  # noqa: E402
 
 FIELD_RTOL = 1e-5  # max|kernel - plain| <= FIELD_RTOL * max|plain|
@@ -202,3 +205,88 @@ def test_tiled_steps_equal_untiled_steps(card):
     for s in states[1:]:
         assert torch.equal(s.dist.data, states[0].dist.data)
         assert torch.equal(s.q.data, states[0].q.data)
+
+
+# K10 against its plain version (ref.rwkv6_chunked): the same arithmetic with
+# the fp32 sums over C * dk terms in another order; the error scales with
+# the output's size (tests/test_torch_rwkv.py states the same tolerance
+# between the port's chunked form and the reference's).
+WKV_RTOL, WKV_ATOL_REL = 1e-5, 2e-5
+# (B, H, T, dk, dv, chunk): rwkv6-7b's head and chunk, C < 64 with small
+# heads (T 100 runs chunks of 50), uneven dk / dv, odd sizes, chunks of 1
+K10_CASES = [(1, 2, 128, 64, 64, 64), (2, 3, 100, 16, 16, 50), (1, 2, 96, 24, 32, 32),
+             (2, 1, 64, 8, 8, 16), (1, 3, 21, 5, 3, 7), (1, 1, 9, 64, 64, 1)]
+
+
+def _wkv_problem(rng, B, H, T, dk, dv, device):
+    """tests/test_kernels_rwkv.py's inputs (strong decay) and a random u."""
+    def n(shape, scale=1.0):
+        return torch.from_numpy((scale * rng.normal(size=shape)).astype(np.float32)).to(device)
+    w = torch.exp(-torch.exp(1.0 + n((B, H, T, dk))))
+    return (n((B, H, T, dk)), n((B, H, T, dk), 0.3), n((B, H, T, dv)), w, n((H, dk), 0.5),
+            n((B, H, dk, dv), 0.1))
+
+
+def _close_wkv(got, want):
+    torch.testing.assert_close(got, want, rtol=WKV_RTOL, atol=WKV_ATOL_REL * want.abs().max().item())
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("B,H,T,dk,dv,chunk", K10_CASES, ids=str)
+def test_k10_wkv(card, B, H, T, dk, dv, chunk, rng):
+    r, k, v, w, u, s0 = _wkv_problem(rng, B, H, T, dk, dv, card)
+    BH = B * H
+    flat = [x.reshape(BH, T, -1) for x in (r, k, v, w)]
+    ub = u.expand(B, H, dk).reshape(BH, dk)
+    launches = K10.WKV.launches
+    o, sT = K10.rwkv6_cuda(*flat, ub, s0.reshape(BH, dk, dv), chunk=chunk)
+    torch.cuda.synchronize()
+    assert K10.WKV.launches - launches == 1
+    o_p, s_p = K10.rwkv6_plain(*flat, ub, s0.reshape(BH, dk, dv), chunk=chunk)
+    _close_wkv(o, o_p)
+    _close_wkv(sT, s_p)
+    # the scan oracle, within the reference's chunked-vs-scan tolerance
+    o_s, s_s = wkv_ref.rwkv6_scan_ref(r, k, v, w, u, s0)
+    torch.testing.assert_close(o.reshape(B, H, T, dv), o_s, rtol=1e-3, atol=1e-3)
+    torch.testing.assert_close(sT.reshape(B, H, dk, dv), s_s, rtol=1e-3, atol=1e-3)
+
+
+@pytest.mark.cuda
+def test_k10_through_the_op(card, rng):
+    """The op's "auto" engine on the card: bf16 head views (not contiguous,
+    as the model's _heads makes them) through K10, against the torch engine."""
+    B, H, T, d = 2, 4, 80, 16
+    r, k, v, w, u, s0 = _wkv_problem(rng, B, H, T, d, d, card)
+    views = [x.to(torch.bfloat16).permute(0, 2, 1, 3).contiguous().permute(0, 2, 1, 3)
+             for x in (r, k, v, w)]
+    assert not views[0].is_contiguous()
+    launches = K10.WKV.launches
+    o, sT = rwkv6(*views, u, s0)
+    assert K10.WKV.launches - launches == 1 and o.dtype == torch.bfloat16
+    o_t, s_t = rwkv6(*views, u, s0, engine="torch")
+    torch.testing.assert_close(o, o_t, rtol=1e-2, atol=1e-2)   # o rounded to bf16
+    _close_wkv(sT, s_t)
+    with pytest.raises(ValueError, match="chunk from 1 to 64"):
+        rwkv6(*views, u, s0, engine="cuda", chunk=80)
+
+
+@pytest.mark.cuda
+def test_rwkv6_smoke_prefill_and_generate_on_card(card, rng):
+    """The SMOKE model on the card: the prefill runs K10 once a layer and
+    agrees with the torch engine; greedy generation serves in-vocab tokens."""
+    from repro_torch.configs import get_arch
+    from repro_torch.models import init_params
+    from repro_torch.train.serve_step import build_prefill, generate
+
+    cfg = get_arch("rwkv6-7b", smoke=True)
+    params = init_params(cfg, torch.Generator("cuda").manual_seed(0))
+    tokens = torch.from_numpy(rng.integers(0, cfg.vocab, size=(2, 48))).to(card)
+    launches = K10.WKV.launches
+    logits = build_prefill(cfg)(params, {"tokens": tokens})
+    assert K10.WKV.launches - launches == cfg.n_layers
+    plain = build_prefill(cfg, wkv_engine="torch")(params, {"tokens": tokens})
+    assert K10.WKV.launches - launches == cfg.n_layers
+    rel = (logits.float() - plain.float()).norm() / plain.float().norm()
+    assert torch.isfinite(logits.float()).all() and rel < 1e-2
+    out = generate(params, cfg, tokens[:, :8], steps=8, s_max=32)
+    assert out.shape == (2, 16) and int(out.max()) < cfg.padded_vocab and int(out.min()) >= 0

@@ -118,9 +118,12 @@ def test_port_imports_neither_jax_nor_the_reference():
         "mods = [m.name for m in pkgutil.walk_packages(repro_torch.__path__, 'repro_torch.')]\n"
         "for m in mods:\n"
         "    importlib.import_module(m)\n"
-        "bad = [m for m in sys.modules if m == 'jax' or m.startswith('jax.')\n"
-        "       or m == 'repro' or m.startswith('repro.')]\n"
+        "bad = [m for m in sys.modules if m.split('.')[0] in ('jax', 'repro', 'ml_dtypes')]\n"
         "assert len(mods) >= 15, mods\n"
+        "lm = ['repro_torch.' + m for m in ('configs.base', 'configs.rwkv6_7b', 'tuning',\n"
+        "      'kernels.rwkv6_scan.kernel', 'kernels.rwkv6_scan.ops', 'models.rwkv6',\n"
+        "      'models.transformer', 'train.serve_step')]\n"
+        "assert set(lm) <= set(mods), set(lm) - set(mods)\n"
         "assert not bad, bad\n"
         "print(len(mods))\n"
     )
