@@ -67,6 +67,28 @@ R2. rwkv6-7b at full width and depth (7,534,813,184 parameters, bf16, drawn
 R3. ``generate`` serves 4 requests: a prompt of 16 tokens fed token by
    token, then 16 greedy tokens; shape and vocab checked, ms a decode step
    beside the weight-read bound; one decode step traced as in R2;
+A1. K11 and K12 (GQA flash attention) against their plain versions
+   (``flash_plain``, ``flash_kvchunk_plain``) at starcoder2-7b's heads: K11
+   at (BKV, rep, S, dh) = (16, 9, 2048, 128), K12 at (4, 9, 8192, 128),
+   causal, in bf16 and fp32, and both at (2, 3, 100, 64) with a window of
+   32: fp32 within rtol 1e-5, atol 2e-5 x max|plain|, bf16 within one bf16
+   ulp of the output (plus that atol); timed beside the plain version and
+   ``scaled_dot_product_attention`` on the same bf16 tensors;
+A2. starcoder2-7b at full width and depth (7,172,858,880 parameters, bf16,
+   seed 0 on the card) prefills 4 x 2048 tokens (the dense branch) and 1 x
+   8192 (the blockwise branch): with every count set to 0 before each, the
+   first must launch K11 once a layer (32) and K12 never, the second K12 32
+   times and K11 never; logits finite, and within twice the spread of two
+   plain-attention prefills that differ only in attention's sum order (the
+   dense against the blockwise branch at 2048; kv_block 1024 against 512 at
+   8192) of the plain-attention prefill, in bf16 and on an fp32 copy of the
+   weights, where they must also lie within rel-L2 1e-3; both timed, the
+   4 x 2048 prefill traced as in R2;
+A3. ``generate`` serves 4 requests, a 16-token prompt then 16 greedy tokens,
+   with a 4096-token cache that every decode step reads whole: ms a step
+   beside the bound of reading the weights and the cache once; one decode
+   step traced; on the fp32 copy, the decode's logits after the prompt
+   within rel-L2 1e-3 of the prefill's at the last prompt position;
 6. print the kernel table of every path as one JSON line, then the result
    line.
 """
@@ -96,6 +118,7 @@ from repro_torch.apps.milc import MilcConfig, init_problem, residual_check, solv
 from repro_torch.configs import get_arch  # noqa: E402
 from repro_torch.core import SOA, Field, TargetConfig  # noqa: E402
 from repro_torch.core import fuse, plan, reduce, target  # noqa: E402
+from repro_torch.kernels.flash_attention import kernel as kf  # noqa: E402
 from repro_torch.kernels.lb_collision import collide  # noqa: E402
 from repro_torch.kernels.lb_collision import kernel as k7  # noqa: E402
 from repro_torch.kernels.lb_propagation import kernel as k8  # noqa: E402
@@ -104,11 +127,13 @@ from repro_torch.kernels.lb_propagation.ops import collide_propagate  # noqa: E4
 from repro_torch.kernels.rwkv6_scan import kernel as k10  # noqa: E402
 from repro_torch.kernels.rwkv6_scan import ref as wkv_ref  # noqa: E402
 from repro_torch.kernels.wilson_dslash import kernel as wk  # noqa: E402
+from repro_torch.models import attention as model_attention  # noqa: E402
 from repro_torch.models import init_cache, init_params  # noqa: E402
 from repro_torch.train.serve_step import build_prefill, build_serve_step, generate  # noqa: E402
 
 HBM_BYTES_PER_S = 3.35e12   # H100 SXM data sheet
 FP32_FLOP_PER_S = 67e12     # H100 SXM data sheet, fp32 outside the tensor cores
+BF16_TC_FLOP_PER_S = 989e12  # H100 SXM data sheet, bf16 on the tensor cores (dense)
 FIELD_RTOL = 1e-5           # fields: max|kernel - plain| <= FIELD_RTOL * max|plain|
 SUM_RTOL = 1e-5             # sums: |kernel - plain| <= SUM_RTOL * sum|terms| per component
 KAPPA, HOT, TOL, MAX_ITER = 0.12, 0.6, 1e-10, 2000
@@ -120,7 +145,7 @@ KERNELS = [target.G5, target.MUL, target.AXPY, reduce.REDUCE_SUM,
            reduce.REDUCE_MAX, reduce.REDUCE_FOLD, fuse.CG_UPDATE, fuse.CG_XPAY,
            wk.DSLASH, wk.WILSON_NORMAL_T, wk.WILSON_NORMAL_AP, k7.COLLIDE,
            k8.PROPAGATE, k8.LB_STEP, k8.LB_STEP_TILED, lk.CHEM_STRESS, lk.LC_UPDATE,
-           lk.FED, k10.WKV]
+           lk.FED, k10.WKV, kf.FLASH, kf.FLASH_KVCHUNK]
 
 # flops a site, counted from the sources (all these kernels are bound by bytes)
 FLOPS = {"collide": 450, "lb_step": 462, "chem_stress": 600, "lc_update": 320, "fed": 160}
@@ -185,6 +210,19 @@ WKV_SCAN_TOL = 1e-3               # chunked vs the scan oracle (tests/test_kerne
 PREFILL_SPREAD = 2.0
 PREFILL_REL_L2_FP32 = 1e-3
 
+# starcoder2-7b serving (A1-A3)
+FLASH_PATH = {
+    "flash_attention": ([kf.FLASH], "flash.cu",
+                        "src/repro/kernels/flash_attention/kernel.py:47"),
+    "flash_attention_kvchunk": ([kf.FLASH_KVCHUNK], "flash.cu",
+                                "src/repro/kernels/flash_attention/kernel.py:86"),
+}
+DENSE_PARAMS = 7_172_858_880      # starcoder2-7b, counted from the reference's init
+DENSE_PREFILLS = ((4, 2048), (1, 8192))   # the dense branch, the blockwise branch
+DENSE_S_MAX = 4096                # decode_32k's (128, 32768) cut to batch 4 x 4096
+FLASH_RTOL, FLASH_ATOL_REL = 1e-5, 2e-5   # fp32; bf16: one bf16 ulp + the atol
+DECODE_REL_L2_FP32 = 1e-3         # fp32 decode after the prompt vs the prefill
+
 T1_SLICE_TILES = (4, 4, 2)  # tiles a side of the sub-lattice tiled_plain runs on in T1
 T3_BUDGET, T3_TILE = 6512, (1, 1, 2)   # T3's budget and the tile it picks
 
@@ -234,15 +272,19 @@ def sum_err(got, want, terms, name):
     return err.max().item()
 
 
-def bound(nbytes: float, flops: float):
-    tb, tf = nbytes / HBM_BYTES_PER_S * 1e3, flops / FP32_FLOP_PER_S * 1e3
+def bound(nbytes: float, flops: float, tc_flops: float = 0.0):
+    """The least time (ms) for nbytes moved, flops fp32 operations on the
+    CUDA cores and tc_flops bf16 operations on the tensor cores; the two
+    kinds of unit run at once, so the operations take the longer of the two."""
+    tb = nbytes / HBM_BYTES_PER_S * 1e3
+    tf = max(flops / FP32_FLOP_PER_S, tc_flops / BF16_TC_FLOP_PER_S) * 1e3
     return (tb, "bytes") if tb >= tf else (tf, "operations")
 
 
-def add_row(rows, name, err, ms, plain_ms, nbytes, flops, library_ms=None):
+def add_row(rows, name, err, ms, plain_ms, nbytes, flops, tc_flops=0.0, *, library_ms=None):
     """One kernel's measured row: its error against the plain version, its
     time, the plain version's, its bound and the library call's time."""
-    b_ms, b_by = bound(nbytes, flops)
+    b_ms, b_by = bound(nbytes, flops, tc_flops)
     rows[name] = dict(max_abs_err=err, ms=ms, plain_ms=plain_ms, bound_ms=b_ms,
                       bound_by=b_by, library_ms=library_ms)
     log(f"  {name:20s} err {err:.3e}  {ms:.4f} ms  plain {plain_ms:.4f} ms  "
@@ -735,9 +777,10 @@ def param_stats(params):
     return sum(n for n, _ in stats), sum(b for _, b in stats)
 
 
-def device_profile(fn, what):
-    """fn() under torch.profiler: the device time of its kernels in three
-    groups (matmuls, K10, the rest), against the host clock."""
+def device_profile(fn, what, kernels=(("rwkv6_wkv", "rwkv6_wkv"),)):
+    """fn() under torch.profiler: the device time of its kernels in groups
+    (matmuls, the hand kernels named by (group, substring of the kernel's
+    name) in ``kernels``, the rest), against the host clock."""
     from torch.profiler import ProfilerActivity, profile
 
     torch.cuda.synchronize()
@@ -746,20 +789,21 @@ def device_profile(fn, what):
         fn()
         torch.cuda.synchronize()
         wall = (time.perf_counter() - t0) * 1e3
-    kernels = [e for e in prof.key_averages()
-               if e.device_type == torch.autograd.DeviceType.CUDA and e.self_device_time_total > 0]
-    groups = {"matmul": 0.0, "rwkv6_wkv": 0.0, "other": 0.0}
-    for e in kernels:
+    events = [e for e in prof.key_averages()
+              if e.device_type == torch.autograd.DeviceType.CUDA and e.self_device_time_total > 0]
+    groups = dict.fromkeys(["matmul", *(g for g, _ in kernels), "other"], 0.0)
+    for e in events:
         name = e.key.lower()
-        g = ("rwkv6_wkv" if "rwkv6_wkv" in name else
-             "matmul" if any(m in name for m in ("gemm", "nvjet", "cutlass", "sm90_xmma")) else
-             "other")
+        g = next((g for g, sub in kernels if sub in name), None) or (
+            "matmul" if any(m in name for m in ("gemm", "nvjet", "cutlass", "sm90_xmma")) else
+            "other")
         groups[g] += e.self_device_time_total / 1e3
     busy = sum(groups.values())
     log(f"{what} profile: host clock {wall:.3f} ms, kernels {busy:.3f} ms (idle share "
         f"{1 - busy / wall:.3f}): " + ", ".join(f"{k} {v:.3f} ms" for k, v in groups.items()))
-    for e in sorted(kernels, key=lambda e: -e.self_device_time_total)[:8]:
+    for e in sorted(events, key=lambda e: -e.self_device_time_total)[:8]:
         log(f"  {e.self_device_time_total / 1e3:10.3f} ms  {e.count:5d}x  {e.key[:90]}")
+    return wall, busy, groups
 
 
 def logit_diff(got, want):
@@ -871,6 +915,247 @@ def rwkv_serve(cfg, params, nbytes):
     with torch.inference_mode():
         device_profile(lambda: step(params, cache, out[:, 0]), "R3: one decode step")
     return dt / steps * 1e3
+
+
+def flash_err(got, want, name):
+    """K11/K12 against its plain version: fp32 within FLASH_RTOL and
+    FLASH_ATOL_REL x max|plain|; bf16 within one bf16 ulp of the larger of
+    the two outputs (2^-8 to 2^-7 of it: two fp32 results that round to
+    neighbouring bf16 values) plus that atol."""
+    g, w = got.float(), want.float()
+    err = (g - w).abs()
+    atol = FLASH_ATOL_REL * w.abs().max()
+    if got.dtype == torch.float32:
+        lim = atol + FLASH_RTOL * w.abs()
+    else:
+        ulp_exp = torch.frexp(torch.maximum(g.abs(), w.abs())).exponent - 8
+        lim = atol + torch.ldexp(torch.ones_like(w), ulp_exp)
+    if not bool((err <= lim).all()):
+        raise AssertionError(f"{name}: max abs err {err.max().item()} beyond its limit "
+                             f"(dtype {got.dtype}, max|plain| {w.abs().max().item()})")
+    return err.max().item()
+
+
+def seen_pairs(S, causal, window):
+    """(query, key) pairs the mask lets through, a head."""
+    if not causal and window <= 0:
+        return S * S
+    n = 0
+    for i in range(S):
+        lo = max(0, i - window + 1) if window > 0 else 0
+        hi = i + 1 if causal else S
+        n += hi - lo
+    return n
+
+
+def flash_work(BKV, rep, S, dh, causal, window, itemsize):
+    """(bytes, fp32 operations, bf16 tensor-core operations) of the
+    attention function, K11's or K12's: q, k, v read and o written once; a
+    seen pair costs 2 dh for QK^T, once (K11's second sweep is its own
+    choice), 2 dh for p v and one exp.  With bf16 inputs QK^T's products are
+    exact in fp32, so its fp32-accumulated result is the tensor cores'; p v
+    takes fp32 p, so it stays on the CUDA cores."""
+    nbytes = itemsize * S * dh * (2 * BKV * rep + 2 * BKV)
+    pairs = BKV * rep * seen_pairs(S, causal, window)
+    qk = 2 * dh * pairs
+    if itemsize == 2:
+        return nbytes, pairs * (2 * dh + 1), qk
+    return nbytes, pairs * (2 * dh + 1) + qk, 0
+
+
+def check_flash_kernels():
+    """A1: K11 and K12 against their plain versions at starcoder2-7b's
+    heads and at a ragged windowed case; timed beside the plain version and
+    scaled_dot_product_attention."""
+    gen = torch.Generator(device="cuda").manual_seed(8)
+    rows = {}
+    cases = (("flash_attention", kf.flash_cuda, kf.flash_plain, (16, 9, 2048, 128)),
+             ("flash_attention_kvchunk", kf.flash_kvchunk_cuda, kf.flash_kvchunk_plain,
+              (4, 9, 8192, 128)))
+    for name, kern, plain, (BKV, rep, S, dh) in cases:
+        for dtype in (torch.float32, torch.bfloat16):
+            q, k, v = (torch.randn((n, S, dh), generator=gen, device="cuda").to(dtype)
+                       for n in (BKV * rep, BKV, BKV))
+            o = kern(q, k, v, rep=rep)
+            want = plain(q, k, v, rep=rep)
+            err = flash_err(o, want, f"{name} at {(BKV, rep, S, dh)} {dtype}")
+            del o, want
+            ms = time_ms(lambda: kern(q, k, v, rep=rep))
+            log(f"  {name} at (BKV, rep, S, dh) = {(BKV, rep, S, dh)}, causal, {dtype}: max abs "
+                f"err {err:.3e}, {ms:.4f} ms")
+            if dtype != torch.bfloat16:
+                continue
+            plain_ms = time_ms(lambda: plain(q, k, v, rep=rep), reps=3, warm=1)
+            B = BKV // 4   # starcoder2's 4 kv heads
+            q4, k4, v4 = (t.reshape(B, -1, S, dh) for t in (q, k, v))
+            sdpa = torch.nn.functional.scaled_dot_product_attention
+            library_ms = time_ms(lambda: sdpa(q4, k4, v4, is_causal=True, enable_gqa=True))
+            add_row(rows, name, err, ms, plain_ms,
+                    *flash_work(BKV, rep, S, dh, True, 0, 2), library_ms=library_ms)
+            del q4, k4, v4
+        del q, k, v
+        torch.cuda.empty_cache()
+    # the ragged, windowed case: S 100, a window of 32 (smaller than a kv tile)
+    BKV, rep, S, dh, window = 2, 3, 100, 64, 32
+    for dtype in (torch.float32, torch.bfloat16):
+        q, k, v = (torch.randn((n, S, dh), generator=gen, device="cuda").to(dtype)
+                   for n in (BKV * rep, BKV, BKV))
+        e11 = flash_err(kf.flash_cuda(q, k, v, rep=rep, window=window),
+                        kf.flash_plain(q, k, v, rep=rep, window=window), "K11 ragged, windowed")
+        e12 = max(flash_err(kf.flash_kvchunk_cuda(q, k, v, rep=rep, window=window, kv_block=kvb),
+                            kf.flash_kvchunk_plain(q, k, v, rep=rep, window=window,
+                                                   kv_block=kvb),
+                            f"K12 ragged, windowed, kv_block {kvb}") for kvb in (32, 64))
+        log(f"  K11 / K12 at {(BKV, rep, S, dh)}, window {window}, {dtype}: max abs err "
+            f"{e11:.3e} / {e12:.3e} (K12 kv tiles of {kf.kv_tile(32, S)} and "
+            f"{kf.kv_tile(64, S)})")
+    return rows
+
+
+def matrix_params(params):
+    """Entries of the 2-D tensors of a parameter tree: the matmul weights
+    (the tied embedding is the logits' matmul)."""
+    if isinstance(params, torch.Tensor):
+        return params.numel() if params.dim() == 2 else 0
+    vals = params.values() if isinstance(params, dict) else params
+    return sum(matrix_params(v) for v in vals)
+
+
+def dense_plain_spread(cfg, params, batch, logits, what):
+    """Hold the K11/K12 prefill to PREFILL_SPREAD x the spread of two plain
+    prefills that differ only in attention's sum order: at S < 8192 the
+    dense branch against the blockwise branch (forced through the port's
+    threshold), from 8192 kv_block 1024 against 512.  Returns rel-L2."""
+    S = batch["tokens"].shape[1]
+    plain = build_prefill(cfg, attn_engine="torch")(params, batch)
+    rel, agree = logit_diff(logits, plain)
+    threshold = model_attention.BLOCKWISE_MIN_SEQ
+    try:
+        if S < threshold:
+            model_attention.BLOCKWISE_MIN_SEQ = S
+            pair = "the blockwise branch against the dense branch"
+        else:
+            tuning.set_tuning(kv_block=512)
+            pair = "kv_block 512 against 1024"
+        other = build_prefill(cfg, attn_engine="torch")(params, batch)
+    finally:
+        model_attention.BLOCKWISE_MIN_SEQ = threshold
+        tuning.reset()
+    spread, spread_agree = logit_diff(other, plain)
+    del plain, other
+    log(f"A2: {what}: logits against the plain-attention prefill rel-L2 {rel:.3e}, argmax "
+        f"agreement {agree:.4f}; two plain prefills ({pair}) rel-L2 {spread:.3e}, argmax "
+        f"agreement {spread_agree:.4f}")
+    if not rel <= PREFILL_SPREAD * spread:
+        raise AssertionError(f"{what}: prefill logits rel-L2 {rel} > {PREFILL_SPREAD} x the "
+                             f"plain prefills' spread {spread}")
+    return rel
+
+
+def dense_prefill():
+    """A2: starcoder2-7b at full width prefills 4 x 2048 (K11) and 1 x 8192
+    (K12), counted; against the plain-attention prefill in bf16 and on an
+    fp32 copy; timed; the first traced."""
+    cfg = get_arch("starcoder2-7b")
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    params = init_params(cfg, torch.Generator("cuda").manual_seed(0))
+    torch.cuda.synchronize()
+    n, nbytes = param_stats(params)
+    log(f"A2: {cfg.name} initialised on the card in {time.perf_counter() - t0:.1f} s: {n} "
+        f"parameters, {nbytes} B")
+    if n != DENSE_PARAMS:
+        raise AssertionError(f"{cfg.name} has {n} parameters, expected {DENSE_PARAMS}")
+    gen = torch.Generator(device="cuda").manual_seed(9)
+    batches = [{"tokens": torch.randint(0, cfg.vocab, (b, s), generator=gen, device="cuda")}
+               for b, s in DENSE_PREFILLS]
+    prefill = build_prefill(cfg)
+    counts, times = {}, []
+    for (b, s), batch in zip(DENSE_PREFILLS, batches):
+        reset_counts()
+        logits = prefill(params, batch)
+        torch.cuda.synchronize()
+        c = path_counts(FLASH_PATH)
+        log(f"A2: prefill {b} x {s} -> logits {tuple(logits.shape)} {logits.dtype}; launches "
+            f"on the prefill's path: {c}")
+        name = "flash_attention_kvchunk" if s >= model_attention.BLOCKWISE_MIN_SEQ else \
+            "flash_attention"
+        other = next(k for k in c if k != name)
+        if c[name] != cfg.n_layers or c[other]:
+            raise AssertionError(f"prefill {b} x {s}: launches {c}, expected {name} once a "
+                                 f"layer and {other} never")
+        counts[name] = c[name]
+        if not torch.isfinite(logits).all():
+            raise AssertionError(f"prefill {b} x {s}: non-finite logits")
+        dense_plain_spread(cfg, params, batch, logits, f"bf16, {b} x {s}")
+        del logits
+        ms = time_ms(lambda: prefill(params, batch), reps=3, warm=1)
+        times.append(ms)
+        log(f"A2: prefill {b} x {s}: {ms:.3f} ms, {b * s / ms * 1e3:.1f} tokens/s")
+    p32 = cast_params(params, torch.float32)
+    cfg32 = dataclasses.replace(cfg, dtype=torch.float32)
+    for (b, s), batch in zip(DENSE_PREFILLS, batches):
+        rel32 = dense_plain_spread(cfg32, p32, batch, build_prefill(cfg32)(p32, batch),
+                                   f"fp32 copy, {b} x {s}")
+        if not rel32 < PREFILL_REL_L2_FP32:
+            raise AssertionError(f"fp32 prefill {b} x {s}: logits rel-L2 {rel32} >= "
+                                 f"{PREFILL_REL_L2_FP32}")
+    torch.cuda.empty_cache()
+    log(f"A2: peak memory {torch.cuda.max_memory_allocated() / 2**30:.2f} GiB")
+    _, _, groups = device_profile(lambda: prefill(params, batches[0]), "A2: one 4 x 2048 prefill",
+                                  (("flash K11", "rt_flash_kernel<__nv_bfloat16, false>"),
+                                   ("flash K12", "rt_flash_kernel<__nv_bfloat16, true>")))
+    b, s = DENSE_PREFILLS[0]
+    flops = 2 * b * s * matrix_params(params)
+    log(f"A2: the 4 x 2048 prefill's matmuls: {flops / 1e12:.2f} TFLOP in {groups['matmul']:.3f} "
+        f"ms, {flops / groups['matmul'] / 1e9:.1f} TFLOP/s")
+    return cfg, params, p32, nbytes, counts, times
+
+
+def dense_serve(cfg, params, p32, nbytes):
+    """A3: generate for SERVE_B requests over a DENSE_S_MAX cache; the fp32
+    decode after the prompt against the fp32 prefill's last position."""
+    gen = torch.Generator(device="cuda").manual_seed(10)
+    prompt = torch.randint(0, cfg.vocab, (SERVE_B, SERVE_PROMPT), generator=gen, device="cuda")
+    generate(params, cfg, prompt[:, :2], steps=2, s_max=DENSE_S_MAX)   # warm-up
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    out = generate(params, cfg, prompt, steps=SERVE_NEW, s_max=DENSE_S_MAX)
+    torch.cuda.synchronize()
+    dt = time.perf_counter() - t0
+    steps = SERVE_PROMPT + SERVE_NEW
+    cache_bytes = 2 * cfg.n_layers * SERVE_B * DENSE_S_MAX * cfg.n_kv_heads * cfg.head_dim * 2
+    bound_ms = (nbytes + cache_bytes) / HBM_BYTES_PER_S * 1e3
+    log(f"A3: generate {SERVE_B} requests, prompt {SERVE_PROMPT}, {SERVE_NEW} new tokens, "
+        f"cache {DENSE_S_MAX}: {dt:.3f} s, {steps} decode steps, {dt / steps * 1e3:.3f} ms a step "
+        f"(bound {bound_ms:.3f} ms: {nbytes} B of weights + {cache_bytes} B of k/v cache), "
+        f"{SERVE_B * SERVE_NEW / dt:.1f} new tokens/s")
+    log(f"A3: first request's new tokens {out[0, SERVE_PROMPT:].tolist()}")
+    if tuple(out.shape) != (SERVE_B, steps) or not torch.equal(out[:, :SERVE_PROMPT], prompt):
+        raise AssertionError(f"generate returned {tuple(out.shape)} without the prompt first")
+    if not (0 <= int(out.min()) and int(out.max()) < cfg.vocab):
+        raise AssertionError("generated tokens outside the vocab")
+    step = build_serve_step(cfg)
+    with torch.inference_mode():
+        cache = init_cache(cfg, SERVE_B, DENSE_S_MAX, device="cuda")
+        device_profile(lambda: step(params, cache, out[:, 0]), "A3: one decode step",
+                       (("flash", "rt_flash_kernel"),))
+        del cache
+    # fp32: the decode after the prompt against the prefill's last position
+    cfg32 = dataclasses.replace(cfg, dtype=torch.float32)
+    pre = build_prefill(cfg32)(p32, {"tokens": prompt})[:, -1]
+    step32 = build_serve_step(cfg32)
+    with torch.inference_mode():
+        cache = init_cache(cfg32, SERVE_B, DENSE_S_MAX, device="cuda")
+        for t in range(SERVE_PROMPT):
+            logits, cache = step32(p32, cache, prompt[:, t])
+        del cache
+    rel, agree = logit_diff(logits, pre)
+    log(f"A3: fp32 decode after the prompt against the prefill's last position: rel-L2 "
+        f"{rel:.3e}, argmax agreement {agree:.4f}")
+    if not rel < DECODE_REL_L2_FP32:
+        raise AssertionError(f"fp32 decode logits rel-L2 {rel} >= {DECODE_REL_L2_FP32}")
+    return dt / steps * 1e3, bound_ms
 
 
 def table_rows(path, counts, rows):
@@ -1016,12 +1301,29 @@ def main():
     del params
     torch.cuda.empty_cache()
 
+    # A1. K11 and K12 against their plain versions
+    log("A1: K11 (flash_attention) and K12 (flash_attention_kvchunk):")
+    arows = check_flash_kernels()
+
+    # A2. the full-width prefills, counted
+    dcfg, params, p32, nbytes, acounts, prefill_ms = dense_prefill()
+    for name, ms in zip(("flash_attention", "flash_attention_kvchunk"), prefill_ms):
+        k_ms = dcfg.n_layers * arows[name]["ms"]
+        log(f"A2: {dcfg.n_layers} {name} launches at A1's time: {k_ms:.3f} ms, "
+            f"{k_ms / ms:.3f} of the prefill")
+
+    # A3. serving
+    dense_serve(dcfg, params, p32, nbytes)
+    del params, p32
+    torch.cuda.empty_cache()
+
     # 6. the kernel table, then the result
     table = (table_rows(PATH, counts, rows) + table_rows(LUDWIG_PATH, lcounts, lrows)
              + table_rows(LB_EXHIBIT_PATH, xcounts, lrows)
              + table_rows(TILED_PATH, tcounts, trows)
              + table_rows(TILED_EXHIBIT_PATH, txcounts, trows)
-             + table_rows(RWKV_PATH, rcounts, rrows))
+             + table_rows(RWKV_PATH, rcounts, rrows)
+             + table_rows(FLASH_PATH, acounts, arows))
     print(json.dumps({"kernels": table}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

@@ -59,6 +59,9 @@ SIGNATURES = {
     "rt_ludwig_lc_update": (_P, _P, _P, _P, _P, _L, _F, _F, _F, _F, _I, _P),
     "rt_ludwig_fed": (_P, _P, _P, _L, _F, _F, _F, _F, _I, _P),
     "rt_rwkv6_wkv": (_P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _P),
+    "rt_flash": (_P, _P, _P, _P, _I, _I, _I, _I, _I, _I, *(_L,) * 12, _I, _I, _F, _P),
+    "rt_flash_kvchunk": (_P, _P, _P, _P, _I, _I, _I, _I, _I, _I, *(_L,) * 12, _I, _I, _F, _I,
+                         _P),
 }
 
 

@@ -1,10 +1,11 @@
 """Architecture registry: arch id -> ArchConfig (FULL and SMOKE).
 
-All ten ids of the JAX package are listed; only rwkv6-7b is ported."""
+All ten ids of the JAX package are listed; the dense family (starcoder2-7b,
+granite-3-2b, olmo-1b, deepseek-67b) and rwkv6-7b are ported."""
 
 from __future__ import annotations
 
-from . import rwkv6_7b
+from . import deepseek_67b, granite_3_2b, olmo_1b, rwkv6_7b, starcoder2_7b
 from .base import ArchConfig, LM_SHAPES, ShapeCfg, get_shape, shape_supported  # noqa: F401
 
 ARCH_IDS = (
@@ -20,7 +21,13 @@ ARCH_IDS = (
     "rwkv6-7b",
 )
 
-_MODULES = {"rwkv6-7b": rwkv6_7b}
+_MODULES = {
+    "granite-3-2b": granite_3_2b,
+    "starcoder2-7b": starcoder2_7b,
+    "olmo-1b": olmo_1b,
+    "deepseek-67b": deepseek_67b,
+    "rwkv6-7b": rwkv6_7b,
+}
 
 
 def get_arch(arch_id: str, *, smoke: bool = False) -> ArchConfig:

@@ -1,4 +1,5 @@
-"""Shared layer primitives of the LM path: norms, embeddings, initializers.
+"""Shared layer primitives of the LM path: norms, MLPs, embeddings,
+initializers.
 
 Parameters are plain dictionaries of tensors.  An initializer draws from an
 explicit ``torch.Generator`` on the device where the tensors are made."""
@@ -9,6 +10,7 @@ import math
 from typing import Optional
 
 import torch
+import torch.nn.functional as F
 
 F32 = torch.float32
 
@@ -66,6 +68,34 @@ def apply_norm(params, x, kind: str):
     if kind == "nonparam_ln":
         return nonparam_ln(x)
     raise ValueError(kind)
+
+
+# -- MLP -------------------------------------------------------------------------
+
+def _act(x, kind: str):
+    if kind == "silu":
+        return F.silu(x)
+    if kind == "gelu":
+        # jax.nn.gelu defaults to the tanh approximation; F.gelu to the erf form
+        return F.gelu(x, approximate="tanh")
+    raise ValueError(kind)
+
+
+def init_mlp(gen: torch.Generator, d_model, d_ff, dtype, gated: bool):
+    p = {"w_up": dense_init(gen, (d_model, d_ff), dtype),
+         "w_down": dense_init(gen, (d_ff, d_model), dtype, fan_in=d_ff)}
+    if gated:
+        p["w_gate"] = dense_init(gen, (d_model, d_ff), dtype)
+    return p
+
+
+def apply_mlp(p, x, act: str, gated: bool):
+    up = x @ p["w_up"]
+    if gated:
+        h = _act(x @ p["w_gate"], act) * up
+    else:
+        h = _act(up, act)
+    return h @ p["w_down"]
 
 
 # -- embeddings -------------------------------------------------------------------

@@ -28,10 +28,12 @@ def init_params(cfg: ArchConfig, generator: torch.Generator, device="cuda"):
     return transformer.init_lm(cfg, generator)
 
 
-def forward(params, cfg: ArchConfig, batch: Dict, *, wkv_engine: str = "auto"):
+def forward(params, cfg: ArchConfig, batch: Dict, *, wkv_engine: str = "auto",
+            attn_engine: str = "auto"):
     """Prefill forward -> (logits, aux)."""
     _no_enc_dec(cfg)
-    return transformer.lm_forward(params, cfg, batch, wkv_engine=wkv_engine)
+    return transformer.lm_forward(params, cfg, batch, wkv_engine=wkv_engine,
+                                  attn_engine=attn_engine)
 
 
 def init_cache(cfg: ArchConfig, batch: int, s_max: int, *, dtype=None, device="cuda"):

@@ -1,7 +1,7 @@
 """Serving steps: prefill and batched autoregressive decode.
 
 ``build_serve_step`` is the decode unit: one new token a sequence against
-the recurrent state cache.  ``generate`` drives it over a batch of requests:
+the cache (the recurrent state, or the dense family's k/v cache).  ``generate`` drives it over a batch of requests:
 the prompt goes in token by token, then greedy or temperature sampling.
 """
 
@@ -22,13 +22,15 @@ def build_serve_step(cfg: ArchConfig):
     return step
 
 
-def build_prefill(cfg: ArchConfig, *, wkv_engine: str = "auto"):
+def build_prefill(cfg: ArchConfig, *, wkv_engine: str = "auto", attn_engine: str = "auto"):
     """(params, batch) -> logits: the prefill unit.  On parameters on the
-    card ``"auto"`` runs K10 in every layer."""
+    card ``"auto"`` runs K10 (RWKV6) or K11/K12 (the dense family's
+    attention) in every layer."""
 
     def prefill(params, batch):
         with torch.inference_mode():
-            logits, _ = forward(params, cfg, batch, wkv_engine=wkv_engine)
+            logits, _ = forward(params, cfg, batch, wkv_engine=wkv_engine,
+                                attn_engine=attn_engine)
         return logits
 
     return prefill

@@ -17,6 +17,8 @@ from repro_torch.apps.ludwig import LudwigConfig, init_state, step  # noqa: E402
 from repro_torch.apps.ludwig import kernel as LK  # noqa: E402
 from repro_torch.apps.milc import MilcConfig, fields, init_problem, residual_check, solve  # noqa: E402
 from repro_torch.core import TargetConfig, fuse, reduce, target  # noqa: E402
+from repro_torch.kernels.flash_attention import flash_attention  # noqa: E402
+from repro_torch.kernels.flash_attention import kernel as KF  # noqa: E402
 from repro_torch.kernels.lb_collision import kernel as K7  # noqa: E402
 from repro_torch.kernels.lb_propagation import kernel as K8  # noqa: E402
 from repro_torch.kernels.rwkv6_scan import kernel as K10  # noqa: E402
@@ -288,5 +290,119 @@ def test_rwkv6_smoke_prefill_and_generate_on_card(card, rng):
     assert K10.WKV.launches - launches == cfg.n_layers
     rel = (logits.float() - plain.float()).norm() / plain.float().norm()
     assert torch.isfinite(logits.float()).all() and rel < 1e-2
+    out = generate(params, cfg, tokens[:, :8], steps=8, s_max=32)
+    assert out.shape == (2, 16) and int(out.max()) < cfg.padded_vocab and int(out.min()) >= 0
+
+
+# (BKV, rep, S, dh, causal, window): starcoder2's heads (dh 128, rep 9) on a
+# ragged S, S 96 and 100 with a window smaller than a kv tile, dh 8 / 16 /
+# 64 / 128, rep 1 / 3 / 9, no causal mask with and without a window
+FLASH_CASES = [(2, 9, 100, 128, True, 0), (2, 3, 96, 64, True, 32), (1, 1, 100, 8, True, 0),
+               (3, 3, 130, 64, False, 0), (1, 9, 256, 128, True, 32), (2, 1, 64, 16, False, 24)]
+# fp32: as K10's; bf16: one bf16 ulp of the output (2^-8 to 2^-7 of it, the
+# two fp32 results rounding to neighbours), plus the fp32 limit's atol
+FLASH_RTOL, FLASH_ATOL_REL = 1e-5, 2e-5
+
+
+def _check_flash(got, want):
+    """K11/K12's output against its plain version's, in their dtype."""
+    assert got.dtype == want.dtype and got.shape == want.shape
+    g, w = got.float(), want.float()
+    err = (g - w).abs()
+    atol = FLASH_ATOL_REL * w.abs().max()
+    if got.dtype == torch.float32:
+        lim = atol + FLASH_RTOL * w.abs()
+    else:
+        lim = atol + torch.ldexp(torch.ones_like(w), torch.frexp(torch.maximum(g.abs(), w.abs()))
+                                 .exponent - 8)
+    assert bool((err <= lim).all()), f"max err {err.max().item()}"
+
+
+def _flash_problem(rng, BKV, rep, S, dh, dtype, device):
+    def n(rows):
+        return torch.from_numpy(rng.normal(size=(rows, S, dh)).astype(np.float32)).to(
+            device, dtype)
+    return n(BKV * rep), n(BKV), n(BKV)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16], ids=str)
+@pytest.mark.parametrize("BKV,rep,S,dh,causal,window", FLASH_CASES, ids=str)
+def test_k11_k12_flash(card, BKV, rep, S, dh, causal, window, dtype, rng):
+    q, k, v = _flash_problem(rng, BKV, rep, S, dh, dtype, card)
+    kw = dict(rep=rep, causal=causal, window=window)
+    n11, n12 = KF.FLASH.launches, KF.FLASH_KVCHUNK.launches
+    o11 = KF.flash_cuda(q, k, v, **kw)
+    o12 = {kvb: KF.flash_kvchunk_cuda(q, k, v, kv_block=kvb, **kw) for kvb in (32, 64)}
+    torch.cuda.synchronize()
+    assert KF.FLASH.launches - n11 == 1 and KF.FLASH_KVCHUNK.launches - n12 == 2
+    _check_flash(o11, KF.flash_plain(q, k, v, **kw))
+    for kvb, o in o12.items():
+        _check_flash(o, KF.flash_kvchunk_plain(q, k, v, kv_block=kvb, **kw))
+    assert torch.isfinite(o11.float()).all()
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16], ids=str)
+def test_flash_head_views_and_the_op(card, dtype, rng):
+    """The op on (B, H, S, dh) views of (B, S, H, dh) projections, as the
+    model passes them: "auto" runs K11, "cuda_kvchunk" K12, "torch" neither;
+    o keeps q's strides; a CPU tensor is refused on the cuda engines."""
+    B, KV, rep, S, dh = 2, 2, 3, 72, 32
+    x = [torch.from_numpy(rng.normal(size=(B, S, h, dh)).astype(np.float32)).to(card, dtype)
+         for h in (KV * rep, KV, KV)]
+    q, k, v = (t.permute(0, 2, 1, 3) for t in x)
+    assert not q.is_contiguous()
+    n11, n12 = KF.FLASH.launches, KF.FLASH_KVCHUNK.launches
+    o = flash_attention(q, k, v, rep=rep, window=20)
+    assert KF.FLASH.launches - n11 == 1 and o.stride() == q.stride()
+    o12 = flash_attention(q, k, v, rep=rep, window=20, engine="cuda_kvchunk", kv_block=24)
+    assert KF.FLASH_KVCHUNK.launches - n12 == 1
+    o_t = flash_attention(q, k, v, rep=rep, window=20, engine="torch")
+    assert KF.FLASH.launches - n11 == 1 and KF.FLASH_KVCHUNK.launches - n12 == 1
+    _check_flash(o, o_t)
+    _check_flash(o12, KF.flash_kvchunk_plain(q, k, v, rep=rep, window=20, kv_block=24))
+    grouped = [t.contiguous().reshape(-1, S, dh) for t in (q, k, v)]
+    assert torch.equal(KF.flash_cuda(*grouped, rep=rep, window=20), o.reshape(-1, S, dh))
+    for engine in ("cuda", "cuda_kvchunk"):
+        with pytest.raises(ValueError, match="CUDA device"):
+            flash_attention(*(t.cpu() for t in grouped), rep=rep, engine=engine)
+
+
+@pytest.mark.cuda
+def test_flash_wrappers_refuse_what_they_do_not_take(card):
+    q = torch.zeros((3, 16, 160), device=card)
+    with pytest.raises(ValueError, match="head sizes 1 to 128"):
+        KF.flash_cuda(q, q[:1], q[:1], rep=3)
+    q = torch.zeros((3, 16, 8), device=card)
+    with pytest.raises(ValueError, match="must share"):
+        KF.flash_cuda(q, q[:1].to(torch.bfloat16), q[:1].to(torch.bfloat16), rep=3)
+    with pytest.raises(ValueError, match="stride"):
+        KF.flash_kvchunk_cuda(q, q[:1].transpose(1, 2).contiguous().transpose(1, 2)[:, :, :8],
+                              q[:1], rep=3)
+
+
+@pytest.mark.cuda
+def test_starcoder2_smoke_prefill_on_card(card, rng, monkeypatch):
+    """The SMOKE model on the card: the dense branch runs K11 once a layer,
+    the blockwise branch (forced from 32 tokens) K12 once a layer, both
+    against the torch engine; greedy generation serves in-vocab tokens."""
+    import dataclasses
+
+    from repro_torch.configs import get_arch
+    from repro_torch.models import attention, init_params
+    from repro_torch.train.serve_step import build_prefill, generate
+
+    cfg = dataclasses.replace(get_arch("starcoder2-7b", smoke=True), dtype=torch.float32)
+    params = init_params(cfg, torch.Generator("cuda").manual_seed(0))
+    tokens = torch.from_numpy(rng.integers(0, cfg.vocab, size=(2, 96))).to(card)
+    for threshold, kern in ((8192, KF.FLASH), (32, KF.FLASH_KVCHUNK)):
+        monkeypatch.setattr(attention, "BLOCKWISE_MIN_SEQ", threshold)
+        launches = kern.launches
+        logits = build_prefill(cfg)(params, {"tokens": tokens})
+        assert kern.launches - launches == cfg.n_layers
+        plain = build_prefill(cfg, attn_engine="torch")(params, {"tokens": tokens})
+        torch.testing.assert_close(logits, plain, rtol=1e-4,
+                                   atol=1e-5 * plain.abs().max().item())
     out = generate(params, cfg, tokens[:, :8], steps=8, s_max=32)
     assert out.shape == (2, 16) and int(out.max()) < cfg.padded_vocab and int(out.min()) >= 0

@@ -181,8 +181,8 @@ def test_registry_ports_rwkv6_only():
     assert full.param_count() == jfull.param_count()
     assert (full.head_dim, full.padded_vocab) == (64, 65536)
     for arch in ARCH_IDS:
-        if arch == "rwkv6-7b":
-            continue
+        if arch in ("rwkv6-7b", "starcoder2-7b", "granite-3-2b", "olmo-1b", "deepseek-67b"):
+            continue   # ported (the dense family: tests/test_torch_dense.py)
         with pytest.raises(NotImplementedError, match=f"{arch!r} is not yet ported"):
             get_arch(arch)
     with pytest.raises(KeyError):

@@ -122,7 +122,11 @@ def test_port_imports_neither_jax_nor_the_reference():
         "assert len(mods) >= 15, mods\n"
         "lm = ['repro_torch.' + m for m in ('configs.base', 'configs.rwkv6_7b', 'tuning',\n"
         "      'kernels.rwkv6_scan.kernel', 'kernels.rwkv6_scan.ops', 'models.rwkv6',\n"
-        "      'models.transformer', 'train.serve_step')]\n"
+        "      'models.transformer', 'train.serve_step', 'configs.starcoder2_7b',\n"
+        "      'configs.granite_3_2b', 'configs.olmo_1b', 'configs.deepseek_67b',\n"
+        "      'kernels.flash_attention', 'kernels.flash_attention.kernel',\n"
+        "      'kernels.flash_attention.ops', 'kernels.flash_attention.ref',\n"
+        "      'models.attention')]\n"
         "assert set(lm) <= set(mods), set(lm) - set(mods)\n"
         "assert not bad, bad\n"
         "print(len(mods))\n"
