@@ -1,6 +1,7 @@
 """Drive the PyTorch/CUDA port on one GPU: the MILC Wilson-CG solve, the
-Ludwig LC-LB timestep, untiled and under a shared-memory budget, and
-RWKV6-7B serving (prefill and greedy decode).
+Ludwig LC-LB timestep, untiled, under a shared-memory budget and in every
+data layout, RWKV6-7B and starcoder2-7b serving (prefill and greedy
+decode).
 
     python3 chip_smoke.py [--lattice X Y Z T] [--small X Y Z T]
                           [--ludwig X Y Z] [--ludwig-small X Y Z]
@@ -33,6 +34,28 @@ L4. with every count set to 0: the paper's unfused LB half-step
 L5. at ``--ludwig-small`` (default (32, 32, 32)) 5 steps on the "cuda" and
    the "torch" engine, both on the card: q and dist within rtol 1e-4,
    atol 1e-6;
+Y1. at the full lattices ((64,64,64,32) and (256,256,256)), every lattice
+   kernel of both paths (K1 g5 and the product, K2's sum and fold, K3,
+   K4, K5; K7, K8, K5L, K3L, K1L) in each layout of LAYOUT_SPECS (soa,
+   aos, aosoa4, aosoa8, aosoa16, aosoa64, aosoa128: the union of the
+   paper's Fig. 3 sweeps), vvl 128, on phase 3's and L2's inputs repacked
+   on the card: every field (unpacked) and every sum bitwise equal to the
+   kernel's SoA launch, and within the stated tolerance of its plain
+   version in the same layout; timed beside the SoA row's bound (the
+   layout does not change the bytes);
+Y2. with every count set to 0 before each: the solve of phase 4 from
+   phase 2's u and b repacked, in each layout (SoA again, for a like
+   comparison): phase 4's iteration count, x bitwise equal to phase 4's,
+   |M x - b| / |b| < 1e-3, every kernel of the path launched; ms an
+   iteration;
+Y3. with every count set to 0 before each: 10 steps from the L1 state
+   repacked, in each layout and at each vvl of (32, 64, 128, 256) its SAL
+   divides (the reference's rule): dist and q bitwise equal to L3's 10
+   steps; at vvl 128 ``diagnostics`` equal to SoA's and L4's exhibit
+   bitwise equal to its fused launch, every kernel of both paths
+   launched, and one ``step_timed``; ms a step (the paper's Fig. 3
+   layout x VVL panel); the
+   layouts' numbers are printed as one JSON line before the kernel table;
 T1. on the L1 state, the plan ``default_plan`` picks for the LB half-step
    under a 227 KiB shared-memory budget (at (256, 256, 256): bx 1, by 4,
    bz 64) and K9's shared memory beside the device's own limit; K9 against
@@ -89,8 +112,9 @@ A3. ``generate`` serves 4 requests, a 16-token prompt then 16 greedy tokens,
    beside the bound of reading the weights and the cache once; one decode
    step traced; on the fp32 copy, the decode's logits after the prompt
    within rel-L2 1e-3 of the prefill's at the last prompt position;
-6. print the kernel table of every path as one JSON line, then the result
-   line.
+6. print the layouts' JSON line, the kernel table of every path (the
+   layout instances as kernel@layout rows, with Y2's and Y3's launches)
+   as one JSON line, then the result line.
 """
 
 from __future__ import annotations
@@ -116,7 +140,7 @@ from repro_torch.apps.ludwig import driver as ludwig  # noqa: E402
 from repro_torch.apps.ludwig import kernel as lk  # noqa: E402
 from repro_torch.apps.milc import MilcConfig, init_problem, residual_check, solve  # noqa: E402
 from repro_torch.configs import get_arch  # noqa: E402
-from repro_torch.core import SOA, Field, TargetConfig  # noqa: E402
+from repro_torch.core import SOA, Field, TargetConfig, parse_layout  # noqa: E402
 from repro_torch.core import fuse, plan, reduce, target  # noqa: E402
 from repro_torch.kernels.flash_attention import kernel as kf  # noqa: E402
 from repro_torch.kernels.lb_collision import collide  # noqa: E402
@@ -223,6 +247,12 @@ DENSE_S_MAX = 4096                # decode_32k's (128, 32768) cut to batch 4 x 4
 FLASH_RTOL, FLASH_ATOL_REL = 1e-5, 2e-5   # fp32; bf16: one bf16 ulp + the atol
 DECODE_REL_L2_FP32 = 1e-3         # fp32 decode after the prompt vs the prefill
 
+# the layouts (Y1-Y3): the union of the paper's two Fig. 3 sweeps
+# (benchmarks/fig3_kernels.py:108 and :377); Y3's vvls
+LAYOUT_SPECS = ("soa", "aos", "aosoa4", "aosoa8", "aosoa16", "aosoa64", "aosoa128")
+LAYOUTS = [parse_layout(n) for n in LAYOUT_SPECS]
+Y3_VVLS = (32, 64, 128, 256)
+
 T1_SLICE_TILES = (4, 4, 2)  # tiles a side of the sub-lattice tiled_plain runs on in T1
 T3_BUDGET, T3_TILE = 6512, (1, 1, 2)   # T3's budget and the tile it picks
 
@@ -301,15 +331,25 @@ def path_counts(path):
     return {name: sum(k.launches for k in ks) for name, (ks, _, _) in path.items()}
 
 
+def milc_inputs(u, b, vvl):
+    """Phase 3's inputs (SoA, the same tensors on every call): the solve's
+    b and u, three random spinors and the fold's partial rows."""
+    V, dev = b.nsites, b.data.device
+    gen = torch.Generator(device=dev).manual_seed(1)
+    y, p, ap = (torch.randn((24, V), generator=gen, device=dev) for _ in range(3))
+    partials = torch.randn((-(-V // vvl), 24), generator=gen, device=dev)
+    alpha = torch.tensor(0.37, device=dev)
+    return dict(psi=b.data, u=u.data, y=y, p=p, ap=ap, partials=partials, alpha=alpha,
+                neg_alpha=-alpha)
+
+
 def check_kernels(u, b, lattice, vvl):
     """Phase 3: every kernel against its plain version at the path's shapes."""
     V = math.prod(lattice)
     dev = b.data.device
-    gen = torch.Generator(device=dev).manual_seed(1)
-    psi, uu = b.data, u.data
-    y, p, ap = (torch.randn((24, V), generator=gen, device=dev) for _ in range(3))
-    alpha = torch.tensor(0.37, device=dev)
-    neg_alpha = -alpha
+    inp = milc_inputs(u, b, vvl)
+    psi, uu, y, p, ap, alpha, neg_alpha = (
+        inp[n] for n in ("psi", "u", "y", "p", "ap", "alpha", "neg_alpha"))
     rows = {}
 
     def row(*a, **kw):
@@ -342,7 +382,7 @@ def check_kernels(u, b, lattice, vvl):
               "reduce_max")
     log("  reduce_max (not on the solve's path) bitwise equal")
 
-    partials = torch.randn((-(-V // vvl), 24), generator=gen, device=dev)
+    partials = inp["partials"]
     err = sum_err(reduce.fold_partials(partials, "sum"), partials.sum(dim=0),
                   partials.T, "reduce_fold")
     row("reduce_fold", err, time_ms(lambda: reduce.fold_partials(partials, "sum")),
@@ -377,30 +417,39 @@ def check_kernels(u, b, lattice, vvl):
         time_ms(lambda: wk.wilson_normal_cuda(psi, uu, KAPPA, lattice, vvl)),
         time_ms(lambda: wk.wilson_normal_plain(psi, uu, KAPPA, lattice), reps=3, warm=1),
         (24 + 72 + 24) * 4 * V, (2 * (1320 + 48) + 48) * V)
-    del got, want, prod, partials, y, p, ap
+    del got, want, prod, partials, y, p, ap, inp
     torch.cuda.empty_cache()
     return rows
 
 
-def check_ludwig_kernels(state, cfg, vvl):
-    """L2: every Ludwig kernel against its plain version at the step's
-    shapes: the state's q and its gradients, dist perturbed off equilibrium
-    and a small force, w, h and adv."""
-    lat = cfg.lattice
-    V = math.prod(lat)
-    dev = state.q.data.device
+def ludwig_inputs(state, vvl):
+    """L2's inputs (SoA, the same tensors on every call): the state's q and
+    its gradients, dist perturbed off equilibrium and a small force, w, h,
+    adv and the fold's partial rows."""
+    V, dev = state.q.nsites, state.q.data.device
     gen = torch.Generator(device=dev).manual_seed(2)
 
     def randn(rows, scale):
         return scale * torch.randn((rows, V), generator=gen, device=dev)
 
-    tau = cfg.tau
-    dist = state.dist.data * (1.0 + randn(19, 0.05))
+    dist = state.dist.canonical() * (1.0 + randn(19, 0.05))
     force = randn(3, 1e-3)
-    q = state.q.data
     dq_nd, lapq_nd = ludwig.stage_gradients(state.q.canonical_nd())
-    dq, lapq = dq_nd.reshape(15, V), lapq_nd.reshape(5, V)
     h, w, adv = randn(5, 1e-3), randn(9, 1e-3), randn(5, 1e-4)
+    partials = torch.randn((-(-V // vvl), 19), generator=gen, device=dev)
+    return dict(dist=dist, force=force, q=state.q.canonical(), dq=dq_nd.reshape(15, V),
+                lapq=lapq_nd.reshape(5, V), h=h, w=w, adv=adv, partials=partials)
+
+
+def check_ludwig_kernels(state, cfg, vvl):
+    """L2: every Ludwig kernel against its plain version at the step's
+    shapes (:func:`ludwig_inputs`)."""
+    lat = cfg.lattice
+    V = math.prod(lat)
+    inp = ludwig_inputs(state, vvl)
+    tau = cfg.tau
+    dist, force, q, dq, lapq, h, w, adv = (
+        inp[n] for n in ("dist", "force", "q", "dq", "lapq", "h", "w", "adv"))
     rows = {}
 
     def row(*a, **kw):
@@ -463,13 +512,13 @@ def check_ludwig_kernels(state, cfg, vvl):
         time_ms(lambda: reduce.reduce_plain(dist, "sum")), 76 * V, 19 * V,
         library_ms=time_ms(lambda: torch.sum(dist, dim=1)))
 
-    partials = torch.randn((-(-V // vvl), 19), generator=gen, device=dev)
+    partials = inp["partials"]
     err = sum_err(reduce.fold_partials(partials, "sum"), partials.sum(dim=0),
                   partials.T, "reduce_fold of the dist partials")
     row("ludwig_reduce_fold", err, time_ms(lambda: reduce.fold_partials(partials, "sum")),
         time_ms(lambda: partials.sum(dim=0)), partials.numel() * 4 + 76,
         partials.numel(), library_ms=time_ms(lambda: torch.sum(partials, dim=0)))
-    del dist, force, dq, lapq, dq_nd, lapq_nd, h, w, adv, got, want, partials
+    del dist, force, dq, lapq, h, w, adv, got, want, partials, inp
     torch.cuda.empty_cache()
     return rows
 
@@ -554,6 +603,322 @@ def ludwig_engines(small):
         log(f"ludwig {small}, 5 steps: {name} cuda vs torch engine max abs diff {err:.3e}")
         if not torch.allclose(a, b, rtol=ENGINE_RTOL, atol=ENGINE_ATOL):
             raise AssertionError(f"ludwig cuda and torch engines disagree on {name}")
+
+
+# -- the layouts (Y1-Y3) ------------------------------------------------------------
+
+def site_dims(lay):
+    """The site axes of a physical tensor in ``lay`` (what a per-component
+    sum folds)."""
+    return {"soa": (1,), "aos": (0,)}.get(lay.name, (0, 2))
+
+
+def comp_column(lay, col):
+    """A (ncomp, 1) column as a tensor that broadcasts against ``lay``'s
+    physical shape."""
+    n = col.shape[0]
+    return {"soa": col, "aos": col.reshape(1, n)}.get(lay.name, col.reshape(1, n, 1))
+
+
+def milc_layout_cases(inp, lattice, vvl):
+    """Y1's MILC kernels: name -> (kernel, plain, library or None, bytes,
+    flops), each a function of the inputs packed in a layout and that
+    layout; kernel and plain return [(kind, physical or sum tensor, terms)]
+    with kind "field", "exact" (a field compared bitwise) or "sum"."""
+    V = math.prod(lattice)
+    a = inp["alpha"]
+    sign = torch.ones((24, 1), device=inp["psi"].device)
+    sign[12:] = -1.0
+
+    def L(lay, *names):
+        return {n: lay for n in names}
+
+    # a sum's terms are a function, evaluated for the error check alone
+    def cg(fn):
+        return lambda t, lay: (lambda o: [("field", o[0], None), ("field", o[1], None),
+                                          ("sum", o[2], lambda: lay.unpack(o[1]) ** 2)])(
+            fn(t["psi"], t["y"], t["p"], t["ap"], a, t["neg_alpha"],
+               layouts=L(lay, "x", "r", "p", "ap")))
+
+    def normal(fn):
+        return lambda t, lay: (lambda o: [
+            ("field", o[0], None),
+            ("sum", o[1], lambda: lay.unpack(t["psi"]) * lay.unpack(o[0]))])(
+            fn(t["psi"], t["u"], KAPPA, lattice, layouts=L(lay, "p", "u")))
+
+    return {
+        "g5": (lambda t, lay: [("exact", target.site_g5(t["psi"], 12, vvl, layouts=L(lay, "x")),
+                                None)],
+               lambda t, lay: [("exact", target.g5_plain(t["psi"], 12, L(lay, "x")), None)],
+               lambda t, lay: torch.mul(t["psi"], comp_column(lay, sign)), 2 * 96 * V, 12 * V),
+        "mul": (lambda t, lay: [("exact", target.site_mul(t["psi"], t["y"], vvl,
+                                                          layouts=L(lay, "x", "y")), None)],
+                lambda t, lay: [("exact", t["psi"] * t["y"], None)],
+                lambda t, lay: torch.mul(t["psi"], t["y"]), 3 * 96 * V, 24 * V),
+        "reduce_sum": (lambda t, lay: [("sum", reduce.reduce_sites(t["prod"], "sum", vvl,
+                                                                   layouts=L(lay, "x")),
+                                        lambda: lay.unpack(t["prod"]))],
+                       lambda t, lay: [("sum", reduce.reduce_plain(lay.unpack(t["prod"]), "sum"),
+                                        None)],
+                       lambda t, lay: torch.sum(t["prod"], dim=site_dims(lay)), 96 * V, 24 * V),
+        "reduce_fold": (lambda t, lay: [("sum", reduce.fold_partials(t["partials"], "sum"),
+                                         lambda: t["partials"].T)],
+                        lambda t, lay: [("sum", t["partials"].sum(dim=0), None)],
+                        lambda t, lay: torch.sum(t["partials"], dim=0),
+                        inp["partials"].numel() * 4 + 96, inp["partials"].numel()),
+        "cg_update": (cg(lambda *x, layouts: fuse.cg_update(*x, vvl, layouts=layouts)),
+                      cg(fuse.cg_update_plain), None, 6 * 96 * V, 24 * 6 * V),
+        "cg_xpay": (lambda t, lay: [("field", fuse.cg_xpay(t["p"], t["y"], a, vvl,
+                                                           layouts=L(lay, "x", "y")), None)],
+                    lambda t, lay: [("field", fuse.cg_xpay_plain(t["p"], t["y"], a,
+                                                                 L(lay, "x", "y")), None)],
+                    lambda t, lay: torch.addcmul(t["y"], a, t["p"]), 3 * 96 * V, 2 * 24 * V),
+        "dslash": (lambda t, lay: [("field", wk.dslash_cuda(t["psi"], t["u"], lattice, vvl,
+                                                            layouts=L(lay, "psi", "u")), None)],
+                   lambda t, lay: [("field", wk.dslash_plain(t["psi"], t["u"], lattice,
+                                                             L(lay, "psi", "u")), None)],
+                   None, (24 + 72 + 24) * 4 * V, 1320 * V),
+        "wilson_normal": (normal(lambda *x, layouts: wk.wilson_normal_cuda(*x, vvl,
+                                                                           layouts=layouts)),
+                          normal(wk.wilson_normal_plain), None, (24 + 72 + 24) * 4 * V,
+                          (2 * (1320 + 48) + 48) * V),
+    }
+
+
+def ludwig_layout_cases(inp, cfg, vvl):
+    """Y1's Ludwig kernels, as :func:`milc_layout_cases`."""
+    lat, tau = cfg.lattice, cfg.tau
+    V = math.prod(lat)
+    lc = dict(a0=cfg.a0, gamma=cfg.gamma, kappa_m=cfg.kappa, kappa_s=cfg.kappa, xi=cfg.xi)
+    lu = dict(gamma_rot=cfg.gamma_rot, xi=cfg.xi, dt=cfg.dt)
+    fe = dict(a0=cfg.a0, gamma=cfg.gamma, kappa=cfg.kappa)
+
+    def L(lay, *names):
+        return {n: lay for n in names}
+
+    def fields(*kinds):
+        return lambda o: [(k, x, None) for k, x in zip(kinds, o if isinstance(o, tuple) else (o,))
+                          if x is not None]
+
+    def step(with_u, fn, **kw):
+        return lambda t, lay: fields("field", "field")(
+            fn(t["dist"], t["force"], tau, lat, with_u=with_u,
+               layouts=L(lay, "dist", "force"), **kw))
+
+    return {
+        "lb_collide": (lambda t, lay: fields("field")(k7.collide_cuda(
+                           t["dist"], t["force"], tau, vvl, layouts=L(lay, "dist", "force"))),
+                       lambda t, lay: fields("field")(k7.collide_plain(
+                           t["dist"], t["force"], tau, L(lay, "dist", "force"))),
+                       None, 164 * V, FLOPS["collide"] * V),
+        "lb_propagate": (lambda t, lay: fields("exact")(k8.propagate_cuda(
+                             t["collided"], lat, vvl, layouts=L(lay, "dist"))),
+                         lambda t, lay: fields("exact")(k8.propagate_plain(
+                             t["collided"], lat, L(lay, "dist"))),
+                         None, 152 * V, 0),
+        "lb_step": (step(True, k8.lb_step_cuda, vvl=vvl), step(True, k8.lb_step_plain), None,
+                    176 * V, FLOPS["lb_step"] * V),
+        "lb_collide_propagate": (step(False, k8.lb_step_cuda, vvl=vvl),
+                                 step(False, k8.lb_step_plain), None, 164 * V,
+                                 FLOPS["collide"] * V),
+        "ludwig_chem_stress": (
+            lambda t, lay: fields("field", "field")(lk.chem_stress_cuda(
+                t["q"], t["lapq"], t["dq"], vvl=vvl, layouts=L(lay, "q", "lapq", "dq"), **lc)),
+            lambda t, lay: fields("field", "field")(lk.chem_stress_plain(
+                t["q"], t["lapq"], t["dq"], layouts=L(lay, "q", "lapq", "dq"), **lc)),
+            None, 156 * V, FLOPS["chem_stress"] * V),
+        "ludwig_lc_update": (
+            lambda t, lay: fields("field")(lk.lc_update_cuda(
+                t["q"], t["h"], t["w"], t["adv"], vvl=vvl, layouts=L(lay, "q", "h", "w", "adv"),
+                **lu)),
+            lambda t, lay: fields("field")(lk.lc_update_plain(
+                t["q"], t["h"], t["w"], t["adv"], layouts=L(lay, "q", "h", "w", "adv"), **lu)),
+            None, 116 * V, FLOPS["lc_update"] * V),
+        "ludwig_fed": (lambda t, lay: fields("field")(lk.fed_cuda(
+                           t["q"], t["dq"], vvl=vvl, layouts=L(lay, "q", "dq"), **fe)),
+                       lambda t, lay: fields("field")(lk.fed_plain(
+                           t["q"], t["dq"], layouts=L(lay, "q", "dq"), **fe)),
+                       None, 84 * V, FLOPS["fed"] * V),
+        "ludwig_reduce_sum": (lambda t, lay: [("sum", reduce.reduce_sites(
+                                  t["dist"], "sum", vvl, layouts=L(lay, "x")),
+                                  lambda: lay.unpack(t["dist"]))],
+                              lambda t, lay: [("sum", reduce.reduce_plain(
+                                  lay.unpack(t["dist"]), "sum"), None)],
+                              lambda t, lay: torch.sum(t["dist"], dim=site_dims(lay)), 76 * V,
+                              19 * V),
+        "ludwig_reduce_fold": (lambda t, lay: [("sum", reduce.fold_partials(t["partials"], "sum"),
+                                                lambda: t["partials"].T)],
+                               lambda t, lay: [("sum", t["partials"].sum(dim=0), None)],
+                               lambda t, lay: torch.sum(t["partials"], dim=0),
+                               inp["partials"].numel() * 4 + 76, inp["partials"].numel()),
+    }
+
+
+def run_layout_cases(cases, inp, packed_extra, layouts):
+    """Y1 for one path: every case in every layout.  A case's outputs must
+    equal its SoA launch's bitwise (fields unpacked, sums as they are) and
+    its plain version in the same layout within the stated tolerance.
+    Returns {layout name: {case: row}} with each row's error against the
+    plain version, its time, the plain version's and the library call's
+    (CUDA events, median of 10 and of 3), bound and ratio to SoA."""
+    out, soa = {}, {}
+    for lay in layouts:
+        t = {n: (v if n == "partials" or v.dim() == 0 else lay.pack(v)) for n, v in inp.items()}
+        t.update({n: fn(t, lay) for n, fn in packed_extra.items()})
+        rows = {}
+        for name, (kern, plain, library, nbytes, flops) in cases.items():
+            got, want = kern(t, lay), plain(t, lay)
+            err = 0.0
+            for i, ((kind, g, terms), (_, w, _)) in enumerate(zip(got, want)):
+                what = f"Y1 {name}[{i}] in {lay.name}"
+                canon = g if kind == "sum" else lay.unpack(g)
+                if lay.name == "soa":
+                    soa[(name, i)] = canon
+                else:
+                    exact_err(canon, soa[(name, i)], f"{what} against its SoA launch")
+                if kind == "sum":
+                    err = max(err, sum_err(g, w, terms(), f"{what} against the plain version"))
+                elif kind == "exact":
+                    err = max(err, exact_err(g, w, f"{what} against the plain version"))
+                else:
+                    err = max(err, field_err(lay.unpack(g), lay.unpack(w),
+                                             f"{what} against the plain version"))
+            del got, want
+            b_ms, b_by = bound(nbytes, flops)
+            rows[name] = dict(max_abs_err=err, ms=time_ms(lambda: kern(t, lay)),
+                              plain_ms=time_ms(lambda: plain(t, lay), reps=3, warm=1),
+                              bound_ms=b_ms, bound_by=b_by,
+                              library_ms=(time_ms(lambda: library(t, lay))
+                                          if library is not None else None))
+        del t
+        torch.cuda.empty_cache()
+        for name, r in rows.items():
+            r["ratio_to_soa"] = r["ms"] / (out["soa"][name]["ms"] if out else r["ms"])
+        out[lay.name] = rows
+        log(f"  {lay.name:9s} " + ", ".join(f"{n} {r['ms']:.4f} ms ({r['ratio_to_soa']:.2f}x)"
+                                            for n, r in rows.items()))
+    return out
+
+
+def check_layout_kernels(u, b, lattice, state, lcfg, vvl):
+    """Y1: every lattice kernel of both paths in every layout of LAYOUTS at
+    the full lattices, on phase 3's and L2's inputs repacked on the card."""
+    log(f"Y1: MILC kernels at {lattice}, vvl {vvl}, layouts {LAYOUT_SPECS}:")
+    inp = milc_inputs(u, b, vvl)
+    milc = run_layout_cases(
+        milc_layout_cases(inp, lattice, vvl), inp,
+        {"prod": lambda t, lay: t["psi"] * t["y"]}, LAYOUTS)
+    del inp
+    log(f"Y1: Ludwig kernels at {lcfg.lattice}, vvl {vvl}:")
+    inp = ludwig_inputs(state, vvl)
+    lud = run_layout_cases(
+        ludwig_layout_cases(inp, lcfg, vvl), inp,
+        {"collided": lambda t, lay: k7.collide_cuda(t["dist"], t["force"], lcfg.tau, vvl,
+                                                    layouts={"dist": lay, "force": lay})},
+        LAYOUTS)
+    del inp
+    torch.cuda.empty_cache()
+    return {name: {**milc[name], **lud[name]} for name in milc}
+
+
+def solve_layouts(cfg, u, b, x_soa, iterations):
+    """Y2: the MILC solve from phase 2's u and b repacked, in every layout
+    (SoA again, so that every layout's ms an iteration is taken in the same
+    phase): phase 4's iteration count, x bitwise equal to phase 4's,
+    residual_check < 1e-3, every kernel of the path launched; returns
+    {layout name: (counts, ms an iteration)}."""
+    out = {}
+    for lay in LAYOUTS:
+        lcfg = dataclasses.replace(cfg, layout=lay)
+        ul, bl = u.as_layout(lay), b.as_layout(lay)
+        reset_counts()
+        res, solve_s = solve_timed(lcfg, ul, bl)
+        rc = residual_check(lcfg, ul, bl, res.x)
+        counts = path_counts(PATH)
+        ms_it = solve_s / max(res.iterations, 1) * 1e3
+        log(f"Y2: solve {cfg.lattice} in {lay.name}: {res.iterations} iterations, {solve_s:.3f} s, "
+            f"{ms_it:.3f} ms/iter, |Mx-b|/|b| = {rc:.3e}; launches {counts}")
+        if res.iterations != iterations:
+            raise AssertionError(f"Y2 {lay.name}: {res.iterations} iterations, SoA took "
+                                 f"{iterations}")
+        if res.x.layout != lay:
+            raise AssertionError(f"Y2 {lay.name}: x came back in {res.x.layout.name}")
+        exact_err(res.x.canonical(), x_soa, f"Y2 {lay.name}: x against the SoA solve's")
+        if not rc < 1e-3:
+            raise AssertionError(f"Y2 {lay.name}: residual_check {rc} >= 1e-3")
+        idle = [n for n, c in counts.items() if c == 0]
+        if idle:
+            raise AssertionError(f"Y2 {lay.name}: kernels of the path never launched: {idle}")
+        out[lay.name] = (counts, ms_it)
+        del ul, bl, res
+        torch.cuda.empty_cache()
+    return out
+
+
+def ludwig_layouts(state, after_steps, cfg):
+    """Y3: LUDWIG_STEPS steps from the L1 state repacked, in every layout of
+    LAYOUTS and at every vvl of Y3_VVLS its SAL divides, bitwise equal to
+    L3's; then, at the default vvl, diagnostics equal to SoA's and the LB
+    exhibit (L4) bitwise equal to its own fused launch, and one
+    ``step_timed``.  Returns ({layout: {vvl: ms a step}}, {layout:
+    step-path counts}, {layout: exhibit counts}, {layout: step_timed's
+    stages in ms})."""
+    grid, counts, xcounts, stages = {}, {}, {}, {}
+    d_soa = ludwig.diagnostics(state, cfg)
+    V = math.prod(cfg.lattice)
+    gen = torch.Generator(device=state.dist.data.device).manual_seed(3)
+    force = 1e-3 * torch.randn((3, V), generator=gen, device=state.dist.data.device)
+    for lay in LAYOUTS:
+        s0 = ludwig.LudwigState(dist=state.dist.as_layout(lay), q=state.q.as_layout(lay))
+        grid[lay.name] = {}
+        for vvl in Y3_VVLS:
+            if vvl % lay.sal:
+                continue
+            lcfg = dataclasses.replace(cfg, layout=lay,
+                                       target=dataclasses.replace(cfg.target, vvl=vvl))
+            reset_counts()
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            s = s0
+            for _ in range(LUDWIG_STEPS):
+                s = step(s, lcfg)
+            torch.cuda.synchronize()
+            grid[lay.name][vvl] = (time.perf_counter() - t0) / LUDWIG_STEPS * 1e3
+            what = f"Y3 {lay.name} vvl {vvl}"
+            if (s.dist.layout, s.q.layout) != (lay, lay):
+                raise AssertionError(f"{what}: the state left its layout")
+            exact_err(s.dist.canonical(), after_steps.dist.data, f"{what}: dist against L3's")
+            exact_err(s.q.canonical(), after_steps.q.data, f"{what}: q against L3's")
+            if vvl != cfg.target.vvl:
+                continue
+            # the stage breakdown of one more step in this layout
+            _, stages[lay.name] = ludwig.step_timed(s, lcfg)
+            d = ludwig.diagnostics(s0, lcfg)
+            for k, v in d.items():
+                exact_err(v, d_soa[k], f"{what}: diagnostics {k} against SoA's")
+            counts[lay.name] = path_counts(LUDWIG_PATH)
+            reset_counts()
+            fl = Field.from_canonical("force", force, cfg.lattice, lay)
+            tgt = lcfg.target
+            unfused = propagate(collide(s0.dist, fl, tau=cfg.tau, config=tgt), config=tgt)
+            fused = collide_propagate(s0.dist, fl, tau=cfg.tau, config=tgt)
+            exact_err(fused.canonical(), unfused.canonical(),
+                      f"{what}: collide_propagate against propagate(collide)")
+            xcounts[lay.name] = path_counts(LB_EXHIBIT_PATH)
+            idle = [n for c in (counts[lay.name], xcounts[lay.name]) for n, k in c.items()
+                    if k == 0]
+            if idle:
+                raise AssertionError(f"{what}: kernels of the path never launched: {idle}")
+            del unfused, fused, fl, d
+        stages[lay.name] = {k: v * 1e3 for k, v in stages[lay.name].items()}
+        log(f"Y3: ludwig {cfg.lattice} in {lay.name}: ms/step " + ", ".join(
+            f"vvl {v} {ms:.3f}" for v, ms in grid[lay.name].items())
+            + f"; dist and q bitwise L3's; launches {counts[lay.name]}, exhibit "
+            f"{xcounts[lay.name]}; step_timed (ms) " + ", ".join(
+                f"{k} {v:.3f}" for k, v in stages[lay.name].items()))
+        del s0, s
+        torch.cuda.empty_cache()
+    return grid, counts, xcounts, stages
 
 
 def lb_smem_views(cfg):
@@ -1164,6 +1529,16 @@ def table_rows(path, counts, rows):
             for name, (_, src, rep) in path.items()]
 
 
+def layout_table_rows(path, counts, rows):
+    """The kernel table's rows of the layout instances: one per kernel of
+    ``path`` and layout other than SoA, named kernel@layout, with Y2's or
+    Y3's launches and Y1's measurements in that layout."""
+    keys = ("max_abs_err", "ms", "plain_ms", "bound_ms", "bound_by", "library_ms")
+    return [dict(name=f"{name}@{lay}", route="cuda", source=f"src/repro_torch/csrc/{src}",
+                 replaces=rep, launches=counts[lay][name], **{k: rows[lay][name][k] for k in keys})
+            for lay in LAYOUT_SPECS[1:] for name, (_, src, rep) in path.items()]
+
+
 def solve_timed(cfg, u, b):
     torch.cuda.synchronize()
     t0 = time.perf_counter()
@@ -1229,7 +1604,9 @@ def main():
         raise AssertionError(f"kernels of the path never launched: {idle}")
     if res.iterations >= MAX_ITER:
         raise AssertionError("CG did not converge")
-    del u, b, res
+    # u, b and x stay for Y1-Y2
+    x_soa, iterations = res.x.data, res.iterations
+    del res
     torch.cuda.empty_cache()
 
     # 5. the cuda engine against the torch engine, both on the card
@@ -1273,6 +1650,23 @@ def main():
 
     # L5. the cuda engine against the torch engine, both on the card
     ludwig_engines(tuple(args.ludwig_small))
+
+    # Y1. every lattice kernel in every layout, against its SoA launch
+    t0 = time.perf_counter()
+    yrows = check_layout_kernels(u, b, lattice, state, lcfg, vvl)
+    # Y2. the MILC solve in every layout, counted
+    ymilc = solve_layouts(cfg, u, b, x_soa, iterations)
+    del u, b, x_soa
+    torch.cuda.empty_cache()
+    # Y3. the Ludwig step in every layout x vvl, counted
+    ygrid, ylcounts, yxcounts, ystages = ludwig_layouts(state, after_steps, lcfg)
+    log(f"Y1-Y3: {time.perf_counter() - t0:.1f} s")
+    layouts_line = {"layouts": {
+        "card": smi,
+        "kernels": {lay: {n: {k: r[k] for k in ("ms", "bound_ms", "ratio_to_soa")}
+                          for n, r in rows.items()} for lay, rows in yrows.items()},
+        "milc_ms_per_iteration": {lay: v[1] for lay, v in ymilc.items()},
+        "ludwig_ms_per_step": ygrid, "ludwig_step_timed_ms": ystages}}
 
     # T1. the tiled kernel at the budget's plan
     trows, _ = check_tiled_kernel(state, lcfg, lcfg.target.vvl)
@@ -1323,7 +1717,11 @@ def main():
              + table_rows(TILED_PATH, tcounts, trows)
              + table_rows(TILED_EXHIBIT_PATH, txcounts, trows)
              + table_rows(RWKV_PATH, rcounts, rrows)
-             + table_rows(FLASH_PATH, acounts, arows))
+             + table_rows(FLASH_PATH, acounts, arows)
+             + layout_table_rows(PATH, {lay: v[0] for lay, v in ymilc.items()}, yrows)
+             + layout_table_rows(LUDWIG_PATH, ylcounts, yrows)
+             + layout_table_rows(LB_EXHIBIT_PATH, yxcounts, yrows))
+    print(json.dumps(layouts_line))
     print(json.dumps({"kernels": table}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

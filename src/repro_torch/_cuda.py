@@ -1,7 +1,8 @@
 """Build and load the hand-written CUDA kernels.
 
-Every ``csrc/*.cu`` source is compiled by ONE ``nvcc`` call for Hopper
-(``sm_90a``) into a shared library with a plain C interface, which is loaded
+Every ``csrc/*.cu`` source is compiled for Hopper (``sm_90a``) by an
+``nvcc`` call of its own, all started together, and the objects are linked
+by one more into a shared library with a plain C interface, which is loaded
 through ``ctypes``.  The library is built at first use — never on import, so
 the CPU tests need no ``nvcc`` — from the sources in this package and
 nothing else, into ``build/repro_torch/`` at the root of the checkout.  Its
@@ -10,7 +11,10 @@ rebuilt.  A failed build raises with nvcc's command line and output.
 
 Each C entry point launches on the caller's stream, does not synchronise,
 allocates nothing and returns ``cudaGetLastError()`` after its launch;
-:class:`Kernel` raises when that is not 0 and counts the launches.
+:class:`Kernel` raises when that is not 0 and counts the launches.  A
+lattice kernel takes one layout descriptor (``Layout.descriptor()``, an
+int) for every field it reads or writes; :func:`check_field` checks a
+tensor against its layout and returns that descriptor.
 """
 
 from __future__ import annotations
@@ -25,39 +29,44 @@ from pathlib import Path
 
 import torch
 
-__all__ = ["Kernel", "build", "library", "check_tensor", "smem_per_block_optin",
-           "CSRC", "BUILD_DIR", "NVCC_FLAGS"]
+__all__ = ["Kernel", "build", "library", "check_tensor", "check_field",
+           "smem_per_block_optin", "CSRC", "BUILD_DIR", "NVCC_FLAGS"]
 
 CSRC = Path(__file__).resolve().parent / "csrc"
 BUILD_DIR = Path(__file__).resolve().parents[2] / "build" / "repro_torch"
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
               "-shared", "-Xcompiler", "-fPIC")
+# a source's compile: every flag but -shared, which is the link's
+COMPILE_FLAGS = tuple(f for f in NVCC_FLAGS if f != "-shared")
 
 _P = ctypes.c_void_p     # device pointer (and the stream)
 _I = ctypes.c_int
 _L = ctypes.c_longlong
 _F = ctypes.c_float
 
+_D = ctypes.c_int       # a layout descriptor (Layout.descriptor())
+
 # C signature of every entry point (all return the launch's cudaError_t as
-# int; the trailing _P is the stream).
+# int; the trailing _I, _P are the block size and the stream).
 SIGNATURES = {
-    "rt_site_g5": (_P, _P, _I, _L, _I, _I, _P),
-    "rt_site_mul": (_P, _P, _P, _L, _I, _P),
-    "rt_site_axpy": (_F, _P, _P, _P, _L, _I, _P),
-    "rt_reduce_partials": (_P, _P, _I, _L, _I, _I, _P),
+    "rt_site_g5": (_P, _P, _I, _L, _I, _D, _D, _I, _P),
+    "rt_site_mul": (_P, _P, _P, _I, _L, _D, _D, _D, _I, _P),
+    "rt_site_axpy": (_F, _P, _P, _P, _I, _L, _D, _D, _D, _I, _P),
+    "rt_reduce_partials": (_P, _P, _I, _L, _I, _D, _I, _P),
     "rt_reduce_fold": (_P, _P, _L, _I, _I, _P),
-    "rt_cg_update": (_P, _P, _P, _P, _P, _P, _P, _P, _P, _L, _I, _P),
-    "rt_cg_xpay": (_P, _P, _P, _P, _L, _I, _P),
-    "rt_dslash": (_P, _P, _P, _I, _I, _I, _I, _I, _P),
-    "rt_wilson_normal_t": (_P, _P, _P, _F, _I, _I, _I, _I, _I, _P),
-    "rt_wilson_normal_ap": (_P, _P, _P, _P, _P, _F, _I, _I, _I, _I, _I, _P),
-    "rt_lb_collide": (_P, _P, _P, _L, _F, _F, _F, _F, _I, _P),
-    "rt_lb_propagate": (_P, _P, _I, _I, _I, _I, _P),
-    "rt_lb_step": (_P, _P, _P, _P, _I, _I, _I, _F, _F, _F, _F, _I, _P),
+    "rt_cg_update": (_P, _P, _P, _P, _P, _P, _P, _P, _P, _L, *(_D,) * 6, _I, _P),
+    "rt_cg_xpay": (_P, _P, _P, _P, _I, _L, _D, _D, _D, _I, _P),
+    "rt_dslash": (_P, _P, _P, _I, _I, _I, _I, _D, _D, _D, _I, _P),
+    "rt_wilson_normal_t": (_P, _P, _P, _F, _I, _I, _I, _I, _D, _D, _I, _P),
+    "rt_wilson_normal_ap": (_P, _P, _P, _P, _P, _F, _I, _I, _I, _I, _D, _D, _D, _I, _P),
+    "rt_lb_collide": (_P, _P, _P, _L, _F, _F, _F, _F, _D, _D, _D, _I, _P),
+    "rt_lb_propagate": (_P, _P, _I, _I, _I, _D, _D, _I, _P),
+    "rt_lb_step": (_P, _P, _P, _P, _I, _I, _I, _F, _F, _F, _F, _D, _D, _D, _D, _I, _P),
     "rt_lb_step_tiled": (_P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _F, _F, _F, _F, _I, _P),
-    "rt_ludwig_chem_stress": (_P, _P, _P, _P, _P, _L, _F, _F, _F, _F, _F, _F, _F, _I, _P),
-    "rt_ludwig_lc_update": (_P, _P, _P, _P, _P, _L, _F, _F, _F, _F, _I, _P),
-    "rt_ludwig_fed": (_P, _P, _P, _L, _F, _F, _F, _F, _I, _P),
+    "rt_ludwig_chem_stress": (_P, _P, _P, _P, _P, _L, _F, _F, _F, _F, _F, _F, _F,
+                              *(_D,) * 5, _I, _P),
+    "rt_ludwig_lc_update": (_P, _P, _P, _P, _P, _L, _F, _F, _F, _F, *(_D,) * 5, _I, _P),
+    "rt_ludwig_fed": (_P, _P, _P, _L, _F, _F, _F, _F, _D, _D, _D, _I, _P),
     "rt_rwkv6_wkv": (_P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _P),
     "rt_flash": (_P, _P, _P, _P, _I, _I, _I, _I, _I, _I, *(_L,) * 12, _I, _I, _F, _P),
     "rt_flash_kvchunk": (_P, _P, _P, _P, _I, _I, _I, _I, _I, _I, *(_L,) * 12, _I, _I, _F, _I,
@@ -91,22 +100,40 @@ def _digest() -> str:
     return h.hexdigest()[:16]
 
 
+def _run_all(cmds):
+    """Run every command at once and wait for all; raise with the command
+    line and output of each that failed."""
+    procs = [(cmd, subprocess.Popen(cmd, stdout=subprocess.PIPE, stderr=subprocess.PIPE,
+                                    text=True)) for cmd in cmds]
+    failed = []
+    for cmd, proc in procs:
+        out, err = proc.communicate()
+        if proc.returncode != 0:
+            failed.append(f"nvcc failed (exit {proc.returncode}):\n{' '.join(cmd)}\n{out}\n{err}")
+    if failed:
+        raise RuntimeError("\n".join(failed))
+
+
 def build() -> Path:
-    """Compile every ``csrc/*.cu`` into one shared library (once per source
-    hash) and return its path."""
-    lib = BUILD_DIR / f"librepro_torch_{_digest()}.so"
+    """Compile every ``csrc/*.cu`` (one nvcc each, in parallel) and link
+    them into one shared library, once per source hash; return its path."""
+    digest = _digest()
+    lib = BUILD_DIR / f"librepro_torch_{digest}.so"
     if lib.exists():
         return lib
     BUILD_DIR.mkdir(parents=True, exist_ok=True)
     srcs, _ = _sources()
+    tag = f"{digest}.{os.getpid()}"
+    objs = [BUILD_DIR / f"{src.stem}_{tag}.o" for src in srcs]
     tmp = lib.with_suffix(f".{os.getpid()}.tmp")
-    cmd = [_nvcc(), *NVCC_FLAGS, "-o", str(tmp), *map(str, srcs)]
-    proc = subprocess.run(cmd, capture_output=True, text=True)
-    if proc.returncode != 0:
-        raise RuntimeError(
-            f"nvcc failed (exit {proc.returncode}):\n{' '.join(cmd)}\n"
-            f"{proc.stdout}\n{proc.stderr}")
-    os.replace(tmp, lib)
+    try:
+        _run_all([[_nvcc(), *COMPILE_FLAGS, "-c", "-o", str(obj), str(src)]
+                  for src, obj in zip(srcs, objs)])
+        _run_all([[_nvcc(), *NVCC_FLAGS, "-o", str(tmp), *map(str, objs)]])
+        os.replace(tmp, lib)
+    finally:
+        for f in (*objs, tmp):
+            f.unlink(missing_ok=True)
     return lib
 
 
@@ -150,6 +177,16 @@ def check_tensor(name: str, t: torch.Tensor, shape, device: torch.device) -> Non
         raise ValueError(f"{name}: shape {tuple(t.shape)}, expected {tuple(shape)}")
     if not t.is_contiguous():
         raise ValueError(f"{name}: not contiguous")
+
+
+def check_field(name: str, t: torch.Tensor, layout, ncomp: int, nsites: int,
+                device: torch.device) -> int:
+    """:func:`check_tensor` for a field of ``ncomp`` components over
+    ``nsites`` sites stored in ``layout`` (shape
+    ``layout.physical_shape(ncomp, nsites)``); returns the layout's
+    descriptor for the kernel."""
+    check_tensor(f"{name} ({layout.name})", t, layout.physical_shape(ncomp, nsites), device)
+    return layout.descriptor()
 
 
 class Kernel:

@@ -308,39 +308,56 @@ def diagnostics(state: LudwigState, cfg: LudwigConfig) -> Dict[str, torch.Tensor
 
 
 # -- the hand-written kernels behind these bodies and graphs on "cuda" -----------------
+#
+# Each impl hands its kernel the input tensors with their layouts and the
+# output layouts; the kernel writes each output in its layout.
 
-def _chem_stress_cuda(graph, ins, scalars, *, lattice, vvl):
+def _split(ins, out_layouts):
+    """(tensors, layouts) of an impl's inputs, the outputs' layouts added."""
+    lays = {n: lay for n, (_, lay) in ins.items()}
+    lays.update(out_layouts)
+    return {n: t for n, (t, _) in ins.items()}, lays
+
+
+def _chem_stress_cuda(graph, ins, scalars, *, lattice, vvl, out_layouts):
     mol, stress = graph.stage_params()
+    t, lays = _split(ins, out_layouts)
     h, sigma = lck.chem_stress_cuda(
-        ins["q"], ins["lapq"], ins["dq"], a0=mol["a0"], gamma=mol["gamma"],
-        kappa_m=mol["kappa"], kappa_s=stress["kappa"], xi=stress["xi"], vvl=vvl)
+        t["q"], t["lapq"], t["dq"], a0=mol["a0"], gamma=mol["gamma"],
+        kappa_m=mol["kappa"], kappa_s=stress["kappa"], xi=stress["xi"], vvl=vvl,
+        layouts=lays)
     return {"h": h, "sigma": sigma}
 
 
-def _lc_update_cuda(graph, ins, scalars, *, lattice, vvl):
+def _lc_update_cuda(graph, ins, scalars, *, lattice, vvl, out_layouts):
     be, upd = graph.stage_params()
-    q_new = lck.lc_update_cuda(ins["q"], ins["h"], ins["w"], ins["adv"],
+    t, lays = _split(ins, out_layouts)
+    q_new = lck.lc_update_cuda(t["q"], t["h"], t["w"], t["adv"],
                                gamma_rot=be["gamma_rot"], xi=be["xi"], dt=upd["dt"],
-                               vvl=vvl)
+                               vvl=vvl, layouts=lays)
     return {"q_new": q_new}
 
 
-def _lb_step_cuda(graph, ins, scalars, *, lattice, vvl):
+def _lb_step_cuda(graph, ins, scalars, *, lattice, vvl, out_layouts):
     tau = graph.stage_params()[1]["tau"]
-    dist2, u = lbk.lb_step_cuda(ins["dist"], ins["force"], tau, lattice, vvl)
+    t, lays = _split(ins, out_layouts)
+    dist2, u = lbk.lb_step_cuda(t["dist"], t["force"], tau, lattice, vvl,
+                                with_u="u" in out_layouts, layouts=lays)
     return {"dist2": dist2, "u": u}
 
 
-def _lb_step_tiled_cuda(graph, ins, scalars, *, lattice, plan):
+def _lb_step_tiled_cuda(graph, ins, scalars, *, lattice, plan, out_layouts):
+    # a tiled plan takes SoA fields only (core.plan refuses the others)
     tau = graph.stage_params()[1]["tau"]
-    dist2, u = lbk.lb_step_tiled_cuda(ins["dist"], ins["force"], tau, lattice,
+    dist2, u = lbk.lb_step_tiled_cuda(ins["dist"][0], ins["force"][0], tau, lattice,
                                       (plan.bx, plan.by, plan.bz))
     return {"dist2": dist2, "u": u}
 
 
-def _fed_cuda(ins, params, vvl):
-    return {"fed": lck.fed_cuda(ins["q"], ins["dq"], a0=params["a0"],
-                                gamma=params["gamma"], kappa=params["kappa"], vvl=vvl)}
+def _fed_cuda(ins, params, vvl, out_layouts):
+    t, lays = _split(ins, out_layouts)
+    return {"fed": lck.fed_cuda(t["q"], t["dq"], a0=params["a0"], gamma=params["gamma"],
+                                kappa=params["kappa"], vvl=vvl, layouts=lays)}
 
 
 register_cuda_graph(chem_stress_graph(LudwigConfig()), _chem_stress_cuda, ("h", "sigma"))

@@ -8,12 +8,17 @@ each beside its plain PyTorch version (the ``lc.py`` chunk bodies):
 K3L replaces ``core/fuse.py::LaunchGraph._build_flat`` of the JAX package
 for the two flat Ludwig graphs, K1L ``core/target.py::TargetKernel.
 _run_pallas`` for the free-energy body.  Each is one launch, one thread per
-site, over SoA fp32 fields.  The reference's Python-float coefficients are
-formed here in double with the reference's expressions, and ctypes rounds
-each to fp32 as the reference's weak-typed scalars are rounded.
+site, over fp32 fields, each in its own layout (SoA, AoS or AoSoA,
+addressed through INDEX inside the kernel; one launch may mix layouts).
+Each wrapper takes physical tensors and ``layouts`` (names as in its
+signature, outputs "h", "sigma", "q_new", "fed"; an input not named is SoA,
+an output takes q's layout) and returns physical tensors.  The reference's
+Python-float coefficients are formed here in double with the reference's
+expressions, and ctypes rounds each to fp32 as the reference's weak-typed
+scalars are rounded.
 
-On a CPU tensor each wrapper returns its plain version; on a CUDA tensor it
-launches its kernel or raises.
+On a CPU tensor each wrapper returns its plain version (unpack, torch ops,
+pack); on a CUDA tensor it launches its kernel or raises.
 """
 
 from __future__ import annotations
@@ -22,7 +27,8 @@ from typing import Tuple
 
 import torch
 
-from repro_torch._cuda import Kernel, check_tensor
+from repro_torch._cuda import Kernel, check_field
+from repro_torch.core.layout import resolve_layouts
 from . import lc
 
 __all__ = ["chem_stress_cuda", "chem_stress_plain", "lc_update_cuda",
@@ -34,65 +40,96 @@ LC_UPDATE = Kernel("ludwig_lc_update", "rt_ludwig_lc_update")
 FED = Kernel("ludwig_fed", "rt_ludwig_fed")
 
 
-def _check(ins, V, device):
-    for name, t, ncomp in ins:
-        check_tensor(name, t, (ncomp, V), device)
+def _fields(named, layouts, outs):
+    """(layouts of every tensor, V) of a wrapper call: ``named`` maps input
+    names to physical tensors, ``outs`` names the outputs."""
+    lay = resolve_layouts(layouts, tuple(named), outs)
+    first = next(iter(named))
+    _, V = lay[first].logical_shape(named[first].shape)
+    return lay, V
 
 
-def chem_stress_plain(q, lapq, dq, *, a0, gamma, kappa_m, kappa_s, xi
+def _launch_args(named, ncomps, lay, V):
+    """Check each input against its layout; (data pointer, descriptor)
+    pairs flattened as pointers then descriptors."""
+    device = next(iter(named.values())).device
+    descs = [check_field(n, t, lay[n], ncomps[n], V, device) for n, t in named.items()]
+    return [t.data_ptr() for t in named.values()], descs
+
+
+def _empty(lay, name, ncomp, V, like):
+    return torch.empty(lay[name].physical_shape(ncomp, V), dtype=like.dtype, device=like.device)
+
+
+_CS = {"q": 5, "lapq": 5, "dq": 15}
+_LU = {"q": 5, "h": 5, "w": 9, "adv": 5}
+_FED = {"q": 5, "dq": 15}
+
+
+def chem_stress_plain(q, lapq, dq, *, a0, gamma, kappa_m, kappa_s, xi, layouts=None
                       ) -> Tuple[torch.Tensor, torch.Tensor]:
     """h = molecular_field(q, lapq), sigma = stress(q, h, dq)."""
+    lay, _ = _fields(dict(q=q, lapq=lapq, dq=dq), layouts, ("h", "sigma"))
+    q, lapq, dq = (lay[n].unpack(t) for n, t in (("q", q), ("lapq", lapq), ("dq", dq)))
     h = lc.molecular_field_chunk(q, lapq, a0=a0, gamma=gamma, kappa=kappa_m)
-    return h, lc.stress_chunk(q, h, dq, kappa=kappa_s, xi=xi)
+    return lay["h"].pack(h), lay["sigma"].pack(lc.stress_chunk(q, h, dq, kappa=kappa_s, xi=xi))
 
 
-def chem_stress_cuda(q, lapq, dq, *, a0, gamma, kappa_m, kappa_s, xi, vvl: int = 128
-                     ) -> Tuple[torch.Tensor, torch.Tensor]:
-    """K3L: (h (5, V), sigma (9, V)) of SoA q (5, V), lapq (5, V), dq (15, V)."""
+def chem_stress_cuda(q, lapq, dq, *, a0, gamma, kappa_m, kappa_s, xi, vvl: int = 128,
+                     layouts=None) -> Tuple[torch.Tensor, torch.Tensor]:
+    """K3L: (h (5 components), sigma (9)) of q (5), lapq (5), dq (15)."""
     if q.device.type == "cpu":
         return chem_stress_plain(q, lapq, dq, a0=a0, gamma=gamma, kappa_m=kappa_m,
-                                 kappa_s=kappa_s, xi=xi)
-    V = q.shape[-1]
-    _check((("q", q, 5), ("lapq", lapq, 5), ("dq", dq, 15)), V, q.device)
-    h = torch.empty_like(q)
-    sigma = torch.empty((9, V), dtype=q.dtype, device=q.device)
-    CHEM_STRESS.launch(q.device, q.data_ptr(), lapq.data_ptr(), dq.data_ptr(),
-                       h.data_ptr(), sigma.data_ptr(), V,
+                                 kappa_s=kappa_s, xi=xi, layouts=layouts)
+    named = dict(q=q, lapq=lapq, dq=dq)
+    lay, V = _fields(named, layouts, ("h", "sigma"))
+    ptrs, descs = _launch_args(named, _CS, lay, V)
+    h, sigma = _empty(lay, "h", 5, V, q), _empty(lay, "sigma", 9, V, q)
+    CHEM_STRESS.launch(q.device, *ptrs, h.data_ptr(), sigma.data_ptr(), V,
                        -a0 * (1.0 - gamma / 3.0), a0 * gamma, -a0 * gamma, kappa_m,
-                       -xi, 2.0 * xi, kappa_s, vvl)
+                       -xi, 2.0 * xi, kappa_s, *descs, lay["h"].descriptor(),
+                       lay["sigma"].descriptor(), vvl)
     return h, sigma
 
 
-def lc_update_plain(q, h, w, adv, *, gamma_rot, xi, dt) -> torch.Tensor:
+def lc_update_plain(q, h, w, adv, *, gamma_rot, xi, dt, layouts=None) -> torch.Tensor:
     """q_new = q_update(q, beris_edwards_rhs(q, h, w), adv)."""
+    lay, _ = _fields(dict(q=q, h=h, w=w, adv=adv), layouts, ("q_new",))
+    q, h, w, adv = (lay[n].unpack(t) for n, t in (("q", q), ("h", h), ("w", w), ("adv", adv)))
     rhs = lc.beris_edwards_rhs_chunk(q, h, w, gamma_rot=gamma_rot, xi=xi)
-    return lc.q_update_chunk(q, rhs, adv, dt=dt)
+    return lay["q_new"].pack(lc.q_update_chunk(q, rhs, adv, dt=dt))
 
 
-def lc_update_cuda(q, h, w, adv, *, gamma_rot, xi, dt, vvl: int = 128) -> torch.Tensor:
-    """K3L: q_new (5, V) of SoA q, h, adv (5, V) and w (9, V)."""
+def lc_update_cuda(q, h, w, adv, *, gamma_rot, xi, dt, vvl: int = 128,
+                   layouts=None) -> torch.Tensor:
+    """K3L: q_new (5 components) of q, h, adv (5) and w (9)."""
     if q.device.type == "cpu":
-        return lc_update_plain(q, h, w, adv, gamma_rot=gamma_rot, xi=xi, dt=dt)
-    V = q.shape[-1]
-    _check((("q", q, 5), ("h", h, 5), ("w", w, 9), ("adv", adv, 5)), V, q.device)
-    q_new = torch.empty_like(q)
-    LC_UPDATE.launch(q.device, q.data_ptr(), h.data_ptr(), w.data_ptr(), adv.data_ptr(),
-                     q_new.data_ptr(), V, gamma_rot, xi, -2.0 * xi, dt, vvl)
+        return lc_update_plain(q, h, w, adv, gamma_rot=gamma_rot, xi=xi, dt=dt,
+                               layouts=layouts)
+    named = dict(q=q, h=h, w=w, adv=adv)
+    lay, V = _fields(named, layouts, ("q_new",))
+    ptrs, descs = _launch_args(named, _LU, lay, V)
+    q_new = _empty(lay, "q_new", 5, V, q)
+    LC_UPDATE.launch(q.device, *ptrs, q_new.data_ptr(), V, gamma_rot, xi, -2.0 * xi, dt,
+                     *descs, lay["q_new"].descriptor(), vvl)
     return q_new
 
 
-def fed_plain(q, dq, *, a0, gamma, kappa) -> torch.Tensor:
-    return lc.free_energy_density_chunk(q, dq, a0=a0, gamma=gamma, kappa=kappa)
+def fed_plain(q, dq, *, a0, gamma, kappa, layouts=None) -> torch.Tensor:
+    lay, _ = _fields(dict(q=q, dq=dq), layouts, ("fed",))
+    return lay["fed"].pack(lc.free_energy_density_chunk(
+        lay["q"].unpack(q), lay["dq"].unpack(dq), a0=a0, gamma=gamma, kappa=kappa))
 
 
-def fed_cuda(q, dq, *, a0, gamma, kappa, vvl: int = 128) -> torch.Tensor:
-    """K1L: free-energy density (1, V) of SoA q (5, V) and dq (15, V)."""
+def fed_cuda(q, dq, *, a0, gamma, kappa, vvl: int = 128, layouts=None) -> torch.Tensor:
+    """K1L: free-energy density (1 component) of q (5) and dq (15)."""
     if q.device.type == "cpu":
-        return fed_plain(q, dq, a0=a0, gamma=gamma, kappa=kappa)
-    V = q.shape[-1]
-    _check((("q", q, 5), ("dq", dq, 15)), V, q.device)
-    fed = torch.empty((1, V), dtype=q.dtype, device=q.device)
-    FED.launch(q.device, q.data_ptr(), dq.data_ptr(), fed.data_ptr(), V,
+        return fed_plain(q, dq, a0=a0, gamma=gamma, kappa=kappa, layouts=layouts)
+    named = dict(q=q, dq=dq)
+    lay, V = _fields(named, layouts, ("fed",))
+    ptrs, descs = _launch_args(named, _FED, lay, V)
+    fed = _empty(lay, "fed", 1, V, q)
+    FED.launch(q.device, *ptrs, fed.data_ptr(), V,
                0.5 * a0 * (1.0 - gamma / 3.0), a0 * gamma / 3.0, 0.25 * a0 * gamma,
-               0.5 * kappa, vvl)
+               0.5 * kappa, *descs, lay["fed"].descriptor(), vvl)
     return fed

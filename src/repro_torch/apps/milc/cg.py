@@ -217,36 +217,54 @@ def cg(
 
 
 # -- the hand-written kernels behind these bodies and graphs on "cuda" --------------
+#
+# Each impl hands its kernel the input tensors with their layouts and the
+# output layouts; the kernel writes each output in its layout.
 
-def _g5_cuda(ins, params, vvl):
-    return {"out": site_g5(ins["psi"], 12, vvl)}
+def _lays(ins, names, out_layouts):
+    """The wrapper's layouts: body argument -> wrapper name for the inputs,
+    plus the outputs' layouts as given."""
+    lays = {w: ins[a][1] for a, w in names.items()}
+    lays.update(out_layouts)
+    return lays
 
 
-def _mul_cuda(ins, params, vvl):
-    return {"out": site_mul(ins["x"], ins["y"], vvl)}
+def _g5_cuda(ins, params, vvl, out_layouts):
+    lays = _lays(ins, {"psi": "x"}, out_layouts)
+    return {"out": site_g5(ins["psi"][0], 12, vvl, layouts=lays)}
 
 
-def _axpy_cuda(ins, params, vvl):
-    return {"out": site_axpy(params["a"], ins["x"], ins["y"], vvl)}
+def _mul_cuda(ins, params, vvl, out_layouts):
+    lays = _lays(ins, {"x": "x", "y": "y"}, out_layouts)
+    return {"out": site_mul(ins["x"][0], ins["y"][0], vvl, layouts=lays)}
 
 
-def _cg_update_cuda(graph, ins, scalars, *, lattice, vvl):
-    x_new, r_new, rr = fuse.cg_update(ins["x"], ins["r"], ins["p"], ins["ap"],
-                                      scalars["alpha"], scalars["neg_alpha"], vvl)
+def _axpy_cuda(ins, params, vvl, out_layouts):
+    lays = _lays(ins, {"x": "x", "y": "y"}, out_layouts)
+    return {"out": site_axpy(params["a"], ins["x"][0], ins["y"][0], vvl, layouts=lays)}
+
+
+def _cg_update_cuda(graph, ins, scalars, *, lattice, vvl, out_layouts):
+    lays = _lays(ins, {n: n for n in ("x", "r", "p", "ap")}, out_layouts)
+    x_new, r_new, rr = fuse.cg_update(ins["x"][0], ins["r"][0], ins["p"][0], ins["ap"][0],
+                                      scalars["alpha"], scalars["neg_alpha"], vvl,
+                                      layouts=lays)
     return {"x_new": x_new, "r_new": r_new, "rr": rr}
 
 
-def _cg_xpay_cuda(graph, ins, scalars, *, lattice, vvl):
-    return {"out": fuse.cg_xpay(ins["x"], ins["y"], scalars["a"], vvl)}
+def _cg_xpay_cuda(graph, ins, scalars, *, lattice, vvl, out_layouts):
+    lays = _lays(ins, {"x": "x", "y": "y"}, out_layouts)
+    return {"out": fuse.cg_xpay(ins["x"][0], ins["y"][0], scalars["a"], vvl, layouts=lays)}
 
 
-def _wilson_normal_cuda(graph, ins, scalars, *, lattice, vvl):
+def _wilson_normal_cuda(graph, ins, scalars, *, lattice, vvl, out_layouts):
     params = graph.stage_params()
     kappa = params[1]["kappa"]
     if params[3]["kappa"] != kappa:
         raise ValueError("wilson_normal: both g5(psi - kappa d) stages must "
                          "share one kappa")
-    ap, pap = wilson_normal_cuda(ins["p"], ins["u"], kappa, lattice, vvl)
+    lays = _lays(ins, {"p": "p", "u": "u"}, out_layouts)
+    ap, pap = wilson_normal_cuda(ins["p"][0], ins["u"][0], kappa, lattice, vvl, layouts=lays)
     return {"ap": ap, "pap": pap}
 
 

@@ -85,11 +85,28 @@ class Field:
         return self.canonical_nd().detach().cpu().numpy()
 
     def with_data(self, data: torch.Tensor) -> "Field":
+        """This Field holding ``data``, which must already be in this
+        Field's layout: its shape must be ``layout.physical_shape(ncomp,
+        nsites)`` (a tensor in another layout raises instead of being
+        mislabelled)."""
+        want = self.layout.physical_shape(self.ncomp, self.nsites)
+        if tuple(data.shape) != want:
+            raise ValueError(
+                f"Field {self.name!r}: data of shape {tuple(data.shape)} is not "
+                f"in its layout {self.layout.name} (physical shape {want})")
         return dataclasses.replace(self, data=data)
 
     def with_canonical(self, canonical: torch.Tensor) -> "Field":
         flat = canonical.reshape(self.ncomp, self.nsites)
         return dataclasses.replace(self, data=self.layout.pack(flat))
+
+    def as_layout(self, layout: Layout) -> "Field":
+        """Relayout (the paper's per-architecture layout switch): the same
+        values in ``layout``, repacked with torch ops on the Field's
+        device.  Set-up, not a kernel: no launch path calls it."""
+        if layout == self.layout:
+            return self
+        return dataclasses.replace(self, layout=layout, data=layout.pack(self.canonical()))
 
     def __repr__(self) -> str:  # pragma: no cover - cosmetic
         return (

@@ -23,9 +23,12 @@ Engines:
 ``"cuda"``   sends the graph's signature (:meth:`LaunchGraph.structure`) to
              the hand-written kernel registered for it
              (:func:`register_cuda_graph`) and raises for any other
-             signature.  Stage params are not part of the signature: the
-             kernel reads them from the graph.  A tiled plan (by or bz set,
-             see ``core.plan``) runs the graph's registered tiled kernel
+             signature.  The kernel reads each input Field in its own
+             layout and writes each output in its ``out_layouts`` layout;
+             the launch wraps those tensors as Fields with no relayout.
+             Stage params are not part of the signature: the kernel reads
+             them from the graph.  A tiled plan (by or bz set, see
+             ``core.plan``) runs the graph's registered tiled kernel
              instead, and raises when there is none or when its two window
              slots exceed the shared memory one block may hold: it never
              falls back to the untiled kernel or to torch ops.
@@ -48,9 +51,9 @@ from typing import Callable, Dict, List, Mapping, Optional, Sequence, Tuple, Uni
 
 import torch
 
-from .._cuda import Kernel, check_tensor
+from .._cuda import Kernel, check_field, check_tensor
 from .field import Field
-from .layout import Layout
+from .layout import Layout, resolve_layouts
 from .plan import (SMEM_PER_BLOCK_OPTIN, LoweringPlan, default_plan,
                    estimate_smem_bytes, policy_plan)
 from .reduce import fold_partials
@@ -130,12 +133,15 @@ _CUDA_GRAPHS: Dict[tuple, Tuple[Callable, Tuple[str, ...], Optional[Callable]]] 
 def register_cuda_graph(graph: "LaunchGraph", impl: Callable,
                         outputs: Sequence[str],
                         tiled: Optional[Callable] = None) -> None:
-    """Run ``impl(graph, ins, scalars, lattice=, vvl=)`` for every graph of
-    ``graph``'s structure on the cuda engine, and ``tiled(graph, ins,
-    scalars, lattice=, plan=)`` under a tiled plan.  ``ins`` maps value
-    names to canonical (ncomp, nsites) SoA tensors, ``scalars`` to 0-d
-    device tensors; both return every name in ``outputs`` (fields
-    canonical, reductions (ncomp,))."""
+    """Run ``impl(graph, ins, scalars, lattice=, vvl=, out_layouts=)`` for
+    every graph of ``graph``'s structure on the cuda engine, and
+    ``tiled(graph, ins, scalars, lattice=, plan=, out_layouts=)`` under a
+    tiled plan.  ``ins`` maps value names to (physical tensor, Layout),
+    ``scalars`` to 0-d device tensors, ``out_layouts`` each requested
+    field output to its Layout; both return every name in ``outputs``:
+    fields as physical tensors the kernel wrote in their layouts,
+    reductions (ncomp,).  A tiled plan only ever sees SoA fields (the
+    planner refuses others)."""
     _CUDA_GRAPHS[graph.structure()] = (impl, tuple(outputs), tiled)
 
 
@@ -457,19 +463,26 @@ class LaunchGraph:
         if plan.engine == "torch":
             vals = self._launch_torch(ins, ordered_ins, scalars, ordered_scalars,
                                       outputs, stencil, lattice, first)
+            vals = {o: vals[o].to(out_info[o][1]) for o in outputs}
+            # the bodies' canonical field outputs, packed into their layouts
+            vals.update({o: out_layouts[o].pack(vals[o].reshape(out_info[o][0], nsites))
+                         for o in field_outputs})
         else:
+            # the kernels' field outputs, already in their layouts
             vals = self._launch_cuda(ins, ordered_ins, scalars, ordered_scalars,
-                                     outputs, lattice, plan, first, smem_views)
+                                     outputs, lattice, plan, first, smem_views,
+                                     {o: out_layouts[o] for o in field_outputs})
 
         out: Dict[str, Union[Field, torch.Tensor]] = {}
         for o in outputs:
             ncomp, dtype = out_info[o]
-            val = vals[o].to(dtype)
-            if o in red_names:
-                out[o] = val
-            else:
-                out[o] = Field(o, ncomp, lattice, out_layouts[o],
-                               out_layouts[o].pack(val.reshape(ncomp, nsites)))
+            val = vals[o]
+            want = (ncomp,) if o in red_names else out_layouts[o].physical_shape(ncomp, nsites)
+            if tuple(val.shape) != want or val.dtype != dtype:
+                raise ValueError(
+                    f"graph {self.name!r} output {o!r} is {tuple(val.shape)} {val.dtype}, "
+                    f"expected {want} {dtype}")
+            out[o] = val if o in red_names else Field(o, ncomp, lattice, out_layouts[o], val)
         return out
 
     def _launch_torch(self, ins, ordered_ins, scalars, ordered_scalars,
@@ -501,8 +514,8 @@ class LaunchGraph:
                 res[o] = _crop_ring(arr, r, 0)
         return {o: res[o] for o in outputs}
 
-    def _launch_cuda(self, ins, ordered_ins, scalars, ordered_scalars,
-                     outputs, lattice, plan, first, smem_views) -> Dict[str, torch.Tensor]:
+    def _launch_cuda(self, ins, ordered_ins, scalars, ordered_scalars, outputs, lattice,
+                     plan, first, smem_views, out_layouts) -> Dict[str, torch.Tensor]:
         entry = _CUDA_GRAPHS.get(self.structure())
         if plan.tiled:
             impl, produces = self._tiled_entry(entry, plan, lattice, smem_views)
@@ -531,7 +544,8 @@ class LaunchGraph:
             else:
                 v = torch.tensor(float(v), dtype=first.dtype, device=first.device)
             svals[n] = v.contiguous()
-        return impl(self, {n: ins[n].data for n in ordered_ins}, svals, **kw)
+        return impl(self, {n: (ins[n].data, ins[n].layout) for n in ordered_ins}, svals,
+                    out_layouts=out_layouts, **kw)
 
     def _tiled_entry(self, entry, plan, lattice, smem_views):
         """(tiled impl, outputs) for a tiled plan, after the plan-time checks:
@@ -765,47 +779,59 @@ CG_UPDATE = Kernel("cg_update", "rt_cg_update")
 CG_XPAY = Kernel("cg_xpay", "rt_cg_xpay")
 
 
-def cg_update_plain(x, r, p, ap, alpha, neg_alpha):
+_CG_IN, _CG_OUT = ("x", "r", "p", "ap"), ("x_new", "r_new")
+
+
+def cg_update_plain(x, r, p, ap, alpha, neg_alpha, layouts=None):
     """x + alpha p, r + neg_alpha ap, and the per-component sum of the new
-    residual squared — the cg_update graph's arithmetic in torch ops."""
+    residual squared — the cg_update graph's arithmetic in torch ops, on
+    fields in ``layouts`` (names "x", "r", "p", "ap", "x_new", "r_new")."""
+    lay = resolve_layouts(layouts, _CG_IN, _CG_OUT)
+    x, r, p, ap = (lay[n].unpack(t) for n, t in zip(_CG_IN, (x, r, p, ap)))
     x_new = x + alpha * p
     r_new = r + neg_alpha * ap
-    return x_new, r_new, (r_new * r_new).sum(dim=1)
+    return lay["x_new"].pack(x_new), lay["r_new"].pack(r_new), (r_new * r_new).sum(dim=1)
 
 
-def cg_update(x, r, p, ap, alpha, neg_alpha, vvl: int = 128):
-    """(24, nsites) SoA x, r, p, ap and 0-d device scalars alpha, neg_alpha
-    -> (x_new, r_new, rr (24,)).  One launch plus the partial fold."""
+def cg_update(x, r, p, ap, alpha, neg_alpha, vvl: int = 128, *, layouts=None):
+    """24-component fields x, r, p, ap (physical, in ``layouts``; names
+    "x", "r", "p", "ap", "x_new", "r_new") and 0-d device scalars alpha,
+    neg_alpha -> (x_new, r_new, rr (24,)).  One launch plus the partial
+    fold."""
     if x.device.type == "cpu":
-        return cg_update_plain(x, r, p, ap, alpha, neg_alpha)
-    shape = (24, x.shape[-1])
-    for name, t in (("x", x), ("r", r), ("p", p), ("ap", ap)):
-        check_tensor(name, t, shape, x.device)
+        return cg_update_plain(x, r, p, ap, alpha, neg_alpha, layouts)
+    lay = resolve_layouts(layouts, _CG_IN, _CG_OUT)
+    _, nsites = lay["x"].logical_shape(x.shape)
+    desc = [check_field(n, t, lay[n], 24, nsites, x.device)
+            for n, t in zip(_CG_IN, (x, r, p, ap))]
     for name, t in (("alpha", alpha), ("neg_alpha", neg_alpha)):
         check_tensor(name, t, (), x.device)
-    nsites = shape[1]
-    x_new, r_new = torch.empty_like(x), torch.empty_like(r)
+    x_new, r_new = (torch.empty(lay[n].physical_shape(24, nsites), dtype=x.dtype,
+                                device=x.device) for n in _CG_OUT)
     partials = torch.empty((-(-nsites // vvl), 24), dtype=x.dtype, device=x.device)
     CG_UPDATE.launch(x.device, x.data_ptr(), r.data_ptr(), p.data_ptr(),
                      ap.data_ptr(), alpha.data_ptr(), neg_alpha.data_ptr(),
                      x_new.data_ptr(), r_new.data_ptr(), partials.data_ptr(),
-                     nsites, vvl)
+                     nsites, *desc, *(lay[n].descriptor() for n in _CG_OUT), vvl)
     return x_new, r_new, fold_partials(partials, "sum")
 
 
-def cg_xpay_plain(x, y, a):
-    return y + a * x
+def cg_xpay_plain(x, y, a, layouts=None):
+    lay = resolve_layouts(layouts, ("x", "y"), ("out",))
+    return lay["out"].pack(lay["y"].unpack(y) + a * lay["x"].unpack(x))
 
 
-def cg_xpay(x, y, a, vvl: int = 128):
-    """y + a x for same-shape contiguous fp32 tensors and a 0-d device
-    scalar a."""
+def cg_xpay(x, y, a, vvl: int = 128, *, layouts=None):
+    """y + a x for fields x, y (physical, in ``layouts``; names "x", "y",
+    "out") and a 0-d device scalar a."""
     if x.device.type == "cpu":
-        return cg_xpay_plain(x, y, a)
-    check_tensor("x", x, x.shape, x.device)
-    check_tensor("y", y, x.shape, x.device)
+        return cg_xpay_plain(x, y, a, layouts)
+    lay = resolve_layouts(layouts, ("x", "y"), ("out",))
+    ncomp, nsites = lay["x"].logical_shape(x.shape)
+    lx = check_field("x", x, lay["x"], ncomp, nsites, x.device)
+    ly = check_field("y", y, lay["y"], ncomp, nsites, x.device)
     check_tensor("a", a, (), x.device)
-    out = torch.empty_like(x)
+    out = torch.empty(lay["out"].physical_shape(ncomp, nsites), dtype=x.dtype, device=x.device)
     CG_XPAY.launch(x.device, x.data_ptr(), y.data_ptr(), a.data_ptr(),
-                   out.data_ptr(), x.numel(), vvl)
+                   out.data_ptr(), ncomp, nsites, lx, ly, lay["out"].descriptor(), vvl)
     return out

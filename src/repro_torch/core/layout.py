@@ -20,9 +20,13 @@ The canonical (logical) view every kernel body sees is ``(ncomp, nsites)``.
 ``pack`` always returns a contiguous tensor, so the flat memory order of the
 physical array is the paper's linearization; ``unpack`` returns a view.
 
-On the GPU, SoA puts neighbouring sites of one component at neighbouring
-addresses: one thread per site then reads coalesced, which is why the
-hand-written CUDA kernels take SoA (the engine raises for the others).
+The hand-written CUDA kernels take every layout: each kernel receives a
+tensor's layout as one int (:meth:`Layout.descriptor`) and addresses
+component c of site s through INDEX (``rt_index`` in ``csrc/common.cuh``),
+one thread per site (or element) in every layout.  On the GPU, SoA (and
+AoSoA with SAL >= 32) puts neighbouring sites of one component at
+neighbouring addresses, so a warp's loads coalesce; under AoS they lie
+ncomp floats apart.
 """
 
 from __future__ import annotations
@@ -32,7 +36,10 @@ import enum
 from typing import Tuple
 
 __all__ = ["LayoutKind", "Layout", "AOS", "SOA", "aosoa", "tileable_layout",
-           "parse_layout"]
+           "parse_layout", "resolve_layouts"]
+
+# Layout.descriptor()'s kind codes (RT_SOA, RT_AOS, RT_AOSOA in csrc/common.cuh)
+_KIND_CODE = {"soa": 0, "aos": 1, "aosoa": 2}
 
 
 class LayoutKind(enum.Enum):
@@ -62,6 +69,25 @@ class Layout:
                 f"AoSoA(sal={self.sal}) requires sal | nsites, got nsites={nsites}"
             )
         return (nsites // self.sal, ncomp, self.sal)
+
+    def logical_shape(self, physical_shape) -> Tuple[int, int]:
+        """(ncomp, nsites) of a physical tensor of this layout's shape."""
+        shape = tuple(int(n) for n in physical_shape)
+        want = 3 if self.kind is LayoutKind.AOSOA else 2
+        if len(shape) != want or (want == 3 and shape[2] != self.sal):
+            raise ValueError(f"shape {shape} is not a {self.name} physical shape")
+        if self.kind is LayoutKind.SOA:
+            return shape
+        if self.kind is LayoutKind.AOS:
+            return shape[1], shape[0]
+        return shape[1], shape[0] * shape[2]
+
+    def descriptor(self) -> int:
+        """This layout as the CUDA kernels take it: ``kind | sal << 2``
+        with kind 0 SoA, 1 AoS, 2 AoSoA (``rt_make_layout`` in
+        ``csrc/common.cuh`` decodes it)."""
+        code = _KIND_CODE[self.kind.value]
+        return code | (self.sal << 2) if self.kind is LayoutKind.AOSOA else code
 
     def fits(self, nsites: int) -> bool:
         """Whether this layout can tile ``nsites`` sites (AoSoA needs
@@ -126,6 +152,21 @@ def tileable_layout(layout: Layout, lattice) -> Layout:
     for s in lattice:
         nsites *= int(s)
     return layout if layout.fits(nsites) else SOA
+
+
+def resolve_layouts(layouts, inputs, outputs) -> dict:
+    """Name -> Layout of a kernel wrapper's tensors: ``layouts`` (None or a
+    mapping) for each name it holds, else SOA for an input and the first
+    input's layout for an output."""
+    layouts = dict(layouts or {})
+    unknown = sorted(set(layouts) - set(inputs) - set(outputs))
+    if unknown:
+        raise ValueError(f"layouts for unknown tensors {unknown}; the kernel takes "
+                         f"{list(inputs) + list(outputs)}")
+    out = {n: layouts.get(n, SOA) for n in inputs}
+    first = out[inputs[0]]
+    out.update({n: layouts.get(n, first) for n in outputs})
+    return out
 
 
 def parse_layout(spec: str) -> Layout:

@@ -8,12 +8,20 @@ graphs, the tiles:
   engine "cuda"   the hand-written kernels under ``repro_torch/csrc``.
   vvl             sites per CUDA block of the untiled kernels (one thread
                   per site).  Unused by the torch engine and by tiled plans.
+                  A whole number of warps, and, as on the JAX package's
+                  pallas engine, a multiple of every AoSoA SAL the launch
+                  touches (:func:`sal_alignment`), so a block holds whole
+                  short arrays.
   bx, by, bz      the tiled stencil lowering: each tile is bx x-planes by
                   by y-rows by bz z-sites (0 = the whole axis); every further
                   lattice dim is whole.  A plan with by or bz set is *tiled*:
                   the cuda engine runs the graph's tiled kernel, whose blocks
                   copy each tile's halo'd window into shared memory.  A plan
                   without them runs the untiled kernel, which ignores bx.
+
+Every layout (SoA, AoS, AoSoA) runs untiled.  A tiled plan takes SoA
+fields only: the tiled kernel copies each window row from device memory as
+a contiguous z-run, which only SoA gives (ROADMAP queue 2).
 
 The shared-memory budget (``TargetConfig.smem_bytes`` or
 ``$TARGETDP_TORCH_SMEM_BYTES``) makes :func:`default_plan` tile a stencil
@@ -38,7 +46,8 @@ from typing import Optional, Sequence, Tuple
 
 from .layout import Layout, LayoutKind
 
-__all__ = ["LoweringPlan", "divisors", "choose_vvl", "choose_slab", "choose_tiles",
+__all__ = ["LoweringPlan", "divisors", "choose_vvl", "sal_alignment", "choose_slab",
+           "choose_tiles",
            "tile_extents", "estimate_smem_bytes", "resolved_smem_bytes",
            "default_plan", "plan_for_launch", "policy_plan", "ENGINES", "WARP",
            "MAX_BLOCK", "SMEM_ENV", "SMEM_PER_BLOCK_OPTIN"]
@@ -92,6 +101,15 @@ def choose_vvl(nsites: int, preferred: int = 128, multiple_of: int = 1) -> int:
         f"no vvl <= {preferred} divides nsites={nsites} and is a multiple "
         f"of {multiple_of}"
     )
+
+
+def sal_alignment(layouts: Sequence[Layout]) -> int:
+    """lcm of the AoSoA short-array lengths a launch touches (1 for none)."""
+    align = 1
+    for lay in layouts:
+        if lay.kind is LayoutKind.AOSOA:
+            align = align * lay.sal // math.gcd(align, lay.sal)
+    return align
 
 
 @functools.lru_cache(maxsize=4096)
@@ -258,11 +276,14 @@ class LoweringPlan:
                     "by/bz tile the cuda stencil grid; the torch engine runs "
                     "whole-lattice ops and has no grid to tile")
             return self
-        for lay in layouts:
-            if lay.kind is not LayoutKind.SOA:
+        if self.tiled:
+            odd = sorted({lay.name for lay in layouts if lay.kind is not LayoutKind.SOA})
+            if odd:
                 raise ValueError(
-                    f"the cuda engine's kernels take SoA fields only; layout "
-                    f"{lay.name} is not yet ported")
+                    f"tiled plan {self.describe()}: the tiled kernel copies each "
+                    f"window row as a contiguous z-run, which only SoA fields "
+                    f"have; layouts {odd} run untiled (their tiled instance is "
+                    f"still to be ported, ROADMAP queue 2)")
         if not stencil:
             if self.bx:
                 raise ValueError(f"site-local lowering takes no x-slab (bx={self.bx})")
@@ -280,6 +301,10 @@ class LoweringPlan:
                 f"{WARP} in [{WARP}, {MAX_BLOCK}]")
         if nsites is not None and nsites % self.vvl:
             raise ValueError(f"vvl={self.vvl} must divide nsites={nsites}")
+        for lay in layouts:
+            if lay.kind is LayoutKind.AOSOA and self.vvl % lay.sal:
+                raise ValueError(
+                    f"vvl={self.vvl} must be a multiple of AoSoA sal={lay.sal}")
         return self
 
     def _validate_tiles(self, lattice: Optional[Tuple[int, ...]]) -> None:
@@ -315,8 +340,10 @@ def default_plan(config, *, nsites: int, layouts: Sequence[Layout],
                  stencil: bool = False, lattice: Optional[Tuple[int, ...]] = None,
                  smem_views=None) -> LoweringPlan:
     """The heuristic plan.  The torch engine lowers whole-lattice; the cuda
-    engine takes the largest whole-warp block size <= ``config.vvl`` that
-    divides the lattice.  A cuda stencil launch with a shared-memory budget
+    engine takes the largest block size <= ``config.vvl`` that divides the
+    lattice and is a multiple of a warp and of every AoSoA SAL the launch
+    touches (falling back to that multiple itself, as the JAX package's
+    ``resolve_vvl`` does).  A cuda stencil launch with a shared-memory budget
     and its footprint descriptor ``smem_views = (in_views, out_views)``
     also gets bx from :func:`choose_slab` and (by, bz) from
     :func:`choose_tiles`; without a budget the plan is the untiled one."""
@@ -324,7 +351,9 @@ def default_plan(config, *, nsites: int, layouts: Sequence[Layout],
         return LoweringPlan("torch")
     if config.engine != "cuda":
         raise ValueError(f"unknown engine {config.engine!r}; have {ENGINES}")
-    vvl = choose_vvl(nsites, max(config.vvl, WARP), multiple_of=WARP)
+    align = sal_alignment(layouts)
+    vvl = choose_vvl(nsites, max(config.vvl, WARP),
+                     multiple_of=align * WARP // math.gcd(align, WARP))
     budget = resolved_smem_bytes(config) if stencil else None
     if budget and smem_views:
         if lattice is None:

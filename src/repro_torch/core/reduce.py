@@ -3,11 +3,13 @@
 A per-component sum or max over all sites of a Field.  The torch engine
 folds the canonical tensor; the cuda engine runs K2 (``csrc/reduce.cu``),
 which replaces ``core/reduce.py::_reduce`` of the JAX package: pass 1
-writes per-block partial rows, pass 2 folds them in a fixed order.  The
-Pallas kernel's "initialise at program 0, then read-modify-write across the
-grid" is a race on concurrent CUDA blocks and is not carried over; there
-are no atomics, so a fixed plan gives the same bits on every run, and max
-is exact.
+reads the Field in its own layout (SoA, AoS or AoSoA, through INDEX) and
+writes per-block partial rows, pass 2 folds them in a fixed order.  A
+block folds the same sites in the same order in every layout, so the sums
+are bitwise the SoA ones.  The Pallas kernel's "initialise at program 0,
+then read-modify-write across the grid" is a race on concurrent CUDA
+blocks and is not carried over; there are no atomics, so a fixed plan
+gives the same bits on every run, and max is exact.
 """
 
 from __future__ import annotations
@@ -16,7 +18,8 @@ from typing import Optional
 
 import torch
 
-from .._cuda import Kernel, check_tensor
+from .._cuda import Kernel, check_field, check_tensor
+from .layout import resolve_layouts
 from .plan import plan_for_launch
 from .target import TargetConfig, require_cuda
 
@@ -49,20 +52,20 @@ def fold_partials(partials: torch.Tensor, op: str) -> torch.Tensor:
     return out
 
 
-def reduce_sites(x: torch.Tensor, op: str, vvl: int = 128) -> torch.Tensor:
-    """K2: (ncomp, nsites) SoA -> per-component sum or max, (ncomp,)."""
+def reduce_sites(x: torch.Tensor, op: str, vvl: int = 128, *, layouts=None) -> torch.Tensor:
+    """K2: a field ``x`` (physical, in ``layouts["x"]``, SoA when not
+    named) -> per-component sum or max, (ncomp,)."""
     if op not in _OPS:
         raise ValueError(f"unknown reduction op {op!r}; have {list(_OPS)}")
+    lay = resolve_layouts(layouts, ("x",), ())["x"]
     if x.device.type == "cpu":
-        return reduce_plain(x, op)
-    check_tensor("x", x, x.shape, x.device)
-    if x.dim() != 2:
-        raise ValueError(f"reduce_sites: need (ncomp, nsites), got {tuple(x.shape)}")
-    ncomp, nsites = x.shape
+        return reduce_plain(lay.unpack(x), op)
+    ncomp, nsites = lay.logical_shape(x.shape)
+    lx = check_field("x", x, lay, ncomp, nsites, x.device)
     partials = torch.empty((-(-nsites // vvl), ncomp), dtype=x.dtype, device=x.device)
     kern = REDUCE_SUM if op == "sum" else REDUCE_MAX
     kern.launch(x.device, x.data_ptr(), partials.data_ptr(), ncomp, nsites,
-                _OPS[op], vvl)
+                _OPS[op], lx, vvl)
     return fold_partials(partials, op)
 
 
@@ -72,7 +75,7 @@ def _reduce(field, config: Optional[TargetConfig], op: str) -> torch.Tensor:
     if plan.engine == "torch":
         return reduce_plain(field.canonical(), op)
     require_cuda(f"field {field.name!r}", field.data)
-    return reduce_sites(field.data, op, plan.vvl)
+    return reduce_sites(field.data, op, plan.vvl, layouts={"x": field.layout})
 
 
 def target_sum(field, config: Optional[TargetConfig] = None) -> torch.Tensor:

@@ -10,8 +10,10 @@ tensors.  Two engines run it:
                   (:func:`register_cuda_body`).  The JAX package's Pallas
                   engine traces any body into a kernel; CUDA cannot, so a
                   body with no registered kernel raises rather than falling
-                  back to torch ops.  The kernels take SoA fp32 Fields on a
-                  CUDA device and raise for anything else.
+                  back to torch ops.  The kernels take fp32 Fields on a
+                  CUDA device in any layout (SoA, AoS, AoSoA), address them
+                  through INDEX inside the kernel and write each output in
+                  its own layout; they raise for anything else.
 
 This module also holds K1, the site-local kernels (``csrc/site_local.cu``)
 that replace ``core/target.py::TargetKernel._run_pallas`` of the JAX
@@ -26,9 +28,9 @@ from typing import Callable, Dict, Mapping, Optional, Union
 
 import torch
 
-from .._cuda import Kernel, check_tensor
+from .._cuda import Kernel, check_field
 from .field import Field
-from .layout import Layout
+from .layout import Layout, resolve_layouts
 from .plan import LoweringPlan, plan_for_launch, resolved_smem_bytes
 
 __all__ = ["TargetConfig", "TargetKernel", "kernel", "launch",
@@ -79,54 +81,79 @@ MUL = Kernel("mul", "rt_site_mul")
 AXPY = Kernel("axpy", "rt_site_axpy")
 
 
-def g5_plain(x: torch.Tensor, flip_from: int) -> torch.Tensor:
-    return torch.cat([x[:flip_from], -x[flip_from:]], dim=0)
+# Each wrapper below takes physical tensors and ``layouts``, a mapping from
+# its tensor names to their Layouts (an input not named is SoA, an output
+# not named takes the first input's layout), and returns physical tensors
+# in the outputs' layouts.  On a CPU tensor it runs its plain version:
+# unpack, the torch arithmetic, pack.
 
 
-def site_g5(x: torch.Tensor, flip_from: int, vvl: int = 128) -> torch.Tensor:
-    """(ncomp, nsites) SoA -> the same with components >= flip_from
-    negated (gamma5 on a spinor at flip_from=12)."""
+def g5_plain(x: torch.Tensor, flip_from: int, layouts=None) -> torch.Tensor:
+    lay = resolve_layouts(layouts, ("x",), ("out",))
+    c = lay["x"].unpack(x)
+    return lay["out"].pack(torch.cat([c[:flip_from], -c[flip_from:]], dim=0))
+
+
+def site_g5(x: torch.Tensor, flip_from: int, vvl: int = 128, *, layouts=None) -> torch.Tensor:
+    """A field ``x`` -> the same with components >= flip_from negated
+    (gamma5 on a spinor at flip_from=12); ``layouts`` names "x", "out"."""
     if x.device.type == "cpu":
-        return g5_plain(x, flip_from)
-    check_tensor("x", x, x.shape, x.device)
-    if x.dim() != 2 or not 0 <= flip_from <= x.shape[0]:
-        raise ValueError(f"site_g5: need (ncomp, nsites) and 0 <= flip_from <= "
-                         f"ncomp, got {tuple(x.shape)}, {flip_from}")
-    out = torch.empty_like(x)
-    G5.launch(x.device, x.data_ptr(), out.data_ptr(), x.shape[0], x.shape[1],
-              flip_from, vvl)
+        return g5_plain(x, flip_from, layouts)
+    lay = resolve_layouts(layouts, ("x",), ("out",))
+    ncomp, nsites = lay["x"].logical_shape(x.shape)
+    if not 0 <= flip_from <= ncomp:
+        raise ValueError(f"site_g5: need 0 <= flip_from <= ncomp, got {flip_from}, {ncomp}")
+    lx = check_field("x", x, lay["x"], ncomp, nsites, x.device)
+    out = torch.empty(lay["out"].physical_shape(ncomp, nsites), dtype=x.dtype, device=x.device)
+    G5.launch(x.device, x.data_ptr(), out.data_ptr(), ncomp, nsites, flip_from, lx,
+              lay["out"].descriptor(), vvl)
     return out
 
 
-def site_mul(x: torch.Tensor, y: torch.Tensor, vvl: int = 128) -> torch.Tensor:
-    """x * y elementwise."""
-    if x.device.type == "cpu":
-        return x * y
-    check_tensor("x", x, x.shape, x.device)
-    check_tensor("y", y, x.shape, x.device)
-    out = torch.empty_like(x)
-    MUL.launch(x.device, x.data_ptr(), y.data_ptr(), out.data_ptr(), x.numel(), vvl)
+def _binary_plain(fn, x, y, layouts):
+    lay = resolve_layouts(layouts, ("x", "y"), ("out",))
+    return lay["out"].pack(fn(lay["x"].unpack(x), lay["y"].unpack(y)))
+
+
+def _binary_launch(kern, scalar, x, y, vvl, layouts):
+    lay = resolve_layouts(layouts, ("x", "y"), ("out",))
+    ncomp, nsites = lay["x"].logical_shape(x.shape)
+    lx = check_field("x", x, lay["x"], ncomp, nsites, x.device)
+    ly = check_field("y", y, lay["y"], ncomp, nsites, x.device)
+    out = torch.empty(lay["out"].physical_shape(ncomp, nsites), dtype=x.dtype, device=x.device)
+    kern.launch(x.device, *scalar, x.data_ptr(), y.data_ptr(), out.data_ptr(), ncomp, nsites,
+                lx, ly, lay["out"].descriptor(), vvl)
     return out
 
 
-def site_axpy(a: float, x: torch.Tensor, y: torch.Tensor, vvl: int = 128) -> torch.Tensor:
-    """x * a + y elementwise, a a Python float."""
+def site_mul(x: torch.Tensor, y: torch.Tensor, vvl: int = 128, *,
+             layouts=None) -> torch.Tensor:
+    """x * y elementwise; ``layouts`` names "x", "y", "out"."""
     if x.device.type == "cpu":
-        return x * a + y
-    check_tensor("x", x, x.shape, x.device)
-    check_tensor("y", y, x.shape, x.device)
-    out = torch.empty_like(x)
-    AXPY.launch(x.device, float(a), x.data_ptr(), y.data_ptr(), out.data_ptr(),
-                x.numel(), vvl)
-    return out
+        return _binary_plain(torch.mul, x, y, layouts)
+    return _binary_launch(MUL, (), x, y, vvl, layouts)
 
 
-# body function -> fn(ins: {arg: (ncomp, nsites) tensor}, params, vvl) -> {key: tensor}
+def site_axpy(a: float, x: torch.Tensor, y: torch.Tensor, vvl: int = 128, *,
+              layouts=None) -> torch.Tensor:
+    """x * a + y elementwise, a a Python float; ``layouts`` names "x",
+    "y", "out"."""
+    if x.device.type == "cpu":
+        return _binary_plain(lambda u, v: u * a + v, x, y, layouts)
+    return _binary_launch(AXPY, (float(a),), x, y, vvl, layouts)
+
+
+# body function -> fn(ins: {arg: (physical tensor, Layout)}, params, vvl,
+# out_layouts: {key: Layout}) -> {key: physical tensor in its out layout}
 _CUDA_BODIES: Dict[Callable, Callable] = {}
 
 
 def register_cuda_body(body: Callable, impl: Callable) -> None:
-    """Run ``impl(ins, params, vvl)`` for ``body`` on the cuda engine."""
+    """Run ``impl(ins, params, vvl, out_layouts)`` for ``body`` on the cuda
+    engine: ``ins`` maps each body argument to its (physical tensor,
+    Layout), ``out_layouts`` each output key to its Layout, and ``impl``
+    returns each output as a physical tensor its kernel wrote in that
+    layout."""
     _CUDA_BODIES[body] = impl
 
 
@@ -143,8 +170,8 @@ class TargetKernel:
     def _run_torch(self, ins: Dict[str, Field], params: Mapping) -> Dict[str, torch.Tensor]:
         return self.body({k: f.canonical() for k, f in ins.items()}, **dict(params))
 
-    def _run_cuda(self, ins: Dict[str, Field], params: Mapping,
-                  plan: LoweringPlan) -> Dict[str, torch.Tensor]:
+    def _run_cuda(self, ins: Dict[str, Field], params: Mapping, plan: LoweringPlan,
+                  out_layouts: Mapping[str, Layout]) -> Dict[str, torch.Tensor]:
         impl = _CUDA_BODIES.get(self.body)
         if impl is None:
             raise ValueError(
@@ -153,7 +180,8 @@ class TargetKernel:
                 f"register_cuda_body, or use engine='torch')")
         for k, f in ins.items():
             require_cuda(f"input {k!r}", f.data)
-        return impl({k: f.data for k, f in ins.items()}, dict(params), plan.vvl)
+        return impl({k: (f.data, f.layout) for k, f in ins.items()}, dict(params),
+                    plan.vvl, dict(out_layouts))
 
 
 def kernel(fn: Optional[Callable] = None, *, name: Optional[str] = None):
@@ -200,15 +228,23 @@ def launch(
         [f.layout for f in ins.values()] + [out_layouts[k] for k in specs])
     if plan.engine == "torch":
         outs = kern._run_torch(ins, params)
+        for k, (ncomp, dtype) in specs.items():
+            if tuple(outs[k].shape) != (ncomp, first.nsites):
+                raise ValueError(f"kernel {kern.name!r} output {k!r} has shape "
+                                 f"{tuple(outs[k].shape)}, declared ({ncomp}, {first.nsites})")
+        # the body's canonical outputs, packed into their layouts
+        outs = {k: out_layouts[k].pack(outs[k].to(dtype)) for k, (_, dtype) in specs.items()}
     else:
-        outs = kern._run_cuda(ins, params, plan)
+        # the kernels' outputs, already in their layouts: wrapped, not packed
+        outs = kern._run_cuda(ins, params, plan, {k: out_layouts[k] for k in specs})
 
     fields = {}
     for k, (ncomp, dtype) in specs.items():
-        arr = outs[k].to(dtype)
-        if tuple(arr.shape) != (ncomp, first.nsites):
-            raise ValueError(f"kernel {kern.name!r} output {k!r} has shape "
-                             f"{tuple(arr.shape)}, declared ({ncomp}, {first.nsites})")
-        fields[k] = Field(k, ncomp, first.lattice, out_layouts[k],
-                          out_layouts[k].pack(arr))
+        arr = outs[k]
+        want = out_layouts[k].physical_shape(ncomp, first.nsites)
+        if tuple(arr.shape) != want or arr.dtype != dtype:
+            raise ValueError(f"kernel {kern.name!r} output {k!r} is {tuple(arr.shape)} "
+                             f"{arr.dtype}, declared {want} {dtype} "
+                             f"({out_layouts[k].name})")
+        fields[k] = Field(k, ncomp, first.lattice, out_layouts[k], arr)
     return fields

@@ -1,6 +1,7 @@
-// Shared helpers of the hand-written kernels: reduction monoids and the
+// Shared helpers of the hand-written kernels: reduction monoids, the
 // deterministic per-block fold that replaces the TPU's grid-sequential
-// accumulator.
+// accumulator, and the layout addressing (INDEX) every lattice kernel
+// loads and stores through.
 //
 // On the TPU a Pallas grid runs in order on one core, so the JAX package
 // initialises an accumulator at program 0 and read-modify-writes it from
@@ -59,6 +60,145 @@ __device__ __forceinline__ void rt_block_partials(const float (&v)[NCOMP], int o
   }
 }
 
+// -- layouts: targetDP's INDEX() macro ---------------------------------------
+//
+// A field of ncomp components over nsites sites is one contiguous fp32
+// array; the layout says where component c of site s lies:
+//
+//   SoA    c * nsites + s
+//   AoS    s * ncomp + c
+//   AoSoA  (s / SAL) * ncomp * SAL + c * SAL + s % SAL
+//
+// The host passes each tensor's layout as one int (Layout.descriptor() in
+// core/layout.py): kind | SAL << 2.  A kernel keeps one thread on one site
+// (or one element) in every layout; only the address changes, so a block
+// folds the same sites in the same order whatever the layout.
+//
+// Every lattice kernel is a template on the launch's layout class K
+// (rt_launch_class): RT_K_SOA, RT_K_AOS and RT_K_AOSOA when every tensor of
+// the launch shares that layout (AoSoA with one power-of-two SAL, every SAL
+// of the paper's sweeps, addressed by shifts), RT_K_ANY otherwise (mixed
+// layouts, or a SAL that is not a power of two), where each tensor's
+// rt_layout is read at run time.  The RT_K_SOA instantiation is the SoA
+// address c * nsites + s alone.
+
+#define RT_SOA 0
+#define RT_AOS 1
+#define RT_AOSOA 2
+
+#define RT_K_SOA 0
+#define RT_K_AOS 1
+#define RT_K_AOSOA 2
+#define RT_K_ANY 3
+
+struct rt_layout {
+  int kind;   // RT_SOA, RT_AOS or RT_AOSOA
+  int sal;    // AoSoA's short-array length (1 otherwise)
+  int shift;  // log2(sal) when sal is a power of two, else -1
+};
+
+// Decode a descriptor; kind 3 or an AoSoA SAL < 1 gives kind -1, which
+// rt_launch_class refuses.
+static inline rt_layout rt_make_layout(int desc) {
+  rt_layout L;
+  L.kind = desc & 3;
+  L.sal = L.kind == RT_AOSOA ? (desc >> 2) : 1;
+  L.shift = -1;
+  if (L.kind == 3 || L.sal < 1) L.kind = -1;
+  for (int k = 0; k < 31 && L.kind == RT_AOSOA; ++k)
+    if ((1 << k) == L.sal) L.shift = k;
+  return L;
+}
+
+static inline bool rt_same_layout(const rt_layout& a, const rt_layout& b) {
+  return a.kind == b.kind && a.sal == b.sal;
+}
+
+// The layout class of a launch whose n tensors have layouts ls, or -1 when
+// a descriptor names no layout.
+static inline int rt_launch_class(const rt_layout* ls, int n) {
+  for (int k = 0; k < n; ++k)
+    if (ls[k].kind < 0) return -1;
+  for (int k = 1; k < n; ++k)
+    if (!rt_same_layout(ls[k], ls[0])) return RT_K_ANY;
+  if (ls[0].kind == RT_SOA) return RT_K_SOA;
+  if (ls[0].kind == RT_AOS) return RT_K_AOS;
+  return ls[0].shift >= 0 ? RT_K_AOSOA : RT_K_ANY;
+}
+
+// Run the statement(s) with the compile-time constant RT_K set to the
+// launch class k (an entry point's dispatch to its kernel's instantiation).
+#define RT_WITH_CLASS(k, ...)                   \
+  switch (k) {                                  \
+    case RT_K_SOA: {                            \
+      constexpr int RT_K = RT_K_SOA;            \
+      __VA_ARGS__;                              \
+    } break;                                    \
+    case RT_K_AOS: {                            \
+      constexpr int RT_K = RT_K_AOS;            \
+      __VA_ARGS__;                              \
+    } break;                                    \
+    case RT_K_AOSOA: {                          \
+      constexpr int RT_K = RT_K_AOSOA;          \
+      __VA_ARGS__;                              \
+    } break;                                    \
+    default: {                                  \
+      constexpr int RT_K = RT_K_ANY;            \
+      __VA_ARGS__;                              \
+    } break;                                    \
+  }
+
+// INDEX(comp, site) for any layout, read at run time.
+__device__ __forceinline__ long long rt_index(const rt_layout& L, int c, long long s, int ncomp,
+                                              long long nsites) {
+  if (L.kind == RT_AOS) return s * ncomp + c;
+  if (L.kind == RT_AOSOA) {
+    if (L.shift >= 0) {
+      const long long blk = s >> L.shift;
+      return ((blk * ncomp + c) << L.shift) + (s & (L.sal - 1));
+    }
+    const long long blk = s / L.sal;
+    return (blk * ncomp + c) * L.sal + (s - blk * L.sal);
+  }
+  return (long long)c * nsites + s;
+}
+
+// INDEX(comp, site) in a launch of class K: the class's address with only
+// the SAL's shift read at run time, or rt_index under RT_K_ANY.
+template <int K>
+__device__ __forceinline__ long long rt_at(const rt_layout& L, int c, long long s, int ncomp,
+                                           long long nsites) {
+  if (K == RT_K_SOA) return (long long)c * nsites + s;
+  if (K == RT_K_AOS) return s * ncomp + c;
+  if (K == RT_K_AOSOA)
+    return (((s >> L.shift) * ncomp + c) << L.shift) + (s & ((1LL << L.shift) - 1));
+  return rt_index(L, c, s, ncomp, nsites);
+}
+
+// The inverse of INDEX: the (component, site) stored at flat offset i.
+__device__ __forceinline__ void rt_coords(const rt_layout& L, long long i, int ncomp,
+                                          long long nsites, int& c, long long& s) {
+  if (L.kind == RT_AOS) {
+    s = i / ncomp;
+    c = (int)(i - s * ncomp);
+  } else if (L.kind == RT_AOSOA) {
+    long long t, lane;
+    if (L.shift >= 0) {
+      t = i >> L.shift;
+      lane = i & (L.sal - 1);
+    } else {
+      t = i / L.sal;
+      lane = i - t * L.sal;
+    }
+    const long long blk = t / ncomp;
+    c = (int)(t - blk * ncomp);
+    s = blk * L.sal + lane;
+  } else {
+    c = (int)(i / nsites);
+    s = i - (long long)c * nsites;
+  }
+}
+
 // Blocks needed to give each of n items one thread.
 static inline unsigned int rt_grid(long long n, int block) {
   return static_cast<unsigned int>((n + block - 1) / block);
@@ -66,3 +206,6 @@ static inline unsigned int rt_grid(long long n, int block) {
 
 // Returned by every C entry point: the launch's cudaGetLastError().
 #define RT_LAUNCH_RESULT() return static_cast<int>(cudaGetLastError())
+
+// Returned by an entry point for a descriptor that names no layout.
+#define RT_BAD_LAYOUT static_cast<int>(cudaErrorInvalidValue)

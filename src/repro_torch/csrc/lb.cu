@@ -1,13 +1,20 @@
 // K7, K8 and K5L: the D3Q19 lattice-Boltzmann kernels of the Ludwig step.
 //
-// Fields are SoA fp32 over a periodic (X, Y, Z) lattice,
-// site = (x*Y + y)*Z + z, component c of site s at c*V + s.  One thread per
-// site; consecutive threads take consecutive sites, so every warp's loads
-// and stores of one component coalesce.  Offsets are 64-bit: 19 * V reaches
+// Fields are fp32 over a periodic (X, Y, Z) lattice, site = (x*Y + y)*Z + z,
+// each in the layout of its descriptor: component c of site s at INDEX(c, s)
+// (rt_at, common.cuh), c*V + s under SoA.  One thread per site; consecutive
+// threads take consecutive sites, so under SoA (and AoSoA with SAL >= 32)
+// every warp's loads and stores of one component coalesce; under AoS they
+// lie 76 B (dist) apart and each touches a sector of its own.  The
+// arithmetic is the same in every layout, so every output is bitwise the
+// SoA launch's, repacked.  Each kernel is instantiated for each layout class
+// (common.cuh); the all-SoA one is SoA's addresses alone.  Offsets are 64-bit: 19 * V reaches
 // 3.2e8 at (256, 256, 256).
 //
 // K7 rt_lb_collide replaces kernels/lb_collision/kernel.py::collide_pallas
-//   (pallas_call :53): BGK collision + Guo forcing, site-local.  Reads 19 + 3
+//   (pallas_call :53): BGK collision + Guo forcing, site-local, with dist,
+//   force and out each in its own layout (the TPU kernel takes force's
+//   layout apart from dist's).  Reads 19 + 3
 //   values a site and writes 19: 164 compulsory bytes a site for about 450
 //   flops, under 3 flop/byte and far below the ~20 flop/byte fp32 ridge of
 //   the H100, so it is bound by bytes.  The design is the plain one for
@@ -38,8 +45,8 @@
 //   velocity are shifted by a constant, so they still coalesce away from the
 //   wrap.  dist2 uses the same rt_collide_site as K7 and moves data only
 //   after it, and equals K8(K7(f)) bitwise (tests/test_torch_cuda.py).
-//   Registers (-Xptxas -v, sm_90a, CUDA 12.8): collide 48, propagate 40,
-//   lb_step 56, no spills.
+//   Registers of the SoA instantiations (-Xptxas -v, sm_90a, CUDA 12.8):
+//   collide 48, propagate 40, lb_step 56, no spills.
 
 #include "d3q19.cuh"
 
@@ -47,28 +54,38 @@ struct rt_lattice3 {
   int X, Y, Z;
 };
 
-__device__ __forceinline__ void rt_load_site(const float* __restrict__ f,
-                                             const float* __restrict__ force, long long V,
-                                             long long s, float (&fl)[RT_NVEL], float (&fr)[3]) {
+template <int K>
+__device__ __forceinline__ void rt_load_site(const float* __restrict__ f, const rt_layout& lf,
+                                             const float* __restrict__ force,
+                                             const rt_layout& lfr, long long V, long long s,
+                                             float (&fl)[RT_NVEL], float (&fr)[3]) {
 #pragma unroll
-  for (int i = 0; i < RT_NVEL; ++i) fl[i] = f[(long long)i * V + s];
+  for (int i = 0; i < RT_NVEL; ++i) fl[i] = f[rt_at<K>(lf, i, s, RT_NVEL, V)];
 #pragma unroll
-  for (int a = 0; a < 3; ++a) fr[a] = force[(long long)a * V + s];
+  for (int a = 0; a < 3; ++a) fr[a] = force[rt_at<K>(lfr, a, s, 3, V)];
 }
 
+// Layouts of an LB launch's tensors: dist in, force in, dist out, u out.
+struct rt_lb_layouts {
+  rt_layout f, force, out, u;
+};
+
+template <int K>
 __global__ void lb_collide_kernel(const float* __restrict__ f, const float* __restrict__ force,
-                                  float* __restrict__ out, long long V, rt_lb_params p) {
+                                  float* __restrict__ out, long long V, rt_lb_params p,
+                                  rt_lb_layouts ll) {
   const long long s = blockIdx.x * (long long)blockDim.x + threadIdx.x;
   if (s >= V) return;
   float fl[RT_NVEL], fr[3], o[RT_NVEL];
-  rt_load_site(f, force, V, s, fl, fr);
+  rt_load_site<K>(f, ll.f, force, ll.force, V, s, fl, fr);
   rt_collide_site(fl, fr, p, o);
 #pragma unroll
-  for (int i = 0; i < RT_NVEL; ++i) out[(long long)i * V + s] = o[i];
+  for (int i = 0; i < RT_NVEL; ++i) out[rt_at<K>(ll.out, i, s, RT_NVEL, V)] = o[i];
 }
 
+template <int K>
 __global__ void lb_propagate_kernel(const float* __restrict__ f, float* __restrict__ out,
-                                    rt_lattice3 L) {
+                                    rt_lattice3 L, rt_layout lf, rt_layout lout) {
   const long long V = (long long)L.X * L.Y * L.Z;
   const long long s = blockIdx.x * (long long)blockDim.x + threadIdx.x;
   if (s >= V) return;
@@ -80,24 +97,26 @@ __global__ void lb_propagate_kernel(const float* __restrict__ f, float* __restri
     const long long src = ((long long)rt_wrap(x - rt_cv(i, 0), L.X) * L.Y +
                            rt_wrap(y - rt_cv(i, 1), L.Y)) * L.Z +
                           rt_wrap(z - rt_cv(i, 2), L.Z);
-    out[(long long)i * V + s] = f[(long long)i * V + src];
+    out[rt_at<K>(lout, i, s, RT_NVEL, V)] = f[rt_at<K>(lf, i, src, RT_NVEL, V)];
   }
 }
 
+template <int K>
 __global__ void lb_step_kernel(const float* __restrict__ f, const float* __restrict__ force,
                                float* __restrict__ dist2, float* __restrict__ u,
-                               rt_lattice3 L, rt_lb_params p) {
+                               rt_lattice3 L, rt_lb_params p, rt_lb_layouts ll) {
   const long long V = (long long)L.X * L.Y * L.Z;
   const long long s = blockIdx.x * (long long)blockDim.x + threadIdx.x;
   if (s >= V) return;
   float fl[RT_NVEL], fr[3], o[RT_NVEL];
-  rt_load_site(f, force, V, s, fl, fr);
+  rt_load_site<K>(f, ll.f, force, ll.force, V, s, fl, fr);
   if (u != nullptr) {
     const float rho = rt_density(fl);
     float mom[3];
     rt_momentum(fl, mom);
 #pragma unroll
-    for (int a = 0; a < 3; ++a) u[(long long)a * V + s] = mom[a] / rho + 0.5f * fr[a] / rho;
+    for (int a = 0; a < 3; ++a)
+      u[rt_at<K>(ll.u, a, s, 3, V)] = mom[a] / rho + 0.5f * fr[a] / rho;
   }
   rt_collide_site(fl, fr, p, o);
   const int z = (int)(s % L.Z);
@@ -108,38 +127,57 @@ __global__ void lb_step_kernel(const float* __restrict__ f, const float* __restr
     const long long dst = ((long long)rt_wrap(x + rt_cv(i, 0), L.X) * L.Y +
                            rt_wrap(y + rt_cv(i, 1), L.Y)) * L.Z +
                           rt_wrap(z + rt_cv(i, 2), L.Z);
-    dist2[(long long)i * V + dst] = o[i];
+    dist2[rt_at<K>(ll.out, i, dst, RT_NVEL, V)] = o[i];
   }
 }
 
 extern "C" {
 
-// f, out: (19, V) SoA; force: (3, V) SoA.
+// f, out: 19 x V, force: 3 x V, in the layouts of descriptors lf, lfr, lout.
 int rt_lb_collide(const float* f, const float* force, float* out, long long V, float omega,
-                  float pw0, float pw1, float pw2, int block, cudaStream_t stream) {
+                  float pw0, float pw1, float pw2, int lf, int lfr, int lout, int block,
+                  cudaStream_t stream) {
+  const rt_layout L[3] = {rt_make_layout(lf), rt_make_layout(lfr), rt_make_layout(lout)};
+  const int k = rt_launch_class(L, 3);
+  if (k < 0) return RT_BAD_LAYOUT;
   if (V == 0) return 0;
-  lb_collide_kernel<<<rt_grid(V, block), block, 0, stream>>>(
-      f, force, out, V, rt_make_lb_params(omega, pw0, pw1, pw2));
+  const rt_lb_layouts ll{L[0], L[1], L[2], L[2]};
+  const rt_lb_params p = rt_make_lb_params(omega, pw0, pw1, pw2);
+  RT_WITH_CLASS(k, lb_collide_kernel<RT_K><<<rt_grid(V, block), block, 0, stream>>>(
+                       f, force, out, V, p, ll));
   RT_LAUNCH_RESULT();
 }
 
-// f, out: (19, X*Y*Z) SoA; out must not alias f.
-int rt_lb_propagate(const float* f, float* out, int X, int Y, int Z, int block,
-                    cudaStream_t stream) {
+// f, out: 19 x (X*Y*Z) in the layouts of descriptors lf, lout; out must not
+// alias f.
+int rt_lb_propagate(const float* f, float* out, int X, int Y, int Z, int lf, int lout,
+                    int block, cudaStream_t stream) {
   const long long V = (long long)X * Y * Z;
+  const rt_layout L[2] = {rt_make_layout(lf), rt_make_layout(lout)};
+  const int k = rt_launch_class(L, 2);
+  if (k < 0) return RT_BAD_LAYOUT;
   if (V == 0) return 0;
-  lb_propagate_kernel<<<rt_grid(V, block), block, 0, stream>>>(f, out, rt_lattice3{X, Y, Z});
+  RT_WITH_CLASS(k, lb_propagate_kernel<RT_K><<<rt_grid(V, block), block, 0, stream>>>(
+                       f, out, rt_lattice3{X, Y, Z}, L[0], L[1]));
   RT_LAUNCH_RESULT();
 }
 
-// f, dist2: (19, V) SoA; force: (3, V); u: (3, V) or null (then not written).
+// f, dist2: 19 x V; force: 3 x V; u: 3 x V or null (then not written); in
+// the layouts of descriptors lf, lfr, ld2, lu (lu unread when u is null).
 // dist2 must not alias f.
 int rt_lb_step(const float* f, const float* force, float* dist2, float* u, int X, int Y, int Z,
-               float omega, float pw0, float pw1, float pw2, int block, cudaStream_t stream) {
+               float omega, float pw0, float pw1, float pw2, int lf, int lfr, int ld2, int lu,
+               int block, cudaStream_t stream) {
   const long long V = (long long)X * Y * Z;
+  const rt_layout L[4] = {rt_make_layout(lf), rt_make_layout(lfr), rt_make_layout(ld2),
+                          rt_make_layout(lu)};
+  const int k = rt_launch_class(L, u != nullptr ? 4 : 3);
+  if (k < 0) return RT_BAD_LAYOUT;
   if (V == 0) return 0;
-  lb_step_kernel<<<rt_grid(V, block), block, 0, stream>>>(
-      f, force, dist2, u, rt_lattice3{X, Y, Z}, rt_make_lb_params(omega, pw0, pw1, pw2));
+  const rt_lb_layouts ll{L[0], L[1], L[2], L[3]};
+  const rt_lb_params p = rt_make_lb_params(omega, pw0, pw1, pw2);
+  RT_WITH_CLASS(k, lb_step_kernel<RT_K><<<rt_grid(V, block), block, 0, stream>>>(
+                       f, force, dist2, u, rt_lattice3{X, Y, Z}, p, ll));
   RT_LAUNCH_RESULT();
 }
 

@@ -16,8 +16,16 @@
 //                          folded by reduce.cu's two passes.
 //
 // Neither flat graph has a terminal reduction, so each is one launch, one
-// thread per site, fields only.  The Q tensor arrives as 5 SoA components
-// (XX, XY, XZ, YY, YZ; ZZ = -XX - YY) and the 3x3 algebra of
+// thread per site, fields only.  Every tensor comes with its own layout
+// descriptor (SoA, AoS or AoSoA) and is loaded and stored through INDEX
+// (rt_load_q, rt_store_q5 and rt_at, common.cuh), so one launch may mix
+// layouts: the driver's temporaries fall back to SoA where an AoSoA SAL
+// does not divide the lattice.  The arithmetic is the same in every
+// layout, so the outputs are bitwise the SoA launch's, repacked.  Each
+// kernel is instantiated for each layout class (common.cuh); the all-SoA
+// one is SoA's addresses alone.  The Q
+// tensor arrives as 5 components (XX, XY, XZ, YY, YZ; ZZ = -XX - YY) and
+// the 3x3 algebra of
 // apps/ludwig/lc.py is unrolled in registers in the reference's order of
 // operations; every Python-float coefficient of the reference is computed in
 // double by the host and passed as fp32.  nvcc contracts a*b + c into fused
@@ -47,20 +55,26 @@ __device__ __forceinline__ rt_m3 rt_q5_to_mat(float q0, float q1, float q2, floa
   return rt_m3{{{q0, q1, q2}, {q1, q3, q4}, {q2, q4, qzz}}};
 }
 
-// Component c of site s of a SoA field with 5 components starting at comp0.
-__device__ __forceinline__ rt_m3 rt_load_q(const float* __restrict__ x, long long V, long long s,
-                                           int comp0) {
-  const float* p = x + (long long)comp0 * V + s;
-  return rt_q5_to_mat(p[0], p[V], p[2 * V], p[3 * V], p[4 * V]);
+// The 5 components comp0 ... comp0 + 4 of site s of a field of ncomp
+// components in layout L, as the symmetric traceless 3x3 matrix.
+template <int K>
+__device__ __forceinline__ rt_m3 rt_load_q(const float* __restrict__ x, const rt_layout& L,
+                                           int ncomp, long long V, long long s, int comp0) {
+  float q[5];
+#pragma unroll
+  for (int c = 0; c < 5; ++c) q[c] = x[rt_at<K>(L, comp0 + c, s, ncomp, V)];
+  return rt_q5_to_mat(q[0], q[1], q[2], q[3], q[4]);
 }
 
-__device__ __forceinline__ void rt_store_q5(float* __restrict__ x, long long V, long long s,
-                                            const rt_m3& a) {
-  x[s] = a.m[0][0];
-  x[V + s] = a.m[0][1];
-  x[2 * V + s] = a.m[0][2];
-  x[3 * V + s] = a.m[1][1];
-  x[4 * V + s] = a.m[1][2];
+// The 5 stored components of a into site s of a 5-component field.
+template <int K>
+__device__ __forceinline__ void rt_store_q5(float* __restrict__ x, const rt_layout& L,
+                                            long long V, long long s, const rt_m3& a) {
+  x[rt_at<K>(L, 0, s, 5, V)] = a.m[0][0];
+  x[rt_at<K>(L, 1, s, 5, V)] = a.m[0][1];
+  x[rt_at<K>(L, 2, s, 5, V)] = a.m[0][2];
+  x[rt_at<K>(L, 3, s, 5, V)] = a.m[1][1];
+  x[rt_at<K>(L, 4, s, 5, V)] = a.m[1][2];
 }
 
 // sum(a[i][k] * b[k][j] for k in range(3)), as Python's sum adds them.
@@ -203,52 +217,69 @@ struct rt_fed_params {
   float c1, c2, c3, half_kappa;
 };
 
+// Layouts of a launch's tensors, in argument order (a launch uses the
+// first three or all five).
+struct rt_lc_layouts {
+  rt_layout a, b, c, d, e;
+};
+
+// q, lapq, dq -> h, sigma: layouts a ... e.
+template <int K>
 __global__ void ludwig_chem_stress_kernel(const float* __restrict__ q,
                                           const float* __restrict__ lapq,
                                           const float* __restrict__ dq, float* __restrict__ h,
                                           float* __restrict__ sigma, long long V,
-                                          rt_mol_params mp, rt_stress_params sp) {
+                                          rt_mol_params mp, rt_stress_params sp,
+                                          rt_lc_layouts L) {
   const long long s = blockIdx.x * (long long)blockDim.x + threadIdx.x;
   if (s >= V) return;
-  const rt_m3 Q = rt_load_q(q, V, s, 0);
-  const rt_m3 H = rt_molecular_field(Q, rt_load_q(lapq, V, s, 0), mp);
-  rt_store_q5(h, V, s, H);
+  const rt_m3 Q = rt_load_q<K>(q, L.a, 5, V, s, 0);
+  const rt_m3 H = rt_molecular_field(Q, rt_load_q<K>(lapq, L.b, 5, V, s, 0), mp);
+  rt_store_q5<K>(h, L.d, V, s, H);
   // the graph's stress stage reads the 5 stored components of h back
   const rt_m3 Hs = rt_q5_to_mat(H.m[0][0], H.m[0][1], H.m[0][2], H.m[1][1], H.m[1][2]);
-  const rt_m3 dQ[3] = {rt_load_q(dq, V, s, 0), rt_load_q(dq, V, s, 5), rt_load_q(dq, V, s, 10)};
+  const rt_m3 dQ[3] = {rt_load_q<K>(dq, L.c, 15, V, s, 0), rt_load_q<K>(dq, L.c, 15, V, s, 5),
+                       rt_load_q<K>(dq, L.c, 15, V, s, 10)};
   float sig[9];
   rt_stress(Q, Hs, dQ, sp, sig);
 #pragma unroll
-  for (int c = 0; c < 9; ++c) sigma[(long long)c * V + s] = sig[c];
+  for (int c = 0; c < 9; ++c) sigma[rt_at<K>(L.e, c, s, 9, V)] = sig[c];
 }
 
+// q, h, w, adv -> q_new: layouts a ... e.
+template <int K>
 __global__ void ludwig_lc_update_kernel(const float* __restrict__ q, const float* __restrict__ h,
                                         const float* __restrict__ w, const float* __restrict__ adv,
                                         float* __restrict__ q_new, long long V,
-                                        rt_update_params p) {
+                                        rt_update_params p, rt_lc_layouts L) {
   const long long s = blockIdx.x * (long long)blockDim.x + threadIdx.x;
   if (s >= V) return;
-  const rt_m3 Q = rt_load_q(q, V, s, 0);
+  const rt_m3 Q = rt_load_q<K>(q, L.a, 5, V, s, 0);
   rt_m3 W;
 #pragma unroll
   for (int a = 0; a < 3; ++a)
 #pragma unroll
-    for (int b = 0; b < 3; ++b) W.m[a][b] = w[(long long)(a * 3 + b) * V + s];
-  const rt_m3 rhs = rt_beris_edwards_rhs(Q, rt_load_q(h, V, s, 0), W, p);
+    for (int b = 0; b < 3; ++b) W.m[a][b] = w[rt_at<K>(L.c, a * 3 + b, s, 9, V)];
+  const rt_m3 rhs = rt_beris_edwards_rhs(Q, rt_load_q<K>(h, L.b, 5, V, s, 0), W, p);
   // q0 = q5 + dt (rhs5 - adv5) on the 5 stored components, then projected
   float q0[5];
   const float r5[5] = {rhs.m[0][0], rhs.m[0][1], rhs.m[0][2], rhs.m[1][1], rhs.m[1][2]};
 #pragma unroll
   for (int c = 0; c < 5; ++c)
-    q0[c] = q[(long long)c * V + s] + p.dt * (r5[c] - adv[(long long)c * V + s]);
-  rt_store_q5(q_new, V, s, rt_traceless_sym(rt_q5_to_mat(q0[0], q0[1], q0[2], q0[3], q0[4])));
+    q0[c] = q[rt_at<K>(L.a, c, s, 5, V)] + p.dt * (r5[c] - adv[rt_at<K>(L.d, c, s, 5, V)]);
+  rt_store_q5<K>(q_new, L.e, V, s,
+                   rt_traceless_sym(rt_q5_to_mat(q0[0], q0[1], q0[2], q0[3], q0[4])));
 }
 
+// q, dq -> fed: layouts a, b, c (fed has one component, so its address is
+// s in every layout).
+template <int K>
 __global__ void ludwig_fed_kernel(const float* __restrict__ q, const float* __restrict__ dq,
-                                  float* __restrict__ fed, long long V, rt_fed_params p) {
+                                  float* __restrict__ fed, long long V, rt_fed_params p,
+                                  rt_lc_layouts L) {
   const long long s = blockIdx.x * (long long)blockDim.x + threadIdx.x;
   if (s >= V) return;
-  const rt_m3 Q = rt_load_q(q, V, s, 0);
+  const rt_m3 Q = rt_load_q<K>(q, L.a, 5, V, s, 0);
   const rt_m3 QQ = rt_mul(Q, Q);
   const float trQ2 = rt_trace(QQ);
   const float trQ3 = rt_trace(rt_mul(QQ, Q));
@@ -256,7 +287,7 @@ __global__ void ludwig_fed_kernel(const float* __restrict__ q, const float* __re
   float el = 0.0f;
 #pragma unroll
   for (int a = 0; a < 3; ++a) {
-    const rt_m3 dQ = rt_load_q(dq, V, s, 5 * a);
+    const rt_m3 dQ = rt_load_q<K>(dq, L.b, 15, V, s, 5 * a);
 #pragma unroll
     for (int i = 0; i < 3; ++i)
 #pragma unroll
@@ -265,39 +296,68 @@ __global__ void ludwig_fed_kernel(const float* __restrict__ q, const float* __re
         el = (a == 0 && i == 0 && j == 0) ? t : el + t;
       }
   }
-  fed[s] = bulk + p.half_kappa * el;
+  fed[rt_at<K>(L.c, 0, s, 1, V)] = bulk + p.half_kappa * el;
+}
+
+// Decode n descriptors into L (unused slots SoA); the launch's layout
+// class, or -1 for a descriptor that names no layout.
+static inline int rt_lc_decode(const int* desc, int n, rt_lc_layouts* L) {
+  rt_layout ls[5];
+  for (int k = 0; k < 5; ++k) ls[k] = rt_make_layout(k < n ? desc[k] : RT_SOA);
+  *L = rt_lc_layouts{ls[0], ls[1], ls[2], ls[3], ls[4]};
+  return rt_launch_class(ls, n);
 }
 
 extern "C" {
 
-// q, lapq, h: (5, V) SoA; dq: (15, V) = [d/dx q, d/dy q, d/dz q]; sigma: (9, V).
+// q, lapq, h: 5 x V; dq: 15 x V = [d/dx q, d/dy q, d/dz q]; sigma: 9 x V; in
+// the layouts of descriptors lq, llap, ldq, lh, lsig.
 int rt_ludwig_chem_stress(const float* q, const float* lapq, const float* dq, float* h,
                           float* sigma, long long V, float c_q, float c_b, float c_t,
-                          float kappa_m, float neg_xi, float two_xi, float kappa_s, int block,
-                          cudaStream_t stream) {
+                          float kappa_m, float neg_xi, float two_xi, float kappa_s, int lq,
+                          int llap, int ldq, int lh, int lsig, int block, cudaStream_t stream) {
+  const int desc[5] = {lq, llap, ldq, lh, lsig};
+  rt_lc_layouts L;
+  const int k = rt_lc_decode(desc, 5, &L);
+  if (k < 0) return RT_BAD_LAYOUT;
   if (V == 0) return 0;
-  ludwig_chem_stress_kernel<<<rt_grid(V, block), block, 0, stream>>>(
-      q, lapq, dq, h, sigma, V, rt_mol_params{c_q, c_b, c_t, kappa_m},
-      rt_stress_params{neg_xi, two_xi, kappa_s});
+  const rt_mol_params mp{c_q, c_b, c_t, kappa_m};
+  const rt_stress_params sp{neg_xi, two_xi, kappa_s};
+  RT_WITH_CLASS(k, ludwig_chem_stress_kernel<RT_K><<<rt_grid(V, block), block, 0, stream>>>(
+                       q, lapq, dq, h, sigma, V, mp, sp, L));
   RT_LAUNCH_RESULT();
 }
 
-// q, h, adv, q_new: (5, V) SoA; w: (9, V) with W[a][b] = du_a/dx_b at a*3 + b.
+// q, h, adv, q_new: 5 x V; w: 9 x V with W[a][b] = du_a/dx_b at a*3 + b; in
+// the layouts of descriptors lq, lh, lw, ladv, lqn.
 int rt_ludwig_lc_update(const float* q, const float* h, const float* w, const float* adv,
                         float* q_new, long long V, float gamma_rot, float xi, float neg_two_xi,
-                        float dt, int block, cudaStream_t stream) {
+                        float dt, int lq, int lh, int lw, int ladv, int lqn, int block,
+                        cudaStream_t stream) {
+  const int desc[5] = {lq, lh, lw, ladv, lqn};
+  rt_lc_layouts L;
+  const int k = rt_lc_decode(desc, 5, &L);
+  if (k < 0) return RT_BAD_LAYOUT;
   if (V == 0) return 0;
-  ludwig_lc_update_kernel<<<rt_grid(V, block), block, 0, stream>>>(
-      q, h, w, adv, q_new, V, rt_update_params{gamma_rot, xi, neg_two_xi, dt});
+  const rt_update_params p{gamma_rot, xi, neg_two_xi, dt};
+  RT_WITH_CLASS(k, ludwig_lc_update_kernel<RT_K><<<rt_grid(V, block), block, 0, stream>>>(
+                       q, h, w, adv, q_new, V, p, L));
   RT_LAUNCH_RESULT();
 }
 
-// q: (5, V) SoA; dq: (15, V); fed: (1, V).
+// q: 5 x V; dq: 15 x V; fed: 1 x V; in the layouts of descriptors lq, ldq,
+// lfed.
 int rt_ludwig_fed(const float* q, const float* dq, float* fed, long long V, float c1, float c2,
-                  float c3, float half_kappa, int block, cudaStream_t stream) {
+                  float c3, float half_kappa, int lq, int ldq, int lfed, int block,
+                  cudaStream_t stream) {
+  const int desc[3] = {lq, ldq, lfed};
+  rt_lc_layouts L;
+  const int k = rt_lc_decode(desc, 3, &L);
+  if (k < 0) return RT_BAD_LAYOUT;
   if (V == 0) return 0;
-  ludwig_fed_kernel<<<rt_grid(V, block), block, 0, stream>>>(
-      q, dq, fed, V, rt_fed_params{c1, c2, c3, half_kappa});
+  const rt_fed_params p{c1, c2, c3, half_kappa};
+  RT_WITH_CLASS(k, ludwig_fed_kernel<RT_K><<<rt_grid(V, block), block, 0, stream>>>(
+                       q, dq, fed, V, p, L));
   RT_LAUNCH_RESULT();
 }
 

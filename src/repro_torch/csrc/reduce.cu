@@ -1,4 +1,4 @@
-// K2: per-component sum / max over all sites of a SoA field, in two passes.
+// K2: per-component sum / max over all sites of a field, in two passes.
 //
 // Replaces the TPU kernel core/reduce.py::_reduce (inner kern :106,
 // pallas_call :128).  That kernel initialises a (ncomp, vvl) accumulator at
@@ -6,12 +6,16 @@
 // well defined only because a Pallas grid runs in order on one core.  Here:
 //
 //   pass 1  rt_reduce_partials: block (b, c) folds sites [b*block, (b+1)*block)
-//           of component c and writes partials[b * ncomp + c];
+//           of component c, read at INDEX(c, s) in the field's layout
+//           (SoA, AoS or AoSoA; common.cuh), and writes partials[b * ncomp + c];
 //   pass 2  rt_reduce_fold: one block per component folds the partial rows
 //           in a fixed order (strided per thread, then a fixed tree).
 //
 // No atomics: a fixed plan gives the same bits on every run, and max is
-// exact whatever the order.  The fused kernels (fused_flat.cu,
+// exact whatever the order.  The fold does not depend on the layout: a
+// block folds the same sites in the same order in every layout, so the
+// sums are bitwise the SoA launch's.  Outside SoA (and AoSoA with SAL >= 32)
+// a warp's loads are strided: ncomp floats apart under AoS.  The fused kernels (fused_flat.cu,
 // wilson_normal.cu) write partial rows of the same shape and reuse pass 2.
 //
 // Bound on the H100: bytes.  Pass 1 reads each input element once (96 B a
@@ -36,11 +40,12 @@ __device__ __forceinline__ float rt_block_fold(float x, int op) {
   return acc;
 }
 
+template <int K>
 __global__ void reduce_partials_kernel(const float* __restrict__ x, float* __restrict__ partials,
-                                       int ncomp, long long nsites, int op) {
+                                       int ncomp, long long nsites, int op, rt_layout lx) {
   const int c = blockIdx.y;
   const long long s = blockIdx.x * (long long)blockDim.x + threadIdx.x;
-  const float v = s < nsites ? x[(long long)c * nsites + s] : rt_identity(op);
+  const float v = s < nsites ? x[rt_at<K>(lx, c, s, ncomp, nsites)] : rt_identity(op);
   const float acc = rt_block_fold(v, op);
   if (threadIdx.x == 0) partials[(long long)blockIdx.x * ncomp + c] = acc;
 }
@@ -57,12 +62,17 @@ __global__ void reduce_fold_kernel(const float* __restrict__ partials, float* __
 
 extern "C" {
 
-// x: (ncomp, nsites) SoA; partials: (ceil(nsites / block), ncomp).
+// x: ncomp x nsites field in layout lx (descriptor); partials:
+// (ceil(nsites / block), ncomp).
 int rt_reduce_partials(const float* x, float* partials, int ncomp, long long nsites, int op,
-                       int block, cudaStream_t stream) {
+                       int lx, int block, cudaStream_t stream) {
+  const rt_layout L = rt_make_layout(lx);
+  const int k = rt_launch_class(&L, 1);
+  if (k < 0) return RT_BAD_LAYOUT;
   if (nsites == 0 || ncomp == 0) return 0;
   const dim3 grid(rt_grid(nsites, block), ncomp);
-  reduce_partials_kernel<<<grid, block, 0, stream>>>(x, partials, ncomp, nsites, op);
+  RT_WITH_CLASS(k, reduce_partials_kernel<RT_K><<<grid, block, 0, stream>>>(x, partials, ncomp,
+                                                                          nsites, op, L));
   RT_LAUNCH_RESULT();
 }
 

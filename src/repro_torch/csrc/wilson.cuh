@@ -6,10 +6,13 @@
 //
 // in the DeGrand-Rossi basis, as kernels/wilson_dslash/ref.py::
 // dslash_site_chunk computes it: spin-project to a half spinor, multiply by
-// the SU(3) link, reconstruct.  Storage is SoA fp32 with split re/im:
-//   spinor  (24, V): component (spin*3 + color)*2 + reim
-//   gauge   (72, V): component ((mu*3 + a)*3 + b)*2 + reim
-// over a periodic (X, Y, Z, T) lattice, site = ((x*Y + y)*Z + z)*T + t.
+// the SU(3) link, reconstruct.  Storage is fp32 with split re/im:
+//   spinor  24 components: (spin*3 + color)*2 + reim
+//   gauge   72 components: ((mu*3 + a)*3 + b)*2 + reim
+// over a periodic (X, Y, Z, T) lattice, site = ((x*Y + y)*Z + z)*T + t,
+// each field in its own layout: component c of site s lies at INDEX(c, s)
+// (rt_at, common.cuh), in the layout class K of the field's template
+// argument (KP for psi, KU for u).
 //
 // The neighbours are found by periodic index arithmetic, so neither the
 // 192-component neighbour pack nor the backward-link copy of the TPU path
@@ -62,37 +65,49 @@ template <> struct rt_gamma<3> {  // t
 // The negated unit: +1 <-> -1, +i <-> -i.
 __device__ __forceinline__ int rt_neg_unit(int k) { return k ^ 1; }
 
-__device__ __forceinline__ rt_cplx rt_load_c(const float* __restrict__ f, int comp,
-                                             long long V, long long site) {
-  return {__ldg(f + (long long)(2 * comp) * V + site), __ldg(f + (long long)(2 * comp + 1) * V + site)};
+// Complex component `comp` (real part at 2 comp, imaginary at 2 comp + 1)
+// of site `site` of a field of ncomp fp32 components in layout L.
+template <int K>
+__device__ __forceinline__ rt_cplx rt_load_c(const float* __restrict__ f, const rt_layout& L,
+                                             int ncomp, int comp, long long V, long long site) {
+  return {__ldg(f + rt_at<K>(L, 2 * comp, site, ncomp, V)),
+          __ldg(f + rt_at<K>(L, 2 * comp + 1, site, ncomp, V))};
 }
 
+// A field as the hopping term reads it (through __ldg, the read-only path):
+// its data and its layout.
+struct rt_wfield {
+  const float* p;
+  rt_layout L;
+};
+
 // Upper two spin rows of (1 -/+ gamma_mu) psi(site): h[s][color].
-template <int MU, bool PLUS>
-__device__ __forceinline__ void rt_project(const float* __restrict__ psi, long long V,
-                                           long long site, rt_cplx (&h)[2][3]) {
+template <int MU, bool PLUS, int K>
+__device__ __forceinline__ void rt_project(const rt_wfield& psi, long long V, long long site,
+                                           rt_cplx (&h)[2][3]) {
   typedef rt_gamma<MU> G;
   const int a0 = PLUS ? rt_neg_unit(G::A0) : G::A0;
   const int a1 = PLUS ? rt_neg_unit(G::A1) : G::A1;
 #pragma unroll
   for (int c = 0; c < 3; ++c) {
-    h[0][c] = rt_cadd(rt_load_c(psi, 0 * 3 + c, V, site), rt_unit(rt_load_c(psi, G::J0 * 3 + c, V, site), a0));
-    h[1][c] = rt_cadd(rt_load_c(psi, 1 * 3 + c, V, site), rt_unit(rt_load_c(psi, G::J1 * 3 + c, V, site), a1));
+    h[0][c] = rt_cadd(rt_load_c<K>(psi.p, psi.L, 24, 0 * 3 + c, V, site),
+                      rt_unit(rt_load_c<K>(psi.p, psi.L, 24, G::J0 * 3 + c, V, site), a0));
+    h[1][c] = rt_cadd(rt_load_c<K>(psi.p, psi.L, 24, 1 * 3 + c, V, site),
+                      rt_unit(rt_load_c<K>(psi.p, psi.L, 24, G::J1 * 3 + c, V, site), a1));
   }
 }
 
 // out[s][a] = sum_b U[a][b] h[s][b]      (ADJ = false)
 // out[s][a] = sum_b conj(U[b][a]) h[s][b] (ADJ = true)
 // with U the link of direction MU at `site`.
-template <int MU, bool ADJ>
-__device__ __forceinline__ void rt_su3_mult(const float* __restrict__ u, long long V,
-                                            long long site, const rt_cplx (&h)[2][3],
-                                            rt_cplx (&out)[2][3]) {
+template <int MU, bool ADJ, int K>
+__device__ __forceinline__ void rt_su3_mult(const rt_wfield& u, long long V, long long site,
+                                            const rt_cplx (&h)[2][3], rt_cplx (&out)[2][3]) {
   rt_cplx m[3][3];
 #pragma unroll
   for (int a = 0; a < 3; ++a)
 #pragma unroll
-    for (int b = 0; b < 3; ++b) m[a][b] = rt_load_c(u, (MU * 3 + a) * 3 + b, V, site);
+    for (int b = 0; b < 3; ++b) m[a][b] = rt_load_c<K>(u.p, u.L, 72, (MU * 3 + a) * 3 + b, V, site);
 #pragma unroll
   for (int s = 0; s < 2; ++s)
 #pragma unroll
@@ -115,17 +130,16 @@ __device__ __forceinline__ void rt_su3_mult(const float* __restrict__ u, long lo
 }
 
 // acc += (1 - gamma_mu) U_mu(site) psi(fwd) + (1 + gamma_mu) U_mu^dag(bwd) psi(bwd).
-template <int MU>
-__device__ __forceinline__ void rt_hop_dir(const float* __restrict__ psi,
-                                           const float* __restrict__ u, long long V,
+template <int MU, int KP, int KU>
+__device__ __forceinline__ void rt_hop_dir(const rt_wfield& psi, const rt_wfield& u, long long V,
                                            long long site, long long fwd, long long bwd,
                                            rt_cplx (&acc)[4][3]) {
   typedef rt_gamma<MU> G;
   rt_cplx h[2][3], uh[2][3], hb[2][3], uhb[2][3];
-  rt_project<MU, false>(psi, V, fwd, h);
-  rt_su3_mult<MU, false>(u, V, site, h, uh);
-  rt_project<MU, true>(psi, V, bwd, hb);
-  rt_su3_mult<MU, true>(u, V, bwd, hb, uhb);
+  rt_project<MU, false, KP>(psi, V, fwd, h);
+  rt_su3_mult<MU, false, KU>(u, V, site, h, uh);
+  rt_project<MU, true, KP>(psi, V, bwd, hb);
+  rt_su3_mult<MU, true, KU>(u, V, bwd, hb, uhb);
 #pragma unroll
   for (int c = 0; c < 3; ++c) {
     acc[0][c] = rt_cadd(acc[0][c], rt_cadd(uh[0][c], uhb[0][c]));
@@ -140,10 +154,11 @@ struct rt_lattice {
   int X, Y, Z, T;
 };
 
-// D psi at `site` into d[24] (component order of the spinor field).
-__device__ __forceinline__ void rt_wilson_hop(const float* __restrict__ psi,
-                                              const float* __restrict__ u, rt_lattice L,
-                                              long long site, float (&d)[24]) {
+// D psi at `site` into d[24] (component order of the spinor field); psi in
+// layout class KP, u in KU.
+template <int KP, int KU>
+__device__ __forceinline__ void rt_wilson_hop(const rt_wfield& psi, const rt_wfield& u,
+                                              rt_lattice L, long long site, float (&d)[24]) {
   const long long V = (long long)L.X * L.Y * L.Z * L.T;
   const long long st = 1, sz = L.T, sy = (long long)L.Z * L.T, sx = (long long)L.Y * sy;
   const int t = (int)(site % L.T);
@@ -155,14 +170,14 @@ __device__ __forceinline__ void rt_wilson_hop(const float* __restrict__ psi,
   for (int s = 0; s < 4; ++s)
 #pragma unroll
     for (int c = 0; c < 3; ++c) acc[s][c] = {0.0f, 0.0f};
-  rt_hop_dir<0>(psi, u, V, site, site + (x == L.X - 1 ? -(L.X - 1) * sx : sx),
-                site - (x == 0 ? -(L.X - 1) * sx : sx), acc);
-  rt_hop_dir<1>(psi, u, V, site, site + (y == L.Y - 1 ? -(L.Y - 1) * sy : sy),
-                site - (y == 0 ? -(L.Y - 1) * sy : sy), acc);
-  rt_hop_dir<2>(psi, u, V, site, site + (z == L.Z - 1 ? -(L.Z - 1) * sz : sz),
-                site - (z == 0 ? -(L.Z - 1) * sz : sz), acc);
-  rt_hop_dir<3>(psi, u, V, site, site + (t == L.T - 1 ? -(L.T - 1) * st : st),
-                site - (t == 0 ? -(L.T - 1) * st : st), acc);
+  rt_hop_dir<0, KP, KU>(psi, u, V, site, site + (x == L.X - 1 ? -(L.X - 1) * sx : sx),
+                     site - (x == 0 ? -(L.X - 1) * sx : sx), acc);
+  rt_hop_dir<1, KP, KU>(psi, u, V, site, site + (y == L.Y - 1 ? -(L.Y - 1) * sy : sy),
+                     site - (y == 0 ? -(L.Y - 1) * sy : sy), acc);
+  rt_hop_dir<2, KP, KU>(psi, u, V, site, site + (z == L.Z - 1 ? -(L.Z - 1) * sz : sz),
+                     site - (z == 0 ? -(L.Z - 1) * sz : sz), acc);
+  rt_hop_dir<3, KP, KU>(psi, u, V, site, site + (t == L.T - 1 ? -(L.T - 1) * st : st),
+                     site - (t == 0 ? -(L.T - 1) * st : st), acc);
 #pragma unroll
   for (int s = 0; s < 4; ++s)
 #pragma unroll

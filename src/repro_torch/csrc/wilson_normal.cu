@@ -17,7 +17,16 @@
 //   rt_wilson_normal_ap  writes ap and the per-block partials of p . ap,
 //                        which reduce.cu's pass 2 folds (no atomics).
 //
-// No halo copy is made.  Bound on the H100: bytes.  Compulsory traffic is
+// No halo copy is made.  p, u and ap each come with a layout descriptor
+// (SoA, AoS or AoSoA) and are addressed through INDEX (rt_at, common.cuh);
+// the intermediate t is the kernels' own scratch and stays SoA.  The
+// reference's staged-nd view relayouts non-SoA inputs with XLA ops outside
+// its kernel (fuse.py:1518-1524); loading through INDEX in the kernel gives
+// the same bits without that relayout's two passes over device memory.
+// The ap kernel's block folds the same sites in the same order in every
+// layout, so ap and the pap partials are bitwise the SoA launch's.
+//
+// Bound on the H100: bytes.  Compulsory traffic is
 // p + u in, ap out: 480 B a site.  This design also writes and re-reads t
 // (a further 192 B a site) and reads u twice; removing that round trip is
 // the first thing a later PR does.
@@ -26,24 +35,29 @@
 
 __device__ __forceinline__ float rt_g5_sign(int c) { return c >= 12 ? -1.0f : 1.0f; }
 
+// t's layout: SoA, in either instantiation.
+__device__ __forceinline__ rt_layout rt_soa() { return rt_layout{RT_SOA, 1, -1}; }
+
+template <int K>
 __global__ void wilson_normal_t_kernel(const float* __restrict__ p, const float* __restrict__ u,
-                                       float* __restrict__ t, float kappa, rt_lattice L) {
+                                       float* __restrict__ t, float kappa, rt_lattice L,
+                                       rt_layout lp, rt_layout lu) {
   const long long V = (long long)L.X * L.Y * L.Z * L.T;
   const long long s = blockIdx.x * (long long)blockDim.x + threadIdx.x;
   if (s >= V) return;
   float d[24];
-  rt_wilson_hop(p, u, L, s, d);
+  rt_wilson_hop<K, K>(rt_wfield{p, lp}, rt_wfield{u, lu}, L, s, d);
 #pragma unroll
-  for (int c = 0; c < 24; ++c) {
-    const long long i = (long long)c * V + s;
-    t[i] = rt_g5_sign(c) * (p[i] - kappa * d[c]);
-  }
+  for (int c = 0; c < 24; ++c)
+    t[(long long)c * V + s] = rt_g5_sign(c) * (p[rt_at<K>(lp, c, s, 24, V)] - kappa * d[c]);
 }
 
+template <int K>
 __global__ void wilson_normal_ap_kernel(const float* __restrict__ p, const float* __restrict__ t,
                                         const float* __restrict__ u, float* __restrict__ ap,
                                         float* __restrict__ partials, float kappa,
-                                        rt_lattice L) {
+                                        rt_lattice L, rt_layout lp, rt_layout lu,
+                                        rt_layout lap) {
   const long long V = (long long)L.X * L.Y * L.Z * L.T;
   const long long s = blockIdx.x * (long long)blockDim.x + threadIdx.x;
   float prod[24];
@@ -51,13 +65,12 @@ __global__ void wilson_normal_ap_kernel(const float* __restrict__ p, const float
   for (int c = 0; c < 24; ++c) prod[c] = 0.0f;
   if (s < V) {
     float d[24];
-    rt_wilson_hop(t, u, L, s, d);
+    rt_wilson_hop<RT_K_SOA, K>(rt_wfield{t, rt_soa()}, rt_wfield{u, lu}, L, s, d);
 #pragma unroll
     for (int c = 0; c < 24; ++c) {
-      const long long i = (long long)c * V + s;
-      const float a = rt_g5_sign(c) * (t[i] - kappa * d[c]);
-      ap[i] = a;
-      prod[c] = p[i] * a;
+      const float a = rt_g5_sign(c) * (t[(long long)c * V + s] - kappa * d[c]);
+      ap[rt_at<K>(lap, c, s, 24, V)] = a;
+      prod[c] = p[rt_at<K>(lp, c, s, 24, V)] * a;
     }
   }
   rt_block_partials<24>(prod, RT_OP_SUM, partials);
@@ -65,24 +78,31 @@ __global__ void wilson_normal_ap_kernel(const float* __restrict__ p, const float
 
 extern "C" {
 
-// p, t: (24, V) SoA; u: (72, V) SoA.
+// p: 24 x V, u: 72 x V in the layouts of descriptors lp, lu; t: (24, V) SoA.
 int rt_wilson_normal_t(const float* p, const float* u, float* t, float kappa, int X, int Y,
-                       int Z, int T, int block, cudaStream_t stream) {
+                       int Z, int T, int lp, int lu, int block, cudaStream_t stream) {
   const long long V = (long long)X * Y * Z * T;
+  const rt_layout L[2] = {rt_make_layout(lp), rt_make_layout(lu)};
+  const int k = rt_launch_class(L, 2);
+  if (k < 0) return RT_BAD_LAYOUT;
   if (V == 0) return 0;
-  wilson_normal_t_kernel<<<rt_grid(V, block), block, 0, stream>>>(p, u, t, kappa,
-                                                                   rt_lattice{X, Y, Z, T});
+  RT_WITH_CLASS(k, wilson_normal_t_kernel<RT_K><<<rt_grid(V, block), block, 0, stream>>>(
+                       p, u, t, kappa, rt_lattice{X, Y, Z, T}, L[0], L[1]));
   RT_LAUNCH_RESULT();
 }
 
-// p, t, ap: (24, V) SoA; u: (72, V) SoA; partials: (ceil(V / block), 24).
+// p, ap: 24 x V, u: 72 x V in the layouts of descriptors lp, lu, lap;
+// t: (24, V) SoA; partials: (ceil(V / block), 24).
 int rt_wilson_normal_ap(const float* p, const float* t, const float* u, float* ap,
-                        float* partials, float kappa, int X, int Y, int Z, int T, int block,
-                        cudaStream_t stream) {
+                        float* partials, float kappa, int X, int Y, int Z, int T, int lp, int lu,
+                        int lap, int block, cudaStream_t stream) {
   const long long V = (long long)X * Y * Z * T;
+  const rt_layout L[3] = {rt_make_layout(lp), rt_make_layout(lu), rt_make_layout(lap)};
+  const int k = rt_launch_class(L, 3);
+  if (k < 0) return RT_BAD_LAYOUT;
   if (V == 0) return 0;
-  wilson_normal_ap_kernel<<<rt_grid(V, block), block, 0, stream>>>(
-      p, t, u, ap, partials, kappa, rt_lattice{X, Y, Z, T});
+  RT_WITH_CLASS(k, wilson_normal_ap_kernel<RT_K><<<rt_grid(V, block), block, 0, stream>>>(
+                       p, t, u, ap, partials, kappa, rt_lattice{X, Y, Z, T}, L[0], L[1], L[2]));
   RT_LAUNCH_RESULT();
 }
 

@@ -2,9 +2,13 @@
 plain PyTorch version.
 
 K7 replaces ``kernels/lb_collision/kernel.py::collide_pallas`` of the JAX
-package: one thread per site over SoA fp32 fields, bound by device-memory
-bytes (164 compulsory bytes a site).  On a CPU tensor the wrapper returns
-the plain version; on a CUDA tensor it launches the kernel or raises.
+package: one thread per site over fp32 fields, dist, force and out each in
+its own layout (SoA, AoS or AoSoA, addressed through INDEX inside the
+kernel; the TPU kernel takes force's layout apart from dist's), bound by
+device-memory bytes (164 compulsory bytes a site).  The wrapper takes
+physical tensors and ``layouts`` ("dist", "force", "out"; an input not
+named is SoA, out takes dist's layout).  On a CPU tensor it returns the
+plain version; on a CUDA tensor it launches the kernel or raises.
 """
 
 from __future__ import annotations
@@ -13,7 +17,8 @@ from typing import Tuple
 
 import torch
 
-from repro_torch._cuda import Kernel, check_tensor
+from repro_torch._cuda import Kernel, check_field
+from repro_torch.core.layout import resolve_layouts
 from repro_torch.maths import d3q19
 from . import ref
 
@@ -32,20 +37,27 @@ def lb_params(tau: float) -> Tuple[float, float, float, float]:
     return omega, pref * w[0], pref * w[1], pref * w[7]
 
 
-def collide_plain(dist: torch.Tensor, force: torch.Tensor, tau: float) -> torch.Tensor:
-    """(19, V) dist, (3, V) force -> (19, V) post-collision."""
-    return ref.collide_chunk(dist, force, tau)
+_IN, _OUT = ("dist", "force"), ("out",)
+
+
+def collide_plain(dist: torch.Tensor, force: torch.Tensor, tau: float,
+                  layouts=None) -> torch.Tensor:
+    """dist (19 components), force (3) -> post-collision dist (19)."""
+    lay = resolve_layouts(layouts, _IN, _OUT)
+    return lay["out"].pack(ref.collide_chunk(lay["dist"].unpack(dist),
+                                             lay["force"].unpack(force), tau))
 
 
 def collide_cuda(dist: torch.Tensor, force: torch.Tensor, tau: float,
-                 vvl: int = 128) -> torch.Tensor:
-    """K7: BGK collision + Guo forcing of SoA (19, V) dist and (3, V) force."""
+                 vvl: int = 128, *, layouts=None) -> torch.Tensor:
+    """K7: BGK collision + Guo forcing of dist (19 components) and force (3)."""
     if dist.device.type == "cpu":
-        return collide_plain(dist, force, tau)
-    V = dist.shape[-1]
-    check_tensor("dist", dist, (19, V), dist.device)
-    check_tensor("force", force, (3, V), dist.device)
-    out = torch.empty_like(dist)
+        return collide_plain(dist, force, tau, layouts)
+    lay = resolve_layouts(layouts, _IN, _OUT)
+    _, V = lay["dist"].logical_shape(dist.shape)
+    ld = check_field("dist", dist, lay["dist"], 19, V, dist.device)
+    lf = check_field("force", force, lay["force"], 3, V, dist.device)
+    out = torch.empty(lay["out"].physical_shape(19, V), dtype=dist.dtype, device=dist.device)
     COLLIDE.launch(dist.device, dist.data_ptr(), force.data_ptr(), out.data_ptr(), V,
-                   *lb_params(float(tau)), vvl)
+                   *lb_params(float(tau)), ld, lf, lay["out"].descriptor(), vvl)
     return out

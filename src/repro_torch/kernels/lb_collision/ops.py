@@ -25,11 +25,15 @@ def collide(dist: Field, force: Field, *, tau: float, config: TargetConfig) -> F
         return dist.with_canonical(out)
     require_cuda("dist", dist.data)
     require_cuda("force", force.data)
-    return dist.with_data(kernel.collide_cuda(dist.data, force.data, tau, vvl=plan.vvl))
+    return dist.with_data(kernel.collide_cuda(
+        dist.data, force.data, tau, vvl=plan.vvl,
+        layouts={"dist": dist.layout, "force": force.layout, "out": dist.layout}))
 
 
-def _collide_cuda(ins, params, vvl):
-    return {"dist": kernel.collide_cuda(ins["dist"], ins["force"], params["tau"], vvl)}
+def _collide_cuda(ins, params, vvl, out_layouts):
+    (d, ld), (f, lf) = ins["dist"], ins["force"]
+    return {"dist": kernel.collide_cuda(d, f, params["tau"], vvl, layouts={
+        "dist": ld, "force": lf, "out": out_layouts["dist"]})}
 
 
 register_cuda_body(_collide_body, _collide_cuda)

@@ -7,6 +7,12 @@ JAX package: a pull gather ``out_i(r) = f_i(r - c_i)`` with the periodic
 wrap inside the kernel, so the halo'd copy the TPU path stages is never
 built.  It moves data only and equals its plain version bitwise.
 
+K8 and K5L take every layout (SoA, AoS, AoSoA): each tensor comes with its
+layout, the kernels address it through INDEX, and the wrappers take
+physical tensors and ``layouts`` (names as in each signature; an input not
+named is SoA, an output takes the first input's layout).  K9 takes SoA
+only; the planner refuses a tiled plan on any other layout.
+
 K5L replaces ``core/fuse.py::LaunchGraph._build_nd`` for the
 ``ludwig_lb_step`` graph (moments, collision, streaming -> dist2 and u) and,
 without u, for ``lb_collide_propagate``.  It streams by push: each site's
@@ -31,8 +37,9 @@ from typing import Optional, Sequence, Tuple
 
 import torch
 
-from repro_torch._cuda import Kernel, check_tensor, smem_per_block_optin
+from repro_torch._cuda import Kernel, check_field, check_tensor, smem_per_block_optin
 from repro_torch.core.fuse import tiled_plain
+from repro_torch.core.layout import resolve_layouts
 from repro_torch.core.plan import tile_extents
 from repro_torch.kernels.lb_collision.kernel import collide_plain, lb_params
 from repro_torch.kernels.lb_collision.ref import moments
@@ -55,20 +62,30 @@ def _check_3d(lattice: Sequence[int]) -> Tuple[int, int, int]:
     return lat
 
 
-def propagate_plain(dist: torch.Tensor, lattice) -> torch.Tensor:
-    """(19, V) SoA -> (19, V) streamed, periodic."""
-    lat = _check_3d(lattice)
+def _propagate_canonical(dist: torch.Tensor, lat) -> torch.Tensor:
     return ref.propagate_ref(dist.reshape((19,) + lat)).reshape(19, -1)
 
 
-def propagate_cuda(dist: torch.Tensor, lattice, vvl: int = 128) -> torch.Tensor:
-    """K8: periodic D3Q19 streaming of SoA (19, V) distributions."""
-    if dist.device.type == "cpu":
-        return propagate_plain(dist, lattice)
+def propagate_plain(dist: torch.Tensor, lattice, layouts=None) -> torch.Tensor:
+    """dist (19 components) -> streamed, periodic; ``layouts`` names
+    "dist", "out"."""
     lat = _check_3d(lattice)
-    check_tensor("dist", dist, (19, math.prod(lat)), dist.device)
-    out = torch.empty_like(dist)
-    PROPAGATE.launch(dist.device, dist.data_ptr(), out.data_ptr(), *lat, vvl)
+    lay = resolve_layouts(layouts, ("dist",), ("out",))
+    return lay["out"].pack(_propagate_canonical(lay["dist"].unpack(dist), lat))
+
+
+def propagate_cuda(dist: torch.Tensor, lattice, vvl: int = 128, *,
+                   layouts=None) -> torch.Tensor:
+    """K8: periodic D3Q19 streaming of 19-component distributions."""
+    if dist.device.type == "cpu":
+        return propagate_plain(dist, lattice, layouts)
+    lat = _check_3d(lattice)
+    lay = resolve_layouts(layouts, ("dist",), ("out",))
+    V = math.prod(lat)
+    ld = check_field("dist", dist, lay["dist"], 19, V, dist.device)
+    out = torch.empty(lay["out"].physical_shape(19, V), dtype=dist.dtype, device=dist.device)
+    PROPAGATE.launch(dist.device, dist.data_ptr(), out.data_ptr(), *lat, ld,
+                     lay["out"].descriptor(), vvl)
     return out
 
 
@@ -79,29 +96,41 @@ def moments_velocity(dist: torch.Tensor, force: torch.Tensor) -> torch.Tensor:
     return u + 0.5 * force / rho[None, :]
 
 
+_STEP_IN, _STEP_OUT = ("dist", "force"), ("dist2", "u")
+
+
 def lb_step_plain(dist: torch.Tensor, force: torch.Tensor, tau: float, lattice,
-                  with_u: bool = True) -> Tuple[torch.Tensor, Optional[torch.Tensor]]:
-    """(dist2 = propagate(collide(dist, force)), u or None)."""
-    dist2 = propagate_plain(collide_plain(dist, force, tau), lattice)
-    return dist2, (moments_velocity(dist, force) if with_u else None)
+                  with_u: bool = True, layouts=None
+                  ) -> Tuple[torch.Tensor, Optional[torch.Tensor]]:
+    """(dist2 = propagate(collide(dist, force)), u or None); ``layouts``
+    names "dist", "force", "dist2", "u"."""
+    lat = _check_3d(lattice)
+    lay = resolve_layouts(layouts, _STEP_IN, _STEP_OUT)
+    d, f = lay["dist"].unpack(dist), lay["force"].unpack(force)
+    dist2 = lay["dist2"].pack(_propagate_canonical(collide_plain(d, f, tau), lat))
+    return dist2, (lay["u"].pack(moments_velocity(d, f)) if with_u else None)
 
 
 def lb_step_cuda(dist: torch.Tensor, force: torch.Tensor, tau: float, lattice,
-                 vvl: int = 128, with_u: bool = True
+                 vvl: int = 128, with_u: bool = True, *, layouts=None
                  ) -> Tuple[torch.Tensor, Optional[torch.Tensor]]:
     """K5L: one launch computing the streamed post-collision distributions
-    and (with_u) the half-force velocity of SoA (19, V) dist and (3, V)
-    force."""
+    and (with_u) the half-force velocity of dist (19 components) and force
+    (3); ``layouts`` names "dist", "force", "dist2", "u"."""
     if dist.device.type == "cpu":
-        return lb_step_plain(dist, force, tau, lattice, with_u)
+        return lb_step_plain(dist, force, tau, lattice, with_u, layouts)
     lat = _check_3d(lattice)
     V = math.prod(lat)
-    check_tensor("dist", dist, (19, V), dist.device)
-    check_tensor("force", force, (3, V), dist.device)
-    dist2 = torch.empty_like(dist)
-    u = torch.empty_like(force) if with_u else None
+    lay = resolve_layouts(layouts, _STEP_IN, _STEP_OUT)
+    ld = check_field("dist", dist, lay["dist"], 19, V, dist.device)
+    lf = check_field("force", force, lay["force"], 3, V, dist.device)
+    dist2 = torch.empty(lay["dist2"].physical_shape(19, V), dtype=dist.dtype,
+                        device=dist.device)
+    u = (torch.empty(lay["u"].physical_shape(3, V), dtype=dist.dtype, device=dist.device)
+         if with_u else None)
     LB_STEP.launch(dist.device, dist.data_ptr(), force.data_ptr(), dist2.data_ptr(),
-                   u.data_ptr() if with_u else None, *lat, *lb_params(float(tau)), vvl)
+                   u.data_ptr() if with_u else None, *lat, *lb_params(float(tau)), ld, lf,
+                   lay["dist2"].descriptor(), lay["u"].descriptor(), vvl)
     return dist2, u
 
 

@@ -30,7 +30,8 @@ def propagate(dist: Field, *, config: TargetConfig) -> Field:
         out = ref.propagate_ref(dist.canonical_nd())
         return dist.with_canonical(out.reshape(dist.ncomp, dist.nsites))
     require_cuda("dist", dist.data)
-    return dist.with_data(kernel.propagate_cuda(dist.data, dist.lattice, vvl=plan.vvl))
+    return dist.with_data(kernel.propagate_cuda(
+        dist.data, dist.lattice, vvl=plan.vvl, layouts={"dist": dist.layout, "out": dist.layout}))
 
 
 def propagate_body(v, gather):
@@ -68,16 +69,18 @@ def collide_propagate(dist: Field, force: Field, *, tau: float,
     return dist.with_data(out.data)
 
 
-def _collide_propagate_cuda(graph, ins, scalars, *, lattice, vvl):
+def _collide_propagate_cuda(graph, ins, scalars, *, lattice, vvl, out_layouts):
     tau = graph.stage_params()[0]["tau"]
-    dist2, _ = kernel.lb_step_cuda(ins["dist"], ins["force"], tau, lattice, vvl,
-                                   with_u=False)
+    (d, ld), (f, lf) = ins["dist"], ins["force"]
+    dist2, _ = kernel.lb_step_cuda(d, f, tau, lattice, vvl, with_u=False, layouts={
+        "dist": ld, "force": lf, **out_layouts})
     return {"dist2": dist2}
 
 
-def _collide_propagate_tiled_cuda(graph, ins, scalars, *, lattice, plan):
+def _collide_propagate_tiled_cuda(graph, ins, scalars, *, lattice, plan, out_layouts):
+    # a tiled plan takes SoA fields only (core.plan refuses the others)
     tau = graph.stage_params()[0]["tau"]
-    dist2, _ = kernel.lb_step_tiled_cuda(ins["dist"], ins["force"], tau, lattice,
+    dist2, _ = kernel.lb_step_tiled_cuda(ins["dist"][0], ins["force"][0], tau, lattice,
                                          (plan.bx, plan.by, plan.bz), with_u=False)
     return {"dist2": dist2}
 

@@ -4,14 +4,17 @@
 K4 replaces ``kernels/wilson_dslash/kernel.py::dslash_site_pallas`` of the
 JAX package together with its gather prologue; K5 replaces
 ``core/fuse.py::LaunchGraph._build_nd`` for the ``wilson_normal`` graph.
-Both kernels run one thread per site over SoA fp32 fields on a periodic
-4-D lattice and share one device function for the hopping term
-(``csrc/wilson.cuh``).  Both are bound by device-memory bytes (480
+Both kernels run one thread per site over fp32 fields on a periodic 4-D
+lattice, each field in its own layout (SoA, AoS or AoSoA, addressed
+through INDEX inside the kernel), and share one device function for the
+hopping term (``csrc/wilson.cuh``).  Each wrapper takes physical tensors
+and ``layouts`` (names as in its signature; an input not named is SoA, an
+output takes the first input's layout) and returns physical tensors.  Both are bound by device-memory bytes (480
 compulsory bytes a site); see the sources for what each design leaves on
 the table.
 
-On a CPU tensor each wrapper returns its plain version; on a CUDA tensor it
-launches its kernel or raises.
+On a CPU tensor each wrapper returns its plain version (unpack, torch ops,
+pack); on a CUDA tensor it launches its kernel or raises.
 """
 
 from __future__ import annotations
@@ -21,7 +24,8 @@ from typing import Sequence, Tuple
 
 import torch
 
-from repro_torch._cuda import Kernel, check_tensor
+from repro_torch._cuda import Kernel, check_field
+from repro_torch.core.layout import resolve_layouts
 from repro_torch.core.reduce import fold_partials
 from . import ref
 
@@ -41,24 +45,35 @@ def _check_4d(lattice: Sequence[int]) -> Tuple[int, int, int, int]:
     return lat
 
 
-def dslash_plain(psi: torch.Tensor, u: torch.Tensor, lattice) -> torch.Tensor:
-    """(24, V) psi, (72, V) u -> (24, V) D psi, periodic."""
+_DSLASH_IN, _DSLASH_OUT = ("psi", "u"), ("out",)
+_NORMAL_IN, _NORMAL_OUT = ("p", "u"), ("ap",)
+
+
+def _dslash_canonical(psi: torch.Tensor, u: torch.Tensor, lat) -> torch.Tensor:
+    return ref.dslash_ref(psi.reshape((24,) + lat), u.reshape((72,) + lat)).reshape(24, -1)
+
+
+def dslash_plain(psi: torch.Tensor, u: torch.Tensor, lattice, layouts=None) -> torch.Tensor:
+    """psi (24 components), u (72) -> D psi (24), periodic."""
     lat = _check_4d(lattice)
-    out = ref.dslash_ref(psi.reshape((24,) + lat), u.reshape((72,) + lat))
-    return out.reshape(24, -1)
+    lay = resolve_layouts(layouts, _DSLASH_IN, _DSLASH_OUT)
+    return lay["out"].pack(_dslash_canonical(lay["psi"].unpack(psi), lay["u"].unpack(u), lat))
 
 
-def dslash_cuda(psi: torch.Tensor, u: torch.Tensor, lattice, vvl: int = 128) -> torch.Tensor:
-    """K4: D psi for SoA (24, V) psi and (72, V) u on a periodic lattice."""
+def dslash_cuda(psi: torch.Tensor, u: torch.Tensor, lattice, vvl: int = 128, *,
+                layouts=None) -> torch.Tensor:
+    """K4: D psi of a 24-component psi and a 72-component u on a periodic
+    lattice; ``layouts`` names "psi", "u", "out"."""
     if psi.device.type == "cpu":
-        return dslash_plain(psi, u, lattice)
+        return dslash_plain(psi, u, lattice, layouts)
     lat = _check_4d(lattice)
     V = math.prod(lat)
-    check_tensor("psi", psi, (24, V), psi.device)
-    check_tensor("u", u, (72, V), psi.device)
-    out = torch.empty_like(psi)
+    lay = resolve_layouts(layouts, _DSLASH_IN, _DSLASH_OUT)
+    lpsi = check_field("psi", psi, lay["psi"], 24, V, psi.device)
+    lu = check_field("u", u, lay["u"], 72, V, psi.device)
+    out = torch.empty(lay["out"].physical_shape(24, V), dtype=psi.dtype, device=psi.device)
     DSLASH.launch(psi.device, psi.data_ptr(), u.data_ptr(), out.data_ptr(),
-                  *lat, vvl)
+                  *lat, lpsi, lu, lay["out"].descriptor(), vvl)
     return out
 
 
@@ -68,29 +83,35 @@ def _m_g5(psi: torch.Tensor, d: torch.Tensor, kappa: float) -> torch.Tensor:
 
 
 def wilson_normal_plain(p: torch.Tensor, u: torch.Tensor, kappa: float,
-                        lattice) -> Tuple[torch.Tensor, torch.Tensor]:
-    """t = g5(p - kappa D p), ap = g5(t - kappa D t), pap = sum_sites p*ap."""
-    t = _m_g5(p, dslash_plain(p, u, lattice), kappa)
-    ap = _m_g5(t, dslash_plain(t, u, lattice), kappa)
-    return ap, (p * ap).sum(dim=1)
+                        lattice, layouts=None) -> Tuple[torch.Tensor, torch.Tensor]:
+    """t = g5(p - kappa D p), ap = g5(t - kappa D t), pap = sum_sites p*ap;
+    ``layouts`` names "p", "u", "ap"."""
+    lat = _check_4d(lattice)
+    lay = resolve_layouts(layouts, _NORMAL_IN, _NORMAL_OUT)
+    p, u = lay["p"].unpack(p), lay["u"].unpack(u)
+    t = _m_g5(p, _dslash_canonical(p, u, lat), kappa)
+    ap = _m_g5(t, _dslash_canonical(t, u, lat), kappa)
+    return lay["ap"].pack(ap), (p * ap).sum(dim=1)
 
 
 def wilson_normal_cuda(p: torch.Tensor, u: torch.Tensor, kappa: float, lattice,
-                       vvl: int = 128) -> Tuple[torch.Tensor, torch.Tensor]:
-    """K5: (ap (24, V), pap (24,)) = (M^dag M p, per-component p . ap), in
-    two launches and the fold of the pap partials."""
+                       vvl: int = 128, *, layouts=None) -> Tuple[torch.Tensor, torch.Tensor]:
+    """K5: (ap, pap (24,)) = (M^dag M p, per-component p . ap), in two
+    launches and the fold of the pap partials; ``layouts`` names "p", "u",
+    "ap" (the intermediate t is SoA)."""
     if p.device.type == "cpu":
-        return wilson_normal_plain(p, u, kappa, lattice)
+        return wilson_normal_plain(p, u, kappa, lattice, layouts)
     lat = _check_4d(lattice)
     V = math.prod(lat)
-    check_tensor("p", p, (24, V), p.device)
-    check_tensor("u", u, (72, V), p.device)
-    t = torch.empty_like(p)
-    ap = torch.empty_like(p)
+    lay = resolve_layouts(layouts, _NORMAL_IN, _NORMAL_OUT)
+    lp = check_field("p", p, lay["p"], 24, V, p.device)
+    lu = check_field("u", u, lay["u"], 72, V, p.device)
+    t = torch.empty((24, V), dtype=p.dtype, device=p.device)
+    ap = torch.empty(lay["ap"].physical_shape(24, V), dtype=p.dtype, device=p.device)
     partials = torch.empty((-(-V // vvl), 24), dtype=p.dtype, device=p.device)
     WILSON_NORMAL_T.launch(p.device, p.data_ptr(), u.data_ptr(), t.data_ptr(),
-                         float(kappa), *lat, vvl)
+                           float(kappa), *lat, lp, lu, vvl)
     WILSON_NORMAL_AP.launch(p.device, p.data_ptr(), t.data_ptr(), u.data_ptr(),
                             ap.data_ptr(), partials.data_ptr(), float(kappa),
-                            *lat, vvl)
+                            *lat, lp, lu, lay["ap"].descriptor(), vvl)
     return ap, fold_partials(partials, "sum")

@@ -49,8 +49,9 @@ def dslash(psi: Field, u: Field, *, config: TargetConfig) -> Field:
         return psi.with_canonical(out.reshape(psi.ncomp, psi.nsites))
     require_cuda("psi", psi.data)
     require_cuda("u", u.data)
-    return psi.with_data(kernel.dslash_cuda(psi.data, u.data, psi.lattice,
-                                            vvl=plan.vvl))
+    return psi.with_data(kernel.dslash_cuda(
+        psi.data, u.data, psi.lattice, vvl=plan.vvl,
+        layouts={"psi": psi.layout, "u": u.layout, "out": psi.layout}))
 
 
 def wilson_matvec(psi: Field, u: Field, *, kappa: float, config: TargetConfig) -> Field:

@@ -19,7 +19,7 @@ from repro_torch import _cuda  # noqa: E402
 from repro_torch.apps.milc import cg as PCG  # noqa: E402
 from repro_torch.core import AOS, aosoa  # noqa: E402
 from repro_torch.core import Field as PField  # noqa: E402
-from repro_torch.core import LaunchGraph, TargetConfig, launch  # noqa: E402
+from repro_torch.core import LaunchGraph, LoweringPlan, TargetConfig, launch  # noqa: E402
 from repro_torch.core import fuse, reduce, target  # noqa: E402
 from repro_torch.core import target_max as p_max  # noqa: E402
 from repro_torch.core import target_sum as p_sum  # noqa: E402
@@ -162,8 +162,22 @@ def test_cuda_engine_refuses_unregistered_bodies_and_layouts(rng):
         g.launch({"x": px}, config=CUDA_ON_CPU)
     for lay in (AOS, aosoa(8)):
         f = PField.from_numpy("f", px.to_numpy(), LAT, lay)
-        with pytest.raises(ValueError, match="SoA"):
+        # the layout is accepted: what refuses is the CPU tensor
+        with pytest.raises(ValueError, match="CUDA device"):
             PCG.g5(f, CUDA_ON_CPU)
+    # the reference's rules refuse before any launch: SAL must divide vvl,
+    # and a tiled plan takes SoA fields only
+    f = PField.from_numpy("f", px.to_numpy(), LAT, aosoa(64))
+    with pytest.raises(ValueError, match="multiple of AoSoA sal=64"):
+        PCG.g5(f, TargetConfig("cuda", device="cpu", plan_policy=LoweringPlan("cuda", 32)))
+    from repro_torch.kernels.lb_propagation.ops import collide_propagate
+
+    lat = (4, 4, 4)
+    dist, force = (PField.from_numpy(n, rng.normal(size=(c,) + lat).astype(np.float32), lat,
+                                     AOS) for n, c in (("dist", 19), ("force", 3)))
+    with pytest.raises(ValueError, match="ROADMAP"):
+        collide_propagate(dist, force, tau=0.8,
+                          config=TargetConfig("cuda", device="cpu", smem_bytes=6512))
     with pytest.raises(ValueError, match="produces"):
         PCG.cg_update_graph(24).launch(
             {"x": px, "r": px, "p": px, "ap": px}, scalars={"alpha": 1.0, "neg_alpha": -1.0},

@@ -14,9 +14,11 @@ torch = pytest.importorskip("torch")
 import numpy as np  # noqa: E402
 
 from repro_torch.apps.ludwig import LudwigConfig, init_state, step  # noqa: E402
+from repro_torch.apps.ludwig import driver as LD  # noqa: E402
 from repro_torch.apps.ludwig import kernel as LK  # noqa: E402
 from repro_torch.apps.milc import MilcConfig, fields, init_problem, residual_check, solve  # noqa: E402
-from repro_torch.core import TargetConfig, fuse, reduce, target  # noqa: E402
+from repro_torch.apps.milc import cg as CG  # noqa: E402
+from repro_torch.core import SOA, Field, TargetConfig, fuse, parse_layout, reduce, target  # noqa: E402
 from repro_torch.kernels.flash_attention import flash_attention  # noqa: E402
 from repro_torch.kernels.flash_attention import kernel as KF  # noqa: E402
 from repro_torch.kernels.lb_collision import kernel as K7  # noqa: E402
@@ -24,6 +26,7 @@ from repro_torch.kernels.lb_propagation import kernel as K8  # noqa: E402
 from repro_torch.kernels.rwkv6_scan import kernel as K10  # noqa: E402
 from repro_torch.kernels.rwkv6_scan import ref as wkv_ref  # noqa: E402
 from repro_torch.kernels.rwkv6_scan import rwkv6  # noqa: E402
+from repro_torch.kernels.wilson_dslash import dslash  # noqa: E402
 from repro_torch.kernels.wilson_dslash import kernel as K  # noqa: E402
 
 FIELD_RTOL = 1e-5  # max|kernel - plain| <= FIELD_RTOL * max|plain|
@@ -406,3 +409,243 @@ def test_starcoder2_smoke_prefill_on_card(card, rng, monkeypatch):
                                    atol=1e-5 * plain.abs().max().item())
     out = generate(params, cfg, tokens[:, :8], steps=8, s_max=32)
     assert out.shape == (2, 16) and int(out.max()) < cfg.padded_vocab and int(out.min()) >= 0
+
+
+# -- layouts: every lattice kernel in AoS and AoSoA against its SoA launch ----------
+#
+# A thread owns the same site (or element) in every layout and only the
+# address changes, so every field output and every sum must equal the SoA
+# launch's bitwise; against the plain version the usual tolerances hold.
+# aosoa6 runs the kernels' division path (a SAL that is not a power of two).
+
+CARD_LAYOUTS = ["aos", "aosoa4", "aosoa8", "aosoa32", "aosoa128", "aosoa6"]
+MILC_LAT, LB_LAT = (4, 4, 6, 8), (8, 6, 8)   # 768 and 384 sites: every SAL above divides
+
+
+def _vvl(lay):
+    """The smallest block that is a whole number of warps and short arrays."""
+    return 32 * lay.sal // int(np.gcd(32, lay.sal)) if lay.kind.value == "aosoa" else 32
+
+
+def _same(got_phys, lay, want_soa, name):
+    got = lay.unpack(got_phys)
+    assert torch.equal(got, want_soa), f"{name} in {lay.name}: max err {(got - want_soa).abs().max()}"
+
+
+def _milc_inputs(rng, card):
+    V = int(np.prod(MILC_LAT))
+    x, y, p, ap = (_dev(rng, (24, V), card) for _ in range(4))
+    u = torch.from_numpy(fields.random_su3_gauge(MILC_LAT, seed=2).reshape(72, -1)).to(card)
+    return V, x, y, p, ap, u
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("spec", CARD_LAYOUTS)
+def test_milc_kernels_in_each_layout_equal_soa(card, spec, rng):
+    lay = parse_layout(spec)
+    vvl = _vvl(lay)
+    V, x, y, p, ap, u = _milc_inputs(rng, card)
+    a = torch.tensor(0.3, device=card)
+    def L(*names):
+        return {n: lay for n in names}
+
+    xl, yl, pl, apl, ul = (lay.pack(t) for t in (x, y, p, ap, u))
+    # K1
+    _same(target.site_g5(xl, 12, vvl, layouts=L("x")), lay, target.site_g5(x, 12, vvl), "g5")
+    assert torch.equal(target.site_g5(xl, 12, vvl, layouts=L("x")),
+                       target.g5_plain(xl, 12, L("x")))
+    _same(target.site_mul(xl, yl, vvl, layouts=L("x", "y")), lay,
+          target.site_mul(x, y, vvl), "mul")
+    _same(target.site_axpy(0.5, xl, yl, vvl, layouts=L("x", "y")), lay,
+          target.site_axpy(0.5, x, y, vvl), "axpy")
+    # K2 and its fold
+    for op in ("sum", "max"):
+        assert torch.equal(reduce.reduce_sites(xl, op, vvl, layouts=L("x")),
+                           reduce.reduce_sites(x, op, vvl))
+    _close_sum(reduce.reduce_sites(xl, "sum", vvl, layouts=L("x")), x.sum(dim=1), x)
+    # K3
+    Lcg = L("x", "r", "p", "ap")
+    got = fuse.cg_update(xl, yl, pl, apl, a, -a, vvl, layouts=Lcg)
+    want = fuse.cg_update(x, y, p, ap, a, -a, vvl)
+    _same(got[0], lay, want[0], "cg_update x_new")
+    _same(got[1], lay, want[1], "cg_update r_new")
+    assert torch.equal(got[2], want[2])
+    plain = fuse.cg_update_plain(xl, yl, pl, apl, a, -a, Lcg)
+    _close_field(lay.unpack(got[1]), lay.unpack(plain[1]))
+    _same(fuse.cg_xpay(xl, yl, a, vvl, layouts=L("x", "y")), lay, fuse.cg_xpay(x, y, a, vvl),
+          "cg_xpay")
+    # K4, K5
+    _same(K.dslash_cuda(xl, ul, MILC_LAT, vvl, layouts=L("psi", "u")), lay,
+          K.dslash_cuda(x, u, MILC_LAT, vvl), "dslash")
+    _close_field(lay.unpack(K.dslash_cuda(xl, ul, MILC_LAT, vvl, layouts=L("psi", "u"))),
+                 lay.unpack(K.dslash_plain(xl, ul, MILC_LAT, L("psi", "u"))))
+    ap_l, pap_l = K.wilson_normal_cuda(xl, ul, 0.12, MILC_LAT, vvl, layouts=L("p", "u"))
+    ap_s, pap_s = K.wilson_normal_cuda(x, u, 0.12, MILC_LAT, vvl)
+    _same(ap_l, lay, ap_s, "wilson_normal ap")
+    assert torch.equal(pap_l, pap_s)
+
+
+def _lb_inputs(rng, card, lat=LB_LAT):
+    V = int(np.prod(lat))
+    return (V, _dev(rng, (19, V), card, 0.1, 1.0), _dev(rng, (3, V), card, 0.01),
+            *(_dev(rng, (5, V), card, 0.05) for _ in range(4)),
+            _dev(rng, (15, V), card, 0.02), _dev(rng, (9, V), card, 0.01))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("spec", CARD_LAYOUTS)
+def test_ludwig_kernels_in_each_layout_equal_soa(card, spec, rng):
+    lay = parse_layout(spec)
+    vvl = _vvl(lay)
+    V, f, g, q, lapq, h, adv, dq, w = _lb_inputs(rng, card)
+    fl, gl = lay.pack(f), lay.pack(g)
+    # K7 with force in the field's layout and in SoA (its own layout)
+    for force_lay in (lay, SOA):
+        L = {"dist": lay, "force": force_lay, "out": lay}
+        c = K7.collide_cuda(fl, force_lay.pack(g), 0.8, vvl, layouts=L)
+        _same(c, lay, K7.collide_cuda(f, g, 0.8, vvl), "collide")
+        _close_field(lay.unpack(c), K7.collide_plain(f, g, 0.8))
+    # K8 moves data only: bitwise against its plain version too
+    p = K8.propagate_cuda(fl, LB_LAT, vvl, layouts={"dist": lay})
+    _same(p, lay, K8.propagate_cuda(f, LB_LAT, vvl), "propagate")
+    assert torch.equal(p, K8.propagate_plain(fl, LB_LAT, {"dist": lay}))
+    # K5L
+    L = {"dist": lay, "force": lay, "dist2": lay, "u": lay}
+    d2, u = K8.lb_step_cuda(fl, gl, 0.8, LB_LAT, vvl, layouts=L)
+    d2s, us = K8.lb_step_cuda(f, g, 0.8, LB_LAT, vvl)
+    _same(d2, lay, d2s, "lb_step dist2")
+    _same(u, lay, us, "lb_step u")
+    only2, none = K8.lb_step_cuda(fl, gl, 0.8, LB_LAT, vvl, with_u=False, layouts=L)
+    assert none is None and torch.equal(only2, d2)
+    # K3L and K1L
+    ql, lapl, hl, advl, dql, wl = (lay.pack(t) for t in (q, lapq, h, adv, dq, w))
+    kw = dict(a0=0.01, gamma=3.0, kappa_m=0.01, kappa_s=0.01, xi=0.7)
+    Lc = {"q": lay, "lapq": lay, "dq": lay}
+    got = LK.chem_stress_cuda(ql, lapl, dql, vvl=vvl, layouts=Lc, **kw)
+    want = LK.chem_stress_cuda(q, lapq, dq, vvl=vvl, **kw)
+    _same(got[0], lay, want[0], "chem_stress h")
+    _same(got[1], lay, want[1], "chem_stress sigma")
+    kw = dict(gamma_rot=0.3, xi=0.7, dt=1.0)
+    Lu = {"q": lay, "h": lay, "w": lay, "adv": lay}
+    _same(LK.lc_update_cuda(ql, hl, wl, advl, vvl=vvl, layouts=Lu, **kw), lay,
+          LK.lc_update_cuda(q, h, w, adv, vvl=vvl, **kw), "lc_update")
+    kw = dict(a0=0.01, gamma=3.0, kappa=0.01)
+    _same(LK.fed_cuda(ql, dql, vvl=vvl, layouts={"q": lay, "dq": lay}, **kw), lay,
+          LK.fed_cuda(q, dq, vvl=vvl, **kw), "fed")
+
+
+@pytest.mark.cuda
+def test_kernels_take_mixed_layouts(card, rng):
+    """Every input and output in a layout of its own, on ragged blocks."""
+    aos, a4, a8, a32 = (parse_layout(s) for s in ("aos", "aosoa4", "aosoa8", "aosoa32"))
+    V, x, y, p, ap, u = _milc_inputs(rng, card)
+    a = torch.tensor(0.3, device=card)
+    vvl = 96     # a block of 3 warps: 24 short arrays of 4, 12 of 8, 3 of 32
+    L = {"x": aos, "y": SOA, "out": a8}
+    _same(target.site_mul(aos.pack(x), y, vvl, layouts=L), a8, x * y, "mul")
+    _same(target.site_g5(x, 12, vvl, layouts={"x": SOA, "out": aos}), aos,
+          target.g5_plain(x, 12), "g5")
+    L = {"x": aos, "r": a8, "p": SOA, "ap": a32, "x_new": a4, "r_new": aos}
+    ins = [L[n].pack(t) for n, t in zip(("x", "r", "p", "ap"), (x, y, p, ap))]
+    got = fuse.cg_update(*ins, a, -a, vvl, layouts=L)
+    want = fuse.cg_update(x, y, p, ap, a, -a, vvl)
+    _same(got[0], a4, want[0], "cg_update x_new")
+    _same(got[1], aos, want[1], "cg_update r_new")
+    assert torch.equal(got[2], want[2])
+    L = {"x": a8, "y": aos, "out": SOA}
+    _same(fuse.cg_xpay(a8.pack(x), aos.pack(y), a, vvl, layouts=L), SOA,
+          fuse.cg_xpay(x, y, a, vvl), "cg_xpay")
+    L = {"psi": aos, "u": SOA, "out": a8}
+    _same(K.dslash_cuda(aos.pack(x), u, MILC_LAT, vvl, layouts=L), a8,
+          K.dslash_cuda(x, u, MILC_LAT, vvl), "dslash")
+    L = {"p": a8, "u": aos, "ap": SOA}
+    ap_l, pap_l = K.wilson_normal_cuda(a8.pack(x), aos.pack(u), 0.1, MILC_LAT, vvl, layouts=L)
+    ap_s, pap_s = K.wilson_normal_cuda(x, u, 0.1, MILC_LAT, vvl)
+    assert torch.equal(ap_l, ap_s) and torch.equal(pap_l, pap_s)
+    V, f, g, q, lapq, h, adv, dq, w = _lb_inputs(rng, card, (3, 5, 7))   # 105 sites
+    L = {"dist": aos, "force": SOA, "dist2": SOA, "u": aos}
+    d2, uu = K8.lb_step_cuda(aos.pack(f), g, 0.8, (3, 5, 7), 32, layouts=L)
+    d2s, us = K8.lb_step_cuda(f, g, 0.8, (3, 5, 7), 32)
+    assert torch.equal(d2, d2s)
+    _same(uu, aos, us, "lb_step u")
+    L = {"q": aos, "h": SOA, "w": aos, "adv": SOA, "q_new": aos}
+    kw = dict(gamma_rot=0.3, xi=0.7, dt=1.0)
+    _same(LK.lc_update_cuda(aos.pack(q), h, aos.pack(w), adv, vvl=32, layouts=L, **kw), aos,
+          LK.lc_update_cuda(q, h, w, adv, vvl=32, **kw), "lc_update")
+    L = {"q": SOA, "lapq": aos, "dq": SOA, "h": aos, "sigma": SOA}
+    kw = dict(a0=0.01, gamma=3.0, kappa_m=0.01, kappa_s=0.01, xi=0.7)
+    got = LK.chem_stress_cuda(q, aos.pack(lapq), dq, vvl=32, layouts=L, **kw)
+    want = LK.chem_stress_cuda(q, lapq, dq, vvl=32, **kw)
+    _same(got[0], aos, want[0], "chem_stress h")
+    assert torch.equal(got[1], want[1])
+
+
+@pytest.mark.cuda
+def test_non_soa_launches_run_only_the_hand_kernels(card, rng):
+    """torch.profiler over AoS launches of g5, cg_update, dslash and the LB
+    half-step through the engine: the device ran the hand kernels (and
+    K2's fold) and no copy or elementwise kernel."""
+    from torch.profiler import ProfilerActivity, profile
+
+    aos = parse_layout("aos")
+    cfg = TargetConfig("cuda", device="cuda")
+    V, x, y, p, ap, u = _milc_inputs(rng, card)
+    fx, fy, fp, fap = (Field.from_canonical(n, t, MILC_LAT, aos)
+                       for n, t in zip(("x", "r", "p", "ap"), (x, y, p, ap)))
+    fu = Field.from_canonical("u", u, MILC_LAT, aos)
+    _, f, g, *_ = _lb_inputs(rng, card)
+    fd, fg = Field.from_canonical("dist", f, LB_LAT, aos), Field.from_canonical("force", g, LB_LAT, aos)
+    scal = {"alpha": torch.tensor(0.3, device=card), "neg_alpha": torch.tensor(-0.3, device=card)}
+    lcfg = LD.LudwigConfig(lattice=LB_LAT, layout=aos, target=cfg)
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        CG.g5(fx, cfg)
+        CG.cg_update_graph(24).launch({"x": fx, "r": fy, "p": fp, "ap": fap}, scalars=scal,
+                                      config=cfg, outputs=("x_new", "r_new", "rr"))
+        dslash(fx, fu, config=cfg)
+        LD.lb_step_graph(lcfg).launch({"dist": fd, "force": fg}, config=cfg,
+                                      outputs=("dist2", "u"))
+        torch.cuda.synchronize()
+    names = [e.key for e in prof.key_averages()
+             if e.device_type == torch.autograd.DeviceType.CUDA]
+    hand = ("site_g5_kernel", "cg_update_kernel", "reduce_fold_kernel", "dslash_kernel",
+            "lb_step_kernel")
+    assert all(any(k in n for n in names) for k in hand), names
+    assert all(any(k in n for k in hand) for n in names), names
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("spec", ["aos", "aosoa16"])
+def test_drivers_in_a_layout_equal_soa(card, spec):
+    lay = parse_layout(spec)
+    kw = dict(lattice=(16, 16, 16, 16), kappa=0.12, tol=1e-10, max_iter=2000)
+    scfg = MilcConfig(target=TargetConfig("cuda", device="cuda"), **kw)
+    lcfg = MilcConfig(layout=lay, target=TargetConfig("cuda", device="cuda"), **kw)
+    u, b = init_problem(scfg)
+    rs = solve(scfg, u, b)
+    rl = solve(lcfg, u.as_layout(lay), b.as_layout(lay))
+    assert rl.iterations == rs.iterations and rl.x.layout == lay
+    assert torch.equal(rl.x.canonical(), rs.x.data)
+    s_cfg = LudwigConfig(lattice=(32, 32, 32), target=TargetConfig("cuda", device="cuda"))
+    l_cfg = LudwigConfig(lattice=(32, 32, 32), layout=lay,
+                         target=TargetConfig("cuda", device="cuda"))
+    s = init_state(s_cfg, seed=0)
+    t = LD.LudwigState(dist=s.dist.as_layout(lay), q=s.q.as_layout(lay))
+    for _ in range(5):
+        s, t = step(s, s_cfg), step(t, l_cfg)
+    assert t.dist.layout == lay and t.q.layout == lay
+    assert torch.equal(t.dist.canonical(), s.dist.data)
+    assert torch.equal(t.q.canonical(), s.q.data)
+
+
+@pytest.mark.cuda
+def test_sal_not_dividing_vvl_refused_before_any_launch(card, rng):
+    lay = parse_layout("aosoa64")
+    x = Field.from_canonical("x", _dev(rng, (24, 512), card), (8, 8, 8), lay)
+    launches = target.G5.launches
+    with pytest.raises(ValueError, match="multiple of AoSoA sal=64"):
+        CG.g5(x, TargetConfig("cuda", device="cuda", plan_policy=target.LoweringPlan("cuda", 32)))
+    assert target.G5.launches == launches
+    # the default plan aligns the block to the SAL instead
+    assert CG.g5(x, TargetConfig("cuda", device="cuda", vvl=32)).layout == lay
+    assert target.G5.launches == launches + 1

@@ -65,6 +65,23 @@ def test_field_views_match(spec, rng):
     assert pf.with_data(pf.data + 1).nsites == 64
 
 
+@pytest.mark.parametrize("spec", ["soa", "aos", "aosoa8"])
+def test_with_data_checks_the_physical_shape(spec, rng):
+    """A tensor in another layout's shape is refused, not mislabelled."""
+    lat = (4, 2, 8)
+    pf = PField.from_numpy("f", rng.normal(size=(3,) + lat).astype(np.float32), lat,
+                           PL.parse_layout(spec))
+    assert pf.with_data(pf.data * 2).layout == pf.layout
+    for other in ("soa", "aos", "aosoa8", "aosoa4"):
+        wrong = PL.parse_layout(other).pack(pf.canonical())
+        if wrong.shape == pf.data.shape:
+            continue
+        with pytest.raises(ValueError, match="not in its layout"):
+            pf.with_data(wrong)
+    with pytest.raises(ValueError, match="not in its layout"):
+        pf.with_data(pf.data.reshape(-1))
+
+
 @pytest.mark.parametrize("disp", [(1, 0, 0, 0), (0, -1, 0, 0), (0, 0, 2, -1),
                                   (-3, 1, 0, 1)])
 def test_shift_periodic_bitwise(disp, rng):
@@ -113,8 +130,17 @@ def test_plan_rules():
     assert PP.default_plan(cuda, nsites=96 * 4, layouts=[PL.SOA]).vvl == 192
     assert PP.default_plan(TargetConfig("torch", device="cpu"), nsites=7,
                            layouts=[PL.AOS]) == PP.LoweringPlan("torch")
-    with pytest.raises(ValueError, match="SoA"):
-        PP.default_plan(cuda, nsites=512, layouts=[PL.aosoa(8)])
+    # every layout runs on the cuda engine; the block holds whole short arrays
+    assert PP.default_plan(cuda, nsites=512, layouts=[PL.AOS]) == PP.LoweringPlan("cuda", 256)
+    assert PP.default_plan(cuda, nsites=512, layouts=[PL.aosoa(8)]).vvl == 256
+    narrow = TargetConfig("cuda", device="cpu", vvl=32)
+    assert PP.default_plan(narrow, nsites=512, layouts=[PL.SOA, PL.aosoa(128)]).vvl == 128
+    with pytest.raises(ValueError, match="multiple of AoSoA sal=64"):
+        PP.LoweringPlan("cuda", 32).validate(nsites=512, layouts=[PL.aosoa(64)])
+    # a tiled plan copies contiguous z-runs: SoA only, refused at planning
+    with pytest.raises(ValueError, match="ROADMAP"):
+        PP.LoweringPlan("cuda", bx=1, by=2).validate(
+            lattice=(4, 4, 4), layouts=[PL.SOA, PL.AOS], stencil=True)
     for bad in (PP.LoweringPlan("cuda", 48), PP.LoweringPlan("cuda", 2048),
                 PP.LoweringPlan("cuda", 0), PP.LoweringPlan("gpu", 128)):
         with pytest.raises(ValueError):

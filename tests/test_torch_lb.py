@@ -22,7 +22,7 @@ from repro.kernels.lb_propagation import propagate as j_propagate  # noqa: E402
 from repro.kernels.lb_propagation.kernel import propagate_pallas  # noqa: E402
 from repro.kernels.lb_propagation.ops import collide_propagate as j_collide_propagate  # noqa: E402
 from repro.maths import d3q19 as j_d3q19  # noqa: E402
-from repro_torch.core import AOS, SOA, TargetConfig, aosoa  # noqa: E402
+from repro_torch.core import AOS, SOA, LoweringPlan, TargetConfig, aosoa  # noqa: E402
 from repro_torch.core import Field as PField  # noqa: E402
 from repro_torch.kernels.lb_collision import collide  # noqa: E402
 from repro_torch.kernels.lb_collision import kernel as K7  # noqa: E402
@@ -203,5 +203,10 @@ def test_cuda_engine_refuses_cpu_fields_and_other_layouts(rng):
         propagate(d, config=cuda)
     with pytest.raises(ValueError, match="CUDA device"):
         collide_propagate(d, g, tau=0.8, config=cuda)
-    with pytest.raises(ValueError, match="SoA"):
+    # other layouts are accepted (the CPU tensor is what refuses), dist and
+    # force each in its own; SAL must divide vvl, before any launch
+    with pytest.raises(ValueError, match="CUDA device"):
         collide(PField.from_numpy("dist", f0, lat, AOS), g, tau=0.8, config=cuda)
+    with pytest.raises(ValueError, match="multiple of AoSoA sal=64"):
+        collide(PField.from_numpy("dist", f0, lat, aosoa(64)), g, tau=0.8,
+                config=TargetConfig("cuda", device="cpu", plan_policy=LoweringPlan("cuda", 32)))
