@@ -1,10 +1,10 @@
-"""Drive the PyTorch/CUDA port on one GPU: the MILC Wilson-CG solve, the
-Ludwig LC-LB timestep, untiled, under a shared-memory budget and in every
-data layout, RWKV6-7B and starcoder2-7b serving (prefill and greedy
-decode).
+"""Drive the PyTorch/CUDA port on one GPU: the MILC Wilson-CG solve and its
+batched serving, the Ludwig LC-LB timestep, untiled, under a shared-memory
+budget and in every data layout, RWKV6-7B and starcoder2-7b serving
+(prefill and greedy decode).
 
     python3 chip_smoke.py [--lattice X Y Z T] [--small X Y Z T]
-                          [--ludwig X Y Z] [--ludwig-small X Y Z]
+                          [--ludwig X Y Z] [--ludwig-small X Y Z] [--seed N]
 
 Phases (any failure raises and exits non-zero; nothing is caught):
 
@@ -20,6 +20,30 @@ Phases (any failure raises and exits non-zero; nothing is caught):
 5. at ``--small`` (default (16, 16, 16, 16)) solve on the "cuda" and the
    "torch" engine, both on the card: iterations within +-1, x within
    rel-L2 1e-4;
+S1. the batch instances K3B (cg_update_masked, cg_xpay_masked, dot_prod),
+   K5B (wilson_normal, batched) and K2B (the batched sum and fold) at
+   ``--lattice`` with 4 slots, vvl 128, in SoA and aosoa16, on phase 2's u:
+   slot 1 has mask 0, slot 2 is all-zero, slot 3 is frozen with -0.0 and a
+   NaN in its x and r.  Every slot bitwise the single kernel's launch on
+   that slot (cg_update, cg_xpay, the product, K2, K5), frozen slots bitwise
+   their y inputs, live slots within the stated tolerance of the plain
+   versions; timed in SoA (CUDA events, median of 10) beside the bound of
+   the bytes this run's mask needs, the plain version and, for the product
+   and the sums, torch.mul / torch.sum;
+S2. with every count set to 0: ``driver.solve_batched`` at ``--lattice``
+   on phase 2's u, four sources from ``fields.random_spinor`` (seeds from
+   ``--seed``), one spectrally filtered (6 normal-operator applications,
+   converging earlier), one all-zero: each live slot's x, iterations and
+   residual bitwise the cuda ``solve`` of its source alone, the filtered
+   slot fewer iterations, the empty one 0 and x = 0, residual_check < 1e-3
+   a slot, every kernel of the batched path launched; the peak device
+   memory, and ms a batched iteration from a second run of cg_batched's
+   loop alone (rhs and initial state built first), bitwise the first;
+S3. a ``SolveServer`` drain: 4 slots at ``--lattice`` (phase 2's u) with 6
+   requests and 2 slots at ``--small`` (phase 5's u) with 3, submitted
+   interleaved, so slots drain and refill mid-flight; every outcome bitwise
+   the dedicated ``solve``; ticks a bucket, ms a tick by occupancy, solves/s
+   against the dedicated solves' sum; the slice's tensors are freed after;
 L1. Ludwig ``init_state`` at ``--ludwig`` (default (256, 256, 256), the
    ludwig_small lattice of benchmarks/fig5_scaling.py) on the card;
 L2. every Ludwig kernel against its plain version there, timed as in 3;
@@ -113,8 +137,8 @@ A3. ``generate`` serves 4 requests, a 16-token prompt then 16 greedy tokens,
    step traced; on the fp32 copy, the decode's logits after the prompt
    within rel-L2 1e-3 of the prefill's at the last prompt position;
 6. print the layouts' JSON line, the kernel table of every path (the
-   layout instances as kernel@layout rows, with Y2's and Y3's launches)
-   as one JSON line, then the result line.
+   layout instances as kernel@layout rows, with Y2's and Y3's launches;
+   the batch instances with S2's) as one JSON line, then the result line.
 """
 
 from __future__ import annotations
@@ -139,8 +163,12 @@ from repro_torch.apps.ludwig import LudwigConfig, init_state, step  # noqa: E402
 from repro_torch.apps.ludwig import driver as ludwig  # noqa: E402
 from repro_torch.apps.ludwig import kernel as lk  # noqa: E402
 from repro_torch.apps.milc import MilcConfig, init_problem, residual_check, solve  # noqa: E402
+from repro_torch.apps.milc import fields as milc_fields  # noqa: E402
+from repro_torch.apps.milc.cg import (batched_cg_active, batched_cg_iteration,  # noqa: E402
+                                      batched_cg_state, make_fused_normal, make_wilson_op)
+from repro_torch.apps.milc.driver import solve_batched  # noqa: E402
 from repro_torch.configs import get_arch  # noqa: E402
-from repro_torch.core import SOA, Field, TargetConfig, parse_layout  # noqa: E402
+from repro_torch.core import SOA, BatchedField, Field, TargetConfig, parse_layout  # noqa: E402
 from repro_torch.core import fuse, plan, reduce, target  # noqa: E402
 from repro_torch.kernels.flash_attention import kernel as kf  # noqa: E402
 from repro_torch.kernels.lb_collision import collide  # noqa: E402
@@ -151,6 +179,7 @@ from repro_torch.kernels.lb_propagation.ops import collide_propagate  # noqa: E4
 from repro_torch.kernels.rwkv6_scan import kernel as k10  # noqa: E402
 from repro_torch.kernels.rwkv6_scan import ref as wkv_ref  # noqa: E402
 from repro_torch.kernels.wilson_dslash import kernel as wk  # noqa: E402
+from repro_torch.launch.serve import SolveRequest, SolveServer  # noqa: E402
 from repro_torch.models import attention as model_attention  # noqa: E402
 from repro_torch.models import init_cache, init_params  # noqa: E402
 from repro_torch.train.serve_step import build_prefill, build_serve_step, generate  # noqa: E402
@@ -169,7 +198,9 @@ KERNELS = [target.G5, target.MUL, target.AXPY, reduce.REDUCE_SUM,
            reduce.REDUCE_MAX, reduce.REDUCE_FOLD, fuse.CG_UPDATE, fuse.CG_XPAY,
            wk.DSLASH, wk.WILSON_NORMAL_T, wk.WILSON_NORMAL_AP, k7.COLLIDE,
            k8.PROPAGATE, k8.LB_STEP, k8.LB_STEP_TILED, lk.CHEM_STRESS, lk.LC_UPDATE,
-           lk.FED, k10.WKV, kf.FLASH, kf.FLASH_KVCHUNK]
+           lk.FED, k10.WKV, kf.FLASH, kf.FLASH_KVCHUNK, fuse.CG_UPDATE_MASKED,
+           fuse.CG_XPAY_MASKED, wk.WILSON_NORMAL_T_B, wk.WILSON_NORMAL_AP_B,
+           reduce.REDUCE_SUM_B, reduce.REDUCE_MAX_B, reduce.REDUCE_FOLD_B]
 
 # flops a site, counted from the sources (all these kernels are bound by bytes)
 FLOPS = {"collide": 450, "lb_step": 462, "chem_stress": 600, "lc_update": 320, "fed": 160}
@@ -186,6 +217,27 @@ PATH = {
     "wilson_normal": ([wk.WILSON_NORMAL_T, wk.WILSON_NORMAL_AP], "wilson_normal.cu",
                       "src/repro/core/fuse.py:1721"),
 }
+
+# batched solve serving (S1-S3): the batch instances on solve_batched's path
+# (its rhs also runs the single g5 and dslash, and a server's admission the
+# single product, sum and fold)
+SERVE_PATH = {
+    "cg_update_masked": ([fuse.CG_UPDATE_MASKED], "fused_flat.cu",
+                         "src/repro/core/fuse.py:1411"),
+    "cg_xpay_masked": ([fuse.CG_XPAY_MASKED], "fused_flat.cu", "src/repro/core/fuse.py:1411"),
+    "dot_prod": ([target.MUL], "site_local.cu", "src/repro/core/fuse.py:1411"),
+    "wilson_normal_batched": ([wk.WILSON_NORMAL_T_B, wk.WILSON_NORMAL_AP_B], "wilson_normal.cu",
+                              "src/repro/core/fuse.py:1721"),
+    "reduce_sum_batched": ([reduce.REDUCE_SUM_B], "reduce.cu", "src/repro/core/reduce.py:106"),
+    "reduce_fold_batched": ([reduce.REDUCE_FOLD_B], "reduce.cu",
+                            "src/repro/core/reduce.py:106"),
+}
+SERVE_SINGLE = ("g5", "dslash")          # PATH's kernels that solve_batched's rhs runs
+DRAIN_SINGLE = ("g5", "dslash", "mul", "reduce_sum", "reduce_fold")   # a server's admission
+SLOTS, SMALL_SLOTS = 4, 2                # S1-S3's slots at --lattice, S3's at --small
+DRAIN_REQUESTS, SMALL_REQUESTS = 6, 3    # S3's requests a bucket
+S1_LAYOUT = "aosoa16"                    # S1's layout besides SoA
+S1_LIVE, S1_FROZEN = (0, 2), (1, 3)      # S1's mask: slots 0, 2 live (2 all-zero)
 
 # the Ludwig step's path (diagnostics, steps, step_timed): same layout
 LUDWIG_PATH = {
@@ -1523,6 +1575,341 @@ def dense_serve(cfg, params, p32, nbytes):
     return dt / steps * 1e3, bound_ms
 
 
+# -- batched solve serving (S1-S3) -------------------------------------------------
+
+def bits_err(got, want, name):
+    """Raise unless got and want are bitwise equal, NaN and -0.0 included."""
+    if not torch.equal(got.contiguous().view(torch.int32), want.contiguous().view(torch.int32)):
+        raise AssertionError(f"{name}: not bitwise equal")
+    return 0.0
+
+
+def batch_inputs(lattice, lay):
+    """S1's inputs, SLOTS stacked spinors x, r, p, ap in ``lay`` drawn on the
+    card: slot 2 all-zero, slot 3 with -0.0 and a NaN in x and r (the y
+    inputs of the masked chains, frozen there); alpha, neg_alpha, m (SLOTS,)
+    with m 0 in S1_FROZEN; the batched fold's partial rows."""
+    V, dev = math.prod(lattice), torch.device("cuda")
+    gen = torch.Generator(device=dev).manual_seed(3)
+    out = {}
+    for n in ("x", "r", "p", "ap"):
+        c = torch.randn((SLOTS, 24, V), generator=gen, device=dev)
+        c[2] = 0.0
+        if n in ("x", "r"):
+            c[3, 0, 5], c[3, 9, 2] = -0.0, float("nan")
+        out[n] = c if lay == SOA else torch.stack([lay.pack(e) for e in c])
+        del c
+    alpha = torch.tensor([0.37, -1.5, 0.25, 2.0], device=dev)[:SLOTS]
+    m = torch.ones(SLOTS, device=dev)
+    m[list(S1_FROZEN)] = 0.0
+    out.update(alpha=alpha, neg_alpha=-alpha, m=m,
+               partials=torch.randn((SLOTS, -(-V // 128), 24), generator=gen, device=dev))
+    return out
+
+
+def check_batch_layout(u, lattice, lay, vvl, rows):
+    """S1 in one layout: every batch kernel per slot bitwise its single
+    launch, frozen slots bitwise their y inputs, live slots within tolerance
+    of the plain version; timed into ``rows`` when given (SoA)."""
+    V = math.prod(lattice)
+    inp = batch_inputs(lattice, lay)
+    x, r, p, ap, alpha, neg_alpha, m = (inp[n] for n in ("x", "r", "p", "ap", "alpha",
+                                                          "neg_alpha", "m"))
+    lays = {n: lay for n in ("x", "r", "p", "ap")}
+    xy = {"x": lay, "y": lay}
+    tag = f"S1 {lay.name}"
+    nlive = len(S1_LIVE)
+
+    def row(*a, **kw):
+        if rows is not None:
+            add_row(rows, *a, **kw)
+
+    def upd():
+        return fuse.cg_update_masked(x, r, p, ap, alpha, neg_alpha, m, vvl, layouts=lays)
+
+    got, want = upd(), fuse.cg_update_masked_plain(x, r, p, ap, alpha, neg_alpha, m, lays)
+    err = 0.0
+    for b in S1_LIVE:
+        one = fuse.cg_update(x[b], r[b], p[b], ap[b], alpha[b], neg_alpha[b], vvl, layouts=lays)
+        for k, what in enumerate(("x_new", "r_new", "rr")):
+            bits_err(got[k][b], one[k], f"{tag} cg_update_masked {what} slot {b} vs cg_update")
+        err = max(err, field_err(lay.unpack(got[0][b]), lay.unpack(want[0][b]), "x_new"),
+                  field_err(lay.unpack(got[1][b]), lay.unpack(want[1][b]), "r_new"),
+                  sum_err(got[2][b], want[2][b], lay.unpack(want[1][b]) ** 2, "rr"))
+    for b in S1_FROZEN:
+        bits_err(got[0][b], x[b], f"{tag} cg_update_masked frozen x_new slot {b}")
+        bits_err(got[1][b], r[b], f"{tag} cg_update_masked frozen r_new slot {b}")
+    del got, want
+    if rows is not None:
+        ms = time_ms(upd)
+        row("cg_update_masked", err, ms,
+            time_ms(lambda: fuse.cg_update_masked_plain(x, r, p, ap, alpha, neg_alpha, m, lays),
+                    reps=3, warm=1),
+            (nlive * 6 + (SLOTS - nlive) * 4) * 96 * V,
+            (nlive * 6 + (SLOTS - nlive) * 2) * 24 * V)
+    else:
+        log(f"  {tag} cg_update_masked {time_ms(upd):.4f} ms")
+
+    got = fuse.cg_xpay_masked(p, r, alpha, m, vvl, layouts=xy)
+    err = 0.0
+    for b in S1_LIVE:
+        bits_err(got[b], fuse.cg_xpay(p[b], r[b], alpha[b], vvl, layouts=xy),
+                 f"{tag} cg_xpay_masked slot {b} vs cg_xpay")
+        err = max(err, field_err(lay.unpack(got[b]),
+                                 lay.unpack(r[b]) + alpha[b] * lay.unpack(p[b]), "cg_xpay_masked"))
+    for b in S1_FROZEN:
+        bits_err(got[b], r[b], f"{tag} cg_xpay_masked frozen slot {b}")
+    del got
+    if rows is not None:
+        row("cg_xpay_masked", err,
+            time_ms(lambda: fuse.cg_xpay_masked(p, r, alpha, m, vvl, layouts=xy)),
+            time_ms(lambda: fuse.cg_xpay_masked_plain(p, r, alpha, m, xy), reps=3, warm=1),
+            (nlive * 3 + (SLOTS - nlive) * 2) * 96 * V, nlive * 2 * 24 * V)
+
+    prod = target.site_mul(x, r, vvl, layouts=xy, batch=SLOTS)
+    bits_err(prod, target.mul_plain(x, r, xy, batch=SLOTS), f"{tag} dot_prod vs plain")
+    sums = reduce.reduce_sites_batched(prod, "sum", vvl, layouts={"x": lay})
+    err = 0.0
+    for b in range(SLOTS):
+        bits_err(prod[b], target.site_mul(x[b], r[b], vvl, layouts=xy),
+                 f"{tag} dot_prod slot {b} vs the single product")
+        bits_err(sums[b], reduce.reduce_sites(prod[b], "sum", vvl, layouts={"x": lay}),
+                 f"{tag} reduce_sum_batched slot {b} vs reduce_sum")
+        if b != 3:  # slot 3 carries the NaN
+            c = lay.unpack(prod[b])
+            err = max(err, sum_err(sums[b], reduce.reduce_plain(c, "sum"), c,
+                                   "reduce_sum_batched"))
+    bits_err(reduce.reduce_sites_batched(prod, "max", vvl, layouts={"x": lay})[0],
+             reduce.reduce_plain(lay.unpack(prod[0]), "max"), f"{tag} reduce_max_batched")
+    if rows is not None:
+        row("dot_prod", 0.0,
+            time_ms(lambda: target.site_mul(x, r, vvl, layouts=xy, batch=SLOTS)),
+            time_ms(lambda: target.mul_plain(x, r, xy, batch=SLOTS)), SLOTS * 3 * 96 * V,
+            SLOTS * 24 * V, library_ms=time_ms(lambda: torch.mul(x, r)))
+        row("reduce_sum_batched", err,
+            time_ms(lambda: reduce.reduce_sites_batched(prod, "sum", vvl, layouts={"x": lay})),
+            time_ms(lambda: torch.stack([reduce.reduce_plain(lay.unpack(e), "sum")
+                                         for e in prod])),
+            SLOTS * 96 * V, SLOTS * 24 * V, library_ms=time_ms(lambda: torch.sum(prod, dim=-1)))
+    del prod, sums
+
+    parts = inp["partials"]
+    folded = reduce.fold_partials_batched(parts, "sum")
+    err = 0.0
+    for b in range(SLOTS):
+        bits_err(folded[b], reduce.fold_partials(parts[b], "sum"),
+                 f"{tag} reduce_fold_batched slot {b} vs reduce_fold")
+        err = max(err, sum_err(folded[b], parts[b].sum(dim=0), parts[b].T, "reduce_fold_batched"))
+    if rows is not None:
+        row("reduce_fold_batched", err,
+            time_ms(lambda: reduce.fold_partials_batched(parts, "sum")),
+            time_ms(lambda: torch.stack([reduce.reduce_plain(e, "sum", dim=0) for e in parts])),
+            parts.numel() * 4 + SLOTS * 96, parts.numel(),
+            library_ms=time_ms(lambda: torch.sum(parts, dim=1)))
+
+    ul = u if lay == SOA else u.as_layout(lay)
+    wl = {"p": lay, "u": lay}
+
+    def normal():
+        return wk.wilson_normal_cuda(p, ul.data, KAPPA, lattice, vvl, layouts=wl, batched=True)
+
+    got = normal()
+    want = wk.wilson_normal_plain(p, ul.data, KAPPA, lattice, wl, batched=True)
+    err = 0.0
+    for b in range(SLOTS):
+        one = wk.wilson_normal_cuda(p[b], ul.data, KAPPA, lattice, vvl, layouts=wl)
+        bits_err(got[0][b], one[0], f"{tag} wilson_normal_batched ap slot {b} vs wilson_normal")
+        bits_err(got[1][b], one[1], f"{tag} wilson_normal_batched pap slot {b} vs wilson_normal")
+        pb, wb = lay.unpack(p[b]), lay.unpack(want[0][b])
+        err = max(err, field_err(lay.unpack(got[0][b]), wb, "wilson_normal_batched ap"),
+                  sum_err(got[1][b], want[1][b], pb * wb, "wilson_normal_batched pap"))
+    del got, want, one
+    if rows is not None:
+        row("wilson_normal_batched", err, time_ms(normal),
+            time_ms(lambda: wk.wilson_normal_plain(p, ul.data, KAPPA, lattice, wl, batched=True),
+                    reps=3, warm=1),
+            (SLOTS * (24 + 24) + 72) * 4 * V, SLOTS * (2 * (1320 + 48) + 48) * V)
+    else:
+        log(f"  {tag} wilson_normal_batched {time_ms(normal):.4f} ms")
+    del inp, x, r, p, ap, parts, ul
+    torch.cuda.empty_cache()
+
+
+def check_batch_kernels(u, lattice, vvl):
+    """S1: the batch instances at the full lattice, SoA (timed) and
+    S1_LAYOUT."""
+    rows = {}
+    log(f"S1: batch kernels, {SLOTS} slots at {lattice}, vvl {vvl}, soa:")
+    check_batch_layout(u, lattice, SOA, vvl, rows)
+    log(f"S1: the same in {S1_LAYOUT}, bitwise per slot and against the plain versions:")
+    check_batch_layout(u, lattice, parse_layout(S1_LAYOUT), vvl, None)
+    return rows
+
+
+def spinor(lattice, seed):
+    return Field.from_numpy("b", milc_fields.random_spinor(lattice, seed=seed), lattice,
+                            device="cuda")
+
+
+def serve_sources(cfg, u, seed):
+    """S2's four sources: random, spectrally filtered (6 applications of the
+    normal operator, normalised: it converges earlier), random, all-zero."""
+    bs = [spinor(cfg.lattice, seed + 10 + i) for i in range(3)]
+    _, _, normal = make_wilson_op(u, cfg.kappa, cfg.target)
+    f = bs[1]
+    for _ in range(6):
+        f = normal(f)
+    bs[1] = f.with_data(f.data / torch.linalg.norm(f.data))
+    return bs + [bs[0].with_data(torch.zeros_like(bs[0].data))]
+
+
+def same_outcome(x, iterations, residual, want, name):
+    """A served outcome against the dedicated solve's CGResult: x bitwise,
+    the same iterations and residual (NaN for an empty source in both)."""
+    exact_err(x.data, want.x.data, f"{name}: x against the dedicated solve's")
+    if iterations != want.iterations:
+        raise AssertionError(f"{name}: {iterations} iterations, the dedicated solve "
+                             f"{want.iterations}")
+    res, wres = float(residual), float(want.residual)
+    if res != wres and not (math.isnan(res) and math.isnan(wres)):
+        raise AssertionError(f"{name}: residual {res} != {wres}")
+
+
+def batched_loop_s(cfg, u, bs, res):
+    """Seconds of cg_batched's iteration loop alone on S2's sources: the
+    rhs stack and the initial state are built and synchronised first.  The
+    loop is cg_batched's; its x and iterations must be bitwise ``res``'s."""
+    _, apply_mdag, _ = make_wilson_op(u, cfg.kappa, cfg.target)
+    normal = make_fused_normal(u, cfg.kappa, cfg.target)
+    rhs = BatchedField.stack([apply_mdag(b) for b in bs], name="rhs")
+    state = batched_cg_state(rhs, cfg.target)
+    kw = dict(tol=cfg.tol, max_iter=cfg.max_iter)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    while bool(batched_cg_active(state, **kw).any()):
+        state = batched_cg_iteration(state, normal, config=cfg.target, **kw)
+    torch.cuda.synchronize()
+    loop_s = time.perf_counter() - t0
+    exact_err(state.x.data, res.x.data, "S2: the timed loop's x against solve_batched's")
+    if not torch.equal(state.it, res.iterations):
+        raise AssertionError(f"S2: the timed loop took {state.it.tolist()} iterations, "
+                             f"solve_batched {res.iterations.tolist()}")
+    return loop_s
+
+
+def serve_solve(cfg, u, seed):
+    """S2: driver.solve_batched on four sources against the cuda solve of
+    each; returns (sources, dedicated results and seconds, counts, ms an
+    iteration, seconds)."""
+    bs = serve_sources(cfg, u, seed)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    reset_counts()
+    t0 = time.perf_counter()
+    res = solve_batched(cfg, u, bs)
+    torch.cuda.synchronize()
+    dt = time.perf_counter() - t0
+    counts = path_counts(SERVE_PATH)
+    single = path_counts(PATH)
+    peak = torch.cuda.max_memory_allocated()
+    its = res.iterations.tolist()
+    loop_s = batched_loop_s(cfg, u, bs, res)
+    ms_it = loop_s / max(its) * 1e3
+    log(f"S2: solve_batched {cfg.lattice}, {SLOTS} slots: iterations {its}, {dt:.3f} s with "
+        f"the rhs and the initial state; the iteration loop alone {loop_s:.3f} s, {ms_it:.3f} "
+        f"ms a batched iteration; peak {peak / 2**30:.2f} GiB; launches {counts}, "
+        f"single {dict((n, single[n]) for n in SERVE_SINGLE)}")
+    idle = [n for n, c in counts.items() if c == 0] + [n for n in SERVE_SINGLE if single[n] == 0]
+    if idle:
+        raise AssertionError(f"S2: kernels of the batched path never launched: {idle}")
+    if not (its[1] < its[0] and its[3] == 0):
+        raise AssertionError(f"S2: iterations {its}: the filtered slot must take fewer, the "
+                             f"empty one 0")
+    if res.x.element(3).data.any():
+        raise AssertionError("S2: the empty slot's x is not 0")
+    dedicated = []
+    for i in range(3):
+        one, one_s = solve_timed(cfg, u, bs[i])
+        same_outcome(res.x.element(i), its[i], res.residual[i], one, f"S2 slot {i}")
+        rc = residual_check(cfg, u, bs[i], res.x.element(i))
+        log(f"S2: slot {i}: {its[i]} iterations bitwise the dedicated solve's ({one_s:.3f} s), "
+            f"|Mx-b|/|b| = {rc:.3e}")
+        if not rc < 1e-3:
+            raise AssertionError(f"S2 slot {i}: residual_check {rc} >= 1e-3")
+        dedicated.append((one, one_s))
+    del res
+    torch.cuda.empty_cache()
+    return bs, dedicated, counts, ms_it, dt, peak
+
+
+def serve_drain(cfg, u, su, small, bs, dedicated, seed):
+    """S3: a SolveServer drain, DRAIN_REQUESTS at the full lattice in SLOTS
+    slots and SMALL_REQUESTS at ``small`` in SMALL_SLOTS, interleaved; every
+    outcome bitwise the dedicated solve.  Returns the run's numbers."""
+    scfg = dataclasses.replace(cfg, lattice=small)
+    full = bs[:3] + [spinor(cfg.lattice, seed + 20 + i) for i in range(DRAIN_REQUESTS - 3)]
+    want = {i: dedicated[i] for i in range(3)}
+    for i in range(3, DRAIN_REQUESTS):
+        want[i] = solve_timed(cfg, u, full[i])
+    smalls = [spinor(small, seed + 30 + i) for i in range(SMALL_REQUESTS)]
+    for i, b in enumerate(smalls):
+        want[100 + i] = solve_timed(scfg, su, b)
+    server = SolveServer(cfg.target, slots=SLOTS, tol=cfg.tol, max_iter=cfg.max_iter)
+    server.register(u, cfg.kappa)
+    server.register(su, cfg.kappa, slots=SMALL_SLOTS)
+    reqs = [SolveRequest(i, b) for i, b in enumerate(full)]
+    sreqs = [SolveRequest(100 + i, b) for i, b in enumerate(smalls)]
+    for k in range(max(len(reqs), len(sreqs))):   # the shapes interleaved
+        for q in (reqs, sreqs):
+            if k < len(q):
+                server.submit(q[k])
+    ticks = []
+    for bucket in server.buckets.values():
+        def timed(bucket=bucket, tick=bucket.tick):
+            occ = bucket.occupied + min(bucket.slots - bucket.occupied, len(bucket.queue))
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            out = tick()
+            torch.cuda.synchronize()
+            ticks.append((bucket.u.lattice, occ, time.perf_counter() - t0))
+            return out
+        bucket.tick = timed
+    reset_counts()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    results = server.run()
+    torch.cuda.synchronize()
+    dt = time.perf_counter() - t0
+    counts = {**path_counts(SERVE_PATH), **path_counts(PATH)}
+    if sorted(results) != sorted(want):
+        raise AssertionError(f"S3: served {sorted(results)}, submitted {sorted(want)}")
+    for rid, out in results.items():
+        same_outcome(out.x, out.iterations, out.residual, want[rid][0], f"S3 request {rid}")
+    idle = [n for n in ("wilson_normal_batched", "cg_update_masked", "cg_xpay_masked",
+                        "reduce_fold_batched") + DRAIN_SINGLE if counts[n] == 0]
+    if idle:
+        raise AssertionError(f"S3: kernels of the drain never launched: {idle}")
+    by_occ = {}
+    for lat, occ, sec in ticks:
+        by_occ.setdefault((lat, occ), []).append(sec * 1e3)
+    dedicated_s = sum(w[1] for w in want.values())
+    summary = {
+        "ticks": {str(lat): b.iterations_run for lat, b in server.buckets.items()},
+        "ms_per_tick": {f"{lat}@{occ}": statistics.median(v)
+                        for (lat, occ), v in sorted(by_occ.items())},
+        "tick_counts": {f"{lat}@{occ}": len(v) for (lat, occ), v in sorted(by_occ.items())},
+        "drain_s": dt, "solves_per_s": len(results) / dt, "dedicated_s": dedicated_s,
+        "dedicated_solves_per_s": len(results) / dedicated_s,
+        "iterations": {rid: out.iterations for rid, out in sorted(results.items())}}
+    log(f"S3: {len(results)} requests drained in {dt:.3f} s ({len(results) / dt:.3f} solves/s; "
+        f"the dedicated solves one by one {dedicated_s:.3f} s); ticks {summary['ticks']}; "
+        f"ms a tick by (lattice, occupancy) {summary['ms_per_tick']} "
+        f"(ticks {summary['tick_counts']}); iterations {summary['iterations']}; "
+        f"every outcome bitwise its dedicated solve; launches {counts}")
+    return summary
+
+
+
 def table_rows(path, counts, rows):
     return [dict(name=name, route="cuda", source=f"src/repro_torch/csrc/{src}",
                  replaces=rep, launches=counts[name], **rows[name])
@@ -1553,6 +1940,7 @@ def main():
     ap.add_argument("--small", type=int, nargs=4, default=[16, 16, 16, 16])
     ap.add_argument("--ludwig", type=int, nargs=3, default=[256, 256, 256])
     ap.add_argument("--ludwig-small", type=int, nargs=3, default=[32, 32, 32])
+    ap.add_argument("--seed", type=int, default=0, help="seed of S2 and S3's sources")
     args = ap.parse_args()
     lattice, small = tuple(args.lattice), tuple(args.small)
 
@@ -1622,9 +2010,25 @@ def main():
         f"({t_t:.3f} s), x rel-L2 {rel:.3e}")
     if abs(rc_.iterations - rt_.iterations) > 1 or not rel < 1e-4:
         raise AssertionError("cuda and torch engines disagree")
-
-    del su, sb, rc_, rt_
+    # su stays for S3
+    del sb, rc_, rt_
     torch.cuda.empty_cache()
+
+    # S1. the batch instances against their plain versions and single launches
+    t0 = time.perf_counter()
+    brows = check_batch_kernels(u, lattice, vvl)
+    # S2. solve_batched, counted
+    bs, dedicated, scounts, s_ms_it, s_solve_s, s_peak = serve_solve(cfg, u, args.seed)
+    # S3. a SolveServer drain of mixed shapes
+    drain = serve_drain(cfg, u, su, small, bs, dedicated, args.seed)
+    serve_line = {"serving": {
+        "card": smi, "slots": SLOTS, "lattice": list(lattice), "small": list(small),
+        "solve_batched_s": s_solve_s, "ms_per_batched_iteration_loop": s_ms_it,
+        "peak_gib": s_peak / 2**30, "ms_per_iteration_single": solve_s / iterations * 1e3,
+        "dedicated_s": [d[1] for d in dedicated], **drain}}
+    del bs, dedicated, su
+    torch.cuda.empty_cache()
+    log(f"S1-S3: {time.perf_counter() - t0:.1f} s")
 
     # L1. the Ludwig state at full size
     lcfg = LudwigConfig(lattice=tuple(args.ludwig), target=TargetConfig("cuda", device="cuda"))
@@ -1720,8 +2124,10 @@ def main():
              + table_rows(FLASH_PATH, acounts, arows)
              + layout_table_rows(PATH, {lay: v[0] for lay, v in ymilc.items()}, yrows)
              + layout_table_rows(LUDWIG_PATH, ylcounts, yrows)
-             + layout_table_rows(LB_EXHIBIT_PATH, yxcounts, yrows))
+             + layout_table_rows(LB_EXHIBIT_PATH, yxcounts, yrows)
+             + table_rows(SERVE_PATH, scounts, brows))
     print(json.dumps(layouts_line))
+    print(json.dumps(serve_line))
     print(json.dumps({"kernels": table}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

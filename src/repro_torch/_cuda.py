@@ -29,7 +29,7 @@ from pathlib import Path
 
 import torch
 
-__all__ = ["Kernel", "build", "library", "check_tensor", "check_field",
+__all__ = ["Kernel", "build", "library", "check_tensor", "check_field", "check_batched_field",
            "smem_per_block_optin", "CSRC", "BUILD_DIR", "NVCC_FLAGS"]
 
 CSRC = Path(__file__).resolve().parent / "csrc"
@@ -50,15 +50,22 @@ _D = ctypes.c_int       # a layout descriptor (Layout.descriptor())
 # int; the trailing _I, _P are the block size and the stream).
 SIGNATURES = {
     "rt_site_g5": (_P, _P, _I, _L, _I, _D, _D, _I, _P),
-    "rt_site_mul": (_P, _P, _P, _I, _L, _D, _D, _D, _I, _P),
+    "rt_site_mul": (_P, _P, _P, _I, _L, _I, _L, _L, _D, _D, _D, _I, _P),
     "rt_site_axpy": (_F, _P, _P, _P, _I, _L, _D, _D, _D, _I, _P),
     "rt_reduce_partials": (_P, _P, _I, _L, _I, _D, _I, _P),
     "rt_reduce_fold": (_P, _P, _L, _I, _I, _P),
+    "rt_reduce_partials_batched": (_P, _P, _I, _L, _I, _I, _D, _I, _P),
+    "rt_reduce_fold_batched": (_P, _P, _L, _I, _I, _I, _P),
     "rt_cg_update": (_P, _P, _P, _P, _P, _P, _P, _P, _P, _L, *(_D,) * 6, _I, _P),
     "rt_cg_xpay": (_P, _P, _P, _P, _I, _L, _D, _D, _D, _I, _P),
+    "rt_cg_update_masked": (*(_P,) * 10, _L, _I, _L, _L, _L, _L, *(_D,) * 6, _I, _P),
+    "rt_cg_xpay_masked": (_P, _P, _P, _P, _P, _I, _L, _I, _L, _L, _D, _D, _D, _I, _P),
     "rt_dslash": (_P, _P, _P, _I, _I, _I, _I, _D, _D, _D, _I, _P),
     "rt_wilson_normal_t": (_P, _P, _P, _F, _I, _I, _I, _I, _D, _D, _I, _P),
     "rt_wilson_normal_ap": (_P, _P, _P, _P, _P, _F, _I, _I, _I, _I, _D, _D, _D, _I, _P),
+    "rt_wilson_normal_t_batched": (_P, _P, _P, _F, _I, _I, _I, _I, _I, _D, _D, _I, _P),
+    "rt_wilson_normal_ap_batched": (_P, _P, _P, _P, _P, _F, _I, _I, _I, _I, _I, _D, _D, _D, _I,
+                                    _P),
     "rt_lb_collide": (_P, _P, _P, _L, _F, _F, _F, _F, _D, _D, _D, _I, _P),
     "rt_lb_propagate": (_P, _P, _I, _I, _I, _D, _D, _I, _P),
     "rt_lb_step": (_P, _P, _P, _P, _I, _I, _I, _F, _F, _F, _F, _D, _D, _D, _D, _I, _P),
@@ -186,6 +193,15 @@ def check_field(name: str, t: torch.Tensor, layout, ncomp: int, nsites: int,
     ``layout.physical_shape(ncomp, nsites)``); returns the layout's
     descriptor for the kernel."""
     check_tensor(f"{name} ({layout.name})", t, layout.physical_shape(ncomp, nsites), device)
+    return layout.descriptor()
+
+
+def check_batched_field(name: str, t: torch.Tensor, layout, ncomp: int, nsites: int, batch: int,
+                        device: torch.device) -> int:
+    """:func:`check_field` for ``batch`` such fields stacked on a leading
+    axis (a BatchedField's data); returns the layout's descriptor."""
+    check_tensor(f"{name} ({layout.name}, batch {batch})", t,
+                 (batch,) + layout.physical_shape(ncomp, nsites), device)
     return layout.descriptor()
 
 

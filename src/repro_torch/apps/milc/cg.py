@@ -14,6 +14,29 @@ hand-written kernel.
 The iteration is a host loop.  alpha, beta, rr and pap stay 0-d device
 tensors that the kernels read through pointers; the only host
 synchronisation per iteration is the convergence test.
+
+The batched CG (multi-simulation serving, :func:`cg_batched`) runs one
+convergence-masked iteration over a stack of independent right-hand sides
+under one shared operator: the normal operator and the masked update chain
+each run once for the whole stack (``masked_cg_update_graph``,
+``cg_xpay_masked``, ``dot_prod``; on "cuda" K5B, K3B and K1's product
+with K2B's folds), and each slot takes exactly the single solve's steps.  What keeps a slot's
+bits the single solve's, where the code handles it:
+
+1. the component fold: every inner product folds its per-component sums
+   through ``core.reduce.fold_components``, single and batched alike
+   (:func:`dot`, :func:`batched_dot`, :func:`make_fused_normal`, the rr of
+   both loops);
+2. the scalar guards: alpha and beta are ``where(act, rr / where(act, pap,
+   1), 0)`` as the JAX package computes them; a live slot divides exactly
+   as the single solve does (:func:`batched_cg_iteration`);
+3. empty slots: an all-zero rhs has ``b2 == 0``, its ``rr / b2`` is NaN and
+   compares false, so it never goes live (:func:`batched_cg_active`);
+4. admission: a request's rhs and ``|rhs|^2`` come from the single-lattice
+   ``apply_mdag`` and :func:`dot` (``launch.serve``, ``driver.solve_batched``).
+
+Mixed precision (``refine_every > 0``, ``batched_cg_refresh``) is not yet
+ported (ROADMAP item 18) and raises.
 """
 
 from __future__ import annotations
@@ -22,9 +45,10 @@ from typing import Callable, NamedTuple, Optional, Tuple
 
 import torch
 
-from repro_torch.core import Field, LaunchGraph, TargetConfig, launch, target_sum
+from repro_torch.core import BatchedField, Field, LaunchGraph, TargetConfig, launch, target_sum
 from repro_torch.core import fuse
 from repro_torch.core.fuse import register_cuda_graph
+from repro_torch.core.reduce import fold_components
 from repro_torch.core.target import register_cuda_body, site_axpy, site_g5, site_mul
 from repro_torch.kernels.wilson_dslash import dslash
 from repro_torch.kernels.wilson_dslash.kernel import wilson_normal_cuda
@@ -54,6 +78,15 @@ def _square_body(v):
 
 def _mul_body(v):
     return {"out": v["x"] * v["y"]}
+
+
+def _masked_fma_body(v):
+    """y + a*x where the per-request mask is set, y (bitwise) elsewhere.
+
+    The frozen branch must be a *select*, not arithmetic masking: y + 0*x
+    flips -0.0 to +0.0 and poisons on non-finite x, so a converged
+    request's state would drift from its single-solve bits."""
+    return {"out": torch.where(v["m"] > 0, v["y"] + v["a"] * v["x"], v["y"])}
 
 
 def _g5_body(v):
@@ -111,12 +144,78 @@ def fused_cg_update(x: Field, r: Field, p: Field, ap: Field, alpha,
     return x.with_data(out["x_new"].data), r.with_data(out["r_new"].data), out["rr"]
 
 
+def masked_cg_update_graph(ncomp: int) -> LaunchGraph:
+    """The batched-serving variant of :func:`cg_update_graph`: the x/r
+    updates select per request on the runtime mask scalar ``m`` (1 while
+    the request iterates, 0 once converged), so a frozen slot's x, r and
+    residual terms are its inputs' bits while live slots update exactly as
+    the unmasked chain would."""
+    return (
+        LaunchGraph("cg_update_masked")
+        .add(_masked_fma_body, {"x": "p", "y": "x", "a": "alpha", "m": "m"},
+             {"out": ncomp}, rename={"out": "x_new"})
+        .add(_masked_fma_body, {"x": "ap", "y": "r", "a": "neg_alpha", "m": "m"},
+             {"out": ncomp}, rename={"out": "r_new"})
+        .add(_square_body, {"x": "r_new"}, {"out": ncomp},
+             rename={"out": "rr_prod"})
+        .add_reduce("rr_prod", op="sum", name="rr")
+    )
+
+
+def fused_masked_cg_update(x, r, p, ap, alpha, mask, config: TargetConfig):
+    """The per-request-masked CG update chain, one fused launch over the
+    whole batch; ``alpha`` and ``mask`` are (batch,) vectors.  Returns
+    (x_new, r_new, rr (batch, ncomp))."""
+    out = masked_cg_update_graph(x.ncomp).launch(
+        {"x": x, "r": r, "p": p, "ap": ap},
+        scalars={"alpha": alpha, "neg_alpha": -alpha, "m": mask},
+        config=config,
+        outputs=("x_new", "r_new", "rr"),
+        out_layouts={"x_new": x.layout, "r_new": r.layout},
+    )
+    return x.with_data(out["x_new"].data), r.with_data(out["r_new"].data), out["rr"]
+
+
+def masked_xpay_graph(ncomp: int) -> LaunchGraph:
+    """where(m > 0, y + a*x, y) with runtime a and m, as a one-stage graph."""
+    return LaunchGraph("cg_xpay_masked").add(
+        _masked_fma_body, {"x": "x", "y": "y", "a": "a", "m": "m"}, {"out": ncomp})
+
+
+def fused_masked_xpay(y, a, x, mask, config: TargetConfig):
+    """The masked p-update, the batched form of :func:`fused_xpay`: y + a*x
+    where the request is live.  As in the JAX package's graph, a frozen slot
+    takes y's bits (there r, which the masked update chain froze); no live
+    value ever reads a frozen slot's p.  Keeps x's name and layout."""
+    out = masked_xpay_graph(x.ncomp).launch(
+        {"x": x, "y": y}, scalars={"a": a, "m": mask}, config=config,
+        out_layouts={"out": x.layout})["out"]
+    return x.with_data(out.data)
+
+
 def dot(x: Field, y: Field, config: TargetConfig) -> torch.Tensor:
     """<x, y> as the real inner product over all components/sites, a 0-d
-    tensor on the fields' device."""
+    tensor on the fields' device (components folded by
+    ``fold_components``)."""
     prod = launch(_mul_body, {"x": x, "y": y}, {"out": x.ncomp},
                   config=config)["out"]
-    return target_sum(prod, config).sum()
+    return fold_components(target_sum(prod, config))
+
+
+def dot_prod_graph(ncomp: int) -> LaunchGraph:
+    """The per-site product of the batched dot, as a one-stage graph."""
+    return LaunchGraph("dot_prod").add(_mul_body, {"x": "x", "y": "y"}, {"out": ncomp},
+                                       rename={"out": "p"})
+
+
+def batched_dot(x: BatchedField, y: BatchedField, config: TargetConfig) -> torch.Tensor:
+    """Per-request <x, y> over a batch, shape (batch,): each element bitwise
+    :func:`dot` of the corresponding slots (the product is exact, the
+    batched ``target_sum`` folds each row as the single one, and both fold
+    their components through ``fold_components``)."""
+    prod = dot_prod_graph(x.ncomp).launch({"x": x, "y": y}, config=config,
+                                          out_layouts={"p": x.layout})["p"]
+    return fold_components(target_sum(prod, config))
 
 
 def g5(psi: Field, config: TargetConfig) -> Field:
@@ -146,13 +245,16 @@ def wilson_normal_graph(kappa: float) -> LaunchGraph:
 
 def make_fused_normal(u: Field, kappa: float, config: TargetConfig):
     """Returns apply(p) -> (A p, <p, A p>) through the fused graph
-    (A = M^dag M); ap keeps p's name and layout, <p, A p> is 0-d."""
+    (A = M^dag M); ap keeps p's name and layout, <p, A p> is 0-d.  ``p`` may
+    be a BatchedField (u is shared by every slot): ap comes back batched and
+    the inner product per request, shape (batch,), each slot bitwise the
+    single launch's (``fold_components`` over the last axis)."""
     bound = wilson_normal_graph(float(kappa)).bind(
         config=config, outputs=("ap", "pap"))
 
-    def apply(p: Field):
+    def apply(p):
         out = bound({"p": p, "u": u}, out_layouts={"ap": p.layout})
-        return p.with_data(out["ap"].data), out["pap"].sum(dim=-1)
+        return p.with_data(out["ap"].data), fold_components(out["pap"])
 
     return apply
 
@@ -208,12 +310,100 @@ def cg(
             ap = apply_a(p)
             alpha = rr / dot(p, ap, config)
         x, r, rr_vec = fused_cg_update(x, r, p, ap, alpha, config)
-        rr_new = rr_vec.sum()
+        rr_new = fold_components(rr_vec)
         beta = rr_new / rr
         p = fused_xpay(r, beta, p, config)
         rr = rr_new
         it += 1
     return CGResult(x=x, iterations=it, residual=rr / b2)
+
+
+# -- batched CG (multi-simulation serving) ------------------------------------
+
+class BatchedCGState(NamedTuple):
+    """Per-slot CG state for a batch of independent same-lattice solves.
+
+    A slot is live while ``rr / b2 > tol`` and ``it < max_iter``; an empty
+    slot (all-zero rhs) has ``b2 == 0`` and is inert (``0/0`` compares
+    false), so a partly filled batch runs with no special case."""
+
+    x: BatchedField
+    r: BatchedField
+    p: BatchedField
+    rr: torch.Tensor   # (batch,) |r|^2 per slot
+    b2: torch.Tensor   # (batch,) |rhs|^2 per slot
+    it: torch.Tensor   # (batch,) int32, active iterations taken
+
+
+class BatchedCGResult(NamedTuple):
+    x: BatchedField
+    iterations: torch.Tensor  # (batch,) int32
+    residual: torch.Tensor    # (batch,) final |r|^2 / |b|^2 per slot
+
+
+def batched_cg_state(rhs: BatchedField, config: TargetConfig) -> BatchedCGState:
+    """Initial state: x = 0, r = p = rhs, per-slot norms, each slot set up as
+    :func:`cg` sets up a single solve."""
+    b2 = batched_dot(rhs, rhs, config)
+    return BatchedCGState(x=rhs.with_data(torch.zeros_like(rhs.data)), r=rhs, p=rhs,
+                          rr=b2, b2=b2,
+                          it=torch.zeros((rhs.batch,), dtype=torch.int32, device=rhs.device))
+
+
+def batched_cg_active(state: BatchedCGState, *, tol: float, max_iter: int) -> torch.Tensor:
+    """(batch,) liveness mask: per slot, the single loop's condition
+    ``rr / b2 > tol and it < max_iter`` (false for an empty slot: 0/0 is
+    NaN, and NaN compares false)."""
+    return (state.rr / state.b2 > tol) & (state.it < max_iter)
+
+
+def batched_cg_iteration(state: BatchedCGState, apply_a_dot, *, config: TargetConfig,
+                         tol: float, max_iter: int) -> BatchedCGState:
+    """One convergence-masked CG iteration over the whole batch: the fused
+    normal operator and the fused masked update chain each run once for the
+    stack.  A live slot takes exactly the single solve's step (the masked
+    kernels select the identically computed update); a converged or empty
+    slot's x, r and rr are bitwise frozen."""
+    act = batched_cg_active(state, tol=tol, max_iter=max_iter)
+    m = act.to(state.r.dtype)
+    ap, pap = apply_a_dot(state.p)
+    # guard the frozen slots' divides (their alpha and beta are never used);
+    # a live slot's rr / pap is the single solve's IEEE division
+    alpha = torch.where(act, state.rr / torch.where(act, pap, 1.0), 0.0)
+    x, r, rr_vec = fused_masked_cg_update(state.x, state.r, state.p, ap, alpha, m, config)
+    rr_new = torch.where(act, fold_components(rr_vec), state.rr)
+    beta = torch.where(act, rr_new / torch.where(act, state.rr, 1.0), 0.0)
+    p = fused_masked_xpay(r, beta, state.p, m, config)
+    return BatchedCGState(x=x, r=r, p=p, rr=rr_new, b2=state.b2,
+                          it=state.it + act.to(state.it.dtype))
+
+
+def batched_cg_refresh(*args, **kwargs):
+    """The reliable-update restart of mixed-precision serving: not yet
+    ported (ROADMAP item 18)."""
+    raise ValueError("batched_cg_refresh (mixed-precision serving, refine_every > 0) is "
+                     "not yet ported")
+
+
+def cg_batched(apply_a_dot, rhs: BatchedField, *, config: TargetConfig, tol: float = 1e-8,
+               max_iter: int = 500, refine_every: int = 0) -> BatchedCGResult:
+    """CG on a stack of independent right-hand sides under one shared
+    operator, per-request convergence-masked, as a host loop: every
+    iteration runs one fused operator launch and one fused update launch
+    for the whole batch, and each slot's trajectory is bitwise :func:`cg`
+    on that slot alone.  The loop runs until every slot has converged or
+    hit max_iter; slots that finish early ride along frozen.  Only
+    ``refine_every=0`` is ported (mixed precision, ROADMAP item 18,
+    raises)."""
+    if refine_every > 0:
+        raise ValueError("cg_batched(refine_every > 0) selects mixed-precision serving "
+                         "(batched_cg_refresh), which is not yet ported")
+    state = batched_cg_state(rhs, config)
+    # the "any slot live" test is the one host synchronisation per iteration
+    while bool(batched_cg_active(state, tol=tol, max_iter=max_iter).any()):
+        state = batched_cg_iteration(state, apply_a_dot, config=config, tol=tol,
+                                     max_iter=max_iter)
+    return BatchedCGResult(x=state.x, iterations=state.it, residual=state.rr / state.b2)
 
 
 # -- the hand-written kernels behind these bodies and graphs on "cuda" --------------
@@ -257,15 +447,54 @@ def _cg_xpay_cuda(graph, ins, scalars, *, lattice, vvl, out_layouts):
     return {"out": fuse.cg_xpay(ins["x"][0], ins["y"][0], scalars["a"], vvl, layouts=lays)}
 
 
-def _wilson_normal_cuda(graph, ins, scalars, *, lattice, vvl, out_layouts):
+def _normal_kappa(graph) -> float:
     params = graph.stage_params()
     kappa = params[1]["kappa"]
     if params[3]["kappa"] != kappa:
         raise ValueError("wilson_normal: both g5(psi - kappa d) stages must "
                          "share one kappa")
+    return kappa
+
+
+def _wilson_normal_cuda(graph, ins, scalars, *, lattice, vvl, out_layouts):
     lays = _lays(ins, {"p": "p", "u": "u"}, out_layouts)
-    ap, pap = wilson_normal_cuda(ins["p"][0], ins["u"][0], kappa, lattice, vvl, layouts=lays)
+    ap, pap = wilson_normal_cuda(ins["p"][0], ins["u"][0], _normal_kappa(graph), lattice, vvl,
+                                 layouts=lays)
     return {"ap": ap, "pap": pap}
+
+
+# The batch instances (K5B, K3B): each takes its inputs stacked or shared as
+# ``in_batched`` says, and its scalars as (batch,) device vectors.
+
+def _wilson_normal_batched_cuda(graph, ins, scalars, *, lattice, vvl, out_layouts, batch,
+                                in_batched):
+    if not in_batched["p"] or in_batched["u"]:
+        raise ValueError("wilson_normal's batch instance takes a BatchedField p and one "
+                         "gauge Field u shared by every slot")
+    lays = _lays(ins, {"p": "p", "u": "u"}, out_layouts)
+    ap, pap = wilson_normal_cuda(ins["p"][0], ins["u"][0], _normal_kappa(graph), lattice, vvl,
+                                 layouts=lays, batched=True)
+    return {"ap": ap, "pap": pap}
+
+
+def _cg_update_masked_cuda(graph, ins, scalars, *, lattice, vvl, out_layouts, batch,
+                           in_batched):
+    lays = _lays(ins, {n: n for n in ("x", "r", "p", "ap")}, out_layouts)
+    x_new, r_new, rr = fuse.cg_update_masked(
+        ins["x"][0], ins["r"][0], ins["p"][0], ins["ap"][0], scalars["alpha"],
+        scalars["neg_alpha"], scalars["m"], vvl, layouts=lays)
+    return {"x_new": x_new, "r_new": r_new, "rr": rr}
+
+
+def _cg_xpay_masked_cuda(graph, ins, scalars, *, lattice, vvl, out_layouts, batch, in_batched):
+    lays = _lays(ins, {"x": "x", "y": "y"}, out_layouts)
+    return {"out": fuse.cg_xpay_masked(ins["x"][0], ins["y"][0], scalars["a"], scalars["m"],
+                                       vvl, layouts=lays)}
+
+
+def _dot_prod_cuda(graph, ins, scalars, *, lattice, vvl, out_layouts, batch, in_batched):
+    lays = _lays(ins, {"x": "x", "y": "y"}, {"out": out_layouts["p"]})
+    return {"p": site_mul(ins["x"][0], ins["y"][0], vvl, layouts=lays, batch=batch)}
 
 
 register_cuda_body(_g5_body, _g5_cuda)
@@ -273,4 +502,9 @@ register_cuda_body(_mul_body, _mul_cuda)
 register_cuda_body(_axpy_body, _axpy_cuda)
 register_cuda_graph(cg_update_graph(24), _cg_update_cuda, ("x_new", "r_new", "rr"))
 register_cuda_graph(cg_xpay_graph(24), _cg_xpay_cuda, ("out",))
-register_cuda_graph(wilson_normal_graph(0.0), _wilson_normal_cuda, ("ap", "pap"))
+register_cuda_graph(wilson_normal_graph(0.0), _wilson_normal_cuda, ("ap", "pap"),
+                    batched=_wilson_normal_batched_cuda)
+register_cuda_graph(masked_cg_update_graph(24), None, ("x_new", "r_new", "rr"),
+                    batched=_cg_update_masked_cuda)
+register_cuda_graph(masked_xpay_graph(24), None, ("out",), batched=_cg_xpay_masked_cuda)
+register_cuda_graph(dot_prod_graph(24), None, ("p",), batched=_dot_prod_cuda)

@@ -5,7 +5,8 @@ A Field crosses as plain numpy data: its physical array, lattice, layout
 name and ncomp.  Physical shapes are the same in both packages, so the
 numbers pass through unchanged (bitwise).  This module does not import the
 JAX package: a caller holding a JAX Field passes ``np.asarray(f.data)``,
-``f.lattice``, ``f.layout.name`` and ``f.ncomp``; for a Ludwig state, the
+``f.lattice``, ``f.layout.name`` and ``f.ncomp`` (a BatchedField likewise,
+its physical array carrying the leading batch axis); for a Ludwig state, the
 physical arrays of its ``dist`` and ``q`` with their shared lattice and
 layout name.  A plan crosses as the JAX package's
 ``LoweringPlan.to_json()`` dictionary (:func:`to_plan`).  LM parameters
@@ -22,12 +23,12 @@ import numpy as np
 import torch
 
 from repro_torch.apps.ludwig.driver import LudwigState
-from repro_torch.core.field import Field, resolve_device
+from repro_torch.core.field import BatchedField, Field, resolve_device
 from repro_torch.core.layout import parse_layout
 from repro_torch.core.plan import LoweringPlan
 
-__all__ = ["to_field", "from_field", "to_ludwig_state", "from_ludwig_state", "to_plan",
-           "to_lm_params"]
+__all__ = ["to_field", "from_field", "to_batched_field", "from_batched_field",
+           "to_ludwig_state", "from_ludwig_state", "to_plan", "to_lm_params"]
 
 _ENGINES = {"pallas": "cuda", "jnp": "torch"}
 
@@ -49,6 +50,27 @@ def to_field(name: str, physical: np.ndarray, lattice: Sequence[int],
 
 def from_field(field: Field) -> Tuple[np.ndarray, Tuple[int, ...], str, int]:
     """(physical array, lattice, layout name, ncomp) of a port Field."""
+    return (field.data.detach().cpu().numpy(), field.lattice, field.layout.name,
+            field.ncomp)
+
+
+def to_batched_field(name: str, physical: np.ndarray, lattice: Sequence[int],
+                     layout_name: str, ncomp: int, device="cpu") -> BatchedField:
+    """The port's BatchedField holding ``physical`` (bitwise), whose leading
+    axis is the batch, on ``device``."""
+    physical = np.asarray(physical)
+    if physical.ndim < 1:
+        raise ValueError(f"{name}: a batched physical array needs a leading batch axis")
+    slots = [to_field(f"{name}[{b}]", e, lattice, layout_name, ncomp, device)
+             for b, e in enumerate(physical)]
+    if not slots:
+        raise ValueError(f"{name}: a batch of no fields")
+    return BatchedField.stack(slots, name=name)
+
+
+def from_batched_field(field: BatchedField) -> Tuple[np.ndarray, Tuple[int, ...], str, int]:
+    """(physical array with its leading batch axis, lattice, layout name,
+    ncomp) of a port BatchedField."""
     return (field.data.detach().cpu().numpy(), field.lattice, field.layout.name,
             field.ncomp)
 

@@ -1,7 +1,7 @@
 """targetDP core in PyTorch: the paper's abstraction layer, for one GPU.
 
 Layout (INDEX macro)  ->  core.layout
-Field                  ->  core.field
+Field, BatchedField   ->  core.field
 Lowering plans (VVL)   ->  core.plan
 Engines / launch       ->  core.target   (engine "torch" or "cuda")
 Reductions             ->  core.reduce   (targetDoubleSum ...)
@@ -12,7 +12,7 @@ Kernel fusion          ->  core.fuse     (LaunchGraph)
 from .layout import (  # noqa: F401
     AOS, SOA, Layout, LayoutKind, aosoa, parse_layout, tileable_layout,
 )
-from .field import Field  # noqa: F401
+from .field import BatchedField, Field  # noqa: F401
 from .plan import LoweringPlan, choose_vvl  # noqa: F401
 from .target import TargetConfig, TargetKernel, kernel, launch  # noqa: F401
 from .reduce import target_max, target_sum  # noqa: F401

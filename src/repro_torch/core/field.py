@@ -3,7 +3,9 @@
 A Field is ``ncomp`` components at every site of a lattice, physically
 stored per its Layout (paper §3.1) in a ``torch.Tensor`` on some device.
 Kernels (core.target) consume and produce Fields; a kernel body only ever
-sees canonical ``(ncomp, sites)`` tensors.
+sees canonical ``(ncomp, sites)`` tensors.  A :class:`BatchedField` stacks
+independent same-shape Fields on a leading batch axis (the serving path's
+slots).
 """
 
 from __future__ import annotations
@@ -17,7 +19,7 @@ import torch
 
 from .layout import Layout, SOA
 
-__all__ = ["Field", "resolve_device"]
+__all__ = ["Field", "BatchedField", "resolve_device"]
 
 
 def resolve_device(device) -> torch.device:
@@ -112,5 +114,126 @@ class Field:
         return (
             f"Field({self.name!r}, ncomp={self.ncomp}, lattice={self.lattice}, "
             f"layout={self.layout.name}, dtype={self.dtype}, "
+            f"device={self.device})"
+        )
+
+
+@dataclasses.dataclass
+class BatchedField:
+    """A stack of ``batch`` independent same-shape Fields on one leading axis.
+
+    data has shape ``(batch,) + layout.physical_shape(ncomp, nsites)``:
+    every batch element is an ordinary Field's physical tensor, so
+    ``element(b)`` / ``unstack()`` round-trip bitwise.  The serving layer
+    (launch.serve) packs many solves into one of these, and a fused launch
+    runs the whole stack through one kernel with the slot as a grid axis
+    (core.fuse).  Updates are functional, as in the JAX package: ``with_*``
+    return a new BatchedField and never write into ``data``.
+    """
+
+    name: str
+    batch: int
+    ncomp: int
+    lattice: Tuple[int, ...]
+    layout: Layout
+    data: torch.Tensor
+
+    @classmethod
+    def stack(cls, fields, name=None):
+        """Stack same-(ncomp, lattice, layout) Fields along a new batch axis."""
+        fields = list(fields)
+        if not fields:
+            raise ValueError("BatchedField.stack needs at least one Field")
+        f0 = fields[0]
+        for f in fields[1:]:
+            if (f.ncomp, f.lattice, f.layout) != (f0.ncomp, f0.lattice, f0.layout):
+                raise ValueError(
+                    f"cannot stack {f!r} with {f0!r}: batch elements must "
+                    f"share ncomp, lattice and layout")
+        return cls(name or f0.name, len(fields), f0.ncomp, f0.lattice, f0.layout,
+                   torch.stack([f.data for f in fields]))
+
+    @classmethod
+    def zeros(cls, name, batch, ncomp, lattice, layout=SOA, dtype=torch.float32,
+              device="cpu"):
+        shape = (batch,) + layout.physical_shape(ncomp, math.prod(lattice))
+        return cls(name, batch, ncomp, tuple(lattice), layout,
+                   torch.zeros(shape, dtype=dtype, device=resolve_device(device)))
+
+    @classmethod
+    def from_canonical(cls, name, canonical, lattice, layout=SOA):
+        """canonical: (batch, ncomp, *lattice) or (batch, ncomp, nsites) tensor."""
+        batch, ncomp = canonical.shape[:2]
+        flat = canonical.reshape(batch, ncomp, math.prod(lattice))
+        return cls(name, batch, ncomp, tuple(lattice), layout,
+                   torch.stack([layout.pack(c) for c in flat]))
+
+    @property
+    def nsites(self) -> int:
+        return math.prod(self.lattice)
+
+    @property
+    def dtype(self):
+        return self.data.dtype
+
+    @property
+    def device(self) -> torch.device:
+        return self.data.device
+
+    def element(self, b: int) -> Field:
+        """Batch element ``b`` as an ordinary Field (a view of the stacked
+        data, bitwise)."""
+        return Field(f"{self.name}[{b}]", self.ncomp, self.lattice, self.layout,
+                     self.data[b])
+
+    def unstack(self):
+        return [self.element(b) for b in range(self.batch)]
+
+    def canonical(self) -> torch.Tensor:
+        """(batch, ncomp, nsites) logical values (layout-independent)."""
+        return torch.stack([self.layout.unpack(d) for d in self.data])
+
+    def canonical_nd(self) -> torch.Tensor:
+        """(batch, ncomp, *lattice) logical values."""
+        return self.canonical().reshape((self.batch, self.ncomp) + self.lattice)
+
+    def to_numpy(self) -> np.ndarray:
+        return self.canonical_nd().detach().cpu().numpy()
+
+    def with_data(self, data: torch.Tensor) -> "BatchedField":
+        """This BatchedField holding ``data``, which must already be in its
+        layout: shape ``(batch,) + layout.physical_shape(ncomp, nsites)``."""
+        want = (self.batch,) + self.layout.physical_shape(self.ncomp, self.nsites)
+        if tuple(data.shape) != want:
+            raise ValueError(
+                f"BatchedField {self.name!r}: data of shape {tuple(data.shape)} is "
+                f"not {self.batch} fields in its layout {self.layout.name} "
+                f"(physical shape {want})")
+        return dataclasses.replace(self, data=data)
+
+    def with_element(self, b: int, field: Field) -> "BatchedField":
+        """Replace batch slot ``b`` with a Field's values (relayout to this
+        stack's layout first); every other slot's bits are copied unchanged."""
+        if (field.ncomp, field.lattice) != (self.ncomp, self.lattice):
+            raise ValueError(
+                f"cannot put {field!r} into slot {b} of {self!r}: ncomp and "
+                f"lattice must match")
+        data = self.data.clone()
+        data[b] = field.as_layout(self.layout).data
+        return dataclasses.replace(self, data=data)
+
+    def as_layout(self, layout: Layout) -> "BatchedField":
+        """The same values in ``layout``, repacked slot by slot with torch
+        ops (set-up, not a kernel)."""
+        if layout == self.layout:
+            return self
+        return dataclasses.replace(
+            self, layout=layout,
+            data=torch.stack([layout.pack(self.layout.unpack(d)) for d in self.data]))
+
+    def __repr__(self) -> str:  # pragma: no cover - cosmetic
+        return (
+            f"BatchedField({self.name!r}, batch={self.batch}, ncomp={self.ncomp}, "
+            f"lattice={self.lattice}, layout={self.layout.name}, dtype={self.dtype}, "
             f"device={self.device})"
         )

@@ -13,6 +13,12 @@ reductions):
                  semantics), returned per component as an ``(ncomp,)``
                  tensor.
 
+A launch takes Fields or BatchedFields.  BatchedField inputs share one
+batch size; a plain Field input (MILC's gauge field) is shared by every
+slot; a scalar is a number, a 0-d tensor or a ``(batch,)`` per-slot vector.
+Field outputs come back as BatchedFields and reductions as ``(batch,
+ncomp)``, each slot bitwise the single launch on that slot.
+
 Engines:
 
 ``"torch"``  runs the composed bodies over whole-lattice tensors.  Stencil
@@ -31,7 +37,12 @@ Engines:
              ``core.plan``) runs the graph's registered tiled kernel
              instead, and raises when there is none or when its two window
              slots exceed the shared memory one block may hold: it never
-             falls back to the untiled kernel or to torch ops.
+             falls back to the untiled kernel or to torch ops.  A batched
+             launch runs the graph's registered batched kernel (the slot a
+             grid axis) and raises when there is none.
+
+On "torch" a batched launch runs the single launch slot by slot and stacks
+the results, so each slot is the single launch's bits by construction.
 
 :func:`tiled_plain` is the tiled lowering in torch ops, tile by tile in the
 tiled kernels' order: the plain version every tiled kernel is held against.
@@ -40,28 +51,32 @@ Only ``halo="periodic"`` (single device) is ported; the sharded ``"pre"``
 and ``"overlap"`` strategies raise.  This module also holds K3, the flat
 fused CG kernels (``csrc/fused_flat.cu``) that replace the JAX package's
 ``LaunchGraph._build_flat`` for the ``cg_update`` and ``cg_xpay`` graphs,
-each beside its plain PyTorch version.
+and K3B, its batch instances for the serving chains (``cg_update_masked``,
+``cg_xpay_masked``), each beside its plain PyTorch version; the third,
+``dot_prod``, is ``target.site_mul`` with a batch.
 """
 
 from __future__ import annotations
 
 import dataclasses
 import math
-from typing import Callable, Dict, List, Mapping, Optional, Sequence, Tuple, Union
+from typing import Callable, Dict, List, Mapping, NamedTuple, Optional, Sequence, Tuple, Union
 
 import torch
 
 from .._cuda import Kernel, check_field, check_tensor
-from .field import Field
+from .field import BatchedField, Field
 from .layout import Layout, resolve_layouts
 from .plan import (SMEM_PER_BLOCK_OPTIN, LoweringPlan, default_plan,
                    estimate_smem_bytes, policy_plan)
-from .reduce import fold_partials
+from .reduce import fold_partials, fold_partials_batched
 from .stencil import halo_pad, tile_boxes
-from .target import TargetConfig, TargetKernel, require_cuda
+from .target import (TargetConfig, TargetKernel, batch_operand, operand_shape, operand_slot,
+                     require_cuda)
 
 __all__ = ["LaunchGraph", "BoundLaunch", "ReduceSpec", "register_cuda_graph",
-           "tiled_plain", "cg_update", "cg_xpay", "CG_UPDATE", "CG_XPAY"]
+           "tiled_plain", "cg_update", "cg_xpay", "CG_UPDATE", "CG_XPAY",
+           "cg_update_masked", "cg_xpay_masked", "CG_UPDATE_MASKED", "CG_XPAY_MASKED"]
 
 _RED_COMBINE = {"sum": torch.add, "max": torch.maximum}
 _RED_FOLD = {"sum": lambda x, dim: x.sum(dim=dim),
@@ -126,23 +141,43 @@ class _Stage:
                 tuple(k for k, _ in self.params))
 
 
-# LaunchGraph.structure() -> (impl, outputs the kernels produce, tiled impl)
-_CUDA_GRAPHS: Dict[tuple, Tuple[Callable, Tuple[str, ...], Optional[Callable]]] = {}
+class _CudaEntry(NamedTuple):
+    impl: Optional[Callable]        # the untiled single-lattice kernel
+    outputs: Tuple[str, ...]        # what the kernels produce
+    tiled: Optional[Callable]       # the tiled kernel
+    batched: Optional[Callable]     # the batch instance
 
 
-def register_cuda_graph(graph: "LaunchGraph", impl: Callable,
+# LaunchGraph.structure() -> its kernels
+_CUDA_GRAPHS: Dict[tuple, _CudaEntry] = {}
+
+
+def register_cuda_graph(graph: "LaunchGraph", impl: Optional[Callable],
                         outputs: Sequence[str],
-                        tiled: Optional[Callable] = None) -> None:
+                        tiled: Optional[Callable] = None,
+                        batched: Optional[Callable] = None) -> None:
     """Run ``impl(graph, ins, scalars, lattice=, vvl=, out_layouts=)`` for
-    every graph of ``graph``'s structure on the cuda engine, and
+    every graph of ``graph``'s structure on the cuda engine,
     ``tiled(graph, ins, scalars, lattice=, plan=, out_layouts=)`` under a
-    tiled plan.  ``ins`` maps value names to (physical tensor, Layout),
-    ``scalars`` to 0-d device tensors, ``out_layouts`` each requested
-    field output to its Layout; both return every name in ``outputs``:
-    fields as physical tensors the kernel wrote in their layouts,
-    reductions (ncomp,).  A tiled plan only ever sees SoA fields (the
-    planner refuses others)."""
-    _CUDA_GRAPHS[graph.structure()] = (impl, tuple(outputs), tiled)
+    tiled plan and ``batched(graph, ins, scalars, lattice=, vvl=,
+    out_layouts=, batch=, in_batched=)`` for a batched launch.  ``ins``
+    maps value names to (physical tensor, Layout), ``scalars`` to 0-d
+    device tensors (``(batch,)`` ones for ``batched``), ``out_layouts`` each
+    requested field output to its Layout, ``in_batched`` each input to
+    whether it is a stack of ``batch`` fields (else one shared field); each
+    returns every name in ``outputs``: fields as physical tensors the kernel
+    wrote in their layouts (``(batch,) + physical`` when batched),
+    reductions (ncomp,) (``(batch, ncomp)``).  A tiled plan only ever sees
+    SoA fields (the planner refuses others).  ``impl`` may be None for a
+    graph that only the serving path launches, batched."""
+    _CUDA_GRAPHS[graph.structure()] = _CudaEntry(impl, tuple(outputs), tiled, batched)
+
+
+def _slot_scalar(v, b: int):
+    """Slot ``b``'s value of a batched launch's scalar: the ``(batch,)``
+    vector's element, or the scalar itself."""
+    t = v if isinstance(v, torch.Tensor) else torch.as_tensor(v)
+    return t[b] if t.dim() == 1 else v
 
 
 class LaunchGraph:
@@ -366,12 +401,16 @@ class LaunchGraph:
     ) -> Dict[str, Union[Field, torch.Tensor]]:
         """Execute the fused chain.
 
-        ins         graph value name -> input Field (all sharing a lattice).
+        ins         graph value name -> input Field or BatchedField (all
+                    sharing a lattice; BatchedFields one batch size, Fields
+                    shared by every slot).
         outputs     graph value names to return (default: the last stage's
-                    outputs).  Reductions come back as (ncomp,) tensors,
-                    everything else as Fields.
+                    outputs).  Reductions come back as (ncomp,) tensors
+                    ((batch, ncomp) when batched), everything else as Fields
+                    (BatchedFields).
         scalars     graph value name -> runtime scalar (a number or a 0-d
-                    tensor; the cuda kernels read it on the device).
+                    tensor, or, in a batched launch, a (batch,) per-slot
+                    vector; the cuda kernels read it on the device).
         out_layouts graph output name -> Layout (default: first input's).
         halo        "periodic" (single device); "pre"/"overlap" are not yet
                     ported.
@@ -393,6 +432,18 @@ class LaunchGraph:
         stencil = self.has_stencil
 
         first = next(iter(ins.values()))
+        # the leading batch axis: BatchedField inputs stack `batch`
+        # independent same-shape lattices; plain Fields are shared by every
+        # slot (one gauge field serving many right-hand sides)
+        in_batch = {n: f.batch if isinstance(f, BatchedField) else 0 for n, f in ins.items()}
+        batch = max(in_batch.values(), default=0)
+        if batch:
+            bad_b = {n: b for n, b in in_batch.items() if b not in (0, batch)}
+            if bad_b:
+                raise ValueError(
+                    f"batched inputs disagree on the batch size: {bad_b} vs {batch}; "
+                    f"every BatchedField in one launch must stack the same number "
+                    f"of lattices")
         double = sorted(set(ins) & set(scalars))
         if double:
             raise ValueError(
@@ -406,6 +457,14 @@ class LaunchGraph:
                 f"stage and not supplied as inputs or scalars")
         ordered_ins = [n for n in ext if n in ins]
         ordered_scalars = [n for n in ext if n in scalars]
+        if batch:
+            for n in ordered_scalars:
+                v = scalars[n]
+                shape = tuple((v if isinstance(v, torch.Tensor) else torch.as_tensor(v)).shape)
+                if shape not in ((), (batch,)):
+                    raise ValueError(
+                        f"batched launch scalar {n!r} must be a scalar or a "
+                        f"({batch},) per-request vector, got shape {shape}")
 
         prod = self._produced()
         if outputs is None:
@@ -455,12 +514,16 @@ class LaunchGraph:
             plan = policy_plan(config)
         if plan is None:
             plan = default_plan(config, nsites=nsites, layouts=all_layouts,
-                                stencil=stencil, lattice=lattice, smem_views=smem_views)
+                                stencil=stencil, lattice=lattice, smem_views=smem_views,
+                                batch=batch)
         else:
             plan.validate(nsites=nsites, lattice=lattice, layouts=all_layouts,
-                          stencil=stencil)
+                          stencil=stencil, batch=batch)
 
-        if plan.engine == "torch":
+        if plan.engine == "torch" and batch:
+            vals = self._launch_torch_batched(ins, in_batch, scalars, batch, outputs,
+                                              out_layouts, plan, red_names)
+        elif plan.engine == "torch":
             vals = self._launch_torch(ins, ordered_ins, scalars, ordered_scalars,
                                       outputs, stencil, lattice, first)
             vals = {o: vals[o].to(out_info[o][1]) for o in outputs}
@@ -471,19 +534,40 @@ class LaunchGraph:
             # the kernels' field outputs, already in their layouts
             vals = self._launch_cuda(ins, ordered_ins, scalars, ordered_scalars,
                                      outputs, lattice, plan, first, smem_views,
-                                     {o: out_layouts[o] for o in field_outputs})
+                                     {o: out_layouts[o] for o in field_outputs},
+                                     batch, in_batch)
 
-        out: Dict[str, Union[Field, torch.Tensor]] = {}
+        lead = (batch,) if batch else ()
+        out: Dict[str, Union[Field, BatchedField, torch.Tensor]] = {}
         for o in outputs:
             ncomp, dtype = out_info[o]
             val = vals[o]
-            want = (ncomp,) if o in red_names else out_layouts[o].physical_shape(ncomp, nsites)
+            want = lead + ((ncomp,) if o in red_names
+                           else out_layouts[o].physical_shape(ncomp, nsites))
             if tuple(val.shape) != want or val.dtype != dtype:
                 raise ValueError(
                     f"graph {self.name!r} output {o!r} is {tuple(val.shape)} {val.dtype}, "
                     f"expected {want} {dtype}")
-            out[o] = val if o in red_names else Field(o, ncomp, lattice, out_layouts[o], val)
+            if o in red_names:
+                out[o] = val
+            elif batch:
+                out[o] = BatchedField(o, batch, ncomp, lattice, out_layouts[o], val)
+            else:
+                out[o] = Field(o, ncomp, lattice, out_layouts[o], val)
         return out
+
+    def _launch_torch_batched(self, ins, in_batch, scalars, batch, outputs, out_layouts,
+                              plan, red_names) -> Dict[str, torch.Tensor]:
+        """The torch engine's batched launch: the single launch slot by slot
+        (shared Fields as they are, per-slot scalars picked), stacked."""
+        per = []
+        for b in range(batch):
+            ins_b = {n: f.element(b) if in_batch[n] else f for n, f in ins.items()}
+            per.append(self.launch(ins_b, outputs=outputs, plan=plan,
+                                   scalars={n: _slot_scalar(v, b) for n, v in scalars.items()},
+                                   out_layouts=out_layouts))
+        return {o: torch.stack([r[o] if o in red_names else r[o].data for r in per])
+                for o in outputs}
 
     def _launch_torch(self, ins, ordered_ins, scalars, ordered_scalars,
                       outputs, stencil, lattice, first) -> Dict[str, torch.Tensor]:
@@ -515,18 +599,28 @@ class LaunchGraph:
         return {o: res[o] for o in outputs}
 
     def _launch_cuda(self, ins, ordered_ins, scalars, ordered_scalars, outputs, lattice,
-                     plan, first, smem_views, out_layouts) -> Dict[str, torch.Tensor]:
+                     plan, first, smem_views, out_layouts, batch,
+                     in_batch) -> Dict[str, torch.Tensor]:
         entry = _CUDA_GRAPHS.get(self.structure())
-        if plan.tiled:
+        if batch:
+            if entry is None or entry.batched is None:
+                raise ValueError(
+                    f"cuda engine: no hand-written batched CUDA kernel is registered "
+                    f"for the signature of graph {self.name!r} (register one with "
+                    f"register_cuda_graph(..., batched=), or use engine='torch')")
+            impl, produces = entry.batched, entry.outputs
+            kw = dict(lattice=lattice, vvl=plan.vvl, batch=batch,
+                      in_batched={n: bool(in_batch[n]) for n in ordered_ins})
+        elif plan.tiled:
             impl, produces = self._tiled_entry(entry, plan, lattice, smem_views)
             kw = dict(lattice=lattice, plan=plan)
-        elif entry is None:
+        elif entry is None or entry.impl is None:
             raise ValueError(
                 f"cuda engine: no hand-written CUDA kernel is registered for "
                 f"the signature of graph {self.name!r} (register one with "
                 f"register_cuda_graph, or use engine='torch')")
         else:
-            impl, produces, _ = entry
+            impl, produces = entry.impl, entry.outputs
             kw = dict(lattice=lattice, vvl=plan.vvl)
         extra = [o for o in outputs if o not in produces]
         if extra:
@@ -540,10 +634,10 @@ class LaunchGraph:
             v = scalars[n]
             if isinstance(v, torch.Tensor):
                 require_cuda(f"scalar {n!r}", v)
-                v = v.to(first.dtype).reshape(())
+                v = v.to(first.dtype)
             else:
                 v = torch.tensor(float(v), dtype=first.dtype, device=first.device)
-            svals[n] = v.contiguous()
+            svals[n] = (v.broadcast_to((batch,)) if batch else v.reshape(())).contiguous()
         return impl(self, {n: (ins[n].data, ins[n].layout) for n in ordered_ins}, svals,
                     out_layouts=out_layouts, **kw)
 
@@ -560,12 +654,12 @@ class LaunchGraph:
                 f"cuda engine: graph {self.name!r} under {what}: the two halo'd "
                 f"windows exceed the shared memory one block may opt in to on "
                 f"the H100; choose smaller tiles")
-        if entry is None or entry[2] is None:
+        if entry is None or entry.tiled is None:
             raise ValueError(
                 f"cuda engine: no hand-written tiled kernel is registered for "
                 f"graph {self.name!r} under {what}; its tiled lowering is still "
                 f"to be ported (ROADMAP queue 2, item 8)")
-        return entry[2], entry[1]
+        return entry.tiled, entry.outputs
 
     def _run_stages(self, values: Dict[str, torch.Tensor]) -> Tuple[
             Dict[str, torch.Tensor], Dict[str, torch.Tensor]]:
@@ -834,4 +928,89 @@ def cg_xpay(x, y, a, vvl: int = 128, *, layouts=None):
     out = torch.empty(lay["out"].physical_shape(ncomp, nsites), dtype=x.dtype, device=x.device)
     CG_XPAY.launch(x.device, x.data_ptr(), y.data_ptr(), a.data_ptr(),
                    out.data_ptr(), ncomp, nsites, lx, ly, lay["out"].descriptor(), vvl)
+    return out
+
+
+# -- K3B: the batch instances of the flat chains (the serving path) ----------------
+#
+# Each wrapper takes every field operand either as ``batch`` fields stacked
+# on a leading axis or as one field shared by every slot (told apart by
+# rank), the per-slot scalars as (batch,) device vectors, and ``layouts``
+# (names as in the single wrappers); its outputs are ``batch`` stacked
+# fields.  The mask m selects: where m[b] > 0 the slot takes y + a x, else
+# its y input as it is (so -0.0 and NaN pass through).
+
+CG_UPDATE_MASKED = Kernel("cg_update_masked", "rt_cg_update_masked")
+CG_XPAY_MASKED = Kernel("cg_xpay_masked", "rt_cg_xpay_masked")
+
+
+def _masked_fma(y, a, x, m):
+    """The plain masked update: y + a x where m > 0, y (its bits) elsewhere."""
+    return torch.where(m > 0, y + a * x, y)
+
+
+def cg_update_masked_plain(x, r, p, ap, alpha, neg_alpha, m, layouts=None):
+    """cg_update_masked's arithmetic in torch ops, slot by slot."""
+    lay = resolve_layouts(layouts, _CG_IN, _CG_OUT)
+    xs, rs, rrs = [], [], []
+    for b in range(m.shape[0]):
+        xb, rb, pb, apb = (operand_slot(t, lay[n], b) for n, t in zip(_CG_IN, (x, r, p, ap)))
+        r_new = _masked_fma(rb, neg_alpha[b], apb, m[b])
+        xs.append(lay["x_new"].pack(_masked_fma(xb, alpha[b], pb, m[b])))
+        rs.append(lay["r_new"].pack(r_new))
+        rrs.append((r_new * r_new).sum(dim=1))
+    return torch.stack(xs), torch.stack(rs), torch.stack(rrs)
+
+
+def cg_update_masked(x, r, p, ap, alpha, neg_alpha, m, vvl: int = 128, *, layouts=None):
+    """K3B: the masked CG update over ``batch = m.shape[0]`` slots of
+    24-component fields x, r, p, ap (stacked or shared; ``layouts`` names
+    "x", "r", "p", "ap", "x_new", "r_new") with (batch,) device vectors
+    alpha, neg_alpha, m -> (x_new, r_new, rr (batch, 24)).  One launch plus
+    the per-slot partial fold."""
+    if x.device.type == "cpu":
+        return cg_update_masked_plain(x, r, p, ap, alpha, neg_alpha, m, layouts)
+    lay = resolve_layouts(layouts, _CG_IN, _CG_OUT)
+    batch = m.shape[0]
+    _, nsites = operand_shape(x, lay["x"])
+    ops = [batch_operand(n, t, lay[n], 24, nsites, batch, x.device)
+           for n, t in zip(_CG_IN, (x, r, p, ap))]
+    for name, t in (("alpha", alpha), ("neg_alpha", neg_alpha), ("m", m)):
+        check_tensor(name, t, (batch,), x.device)
+    x_new, r_new = (torch.empty((batch,) + lay[n].physical_shape(24, nsites), dtype=x.dtype,
+                                device=x.device) for n in _CG_OUT)
+    partials = torch.empty((batch, -(-nsites // vvl), 24), dtype=x.dtype, device=x.device)
+    CG_UPDATE_MASKED.launch(x.device, x.data_ptr(), r.data_ptr(), p.data_ptr(), ap.data_ptr(),
+                            alpha.data_ptr(), neg_alpha.data_ptr(), m.data_ptr(),
+                            x_new.data_ptr(), r_new.data_ptr(), partials.data_ptr(), nsites,
+                            batch, *(st for _, st in ops), *(d for d, _ in ops),
+                            *(lay[n].descriptor() for n in _CG_OUT), vvl)
+    return x_new, r_new, fold_partials_batched(partials, "sum")
+
+
+def cg_xpay_masked_plain(x, y, a, m, layouts=None):
+    lay = resolve_layouts(layouts, ("x", "y"), ("out",))
+    return torch.stack([lay["out"].pack(_masked_fma(operand_slot(y, lay["y"], b), a[b],
+                                                    operand_slot(x, lay["x"], b), m[b]))
+                        for b in range(m.shape[0])])
+
+
+def cg_xpay_masked(x, y, a, m, vvl: int = 128, *, layouts=None):
+    """K3B: where(m > 0, y + a x, y) over ``batch = m.shape[0]`` slots of
+    fields x, y (stacked or shared; ``layouts`` names "x", "y", "out") with
+    (batch,) device vectors a, m -> ``batch`` stacked fields."""
+    if x.device.type == "cpu":
+        return cg_xpay_masked_plain(x, y, a, m, layouts)
+    lay = resolve_layouts(layouts, ("x", "y"), ("out",))
+    batch = m.shape[0]
+    ncomp, nsites = operand_shape(x, lay["x"])
+    (lx, sx), (ly, sy) = (batch_operand(n, t, lay[n], ncomp, nsites, batch, x.device)
+                          for n, t in (("x", x), ("y", y)))
+    check_tensor("a", a, (batch,), x.device)
+    check_tensor("m", m, (batch,), x.device)
+    out = torch.empty((batch,) + lay["out"].physical_shape(ncomp, nsites), dtype=x.dtype,
+                      device=x.device)
+    CG_XPAY_MASKED.launch(x.device, x.data_ptr(), y.data_ptr(), a.data_ptr(), m.data_ptr(),
+                          out.data_ptr(), ncomp, nsites, batch, sx, sy, lx, ly,
+                          lay["out"].descriptor(), vvl)
     return out

@@ -70,10 +70,16 @@ class Layout:
             )
         return (nsites // self.sal, ncomp, self.sal)
 
+    @property
+    def physical_ndim(self) -> int:
+        """The rank of a field's physical tensor in this layout (AoSoA's
+        short arrays add one axis)."""
+        return 3 if self.kind is LayoutKind.AOSOA else 2
+
     def logical_shape(self, physical_shape) -> Tuple[int, int]:
         """(ncomp, nsites) of a physical tensor of this layout's shape."""
         shape = tuple(int(n) for n in physical_shape)
-        want = 3 if self.kind is LayoutKind.AOSOA else 2
+        want = self.physical_ndim
         if len(shape) != want or (want == 3 and shape[2] != self.sal):
             raise ValueError(f"shape {shape} is not a {self.name} physical shape")
         if self.kind is LayoutKind.SOA:

@@ -23,6 +23,11 @@ Every layout (SoA, AoS, AoSoA) runs untiled.  A tiled plan takes SoA
 fields only: the tiled kernel copies each window row from device memory as
 a contiguous z-run, which only SoA gives (ROADMAP queue 2).
 
+A batched launch (BatchedField inputs) plans per lattice: the slot is one
+more grid axis of the same kernel, so vvl and the tiles describe one batch
+element.  A batched launch runs untiled; a tiled plan with a batch raises
+(the batch x tile composition is still to be ported).
+
 The shared-memory budget (``TargetConfig.smem_bytes`` or
 ``$TARGETDP_TORCH_SMEM_BYTES``) makes :func:`default_plan` tile a stencil
 launch whose whole-lattice staging would exceed it.  The footprint model
@@ -261,11 +266,18 @@ class LoweringPlan:
         lattice: Optional[Tuple[int, ...]] = None,
         layouts: Sequence[Layout] = (),
         stencil: bool = False,
+        batch: int = 0,
     ) -> "LoweringPlan":
-        """Check this plan against a concrete launch; raises ValueError with
-        the violated rule.  Returns self (chainable)."""
+        """Check this plan against a concrete launch (``batch`` slots, 0 for
+        a single lattice); raises ValueError with the violated rule.
+        Returns self (chainable)."""
         if self.engine not in ENGINES:
             raise ValueError(f"unknown engine {self.engine!r}; have {ENGINES}")
+        if batch and self.tiled:
+            raise ValueError(
+                f"tiled plan {self.describe()} on a batched launch ({batch} slots): "
+                f"the batch x tile composition is still to be ported (ROADMAP "
+                f"item 17); a batched launch runs untiled")
         if min(self.bx, self.by, self.bz) < 0:
             raise ValueError(
                 f"tile extents must be >= 0 (0 = whole axis), got bx={self.bx} "
@@ -338,7 +350,7 @@ def _site_bytes(smem_views) -> int:
 
 def default_plan(config, *, nsites: int, layouts: Sequence[Layout],
                  stencil: bool = False, lattice: Optional[Tuple[int, ...]] = None,
-                 smem_views=None) -> LoweringPlan:
+                 smem_views=None, batch: int = 0) -> LoweringPlan:
     """The heuristic plan.  The torch engine lowers whole-lattice; the cuda
     engine takes the largest block size <= ``config.vvl`` that divides the
     lattice and is a multiple of a warp and of every AoSoA SAL the launch
@@ -346,7 +358,9 @@ def default_plan(config, *, nsites: int, layouts: Sequence[Layout],
     ``resolve_vvl`` does).  A cuda stencil launch with a shared-memory budget
     and its footprint descriptor ``smem_views = (in_views, out_views)``
     also gets bx from :func:`choose_slab` and (by, bz) from
-    :func:`choose_tiles`; without a budget the plan is the untiled one."""
+    :func:`choose_tiles`; without a budget the plan is the untiled one.  A
+    batched launch (``batch`` slots) plans one lattice and raises when the
+    budget would tile it."""
     if config.engine == "torch":
         return LoweringPlan("torch")
     if config.engine != "cuda":
@@ -363,7 +377,7 @@ def default_plan(config, *, nsites: int, layouts: Sequence[Layout],
         by, bz = choose_tiles(lattice, bx, in_views=smem_views[0],
                               out_views=smem_views[1], smem_bytes=budget)
         return LoweringPlan("cuda", vvl=vvl, bx=bx, by=by, bz=bz).validate(
-            nsites=nsites, lattice=lattice, layouts=layouts, stencil=True)
+            nsites=nsites, lattice=lattice, layouts=layouts, stencil=True, batch=batch)
     return LoweringPlan("cuda", vvl=vvl).validate(nsites=nsites, layouts=layouts)
 
 

@@ -24,17 +24,18 @@ PyTorch version.
 from __future__ import annotations
 
 import dataclasses
-from typing import Callable, Dict, Mapping, Optional, Union
+from typing import Callable, Dict, Mapping, Optional, Tuple, Union
 
 import torch
 
-from .._cuda import Kernel, check_field
+from .._cuda import Kernel, check_batched_field, check_field
 from .field import Field
 from .layout import Layout, resolve_layouts
 from .plan import LoweringPlan, plan_for_launch, resolved_smem_bytes
 
 __all__ = ["TargetConfig", "TargetKernel", "kernel", "launch",
-           "register_cuda_body", "require_cuda", "site_g5", "site_mul",
+           "register_cuda_body", "require_cuda", "site_g5", "site_mul", "mul_plain",
+           "operand_shape", "operand_slot", "batch_operand",
            "site_axpy", "G5", "MUL", "AXPY"]
 
 
@@ -115,23 +116,63 @@ def _binary_plain(fn, x, y, layouts):
     return lay["out"].pack(fn(lay["x"].unpack(x), lay["y"].unpack(y)))
 
 
-def _binary_launch(kern, scalar, x, y, vvl, layouts):
-    lay = resolve_layouts(layouts, ("x", "y"), ("out",))
-    ncomp, nsites = lay["x"].logical_shape(x.shape)
-    lx = check_field("x", x, lay["x"], ncomp, nsites, x.device)
-    ly = check_field("y", y, lay["y"], ncomp, nsites, x.device)
-    out = torch.empty(lay["out"].physical_shape(ncomp, nsites), dtype=x.dtype, device=x.device)
-    kern.launch(x.device, *scalar, x.data_ptr(), y.data_ptr(), out.data_ptr(), ncomp, nsites,
-                lx, ly, lay["out"].descriptor(), vvl)
-    return out
+# A batch launch (the serving path) takes each field operand either as
+# ``batch`` fields stacked on a leading axis or as one field shared by every
+# slot, told apart by rank, and writes ``batch`` stacked fields.
+
+def operand_shape(t: torch.Tensor, lay: Layout) -> Tuple[int, int]:
+    """(ncomp, nsites) of a shared or a stacked field operand."""
+    return lay.logical_shape(t.shape[-lay.physical_ndim:])
 
 
-def site_mul(x: torch.Tensor, y: torch.Tensor, vvl: int = 128, *,
-             layouts=None) -> torch.Tensor:
-    """x * y elementwise; ``layouts`` names "x", "y", "out"."""
-    if x.device.type == "cpu":
+def operand_slot(t: torch.Tensor, lay: Layout, b: int) -> torch.Tensor:
+    """Slot ``b``'s canonical (ncomp, nsites) values of a shared or a
+    stacked field operand."""
+    return lay.unpack(t[b] if t.dim() > lay.physical_ndim else t)
+
+
+def batch_operand(name, t, lay, ncomp, nsites, batch, device) -> Tuple[int, int]:
+    """(layout descriptor, per-slot element stride) of a batch launch's
+    field operand: one field a slot (stride ncomp * nsites) or one shared
+    field (stride 0)."""
+    if t.dim() == lay.physical_ndim:
+        return check_field(name, t, lay, ncomp, nsites, device), 0
+    return check_batched_field(name, t, lay, ncomp, nsites, batch, device), ncomp * nsites
+
+
+def mul_plain(x: torch.Tensor, y: torch.Tensor, layouts=None,
+              batch: Optional[int] = None) -> torch.Tensor:
+    """:func:`site_mul` in torch ops (slot by slot with a batch)."""
+    if batch is None:
         return _binary_plain(torch.mul, x, y, layouts)
-    return _binary_launch(MUL, (), x, y, vvl, layouts)
+    lay = resolve_layouts(layouts, ("x", "y"), ("out",))
+    return torch.stack([lay["out"].pack(operand_slot(x, lay["x"], b)
+                                        * operand_slot(y, lay["y"], b)) for b in range(batch)])
+
+
+def site_mul(x: torch.Tensor, y: torch.Tensor, vvl: int = 128, *, layouts=None,
+             batch: Optional[int] = None) -> torch.Tensor:
+    """x * y elementwise; ``layouts`` names "x", "y", "out".  With
+    ``batch`` (the product of the batched dot, dot_prod), x and y are each
+    ``batch`` stacked fields or one shared field and the result is
+    ``batch`` stacked fields: the same kernel, the slot one more grid
+    axis."""
+    if x.device.type == "cpu":
+        return mul_plain(x, y, layouts, batch)
+    lay = resolve_layouts(layouts, ("x", "y"), ("out",))
+    ncomp, nsites = operand_shape(x, lay["x"])
+    if batch is None:
+        (lx, sx), (ly, sy) = ((check_field(n, t, lay[n], ncomp, nsites, x.device), 0)
+                              for n, t in (("x", x), ("y", y)))
+        shape = lay["out"].physical_shape(ncomp, nsites)
+    else:
+        (lx, sx), (ly, sy) = (batch_operand(n, t, lay[n], ncomp, nsites, batch, x.device)
+                              for n, t in (("x", x), ("y", y)))
+        shape = (batch,) + lay["out"].physical_shape(ncomp, nsites)
+    out = torch.empty(shape, dtype=x.dtype, device=x.device)
+    MUL.launch(x.device, x.data_ptr(), y.data_ptr(), out.data_ptr(), ncomp, nsites,
+               1 if batch is None else batch, sx, sy, lx, ly, lay["out"].descriptor(), vvl)
+    return out
 
 
 def site_axpy(a: float, x: torch.Tensor, y: torch.Tensor, vvl: int = 128, *,
@@ -140,7 +181,14 @@ def site_axpy(a: float, x: torch.Tensor, y: torch.Tensor, vvl: int = 128, *,
     "y", "out"."""
     if x.device.type == "cpu":
         return _binary_plain(lambda u, v: u * a + v, x, y, layouts)
-    return _binary_launch(AXPY, (float(a),), x, y, vvl, layouts)
+    lay = resolve_layouts(layouts, ("x", "y"), ("out",))
+    ncomp, nsites = lay["x"].logical_shape(x.shape)
+    lx = check_field("x", x, lay["x"], ncomp, nsites, x.device)
+    ly = check_field("y", y, lay["y"], ncomp, nsites, x.device)
+    out = torch.empty(lay["out"].physical_shape(ncomp, nsites), dtype=x.dtype, device=x.device)
+    AXPY.launch(x.device, float(a), x.data_ptr(), y.data_ptr(), out.data_ptr(), ncomp, nsites,
+                lx, ly, lay["out"].descriptor(), vvl)
+    return out
 
 
 # body function -> fn(ins: {arg: (physical tensor, Layout)}, params, vvl,

@@ -26,40 +26,84 @@
 // layout.  Under AoS the per-site loads of cg_update are ncomp floats apart
 // across a warp: every load touches a sector of its own.
 //
-// nvcc contracts y + a*x into one fused multiply-add, so these fields match
-// the plain two-rounding torch version to a tolerance, not bitwise.
+// K3B, the batch instances (the serving chains of apps/milc/cg.py,
+// _build_flat's leading batch grid axis, _batch_specs :2009): the slot is
+// blockIdx.y; a batched operand is offset by whole fields, a shared one
+// (batch stride 0) is not; the scalars are (batch,) device vectors read at
+// the slot, so the host never reads alpha, beta or the mask:
+//
+//   rt_cg_update_masked  where(m[b] > 0, x + alpha[b] p, x),
+//                        where(m[b] > 0, r + neg_alpha[b] ap, r), and the
+//                        per-(block, slot) partials of sum_sites r_new^2,
+//                        folded per slot by reduce.cu's pass 2;
+//   rt_cg_xpay_masked    where(m[b] > 0, y + a[b] x, y).
+//
+// The third batch instance, dot_prod (x * y, summed by reduce.cu's batch
+// instance), is site_local.cu's product with its slot axis.
+//
+// The mask is a select: a frozen slot's output is its y input as loaded, so
+// -0.0 and NaN pass through untouched (y + 0 * x would turn -0.0 into +0.0
+// and take on a NaN of x; apps/milc/cg.py::_masked_fma_body).  A live slot
+// computes y + a*x through rt_xpay, the one function the unmasked chains
+// use too, so it has the single launch's bits.  The single entry points are
+// the same kernels with one slot and no mask.  Bound: bytes, as above per
+// slot; a frozen slot reads no p, ap or x.
+//
+// y + a*x is one fused multiply-add (one rounding), written out so that the
+// unmasked and the masked chains cannot be contracted differently: the
+// fields match the plain two-rounding torch version to a tolerance, not
+// bitwise.
 
 #include "common.cuh"
 
 #define RT_SPINOR 24
+
+__device__ __forceinline__ float rt_xpay(float y, float a, float x) { return __fmaf_rn(a, x, y); }
 
 // Layouts of cg_update's tensors, in argument order.
 struct rt_cg_layouts {
   rt_layout x, r, p, ap, x_new, r_new;
 };
 
-template <int K>
+// Per-slot element offsets of cg_update's inputs (0 for a shared input); the
+// outputs are batched, one whole field a slot.
+struct rt_cg_strides {
+  long long x, r, p, ap, out;
+};
+
+template <int K, bool MASKED>
 __global__ void cg_update_kernel(const float* __restrict__ x, const float* __restrict__ r,
                                  const float* __restrict__ p, const float* __restrict__ ap,
                                  const float* __restrict__ alpha,
                                  const float* __restrict__ neg_alpha,
-                                 float* __restrict__ x_new, float* __restrict__ r_new,
-                                 float* __restrict__ partials, long long nsites,
-                                 rt_cg_layouts L) {
+                                 const float* __restrict__ m, float* __restrict__ x_new,
+                                 float* __restrict__ r_new, float* __restrict__ partials,
+                                 long long nsites, rt_cg_layouts L, rt_cg_strides S) {
+  const long long b = blockIdx.y;
+  x += b * S.x;
+  r += b * S.r;
+  p += b * S.p;
+  ap += b * S.ap;
+  x_new += b * S.out;
+  r_new += b * S.out;
+  partials += b * gridDim.x * RT_SPINOR;
   const long long s = blockIdx.x * (long long)blockDim.x + threadIdx.x;
   const bool live = s < nsites;
-  const float a = *alpha;
-  const float na = *neg_alpha;
+  const bool on = !MASKED || m[b] > 0.0f;
+  const float a = alpha[b];
+  const float na = neg_alpha[b];
   float sq[RT_SPINOR];
 #pragma unroll
   for (int c = 0; c < RT_SPINOR; ++c) {
     sq[c] = 0.0f;
     if (live) {
-      x_new[rt_at<K>(L.x_new, c, s, RT_SPINOR, nsites)] =
-          x[rt_at<K>(L.x, c, s, RT_SPINOR, nsites)] +
-          a * p[rt_at<K>(L.p, c, s, RT_SPINOR, nsites)];
-      const float rn = r[rt_at<K>(L.r, c, s, RT_SPINOR, nsites)] +
-                       na * ap[rt_at<K>(L.ap, c, s, RT_SPINOR, nsites)];
+      float xn = x[rt_at<K>(L.x, c, s, RT_SPINOR, nsites)];
+      float rn = r[rt_at<K>(L.r, c, s, RT_SPINOR, nsites)];
+      if (on) {
+        xn = rt_xpay(xn, a, p[rt_at<K>(L.p, c, s, RT_SPINOR, nsites)]);
+        rn = rt_xpay(rn, na, ap[rt_at<K>(L.ap, c, s, RT_SPINOR, nsites)]);
+      }
+      x_new[rt_at<K>(L.x_new, c, s, RT_SPINOR, nsites)] = xn;
       r_new[rt_at<K>(L.r_new, c, s, RT_SPINOR, nsites)] = rn;
       sq[c] = rn * rn;
     }
@@ -67,21 +111,73 @@ __global__ void cg_update_kernel(const float* __restrict__ x, const float* __res
   rt_block_partials<RT_SPINOR>(sq, RT_OP_SUM, partials);
 }
 
-// MIXED: the three operands' layouts differ.
-template <bool MIXED>
+// MIXED: the three operands' layouts differ.  sx, sy: per-slot element
+// offsets of x and y (0 for a shared one).
+template <bool MIXED, bool MASKED>
 __global__ void cg_xpay_kernel(const float* __restrict__ x, const float* __restrict__ y,
-                               const float* __restrict__ a, float* __restrict__ out, int ncomp,
-                               long long nsites, rt_layout lx, rt_layout ly, rt_layout lo) {
+                               const float* __restrict__ a, const float* __restrict__ m,
+                               float* __restrict__ out, int ncomp, long long nsites,
+                               rt_layout lx, rt_layout ly, rt_layout lo, long long sx,
+                               long long sy) {
+  const long long b = blockIdx.y;
+  const long long n = (long long)ncomp * nsites;
   const long long i = blockIdx.x * (long long)blockDim.x + threadIdx.x;
-  if (i >= (long long)ncomp * nsites) return;
+  if (i >= n) return;
+  x += b * sx;
+  y += b * sy;
+  out += b * n;
+  const bool on = !MASKED || m[b] > 0.0f;
   if (!MIXED) {
-    out[i] = y[i] + *a * x[i];
+    out[i] = on ? rt_xpay(y[i], a[b], x[i]) : y[i];
     return;
   }
   int c;
   long long s;
   rt_coords(lo, i, ncomp, nsites, c, s);
-  out[i] = y[rt_index(ly, c, s, ncomp, nsites)] + *a * x[rt_index(lx, c, s, ncomp, nsites)];
+  const float yv = y[rt_index(ly, c, s, ncomp, nsites)];
+  out[i] = on ? rt_xpay(yv, a[b], x[rt_index(lx, c, s, ncomp, nsites)]) : yv;
+}
+
+static int rt_cg_update_launch(const float* x, const float* r, const float* p, const float* ap,
+                               const float* alpha, const float* neg_alpha, const float* m,
+                               float* x_new, float* r_new, float* partials, long long nsites,
+                               int batch, const int* desc, rt_cg_strides S, int block,
+                               cudaStream_t stream) {
+  rt_layout L[6];
+  for (int k = 0; k < 6; ++k) L[k] = rt_make_layout(desc[k]);
+  const int k = rt_launch_class(L, 6);
+  if (k < 0) return RT_BAD_LAYOUT;
+  if (nsites == 0 || batch == 0) return 0;
+  const rt_cg_layouts cl{L[0], L[1], L[2], L[3], L[4], L[5]};
+  const dim3 grid(rt_grid(nsites, block), batch);
+  if (m)
+    RT_WITH_CLASS(k, cg_update_kernel<RT_K, true><<<grid, block, 0, stream>>>(
+                         x, r, p, ap, alpha, neg_alpha, m, x_new, r_new, partials, nsites, cl, S))
+  else
+    RT_WITH_CLASS(k, cg_update_kernel<RT_K, false><<<grid, block, 0, stream>>>(
+                         x, r, p, ap, alpha, neg_alpha, m, x_new, r_new, partials, nsites, cl, S))
+  RT_LAUNCH_RESULT();
+}
+
+static int rt_xpay_launch(const float* x, const float* y, const float* a, const float* m,
+                          float* out, int ncomp, long long nsites, int batch, long long sx,
+                          long long sy, int lx, int ly, int lo, int block, cudaStream_t stream) {
+  const long long n = (long long)ncomp * nsites;
+  const rt_layout L[3] = {rt_make_layout(lx), rt_make_layout(ly), rt_make_layout(lo)};
+  if (rt_launch_class(L, 3) < 0) return RT_BAD_LAYOUT;
+  if (n == 0 || batch == 0) return 0;
+  const bool mixed = !(rt_same_layout(L[0], L[2]) && rt_same_layout(L[1], L[2]));
+  const dim3 grid(rt_grid(n, block), batch);
+#define RT_XPAY(MIXED, MASKED)                                                                 \
+  cg_xpay_kernel<MIXED, MASKED><<<grid, block, 0, stream>>>(x, y, a, m, out, ncomp, nsites, L[0], \
+                                                            L[1], L[2], sx, sy)
+  if (mixed) {
+    if (m) RT_XPAY(true, true); else RT_XPAY(true, false);
+  } else {
+    if (m) RT_XPAY(false, true); else RT_XPAY(false, false);
+  }
+#undef RT_XPAY
+  RT_LAUNCH_RESULT();
 }
 
 extern "C" {
@@ -93,32 +189,39 @@ int rt_cg_update(const float* x, const float* r, const float* p, const float* ap
                  const float* alpha, const float* neg_alpha, float* x_new, float* r_new,
                  float* partials, long long nsites, int lx, int lr, int lp, int lap, int lxn,
                  int lrn, int block, cudaStream_t stream) {
-  const rt_layout L[6] = {rt_make_layout(lx),  rt_make_layout(lr),  rt_make_layout(lp),
-                          rt_make_layout(lap), rt_make_layout(lxn), rt_make_layout(lrn)};
-  const int k = rt_launch_class(L, 6);
-  if (k < 0) return RT_BAD_LAYOUT;
-  if (nsites == 0) return 0;
-  const rt_cg_layouts cl{L[0], L[1], L[2], L[3], L[4], L[5]};
-  RT_WITH_CLASS(k, cg_update_kernel<RT_K><<<rt_grid(nsites, block), block, 0, stream>>>(
-                       x, r, p, ap, alpha, neg_alpha, x_new, r_new, partials, nsites, cl));
-  RT_LAUNCH_RESULT();
+  const int desc[6] = {lx, lr, lp, lap, lxn, lrn};
+  return rt_cg_update_launch(x, r, p, ap, alpha, neg_alpha, nullptr, x_new, r_new, partials,
+                             nsites, 1, desc, rt_cg_strides{0, 0, 0, 0, 0}, block, stream);
+}
+
+// The batch instance: x, r, p, ap are batch fields one after another (or one
+// shared field where its stride sx ... sap is 0), x_new and r_new batch
+// fields; alpha, neg_alpha, m: (batch,) fp32 on the device; partials:
+// (batch, ceil(nsites / block), 24).
+int rt_cg_update_masked(const float* x, const float* r, const float* p, const float* ap,
+                        const float* alpha, const float* neg_alpha, const float* m, float* x_new,
+                        float* r_new, float* partials, long long nsites, int batch, long long sx,
+                        long long sr, long long sp, long long sap, int lx, int lr, int lp, int lap,
+                        int lxn, int lrn, int block, cudaStream_t stream) {
+  const int desc[6] = {lx, lr, lp, lap, lxn, lrn};
+  return rt_cg_update_launch(x, r, p, ap, alpha, neg_alpha, m, x_new, r_new, partials, nsites,
+                             batch, desc, rt_cg_strides{sx, sr, sp, sap, 24LL * nsites}, block,
+                             stream);
 }
 
 // x, y, out: ncomp x nsites fields in layouts lx, ly, lo; a: one fp32 on the
 // device.
 int rt_cg_xpay(const float* x, const float* y, const float* a, float* out, int ncomp,
                long long nsites, int lx, int ly, int lo, int block, cudaStream_t stream) {
-  const long long n = (long long)ncomp * nsites;
-  const rt_layout L[3] = {rt_make_layout(lx), rt_make_layout(ly), rt_make_layout(lo)};
-  if (rt_launch_class(L, 3) < 0) return RT_BAD_LAYOUT;
-  if (n == 0) return 0;
-  if (rt_same_layout(L[0], L[2]) && rt_same_layout(L[1], L[2]))
-    cg_xpay_kernel<false><<<rt_grid(n, block), block, 0, stream>>>(x, y, a, out, ncomp, nsites,
-                                                                    L[0], L[1], L[2]);
-  else
-    cg_xpay_kernel<true><<<rt_grid(n, block), block, 0, stream>>>(x, y, a, out, ncomp, nsites,
-                                                                   L[0], L[1], L[2]);
-  RT_LAUNCH_RESULT();
+  return rt_xpay_launch(x, y, a, nullptr, out, ncomp, nsites, 1, 0, 0, lx, ly, lo, block, stream);
+}
+
+// The batch instance: x, y batch fields (or shared where sx, sy is 0), out
+// batch fields; a, m: (batch,) fp32 on the device.
+int rt_cg_xpay_masked(const float* x, const float* y, const float* a, const float* m, float* out,
+                      int ncomp, long long nsites, int batch, long long sx, long long sy, int lx,
+                      int ly, int lo, int block, cudaStream_t stream) {
+  return rt_xpay_launch(x, y, a, m, out, ncomp, nsites, batch, sx, sy, lx, ly, lo, block, stream);
 }
 
 }  // extern "C"

@@ -21,6 +21,14 @@
 // Bound on the H100: bytes.  Pass 1 reads each input element once (96 B a
 // site for a 24-component field) and does one add per element; pass 2 reads
 // nblocks * ncomp partials, under 1% of pass 1 at block 128.
+//
+// K2B, the batch instance (the reduction of a BatchedField, _reduce's batch
+// grid axis :92-98): the same two kernels with the slot as one more grid
+// axis (blockIdx.z in pass 1, blockIdx.y in pass 2).  Slot b's field and
+// partial rows are offset by whole fields and whole partial tables, and
+// nothing else in a block depends on the slot, so row b folds the same site
+// blocks in the same order as the single launch on slot b: bitwise its
+// sums.  The single entry points are the batch instance with one slot.
 
 #include "common.cuh"
 
@@ -44,6 +52,8 @@ template <int K>
 __global__ void reduce_partials_kernel(const float* __restrict__ x, float* __restrict__ partials,
                                        int ncomp, long long nsites, int op, rt_layout lx) {
   const int c = blockIdx.y;
+  x += blockIdx.z * (long long)ncomp * nsites;
+  partials += blockIdx.z * (long long)gridDim.x * ncomp;
   const long long s = blockIdx.x * (long long)blockDim.x + threadIdx.x;
   const float v = s < nsites ? x[rt_at<K>(lx, c, s, ncomp, nsites)] : rt_identity(op);
   const float acc = rt_block_fold(v, op);
@@ -53,6 +63,8 @@ __global__ void reduce_partials_kernel(const float* __restrict__ x, float* __res
 __global__ void reduce_fold_kernel(const float* __restrict__ partials, float* __restrict__ out,
                                    long long nblocks, int ncomp, int op) {
   const int c = blockIdx.x;
+  partials += blockIdx.y * nblocks * ncomp;
+  out += blockIdx.y * (long long)ncomp;
   float acc = rt_identity(op);
   for (long long k = threadIdx.x; k < nblocks; k += blockDim.x)
     acc = rt_combine(acc, partials[k * ncomp + c], op);
@@ -62,26 +74,40 @@ __global__ void reduce_fold_kernel(const float* __restrict__ partials, float* __
 
 extern "C" {
 
-// x: ncomp x nsites field in layout lx (descriptor); partials:
-// (ceil(nsites / block), ncomp).
-int rt_reduce_partials(const float* x, float* partials, int ncomp, long long nsites, int op,
-                       int lx, int block, cudaStream_t stream) {
+// x: batch fields of ncomp x nsites, one after another, each in layout lx
+// (descriptor); partials: (batch, ceil(nsites / block), ncomp).
+int rt_reduce_partials_batched(const float* x, float* partials, int ncomp, long long nsites,
+                               int batch, int op, int lx, int block, cudaStream_t stream) {
   const rt_layout L = rt_make_layout(lx);
   const int k = rt_launch_class(&L, 1);
   if (k < 0) return RT_BAD_LAYOUT;
-  if (nsites == 0 || ncomp == 0) return 0;
-  const dim3 grid(rt_grid(nsites, block), ncomp);
+  if (nsites == 0 || ncomp == 0 || batch == 0) return 0;
+  const dim3 grid(rt_grid(nsites, block), ncomp, batch);
   RT_WITH_CLASS(k, reduce_partials_kernel<RT_K><<<grid, block, 0, stream>>>(x, partials, ncomp,
                                                                           nsites, op, L));
   RT_LAUNCH_RESULT();
 }
 
+// partials: (batch, nblocks, ncomp) -> out: (batch, ncomp).
+int rt_reduce_fold_batched(const float* partials, float* out, long long nblocks, int ncomp,
+                           int batch, int op, cudaStream_t stream) {
+  if (ncomp == 0 || batch == 0) return 0;
+  reduce_fold_kernel<<<dim3(ncomp, batch), RT_FOLD_THREADS, 0, stream>>>(partials, out, nblocks,
+                                                                         ncomp, op);
+  RT_LAUNCH_RESULT();
+}
+
+// x: ncomp x nsites field in layout lx (descriptor); partials:
+// (ceil(nsites / block), ncomp).
+int rt_reduce_partials(const float* x, float* partials, int ncomp, long long nsites, int op,
+                       int lx, int block, cudaStream_t stream) {
+  return rt_reduce_partials_batched(x, partials, ncomp, nsites, 1, op, lx, block, stream);
+}
+
 // partials: (nblocks, ncomp) -> out: (ncomp,).
 int rt_reduce_fold(const float* partials, float* out, long long nblocks, int ncomp, int op,
                    cudaStream_t stream) {
-  if (ncomp == 0) return 0;
-  reduce_fold_kernel<<<ncomp, RT_FOLD_THREADS, 0, stream>>>(partials, out, nblocks, ncomp, op);
-  RT_LAUNCH_RESULT();
+  return rt_reduce_fold_batched(partials, out, nblocks, ncomp, 1, op, stream);
 }
 
 }  // extern "C"

@@ -9,7 +9,10 @@
 // repro_torch.core.target:
 //
 //   rt_site_g5    gamma5: out = x with components >= flip_from negated (cg.g5)
-//   rt_site_mul   out = x * y                         (the product in cg.dot)
+//   rt_site_mul   out = x * y   (the product in cg.dot; over a batch of
+//                 slots, blockIdx.y, the product of cg.batched_dot, the
+//                 dot_prod instance of core/fuse.py::_build_flat's
+//                 fused_kernel :1411 with its batch axis, _batch_specs :2009)
 //   rt_site_axpy  out = x * a + y, a a static param   (cg.axpy)
 //
 // Bound on the H100: bytes.  Each is a streaming pass with well under one
@@ -47,13 +50,20 @@ __global__ void site_g5_kernel(const float* __restrict__ x, float* __restrict__ 
   out[i] = c >= flip_from ? -v : v;
 }
 
+// The slot is blockIdx.y (one slot for the single product); sx, sy: per-slot
+// element offsets of x and y (0 for a shared one), out one field a slot.
 template <bool MIXED>
 __global__ void site_mul_kernel(const float* __restrict__ x, const float* __restrict__ y,
                                 float* __restrict__ out, int ncomp, long long nsites,
-                                rt_layout lx, rt_layout ly, rt_layout lo) {
+                                rt_layout lx, rt_layout ly, rt_layout lo, long long sx,
+                                long long sy) {
+  const long long b = blockIdx.y;
   const long long n = (long long)ncomp * nsites;
   const long long i = blockIdx.x * (long long)blockDim.x + threadIdx.x;
   if (i >= n) return;
+  x += b * sx;
+  y += b * sy;
+  out += b * n;
   if (!MIXED) {
     out[i] = x[i] * y[i];
     return;
@@ -101,18 +111,23 @@ int rt_site_g5(const float* x, float* out, int ncomp, long long nsites, int flip
   RT_LAUNCH_RESULT();
 }
 
-int rt_site_mul(const float* x, const float* y, float* out, int ncomp, long long nsites, int lx,
-                int ly, int lo, int block, cudaStream_t stream) {
+// x, y: batch fields one after another in layouts lx, ly (or one shared
+// field where its stride sx, sy is 0); out: batch fields in lo.  The single
+// product is batch 1 with both strides 0.
+int rt_site_mul(const float* x, const float* y, float* out, int ncomp, long long nsites,
+                int batch, long long sx, long long sy, int lx, int ly, int lo, int block,
+                cudaStream_t stream) {
   const long long n = (long long)ncomp * nsites;
   const rt_layout L[3] = {rt_make_layout(lx), rt_make_layout(ly), rt_make_layout(lo)};
   if (rt_launch_class(L, 3) < 0) return RT_BAD_LAYOUT;
-  if (n == 0) return 0;
+  if (n == 0 || batch == 0) return 0;
+  const dim3 grid(rt_grid(n, block), batch);
   if (rt_same_layout(L[0], L[2]) && rt_same_layout(L[1], L[2]))
-    site_mul_kernel<false><<<rt_grid(n, block), block, 0, stream>>>(x, y, out, ncomp, nsites,
-                                                                     L[0], L[1], L[2]);
+    site_mul_kernel<false><<<grid, block, 0, stream>>>(x, y, out, ncomp, nsites, L[0], L[1],
+                                                       L[2], sx, sy);
   else
-    site_mul_kernel<true><<<rt_grid(n, block), block, 0, stream>>>(x, y, out, ncomp, nsites,
-                                                                    L[0], L[1], L[2]);
+    site_mul_kernel<true><<<grid, block, 0, stream>>>(x, y, out, ncomp, nsites, L[0], L[1],
+                                                      L[2], sx, sy);
   RT_LAUNCH_RESULT();
 }
 

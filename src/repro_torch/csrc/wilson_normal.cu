@@ -30,6 +30,18 @@
 // p + u in, ap out: 480 B a site.  This design also writes and re-reads t
 // (a further 192 B a site) and reads u twice; removing that round trip is
 // the first thing a later PR does.
+//
+// K5B, the batch instance (_build_nd's fused_kernel on the leading batch
+// grid axis, the serving path's one operator launch for every slot): the
+// same two kernels with the slot as blockIdx.y.  p, t and ap are batch
+// spinors one after another, u is one field shared by every slot, and each
+// slot writes its own table of pap partials.  Nothing a thread computes
+// depends on the slot but its offsets, so each slot's ap and partials are
+// bitwise the single launch's on that slot; the single entry points are
+// the batch entry with one slot, which runs the kernels' instantiation
+// without the slot offsets.  Each slot's blocks read u again: B
+// slots read it B times (4 x 288 B a site at B = 4), which a design that
+// loops over the slots inside one thread would read once.
 
 #include "wilson.cuh"
 
@@ -38,13 +50,19 @@ __device__ __forceinline__ float rt_g5_sign(int c) { return c >= 12 ? -1.0f : 1.
 // t's layout: SoA, in either instantiation.
 __device__ __forceinline__ rt_layout rt_soa() { return rt_layout{RT_SOA, 1, -1}; }
 
-template <int K>
+// BATCH: offset p, t, ap and the partials to the slot blockIdx.y; a launch
+// of one slot takes the instantiation without the offsets.
+template <int K, bool BATCH>
 __global__ void wilson_normal_t_kernel(const float* __restrict__ p, const float* __restrict__ u,
                                        float* __restrict__ t, float kappa, rt_lattice L,
                                        rt_layout lp, rt_layout lu) {
   const long long V = (long long)L.X * L.Y * L.Z * L.T;
   const long long s = blockIdx.x * (long long)blockDim.x + threadIdx.x;
   if (s >= V) return;
+  if (BATCH) {
+    p += blockIdx.y * 24 * V;
+    t += blockIdx.y * 24 * V;
+  }
   float d[24];
   rt_wilson_hop<K, K>(rt_wfield{p, lp}, rt_wfield{u, lu}, L, s, d);
 #pragma unroll
@@ -52,7 +70,7 @@ __global__ void wilson_normal_t_kernel(const float* __restrict__ p, const float*
     t[(long long)c * V + s] = rt_g5_sign(c) * (p[rt_at<K>(lp, c, s, 24, V)] - kappa * d[c]);
 }
 
-template <int K>
+template <int K, bool BATCH>
 __global__ void wilson_normal_ap_kernel(const float* __restrict__ p, const float* __restrict__ t,
                                         const float* __restrict__ u, float* __restrict__ ap,
                                         float* __restrict__ partials, float kappa,
@@ -60,6 +78,12 @@ __global__ void wilson_normal_ap_kernel(const float* __restrict__ p, const float
                                         rt_layout lap) {
   const long long V = (long long)L.X * L.Y * L.Z * L.T;
   const long long s = blockIdx.x * (long long)blockDim.x + threadIdx.x;
+  if (BATCH) {
+    p += blockIdx.y * 24 * V;
+    t += blockIdx.y * 24 * V;
+    ap += blockIdx.y * 24 * V;
+    partials += blockIdx.y * (long long)gridDim.x * 24;
+  }
   float prod[24];
 #pragma unroll
   for (int c = 0; c < 24; ++c) prod[c] = 0.0f;
@@ -78,17 +102,53 @@ __global__ void wilson_normal_ap_kernel(const float* __restrict__ p, const float
 
 extern "C" {
 
-// p: 24 x V, u: 72 x V in the layouts of descriptors lp, lu; t: (24, V) SoA.
-int rt_wilson_normal_t(const float* p, const float* u, float* t, float kappa, int X, int Y,
-                       int Z, int T, int lp, int lu, int block, cudaStream_t stream) {
+// p: batch spinors (24 x V each, one after another), u: one 72 x V field, in
+// the layouts of descriptors lp, lu; t: (batch, 24, V) SoA.
+int rt_wilson_normal_t_batched(const float* p, const float* u, float* t, float kappa, int X,
+                               int Y, int Z, int T, int batch, int lp, int lu, int block,
+                               cudaStream_t stream) {
   const long long V = (long long)X * Y * Z * T;
   const rt_layout L[2] = {rt_make_layout(lp), rt_make_layout(lu)};
   const int k = rt_launch_class(L, 2);
   if (k < 0) return RT_BAD_LAYOUT;
-  if (V == 0) return 0;
-  RT_WITH_CLASS(k, wilson_normal_t_kernel<RT_K><<<rt_grid(V, block), block, 0, stream>>>(
-                       p, u, t, kappa, rt_lattice{X, Y, Z, T}, L[0], L[1]));
+  if (V == 0 || batch == 0) return 0;
+  const dim3 grid(rt_grid(V, block), batch);
+  const rt_lattice lat{X, Y, Z, T};
+  if (batch > 1)
+    RT_WITH_CLASS(k, wilson_normal_t_kernel<RT_K, true><<<grid, block, 0, stream>>>(
+                         p, u, t, kappa, lat, L[0], L[1]))
+  else
+    RT_WITH_CLASS(k, wilson_normal_t_kernel<RT_K, false><<<grid, block, 0, stream>>>(
+                         p, u, t, kappa, lat, L[0], L[1]))
   RT_LAUNCH_RESULT();
+}
+
+// p, ap: batch spinors, u: one 72 x V field, in the layouts of descriptors
+// lp, lu, lap; t: (batch, 24, V) SoA; partials: (batch, ceil(V / block), 24).
+int rt_wilson_normal_ap_batched(const float* p, const float* t, const float* u, float* ap,
+                                float* partials, float kappa, int X, int Y, int Z, int T,
+                                int batch, int lp, int lu, int lap, int block,
+                                cudaStream_t stream) {
+  const long long V = (long long)X * Y * Z * T;
+  const rt_layout L[3] = {rt_make_layout(lp), rt_make_layout(lu), rt_make_layout(lap)};
+  const int k = rt_launch_class(L, 3);
+  if (k < 0) return RT_BAD_LAYOUT;
+  if (V == 0 || batch == 0) return 0;
+  const dim3 grid(rt_grid(V, block), batch);
+  const rt_lattice lat{X, Y, Z, T};
+  if (batch > 1)
+    RT_WITH_CLASS(k, wilson_normal_ap_kernel<RT_K, true><<<grid, block, 0, stream>>>(
+                         p, t, u, ap, partials, kappa, lat, L[0], L[1], L[2]))
+  else
+    RT_WITH_CLASS(k, wilson_normal_ap_kernel<RT_K, false><<<grid, block, 0, stream>>>(
+                         p, t, u, ap, partials, kappa, lat, L[0], L[1], L[2]))
+  RT_LAUNCH_RESULT();
+}
+
+// p: 24 x V, u: 72 x V in the layouts of descriptors lp, lu; t: (24, V) SoA.
+int rt_wilson_normal_t(const float* p, const float* u, float* t, float kappa, int X, int Y,
+                       int Z, int T, int lp, int lu, int block, cudaStream_t stream) {
+  return rt_wilson_normal_t_batched(p, u, t, kappa, X, Y, Z, T, 1, lp, lu, block, stream);
 }
 
 // p, ap: 24 x V, u: 72 x V in the layouts of descriptors lp, lu, lap;
@@ -96,14 +156,8 @@ int rt_wilson_normal_t(const float* p, const float* u, float* t, float kappa, in
 int rt_wilson_normal_ap(const float* p, const float* t, const float* u, float* ap,
                         float* partials, float kappa, int X, int Y, int Z, int T, int lp, int lu,
                         int lap, int block, cudaStream_t stream) {
-  const long long V = (long long)X * Y * Z * T;
-  const rt_layout L[3] = {rt_make_layout(lp), rt_make_layout(lu), rt_make_layout(lap)};
-  const int k = rt_launch_class(L, 3);
-  if (k < 0) return RT_BAD_LAYOUT;
-  if (V == 0) return 0;
-  RT_WITH_CLASS(k, wilson_normal_ap_kernel<RT_K><<<rt_grid(V, block), block, 0, stream>>>(
-                       p, t, u, ap, partials, kappa, rt_lattice{X, Y, Z, T}, L[0], L[1], L[2]));
-  RT_LAUNCH_RESULT();
+  return rt_wilson_normal_ap_batched(p, t, u, ap, partials, kappa, X, Y, Z, T, 1, lp, lu, lap,
+                                     block, stream);
 }
 
 }  // extern "C"

@@ -13,6 +13,11 @@ output takes the first input's layout) and returns physical tensors.  Both are b
 compulsory bytes a site); see the sources for what each design leaves on
 the table.
 
+K5B, the batch instance (``batched=True``), runs K5's two kernels with the
+slot as one more grid axis: p and ap are ``batch`` stacked spinors, u is
+one gauge field shared by every slot, pap is (batch, 24), and each slot's
+ap and pap are bitwise the single launch's on that slot.
+
 On a CPU tensor each wrapper returns its plain version (unpack, torch ops,
 pack); on a CUDA tensor it launches its kernel or raises.
 """
@@ -24,18 +29,20 @@ from typing import Sequence, Tuple
 
 import torch
 
-from repro_torch._cuda import Kernel, check_field
+from repro_torch._cuda import Kernel, check_batched_field, check_field
 from repro_torch.core.layout import resolve_layouts
-from repro_torch.core.reduce import fold_partials
+from repro_torch.core.reduce import fold_partials, fold_partials_batched
 from . import ref
 
 __all__ = ["dslash_cuda", "dslash_plain", "wilson_normal_cuda",
            "wilson_normal_plain", "DSLASH", "WILSON_NORMAL_T",
-           "WILSON_NORMAL_AP"]
+           "WILSON_NORMAL_AP", "WILSON_NORMAL_T_B", "WILSON_NORMAL_AP_B"]
 
 DSLASH = Kernel("dslash", "rt_dslash")
 WILSON_NORMAL_T = Kernel("wilson_normal_t", "rt_wilson_normal_t")
 WILSON_NORMAL_AP = Kernel("wilson_normal_ap", "rt_wilson_normal_ap")
+WILSON_NORMAL_T_B = Kernel("wilson_normal_t_batched", "rt_wilson_normal_t_batched")
+WILSON_NORMAL_AP_B = Kernel("wilson_normal_ap_batched", "rt_wilson_normal_ap_batched")
 
 
 def _check_4d(lattice: Sequence[int]) -> Tuple[int, int, int, int]:
@@ -83,9 +90,14 @@ def _m_g5(psi: torch.Tensor, d: torch.Tensor, kappa: float) -> torch.Tensor:
 
 
 def wilson_normal_plain(p: torch.Tensor, u: torch.Tensor, kappa: float,
-                        lattice, layouts=None) -> Tuple[torch.Tensor, torch.Tensor]:
+                        lattice, layouts=None, *,
+                        batched: bool = False) -> Tuple[torch.Tensor, torch.Tensor]:
     """t = g5(p - kappa D p), ap = g5(t - kappa D t), pap = sum_sites p*ap;
-    ``layouts`` names "p", "u", "ap"."""
+    ``layouts`` names "p", "u", "ap"; ``batched``: p is stacked spinors, each
+    slot computed as alone."""
+    if batched:
+        outs = [wilson_normal_plain(pb, u, kappa, lattice, layouts) for pb in p]
+        return torch.stack([a for a, _ in outs]), torch.stack([s for _, s in outs])
     lat = _check_4d(lattice)
     lay = resolve_layouts(layouts, _NORMAL_IN, _NORMAL_OUT)
     p, u = lay["p"].unpack(p), lay["u"].unpack(u)
@@ -95,12 +107,16 @@ def wilson_normal_plain(p: torch.Tensor, u: torch.Tensor, kappa: float,
 
 
 def wilson_normal_cuda(p: torch.Tensor, u: torch.Tensor, kappa: float, lattice,
-                       vvl: int = 128, *, layouts=None) -> Tuple[torch.Tensor, torch.Tensor]:
+                       vvl: int = 128, *, layouts=None,
+                       batched: bool = False) -> Tuple[torch.Tensor, torch.Tensor]:
     """K5: (ap, pap (24,)) = (M^dag M p, per-component p . ap), in two
     launches and the fold of the pap partials; ``layouts`` names "p", "u",
-    "ap" (the intermediate t is SoA)."""
+    "ap" (the intermediate t is SoA).  ``batched`` (K5B): p is ``batch``
+    stacked spinors and u shared -> (ap stacked, pap (batch, 24))."""
     if p.device.type == "cpu":
-        return wilson_normal_plain(p, u, kappa, lattice, layouts)
+        return wilson_normal_plain(p, u, kappa, lattice, layouts, batched=batched)
+    if batched:
+        return _wilson_normal_batched(p, u, kappa, lattice, vvl, layouts)
     lat = _check_4d(lattice)
     V = math.prod(lat)
     lay = resolve_layouts(layouts, _NORMAL_IN, _NORMAL_OUT)
@@ -115,3 +131,22 @@ def wilson_normal_cuda(p: torch.Tensor, u: torch.Tensor, kappa: float, lattice,
                             ap.data_ptr(), partials.data_ptr(), float(kappa),
                             *lat, lp, lu, lay["ap"].descriptor(), vvl)
     return ap, fold_partials(partials, "sum")
+
+
+def _wilson_normal_batched(p, u, kappa, lattice, vvl, layouts):
+    """K5B: K5 over ``p.shape[0]`` stacked spinors p against one shared u."""
+    lat = _check_4d(lattice)
+    V = math.prod(lat)
+    lay = resolve_layouts(layouts, _NORMAL_IN, _NORMAL_OUT)
+    batch = p.shape[0]
+    lp = check_batched_field("p", p, lay["p"], 24, V, batch, p.device)
+    lu = check_field("u", u, lay["u"], 72, V, p.device)
+    t = torch.empty((batch, 24, V), dtype=p.dtype, device=p.device)
+    ap = torch.empty((batch,) + lay["ap"].physical_shape(24, V), dtype=p.dtype, device=p.device)
+    partials = torch.empty((batch, -(-V // vvl), 24), dtype=p.dtype, device=p.device)
+    WILSON_NORMAL_T_B.launch(p.device, p.data_ptr(), u.data_ptr(), t.data_ptr(), float(kappa),
+                             *lat, batch, lp, lu, vvl)
+    WILSON_NORMAL_AP_B.launch(p.device, p.data_ptr(), t.data_ptr(), u.data_ptr(), ap.data_ptr(),
+                              partials.data_ptr(), float(kappa), *lat, batch, lp, lu,
+                              lay["ap"].descriptor(), vvl)
+    return ap, fold_partials_batched(partials, "sum")

@@ -3,6 +3,11 @@
 ``build_serve_step`` is the decode unit: one new token a sequence against
 the cache (the recurrent state, or the dense family's k/v cache).  ``generate`` drives it over a batch of requests:
 the prompt goes in token by token, then greedy or temperature sampling.
+
+``build_cg_serve_step`` is the lattice solver's counterpart: the unit of
+work the request scheduler (``launch/serve.py``) replays between admission
+and drain, one convergence-masked batched CG iteration over a fixed
+(lattice, slots) bucket.
 """
 
 from __future__ import annotations
@@ -34,6 +39,29 @@ def build_prefill(cfg: ArchConfig, *, wkv_engine: str = "auto", attn_engine: str
         return logits
 
     return prefill
+
+
+def build_cg_serve_step(u, kappa: float, config, *, tol: float, max_iter: int,
+                        refine_every: int = 0):
+    """The masked-iteration step of batched CG serving: BatchedCGState ->
+    BatchedCGState, one fused operator launch and one fused masked-update
+    launch for the whole slot batch.  Converged and empty slots ride along
+    bitwise frozen, so the scheduler can drain and refill them between calls
+    without perturbing in-flight solves.  A plain function: PyTorch runs
+    eagerly, so there is nothing to compile.  Only ``refine_every=0`` is
+    ported (mixed-precision serving, ROADMAP item 18, raises)."""
+    from repro_torch.apps.milc.cg import batched_cg_iteration, make_fused_normal
+
+    if refine_every > 0:
+        raise ValueError("build_cg_serve_step(refine_every > 0) selects mixed-precision "
+                         "serving (batched_cg_refresh), which is not yet ported")
+    apply_a_dot = make_fused_normal(u, float(kappa), config)
+
+    def step(state):
+        return batched_cg_iteration(state, apply_a_dot, config=config, tol=tol,
+                                    max_iter=max_iter)
+
+    return step
 
 
 def generate(params, cfg: ArchConfig, prompt_tokens, *, steps: int, s_max: int,

@@ -649,3 +649,190 @@ def test_sal_not_dividing_vvl_refused_before_any_launch(card, rng):
     # the default plan aligns the block to the SAL instead
     assert CG.g5(x, TargetConfig("cuda", device="cuda", vvl=32)).layout == lay
     assert target.G5.launches == launches + 1
+
+
+# -- the batch instances (K3B, K5B, K2B) and batched serving ------------------------
+
+BATCH_LAYOUTS = ["soa", "aos", "aosoa16"]
+
+
+def _bits(a, b):
+    """Bitwise equality, NaN included (torch.equal calls NaN unequal)."""
+    return torch.equal(a.contiguous().view(torch.int32), b.contiguous().view(torch.int32))
+
+
+def _batch_inputs(rng, card, lay, V):
+    """x, r, p, ap: 4 stacked spinors in ``lay``; slot 1 is frozen (mask 0),
+    slot 2 all-zero, slot 3 frozen with -0.0 and a NaN in its x and r (the
+    y inputs the select passes through); alpha, neg_alpha, m: (4,)."""
+    canon = [torch.from_numpy(rng.normal(size=(4, 24, V)).astype(np.float32)) for _ in range(4)]
+    for t in canon:
+        t[2] = 0.0
+    x, r = canon[0], canon[1]
+    x[3, 0, 5] = r[3, 7, 11] = -0.0
+    x[3, 9, 2] = r[3, 1, 0] = float("nan")
+    phys = [torch.stack([lay.pack(c) for c in t]).to(card) for t in canon]
+    alpha = torch.tensor([0.37, -1.5, 0.25, 2.0], device=card)
+    m = torch.tensor([1.0, 0.0, 1.0, 0.0], device=card)
+    return phys, alpha, -alpha, m
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("spec", BATCH_LAYOUTS)
+def test_batch_kernels_per_slot_bitwise_and_close_to_plain(card, spec, rng):
+    """K3B (cg_update_masked, cg_xpay_masked, dot_prod), K2B (the batched
+    sum and fold) and K5B (wilson_normal): each slot bitwise the single
+    kernel on that slot, frozen slots bitwise their y inputs, and within
+    tolerance of the plain versions."""
+    lay = parse_layout(spec)
+    V = int(np.prod(MILC_LAT))
+    lays = {n: lay for n in ("x", "r", "p", "ap")}
+    (x, r, p, ap), alpha, neg_alpha, m = _batch_inputs(rng, card, lay, V)
+    bx, br, brr = fuse.cg_update_masked(x, r, p, ap, alpha, neg_alpha, m, 128, layouts=lays)
+    wx, wr, wrr = fuse.cg_update_masked_plain(x, r, p, ap, alpha, neg_alpha, m, lays)
+    for b in (0, 2):
+        sx, sr, srr = fuse.cg_update(x[b], r[b], p[b], ap[b], alpha[b], neg_alpha[b], 128,
+                                     layouts=lays)
+        assert _bits(bx[b], sx) and _bits(br[b], sr) and _bits(brr[b], srr)
+        _close_field(lay.unpack(bx[b]), lay.unpack(wx[b]))
+        _close_field(lay.unpack(br[b]), lay.unpack(wr[b]))
+        _close_sum(brr[b], wrr[b], lay.unpack(wr[b]) ** 2)
+    for b in (1, 3):
+        assert _bits(bx[b], x[b]) and _bits(br[b], r[b])
+    xy = {"x": lay, "y": lay}
+    out = fuse.cg_xpay_masked(p, r, alpha, m, 128, layouts=xy)
+    for b in (0, 2):
+        assert _bits(out[b], fuse.cg_xpay(p[b], r[b], alpha[b], 128, layouts=xy))
+        _close_field(lay.unpack(out[b]), lay.unpack(r[b]) + alpha[b] * lay.unpack(p[b]))
+    for b in (1, 3):
+        assert _bits(out[b], r[b])
+    shared = fuse.cg_xpay_masked(p, r[0], alpha, m, 128, layouts=xy)  # one y for every slot
+    for b in range(4):
+        want = fuse.cg_xpay(p[b], r[0], alpha[b], 128, layouts=xy) if b in (0, 2) else r[0]
+        assert _bits(shared[b], want)
+    prod = target.site_mul(x, r, 128, layouts=xy, batch=4)
+    assert _bits(prod, target.mul_plain(x, r, xy, batch=4))
+    sums = reduce.reduce_sites_batched(prod, "sum", 128, layouts={"x": lay})
+    for b in range(4):
+        assert _bits(prod[b], target.site_mul(x[b], r[b], 128, layouts=xy))
+        assert _bits(sums[b], reduce.reduce_sites(prod[b], "sum", 128, layouts={"x": lay}))
+    for b in (0, 1, 2):
+        c = lay.unpack(prod[b])
+        _close_sum(sums[b], c.sum(dim=1), c)
+    assert _bits(reduce.reduce_sites_batched(prod, "max", 128, layouts={"x": lay})[0],
+                 lay.unpack(prod[0]).amax(dim=1))
+    u = lay.pack(torch.from_numpy(fields.random_su3_gauge(MILC_LAT, seed=2).reshape(72, -1))
+                 .to(card))
+    pw = p[[0, 2, 1]]
+    ap_b, pap_b = K.wilson_normal_cuda(pw, u, 0.12, MILC_LAT, 128, layouts={"p": lay, "u": lay},
+                                       batched=True)
+    want_ap, want_pap = K.wilson_normal_plain(pw, u, 0.12, MILC_LAT, {"p": lay, "u": lay},
+                                              batched=True)
+    for b in range(3):
+        ap1, pap1 = K.wilson_normal_cuda(pw[b], u, 0.12, MILC_LAT, 128,
+                                         layouts={"p": lay, "u": lay})
+        assert _bits(ap_b[b], ap1) and _bits(pap_b[b], pap1)
+        _close_field(lay.unpack(ap_b[b]), lay.unpack(want_ap[b]))
+        _close_sum(pap_b[b], want_pap[b], lay.unpack(pw[b]) * lay.unpack(want_ap[b]))
+    parts = _dev(rng, (4, 6, 24), card)
+    folded = reduce.fold_partials_batched(parts, "sum")
+    for b in range(4):
+        assert _bits(folded[b], reduce.fold_partials(parts[b], "sum"))
+
+
+def _serve_sources(cfg, u, n):
+    """n sources: random, one spectrally filtered (converges earlier), the
+    last all-zero (an empty slot)."""
+    bs = [Field.from_numpy("b", fields.random_spinor(cfg.lattice, seed=10 + i), cfg.lattice,
+                           cfg.layout, device="cuda") for i in range(n)]
+    _, _, normal = CG.make_wilson_op(u, cfg.kappa, cfg.target)
+    f = bs[1]
+    for _ in range(6):
+        f = normal(f)
+    bs[1] = f.with_data(f.data / torch.linalg.norm(f.data))
+    bs[-1] = bs[-1].with_data(torch.zeros_like(bs[-1].data))
+    return bs
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("spec", ["soa", "aosoa16"])
+def test_solve_batched_on_card_bitwise_vs_solve(card, spec):
+    """solve_batched on "cuda" (K5B, K3B, K2B): each live slot's x,
+    iterations and residual bitwise the cuda solve of its source alone; the
+    empty slot takes 0 iterations and returns x = 0."""
+    from repro_torch.apps.milc import driver
+
+    lay = parse_layout(spec)
+    cfg = MilcConfig(lattice=(8, 8, 8, 8), kappa=0.12, tol=1e-10, max_iter=2000, layout=lay,
+                     target=TargetConfig("cuda", device="cuda"))
+    u, _ = init_problem(cfg, seed=0)
+    bs = _serve_sources(cfg, u, 4)
+    res = driver.solve_batched(cfg, u, bs)
+    its = res.iterations.tolist()
+    assert its[1] < its[0] and its[3] == 0 and not res.x.element(3).data.any()
+    for i in range(3):
+        r1 = solve(cfg, u, bs[i])
+        assert torch.equal(res.x.element(i).data, r1.x.data)
+        assert its[i] == r1.iterations and torch.equal(res.residual[i], r1.residual)
+        assert residual_check(cfg, u, bs[i], res.x.element(i)) < 1e-3
+
+
+@pytest.mark.cuda
+def test_solve_server_on_card_bitwise_vs_solve(card):
+    """A mixed-shape SolveServer drain on the card, more requests than
+    slots: every outcome bitwise the dedicated cuda solve."""
+    from repro_torch.launch.serve import SolveRequest, SolveServer
+
+    cfgs = {lat: MilcConfig(lattice=lat, kappa=0.12, tol=1e-10, max_iter=2000,
+                            target=TargetConfig("cuda", device="cuda"))
+            for lat in ((8, 8, 8, 8), (4, 4, 8, 8))}
+    server = SolveServer(TargetConfig("cuda", device="cuda"), slots=2, tol=1e-10, max_iter=2000)
+    reqs, us = [], {}
+    for i, (lat, cfg) in enumerate(cfgs.items()):
+        us[lat], _ = init_problem(cfg, seed=i)
+        server.register(us[lat], cfg.kappa)
+        reqs += [SolveRequest(10 * i + j, b) for j, b in enumerate(_serve_sources(cfg, us[lat], 3))]
+    for req in sorted(reqs, key=lambda q: q.rid % 10):
+        server.submit(req)
+    results = server.run()
+    for req in reqs:
+        lat = req.b.lattice
+        want = solve(cfgs[lat], us[lat], req.b)
+        got = results[req.rid]
+        assert torch.equal(got.x.data, want.x.data) and got.iterations == want.iterations
+        assert got.residual == float(want.residual) or want.iterations == 0
+
+
+@pytest.mark.cuda
+def test_batched_iteration_runs_only_the_hand_kernels(card):
+    """torch.profiler over one batched CG iteration on "cuda": the device ran
+    K5B, K3B and K2B's fold, and no PyTorch arithmetic touched a
+    lattice-sized tensor (the plain versions never ran; the scalar guards
+    and the component fold work on (batch,) and (batch, 24) tensors)."""
+    from torch.profiler import ProfilerActivity, profile
+
+    from repro_torch.core import BatchedField
+
+    cfg = MilcConfig(lattice=(8, 8, 8, 8), kappa=0.12, tol=1e-10, max_iter=2000,
+                     target=TargetConfig("cuda", device="cuda"))
+    u, _ = init_problem(cfg, seed=0)
+    _, apply_mdag, _ = CG.make_wilson_op(u, cfg.kappa, cfg.target)
+    rhs = BatchedField.stack([apply_mdag(b) for b in _serve_sources(cfg, u, 4)])
+    state = CG.batched_cg_state(rhs, cfg.target)
+    normal = CG.make_fused_normal(u, cfg.kappa, cfg.target)
+    state = CG.batched_cg_iteration(state, normal, config=cfg.target, tol=1e-10, max_iter=2000)
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA],
+                 record_shapes=True) as prof:
+        CG.batched_cg_iteration(state, normal, config=cfg.target, tol=1e-10, max_iter=2000)
+        torch.cuda.synchronize()
+    events = prof.key_averages(group_by_input_shape=True)
+    names = [e.key for e in events if e.device_type == torch.autograd.DeviceType.CUDA]
+    hand = ("wilson_normal_t_kernel", "wilson_normal_ap_kernel", "cg_update_kernel",
+            "cg_xpay_kernel", "reduce_fold_kernel")
+    assert all(any(k in n for n in names) for k in hand), names
+    arith = ("aten::add", "aten::mul", "aten::sub", "aten::where", "aten::sum", "aten::cat",
+             "aten::stack", "aten::copy_", "aten::clone", "aten::roll", "aten::index")
+    big = [(e.key, e.input_shapes) for e in events if e.key in arith
+           and any(int(np.prod(s)) > 4 * 24 for s in e.input_shapes if s)]
+    assert not big, big

@@ -126,7 +126,7 @@ def test_port_imports_neither_jax_nor_the_reference():
         "      'configs.granite_3_2b', 'configs.olmo_1b', 'configs.deepseek_67b',\n"
         "      'kernels.flash_attention', 'kernels.flash_attention.kernel',\n"
         "      'kernels.flash_attention.ops', 'kernels.flash_attention.ref',\n"
-        "      'models.attention')]\n"
+        "      'models.attention', 'launch', 'launch.serve')]\n"
         "assert set(lm) <= set(mods), set(lm) - set(mods)\n"
         "assert not bad, bad\n"
         "print(len(mods))\n"
