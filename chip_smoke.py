@@ -1,7 +1,8 @@
 """Drive the PyTorch/CUDA port on one GPU: the MILC Wilson-CG solve and its
-batched serving, the Ludwig LC-LB timestep, untiled, under a shared-memory
-budget and in every data layout, RWKV6-7B and starcoder2-7b serving
-(prefill and greedy decode).
+batched serving, both also in mixed precision, the Ludwig LC-LB timestep,
+untiled, under a shared-memory budget, in every data layout and with bf16
+LB storage, RWKV6-7B and starcoder2-7b serving (prefill and greedy
+decode).
 
     python3 chip_smoke.py [--lattice X Y Z T] [--small X Y Z T]
                           [--ludwig X Y Z] [--ludwig-small X Y Z] [--seed N]
@@ -44,6 +45,42 @@ S3. a ``SolveServer`` drain: 4 slots at ``--lattice`` (phase 2's u) with 6
    interleaved, so slots drain and refill mid-flight; every outcome bitwise
    the dedicated ``solve``; ticks a bucket, ms a tick by occupancy, solves/s
    against the dedicated solves' sum; the slice's tensors are freed after;
+P1. the mixed-precision policy instances against their plain versions, at
+   ``--lattice`` (after S3) and ``--ludwig`` (after L5), vvl 128, in soa,
+   aos and aosoa16: A, K5's policy instance (wilson_normal_mixed.cu), bf16
+   storage ap within one bf16 ulp (plus the fp32 field tolerance where a
+   value cancels far below its terms), pap within the oracle bound of the fp64
+   sum, fp32 storage bitwise the policy-free ap, run to run the same bits,
+   K5B's slots bitwise K5's; B, K5L's (dist2 and u within one bf16 ulp, the
+   LB graph under fp32 storage bitwise the policy-free one); C, K3 and K3B
+   fed a bf16 ap (bitwise K3 on the widened ap, within tolerance of the
+   plain version); D, K2's compensated sum and fold (within the oracle
+   bound, also on the block-aligned cancellation fixture at full size,
+   where the plain K2 must fall outside it, and on pairs whose lo carries
+   the sum, where the fold of the his alone must); the stage-in rounding
+   bitwise torch's: bf16.cuh's helper kernel on u and on ties, -0.0, inf,
+   NaN and subnormals, and K5's policy instance's own load of p at kappa 0.  Timed in SoA (CUDA events, median of
+   10) beside the policy-free kernel, the bound of the bytes the kernel
+   moves and the bytes of the reference's traffic model;
+P2. with every count set to 0: ``solve`` with ``storage="bfloat16"`` (the
+   refined solve) on phase 2's u and b: |Mx - b|/|b| < 1e-3, x within
+   rel-L2 1e-4 of phase 4's, K5's policy and policy-free instances, K3 fed
+   a bf16 ap and K2's compensated fold launched; inner iterations and
+   restarts beside phase 4's iterations, seconds to solution;
+P3. at ``--small`` on phase 5's u: ``solve_batched`` (4 sources) and a
+   2-slot ``SolveServer`` drain of them, the bf16 policy and restarts every
+   P3_REFINE iterations: each outcome within P2's checks against the
+   full-precision solve and bitwise its one-slot ``solve_batched`` run;
+P4. (after L5) with every count set to 0: 10 steps from the L1 state with
+   ``storage="bfloat16"``: finite, dist within 1e-2 rel of L3's 10 steps,
+   q within 1e-2 of the fp32 steps after 3 (P4_REL says why not 10), the
+   bf16 LB step launched; then, its counts set to 0 again, the mass before
+   and after summed by a standalone ``target_sum`` under an accumulate
+   policy (K2's compensated pass 1, which no driver path runs); 10 steps with
+   ``storage="float32"`` bitwise L3's; ms a step beside L3's; at
+   ``--ludwig-small`` 10 bf16 steps of the cuda engine within rel-L2 1e-3
+   of the torch engine's, both on the card;
+   P1-P4's numbers print as one JSON line before the kernel table;
 L1. Ludwig ``init_state`` at ``--ludwig`` (default (256, 256, 256), the
    ludwig_small lattice of benchmarks/fig5_scaling.py) on the card;
 L2. every Ludwig kernel against its plain version there, timed as in 3;
@@ -168,7 +205,9 @@ from repro_torch.apps.milc.cg import (batched_cg_active, batched_cg_iteration,  
                                       batched_cg_state, make_fused_normal, make_wilson_op)
 from repro_torch.apps.milc.driver import solve_batched  # noqa: E402
 from repro_torch.configs import get_arch  # noqa: E402
-from repro_torch.core import SOA, BatchedField, Field, TargetConfig, parse_layout  # noqa: E402
+from repro_torch.core import (SOA, BatchedField, DtypePolicy, Field, TargetConfig,  # noqa: E402
+                              parse_layout)
+from repro_torch.core.plan import CudaPolicy  # noqa: E402
 from repro_torch.core import fuse, plan, reduce, target  # noqa: E402
 from repro_torch.kernels.flash_attention import kernel as kf  # noqa: E402
 from repro_torch.kernels.lb_collision import collide  # noqa: E402
@@ -200,7 +239,10 @@ KERNELS = [target.G5, target.MUL, target.AXPY, reduce.REDUCE_SUM,
            k8.PROPAGATE, k8.LB_STEP, k8.LB_STEP_TILED, lk.CHEM_STRESS, lk.LC_UPDATE,
            lk.FED, k10.WKV, kf.FLASH, kf.FLASH_KVCHUNK, fuse.CG_UPDATE_MASKED,
            fuse.CG_XPAY_MASKED, wk.WILSON_NORMAL_T_B, wk.WILSON_NORMAL_AP_B,
-           reduce.REDUCE_SUM_B, reduce.REDUCE_MAX_B, reduce.REDUCE_FOLD_B]
+           reduce.REDUCE_SUM_B, reduce.REDUCE_MAX_B, reduce.REDUCE_FOLD_B,
+           wk.WILSON_NORMAL_T_MIXED, wk.WILSON_NORMAL_AP_MIXED, fuse.CG_UPDATE_AP16,
+           fuse.CG_UPDATE_MASKED_AP16, reduce.REDUCE_SUM_C, reduce.REDUCE_FOLD_C,
+           k8.LB_STEP_BF16, wk.BF16_ROUND]
 
 # flops a site, counted from the sources (all these kernels are bound by bytes)
 FLOPS = {"collide": 450, "lb_step": 462, "chem_stress": 600, "lc_update": 320, "fed": 160}
@@ -298,6 +340,52 @@ DENSE_PREFILLS = ((4, 2048), (1, 8192))   # the dense branch, the blockwise bran
 DENSE_S_MAX = 4096                # decode_32k's (128, 32768) cut to batch 4 x 4096
 FLASH_RTOL, FLASH_ATOL_REL = 1e-5, 2e-5   # fp32; bf16: one bf16 ulp + the atol
 DECODE_REL_L2_FP32 = 1e-3         # fp32 decode after the prompt vs the prefill
+
+# mixed precision (P1-P4): the policy instances on the refined solve's path
+# (P2; its restarts also run PATH's policy-free wilson_normal), refined
+# serving's (P3) and the bf16 LB step's (P4, whose mass is summed compensated)
+MIXED_PATH = {
+    "wilson_normal_policy": ([wk.WILSON_NORMAL_T_MIXED, wk.WILSON_NORMAL_AP_MIXED],
+                             "wilson_normal_mixed.cu", "src/repro/core/fuse.py:1721"),
+    "cg_update_ap16": ([fuse.CG_UPDATE_AP16], "fused_flat.cu", "src/repro/core/fuse.py:1411"),
+    "reduce_fold_comp": ([reduce.REDUCE_FOLD_C], "reduce.cu", "src/repro/core/reduce.py:106"),
+}
+MIXED_SERVE_PATH = {
+    "wilson_normal_batched_policy": ([wk.WILSON_NORMAL_T_MIXED, wk.WILSON_NORMAL_AP_MIXED],
+                                     "wilson_normal_mixed.cu", "src/repro/core/fuse.py:1721"),
+    "cg_update_masked_ap16": ([fuse.CG_UPDATE_MASKED_AP16], "fused_flat.cu",
+                              "src/repro/core/fuse.py:1411"),
+    "reduce_fold_comp_batched": ([reduce.REDUCE_FOLD_C], "reduce.cu",
+                                 "src/repro/core/reduce.py:106"),
+}
+MIXED_LUDWIG_PATH = {
+    "lb_step_bf16": ([k8.LB_STEP_BF16], "lb.cu", "src/repro/core/fuse.py:1721"),
+}
+# K2's compensated pass 1 runs on no driver path (the refined solve's sums
+# are pap's, folded from K5's pairs, and plain norms): its entry point is a
+# standalone target_sum under an accumulate policy, P4's mass diagnostic
+MIXED_SUM_PATH = {
+    "reduce_sum_comp": ([reduce.REDUCE_SUM_C], "reduce.cu", "src/repro/core/reduce.py:106"),
+}
+BF16 = DtypePolicy(storage="bfloat16", compute="float32", accumulate="float64")
+F32 = DtypePolicy(storage="float32", compute="float32", accumulate="float64")
+P1_LAYOUTS = ("soa", "aos", "aosoa16")
+ORACLE_RTOL = 2.5e-7   # compensated sums: |sum - fp64 sum| <= ORACLE_RTOL sum|terms| + 1e-6
+# P3's restart period.  refine_every = 50 (refine_k's default) never restarts
+# a solve that converges in 26 iterations: the recurrence then stops at x
+# rel-L2 3.9e-3 from full precision and |Mx-b|/|b| 3.3e-3 (the torch engine
+# at (8,8,8,8) and (16,16,16,16) on the CPU), outside P2's checks; 10 restarts
+# twice and lands at 2.0e-5 and 1.1e-5
+P3_REFINE, P3_SERVER_SLOTS = 10, 2
+MIXED_REL_X = 1e-4     # P2/P3: x within rel-L2 of the full-precision solve's
+# P4: bf16 LB storage against the fp32 steps.  Rounding dist to bf16 each
+# step adds velocity noise that the order parameter integrates: q drifts
+# linearly, rel-L2 5.5e-3 / 1.1e-2 / 2.7e-2 after 3 / 5 / 10 steps on the CPU
+# at (8,8,8) and (32,32,32), in both packages (the port's bf16 steps equal
+# the JAX package's, dist bitwise).  So q is held to P4_REL at step 3 (the
+# horizon of tests/test_dtype.py), dist to it at step 10, and the cuda
+# engine to the torch engine's bf16 steps at --ludwig-small
+P4_REL, P4_ENGINE_REL = 1e-2, 1e-3
 
 # the layouts (Y1-Y3): the union of the paper's two Fig. 3 sweeps
 # (benchmarks/fig3_kernels.py:108 and :377); Y3's vvls
@@ -615,7 +703,7 @@ def run_ludwig(state, cfg):
     idle = [n for n, c in counts.items() if c == 0]
     if idle:
         raise AssertionError(f"kernels of the step's path never launched: {idle}")
-    return after_steps, s, counts
+    return after_steps, s, counts, step_s * 1e3
 
 
 def lb_exhibit(state, cfg):
@@ -1910,6 +1998,480 @@ def serve_drain(cfg, u, su, small, bs, dedicated, seed):
 
 
 
+# -- mixed precision (P1-P4) ---------------------------------------------------------
+
+def bf16_err(got, want, name):
+    """max |got - want| of two bf16 (or fp32) fields, raising unless each
+    value lies within one bf16 ulp of the larger magnitude plus the fp32
+    field tolerance FIELD_RTOL x max|want|: two fp32 results that differ in
+    their last bits round to neighbouring bf16 values, and where
+    cancellation leaves a value far below its terms the fp32 difference
+    itself is the larger."""
+    g, w = got.float(), want.float()
+    mag = torch.maximum(g.abs(), w.abs()).clamp_min(torch.finfo(torch.float32).tiny)
+    lim = torch.exp2(torch.floor(torch.log2(mag)) - 7) + FIELD_RTOL * w.abs().max()
+    ratio = ((g - w).abs() / lim).max().item()
+    if not ratio <= 1.0:
+        raise AssertionError(f"{name}: {ratio} x (one bf16 ulp + the fp32 tolerance) apart")
+    return (g - w).abs().max().item()
+
+
+def oracle_err(got, terms, name):
+    """A compensated sum ``got`` (ncomp,) against the fp64 sum of ``terms``
+    (ncomp, sites): within ORACLE_RTOL x sum|terms| + 1e-6 a component."""
+    oracle = torch.sum(terms, dim=-1, dtype=torch.float64)
+    mass = torch.sum(terms.abs(), dim=-1, dtype=torch.float64)
+    err = (got.double() - oracle).abs()
+    if not bool((err <= ORACLE_RTOL * mass + 1e-6).all()):
+        raise AssertionError(f"{name}: err {err.max().item()} beyond the oracle bound")
+    return err.max().item()
+
+
+CANCEL_BIG, CANCEL_FILL = 2.0 ** 26 + 8, 3.9375
+
+
+def cancel_field(ncomp, V, dev):
+    """The cancellation fixture, block-aligned for vvl 128 (V a multiple of
+    128): each block of 128 sites holds one +-CANCEL_BIG (the sign
+    alternating over the blocks, so they cancel) at its first site and
+    CANCEL_FILL at the 8 sites that K2's plain fold (a 32-lane shuffle tree,
+    then the 4 warps in order) adds to it one at a time; every other site
+    is 0.  CANCEL_FILL is under half an ulp of CANCEL_BIG (8), so the plain
+    K2 loses all of it, 31.5 a block, the whole sum: 1.88 x the oracle
+    bound at any size.  A compensated fold keeps it."""
+    x = torch.zeros((ncomp, V // 128, 4, 32), device=dev)
+    sign = 1.0 - 2.0 * (torch.arange(V // 128, device=dev) % 2)
+    x[:, :, 0, 0] = CANCEL_BIG * sign
+    x[:, :, 0, [1, 2, 4, 8, 16]] = CANCEL_FILL
+    x[:, :, 1:, 0] = CANCEL_FILL
+    return x.reshape(ncomp, V)
+
+
+def fold_pairs(nblocks, ncomp, dev):
+    """(nblocks, ncomp, 2) (hi, lo) pairs for K2's compensated pass 2: hi an
+    integer whose sign alternates over the blocks, so the his cancel, and lo
+    a multiple of 2^-10 that does not cancel.  Every partial sum is exact in
+    fp32, so the fold is exact, and a fold that dropped lo would return 0:
+    about 2^-11 x nblocks from the fp64 sum, far beyond the oracle bound."""
+    k = torch.arange(nblocks, device=dev)[:, None]
+    c = torch.arange(ncomp, device=dev)[None, :]
+    hi = (1.0 - 2.0 * (k % 2)) * (1 + c % 4)
+    lo = (1 + (k + c) % 3) * 2.0 ** -10
+    return torch.stack([hi.float(), lo.float()], dim=-1)
+
+
+def beyond_oracle(got, terms, name):
+    """The control of a compensated check: ``got`` (a plain fold) must fall
+    outside the oracle bound of ``terms``, so that the bound can tell the
+    compensated fold from it.  Returns the worst ratio err / bound."""
+    oracle = torch.sum(terms, dim=-1, dtype=torch.float64)
+    bound = ORACLE_RTOL * torch.sum(terms.abs(), dim=-1, dtype=torch.float64) + 1e-6
+    ratio = ((got.double() - oracle).abs() / bound).min().item()
+    if not ratio > 1.0:
+        raise AssertionError(f"{name}: the control is within the oracle bound ({ratio} x)")
+    return ratio
+
+
+def check_mixed_milc(u, b, lattice, vvl):
+    """P1 at the MILC lattice: A (K5/K5B's policy instance), C (K3/K3B fed a
+    bf16 ap) and D (K2's compensated instance) against their plain versions
+    in P1_LAYOUTS; timed in SoA beside the policy-free kernels.  Returns
+    (rows, the bytes of the reference's model and the policy-free ms)."""
+    V = math.prod(lattice)
+    inp = milc_inputs(u, b, vvl)
+    psi, uu, y, p, ap, alpha, neg_alpha = (
+        inp[n] for n in ("psi", "u", "y", "p", "ap", "alpha", "neg_alpha"))
+    pol, f32 = CudaPolicy(True, True), CudaPolicy(False, True)
+    rows, extra = {}, {}
+
+    def row(name, *a, model_bytes=None, free_ms=None, **kw):
+        add_row(rows, name, *a, **kw)
+        extra[name] = dict(model_bytes=model_bytes, model_bound_ms=None if model_bytes is None
+                           else model_bytes / HBM_BYTES_PER_S * 1e3, policy_free_ms=free_ms)
+        log(f"    {name}: policy-free {free_ms} ms"
+            + (f", the reference's model {model_bytes / V:.0f} B a site"
+               if model_bytes is not None else ""))
+
+    special = torch.tensor([1 + 2 ** -8, 1 + 3 * 2 ** -8, -0.0, float("inf"), -float("inf"),
+                            float("nan"), 1e-40, -1e-39, 3.4e38, 1.5 * 2 ** -133], device=uu.device)
+    for what, t in (("u", uu), ("special values", special)):
+        bits_err(wk.bf16_round_cuda(t), t.to(torch.bfloat16).float(),
+                 f"P1 the stage-in rounding of {what}")
+    # K5's policy instance itself: at kappa 0, ap = g5 g5 of p as loaded,
+    # so its bf16 ap is p's stage-in rounding, bitwise (ties and subnormals
+    # placed in p; -0.0, inf and NaN would meet 0 * D p)
+    pt = psi.clone()
+    odd = special[torch.tensor([0, 1, 6, 7, 9], device=psi.device)]
+    pt[:, :5], pt[:, 5:10] = odd, -odd
+    ap_k0, _ = wk.wilson_normal_cuda(pt, uu, 0.0, lattice, vvl, policy=pol)
+    bits_err(ap_k0.float(), pt.to(torch.bfloat16).float(),
+             "P1 wilson_normal policy at kappa 0: ap vs p's bf16 rounding")
+    del pt, ap_k0
+    log("  the stage-in rounding bitwise torch's .to(bfloat16): the helper kernel of "
+        "bf16.cuh on u and on ties, -0.0, inf, NaN, subnormals; K5's policy instance's own "
+        "load of p (kappa 0, ties and subnormals in p)")
+    for spec in P1_LAYOUTS:
+        lay = parse_layout(spec)
+        lays = {"p": lay, "u": lay, "ap": lay}
+        pp, up = (t if lay == SOA else lay.pack(t) for t in (psi, uu))
+        ap0, _ = wk.wilson_normal_cuda(pp, up, KAPPA, lattice, vvl, layouts=lays)
+        a32, s32 = wk.wilson_normal_cuda(pp, up, KAPPA, lattice, vvl, layouts=lays, policy=f32)
+        bits_err(a32, ap0, f"P1 {spec} wilson_normal under fp32 storage vs the policy-free ap")
+        oracle_err(s32, psi * lay.unpack(ap0), f"P1 {spec} wilson_normal fp32-storage pap")
+        del a32
+        got = wk.wilson_normal_cuda(pp, up, KAPPA, lattice, vvl, layouts=lays, policy=pol)
+        want = wk.wilson_normal_plain(pp, up, KAPPA, lattice, lays, policy=pol)
+        err = bf16_err(lay.unpack(got[0]), lay.unpack(want[0]), f"P1 {spec} policy ap")
+        ap32, _ = wk.wilson_normal_plain(wk.bf16_round(pp), wk.bf16_round(up), KAPPA, lattice,
+                                         lays)
+        terms = wk.bf16_round(psi) * lay.unpack(ap32)
+        err = max(err, oracle_err(got[1], terms, f"P1 {spec} policy pap"))
+        oracle_err(want[1], terms, f"P1 {spec} plain policy pap")
+        again = wk.wilson_normal_cuda(pp, up, KAPPA, lattice, vvl, layouts=lays, policy=pol)
+        bits_err(again[0].float(), got[0].float(), f"P1 {spec} policy ap run to run")
+        bits_err(again[1], got[1], f"P1 {spec} policy pap run to run")
+        del ap32, terms, want, again
+        pb = torch.stack([pp, y if lay == SOA else lay.pack(y)])
+        bat = wk.wilson_normal_cuda(pb, up, KAPPA, lattice, vvl, layouts=lays, batched=True,
+                                    policy=pol)
+        bits_err(bat[0][0].float(), got[0].float(), f"P1 {spec} K5B policy slot 0 vs K5")
+        bits_err(bat[1][0], got[1], f"P1 {spec} K5B policy pap slot 0 vs K5")
+        one = wk.wilson_normal_cuda(pb[1], up, KAPPA, lattice, vvl, layouts=lays, policy=pol)
+        bits_err(bat[0][1].float(), one[0].float(), f"P1 {spec} K5B policy slot 1 vs K5")
+        bits_err(bat[1][1], one[1], f"P1 {spec} K5B policy pap slot 1 vs K5")
+        del bat, one, pb
+        # C: K3 fed a bf16 ap, bitwise K3 on the widened ap
+        cl = {n: lay for n in ("x", "r", "p", "ap")}
+        xs, rs, ps = (t if lay == SOA else lay.pack(t) for t in (psi, y, p))
+        ap16 = (ap if lay == SOA else lay.pack(ap)).to(torch.bfloat16)
+        c16 = fuse.cg_update(xs, rs, ps, ap16, alpha, neg_alpha, vvl, layouts=cl)
+        cwide = fuse.cg_update(xs, rs, ps, ap16.float(), alpha, neg_alpha, vvl, layouts=cl)
+        for k in range(3):
+            bits_err(c16[k], cwide[k], f"P1 {spec} cg_update_ap16 vs cg_update on the widened ap")
+        cw = fuse.cg_update_plain(xs, rs, ps, ap16, alpha, neg_alpha, cl)
+        cerr = max(field_err(lay.unpack(c16[1]), lay.unpack(cw[1]), "cg_update_ap16 r_new"),
+                   sum_err(c16[2], cw[2], lay.unpack(cw[1]) ** 2, "cg_update_ap16 rr"))
+        del cwide, cw
+        # D: the compensated sum of the product field and of the fixture
+        prod = psi * y
+        pl = prod if lay == SOA else lay.pack(prod)
+        oracle_err(reduce.reduce_sites(pl, "sum", vvl, layouts={"x": lay}, compensated=True),
+                   prod, f"P1 {spec} reduce_sum_comp")
+        log(f"  {spec}: wilson_normal policy (bf16, compensated) ap within one bf16 ulp, "
+            f"pap within the oracle bound, K5B slots bitwise; fp32 storage bitwise "
+            f"the policy-free ap; cg_update_ap16 bitwise on the widened ap; the "
+            f"compensated sum within the oracle bound")
+        if lay != SOA:
+            del got, c16, prod, pl, xs, rs, ps, ap16, pp, up
+            torch.cuda.empty_cache()
+            continue
+        fix = cancel_field(24, V, psi.device)
+        comp_err = oracle_err(reduce.reduce_sites(fix, "sum", vvl, compensated=True), fix,
+                              "P1 the cancellation fixture, compensated")
+        plain_ratio = beyond_oracle(reduce.reduce_sites(fix, "sum", vvl), fix,
+                                    "P1 the cancellation fixture, the plain K2")
+        log(f"  the cancellation fixture at V = {V}: compensated err {comp_err:.3e}, within "
+            f"the oracle bound; the plain K2 {plain_ratio:.3f} x the bound, outside it")
+        del fix
+        free = time_ms(lambda: wk.wilson_normal_cuda(psi, uu, KAPPA, lattice, vvl))
+        row("wilson_normal_policy", err,
+            time_ms(lambda: wk.wilson_normal_cuda(psi, uu, KAPPA, lattice, vvl, policy=pol)),
+            time_ms(lambda: wk.wilson_normal_plain(psi, uu, KAPPA, lattice, policy=pol),
+                    reps=3, warm=1),
+            (24 + 72 + 12) * 4 * V, (2 * (1320 + 48) + 48) * V, model_bytes=240 * V,
+            free_ms=free)
+        pb = torch.stack([psi] * SLOTS)
+        row("wilson_normal_batched_policy", err,
+            time_ms(lambda: wk.wilson_normal_cuda(pb, uu, KAPPA, lattice, vvl, batched=True,
+                                                  policy=pol)),
+            time_ms(lambda: wk.wilson_normal_plain(pb, uu, KAPPA, lattice, batched=True,
+                                                   policy=pol), reps=1, warm=0),
+            (SLOTS * (24 + 12) + 72) * 4 * V, SLOTS * (2 * (1320 + 48) + 48) * V,
+            model_bytes=(SLOTS * (12 + 12) + 36) * 4 * V,
+            free_ms=time_ms(lambda: wk.wilson_normal_cuda(pb, uu, KAPPA, lattice, vvl,
+                                                          batched=True)))
+        del pb
+        ap16 = ap.to(torch.bfloat16)
+        row("cg_update_ap16", cerr,
+            time_ms(lambda: fuse.cg_update(psi, y, p, ap16, alpha, neg_alpha, vvl)),
+            time_ms(lambda: fuse.cg_update_plain(psi, y, p, ap16, alpha, neg_alpha)),
+            (5 * 24 + 12) * 4 * V, 24 * 6 * V, model_bytes=(5 * 24 + 12) * 4 * V,
+            free_ms=time_ms(lambda: fuse.cg_update(psi, y, p, ap, alpha, neg_alpha, vvl)))
+        st = [torch.stack([t] * SLOTS) for t in (psi, y, p)]
+        ap16b, apb = torch.stack([ap16] * SLOTS), torch.stack([ap] * SLOTS)
+        a_b, m_b = alpha.repeat(SLOTS), torch.ones(SLOTS, device=psi.device)
+        got_b = fuse.cg_update_masked(*st, ap16b, a_b, -a_b, m_b, vvl)
+        for k in range(3):
+            bits_err(got_b[k][1], c16[k], f"P1 cg_update_masked_ap16 slot 1 vs cg_update_ap16")
+        del got_b
+        row("cg_update_masked_ap16", cerr,
+            time_ms(lambda: fuse.cg_update_masked(*st, ap16b, a_b, -a_b, m_b, vvl)),
+            time_ms(lambda: fuse.cg_update_masked_plain(*st, ap16b, a_b, -a_b, m_b),
+                    reps=3, warm=1),
+            SLOTS * (5 * 24 + 12) * 4 * V, SLOTS * 24 * 6 * V,
+            model_bytes=SLOTS * (5 * 24 + 12) * 4 * V,
+            free_ms=time_ms(lambda: fuse.cg_update_masked(*st, apb, a_b, -a_b, m_b, vvl)))
+        del st, ap16b, apb
+        nb = -(-V // vvl)
+        pairs = fold_pairs(nb, 24, psi.device)
+        hi = pairs[..., 0].contiguous()   # the policy-free fold's rows
+        pair_terms = pairs.permute(1, 0, 2).reshape(24, -1)
+        ferr = oracle_err(reduce.fold_partials(pairs, "sum", compensated=True), pair_terms,
+                          "P1 reduce_fold_comp")
+        lo_ratio = beyond_oracle(reduce.fold_partials(hi, "sum"), pair_terms,
+                                 "P1 the fold of the his alone (lo dropped)")
+        log(f"  reduce_fold_comp on pairs whose lo carries the sum: err {ferr:.3e}; the "
+            f"plain fold of the his alone {lo_ratio:.3e} x the oracle bound")
+        row("reduce_fold_comp", ferr,
+            time_ms(lambda: reduce.fold_partials(pairs, "sum", compensated=True)),
+            time_ms(lambda: reduce.compensated_plain(pairs.permute(1, 0, 2).reshape(24, -1))),
+            pairs.numel() * 4 + 96, pairs.numel(), model_bytes=None,
+            free_ms=time_ms(lambda: reduce.fold_partials(hi, "sum")),
+            library_ms=time_ms(lambda: torch.sum(pairs, dim=(0, 2), dtype=torch.float64)))
+        pairs_b = torch.stack([pairs] * SLOTS)
+        hi_b = pairs_b[..., 0].contiguous()
+        folded = reduce.fold_partials_batched(pairs_b, "sum", compensated=True)
+        bits_err(folded[2], reduce.fold_partials(pairs, "sum", compensated=True),
+                 "P1 reduce_fold_comp_batched slot 2 vs the single fold")
+        row("reduce_fold_comp_batched", ferr,
+            time_ms(lambda: reduce.fold_partials_batched(pairs_b, "sum", compensated=True)),
+            time_ms(lambda: torch.stack([reduce.compensated_plain(
+                e.permute(1, 0, 2).reshape(24, -1)) for e in pairs_b])),
+            pairs_b.numel() * 4 + SLOTS * 96, pairs_b.numel(), model_bytes=None,
+            free_ms=time_ms(lambda: reduce.fold_partials_batched(hi_b, "sum")),
+            library_ms=time_ms(lambda: torch.sum(pairs_b, dim=(1, 3), dtype=torch.float64)))
+        del got, c16, prod, pl, xs, rs, ps, ap16, pp, up, pairs, pairs_b, folded, hi, hi_b
+        del pair_terms
+        torch.cuda.empty_cache()
+    del inp, psi, uu, y, p, ap
+    torch.cuda.empty_cache()
+    return rows, extra
+
+
+def check_mixed_ludwig(state, cfg, vvl):
+    """P1 at the Ludwig lattice: B (K5L's policy instance) and D (K2's
+    compensated sum of dist) against their plain versions in P1_LAYOUTS, the
+    LB graph under fp32 storage bitwise the policy-free one; timed in SoA."""
+    lat, V = cfg.lattice, math.prod(cfg.lattice)
+    inp = ludwig_inputs(state, vvl)
+    dist, force, tau = inp["dist"], inp["force"], cfg.tau
+    rows, extra = {}, {}
+    for spec in P1_LAYOUTS:
+        lay = parse_layout(spec)
+        lays = {"dist": lay, "force": lay, "dist2": lay, "u": lay}
+        d, f = (t if lay == SOA else lay.pack(t) for t in (dist, force))
+        got = k8.lb_step_cuda(d, f, tau, lat, vvl, layouts=lays, bf16=True)
+        want = k8.lb_step_plain(d, f, tau, lat, layouts=lays, bf16=True)
+        err = max(bf16_err(lay.unpack(got[0]), lay.unpack(want[0]), f"P1 {spec} dist2"),
+                  bf16_err(lay.unpack(got[1]), lay.unpack(want[1]), f"P1 {spec} u"))
+        del want
+        fd, ff = Field("dist", 19, lat, lay, d), Field("force", 3, lat, lay, f)
+        g = ludwig.lb_step_graph(cfg)
+        free = g.launch({"dist": fd, "force": ff}, config=cfg.target, outputs=("dist2", "u"))
+        f32 = g.launch({"dist": fd, "force": ff}, config=dataclasses.replace(cfg.target, dtypes=F32),
+                       outputs=("dist2", "u"))
+        for o in ("dist2", "u"):
+            bits_err(f32[o].data, free[o].data, f"P1 {spec} lb step {o} under fp32 storage")
+        del free, f32
+        derr = oracle_err(reduce.reduce_sites(d, "sum", vvl, layouts={"x": lay}, compensated=True),
+                          dist, f"P1 {spec} the compensated sum of dist")
+        log(f"  {spec}: lb_step policy (bf16) dist2 and u within one bf16 ulp, fp32 storage "
+            f"bitwise the policy-free step, the compensated sum of dist within the oracle bound")
+        if lay == SOA:
+            def add(name, err, ms, plain_ms, nbytes, flops, model_bytes, free_ms, **kw):
+                add_row(rows, name, err, ms, plain_ms, nbytes, flops, **kw)
+                extra[name] = dict(model_bytes=model_bytes, model_bound_ms=None
+                                   if model_bytes is None else model_bytes / HBM_BYTES_PER_S * 1e3,
+                                   policy_free_ms=free_ms)
+                log(f"    {name}: policy-free {free_ms} ms")
+
+            add("lb_step_bf16", err,
+                time_ms(lambda: k8.lb_step_cuda(d, f, tau, lat, vvl, bf16=True)),
+                time_ms(lambda: k8.lb_step_plain(d, f, tau, lat, bf16=True), reps=3, warm=1),
+                (22 * 4 + 22 * 2) * V, FLOPS["lb_step"] * V, 22 * 2 * 2 * V,
+                time_ms(lambda: k8.lb_step_cuda(d, f, tau, lat, vvl)))
+            add("reduce_sum_comp", derr,
+                time_ms(lambda: reduce.reduce_sites(d, "sum", vvl, compensated=True)),
+                time_ms(lambda: reduce.compensated_plain(d)), 76 * V, 19 * V, None,
+                time_ms(lambda: reduce.reduce_sites(d, "sum", vvl)),
+                library_ms=time_ms(lambda: torch.sum(d, dim=1, dtype=torch.float64)))
+        del got, d, f, fd, ff
+        torch.cuda.empty_cache()
+    del inp, dist, force
+    torch.cuda.empty_cache()
+    return rows, extra
+
+
+def mixed_solve(cfg, u, b, x_full, iterations, full_s):
+    """P2: the refined solve (storage bfloat16) on phase 2's u and b, with
+    every count set to 0: |Mx - b|/|b| < 1e-3, x within MIXED_REL_X of
+    phase 4's x, every kernel of MIXED_PATH and the policy-free
+    wilson_normal (the restarts' true residual) launched."""
+    mcfg = dataclasses.replace(cfg, storage="bfloat16")
+    reset_counts()
+    res, dt = solve_timed(mcfg, u, b)
+    counts = path_counts(MIXED_PATH)
+    restarts = wk.WILSON_NORMAL_AP.launches
+    counts["wilson_normal"] = path_counts(PATH)["wilson_normal"]
+    rc = residual_check(cfg, u, b, res.x)
+    rel = (torch.linalg.norm(res.x.data - x_full) / torch.linalg.norm(x_full)).item()
+    log(f"P2: refined solve {cfg.lattice} (bf16 storage): {res.iterations} inner iterations "
+        f"(phase 4: {iterations}), {restarts} restarts, {dt:.3f} s to solution (phase 4: "
+        f"{full_s:.3f} s), {dt / max(res.iterations, 1) * 1e3:.3f} ms an inner iteration "
+        f"with the restarts; |Mx-b|/|b| = {rc:.3e}, x rel-L2 {rel:.3e} from phase 4's; "
+        f"launches {counts}")
+    if not torch.isfinite(res.x.data).all():
+        raise AssertionError("P2: non-finite x")
+    if not (rc < 1e-3 and rel < MIXED_REL_X):
+        raise AssertionError(f"P2: residual_check {rc}, x rel {rel}")
+    idle = [n for n, c in counts.items() if c == 0]
+    if idle:
+        raise AssertionError(f"P2: kernels of the refined path never launched: {idle}")
+    summary = dict(iterations=res.iterations, restarts=restarts, s=dt, full_iterations=iterations,
+                   full_s=full_s, residual_check=rc, x_rel=rel)
+    del res
+    torch.cuda.empty_cache()
+    return summary, counts
+
+
+def mixed_serving(su, small, seed):
+    """P3 at ``small`` on phase 5's u: solve_batched (SLOTS sources) and a
+    SolveServer drain (P3_SERVER_SLOTS slots, the same sources) with the bf16
+    policy and restarts every P3_REFINE iterations.  Each outcome: P2's
+    checks against the full-precision cuda solve of its source, and bitwise
+    the one-slot solve_batched run of it."""
+    base = MilcConfig(lattice=small, kappa=KAPPA, tol=TOL, hot=HOT, max_iter=MAX_ITER,
+                      target=TargetConfig("cuda", device="cuda"))
+    cfg = dataclasses.replace(base, storage="bfloat16", refine_k=P3_REFINE)
+    bs = [spinor(small, seed + 40 + i) for i in range(SLOTS)]
+    reset_counts()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    res = solve_batched(cfg, su, bs)
+    torch.cuda.synchronize()
+    dt = time.perf_counter() - t0
+    counts = path_counts(MIXED_SERVE_PATH)
+    idle = [n for n, c in counts.items() if c == 0]
+    if idle:
+        raise AssertionError(f"P3: kernels of refined serving never launched: {idle}")
+    server = SolveServer(TargetConfig("cuda", device="cuda", dtypes=BF16),
+                         slots=P3_SERVER_SLOTS, tol=TOL, max_iter=MAX_ITER,
+                         refine_every=P3_REFINE)
+    server.register(su, KAPPA)
+    for i, bb in enumerate(bs):
+        server.submit(SolveRequest(i, bb))
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    served = server.run()
+    torch.cuda.synchronize()
+    drain_s = time.perf_counter() - t0
+    its = res.iterations.tolist()
+    worst = [0.0, 0.0]
+    for i, bb in enumerate(bs):
+        one = solve_batched(cfg, su, [bb])
+        exact_err(res.x.element(i).data, one.x.element(0).data,
+                  f"P3 slot {i}: solve_batched vs its one-slot run")
+        exact_err(served[i].x.data, one.x.element(0).data,
+                  f"P3 request {i}: the server vs the one-slot run")
+        if its[i] != int(one.iterations[0]) or served[i].iterations != its[i]:
+            raise AssertionError(f"P3 slot {i}: iterations {its[i]}, served "
+                                 f"{served[i].iterations}, one-slot {int(one.iterations[0])}")
+        full = solve(base, su, bb)
+        rc = residual_check(base, su, bb, res.x.element(i))
+        rel = (torch.linalg.norm(res.x.element(i).data - full.x.data)
+               / torch.linalg.norm(full.x.data)).item()
+        if not (rc < 1e-3 and rel < MIXED_REL_X):
+            raise AssertionError(f"P3 slot {i}: residual_check {rc}, x rel {rel}")
+        worst = [max(worst[0], rc), max(worst[1], rel)]
+    log(f"P3: refined serving {small}, {SLOTS} sources, restarts every {P3_REFINE}: "
+        f"solve_batched {dt:.3f} s, iterations {its}; a {P3_SERVER_SLOTS}-slot drain "
+        f"{drain_s:.3f} s ({server.buckets[small].iterations_run} ticks); every outcome "
+        f"bitwise its one-slot run; worst |Mx-b|/|b| {worst[0]:.3e}, x rel-L2 {worst[1]:.3e} "
+        f"from full precision; launches {counts}")
+    return dict(iterations=its, solve_batched_s=dt, drain_s=drain_s,
+                worst_residual_check=worst[0], worst_x_rel=worst[1]), counts
+
+
+def ludwig_steps(state, cfg, n):
+    """n steps from ``state``; returns the states after 3 and after n."""
+    s, third = state, None
+    for k in range(n):
+        s = step(s, cfg)
+        if k == 2:
+            third = s
+    return third, s
+
+
+def rel_l2(a, b):
+    return (torch.linalg.norm(a.float() - b.float()) / torch.linalg.norm(b.float())).item()
+
+
+def mixed_ludwig(state, after_steps, cfg, l3_ms, small):
+    """P4, with every count set to 0: LUDWIG_STEPS steps from the L1 state
+    with storage bfloat16: finite, dist within P4_REL of L3's steps, q
+    within P4_REL at step 3 and reported at step 10 (see P4_REL); the mass
+    before and after, summed in a counted window of its own (MIXED_SUM_PATH);
+    the same steps with storage
+    float32 bitwise L3's; at ``small`` the cuda engine's bf16 steps within
+    P4_ENGINE_REL of the torch engine's on the card."""
+    bcfg = dataclasses.replace(cfg, storage="bfloat16")
+    reset_counts()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    third, s = ludwig_steps(state, bcfg, LUDWIG_STEPS)
+    torch.cuda.synchronize()
+    ms = (time.perf_counter() - t0) / LUDWIG_STEPS * 1e3
+    counts = path_counts(MIXED_LUDWIG_PATH)
+    # the mass diagnostic, a window of its own: a standalone target_sum under
+    # an accumulate-only policy (K2's compensated pass 1 and fold), which no
+    # driver path runs
+    acc = dataclasses.replace(cfg.target, dtypes=DtypePolicy(accumulate="float64"))
+    reset_counts()
+    m0 = float(reduce.target_sum(state.dist, acc).double().sum())
+    m1 = float(reduce.target_sum(s.dist, acc).double().sum())
+    sum_counts = path_counts(MIXED_SUM_PATH)
+    for name in ("dist", "q"):
+        if not torch.isfinite(getattr(s, name).data).all():
+            raise AssertionError(f"P4: bf16 {name} has non-finite values")
+    rels = {n: rel_l2(getattr(s, n).data, getattr(after_steps, n).data) for n in ("dist", "q")}
+    del s
+    full3 = ludwig_steps(state, cfg, 3)[0]
+    rels["q@3"] = rel_l2(third.q.data, full3.q.data)
+    rels["dist@3"] = rel_l2(third.dist.data, full3.dist.data)
+    del third, full3
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    _, s = ludwig_steps(state, dataclasses.replace(cfg, storage="float32"), LUDWIG_STEPS)
+    torch.cuda.synchronize()
+    f32_ms = (time.perf_counter() - t0) / LUDWIG_STEPS * 1e3
+    for name in ("dist", "q"):
+        exact_err(getattr(s, name).data, getattr(after_steps, name).data,
+                  f"P4: fp32 storage {name} vs L3")
+    del s
+    engines = [LudwigConfig(lattice=small, storage="bfloat16",
+                            target=TargetConfig(e, device="cuda")) for e in ("cuda", "torch")]
+    (_, sc), (_, st) = (ludwig_steps(init_state(c, seed=0), c, LUDWIG_STEPS) for c in engines)
+    erels = {n: rel_l2(getattr(sc, n).data, getattr(st, n).data) for n in ("dist", "q")}
+    log(f"P4: ludwig {cfg.lattice} with bf16 LB storage: {ms:.3f} ms/step (fp32 storage, the "
+        f"policy-free kernels, in this phase: {f32_ms:.3f}; L3: {l3_ms:.3f}); "
+        f"rel-L2 from the fp32 steps: dist {rels['dist@3']:.3e} / {rels['dist']:.3e}, q "
+        f"{rels['q@3']:.3e} / {rels['q']:.3e} after 3 / {LUDWIG_STEPS} steps; mass "
+        f"(compensated) {m0!r} -> {m1!r} (drift {abs(m1 - m0) / m0:.3e}); fp32 storage "
+        f"bitwise L3; at {small} the cuda engine's bf16 steps from the torch engine's: "
+        f"dist {erels['dist']:.3e}, q {erels['q']:.3e}; launches {counts}; the mass "
+        f"diagnostic's own window (target_sum under an accumulate policy) {sum_counts}")
+    if not (rels["dist"] < P4_REL and rels["q@3"] < P4_REL):
+        raise AssertionError(f"P4: bf16 steps {rels} from the fp32 steps")
+    if not (erels["dist"] < P4_ENGINE_REL and erels["q"] < P4_ENGINE_REL):
+        raise AssertionError(f"P4: the cuda engine's bf16 steps {erels} from the torch engine's")
+    idle = [n for n, c in {**counts, **sum_counts}.items() if c == 0]
+    if idle:
+        raise AssertionError(f"P4: kernels of the bf16 step or the mass sum never launched: "
+                             f"{idle}")
+    return dict(ms_per_step=ms, fp32_ms_per_step=f32_ms, l3_ms_per_step=l3_ms, rel=rels,
+                engine_rel=erels, mass=[m0, m1]), counts, sum_counts
+
+
 def table_rows(path, counts, rows):
     return [dict(name=name, route="cuda", source=f"src/repro_torch/csrc/{src}",
                  replaces=rep, launches=counts[name], **rows[name])
@@ -2026,9 +2588,21 @@ def main():
         "solve_batched_s": s_solve_s, "ms_per_batched_iteration_loop": s_ms_it,
         "peak_gib": s_peak / 2**30, "ms_per_iteration_single": solve_s / iterations * 1e3,
         "dedicated_s": [d[1] for d in dedicated], **drain}}
-    del bs, dedicated, su
+    del bs, dedicated
     torch.cuda.empty_cache()
     log(f"S1-S3: {time.perf_counter() - t0:.1f} s")
+
+    # P1. the policy instances against their plain versions, at the MILC lattice
+    t0 = time.perf_counter()
+    log(f"P1: the policy instances at {lattice}, vvl {vvl}:")
+    mrows, mextra = check_mixed_milc(u, b, lattice, vvl)
+    # P2. the refined solve, counted
+    p2, p2counts = mixed_solve(cfg, u, b, x_soa, iterations, solve_s)
+    # P3. refined serving at --small, counted
+    p3, p3counts = mixed_serving(su, small, args.seed)
+    del su
+    torch.cuda.empty_cache()
+    log(f"P1-P3: {time.perf_counter() - t0:.1f} s")
 
     # L1. the Ludwig state at full size
     lcfg = LudwigConfig(lattice=tuple(args.ludwig), target=TargetConfig("cuda", device="cuda"))
@@ -2045,7 +2619,7 @@ def main():
     lrows = check_ludwig_kernels(state, lcfg, lcfg.target.vvl)
 
     # L3. the Ludwig step, counted
-    after_steps, last, lcounts = run_ludwig(state, lcfg)
+    after_steps, last, lcounts, l3_ms = run_ludwig(state, lcfg)
 
     # L4. the unfused and the fused LB half-step, counted
     xcounts = lb_exhibit(last, lcfg)
@@ -2054,6 +2628,20 @@ def main():
 
     # L5. the cuda engine against the torch engine, both on the card
     ludwig_engines(tuple(args.ludwig_small))
+
+    # P1 at the Ludwig lattice, and P4. the bf16 LB step, counted
+    t0 = time.perf_counter()
+    log(f"P1: the policy instances at {lcfg.lattice}, vvl {lcfg.target.vvl}:")
+    lmrows, lmextra = check_mixed_ludwig(state, lcfg, lcfg.target.vvl)
+    p4, p4counts, sumcounts = mixed_ludwig(state, after_steps, lcfg, l3_ms,
+                                           tuple(args.ludwig_small))
+    log(f"P1 (Ludwig), P4: {time.perf_counter() - t0:.1f} s")
+    mixed_line = {"mixed_precision": {
+        "card": smi,
+        "kernels": {n: {**{k: r[k] for k in ("ms", "bound_ms", "plain_ms", "library_ms")},
+                        **{**mextra, **lmextra}[n]}
+                    for n, r in {**mrows, **lmrows}.items()},
+        "refined_solve": p2, "refined_serving": p3, "ludwig_bf16": p4}}
 
     # Y1. every lattice kernel in every layout, against its SoA launch
     t0 = time.perf_counter()
@@ -2125,9 +2713,14 @@ def main():
              + layout_table_rows(PATH, {lay: v[0] for lay, v in ymilc.items()}, yrows)
              + layout_table_rows(LUDWIG_PATH, ylcounts, yrows)
              + layout_table_rows(LB_EXHIBIT_PATH, yxcounts, yrows)
-             + table_rows(SERVE_PATH, scounts, brows))
+             + table_rows(SERVE_PATH, scounts, brows)
+             + table_rows(MIXED_PATH, p2counts, mrows)
+             + table_rows(MIXED_SERVE_PATH, p3counts, mrows)
+             + table_rows(MIXED_LUDWIG_PATH, p4counts, lmrows)
+             + table_rows(MIXED_SUM_PATH, sumcounts, lmrows))
     print(json.dumps(layouts_line))
     print(json.dumps(serve_line))
+    print(json.dumps(mixed_line))
     print(json.dumps({"kernels": table}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

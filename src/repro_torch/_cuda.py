@@ -56,19 +56,28 @@ SIGNATURES = {
     "rt_reduce_fold": (_P, _P, _L, _I, _I, _P),
     "rt_reduce_partials_batched": (_P, _P, _I, _L, _I, _I, _D, _I, _P),
     "rt_reduce_fold_batched": (_P, _P, _L, _I, _I, _I, _P),
+    "rt_reduce_partials_comp": (_P, _P, _I, _L, _I, _D, _I, _P),
+    "rt_reduce_fold_comp": (_P, _P, _L, _I, _I, _P),
     "rt_cg_update": (_P, _P, _P, _P, _P, _P, _P, _P, _P, _L, *(_D,) * 6, _I, _P),
     "rt_cg_xpay": (_P, _P, _P, _P, _I, _L, _D, _D, _D, _I, _P),
     "rt_cg_update_masked": (*(_P,) * 10, _L, _I, _L, _L, _L, _L, *(_D,) * 6, _I, _P),
     "rt_cg_xpay_masked": (_P, _P, _P, _P, _P, _I, _L, _I, _L, _L, _D, _D, _D, _I, _P),
+    "rt_bf16_round": (_P, _P, _L, _I, _P),
+    "rt_cg_update_ap16": (_P, _P, _P, _P, _P, _P, _P, _P, _P, _L, *(_D,) * 6, _I, _P),
+    "rt_cg_update_masked_ap16": (*(_P,) * 10, _L, _I, _L, _L, _L, _L, *(_D,) * 6, _I, _P),
     "rt_dslash": (_P, _P, _P, _I, _I, _I, _I, _D, _D, _D, _I, _P),
     "rt_wilson_normal_t": (_P, _P, _P, _F, _I, _I, _I, _I, _D, _D, _I, _P),
     "rt_wilson_normal_ap": (_P, _P, _P, _P, _P, _F, _I, _I, _I, _I, _D, _D, _D, _I, _P),
     "rt_wilson_normal_t_batched": (_P, _P, _P, _F, _I, _I, _I, _I, _I, _D, _D, _I, _P),
     "rt_wilson_normal_ap_batched": (_P, _P, _P, _P, _P, _F, _I, _I, _I, _I, _I, _D, _D, _D, _I,
                                     _P),
+    "rt_wilson_normal_t_mixed": (_P, _P, _P, _F, _I, _I, _I, _I, _I, _D, _D, _I, _P),
+    "rt_wilson_normal_ap_mixed": (_P, _P, _P, _P, _P, _F, _I, _I, _I, _I, _I, _I, _I, _D, _D, _D,
+                                  _I, _P),
     "rt_lb_collide": (_P, _P, _P, _L, _F, _F, _F, _F, _D, _D, _D, _I, _P),
     "rt_lb_propagate": (_P, _P, _I, _I, _I, _D, _D, _I, _P),
     "rt_lb_step": (_P, _P, _P, _P, _I, _I, _I, _F, _F, _F, _F, _D, _D, _D, _D, _I, _P),
+    "rt_lb_step_bf16": (_P, _P, _P, _P, _I, _I, _I, _F, _F, _F, _F, _D, _D, _D, _D, _I, _P),
     "rt_lb_step_tiled": (_P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _F, _F, _F, _F, _I, _P),
     "rt_ludwig_chem_stress": (_P, _P, _P, _P, _P, _L, _F, _F, _F, _F, _F, _F, _F,
                               *(_D,) * 5, _I, _P),
@@ -171,15 +180,17 @@ def smem_per_block_optin(device: torch.device) -> int:
     return v
 
 
-def check_tensor(name: str, t: torch.Tensor, shape, device: torch.device) -> None:
-    """Raise ValueError unless ``t`` is a contiguous fp32 tensor of
-    ``shape`` on ``device`` — what every kernel of the library takes."""
+def check_tensor(name: str, t: torch.Tensor, shape, device: torch.device,
+                 dtype: torch.dtype = torch.float32) -> None:
+    """Raise ValueError unless ``t`` is a contiguous tensor of ``dtype``
+    (fp32 unless the operand's slot takes another) and ``shape`` on
+    ``device``."""
     if not isinstance(t, torch.Tensor):
         raise ValueError(f"{name}: expected a torch.Tensor, got {type(t).__name__}")
     if t.device != device:
         raise ValueError(f"{name}: on {t.device}, expected {device}")
-    if t.dtype != torch.float32:
-        raise ValueError(f"{name}: dtype {t.dtype}; the kernels take float32 only")
+    if t.dtype != dtype:
+        raise ValueError(f"{name}: dtype {t.dtype}; this operand of the kernel takes {dtype}")
     if tuple(t.shape) != tuple(shape):
         raise ValueError(f"{name}: shape {tuple(t.shape)}, expected {tuple(shape)}")
     if not t.is_contiguous():
@@ -187,21 +198,22 @@ def check_tensor(name: str, t: torch.Tensor, shape, device: torch.device) -> Non
 
 
 def check_field(name: str, t: torch.Tensor, layout, ncomp: int, nsites: int,
-                device: torch.device) -> int:
+                device: torch.device, dtype: torch.dtype = torch.float32) -> int:
     """:func:`check_tensor` for a field of ``ncomp`` components over
     ``nsites`` sites stored in ``layout`` (shape
     ``layout.physical_shape(ncomp, nsites)``); returns the layout's
     descriptor for the kernel."""
-    check_tensor(f"{name} ({layout.name})", t, layout.physical_shape(ncomp, nsites), device)
+    check_tensor(f"{name} ({layout.name})", t, layout.physical_shape(ncomp, nsites), device,
+                 dtype)
     return layout.descriptor()
 
 
 def check_batched_field(name: str, t: torch.Tensor, layout, ncomp: int, nsites: int, batch: int,
-                        device: torch.device) -> int:
+                        device: torch.device, dtype: torch.dtype = torch.float32) -> int:
     """:func:`check_field` for ``batch`` such fields stacked on a leading
     axis (a BatchedField's data); returns the layout's descriptor."""
     check_tensor(f"{name} ({layout.name}, batch {batch})", t,
-                 (batch,) + layout.physical_shape(ncomp, nsites), device)
+                 (batch,) + layout.physical_shape(ncomp, nsites), device, dtype)
     return layout.descriptor()
 
 

@@ -25,9 +25,15 @@ A shared-memory budget in ``LudwigConfig.target`` (``smem_bytes``, or
 ``$TARGETDP_TORCH_SMEM_BYTES``) tiles the LB half-step, the step's one
 stencil graph, which then runs as K9 (``csrc/lb_tiled.cu``).
 
-Not yet ported: the mixed-precision LB storage (``LudwigConfig.storage``
-raises), the plan tuner (``tune_step_graphs``) and the sharded driver
-(``make_sharded_step``, ``run_steps``).
+``LudwigConfig.storage`` ("bfloat16", or "float32") runs the LB half-step
+under a storage DtypePolicy (compute fp32, accumulate float64): dist and
+force are read as stored in that dtype and dist2 and u come back in it; on
+"cuda" that is K5L's policy instance.  The carried state stays fp32.  A
+policy with a budget raises on "cuda" (the policy x tile composition is
+still to be ported).
+
+Not yet ported: the plan tuner (``tune_step_graphs``) and the sharded
+driver (``make_sharded_step``, ``run_steps``).
 """
 
 from __future__ import annotations
@@ -40,7 +46,7 @@ import numpy as np
 import torch
 
 from repro_torch.core import (
-    Field, LaunchGraph, Layout, SOA, TargetConfig, launch, target_sum,
+    DtypePolicy, Field, LaunchGraph, Layout, SOA, TargetConfig, launch, target_sum,
     tileable_layout,
 )
 from repro_torch.core.field import resolve_device
@@ -67,16 +73,20 @@ class LudwigConfig:
     dt: float = 1.0
     layout: Layout = SOA
     target: TargetConfig = TargetConfig()
-    # mixed-precision storage of the LB half-step: not yet ported, must
-    # stay unset
+    # storage dtype of the fused LB half-step's launch ("" = full
+    # precision): distributions are read and written in this dtype, compute
+    # stays fp32
     storage: str = ""
 
 
-def _require_full_precision(cfg: LudwigConfig) -> None:
-    if cfg.storage:
-        raise ValueError(
-            f"LudwigConfig.storage={cfg.storage!r} selects the mixed-precision "
-            f"LB half-step, which is not yet ported")
+def _lb_target(cfg: LudwigConfig) -> TargetConfig:
+    """The fused LB launch's config: ``cfg.target`` plus the storage-dtype
+    policy when ``cfg.storage`` sets one."""
+    if not cfg.storage:
+        return cfg.target
+    return dataclasses.replace(
+        cfg.target, dtypes=DtypePolicy(storage=cfg.storage, compute="float32",
+                                       accumulate="float64"))
 
 
 @dataclasses.dataclass
@@ -228,14 +238,21 @@ def _w_tensor(u_nd: torch.Tensor) -> torch.Tensor:
 
 
 def _lb_half_step(state: LudwigState, force: Field, cfg: LudwigConfig):
-    lb = lb_step_graph(cfg).bind(config=cfg.target, outputs=("dist2", "u"))(
+    """dist2 and u of the fused LB launch, under ``cfg.storage``'s policy;
+    dist2 is cast back to the carried dtype (the write already rounded it)
+    and u to the order parameter's."""
+    lb = lb_step_graph(cfg).bind(config=_lb_target(cfg), outputs=("dist2", "u"))(
         {"dist": state.dist, "force": force})
-    return dataclasses.replace(lb["dist2"], name=state.dist.name), lb["u"]
+    dist2, u = lb["dist2"], lb["u"]
+    if dist2.dtype != state.dist.dtype:
+        dist2 = dist2.with_data(dist2.data.to(state.dist.dtype))
+    if u.dtype != state.q.dtype:
+        u = u.with_data(u.data.to(state.q.dtype))
+    return dataclasses.replace(dist2, name=state.dist.name), u
 
 
 def step(state: LudwigState, cfg: LudwigConfig) -> LudwigState:
     """One full LC-LB timestep (single device, periodic)."""
-    _require_full_precision(cfg)
     q_nd = state.q.canonical_nd()
     dq_nd, lapq_nd = stage_gradients(q_nd)
     h, force_nd = stage_chemical_stress(state.q, dq_nd, lapq_nd, cfg)
@@ -257,7 +274,6 @@ def step_timed(state: LudwigState, cfg: LudwigConfig) -> Tuple[LudwigState, Dict
     device synchronised around every stage (so the stages do not overlap).
     The stage names are the JAX package's, plus ``velocity_gradients``
     (``_w_tensor``), which the reference leaves untimed."""
-    _require_full_precision(cfg)
     dev = state.q.device
     t: Dict[str, float] = {}
 
@@ -338,11 +354,13 @@ def _lc_update_cuda(graph, ins, scalars, *, lattice, vvl, out_layouts):
     return {"q_new": q_new}
 
 
-def _lb_step_cuda(graph, ins, scalars, *, lattice, vvl, out_layouts):
+def _lb_step_cuda(graph, ins, scalars, *, lattice, vvl, out_layouts, policy=None):
+    # policy: a bf16 storage runs K5L's policy instance; the graph has no sums
     tau = graph.stage_params()[1]["tau"]
     t, lays = _split(ins, out_layouts)
     dist2, u = lbk.lb_step_cuda(t["dist"], t["force"], tau, lattice, vvl,
-                                with_u="u" in out_layouts, layouts=lays)
+                                with_u="u" in out_layouts, layouts=lays,
+                                bf16=bool(policy and policy.bf16))
     return {"dist2": dist2, "u": u}
 
 
@@ -363,5 +381,5 @@ def _fed_cuda(ins, params, vvl, out_layouts):
 register_cuda_graph(chem_stress_graph(LudwigConfig()), _chem_stress_cuda, ("h", "sigma"))
 register_cuda_graph(lc_update_graph(LudwigConfig()), _lc_update_cuda, ("q_new",))
 register_cuda_graph(lb_step_graph(LudwigConfig()), _lb_step_cuda, ("dist2", "u"),
-                    tiled=_lb_step_tiled_cuda)
+                    tiled=_lb_step_tiled_cuda, policy=True)
 register_cuda_body(_fed_body, _fed_cuda)

@@ -35,8 +35,14 @@ bits the single solve's, where the code handles it:
 4. admission: a request's rhs and ``|rhs|^2`` come from the single-lattice
    ``apply_mdag`` and :func:`dot` (``launch.serve``, ``driver.solve_batched``).
 
-Mixed precision (``refine_every > 0``, ``batched_cg_refresh``) is not yet
-ported (ROADMAP item 18) and raises.
+Mixed precision: :func:`cg_refined` is the refined solve (iterative
+refinement: inner CGs through an operator whose launches may carry a
+bf16-storage DtypePolicy, restarted from the true residual of the
+policy-free operator), and ``cg_batched(refine_every > 0)`` with
+:func:`batched_cg_refresh` its serving form (reliable-update restarts a
+slot at a time).  On "cuda" the operator's policy instance is K5's
+(``csrc/wilson_normal_mixed.cu``) and the update chains take its bf16 ap
+(K3's and K3B's ap16 instances).
 """
 
 from __future__ import annotations
@@ -318,6 +324,43 @@ def cg(
     return CGResult(x=x, iterations=it, residual=rr / b2)
 
 
+def cg_refined(apply_a_dot, b: Field, *, config: TargetConfig, tol: float = 1e-8,
+               max_iter: int = 500, refine_k: int = 50, reliable: float = 1e-4,
+               apply_a_dot_hi=None) -> CGResult:
+    """Iterative-refinement CG: low-precision inner solves inside restarts
+    that recover the working precision (the JAX package's "portable-LQCD
+    production recipe").
+
+    The outer loop keeps x and the true residual r = b - A x in fp32.  Each
+    outer step runs an inner :func:`cg` on A d = r through ``apply_a_dot``,
+    whose launches may carry a bf16-storage DtypePolicy, for at most
+    ``refine_k`` iterations or until its relative residual drops below
+    ``reliable``; then x += d in fp32 and r is recomputed through
+    ``apply_a_dot_hi`` (default ``apply_a_dot``; pass the policy-free
+    operator).  |r|^2 is a plain fp32 sum outside any kernel, as in the
+    reference.  ``iterations`` counts the inner iterations, the
+    bandwidth-bound work, as :func:`cg` counts its own."""
+    hi = apply_a_dot_hi or apply_a_dot
+
+    def norm2(f: Field) -> torch.Tensor:
+        c = f.canonical().to(torch.float32)
+        return torch.sum(c * c)
+
+    b2 = norm2(b)
+    x = b.with_data(torch.zeros_like(b.data))
+    r, rr, it = b, b2, 0
+    # the convergence test is the outer loop's host synchronisation
+    while it < max_iter and bool(rr / b2 > tol):
+        inner = cg(None, r, config=config, tol=reliable, max_iter=refine_k,
+                   apply_a_dot=apply_a_dot)
+        x = x.with_data(x.data + inner.x.data.to(x.dtype))
+        ax, _ = hi(x)
+        r = b.with_data(b.data - ax.data.to(b.dtype))
+        rr = norm2(r)
+        it += inner.iterations
+    return CGResult(x=x, iterations=it, residual=rr / b2)
+
+
 # -- batched CG (multi-simulation serving) ------------------------------------
 
 class BatchedCGState(NamedTuple):
@@ -378,31 +421,70 @@ def batched_cg_iteration(state: BatchedCGState, apply_a_dot, *, config: TargetCo
                           it=state.it + act.to(state.it.dtype))
 
 
-def batched_cg_refresh(*args, **kwargs):
-    """The reliable-update restart of mixed-precision serving: not yet
-    ported (ROADMAP item 18)."""
-    raise ValueError("batched_cg_refresh (mixed-precision serving, refine_every > 0) is "
-                     "not yet ported")
+def _norm2_slots(data: torch.Tensor) -> torch.Tensor:
+    """|f|^2 of each slot of (batch, ...) fp32 data, a plain fp32 sum of a
+    slot's contiguous values (a slot's sum is that of the one-slot stack)."""
+    return torch.stack([torch.sum(d * d) for d in data.to(torch.float32)])
+
+
+def batched_cg_refresh(state: BatchedCGState, rhs: BatchedField, apply_a_dot_hi, *,
+                       tol: float, max_iter: int, refine_every: int) -> BatchedCGState:
+    """The reliable-update restart of the batched loop: on every live slot
+    whose active iteration count is a multiple of ``refine_every``, replace
+    the recurrence residual with the true residual ``rhs - A x``, computed
+    through ``apply_a_dot_hi`` (the policy-free operator), and restart the
+    search direction there; every other slot keeps its bits (a select).
+    This keeps a mixed-precision batch converging to the working tolerance:
+    the recurrence residual drifts from the truth in low precision, and the
+    periodic exact recompute re-aims it.  The new |r|^2 is a plain fp32 sum
+    outside any kernel, as in the JAX package."""
+    act = batched_cg_active(state, tol=tol, max_iter=max_iter)
+    sel = act & (state.it % refine_every == 0)
+    ax, _ = apply_a_dot_hi(state.x)
+    rt = (rhs.data.to(torch.float32) - ax.data.to(torch.float32)).to(state.r.dtype)
+    rr_t = _norm2_slots(state.r.with_data(rt).canonical()).to(state.rr.dtype)
+    selb = sel.reshape((-1,) + (1,) * (rt.dim() - 1))
+    return BatchedCGState(x=state.x, r=state.r.with_data(torch.where(selb, rt, state.r.data)),
+                          p=state.p.with_data(torch.where(selb, rt, state.p.data)),
+                          rr=torch.where(sel, rr_t, state.rr), b2=state.b2, it=state.it)
+
+
+def refresh_due(state: BatchedCGState, *, tol: float, max_iter: int,
+                refine_every: int) -> bool:
+    """Whether any live slot's active iteration count is a multiple of
+    ``refine_every`` (a host synchronisation)."""
+    act = batched_cg_active(state, tol=tol, max_iter=max_iter)
+    return bool((act & (state.it % refine_every == 0)).any())
 
 
 def cg_batched(apply_a_dot, rhs: BatchedField, *, config: TargetConfig, tol: float = 1e-8,
-               max_iter: int = 500, refine_every: int = 0) -> BatchedCGResult:
+               max_iter: int = 500, refine_every: int = 0,
+               apply_a_dot_hi=None) -> BatchedCGResult:
     """CG on a stack of independent right-hand sides under one shared
     operator, per-request convergence-masked, as a host loop: every
     iteration runs one fused operator launch and one fused update launch
     for the whole batch, and each slot's trajectory is bitwise :func:`cg`
     on that slot alone.  The loop runs until every slot has converged or
-    hit max_iter; slots that finish early ride along frozen.  Only
-    ``refine_every=0`` is ported (mixed precision, ROADMAP item 18,
-    raises)."""
-    if refine_every > 0:
-        raise ValueError("cg_batched(refine_every > 0) selects mixed-precision serving "
-                         "(batched_cg_refresh), which is not yet ported")
+    hit max_iter; slots that finish early ride along frozen.
+
+    ``refine_every > 0`` adds the reliable-update restarts of mixed
+    precision (:func:`batched_cg_refresh`, through ``apply_a_dot_hi``,
+    default ``apply_a_dot``).  Every slot starts at iteration 0 and a live
+    slot's count is the loop's, so a restart can fall due only on a loop
+    iteration that is a multiple of ``refine_every``: only those pay the
+    extra synchronisation of the test.  With ``refine_every=0`` the loop is
+    the plain one."""
+    hi = apply_a_dot_hi or apply_a_dot
+    kw = dict(tol=tol, max_iter=max_iter)
     state = batched_cg_state(rhs, config)
+    k = 0
     # the "any slot live" test is the one host synchronisation per iteration
-    while bool(batched_cg_active(state, tol=tol, max_iter=max_iter).any()):
-        state = batched_cg_iteration(state, apply_a_dot, config=config, tol=tol,
-                                     max_iter=max_iter)
+    while bool(batched_cg_active(state, **kw).any()):
+        state = batched_cg_iteration(state, apply_a_dot, config=config, **kw)
+        k += 1
+        if refine_every > 0 and k % refine_every == 0 and \
+                refresh_due(state, refine_every=refine_every, **kw):
+            state = batched_cg_refresh(state, rhs, hi, refine_every=refine_every, **kw)
     return BatchedCGResult(x=state.x, iterations=state.it, residual=state.rr / state.b2)
 
 
@@ -456,10 +538,10 @@ def _normal_kappa(graph) -> float:
     return kappa
 
 
-def _wilson_normal_cuda(graph, ins, scalars, *, lattice, vvl, out_layouts):
+def _wilson_normal_cuda(graph, ins, scalars, *, lattice, vvl, out_layouts, policy=None):
     lays = _lays(ins, {"p": "p", "u": "u"}, out_layouts)
     ap, pap = wilson_normal_cuda(ins["p"][0], ins["u"][0], _normal_kappa(graph), lattice, vvl,
-                                 layouts=lays)
+                                 layouts=lays, policy=policy)
     return {"ap": ap, "pap": pap}
 
 
@@ -467,13 +549,13 @@ def _wilson_normal_cuda(graph, ins, scalars, *, lattice, vvl, out_layouts):
 # ``in_batched`` says, and its scalars as (batch,) device vectors.
 
 def _wilson_normal_batched_cuda(graph, ins, scalars, *, lattice, vvl, out_layouts, batch,
-                                in_batched):
+                                in_batched, policy=None):
     if not in_batched["p"] or in_batched["u"]:
         raise ValueError("wilson_normal's batch instance takes a BatchedField p and one "
                          "gauge Field u shared by every slot")
     lays = _lays(ins, {"p": "p", "u": "u"}, out_layouts)
     ap, pap = wilson_normal_cuda(ins["p"][0], ins["u"][0], _normal_kappa(graph), lattice, vvl,
-                                 layouts=lays, batched=True)
+                                 layouts=lays, batched=True, policy=policy)
     return {"ap": ap, "pap": pap}
 
 
@@ -503,7 +585,7 @@ register_cuda_body(_axpy_body, _axpy_cuda)
 register_cuda_graph(cg_update_graph(24), _cg_update_cuda, ("x_new", "r_new", "rr"))
 register_cuda_graph(cg_xpay_graph(24), _cg_xpay_cuda, ("out",))
 register_cuda_graph(wilson_normal_graph(0.0), _wilson_normal_cuda, ("ap", "pap"),
-                    batched=_wilson_normal_batched_cuda)
+                    batched=_wilson_normal_batched_cuda, policy=True)
 register_cuda_graph(masked_cg_update_graph(24), None, ("x_new", "r_new", "rr"),
                     batched=_cg_update_masked_cuda)
 register_cuda_graph(masked_xpay_graph(24), None, ("out",), batched=_cg_xpay_masked_cuda)

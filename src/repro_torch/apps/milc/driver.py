@@ -3,8 +3,11 @@
 Reproduces the UEABS test: invert the Wilson-Dirac operator on a random
 SU(3) gauge background with CG on the normal equations, one source
 (:func:`solve`) or a stack of sources against one gauge field
-(:func:`solve_batched`).  The sharded solvers and the mixed-precision
-refined solve of the JAX package are not yet ported.
+(:func:`solve_batched`).  ``MilcConfig.storage`` (or ``refine_k``) selects
+mixed precision: the operator launches run under a storage DtypePolicy and
+restarts against the policy-free operator recover the working tolerance
+(``cg_refined``; batched, ``cg_batched(refine_every=)``).  The sharded
+solvers of the JAX package are not yet ported.
 """
 
 from __future__ import annotations
@@ -14,8 +17,9 @@ from typing import Tuple
 
 import torch
 
-from repro_torch.core import BatchedField, Field, Layout, SOA, TargetConfig
-from .cg import BatchedCGResult, CGResult, cg, cg_batched, make_fused_normal, make_wilson_op
+from repro_torch.core import BatchedField, DtypePolicy, Field, Layout, SOA, TargetConfig
+from .cg import (BatchedCGResult, CGResult, cg, cg_batched, cg_refined, make_fused_normal,
+                 make_wilson_op)
 from . import fields
 
 
@@ -28,9 +32,35 @@ class MilcConfig:
     hot: float = 0.6           # gauge disorder (1 = hot start)
     layout: Layout = SOA
     target: TargetConfig = TargetConfig()
-    # mixed precision (the refined solve): not yet ported, must stay unset
+    # mixed precision: the storage dtype of the operator launches ("" = full
+    # precision), and the iterative-refinement / reliable-update knobs that
+    # keep the solve at the working tolerance under it; refine_k = 0 picks
+    # 50 whenever storage is set, reliable = 0 picks 1e-4
     storage: str = ""
     refine_k: int = 0
+    reliable: float = 0.0
+
+
+def _storage_target(cfg: MilcConfig) -> TargetConfig:
+    """The operator launches' config: ``cfg.target`` with the storage-dtype
+    policy when ``cfg.storage`` sets one (compute fp32, sums accumulated as
+    "float64", which resolves to compensated fp32)."""
+    if not cfg.storage:
+        return cfg.target
+    return dataclasses.replace(
+        cfg.target, dtypes=DtypePolicy(storage=cfg.storage, compute="float32",
+                                       accumulate="float64"))
+
+
+def _hi_target(cfg: MilcConfig) -> TargetConfig:
+    """The true-residual operator's config: no dtype policy and the default
+    plans, so the residual the restarts trust does not depend on the
+    policy."""
+    return dataclasses.replace(cfg.target, plan_policy="default", dtypes=None)
+
+
+def _refine_k(cfg: MilcConfig) -> int:
+    return cfg.refine_k or (50 if cfg.storage else 0)
 
 
 def init_problem(cfg: MilcConfig, seed: int = 0):
@@ -47,20 +77,23 @@ def init_problem(cfg: MilcConfig, seed: int = 0):
     return u, b
 
 
-def _require_full_precision(cfg: MilcConfig) -> None:
-    if cfg.storage or cfg.refine_k:
-        raise ValueError(
-            "MilcConfig.storage/refine_k select the mixed-precision refined "
-            "solve (cg_refined), which is not yet ported")
-
-
 def solve(cfg: MilcConfig, u: Field, b: Field) -> CGResult:
     """Single-device CG solve of M x = b via the normal equations: per
     iteration the fused normal operator (M^dag M p and <p, M^dag M p>), the
-    fused update chain (with |r|^2) and the p update."""
-    _require_full_precision(cfg)
+    fused update chain (with |r|^2) and the p update.
+
+    With ``cfg.storage`` set (or ``cfg.refine_k``) the solve is
+    :func:`~repro_torch.apps.milc.cg.cg_refined`: the operator launches run
+    under the storage policy and restarts against the policy-free operator
+    recover the working tolerance."""
     _, apply_mdag, apply_normal = make_wilson_op(u, cfg.kappa, cfg.target)
     rhs = apply_mdag(b)
+    rk = _refine_k(cfg)
+    if rk > 0:
+        return cg_refined(make_fused_normal(u, cfg.kappa, _storage_target(cfg)), rhs,
+                          config=cfg.target, tol=cfg.tol, max_iter=cfg.max_iter,
+                          refine_k=rk, reliable=cfg.reliable or 1e-4,
+                          apply_a_dot_hi=make_fused_normal(u, cfg.kappa, _hi_target(cfg)))
     return cg(apply_normal, rhs, config=cfg.target, tol=cfg.tol,
               max_iter=cfg.max_iter,
               apply_a_dot=make_fused_normal(u, cfg.kappa, cfg.target))
@@ -75,13 +108,20 @@ def solve_batched(cfg: MilcConfig, u: Field, bs) -> BatchedCGResult:
     Each slot's trajectory (rhs, every alpha and beta, the iteration count,
     the final x) is bitwise ``solve(cfg, u, b)`` on that source alone: the
     rhs is computed per source through the single-lattice M^dag before
-    stacking, and converged slots are frozen by select-masking."""
-    _require_full_precision(cfg)
+    stacking, and converged slots are frozen by select-masking.
+
+    With ``cfg.storage`` set (or ``cfg.refine_k``) the operator runs under
+    the storage policy and every ``refine_k`` active iterations a slot
+    restarts from its true residual (``cg_batched(refine_every=)``); each
+    slot is then bitwise the one-slot run of its source."""
     _, apply_mdag, _ = make_wilson_op(u, cfg.kappa, cfg.target)
     srcs = bs.unstack() if isinstance(bs, BatchedField) else list(bs)
     rhs = BatchedField.stack([apply_mdag(b) for b in srcs], name="rhs")
-    return cg_batched(make_fused_normal(u, cfg.kappa, cfg.target), rhs, config=cfg.target,
-                      tol=cfg.tol, max_iter=cfg.max_iter)
+    rk = _refine_k(cfg)
+    return cg_batched(make_fused_normal(u, cfg.kappa, _storage_target(cfg)), rhs,
+                      config=cfg.target, tol=cfg.tol, max_iter=cfg.max_iter, refine_every=rk,
+                      apply_a_dot_hi=(make_fused_normal(u, cfg.kappa, _hi_target(cfg))
+                                      if rk > 0 else None))
 
 
 def residual_check(cfg: MilcConfig, u: Field, b: Field, x: Field) -> float:

@@ -13,7 +13,7 @@ from .layout import (  # noqa: F401
     AOS, SOA, Layout, LayoutKind, aosoa, parse_layout, tileable_layout,
 )
 from .field import BatchedField, Field  # noqa: F401
-from .plan import LoweringPlan, choose_vvl  # noqa: F401
+from .plan import DtypePolicy, LoweringPlan, choose_vvl  # noqa: F401
 from .target import TargetConfig, TargetKernel, kernel, launch  # noqa: F401
 from .reduce import target_max, target_sum  # noqa: F401
 from .fuse import BoundLaunch, LaunchGraph, ReduceSpec  # noqa: F401

@@ -44,6 +44,21 @@ Engines:
 On "torch" a batched launch runs the single launch slot by slot and stacks
 the results, so each slot is the single launch's bits by construction.
 
+A DtypePolicy (the plan's, else ``TargetConfig.dtypes``; ``core.plan``)
+makes precision a lowering decision, as in the JAX package's launch: float
+inputs are rounded to the storage dtype (round to nearest even) and widened
+to the compute dtype, scalars cast to the compute dtype, float field
+outputs come back in the storage dtype and float sums in the accumulate
+dtype, compensated where ``resolve_accumulate`` says so; max and integer
+reductions are exempt.  On "torch" the bodies run on the cast inputs and a
+policy sum folds its fp32 source, compensated sums in fp64 rounded once
+(the plain version every compensated sum is held to).  On "cuda" the graph's
+registered kernels must have a policy instance (``register_cuda_graph(...,
+policy=True)``: wilson_normal, its batch instance and ludwig_lb_step) and
+the policy must be one they take (``core.plan.cuda_policy``); anything else,
+and any policy on a tiled plan, raises before a device is touched.  The
+empty policy runs exactly the policy-free kernels.
+
 :func:`tiled_plain` is the tiled lowering in torch ops, tile by tile in the
 tiled kernels' order: the plain version every tiled kernel is held against.
 
@@ -53,7 +68,9 @@ fused CG kernels (``csrc/fused_flat.cu``) that replace the JAX package's
 ``LaunchGraph._build_flat`` for the ``cg_update`` and ``cg_xpay`` graphs,
 and K3B, its batch instances for the serving chains (``cg_update_masked``,
 ``cg_xpay_masked``), each beside its plain PyTorch version; the third,
-``dot_prod``, is ``target.site_mul`` with a batch.
+``dot_prod``, is ``target.site_mul`` with a batch.  The update chains also
+take a bf16 ap (the refined solve's operator output; their ap16
+instances), with fp32 x, r, p and outputs.
 """
 
 from __future__ import annotations
@@ -67,16 +84,17 @@ import torch
 from .._cuda import Kernel, check_field, check_tensor
 from .field import BatchedField, Field
 from .layout import Layout, resolve_layouts
-from .plan import (SMEM_PER_BLOCK_OPTIN, LoweringPlan, default_plan,
-                   estimate_smem_bytes, policy_plan)
-from .reduce import fold_partials, fold_partials_batched
+from .plan import (SMEM_PER_BLOCK_OPTIN, DtypePolicy, LoweringPlan, cuda_policy,
+                   default_plan, estimate_smem_bytes, policy_plan, resolve_accumulate)
+from .reduce import compensated_plain, fold_partials, fold_partials_batched
 from .stencil import halo_pad, tile_boxes
 from .target import (TargetConfig, TargetKernel, batch_operand, operand_shape, operand_slot,
                      require_cuda)
 
 __all__ = ["LaunchGraph", "BoundLaunch", "ReduceSpec", "register_cuda_graph",
-           "tiled_plain", "cg_update", "cg_xpay", "CG_UPDATE", "CG_XPAY",
-           "cg_update_masked", "cg_xpay_masked", "CG_UPDATE_MASKED", "CG_XPAY_MASKED"]
+           "tiled_plain", "kahan_fold", "cg_update", "cg_xpay", "CG_UPDATE", "CG_XPAY",
+           "cg_update_masked", "cg_xpay_masked", "CG_UPDATE_MASKED", "CG_XPAY_MASKED",
+           "CG_UPDATE_AP16", "CG_UPDATE_MASKED_AP16"]
 
 _RED_COMBINE = {"sum": torch.add, "max": torch.maximum}
 _RED_FOLD = {"sum": lambda x, dim: x.sum(dim=dim),
@@ -114,6 +132,56 @@ class ReduceSpec:
 
 
 
+def kahan_fold(x: torch.Tensor, axis: int = -1) -> torch.Tensor:
+    """Compensated (Kahan) summation along ``axis``: the JAX package's
+    sequential sum-plus-compensation scan, step for step in the same order
+    and in x's dtype, with the other axes carried elementwise (a (ncomp,
+    nsites) fold is nsites steps on (ncomp,) carries)."""
+    x = torch.movedim(x, axis, 0)
+    s = torch.zeros(x.shape[1:], dtype=x.dtype, device=x.device)
+    c = torch.zeros_like(s)
+    for xi in x:
+        y = xi - c
+        t = s + y
+        c = (t - s) - y
+        s = t
+    return s
+
+
+def _stage_in_cast(storage_dt, compute_dt):
+    """The policy's stage-in cast of one input tensor: a float input is
+    rounded to the storage dtype and widened to the compute dtype; any other
+    input passes bitwise.  None when the policy casts nothing."""
+    if storage_dt is None and compute_dt is None:
+        return None
+    cdt = compute_dt or storage_dt
+
+    def cast(d: torch.Tensor) -> torch.Tensor:
+        if not d.is_floating_point():
+            return d
+        if storage_dt is not None and d.dtype != storage_dt:
+            d = d.to(storage_dt)
+        return d.to(cdt) if d.dtype != cdt else d
+
+    return cast
+
+
+def _policy_sum(src: torch.Tensor, dt, comp: bool) -> torch.Tensor:
+    """A policy sum of (ncomp, sites) values over the sites on the torch
+    engine: compensated (:func:`~repro_torch.core.reduce.compensated_plain`),
+    else accumulated in ``dt``."""
+    return compensated_plain(src, dim=1) if comp else src.to(dt).sum(dim=1)
+
+
+class _Policy(NamedTuple):
+    """A launch's resolved DtypePolicy (see the module docstring)."""
+
+    pol: Optional[DtypePolicy]
+    cast: Optional[Callable]                # the stage-in cast, or None
+    scalar_dt: Optional[torch.dtype]        # the scalars' dtype, None: the first input's
+    acc_fold: Dict[str, Tuple[torch.dtype, bool]]   # policy sums: (dtype, compensated)
+
+
 def _crop_ring(arr: torch.Tensor, r_from: int, r_to: int) -> torch.Tensor:
     """Shrink an (ncomp, *window) value from valid ring r_from to r_to."""
     if r_from == r_to:
@@ -146,6 +214,7 @@ class _CudaEntry(NamedTuple):
     outputs: Tuple[str, ...]        # what the kernels produce
     tiled: Optional[Callable]       # the tiled kernel
     batched: Optional[Callable]     # the batch instance
+    policy: bool                    # impl and batched take a DtypePolicy
 
 
 # LaunchGraph.structure() -> its kernels
@@ -155,7 +224,8 @@ _CUDA_GRAPHS: Dict[tuple, _CudaEntry] = {}
 def register_cuda_graph(graph: "LaunchGraph", impl: Optional[Callable],
                         outputs: Sequence[str],
                         tiled: Optional[Callable] = None,
-                        batched: Optional[Callable] = None) -> None:
+                        batched: Optional[Callable] = None,
+                        policy: bool = False) -> None:
     """Run ``impl(graph, ins, scalars, lattice=, vvl=, out_layouts=)`` for
     every graph of ``graph``'s structure on the cuda engine,
     ``tiled(graph, ins, scalars, lattice=, plan=, out_layouts=)`` under a
@@ -169,8 +239,11 @@ def register_cuda_graph(graph: "LaunchGraph", impl: Optional[Callable],
     wrote in their layouts (``(batch,) + physical`` when batched),
     reductions (ncomp,) (``(batch, ncomp)``).  A tiled plan only ever sees
     SoA fields (the planner refuses others).  ``impl`` may be None for a
-    graph that only the serving path launches, batched."""
-    _CUDA_GRAPHS[graph.structure()] = _CudaEntry(impl, tuple(outputs), tiled, batched)
+    graph that only the serving path launches, batched.  ``policy``: impl
+    and batched have a policy instance and take ``policy=`` (a
+    ``core.plan.CudaPolicy``) under a non-empty DtypePolicy; the launch
+    raises for a policy on any other graph."""
+    _CUDA_GRAPHS[graph.structure()] = _CudaEntry(impl, tuple(outputs), tiled, batched, policy)
 
 
 def _slot_scalar(v, b: int):
@@ -352,12 +425,15 @@ class LaunchGraph:
 
     def bytes_moved(self, ins_ncomp: Mapping[str, int], nsites: int,
                     outputs: Optional[Sequence[str]] = None,
-                    itemsize: int = 4) -> Dict[str, int]:
+                    itemsize: int = 4, dtypes: Optional[DtypePolicy] = None) -> Dict[str, int]:
         """Device-memory traffic model of this chain, fused vs unfused
-        (reads + writes, ``itemsize`` bytes per element).  unfused: every
-        stage reads its inputs and writes its outputs; fused: each external
-        input is read once and only the requested non-reduction outputs are
-        written.  Halo re-reads and scalars are not modelled."""
+        (reads + writes, ``itemsize`` bytes per element, or the storage
+        itemsize of a ``dtypes`` policy).  unfused: every stage reads its
+        inputs and writes its outputs; fused: each external input is read
+        once and only the requested non-reduction outputs are written.  Halo
+        re-reads and scalars are not modelled."""
+        if dtypes is not None and dtypes.storage:
+            itemsize = dtypes.storage_itemsize(itemsize)
         ncomp = dict(ins_ncomp)
         for vname, (nc, _) in self._produced().items():
             ncomp[vname] = 0 if nc is None else nc
@@ -519,13 +595,17 @@ class LaunchGraph:
         else:
             plan.validate(nsites=nsites, lattice=lattice, layouts=all_layouts,
                           stencil=stencil, batch=batch)
+        # the config's policy applies where the plan carries none of its own
+        if config.dtypes and plan.dtypes is None:
+            plan = dataclasses.replace(plan, dtypes=config.dtypes)
+        policy = self._resolve_policy(plan, outputs, red_names, out_info, first)
 
         if plan.engine == "torch" and batch:
             vals = self._launch_torch_batched(ins, in_batch, scalars, batch, outputs,
                                               out_layouts, plan, red_names)
         elif plan.engine == "torch":
             vals = self._launch_torch(ins, ordered_ins, scalars, ordered_scalars,
-                                      outputs, stencil, lattice, first)
+                                      outputs, stencil, lattice, first, policy)
             vals = {o: vals[o].to(out_info[o][1]) for o in outputs}
             # the bodies' canonical field outputs, packed into their layouts
             vals.update({o: out_layouts[o].pack(vals[o].reshape(out_info[o][0], nsites))
@@ -535,7 +615,7 @@ class LaunchGraph:
             vals = self._launch_cuda(ins, ordered_ins, scalars, ordered_scalars,
                                      outputs, lattice, plan, first, smem_views,
                                      {o: out_layouts[o] for o in field_outputs},
-                                     batch, in_batch)
+                                     batch, in_batch, policy)
 
         lead = (batch,) if batch else ()
         out: Dict[str, Union[Field, BatchedField, torch.Tensor]] = {}
@@ -556,6 +636,32 @@ class LaunchGraph:
                 out[o] = Field(o, ncomp, lattice, out_layouts[o], val)
         return out
 
+    def _resolve_policy(self, plan, outputs, red_names, out_info, first) -> _Policy:
+        """The plan's DtypePolicy resolved for this launch; rewrites
+        ``out_info`` with the policy's output dtypes."""
+        if not plan.dtypes:
+            return _Policy(None, None, None, {})
+        pol = plan.dtypes.validate()
+        storage_dt = getattr(torch, pol.storage) if pol.storage else None
+        compute_dt = getattr(torch, pol.compute) if pol.compute else None
+        acc_name, comp = resolve_accumulate(pol.accumulate)
+        ops = {o: spec.op for o, spec in self.reduce_specs().items()}
+        acc_fold = {}
+        for o in outputs:
+            nc, dt = out_info[o]
+            if not dt.is_floating_point:   # integer fields and sums are exempt
+                continue
+            if o in red_names:
+                if acc_name and ops[o] == "sum":
+                    out_info[o] = (nc, getattr(torch, acc_name))
+                    acc_fold[o] = (getattr(torch, acc_name), comp)
+            elif storage_dt is not None:
+                out_info[o] = (nc, storage_dt)
+        scalar_dt = None
+        if (storage_dt is not None or compute_dt is not None) and first.dtype.is_floating_point:
+            scalar_dt = compute_dt or storage_dt
+        return _Policy(pol, _stage_in_cast(storage_dt, compute_dt), scalar_dt, acc_fold)
+
     def _launch_torch_batched(self, ins, in_batch, scalars, batch, outputs, out_layouts,
                               plan, red_names) -> Dict[str, torch.Tensor]:
         """The torch engine's batched launch: the single launch slot by slot
@@ -570,15 +676,22 @@ class LaunchGraph:
                 for o in outputs}
 
     def _launch_torch(self, ins, ordered_ins, scalars, ordered_scalars,
-                      outputs, stencil, lattice, first) -> Dict[str, torch.Tensor]:
+                      outputs, stencil, lattice, first,
+                      policy: _Policy) -> Dict[str, torch.Tensor]:
+        cast = policy.cast or (lambda d: d)
+        sdt = policy.scalar_dt or first.dtype
+        specs = self.reduce_specs()
+
         def scalar(n):
-            return torch.as_tensor(scalars[n], dtype=first.dtype,
-                                   device=first.device).reshape(1, 1)
+            return torch.as_tensor(scalars[n], dtype=sdt, device=first.device).reshape(1, 1)
 
         if not stencil:
-            values = {n: ins[n].canonical() for n in ordered_ins}
+            values = {n: cast(ins[n].canonical()) for n in ordered_ins}
             values.update({n: scalar(n) for n in ordered_scalars})
             values, partials = self._run_stages(values)
+            # a policy sum refolds its fp32 source, as the reference does
+            partials.update({o: _policy_sum(values[specs[o].source], dt, comp)
+                             for o, (dt, comp) in policy.acc_fold.items()})
             values.update(partials)
             return {o: values[o] for o in outputs}
 
@@ -587,10 +700,13 @@ class LaunchGraph:
         values = {}
         for n in ordered_ins:
             ring = need.get(n, 0)
-            nd = ins[n].canonical_nd()
+            nd = cast(ins[n].canonical_nd())
             values[n] = (halo_pad(nd, ring, site_dims) if ring else nd, ring)
         values.update({n: (scalar(n), None) for n in ordered_scalars})
         values, partials = self._run_stages_nd(values, len(lattice))
+        for o, (dt, comp) in policy.acc_fold.items():
+            a0 = _crop_ring(*values[specs[o].source], 0)
+            partials[o] = _policy_sum(a0.reshape(a0.shape[0], -1), dt, comp)
         res = dict(partials)
         for o in outputs:
             if o not in res:
@@ -599,9 +715,22 @@ class LaunchGraph:
         return {o: res[o] for o in outputs}
 
     def _launch_cuda(self, ins, ordered_ins, scalars, ordered_scalars, outputs, lattice,
-                     plan, first, smem_views, out_layouts, batch,
-                     in_batch) -> Dict[str, torch.Tensor]:
+                     plan, first, smem_views, out_layouts, batch, in_batch,
+                     policy: _Policy) -> Dict[str, torch.Tensor]:
         entry = _CUDA_GRAPHS.get(self.structure())
+        pkw = {}
+        if policy.pol:
+            if plan.tiled:
+                raise ValueError(
+                    f"cuda engine: graph {self.name!r} under a dtype policy "
+                    f"({policy.pol.tag()}) on the tiled plan {plan.describe()}: the "
+                    f"policy x tile composition is not yet ported (ROADMAP item 17)")
+            if entry is None or not entry.policy:
+                raise ValueError(
+                    f"cuda engine: graph {self.name!r} has no policy instance of its "
+                    f"kernels; a dtype policy ({policy.pol.tag()}) on it is not yet "
+                    f"ported (use engine='torch', or no policy)")
+            pkw = dict(policy=cuda_policy(policy.pol))
         if batch:
             if entry is None or entry.batched is None:
                 raise ValueError(
@@ -629,17 +758,18 @@ class LaunchGraph:
                 f"{list(produces)}, not {extra}")
         for n in ordered_ins:
             require_cuda(f"input {n!r}", ins[n].data)
+        sdt = policy.scalar_dt or first.dtype
         svals = {}
         for n in ordered_scalars:
             v = scalars[n]
             if isinstance(v, torch.Tensor):
                 require_cuda(f"scalar {n!r}", v)
-                v = v.to(first.dtype)
+                v = v.to(sdt)
             else:
-                v = torch.tensor(float(v), dtype=first.dtype, device=first.device)
+                v = torch.tensor(float(v), dtype=sdt, device=first.device)
             svals[n] = (v.broadcast_to((batch,)) if batch else v.reshape(())).contiguous()
         return impl(self, {n: (ins[n].data, ins[n].layout) for n in ordered_ins}, svals,
-                    out_layouts=out_layouts, **kw)
+                    out_layouts=out_layouts, **kw, **pkw)
 
     def _tiled_entry(self, entry, plan, lattice, smem_views):
         """(tiled impl, outputs) for a tiled plan, after the plan-time checks:
@@ -871,17 +1001,30 @@ def tiled_plain(graph: LaunchGraph, values: Mapping[str, torch.Tensor],
 
 CG_UPDATE = Kernel("cg_update", "rt_cg_update")
 CG_XPAY = Kernel("cg_xpay", "rt_cg_xpay")
+# K3 and K3B fed a bf16 ap (the refined inner CG, whose operator writes ap in
+# the policy's bf16 storage); x, r, p and the outputs stay fp32
+CG_UPDATE_AP16 = Kernel("cg_update_ap16", "rt_cg_update_ap16")
+CG_UPDATE_MASKED_AP16 = Kernel("cg_update_masked_ap16", "rt_cg_update_masked_ap16")
 
 
 _CG_IN, _CG_OUT = ("x", "r", "p", "ap"), ("x_new", "r_new")
 
 
+def _ap_dtype(ap: torch.Tensor) -> torch.dtype:
+    """The dtype ap's slot takes: bf16 (the refined inner CG's operator
+    output) or fp32; the kernel check refuses any other."""
+    return torch.bfloat16 if ap.dtype == torch.bfloat16 else torch.float32
+
+
 def cg_update_plain(x, r, p, ap, alpha, neg_alpha, layouts=None):
     """x + alpha p, r + neg_alpha ap, and the per-component sum of the new
     residual squared — the cg_update graph's arithmetic in torch ops, on
-    fields in ``layouts`` (names "x", "r", "p", "ap", "x_new", "r_new")."""
+    fields in ``layouts`` (names "x", "r", "p", "ap", "x_new", "r_new").  A
+    bf16 ap is widened to r's fp32 (exact), as the graph's type promotion
+    does."""
     lay = resolve_layouts(layouts, _CG_IN, _CG_OUT)
     x, r, p, ap = (lay[n].unpack(t) for n, t in zip(_CG_IN, (x, r, p, ap)))
+    ap = ap.to(r.dtype)
     x_new = x + alpha * p
     r_new = r + neg_alpha * ap
     return lay["x_new"].pack(x_new), lay["r_new"].pack(r_new), (r_new * r_new).sum(dim=1)
@@ -891,19 +1034,21 @@ def cg_update(x, r, p, ap, alpha, neg_alpha, vvl: int = 128, *, layouts=None):
     """24-component fields x, r, p, ap (physical, in ``layouts``; names
     "x", "r", "p", "ap", "x_new", "r_new") and 0-d device scalars alpha,
     neg_alpha -> (x_new, r_new, rr (24,)).  One launch plus the partial
-    fold."""
+    fold.  ap may be bf16 (the refined solve's operator output): the
+    kernel's ap16 instance widens it as it loads it."""
     if x.device.type == "cpu":
         return cg_update_plain(x, r, p, ap, alpha, neg_alpha, layouts)
     lay = resolve_layouts(layouts, _CG_IN, _CG_OUT)
     _, nsites = lay["x"].logical_shape(x.shape)
-    desc = [check_field(n, t, lay[n], 24, nsites, x.device)
-            for n, t in zip(_CG_IN, (x, r, p, ap))]
+    ap_dt = _ap_dtype(ap)
+    desc = [check_field(n, t, lay[n], 24, nsites, x.device, dt)
+            for n, t, dt in zip(_CG_IN, (x, r, p, ap), (torch.float32,) * 3 + (ap_dt,))]
     for name, t in (("alpha", alpha), ("neg_alpha", neg_alpha)):
         check_tensor(name, t, (), x.device)
     x_new, r_new = (torch.empty(lay[n].physical_shape(24, nsites), dtype=x.dtype,
                                 device=x.device) for n in _CG_OUT)
     partials = torch.empty((-(-nsites // vvl), 24), dtype=x.dtype, device=x.device)
-    CG_UPDATE.launch(x.device, x.data_ptr(), r.data_ptr(), p.data_ptr(),
+    (CG_UPDATE_AP16 if ap_dt == torch.bfloat16 else CG_UPDATE).launch(x.device, x.data_ptr(), r.data_ptr(), p.data_ptr(),
                      ap.data_ptr(), alpha.data_ptr(), neg_alpha.data_ptr(),
                      x_new.data_ptr(), r_new.data_ptr(), partials.data_ptr(),
                      nsites, *desc, *(lay[n].descriptor() for n in _CG_OUT), vvl)
@@ -955,7 +1100,7 @@ def cg_update_masked_plain(x, r, p, ap, alpha, neg_alpha, m, layouts=None):
     xs, rs, rrs = [], [], []
     for b in range(m.shape[0]):
         xb, rb, pb, apb = (operand_slot(t, lay[n], b) for n, t in zip(_CG_IN, (x, r, p, ap)))
-        r_new = _masked_fma(rb, neg_alpha[b], apb, m[b])
+        r_new = _masked_fma(rb, neg_alpha[b], apb.to(rb.dtype), m[b])
         xs.append(lay["x_new"].pack(_masked_fma(xb, alpha[b], pb, m[b])))
         rs.append(lay["r_new"].pack(r_new))
         rrs.append((r_new * r_new).sum(dim=1))
@@ -967,24 +1112,25 @@ def cg_update_masked(x, r, p, ap, alpha, neg_alpha, m, vvl: int = 128, *, layout
     24-component fields x, r, p, ap (stacked or shared; ``layouts`` names
     "x", "r", "p", "ap", "x_new", "r_new") with (batch,) device vectors
     alpha, neg_alpha, m -> (x_new, r_new, rr (batch, 24)).  One launch plus
-    the per-slot partial fold."""
+    the per-slot partial fold.  ap may be bf16, as in :func:`cg_update`."""
     if x.device.type == "cpu":
         return cg_update_masked_plain(x, r, p, ap, alpha, neg_alpha, m, layouts)
     lay = resolve_layouts(layouts, _CG_IN, _CG_OUT)
     batch = m.shape[0]
     _, nsites = operand_shape(x, lay["x"])
-    ops = [batch_operand(n, t, lay[n], 24, nsites, batch, x.device)
-           for n, t in zip(_CG_IN, (x, r, p, ap))]
+    ap_dt = _ap_dtype(ap)
+    ops = [batch_operand(n, t, lay[n], 24, nsites, batch, x.device, dt)
+           for n, t, dt in zip(_CG_IN, (x, r, p, ap), (torch.float32,) * 3 + (ap_dt,))]
     for name, t in (("alpha", alpha), ("neg_alpha", neg_alpha), ("m", m)):
         check_tensor(name, t, (batch,), x.device)
     x_new, r_new = (torch.empty((batch,) + lay[n].physical_shape(24, nsites), dtype=x.dtype,
                                 device=x.device) for n in _CG_OUT)
     partials = torch.empty((batch, -(-nsites // vvl), 24), dtype=x.dtype, device=x.device)
-    CG_UPDATE_MASKED.launch(x.device, x.data_ptr(), r.data_ptr(), p.data_ptr(), ap.data_ptr(),
-                            alpha.data_ptr(), neg_alpha.data_ptr(), m.data_ptr(),
-                            x_new.data_ptr(), r_new.data_ptr(), partials.data_ptr(), nsites,
-                            batch, *(st for _, st in ops), *(d for d, _ in ops),
-                            *(lay[n].descriptor() for n in _CG_OUT), vvl)
+    (CG_UPDATE_MASKED_AP16 if ap_dt == torch.bfloat16 else CG_UPDATE_MASKED).launch(
+        x.device, x.data_ptr(), r.data_ptr(), p.data_ptr(), ap.data_ptr(), alpha.data_ptr(),
+        neg_alpha.data_ptr(), m.data_ptr(), x_new.data_ptr(), r_new.data_ptr(),
+        partials.data_ptr(), nsites, batch, *(st for _, st in ops), *(d for d, _ in ops),
+        *(lay[n].descriptor() for n in _CG_OUT), vvl)
     return x_new, r_new, fold_partials_batched(partials, "sum")
 
 

@@ -36,8 +36,18 @@ launch whose whole-lattice staging would exceed it.  The footprint model
 the same tiles from the same budget.  Without a budget every plan is the
 untiled one.
 
-Not yet ported: split reductions (rsplit), canonical views, dtype policies,
-the halo strategies of the sharded path and the autotuned plan policy.
+A :class:`DtypePolicy` (``LoweringPlan.dtypes`` or ``TargetConfig.dtypes``)
+makes precision a lowering decision: the storage dtype fields are staged
+in and written in, the compute dtype of the arithmetic, and the accumulate
+dtype of terminal sums.  The footprint model prices a policy's launch at
+its storage itemsize.  The cuda engine has policy instances of the
+wilson_normal and ludwig_lb_step kernels and of K2's sum (``cuda_policy``
+says which policies they take); a policy on any other graph, or on a tiled
+plan, raises.
+
+Not yet ported: split reductions (rsplit), canonical views, the halo
+strategies of the sharded path, the autotuned plan policy and its dtype
+twins.
 """
 
 from __future__ import annotations
@@ -47,11 +57,12 @@ import functools
 import logging
 import math
 import os
-from typing import Optional, Sequence, Tuple
+from typing import NamedTuple, Optional, Sequence, Tuple
 
 from .layout import Layout, LayoutKind
 
-__all__ = ["LoweringPlan", "divisors", "choose_vvl", "sal_alignment", "choose_slab",
+__all__ = ["LoweringPlan", "DtypePolicy", "ACCUM_COMPENSATED", "dtype_itemsize",
+           "resolve_accumulate", "cuda_policy", "CudaPolicy", "divisors", "choose_vvl", "sal_alignment", "choose_slab",
            "choose_tiles",
            "tile_extents", "estimate_smem_bytes", "resolved_smem_bytes",
            "default_plan", "plan_for_launch", "policy_plan", "ENGINES", "WARP",
@@ -69,6 +80,122 @@ SMEM_ENV = "TARGETDP_TORCH_SMEM_BYTES"
 # (cudaDevAttrMaxSharedMemoryPerBlockOptin); the tiled kernels check the
 # device's own value again at their first launch
 SMEM_PER_BLOCK_OPTIN = 232448
+
+
+# -- dtype policy (the mixed-precision lowering axis) ------------------------------
+
+# itemsizes of the dtype names a policy may carry, a plain table so that
+# planning never needs a tensor
+_DTYPE_ITEMSIZE = {
+    "float64": 8, "float32": 4, "float16": 2, "bfloat16": 2,
+    "int64": 8, "int32": 4, "int16": 2, "int8": 1,
+}
+# short names of DtypePolicy.tag()
+_DTYPE_SHORT = {
+    "float64": "f64", "float32": "f32", "float16": "f16", "bfloat16": "bf16",
+    "compensated": "kf32",
+}
+# the accumulate slot also takes the explicit compensated request
+ACCUM_COMPENSATED = "compensated"
+
+
+def dtype_itemsize(name: str, fallback: int = 4) -> int:
+    """Itemsize in bytes of a policy dtype name ('' -> ``fallback``)."""
+    return _DTYPE_ITEMSIZE.get(name, fallback) if name else fallback
+
+
+@dataclasses.dataclass(frozen=True)
+class DtypePolicy:
+    """The precision triple of a launch (storage, compute, accumulate), each
+    a dtype *name*, '' for inherit:
+
+      storage      the dtype field data is staged in and field outputs are
+                   written in ('' = the input's).  Float inputs are rounded
+                   to it (round to nearest even) before the arithmetic.
+      compute      the dtype the arithmetic runs in ('' = the storage
+                   dtype, or the input's): rounded inputs are widened to it.
+      accumulate   the dtype terminal float sums (fused reductions and
+                   ``target_sum``) accumulate in ('' = the output dtype).
+                   'float64' resolves to compensated fp32 (see
+                   :func:`resolve_accumulate`); 'compensated' asks for it
+                   by name.  Max and integer reductions ignore the policy
+                   and stay bitwise.
+
+    The empty policy (every slot '') and ``dtypes=None`` lower exactly as
+    the policy-free code on every path."""
+
+    storage: str = ""
+    compute: str = ""
+    accumulate: str = ""
+
+    def __bool__(self) -> bool:
+        return bool(self.storage or self.compute or self.accumulate)
+
+    def tag(self) -> str:
+        """Short label, e.g. ``bf16:f32:f64``."""
+        return ":".join(_DTYPE_SHORT.get(s, s) if s else "-"
+                        for s in (self.storage, self.compute, self.accumulate))
+
+    def storage_itemsize(self, fallback: int) -> int:
+        return dtype_itemsize(self.storage, fallback)
+
+    def validate(self) -> "DtypePolicy":
+        for slot, name in (("storage", self.storage),
+                           ("compute", self.compute)):
+            if name and name not in _DTYPE_ITEMSIZE:
+                raise ValueError(
+                    f"DtypePolicy.{slot}={name!r} is not a known dtype "
+                    f"name; use one of {sorted(_DTYPE_ITEMSIZE)}")
+        acc = self.accumulate
+        if acc and acc != ACCUM_COMPENSATED and (
+                acc not in _DTYPE_ITEMSIZE or not acc.startswith("float")):
+            raise ValueError(
+                f"DtypePolicy.accumulate={acc!r} must be '', a float dtype "
+                f"name, or {ACCUM_COMPENSATED!r}")
+        return self
+
+
+def resolve_accumulate(name: str) -> Tuple[str, bool]:
+    """An accumulate request as ``(dtype name, compensated)``.
+
+    'compensated' and 'float64' both resolve to ``("float32", True)``:
+    compensated (Kahan) fp32.  The JAX package keeps fp64 only where jax's
+    x64 mode is on, which nothing in this repository turns on, so it too
+    runs 'float64' as compensated fp32.  The H100 has fp64 units, but a
+    port that accumulated in fp64 would run other kernels on the main path
+    than the reference's.  '' and any other float name pass through
+    uncompensated."""
+    if not name:
+        return "", False
+    if name in (ACCUM_COMPENSATED, "float64"):
+        return "float32", True
+    return name, False
+
+
+class CudaPolicy(NamedTuple):
+    """What a policy asks of the cuda engine's policy instances: round float
+    inputs to bf16 at load and write float fields in bf16 (``bf16``), and
+    fold float sums compensated (``compensated``)."""
+
+    bf16: bool
+    compensated: bool
+
+
+def cuda_policy(pol: Optional[DtypePolicy]) -> CudaPolicy:
+    """The cuda engine's reading of ``pol`` for fp32 inputs.  Its kernels
+    store in fp32 or bf16 and compute in fp32; sums accumulate in fp32,
+    plain or compensated.  Any other policy raises ("not yet ported")."""
+    if not pol:
+        return CudaPolicy(False, False)
+    pol.validate()
+    storage, compute = pol.storage or "float32", pol.compute or pol.storage or "float32"
+    acc, comp = resolve_accumulate(pol.accumulate)
+    if storage not in ("float32", "bfloat16") or compute != "float32" or acc not in ("", "float32"):
+        raise ValueError(
+            f"cuda engine: dtype policy {pol.tag()} is not yet ported; the kernels' "
+            f"policy instances store in float32 or bfloat16, compute in float32 and "
+            f"accumulate in float32 (plain or compensated)")
+    return CudaPolicy(storage == "bfloat16", comp)
 
 
 @functools.lru_cache(maxsize=4096)
@@ -179,9 +306,13 @@ def estimate_smem_bytes(plan: "LoweringPlan", *, lattice: Sequence[int],
     double-buffered copy slots) plus one output tile.  With no
     ``out_views`` the tiled figure is the two window slots alone, which is
     what a tiled cuda kernel allocates: its outputs go from registers to
-    device memory."""
+    device memory.  A plan with a storage :class:`DtypePolicy` is priced
+    at the storage itemsize, as the JAX package prices it."""
     bx = plan.bx or lattice[0]
     tiled = bool(plan.by or plan.bz)
+    if plan.dtypes is not None and plan.dtypes.storage:
+        in_views = [(nc, ring, plan.dtypes.storage_itemsize(isz)) for nc, ring, isz in in_views]
+        out_views = [(nc, plan.dtypes.storage_itemsize(isz)) for nc, isz in out_views]
     total = 0
     for ncomp, ring, isz in in_views:
         if tiled:
@@ -198,13 +329,15 @@ def estimate_smem_bytes(plan: "LoweringPlan", *, lattice: Sequence[int],
 def choose_tiles(lattice: Sequence[int], bx: int, *,
                  in_views: Sequence[Tuple[int, int, int]],
                  out_views: Sequence[Tuple[int, int]],
-                 smem_bytes: int) -> Tuple[int, int]:
+                 smem_bytes: int,
+                 dtypes: Optional[DtypePolicy] = None) -> Tuple[int, int]:
     """The largest (by, bz) tile whose estimated footprint fits the budget,
     preferring to keep the minor (z) axis whole on ties.  (0, 0) when the
-    untiled staging already fits; the finest tile when nothing fits."""
+    untiled staging already fits; the finest tile when nothing fits.
+    ``dtypes`` prices the probe at the policy's storage itemsize."""
 
     def fp(by, bz):
-        probe = LoweringPlan("cuda", bx=bx, by=by, bz=bz)
+        probe = LoweringPlan("cuda", bx=bx, by=by, bz=bz, dtypes=dtypes)
         return estimate_smem_bytes(probe, lattice=lattice, in_views=in_views,
                                    out_views=out_views)
 
@@ -235,6 +368,8 @@ class LoweringPlan:
     bx: int = 0
     by: int = 0
     bz: int = 0
+    # the mixed-precision policy (None: the policy-free lowering)
+    dtypes: Optional[DtypePolicy] = None
 
     @property
     def tiled(self) -> bool:
@@ -246,18 +381,23 @@ class LoweringPlan:
     @classmethod
     def from_json(cls, d: dict) -> "LoweringPlan":
         known = {f.name for f in dataclasses.fields(cls)}
-        return cls(**{k: v for k, v in d.items() if k in known})
+        d = {k: v for k, v in d.items() if k in known}
+        if isinstance(d.get("dtypes"), dict):
+            d["dtypes"] = DtypePolicy(**{k: v for k, v in d["dtypes"].items()
+                                         if k in ("storage", "compute", "accumulate")})
+        return cls(**d)
 
     def describe(self, footprint: Optional[int] = None) -> str:
         """Short label; ``footprint`` (bytes, from
         :func:`estimate_smem_bytes`) appends the shared memory a block
         needs."""
         fp = f" [~{footprint / 1024:.0f}KiB/block]" if footprint else ""
+        dt = f"/dt={self.dtypes.tag()}" if self.dtypes else ""
         if self.engine != "cuda":
-            return self.engine + fp
+            return self.engine + dt + fp
         knob = f"bx={self.bx}" if self.bx else f"vvl={self.vvl}"
         tile = (f"/ty{self.by}" if self.by else "") + (f"/tz{self.bz}" if self.bz else "")
-        return f"cuda/{knob}{tile}{fp}"
+        return f"cuda/{knob}{tile}{dt}{fp}"
 
     def validate(
         self,
@@ -273,6 +413,8 @@ class LoweringPlan:
         Returns self (chainable)."""
         if self.engine not in ENGINES:
             raise ValueError(f"unknown engine {self.engine!r}; have {ENGINES}")
+        if self.dtypes is not None:
+            self.dtypes.validate()
         if batch and self.tiled:
             raise ValueError(
                 f"tiled plan {self.describe()} on a batched launch ({batch} slots): "

@@ -11,6 +11,15 @@ then read-modify-write across the grid" is a race on concurrent CUDA
 blocks and is not carried over; there are no atomics, so a fixed plan
 gives the same bits on every run, and max is exact.
 
+Under a DtypePolicy (``TargetConfig.dtypes`` or the plan's) whose
+accumulate slot resolves to compensated fp32 (``core.plan.
+resolve_accumulate``), a float sum accumulates compensated: on "cuda"
+through K2's compensated instance (pass 1 writes a (hi, lo) pair a block
+and component, pass 2 folds the pairs in a fixed order); on "torch" in
+fp64, rounded once to fp32, the plain version that both the kernel and the
+JAX package's Kahan scan are held to.  Max and integer sums ignore the
+policy.
+
 A BatchedField reduces to ``(batch, ncomp)``, each row bitwise the
 single-Field reduction of its slot: on "cuda" through K2B, K2 with the slot
 as a grid axis (the same kernels, so the same fold per row); on "torch" by
@@ -32,13 +41,13 @@ import torch
 from .._cuda import Kernel, check_batched_field, check_field, check_tensor
 from .field import BatchedField
 from .layout import resolve_layouts
-from .plan import plan_for_launch
+from .plan import plan_for_launch, resolve_accumulate
 from .target import TargetConfig, require_cuda
 
 __all__ = ["target_sum", "target_max", "reduce_sites", "fold_partials",
            "reduce_sites_batched", "fold_partials_batched", "fold_components",
-           "REDUCE_SUM", "REDUCE_MAX", "REDUCE_FOLD", "REDUCE_SUM_B", "REDUCE_MAX_B",
-           "REDUCE_FOLD_B"]
+           "compensated_plain", "REDUCE_SUM", "REDUCE_MAX", "REDUCE_FOLD", "REDUCE_SUM_B",
+           "REDUCE_MAX_B", "REDUCE_FOLD_B", "REDUCE_SUM_C", "REDUCE_FOLD_C"]
 
 _OPS = {"sum": 0, "max": 1}
 
@@ -48,10 +57,20 @@ REDUCE_FOLD = Kernel("reduce_fold", "rt_reduce_fold")
 REDUCE_SUM_B = Kernel("reduce_sum_batched", "rt_reduce_partials_batched")
 REDUCE_MAX_B = Kernel("reduce_max_batched", "rt_reduce_partials_batched")
 REDUCE_FOLD_B = Kernel("reduce_fold_batched", "rt_reduce_fold_batched")
+# K2's compensated instance, single and batched (one slot a grid row)
+REDUCE_SUM_C = Kernel("reduce_sum_comp", "rt_reduce_partials_comp")
+REDUCE_FOLD_C = Kernel("reduce_fold_comp", "rt_reduce_fold_comp")
 
 
 def reduce_plain(x: torch.Tensor, op: str, dim: int = 1) -> torch.Tensor:
-    return x.sum(dim=dim) if op == "sum" else x.amax(dim=dim)
+    """The plain fold; an integer sum keeps its dtype, as the JAX package's."""
+    return x.sum(dim=dim, dtype=x.dtype) if op == "sum" else x.amax(dim=dim)
+
+
+def compensated_plain(x: torch.Tensor, dim: int = -1) -> torch.Tensor:
+    """The plain version of a compensated fp32 sum: accumulate in fp64,
+    round once to fp32."""
+    return x.to(torch.float64).sum(dim=dim).to(torch.float32)
 
 
 def _check_op(op: str) -> None:
@@ -75,10 +94,26 @@ def fold_components(v: torch.Tensor) -> torch.Tensor:
     return v[..., 0]
 
 
-def fold_partials(partials: torch.Tensor, op: str) -> torch.Tensor:
+def _fold_pairs(partials: torch.Tensor) -> torch.Tensor:
+    """K2's compensated pass 2: (batch, nblocks, ncomp, 2) (hi, lo) pairs ->
+    (batch, ncomp)."""
+    if partials.device.type == "cpu":
+        return partials.to(torch.float64).sum(dim=(1, 3)).to(torch.float32)
+    check_tensor("partials", partials, partials.shape, partials.device)
+    batch, nblocks, ncomp, _ = partials.shape
+    out = torch.empty((batch, ncomp), dtype=torch.float32, device=partials.device)
+    REDUCE_FOLD_C.launch(partials.device, partials.data_ptr(), out.data_ptr(), nblocks, ncomp,
+                         batch)
+    return out
+
+
+def fold_partials(partials: torch.Tensor, op: str, compensated: bool = False) -> torch.Tensor:
     """K2 pass 2: (nblocks, ncomp) partial rows -> (ncomp,), folded in a
-    fixed order."""
+    fixed order; ``compensated``: (nblocks, ncomp, 2) (hi, lo) pairs, folded
+    by the compensated instance."""
     _check_op(op)
+    if compensated:
+        return _fold_pairs(partials[None])[0]
     if partials.device.type == "cpu":
         return reduce_plain(partials, op, dim=0)
     check_tensor("partials", partials, partials.shape, partials.device)
@@ -89,10 +124,14 @@ def fold_partials(partials: torch.Tensor, op: str) -> torch.Tensor:
     return out
 
 
-def fold_partials_batched(partials: torch.Tensor, op: str) -> torch.Tensor:
+def fold_partials_batched(partials: torch.Tensor, op: str,
+                          compensated: bool = False) -> torch.Tensor:
     """K2B pass 2: (batch, nblocks, ncomp) partial rows -> (batch, ncomp),
-    row b folded as :func:`fold_partials` folds slot b's table."""
+    row b folded as :func:`fold_partials` folds slot b's table
+    (``compensated``: (batch, nblocks, ncomp, 2) pairs)."""
     _check_op(op)
+    if compensated:
+        return _fold_pairs(partials)
     if partials.device.type == "cpu":
         return torch.stack([reduce_plain(p, op, dim=0) for p in partials])
     check_tensor("partials", partials, partials.shape, partials.device)
@@ -103,13 +142,30 @@ def fold_partials_batched(partials: torch.Tensor, op: str) -> torch.Tensor:
     return out
 
 
+def _sum_compensated(x: torch.Tensor, lay, vvl: int) -> torch.Tensor:
+    """K2's compensated instance over ``batch`` stacked fields (batch,) +
+    physical -> (batch, ncomp)."""
+    if x.device.type == "cpu":
+        return torch.stack([compensated_plain(lay.unpack(e)) for e in x])
+    batch = x.shape[0]
+    ncomp, nsites = lay.logical_shape(x.shape[1:])
+    lx = check_batched_field("x", x, lay, ncomp, nsites, batch, x.device)
+    partials = torch.empty((batch, -(-nsites // vvl), ncomp, 2), dtype=x.dtype, device=x.device)
+    REDUCE_SUM_C.launch(x.device, x.data_ptr(), partials.data_ptr(), ncomp, nsites, batch, lx,
+                        vvl)
+    return _fold_pairs(partials)
+
+
 def reduce_sites_batched(x: torch.Tensor, op: str, vvl: int = 128, *,
-                         layouts=None) -> torch.Tensor:
+                         layouts=None, compensated: bool = False) -> torch.Tensor:
     """K2B: ``batch`` fields stacked on a leading axis (a BatchedField's
     data, each in ``layouts["x"]``) -> per-slot, per-component sum or max,
-    (batch, ncomp), each row bitwise :func:`reduce_sites` of its slot."""
+    (batch, ncomp), each row bitwise :func:`reduce_sites` of its slot.
+    ``compensated`` (a sum only): K2's compensated instance."""
     _check_op(op)
     lay = resolve_layouts(layouts, ("x",), ())["x"]
+    if compensated:
+        return _sum_compensated(x, lay, vvl)
     if x.device.type == "cpu":
         return torch.stack([reduce_plain(lay.unpack(e), op) for e in x])
     batch = x.shape[0]
@@ -122,11 +178,15 @@ def reduce_sites_batched(x: torch.Tensor, op: str, vvl: int = 128, *,
     return fold_partials_batched(partials, op)
 
 
-def reduce_sites(x: torch.Tensor, op: str, vvl: int = 128, *, layouts=None) -> torch.Tensor:
+def reduce_sites(x: torch.Tensor, op: str, vvl: int = 128, *, layouts=None,
+                 compensated: bool = False) -> torch.Tensor:
     """K2: a field ``x`` (physical, in ``layouts["x"]``, SoA when not
-    named) -> per-component sum or max, (ncomp,)."""
+    named) -> per-component sum or max, (ncomp,).  ``compensated`` (a sum
+    only): K2's compensated instance (one slot of its batch grid)."""
     _check_op(op)
     lay = resolve_layouts(layouts, ("x",), ())["x"]
+    if compensated:
+        return _sum_compensated(x[None], lay, vvl)[0]
     if x.device.type == "cpu":
         return reduce_plain(lay.unpack(x), op)
     ncomp, nsites = lay.logical_shape(x.shape)
@@ -138,18 +198,39 @@ def reduce_sites(x: torch.Tensor, op: str, vvl: int = 128, *, layouts=None) -> t
     return fold_partials(partials, op)
 
 
+def _accumulate(plan, config, field, op: str):
+    """(accumulate dtype or None, compensated) of a reduction under the
+    plan's policy, else the config's: float sums only, as the JAX package's
+    ``_reduce`` (max and integer sums are exempt)."""
+    pol = plan.dtypes or config.dtypes
+    if not (pol and pol.validate().accumulate and op == "sum" and field.dtype.is_floating_point):
+        return None, False
+    name, comp = resolve_accumulate(pol.accumulate)
+    return (getattr(torch, name) if name else None), comp
+
+
 def _reduce(field, config: Optional[TargetConfig], op: str) -> torch.Tensor:
     config = config or TargetConfig()
     batch = isinstance(field, BatchedField)
     # a batched reduction plans per lattice: the slot is one more grid axis
     plan = plan_for_launch(config, field.nsites, [field.layout])
+    acc_dt, comp = _accumulate(plan, config, field, op)
     if plan.engine == "torch":
+        def fold(c):
+            if comp:
+                return compensated_plain(c)
+            return reduce_plain(c if acc_dt is None else c.to(acc_dt), op)
+
         if batch:
-            return torch.stack([reduce_plain(f.canonical(), op) for f in field.unstack()])
-        return reduce_plain(field.canonical(), op)
+            return torch.stack([fold(f.canonical()) for f in field.unstack()])
+        return fold(field.canonical())
+    if acc_dt is not None and acc_dt != field.dtype:
+        raise ValueError(
+            f"cuda engine: a {field.dtype} sum accumulated in {acc_dt} is not yet ported; "
+            f"K2 accumulates in the field's fp32, plain or compensated")
     require_cuda(f"field {field.name!r}", field.data)
     run = reduce_sites_batched if batch else reduce_sites
-    return run(field.data, op, plan.vvl, layouts={"x": field.layout})
+    return run(field.data, op, plan.vvl, layouts={"x": field.layout}, compensated=comp)
 
 
 def target_sum(field, config: Optional[TargetConfig] = None) -> torch.Tensor:

@@ -31,7 +31,7 @@ import torch
 from .._cuda import Kernel, check_batched_field, check_field
 from .field import Field
 from .layout import Layout, resolve_layouts
-from .plan import LoweringPlan, plan_for_launch, resolved_smem_bytes
+from .plan import DtypePolicy, LoweringPlan, plan_for_launch, resolved_smem_bytes
 
 __all__ = ["TargetConfig", "TargetKernel", "kernel", "launch",
            "register_cuda_body", "require_cuda", "site_g5", "site_mul", "mul_plain",
@@ -53,6 +53,10 @@ class TargetConfig:
                  defers to $TARGETDP_TORCH_SMEM_BYTES, 0 means unbounded; a
                  budget makes the default plans tile stencil launches whose
                  whole-lattice staging would exceed it.
+    dtypes       a mixed-precision DtypePolicy (core.plan) applied to every
+                 LaunchGraph launch and ``target_sum`` made with this
+                 config whose plan carries no policy of its own (an explicit
+                 plan's policy wins).  None, the default, changes nothing.
     """
 
     engine: str = "cuda"
@@ -60,6 +64,7 @@ class TargetConfig:
     vvl: int = 128
     plan_policy: Union[str, LoweringPlan] = "default"
     smem_bytes: Optional[int] = None
+    dtypes: Optional[DtypePolicy] = None
 
     def resolved_smem_bytes(self) -> Optional[int]:
         return resolved_smem_bytes(self)
@@ -131,13 +136,15 @@ def operand_slot(t: torch.Tensor, lay: Layout, b: int) -> torch.Tensor:
     return lay.unpack(t[b] if t.dim() > lay.physical_ndim else t)
 
 
-def batch_operand(name, t, lay, ncomp, nsites, batch, device) -> Tuple[int, int]:
+def batch_operand(name, t, lay, ncomp, nsites, batch, device,
+                  dtype: torch.dtype = torch.float32) -> Tuple[int, int]:
     """(layout descriptor, per-slot element stride) of a batch launch's
-    field operand: one field a slot (stride ncomp * nsites) or one shared
-    field (stride 0)."""
+    field operand of ``dtype``: one field a slot (stride ncomp * nsites) or
+    one shared field (stride 0)."""
     if t.dim() == lay.physical_ndim:
-        return check_field(name, t, lay, ncomp, nsites, device), 0
-    return check_batched_field(name, t, lay, ncomp, nsites, batch, device), ncomp * nsites
+        return check_field(name, t, lay, ncomp, nsites, device, dtype), 0
+    return (check_batched_field(name, t, lay, ncomp, nsites, batch, device, dtype),
+            ncomp * nsites)
 
 
 def mul_plain(x: torch.Tensor, y: torch.Tensor, layouts=None,

@@ -53,8 +53,16 @@
 // unmasked and the masked chains cannot be contracted differently: the
 // fields match the plain two-rounding torch version to a tolerance, not
 // bitwise.
+//
+// K3 and K3B fed a bf16 ap (rt_cg_update_ap16, rt_cg_update_masked_ap16):
+// in the refined inner CG (apps/milc/cg.py::cg_refined, and refined
+// serving) the operator's policy instance returns ap in bf16, while the
+// update chain runs policy-free on fp32 x, r and p.  The reference's jnp
+// promotes bf16 x fp32 to fp32, so the outputs stay fp32 and only ap's load
+// widens (exactly).  The same kernel with TAP = __nv_bfloat16: 48 fewer
+// bytes a site (528 against 576).
 
-#include "common.cuh"
+#include "bf16.cuh"
 
 #define RT_SPINOR 24
 
@@ -71,9 +79,10 @@ struct rt_cg_strides {
   long long x, r, p, ap, out;
 };
 
-template <int K, bool MASKED>
+// TAP: ap's storage type (float, or __nv_bfloat16 under the refined solve).
+template <int K, bool MASKED, typename TAP = float>
 __global__ void cg_update_kernel(const float* __restrict__ x, const float* __restrict__ r,
-                                 const float* __restrict__ p, const float* __restrict__ ap,
+                                 const float* __restrict__ p, const TAP* __restrict__ ap,
                                  const float* __restrict__ alpha,
                                  const float* __restrict__ neg_alpha,
                                  const float* __restrict__ m, float* __restrict__ x_new,
@@ -101,7 +110,7 @@ __global__ void cg_update_kernel(const float* __restrict__ x, const float* __res
       float rn = r[rt_at<K>(L.r, c, s, RT_SPINOR, nsites)];
       if (on) {
         xn = rt_xpay(xn, a, p[rt_at<K>(L.p, c, s, RT_SPINOR, nsites)]);
-        rn = rt_xpay(rn, na, ap[rt_at<K>(L.ap, c, s, RT_SPINOR, nsites)]);
+        rn = rt_xpay(rn, na, rt_ld(ap, rt_at<K>(L.ap, c, s, RT_SPINOR, nsites)));
       }
       x_new[rt_at<K>(L.x_new, c, s, RT_SPINOR, nsites)] = xn;
       r_new[rt_at<K>(L.r_new, c, s, RT_SPINOR, nsites)] = rn;
@@ -138,7 +147,8 @@ __global__ void cg_xpay_kernel(const float* __restrict__ x, const float* __restr
   out[i] = on ? rt_xpay(yv, a[b], x[rt_index(lx, c, s, ncomp, nsites)]) : yv;
 }
 
-static int rt_cg_update_launch(const float* x, const float* r, const float* p, const float* ap,
+template <typename TAP>
+static int rt_cg_update_launch(const float* x, const float* r, const float* p, const TAP* ap,
                                const float* alpha, const float* neg_alpha, const float* m,
                                float* x_new, float* r_new, float* partials, long long nsites,
                                int batch, const int* desc, rt_cg_strides S, int block,
@@ -151,12 +161,22 @@ static int rt_cg_update_launch(const float* x, const float* r, const float* p, c
   const rt_cg_layouts cl{L[0], L[1], L[2], L[3], L[4], L[5]};
   const dim3 grid(rt_grid(nsites, block), batch);
   if (m)
-    RT_WITH_CLASS(k, cg_update_kernel<RT_K, true><<<grid, block, 0, stream>>>(
+    RT_WITH_CLASS(k, cg_update_kernel<RT_K, true, TAP><<<grid, block, 0, stream>>>(
                          x, r, p, ap, alpha, neg_alpha, m, x_new, r_new, partials, nsites, cl, S))
   else
-    RT_WITH_CLASS(k, cg_update_kernel<RT_K, false><<<grid, block, 0, stream>>>(
+    RT_WITH_CLASS(k, cg_update_kernel<RT_K, false, TAP><<<grid, block, 0, stream>>>(
                          x, r, p, ap, alpha, neg_alpha, m, x_new, r_new, partials, nsites, cl, S))
   RT_LAUNCH_RESULT();
+}
+
+// x rounded to bf16 and widened back, elementwise: the stage-in of the
+// policy instances (rt_bf16_if, bf16.cuh) as a kernel of its own, so that the
+// card tests can hold the rounding itself bitwise to torch's (ties, -0.0,
+// infinities, NaN, subnormals).
+__global__ void bf16_round_kernel(const float* __restrict__ x, float* __restrict__ out,
+                                  long long n) {
+  const long long i = blockIdx.x * (long long)blockDim.x + threadIdx.x;
+  if (i < n) out[i] = rt_bf16_if<true>(x[i]);
 }
 
 static int rt_xpay_launch(const float* x, const float* y, const float* a, const float* m,
@@ -207,6 +227,35 @@ int rt_cg_update_masked(const float* x, const float* r, const float* p, const fl
   return rt_cg_update_launch(x, r, p, ap, alpha, neg_alpha, m, x_new, r_new, partials, nsites,
                              batch, desc, rt_cg_strides{sx, sr, sp, sap, 24LL * nsites}, block,
                              stream);
+}
+
+// rt_cg_update and rt_cg_update_masked with ap in bf16 (the other fields fp32).
+int rt_cg_update_ap16(const float* x, const float* r, const float* p, const __nv_bfloat16* ap,
+                      const float* alpha, const float* neg_alpha, float* x_new, float* r_new,
+                      float* partials, long long nsites, int lx, int lr, int lp, int lap, int lxn,
+                      int lrn, int block, cudaStream_t stream) {
+  const int desc[6] = {lx, lr, lp, lap, lxn, lrn};
+  return rt_cg_update_launch(x, r, p, ap, alpha, neg_alpha, nullptr, x_new, r_new, partials,
+                             nsites, 1, desc, rt_cg_strides{0, 0, 0, 0, 0}, block, stream);
+}
+
+int rt_cg_update_masked_ap16(const float* x, const float* r, const float* p,
+                             const __nv_bfloat16* ap, const float* alpha,
+                             const float* neg_alpha, const float* m, float* x_new, float* r_new,
+                             float* partials, long long nsites, int batch, long long sx,
+                             long long sr, long long sp, long long sap, int lx, int lr, int lp,
+                             int lap, int lxn, int lrn, int block, cudaStream_t stream) {
+  const int desc[6] = {lx, lr, lp, lap, lxn, lrn};
+  return rt_cg_update_launch(x, r, p, ap, alpha, neg_alpha, m, x_new, r_new, partials, nsites,
+                             batch, desc, rt_cg_strides{sx, sr, sp, sap, 24LL * nsites}, block,
+                             stream);
+}
+
+// x, out: n fp32 values.
+int rt_bf16_round(const float* x, float* out, long long n, int block, cudaStream_t stream) {
+  if (n == 0) return 0;
+  bf16_round_kernel<<<rt_grid(n, block), block, 0, stream>>>(x, out, n);
+  RT_LAUNCH_RESULT();
 }
 
 // x, y, out: ncomp x nsites fields in layouts lx, ly, lo; a: one fp32 on the

@@ -47,22 +47,37 @@
 //   after it, and equals K8(K7(f)) bitwise (tests/test_torch_cuda.py).
 //   Registers of the SoA instantiations (-Xptxas -v, sm_90a, CUDA 12.8):
 //   collide 48, propagate 40, lb_step 56, no spills.
+//
+// K5L's policy instance rt_lb_step_bf16 (the same _build_nd fused_kernel
+//   under a DtypePolicy with storage "bfloat16", compute "float32": the
+//   Ludwig step's LB half-step with LudwigConfig.storage = "bfloat16"):
+//   dist and force rounded to bf16 as they are loaded (bf16.cuh; the
+//   reference rounds them before its pallas_call), moments, collision and
+//   streaming in fp32, dist2 and u written in bf16.  The graph has no
+//   sums.  It is lb_step_kernel with BF set, so its fp32 arithmetic is the
+//   policy-free kernel's on the rounded values.  It reads the caller's fp32
+//   dist and force (88 B a site) and writes 44: 132 B a site against the
+//   policy-free 176 (the reference's model counts 88).  Under an fp32
+//   storage the policy-free rt_lb_step runs: its outputs are already the
+//   policy's.
 
+#include "bf16.cuh"
 #include "d3q19.cuh"
 
 struct rt_lattice3 {
   int X, Y, Z;
 };
 
-template <int K>
+// RB rounds every value to bf16 as it is loaded.
+template <int K, bool RB = false>
 __device__ __forceinline__ void rt_load_site(const float* __restrict__ f, const rt_layout& lf,
                                              const float* __restrict__ force,
                                              const rt_layout& lfr, long long V, long long s,
                                              float (&fl)[RT_NVEL], float (&fr)[3]) {
 #pragma unroll
-  for (int i = 0; i < RT_NVEL; ++i) fl[i] = f[rt_at<K>(lf, i, s, RT_NVEL, V)];
+  for (int i = 0; i < RT_NVEL; ++i) fl[i] = rt_bf16_if<RB>(f[rt_at<K>(lf, i, s, RT_NVEL, V)]);
 #pragma unroll
-  for (int a = 0; a < 3; ++a) fr[a] = force[rt_at<K>(lfr, a, s, 3, V)];
+  for (int a = 0; a < 3; ++a) fr[a] = rt_bf16_if<RB>(force[rt_at<K>(lfr, a, s, 3, V)]);
 }
 
 // Layouts of an LB launch's tensors: dist in, force in, dist out, u out.
@@ -101,22 +116,24 @@ __global__ void lb_propagate_kernel(const float* __restrict__ f, float* __restri
   }
 }
 
-template <int K>
+// BF: the policy instance (bf16 stage-in and bf16 dist2 and u).
+template <int K, bool BF = false>
 __global__ void lb_step_kernel(const float* __restrict__ f, const float* __restrict__ force,
-                               float* __restrict__ dist2, float* __restrict__ u,
-                               rt_lattice3 L, rt_lb_params p, rt_lb_layouts ll) {
+                               typename rt_storage<BF>::type* __restrict__ dist2,
+                               typename rt_storage<BF>::type* __restrict__ u, rt_lattice3 L,
+                               rt_lb_params p, rt_lb_layouts ll) {
   const long long V = (long long)L.X * L.Y * L.Z;
   const long long s = blockIdx.x * (long long)blockDim.x + threadIdx.x;
   if (s >= V) return;
   float fl[RT_NVEL], fr[3], o[RT_NVEL];
-  rt_load_site<K>(f, ll.f, force, ll.force, V, s, fl, fr);
+  rt_load_site<K, BF>(f, ll.f, force, ll.force, V, s, fl, fr);
   if (u != nullptr) {
     const float rho = rt_density(fl);
     float mom[3];
     rt_momentum(fl, mom);
 #pragma unroll
     for (int a = 0; a < 3; ++a)
-      u[rt_at<K>(ll.u, a, s, 3, V)] = mom[a] / rho + 0.5f * fr[a] / rho;
+      rt_st(u, rt_at<K>(ll.u, a, s, 3, V), mom[a] / rho + 0.5f * fr[a] / rho);
   }
   rt_collide_site(fl, fr, p, o);
   const int z = (int)(s % L.Z);
@@ -127,7 +144,7 @@ __global__ void lb_step_kernel(const float* __restrict__ f, const float* __restr
     const long long dst = ((long long)rt_wrap(x + rt_cv(i, 0), L.X) * L.Y +
                            rt_wrap(y + rt_cv(i, 1), L.Y)) * L.Z +
                           rt_wrap(z + rt_cv(i, 2), L.Z);
-    dist2[rt_at<K>(ll.out, i, dst, RT_NVEL, V)] = o[i];
+    rt_st(dist2, rt_at<K>(ll.out, i, dst, RT_NVEL, V), o[i]);
   }
 }
 
@@ -178,6 +195,24 @@ int rt_lb_step(const float* f, const float* force, float* dist2, float* u, int X
   const rt_lb_params p = rt_make_lb_params(omega, pw0, pw1, pw2);
   RT_WITH_CLASS(k, lb_step_kernel<RT_K><<<rt_grid(V, block), block, 0, stream>>>(
                        f, force, dist2, u, rt_lattice3{X, Y, Z}, p, ll));
+  RT_LAUNCH_RESULT();
+}
+
+// The policy instance: as rt_lb_step, with dist2 and u (or null) bf16.
+int rt_lb_step_bf16(const float* f, const float* force, void* dist2, void* u, int X, int Y,
+                    int Z, float omega, float pw0, float pw1, float pw2, int lf, int lfr, int ld2,
+                    int lu, int block, cudaStream_t stream) {
+  const long long V = (long long)X * Y * Z;
+  const rt_layout L[4] = {rt_make_layout(lf), rt_make_layout(lfr), rt_make_layout(ld2),
+                          rt_make_layout(lu)};
+  const int k = rt_launch_class(L, u != nullptr ? 4 : 3);
+  if (k < 0) return RT_BAD_LAYOUT;
+  if (V == 0) return 0;
+  const rt_lb_layouts ll{L[0], L[1], L[2], L[3]};
+  const rt_lb_params p = rt_make_lb_params(omega, pw0, pw1, pw2);
+  RT_WITH_CLASS(k, lb_step_kernel<RT_K, true><<<rt_grid(V, block), block, 0, stream>>>(
+                       f, force, static_cast<__nv_bfloat16*>(dist2),
+                       static_cast<__nv_bfloat16*>(u), rt_lattice3{X, Y, Z}, p, ll));
   RT_LAUNCH_RESULT();
 }
 

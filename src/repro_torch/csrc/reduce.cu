@@ -29,8 +29,26 @@
 // nothing else in a block depends on the slot, so row b folds the same site
 // blocks in the same order as the single launch on slot b: bitwise its
 // sums.  The single entry points are the batch instance with one slot.
+//
+// K2's compensated instance (_reduce's accumulate branch, acc_dt / comp,
+// :86-91, :140: a sum under a DtypePolicy whose accumulate slot resolves to
+// compensated fp32), batched like K2B:
+//
+//   pass 1  rt_reduce_partials_comp: as rt_reduce_partials, but block (b, c)
+//           folds its sites into a (hi, lo) pair (comp.cuh) and writes
+//           partials[(b * ncomp + c) * 2 + {0, 1}];
+//   pass 2  rt_reduce_fold_comp: one block per component and slot folds the
+//           pairs, thread k those of blocks k, k + 256, ... in block order,
+//           then the threads' pairs in a fixed tree; out[c] = hi.  The
+//           wilson_normal kernel's policy instance (wilson_normal_mixed.cu)
+//           writes pairs of the same shape and reuses it.
+//
+// The result is held to the fp64 sum of the same values (within a few fp32
+// ulps of the sum), not bitwise to the reference's Kahan scan; it is the
+// same bits on every run.  Bound: bytes, as the plain instance (pass 2 reads
+// twice its bytes).
 
-#include "common.cuh"
+#include "comp.cuh"
 
 #define RT_FOLD_THREADS 256
 
@@ -72,7 +90,60 @@ __global__ void reduce_fold_kernel(const float* __restrict__ partials, float* __
   if (threadIdx.x == 0) out[c] = acc;
 }
 
+template <int K>
+__global__ void reduce_partials_comp_kernel(const float* __restrict__ x,
+                                            float* __restrict__ partials, int ncomp,
+                                            long long nsites, rt_layout lx) {
+  const int c = blockIdx.y;
+  x += blockIdx.z * (long long)ncomp * nsites;
+  partials += blockIdx.z * (long long)gridDim.x * ncomp * 2;
+  const long long s = blockIdx.x * (long long)blockDim.x + threadIdx.x;
+  const float v = s < nsites ? x[rt_at<K>(lx, c, s, ncomp, nsites)] : 0.0f;
+  const rt_pair acc = rt_block_fold_pair(rt_pair{v, 0.0f});
+  if (threadIdx.x == 0) {
+    partials[((long long)blockIdx.x * ncomp + c) * 2] = acc.hi;
+    partials[((long long)blockIdx.x * ncomp + c) * 2 + 1] = acc.lo;
+  }
+}
+
+__global__ void reduce_fold_comp_kernel(const float* __restrict__ partials,
+                                        float* __restrict__ out, long long nblocks, int ncomp) {
+  const int c = blockIdx.x;
+  partials += blockIdx.y * nblocks * ncomp * 2;
+  out += blockIdx.y * (long long)ncomp;
+  rt_pair acc{0.0f, 0.0f};
+  for (long long k = threadIdx.x; k < nblocks; k += blockDim.x)
+    acc = rt_pair_add(acc, rt_pair{partials[(k * ncomp + c) * 2],
+                                   partials[(k * ncomp + c) * 2 + 1]});
+  acc = rt_block_fold_pair(acc);
+  if (threadIdx.x == 0) out[c] = acc.hi;
+}
+
 extern "C" {
+
+// The compensated pass 1: x as rt_reduce_partials_batched; partials:
+// (batch, ceil(nsites / block), ncomp, 2).
+int rt_reduce_partials_comp(const float* x, float* partials, int ncomp, long long nsites,
+                            int batch, int lx, int block, cudaStream_t stream) {
+  const rt_layout L = rt_make_layout(lx);
+  const int k = rt_launch_class(&L, 1);
+  if (k < 0) return RT_BAD_LAYOUT;
+  if (nsites == 0 || ncomp == 0 || batch == 0) return 0;
+  const dim3 grid(rt_grid(nsites, block), ncomp, batch);
+  RT_WITH_CLASS(k, reduce_partials_comp_kernel<RT_K><<<grid, block, 0, stream>>>(
+                       x, partials, ncomp, nsites, L));
+  RT_LAUNCH_RESULT();
+}
+
+// The compensated pass 2: partials (batch, nblocks, ncomp, 2) -> out (batch,
+// ncomp).
+int rt_reduce_fold_comp(const float* partials, float* out, long long nblocks, int ncomp,
+                        int batch, cudaStream_t stream) {
+  if (ncomp == 0 || batch == 0) return 0;
+  reduce_fold_comp_kernel<<<dim3(ncomp, batch), RT_FOLD_THREADS, 0, stream>>>(partials, out,
+                                                                            nblocks, ncomp);
+  RT_LAUNCH_RESULT();
+}
 
 // x: batch fields of ncomp x nsites, one after another, each in layout lx
 // (descriptor); partials: (batch, ceil(nsites / block), ncomp).

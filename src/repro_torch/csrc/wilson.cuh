@@ -18,9 +18,14 @@
 // 192-component neighbour pack nor the backward-link copy of the TPU path
 // (ops.py:53-54) is ever materialised: each thread reads its 8 neighbour
 // spinors and 4 backward links straight from psi and u.
+//
+// The RB template flags (RBP for psi, RBU for u; false unless a kernel
+// asks) round every value read to bf16 and widen it back in registers:
+// the stage-in of a bf16-storage DtypePolicy (wilson_normal_mixed.cu).  A
+// false flag compiles to the loads alone.
 #pragma once
 
-#include "common.cuh"
+#include "bf16.cuh"
 
 struct rt_cplx {
   float re, im;
@@ -66,12 +71,13 @@ template <> struct rt_gamma<3> {  // t
 __device__ __forceinline__ int rt_neg_unit(int k) { return k ^ 1; }
 
 // Complex component `comp` (real part at 2 comp, imaginary at 2 comp + 1)
-// of site `site` of a field of ncomp fp32 components in layout L.
-template <int K>
+// of site `site` of a field of ncomp fp32 components in layout L; RB rounds
+// both parts to bf16.
+template <int K, bool RB = false>
 __device__ __forceinline__ rt_cplx rt_load_c(const float* __restrict__ f, const rt_layout& L,
                                              int ncomp, int comp, long long V, long long site) {
-  return {__ldg(f + rt_at<K>(L, 2 * comp, site, ncomp, V)),
-          __ldg(f + rt_at<K>(L, 2 * comp + 1, site, ncomp, V))};
+  return {rt_bf16_if<RB>(__ldg(f + rt_at<K>(L, 2 * comp, site, ncomp, V))),
+          rt_bf16_if<RB>(__ldg(f + rt_at<K>(L, 2 * comp + 1, site, ncomp, V)))};
 }
 
 // A field as the hopping term reads it (through __ldg, the read-only path):
@@ -82,7 +88,7 @@ struct rt_wfield {
 };
 
 // Upper two spin rows of (1 -/+ gamma_mu) psi(site): h[s][color].
-template <int MU, bool PLUS, int K>
+template <int MU, bool PLUS, int K, bool RB = false>
 __device__ __forceinline__ void rt_project(const rt_wfield& psi, long long V, long long site,
                                            rt_cplx (&h)[2][3]) {
   typedef rt_gamma<MU> G;
@@ -90,24 +96,25 @@ __device__ __forceinline__ void rt_project(const rt_wfield& psi, long long V, lo
   const int a1 = PLUS ? rt_neg_unit(G::A1) : G::A1;
 #pragma unroll
   for (int c = 0; c < 3; ++c) {
-    h[0][c] = rt_cadd(rt_load_c<K>(psi.p, psi.L, 24, 0 * 3 + c, V, site),
-                      rt_unit(rt_load_c<K>(psi.p, psi.L, 24, G::J0 * 3 + c, V, site), a0));
-    h[1][c] = rt_cadd(rt_load_c<K>(psi.p, psi.L, 24, 1 * 3 + c, V, site),
-                      rt_unit(rt_load_c<K>(psi.p, psi.L, 24, G::J1 * 3 + c, V, site), a1));
+    h[0][c] = rt_cadd(rt_load_c<K, RB>(psi.p, psi.L, 24, 0 * 3 + c, V, site),
+                      rt_unit(rt_load_c<K, RB>(psi.p, psi.L, 24, G::J0 * 3 + c, V, site), a0));
+    h[1][c] = rt_cadd(rt_load_c<K, RB>(psi.p, psi.L, 24, 1 * 3 + c, V, site),
+                      rt_unit(rt_load_c<K, RB>(psi.p, psi.L, 24, G::J1 * 3 + c, V, site), a1));
   }
 }
 
 // out[s][a] = sum_b U[a][b] h[s][b]      (ADJ = false)
 // out[s][a] = sum_b conj(U[b][a]) h[s][b] (ADJ = true)
 // with U the link of direction MU at `site`.
-template <int MU, bool ADJ, int K>
+template <int MU, bool ADJ, int K, bool RB = false>
 __device__ __forceinline__ void rt_su3_mult(const rt_wfield& u, long long V, long long site,
                                             const rt_cplx (&h)[2][3], rt_cplx (&out)[2][3]) {
   rt_cplx m[3][3];
 #pragma unroll
   for (int a = 0; a < 3; ++a)
 #pragma unroll
-    for (int b = 0; b < 3; ++b) m[a][b] = rt_load_c<K>(u.p, u.L, 72, (MU * 3 + a) * 3 + b, V, site);
+    for (int b = 0; b < 3; ++b)
+      m[a][b] = rt_load_c<K, RB>(u.p, u.L, 72, (MU * 3 + a) * 3 + b, V, site);
 #pragma unroll
   for (int s = 0; s < 2; ++s)
 #pragma unroll
@@ -130,16 +137,16 @@ __device__ __forceinline__ void rt_su3_mult(const rt_wfield& u, long long V, lon
 }
 
 // acc += (1 - gamma_mu) U_mu(site) psi(fwd) + (1 + gamma_mu) U_mu^dag(bwd) psi(bwd).
-template <int MU, int KP, int KU>
+template <int MU, int KP, int KU, bool RBP = false, bool RBU = false>
 __device__ __forceinline__ void rt_hop_dir(const rt_wfield& psi, const rt_wfield& u, long long V,
                                            long long site, long long fwd, long long bwd,
                                            rt_cplx (&acc)[4][3]) {
   typedef rt_gamma<MU> G;
   rt_cplx h[2][3], uh[2][3], hb[2][3], uhb[2][3];
-  rt_project<MU, false, KP>(psi, V, fwd, h);
-  rt_su3_mult<MU, false, KU>(u, V, site, h, uh);
-  rt_project<MU, true, KP>(psi, V, bwd, hb);
-  rt_su3_mult<MU, true, KU>(u, V, bwd, hb, uhb);
+  rt_project<MU, false, KP, RBP>(psi, V, fwd, h);
+  rt_su3_mult<MU, false, KU, RBU>(u, V, site, h, uh);
+  rt_project<MU, true, KP, RBP>(psi, V, bwd, hb);
+  rt_su3_mult<MU, true, KU, RBU>(u, V, bwd, hb, uhb);
 #pragma unroll
   for (int c = 0; c < 3; ++c) {
     acc[0][c] = rt_cadd(acc[0][c], rt_cadd(uh[0][c], uhb[0][c]));
@@ -155,8 +162,8 @@ struct rt_lattice {
 };
 
 // D psi at `site` into d[24] (component order of the spinor field); psi in
-// layout class KP, u in KU.
-template <int KP, int KU>
+// layout class KP, u in KU, each rounded to bf16 at load where RBP, RBU.
+template <int KP, int KU, bool RBP = false, bool RBU = false>
 __device__ __forceinline__ void rt_wilson_hop(const rt_wfield& psi, const rt_wfield& u,
                                               rt_lattice L, long long site, float (&d)[24]) {
   const long long V = (long long)L.X * L.Y * L.Z * L.T;
@@ -170,13 +177,13 @@ __device__ __forceinline__ void rt_wilson_hop(const rt_wfield& psi, const rt_wfi
   for (int s = 0; s < 4; ++s)
 #pragma unroll
     for (int c = 0; c < 3; ++c) acc[s][c] = {0.0f, 0.0f};
-  rt_hop_dir<0, KP, KU>(psi, u, V, site, site + (x == L.X - 1 ? -(L.X - 1) * sx : sx),
+  rt_hop_dir<0, KP, KU, RBP, RBU>(psi, u, V, site, site + (x == L.X - 1 ? -(L.X - 1) * sx : sx),
                      site - (x == 0 ? -(L.X - 1) * sx : sx), acc);
-  rt_hop_dir<1, KP, KU>(psi, u, V, site, site + (y == L.Y - 1 ? -(L.Y - 1) * sy : sy),
+  rt_hop_dir<1, KP, KU, RBP, RBU>(psi, u, V, site, site + (y == L.Y - 1 ? -(L.Y - 1) * sy : sy),
                      site - (y == 0 ? -(L.Y - 1) * sy : sy), acc);
-  rt_hop_dir<2, KP, KU>(psi, u, V, site, site + (z == L.Z - 1 ? -(L.Z - 1) * sz : sz),
+  rt_hop_dir<2, KP, KU, RBP, RBU>(psi, u, V, site, site + (z == L.Z - 1 ? -(L.Z - 1) * sz : sz),
                      site - (z == 0 ? -(L.Z - 1) * sz : sz), acc);
-  rt_hop_dir<3, KP, KU>(psi, u, V, site, site + (t == L.T - 1 ? -(L.T - 1) * st : st),
+  rt_hop_dir<3, KP, KU, RBP, RBU>(psi, u, V, site, site + (t == L.T - 1 ? -(L.T - 1) * st : st),
                      site - (t == 0 ? -(L.T - 1) * st : st), acc);
 #pragma unroll
   for (int s = 0; s < 4; ++s)

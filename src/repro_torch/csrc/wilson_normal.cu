@@ -42,63 +42,12 @@
 // without the slot offsets.  Each slot's blocks read u again: B
 // slots read it B times (4 x 288 B a site at B = 4), which a design that
 // loops over the slots inside one thread would read once.
+//
+// The two kernels are templates in wilson_normal.cuh, whose policy flags
+// this file leaves off; wilson_normal_mixed.cu instantiates the policy
+// instance from the same templates.
 
-#include "wilson.cuh"
-
-__device__ __forceinline__ float rt_g5_sign(int c) { return c >= 12 ? -1.0f : 1.0f; }
-
-// t's layout: SoA, in either instantiation.
-__device__ __forceinline__ rt_layout rt_soa() { return rt_layout{RT_SOA, 1, -1}; }
-
-// BATCH: offset p, t, ap and the partials to the slot blockIdx.y; a launch
-// of one slot takes the instantiation without the offsets.
-template <int K, bool BATCH>
-__global__ void wilson_normal_t_kernel(const float* __restrict__ p, const float* __restrict__ u,
-                                       float* __restrict__ t, float kappa, rt_lattice L,
-                                       rt_layout lp, rt_layout lu) {
-  const long long V = (long long)L.X * L.Y * L.Z * L.T;
-  const long long s = blockIdx.x * (long long)blockDim.x + threadIdx.x;
-  if (s >= V) return;
-  if (BATCH) {
-    p += blockIdx.y * 24 * V;
-    t += blockIdx.y * 24 * V;
-  }
-  float d[24];
-  rt_wilson_hop<K, K>(rt_wfield{p, lp}, rt_wfield{u, lu}, L, s, d);
-#pragma unroll
-  for (int c = 0; c < 24; ++c)
-    t[(long long)c * V + s] = rt_g5_sign(c) * (p[rt_at<K>(lp, c, s, 24, V)] - kappa * d[c]);
-}
-
-template <int K, bool BATCH>
-__global__ void wilson_normal_ap_kernel(const float* __restrict__ p, const float* __restrict__ t,
-                                        const float* __restrict__ u, float* __restrict__ ap,
-                                        float* __restrict__ partials, float kappa,
-                                        rt_lattice L, rt_layout lp, rt_layout lu,
-                                        rt_layout lap) {
-  const long long V = (long long)L.X * L.Y * L.Z * L.T;
-  const long long s = blockIdx.x * (long long)blockDim.x + threadIdx.x;
-  if (BATCH) {
-    p += blockIdx.y * 24 * V;
-    t += blockIdx.y * 24 * V;
-    ap += blockIdx.y * 24 * V;
-    partials += blockIdx.y * (long long)gridDim.x * 24;
-  }
-  float prod[24];
-#pragma unroll
-  for (int c = 0; c < 24; ++c) prod[c] = 0.0f;
-  if (s < V) {
-    float d[24];
-    rt_wilson_hop<RT_K_SOA, K>(rt_wfield{t, rt_soa()}, rt_wfield{u, lu}, L, s, d);
-#pragma unroll
-    for (int c = 0; c < 24; ++c) {
-      const float a = rt_g5_sign(c) * (t[(long long)c * V + s] - kappa * d[c]);
-      ap[rt_at<K>(lap, c, s, 24, V)] = a;
-      prod[c] = p[rt_at<K>(lp, c, s, 24, V)] * a;
-    }
-  }
-  rt_block_partials<24>(prod, RT_OP_SUM, partials);
-}
+#include "wilson_normal.cuh"
 
 extern "C" {
 

@@ -19,6 +19,11 @@ without u, for ``lb_collide_propagate``.  It streams by push: each site's
 thread collides in registers and writes its post-collision values to the
 neighbours, so the post-collision distributions never reach device memory.
 
+K5L's policy instance (``bf16=True``, ``rt_lb_step_bf16``) is the same
+kernel under a bf16-storage DtypePolicy: dist and force rounded to bf16 as
+they are loaded, moments, collision and streaming in fp32, dist2 and u
+written in bf16.
+
 K9 replaces the same function's ``dma_kernel`` for both graphs under a
 tiled plan: persistent blocks copy each (bx, by, bz) tile's halo'd window
 of dist and force into one of two shared-memory slots with ``cp.async``
@@ -47,10 +52,11 @@ from . import ref
 
 __all__ = ["propagate_cuda", "propagate_plain", "lb_step_cuda", "lb_step_plain",
            "lb_step_tiled_cuda", "lb_step_tiled_plain", "tiled_smem_bytes",
-           "PROPAGATE", "LB_STEP", "LB_STEP_TILED"]
+           "PROPAGATE", "LB_STEP", "LB_STEP_BF16", "LB_STEP_TILED"]
 
 PROPAGATE = Kernel("lb_propagate", "rt_lb_propagate")
 LB_STEP = Kernel("lb_step", "rt_lb_step")
+LB_STEP_BF16 = Kernel("lb_step_bf16", "rt_lb_step_bf16")   # K5L's policy instance
 LB_STEP_TILED = Kernel("lb_step_tiled", "rt_lb_step_tiled")
 K9_BLOCK = 512   # threads a K9 block (at most RT_K9_MAX_THREADS in lb_tiled.cu)
 
@@ -100,37 +106,43 @@ _STEP_IN, _STEP_OUT = ("dist", "force"), ("dist2", "u")
 
 
 def lb_step_plain(dist: torch.Tensor, force: torch.Tensor, tau: float, lattice,
-                  with_u: bool = True, layouts=None
+                  with_u: bool = True, layouts=None, bf16: bool = False
                   ) -> Tuple[torch.Tensor, Optional[torch.Tensor]]:
     """(dist2 = propagate(collide(dist, force)), u or None); ``layouts``
-    names "dist", "force", "dist2", "u"."""
+    names "dist", "force", "dist2", "u".  ``bf16``: dist and force rounded
+    to bf16 first, dist2 and u returned in bf16."""
     lat = _check_3d(lattice)
     lay = resolve_layouts(layouts, _STEP_IN, _STEP_OUT)
     d, f = lay["dist"].unpack(dist), lay["force"].unpack(force)
-    dist2 = lay["dist2"].pack(_propagate_canonical(collide_plain(d, f, tau), lat))
-    return dist2, (lay["u"].pack(moments_velocity(d, f)) if with_u else None)
+    if bf16:
+        d, f = (t.to(torch.bfloat16).to(t.dtype) for t in (d, f))
+    out = torch.bfloat16 if bf16 else d.dtype
+    dist2 = lay["dist2"].pack(_propagate_canonical(collide_plain(d, f, tau), lat).to(out))
+    return dist2, (lay["u"].pack(moments_velocity(d, f).to(out)) if with_u else None)
 
 
 def lb_step_cuda(dist: torch.Tensor, force: torch.Tensor, tau: float, lattice,
-                 vvl: int = 128, with_u: bool = True, *, layouts=None
+                 vvl: int = 128, with_u: bool = True, *, layouts=None, bf16: bool = False
                  ) -> Tuple[torch.Tensor, Optional[torch.Tensor]]:
     """K5L: one launch computing the streamed post-collision distributions
     and (with_u) the half-force velocity of dist (19 components) and force
-    (3); ``layouts`` names "dist", "force", "dist2", "u"."""
+    (3); ``layouts`` names "dist", "force", "dist2", "u".  ``bf16``: the
+    policy instance (bf16 stage-in, dist2 and u in bf16)."""
     if dist.device.type == "cpu":
-        return lb_step_plain(dist, force, tau, lattice, with_u, layouts)
+        return lb_step_plain(dist, force, tau, lattice, with_u, layouts, bf16)
     lat = _check_3d(lattice)
     V = math.prod(lat)
     lay = resolve_layouts(layouts, _STEP_IN, _STEP_OUT)
     ld = check_field("dist", dist, lay["dist"], 19, V, dist.device)
     lf = check_field("force", force, lay["force"], 3, V, dist.device)
-    dist2 = torch.empty(lay["dist2"].physical_shape(19, V), dtype=dist.dtype,
-                        device=dist.device)
-    u = (torch.empty(lay["u"].physical_shape(3, V), dtype=dist.dtype, device=dist.device)
+    out = torch.bfloat16 if bf16 else dist.dtype
+    dist2 = torch.empty(lay["dist2"].physical_shape(19, V), dtype=out, device=dist.device)
+    u = (torch.empty(lay["u"].physical_shape(3, V), dtype=out, device=dist.device)
          if with_u else None)
-    LB_STEP.launch(dist.device, dist.data_ptr(), force.data_ptr(), dist2.data_ptr(),
-                   u.data_ptr() if with_u else None, *lat, *lb_params(float(tau)), ld, lf,
-                   lay["dist2"].descriptor(), lay["u"].descriptor(), vvl)
+    (LB_STEP_BF16 if bf16 else LB_STEP).launch(
+        dist.device, dist.data_ptr(), force.data_ptr(), dist2.data_ptr(),
+        u.data_ptr() if with_u else None, *lat, *lb_params(float(tau)), ld, lf,
+        lay["dist2"].descriptor(), lay["u"].descriptor(), vvl)
     return dist2, u
 
 

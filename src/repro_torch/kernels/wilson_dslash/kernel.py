@@ -18,6 +18,13 @@ slot as one more grid axis: p and ap are ``batch`` stacked spinors, u is
 one gauge field shared by every slot, pap is (batch, 24), and each slot's
 ap and pap are bitwise the single launch's on that slot.
 
+K5's policy instance (``policy=``, a ``core.plan.CudaPolicy``;
+``csrc/wilson_normal_mixed.cu``), single and batched: under bf16 storage p
+and u are rounded to bf16 as they are loaded, t stays fp32, ap is written in
+bf16 and pap takes the fp32 ap; under a compensated accumulate pap's
+partials are (hi, lo) pairs folded by K2's compensated pass 2.  A policy
+asking for neither runs the policy-free kernels.
+
 On a CPU tensor each wrapper returns its plain version (unpack, torch ops,
 pack); on a CUDA tensor it launches its kernel or raises.
 """
@@ -25,24 +32,50 @@ pack); on a CUDA tensor it launches its kernel or raises.
 from __future__ import annotations
 
 import math
-from typing import Sequence, Tuple
+from typing import Optional, Sequence, Tuple
 
 import torch
 
-from repro_torch._cuda import Kernel, check_batched_field, check_field
+from repro_torch._cuda import Kernel, check_batched_field, check_field, check_tensor
 from repro_torch.core.layout import resolve_layouts
-from repro_torch.core.reduce import fold_partials, fold_partials_batched
+from repro_torch.core.plan import CudaPolicy
+from repro_torch.core.reduce import compensated_plain, fold_partials, fold_partials_batched
 from . import ref
 
 __all__ = ["dslash_cuda", "dslash_plain", "wilson_normal_cuda",
-           "wilson_normal_plain", "DSLASH", "WILSON_NORMAL_T",
-           "WILSON_NORMAL_AP", "WILSON_NORMAL_T_B", "WILSON_NORMAL_AP_B"]
+           "wilson_normal_plain", "bf16_round", "bf16_round_cuda", "DSLASH", "WILSON_NORMAL_T",
+           "WILSON_NORMAL_AP", "WILSON_NORMAL_T_B", "WILSON_NORMAL_AP_B",
+           "WILSON_NORMAL_T_MIXED", "WILSON_NORMAL_AP_MIXED", "BF16_ROUND"]
 
 DSLASH = Kernel("dslash", "rt_dslash")
 WILSON_NORMAL_T = Kernel("wilson_normal_t", "rt_wilson_normal_t")
 WILSON_NORMAL_AP = Kernel("wilson_normal_ap", "rt_wilson_normal_ap")
 WILSON_NORMAL_T_B = Kernel("wilson_normal_t_batched", "rt_wilson_normal_t_batched")
 WILSON_NORMAL_AP_B = Kernel("wilson_normal_ap_batched", "rt_wilson_normal_ap_batched")
+# the policy instance, single and batched (one slot a grid row)
+WILSON_NORMAL_T_MIXED = Kernel("wilson_normal_t_mixed", "rt_wilson_normal_t_mixed")
+WILSON_NORMAL_AP_MIXED = Kernel("wilson_normal_ap_mixed", "rt_wilson_normal_ap_mixed")
+
+
+def bf16_round(x: torch.Tensor) -> torch.Tensor:
+    """x rounded to bf16 (round to nearest even) and widened back to its
+    dtype: a bf16-storage policy's stage-in."""
+    return x.to(torch.bfloat16).to(x.dtype)
+
+
+BF16_ROUND = Kernel("bf16_round", "rt_bf16_round")
+
+
+def bf16_round_cuda(x: torch.Tensor, block: int = 256) -> torch.Tensor:
+    """:func:`bf16_round` of an fp32 tensor through the policy instances'
+    own rounding (``csrc/bf16.cuh``), for the card tests that hold it
+    bitwise to torch's."""
+    if x.device.type == "cpu":
+        return bf16_round(x)
+    check_tensor("x", x, x.shape, x.device)
+    out = torch.empty_like(x)
+    BF16_ROUND.launch(x.device, x.data_ptr(), out.data_ptr(), x.numel(), block)
+    return out
 
 
 def _check_4d(lattice: Sequence[int]) -> Tuple[int, int, int, int]:
@@ -90,31 +123,41 @@ def _m_g5(psi: torch.Tensor, d: torch.Tensor, kappa: float) -> torch.Tensor:
 
 
 def wilson_normal_plain(p: torch.Tensor, u: torch.Tensor, kappa: float,
-                        lattice, layouts=None, *,
-                        batched: bool = False) -> Tuple[torch.Tensor, torch.Tensor]:
+                        lattice, layouts=None, *, batched: bool = False,
+                        policy: Optional[CudaPolicy] = None) -> Tuple[torch.Tensor, torch.Tensor]:
     """t = g5(p - kappa D p), ap = g5(t - kappa D t), pap = sum_sites p*ap;
     ``layouts`` names "p", "u", "ap"; ``batched``: p is stacked spinors, each
-    slot computed as alone."""
+    slot computed as alone.  ``policy``: p and u rounded to bf16 first and
+    ap returned in bf16 (pap from the fp32 ap), pap summed in fp64 and
+    rounded once when compensated."""
     if batched:
-        outs = [wilson_normal_plain(pb, u, kappa, lattice, layouts) for pb in p]
+        outs = [wilson_normal_plain(pb, u, kappa, lattice, layouts, policy=policy) for pb in p]
         return torch.stack([a for a, _ in outs]), torch.stack([s for _, s in outs])
+    bf16, comp = policy or (False, False)
     lat = _check_4d(lattice)
     lay = resolve_layouts(layouts, _NORMAL_IN, _NORMAL_OUT)
     p, u = lay["p"].unpack(p), lay["u"].unpack(u)
+    if bf16:
+        p, u = bf16_round(p), bf16_round(u)
     t = _m_g5(p, _dslash_canonical(p, u, lat), kappa)
     ap = _m_g5(t, _dslash_canonical(t, u, lat), kappa)
-    return lay["ap"].pack(ap), (p * ap).sum(dim=1)
+    pap = compensated_plain(p * ap) if comp else (p * ap).sum(dim=1)
+    return lay["ap"].pack(ap.to(torch.bfloat16) if bf16 else ap), pap
 
 
 def wilson_normal_cuda(p: torch.Tensor, u: torch.Tensor, kappa: float, lattice,
-                       vvl: int = 128, *, layouts=None,
-                       batched: bool = False) -> Tuple[torch.Tensor, torch.Tensor]:
+                       vvl: int = 128, *, layouts=None, batched: bool = False,
+                       policy: Optional[CudaPolicy] = None) -> Tuple[torch.Tensor, torch.Tensor]:
     """K5: (ap, pap (24,)) = (M^dag M p, per-component p . ap), in two
     launches and the fold of the pap partials; ``layouts`` names "p", "u",
     "ap" (the intermediate t is SoA).  ``batched`` (K5B): p is ``batch``
-    stacked spinors and u shared -> (ap stacked, pap (batch, 24))."""
+    stacked spinors and u shared -> (ap stacked, pap (batch, 24)).
+    ``policy``: the policy instance (see the module docstring)."""
     if p.device.type == "cpu":
-        return wilson_normal_plain(p, u, kappa, lattice, layouts, batched=batched)
+        return wilson_normal_plain(p, u, kappa, lattice, layouts, batched=batched,
+                                   policy=policy)
+    if policy is not None and any(policy):
+        return _wilson_normal_mixed(p, u, kappa, lattice, vvl, layouts, batched, policy)
     if batched:
         return _wilson_normal_batched(p, u, kappa, lattice, vvl, layouts)
     lat = _check_4d(lattice)
@@ -150,3 +193,39 @@ def _wilson_normal_batched(p, u, kappa, lattice, vvl, layouts):
                               partials.data_ptr(), float(kappa), *lat, batch, lp, lu,
                               lay["ap"].descriptor(), vvl)
     return ap, fold_partials_batched(partials, "sum")
+
+
+def _wilson_normal_mixed(p, u, kappa, lattice, vvl, layouts, batched, policy):
+    """K5's policy instance over one spinor p or ``p.shape[0]`` stacked ones
+    (``batched``) against one shared u."""
+    lat = _check_4d(lattice)
+    V = math.prod(lat)
+    lay = resolve_layouts(layouts, _NORMAL_IN, _NORMAL_OUT)
+    bf16, comp = policy
+    if batched:
+        batch = p.shape[0]
+        lp = check_batched_field("p", p, lay["p"], 24, V, batch, p.device)
+    else:
+        batch = 1
+        lp = check_field("p", p, lay["p"], 24, V, p.device)
+    lu = check_field("u", u, lay["u"], 72, V, p.device)
+    lead = (batch,) if batched else ()
+    t = torch.empty((batch, 24, V), dtype=torch.float32, device=p.device)
+    ap = torch.empty(lead + lay["ap"].physical_shape(24, V),
+                     dtype=torch.bfloat16 if bf16 else torch.float32, device=p.device)
+    partials = torch.empty((batch, -(-V // vvl), 24) + ((2,) if comp else ()),
+                           dtype=torch.float32, device=p.device)
+    if bf16:
+        WILSON_NORMAL_T_MIXED.launch(p.device, p.data_ptr(), u.data_ptr(), t.data_ptr(),
+                                     float(kappa), *lat, batch, lp, lu, vvl)
+    elif batched:
+        WILSON_NORMAL_T_B.launch(p.device, p.data_ptr(), u.data_ptr(), t.data_ptr(),
+                                 float(kappa), *lat, batch, lp, lu, vvl)
+    else:
+        WILSON_NORMAL_T.launch(p.device, p.data_ptr(), u.data_ptr(), t.data_ptr(),
+                               float(kappa), *lat, lp, lu, vvl)
+    WILSON_NORMAL_AP_MIXED.launch(p.device, p.data_ptr(), t.data_ptr(), u.data_ptr(),
+                                  ap.data_ptr(), partials.data_ptr(), float(kappa), *lat, batch,
+                                  int(bf16), int(comp), lp, lu, lay["ap"].descriptor(), vvl)
+    pap = fold_partials_batched(partials, "sum", compensated=comp)
+    return ap, (pap if batched else pap[0])

@@ -14,11 +14,19 @@ is a dedicated ``apps.milc.driver.solve``'s, bit for bit.
 LM path (``--arch``): greedy decode of a batch of random prompts through
 ``train.serve_step.generate``, for the families the port has.
 
+Mixed-precision serving: a dtype policy on the server's config applies to
+the operator launch (as ``driver.solve_batched`` applies
+``MilcConfig.storage``), and ``refine_every > 0`` (``--refine-every``)
+restarts a slot from its true residual every that many active iterations,
+through the policy-free operator; the bucket keeps each slot's rhs for
+that.  Admission and the update chain run without the policy, so every
+outcome is bitwise ``solve_batched``'s one-slot run of its source.
+
 The JAX package's serve telemetry (``telemetry.inc/sample/span`` around
 admission, ticks and drains, and the ``--trace`` option) is left out: the
 port has no ``core/telemetry.py`` yet (ROADMAP item 20), which adds it here
-when it lands.  ``--plan-policy tuned`` (the plan autotuner, item 19) and
-``--refine-every > 0`` (mixed-precision serving, item 18) raise.
+when it lands.  ``--plan-policy tuned`` (the plan autotuner, item 19)
+raises.
 
   PYTHONPATH=src python -m repro_torch.launch.serve --solve --requests 6 --slots 2
   PYTHONPATH=src python -m repro_torch.launch.serve --solve --engine torch --device cpu
@@ -60,17 +68,23 @@ class _Bucket:
     queue, ``slots`` batch slots and the masked-iteration step."""
 
     def __init__(self, u: Field, kappa: float, config: TargetConfig, slots: int,
-                 tol: float, max_iter: int):
+                 tol: float, max_iter: int, refine_every: int = 0):
         from repro_torch.apps.milc.cg import make_wilson_op
         from repro_torch.train.serve_step import build_cg_serve_step
 
-        self.u, self.kappa, self.config = u, float(kappa), config
+        # a dtype policy applies to the step's operator alone: admission
+        # runs the policy-free config, as solve_batched does
+        self.u, self.kappa = u, float(kappa)
+        self.config = dataclasses.replace(config, dtypes=None) if config.dtypes else config
         self.tol, self.max_iter, self.slots = tol, max_iter, slots
-        _, self.apply_mdag, _ = make_wilson_op(u, self.kappa, config)
-        self.step = build_cg_serve_step(u, self.kappa, config, tol=tol, max_iter=max_iter)
+        self.refine_every = int(refine_every)
+        _, self.apply_mdag, _ = make_wilson_op(u, self.kappa, self.config)
+        self.step = build_cg_serve_step(u, self.kappa, config, tol=tol, max_iter=max_iter,
+                                        refine_every=self.refine_every)
         self.queue: deque = deque()
         self.slot_rid: list = [None] * slots
         self.state = None  # shaped from the first admitted source
+        self.rhs = None    # each slot's rhs, kept for the refinement restarts
         self.iterations_run = 0
 
     # -- slot state ------------------------------------------------------
@@ -84,6 +98,7 @@ class _Bucket:
         self.state = BatchedCGState(
             x=z, r=z, p=z, rr=v, b2=v,
             it=torch.zeros((self.slots,), dtype=torch.int32, device=proto.device))
+        self.rhs = z
 
     def _admit(self, slot: int, req: SolveRequest):
         """Pack a request into a free slot: rhs and |rhs|^2 come through the
@@ -108,6 +123,7 @@ class _Bucket:
             r=st.r.with_element(slot, rhs),
             p=st.p.with_element(slot, rhs),
             rr=put(st.rr, b2), b2=put(st.b2, b2), it=put(st.it, 0))
+        self.rhs = self.rhs.with_element(slot, rhs)
         self.slot_rid[slot] = req.rid
 
     def _harvest(self, slot: int) -> SolveOutcome:
@@ -141,7 +157,10 @@ class _Bucket:
                 self._admit(slot, self.queue.popleft())
         if not self.occupied:
             return {}
-        self.state = self.step(self.state)
+        if self.refine_every > 0:
+            self.state = self.step(self.state, self.rhs)
+        else:
+            self.state = self.step(self.state)
         self.iterations_run += 1
         # the liveness read is the tick's one host synchronisation
         act = batched_cg_active(self.state, tol=self.tol, max_iter=self.max_iter).tolist()
@@ -163,16 +182,17 @@ class SolveServer:
     requests into one batched launch chain."""
 
     def __init__(self, config: TargetConfig, *, slots: int = 4, tol: float = 1e-8,
-                 max_iter: int = 500):
+                 max_iter: int = 500, refine_every: int = 0):
         self.config = config
         self.slots, self.tol, self.max_iter = slots, tol, max_iter
+        self.refine_every = int(refine_every)
         self.buckets: Dict[Tuple[int, ...], _Bucket] = {}
 
     def register(self, u: Field, kappa: float, slots: Optional[int] = None) -> None:
         """Declare the gauge field and kappa serving ``u.lattice``-shaped
         requests (one operator per shape bucket)."""
         self.buckets[u.lattice] = _Bucket(u, kappa, self.config, slots or self.slots,
-                                          self.tol, self.max_iter)
+                                          self.tol, self.max_iter, self.refine_every)
 
     def submit(self, req: SolveRequest) -> None:
         if req.b.lattice not in self.buckets:
@@ -213,14 +233,12 @@ def _main_decode(args):
 def _main_solve(args):
     from repro_torch.apps.milc import driver, fields
 
-    if args.refine_every > 0:
-        raise SystemExit("--refine-every > 0 selects mixed-precision serving, which is not "
-                         "yet ported (ROADMAP item 18)")
     cfg = driver.MilcConfig(
         lattice=(4, 4, 4, 8), kappa=0.10, tol=1e-8, max_iter=args.steps,
         target=TargetConfig(args.engine, device=args.device, vvl=128,
                             plan_policy=args.plan_policy))
-    server = SolveServer(cfg.target, slots=args.slots, tol=cfg.tol, max_iter=cfg.max_iter)
+    server = SolveServer(cfg.target, slots=args.slots, tol=cfg.tol, max_iter=cfg.max_iter,
+                         refine_every=args.refine_every)
     shapes = [(4, 4, 4, 8), (4, 4, 8, 8)]
     for i, lat in enumerate(shapes):
         u = Field.from_numpy("u", fields.random_su3_gauge(lat, seed=i, hot=cfg.hot), lat,
@@ -256,8 +274,9 @@ def main(argv=None):
     ap.add_argument("--engine", default="cuda", choices=["cuda", "torch"])
     ap.add_argument("--device", default="cuda", help="where the Fields and parameters live")
     ap.add_argument("--refine-every", type=int, default=0,
-                    help="reliable-update period of mixed-precision serving (not yet "
-                         "ported: only 0 runs)")
+                    help="reliable-update period of mixed-precision serving: every N "
+                         "active iterations a slot's residual is recomputed exactly "
+                         "(b - A x) and its search direction restarted; 0 disables")
     ap.add_argument("--plan-policy", default="default", choices=["default", "tuned"],
                     help="lowering-plan policy of the serving launches ('tuned', the "
                          "autotuner, is not yet ported and raises)")

@@ -12,6 +12,8 @@ and drain, one convergence-masked batched CG iteration over a fixed
 
 from __future__ import annotations
 
+import dataclasses
+
 import torch
 
 from repro_torch.configs.base import ArchConfig
@@ -42,26 +44,45 @@ def build_prefill(cfg: ArchConfig, *, wkv_engine: str = "auto", attn_engine: str
 
 
 def build_cg_serve_step(u, kappa: float, config, *, tol: float, max_iter: int,
-                        refine_every: int = 0):
+                        refine_every: int = 0, config_hi=None):
     """The masked-iteration step of batched CG serving: BatchedCGState ->
     BatchedCGState, one fused operator launch and one fused masked-update
     launch for the whole slot batch.  Converged and empty slots ride along
     bitwise frozen, so the scheduler can drain and refill them between calls
     without perturbing in-flight solves.  A plain function: PyTorch runs
-    eagerly, so there is nothing to compile.  Only ``refine_every=0`` is
-    ported (mixed-precision serving, ROADMAP item 18, raises)."""
-    from repro_torch.apps.milc.cg import batched_cg_iteration, make_fused_normal
+    eagerly, so there is nothing to compile.
 
-    if refine_every > 0:
-        raise ValueError("build_cg_serve_step(refine_every > 0) selects mixed-precision "
-                         "serving (batched_cg_refresh), which is not yet ported")
+    A dtype policy on ``config`` applies to the operator launch; the update
+    chain runs without it, as in ``driver.solve_batched`` (the JAX package's
+    step runs every launch under the config's policy).  ``refine_every >
+    0`` returns the reliable-update step ``step(state, rhs)``: every that
+    many active iterations a slot's residual is recomputed as ``rhs - A x``
+    through the ``config_hi`` operator (default: ``config`` without its
+    policy) and its search direction restarted (``cg.batched_cg_refresh``).
+    The test for a due restart is one more host synchronisation a call."""
+    from repro_torch.apps.milc.cg import (batched_cg_iteration, batched_cg_refresh,
+                                          make_fused_normal, refresh_due)
+
+    plain = dataclasses.replace(config, dtypes=None) if config.dtypes else config
     apply_a_dot = make_fused_normal(u, float(kappa), config)
+    kw = dict(tol=tol, max_iter=max_iter)
 
-    def step(state):
-        return batched_cg_iteration(state, apply_a_dot, config=config, tol=tol,
-                                    max_iter=max_iter)
+    if refine_every <= 0:
+        def step(state):
+            return batched_cg_iteration(state, apply_a_dot, config=plain, **kw)
 
-    return step
+        return step
+
+    apply_a_dot_hi = make_fused_normal(u, float(kappa), config_hi or plain)
+
+    def step_refined(state, rhs):
+        state = batched_cg_iteration(state, apply_a_dot, config=plain, **kw)
+        if refresh_due(state, refine_every=refine_every, **kw):
+            state = batched_cg_refresh(state, rhs, apply_a_dot_hi, refine_every=refine_every,
+                                       **kw)
+        return state
+
+    return step_refined
 
 
 def generate(params, cfg: ArchConfig, prompt_tokens, *, steps: int, s_max: int,

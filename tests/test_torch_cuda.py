@@ -7,6 +7,8 @@ The file imports no JAX, so it runs where only PyTorch is installed::
     PYTHONPATH=src python -m pytest -q -m cuda tests/test_torch_cuda.py
 """
 
+import dataclasses
+
 import pytest
 
 torch = pytest.importorskip("torch")
@@ -18,7 +20,8 @@ from repro_torch.apps.ludwig import driver as LD  # noqa: E402
 from repro_torch.apps.ludwig import kernel as LK  # noqa: E402
 from repro_torch.apps.milc import MilcConfig, fields, init_problem, residual_check, solve  # noqa: E402
 from repro_torch.apps.milc import cg as CG  # noqa: E402
-from repro_torch.core import SOA, Field, TargetConfig, fuse, parse_layout, reduce, target  # noqa: E402
+from repro_torch.core import (SOA, DtypePolicy, Field, TargetConfig, fuse, parse_layout,  # noqa: E402
+                              reduce, target)
 from repro_torch.kernels.flash_attention import flash_attention  # noqa: E402
 from repro_torch.kernels.flash_attention import kernel as KF  # noqa: E402
 from repro_torch.kernels.lb_collision import kernel as K7  # noqa: E402
@@ -836,3 +839,224 @@ def test_batched_iteration_runs_only_the_hand_kernels(card):
     big = [(e.key, e.input_shapes) for e in events if e.key in arith
            and any(int(np.prod(s)) > 4 * 24 for s in e.input_shapes if s)]
     assert not big, big
+
+
+# -- mixed precision: the policy instances (A: K5/K5B, B: K5L, C: K3/K3B fed a
+# bf16 ap, D: K2's compensated sum) -------------------------------------------
+
+POLICY_LAYOUTS = ["soa", "aos", "aosoa16"]
+ORACLE_RTOL = 2.5e-7   # |sum - fp64 sum| <= ORACLE_RTOL * sum|terms| + 1e-6 (tests/test_dtype.py)
+
+
+def _oracle_sum(got, terms):
+    """got (..., ncomp) within the oracle bound of the fp64 sum of terms
+    (..., ncomp, sites)."""
+    t = terms.double()
+    err = (got.double() - t.sum(dim=-1)).abs()
+    assert bool((err <= ORACLE_RTOL * t.abs().sum(dim=-1) + 1e-6).all()), err.max()
+
+
+def _within_bf16_ulp(got, want):
+    """got and want (bf16 or fp32) at most one bf16 ulp apart everywhere,
+    plus the fp32 field tolerance FIELD_RTOL x max|want|: fp32 results that
+    differ in their last bits round to neighbouring bf16 values, and where a
+    value cancels far below its terms the fp32 difference is the larger."""
+    g, w = got.double(), want.double()
+    mag = torch.maximum(g.abs(), w.abs()).clamp_min(torch.finfo(torch.float32).tiny)
+    lim = torch.exp2(torch.floor(torch.log2(mag)) - 7) + FIELD_RTOL * w.abs().max()
+    assert bool(((g - w).abs() <= lim).all()), ((g - w).abs() / lim).max()
+
+
+@pytest.mark.cuda
+def test_bf16_rounding_bitwise_torch(card, rng):
+    """The policy instances' stage-in rounding is torch's .to(bfloat16) on
+    the card, bit for bit: exact ties either way, -0.0, infinities, NaN,
+    subnormals and values that round up to infinity."""
+    special = torch.tensor([1 + 2 ** -8, 1 + 3 * 2 ** -8, -(1 + 2 ** -8), -0.0, 0.0,
+                            float("inf"), -float("inf"), float("nan"), 1e-40, -1e-39,
+                            3.3961e38, 3.4e38, 2 ** -126, 1.5 * 2 ** -133],
+                           dtype=torch.float32)
+    x = torch.cat([special, torch.from_numpy(rng.normal(size=4096).astype(np.float32) * 100)])
+    x = x.to(card)
+    assert _bits(K.bf16_round_cuda(x), x.to(torch.bfloat16).to(torch.float32))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("spec", POLICY_LAYOUTS)
+def test_wilson_normal_policy_instance(card, spec, rng):
+    """A: K5's policy instance in each layout.  The empty policy and an fp32
+    storage run the policy-free fields bitwise; bf16 storage gives ap in
+    bf16 within one bf16 ulp of the plain version, pap within the oracle
+    bound, the same bits on a second run; K5B's slots bitwise K5's; the
+    compensated pap beats nothing it need not (within the bound of the fp64
+    sum of the kernel's own terms)."""
+    from repro_torch.core.plan import CudaPolicy
+
+    lay = parse_layout(spec)
+    V, _, _, p, _, u = _milc_inputs(rng, card)
+    pp, up = lay.pack(p), lay.pack(u)
+    lays = {"p": lay, "u": lay, "ap": lay}
+    ap0, pap0 = K.wilson_normal_cuda(pp, up, 0.12, MILC_LAT, 128, layouts=lays)
+    a, s = K.wilson_normal_cuda(pp, up, 0.12, MILC_LAT, 128, layouts=lays,
+                                policy=CudaPolicy(False, False))
+    assert _bits(a, ap0) and _bits(s, pap0)
+    a32, s32 = K.wilson_normal_cuda(pp, up, 0.12, MILC_LAT, 128, layouts=lays,
+                                    policy=CudaPolicy(False, True))
+    assert _bits(a32, ap0)
+    _oracle_sum(s32, p * lay.unpack(ap0))
+    pol = CudaPolicy(True, True)
+    ap, pap = K.wilson_normal_cuda(pp, up, 0.12, MILC_LAT, 128, layouts=lays, policy=pol)
+    assert ap.dtype == torch.bfloat16 and pap.dtype == torch.float32
+    wap, wpap = K.wilson_normal_plain(pp, up, 0.12, MILC_LAT, lays, policy=pol)
+    _within_bf16_ulp(lay.unpack(ap), lay.unpack(wap))
+    # pap's terms: the rounded p times the fp32 ap (the plain version's)
+    ap32, _ = K.wilson_normal_plain(K.bf16_round(pp), K.bf16_round(up), 0.12, MILC_LAT, lays)
+    _oracle_sum(pap, K.bf16_round(p) * lay.unpack(ap32))
+    _oracle_sum(wpap, K.bf16_round(p) * lay.unpack(ap32))
+    ap2, pap2 = K.wilson_normal_cuda(pp, up, 0.12, MILC_LAT, 128, layouts=lays, policy=pol)
+    assert _bits(ap2, ap) and _bits(pap2, pap)
+    pb = torch.stack([pp, lay.pack(p.flip(0)), pp])
+    apb, papb = K.wilson_normal_cuda(pb, up, 0.12, MILC_LAT, 128, layouts=lays, batched=True,
+                                     policy=pol)
+    for b in range(3):
+        one = K.wilson_normal_cuda(pb[b], up, 0.12, MILC_LAT, 128, layouts=lays, policy=pol)
+        assert _bits(apb[b], one[0]) and _bits(papb[b], one[1])
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("spec", POLICY_LAYOUTS)
+def test_lb_step_policy_instance(card, spec, rng):
+    """B: K5L's policy instance: dist2 and u in bf16 within one bf16 ulp of
+    the plain version; the same bits on a second run."""
+    lay = parse_layout(spec)
+    V = int(np.prod(LB_LAT))
+    w = torch.tensor([1 / 3] + [1 / 18] * 6 + [1 / 36] * 12)[:, None]
+    dist = (w * (1 + 0.1 * torch.from_numpy(rng.normal(size=(19, V)).astype(np.float32)))).to(card)
+    force = _dev(rng, (3, V), card, scale=1e-3)
+    lays = {"dist": lay, "force": lay, "dist2": lay, "u": lay}
+    d, f = lay.pack(dist), lay.pack(force)
+    d2, u = K8.lb_step_cuda(d, f, 0.8, LB_LAT, 128, layouts=lays, bf16=True)
+    assert d2.dtype == torch.bfloat16 and u.dtype == torch.bfloat16
+    wd2, wu = K8.lb_step_plain(d, f, 0.8, LB_LAT, layouts=lays, bf16=True)
+    _within_bf16_ulp(lay.unpack(d2), lay.unpack(wd2))
+    _within_bf16_ulp(lay.unpack(u), lay.unpack(wu))
+    again = K8.lb_step_cuda(d, f, 0.8, LB_LAT, 128, layouts=lays, bf16=True)
+    assert _bits(again[0].float(), d2.float()) and _bits(again[1].float(), u.float())
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("spec", POLICY_LAYOUTS)
+def test_cg_update_bf16_ap_instances(card, spec, rng):
+    """C: K3 and K3B fed a bf16 ap: x_new and r_new fp32 within FIELD_RTOL
+    of the plain version and bitwise K3 on the widened ap; K3B's live slots
+    bitwise K3's, frozen slots bitwise their inputs; an fp16 ap raises."""
+    lay = parse_layout(spec)
+    V, x, y, p, ap, _ = _milc_inputs(rng, card)
+    lays = {n: lay for n in ("x", "r", "p", "ap")}
+    xs, ys, ps = (lay.pack(t) for t in (x, y, p))
+    ap16 = lay.pack(ap).to(torch.bfloat16)
+    a = torch.tensor(0.37, device=card)
+    got = fuse.cg_update(xs, ys, ps, ap16, a, -a, 128, layouts=lays)
+    want = fuse.cg_update_plain(xs, ys, ps, ap16, a, -a, lays)
+    wide = fuse.cg_update(xs, ys, ps, ap16.float(), a, -a, 128, layouts=lays)
+    for k in range(3):
+        assert _bits(got[k], wide[k])
+    _close_field(lay.unpack(got[1]), lay.unpack(want[1]))
+    _close_sum(got[2], want[2], lay.unpack(want[1]) ** 2)
+    st = [torch.stack([t, t.flip(0)]) for t in (xs, ys, ps)]
+    apb = torch.stack([ap16, ap16])
+    m = torch.tensor([1.0, 0.0], device=card)
+    bx, br, brr = fuse.cg_update_masked(*st, apb, a.repeat(2), -a.repeat(2), m, 128,
+                                        layouts=lays)
+    assert _bits(bx[0], got[0]) and _bits(br[0], got[1]) and _bits(brr[0], got[2])
+    assert _bits(bx[1], st[0][1]) and _bits(br[1], st[1][1])
+    with pytest.raises(ValueError, match="bfloat16|float32"):
+        fuse.cg_update(xs, ys, ps, ap16.half(), a, -a, 128, layouts=lays)
+    with pytest.raises(ValueError, match="float32"):
+        fuse.cg_update(xs, ys, ps.to(torch.bfloat16), ap16, a, -a, 128, layouts=lays)
+
+
+@pytest.mark.cuda
+def test_compensated_sum_instance(card, rng):
+    """D: K2's compensated instance within the oracle bound on the
+    cancellation fixture (where the plain K2 is not), the adversarial
+    fixtures and random fields; single, batched (rows bitwise the single
+    launch) and run to run the same bits; max stays exact."""
+    x = np.full((3, 128), 0.1875, np.float32)
+    x[:, 0:16] = x[:, 64:80] = 0.0
+    x[:, 0], x[:, 64] = 1.0e8, -1.0e8
+    adv = [np.resize(np.array([1.0, 1e8, 1.0, -1e8], np.float32), 4096),
+           np.resize(np.array([1e7, 0.125, -1e7, 0.125], np.float32), 4096),
+           (rng.normal(size=4096) * 1e4).astype(np.float32)]
+    for arr, vvl in ((x, 32), (np.stack(adv), 128), (np.stack(adv), 32)):
+        t = torch.from_numpy(arr).to(card)
+        got = reduce.reduce_sites(t, "sum", vvl, compensated=True)
+        _oracle_sum(got, t)
+        assert _bits(got, reduce.reduce_sites(t, "sum", vvl, compensated=True))
+        rows = reduce.reduce_sites_batched(torch.stack([t, t * 0.5]), "sum", vvl,
+                                           compensated=True)
+        assert _bits(rows[0], got)
+    plain = reduce.reduce_sites(torch.from_numpy(x).to(card), "sum", 32)
+    assert float((plain.double() - 18.0).abs().max()) > 0.1   # the plain fold loses the filler
+    # block-aligned for vvl 128: +-(2^26 + 8) alternating over the blocks, and
+    # 3.9375 (under half its ulp) at the 8 sites the plain fold adds to it one
+    # at a time: the plain K2 loses every filler, 1.88 x the oracle bound
+    blk = np.zeros((2, 64, 4, 32), np.float32)
+    blk[:, :, 0, 0] = (2.0 ** 26 + 8) * (1 - 2 * (np.arange(64) % 2))
+    blk[:, :, 0, [1, 2, 4, 8, 16]] = 3.9375
+    blk[:, :, 1:, 0] = 3.9375
+    tb = torch.from_numpy(blk.reshape(2, -1)).to(card)
+    _oracle_sum(reduce.reduce_sites(tb, "sum", 128, compensated=True), tb)
+    with pytest.raises(AssertionError):
+        _oracle_sum(reduce.reduce_sites(tb, "sum", 128), tb)
+    f = Field.from_numpy("x", x, (4, 4, 8), device="cuda")
+    acc = TargetConfig("cuda", device="cuda", vvl=32, dtypes=DtypePolicy(accumulate="float64"))
+    _oracle_sum(reduce.target_sum(f, acc), f.canonical())
+    assert torch.equal(reduce.target_max(f, acc), f.canonical().amax(dim=1))
+
+
+@pytest.mark.cuda
+def test_refined_drivers_on_card(card):
+    """The refined solve, refined serving and the bf16 LB storage on the
+    card: the refined solve within +-2 iterations and rel-L2 1e-4 of the
+    torch engine's on the card and |Mx-b|/|b| < 1e-3, the policy kernels
+    launched; solve_batched's slots bitwise their one-slot runs; Ludwig's
+    float32 storage bitwise the policy-free step and bf16 within 1e-2 of
+    it and within 1e-4 of the torch engine's bf16 steps."""
+    from repro_torch.apps.milc import driver
+
+    cfg = MilcConfig(lattice=(8, 8, 8, 8), kappa=0.12, tol=1e-10, max_iter=2000,
+                     storage="bfloat16", target=TargetConfig("cuda", device="cuda"))
+    u, b = init_problem(cfg, seed=0)
+    for k in (K.WILSON_NORMAL_AP_MIXED, fuse.CG_UPDATE_AP16, reduce.REDUCE_FOLD_C):
+        k.launches = 0
+    res = solve(cfg, u, b)
+    assert K.WILSON_NORMAL_AP_MIXED.launches and fuse.CG_UPDATE_AP16.launches
+    assert reduce.REDUCE_FOLD_C.launches
+    tres = solve(dataclasses.replace(cfg, target=TargetConfig("torch", device="cuda")), u, b)
+    assert abs(res.iterations - tres.iterations) <= 2
+    rel = torch.linalg.norm(res.x.data - tres.x.data) / torch.linalg.norm(tres.x.data)
+    assert float(rel) < 1e-4 and residual_check(cfg, u, b, res.x) < 1e-3
+    bs = _serve_sources(cfg, u, 3)
+    bres = driver.solve_batched(cfg, u, bs)
+    for i in range(2):
+        one = driver.solve_batched(cfg, u, [bs[i]])
+        assert torch.equal(bres.x.element(i).data, one.x.element(0).data)
+        assert int(bres.iterations[i]) == int(one.iterations[0])
+    lcfg = LudwigConfig(lattice=(16, 16, 16), target=TargetConfig("cuda", device="cuda"))
+    states = {}
+    for storage, tgt in (("", "cuda"), ("float32", "cuda"), ("bfloat16", "cuda"),
+                         ("bfloat16", "torch")):
+        c = LudwigConfig(lattice=lcfg.lattice, storage=storage,
+                         target=TargetConfig(tgt, device="cuda"))
+        s = init_state(c, seed=0)
+        for _ in range(3):
+            s = step(s, c)
+        states[storage, tgt] = s
+    ref = states["", "cuda"]
+    for f in ("dist", "q"):
+        assert torch.equal(getattr(states["float32", "cuda"], f).data, getattr(ref, f).data)
+        got, r = getattr(states["bfloat16", "cuda"], f).data, getattr(ref, f).data
+        assert float(torch.linalg.norm(got - r) / torch.linalg.norm(r)) < 1e-2
+        t = getattr(states["bfloat16", "torch"], f).data
+        assert float(torch.linalg.norm(got - t) / torch.linalg.norm(t)) < 1e-4

@@ -278,8 +278,15 @@ def test_cuda_engine_and_storage_refused():
                 "w", torch.zeros((9, s.q.nsites)), s.q.lattice), "adv": s.q},
             config=cuda.target, outputs=("q_new",))
     for fn in (step, PD.step_timed):
-        with pytest.raises(ValueError, match="not yet ported"):
-            fn(s, dataclasses.replace(cfg, storage="bfloat16"))
+        # the bf16 LB storage runs on the card alone under the cuda engine
+        with pytest.raises(ValueError, match="CUDA device"):
+            fn(s, dataclasses.replace(cuda, storage="bfloat16"))
+    # a storage the LB kernel has no instance for raises before any device check
+    f16 = dataclasses.replace(cuda, storage="float16")
+    force = PField.from_canonical("force", torch.zeros((3, s.q.nsites)), s.q.lattice)
+    with pytest.raises(ValueError, match="not yet ported"):
+        PD.lb_step_graph(f16).launch({"dist": s.dist, "force": force},
+                                     config=PD._lb_target(f16), outputs=("dist2", "u"))
 
 
 def test_default_config_runs_on_the_card_or_raises(monkeypatch):

@@ -20,8 +20,8 @@ from repro.core import parse_layout as j_parse_layout  # noqa: E402
 from repro_torch import convert  # noqa: E402
 from repro_torch.apps.milc import MilcConfig, init_problem, residual_check, solve  # noqa: E402
 from repro_torch.apps.milc import fields as PF  # noqa: E402
-from repro_torch.apps.milc.cg import cg, dot, g5, make_wilson_op  # noqa: E402
-from repro_torch.core import TargetConfig  # noqa: E402
+from repro_torch.apps.milc.cg import cg, dot, g5, make_fused_normal, make_wilson_op  # noqa: E402
+from repro_torch.core import DtypePolicy, TargetConfig  # noqa: E402
 
 TORCH = TargetConfig("torch", device="cpu")
 SRC = Path(__file__).resolve().parents[1] / "src"
@@ -103,12 +103,22 @@ def test_default_config_raises_without_a_card(monkeypatch):
 
 
 def test_cuda_solve_refuses_cpu_fields_and_unported_options():
+    """The cuda solve refuses CPU fields, mixed precision included; the
+    refined options run on the torch engine (held to the JAX package in
+    test_torch_dtype.py); a policy the cuda kernels have no instance for
+    raises before any device check."""
     u, b = init_problem(MilcConfig(lattice=(2, 2, 2, 4), target=TORCH))
-    with pytest.raises(ValueError, match="CUDA device"):
-        solve(MilcConfig(lattice=(2, 2, 2, 4)), u, b)
+    for opt in ({}, dict(storage="bfloat16"), dict(refine_k=10)):
+        with pytest.raises(ValueError, match="CUDA device"):
+            solve(MilcConfig(lattice=(2, 2, 2, 4), **opt), u, b)
     for opt in (dict(storage="bfloat16"), dict(refine_k=10)):
-        with pytest.raises(ValueError, match="not yet ported"):
-            solve(MilcConfig(lattice=(2, 2, 2, 4), target=TORCH, **opt), u, b)
+        cfg = MilcConfig(lattice=(2, 2, 2, 4), kappa=0.1, tol=1e-10, target=TORCH, **opt)
+        res = solve(cfg, u, b)
+        assert residual_check(cfg, u, b, res.x) < 5e-6 and res.iterations > 0
+    f16 = TargetConfig("cuda", device="cpu",
+                       dtypes=DtypePolicy(storage="float16", compute="float32"))
+    with pytest.raises(ValueError, match="not yet ported"):
+        make_fused_normal(u, 0.1, f16)(b)
 
 
 def test_port_imports_neither_jax_nor_the_reference():

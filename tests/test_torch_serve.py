@@ -188,22 +188,29 @@ def test_scheduler_rejects_unregistered_shape():
 
 
 def test_what_is_not_yet_ported_raises():
+    """Mixed-precision serving runs (test_torch_dtype.py holds it to the JAX
+    package); what stays unported raises: a policy on the masked update
+    chain or a tiled plan on the cuda engine (before any device check), and
+    the tuned plan policy."""
+    from repro_torch.core import DtypePolicy, LoweringPlan
+
     cfg = _cfg(lattice=(2, 2, 2, 4))
     u, b = driver.init_problem(cfg, seed=0)
     rhs = BatchedField.stack([b, b])
     normal = CG.make_fused_normal(u, cfg.kappa, cfg.target)
-    with pytest.raises(ValueError, match="not yet ported"):
-        CG.cg_batched(normal, rhs, config=cfg.target, refine_every=5)
-    with pytest.raises(ValueError, match="not yet ported"):
-        CG.batched_cg_refresh()
-    with pytest.raises(ValueError, match="not yet ported"):
-        build_cg_serve_step(u, cfg.kappa, cfg.target, tol=1e-8, max_iter=10, refine_every=2)
-    for opt in (dict(storage="bfloat16"), dict(refine_k=10)):
-        with pytest.raises(ValueError, match="not yet ported"):
-            driver.solve_batched(driver.MilcConfig(lattice=(2, 2, 2, 4), target=TORCH, **opt),
-                                 u, [b])
-    with pytest.raises(SystemExit, match="not yet ported"):
-        serve.main(["--solve", "--engine", "torch", "--device", "cpu", "--refine-every", "2"])
+    res = CG.cg_batched(normal, rhs, config=cfg.target, refine_every=5)
+    assert torch.equal(res.x.element(0).data, res.x.element(1).data)
+    step = build_cg_serve_step(u, cfg.kappa, cfg.target, tol=1e-8, max_iter=10, refine_every=2)
+    state = step(CG.batched_cg_state(rhs, cfg.target), rhs)
+    assert torch.equal(state.it, torch.tensor([1, 1], dtype=torch.int32))
+    bf16 = DtypePolicy(storage="bfloat16", compute="float32", accumulate="float64")
+    cuda = TargetConfig("cuda", device="cpu", dtypes=bf16)
+    with pytest.raises(ValueError, match="no policy instance.*not yet ported"):
+        CG.fused_masked_cg_update(rhs, rhs, rhs, rhs, torch.ones(2), torch.ones(2), cuda)
+    tiled = TargetConfig("cuda", device="cpu",
+                         plan_policy=LoweringPlan("cuda", vvl=32, bx=1, by=1, dtypes=bf16))
+    with pytest.raises(ValueError, match="tile composition is not yet ported"):
+        CG.make_fused_normal(u, cfg.kappa, tiled)(b)
     with pytest.raises(ValueError, match="tuned"):
         serve.main(["--solve", "--engine", "torch", "--device", "cpu", "--plan-policy", "tuned"])
 

@@ -245,11 +245,14 @@ def test_to_plan_maps_and_refuses():
     assert convert.to_plan(JPlan("jnp").to_json()) == LoweringPlan("torch")
     assert convert.to_plan(JPlan("pallas", vvl=128, view="block").to_json()) == \
         LoweringPlan("cuda", 128)
+    # a dtype policy carries across (mixed precision is ported)
+    pol = jplan.DtypePolicy(storage="bfloat16", compute="float32", accumulate="float64")
+    got = convert.to_plan(JPlan("pallas", vvl=128, dtypes=pol).to_json())
+    assert got == LoweringPlan("cuda", 128, dtypes=pplan.DtypePolicy(*dataclasses.astuple(pol)))
+    assert got.describe() == "cuda/vvl=128/dt=bf16:f32:f64"
     for bad, what in ((JPlan("pallas", bx=2, rsplit=2), "rsplit"),
                       (JPlan("pallas", bx=2, view="block"), "view"),
-                      (JPlan("pallas", bx=2, halo="pre"), "halo"),
-                      (JPlan("pallas", vvl=128, dtypes=jplan.DtypePolicy(storage="bfloat16")),
-                       "dtypes")):
+                      (JPlan("pallas", bx=2, halo="pre"), "halo")):
         with pytest.raises(ValueError, match=what):
             convert.to_plan(bad.to_json())
 
