@@ -151,13 +151,20 @@ R2. rwkv6-7b at full width and depth (7,534,813,184 parameters, bf16, drawn
 R3. ``generate`` serves 4 requests: a prompt of 16 tokens fed token by
    token, then 16 greedy tokens; shape and vocab checked, ms a decode step
    beside the weight-read bound; one decode step traced as in R2;
-A1. K11 and K12 (GQA flash attention) against their plain versions
+A1. K11 and K12 (GQA flash attention): the ptxas report (registers,
+   spills) of their bf16 instances, compiled beside phase 2's build, and
+   the library's SASS, where each must hold bf16 HMMA and LDGSTS
+   (cp.async) instructions; then against their plain versions
    (``flash_plain``, ``flash_kvchunk_plain``) at starcoder2-7b's heads: K11
    at (BKV, rep, S, dh) = (16, 9, 2048, 128), K12 at (4, 9, 8192, 128),
    causal, in bf16 and fp32, and both at (2, 3, 100, 64) with a window of
    32: fp32 within rtol 1e-5, atol 2e-5 x max|plain|, bf16 within one bf16
    ulp of the output (plus that atol); timed beside the plain version and
-   ``scaled_dot_product_attention`` on the same bf16 tensors;
+   ``scaled_dot_product_attention`` on the same bf16 tensors, with the
+   TFLOP/s and share of the bound (QK^T once, p v as two bf16 passes, on
+   the tensor cores); where ``build/parent`` holds the parent's tree, its
+   flash.cu is built as a library of its own and its bf16 K11/K12 timed in
+   turns with this tree's (parent, this, this, parent);
 A2. starcoder2-7b at full width and depth (7,172,858,880 parameters, bf16,
    seed 0 on the card) prefills 4 x 2048 tokens (the dense branch) and 1 x
    8192 (the blockwise branch): with every count set to 0 before each, the
@@ -167,7 +174,9 @@ A2. starcoder2-7b at full width and depth (7,172,858,880 parameters, bf16,
    dense against the blockwise branch at 2048; kv_block 1024 against 512 at
    8192) of the plain-attention prefill, in bf16 and on an fp32 copy of the
    weights, where they must also lie within rel-L2 1e-3; both timed, the
-   4 x 2048 prefill traced as in R2;
+   4 x 2048 prefill traced as in R2, K11's group named by the bf16
+   kernel's symbol, and a group whose kernel launched in the trace must
+   read a non-zero time;
 A3. ``generate`` serves 4 requests, a 16-token prompt then 16 greedy tokens,
    with a 4096-token cache that every decode step reads whole: ms a step
    beside the bound of reading the weights and the cache once; one decode
@@ -182,6 +191,7 @@ from __future__ import annotations
 
 import argparse
 import concurrent.futures
+import ctypes
 import dataclasses
 import json
 import math
@@ -339,6 +349,10 @@ DENSE_PARAMS = 7_172_858_880      # starcoder2-7b, counted from the reference's 
 DENSE_PREFILLS = ((4, 2048), (1, 8192))   # the dense branch, the blockwise branch
 DENSE_S_MAX = 4096                # decode_32k's (128, 32768) cut to batch 4 x 4096
 FLASH_RTOL, FLASH_ATOL_REL = 1e-5, 2e-5   # fp32; bf16: one bf16 ulp + the atol
+FLASH_MMA = "rt_flash_mma_kernel"         # the bf16 instances' kernel (flash.cu)
+# A1 times the old design beside the new where a parent tree is unpacked
+# there (git archive <parent> | tar -x -C build/parent)
+PARENT_SRC = os.path.join(os.path.dirname(os.path.abspath(__file__)), "build", "parent", "src")
 DECODE_REL_L2_FP32 = 1e-3         # fp32 decode after the prompt vs the prefill
 
 # mixed precision (P1-P4): the policy instances on the refined solve's path
@@ -1459,19 +1473,103 @@ def flash_work(BKV, rep, S, dh, causal, window, itemsize):
     seen pair costs 2 dh for QK^T, once (K11's second sweep is its own
     choice), 2 dh for p v and one exp.  With bf16 inputs QK^T's products are
     exact in fp32, so its fp32-accumulated result is the tensor cores'; p v
-    takes fp32 p, so it stays on the CUDA cores."""
+    needs p to 16 bits to stay within one bf16 ulp of o (a bf16 p misses
+    that limit on ~10% of the elements; tests/test_torch_flash.py), so it
+    counts as two bf16 passes, p = hi + lo; the exps stay on the CUDA
+    cores.  fp32 inputs: everything on the CUDA cores."""
     nbytes = itemsize * S * dh * (2 * BKV * rep + 2 * BKV)
     pairs = BKV * rep * seen_pairs(S, causal, window)
     qk = 2 * dh * pairs
     if itemsize == 2:
-        return nbytes, pairs * (2 * dh + 1), qk
+        return nbytes, pairs, 3 * qk
     return nbytes, pairs * (2 * dh + 1) + qk, 0
 
 
-def check_flash_kernels():
-    """A1: K11 and K12 against their plain versions at starcoder2-7b's
-    heads and at a ragged windowed case; timed beside the plain version and
-    scaled_dot_product_attention."""
+def flash_toolchain():
+    """Run beside phase 2's build: csrc/flash.cu under ``-Xptxas -v`` (each
+    kernel's registers and spills), and the parent's flash.cu as a library
+    of its own where PARENT_SRC holds a tree.  Returns (ptxas lines of the
+    bf16 kernels, the parent library's path or None)."""
+    nvcc = _cuda._nvcc()
+    _cuda.BUILD_DIR.mkdir(parents=True, exist_ok=True)
+    cmds = [[nvcc, *_cuda.COMPILE_FLAGS, "-Xptxas", "-v", "-cubin", "-o",
+             str(_cuda.BUILD_DIR / "flash_ptxas.cubin"), str(_cuda.CSRC / "flash.cu")]]
+    parent = os.path.join(PARENT_SRC, "repro_torch", "csrc", "flash.cu")
+    parent_lib = _cuda.BUILD_DIR / "parent_flash.so"
+    if os.path.exists(parent):
+        cmds.append([nvcc, *_cuda.NVCC_FLAGS, "-o", str(parent_lib), parent])
+    procs = [subprocess.Popen(c, stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)
+             for c in cmds]
+    outs = [pr.communicate()[0] for pr in procs]
+    for c, pr, out in zip(cmds, procs, outs):
+        if pr.returncode:
+            raise RuntimeError(f"nvcc failed:\n{' '.join(c)}\n{out}")
+    lines, keep = [], False
+    for ln in outs[0].splitlines():
+        if "Compiling entry function" in ln:
+            keep = FLASH_MMA in ln
+        if keep and ("Compiling entry" in ln or "spill" in ln or "Used" in ln):
+            lines.append(ln.split("ptxas info    : ")[-1].strip())
+    return lines, (parent_lib if len(cmds) > 1 else None)
+
+
+def flash_sass(lib):
+    """HMMA (bf16 mma.sync) and LDGSTS (cp.async) counts in the SASS of
+    each bf16 flash kernel of the built library; raises unless every one
+    has both and no other flash kernel takes bf16 (the CUDA-core bf16
+    instance is gone)."""
+    cuobjdump = os.path.join(os.path.dirname(_cuda._nvcc()), "cuobjdump")
+    sass = subprocess.run([cuobjdump, "-sass", str(lib)], capture_output=True, text=True,
+                          check=True).stdout
+    counts, name = {}, None
+    for ln in sass.splitlines():
+        if "Function :" in ln:
+            name = ln.split("Function :")[1].strip()
+            if "rt_flash" in name and "nv_bfloat16" in name:
+                counts[name] = {"HMMA.16816.F32.BF16": 0, "LDGSTS": 0}
+            else:
+                name = None
+        elif name is not None:
+            for op in counts[name]:
+                counts[name][op] += op in ln
+    if not counts:
+        raise AssertionError("no bf16 flash kernel in the library's SASS")
+    for name, c in counts.items():
+        if FLASH_MMA not in name or not all(c.values()):
+            raise AssertionError(f"{name}: {c} (expected {FLASH_MMA} with HMMA bf16 and LDGSTS)")
+    return counts
+
+
+class ParentKernel:
+    """An entry point of the parent's flash.cu, built as a library of its
+    own, launched through this tree's wrapper (same C signature)."""
+
+    def __init__(self, lib, name, symbol):
+        self.name, self.symbol = name, symbol
+        self.fn = getattr(lib, symbol)
+        self.fn.argtypes = list(_cuda.SIGNATURES[symbol])
+        self.fn.restype = ctypes.c_int
+
+    def launch(self, device, *args):
+        rc = self.fn(*args, torch.cuda.current_stream(device).cuda_stream)
+        if rc:
+            raise RuntimeError(f"parent {self.symbol}: CUDA error {rc}")
+
+
+def check_flash_kernels(ptxas, parent_lib):
+    """A1: the bf16 kernels' ptxas report and SASS; K11 and K12 against
+    their plain versions at starcoder2-7b's heads and at a ragged windowed
+    case; timed beside the plain version, scaled_dot_product_attention and,
+    where parent_lib is built, the parent's kernels on the same tensors."""
+    log("A1: ptxas -v of the bf16 kernels (csrc/flash.cu):\n  " + "\n  ".join(ptxas))
+    for name, c in flash_sass(_cuda.build()).items():
+        log(f"A1: SASS of {name[:60]}: {c}")
+    parent = None
+    if parent_lib is not None:
+        plib = ctypes.CDLL(str(parent_lib))
+        parent = {"flash_attention": ParentKernel(plib, "flash_attention", "rt_flash"),
+                  "flash_attention_kvchunk": ParentKernel(plib, "flash_attention_kvchunk",
+                                                          "rt_flash_kvchunk")}
     gen = torch.Generator(device="cuda").manual_seed(8)
     rows = {}
     cases = (("flash_attention", kf.flash_cuda, kf.flash_plain, (16, 9, 2048, 128)),
@@ -1484,6 +1582,7 @@ def check_flash_kernels():
             o = kern(q, k, v, rep=rep)
             want = plain(q, k, v, rep=rep)
             err = flash_err(o, want, f"{name} at {(BKV, rep, S, dh)} {dtype}")
+            want_b = want if dtype == torch.bfloat16 else None
             del o, want
             ms = time_ms(lambda: kern(q, k, v, rep=rep))
             log(f"  {name} at (BKV, rep, S, dh) = {(BKV, rep, S, dh)}, causal, {dtype}: max abs "
@@ -1495,9 +1594,20 @@ def check_flash_kernels():
             q4, k4, v4 = (t.reshape(B, -1, S, dh) for t in (q, k, v))
             sdpa = torch.nn.functional.scaled_dot_product_attention
             library_ms = time_ms(lambda: sdpa(q4, k4, v4, is_causal=True, enable_gqa=True))
-            add_row(rows, name, err, ms, plain_ms,
-                    *flash_work(BKV, rep, S, dh, True, 0, 2), library_ms=library_ms)
-            del q4, k4, v4
+            work = flash_work(BKV, rep, S, dh, True, 0, 2)
+            add_row(rows, name, err, ms, plain_ms, *work, library_ms=library_ms)
+            log(f"  {name}: {work[2] / ms / 1e9:.1f} TFLOP/s of the bound's {work[2] / 1e9:.1f} G "
+                f"tensor-core operations, {rows[name]['bound_ms'] / ms:.3f} of the bound, "
+                f"{ms / library_ms:.2f}x SDPA")
+            if parent is not None:   # the old design, in turns with the new
+                extra = (kf.kv_tile(kf.MAX_KV_TILE, S),) if name.endswith("kvchunk") else ()
+                old_kern = lambda: kf._launch(parent[name], q, k, v, rep, True, 0, *extra)  # noqa: E731
+                err_old = flash_err(old_kern(), want_b, f"parent {name}")
+                turns = [time_ms(old_kern), time_ms(lambda: kern(q, k, v, rep=rep)),
+                         time_ms(lambda: kern(q, k, v, rep=rep)), time_ms(old_kern)]
+                log(f"  {name}: the parent's kernel (err {err_old:.3e}) in turns with this "
+                    f"one: {', '.join(f'{t:.4f}' for t in turns)} ms")
+            del q4, k4, v4, want_b
         del q, k, v
         torch.cuda.empty_cache()
     # the ragged, windowed case: S 100, a window of 32 (smaller than a kv tile)
@@ -1607,9 +1717,18 @@ def dense_prefill():
                                  f"{PREFILL_REL_L2_FP32}")
     torch.cuda.empty_cache()
     log(f"A2: peak memory {torch.cuda.max_memory_allocated() / 2**30:.2f} GiB")
-    _, _, groups = device_profile(lambda: prefill(params, batches[0]), "A2: one 4 x 2048 prefill",
-                                  (("flash K11", "rt_flash_kernel<__nv_bfloat16, false>"),
-                                   ("flash K12", "rt_flash_kernel<__nv_bfloat16, true>")))
+    reset_counts()
+    wall, busy, groups = device_profile(
+        lambda: prefill(params, batches[0]), "A2: one 4 x 2048 prefill",
+        (("flash K11", f"{FLASH_MMA}<false"), ("flash K12", f"{FLASH_MMA}<true")))
+    traced = path_counts(FLASH_PATH)
+    for group, name in (("flash K11", "flash_attention"), ("flash K12", "flash_attention_kvchunk")):
+        if traced[name] and not groups[group] > 0:
+            raise AssertionError(f"A2: {name} launched {traced[name]} times in the traced prefill "
+                                 f"but its group reads {groups[group]} ms: is {FLASH_MMA} renamed?")
+    log(f"A2: K11 in the traced 4 x 2048 prefill: {groups['flash K11']:.3f} ms, "
+        f"{groups['flash K11'] / wall:.3f} of the host clock, {groups['flash K11'] / busy:.3f} "
+        f"of the kernels' time")
     b, s = DENSE_PREFILLS[0]
     flops = 2 * b * s * matrix_params(params)
     log(f"A2: the 4 x 2048 prefill's matmuls: {flops / 1e12:.2f} TFLOP in {groups['matmul']:.3f} "
@@ -1644,7 +1763,7 @@ def dense_serve(cfg, params, p32, nbytes):
     with torch.inference_mode():
         cache = init_cache(cfg, SERVE_B, DENSE_S_MAX, device="cuda")
         device_profile(lambda: step(params, cache, out[:, 0]), "A3: one decode step",
-                       (("flash", "rt_flash_kernel"),))
+                       (("flash", "rt_flash_"),))
         del cache
     # fp32: the decode after the prompt against the prefill's last position
     cfg32 = dataclasses.replace(cfg, dtype=torch.float32)
@@ -2523,11 +2642,13 @@ def main():
                      target=TargetConfig("cuda", device="cuda"))
     vvl = cfg.target.vvl
     t0 = time.perf_counter()
-    with concurrent.futures.ThreadPoolExecutor(max_workers=1) as pool:
+    with concurrent.futures.ThreadPoolExecutor(max_workers=2) as pool:
         built = pool.submit(lambda: (_cuda.build(), time.perf_counter() - t0))
+        flash_tools = pool.submit(flash_toolchain)
         u, b = init_problem(cfg, seed=0)
         gen_s = time.perf_counter() - t0
         lib, build_s = built.result()
+        ptxas, parent_lib = flash_tools.result()
     _cuda.library()
     log(f"build: {build_s:.1f} s ({lib.name}); problem {lattice} generated and "
         f"uploaded in {gen_s:.1f} s")
@@ -2689,7 +2810,7 @@ def main():
 
     # A1. K11 and K12 against their plain versions
     log("A1: K11 (flash_attention) and K12 (flash_attention_kvchunk):")
-    arows = check_flash_kernels()
+    arows = check_flash_kernels(ptxas, parent_lib)
 
     # A2. the full-width prefills, counted
     dcfg, params, p32, nbytes, acounts, prefill_ms = dense_prefill()

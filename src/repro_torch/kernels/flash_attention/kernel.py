@@ -7,10 +7,14 @@ package and K12 ``::flash_pallas_kvchunk``.  One block a (batch, q head, q
 tile of 64 rows) runs the kv loop inside the block; K11 takes each row's
 exact max in a first sweep over the keys and forms p, l and p v in a
 second, as the TPU kernel does over its whole k/v rows; K12 carries acc, m
-and l across its kv tiles.  Both read q, k and v in their own dtype (fp32
-or bf16) at any strides whose last is 1, compute in fp32 on the CUDA
-cores and write o in q's dtype.  They are bound by arithmetic (the note in
-the source has the counts).
+and l across its kv tiles.  Both read q, k and v in their own dtype and
+write o in q's dtype.  bf16 runs on the tensor cores: QK^T in fp32
+accumulators, the softmax in fp32 registers, and p v as two bf16 products
+of p's high and low halves into fp32, so p keeps 16 bits where one bf16
+product would keep 8 and miss the tests' one-ulp limit; the rows of q, k
+and v must start on 16 bytes.  fp32 runs on the CUDA cores at any strides
+whose last is 1.  Both are bound by arithmetic (the note in the source has
+the counts).
 
 Layouts.  q is (BG, S, dh) with k and v (BKV, S, dh), BG = BKV * rep, as
 the reference takes them, or (B, H, S, dh) with k and v (B, KV, S, dh),
@@ -39,6 +43,7 @@ FLASH_KVCHUNK = Kernel("flash_attention_kvchunk", "rt_flash_kvchunk")  # K12
 MAX_DH = 128        # head sizes 1 to 128 (RT_FA_MAX_DH in flash.cu)
 MAX_KV_TILE = 64    # K12's kv tile is at most 64 keys (RT_FA_BK)
 _DTYPES = {torch.float32: 0, torch.bfloat16: 1}
+_ROW_ALIGN = 16     # bytes: a bf16 row is copied in 16-byte chunks (cp.async)
 
 
 def kv_tile(kv_block: int, S: int) -> int:
@@ -118,6 +123,18 @@ def flash_kvchunk_plain(q, k, v, *, rep: int, causal: bool = True, window: int =
     return back((acc / l).to(q.dtype))
 
 
+def _check_rows_aligned(kern_name: str, name: str, t) -> None:
+    """Raise ValueError unless every row of the bf16 operand ``t`` ((B, H,
+    S, dh) or (BG, S, dh)) starts on 16 bytes: its base aligned and the
+    strides of its leading extents above 1 multiples of 8 elements."""
+    bad = [st for st, n in zip(t.stride()[:-1], t.shape[:-1]) if n > 1 and
+           st * t.element_size() % _ROW_ALIGN]
+    if t.data_ptr() % _ROW_ALIGN or bad:
+        raise ValueError(f"{kern_name}: {name}'s rows must start on {_ROW_ALIGN} bytes for the "
+                         f"bf16 kernel (base {t.data_ptr() % _ROW_ALIGN} bytes past alignment, "
+                         f"strides {tuple(t.stride())})")
+
+
 def _launch(kern: Kernel, q, k, v, rep, causal, window, *extra):
     q4, k4, v4 = _as4(q, k, v, rep)
     B, H, S, dh = q4.shape
@@ -134,6 +151,8 @@ def _launch(kern: Kernel, q, k, v, rep, causal, window, *extra):
         if t.stride(-1) != 1:
             raise ValueError(f"{kern.name}: {name}'s last dimension has stride {t.stride(-1)}, "
                              f"expected 1")
+        if t.dtype == torch.bfloat16:
+            _check_rows_aligned(kern.name, name, t)
     o = torch.empty_like(q)   # q's strides, so a permuted view's output is one too
     o4 = o[None] if o.dim() == 3 else o
     strides = [s for t in (q4, k4, v4, o4) for s in t.stride()[:3]]

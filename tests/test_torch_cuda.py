@@ -302,9 +302,13 @@ def test_rwkv6_smoke_prefill_and_generate_on_card(card, rng):
 
 # (BKV, rep, S, dh, causal, window): starcoder2's heads (dh 128, rep 9) on a
 # ragged S, S 96 and 100 with a window smaller than a kv tile, dh 8 / 16 /
-# 64 / 128, rep 1 / 3 / 9, no causal mask with and without a window
+# 64 / 128, rep 1 / 3 / 9, no causal mask with and without a window; the
+# tensor-core kernels' edges: dh 72 (not a multiple of 16) with rep 9, S 1,
+# S 65 (one key past a tile), a window of 5 (fewer keys than an mma's rows)
 FLASH_CASES = [(2, 9, 100, 128, True, 0), (2, 3, 96, 64, True, 32), (1, 1, 100, 8, True, 0),
-               (3, 3, 130, 64, False, 0), (1, 9, 256, 128, True, 32), (2, 1, 64, 16, False, 24)]
+               (3, 3, 130, 64, False, 0), (1, 9, 256, 128, True, 32), (2, 1, 64, 16, False, 24),
+               (1, 9, 130, 72, True, 0), (2, 3, 1, 64, True, 0), (1, 3, 65, 128, True, 0),
+               (2, 3, 100, 64, True, 5)]
 # fp32: as K10's; bf16: one bf16 ulp of the output (2^-8 to 2^-7 of it, the
 # two fp32 results rounding to neighbours), plus the fp32 limit's atol
 FLASH_RTOL, FLASH_ATOL_REL = 1e-5, 2e-5
@@ -350,6 +354,17 @@ def test_k11_k12_flash(card, BKV, rep, S, dh, causal, window, dtype, rng):
 
 @pytest.mark.cuda
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16], ids=str)
+def test_flash_same_bits_on_two_runs(card, dtype, rng):
+    """No atomics and a fixed sum order: two runs on the same inputs give
+    the same bits (a causal case over several kv tiles, rep 9)."""
+    q, k, v = _flash_problem(rng, 2, 9, 200, 128, dtype, card)
+    for fn in (KF.flash_cuda, lambda *a, **kw: KF.flash_kvchunk_cuda(*a, kv_block=40, **kw)):
+        first = fn(q, k, v, rep=9, window=150)
+        assert torch.equal(first, fn(q, k, v, rep=9, window=150))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16], ids=str)
 def test_flash_head_views_and_the_op(card, dtype, rng):
     """The op on (B, H, S, dh) views of (B, S, H, dh) projections, as the
     model passes them: "auto" runs K11, "cuda_kvchunk" K12, "torch" neither;
@@ -386,6 +401,13 @@ def test_flash_wrappers_refuse_what_they_do_not_take(card):
     with pytest.raises(ValueError, match="stride"):
         KF.flash_kvchunk_cuda(q, q[:1].transpose(1, 2).contiguous().transpose(1, 2)[:, :, :8],
                               q[:1], rep=3)
+    # bf16 rows must start on 16 bytes: a view one element in, and rows of 4
+    x = torch.zeros((3, 16, 16), device=card, dtype=torch.bfloat16)
+    with pytest.raises(ValueError, match="16 bytes"):
+        KF.flash_cuda(x[..., 1:9], x[:1, :, :8], x[:1, :, :8], rep=3)
+    x = torch.zeros((3, 16, 4), device=card, dtype=torch.bfloat16)
+    with pytest.raises(ValueError, match="16 bytes"):
+        KF.flash_kvchunk_cuda(x, x[:1], x[:1], rep=3)
 
 
 @pytest.mark.cuda

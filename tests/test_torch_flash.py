@@ -2,9 +2,12 @@
 plain versions of K11 and K12 against the JAX package's "jnp", "pallas" and
 "pallas_kvchunk" (interpret mode) engines on the same numpy inputs, the
 model's dense attention, the ragged windowed case, the (B, H, S, dh)
-layout, the kv tile, the CPU wrappers and the op's refusals."""
+layout, the kv tile, the CPU wrappers and the op's refusals; and a CPU
+rehearsal of the bf16 kernels' rounding (split p) against the reference's
+kernels within the card tests' bf16 limit."""
 
 import functools
+import math
 
 import pytest
 
@@ -189,3 +192,118 @@ def test_refusals(rng):
         pa.attention(p, x, None, None, n_heads=4, n_kv_heads=4, head_dim=8, engine="cuda")
     with pytest.raises(ValueError, match="unknown attention engine"):
         pa.attention(p, x, None, None, n_heads=4, n_kv_heads=4, head_dim=8, engine="jnp")
+
+
+# -- the bf16 kernels' rounding, rehearsed on the CPU --------------------------------
+
+# the card tests' bf16 limit (tests/test_torch_cuda.py::_check_flash): one
+# bf16 ulp of the larger output, plus FLASH_ATOL_REL x max|want|
+FLASH_ATOL_REL = 2e-5
+
+
+def _over_bf16_limit(got, want):
+    """How many elements of bf16 got lie outside the card's bf16 limit of
+    want (both as fp32 numpy arrays)."""
+    g, w = torch.from_numpy(got), torch.from_numpy(want)
+    lim = FLASH_ATOL_REL * w.abs().max() + torch.ldexp(
+        torch.ones_like(w), torch.frexp(torch.maximum(g.abs(), w.abs())).exponent - 8)
+    return int(((g - w).abs() > lim).sum())
+
+
+def _tensor_core_rounding(q, k, v, *, rep, causal, window, kvb=None, split=True):
+    """The bf16 kernels' arithmetic in torch on the CPU: bf16 q, k and v;
+    fp32 scores; p in fp32, split into bf16 hi = bf16(p) and lo = bf16(p -
+    hi), whose two products with v accumulate in fp32 (split=False: the
+    one bf16 product of bf16 p).  kvb None: K11's exact max, no rescaling;
+    else K12's online softmax over tiles of kvb keys, m from -inf.  Returns
+    o in bf16 as fp32 numpy."""
+    BG, S, dh = q.shape
+    qf = q.to(torch.float32)
+    kk = torch.repeat_interleave(k, rep, dim=0).to(torch.float32)
+    vv = torch.repeat_interleave(v, rep, dim=0).to(torch.float32)
+    qi = torch.arange(S)[:, None]
+
+    def scores(k0, k1):
+        s = torch.einsum("bqd,bkd->bqk", qf, kk[:, k0:k1]) * (1.0 / math.sqrt(dh))
+        kj = torch.arange(k0, k1)[None, :]
+        ok = torch.ones((S, k1 - k0), dtype=torch.bool)
+        if causal:
+            ok = ok & (kj <= qi)
+        if window > 0:
+            ok = ok & (qi - kj < window)
+        return torch.where(ok[None], s, KF.ref.NEG_INF)
+
+    def pv(p, k0, k1):
+        hi = p.to(torch.bfloat16).to(torch.float32)
+        acc = torch.einsum("bqk,bkd->bqd", hi, vv[:, k0:k1])
+        if split:
+            lo = (p - hi).to(torch.bfloat16).to(torch.float32)
+            acc = acc + torch.einsum("bqk,bkd->bqd", lo, vv[:, k0:k1])
+        return acc
+
+    if kvb is None:
+        s = scores(0, S)
+        p = torch.exp(s - s.amax(-1, keepdim=True))
+        o = pv(p, 0, S) / p.sum(-1, keepdim=True)
+    else:
+        acc = torch.zeros((BG, S, dh))
+        m = torch.full((BG, S, 1), -math.inf)
+        l = torch.zeros((BG, S, 1))
+        for k0 in range(0, S, kvb):
+            s = scores(k0, k0 + kvb)
+            m_new = torch.maximum(m, s.amax(-1, keepdim=True))
+            p = torch.exp(s - m_new)
+            corr = torch.exp(m - m_new)
+            l = l * corr + p.sum(-1, keepdim=True)
+            acc = acc * corr + pv(p, k0, k0 + kvb)
+            m = m_new
+        o = acc / l
+    return o.to(torch.bfloat16).to(torch.float32).numpy()
+
+
+@pytest.mark.parametrize("cfg", CFGS, ids=str)
+def test_split_p_rounding_matches_reference(cfg):
+    """K11's and K12's tensor-core rounding against flash_pallas and
+    flash_pallas_kvchunk (kv_block 32) in bf16, within the card's limit."""
+    rep, causal, window = cfg[1], cfg[4], cfg[5]
+    q, k, v = _port(_inputs(cfg, "bfloat16")[0], "bfloat16")
+    ref = _reference(cfg, "bfloat16")
+    kw = dict(rep=rep, causal=causal, window=window)
+    assert _over_bf16_limit(_tensor_core_rounding(q, k, v, **kw), ref["pallas"]) == 0
+    o12 = _tensor_core_rounding(q, k, v, kvb=KF.kv_tile(32, cfg[2]), **kw)
+    assert _over_bf16_limit(o12, ref["pallas_kvchunk"]) == 0
+
+
+def test_split_p_rounding_at_a_starcoder2_head_size():
+    """At dh 128 over 512 keys the split p holds K11 and K12 within the
+    card's limit of the reference's kernels, and one bf16 product of bf16 p
+    (what SDPA does) does not: that is why the kernels split p."""
+    cfg = (2, 4, 512, 128, True, 0)
+    xs, (jq, jk, jv) = _inputs(cfg, "bfloat16", seed=3)
+    q, k, v = _port(xs, "bfloat16")
+    want11 = np.asarray(j_flash(jq, jk, jv, rep=4, engine="pallas", q_block=128), np.float32)
+    want12 = np.asarray(j_flash(jq, jk, jv, rep=4, engine="pallas_kvchunk", q_block=128,
+                                kv_block=64), np.float32)
+    kvb = KF.kv_tile(64, 512)
+    assert kvb == 64
+    assert _over_bf16_limit(_tensor_core_rounding(q, k, v, rep=4, causal=True, window=0),
+                            want11) == 0
+    assert _over_bf16_limit(_tensor_core_rounding(q, k, v, rep=4, causal=True, window=0,
+                                                  kvb=kvb), want12) == 0
+    for kv in (None, kvb):
+        one_pass = _tensor_core_rounding(q, k, v, rep=4, causal=True, window=0, kvb=kv,
+                                         split=False)
+        assert _over_bf16_limit(one_pass, want11 if kv is None else want12) > 1000
+
+
+def test_check_rows_aligned():
+    """The bf16 kernels copy rows in 16-byte chunks: rows that do not start
+    on 16 bytes are refused before any launch."""
+    x = torch.zeros((3, 16, 16), dtype=torch.bfloat16)
+    KF._check_rows_aligned("flash_attention", "q", x)
+    KF._check_rows_aligned("flash_attention", "q", x.permute(1, 0, 2))   # (B, H, S, dh) view
+    KF._check_rows_aligned("flash_attention", "q", x[:1, :, :4])          # extent 1 strides
+    with pytest.raises(ValueError, match="16 bytes"):
+        KF._check_rows_aligned("flash_attention", "q", x[..., 1:9])
+    with pytest.raises(ValueError, match="16 bytes"):
+        KF._check_rows_aligned("flash_attention", "q", torch.zeros((3, 16, 4), dtype=torch.bfloat16))
