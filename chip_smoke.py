@@ -14,7 +14,19 @@ Phases (any failure raises and exits non-zero; nothing is caught):
    while the host generates the problem (random SU(3) gauge field and
    source at ``--lattice``, default (64, 64, 64, 32));
 3. hold every MILC kernel against its plain PyTorch version on the card at
-   that lattice and time both (CUDA events, median of several runs);
+   that lattice and time both (CUDA events, median of several runs); K2's
+   sum and fold also bitwise their tree emulation (core/reduce.py's
+   ``reduce_tree``, ``fold_tree``, run on the card), as in L2, S1 and P1;
+Q1. where ``build/parent`` holds a ``git archive`` of the parent, its K1
+   and K2 (site_local.cu and reduce.cu with its own headers, built beside
+   phase 2's build as a library of their own, launched with their own
+   arguments and partial tables) against this tree's on the same tensors
+   (K1 bitwise, K2 within SUM_RTOL or the oracle bound) and timed in turns
+   (parent, this, this, parent) beside the library call and the bound, a
+   call at a time and replayed from a CUDA graph (the kernels without the
+   host's Python: most of a fold's time a call is the host's), at
+   phase 3's, S1's (4 slots) and P1's MILC shapes; Q2 the same after L2 at
+   L2's and P1's Ludwig shapes; one JSON line before the kernel table;
 4. with every launch count set to 0, solve M x = b on the "cuda" engine
    (kappa 0.12, hot 0.6, tol 1e-10, max_iter 2000), check
    |M x - b| / |b| < 1e-3 and that every kernel of the path launched;
@@ -57,7 +69,8 @@ P1. the mixed-precision policy instances against their plain versions, at
    plain version); D, K2's compensated sum and fold (within the oracle
    bound, also on the block-aligned cancellation fixture at full size,
    where the plain K2 must fall outside it, and on pairs whose lo carries
-   the sum, where the fold of the his alone must); the stage-in rounding
+   the sum, where the fold of the his alone must: core/reduce.py's
+   ``cancel_field`` and ``fold_pairs``); the stage-in rounding
    bitwise torch's: bf16.cuh's helper kernel on u and on ties, -0.0, inf,
    NaN and subnormals, and K5's policy instance's own load of p at kappa 0.  Timed in SoA (CUDA events, median of
    10) beside the policy-free kernel, the bound of the bytes the kernel
@@ -535,6 +548,7 @@ def check_kernels(u, b, lattice, vvl):
     exact_err(reduce.reduce_sites(prod, "max", vvl), reduce.reduce_plain(prod, "max"),
               "reduce_max")
     log("  reduce_max (not on the solve's path) bitwise equal")
+    tree_err(reduce.reduce_sites(prod, "sum", vvl), reduce.reduce_tree(prod), "reduce_sum")
 
     partials = inp["partials"]
     err = sum_err(reduce.fold_partials(partials, "sum"), partials.sum(dim=0),
@@ -542,6 +556,7 @@ def check_kernels(u, b, lattice, vvl):
     row("reduce_fold", err, time_ms(lambda: reduce.fold_partials(partials, "sum")),
         time_ms(lambda: partials.sum(dim=0)), partials.numel() * 4 + 96,
         partials.numel(), library_ms=time_ms(lambda: torch.sum(partials, dim=0)))
+    tree_err(reduce.fold_partials(partials, "sum"), reduce.fold_tree(partials), "reduce_fold")
 
     got = fuse.cg_update(psi, y, p, ap, alpha, neg_alpha, vvl)
     want = fuse.cg_update_plain(psi, y, p, ap, alpha, neg_alpha)
@@ -665,6 +680,7 @@ def check_ludwig_kernels(state, cfg, vvl):
     row("ludwig_reduce_sum", err, time_ms(lambda: reduce.reduce_sites(dist, "sum", vvl)),
         time_ms(lambda: reduce.reduce_plain(dist, "sum")), 76 * V, 19 * V,
         library_ms=time_ms(lambda: torch.sum(dist, dim=1)))
+    tree_err(reduce.reduce_sites(dist, "sum", vvl), reduce.reduce_tree(dist), "ludwig_reduce_sum")
 
     partials = inp["partials"]
     err = sum_err(reduce.fold_partials(partials, "sum"), partials.sum(dim=0),
@@ -672,6 +688,8 @@ def check_ludwig_kernels(state, cfg, vvl):
     row("ludwig_reduce_fold", err, time_ms(lambda: reduce.fold_partials(partials, "sum")),
         time_ms(lambda: partials.sum(dim=0)), partials.numel() * 4 + 76,
         partials.numel(), library_ms=time_ms(lambda: torch.sum(partials, dim=0)))
+    tree_err(reduce.fold_partials(partials, "sum"), reduce.fold_tree(partials),
+             "ludwig_reduce_fold")
     del dist, force, dq, lapq, h, w, adv, got, want, partials, inp
     torch.cuda.empty_cache()
     return rows
@@ -1487,17 +1505,22 @@ def flash_work(BKV, rep, S, dh, causal, window, itemsize):
 
 def flash_toolchain():
     """Run beside phase 2's build: csrc/flash.cu under ``-Xptxas -v`` (each
-    kernel's registers and spills), and the parent's flash.cu as a library
-    of its own where PARENT_SRC holds a tree.  Returns (ptxas lines of the
-    bf16 kernels, the parent library's path or None)."""
+    kernel's registers and spills), and, where PARENT_SRC holds a tree, the
+    parent's flash.cu and its K1 and K2 (site_local.cu and reduce.cu, with
+    the parent's headers) as libraries of their own.  Returns (ptxas lines
+    of the bf16 kernels, the parent flash library's path or None, the
+    parent K1/K2 library's path or None)."""
     nvcc = _cuda._nvcc()
     _cuda.BUILD_DIR.mkdir(parents=True, exist_ok=True)
     cmds = [[nvcc, *_cuda.COMPILE_FLAGS, "-Xptxas", "-v", "-cubin", "-o",
              str(_cuda.BUILD_DIR / "flash_ptxas.cubin"), str(_cuda.CSRC / "flash.cu")]]
-    parent = os.path.join(PARENT_SRC, "repro_torch", "csrc", "flash.cu")
-    parent_lib = _cuda.BUILD_DIR / "parent_flash.so"
-    if os.path.exists(parent):
-        cmds.append([nvcc, *_cuda.NVCC_FLAGS, "-o", str(parent_lib), parent])
+    csrc = os.path.join(PARENT_SRC, "repro_torch", "csrc")
+    libs = {}
+    for tag, srcs in (("flash", ("flash.cu",)), ("k1_k2", ("site_local.cu", "reduce.cu"))):
+        paths = [os.path.join(csrc, f) for f in srcs]
+        if all(map(os.path.exists, paths)):
+            libs[tag] = _cuda.BUILD_DIR / f"parent_{tag}.so"
+            cmds.append([nvcc, *_cuda.NVCC_FLAGS, "-o", str(libs[tag]), *paths])
     procs = [subprocess.Popen(c, stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)
              for c in cmds]
     outs = [pr.communicate()[0] for pr in procs]
@@ -1510,7 +1533,7 @@ def flash_toolchain():
             keep = FLASH_MMA in ln
         if keep and ("Compiling entry" in ln or "spill" in ln or "Used" in ln):
             lines.append(ln.split("ptxas info    : ")[-1].strip())
-    return lines, (parent_lib if len(cmds) > 1 else None)
+    return lines, libs.get("flash"), libs.get("k1_k2")
 
 
 def flash_sass(lib):
@@ -1782,6 +1805,232 @@ def dense_serve(cfg, params, p32, nbytes):
     return dt / steps * 1e3, bound_ms
 
 
+# -- K1 and K2 in turns with the parent's design (Q1, Q2) -----------------------------
+
+_CP, _CI, _CL = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
+# the parent's C signatures of K1 and K2 (a block of vvl threads before the
+# stream; no fold scratch)
+PARENT_K12 = {
+    "rt_site_g5": (_CP, _CP, _CI, _CL, _CI, _CI, _CI, _CI, _CP),
+    "rt_site_mul": (_CP, _CP, _CP, _CI, _CL, _CI, _CL, _CL, _CI, _CI, _CI, _CI, _CP),
+    "rt_reduce_partials_batched": (_CP, _CP, _CI, _CL, _CI, _CI, _CI, _CI, _CP),
+    "rt_reduce_fold_batched": (_CP, _CP, _CL, _CI, _CI, _CI, _CP),
+    "rt_reduce_partials_comp": (_CP, _CP, _CI, _CL, _CI, _CI, _CI, _CP),
+    "rt_reduce_fold_comp": (_CP, _CP, _CL, _CI, _CI, _CP),
+}
+
+
+class ParentK12:
+    """The parent's K1 and K2 (its site_local.cu and reduce.cu, built with
+    its own headers as a library of their own), launched on SoA fields with
+    the parent's own arguments: blocks of vvl threads and partial tables of
+    ceil(nsites / vvl) rows."""
+
+    def __init__(self, path, vvl):
+        lib = ctypes.CDLL(str(path))
+        self.vvl, self.fn = vvl, {}
+        for name, sig in PARENT_K12.items():
+            fn = getattr(lib, name)
+            fn.argtypes, fn.restype = list(sig), ctypes.c_int
+            self.fn[name] = fn
+
+    def _call(self, name, *args):
+        rc = self.fn[name](*args, torch.cuda.current_stream().cuda_stream)
+        if rc:
+            raise RuntimeError(f"parent {name}: CUDA error {rc}")
+
+    def g5(self, x, flip):
+        out = torch.empty_like(x)
+        self._call("rt_site_g5", x.data_ptr(), out.data_ptr(), *x.shape, flip, 0, 0, self.vvl)
+        return out
+
+    def mul(self, x, y):
+        """x, y: (ncomp, nsites), or (batch, ncomp, nsites) both."""
+        ncomp, nsites = x.shape[-2:]
+        batch, stride = (x.shape[0], ncomp * nsites) if x.dim() == 3 else (1, 0)
+        out = torch.empty_like(x)
+        self._call("rt_site_mul", x.data_ptr(), y.data_ptr(), out.data_ptr(), ncomp, nsites,
+                   batch, stride, stride, 0, 0, 0, self.vvl)
+        return out
+
+    def fold(self, partials, compensated=False):
+        """(batch, nblocks, ncomp[, 2]) -> (batch, ncomp)."""
+        batch, nblocks, ncomp = partials.shape[:3]
+        out = torch.empty((batch, ncomp), device=partials.device)
+        if compensated:
+            self._call("rt_reduce_fold_comp", partials.data_ptr(), out.data_ptr(), nblocks,
+                       ncomp, batch)
+        else:
+            self._call("rt_reduce_fold_batched", partials.data_ptr(), out.data_ptr(), nblocks,
+                       ncomp, batch, 0)
+        return out
+
+    def sum(self, x, compensated=False):
+        """(batch, ncomp, nsites) -> (batch, ncomp), both passes."""
+        batch, ncomp, nsites = x.shape
+        shape = (batch, -(-nsites // self.vvl), ncomp) + ((2,) if compensated else ())
+        partials = torch.empty(shape, device=x.device)
+        if compensated:
+            self._call("rt_reduce_partials_comp", x.data_ptr(), partials.data_ptr(), ncomp,
+                       nsites, batch, 0, self.vvl)
+        else:
+            self._call("rt_reduce_partials_batched", x.data_ptr(), partials.data_ptr(), ncomp,
+                       nsites, batch, 0, 0, self.vvl)
+        return self.fold(partials, compensated)
+
+
+def graph_ms(fn):
+    """Median device time of fn()'s launches replayed from a CUDA graph:
+    the kernels alone, without the host's Python between them (a call
+    timed by time_ms includes it, which is most of a fold's time)."""
+    side = torch.cuda.Stream()
+    side.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(side):
+        fn()
+    torch.cuda.current_stream().wait_stream(side)
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        fn()
+    ms = time_ms(graph.replay)
+    del graph
+    torch.cuda.empty_cache()
+    return ms
+
+
+def redesign_turns(cases):
+    """Each case: name -> (this tree's call, the parent's, the library
+    call, bytes, flops, check(parent's out, this out)).  Checks the
+    parent's output against this tree's, then times parent, this, this,
+    parent on the same tensors, and the library call, each a call at a
+    time (time_ms) and replayed from a CUDA graph (graph_ms, the same
+    order); returns the rows."""
+    rows = {}
+    for name, (this, old, lib, nbytes, flops, check) in cases.items():
+        check(old(), this())
+        t = [time_ms(old), time_ms(this), time_ms(this), time_ms(old)]
+        lib_ms = time_ms(lib)
+        g = [graph_ms(old), graph_ms(this), graph_ms(this), graph_ms(old), graph_ms(lib)]
+        b_ms, b_by = bound(nbytes, flops)
+        ms, gms = statistics.median(t[1:3]), statistics.median(g[1:3])
+        rows[name] = dict(parent_ms=[t[0], t[3]], ms=t[1:3], library_ms=lib_ms,
+                          graph_parent_ms=[g[0], g[3]], graph_ms=g[1:3], graph_library_ms=g[4],
+                          bound_ms=b_ms, bound_by=b_by)
+        log(f"  {name:26s} parent {t[0]:.4f}, this {t[1]:.4f}, {t[2]:.4f}, parent {t[3]:.4f} "
+            f"ms; library {lib_ms:.4f}; bound {b_ms:.4f} ({b_by}): {b_ms / ms:.3f} of it, "
+            f"{ms / lib_ms:.2f}x the library, {statistics.median([t[0], t[3]]) / ms:.2f}x "
+            f"faster than the parent; from a CUDA graph: parent {g[0]:.4f}, this {g[1]:.4f}, "
+            f"{g[2]:.4f}, parent {g[3]:.4f}, library {g[4]:.4f} ms ({b_ms / gms:.3f} of the "
+            f"bound, {gms / g[4]:.2f}x the library)")
+    return rows
+
+
+def _bits_check(name):
+    return lambda old, new: bits_err(old.reshape(new.shape), new, f"{name}: parent vs this")
+
+
+def _sum_check(name, terms):
+    return lambda old, new: sum_err(old.reshape(new.shape), new, terms, f"{name}: parent vs this")
+
+
+def _oracle_check(name, terms):
+    """Both compensated folds within the oracle bound (terms: (..., ncomp,
+    sites), checked a slot at a time)."""
+    def check(old, new):
+        for o, n, t in zip(old.reshape(new.shape).reshape(-1, new.shape[-1]),
+                           new.reshape(-1, new.shape[-1]), terms.reshape(-1, *terms.shape[-2:])):
+            oracle_err(o, t, f"{name} (parent)")
+            oracle_err(n, t, name)
+    return check
+
+
+def milc_turns(parent, b, vvl):
+    """Q1: K1 and K2 at phase 3's shapes (g5, the product, the sum, the fold
+    of a fused kernel's table), S1's (4 slots: dot_prod, the batched sum
+    and fold) and P1's (the compensated fold, single and batched), in turns
+    with the parent's design."""
+    V, dev = b.nsites, b.data.device
+    gen = torch.Generator(device=dev).manual_seed(3)
+    psi = b.data
+    y = torch.randn((24, V), generator=gen, device=dev)
+    sign = torch.ones((24, 1), device=dev)
+    sign[12:] = -1.0
+    prod = psi * y
+    nb = -(-V // vvl)
+    parts = torch.randn((nb, 24), generator=gen, device=dev)
+    pairs = reduce.fold_pairs(nb, 24, dev)
+    x4, r4 = torch.stack([psi, y, psi, y]), torch.stack([y, psi, psi, y])
+    prod4 = x4 * r4
+    parts4, pairs4 = torch.stack([parts * (k + 1) for k in range(SLOTS)]), torch.stack([pairs] * SLOTS)
+    pair_terms = pairs.permute(1, 0, 2).reshape(24, -1)
+    cases = {
+        "g5": (lambda: target.site_g5(psi, 12, vvl), lambda: parent.g5(psi, 12),
+               lambda: torch.mul(psi, sign), 2 * 96 * V, 12 * V, _bits_check("g5")),
+        "mul": (lambda: target.site_mul(psi, y, vvl), lambda: parent.mul(psi, y),
+                lambda: torch.mul(psi, y), 3 * 96 * V, 24 * V, _bits_check("mul")),
+        "dot_prod": (lambda: target.site_mul(x4, r4, vvl, batch=SLOTS),
+                     lambda: parent.mul(x4, r4), lambda: torch.mul(x4, r4),
+                     SLOTS * 3 * 96 * V, SLOTS * 24 * V, _bits_check("dot_prod")),
+        "reduce_sum": (lambda: reduce.reduce_sites(prod, "sum", vvl),
+                       lambda: parent.sum(prod[None]), lambda: torch.sum(prod, dim=1),
+                       96 * V, 24 * V, _sum_check("reduce_sum", prod)),
+        "reduce_fold": (lambda: reduce.fold_partials(parts, "sum"),
+                        lambda: parent.fold(parts[None]), lambda: torch.sum(parts, dim=0),
+                        parts.numel() * 4 + 96, parts.numel(), _sum_check("reduce_fold", parts.T)),
+        "reduce_sum_batched": (lambda: reduce.reduce_sites_batched(prod4, "sum", vvl),
+                               lambda: parent.sum(prod4), lambda: torch.sum(prod4, dim=-1),
+                               SLOTS * 96 * V, SLOTS * 24 * V,
+                               _sum_check("reduce_sum_batched", prod4)),
+        "reduce_fold_batched": (lambda: reduce.fold_partials_batched(parts4, "sum"),
+                                lambda: parent.fold(parts4), lambda: torch.sum(parts4, dim=1),
+                                parts4.numel() * 4 + SLOTS * 96, parts4.numel(),
+                                _sum_check("reduce_fold_batched", parts4.transpose(1, 2))),
+        "reduce_fold_comp": (lambda: reduce.fold_partials(pairs, "sum", compensated=True),
+                             lambda: parent.fold(pairs[None], True),
+                             lambda: torch.sum(pairs, dim=(0, 2), dtype=torch.float64),
+                             pairs.numel() * 4 + 96, pairs.numel(),
+                             _oracle_check("reduce_fold_comp", pair_terms)),
+        "reduce_fold_comp_batched": (
+            lambda: reduce.fold_partials_batched(pairs4, "sum", compensated=True),
+            lambda: parent.fold(pairs4, True),
+            lambda: torch.sum(pairs4, dim=(1, 3), dtype=torch.float64),
+            pairs4.numel() * 4 + SLOTS * 96, pairs4.numel(),
+            _oracle_check("reduce_fold_comp_batched", torch.stack([pair_terms] * SLOTS))),
+    }
+    log(f"Q1: K1 and K2 at {tuple(b.lattice)} in turns with the parent's design:")
+    rows = redesign_turns(cases)
+    del y, prod, parts, pairs, x4, r4, prod4, parts4, pairs4, pair_terms, cases
+    torch.cuda.empty_cache()
+    return rows
+
+
+def ludwig_turns(parent, state, vvl):
+    """Q2: K2 at L2's shapes (the sum of dist, the fold of a fused kernel's
+    table) and P1's (the compensated sum of dist), in turns with the
+    parent's design."""
+    V, dev = state.q.nsites, state.q.data.device
+    gen = torch.Generator(device=dev).manual_seed(4)
+    dist = state.dist.canonical() * (1.0 + 0.05 * torch.randn((19, V), generator=gen, device=dev))
+    parts = torch.randn((-(-V // vvl), 19), generator=gen, device=dev)
+    cases = {
+        "ludwig_reduce_sum": (lambda: reduce.reduce_sites(dist, "sum", vvl),
+                              lambda: parent.sum(dist[None]), lambda: torch.sum(dist, dim=1),
+                              76 * V, 19 * V, _sum_check("ludwig_reduce_sum", dist)),
+        "ludwig_reduce_fold": (lambda: reduce.fold_partials(parts, "sum"),
+                               lambda: parent.fold(parts[None]), lambda: torch.sum(parts, dim=0),
+                               parts.numel() * 4 + 76, parts.numel(),
+                               _sum_check("ludwig_reduce_fold", parts.T)),
+        "reduce_sum_comp": (lambda: reduce.reduce_sites(dist, "sum", vvl, compensated=True),
+                            lambda: parent.sum(dist[None], True),
+                            lambda: torch.sum(dist, dim=1, dtype=torch.float64), 76 * V, 19 * V,
+                            _oracle_check("reduce_sum_comp", dist)),
+    }
+    log(f"Q2: K2 at {tuple(state.q.lattice)} in turns with the parent's design:")
+    rows = redesign_turns(cases)
+    del dist, parts, cases
+    torch.cuda.empty_cache()
+    return rows
+
+
 # -- batched solve serving (S1-S3) -------------------------------------------------
 
 def bits_err(got, want, name):
@@ -1789,6 +2038,13 @@ def bits_err(got, want, name):
     if not torch.equal(got.contiguous().view(torch.int32), want.contiguous().view(torch.int32)):
         raise AssertionError(f"{name}: not bitwise equal")
     return 0.0
+
+
+def tree_err(got, want, name):
+    """K2 against core/reduce.py's emulation of its fold tree, run on the
+    card (elementwise fp32 adds: the same IEEE arithmetic on either device):
+    bitwise."""
+    return bits_err(got, want, f"{name} vs its tree emulation")
 
 
 def batch_inputs(lattice, lay):
@@ -1888,6 +2144,8 @@ def check_batch_layout(u, lattice, lay, vvl, rows):
                                    "reduce_sum_batched"))
     bits_err(reduce.reduce_sites_batched(prod, "max", vvl, layouts={"x": lay})[0],
              reduce.reduce_plain(lay.unpack(prod[0]), "max"), f"{tag} reduce_max_batched")
+    tree_err(sums[:3], reduce.reduce_tree(torch.stack([lay.unpack(e) for e in prod[:3]])),
+             f"{tag} reduce_sum_batched slots 0-2")   # slot 3 carries the NaN
     if rows is not None:
         row("dot_prod", 0.0,
             time_ms(lambda: target.site_mul(x, r, vvl, layouts=xy, batch=SLOTS)),
@@ -1903,6 +2161,7 @@ def check_batch_layout(u, lattice, lay, vvl, rows):
     parts = inp["partials"]
     folded = reduce.fold_partials_batched(parts, "sum")
     err = 0.0
+    tree_err(folded, reduce.fold_tree(parts), f"{tag} reduce_fold_batched")
     for b in range(SLOTS):
         bits_err(folded[b], reduce.fold_partials(parts[b], "sum"),
                  f"{tag} reduce_fold_batched slot {b} vs reduce_fold")
@@ -2146,39 +2405,6 @@ def oracle_err(got, terms, name):
     return err.max().item()
 
 
-CANCEL_BIG, CANCEL_FILL = 2.0 ** 26 + 8, 3.9375
-
-
-def cancel_field(ncomp, V, dev):
-    """The cancellation fixture, block-aligned for vvl 128 (V a multiple of
-    128): each block of 128 sites holds one +-CANCEL_BIG (the sign
-    alternating over the blocks, so they cancel) at its first site and
-    CANCEL_FILL at the 8 sites that K2's plain fold (a 32-lane shuffle tree,
-    then the 4 warps in order) adds to it one at a time; every other site
-    is 0.  CANCEL_FILL is under half an ulp of CANCEL_BIG (8), so the plain
-    K2 loses all of it, 31.5 a block, the whole sum: 1.88 x the oracle
-    bound at any size.  A compensated fold keeps it."""
-    x = torch.zeros((ncomp, V // 128, 4, 32), device=dev)
-    sign = 1.0 - 2.0 * (torch.arange(V // 128, device=dev) % 2)
-    x[:, :, 0, 0] = CANCEL_BIG * sign
-    x[:, :, 0, [1, 2, 4, 8, 16]] = CANCEL_FILL
-    x[:, :, 1:, 0] = CANCEL_FILL
-    return x.reshape(ncomp, V)
-
-
-def fold_pairs(nblocks, ncomp, dev):
-    """(nblocks, ncomp, 2) (hi, lo) pairs for K2's compensated pass 2: hi an
-    integer whose sign alternates over the blocks, so the his cancel, and lo
-    a multiple of 2^-10 that does not cancel.  Every partial sum is exact in
-    fp32, so the fold is exact, and a fold that dropped lo would return 0:
-    about 2^-11 x nblocks from the fp64 sum, far beyond the oracle bound."""
-    k = torch.arange(nblocks, device=dev)[:, None]
-    c = torch.arange(ncomp, device=dev)[None, :]
-    hi = (1.0 - 2.0 * (k % 2)) * (1 + c % 4)
-    lo = (1 + (k + c) % 3) * 2.0 ** -10
-    return torch.stack([hi.float(), lo.float()], dim=-1)
-
-
 def beyond_oracle(got, terms, name):
     """The control of a compensated check: ``got`` (a plain fold) must fall
     outside the oracle bound of ``terms``, so that the bound can tell the
@@ -2274,8 +2500,10 @@ def check_mixed_milc(u, b, lattice, vvl):
         # D: the compensated sum of the product field and of the fixture
         prod = psi * y
         pl = prod if lay == SOA else lay.pack(prod)
-        oracle_err(reduce.reduce_sites(pl, "sum", vvl, layouts={"x": lay}, compensated=True),
-                   prod, f"P1 {spec} reduce_sum_comp")
+        got_c = reduce.reduce_sites(pl, "sum", vvl, layouts={"x": lay}, compensated=True)
+        oracle_err(got_c, prod, f"P1 {spec} reduce_sum_comp")
+        tree_err(got_c, reduce.reduce_tree(prod, compensated=True), f"P1 {spec} reduce_sum_comp")
+        del got_c
         log(f"  {spec}: wilson_normal policy (bf16, compensated) ap within one bf16 ulp, "
             f"pap within the oracle bound, K5B slots bitwise; fp32 storage bitwise "
             f"the policy-free ap; cg_update_ap16 bitwise on the widened ap; the "
@@ -2284,7 +2512,7 @@ def check_mixed_milc(u, b, lattice, vvl):
             del got, c16, prod, pl, xs, rs, ps, ap16, pp, up
             torch.cuda.empty_cache()
             continue
-        fix = cancel_field(24, V, psi.device)
+        fix = reduce.cancel_field(24, V, psi.device)
         comp_err = oracle_err(reduce.reduce_sites(fix, "sum", vvl, compensated=True), fix,
                               "P1 the cancellation fixture, compensated")
         plain_ratio = beyond_oracle(reduce.reduce_sites(fix, "sum", vvl), fix,
@@ -2332,11 +2560,13 @@ def check_mixed_milc(u, b, lattice, vvl):
             free_ms=time_ms(lambda: fuse.cg_update_masked(*st, apb, a_b, -a_b, m_b, vvl)))
         del st, ap16b, apb
         nb = -(-V // vvl)
-        pairs = fold_pairs(nb, 24, psi.device)
+        pairs = reduce.fold_pairs(nb, 24, psi.device)
         hi = pairs[..., 0].contiguous()   # the policy-free fold's rows
         pair_terms = pairs.permute(1, 0, 2).reshape(24, -1)
         ferr = oracle_err(reduce.fold_partials(pairs, "sum", compensated=True), pair_terms,
                           "P1 reduce_fold_comp")
+        tree_err(reduce.fold_partials(pairs, "sum", compensated=True),
+                 reduce.fold_tree(pairs, compensated=True), "P1 reduce_fold_comp")
         lo_ratio = beyond_oracle(reduce.fold_partials(hi, "sum"), pair_terms,
                                  "P1 the fold of the his alone (lo dropped)")
         log(f"  reduce_fold_comp on pairs whose lo carries the sum: err {ferr:.3e}; the "
@@ -2374,6 +2604,7 @@ def check_mixed_ludwig(state, cfg, vvl):
     lat, V = cfg.lattice, math.prod(cfg.lattice)
     inp = ludwig_inputs(state, vvl)
     dist, force, tau = inp["dist"], inp["force"], cfg.tau
+    dist_tree = reduce.reduce_tree(dist, compensated=True)
     rows, extra = {}, {}
     for spec in P1_LAYOUTS:
         lay = parse_layout(spec)
@@ -2392,8 +2623,9 @@ def check_mixed_ludwig(state, cfg, vvl):
         for o in ("dist2", "u"):
             bits_err(f32[o].data, free[o].data, f"P1 {spec} lb step {o} under fp32 storage")
         del free, f32
-        derr = oracle_err(reduce.reduce_sites(d, "sum", vvl, layouts={"x": lay}, compensated=True),
-                          dist, f"P1 {spec} the compensated sum of dist")
+        got_c = reduce.reduce_sites(d, "sum", vvl, layouts={"x": lay}, compensated=True)
+        derr = oracle_err(got_c, dist, f"P1 {spec} the compensated sum of dist")
+        tree_err(got_c, dist_tree, f"P1 {spec} the compensated sum of dist")
         log(f"  {spec}: lb_step policy (bf16) dist2 and u within one bf16 ulp, fp32 storage "
             f"bitwise the policy-free step, the compensated sum of dist within the oracle bound")
         if lay == SOA:
@@ -2648,7 +2880,7 @@ def main():
         u, b = init_problem(cfg, seed=0)
         gen_s = time.perf_counter() - t0
         lib, build_s = built.result()
-        ptxas, parent_lib = flash_tools.result()
+        ptxas, parent_lib, parent_k12 = flash_tools.result()
     _cuda.library()
     log(f"build: {build_s:.1f} s ({lib.name}); problem {lattice} generated and "
         f"uploaded in {gen_s:.1f} s")
@@ -2656,6 +2888,11 @@ def main():
     # 3. every kernel against its plain version
     log(f"kernels at {lattice}, vvl {vvl} (V = {math.prod(lattice)}):")
     rows = check_kernels(u, b, lattice, vvl)
+    # Q1. K1 and K2 in turns with the parent's design, where its tree is unpacked
+    parent = ParentK12(parent_k12, vvl) if parent_k12 else None
+    turns = milc_turns(parent, b, vvl) if parent else {}
+    if not parent:
+        log(f"Q1, Q2: no parent tree under {PARENT_SRC}; the parent's K1 and K2 are not timed")
 
     # 4. the main path, counted
     reset_counts()
@@ -2738,6 +2975,9 @@ def main():
     # L2. every Ludwig kernel against its plain version
     log(f"ludwig kernels at {lcfg.lattice}, vvl {lcfg.target.vvl}:")
     lrows = check_ludwig_kernels(state, lcfg, lcfg.target.vvl)
+    # Q2. the Ludwig shapes in turns with the parent's K2
+    if parent:
+        turns.update(ludwig_turns(parent, state, lcfg.target.vvl))
 
     # L3. the Ludwig step, counted
     after_steps, last, lcounts, l3_ms = run_ludwig(state, lcfg)
@@ -2841,6 +3081,8 @@ def main():
              + table_rows(MIXED_SUM_PATH, sumcounts, lmrows))
     print(json.dumps(layouts_line))
     print(json.dumps(serve_line))
+    if turns:
+        print(json.dumps({"redesign": {"card": smi, "kernels": turns}}))
     print(json.dumps(mixed_line))
     print(json.dumps({"kernels": table}))
     print(json.dumps({"ok": True, "device": {

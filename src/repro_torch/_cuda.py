@@ -23,6 +23,7 @@ import ctypes
 import functools
 import hashlib
 import os
+import re
 import shutil
 import subprocess
 from pathlib import Path
@@ -30,7 +31,7 @@ from pathlib import Path
 import torch
 
 __all__ = ["Kernel", "build", "library", "check_tensor", "check_field", "check_batched_field",
-           "smem_per_block_optin", "CSRC", "BUILD_DIR", "NVCC_FLAGS"]
+           "smem_per_block_optin", "csrc_define", "CSRC", "BUILD_DIR", "NVCC_FLAGS"]
 
 CSRC = Path(__file__).resolve().parent / "csrc"
 BUILD_DIR = Path(__file__).resolve().parents[2] / "build" / "repro_torch"
@@ -47,17 +48,18 @@ _F = ctypes.c_float
 _D = ctypes.c_int       # a layout descriptor (Layout.descriptor())
 
 # C signature of every entry point (all return the launch's cudaError_t as
-# int; the trailing _I, _P are the block size and the stream).
+# int; the trailing _P is the stream, an _I before it the block size where
+# the kernel takes the plan's vvl as its block).
 SIGNATURES = {
-    "rt_site_g5": (_P, _P, _I, _L, _I, _D, _D, _I, _P),
-    "rt_site_mul": (_P, _P, _P, _I, _L, _I, _L, _L, _D, _D, _D, _I, _P),
-    "rt_site_axpy": (_F, _P, _P, _P, _I, _L, _D, _D, _D, _I, _P),
-    "rt_reduce_partials": (_P, _P, _I, _L, _I, _D, _I, _P),
-    "rt_reduce_fold": (_P, _P, _L, _I, _I, _P),
-    "rt_reduce_partials_batched": (_P, _P, _I, _L, _I, _I, _D, _I, _P),
-    "rt_reduce_fold_batched": (_P, _P, _L, _I, _I, _I, _P),
-    "rt_reduce_partials_comp": (_P, _P, _I, _L, _I, _D, _I, _P),
-    "rt_reduce_fold_comp": (_P, _P, _L, _I, _I, _P),
+    "rt_site_g5": (_P, _P, _I, _L, _I, _D, _D, _P),
+    "rt_site_mul": (_P, _P, _P, _I, _L, _I, _L, _L, _D, _D, _D, _P),
+    "rt_site_axpy": (_F, _P, _P, _P, _I, _L, _D, _D, _D, _P),
+    "rt_reduce_partials": (_P, _P, _I, _L, _I, _D, _P),
+    "rt_reduce_fold": (_P, _P, _P, _L, _I, _I, _P),
+    "rt_reduce_partials_batched": (_P, _P, _I, _L, _I, _I, _D, _P),
+    "rt_reduce_fold_batched": (_P, _P, _P, _L, _I, _I, _I, _P),
+    "rt_reduce_partials_comp": (_P, _P, _I, _L, _I, _D, _P),
+    "rt_reduce_fold_comp": (_P, _P, _P, _L, _I, _I, _P),
     "rt_cg_update": (_P, _P, _P, _P, _P, _P, _P, _P, _P, _L, *(_D,) * 6, _I, _P),
     "rt_cg_xpay": (_P, _P, _P, _P, _I, _L, _D, _D, _D, _I, _P),
     "rt_cg_update_masked": (*(_P,) * 10, _L, _I, _L, _L, _L, _L, *(_D,) * 6, _I, _P),
@@ -166,7 +168,25 @@ def library() -> ctypes.CDLL:
     lib.rt_error_string.restype = ctypes.c_char_p
     lib.rt_smem_per_block_optin.argtypes = [ctypes.c_int]
     lib.rt_smem_per_block_optin.restype = ctypes.c_int
+    lib.rt_reduce_fold_scratch.argtypes = [_L, _I]
+    lib.rt_reduce_fold_scratch.restype = ctypes.c_longlong
+    chunk = csrc_define("reduce.cu", "RT_REDUCE_CHUNK")
+    if lib.rt_reduce_chunk() != chunk:
+        raise RuntimeError(f"{lib._name}: rt_reduce_chunk() is {lib.rt_reduce_chunk()}, "
+                           f"reduce.cu defines {chunk}: a stale build")
     return lib
+
+
+@functools.lru_cache(maxsize=None)
+def csrc_define(source: str, name: str) -> int:
+    """The integer a ``#define name <int>`` of ``csrc/<source>`` sets: the
+    kernels' geometry constants, read by the Python code that must agree
+    with them (partial-table sizes, the tree emulation) from the one place
+    they are defined."""
+    m = re.search(rf"^#define {name} (\d+)\b", (CSRC / source).read_text(), re.M)
+    if m is None:
+        raise RuntimeError(f"csrc/{source} defines no integer {name}")
+    return int(m.group(1))
 
 
 @functools.lru_cache(maxsize=None)

@@ -3,22 +3,29 @@
 A per-component sum or max over all sites of a Field.  The torch engine
 folds the canonical tensor; the cuda engine runs K2 (``csrc/reduce.cu``),
 which replaces ``core/reduce.py::_reduce`` of the JAX package: pass 1
-reads the Field in its own layout (SoA, AoS or AoSoA, through INDEX) and
-writes per-block partial rows, pass 2 folds them in a fixed order.  A
-block folds the same sites in the same order in every layout, so the sums
-are bitwise the SoA ones.  The Pallas kernel's "initialise at program 0,
-then read-modify-write across the grid" is a race on concurrent CUDA
-blocks and is not carried over; there are no atomics, so a fixed plan
-gives the same bits on every run, and max is exact.
+reads the Field in its own layout (SoA, AoS or AoSoA) and writes one
+partial row per chunk of :data:`CHUNK` sites, pass 2 folds a table of
+partial rows.  Both fold in one fixed order, a function of the
+(component, site) pairs alone, so a sum's bits depend on ncomp and nsites
+and on nothing else: not the layout, the plan's vvl or the run.  The
+Pallas kernel's "initialise at program 0, then read-modify-write across
+the grid" is a race on concurrent CUDA blocks and is not carried over;
+there are no atomics, and max is exact.
+
+:func:`reduce_tree` and :func:`fold_tree` repeat K2's adds in K2's order
+as elementwise fp32 tensor adds (exact IEEE arithmetic on either device:
+these sums hold no products to contract): the card tests and
+``chip_smoke.py`` hold the kernels bitwise to them.  Nothing on the main
+path calls them.  :func:`cancel_field` and :func:`fold_pairs` are the
+cancellation fixtures built on that tree.
 
 Under a DtypePolicy (``TargetConfig.dtypes`` or the plan's) whose
 accumulate slot resolves to compensated fp32 (``core.plan.
 resolve_accumulate``), a float sum accumulates compensated: on "cuda"
-through K2's compensated instance (pass 1 writes a (hi, lo) pair a block
-and component, pass 2 folds the pairs in a fixed order); on "torch" in
-fp64, rounded once to fp32, the plain version that both the kernel and the
-JAX package's Kahan scan are held to.  Max and integer sums ignore the
-policy.
+through K2's compensated instance (the same partition and trees over
+(hi, lo) pairs); on "torch" in fp64, rounded once to fp32, the plain
+version that both the kernel and the JAX package's Kahan scan are held
+to.  Max and integer sums ignore the policy.
 
 A BatchedField reduces to ``(batch, ncomp)``, each row bitwise the
 single-Field reduction of its slot: on "cuda" through K2B, K2 with the slot
@@ -38,7 +45,7 @@ from typing import Optional
 
 import torch
 
-from .._cuda import Kernel, check_batched_field, check_field, check_tensor
+from .._cuda import Kernel, check_batched_field, check_field, check_tensor, csrc_define
 from .field import BatchedField
 from .layout import resolve_layouts
 from .plan import plan_for_launch, resolve_accumulate
@@ -46,8 +53,10 @@ from .target import TargetConfig, require_cuda
 
 __all__ = ["target_sum", "target_max", "reduce_sites", "fold_partials",
            "reduce_sites_batched", "fold_partials_batched", "fold_components",
-           "compensated_plain", "REDUCE_SUM", "REDUCE_MAX", "REDUCE_FOLD", "REDUCE_SUM_B",
-           "REDUCE_MAX_B", "REDUCE_FOLD_B", "REDUCE_SUM_C", "REDUCE_FOLD_C"]
+           "compensated_plain", "partial_rows", "fold_scratch", "partials_tree", "fold_tree",
+           "reduce_tree",
+           "cancel_field", "fold_pairs", "CHUNK", "REDUCE_SUM", "REDUCE_MAX", "REDUCE_FOLD",
+           "REDUCE_SUM_B", "REDUCE_MAX_B", "REDUCE_FOLD_B", "REDUCE_SUM_C", "REDUCE_FOLD_C"]
 
 _OPS = {"sum": 0, "max": 1}
 
@@ -60,6 +69,21 @@ REDUCE_FOLD_B = Kernel("reduce_fold_batched", "rt_reduce_fold_batched")
 # K2's compensated instance, single and batched (one slot a grid row)
 REDUCE_SUM_C = Kernel("reduce_sum_comp", "rt_reduce_partials_comp")
 REDUCE_FOLD_C = Kernel("reduce_fold_comp", "rt_reduce_fold_comp")
+
+# K2's geometry, read from the #defines of csrc/reduce.cu (the library
+# reports its chunk at load and _cuda.library() refuses a mismatch)
+CHUNK = csrc_define("reduce.cu", "RT_REDUCE_CHUNK")          # sites a pass-1 row folds
+_THREADS = csrc_define("reduce.cu", "RT_REDUCE_THREADS")     # virtual threads a chunk
+_STEPS = CHUNK // (4 * _THREADS)                             # float4 steps a thread
+_FOLD_THREADS = csrc_define("reduce.cu", "RT_FOLD_THREADS")  # pass 2, level 1
+_FOLD_THREADS_ONE = csrc_define("reduce.cu", "RT_FOLD_THREADS_ONE")   # level 2
+_FOLD_ITERS = csrc_define("reduce.cu", "RT_FOLD_ITERS")
+_FOLD_ITERS_ONE = csrc_define("reduce.cu", "RT_FOLD_ITERS_ONE")
+
+
+def partial_rows(nsites: int) -> int:
+    """The rows of pass 1's partial table for ``nsites`` sites."""
+    return -(-nsites // CHUNK)
 
 
 def reduce_plain(x: torch.Tensor, op: str, dim: int = 1) -> torch.Tensor:
@@ -94,55 +118,239 @@ def fold_components(v: torch.Tensor) -> torch.Tensor:
     return v[..., 0]
 
 
-def _fold_pairs(partials: torch.Tensor) -> torch.Tensor:
-    """K2's compensated pass 2: (batch, nblocks, ncomp, 2) (hi, lo) pairs ->
-    (batch, ncomp)."""
-    if partials.device.type == "cpu":
-        return partials.to(torch.float64).sum(dim=(1, 3)).to(torch.float32)
+# -- K2's trees, emulated ------------------------------------------------------------
+#
+# A value is a tensor with a trailing word axis: one word (plain) or two,
+# (hi, lo) (compensated, comp.cuh's rt_pair_add).
+
+def _pair_add(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
+    """comp.cuh's rt_pair_add: TwoSum of the his, the error into the los."""
+    ah, al, bh, bl = a[..., 0], a[..., 1], b[..., 0], b[..., 1]
+    s = ah + bh
+    bv = s - ah
+    av = s - bv
+    e = (ah - av) + (bh - bv)
+    lo = (al + bl) + e
+    hi = s + lo
+    return torch.stack([hi, lo - (hi - s)], dim=-1)
+
+
+class _Monoid:
+    def __init__(self, op: str, compensated: bool):
+        _check_op(op)
+        if compensated and op != "sum":
+            raise ValueError("a compensated reduction is a sum")
+        self.comp, self.op = compensated, op
+        self.pad = float("-inf") if op == "max" else 0.0   # the identity's value
+
+    def add(self, a, b):
+        if self.comp:
+            return _pair_add(a, b)
+        return torch.maximum(a, b) if self.op == "max" else a + b
+
+    def of(self, v):
+        """Values -> words (v, 0) or (v,)."""
+        return torch.stack([v, torch.zeros_like(v)], -1) if self.comp else v[..., None]
+
+
+def _warp_fold(m: _Monoid, x: torch.Tensor) -> torch.Tensor:
+    """rt_fold_warp over the lane axis (-2, 32 lanes): lane l adds lane
+    l + off (its own value where that is past 31), off = 16, 8, 4, 2, 1;
+    returns lane 0."""
+    lanes = torch.arange(32, device=x.device)
+    for off in (16, 8, 4, 2, 1):
+        x = m.add(x, x[..., torch.where(lanes + off < 32, lanes + off, lanes), :])
+    return x[..., 0, :]
+
+
+def partials_tree(x: torch.Tensor, op: str = "sum", compensated: bool = False) -> torch.Tensor:
+    """K2's pass 1 on canonical fields ``x`` (..., ncomp, nsites) fp32:
+    the partial table (..., partial_rows(nsites), ncomp), or (..., rows,
+    ncomp, 2) (hi, lo) pairs where ``compensated``."""
+    m = _Monoid(op, compensated)
+    *lead, ncomp, nsites = x.shape
+    rows = partial_rows(nsites)
+    v = torch.nn.functional.pad(x, (0, rows * CHUNK - nsites), value=m.pad)
+    v = m.of(v.reshape(*lead, ncomp, rows, _STEPS, _THREADS, 4))
+    q = m.add(m.add(v[..., 0, :], v[..., 1, :]), m.add(v[..., 2, :], v[..., 3, :]))
+    a0, a1 = q[..., 0, :, :], q[..., 1, :, :]
+    for j in range(2, _STEPS, 2):
+        a0 = m.add(a0, q[..., j, :, :])
+        a1 = m.add(a1, q[..., j + 1, :, :])
+    w = _warp_fold(m, m.add(a0, a1).reshape(*lead, ncomp, rows, _THREADS // 32, 32, -1))
+    part = m.add(w[..., 0, :], w[..., 1, :]).transpose(-3, -2)   # (..., rows, ncomp, words)
+    return part if compensated else part[..., 0]
+
+
+def _fold_level(m: _Monoid, p: torch.Tensor, r: int, slab_rows: int) -> torch.Tensor:
+    """One launch of pass 2: (..., nrows, ncomp, words) -> (..., nslabs,
+    ncomp, words).  Thread (r, c) folds rows r, r + R, ... of its slab from
+    the identity, the slab and the table padded with it; then the R
+    threads of a column fold in the tree n -> h = ceil(n / 2)."""
+    *lead, nrows, ncomp, words = p.shape
+    nslabs = max(1, -(-nrows // slab_rows))
+    nit = -(-slab_rows // r)
+    ident = m.of(torch.full((), m.pad, dtype=p.dtype, device=p.device))
+    p = torch.cat([p, ident.expand(*lead, nslabs * slab_rows - nrows, ncomp, words)], dim=-3)
+    p = p.reshape(*lead, nslabs, slab_rows, ncomp, words)
+    p = torch.cat([p, ident.expand(*lead, nslabs, nit * r - slab_rows, ncomp, words)], dim=-3)
+    p = p.reshape(*lead, nslabs, nit, r, ncomp, words)
+    acc = ident.expand(*lead, nslabs, r, ncomp, words)
+    for it in range(nit):
+        acc = m.add(acc, p[..., it, :, :, :])
+    n = r
+    while n > 1:
+        h = (n + 1) // 2
+        acc = torch.cat([m.add(acc[..., :n - h, :, :], acc[..., h:n, :, :]),
+                         acc[..., n - h:h, :, :]], dim=-3)
+        n = h
+    return acc[..., 0, :, :]
+
+
+def _fold_plan(nrows: int, ncomp: int):
+    """Pass 2's plan for a table of nrows x ncomp (rt_fold_plan of
+    csrc/reduce.cu): (R1, R2, level 1's slab rows, 0 where one launch of
+    level 2 folds the table)."""
+    if ncomp > _FOLD_THREADS_ONE:
+        raise ValueError(f"K2's fold takes at most {_FOLD_THREADS_ONE} components, got {ncomp}")
+    r1, r2 = max(1, _FOLD_THREADS // ncomp), max(1, _FOLD_THREADS_ONE // ncomp)
+    return r1, r2, (0 if nrows <= r2 * _FOLD_ITERS_ONE else r1 * _FOLD_ITERS)
+
+
+def fold_scratch(nrows: int, ncomp: int) -> int:
+    """The values (pairs, where compensated) of pass 2's scratch a slot:
+    level 1's rows x ncomp (rt_reduce_fold_scratch of csrc/reduce.cu)."""
+    slab = _fold_plan(nrows, ncomp)[2]
+    return -(-nrows // slab) * ncomp if slab else 0
+
+
+def fold_tree(partials: torch.Tensor, op: str = "sum", compensated: bool = False) -> torch.Tensor:
+    """K2's pass 2 on a partial table (..., nrows, ncomp) fp32, or (...,
+    nrows, ncomp, 2) pairs where ``compensated`` -> (..., ncomp): level 1 on
+    slabs of RT_FOLD_ITERS x R1 rows where the table has more than
+    RT_FOLD_ITERS_ONE x R2 rows, then level 2, one slab."""
+    m = _Monoid(op, compensated)
+    p = partials if compensated else partials[..., None]
+    r1, r2, slab = _fold_plan(p.shape[-3], p.shape[-2])
+    if slab:
+        p = _fold_level(m, p, r1, slab)
+    return _fold_level(m, p, r2, max(p.shape[-3], 1))[..., 0, :, 0]
+
+
+def reduce_tree(x: torch.Tensor, op: str = "sum", compensated: bool = False) -> torch.Tensor:
+    """K2, both passes, on canonical fields (..., ncomp, nsites) ->
+    (..., ncomp): the kernel's bits (``compensated``: its compensated
+    instance's)."""
+    return fold_tree(partials_tree(x, op, compensated), op, compensated)
+
+
+# -- the cancellation fixtures ---------------------------------------------------------
+
+CANCEL_BIG, CANCEL_FILL = 2.0 ** 26 + 8, 3.9375
+
+
+def cancel_field(ncomp: int, nsites: int, device=None) -> torch.Tensor:
+    """The cancellation fixture (ncomp, nsites), nsites a multiple of
+    CHUNK.  In every chunk, +CANCEL_BIG at virtual thread 0's first site and
+    -CANCEL_BIG at thread 32's, and CANCEL_FILL at each site pass 1 adds to
+    one of them on its own before the two meet in the last add (w0 + w1):
+    the thread's second and third site, its first site of steps 1 (a1's
+    only value) and 2, 4, ..., 14 (added to a0), and the first site of
+    threads 1, 2, 4, 8, 16 (the shuffle tree's partners of lane 0), each in
+    both warps; every other site is 0.
+    CANCEL_FILL is under half an ulp of CANCEL_BIG (8), so the plain K2 adds
+    each to a big value and loses it: every chunk's partial is 0 while the
+    sum is 30 x 3.9375 a chunk, 3.52 x the oracle bound at any size.  A
+    compensated fold keeps every filler in its los."""
+    if nsites % CHUNK:
+        raise ValueError(f"cancel_field: nsites {nsites} is not a multiple of {CHUNK}")
+    x = torch.zeros((ncomp, nsites // CHUNK, _STEPS, _THREADS, 4), device=device)
+    for t0, sign in ((0, 1.0), (32, -1.0)):
+        x[:, :, 0, t0, 0] = sign * CANCEL_BIG
+        x[:, :, 0, t0, 1:3] = CANCEL_FILL
+        x[:, :, 1, t0, 0] = CANCEL_FILL      # a1's only filler
+        x[:, :, 2::2, t0, 0] = CANCEL_FILL   # a0's, one at a time
+        x[:, :, 0, [t0 + 1, t0 + 2, t0 + 4, t0 + 8, t0 + 16], 0] = CANCEL_FILL
+    return x.reshape(ncomp, nsites)
+
+
+def fold_pairs(nrows: int, ncomp: int, device=None) -> torch.Tensor:
+    """(nrows, ncomp, 2) (hi, lo) pairs for K2's compensated pass 2: hi an
+    integer whose sign alternates over the rows, so the his cancel, and lo
+    a multiple of 2^-10 that does not cancel.  Every partial sum is exact in
+    fp32 in any order, so the fold is exact, and a fold that dropped lo
+    would return at most 4, about 2^-10 x nrows from the fp64 sum, far
+    beyond the oracle bound."""
+    k = torch.arange(nrows, device=device)[:, None]
+    c = torch.arange(ncomp, device=device)[None, :]
+    hi = (1.0 - 2.0 * (k % 2)) * (1 + c % 4)
+    lo = (1 + (k + c) % 3) * 2.0 ** -10
+    return torch.stack([hi.float(), lo.float()], dim=-1)
+
+
+# -- the kernel wrappers ----------------------------------------------------------------
+
+def _fold_cuda(partials: torch.Tensor, op: str, compensated: bool,
+               batched: bool = True) -> torch.Tensor:
+    """K2's pass 2 on the card: (batch, nrows, ncomp[, 2]) -> (batch, ncomp);
+    ``batched`` False: K2's single fold, (nrows, ncomp[, 2]) -> (ncomp,).
+    One allocation holds the result and the scratch."""
     check_tensor("partials", partials, partials.shape, partials.device)
-    batch, nblocks, ncomp, _ = partials.shape
-    out = torch.empty((batch, ncomp), dtype=torch.float32, device=partials.device)
-    REDUCE_FOLD_C.launch(partials.device, partials.data_ptr(), out.data_ptr(), nblocks, ncomp,
-                         batch)
+    rank = 2 + batched + compensated
+    if partials.dim() != rank or (compensated and partials.shape[-1] != 2):
+        raise ValueError(f"partials: shape {tuple(partials.shape)}, expected "
+                         f"{'(batch, ' if batched else '('}nrows, ncomp"
+                         f"{', 2)' if compensated else ')'}")
+    batch = partials.shape[0] if batched else 1
+    nrows, ncomp = partials.shape[1:3] if batched else partials.shape[:2]
+    words = 2 if compensated else 1
+    buf = torch.empty(batch * (ncomp + words * fold_scratch(nrows, ncomp)),
+                      dtype=torch.float32, device=partials.device)
+    out = buf[:batch * ncomp].view((batch, ncomp) if batched else (ncomp,))
+    args = (partials.data_ptr(), buf.data_ptr(), buf.data_ptr() + 4 * batch * ncomp, nrows, ncomp)
+    if compensated:
+        REDUCE_FOLD_C.launch(partials.device, *args, batch)
+    elif not batched:
+        REDUCE_FOLD.launch(partials.device, *args, _OPS[op])
+    else:
+        REDUCE_FOLD_B.launch(partials.device, *args, batch, _OPS[op])
     return out
+
+
+def _fold_pairs(partials: torch.Tensor, batched: bool = True) -> torch.Tensor:
+    """K2's compensated pass 2: (batch, nrows, ncomp, 2) (hi, lo) pairs ->
+    (batch, ncomp); ``batched`` False: (nrows, ncomp, 2) -> (ncomp,)."""
+    if partials.device.type == "cpu":
+        return partials.to(torch.float64).sum(dim=(-3, -1)).to(torch.float32)
+    return _fold_cuda(partials, "sum", True, batched)
 
 
 def fold_partials(partials: torch.Tensor, op: str, compensated: bool = False) -> torch.Tensor:
-    """K2 pass 2: (nblocks, ncomp) partial rows -> (ncomp,), folded in a
-    fixed order; ``compensated``: (nblocks, ncomp, 2) (hi, lo) pairs, folded
+    """K2 pass 2: (nrows, ncomp) partial rows -> (ncomp,), folded in a
+    fixed order; ``compensated``: (nrows, ncomp, 2) (hi, lo) pairs, folded
     by the compensated instance."""
     _check_op(op)
     if compensated:
-        return _fold_pairs(partials[None])[0]
+        return _fold_pairs(partials, batched=False)
     if partials.device.type == "cpu":
         return reduce_plain(partials, op, dim=0)
-    check_tensor("partials", partials, partials.shape, partials.device)
-    nblocks, ncomp = partials.shape
-    out = torch.empty(ncomp, dtype=partials.dtype, device=partials.device)
-    REDUCE_FOLD.launch(partials.device, partials.data_ptr(), out.data_ptr(),
-                       nblocks, ncomp, _OPS[op])
-    return out
+    return _fold_cuda(partials, op, False, batched=False)
 
 
 def fold_partials_batched(partials: torch.Tensor, op: str,
                           compensated: bool = False) -> torch.Tensor:
-    """K2B pass 2: (batch, nblocks, ncomp) partial rows -> (batch, ncomp),
+    """K2B pass 2: (batch, nrows, ncomp) partial rows -> (batch, ncomp),
     row b folded as :func:`fold_partials` folds slot b's table
-    (``compensated``: (batch, nblocks, ncomp, 2) pairs)."""
+    (``compensated``: (batch, nrows, ncomp, 2) pairs)."""
     _check_op(op)
     if compensated:
         return _fold_pairs(partials)
     if partials.device.type == "cpu":
         return torch.stack([reduce_plain(p, op, dim=0) for p in partials])
-    check_tensor("partials", partials, partials.shape, partials.device)
-    batch, nblocks, ncomp = partials.shape
-    out = torch.empty((batch, ncomp), dtype=partials.dtype, device=partials.device)
-    REDUCE_FOLD_B.launch(partials.device, partials.data_ptr(), out.data_ptr(), nblocks, ncomp,
-                         batch, _OPS[op])
-    return out
+    return _fold_cuda(partials, op, False)
 
 
-def _sum_compensated(x: torch.Tensor, lay, vvl: int) -> torch.Tensor:
+def _sum_compensated(x: torch.Tensor, lay) -> torch.Tensor:
     """K2's compensated instance over ``batch`` stacked fields (batch,) +
     physical -> (batch, ncomp)."""
     if x.device.type == "cpu":
@@ -150,9 +358,9 @@ def _sum_compensated(x: torch.Tensor, lay, vvl: int) -> torch.Tensor:
     batch = x.shape[0]
     ncomp, nsites = lay.logical_shape(x.shape[1:])
     lx = check_batched_field("x", x, lay, ncomp, nsites, batch, x.device)
-    partials = torch.empty((batch, -(-nsites // vvl), ncomp, 2), dtype=x.dtype, device=x.device)
-    REDUCE_SUM_C.launch(x.device, x.data_ptr(), partials.data_ptr(), ncomp, nsites, batch, lx,
-                        vvl)
+    partials = torch.empty((batch, partial_rows(nsites), ncomp, 2), dtype=x.dtype,
+                           device=x.device)
+    REDUCE_SUM_C.launch(x.device, x.data_ptr(), partials.data_ptr(), ncomp, nsites, batch, lx)
     return _fold_pairs(partials)
 
 
@@ -161,20 +369,21 @@ def reduce_sites_batched(x: torch.Tensor, op: str, vvl: int = 128, *,
     """K2B: ``batch`` fields stacked on a leading axis (a BatchedField's
     data, each in ``layouts["x"]``) -> per-slot, per-component sum or max,
     (batch, ncomp), each row bitwise :func:`reduce_sites` of its slot.
-    ``compensated`` (a sum only): K2's compensated instance."""
+    ``compensated`` (a sum only): K2's compensated instance.  ``vvl`` does
+    not shape K2 (its chunk is :data:`CHUNK`); the wrappers of every
+    lattice kernel take the plan's."""
     _check_op(op)
     lay = resolve_layouts(layouts, ("x",), ())["x"]
     if compensated:
-        return _sum_compensated(x, lay, vvl)
+        return _sum_compensated(x, lay)
     if x.device.type == "cpu":
         return torch.stack([reduce_plain(lay.unpack(e), op) for e in x])
     batch = x.shape[0]
     ncomp, nsites = lay.logical_shape(x.shape[1:])
     lx = check_batched_field("x", x, lay, ncomp, nsites, batch, x.device)
-    partials = torch.empty((batch, -(-nsites // vvl), ncomp), dtype=x.dtype, device=x.device)
+    partials = torch.empty((batch, partial_rows(nsites), ncomp), dtype=x.dtype, device=x.device)
     kern = REDUCE_SUM_B if op == "sum" else REDUCE_MAX_B
-    kern.launch(x.device, x.data_ptr(), partials.data_ptr(), ncomp, nsites, batch, _OPS[op],
-                lx, vvl)
+    kern.launch(x.device, x.data_ptr(), partials.data_ptr(), ncomp, nsites, batch, _OPS[op], lx)
     return fold_partials_batched(partials, op)
 
 
@@ -182,19 +391,19 @@ def reduce_sites(x: torch.Tensor, op: str, vvl: int = 128, *, layouts=None,
                  compensated: bool = False) -> torch.Tensor:
     """K2: a field ``x`` (physical, in ``layouts["x"]``, SoA when not
     named) -> per-component sum or max, (ncomp,).  ``compensated`` (a sum
-    only): K2's compensated instance (one slot of its batch grid)."""
+    only): K2's compensated instance (one slot of its batch grid).  ``vvl``
+    as :func:`reduce_sites_batched`."""
     _check_op(op)
     lay = resolve_layouts(layouts, ("x",), ())["x"]
     if compensated:
-        return _sum_compensated(x[None], lay, vvl)[0]
+        return _sum_compensated(x[None], lay)[0]
     if x.device.type == "cpu":
         return reduce_plain(lay.unpack(x), op)
     ncomp, nsites = lay.logical_shape(x.shape)
     lx = check_field("x", x, lay, ncomp, nsites, x.device)
-    partials = torch.empty((-(-nsites // vvl), ncomp), dtype=x.dtype, device=x.device)
+    partials = torch.empty((partial_rows(nsites), ncomp), dtype=x.dtype, device=x.device)
     kern = REDUCE_SUM if op == "sum" else REDUCE_MAX
-    kern.launch(x.device, x.data_ptr(), partials.data_ptr(), ncomp, nsites,
-                _OPS[op], lx, vvl)
+    kern.launch(x.device, x.data_ptr(), partials.data_ptr(), ncomp, nsites, _OPS[op], lx)
     return fold_partials(partials, op)
 
 

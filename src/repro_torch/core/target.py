@@ -91,7 +91,9 @@ AXPY = Kernel("axpy", "rt_site_axpy")
 # its tensor names to their Layouts (an input not named is SoA, an output
 # not named takes the first input's layout), and returns physical tensors
 # in the outputs' layouts.  On a CPU tensor it runs its plain version:
-# unpack, the torch arithmetic, pack.
+# unpack, the torch arithmetic, pack.  ``vvl`` does not shape K1 (its
+# blocks are its own, csrc/site_local.cu); the wrappers of every lattice
+# kernel take the plan's.
 
 
 def g5_plain(x: torch.Tensor, flip_from: int, layouts=None) -> torch.Tensor:
@@ -112,7 +114,7 @@ def site_g5(x: torch.Tensor, flip_from: int, vvl: int = 128, *, layouts=None) ->
     lx = check_field("x", x, lay["x"], ncomp, nsites, x.device)
     out = torch.empty(lay["out"].physical_shape(ncomp, nsites), dtype=x.dtype, device=x.device)
     G5.launch(x.device, x.data_ptr(), out.data_ptr(), ncomp, nsites, flip_from, lx,
-              lay["out"].descriptor(), vvl)
+              lay["out"].descriptor())
     return out
 
 
@@ -178,7 +180,7 @@ def site_mul(x: torch.Tensor, y: torch.Tensor, vvl: int = 128, *, layouts=None,
         shape = (batch,) + lay["out"].physical_shape(ncomp, nsites)
     out = torch.empty(shape, dtype=x.dtype, device=x.device)
     MUL.launch(x.device, x.data_ptr(), y.data_ptr(), out.data_ptr(), ncomp, nsites,
-               1 if batch is None else batch, sx, sy, lx, ly, lay["out"].descriptor(), vvl)
+               1 if batch is None else batch, sx, sy, lx, ly, lay["out"].descriptor())
     return out
 
 
@@ -194,7 +196,7 @@ def site_axpy(a: float, x: torch.Tensor, y: torch.Tensor, vvl: int = 128, *,
     ly = check_field("y", y, lay["y"], ncomp, nsites, x.device)
     out = torch.empty(lay["out"].physical_shape(ncomp, nsites), dtype=x.dtype, device=x.device)
     AXPY.launch(x.device, float(a), x.data_ptr(), y.data_ptr(), out.data_ptr(), ncomp, nsites,
-                lx, ly, lay["out"].descriptor(), vvl)
+                lx, ly, lay["out"].descriptor())
     return out
 
 

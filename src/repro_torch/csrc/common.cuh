@@ -72,7 +72,8 @@ __device__ __forceinline__ void rt_block_partials(const float (&v)[NCOMP], int o
 // The host passes each tensor's layout as one int (Layout.descriptor() in
 // core/layout.py): kind | SAL << 2.  A kernel keeps one thread on one site
 // (or one element) in every layout; only the address changes, so a block
-// folds the same sites in the same order whatever the layout.
+// folds the same sites in the same order whatever the layout (K2 keeps one
+// canonical fold order with two block shapes, reduce.cu).
 //
 // Every lattice kernel is a template on the launch's layout class K
 // (rt_launch_class): RT_K_SOA, RT_K_AOS and RT_K_AOSOA when every tensor of

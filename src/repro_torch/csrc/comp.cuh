@@ -11,7 +11,7 @@
 // parts (exact) with the low parts added to its error, then renormalise
 // (hi = fl(hi + lo)).  Each block folds its sites into one pair a component
 // in a fixed tree (warp shuffles, then the warps in order); reduce.cu's
-// compensated pass 2 folds the blocks' pairs in a fixed order.  No atomics:
+// compensated passes fold pairs in its fixed trees.  No atomics:
 // a fixed plan gives the same bits on every run.  The error of the result
 // is a few fp32 ulps of the sum plus O(eps^2) of the sum of |x|, against
 // Kahan's 2 eps of the sum of |x|.
@@ -71,18 +71,4 @@ __device__ __forceinline__ void rt_block_partials_comp(const float (&v)[NCOMP],
     partials[((long long)blockIdx.x * NCOMP + c) * 2] = acc.hi;
     partials[((long long)blockIdx.x * NCOMP + c) * 2 + 1] = acc.lo;
   }
-}
-
-// Fold one pair a thread over the block; the result is valid in thread 0.
-__device__ __forceinline__ rt_pair rt_block_fold_pair(rt_pair x) {
-  __shared__ rt_pair smem[RT_MAX_WARPS];
-  const int lane = threadIdx.x & 31;
-  const int warp = threadIdx.x >> 5;
-  x = rt_warp_fold_pair(x);
-  if (lane == 0) smem[warp] = x;
-  __syncthreads();
-  rt_pair acc = smem[0];
-  if (threadIdx.x == 0)
-    for (int w = 1; w < (int)(blockDim.x >> 5); ++w) acc = rt_pair_add(acc, smem[w]);
-  return acc;
 }

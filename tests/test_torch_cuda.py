@@ -1003,10 +1003,14 @@ def test_compensated_sum_instance(card, rng):
     """D: K2's compensated instance within the oracle bound on the
     cancellation fixture (where the plain K2 is not), the adversarial
     fixtures and random fields; single, batched (rows bitwise the single
-    launch) and run to run the same bits; max stays exact."""
-    x = np.full((3, 128), 0.1875, np.float32)
-    x[:, 0:16] = x[:, 64:80] = 0.0
-    x[:, 0], x[:, 64] = 1.0e8, -1.0e8
+    launch) and run to run the same bits; max stays exact.  The fixtures
+    are built on K2's tree (core/reduce.py's emulation): in x, 0.1875 at
+    the sites K2 adds one at a time to +1e8 (virtual thread 0) or -1e8
+    (thread 32) before the two cancel; cancel_field the same, block-aligned
+    (whole chunks), at 3.52 x the oracle bound."""
+    x = np.zeros((3, 256), np.float32)
+    x[:, [1, 2, 4, 8, 16, 32, 64]] = x[:, [129, 130, 132, 136, 144, 160, 192]] = 0.1875
+    x[:, 0], x[:, 128] = 1.0e8, -1.0e8
     adv = [np.resize(np.array([1.0, 1e8, 1.0, -1e8], np.float32), 4096),
            np.resize(np.array([1e7, 0.125, -1e7, 0.125], np.float32), 4096),
            (rng.normal(size=4096) * 1e4).astype(np.float32)]
@@ -1019,19 +1023,15 @@ def test_compensated_sum_instance(card, rng):
                                            compensated=True)
         assert _bits(rows[0], got)
     plain = reduce.reduce_sites(torch.from_numpy(x).to(card), "sum", 32)
-    assert float((plain.double() - 18.0).abs().max()) > 0.1   # the plain fold loses the filler
-    # block-aligned for vvl 128: +-(2^26 + 8) alternating over the blocks, and
-    # 3.9375 (under half its ulp) at the 8 sites the plain fold adds to it one
-    # at a time: the plain K2 loses every filler, 1.88 x the oracle bound
-    blk = np.zeros((2, 64, 4, 32), np.float32)
-    blk[:, :, 0, 0] = (2.0 ** 26 + 8) * (1 - 2 * (np.arange(64) % 2))
-    blk[:, :, 0, [1, 2, 4, 8, 16]] = 3.9375
-    blk[:, :, 1:, 0] = 3.9375
-    tb = torch.from_numpy(blk.reshape(2, -1)).to(card)
+    assert float((plain.double() - 2.625).abs().max()) > 0.1   # the plain fold loses the filler
+    # block-aligned (two chunks): +-(2^26 + 8) in each chunk, and 3.9375
+    # (under half its ulp) at the 15 sites a warp adds to it one at a time:
+    # the plain K2 loses every filler, 3.52 x the oracle bound
+    tb = reduce.cancel_field(2, 2 * reduce.CHUNK, device=card)
     _oracle_sum(reduce.reduce_sites(tb, "sum", 128, compensated=True), tb)
     with pytest.raises(AssertionError):
         _oracle_sum(reduce.reduce_sites(tb, "sum", 128), tb)
-    f = Field.from_numpy("x", x, (4, 4, 8), device="cuda")
+    f = Field.from_numpy("x", x, (4, 8, 8), device="cuda")
     acc = TargetConfig("cuda", device="cuda", vvl=32, dtypes=DtypePolicy(accumulate="float64"))
     _oracle_sum(reduce.target_sum(f, acc), f.canonical())
     assert torch.equal(reduce.target_max(f, acc), f.canonical().amax(dim=1))
@@ -1082,3 +1082,111 @@ def test_refined_drivers_on_card(card):
         assert float(torch.linalg.norm(got - r) / torch.linalg.norm(r)) < 1e-2
         t = getattr(states["bfloat16", "torch"], f).data
         assert float(torch.linalg.norm(got - t) / torch.linalg.norm(t)) < 1e-4
+
+
+# -- K2 and K1 redesigned for Hopper: the kernels against the tree emulation and
+# the plain versions, at tails, in every layout class, misaligned ------------------
+
+K2_CASES = ([(spec, n) for spec in ("soa", "aos") for n in (1, 100, 4095, 4099, 65536)]
+            + [("aosoa4", 4100), ("aosoa8", 4104), ("aosoa16", 65536), ("aosoa128", 65536),
+               ("aosoa12", 4104)])   # aosoa12: no power of two, the strided class
+
+
+def _misaligned(t):
+    """A contiguous copy of t whose storage starts 4 bytes past a 16-byte
+    boundary (a [1:] view of a larger buffer)."""
+    buf = torch.empty(t.numel() + 1, dtype=t.dtype, device=t.device)
+    view = buf[1:].view(t.shape)
+    view.copy_(t)
+    return view
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("spec,nsites", K2_CASES)
+def test_reduce_kernels_bitwise_their_tree(card, spec, nsites, rng):
+    """K2 (plain, max, compensated; single and batched) bitwise
+    core/reduce.py's tree emulation at tails and in every layout class
+    (SoA and AoSoA >= 16: float4 loads; AoS, aosoa4/8: staged; aosoa12:
+    strided), within SUM_RTOL (plain) or the oracle bound (compensated) of
+    the fp64 sum, max exact, batch rows bitwise the single launch, the same
+    bits run to run and on a misaligned field."""
+    lay = parse_layout(spec)
+    for ncomp in (24, 19):
+        x = _dev(rng, (ncomp, nsites), card, scale=10.0)
+        xl = lay.pack(x)
+        cx = x.cpu()
+        want, want_c = reduce.reduce_tree(cx), reduce.reduce_tree(cx, compensated=True)
+        got = reduce.reduce_sites(xl, "sum", 128, layouts={"x": lay})
+        assert _bits(got.cpu(), want), (spec, nsites, ncomp)
+        got_c = reduce.reduce_sites(xl, "sum", 128, layouts={"x": lay}, compensated=True)
+        assert _bits(got_c.cpu(), want_c), (spec, nsites, ncomp, "compensated")
+        _close_sum(got, x.sum(dim=1), x)
+        _oracle_sum(got_c, x)
+        assert torch.equal(reduce.reduce_sites(xl, "max", 128, layouts={"x": lay}), x.amax(dim=1))
+        assert _bits(reduce.reduce_sites(xl, "sum", 128, layouts={"x": lay}), got)
+        assert _bits(reduce.reduce_sites(_misaligned(xl), "sum", 128, layouts={"x": lay}), got)
+        stack = torch.stack([xl, xl * 0.5, xl])
+        rows = reduce.reduce_sites_batched(stack, "sum", 128, layouts={"x": lay})
+        rows_c = reduce.reduce_sites_batched(stack, "sum", 128, layouts={"x": lay},
+                                             compensated=True)
+        assert _bits(rows[0], got) and _bits(rows[2], got) and _bits(rows_c[0], got_c)
+        assert _bits(rows[1].cpu(), reduce.reduce_tree(cx * 0.5))
+        assert _bits(rows_c[1].cpu(), reduce.reduce_tree(cx * 0.5, compensated=True))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("nrows,ncomp", [(1, 24), (672, 24), (673, 24), (65536, 24),
+                                         (131072, 19), (2048, 19), (5, 700)])
+def test_reduce_fold_bitwise_its_tree(card, nrows, ncomp, rng):
+    """K2's pass 2 alone on tables of the fused kernels' shapes and around
+    the one-launch limit: bitwise fold_tree (plain, compensated; batched
+    rows bitwise the single fold), its scratch the size core/reduce.py
+    allocates (fold_scratch); a table of values refused as pairs."""
+    p = _dev(rng, (nrows, ncomp), card)
+    assert _bits(reduce.fold_partials(p, "sum").cpu(), reduce.fold_tree(p.cpu()))
+    pairs = torch.stack([p, p * 2.0 ** -30], dim=-1)
+    got_c = reduce.fold_partials(pairs, "sum", compensated=True)
+    assert _bits(got_c.cpu(), reduce.fold_tree(pairs.cpu(), compensated=True))
+    assert torch.equal(reduce.fold_partials(p, "max"), p.amax(dim=0))
+    rows = reduce.fold_partials_batched(torch.stack([p * 2, p]), "sum")
+    assert _bits(rows[1], reduce.fold_partials(p, "sum"))
+    rows_c = reduce.fold_partials_batched(torch.stack([pairs * 2, pairs]), "sum", compensated=True)
+    assert _bits(rows_c[1], got_c)
+    from repro_torch import _cuda
+    assert _cuda.library().rt_reduce_fold_scratch(nrows, ncomp) == reduce.fold_scratch(nrows,
+                                                                                       ncomp)
+    with pytest.raises(ValueError, match="expected"):   # values, not pairs
+        reduce.fold_partials(p, "sum", compensated=True)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("spec", ["soa", "aos", "aosoa4", "aosoa16", "aosoa12"])
+def test_site_kernels_bitwise_plain_odd_and_misaligned(card, spec, rng):
+    """K1 (g5 at flip_from 0, 12, 23 and ncomp; the product, single and
+    batched; axpy) bitwise its plain version (axpy: bitwise its SoA launch,
+    one FMA an element, and within FIELD_RTOL of the plain x * a + y) in
+    the layout, at sizes that are not a multiple of 4 where the layout
+    allows them, with 12 * 1001 and 23 * 1001 splitting a float4, and on
+    misaligned fields (the general path)."""
+    lay = parse_layout(spec)
+    sizes = [(24, 1001), (19, 1001)] if lay.kind.value != "aosoa" else [(24, 1008), (19, 1008)]
+    for ncomp, nsites in sizes:
+        x, y = (_dev(rng, (ncomp, nsites), card) for _ in range(2))
+        xl, yl = lay.pack(x), lay.pack(y)
+        L1, L2 = {"x": lay}, {"x": lay, "y": lay}
+        for flip in (0, 12, 23, ncomp) if ncomp == 24 else (0, 12, ncomp):
+            want = target.g5_plain(xl, flip, layouts=L1)
+            assert _bits(target.site_g5(xl, flip, layouts=L1), want), (spec, ncomp, flip)
+            assert _bits(target.site_g5(_misaligned(xl), flip, layouts=L1), want)
+        want = target.mul_plain(xl, yl, L2)
+        assert _bits(target.site_mul(xl, yl, layouts=L2), want)
+        assert _bits(target.site_mul(_misaligned(xl), yl, layouts=L2), want)
+        ax = target.site_axpy(0.75, xl, yl, layouts=L2)
+        assert _same(ax, lay, target.site_axpy(0.75, x, y), "axpy") is None
+        assert _bits(target.site_axpy(0.75, xl, _misaligned(yl), layouts=L2), ax)
+        _close_field(lay.unpack(ax), x * 0.75 + y)
+        xs = torch.stack([xl, yl, xl * 2])
+        want_b = target.mul_plain(xs, yl, L2, batch=3)
+        assert _bits(target.site_mul(xs, yl, layouts=L2, batch=3), want_b)
+        assert _bits(target.site_mul(xs, torch.stack([yl] * 3), layouts=L2, batch=3), want_b)
+
