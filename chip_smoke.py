@@ -27,6 +27,20 @@ Q1. where ``build/parent`` holds a ``git archive`` of the parent, its K1
    host's Python: most of a fold's time a call is the host's), at
    phase 3's, S1's (4 slots) and P1's MILC shapes; Q2 the same after L2 at
    L2's and P1's Ludwig shapes; one JSON line before the kernel table;
+Q3. (after Q1, where ``build/parent`` holds the parent's tree) the parent's
+   K3, K4 and K5 (fused_flat.cu, dslash.cu, wilson_normal.cu,
+   wilson_normal_mixed.cu with its own headers, a library of their own) and
+   this tree's, both launched
+   through their C entry points on the same tensors: cg_xpay, cg_update in
+   SoA, AoS and aosoa4 and fed a bf16 ap, both masked over 4 slots; K5 in
+   SoA, AoS, aosoa16, over 4 slots, and its policy instance single and over
+   4 slots (the parent on the fp32 u, this tree on the bf16 copy): every
+   output (K3's fields and partial rows; K5's t, ap and partial rows)
+   bitwise the parent's, timed in turns as Q1 (``torch.addcmul`` beside
+   cg_xpay), K5 beside its two-launch design floor; then K5 and K4 (in
+   turns) at (256, 32, 32, 32) and (1024, 16, 16, 32) on random fields,
+   shorter x-reuse distances, and a 1 GiB device copy; its rows join Q1's
+   in the JSON line;
 4. with every launch count set to 0, solve M x = b on the "cuda" engine
    (kappa 0.12, hot 0.6, tol 1e-10, max_iter 2000), check
    |M x - b| / |b| < 1e-3 and that every kernel of the path launched;
@@ -72,14 +86,18 @@ P1. the mixed-precision policy instances against their plain versions, at
    the sum, where the fold of the his alone must: core/reduce.py's
    ``cancel_field`` and ``fold_pairs``); the stage-in rounding
    bitwise torch's: bf16.cuh's helper kernel on u and on ties, -0.0, inf,
-   NaN and subnormals, and K5's policy instance's own load of p at kappa 0.  Timed in SoA (CUDA events, median of
-   10) beside the policy-free kernel, the bound of the bytes the kernel
-   moves and the bytes of the reference's traffic model;
+   NaN and subnormals, the operator's bf16 copy of u (bf16_pack, beside
+   ``.to(torch.bfloat16)``), and K5's policy instance's own load of p at
+   kappa 0.  Timed in SoA (CUDA events, median of 10; K5's policy instance
+   on the bf16 copy of u, as the operator runs it) beside the policy-free
+   kernel, the bound of the bytes the kernel moves and the bytes of the
+   reference's traffic model;
 P2. with every count set to 0: ``solve`` with ``storage="bfloat16"`` (the
    refined solve) on phase 2's u and b: |Mx - b|/|b| < 1e-3, x within
    rel-L2 1e-4 of phase 4's, K5's policy and policy-free instances, K3 fed
-   a bf16 ap and K2's compensated fold launched; inner iterations and
-   restarts beside phase 4's iterations, seconds to solution;
+   a bf16 ap, K2's compensated fold and the bf16 copy of u launched; inner
+   iterations and restarts beside phase 4's iterations, seconds to
+   solution;
 P3. at ``--small`` on phase 5's u: ``solve_batched`` (4 sources) and a
    2-slot ``SolveServer`` drain of them, the bf16 policy and restarts every
    P3_REFINE iterations: each outcome within P2's checks against the
@@ -265,7 +283,7 @@ KERNELS = [target.G5, target.MUL, target.AXPY, reduce.REDUCE_SUM,
            reduce.REDUCE_SUM_B, reduce.REDUCE_MAX_B, reduce.REDUCE_FOLD_B,
            wk.WILSON_NORMAL_T_MIXED, wk.WILSON_NORMAL_AP_MIXED, fuse.CG_UPDATE_AP16,
            fuse.CG_UPDATE_MASKED_AP16, reduce.REDUCE_SUM_C, reduce.REDUCE_FOLD_C,
-           k8.LB_STEP_BF16, wk.BF16_ROUND]
+           k8.LB_STEP_BF16, wk.BF16_ROUND, wk.BF16_PACK]
 
 # flops a site, counted from the sources (all these kernels are bound by bytes)
 FLOPS = {"collide": 450, "lb_step": 462, "chem_stress": 600, "lc_update": 320, "fed": 160}
@@ -376,6 +394,8 @@ MIXED_PATH = {
                              "wilson_normal_mixed.cu", "src/repro/core/fuse.py:1721"),
     "cg_update_ap16": ([fuse.CG_UPDATE_AP16], "fused_flat.cu", "src/repro/core/fuse.py:1411"),
     "reduce_fold_comp": ([reduce.REDUCE_FOLD_C], "reduce.cu", "src/repro/core/reduce.py:106"),
+    # the operator's bf16 copy of u (once a solve): the policy launch's stage-in cast
+    "bf16_pack": ([wk.BF16_PACK], "fused_flat.cu", "src/repro/core/fuse.py:349"),
 }
 MIXED_SERVE_PATH = {
     "wilson_normal_batched_policy": ([wk.WILSON_NORMAL_T_MIXED, wk.WILSON_NORMAL_AP_MIXED],
@@ -384,6 +404,7 @@ MIXED_SERVE_PATH = {
                               "src/repro/core/fuse.py:1411"),
     "reduce_fold_comp_batched": ([reduce.REDUCE_FOLD_C], "reduce.cu",
                                  "src/repro/core/reduce.py:106"),
+    "bf16_pack_serving": ([wk.BF16_PACK], "fused_flat.cu", "src/repro/core/fuse.py:349"),
 }
 MIXED_LUDWIG_PATH = {
     "lb_step_bf16": ([k8.LB_STEP_BF16], "lb.cu", "src/repro/core/fuse.py:1721"),
@@ -1506,17 +1527,20 @@ def flash_work(BKV, rep, S, dh, causal, window, itemsize):
 def flash_toolchain():
     """Run beside phase 2's build: csrc/flash.cu under ``-Xptxas -v`` (each
     kernel's registers and spills), and, where PARENT_SRC holds a tree, the
-    parent's flash.cu and its K1 and K2 (site_local.cu and reduce.cu, with
-    the parent's headers) as libraries of their own.  Returns (ptxas lines
-    of the bf16 kernels, the parent flash library's path or None, the
-    parent K1/K2 library's path or None)."""
+    parent's flash.cu, its K1 and K2 (site_local.cu and reduce.cu, with the
+    parent's headers) and its K3, K4 and K5 (fused_flat.cu, dslash.cu,
+    wilson_normal.cu and wilson_normal_mixed.cu) as libraries of their own.  Returns (ptxas lines
+    of the bf16 kernels, {"flash", "k1_k2", "k3_k5": the parent library's
+    path} for those built)."""
     nvcc = _cuda._nvcc()
     _cuda.BUILD_DIR.mkdir(parents=True, exist_ok=True)
     cmds = [[nvcc, *_cuda.COMPILE_FLAGS, "-Xptxas", "-v", "-cubin", "-o",
              str(_cuda.BUILD_DIR / "flash_ptxas.cubin"), str(_cuda.CSRC / "flash.cu")]]
     csrc = os.path.join(PARENT_SRC, "repro_torch", "csrc")
     libs = {}
-    for tag, srcs in (("flash", ("flash.cu",)), ("k1_k2", ("site_local.cu", "reduce.cu"))):
+    for tag, srcs in (("flash", ("flash.cu",)), ("k1_k2", ("site_local.cu", "reduce.cu")),
+                      ("k3_k5", ("fused_flat.cu", "wilson_normal.cu", "wilson_normal_mixed.cu",
+                                 "dslash.cu"))):
         paths = [os.path.join(csrc, f) for f in srcs]
         if all(map(os.path.exists, paths)):
             libs[tag] = _cuda.BUILD_DIR / f"parent_{tag}.so"
@@ -1533,7 +1557,7 @@ def flash_toolchain():
             keep = FLASH_MMA in ln
         if keep and ("Compiling entry" in ln or "spill" in ln or "Used" in ln):
             lines.append(ln.split("ptxas info    : ")[-1].strip())
-    return lines, libs.get("flash"), libs.get("k1_k2")
+    return lines, libs
 
 
 def flash_sass(lib):
@@ -1807,31 +1831,23 @@ def dense_serve(cfg, params, p32, nbytes):
 
 # -- K1 and K2 in turns with the parent's design (Q1, Q2) -----------------------------
 
-_CP, _CI, _CL = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
-# the parent's C signatures of K1 and K2 (a block of vvl threads before the
-# stream; no fold scratch)
-PARENT_K12 = {
-    "rt_site_g5": (_CP, _CP, _CI, _CL, _CI, _CI, _CI, _CI, _CP),
-    "rt_site_mul": (_CP, _CP, _CP, _CI, _CL, _CI, _CL, _CL, _CI, _CI, _CI, _CI, _CP),
-    "rt_reduce_partials_batched": (_CP, _CP, _CI, _CL, _CI, _CI, _CI, _CI, _CP),
-    "rt_reduce_fold_batched": (_CP, _CP, _CL, _CI, _CI, _CI, _CP),
-    "rt_reduce_partials_comp": (_CP, _CP, _CI, _CL, _CI, _CI, _CI, _CP),
-    "rt_reduce_fold_comp": (_CP, _CP, _CL, _CI, _CI, _CP),
-}
+# the parent's K1 and K2 entry points, which take this tree's C signatures
+PARENT_K12 = ("rt_site_g5", "rt_site_mul", "rt_reduce_partials_batched",
+              "rt_reduce_fold_batched", "rt_reduce_partials_comp", "rt_reduce_fold_comp")
 
 
 class ParentK12:
     """The parent's K1 and K2 (its site_local.cu and reduce.cu, built with
     its own headers as a library of their own), launched on SoA fields with
-    the parent's own arguments: blocks of vvl threads and partial tables of
-    ceil(nsites / vvl) rows."""
+    the kernels' own arguments: partial tables of partial_rows(nsites) rows
+    and pass 2's scratch, as core/reduce.py sizes them."""
 
     def __init__(self, path, vvl):
         lib = ctypes.CDLL(str(path))
         self.vvl, self.fn = vvl, {}
-        for name, sig in PARENT_K12.items():
+        for name in PARENT_K12:
             fn = getattr(lib, name)
-            fn.argtypes, fn.restype = list(sig), ctypes.c_int
+            fn.argtypes, fn.restype = list(_cuda.SIGNATURES[name]), ctypes.c_int
             self.fn[name] = fn
 
     def _call(self, name, *args):
@@ -1841,7 +1857,7 @@ class ParentK12:
 
     def g5(self, x, flip):
         out = torch.empty_like(x)
-        self._call("rt_site_g5", x.data_ptr(), out.data_ptr(), *x.shape, flip, 0, 0, self.vvl)
+        self._call("rt_site_g5", x.data_ptr(), out.data_ptr(), *x.shape, flip, 0, 0)
         return out
 
     def mul(self, x, y):
@@ -1850,32 +1866,35 @@ class ParentK12:
         batch, stride = (x.shape[0], ncomp * nsites) if x.dim() == 3 else (1, 0)
         out = torch.empty_like(x)
         self._call("rt_site_mul", x.data_ptr(), y.data_ptr(), out.data_ptr(), ncomp, nsites,
-                   batch, stride, stride, 0, 0, 0, self.vvl)
+                   batch, stride, stride, 0, 0, 0)
         return out
 
     def fold(self, partials, compensated=False):
-        """(batch, nblocks, ncomp[, 2]) -> (batch, ncomp)."""
-        batch, nblocks, ncomp = partials.shape[:3]
+        """(batch, nrows, ncomp[, 2]) -> (batch, ncomp)."""
+        batch, nrows, ncomp = partials.shape[:3]
+        words = 2 if compensated else 1
         out = torch.empty((batch, ncomp), device=partials.device)
+        scratch = torch.empty(max(1, batch * words * reduce.fold_scratch(nrows, ncomp)),
+                              device=partials.device)
         if compensated:
-            self._call("rt_reduce_fold_comp", partials.data_ptr(), out.data_ptr(), nblocks,
-                       ncomp, batch)
+            self._call("rt_reduce_fold_comp", partials.data_ptr(), out.data_ptr(),
+                       scratch.data_ptr(), nrows, ncomp, batch)
         else:
-            self._call("rt_reduce_fold_batched", partials.data_ptr(), out.data_ptr(), nblocks,
-                       ncomp, batch, 0)
+            self._call("rt_reduce_fold_batched", partials.data_ptr(), out.data_ptr(),
+                       scratch.data_ptr(), nrows, ncomp, batch, 0)
         return out
 
     def sum(self, x, compensated=False):
         """(batch, ncomp, nsites) -> (batch, ncomp), both passes."""
         batch, ncomp, nsites = x.shape
-        shape = (batch, -(-nsites // self.vvl), ncomp) + ((2,) if compensated else ())
+        shape = (batch, reduce.partial_rows(nsites), ncomp) + ((2,) if compensated else ())
         partials = torch.empty(shape, device=x.device)
         if compensated:
             self._call("rt_reduce_partials_comp", x.data_ptr(), partials.data_ptr(), ncomp,
-                       nsites, batch, 0, self.vvl)
+                       nsites, batch, 0)
         else:
             self._call("rt_reduce_partials_batched", x.data_ptr(), partials.data_ptr(), ncomp,
-                       nsites, batch, 0, 0, self.vvl)
+                       nsites, batch, 0, 0)
         return self.fold(partials, compensated)
 
 
@@ -1899,7 +1918,7 @@ def graph_ms(fn):
 
 def redesign_turns(cases):
     """Each case: name -> (this tree's call, the parent's, the library
-    call, bytes, flops, check(parent's out, this out)).  Checks the
+    call or None, bytes, flops, check(parent's out, this out)).  Checks the
     parent's output against this tree's, then times parent, this, this,
     parent on the same tensors, and the library call, each a call at a
     time (time_ms) and replayed from a CUDA graph (graph_ms, the same
@@ -1908,19 +1927,21 @@ def redesign_turns(cases):
     for name, (this, old, lib, nbytes, flops, check) in cases.items():
         check(old(), this())
         t = [time_ms(old), time_ms(this), time_ms(this), time_ms(old)]
-        lib_ms = time_ms(lib)
-        g = [graph_ms(old), graph_ms(this), graph_ms(this), graph_ms(old), graph_ms(lib)]
+        lib_ms = time_ms(lib) if lib else None
+        g = [graph_ms(old), graph_ms(this), graph_ms(this), graph_ms(old)]
+        g_lib = graph_ms(lib) if lib else None
         b_ms, b_by = bound(nbytes, flops)
         ms, gms = statistics.median(t[1:3]), statistics.median(g[1:3])
         rows[name] = dict(parent_ms=[t[0], t[3]], ms=t[1:3], library_ms=lib_ms,
-                          graph_parent_ms=[g[0], g[3]], graph_ms=g[1:3], graph_library_ms=g[4],
+                          graph_parent_ms=[g[0], g[3]], graph_ms=g[1:3], graph_library_ms=g_lib,
                           bound_ms=b_ms, bound_by=b_by)
-        log(f"  {name:26s} parent {t[0]:.4f}, this {t[1]:.4f}, {t[2]:.4f}, parent {t[3]:.4f} "
-            f"ms; library {lib_ms:.4f}; bound {b_ms:.4f} ({b_by}): {b_ms / ms:.3f} of it, "
-            f"{ms / lib_ms:.2f}x the library, {statistics.median([t[0], t[3]]) / ms:.2f}x "
-            f"faster than the parent; from a CUDA graph: parent {g[0]:.4f}, this {g[1]:.4f}, "
-            f"{g[2]:.4f}, parent {g[3]:.4f}, library {g[4]:.4f} ms ({b_ms / gms:.3f} of the "
-            f"bound, {gms / g[4]:.2f}x the library)")
+        vs_lib = (f"; library {lib_ms:.4f} ({ms / lib_ms:.2f}x it), from a graph {g_lib:.4f} "
+                  f"({gms / g_lib:.2f}x it)" if lib else "")
+        log(f"  {name:28s} parent {t[0]:.4f}, this {t[1]:.4f}, {t[2]:.4f}, parent {t[3]:.4f} "
+            f"ms; bound {b_ms:.4f} ({b_by}): {b_ms / ms:.3f} of it, "
+            f"{statistics.median([t[0], t[3]]) / ms:.2f}x faster than the parent; from a CUDA "
+            f"graph: parent {g[0]:.4f}, this {g[1]:.4f}, {g[2]:.4f}, parent {g[3]:.4f} ms "
+            f"({b_ms / gms:.3f} of the bound){vs_lib}")
     return rows
 
 
@@ -2031,11 +2052,244 @@ def ludwig_turns(parent, state, vvl):
     return rows
 
 
+# -- K3 and K5 in turns with the parent's design (Q3) --------------------------------
+
+K35_SYMBOLS = ("rt_cg_update", "rt_cg_update_masked", "rt_cg_update_ap16", "rt_cg_xpay",
+               "rt_cg_xpay_masked", "rt_wilson_normal_t_batched", "rt_wilson_normal_ap_batched",
+               "rt_wilson_normal_t_mixed", "rt_wilson_normal_ap_mixed", "rt_dslash")
+# milc_small's V at x-reuse distances of 32,768 and 8,192 sites (131,072 at milc_small)
+Q3_REUSE_LATTICES = ((256, 32, 32, 32), (1024, 16, 16, 32))
+NORMAL_FLOPS = 2 * (1320 + 48) + 48    # K5's flops a site (phase 3)
+# K5's two-launch design floor, bytes a site: the t launch (p, u in, t out),
+# the ap launch (t, u, p in, ap out); a slot's p, t, ap and one u a launch
+# at 4 slots; the policy instance with a bf16 u and ap
+NORMAL_FLOOR = {"wilson_normal": 480 + 576, "wilson_normal_batched": 4 * 192 + 288 + 4 * 288 + 288,
+                "wilson_normal_policy": 336 + 384,
+                "wilson_normal_batched_policy": 4 * 192 + 144 + 4 * 240 + 144}
+
+
+class K35:
+    """K3's, K4's and K5's entry points of one library (this tree's, or the
+    parent's built beside phase 2's build: the same C signatures), launched
+    on the caller's tensors with the kernels' own arguments and partial
+    tables, outside the launch counts."""
+
+    def __init__(self, lib, label):
+        self.label, self.fn = label, {}
+        for name in K35_SYMBOLS:
+            fn = getattr(lib, name)
+            fn.argtypes, fn.restype = list(_cuda.SIGNATURES[name]), ctypes.c_int
+            self.fn[name] = fn
+
+    def _call(self, name, *args):
+        rc = self.fn[name](*args, torch.cuda.current_stream().cuda_stream)
+        if rc:
+            raise RuntimeError(f"{self.label} {name}: CUDA error {rc}")
+
+    def xpay(self, x, y, a, vvl, m=None):
+        """y + a x; x, y: (24, V) SoA, or (batch, 24, V) both with m."""
+        out = torch.empty_like(y)
+        ncomp, V = y.shape[-2:]
+        if m is None:
+            self._call("rt_cg_xpay", x.data_ptr(), y.data_ptr(), a.data_ptr(), out.data_ptr(),
+                       ncomp, V, 0, 0, 0, vvl)
+        else:
+            self._call("rt_cg_xpay_masked", x.data_ptr(), y.data_ptr(), a.data_ptr(),
+                       m.data_ptr(), out.data_ptr(), ncomp, V, m.numel(), ncomp * V,
+                       ncomp * V, 0, 0, 0, vvl)
+        return out
+
+    def update(self, x, r, p, ap, a, na, V, vvl, lay=SOA, m=None):
+        """(x_new, r_new, partials) of fields physical in ``lay`` over V
+        sites (stacked, with m: (batch,)); ap fp32 or bf16."""
+        d = lay.descriptor()
+        x_new, r_new = torch.empty_like(x), torch.empty_like(r)
+        lead = (m.numel(),) if m is not None else ()
+        parts = torch.empty(lead + (-(-V // vvl), 24), device=x.device)
+        ptrs = (x.data_ptr(), r.data_ptr(), p.data_ptr(), ap.data_ptr(), a.data_ptr(),
+                na.data_ptr())
+        if m is None:
+            name = "rt_cg_update_ap16" if ap.dtype == torch.bfloat16 else "rt_cg_update"
+            self._call(name, *ptrs, x_new.data_ptr(), r_new.data_ptr(), parts.data_ptr(), V,
+                       *(d,) * 6, vvl)
+        else:
+            self._call("rt_cg_update_masked", *ptrs, m.data_ptr(), x_new.data_ptr(),
+                       r_new.data_ptr(), parts.data_ptr(), V, m.numel(), *(24 * V,) * 4,
+                       *(d,) * 6, vvl)
+        return x_new, r_new, parts
+
+    def normal(self, p, u, lattice, vvl, lay=SOA, policy=None):
+        """K5's two launches on p (batch, 24, V) physical in ``lay`` ->
+        (t, ap, partials (batch, ceil(V / vvl), 24[, 2])); ``policy``
+        (bf16, comp): the policy instance (u bf16 where this tree takes it)."""
+        batch, V = p.shape[0], math.prod(lattice)
+        d = lay.descriptor()
+        bf16, comp = policy or (False, False)
+        t = torch.empty((batch, 24, V), device=p.device)
+        ap = torch.empty(p.shape, device=p.device,
+                         dtype=torch.bfloat16 if bf16 else torch.float32)
+        parts = torch.empty((batch, -(-V // vvl), 24) + ((2,) if comp else ()), device=p.device)
+        t_name = "rt_wilson_normal_t_mixed" if bf16 else "rt_wilson_normal_t_batched"
+        self._call(t_name, p.data_ptr(), u.data_ptr(), t.data_ptr(), KAPPA, *lattice, batch, d,
+                   d, vvl)
+        if policy:
+            self._call("rt_wilson_normal_ap_mixed", p.data_ptr(), t.data_ptr(), u.data_ptr(),
+                       ap.data_ptr(), parts.data_ptr(), KAPPA, *lattice, batch, int(bf16),
+                       int(comp), d, d, d, vvl)
+        else:
+            self._call("rt_wilson_normal_ap_batched", p.data_ptr(), t.data_ptr(), u.data_ptr(),
+                       ap.data_ptr(), parts.data_ptr(), KAPPA, *lattice, batch, d, d, d, vvl)
+        return t, ap, parts
+
+    def dslash(self, psi, u, lattice, vvl):
+        out = torch.empty_like(psi)
+        self._call("rt_dslash", psi.data_ptr(), u.data_ptr(), out.data_ptr(), *lattice, 0, 0, 0,
+                   vvl)
+        return out
+
+
+def _all_bits(name):
+    """Every tensor of the parent's output tuple bitwise this tree's."""
+    def check(old, new):
+        for k, (o, n) in enumerate(zip(old, new)):
+            bits_err(o.reshape(n.shape), n, f"{name} [{k}]: parent vs this")
+    return check
+
+
+def k3_k5_turns(parent, u, b, lattice, vvl):
+    """Q3: K3 (cg_xpay; cg_update in SoA, AoS and aosoa4, fed a bf16 ap;
+    both masked over 4 slots) and K5 (SoA, AoS, aosoa16, 4 slots, the policy
+    instance single and over 4 slots) at phase 3's shapes, bitwise the
+    parent's design and timed in turns with it, a call at a time and from a
+    CUDA graph, K5 beside its two-launch design floor; then K5 and K4 (in
+    turns) at Q3_REUSE_LATTICES on random fields, shorter x-reuse distances,
+    and a 1 GiB device copy.  Returns the rows."""
+    this = K35(_cuda.library(), "this")
+    V, dev = b.nsites, b.data.device
+    gen = torch.Generator(device=dev).manual_seed(5)
+    x, r, p, ap = (torch.randn((24, V), generator=gen, device=dev) for _ in range(4))
+    a = torch.tensor(0.37, device=dev)
+    na = -a
+    lays = {n: parse_layout(n) for n in ("aos", "aosoa4", "aosoa16")}
+    cases = {
+        "cg_xpay": (lambda: this.xpay(p, r, a, vvl), lambda: parent.xpay(p, r, a, vvl),
+                    lambda: torch.addcmul(r, a, p), 288 * V, 48 * V, _bits_check("cg_xpay")),
+        "cg_update": (lambda: this.update(x, r, p, ap, a, na, V, vvl),
+                      lambda: parent.update(x, r, p, ap, a, na, V, vvl), None, 576 * V,
+                      144 * V, _all_bits("cg_update")),
+    }
+    ap16 = ap.to(torch.bfloat16)
+    cases["cg_update_ap16"] = (lambda: this.update(x, r, p, ap16, a, na, V, vvl),
+                               lambda: parent.update(x, r, p, ap16, a, na, V, vvl), None,
+                               528 * V, 144 * V, _all_bits("cg_update_ap16"))
+    log(f"Q3: K3 at {tuple(lattice)} in turns with the parent's design:")
+    rows = redesign_turns(cases)
+    del cases, ap16
+    for spec in ("aos", "aosoa4"):
+        lay = lays[spec]
+        xl, rl, pl, apl = (lay.pack(t) for t in (x, r, p, ap))
+        rows.update(redesign_turns({f"cg_update@{spec}": (
+            lambda: this.update(xl, rl, pl, apl, a, na, V, vvl, lay),
+            lambda: parent.update(xl, rl, pl, apl, a, na, V, vvl, lay), None, 576 * V, 144 * V,
+            _all_bits(f"cg_update@{spec}"))}))
+        del xl, rl, pl, apl
+        torch.cuda.empty_cache()
+    # 4 slots, mask 1, 0, 1, 0 (a frozen slot reads no p, ap or x)
+    m = torch.tensor([1.0, 0.0, 1.0, 0.0], device=dev)
+    a4 = torch.tensor([0.37, -1.5, 0.25, 2.0], device=dev)
+    x4, r4, p4, ap4 = (torch.stack([t, t.flip(0), t * 0.5, t]) for t in (x, r, p, ap))
+    del x, r, ap
+    rows.update(redesign_turns({
+        "cg_xpay_masked": (lambda: this.xpay(p4, r4, a4, vvl, m),
+                           lambda: parent.xpay(p4, r4, a4, vvl, m), None,
+                           (2 * 288 + 2 * 192) * V, 2 * 48 * V, _bits_check("cg_xpay_masked")),
+        "cg_update_masked": (lambda: this.update(x4, r4, p4, ap4, a4, -a4, V, vvl, m=m),
+                             lambda: parent.update(x4, r4, p4, ap4, a4, -a4, V, vvl, m=m), None,
+                             (2 * 576 + 2 * 384) * V, 2 * 144 * V,
+                             _all_bits("cg_update_masked"))}))
+    del x4, r4, p4, ap4
+    torch.cuda.empty_cache()
+    # K5: the parent reads the fp32 u (its policy instance rounds it at every
+    # load), this tree's policy instance the bf16 copy
+    u32 = u.data
+    u16 = wk.bf16_pack_cuda(u32)
+    p1, p4 = p[None], torch.stack([p, p.flip(0), p * 0.5, -p])
+    cases = {
+        "wilson_normal": (lambda: this.normal(p1, u32, lattice, vvl),
+                          lambda: parent.normal(p1, u32, lattice, vvl), None, 480 * V,
+                          NORMAL_FLOPS * V, _all_bits("wilson_normal")),
+        "wilson_normal_batched": (lambda: this.normal(p4, u32, lattice, vvl),
+                                  lambda: parent.normal(p4, u32, lattice, vvl), None,
+                                  (4 * 96 + 288 + 4 * 96) * V, 4 * NORMAL_FLOPS * V,
+                                  _all_bits("wilson_normal_batched")),
+        "wilson_normal_policy": (lambda: this.normal(p1, u16, lattice, vvl, policy=(True, True)),
+                                 lambda: parent.normal(p1, u32, lattice, vvl,
+                                                       policy=(True, True)),
+                                 None, (96 + 144 + 48) * V, NORMAL_FLOPS * V,
+                                 _all_bits("wilson_normal_policy")),
+        "wilson_normal_batched_policy": (
+            lambda: this.normal(p4, u16, lattice, vvl, policy=(True, True)),
+            lambda: parent.normal(p4, u32, lattice, vvl, policy=(True, True)), None,
+            (4 * 96 + 144 + 4 * 48) * V, 4 * NORMAL_FLOPS * V,
+            _all_bits("wilson_normal_batched_policy")),
+    }
+    log(f"Q3: K5 at {tuple(lattice)} in turns with the parent's design:")
+    rows.update(redesign_turns(cases))
+    del cases, p4, u16
+    torch.cuda.empty_cache()
+    for name, nb in NORMAL_FLOOR.items():
+        floor = bound(nb * V, 0)[0]
+        rows[name]["design_floor_ms"] = floor
+        log(f"  {name}: {floor / statistics.median(rows[name]['ms']):.3f} of the two-launch "
+            f"design floor {floor:.4f} ms ({nb} B a site), from a CUDA graph "
+            f"{floor / statistics.median(rows[name]['graph_ms']):.3f}")
+    for spec in ("aos", "aosoa16"):
+        lay = lays[spec]
+        pl, ul = lay.pack(p)[None], lay.pack(u32)
+        rows.update(redesign_turns({f"wilson_normal@{spec}": (
+            lambda: this.normal(pl, ul, lattice, vvl, lay),
+            lambda: parent.normal(pl, ul, lattice, vvl, lay), None, 480 * V, NORMAL_FLOPS * V,
+            _all_bits(f"wilson_normal@{spec}"))}))
+        del pl, ul
+        torch.cuda.empty_cache()
+    del p, p1
+    # the reuse distance: K5 and K4 (in turns) at Q3_REUSE_LATTICES, random fields
+    for lat2 in Q3_REUSE_LATTICES:
+        V2 = math.prod(lat2)
+        ur = torch.randn((72, V2), generator=gen, device=dev) * 0.2
+        pr = torch.randn((1, 24, V2), generator=gen, device=dev)
+        tag = "x".join(map(str, lat2))
+        log(f"Q3: K5 and K4 at {lat2} (x-reuse {lat2[1] * lat2[2] * lat2[3]} sites), "
+            f"random fields:")
+        rows.update(redesign_turns({
+            f"wilson_normal@{tag}": (lambda: this.normal(pr, ur, lat2, vvl),
+                                     lambda: parent.normal(pr, ur, lat2, vvl), None, 480 * V2,
+                                     NORMAL_FLOPS * V2, _all_bits(f"wilson_normal@{tag}")),
+            f"dslash@{tag}": (lambda: this.dslash(pr[0], ur, lat2, vvl),
+                              lambda: parent.dslash(pr[0], ur, lat2, vvl), None, 480 * V2,
+                              1320 * V2, _bits_check(f"dslash@{tag}"))}))
+        del ur, pr
+        torch.cuda.empty_cache()
+    # the rate a plain stream reaches: a device-to-device copy of 1 GiB
+    src = torch.empty(2 ** 28, device=dev)
+    dst = torch.empty_like(src)
+    copy_ms = time_ms(lambda: dst.copy_(src))
+    rows["device_copy_1gib"] = {"ms": copy_ms, "tb_per_s": 2 * 2 ** 30 / copy_ms / 1e9}
+    log(f"Q3: a 1 GiB device copy {copy_ms:.4f} ms, "
+        f"{rows['device_copy_1gib']['tb_per_s']:.3f} TB/s read + written")
+    del src, dst
+    torch.cuda.empty_cache()
+    return rows
+
+
 # -- batched solve serving (S1-S3) -------------------------------------------------
 
 def bits_err(got, want, name):
-    """Raise unless got and want are bitwise equal, NaN and -0.0 included."""
-    if not torch.equal(got.contiguous().view(torch.int32), want.contiguous().view(torch.int32)):
+    """Raise unless got and want are bitwise equal, NaN and -0.0 included
+    (fp32 or bf16)."""
+    word = torch.int16 if got.element_size() == 2 else torch.int32
+    if got.dtype != want.dtype or not torch.equal(got.contiguous().view(word),
+                                                  want.contiguous().view(word)):
         raise AssertionError(f"{name}: not bitwise equal")
     return 0.0
 
@@ -2445,16 +2699,23 @@ def check_mixed_milc(u, b, lattice, vvl):
     # K5's policy instance itself: at kappa 0, ap = g5 g5 of p as loaded,
     # so its bf16 ap is p's stage-in rounding, bitwise (ties and subnormals
     # placed in p; -0.0, inf and NaN would meet 0 * D p)
+    # the operator's bf16 copy of u, which the policy instance reads
+    u16 = wk.bf16_pack_cuda(uu)
+    err = bits_err(u16, uu.to(torch.bfloat16), "P1 bf16_pack of u vs torch's .to(bfloat16)")
     pt = psi.clone()
     odd = special[torch.tensor([0, 1, 6, 7, 9], device=psi.device)]
     pt[:, :5], pt[:, 5:10] = odd, -odd
-    ap_k0, _ = wk.wilson_normal_cuda(pt, uu, 0.0, lattice, vvl, policy=pol)
+    ap_k0, _ = wk.wilson_normal_cuda(pt, u16, 0.0, lattice, vvl, policy=pol)
     bits_err(ap_k0.float(), pt.to(torch.bfloat16).float(),
              "P1 wilson_normal policy at kappa 0: ap vs p's bf16 rounding")
     del pt, ap_k0
+    to16_ms = time_ms(lambda: uu.to(torch.bfloat16))
+    row("bf16_pack", err, time_ms(lambda: wk.bf16_pack_cuda(uu)), to16_ms, 72 * (4 + 2) * V, 0,
+        library_ms=to16_ms)
+    rows["bf16_pack_serving"], extra["bf16_pack_serving"] = rows["bf16_pack"], extra["bf16_pack"]
     log("  the stage-in rounding bitwise torch's .to(bfloat16): the helper kernel of "
-        "bf16.cuh on u and on ties, -0.0, inf, NaN, subnormals; K5's policy instance's own "
-        "load of p (kappa 0, ties and subnormals in p)")
+        "bf16.cuh on u and on ties, -0.0, inf, NaN, subnormals; bf16_pack's copy of u; K5's "
+        "policy instance's own load of p (kappa 0, ties and subnormals in p)")
     for spec in P1_LAYOUTS:
         lay = parse_layout(spec)
         lays = {"p": lay, "u": lay, "ap": lay}
@@ -2464,7 +2725,8 @@ def check_mixed_milc(u, b, lattice, vvl):
         bits_err(a32, ap0, f"P1 {spec} wilson_normal under fp32 storage vs the policy-free ap")
         oracle_err(s32, psi * lay.unpack(ap0), f"P1 {spec} wilson_normal fp32-storage pap")
         del a32
-        got = wk.wilson_normal_cuda(pp, up, KAPPA, lattice, vvl, layouts=lays, policy=pol)
+        up16 = wk.bf16_pack_cuda(up)
+        got = wk.wilson_normal_cuda(pp, up16, KAPPA, lattice, vvl, layouts=lays, policy=pol)
         want = wk.wilson_normal_plain(pp, up, KAPPA, lattice, lays, policy=pol)
         err = bf16_err(lay.unpack(got[0]), lay.unpack(want[0]), f"P1 {spec} policy ap")
         ap32, _ = wk.wilson_normal_plain(wk.bf16_round(pp), wk.bf16_round(up), KAPPA, lattice,
@@ -2472,19 +2734,19 @@ def check_mixed_milc(u, b, lattice, vvl):
         terms = wk.bf16_round(psi) * lay.unpack(ap32)
         err = max(err, oracle_err(got[1], terms, f"P1 {spec} policy pap"))
         oracle_err(want[1], terms, f"P1 {spec} plain policy pap")
-        again = wk.wilson_normal_cuda(pp, up, KAPPA, lattice, vvl, layouts=lays, policy=pol)
+        again = wk.wilson_normal_cuda(pp, up16, KAPPA, lattice, vvl, layouts=lays, policy=pol)
         bits_err(again[0].float(), got[0].float(), f"P1 {spec} policy ap run to run")
         bits_err(again[1], got[1], f"P1 {spec} policy pap run to run")
         del ap32, terms, want, again
         pb = torch.stack([pp, y if lay == SOA else lay.pack(y)])
-        bat = wk.wilson_normal_cuda(pb, up, KAPPA, lattice, vvl, layouts=lays, batched=True,
+        bat = wk.wilson_normal_cuda(pb, up16, KAPPA, lattice, vvl, layouts=lays, batched=True,
                                     policy=pol)
         bits_err(bat[0][0].float(), got[0].float(), f"P1 {spec} K5B policy slot 0 vs K5")
         bits_err(bat[1][0], got[1], f"P1 {spec} K5B policy pap slot 0 vs K5")
-        one = wk.wilson_normal_cuda(pb[1], up, KAPPA, lattice, vvl, layouts=lays, policy=pol)
+        one = wk.wilson_normal_cuda(pb[1], up16, KAPPA, lattice, vvl, layouts=lays, policy=pol)
         bits_err(bat[0][1].float(), one[0].float(), f"P1 {spec} K5B policy slot 1 vs K5")
         bits_err(bat[1][1], one[1], f"P1 {spec} K5B policy pap slot 1 vs K5")
-        del bat, one, pb
+        del bat, one, pb, up16
         # C: K3 fed a bf16 ap, bitwise K3 on the widened ap
         cl = {n: lay for n in ("x", "r", "p", "ap")}
         xs, rs, ps = (t if lay == SOA else lay.pack(t) for t in (psi, y, p))
@@ -2520,20 +2782,21 @@ def check_mixed_milc(u, b, lattice, vvl):
         log(f"  the cancellation fixture at V = {V}: compensated err {comp_err:.3e}, within "
             f"the oracle bound; the plain K2 {plain_ratio:.3f} x the bound, outside it")
         del fix
+        # timed as the main path runs it: on the operator's bf16 copy of u
         free = time_ms(lambda: wk.wilson_normal_cuda(psi, uu, KAPPA, lattice, vvl))
         row("wilson_normal_policy", err,
-            time_ms(lambda: wk.wilson_normal_cuda(psi, uu, KAPPA, lattice, vvl, policy=pol)),
+            time_ms(lambda: wk.wilson_normal_cuda(psi, u16, KAPPA, lattice, vvl, policy=pol)),
             time_ms(lambda: wk.wilson_normal_plain(psi, uu, KAPPA, lattice, policy=pol),
                     reps=3, warm=1),
-            (24 + 72 + 12) * 4 * V, (2 * (1320 + 48) + 48) * V, model_bytes=240 * V,
+            (24 + 36 + 12) * 4 * V, (2 * (1320 + 48) + 48) * V, model_bytes=240 * V,
             free_ms=free)
         pb = torch.stack([psi] * SLOTS)
         row("wilson_normal_batched_policy", err,
-            time_ms(lambda: wk.wilson_normal_cuda(pb, uu, KAPPA, lattice, vvl, batched=True,
+            time_ms(lambda: wk.wilson_normal_cuda(pb, u16, KAPPA, lattice, vvl, batched=True,
                                                   policy=pol)),
             time_ms(lambda: wk.wilson_normal_plain(pb, uu, KAPPA, lattice, batched=True,
                                                    policy=pol), reps=1, warm=0),
-            (SLOTS * (24 + 12) + 72) * 4 * V, SLOTS * (2 * (1320 + 48) + 48) * V,
+            (SLOTS * (24 + 12) + 36) * 4 * V, SLOTS * (2 * (1320 + 48) + 48) * V,
             model_bytes=(SLOTS * (12 + 12) + 36) * 4 * V,
             free_ms=time_ms(lambda: wk.wilson_normal_cuda(pb, uu, KAPPA, lattice, vvl,
                                                           batched=True)))
@@ -2880,7 +3143,7 @@ def main():
         u, b = init_problem(cfg, seed=0)
         gen_s = time.perf_counter() - t0
         lib, build_s = built.result()
-        ptxas, parent_lib, parent_k12 = flash_tools.result()
+        ptxas, parent_libs = flash_tools.result()
     _cuda.library()
     log(f"build: {build_s:.1f} s ({lib.name}); problem {lattice} generated and "
         f"uploaded in {gen_s:.1f} s")
@@ -2889,10 +3152,16 @@ def main():
     log(f"kernels at {lattice}, vvl {vvl} (V = {math.prod(lattice)}):")
     rows = check_kernels(u, b, lattice, vvl)
     # Q1. K1 and K2 in turns with the parent's design, where its tree is unpacked
-    parent = ParentK12(parent_k12, vvl) if parent_k12 else None
+    parent = ParentK12(parent_libs["k1_k2"], vvl) if "k1_k2" in parent_libs else None
     turns = milc_turns(parent, b, vvl) if parent else {}
     if not parent:
         log(f"Q1, Q2: no parent tree under {PARENT_SRC}; the parent's K1 and K2 are not timed")
+    # Q3. K3 and K5 in turns with the parent's design
+    if "k3_k5" in parent_libs:
+        turns.update(k3_k5_turns(K35(ctypes.CDLL(str(parent_libs["k3_k5"])), "parent"),
+                                 u, b, lattice, vvl))
+    else:
+        log(f"Q3: no parent tree under {PARENT_SRC}; the parent's K3 and K5 are not timed")
 
     # 4. the main path, counted
     reset_counts()
@@ -3050,7 +3319,7 @@ def main():
 
     # A1. K11 and K12 against their plain versions
     log("A1: K11 (flash_attention) and K12 (flash_attention_kvchunk):")
-    arows = check_flash_kernels(ptxas, parent_lib)
+    arows = check_flash_kernels(ptxas, parent_libs.get("flash"))
 
     # A2. the full-width prefills, counted
     dcfg, params, p32, nbytes, acounts, prefill_ms = dense_prefill()

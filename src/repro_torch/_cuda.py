@@ -65,6 +65,7 @@ SIGNATURES = {
     "rt_cg_update_masked": (*(_P,) * 10, _L, _I, _L, _L, _L, _L, *(_D,) * 6, _I, _P),
     "rt_cg_xpay_masked": (_P, _P, _P, _P, _P, _I, _L, _I, _L, _L, _D, _D, _D, _I, _P),
     "rt_bf16_round": (_P, _P, _L, _I, _P),
+    "rt_bf16_pack": (_P, _P, _L, _I, _P),
     "rt_cg_update_ap16": (_P, _P, _P, _P, _P, _P, _P, _P, _P, _L, *(_D,) * 6, _I, _P),
     "rt_cg_update_masked_ap16": (*(_P,) * 10, _L, _I, _L, _L, _L, _L, *(_D,) * 6, _I, _P),
     "rt_dslash": (_P, _P, _P, _I, _I, _I, _I, _D, _D, _D, _I, _P),

@@ -54,10 +54,11 @@ import torch
 from repro_torch.core import BatchedField, Field, LaunchGraph, TargetConfig, launch, target_sum
 from repro_torch.core import fuse
 from repro_torch.core.fuse import register_cuda_graph
+from repro_torch.core.plan import cuda_policy, launch_policy
 from repro_torch.core.reduce import fold_components
 from repro_torch.core.target import register_cuda_body, site_axpy, site_g5, site_mul
 from repro_torch.kernels.wilson_dslash import dslash
-from repro_torch.kernels.wilson_dslash.kernel import wilson_normal_cuda
+from repro_torch.kernels.wilson_dslash.kernel import bf16_pack_cuda, wilson_normal_cuda
 from repro_torch.kernels.wilson_dslash.ops import dslash_stencil_body
 
 
@@ -254,9 +255,20 @@ def make_fused_normal(u: Field, kappa: float, config: TargetConfig):
     (A = M^dag M); ap keeps p's name and layout, <p, A p> is 0-d.  ``p`` may
     be a BatchedField (u is shared by every slot): ap comes back batched and
     the inner product per request, shape (batch,), each slot bitwise the
-    single launch's (``fold_components`` over the last axis)."""
+    single launch's (``fold_components`` over the last axis).
+
+    Where the launch's policy (``core.plan.launch_policy``, the one the
+    bound graph resolves) asks the "cuda" engine for bf16 storage, the
+    operator binds a bf16 copy of u, made here once (``bf16_pack_cuda``: the
+    rounding of the policy's stage-in, so the same bits), which K5's policy
+    instance reads in place of the fp32 field (144 fewer bytes a site a
+    launch) and which its wrapper requires.  The torch engine rounds u in
+    its stage-in cast."""
     bound = wilson_normal_graph(float(kappa)).bind(
         config=config, outputs=("ap", "pap"))
+    engine, dtypes = launch_policy(config)
+    if engine == "cuda" and cuda_policy(dtypes).bf16:
+        u = u.with_data(bf16_pack_cuda(u.data))
 
     def apply(p):
         out = bound({"p": p, "u": u}, out_layouts={"ap": p.layout})

@@ -85,7 +85,8 @@ from .._cuda import Kernel, check_field, check_tensor
 from .field import BatchedField, Field
 from .layout import Layout, resolve_layouts
 from .plan import (SMEM_PER_BLOCK_OPTIN, DtypePolicy, LoweringPlan, cuda_policy,
-                   default_plan, estimate_smem_bytes, policy_plan, resolve_accumulate)
+                   default_plan, estimate_smem_bytes, launch_policy, policy_plan,
+                   resolve_accumulate)
 from .reduce import compensated_plain, fold_partials, fold_partials_batched
 from .stencil import halo_pad, tile_boxes
 from .target import (TargetConfig, TargetKernel, batch_operand, operand_shape, operand_slot,
@@ -596,8 +597,9 @@ class LaunchGraph:
             plan.validate(nsites=nsites, lattice=lattice, layouts=all_layouts,
                           stencil=stencil, batch=batch)
         # the config's policy applies where the plan carries none of its own
-        if config.dtypes and plan.dtypes is None:
-            plan = dataclasses.replace(plan, dtypes=config.dtypes)
+        _, dtypes = launch_policy(config, plan)
+        if dtypes is not plan.dtypes:
+            plan = dataclasses.replace(plan, dtypes=dtypes)
         policy = self._resolve_policy(plan, outputs, red_names, out_info, first)
 
         if plan.engine == "torch" and batch:

@@ -539,6 +539,17 @@ def policy_plan(config) -> Optional[LoweringPlan]:
     return None
 
 
+def launch_policy(config, plan: Optional[LoweringPlan] = None) -> Tuple[str, Optional[DtypePolicy]]:
+    """The engine and DtypePolicy of a launch under ``config`` on ``plan``
+    (by default the explicit plan of ``config.plan_policy``, if any): the
+    plan's engine, and its policy where it carries one, else the config's."""
+    if plan is None:
+        plan = policy_plan(config)
+    if plan is None:
+        return config.engine, config.dtypes
+    return plan.engine, plan.dtypes if plan.dtypes is not None else config.dtypes
+
+
 def plan_for_launch(config, nsites: int, layouts: Sequence[Layout]) -> LoweringPlan:
     """Plan one site-local launch: the explicit plan of
     ``config.plan_policy`` (validated) or :func:`default_plan`."""

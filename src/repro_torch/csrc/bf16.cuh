@@ -44,3 +44,13 @@ template <>
 struct rt_storage<true> {
   typedef __nv_bfloat16 type;
 };
+
+// Whether T is the bf16 storage type.
+template <typename T>
+struct rt_is_bf16 {
+  static constexpr bool value = false;
+};
+template <>
+struct rt_is_bf16<__nv_bfloat16> {
+  static constexpr bool value = true;
+};

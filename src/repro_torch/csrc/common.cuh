@@ -19,8 +19,19 @@
 #define RT_OP_MAX 1
 #define RT_MAX_WARPS 32  // 1024 threads per block at most
 
+// max must propagate NaN, as jnp.max and torch.amax do: fmaxf (IEEE maxNum)
+// returns the other operand when one is NaN, so a NaN site would vanish from
+// its component's max (and an all-NaN component would give -inf).  PTX's
+// max.NaN.f32 (sm_80+) returns the canonical NaN when either operand is
+// NaN; the sum is a + b as before.
+__device__ __forceinline__ float rt_max_nan(float a, float b) {
+  float r;
+  asm("max.NaN.f32 %0, %1, %2;" : "=f"(r) : "f"(a), "f"(b));
+  return r;
+}
+
 __device__ __forceinline__ float rt_combine(float a, float b, int op) {
-  return op == RT_OP_MAX ? fmaxf(a, b) : a + b;
+  return op == RT_OP_MAX ? rt_max_nan(a, b) : a + b;
 }
 
 __device__ __forceinline__ float rt_identity(int op) {
@@ -37,12 +48,13 @@ __device__ __forceinline__ float rt_warp_fold(float x, int op) {
 }
 
 // Fold NCOMP per-thread values over the whole block and write the block's
-// partial row partials[blockIdx.x * NCOMP + c].  blockDim.x must be a whole
+// partial row, row[c] (the caller places the row: a table's row blockIdx.x,
+// or the row of the sites the block computes).  blockDim.x must be a whole
 // number of warps; threads without a site pass the identity.  Must be
 // reached by every thread of the block.
 template <int NCOMP>
 __device__ __forceinline__ void rt_block_partials(const float (&v)[NCOMP], int op,
-                                                  float* __restrict__ partials) {
+                                                  float* __restrict__ row) {
   __shared__ float smem[NCOMP * RT_MAX_WARPS];
   const int lane = threadIdx.x & 31;
   const int warp = threadIdx.x >> 5;
@@ -56,7 +68,7 @@ __device__ __forceinline__ void rt_block_partials(const float (&v)[NCOMP], int o
   for (int c = threadIdx.x; c < NCOMP; c += blockDim.x) {
     float acc = smem[c * RT_MAX_WARPS];
     for (int w = 1; w < nwarps; ++w) acc = rt_combine(acc, smem[c * RT_MAX_WARPS + w], op);
-    partials[(long long)blockIdx.x * NCOMP + c] = acc;
+    row[c] = acc;
   }
 }
 
@@ -164,16 +176,23 @@ __device__ __forceinline__ long long rt_index(const rt_layout& L, int c, long lo
   return (long long)c * nsites + s;
 }
 
+template <typename T>
+struct rt_same {
+  typedef T type;
+};
+
 // INDEX(comp, site) in a launch of class K: the class's address with only
-// the SAL's shift read at run time, or rt_index under RT_K_ANY.
-template <int K>
-__device__ __forceinline__ long long rt_at(const rt_layout& L, int c, long long s, int ncomp,
-                                           long long nsites) {
-  if (K == RT_K_SOA) return (long long)c * nsites + s;
+// the SAL's shift read at run time, or rt_index under RT_K_ANY.  Offsets
+// are of type I: long long, or int in a kernel whose every offset fits one
+// (I is named, never deduced).
+template <int K, typename I = long long>
+__device__ __forceinline__ I rt_at(const rt_layout& L, int c, typename rt_same<I>::type s,
+                                   int ncomp, typename rt_same<I>::type nsites) {
+  if (K == RT_K_SOA) return (I)c * nsites + s;
   if (K == RT_K_AOS) return s * ncomp + c;
   if (K == RT_K_AOSOA)
-    return (((s >> L.shift) * ncomp + c) << L.shift) + (s & ((1LL << L.shift) - 1));
-  return rt_index(L, c, s, ncomp, nsites);
+    return (((s >> L.shift) * ncomp + c) << L.shift) + (s & (((I)1 << L.shift) - 1));
+  return (I)rt_index(L, c, s, ncomp, nsites);
 }
 
 // The inverse of INDEX: the (component, site) stored at flat offset i.
@@ -198,6 +217,11 @@ __device__ __forceinline__ void rt_coords(const rt_layout& L, long long i, int n
     c = (int)(i / nsites);
     s = i - (long long)c * nsites;
   }
+}
+
+// Whether a pointer is 16-byte aligned (a float4's address).
+static inline bool rt_aligned(const void* p) {
+  return (reinterpret_cast<unsigned long long>(p) & 15ull) == 0;
 }
 
 // Blocks needed to give each of n items one thread.

@@ -49,12 +49,11 @@ __device__ __forceinline__ rt_pair rt_warp_fold_pair(rt_pair x) {
 }
 
 // rt_block_partials with compensation: fold NCOMP per-thread values over the
-// block and write the block's pairs partials[(blockIdx.x * NCOMP + c) * 2 +
-// {0, 1}] = (hi, lo).  Must be reached by every thread of the block;
-// threads without a site pass 0.
+// block and write the block's pairs row[2 c + {0, 1}] = (hi, lo).  Must be
+// reached by every thread of the block; threads without a site pass 0.
 template <int NCOMP>
 __device__ __forceinline__ void rt_block_partials_comp(const float (&v)[NCOMP],
-                                                       float* __restrict__ partials) {
+                                                       float* __restrict__ row) {
   __shared__ rt_pair smem[NCOMP * RT_MAX_WARPS];
   const int lane = threadIdx.x & 31;
   const int warp = threadIdx.x >> 5;
@@ -68,7 +67,7 @@ __device__ __forceinline__ void rt_block_partials_comp(const float (&v)[NCOMP],
   for (int c = threadIdx.x; c < NCOMP; c += blockDim.x) {
     rt_pair acc = smem[c * RT_MAX_WARPS];
     for (int w = 1; w < nwarps; ++w) acc = rt_pair_add(acc, smem[c * RT_MAX_WARPS + w]);
-    partials[((long long)blockIdx.x * NCOMP + c) * 2] = acc.hi;
-    partials[((long long)blockIdx.x * NCOMP + c) * 2 + 1] = acc.lo;
+    row[2 * c] = acc.hi;
+    row[2 * c + 1] = acc.lo;
   }
 }

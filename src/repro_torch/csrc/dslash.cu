@@ -31,10 +31,11 @@ __global__ void dslash_kernel(const float* __restrict__ psi, const float* __rest
   const long long V = (long long)L.X * L.Y * L.Z * L.T;
   const long long s = blockIdx.x * (long long)blockDim.x + threadIdx.x;
   if (s >= V) return;
-  float d[24];
-  rt_wilson_hop<K, K>(rt_wfield{psi, lpsi}, rt_wfield{u, lu}, L, s, d);
+  const float* const ps[1] = {psi};
+  float d[1][24];
+  rt_wilson_hop<K, K, false, false, 1>(ps, lpsi, rt_wf<float>{u, lu}, 1, L, s, d);
 #pragma unroll
-  for (int c = 0; c < 24; ++c) out[rt_at<K>(lout, c, s, 24, V)] = d[c];
+  for (int c = 0; c < 24; ++c) out[rt_at<K>(lout, c, s, 24, V)] = d[0][c];
 }
 
 extern "C" {

@@ -13,18 +13,39 @@
 //
 // Bound on the H100: bytes.  cg_update reads 4 and writes 2 spinors per
 // site (576 B) for 3 flops per component; cg_xpay reads 2 and writes 1
-// (288 B).  One thread per site for cg_update (it folds all 24 components
-// of its site), one per element for cg_xpay.
+// (288 B).  So the design is about bytes in flight and coalescing.
 //
 // Layouts: every tensor comes with its own layout descriptor (SoA, AoS or
-// AoSoA; common.cuh).  cg_update addresses component c of its site at
-// INDEX(c, s) in each tensor's layout; its block folds the same sites in
-// the same order in every layout, so fields and partials are bitwise the
-// SoA launch's.  cg_xpay walks the flat arrays when its three operands
-// share a layout (layout-free, coalesced in any layout) and otherwise
-// recovers each output element's (component, site) from the output's
-// layout.  Under AoS the per-site loads of cg_update are ncomp floats apart
-// across a warp: every load touches a sector of its own.
+// AoSoA; common.cuh).  Where every operand shares one layout (every launch
+// of the solve) both chains are elementwise on the flat arrays, whatever
+// the layout, and move 16-byte vectors:
+//
+//   cg_xpay    as K1's site_local.cu: blocks of RT_XPAY_THREADS threads,
+//              RT_XPAY_VECS float4s of each operand a thread, every load
+//              issued before the first store, 32-bit offsets inside a
+//              field and a 64-bit slot base; the last partial vector of a
+//              field whose size is not a multiple of 4 element by element.
+//   cg_update  block q computes the chunk of vvl (blockDim.x) sites [q vvl,
+//              (q + 1) vvl), as the one-thread-a-site design did.  In a
+//              same-layout launch those sites' 24 vvl elements lie in 24
+//              runs of vvl floats (SoA) or in one run of 24 vvl floats
+//              (AoS, and AoSoA whose SAL divides vvl: whole short arrays),
+//              so the block moves them as float4s (a bf16 ap as 8-byte
+//              vectors), coalesced in every layout, 6 of each operand a
+//              thread.  Each r_new^2 goes to shared memory at (component,
+//              site), and the fold then runs as before: thread t takes
+//              site t's 24 values and the block folds them with
+//              rt_block_partials, the same adds in the same order.
+//
+// So x_new, r_new and the partial rows are bitwise the one-thread-a-site
+// kernel's (cg_update_kernel below), which stays as the general path: mixed
+// layouts, a SAL that is not a power of two or does not divide vvl, a
+// misaligned operand or slot base, vvl beyond RT_CG_MAX_VVL, and fields
+// whose offsets do not fit an int.  It addresses component c of its site at
+// INDEX(c, s) in each tensor's layout; under AoS its loads lie ncomp floats
+// apart across a warp.  cg_xpay's general path recovers each output
+// element's (component, site) from the output's layout.  Every layout is
+// bitwise SoA's.
 //
 // K3B, the batch instances (the serving chains of apps/milc/cg.py,
 // _build_flat's leading batch grid axis, _batch_specs :2009): the slot is
@@ -65,6 +86,10 @@
 #include "bf16.cuh"
 
 #define RT_SPINOR 24
+#define RT_XPAY_THREADS 256
+#define RT_XPAY_VECS 2       // float4s of each operand a thread: 2048 elements a block
+#define RT_CG_VECS 6         // float4s of each operand a cg_update thread: 24 vvl / 4 / vvl
+#define RT_CG_MAX_VVL 256    // the vector cg_update's (24, vvl) shared r_new^2 (24 KB)
 
 __device__ __forceinline__ float rt_xpay(float y, float a, float x) { return __fmaf_rn(a, x, y); }
 
@@ -117,11 +142,164 @@ __global__ void cg_update_kernel(const float* __restrict__ x, const float* __res
       sq[c] = rn * rn;
     }
   }
-  rt_block_partials<RT_SPINOR>(sq, RT_OP_SUM, partials);
+  rt_block_partials<RT_SPINOR>(sq, RT_OP_SUM, partials + (long long)blockIdx.x * RT_SPINOR);
 }
 
-// MIXED: the three operands' layouts differ.  sx, sy: per-slot element
-// offsets of x and y (0 for a shared one).
+// Four consecutive values as fp32: a float4, or four bf16 (8 bytes) widened
+// (exactly: a bf16 is the high half of its fp32).
+__device__ __forceinline__ float4 rt_ld4(const float* __restrict__ p) {
+  return __ldg(reinterpret_cast<const float4*>(p));
+}
+__device__ __forceinline__ float4 rt_ld4(const __nv_bfloat16* __restrict__ p) {
+  const uint2 w = __ldg(reinterpret_cast<const uint2*>(p));
+  return make_float4(__uint_as_float(w.x << 16), __uint_as_float(w.x & 0xffff0000u),
+                     __uint_as_float(w.y << 16), __uint_as_float(w.y & 0xffff0000u));
+}
+
+// Element e of a full block's 24 vvl elements (same layout, layout class K,
+// SAL dividing vvl): its component c and local site l, and its offset from
+// the block's base (SoA: from component 0 of the block's first site).
+template <int K>
+__device__ __forceinline__ void rt_cg_elem(int e, int vvl, int nsites, int shift, int& c,
+                                           int& l, int& off) {
+  if (K == RT_K_SOA) {
+    c = e / vvl;
+    l = e - c * vvl;
+    off = c * nsites + l;
+  } else {
+    const int blk = e >> shift;   // AoS: shift 0
+    c = blk % RT_SPINOR;
+    l = ((blk / RT_SPINOR) << shift) + (e & ((1 << shift) - 1));
+    off = e;
+  }
+}
+
+// The vector path of cg_update (see the header): block q, vvl threads, a
+// (24, vvl) shared table of r_new^2.  A full block moves float4s; the last
+// block, where it has fewer than vvl sites, moves its elements one by one.
+template <int K, bool MASKED, typename TAP>
+__global__ void cg_update_vec_kernel(const float* __restrict__ x, const float* __restrict__ r,
+                                     const float* __restrict__ p, const TAP* __restrict__ ap,
+                                     const float* __restrict__ alpha,
+                                     const float* __restrict__ neg_alpha,
+                                     const float* __restrict__ m, float* __restrict__ x_new,
+                                     float* __restrict__ r_new, float* __restrict__ partials,
+                                     int nsites, rt_layout L, rt_cg_strides S) {
+  extern __shared__ float rt_cg_sq[];
+  const int shift = K == RT_K_AOSOA ? L.shift : 0;
+  const int vvl = blockDim.x;
+  const long long b = blockIdx.y;
+  x += b * S.x;
+  r += b * S.r;
+  p += b * S.p;
+  ap += b * S.ap;
+  x_new += b * S.out;
+  r_new += b * S.out;
+  partials += b * gridDim.x * RT_SPINOR;
+  const int s0 = blockIdx.x * vvl;
+  const int ns = min(vvl, nsites - s0);
+  const bool on = !MASKED || m[b] > 0.0f;
+  const float a = alpha[b];
+  const float na = neg_alpha[b];
+  // the block's base: SoA, component 0 of site s0; else the run of its 24 vvl elements
+  const int base = K == RT_K_SOA ? s0 : s0 * RT_SPINOR;
+  if (ns == vvl) {
+    float4 xv[RT_CG_VECS], rv[RT_CG_VECS], pv[RT_CG_VECS], apv[RT_CG_VECS];
+    int cs[RT_CG_VECS], ls[RT_CG_VECS], offs[RT_CG_VECS];
+#pragma unroll
+    for (int k = 0; k < RT_CG_VECS; ++k) {
+      rt_cg_elem<K>(4 * (threadIdx.x + k * vvl), vvl, nsites, shift, cs[k], ls[k], offs[k]);
+      const int o = base + offs[k];
+      xv[k] = rt_ld4(x + o);
+      rv[k] = rt_ld4(r + o);
+      if (on) {
+        pv[k] = rt_ld4(p + o);
+        apv[k] = rt_ld4(ap + o);
+      }
+    }
+#pragma unroll
+    for (int k = 0; k < RT_CG_VECS; ++k) {
+      if (on) {
+        xv[k] = make_float4(rt_xpay(xv[k].x, a, pv[k].x), rt_xpay(xv[k].y, a, pv[k].y),
+                            rt_xpay(xv[k].z, a, pv[k].z), rt_xpay(xv[k].w, a, pv[k].w));
+        rv[k] = make_float4(rt_xpay(rv[k].x, na, apv[k].x), rt_xpay(rv[k].y, na, apv[k].y),
+                            rt_xpay(rv[k].z, na, apv[k].z), rt_xpay(rv[k].w, na, apv[k].w));
+      }
+      const int o = base + offs[k];
+      *reinterpret_cast<float4*>(x_new + o) = xv[k];
+      *reinterpret_cast<float4*>(r_new + o) = rv[k];
+      const float q[4] = {rv[k].x, rv[k].y, rv[k].z, rv[k].w};
+#pragma unroll
+      for (int i = 0; i < 4; ++i) {
+        int c = cs[k], l = ls[k], off;
+        if (i) rt_cg_elem<K>(4 * (threadIdx.x + k * vvl) + i, vvl, nsites, shift, c, l, off);
+        rt_cg_sq[c * vvl + l] = q[i] * q[i];
+      }
+    }
+  } else {
+    for (int e = threadIdx.x; e < RT_SPINOR * ns; e += vvl) {
+      const int c = e / ns, l = e - c * ns;
+      const int xi = rt_at<K, int>(L, c, s0 + l, RT_SPINOR, nsites);
+      float xn = x[xi], rn = r[xi];
+      if (on) {
+        xn = rt_xpay(xn, a, p[xi]);
+        rn = rt_xpay(rn, na, rt_ld(ap, xi));
+      }
+      x_new[xi] = xn;
+      r_new[xi] = rn;
+      rt_cg_sq[c * vvl + l] = rn * rn;
+    }
+  }
+  __syncthreads();
+  float sq[RT_SPINOR];
+#pragma unroll
+  for (int c = 0; c < RT_SPINOR; ++c)
+    sq[c] = (int)threadIdx.x < ns ? rt_cg_sq[c * vvl + threadIdx.x] : 0.0f;
+  rt_block_partials<RT_SPINOR>(sq, RT_OP_SUM, partials + (long long)blockIdx.x * RT_SPINOR);
+}
+
+// cg_xpay's vector path (see the header); the slot is blockIdx.y, sx, sy:
+// per-slot element offsets of x and y (0 for a shared one), out one field
+// of n elements a slot.  A frozen slot reads no x.
+template <bool MASKED>
+__global__ void __launch_bounds__(RT_XPAY_THREADS)
+    cg_xpay_vec_kernel(const float* __restrict__ x, const float* __restrict__ y,
+                       const float* __restrict__ a, const float* __restrict__ m,
+                       float* __restrict__ out, int n, long long sx, long long sy) {
+  const long long b = blockIdx.y;
+  x += b * sx;
+  y += b * sy;
+  out += b * (long long)n;
+  const bool on = !MASKED || m[b] > 0.0f;
+  const float av = a[b];
+  const int nv = n >> 2;
+  const int v0 = blockIdx.x * (RT_XPAY_THREADS * RT_XPAY_VECS) + threadIdx.x;
+  float4 xr[RT_XPAY_VECS], yr[RT_XPAY_VECS];
+#pragma unroll
+  for (int k = 0; k < RT_XPAY_VECS; ++k) {
+    const int v = v0 + k * RT_XPAY_THREADS;
+    if (v < nv) {
+      yr[k] = __ldg(reinterpret_cast<const float4*>(y) + v);
+      if (on) xr[k] = __ldg(reinterpret_cast<const float4*>(x) + v);
+    }
+  }
+#pragma unroll
+  for (int k = 0; k < RT_XPAY_VECS; ++k) {
+    const int v = v0 + k * RT_XPAY_THREADS;
+    if (v >= nv) continue;
+    reinterpret_cast<float4*>(out)[v] =
+        on ? make_float4(rt_xpay(yr[k].x, av, xr[k].x), rt_xpay(yr[k].y, av, xr[k].y),
+                         rt_xpay(yr[k].z, av, xr[k].z), rt_xpay(yr[k].w, av, xr[k].w))
+           : yr[k];
+  }
+  if (blockIdx.x == gridDim.x - 1) {   // the elements after the last whole vector
+    const int e = 4 * nv + threadIdx.x;
+    if (e < n) out[e] = on ? rt_xpay(y[e], av, x[e]) : y[e];
+  }
+}
+
+// The general path.  MIXED: the three operands' layouts differ.  sx, sy:
+// per-slot element offsets of x and y (0 for a shared one).
 template <bool MIXED, bool MASKED>
 __global__ void cg_xpay_kernel(const float* __restrict__ x, const float* __restrict__ y,
                                const float* __restrict__ a, const float* __restrict__ m,
@@ -160,6 +338,30 @@ static int rt_cg_update_launch(const float* x, const float* r, const float* p, c
   if (nsites == 0 || batch == 0) return 0;
   const rt_cg_layouts cl{L[0], L[1], L[2], L[3], L[4], L[5]};
   const dim3 grid(rt_grid(nsites, block), batch);
+  const void* ptrs[5] = {x, r, p, x_new, r_new};
+  bool vec = k != RT_K_ANY && block % 32 == 0 && block <= RT_CG_MAX_VVL &&
+             block % L[0].sal == 0 && RT_SPINOR * nsites < (1LL << 31) &&
+             (k != RT_K_SOA || nsites % 4 == 0) && S.x % 4 == 0 && S.r % 4 == 0 &&
+             S.p % 4 == 0 && S.ap % 4 == 0 &&
+             (reinterpret_cast<unsigned long long>(ap) & (4 * sizeof(TAP) - 1)) == 0;
+  for (int i = 0; i < 5; ++i) vec = vec && rt_aligned(ptrs[i]);
+  if (vec) {
+    const size_t smem = sizeof(float) * RT_SPINOR * block;
+#define RT_CG_VEC(KK, MASKED)                                                                    \
+  cg_update_vec_kernel<KK, MASKED, TAP><<<grid, block, smem, stream>>>(                          \
+      x, r, p, ap, alpha, neg_alpha, m, x_new, r_new, partials, (int)nsites, L[0], S)
+    if (m) {
+      if (k == RT_K_SOA) RT_CG_VEC(RT_K_SOA, true);
+      else if (k == RT_K_AOS) RT_CG_VEC(RT_K_AOS, true);
+      else RT_CG_VEC(RT_K_AOSOA, true);
+    } else {
+      if (k == RT_K_SOA) RT_CG_VEC(RT_K_SOA, false);
+      else if (k == RT_K_AOS) RT_CG_VEC(RT_K_AOS, false);
+      else RT_CG_VEC(RT_K_AOSOA, false);
+    }
+#undef RT_CG_VEC
+    RT_LAUNCH_RESULT();
+  }
   if (m)
     RT_WITH_CLASS(k, cg_update_kernel<RT_K, true, TAP><<<grid, block, 0, stream>>>(
                          x, r, p, ap, alpha, neg_alpha, m, x_new, r_new, partials, nsites, cl, S))
@@ -179,6 +381,34 @@ __global__ void bf16_round_kernel(const float* __restrict__ x, float* __restrict
   if (i < n) out[i] = rt_bf16_if<true>(x[i]);
 }
 
+// x rounded to bf16 and stored as bf16 with the same rounding: the copy of
+// the gauge field that K5's policy instance reads (made once per operator,
+// apps/milc/cg.py::make_fused_normal), in place of rounding u at every load.
+// VEC: a float4 in and four bf16 (8 bytes) out a thread, the elements after
+// the last whole vector by the thread after it; else one element a thread
+// (a misaligned operand).
+template <bool VEC>
+__global__ void bf16_pack_kernel(const float* __restrict__ x, __nv_bfloat16* __restrict__ out,
+                                 long long n) {
+  const long long i = blockIdx.x * (long long)blockDim.x + threadIdx.x;
+  if (!VEC) {
+    if (i < n) rt_st(out, i, x[i]);
+    return;
+  }
+  const long long nv = n >> 2;
+  if (i < nv) {
+    const float4 f = __ldg(reinterpret_cast<const float4*>(x) + i);
+    const __nv_bfloat162 lo = __halves2bfloat162(__float2bfloat16_rn(f.x),
+                                                 __float2bfloat16_rn(f.y));
+    const __nv_bfloat162 hi = __halves2bfloat162(__float2bfloat16_rn(f.z),
+                                                 __float2bfloat16_rn(f.w));
+    reinterpret_cast<uint2*>(out)[i] = make_uint2(*reinterpret_cast<const unsigned*>(&lo),
+                                                  *reinterpret_cast<const unsigned*>(&hi));
+  } else if (i == nv) {
+    for (long long e = 4 * nv; e < n; ++e) rt_st(out, e, x[e]);
+  }
+}
+
 static int rt_xpay_launch(const float* x, const float* y, const float* a, const float* m,
                           float* out, int ncomp, long long nsites, int batch, long long sx,
                           long long sy, int lx, int ly, int lo, int block, cudaStream_t stream) {
@@ -187,6 +417,18 @@ static int rt_xpay_launch(const float* x, const float* y, const float* a, const 
   if (rt_launch_class(L, 3) < 0) return RT_BAD_LAYOUT;
   if (n == 0 || batch == 0) return 0;
   const bool mixed = !(rt_same_layout(L[0], L[2]) && rt_same_layout(L[1], L[2]));
+  if (!mixed && rt_aligned(x) && rt_aligned(y) && rt_aligned(out) && sx % 4 == 0 &&
+      sy % 4 == 0 && (batch == 1 || n % 4 == 0) && n < (1LL << 31) - 4 * RT_XPAY_THREADS) {
+    const long long per = RT_XPAY_THREADS * RT_XPAY_VECS * 4;
+    const dim3 vgrid((unsigned)((n + per - 1) / per), batch);
+    if (m)
+      cg_xpay_vec_kernel<true><<<vgrid, RT_XPAY_THREADS, 0, stream>>>(x, y, a, m, out, (int)n,
+                                                                      sx, sy);
+    else
+      cg_xpay_vec_kernel<false><<<vgrid, RT_XPAY_THREADS, 0, stream>>>(x, y, a, m, out, (int)n,
+                                                                       sx, sy);
+    RT_LAUNCH_RESULT();
+  }
   const dim3 grid(rt_grid(n, block), batch);
 #define RT_XPAY(MIXED, MASKED)                                                                 \
   cg_xpay_kernel<MIXED, MASKED><<<grid, block, 0, stream>>>(x, y, a, m, out, ncomp, nsites, L[0], \
@@ -255,6 +497,18 @@ int rt_cg_update_masked_ap16(const float* x, const float* r, const float* p,
 int rt_bf16_round(const float* x, float* out, long long n, int block, cudaStream_t stream) {
   if (n == 0) return 0;
   bf16_round_kernel<<<rt_grid(n, block), block, 0, stream>>>(x, out, n);
+  RT_LAUNCH_RESULT();
+}
+
+// x: n fp32 values; out: n bf16.
+int rt_bf16_pack(const float* x, __nv_bfloat16* out, long long n, int block,
+                 cudaStream_t stream) {
+  if (n == 0) return 0;
+  const long long threads = n / 4 + 1;   // a vector a thread, and one for the tail
+  if (rt_aligned(x) && (reinterpret_cast<unsigned long long>(out) & 7ull) == 0)
+    bf16_pack_kernel<true><<<rt_grid(threads, block), block, 0, stream>>>(x, out, n);
+  else
+    bf16_pack_kernel<false><<<rt_grid(n, block), block, 0, stream>>>(x, out, n);
   RT_LAUNCH_RESULT();
 }
 

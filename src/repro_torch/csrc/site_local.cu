@@ -171,10 +171,6 @@ __global__ void __launch_bounds__(RT_SITE_THREADS)
 
 // -- host side ------------------------------------------------------------------------
 
-static inline bool rt_aligned(const void* p) {
-  return (reinterpret_cast<unsigned long long>(p) & 15ull) == 0;
-}
-
 // Blocks of the vector path for n elements (at least one, for the tail).
 static inline unsigned rt_site_grid(long long n) {
   const long long per = RT_SITE_THREADS * RT_SITE_VECS * 4;

@@ -70,51 +70,61 @@ template <> struct rt_gamma<3> {  // t
 // The negated unit: +1 <-> -1, +i <-> -i.
 __device__ __forceinline__ int rt_neg_unit(int k) { return k ^ 1; }
 
+// One value of a field through the read-only path, widened to fp32.
+__device__ __forceinline__ float rt_ldg(const float* p) { return __ldg(p); }
+__device__ __forceinline__ float rt_ldg(const __nv_bfloat16* p) { return __bfloat162float(__ldg(p)); }
+
 // Complex component `comp` (real part at 2 comp, imaginary at 2 comp + 1)
-// of site `site` of a field of ncomp fp32 components in layout L; RB rounds
-// both parts to bf16.
-template <int K, bool RB = false>
-__device__ __forceinline__ rt_cplx rt_load_c(const float* __restrict__ f, const rt_layout& L,
-                                             int ncomp, int comp, long long V, long long site) {
-  return {rt_bf16_if<RB>(__ldg(f + rt_at<K>(L, 2 * comp, site, ncomp, V))),
-          rt_bf16_if<RB>(__ldg(f + rt_at<K>(L, 2 * comp + 1, site, ncomp, V)))};
+// of site `site` of a field of ncomp components in layout L, stored as T
+// (fp32, or bf16 widened at load); RB rounds both parts to bf16.  Sites
+// and offsets are of type I: long long, or int where every offset of the
+// field fits one (K5).
+template <int K, bool RB, typename T, typename I>
+__device__ __forceinline__ rt_cplx rt_load_c(const T* __restrict__ f, const rt_layout& L,
+                                             int ncomp, int comp, I V, I site) {
+  return {rt_bf16_if<RB>(rt_ldg(f + rt_at<K, I>(L, 2 * comp, site, ncomp, V))),
+          rt_bf16_if<RB>(rt_ldg(f + rt_at<K, I>(L, 2 * comp + 1, site, ncomp, V)))};
 }
 
 // A field as the hopping term reads it (through __ldg, the read-only path):
-// its data and its layout.
-struct rt_wfield {
-  const float* p;
+// its data, stored as T, and its layout.
+template <typename T>
+struct rt_wf {
+  const T* p;
   rt_layout L;
 };
 
 // Upper two spin rows of (1 -/+ gamma_mu) psi(site): h[s][color].
-template <int MU, bool PLUS, int K, bool RB = false>
-__device__ __forceinline__ void rt_project(const rt_wfield& psi, long long V, long long site,
-                                           rt_cplx (&h)[2][3]) {
+template <int MU, bool PLUS, int K, bool RB, typename T, typename I>
+__device__ __forceinline__ void rt_project(const rt_wf<T>& psi, I V, I site, rt_cplx (&h)[2][3]) {
   typedef rt_gamma<MU> G;
   const int a0 = PLUS ? rt_neg_unit(G::A0) : G::A0;
   const int a1 = PLUS ? rt_neg_unit(G::A1) : G::A1;
 #pragma unroll
   for (int c = 0; c < 3; ++c) {
-    h[0][c] = rt_cadd(rt_load_c<K, RB>(psi.p, psi.L, 24, 0 * 3 + c, V, site),
-                      rt_unit(rt_load_c<K, RB>(psi.p, psi.L, 24, G::J0 * 3 + c, V, site), a0));
-    h[1][c] = rt_cadd(rt_load_c<K, RB>(psi.p, psi.L, 24, 1 * 3 + c, V, site),
-                      rt_unit(rt_load_c<K, RB>(psi.p, psi.L, 24, G::J1 * 3 + c, V, site), a1));
+    h[0][c] = rt_cadd(rt_load_c<K, RB, T, I>(psi.p, psi.L, 24, 0 * 3 + c, V, site),
+                      rt_unit(rt_load_c<K, RB, T, I>(psi.p, psi.L, 24, G::J0 * 3 + c, V, site), a0));
+    h[1][c] = rt_cadd(rt_load_c<K, RB, T, I>(psi.p, psi.L, 24, 1 * 3 + c, V, site),
+                      rt_unit(rt_load_c<K, RB, T, I>(psi.p, psi.L, 24, G::J1 * 3 + c, V, site), a1));
   }
 }
 
-// out[s][a] = sum_b U[a][b] h[s][b]      (ADJ = false)
-// out[s][a] = sum_b conj(U[b][a]) h[s][b] (ADJ = true)
-// with U the link of direction MU at `site`.
-template <int MU, bool ADJ, int K, bool RB = false>
-__device__ __forceinline__ void rt_su3_mult(const rt_wfield& u, long long V, long long site,
-                                            const rt_cplx (&h)[2][3], rt_cplx (&out)[2][3]) {
-  rt_cplx m[3][3];
+// The link of direction MU at `site` into m[a][b].
+template <int MU, int K, bool RB, typename T, typename I>
+__device__ __forceinline__ void rt_load_link(const rt_wf<T>& u, I V, I site,
+                                             rt_cplx (&m)[3][3]) {
 #pragma unroll
   for (int a = 0; a < 3; ++a)
 #pragma unroll
     for (int b = 0; b < 3; ++b)
-      m[a][b] = rt_load_c<K, RB>(u.p, u.L, 72, (MU * 3 + a) * 3 + b, V, site);
+      m[a][b] = rt_load_c<K, RB, T, I>(u.p, u.L, 72, (MU * 3 + a) * 3 + b, V, site);
+}
+
+// out[s][a] = sum_b U[a][b] h[s][b]      (ADJ = false)
+// out[s][a] = sum_b conj(U[b][a]) h[s][b] (ADJ = true)
+template <bool ADJ>
+__device__ __forceinline__ void rt_su3_apply(const rt_cplx (&m)[3][3], const rt_cplx (&h)[2][3],
+                                             rt_cplx (&out)[2][3]) {
 #pragma unroll
   for (int s = 0; s < 2; ++s)
 #pragma unroll
@@ -136,17 +146,10 @@ __device__ __forceinline__ void rt_su3_mult(const rt_wfield& u, long long V, lon
     }
 }
 
-// acc += (1 - gamma_mu) U_mu(site) psi(fwd) + (1 + gamma_mu) U_mu^dag(bwd) psi(bwd).
-template <int MU, int KP, int KU, bool RBP = false, bool RBU = false>
-__device__ __forceinline__ void rt_hop_dir(const rt_wfield& psi, const rt_wfield& u, long long V,
-                                           long long site, long long fwd, long long bwd,
+// acc += the reconstruction of uh + uhb for the gamma table G.
+template <typename G>
+__device__ __forceinline__ void rt_hop_acc(const rt_cplx (&uh)[2][3], const rt_cplx (&uhb)[2][3],
                                            rt_cplx (&acc)[4][3]) {
-  typedef rt_gamma<MU> G;
-  rt_cplx h[2][3], uh[2][3], hb[2][3], uhb[2][3];
-  rt_project<MU, false, KP, RBP>(psi, V, fwd, h);
-  rt_su3_mult<MU, false, KU, RBU>(u, V, site, h, uh);
-  rt_project<MU, true, KP, RBP>(psi, V, bwd, hb);
-  rt_su3_mult<MU, true, KU, RBU>(u, V, bwd, hb, uhb);
 #pragma unroll
   for (int c = 0; c < 3; ++c) {
     acc[0][c] = rt_cadd(acc[0][c], rt_cadd(uh[0][c], uhb[0][c]));
@@ -157,39 +160,85 @@ __device__ __forceinline__ void rt_hop_dir(const rt_wfield& psi, const rt_wfield
   }
 }
 
+// acc[b] += (1 - gamma_mu) U_mu(site) psi[b](fwd) + (1 + gamma_mu) U_mu^dag(bwd) psi[b](bwd)
+// for nb <= SB spinors psi[b] of one layout (the slots of K5B; one for K4
+// and K5) against one u: the two links are loaded first, once for every
+// slot, and each slot's adds are in the same order whatever SB is.
+template <int MU, int KP, int KU, bool RBP, bool RBU, int SB, typename TP, typename TU,
+          typename I>
+__device__ __forceinline__ void rt_hop_dir(const TP* const (&psi)[SB], const rt_layout& lp,
+                                           const rt_wf<TU>& u, int nb, I V, I site, I fwd, I bwd,
+                                           rt_cplx (&acc)[SB][4][3]) {
+  typedef rt_gamma<MU> G;
+  rt_cplx mf[3][3], mb[3][3];
+  rt_load_link<MU, KU, RBU>(u, V, site, mf);
+  rt_load_link<MU, KU, RBU>(u, V, bwd, mb);
+#pragma unroll
+  for (int b = 0; b < SB; ++b) {
+    if (b >= nb) break;
+    const rt_wf<TP> pb{psi[b], lp};
+    rt_cplx h[2][3], uh[2][3], hb[2][3], uhb[2][3];
+    rt_project<MU, false, KP, RBP>(pb, V, fwd, h);
+    rt_su3_apply<false>(mf, h, uh);
+    rt_project<MU, true, KP, RBP>(pb, V, bwd, hb);
+    rt_su3_apply<true>(mb, hb, uhb);
+    rt_hop_acc<G>(uh, uhb, acc[b]);
+  }
+}
+
 struct rt_lattice {
   int X, Y, Z, T;
 };
 
-// D psi at `site` into d[24] (component order of the spinor field); psi in
-// layout class KP, u in KU, each rounded to bf16 at load where RBP, RBU.
-template <int KP, int KU, bool RBP = false, bool RBU = false>
-__device__ __forceinline__ void rt_wilson_hop(const rt_wfield& psi, const rt_wfield& u,
-                                              rt_lattice L, long long site, float (&d)[24]) {
-  const long long V = (long long)L.X * L.Y * L.Z * L.T;
-  const long long st = 1, sz = L.T, sy = (long long)L.Z * L.T, sx = (long long)L.Y * sy;
+// The neighbours of `site` on the periodic lattice: fwd[mu], bwd[mu].
+template <typename I>
+__device__ __forceinline__ void rt_neighbours(rt_lattice L, I site, I (&fwd)[4], I (&bwd)[4]) {
+  const I st = 1, sz = L.T, sy = (I)L.Z * L.T, sx = (I)L.Y * sy;
   const int t = (int)(site % L.T);
   const int z = (int)((site / sz) % L.Z);
   const int y = (int)((site / sy) % L.Y);
   const int x = (int)(site / sx);
-  rt_cplx acc[4][3];
+  fwd[0] = site + (x == L.X - 1 ? -(L.X - 1) * sx : sx);
+  bwd[0] = site - (x == 0 ? -(L.X - 1) * sx : sx);
+  fwd[1] = site + (y == L.Y - 1 ? -(L.Y - 1) * sy : sy);
+  bwd[1] = site - (y == 0 ? -(L.Y - 1) * sy : sy);
+  fwd[2] = site + (z == L.Z - 1 ? -(L.Z - 1) * sz : sz);
+  bwd[2] = site - (z == 0 ? -(L.Z - 1) * sz : sz);
+  fwd[3] = site + (t == L.T - 1 ? -(L.T - 1) * st : st);
+  bwd[3] = site - (t == 0 ? -(L.T - 1) * st : st);
+}
+
+// D psi[b] at `site` into d[b] (component order of the spinor field) for
+// nb <= SB spinors psi[b] of layout lp (K4 and K5 pass one, K5B a group of
+// slots), each slot's adds in one order whatever SB is; psi in layout class
+// KP, u in KU, each rounded to bf16 at load where RBP, RBU; psi and u
+// stored as TP, TU (fp32 or bf16); sites of type I (long long, or int where
+// every offset of a field fits one).
+template <int KP, int KU, bool RBP, bool RBU, int SB, typename I, typename TP, typename TU>
+__device__ __forceinline__ void rt_wilson_hop(const TP* const (&psi)[SB], const rt_layout& lp,
+                                              const rt_wf<TU>& u, int nb, rt_lattice L, I site,
+                                              float (&d)[SB][24]) {
+  const I V = (I)L.X * L.Y * L.Z * L.T;
+  I fwd[4], bwd[4];
+  rt_neighbours(L, site, fwd, bwd);
+  rt_cplx acc[SB][4][3];
 #pragma unroll
-  for (int s = 0; s < 4; ++s)
+  for (int b = 0; b < SB; ++b)
 #pragma unroll
-    for (int c = 0; c < 3; ++c) acc[s][c] = {0.0f, 0.0f};
-  rt_hop_dir<0, KP, KU, RBP, RBU>(psi, u, V, site, site + (x == L.X - 1 ? -(L.X - 1) * sx : sx),
-                     site - (x == 0 ? -(L.X - 1) * sx : sx), acc);
-  rt_hop_dir<1, KP, KU, RBP, RBU>(psi, u, V, site, site + (y == L.Y - 1 ? -(L.Y - 1) * sy : sy),
-                     site - (y == 0 ? -(L.Y - 1) * sy : sy), acc);
-  rt_hop_dir<2, KP, KU, RBP, RBU>(psi, u, V, site, site + (z == L.Z - 1 ? -(L.Z - 1) * sz : sz),
-                     site - (z == 0 ? -(L.Z - 1) * sz : sz), acc);
-  rt_hop_dir<3, KP, KU, RBP, RBU>(psi, u, V, site, site + (t == L.T - 1 ? -(L.T - 1) * st : st),
-                     site - (t == 0 ? -(L.T - 1) * st : st), acc);
+    for (int s = 0; s < 4; ++s)
 #pragma unroll
-  for (int s = 0; s < 4; ++s)
+      for (int c = 0; c < 3; ++c) acc[b][s][c] = {0.0f, 0.0f};
+  rt_hop_dir<0, KP, KU, RBP, RBU, SB>(psi, lp, u, nb, V, site, fwd[0], bwd[0], acc);
+  rt_hop_dir<1, KP, KU, RBP, RBU, SB>(psi, lp, u, nb, V, site, fwd[1], bwd[1], acc);
+  rt_hop_dir<2, KP, KU, RBP, RBU, SB>(psi, lp, u, nb, V, site, fwd[2], bwd[2], acc);
+  rt_hop_dir<3, KP, KU, RBP, RBU, SB>(psi, lp, u, nb, V, site, fwd[3], bwd[3], acc);
 #pragma unroll
-    for (int c = 0; c < 3; ++c) {
-      d[(s * 3 + c) * 2] = acc[s][c].re;
-      d[(s * 3 + c) * 2 + 1] = acc[s][c].im;
-    }
+  for (int b = 0; b < SB; ++b)
+#pragma unroll
+    for (int s = 0; s < 4; ++s)
+#pragma unroll
+      for (int c = 0; c < 3; ++c) {
+        d[b][(s * 3 + c) * 2] = acc[b][s][c].re;
+        d[b][(s * 3 + c) * 2 + 1] = acc[b][s][c].im;
+      }
 }

@@ -26,22 +26,31 @@
 // The ap kernel's block folds the same sites in the same order in every
 // layout, so ap and the pap partials are bitwise the SoA launch's.
 //
-// Bound on the H100: bytes.  Compulsory traffic is
-// p + u in, ap out: 480 B a site.  This design also writes and re-reads t
-// (a further 192 B a site) and reads u twice; removing that round trip is
-// the first thing a later PR does.
+// Bound on the H100: bytes.  Compulsory traffic is p + u in, ap out: 480 B
+// a site (1.20 ms at (64, 64, 64, 32)).  The two launches need 1,056 B a
+// site (the t launch: p, u in, t out, 480 B; the ap launch: t, u, p in, ap
+// out, 576 B), a design floor of 2.64 ms there.  One launch that recomputed
+// t on a one-site halo in shared memory would not save them: the halo is
+// 4-D, t costs 96 B a site, so a 227 KB block holds t for at most 2,420
+// sites with their halo, and a 4^4 tile needs t on 6^4 = 1,296 sites (5.1x
+// the t work) and p on 8^4.  So the design is the two launches run near
+// their own bytes: the blocks run in a brick order (rt_order,
+// wilson_normal.cuh) whose reuse distances fit the 50 MB L2, where the
+// linear order re-read every x-neighbour from device memory, and a slot's
+// fields are addressed with 32-bit offsets (64-bit where 72 V >= 2^31).
 //
 // K5B, the batch instance (_build_nd's fused_kernel on the leading batch
 // grid axis, the serving path's one operator launch for every slot): the
-// same two kernels with the slot as blockIdx.y.  p, t and ap are batch
-// spinors one after another, u is one field shared by every slot, and each
-// slot writes its own table of pap partials.  Nothing a thread computes
-// depends on the slot but its offsets, so each slot's ap and partials are
-// bitwise the single launch's on that slot; the single entry points are
-// the batch entry with one slot, which runs the kernels' instantiation
-// without the slot offsets.  Each slot's blocks read u again: B
-// slots read it B times (4 x 288 B a site at B = 4), which a design that
-// loops over the slots inside one thread would read once.
+// same two kernels with a thread computing its site for a group of
+// RT_NORMAL_SLOTS slots, each link loaded once for the group, and the
+// groups of a chunk next to each other in the block order.  p, t and ap
+// are batch spinors one after another, u is one field shared by every
+// slot, and each slot writes its own table of pap partials.  A slot's adds
+// are the single kernel's, in its order, so each slot's ap and partials are
+// bitwise the single launch's on that slot; the single entry points are the
+// batch entry with one slot, which runs the kernels' one-slot instantiation
+// (SB = 1).  Design floor at B = 4, u read once: 1,056 + 1,440 B a site,
+// 6.25 ms.
 //
 // The two kernels are templates in wilson_normal.cuh, whose policy flags
 // this file leaves off; wilson_normal_mixed.cu instantiates the policy
@@ -52,48 +61,39 @@
 extern "C" {
 
 // p: batch spinors (24 x V each, one after another), u: one 72 x V field, in
-// the layouts of descriptors lp, lu; t: (batch, 24, V) SoA.
+// the layouts of descriptors lp, lu; t: (batch, 24, V) SoA.  block: the
+// sites of a chunk (a whole number of warps).
 int rt_wilson_normal_t_batched(const float* p, const float* u, float* t, float kappa, int X,
                                int Y, int Z, int T, int batch, int lp, int lu, int block,
                                cudaStream_t stream) {
-  const long long V = (long long)X * Y * Z * T;
+  const rt_lattice lat{X, Y, Z, T};
   const rt_layout L[2] = {rt_make_layout(lp), rt_make_layout(lu)};
   const int k = rt_launch_class(L, 2);
-  if (k < 0) return RT_BAD_LAYOUT;
-  if (V == 0 || batch == 0) return 0;
-  const dim3 grid(rt_grid(V, block), batch);
-  const rt_lattice lat{X, Y, Z, T};
-  if (batch > 1)
-    RT_WITH_CLASS(k, wilson_normal_t_kernel<RT_K, true><<<grid, block, 0, stream>>>(
-                         p, u, t, kappa, lat, L[0], L[1]))
-  else
-    RT_WITH_CLASS(k, wilson_normal_t_kernel<RT_K, false><<<grid, block, 0, stream>>>(
-                         p, u, t, kappa, lat, L[0], L[1]))
+  if (k < 0 || !rt_normal_block_ok(block)) return RT_BAD_LAYOUT;
+  if ((long long)X * Y * Z * T == 0 || batch == 0) return 0;
+  RT_NORMAL_DISPATCH(k, lat, batch, RT_NORMAL_SLOTS,
+                     (rt_launch_normal_t<RT_K, RT_IDX, RT_SB, false, float>(
+                         p, u, t, kappa, lat, L, batch, block, stream)))
   RT_LAUNCH_RESULT();
 }
 
 // p, ap: batch spinors, u: one 72 x V field, in the layouts of descriptors
-// lp, lu, lap; t: (batch, 24, V) SoA; partials: (batch, ceil(V / block), 24).
+// lp, lu, lap; t: (batch, 24, V) SoA; partials: (batch, ceil(V / block), 24),
+// row q the chunk of sites [q block, (q + 1) block).
 int rt_wilson_normal_ap_batched(const float* p, const float* t, const float* u, float* ap,
                                 float* partials, float kappa, int X, int Y, int Z, int T,
                                 int batch, int lp, int lu, int lap, int block,
                                 cudaStream_t stream) {
-  const long long V = (long long)X * Y * Z * T;
+  const rt_lattice lat{X, Y, Z, T};
   const rt_layout L[3] = {rt_make_layout(lp), rt_make_layout(lu), rt_make_layout(lap)};
   const int k = rt_launch_class(L, 3);
-  if (k < 0) return RT_BAD_LAYOUT;
-  if (V == 0 || batch == 0) return 0;
-  const dim3 grid(rt_grid(V, block), batch);
-  const rt_lattice lat{X, Y, Z, T};
-  if (batch > 1)
-    RT_WITH_CLASS(k, wilson_normal_ap_kernel<RT_K, true><<<grid, block, 0, stream>>>(
-                         p, t, u, ap, partials, kappa, lat, L[0], L[1], L[2]))
-  else
-    RT_WITH_CLASS(k, wilson_normal_ap_kernel<RT_K, false><<<grid, block, 0, stream>>>(
-                         p, t, u, ap, partials, kappa, lat, L[0], L[1], L[2]))
+  if (k < 0 || !rt_normal_block_ok(block)) return RT_BAD_LAYOUT;
+  if ((long long)X * Y * Z * T == 0 || batch == 0) return 0;
+  RT_NORMAL_DISPATCH(k, lat, batch, RT_NORMAL_SLOTS,
+                     (rt_launch_normal_ap<RT_K, RT_IDX, RT_SB, false, float, false, float>(
+                         p, t, u, ap, partials, kappa, lat, L, batch, block, stream)))
   RT_LAUNCH_RESULT();
 }
-
 // p: 24 x V, u: 72 x V in the layouts of descriptors lp, lu; t: (24, V) SoA.
 int rt_wilson_normal_t(const float* p, const float* u, float* t, float kappa, int X, int Y,
                        int Z, int T, int lp, int lu, int block, cudaStream_t stream) {

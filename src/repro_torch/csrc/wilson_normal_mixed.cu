@@ -14,8 +14,11 @@
 // what these kernels do for it:
 //
 //   - p and u are rounded to bf16 before the pallas_call and widened to
-//     fp32 (the stage-in cast).  Here every load of p and u is rounded in
-//     registers (RB; bf16.cuh): the same values, with no bf16 copy made.
+//     fp32 (the stage-in cast).  Here u arrives as a bf16 copy, made once
+//     per operator (apps/milc/cg.py::make_fused_normal, with bf16.cuh's
+//     rounding: rt_bf16_pack, fused_flat.cu), and is widened at load (TU);
+//     every load of p is rounded in registers (RB).  The same values as the
+//     reference's cast, with no copy of p.
 //   - t lives in VMEM in fp32 and is never rounded: the t scratch here
 //     stays fp32 (SoA), and the ap kernel reads it as it is.
 //   - ap is computed in fp32 and written in bf16; pap_prod = p * ap takes
@@ -29,80 +32,86 @@
 //
 // The kernels are wilson_normal.cuh's templates, the policy-free code,
 // instantiated here with the policy flags (RB, TAP, COMP) on.  Entry points:
-//   rt_wilson_normal_t_mixed   t with p and u rounded to bf16 (storage
-//                              "bfloat16"; under an fp32 storage the
-//                              policy-free rt_wilson_normal_t is t's kernel);
-//   rt_wilson_normal_ap_mixed  ap and pap's partials; bf16 != 0 rounds u
-//                              and p at load and writes ap in bf16, comp
-//                              != 0 writes compensated pairs.  Without
-//                              either it refuses: the caller runs the
-//                              policy-free kernels (the empty policy is the
-//                              policy-free code).
-// Both take the slot as blockIdx.y (K5B); a launch of one slot runs the
-// same instantiation with batch 1, so each slot is bitwise the one-slot
-// launch on that slot.  Under bf16 0 the ap kernel's fields are those of
-// wilson_normal.cu bitwise (the same template with RB off).
+//   rt_wilson_normal_t_mixed   t with p rounded to bf16 and u the bf16
+//                              copy (storage "bfloat16"; under an fp32
+//                              storage the policy-free rt_wilson_normal_t is
+//                              t's kernel);
+//   rt_wilson_normal_ap_mixed  ap and pap's partials; bf16 != 0 takes u as
+//                              the bf16 copy, rounds p at load and writes
+//                              ap in bf16, comp != 0 writes compensated
+//                              pairs.  Without either it refuses: the
+//                              caller runs the policy-free kernels (the
+//                              empty policy is the policy-free code).
+// Both run the slots as K5B does (rt_order), one slot a thread
+// (RT_NORMAL_SLOTS_POLICY), so a launch of one slot and a launch of many run
+// one instantiation, and each slot is bitwise the one-slot launch on that
+// slot.
+// Under bf16 0 the ap kernel's fields are those of wilson_normal.cu bitwise
+// (the same template with RB off).
 //
 // Bound on the H100: bytes.  The reference's traffic model counts a policy
 // launch at the storage itemsize, 240 B a site (p, u in and ap out in bf16)
-// against 480; these kernels read the caller's fp32 p and u, so they move
-// 96 + 288 + 48 = 432 compulsory bytes a site, plus t's round trip as K5
-// does.  A bf16 copy of u made once per operator would bring the reads to
-// 96 + 144 (ROADMAP perf item).  The rounding is 3 integer operations a
-// value loaded, well under the memory time.  These instantiations live in
-// a translation unit of their own, compiled beside wilson_normal.cu, so
-// the policy-free unit's build time does not grow.
+// against 480; these kernels read the caller's fp32 p and the bf16 u, so
+// they move 96 + 144 + 48 = 288 compulsory bytes a site, and the two
+// launches 720 B a site with t's round trip (1,008 B with an fp32 u).  The
+// rounding of p is 3 integer operations a value loaded, well under the
+// memory time.  These instantiations live in a translation unit of their
+// own, compiled beside wilson_normal.cu, so the policy-free unit's build
+// time does not grow.
 
 #include "wilson_normal.cuh"
 
 extern "C" {
 
-// p: batch spinors, u: one 72 x V field, in the layouts of descriptors lp,
-// lu; t: (batch, 24, V) SoA, fp32.
-int rt_wilson_normal_t_mixed(const float* p, const float* u, float* t, float kappa, int X, int Y,
-                             int Z, int T, int batch, int lp, int lu, int block,
+// p: batch spinors in the layout of descriptor lp, u: one 72 x V field of
+// bf16 in lu; t: (batch, 24, V) SoA, fp32.
+int rt_wilson_normal_t_mixed(const float* p, const __nv_bfloat16* u, float* t, float kappa,
+                             int X, int Y, int Z, int T, int batch, int lp, int lu, int block,
                              cudaStream_t stream) {
-  const long long V = (long long)X * Y * Z * T;
+  const rt_lattice lat{X, Y, Z, T};
   const rt_layout L[2] = {rt_make_layout(lp), rt_make_layout(lu)};
   const int k = rt_launch_class(L, 2);
-  if (k < 0) return RT_BAD_LAYOUT;
-  if (V == 0 || batch == 0) return 0;
-  const dim3 grid(rt_grid(V, block), batch);
-  RT_WITH_CLASS(k, wilson_normal_t_kernel<RT_K, true, true><<<grid, block, 0, stream>>>(
-                       p, u, t, kappa, rt_lattice{X, Y, Z, T}, L[0], L[1]));
+  if (k < 0 || !rt_normal_block_ok(block)) return RT_BAD_LAYOUT;
+  if ((long long)X * Y * Z * T == 0 || batch == 0) return 0;
+  RT_NORMAL_DISPATCH(k, lat, batch, RT_NORMAL_SLOTS_POLICY,
+                     (rt_launch_normal_t<RT_K, RT_IDX, RT_SB, true, __nv_bfloat16>(
+                         p, u, t, kappa, lat, L, batch, block, stream)))
   RT_LAUNCH_RESULT();
 }
 
-// p: batch spinors, u: one 72 x V field, ap: batch spinors (bf16 when bf16,
-// else fp32), in the layouts of descriptors lp, lu, lap; t: (batch, 24, V)
-// SoA fp32; partials: (batch, ceil(V / block), 24) and a trailing (2,) when
-// comp.
-int rt_wilson_normal_ap_mixed(const float* p, const float* t, const float* u, void* ap,
+// p: batch spinors, u: one 72 x V field (bf16 when bf16, else fp32), ap:
+// batch spinors (bf16 when bf16, else fp32), in the layouts of descriptors
+// lp, lu, lap; t: (batch, 24, V) SoA fp32; partials: (batch, ceil(V /
+// block), 24) and a trailing (2,) when comp.
+int rt_wilson_normal_ap_mixed(const float* p, const float* t, const void* u, void* ap,
                               float* partials, float kappa, int X, int Y, int Z, int T,
                               int batch, int bf16, int comp, int lp, int lu, int lap, int block,
                               cudaStream_t stream) {
-  const long long V = (long long)X * Y * Z * T;
+  const rt_lattice lat{X, Y, Z, T};
   const rt_layout L[3] = {rt_make_layout(lp), rt_make_layout(lu), rt_make_layout(lap)};
   const int k = rt_launch_class(L, 3);
-  if (k < 0) return RT_BAD_LAYOUT;
-  if (V == 0 || batch == 0) return 0;
-  const dim3 grid(rt_grid(V, block), batch);
-  const rt_lattice lat{X, Y, Z, T};
+  if (k < 0 || !rt_normal_block_ok(block)) return RT_BAD_LAYOUT;
+  if ((long long)X * Y * Z * T == 0 || batch == 0) return 0;
+  if (!bf16 && !comp) return static_cast<int>(cudaErrorInvalidValue);  // wilson_normal.cu's
+  const __nv_bfloat16* u16 = static_cast<const __nv_bfloat16*>(u);
   __nv_bfloat16* ap16 = static_cast<__nv_bfloat16*>(ap);
-  if (bf16 && comp)
-    RT_WITH_CLASS(k, wilson_normal_ap_kernel<RT_K, true, true, __nv_bfloat16, true>
-                  <<<grid, block, 0, stream>>>(p, t, u, ap16, partials, kappa, lat, L[0], L[1],
-                                               L[2]))
-  else if (bf16)
-    RT_WITH_CLASS(k, wilson_normal_ap_kernel<RT_K, true, true, __nv_bfloat16, false>
-                  <<<grid, block, 0, stream>>>(p, t, u, ap16, partials, kappa, lat, L[0], L[1],
-                                               L[2]))
-  else if (comp)
-    RT_WITH_CLASS(k, wilson_normal_ap_kernel<RT_K, true, false, float, true>
-                  <<<grid, block, 0, stream>>>(p, t, u, static_cast<float*>(ap), partials, kappa,
-                                               lat, L[0], L[1], L[2]))
-  else
-    return static_cast<int>(cudaErrorInvalidValue);  // no policy: wilson_normal.cu's kernels
+  const float* u32 = static_cast<const float*>(u);
+  float* ap32 = static_cast<float*>(ap);
+  if (bf16 && comp) {
+    RT_NORMAL_DISPATCH(k, lat, batch, RT_NORMAL_SLOTS_POLICY,
+                       (rt_launch_normal_ap<RT_K, RT_IDX, RT_SB, true, __nv_bfloat16, true,
+                                            __nv_bfloat16>(p, t, u16, ap16, partials, kappa,
+                                                           lat, L, batch, block, stream)))
+  } else if (bf16) {
+    RT_NORMAL_DISPATCH(k, lat, batch, RT_NORMAL_SLOTS_POLICY,
+                       (rt_launch_normal_ap<RT_K, RT_IDX, RT_SB, true, __nv_bfloat16, false,
+                                            __nv_bfloat16>(p, t, u16, ap16, partials, kappa,
+                                                           lat, L, batch, block, stream)))
+  } else {
+    RT_NORMAL_DISPATCH(k, lat, batch, RT_NORMAL_SLOTS_POLICY,
+                       (rt_launch_normal_ap<RT_K, RT_IDX, RT_SB, false, float, true, float>(
+                           p, t, u32, ap32, partials, kappa, lat, L, batch, block, stream)))
+  }
   RT_LAUNCH_RESULT();
 }
 

@@ -13,17 +13,27 @@ output takes the first input's layout) and returns physical tensors.  Both are b
 compulsory bytes a site); see the sources for what each design leaves on
 the table.
 
-K5B, the batch instance (``batched=True``), runs K5's two kernels with the
-slot as one more grid axis: p and ap are ``batch`` stacked spinors, u is
-one gauge field shared by every slot, pap is (batch, 24), and each slot's
-ap and pap are bitwise the single launch's on that slot.
+K5's blocks each compute a chunk of vvl consecutive sites and run in a brick
+order with short reuse distances (``csrc/wilson_normal.cuh``);
+:func:`block_chunks` mirrors that order.  K5 addresses a field with 32-bit
+offsets where its gauge field has fewer than 2^31 values (72 V), and with
+64-bit ones, one slot a thread, on a larger lattice.
+
+K5B, the batch instance (``batched=True``), runs K5's two kernels with a
+thread computing its site for a group of up to NORMAL_SLOTS slots (the
+policy instance: NORMAL_SLOTS_POLICY), each link loaded once for the group:
+p and ap are ``batch`` stacked spinors, u is one gauge field shared by every
+slot, pap is (batch, 24), and each slot's ap and pap are bitwise the single
+launch's on that slot.
 
 K5's policy instance (``policy=``, a ``core.plan.CudaPolicy``;
-``csrc/wilson_normal_mixed.cu``), single and batched: under bf16 storage p
-and u are rounded to bf16 as they are loaded, t stays fp32, ap is written in
-bf16 and pap takes the fp32 ap; under a compensated accumulate pap's
-partials are (hi, lo) pairs folded by K2's compensated pass 2.  A policy
-asking for neither runs the policy-free kernels.
+``csrc/wilson_normal_mixed.cu``), single and batched: under bf16 storage u
+is the caller's bf16 copy (:func:`bf16_pack_cuda`, made once per operator
+by ``apps/milc/cg.py::make_fused_normal``; an fp32 ``u`` raises), p is
+rounded to bf16 as it is loaded, t stays fp32, ap is written in bf16 and
+pap takes the fp32 ap; under a compensated accumulate pap's partials are
+(hi, lo) pairs folded by K2's compensated pass 2.  A policy asking for
+neither runs the policy-free kernels.
 
 On a CPU tensor each wrapper returns its plain version (unpack, torch ops,
 pack); on a CUDA tensor it launches its kernel or raises.
@@ -36,16 +46,17 @@ from typing import Optional, Sequence, Tuple
 
 import torch
 
-from repro_torch._cuda import Kernel, check_batched_field, check_field, check_tensor
+from repro_torch._cuda import Kernel, check_batched_field, check_field, check_tensor, csrc_define
 from repro_torch.core.layout import resolve_layouts
 from repro_torch.core.plan import CudaPolicy
 from repro_torch.core.reduce import compensated_plain, fold_partials, fold_partials_batched
 from . import ref
 
 __all__ = ["dslash_cuda", "dslash_plain", "wilson_normal_cuda",
-           "wilson_normal_plain", "bf16_round", "bf16_round_cuda", "DSLASH", "WILSON_NORMAL_T",
+           "wilson_normal_plain", "bf16_round", "bf16_round_cuda", "bf16_pack_cuda",
+           "block_chunks", "BRICK_X", "NORMAL_SLOTS", "NORMAL_SLOTS_POLICY", "DSLASH", "WILSON_NORMAL_T",
            "WILSON_NORMAL_AP", "WILSON_NORMAL_T_B", "WILSON_NORMAL_AP_B",
-           "WILSON_NORMAL_T_MIXED", "WILSON_NORMAL_AP_MIXED", "BF16_ROUND"]
+           "WILSON_NORMAL_T_MIXED", "WILSON_NORMAL_AP_MIXED", "BF16_ROUND", "BF16_PACK"]
 
 DSLASH = Kernel("dslash", "rt_dslash")
 WILSON_NORMAL_T = Kernel("wilson_normal_t", "rt_wilson_normal_t")
@@ -64,6 +75,7 @@ def bf16_round(x: torch.Tensor) -> torch.Tensor:
 
 
 BF16_ROUND = Kernel("bf16_round", "rt_bf16_round")
+BF16_PACK = Kernel("bf16_pack", "rt_bf16_pack")
 
 
 def bf16_round_cuda(x: torch.Tensor, block: int = 256) -> torch.Tensor:
@@ -76,6 +88,56 @@ def bf16_round_cuda(x: torch.Tensor, block: int = 256) -> torch.Tensor:
     out = torch.empty_like(x)
     BF16_ROUND.launch(x.device, x.data_ptr(), out.data_ptr(), x.numel(), block)
     return out
+
+
+def bf16_pack_cuda(x: torch.Tensor, block: int = 256) -> torch.Tensor:
+    """x (fp32) rounded to bf16, as a bf16 tensor: the copy of the gauge
+    field K5's policy instance reads, made on the card with the policy
+    instances' own rounding (``csrc/bf16.cuh``)."""
+    if x.device.type == "cpu":
+        return x.to(torch.bfloat16)
+    check_tensor("x", x, x.shape, x.device)
+    out = torch.empty(x.shape, dtype=torch.bfloat16, device=x.device)
+    BF16_PACK.launch(x.device, x.data_ptr(), out.data_ptr(), x.numel(), block)
+    return out
+
+
+# x-planes of a brick of K5's block order, and K5B's slots a thread
+# (csrc/wilson_normal.cuh)
+BRICK_X = csrc_define("wilson_normal.cuh", "RT_BRICK_X")
+NORMAL_SLOTS = csrc_define("wilson_normal.cuh", "RT_NORMAL_SLOTS")
+NORMAL_SLOTS_POLICY = csrc_define("wilson_normal.cuh", "RT_NORMAL_SLOTS_POLICY")
+
+
+def block_chunks(lattice, vvl: int, batch: int = 1, aos: bool = False,
+                 slots: int = NORMAL_SLOTS) -> Tuple[torch.Tensor, torch.Tensor]:
+    """K5's block order (``rt_order_chunk`` of ``csrc/wilson_normal.cuh``):
+    for each linear block index of a launch over ``batch`` slots, ``slots``
+    a thread (NORMAL_SLOTS; NORMAL_SLOTS_POLICY for the policy instance),
+    the slot group (slots [slots group, slots (group + 1)); one group for a
+    single slot) and the chunk (the vvl consecutive sites [chunk vvl,
+    (chunk + 1) vvl)) it computes, as two int64 tensors; ``aos``: a launch
+    in AoS (linear chunks)."""
+    X, Y, Z, T = _check_4d(lattice)
+    nchunks = -(-X * Y * Z * T // vvl)
+    groups = -(-batch // slots) if batch > 1 else 1
+    i = torch.arange(nchunks * groups, dtype=torch.int64)
+    group, j = i % groups, i // groups
+    if aos or (Y * Z * T) % vvl:
+        return group, j
+    nq = Y * Z * T // vvl
+    per = BRICK_X * nq
+    brick = j // per
+    x0 = BRICK_X * brick
+    w = torch.clamp(X - x0, max=BRICK_X)
+    r = j - per * brick
+    return group, (x0 + r % w) * nq + r // w
+
+
+def _check_normal(vvl: int) -> None:
+    """K5's limit: blocks of whole warps."""
+    if vvl % 32 or not 0 < vvl <= 1024:
+        raise ValueError(f"wilson_normal: vvl {vvl} is not a whole number of warps (<= 1024)")
 
 
 def _check_4d(lattice: Sequence[int]) -> Tuple[int, int, int, int]:
@@ -136,7 +198,7 @@ def wilson_normal_plain(p: torch.Tensor, u: torch.Tensor, kappa: float,
     bf16, comp = policy or (False, False)
     lat = _check_4d(lattice)
     lay = resolve_layouts(layouts, _NORMAL_IN, _NORMAL_OUT)
-    p, u = lay["p"].unpack(p), lay["u"].unpack(u)
+    p, u = lay["p"].unpack(p), lay["u"].unpack(u).to(p.dtype)
     if bf16:
         p, u = bf16_round(p), bf16_round(u)
     t = _m_g5(p, _dslash_canonical(p, u, lat), kappa)
@@ -152,7 +214,8 @@ def wilson_normal_cuda(p: torch.Tensor, u: torch.Tensor, kappa: float, lattice,
     launches and the fold of the pap partials; ``layouts`` names "p", "u",
     "ap" (the intermediate t is SoA).  ``batched`` (K5B): p is ``batch``
     stacked spinors and u shared -> (ap stacked, pap (batch, 24)).
-    ``policy``: the policy instance (see the module docstring)."""
+    ``policy``: the policy instance (see the module docstring); under bf16
+    storage ``u`` is its bf16 copy."""
     if p.device.type == "cpu":
         return wilson_normal_plain(p, u, kappa, lattice, layouts, batched=batched,
                                    policy=policy)
@@ -161,6 +224,7 @@ def wilson_normal_cuda(p: torch.Tensor, u: torch.Tensor, kappa: float, lattice,
     if batched:
         return _wilson_normal_batched(p, u, kappa, lattice, vvl, layouts)
     lat = _check_4d(lattice)
+    _check_normal(vvl)
     V = math.prod(lat)
     lay = resolve_layouts(layouts, _NORMAL_IN, _NORMAL_OUT)
     lp = check_field("p", p, lay["p"], 24, V, p.device)
@@ -179,6 +243,7 @@ def wilson_normal_cuda(p: torch.Tensor, u: torch.Tensor, kappa: float, lattice,
 def _wilson_normal_batched(p, u, kappa, lattice, vvl, layouts):
     """K5B: K5 over ``p.shape[0]`` stacked spinors p against one shared u."""
     lat = _check_4d(lattice)
+    _check_normal(vvl)
     V = math.prod(lat)
     lay = resolve_layouts(layouts, _NORMAL_IN, _NORMAL_OUT)
     batch = p.shape[0]
@@ -197,18 +262,23 @@ def _wilson_normal_batched(p, u, kappa, lattice, vvl, layouts):
 
 def _wilson_normal_mixed(p, u, kappa, lattice, vvl, layouts, batched, policy):
     """K5's policy instance over one spinor p or ``p.shape[0]`` stacked ones
-    (``batched``) against one shared u."""
+    (``batched``) against one shared u (under bf16 storage its bf16 copy)."""
     lat = _check_4d(lattice)
+    _check_normal(vvl)
     V = math.prod(lat)
     lay = resolve_layouts(layouts, _NORMAL_IN, _NORMAL_OUT)
     bf16, comp = policy
+    if bf16 and u.dtype != torch.bfloat16:
+        raise ValueError(f"wilson_normal under bf16 storage reads the bf16 copy of u "
+                         f"(bf16_pack_cuda, made once per operator), got {u.dtype}")
     if batched:
         batch = p.shape[0]
         lp = check_batched_field("p", p, lay["p"], 24, V, batch, p.device)
     else:
         batch = 1
         lp = check_field("p", p, lay["p"], 24, V, p.device)
-    lu = check_field("u", u, lay["u"], 72, V, p.device)
+    lu = check_field("u", u, lay["u"], 72, V, p.device,
+                     torch.bfloat16 if bf16 else torch.float32)
     lead = (batch,) if batched else ()
     t = torch.empty((batch, 24, V), dtype=torch.float32, device=p.device)
     ap = torch.empty(lead + lay["ap"].physical_shape(24, V),

@@ -633,7 +633,7 @@ def test_non_soa_launches_run_only_the_hand_kernels(card, rng):
         torch.cuda.synchronize()
     names = [e.key for e in prof.key_averages()
              if e.device_type == torch.autograd.DeviceType.CUDA]
-    hand = ("site_g5_kernel", "cg_update_kernel", "reduce_fold_kernel", "dslash_kernel",
+    hand = ("site_g5_kernel", "cg_update_vec_kernel", "reduce_fold_kernel", "dslash_kernel",
             "lb_step_kernel")
     assert all(any(k in n for n in names) for k in hand), names
     assert all(any(k in n for k in hand) for n in names), names
@@ -853,8 +853,8 @@ def test_batched_iteration_runs_only_the_hand_kernels(card):
         torch.cuda.synchronize()
     events = prof.key_averages(group_by_input_shape=True)
     names = [e.key for e in events if e.device_type == torch.autograd.DeviceType.CUDA]
-    hand = ("wilson_normal_t_kernel", "wilson_normal_ap_kernel", "cg_update_kernel",
-            "cg_xpay_kernel", "reduce_fold_kernel")
+    hand = ("wilson_normal_t_kernel", "wilson_normal_ap_kernel", "cg_update_vec_kernel",
+            "cg_xpay_vec_kernel", "reduce_fold_kernel")
     assert all(any(k in n for n in names) for k in hand), names
     arith = ("aten::add", "aten::mul", "aten::sub", "aten::where", "aten::sum", "aten::cat",
              "aten::stack", "aten::copy_", "aten::clone", "aten::roll", "aten::index")
@@ -893,7 +893,8 @@ def _within_bf16_ulp(got, want):
 def test_bf16_rounding_bitwise_torch(card, rng):
     """The policy instances' stage-in rounding is torch's .to(bfloat16) on
     the card, bit for bit: exact ties either way, -0.0, infinities, NaN,
-    subnormals and values that round up to infinity."""
+    subnormals and values that round up to infinity; so is the bf16 copy
+    of u (bf16_pack) at sizes with a tail and on a misaligned field."""
     special = torch.tensor([1 + 2 ** -8, 1 + 3 * 2 ** -8, -(1 + 2 ** -8), -0.0, 0.0,
                             float("inf"), -float("inf"), float("nan"), 1e-40, -1e-39,
                             3.3961e38, 3.4e38, 2 ** -126, 1.5 * 2 ** -133],
@@ -901,6 +902,11 @@ def test_bf16_rounding_bitwise_torch(card, rng):
     x = torch.cat([special, torch.from_numpy(rng.normal(size=4096).astype(np.float32) * 100)])
     x = x.to(card)
     assert _bits(K.bf16_round_cuda(x), x.to(torch.bfloat16).to(torch.float32))
+    # the operator's bf16 copy of u: vectors, a tail, and a misaligned field
+    for t in (x, x[:4093].contiguous(), _misaligned(x[:4097])):
+        got = K.bf16_pack_cuda(t)
+        assert got.dtype == torch.bfloat16
+        assert torch.equal(got.view(torch.int16), t.to(torch.bfloat16).view(torch.int16))
 
 
 @pytest.mark.cuda
@@ -927,7 +933,8 @@ def test_wilson_normal_policy_instance(card, spec, rng):
     assert _bits(a32, ap0)
     _oracle_sum(s32, p * lay.unpack(ap0))
     pol = CudaPolicy(True, True)
-    ap, pap = K.wilson_normal_cuda(pp, up, 0.12, MILC_LAT, 128, layouts=lays, policy=pol)
+    up16 = K.bf16_pack_cuda(up)   # the operator's copy of u, which bf16 storage reads
+    ap, pap = K.wilson_normal_cuda(pp, up16, 0.12, MILC_LAT, 128, layouts=lays, policy=pol)
     assert ap.dtype == torch.bfloat16 and pap.dtype == torch.float32
     wap, wpap = K.wilson_normal_plain(pp, up, 0.12, MILC_LAT, lays, policy=pol)
     _within_bf16_ulp(lay.unpack(ap), lay.unpack(wap))
@@ -935,13 +942,13 @@ def test_wilson_normal_policy_instance(card, spec, rng):
     ap32, _ = K.wilson_normal_plain(K.bf16_round(pp), K.bf16_round(up), 0.12, MILC_LAT, lays)
     _oracle_sum(pap, K.bf16_round(p) * lay.unpack(ap32))
     _oracle_sum(wpap, K.bf16_round(p) * lay.unpack(ap32))
-    ap2, pap2 = K.wilson_normal_cuda(pp, up, 0.12, MILC_LAT, 128, layouts=lays, policy=pol)
+    ap2, pap2 = K.wilson_normal_cuda(pp, up16, 0.12, MILC_LAT, 128, layouts=lays, policy=pol)
     assert _bits(ap2, ap) and _bits(pap2, pap)
     pb = torch.stack([pp, lay.pack(p.flip(0)), pp])
-    apb, papb = K.wilson_normal_cuda(pb, up, 0.12, MILC_LAT, 128, layouts=lays, batched=True,
+    apb, papb = K.wilson_normal_cuda(pb, up16, 0.12, MILC_LAT, 128, layouts=lays, batched=True,
                                      policy=pol)
     for b in range(3):
-        one = K.wilson_normal_cuda(pb[b], up, 0.12, MILC_LAT, 128, layouts=lays, policy=pol)
+        one = K.wilson_normal_cuda(pb[b], up16, 0.12, MILC_LAT, 128, layouts=lays, policy=pol)
         assert _bits(apb[b], one[0]) and _bits(papb[b], one[1])
 
 
@@ -1190,3 +1197,251 @@ def test_site_kernels_bitwise_plain_odd_and_misaligned(card, spec, rng):
         assert _bits(target.site_mul(xs, yl, layouts=L2, batch=3), want_b)
         assert _bits(target.site_mul(xs, torch.stack([yl] * 3), layouts=L2, batch=3), want_b)
 
+
+
+# -- K2's max propagates NaN; K3 and K5 redesigned for Hopper -----------------------
+
+def _same_nan_bits(got, want):
+    """NaN exactly where want has NaN (its payload is not pinned), every
+    other value bitwise."""
+    got, want = got.cpu(), want.cpu()
+    nan = torch.isnan(want)
+    assert torch.equal(torch.isnan(got), nan), (got, want)
+    assert _bits(got[~nan], want[~nan])
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("spec", ["soa", "aos", "aosoa16", "aosoa12"])
+def test_reduce_max_propagates_nan(card, spec, rng):
+    """K2 and K2B max on fields with NaN sites, in SoA and AoSoA 16 (direct
+    block, float4 loads), AoS (staged block) and aosoa12 (the run-time
+    layout class): NaN in every component the torch engine's amax (and the
+    tree emulation) makes NaN, an all-NaN component NaN (fmaxf gave -inf),
+    every other component bitwise; the fused kernels' max fold too."""
+    lay = parse_layout(spec)
+    for nsites in (4176, 12 * 4096):   # tails; multiples of 16 and 12 (the layouts' SAL)
+        x = _dev(rng, (19, nsites), card, scale=10.0)
+        x[0, 5] = float("nan")
+        x[3, nsites - 1] = float("nan")
+        x[7, 4096 + 17 if nsites > 4096 + 17 else 9] = float("nan")
+        x[11] = float("nan")
+        want = x.amax(dim=1)
+        assert torch.isnan(want[[0, 3, 7, 11]]).all() and not torch.isnan(want[1])
+        got = reduce.reduce_sites(lay.pack(x), "max", 128, layouts={"x": lay})
+        _same_nan_bits(got, want)
+        _same_nan_bits(got, reduce.reduce_tree(x.cpu(), "max"))
+        stack = torch.stack([lay.pack(x), lay.pack(x.flip(0)), lay.pack(x.abs())])
+        rows = reduce.reduce_sites_batched(stack, "max", 128, layouts={"x": lay})
+        for b, c in enumerate((x, x.flip(0), x.abs())):
+            _same_nan_bits(rows[b], c.amax(dim=1))
+        _same_nan_bits(reduce.fold_partials(x.T.contiguous(), "max"), want)
+        _same_nan_bits(reduce.fold_partials_batched(torch.stack([x.T, x.T * 2]).contiguous(),
+                                                    "max")[1], (x * 2).amax(dim=1))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("spec", ["soa", "aos", "aosoa4", "aosoa16"])
+def test_cg_xpay_vector_tails_bitwise(card, spec, rng):
+    """cg_xpay's vector path (float4s, 32-bit offsets, a scalar tail where
+    the field's size is not a multiple of 4) bitwise the one-element-a-thread
+    path (a misaligned operand takes it) and within tolerance of the plain
+    version; K3B's slots, stacked and shared, at odd and offset slot bases,
+    bitwise the single launch on their slot, frozen slots bitwise y."""
+    lay = parse_layout(spec)
+    sizes = [(19, 1001), (24, 1001), (3, 5)] if lay.kind.value != "aosoa" else [(19, 1008),
+                                                                                (24, 1008)]
+    for ncomp, nsites in sizes:
+        x, y = (_dev(rng, (ncomp, nsites), card) for _ in range(2))
+        xl, yl = lay.pack(x), lay.pack(y)
+        a = torch.tensor(0.37, device=card)
+        L2 = {"x": lay, "y": lay}
+        got = fuse.cg_xpay(xl, yl, a, 128, layouts=L2)
+        assert _bits(got, fuse.cg_xpay(_misaligned(xl), yl, a, 128, layouts=L2))
+        assert _bits(got, fuse.cg_xpay(xl, _misaligned(yl), a, 128, layouts=L2))
+        _close_field(lay.unpack(got), y + 0.37 * x)
+        xs, ys = torch.stack([xl, yl, xl * 2]), torch.stack([yl, xl, yl])
+        av = torch.tensor([0.37, -1.25, 2.0], device=card)
+        m = torch.tensor([1.0, 0.0, 1.0], device=card)
+        out = fuse.cg_xpay_masked(xs, ys, av, m, 128, layouts=L2)
+        shared = fuse.cg_xpay_masked(xs, yl, av, m, 128, layouts=L2)
+        for b in (0, 2):
+            assert _bits(out[b], fuse.cg_xpay(xs[b], ys[b], av[b], 128, layouts=L2))
+            assert _bits(shared[b], fuse.cg_xpay(xs[b], yl, av[b], 128, layouts=L2))
+        assert _bits(out[1], ys[1]) and _bits(shared[1], yl)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("vvl", [32, 64, 128, 256])
+@pytest.mark.parametrize("spec", ["aos", "aosoa2", "aosoa4", "aosoa8", "aosoa16", "aosoa32"])
+def test_cg_update_vector_path_bitwise_soa(card, spec, vvl, rng):
+    """cg_update's vector path (float4s over a block's contiguous elements,
+    r_new^2 through shared memory into the one-site-a-thread fold) in AoS
+    and AoSoA at vvl 32..256 and 2016 sites (a partial last block): x_new,
+    r_new and rr bitwise the SoA launch, which is bitwise the general path
+    (a misaligned operand takes it); the masked and bf16-ap instances the
+    same, every slot bitwise its single launch."""
+    lay = parse_layout(spec)
+    V = 2016
+    x, r, p, ap = (_dev(rng, (24, V), card) for _ in range(4))
+    a = torch.tensor(0.37, device=card)
+    soa = fuse.cg_update(x, r, p, ap, a, -a, vvl)
+    gen = fuse.cg_update(_misaligned(x), r, p, ap, a, -a, vvl)
+    for k in range(3):
+        assert _bits(soa[k], gen[k])
+    lays = {n: lay for n in ("x", "r", "p", "ap")}
+    xl, rl, pl, apl = (lay.pack(t) for t in (x, r, p, ap))
+    got = fuse.cg_update(xl, rl, pl, apl, a, -a, vvl, layouts=lays)
+    _same(got[0], lay, soa[0], "x_new")
+    _same(got[1], lay, soa[1], "r_new")
+    assert _bits(got[2], soa[2])
+    plain = fuse.cg_update_plain(x, r, p, ap, a, -a)
+    _close_field(soa[1], plain[1])
+    _close_sum(soa[2], plain[2], plain[1] ** 2)
+    ap16 = apl.to(torch.bfloat16)
+    g16 = fuse.cg_update(xl, rl, pl, ap16, a, -a, vvl, layouts=lays)
+    w16 = fuse.cg_update(x, r, p, lay.unpack(ap16).float().contiguous(), a, -a, vvl)
+    _same(g16[1], lay, w16[1], "r_new (bf16 ap)")
+    assert _bits(g16[2], w16[2])
+    st = [torch.stack([t, t.flip(0)]) for t in (xl, rl, pl)]
+    m = torch.tensor([1.0, 0.0], device=card)
+    for apb in (torch.stack([apl, apl]), torch.stack([ap16, ap16])):
+        bx, br, brr = fuse.cg_update_masked(*st, apb, a.repeat(2), -a.repeat(2), m, vvl,
+                                            layouts=lays)
+        one = fuse.cg_update(xl, rl, pl, apb[0], a, -a, vvl, layouts=lays)
+        assert _bits(bx[0], one[0]) and _bits(br[0], one[1]) and _bits(brr[0], one[2])
+        assert _bits(bx[1], st[0][1]) and _bits(br[1], st[1][1])
+        zero = torch.zeros((), device=card)   # r + 0 ap: the frozen slot's r, squared
+        frozen = fuse.cg_update(st[0][1], st[1][1], pl, apb[1], zero, zero, vvl, layouts=lays)
+        assert _bits(brr[1], frozen[2])
+    shared = fuse.cg_update_masked(st[0], st[1], pl, apl, a.repeat(2), -a.repeat(2),
+                                   torch.ones(2, device=card), vvl, layouts=lays)
+    assert _bits(shared[1][0], got[1]) and _bits(shared[2][0], got[2])
+
+
+def _normal_partials(p, u, lat, vvl, batch=None):
+    """K5's two launches with their partial table returned: (t, ap,
+    partials (batch, ceil(V / vvl), 24))."""
+    V = int(np.prod(lat))
+    nb = batch or 1
+    t = torch.empty((nb, 24, V), device=p.device)
+    ap = torch.empty_like(p)
+    parts = torch.empty((nb, -(-V // vvl), 24), device=p.device)
+    K.WILSON_NORMAL_T_B.launch(p.device, p.data_ptr(), u.data_ptr(), t.data_ptr(), 0.12, *lat,
+                               nb, 0, 0, vvl)
+    K.WILSON_NORMAL_AP_B.launch(p.device, p.data_ptr(), t.data_ptr(), u.data_ptr(),
+                                ap.data_ptr(), parts.data_ptr(), 0.12, *lat, nb, 0, 0, 0, vvl)
+    return t, ap, parts
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("lat,vvl", [((16, 4, 4, 8), 32), ((20, 4, 4, 8), 32),
+                                     ((20, 4, 4, 8), 128), ((4, 4, 6, 8), 32),
+                                     ((4, 4, 6, 8), 64), ((3, 4, 4, 8), 128)],
+                         ids=["x16", "x20", "x20-plane", "x4-brick", "x4-linear", "x3"])
+def test_wilson_normal_block_order(card, lat, vvl, rng):
+    """K5 in its block order at lattices whose X is (16) and is not (20, 4,
+    3) a multiple of the brick, and at (4, 4, 6, 8) vvl 64, where vvl does
+    not divide an x-plane (linear order): ap within tolerance of the plain
+    version and bitwise the same at every vvl (a site's arithmetic does not
+    depend on the order); each partial row the sum of p * ap over its chunk
+    (within tolerance: the row sits at its chunk's index); K5B over 1..5
+    slots each bitwise its one-slot launch; soa, aos and aosoa16 bitwise
+    SoA; the policy instance's slots bitwise its one-slot launch."""
+    from repro_torch.core.plan import CudaPolicy
+
+    V = int(np.prod(lat))
+    u = torch.from_numpy(fields.random_su3_gauge(lat, seed=2).reshape(72, -1)).to(card)
+    p = _dev(rng, (24, V), card)
+    ap, pap = K.wilson_normal_cuda(p, u, 0.12, lat, vvl)
+    want_ap, want_pap = K.wilson_normal_plain(p, u, 0.12, lat)
+    _close_field(ap, want_ap)
+    _close_sum(pap, want_pap, p * want_ap)
+    assert _bits(ap, K.wilson_normal_cuda(p, u, 0.12, lat, 32)[0])
+    t, ap2, parts = _normal_partials(p, u, lat, vvl)
+    assert _bits(ap2, ap) and _bits(reduce.fold_partials(parts[0], "sum"), pap)
+    prod = (p * want_ap).reshape(24, -1, vvl) if V % vvl == 0 else None
+    if prod is not None:
+        _close_sum(parts[0], prod.sum(dim=2).T, prod.permute(1, 0, 2))
+    for nb in range(1, 6):
+        pb = torch.stack([p * (1 + 0.25 * k) for k in range(nb)])
+        apb, papb = K.wilson_normal_cuda(pb, u, 0.12, lat, vvl, batched=True)
+        for b in range(nb):
+            one = K.wilson_normal_cuda(pb[b], u, 0.12, lat, vvl)
+            assert _bits(apb[b], one[0]) and _bits(papb[b], one[1]), (nb, b)
+    for spec in ("aos", "aosoa16"):
+        lay = parse_layout(spec)
+        if V % lay.sal or vvl % lay.sal:
+            continue
+        lays = {"p": lay, "u": lay, "ap": lay}
+        al, sl = K.wilson_normal_cuda(lay.pack(p), lay.pack(u), 0.12, lat, vvl, layouts=lays)
+        _same(al, lay, ap, f"wilson_normal ap ({spec})")
+        assert _bits(sl, pap)
+    pol = CudaPolicy(True, True)
+    u16 = K.bf16_pack_cuda(u)
+    assert _bits(u16.float(), K.bf16_round(u))
+    ap16, pap16 = K.wilson_normal_cuda(p, u16, 0.12, lat, vvl, policy=pol)
+    _within_bf16_ulp(ap16, K.wilson_normal_plain(p, u, 0.12, lat, policy=pol)[0])
+    with pytest.raises(ValueError, match="bf16 copy of u"):
+        K.wilson_normal_cuda(p, u, 0.12, lat, vvl, policy=pol)   # an fp32 u under bf16 storage
+    pb = torch.stack([p, p.flip(0), p * 0.5])
+    apb, papb = K.wilson_normal_cuda(pb, u16, 0.12, lat, vvl, batched=True, policy=pol)
+    for b in range(3):
+        one = K.wilson_normal_cuda(pb[b], u16, 0.12, lat, vvl, policy=pol)
+        assert _bits(apb[b].float(), one[0].float()) and _bits(papb[b], one[1])
+    with pytest.raises(ValueError, match="float32"):
+        K.wilson_normal_cuda(p, u16, 0.12, lat, vvl)        # a bf16 u without the policy
+
+
+@pytest.mark.cuda
+def test_wilson_normal_refuses_what_it_does_not_take(card):
+    """K5's whole-warp blocks: a vvl that is not a multiple of 32 raises
+    before any launch."""
+    p = torch.zeros((24, 512), device=card)
+    u = torch.zeros((72, 512), device=card)
+    with pytest.raises(ValueError, match="whole number of warps"):
+        K.wilson_normal_cuda(p, u, 0.12, (4, 4, 4, 8), 48)
+
+
+@pytest.mark.cuda
+def test_wilson_normal_wide_lattice(card, rng):
+    """K5, K5B and the policy instance on a lattice with 72 V >= 2^31, where
+    a field's offsets take the 64-bit instantiation (one slot a thread).
+    The fields repeat with period 4 in x, so t, ap and every chunk's
+    partial row are bitwise those of the 32-bit launch on the (4, 64, 64,
+    32) lattice they repeat; X = 228 is not a multiple of the brick.  Each
+    K5B slot is bitwise its one-slot launch."""
+    from repro_torch.core.plan import CudaPolicy
+
+    small, reps, vvl = (4, 64, 64, 32), 57, 128
+    lat = (small[0] * reps,) + small[1:]
+    assert 72 * int(np.prod(lat)) >= 2 ** 31 > 72 * int(np.prod(small))
+    V = int(np.prod(small))
+    u = _dev(rng, (72, V), card) * 0.2     # bitwise checks need no SU(3) field
+    p = _dev(rng, (24, V), card)
+    t_s, ap_s, parts_s = _normal_partials(p, u, small, vvl)
+    _close_field(ap_s, K.wilson_normal_plain(p, u, 0.12, small)[0])
+    uw, pw = u.repeat(1, reps), p.repeat(1, reps)
+    t_w, ap_w, parts_w = _normal_partials(pw, uw, lat, vvl)
+    assert _bits(t_w, t_s.repeat(1, 1, reps)) and _bits(ap_w, ap_s.repeat(1, reps))
+    assert _bits(parts_w, parts_s.repeat(1, reps, 1))
+    del t_w, parts_w
+    one = K.wilson_normal_cuda(pw, uw, 0.12, lat, vvl)
+    assert _bits(one[0], ap_w)
+    del ap_w
+    pb = torch.stack([pw, -0.5 * pw])
+    apb, papb = K.wilson_normal_cuda(pb, uw, 0.12, lat, vvl, batched=True)
+    assert _bits(apb[0], one[0]) and _bits(papb[0], one[1])
+    del one
+    one = K.wilson_normal_cuda(pb[1], uw, 0.12, lat, vvl)
+    assert _bits(apb[1], one[0]) and _bits(papb[1], one[1])
+    del apb, papb, one
+    pol = CudaPolicy(True, True)
+    u16, uw16 = K.bf16_pack_cuda(u), K.bf16_pack_cuda(uw)
+    del uw
+    ap16 = K.wilson_normal_cuda(p, u16, 0.12, small, vvl, policy=pol)[0]
+    apb, papb = K.wilson_normal_cuda(pb, uw16, 0.12, lat, vvl, batched=True, policy=pol)
+    one = K.wilson_normal_cuda(pw, uw16, 0.12, lat, vvl, policy=pol)
+    assert _bits(one[0], ap16.repeat(1, reps)) and _bits(apb[0], one[0])
+    assert _bits(papb[0], one[1])
+    del apb, papb, one, pb, pw, uw16
+    torch.cuda.empty_cache()

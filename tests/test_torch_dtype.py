@@ -396,6 +396,58 @@ def test_wilson_normal_policy_plain_vs_reference(milc_fields, lays):
     assert torch.equal(apb[0], ap) and torch.equal(papb[0], pap)
 
 
+def test_wilson_normal_policy_reads_a_bf16_u_copy(milc_fields):
+    """Under bf16 storage K5's policy instance reads u as a bf16 copy made
+    once per operator (``bf16_pack_cuda``; its plain version on the CPU):
+    the copy holds the stage-in rounding's values bitwise (the JAX
+    package's astype), and the plain version fed the copy gives the fp32
+    u's ap and pap bitwise, single and batched."""
+    u, ps = milc_fields
+    pol = pplan.cuda_policy(BF16)
+    ut = torch.from_numpy(u).reshape(72, -1)
+    pt = torch.from_numpy(ps[0]).reshape(24, -1)
+    u16 = WK.bf16_pack_cuda(ut)
+    assert u16.dtype == torch.bfloat16
+    np.testing.assert_array_equal(u16.float().numpy(),
+                                  np.asarray(jnp.asarray(u).astype(jnp.bfloat16)
+                                             .astype(jnp.float32)).reshape(72, -1))
+    for got, want in zip(WK.wilson_normal_plain(pt, u16, KAPPA, MILC_LAT, policy=pol),
+                         WK.wilson_normal_plain(pt, ut, KAPPA, MILC_LAT, policy=pol)):
+        assert torch.equal(got, want)
+    pb = torch.stack([pt, torch.from_numpy(ps[1]).reshape(24, -1)])
+    for got, want in zip(WK.wilson_normal_plain(pb, u16, KAPPA, MILC_LAT, batched=True,
+                                                policy=pol),
+                         WK.wilson_normal_plain(pb, ut, KAPPA, MILC_LAT, batched=True,
+                                                policy=pol)):
+        assert torch.equal(got, want)
+
+
+def test_the_bf16_copy_of_u_follows_the_launch_policy(monkeypatch, milc_fields):
+    """make_fused_normal binds the bf16 copy of u exactly where the policy
+    the bound graph resolves (``core.plan.launch_policy``: the explicit
+    plan's engine and own policy, else the config's) asks the cuda engine
+    for bf16 storage, the copy K5's policy wrapper requires."""
+    f32 = DtypePolicy(storage="float32", compute="float32", accumulate="float64")
+    cases = [
+        (TargetConfig("cuda", device="cpu", dtypes=BF16), ("cuda", BF16), 1),
+        (TargetConfig("cuda", device="cpu", dtypes=f32), ("cuda", f32), 0),
+        (TargetConfig("cuda", device="cpu"), ("cuda", None), 0),
+        (TargetConfig("torch", device="cpu", dtypes=BF16), ("torch", BF16), 0),
+        (TargetConfig("cuda", device="cpu", dtypes=BF16,
+                      plan_policy=LoweringPlan("cuda", vvl=32, dtypes=f32)), ("cuda", f32), 0),
+        (TargetConfig("cuda", device="cpu",
+                      plan_policy=LoweringPlan("cuda", vvl=32, dtypes=BF16)), ("cuda", BF16), 1),
+    ]
+    u = Field.from_numpy("u", milc_fields[0], MILC_LAT)
+    for cfg, want, copies in cases:
+        packed = []
+        monkeypatch.setattr(PCG, "bf16_pack_cuda",
+                            lambda x: packed.append(x) or x.to(torch.bfloat16))
+        assert pplan.launch_policy(cfg) == want
+        PCG.make_fused_normal(u, KAPPA, cfg)
+        assert len(packed) == copies, cfg
+
+
 def test_lb_step_policy_plain_vs_reference():
     """K5L's policy instance, plain: dist2 and u in bf16 within one bf16 ulp
     of the JAX package's ludwig_lb_step launch under the same policy (jnp),

@@ -20,8 +20,10 @@ from repro.core import Field as JField  # noqa: E402
 from repro.core import LoweringPlan as JPlan  # noqa: E402
 from repro.core import TargetConfig as JTC  # noqa: E402
 from repro.core import plan as jplan  # noqa: E402
+from repro.core import target_max as j_max  # noqa: E402
 from repro.core import target_sum as j_sum  # noqa: E402
 from repro_torch import _cuda  # noqa: E402
+from repro_torch.core import BatchedField, Field, TargetConfig  # noqa: E402
 from repro_torch.core import reduce as R  # noqa: E402
 
 SUM_RTOL, SUM_ATOL = 1e-5, 1e-5   # the sum parity tests' (tests/test_torch_core.py)
@@ -190,3 +192,79 @@ def test_partial_table_matches_the_chunk(nsites):
     assert R.partials_tree(x).shape == (R.partial_rows(nsites), 2)
     assert R.partials_tree(x, compensated=True).shape == (R.partial_rows(nsites), 2, 2)
     assert torch.equal(R.reduce_tree(x), torch.full((2,), float(nsites)))
+
+
+# -- max propagates NaN ------------------------------------------------------------------
+#
+# The reference's max is jnp.max, which propagates NaN; K2 combined max with
+# fmaxf, which drops it (csrc/common.cuh now uses max.NaN.f32).  A NaN's
+# payload is not pinned: only where the NaNs are, and every other value's bits.
+
+NAN_LAT = (4, 4, 8)
+TORCH_CPU = TargetConfig("torch", device="cpu")
+
+
+def _nan_field(all_nan_comp=None):
+    """(2, 128) x[c, s] = (128 c + s) / 7 with x[0, 5] NaN (and component
+    ``all_nan_comp`` NaN at every site), as (2, 4, 4, 8) fp32."""
+    x = (np.arange(2 * 128, dtype=np.float32).reshape(2, 128) / np.float32(7.0))
+    x[0, 5] = np.nan
+    if all_nan_comp is not None:
+        x[all_nan_comp] = np.nan
+    return x.reshape((2,) + NAN_LAT)
+
+
+def _same_nan_bits(got, want):
+    """NaN exactly where want has NaN, every other value bitwise."""
+    got, want = np.asarray(got), np.asarray(want)
+    nan = np.isnan(want)
+    assert np.array_equal(np.isnan(got), nan), (got, want)
+    assert np.array_equal(got[~nan].view(np.uint32), want[~nan].view(np.uint32)), (got, want)
+
+
+@pytest.mark.parametrize("engine", list(JAX_ENGINES))
+def test_max_propagates_nan_as_the_reference(engine):
+    """The reference's target_max on (4, 4, 8), x[c, s] = (128 c + s) / 7,
+    x[0, 5] = NaN gives [nan, 36.42857] on its jnp and pallas (interpret)
+    engines; the torch engine's target_max and K2's tree emulation (what the
+    card's K2 is held to bitwise) give the same: NaN in component 0,
+    component 1 bitwise."""
+    x = _nan_field()
+    want = np.asarray(j_max(JField.from_numpy("x", x, NAN_LAT), JAX_ENGINES[engine](None)))
+    assert np.isnan(want[0]) and want[1] == np.float32(255 / 7)
+    np.testing.assert_allclose(want[1], 36.42857, rtol=1e-6)
+    _same_nan_bits(R.target_max(Field.from_numpy("x", x, NAN_LAT), TORCH_CPU).numpy(), want)
+    _same_nan_bits(R.reduce_tree(torch.from_numpy(x.reshape(2, -1)), "max").numpy(), want)
+
+
+@pytest.mark.parametrize("engine", list(JAX_ENGINES))
+def test_max_of_an_all_nan_component(engine):
+    """A component that is NaN at every site gives NaN (fmaxf gave -inf),
+    the other component keeps the reference's bits; on the reference, the
+    torch engine and the tree."""
+    x = _nan_field(all_nan_comp=1)
+    want = np.asarray(j_max(JField.from_numpy("x", x, NAN_LAT), JAX_ENGINES[engine](None)))
+    assert np.isnan(want).all()
+    _same_nan_bits(R.target_max(Field.from_numpy("x", x, NAN_LAT), TORCH_CPU).numpy(), want)
+    _same_nan_bits(R.reduce_tree(torch.from_numpy(x.reshape(2, -1)), "max").numpy(), want)
+    y = _nan_field()
+    y[0] = np.nan
+    want = np.asarray(j_max(JField.from_numpy("y", y, NAN_LAT), JAX_ENGINES[engine](None)))
+    assert np.isnan(want[0]) and want[1] == np.float32(255 / 7)
+    _same_nan_bits(R.reduce_tree(torch.from_numpy(y.reshape(2, -1)), "max").numpy(), want)
+
+
+def test_batched_max_propagates_nan():
+    """reduce_sites_batched(op="max") and a BatchedField's target_max: each
+    row as the reference's single max of its slot (NaN where it has NaN,
+    the rest bitwise), and bitwise the tree emulation's batched rows."""
+    slots = [_nan_field(), _nan_field(all_nan_comp=0), np.ones((2,) + NAN_LAT, np.float32)]
+    slots[2][1, 1, 1, 1] = np.nan
+    want = np.stack([np.asarray(j_max(JField.from_numpy("x", a, NAN_LAT), JTC("jnp")))
+                     for a in slots])
+    assert np.isnan(want[2, 1]) and want[2, 0] == 1.0
+    stack = torch.from_numpy(np.stack([a.reshape(2, -1) for a in slots]))
+    _same_nan_bits(R.reduce_sites_batched(stack, "max").numpy(), want)
+    bf = BatchedField.from_canonical("x", stack, NAN_LAT)
+    _same_nan_bits(R.target_max(bf, TORCH_CPU).numpy(), want)
+    _same_nan_bits(R.reduce_tree(stack, "max").numpy(), want)
