@@ -34,7 +34,7 @@ Q3. (after Q1, where ``build/parent`` holds the parent's tree) the parent's
    through their C entry points on the same tensors: cg_xpay, cg_update in
    SoA, AoS and aosoa4 and fed a bf16 ap, both masked over 4 slots; K5 in
    SoA, AoS, aosoa16, over 4 slots, and its policy instance single and over
-   4 slots (the parent on the fp32 u, this tree on the bf16 copy): every
+   4 slots (both on the operator's bf16 copy of u): every
    output (K3's fields and partial rows; K5's t, ap and partial rows)
    bitwise the parent's, timed in turns as Q1 (``torch.addcmul`` beside
    cg_xpay), K5 beside its two-launch design floor; then K5 and K4 (in
@@ -150,30 +150,46 @@ Y3. with every count set to 0 before each: 10 steps from the L1 state
    layouts' numbers are printed as one JSON line before the kernel table;
 T1. on the L1 state, the plan ``default_plan`` picks for the LB half-step
    under a 227 KiB shared-memory budget (at (256, 256, 256): bx 1, by 4,
-   bz 64) and K9's shared memory beside the device's own limit; K9 against
-   K5L bitwise for both LB graphs and against the plain LB step
-   (``lb_step_plain``) on the whole lattice within 1e-5 x max|plain|, timed
-   beside both; then against ``tiled_plain``, the tile-by-tile plain
-   version, on a slice of 4 x 4 x 2 tiles ((4, 16, 128) there), logged;
+   bz 64); K9's shared memory a block (none) and its blocks an SM (from
+   its ptxas registers); K9 against K5L bitwise for both LB graphs and
+   against the plain LB step (``lb_step_plain``) on the whole lattice
+   within 1e-5 x max|plain|, timed beside K5L; then against
+   ``tiled_plain``, the tile-by-tile plain version, on a slice of 4 x 4 x 2
+   tiles ((4, 16, 128) there), logged;
+Q4. (after T1 and after R1, where ``build/parent`` holds the parent's tree)
+   the parent's K9 and K10 (lb_tiled.cu and rwkv6.cu with its own headers,
+   a library of their own) against this tree's: K9 at T1's lattice and
+   tile, dist2 and u bitwise the parent's for both graphs; K10 at R1's two
+   full shapes within R1's tolerance of the parent's; timed in turns
+   (parent, this, this, parent), a call at a time; rows in the redesign
+   JSON line;
 T2. with every count set to 0: 10 steps from the L1 state with
    ``TargetConfig("cuda", smem_bytes=227 * 1024)``: dist and q must equal
-   L3's first 10 steps bitwise, K9 must have launched and K5L not; then
+   L3's first 10 steps bitwise, K9 must have launched and K5L not; ms a
+   step beside L3's; then
    ``collide_propagate`` under the budget, bitwise equal to the untiled one,
    through K9 alone;
 T3. at ``--ludwig-small``, 5 steps on the "cuda" engine under a budget of
    6512 B, which tiles the LB half-step at (1, 1, 2), against 5 untiled
    steps of the "torch" engine, within L5's tolerance;
-R1. K10 (the RWKV6 WKV recurrence) against its plain version
+R1. K10 (the RWKV6 WKV recurrence: a state pass and an output pass, each
+   kernel's ptxas report printed) against its plain version
    (``ref.rwkv6_chunked``) at the prefill's shapes, (B, H, T, dk, dv) =
-   (4, 64, 2048, 64, 64) with chunk 64, and at T 100 (chunk 50) with
-   dk = dv = 16, on the reference test's inputs (strong decay, random u):
-   o and the final state within rtol 1e-5, atol 2e-5 x max|plain|; against
-   the scan oracle on a short sequence within the reference's 1e-3; timed;
+   (4, 64, 2048, 64, 64) with chunk 64, at a batch-1 long prompt (1, 64,
+   8192, 64, 64) and at T 100 (chunk 50) with dk = dv = 16, on the
+   reference test's inputs (strong decay, random u), on fp32 (BH, T, d)
+   tensors and on the model's bf16 (B, H, T, d) views of (B, T, H, d): o
+   and the final state within rtol 1e-5, atol 2e-5 x max|plain| (bf16 o
+   within one bf16 ulp; the bf16 views' output pass also with o stored in
+   fp32, within the fp32 limit); against the scan oracle on a short
+   sequence within the reference's 1e-3; timed at both full shapes (fp32,
+   bf16 views, each pass alone); the design's own floor logged and put in
+   the redesign JSON line;
 R2. rwkv6-7b at full width and depth (7,534,813,184 parameters, bf16, drawn
    from seed 0 on the card) prefills B 4 x T 2048 random tokens (cut from
    prefill_32k's (32, 32768), whose bf16 logits alone would take 137 GB):
-   with every count set to 0, ``build_prefill`` must launch K10 once a layer
-   (32); the logits are finite, and their rel-L2 distance from the same
+   with every count set to 0, ``build_prefill`` must launch each of K10's
+   two kernels once a layer (32 each); the logits are finite, and their rel-L2 distance from the same
    prefill with the plain WKV (``wkv_engine="torch"``) is at most twice that
    between two plain prefills with chunks of 64 and of 32; on an fp32 copy
    of the weights K10's prefill lies within rel-L2 1e-3 of the plain one;
@@ -227,6 +243,7 @@ import dataclasses
 import json
 import math
 import os
+import re
 import statistics
 import subprocess
 import sys
@@ -278,7 +295,7 @@ KERNELS = [target.G5, target.MUL, target.AXPY, reduce.REDUCE_SUM,
            reduce.REDUCE_MAX, reduce.REDUCE_FOLD, fuse.CG_UPDATE, fuse.CG_XPAY,
            wk.DSLASH, wk.WILSON_NORMAL_T, wk.WILSON_NORMAL_AP, k7.COLLIDE,
            k8.PROPAGATE, k8.LB_STEP, k8.LB_STEP_TILED, lk.CHEM_STRESS, lk.LC_UPDATE,
-           lk.FED, k10.WKV, kf.FLASH, kf.FLASH_KVCHUNK, fuse.CG_UPDATE_MASKED,
+           lk.FED, k10.WKV, k10.WKV_STATE, kf.FLASH, kf.FLASH_KVCHUNK, fuse.CG_UPDATE_MASKED,
            fuse.CG_XPAY_MASKED, wk.WILSON_NORMAL_T_B, wk.WILSON_NORMAL_AP_B,
            reduce.REDUCE_SUM_B, reduce.REDUCE_MAX_B, reduce.REDUCE_FOLD_B,
            wk.WILSON_NORMAL_T_MIXED, wk.WILSON_NORMAL_AP_MIXED, fuse.CG_UPDATE_AP16,
@@ -351,14 +368,18 @@ TILED_EXHIBIT_PATH = {
                                    "src/repro/core/fuse.py:1804"),
 }
 # RWKV6 serving (R1-R3)
-RWKV_PATH = {
-    "rwkv6_wkv": ([k10.WKV], "rwkv6.cu", "src/repro/kernels/rwkv6_scan/kernel.py:31"),
+RWKV_PATH = {   # K10's two kernels: the state pass and the output pass
+    "rwkv6_wkv": ([k10.WKV_STATE, k10.WKV], "rwkv6.cu",
+                  "src/repro/kernels/rwkv6_scan/kernel.py:31"),
 }
 RWKV_PARAMS = 7_534_813_184       # rwkv6-7b, counted from the reference's init
 PREFILL_B, PREFILL_T = 4, 2048    # cut from prefill_32k's (32, 32768)
 SERVE_B, SERVE_PROMPT, SERVE_NEW = 4, 16, 16
 WKV_RTOL, WKV_ATOL_REL = 1e-5, 2e-5   # K10 vs its plain version: rtol, atol / max|plain|
 WKV_SCAN_TOL = 1e-3               # chunked vs the scan oracle (tests/test_kernels_rwkv.py)
+WKV_LONG = (1, 8192)              # R1's batch-1 long prompt (B, T), BH 64
+TF32_TC_FLOP_PER_S = 495e12       # H100 SXM data sheet, TF32 on the tensor cores (dense)
+MUFU_PER_S = 16 * 132 * 1.98e9    # exponentials and logarithms: 16 a clock an SM, 132 SMs
 # K10's prefill logits against the plain-WKV prefill's.  The random 32-layer
 # model amplifies any change of the WKV's fp32 sum order: two plain prefills
 # that differ only in the chunk (64 against 32) differ by rel-L2 7.9e-2 in
@@ -1122,10 +1143,29 @@ def lb_smem_views(cfg):
     return (((19, rings["dist"], 4), (3, rings["force"], 4)), ((19, 4), (3, 4)))
 
 
-def check_tiled_kernel(state, cfg, vvl):
-    """T1: the budget's plan, K9 against K5L bitwise and against the plain LB
-    step on the whole lattice, K9 timed beside both, and K9 against
-    tiled_plain on a slice."""
+def k9_blocks_per_sm(ptxas, dev, block):
+    """(registers a thread, blocks of ``block`` threads an SM) of K9 from
+    its ptxas report: the register file, allocated 256 registers a warp at
+    a time, and the SM's threads bound it; K9 declares no shared memory."""
+    regs, entry = None, False
+    for ln in ptxas:
+        if "Compiling entry" in ln:
+            entry = "lb_tiled" in ln
+        elif entry and "Used" in ln:
+            regs = int(re.search(r"Used (\d+) registers", ln).group(1))
+            break
+    if regs is None:
+        raise AssertionError("the ptxas report has no registers of K9's kernel")
+    props = torch.cuda.get_device_properties(dev)
+    per_warp = -(-regs * 32 // 256) * 256
+    warps = props.regs_per_multiprocessor // per_warp
+    return regs, min(warps // (block // 32), props.max_threads_per_multi_processor // block)
+
+
+def check_tiled_kernel(state, cfg, vvl, ptxas):
+    """T1: the budget's plan, K9's blocks an SM, K9 against K5L bitwise and
+    against the plain LB step on the whole lattice, timed beside K5L, and
+    K9 against tiled_plain on a slice."""
     lat = cfg.lattice
     V = math.prod(lat)
     dev = state.dist.data.device
@@ -1134,27 +1174,29 @@ def check_tiled_kernel(state, cfg, vvl):
     p = plan.default_plan(budget_cfg, nsites=V, layouts=[SOA], stencil=True, lattice=lat,
                           smem_views=views)
     tile = (p.bx, p.by, p.bz)
-    smem = k8.tiled_smem_bytes(plan.tile_extents(lat, *tile))
     optin = _cuda.smem_per_block_optin(dev)
     log(f"T1: budget {SMEM_BUDGET} B -> plan {p.describe()} (model "
         f"{plan.estimate_smem_bytes(p, lattice=lat, in_views=views[0], out_views=views[1])} B); "
-        f"K9 dynamic shared memory {smem} B a block; per-block opt-in limit "
-        f"{plan.SMEM_PER_BLOCK_OPTIN} B planned for, {optin} B on the card")
+        f"per-block opt-in limit {plan.SMEM_PER_BLOCK_OPTIN} B planned for, {optin} B on the "
+        f"card")
     if lat == (256, 256, 256) and tile != (1, 4, 64):
         raise AssertionError(f"expected the tile (1, 4, 64) at {lat}, got {tile}")
-    if not p.tiled or smem > optin:
-        raise AssertionError(f"plan {p} is not a tiled plan that fits the card")
+    if not p.tiled:
+        raise AssertionError(f"plan {p} is not a tiled plan")
 
     gen = torch.Generator(device=dev).manual_seed(4)
     dist = state.dist.data * (1.0 + 0.05 * torch.randn((19, V), generator=gen, device=dev))
     force = 1e-3 * torch.randn((3, V), generator=gen, device=dev)
     tau = cfg.tau
-    d9, u9 = k8.lb_step_tiled_cuda(dist, force, tau, lat, tile)
     d5, u5 = k8.lb_step_cuda(dist, force, tau, lat, vvl)
+    d9, u9 = k8.lb_step_tiled_cuda(dist, force, tau, lat, tile)
     exact_err(d9, d5, "K9 lb_step dist2 against K5L")
     exact_err(u9, u5, "K9 lb_step u against K5L")
     c9, _ = k8.lb_step_tiled_cuda(dist, force, tau, lat, tile, with_u=False)
     exact_err(c9, d5, "K9 lb_collide_propagate against K5L")
+    regs, per_sm = k9_blocks_per_sm(ptxas, dev, k8.K9_BLOCK)
+    log(f"  K9: no shared memory, {regs} registers a thread (ptxas), {per_sm} blocks of "
+        f"{k8.K9_BLOCK} threads an SM; bitwise K5L")
     del d5, u5
     want2, want_u = k8.lb_step_plain(dist, force, tau, lat)
     err = max(field_err(d9, want2, "K9 lb_step dist2 against lb_step_plain"),
@@ -1184,9 +1226,9 @@ def check_tiled_kernel(state, cfg, vvl):
     k9_ms = time_ms(lambda: k8.lb_step_tiled_cuda(dist, force, tau, lat, tile))
     k5_ms = time_ms(lambda: k8.lb_step_cuda(dist, force, tau, lat, vvl))
     k9c_ms = time_ms(lambda: k8.lb_step_tiled_cuda(dist, force, tau, lat, tile, with_u=False))
-    log(f"  K9 at {lat}: lb_step {k9_ms:.4f} ms against K5L {k5_ms:.4f} ms; "
-        f"lb_collide_propagate {k9c_ms:.4f} ms; both against lb_step_plain on the whole "
-        f"lattice (the rows' error and plain time)")
+    log(f"  K9 at {lat}: {k9_ms:.4f} ms; K5L {k5_ms:.4f} ms; lb_collide_propagate "
+        f"{k9c_ms:.4f} ms; both against lb_step_plain on the whole lattice (the rows' error "
+        f"and plain time)")
     rows = {}
     add_row(rows, "lb_step_tiled", err, k9_ms, plain_ms, 176 * V, FLOPS["lb_step"] * V)
     add_row(rows, "lb_collide_propagate_tiled", err_cp, k9c_ms, plain_cp_ms, 164 * V,
@@ -1196,10 +1238,10 @@ def check_tiled_kernel(state, cfg, vvl):
     return rows, p
 
 
-def run_tiled(state, after_steps, cfg):
+def run_tiled(state, after_steps, cfg, l3_ms):
     """T2: LUDWIG_STEPS steps under the budget from the L1 state, bitwise
-    equal to L3's, through K9 alone; then the fused LB half-step under the
-    budget through K9 alone."""
+    equal to L3's, through K9 alone, ms a step beside L3's; then the fused
+    LB half-step under the budget through K9 alone."""
     tcfg = dataclasses.replace(
         cfg, target=dataclasses.replace(cfg.target, smem_bytes=SMEM_BUDGET))
     reset_counts()
@@ -1213,7 +1255,8 @@ def run_tiled(state, after_steps, cfg):
     counts = path_counts(TILED_PATH)
     untiled = k8.LB_STEP.launches
     log(f"T2: ludwig {cfg.lattice} under a {SMEM_BUDGET} B budget: {step_s * 1e3:.3f} ms/step "
-        f"over {LUDWIG_STEPS} steps; launches K9 {counts}, K5L {untiled}")
+        f"over {LUDWIG_STEPS} steps, {step_s * 1e3 / l3_ms:.3f}x L3's untiled {l3_ms:.3f}; "
+        f"launches K9 {counts}, K5L {untiled}")
     exact_err(s.dist.data, after_steps.dist.data, "tiled steps' dist against L3's")
     exact_err(s.q.data, after_steps.q.data, "tiled steps' q against L3's")
     if counts["lb_step_tiled"] != LUDWIG_STEPS or untiled:
@@ -1293,26 +1336,115 @@ def wkv_err(got, want, name, rtol=WKV_RTOL, atol_rel=WKV_ATOL_REL):
     return err.max().item()
 
 
-def check_wkv_kernel():
-    """R1: K10 against its plain version at the prefill's shapes and at
-    T 100 with small heads, and against the scan oracle; timed."""
+def wkv_floor(BH, T, C, dk, dv, itemsize=2):
+    """K10's own floor in ms, and what sets it: r, k, v, w read and o written
+    once at ``itemsize`` bytes with u, s0 and sT in fp32; its products (q S,
+    A left of the diagonal, A v, kd^T v) three times at the TF32 tensor-core
+    rate; its exponentials and logarithms at the MUFU rate (csrc/rwkv6.cu's
+    note counts them)."""
+    sub, nc = 16, BH * T // C
+    ns = -(-C // sub)
+    nbytes = itemsize * BH * T * (3 * dk + 2 * dv) + 4 * (BH * dk + 2 * BH * dk * dv)
+    prods = 4 * C * dk * dv + sum(2 * sub * sub * (i * dk + (i + 1) * dv) for i in range(ns))
+    exps = (ns * sub * (sub - 1) // 2 * dk + 4 * C * dk + dk
+            + sum(sub * dk + sub * i * dk for i in range(1, ns)))
+    parts = {"bytes": nbytes / HBM_BYTES_PER_S, "tensor cores": 3 * prods * nc / TF32_TC_FLOP_PER_S,
+             "exponentials": exps * nc / MUFU_PER_S}
+    by = max(parts, key=parts.get)
+    return parts[by] * 1e3, by
+
+
+def wkv_split_ms(r, k, v, w, u, s0, C):
+    """The state pass and the output pass of one fp32 (BH, T, d) call, each
+    timed alone (launched through the library, outside the counts)."""
+    BH, T, dk = r.shape
+    dv = v.shape[-1]
+    xs = [x[:, None] for x in (r, k, v, w)]
+    states = torch.empty((BH, T // C, dk, dv), device="cuda")
+    sT = torch.empty((BH, dk, dv), device="cuda")
+    o = torch.empty((BH, T, dv), device="cuda")
+    lib = _cuda.library()
+    st, vst = xs[0].stride()[:3], xs[2].stride()[:3]
+
+    def state():
+        rc = lib.rt_rwkv6_state(xs[1].data_ptr(), xs[2].data_ptr(), xs[3].data_ptr(),
+                                s0.data_ptr(), states.data_ptr(), sT.data_ptr(), BH, 1, T, C,
+                                dk, dv, *st, *vst, 0, torch.cuda.current_stream().cuda_stream)
+        assert rc == 0, rc
+
+    def output():
+        rc = lib.rt_rwkv6_output(xs[0].data_ptr(), xs[1].data_ptr(), xs[2].data_ptr(),
+                                 xs[3].data_ptr(), u.data_ptr(), states.data_ptr(), o.data_ptr(),
+                                 BH, 1, T, C, dk, dv, *st, *vst, dk, 0, T * dv, 0, dv, 0, 0,
+                                 torch.cuda.current_stream().cuda_stream)
+        assert rc == 0, rc
+
+    return time_ms(state), time_ms(output)
+
+
+def wkv_heads_fp32_out(views, u, s0, chunk):
+    """K10 on bf16 (B, H, T, d) views, as the model's prefill runs it, but
+    with o stored in fp32: the bf16 instance's arithmetic without o's
+    rounding to bf16."""
+    B, H, T, _ = views[0].shape
+    o = k10._heads_out(B, H, T, views[2].shape[-1], torch.float32, views[0].device)
+    k10._launch(*k10._operands(*views), u, 0, u.stride(0), s0, o, chunk)
+    return o
+
+
+def check_wkv_kernel(ptxas):
+    """R1: K10 against its plain version at the prefill's shapes, at a
+    batch-1 long prompt and at T 100 with small heads, on fp32 (BH, T, d)
+    tensors and on the model's bf16 (B, H, T, d) views (o in bf16 within
+    one bf16 ulp, and stored in fp32 within the fp32 tolerance), and
+    against the scan oracle; timed, the two passes also alone.  Returns
+    the rows and, by row, the design's floor (fp32, bf16) in ms."""
+    for ln in ptxas:
+        log(f"  ptxas: {ln}")
     gen = torch.Generator(device="cuda").manual_seed(5)
     H, dk = 64, 64
-    rows = {}
-    for B, T, d, C in ((PREFILL_B, PREFILL_T, dk, 64), (PREFILL_B, 100, 16, 50)):
+    rows, floors = {}, {}
+    for B, T, d, C in ((PREFILL_B, PREFILL_T, dk, 64), (*WKV_LONG, dk, 64),
+                       (PREFILL_B, 100, 16, 50)):
         BH = B * H
         r, k, v, w, u, s0 = wkv_problem(gen, BH, T, d, d)
         o, sT = k10.rwkv6_cuda(r, k, v, w, u, s0, chunk=C)
         o_p, s_p = k10.rwkv6_plain(r, k, v, w, u, s0, chunk=C)
-        err = max(wkv_err(o, o_p, f"K10 o at {(B, H, T, d, d)}, chunk {C}"),
-                  wkv_err(sT, s_p, f"K10 state at {(B, H, T, d, d)}, chunk {C}"))
-        log(f"  K10 at (B, H, T, dk, dv) = {(B, H, T, d, d)}, chunk {C}: max abs err {err:.3e} "
+        shape = (B, H, T, d, d)
+        err = max(wkv_err(o, o_p, f"K10 o at {shape}, chunk {C}"),
+                  wkv_err(sT, s_p, f"K10 state at {shape}, chunk {C}"))
+        log(f"  K10 at (B, H, T, dk, dv) = {shape}, chunk {C}: max abs err {err:.3e} "
             f"(max|o| {o_p.abs().max().item():.3e}, max|S| {s_p.abs().max().item():.3e})")
-        if T == PREFILL_T:
+        # the model's operands: bf16 (B, H, T, d) views of (B, T, H, d)
+        views = [x.reshape(B, H, T, -1).transpose(1, 2).to(torch.bfloat16).contiguous()
+                 .transpose(1, 2) for x in (r, k, v, w)]
+        ub, s0b = u[:H], s0.reshape(B, H, d, d)
+        ob, sb = k10.rwkv6_heads_cuda(*views, ub, s0b, chunk=C)
+        ob_p, sb_p = wkv_ref.rwkv6_chunked(*views, ub, s0b, chunk=C)
+        err_b = max(wkv_err(ob.float(), ob_p, f"K10 bf16 o at {shape}", rtol=2.0 ** -7),
+                    wkv_err(sb, sb_p, f"K10 bf16 state at {shape}"))
+        err_b32 = wkv_err(wkv_heads_fp32_out(views, ub, s0b, C), ob_p,
+                          f"K10 on bf16 views, o stored in fp32, at {shape}")
+        log(f"  K10 on bf16 (B, H, T, d) views at {shape}: o within one bf16 ulp, max abs err "
+            f"{err_b:.3e}; o stored in fp32 within the fp32 tolerance, max abs err "
+            f"{err_b32:.3e}; o {tuple(ob.stride())} strides, ready for the model's heads merge")
+        if T >= PREFILL_T:
             ms = time_ms(lambda: k10.rwkv6_cuda(r, k, v, w, u, s0, chunk=C))
-            plain_ms = time_ms(lambda: k10.rwkv6_plain(r, k, v, w, u, s0, chunk=C), reps=3, warm=1)
-            add_row(rows, "rwkv6_wkv", err, ms, plain_ms, *wkv_work(BH, T, C, d, d))
-        del r, k, v, w, u, s0, o, sT, o_p, s_p
+            bf_ms = time_ms(lambda: k10.rwkv6_heads_cuda(*views, ub, s0b, chunk=C))
+            st_ms, out_ms = wkv_split_ms(r, k, v, w, u, s0, C)
+            plain_ms = time_ms(lambda: k10.rwkv6_plain(r, k, v, w, u, s0, chunk=C), reps=3,
+                               warm=1)
+            fl32, fl32_by = wkv_floor(BH, T, C, d, d, 4)
+            fl16, fl16_by = wkv_floor(BH, T, C, d, d, 2)
+            log(f"  K10 at {shape}: fp32 {ms:.4f} ms (state pass {st_ms:.4f}, output pass "
+                f"{out_ms:.4f}), bf16 views {bf_ms:.4f} ms, {ms / (B * T) * 1e6:.4f} ns a "
+                f"token; the design's floor {fl32:.4f} ms fp32 ({fl32_by}), {fl16:.4f} ms "
+                f"bf16 ({fl16_by})")
+            name = "rwkv6_wkv" if T == PREFILL_T else "rwkv6_wkv_long"
+            add_row(rows, name, err, ms, plain_ms, *wkv_work(BH, T, C, d, d))
+            rows[name].update(state_ms=st_ms, output_ms=out_ms, bf16_ms=bf_ms)
+            floors[name] = [fl32, fl16]
+        del r, k, v, w, u, s0, o, sT, o_p, s_p, views, ob, sb, ob_p, sb_p
     # the scan oracle on a short sequence: two chunks of 64
     B, H, T = 1, 8, 128
     r, k, v, w, u, s0 = wkv_problem(gen, B * H, T, dk, dk)
@@ -1323,7 +1455,7 @@ def check_wkv_kernel():
                       WKV_SCAN_TOL))
     log(f"  K10 against rwkv6_scan_ref at {(B, H, T, dk, dk)}: max abs err {err:.3e}")
     torch.cuda.empty_cache()
-    return rows
+    return rows, floors
 
 
 def param_stats(params):
@@ -1335,7 +1467,7 @@ def param_stats(params):
     return sum(n for n, _ in stats), sum(b for _, b in stats)
 
 
-def device_profile(fn, what, kernels=(("rwkv6_wkv", "rwkv6_wkv"),)):
+def device_profile(fn, what, kernels=(("rwkv6_wkv", "rwkv6_"),)):
     """fn() under torch.profiler: the device time of its kernels in groups
     (matmuls, the hand kernels named by (group, substring of the kernel's
     name) in ``kernels``, the rest), against the host clock."""
@@ -1424,8 +1556,9 @@ def rwkv_prefill():
     counts = path_counts(RWKV_PATH)
     log(f"R2: prefill {PREFILL_B} x {PREFILL_T} -> logits {tuple(logits.shape)} "
         f"{logits.dtype}; launches on the prefill's path: {counts}")
-    if counts["rwkv6_wkv"] != cfg.n_layers:
-        raise AssertionError(f"K10 launched {counts['rwkv6_wkv']} times, not once a layer")
+    if (k10.WKV_STATE.launches, k10.WKV.launches) != (cfg.n_layers, cfg.n_layers):
+        raise AssertionError(f"K10's passes launched {k10.WKV_STATE.launches} and "
+                             f"{k10.WKV.launches} times, not once each a layer")
     if not torch.isfinite(logits).all():
         raise AssertionError("prefill logits have non-finite values")
     check_prefill_against_plain(cfg, params, batch, logits, "bf16")
@@ -1525,22 +1658,25 @@ def flash_work(BKV, rep, S, dh, causal, window, itemsize):
 
 
 def flash_toolchain():
-    """Run beside phase 2's build: csrc/flash.cu under ``-Xptxas -v`` (each
-    kernel's registers and spills), and, where PARENT_SRC holds a tree, the
-    parent's flash.cu, its K1 and K2 (site_local.cu and reduce.cu, with the
-    parent's headers) and its K3, K4 and K5 (fused_flat.cu, dslash.cu,
-    wilson_normal.cu and wilson_normal_mixed.cu) as libraries of their own.  Returns (ptxas lines
-    of the bf16 kernels, {"flash", "k1_k2", "k3_k5": the parent library's
-    path} for those built)."""
+    """Run beside phase 2's build: csrc/flash.cu, rwkv6.cu and lb_tiled.cu
+    under ``-Xptxas -v`` (each kernel's registers and spills), and, where
+    PARENT_SRC holds a tree, the parent's flash.cu, its K1 and K2
+    (site_local.cu and reduce.cu, with the parent's headers), its K3, K4 and
+    K5 (fused_flat.cu, dslash.cu, wilson_normal.cu and wilson_normal_mixed.cu)
+    and its K9 and K10 (lb_tiled.cu, rwkv6.cu) as libraries of their own.
+    Returns ({"flash": ptxas lines of the bf16 kernels, "k10": of K10's and
+    K9's kernels}, {"flash", "k1_k2", "k3_k5", "k9_k10": the parent
+    library's path} for those built)."""
     nvcc = _cuda._nvcc()
     _cuda.BUILD_DIR.mkdir(parents=True, exist_ok=True)
     cmds = [[nvcc, *_cuda.COMPILE_FLAGS, "-Xptxas", "-v", "-cubin", "-o",
-             str(_cuda.BUILD_DIR / "flash_ptxas.cubin"), str(_cuda.CSRC / "flash.cu")]]
+             str(_cuda.BUILD_DIR / f"{src}_ptxas.cubin"), str(_cuda.CSRC / f"{src}.cu")]
+            for src in ("flash", "rwkv6", "lb_tiled")]
     csrc = os.path.join(PARENT_SRC, "repro_torch", "csrc")
     libs = {}
     for tag, srcs in (("flash", ("flash.cu",)), ("k1_k2", ("site_local.cu", "reduce.cu")),
                       ("k3_k5", ("fused_flat.cu", "wilson_normal.cu", "wilson_normal_mixed.cu",
-                                 "dslash.cu"))):
+                                 "dslash.cu")), ("k9_k10", ("lb_tiled.cu", "rwkv6.cu"))):
         paths = [os.path.join(csrc, f) for f in srcs]
         if all(map(os.path.exists, paths)):
             libs[tag] = _cuda.BUILD_DIR / f"parent_{tag}.so"
@@ -1551,13 +1687,18 @@ def flash_toolchain():
     for c, pr, out in zip(cmds, procs, outs):
         if pr.returncode:
             raise RuntimeError(f"nvcc failed:\n{' '.join(c)}\n{out}")
-    lines, keep = [], False
-    for ln in outs[0].splitlines():
-        if "Compiling entry function" in ln:
-            keep = FLASH_MMA in ln
-        if keep and ("Compiling entry" in ln or "spill" in ln or "Used" in ln):
-            lines.append(ln.split("ptxas info    : ")[-1].strip())
-    return lines, libs
+
+    def report(out, names):
+        lines, keep = [], False
+        for ln in out.splitlines():
+            if "Compiling entry function" in ln:
+                keep = any(n in ln for n in names)
+            if keep and ("Compiling entry" in ln or "spill" in ln or "Used" in ln):
+                lines.append(ln.split("ptxas info    : ")[-1].strip())
+        return lines
+
+    return {"flash": report(outs[0], (FLASH_MMA,)),
+            "k10": report(outs[1], ("rwkv6_",)) + report(outs[2], ("lb_tiled",))}, libs
 
 
 def flash_sass(lib):
@@ -1916,18 +2057,27 @@ def graph_ms(fn):
     return ms
 
 
-def redesign_turns(cases):
+def redesign_turns(cases, graphs=True):
     """Each case: name -> (this tree's call, the parent's, the library
     call or None, bytes, flops, check(parent's out, this out)).  Checks the
     parent's output against this tree's, then times parent, this, this,
     parent on the same tensors, and the library call, each a call at a
-    time (time_ms) and replayed from a CUDA graph (graph_ms, the same
-    order); returns the rows."""
+    time (time_ms) and, with ``graphs``, replayed from a CUDA graph
+    (graph_ms, the same order); returns the rows."""
     rows = {}
     for name, (this, old, lib, nbytes, flops, check) in cases.items():
         check(old(), this())
         t = [time_ms(old), time_ms(this), time_ms(this), time_ms(old)]
         lib_ms = time_ms(lib) if lib else None
+        if not graphs:
+            b_ms, b_by = bound(nbytes, flops)
+            ms = statistics.median(t[1:3])
+            rows[name] = dict(parent_ms=[t[0], t[3]], ms=t[1:3], library_ms=lib_ms,
+                              bound_ms=b_ms, bound_by=b_by)
+            log(f"  {name:28s} parent {t[0]:.4f}, this {t[1]:.4f}, {t[2]:.4f}, parent "
+                f"{t[3]:.4f} ms; bound {b_ms:.4f} ({b_by}): {b_ms / ms:.3f} of it, "
+                f"{statistics.median([t[0], t[3]]) / ms:.2f}x faster than the parent")
+            continue
         g = [graph_ms(old), graph_ms(this), graph_ms(this), graph_ms(old)]
         g_lib = graph_ms(lib) if lib else None
         b_ms, b_by = bound(nbytes, flops)
@@ -2209,8 +2359,7 @@ def k3_k5_turns(parent, u, b, lattice, vvl):
                              _all_bits("cg_update_masked"))}))
     del x4, r4, p4, ap4
     torch.cuda.empty_cache()
-    # K5: the parent reads the fp32 u (its policy instance rounds it at every
-    # load), this tree's policy instance the bf16 copy
+    # K5: the policy instances of both trees read the operator's bf16 copy of u
     u32 = u.data
     u16 = wk.bf16_pack_cuda(u32)
     p1, p4 = p[None], torch.stack([p, p.flip(0), p * 0.5, -p])
@@ -2223,13 +2372,13 @@ def k3_k5_turns(parent, u, b, lattice, vvl):
                                   (4 * 96 + 288 + 4 * 96) * V, 4 * NORMAL_FLOPS * V,
                                   _all_bits("wilson_normal_batched")),
         "wilson_normal_policy": (lambda: this.normal(p1, u16, lattice, vvl, policy=(True, True)),
-                                 lambda: parent.normal(p1, u32, lattice, vvl,
+                                 lambda: parent.normal(p1, u16, lattice, vvl,
                                                        policy=(True, True)),
                                  None, (96 + 144 + 48) * V, NORMAL_FLOPS * V,
                                  _all_bits("wilson_normal_policy")),
         "wilson_normal_batched_policy": (
             lambda: this.normal(p4, u16, lattice, vvl, policy=(True, True)),
-            lambda: parent.normal(p4, u32, lattice, vvl, policy=(True, True)), None,
+            lambda: parent.normal(p4, u16, lattice, vvl, policy=(True, True)), None,
             (4 * 96 + 144 + 4 * 48) * V, 4 * NORMAL_FLOPS * V,
             _all_bits("wilson_normal_batched_policy")),
     }
@@ -2278,6 +2427,99 @@ def k3_k5_turns(parent, u, b, lattice, vvl):
     log(f"Q3: a 1 GiB device copy {copy_ms:.4f} ms, "
         f"{rows['device_copy_1gib']['tb_per_s']:.3f} TB/s read + written")
     del src, dst
+    torch.cuda.empty_cache()
+    return rows
+
+
+# -- K9 and K10 in turns with the parent's design (Q4) --------------------------------
+
+class ParentK9K10:
+    """The parent's K9 (lb_tiled.cu: the halo'd window pulled through two
+    shared-memory slots) and K10 (rwkv6.cu: one block a head), built with its
+    own headers as a library of their own, launched with their own C
+    signatures outside the launch counts."""
+
+    K9_BLOCK = 512   # the parent's threads a K9 block
+
+    def __init__(self, path):
+        lib = ctypes.CDLL(str(path))
+        P, I, F = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
+        self.k9, self.k10 = lib.rt_lb_step_tiled, lib.rt_rwkv6_wkv
+        self.k9.argtypes = [P, P, P, P, I, I, I, I, I, I, F, F, F, F, I, P]
+        self.k10.argtypes = [P] * 8 + [I] * 5 + [P]
+        self.k9.restype = self.k10.restype = ctypes.c_int
+
+    @staticmethod
+    def _check(name, rc):
+        if rc:
+            raise RuntimeError(f"parent {name}: CUDA error {rc}")
+
+    def lb_step_tiled(self, dist, force, tau, lat, tile, with_u=True):
+        dist2 = torch.empty_like(dist)
+        u = torch.empty_like(force) if with_u else None
+        self._check("rt_lb_step_tiled", self.k9(
+            dist.data_ptr(), force.data_ptr(), dist2.data_ptr(), u.data_ptr() if with_u else None,
+            *lat, *tile, *k7.lb_params(float(tau)), self.K9_BLOCK,
+            torch.cuda.current_stream().cuda_stream))
+        return dist2, u
+
+    def wkv(self, r, k, v, w, u, s0, chunk):
+        BH, T, dk = r.shape
+        dv = v.shape[-1]
+        o = torch.empty((BH, T, dv), device=r.device)
+        sT = torch.empty((BH, dk, dv), device=r.device)
+        self._check("rt_rwkv6_wkv", self.k10(
+            r.data_ptr(), k.data_ptr(), v.data_ptr(), w.data_ptr(), u.data_ptr(), s0.data_ptr(),
+            o.data_ptr(), sT.data_ptr(), BH, T, chunk, dk, dv,
+            torch.cuda.current_stream().cuda_stream))
+        return o, sT
+
+
+def k9_turns(parent, state, cfg, tile):
+    """Q4 (after T1): K9 at T1's lattice and tile, both graphs, bitwise the
+    parent's design, in turns (a call at a time: the wrappers allocate)."""
+    lat, tau = cfg.lattice, cfg.tau
+    V = math.prod(lat)
+    dev = state.dist.data.device
+    gen = torch.Generator(device=dev).manual_seed(4)
+    dist = state.dist.data * (1.0 + 0.05 * torch.randn((19, V), generator=gen, device=dev))
+    force = 1e-3 * torch.randn((3, V), generator=gen, device=dev)
+    cases = {
+        "lb_step_tiled": (lambda: k8.lb_step_tiled_cuda(dist, force, tau, lat, tile),
+                          lambda: parent.lb_step_tiled(dist, force, tau, lat, tile), None,
+                          176 * V, FLOPS["lb_step"] * V, _all_bits("K9 lb_step")),
+        "lb_collide_propagate_tiled": (
+            lambda: k8.lb_step_tiled_cuda(dist, force, tau, lat, tile, with_u=False)[:1],
+            lambda: parent.lb_step_tiled(dist, force, tau, lat, tile, with_u=False)[:1], None,
+            164 * V, FLOPS["collide"] * V, _all_bits("K9 lb_collide_propagate")),
+    }
+    log(f"Q4: K9 at {lat}, tile {tile}, in turns with the parent's design:")
+    rows = redesign_turns(cases, graphs=False)
+    del dist, force, cases
+    torch.cuda.empty_cache()
+    return rows
+
+
+def k10_turns(parent):
+    """Q4 (after R1): K10 at R1's two full shapes (fp32 (BH, T, d)) within
+    the K10 tolerance of the parent's design, in turns."""
+    gen = torch.Generator(device="cuda").manual_seed(8)
+    H, d, C = 64, 64, 64
+    rows = {}
+    for name, (B, T) in (("rwkv6_wkv", (PREFILL_B, PREFILL_T)), ("rwkv6_wkv_long", WKV_LONG)):
+        BH = B * H
+        args = wkv_problem(gen, BH, T, d, d)
+
+        def check(old, new, shape=(B, H, T, d, d)):
+            for o_, n_, what in zip(old, new, ("o", "state")):
+                wkv_err(n_, o_, f"K10 {what} at {shape} against the parent's")
+
+        cases = {name: (lambda: k10.rwkv6_cuda(*args, chunk=C),
+                        lambda: parent.wkv(*args, C), None, *wkv_work(BH, T, C, d, d), check)}
+        log(f"Q4: K10 at (B, H, T, dk, dv) = {(B, H, T, d, d)} in turns with the parent's "
+            f"design:")
+        rows.update(redesign_turns(cases, graphs=False))
+        del args, cases
     torch.cuda.empty_cache()
     return rows
 
@@ -3291,10 +3533,16 @@ def main():
         "ludwig_ms_per_step": ygrid, "ludwig_step_timed_ms": ystages}}
 
     # T1. the tiled kernel at the budget's plan
-    trows, _ = check_tiled_kernel(state, lcfg, lcfg.target.vvl)
+    trows, tplan = check_tiled_kernel(state, lcfg, lcfg.target.vvl, ptxas["k10"])
+    # Q4. K9 in turns with the parent's design, where its tree is unpacked
+    parent_k9_k10 = (ParentK9K10(parent_libs["k9_k10"]) if "k9_k10" in parent_libs else None)
+    if parent_k9_k10:
+        turns.update(k9_turns(parent_k9_k10, state, lcfg, (tplan.bx, tplan.by, tplan.bz)))
+    else:
+        log(f"Q4: no parent tree under {PARENT_SRC}; the parent's K9 and K10 are not timed")
 
     # T2. the Ludwig step under the budget, counted
-    tcounts, txcounts, _ = run_tiled(state, after_steps, lcfg)
+    tcounts, txcounts, _ = run_tiled(state, after_steps, lcfg, l3_ms)
     log(f"max memory allocated over L1-T2: {torch.cuda.max_memory_allocated() / 2**30:.2f} GiB")
     del state, after_steps
     torch.cuda.empty_cache()
@@ -3303,14 +3551,19 @@ def main():
     ludwig_tiled_small(tuple(args.ludwig_small))
 
     # R1. K10 against its plain version and the scan oracle
-    log("R1: K10 (rwkv6_wkv):")
-    rrows = check_wkv_kernel()
+    log("R1: K10 (rwkv6_wkv: the state pass and the output pass):")
+    rrows, wkv_floors = check_wkv_kernel(ptxas["k10"])
+    # Q4. K10 in turns with the parent's design, beside the design's floor
+    if parent_k9_k10:
+        turns.update(k10_turns(parent_k9_k10))
+        for name, floor in wkv_floors.items():
+            turns[name]["design_floor_ms"] = floor
 
     # R2. the full-width prefill, counted
     rcfg, params, nbytes, rcounts, prefill_ms = rwkv_prefill()
-    wkv_ms = rcfg.n_layers * rrows["rwkv6_wkv"]["ms"]
-    log(f"R2: {rcfg.n_layers} K10 launches at R1's time: {wkv_ms:.3f} ms, "
-        f"{wkv_ms / prefill_ms:.3f} of the prefill")
+    wkv_ms = rcfg.n_layers * rrows["rwkv6_wkv"]["bf16_ms"]
+    log(f"R2: {rcfg.n_layers} K10 calls (state and output pass) at R1's bf16 time: "
+        f"{wkv_ms:.3f} ms, {wkv_ms / prefill_ms:.3f} of the prefill")
 
     # R3. serving
     rwkv_serve(rcfg, params, nbytes)
@@ -3319,7 +3572,7 @@ def main():
 
     # A1. K11 and K12 against their plain versions
     log("A1: K11 (flash_attention) and K12 (flash_attention_kvchunk):")
-    arows = check_flash_kernels(ptxas, parent_libs.get("flash"))
+    arows = check_flash_kernels(ptxas["flash"], parent_libs.get("flash"))
 
     # A2. the full-width prefills, counted
     dcfg, params, p32, nbytes, acounts, prefill_ms = dense_prefill()

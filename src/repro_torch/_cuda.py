@@ -86,7 +86,8 @@ SIGNATURES = {
                               *(_D,) * 5, _I, _P),
     "rt_ludwig_lc_update": (_P, _P, _P, _P, _P, _L, _F, _F, _F, _F, *(_D,) * 5, _I, _P),
     "rt_ludwig_fed": (_P, _P, _P, _L, _F, _F, _F, _F, _D, _D, _D, _I, _P),
-    "rt_rwkv6_wkv": (_P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _P),
+    "rt_rwkv6_state": (*(_P,) * 6, *(_I,) * 6, *(_L,) * 6, _I, _P),
+    "rt_rwkv6_output": (*(_P,) * 7, *(_I,) * 6, *(_L,) * 11, _I, _I, _P),
     "rt_flash": (_P, _P, _P, _P, _I, _I, _I, _I, _I, _I, *(_L,) * 12, _I, _I, _F, _P),
     "rt_flash_kvchunk": (_P, _P, _P, _P, _I, _I, _I, _I, _I, _I, *(_L,) * 12, _I, _I, _F, _I,
                          _P),

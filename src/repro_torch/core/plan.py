@@ -15,13 +15,12 @@ graphs, the tiles:
   bx, by, bz      the tiled stencil lowering: each tile is bx x-planes by
                   by y-rows by bz z-sites (0 = the whole axis); every further
                   lattice dim is whole.  A plan with by or bz set is *tiled*:
-                  the cuda engine runs the graph's tiled kernel, whose blocks
-                  copy each tile's halo'd window into shared memory.  A plan
-                  without them runs the untiled kernel, which ignores bx.
+                  the cuda engine runs the graph's tiled kernel, which walks
+                  the tiles in the reference's grid order.  A plan without
+                  them runs the untiled kernel, which ignores bx.
 
 Every layout (SoA, AoS, AoSoA) runs untiled.  A tiled plan takes SoA
-fields only: the tiled kernel copies each window row from device memory as
-a contiguous z-run, which only SoA gives (ROADMAP queue 2).
+fields only: the tiled kernel (K9) addresses SoA alone (ROADMAP queue 2).
 
 A batched launch (BatchedField inputs) plans per lattice: the slot is one
 more grid axis of the same kernel, so vvl and the tiles describe one batch
@@ -304,10 +303,11 @@ def estimate_smem_bytes(plan: "LoweringPlan", *, lattice: Sequence[int],
     Untiled plans stage every input whole (the halo'd lattice) plus one
     output slab.  Tiled plans hold two halo'd tile windows per input (the
     double-buffered copy slots) plus one output tile.  With no
-    ``out_views`` the tiled figure is the two window slots alone, which is
-    what a tiled cuda kernel allocates: its outputs go from registers to
-    device memory.  A plan with a storage :class:`DtypePolicy` is priced
-    at the storage itemsize, as the JAX package prices it."""
+    ``out_views`` the tiled figure is the two window slots alone, the
+    plan-time check of a tiled cuda launch (K9 itself holds no window and
+    no shared memory: ``csrc/lb_tiled.cu``).  A plan with a storage
+    :class:`DtypePolicy` is priced at the storage itemsize, as the JAX
+    package prices it."""
     bx = plan.bx or lattice[0]
     tiled = bool(plan.by or plan.bz)
     if plan.dtypes is not None and plan.dtypes.storage:

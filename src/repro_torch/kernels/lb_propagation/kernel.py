@@ -25,11 +25,12 @@ they are loaded, moments, collision and streaming in fp32, dist2 and u
 written in bf16.
 
 K9 replaces the same function's ``dma_kernel`` for both graphs under a
-tiled plan: persistent blocks copy each (bx, by, bz) tile's halo'd window
-of dist and force into one of two shared-memory slots with ``cp.async``
-while the previous tile computes, collide the whole window in place and
-pull-stream the interior.  Its plain version is ``core.fuse.tiled_plain``
-on the collide -> propagate graph, and its fields equal K5L's bitwise.
+tiled plan: it walks the sites tile by tile in the reference's grid order
+(:func:`tiled_walk`), collides each once and streams it by push, as K5L
+does, so no halo'd window is copied or collided; each thread loads its
+site's values straight into registers, with no shared memory.  Its plain
+version is ``core.fuse.tiled_plain`` on the collide -> propagate graph,
+and its fields equal K5L's bitwise.
 
 On a CPU tensor each wrapper returns its plain version; on a CUDA tensor it
 launches its kernel or raises.
@@ -42,7 +43,7 @@ from typing import Optional, Sequence, Tuple
 
 import torch
 
-from repro_torch._cuda import Kernel, check_field, check_tensor, smem_per_block_optin
+from repro_torch._cuda import Kernel, check_field, check_tensor
 from repro_torch.core.fuse import tiled_plain
 from repro_torch.core.layout import resolve_layouts
 from repro_torch.core.plan import tile_extents
@@ -51,14 +52,14 @@ from repro_torch.kernels.lb_collision.ref import moments
 from . import ref
 
 __all__ = ["propagate_cuda", "propagate_plain", "lb_step_cuda", "lb_step_plain",
-           "lb_step_tiled_cuda", "lb_step_tiled_plain", "tiled_smem_bytes",
-           "PROPAGATE", "LB_STEP", "LB_STEP_BF16", "LB_STEP_TILED"]
+           "lb_step_tiled_cuda", "lb_step_tiled_plain", "tiled_walk", "PROPAGATE", "LB_STEP",
+           "LB_STEP_BF16", "LB_STEP_TILED"]
 
 PROPAGATE = Kernel("lb_propagate", "rt_lb_propagate")
 LB_STEP = Kernel("lb_step", "rt_lb_step")
 LB_STEP_BF16 = Kernel("lb_step_bf16", "rt_lb_step_bf16")   # K5L's policy instance
 LB_STEP_TILED = Kernel("lb_step_tiled", "rt_lb_step_tiled")
-K9_BLOCK = 512   # threads a K9 block (at most RT_K9_MAX_THREADS in lb_tiled.cu)
+K9_BLOCK = 256   # threads a K9 block (at most RT_K9_MAX_THREADS in lb_tiled.cu)
 
 
 def _check_3d(lattice: Sequence[int]) -> Tuple[int, int, int]:
@@ -146,10 +147,22 @@ def lb_step_cuda(dist: torch.Tensor, force: torch.Tensor, tau: float, lattice,
     return dist2, u
 
 
-def tiled_smem_bytes(tile: Sequence[int]) -> int:
-    """K9's dynamic shared memory for a (bx, by, bz) tile: two slots of the
-    ring-1 window, 19 + 3 fp32 values a site."""
-    return 2 * 22 * math.prod(e + 2 for e in tile) * 4
+def tiled_walk(lattice, tile: Sequence[int]) -> torch.Tensor:
+    """The site (x * Y + y) * Z + z at each position g of K9's walk
+    (``rt_tile_site`` in lb_tiled.cu): tiles in the reference's grid order,
+    z-tile fastest, and in a tile x, y, then z fastest.  Position g is
+    computed by thread g % block of the block's unit g // block."""
+    lat = _check_3d(lattice)
+    bx, by, bz = tile_extents(lat, *tile)
+    X, Y, Z = lat
+    g = torch.arange(math.prod(lat), dtype=torch.int64)
+    t, l = g // (bx * by * bz), g % (bx * by * bz)
+    lz, l = l % bz, l // bz
+    ly, lx = l % by, l // by
+    nty, ntz = Y // by, Z // bz
+    tz, r = t % ntz, t // ntz
+    ty, tx = r % nty, r // nty
+    return ((tx * bx + lx) * Y + ty * by + ly) * Z + tz * bz + lz
 
 
 def lb_step_tiled_plain(dist: torch.Tensor, force: torch.Tensor, tau: float, lattice,
@@ -171,8 +184,7 @@ def lb_step_tiled_cuda(dist: torch.Tensor, force: torch.Tensor, tau: float, latt
                        ) -> Tuple[torch.Tensor, Optional[torch.Tensor]]:
     """K9: :func:`lb_step_cuda`'s outputs computed tile by tile, ``tile`` =
     (bx, by, bz) with 0 for a whole axis.  Raises when the tile does not
-    divide the lattice or its window slots exceed the device's shared
-    memory per block."""
+    divide the lattice."""
     lat = _check_3d(lattice)
     tile = tile_extents(lat, *tile)
     if any(e < 1 or s % e for s, e in zip(lat, tile)):
@@ -182,11 +194,6 @@ def lb_step_tiled_cuda(dist: torch.Tensor, force: torch.Tensor, tau: float, latt
     V = math.prod(lat)
     check_tensor("dist", dist, (19, V), dist.device)
     check_tensor("force", force, (3, V), dist.device)
-    smem, limit = tiled_smem_bytes(tile), smem_per_block_optin(dist.device)
-    if smem > limit:
-        raise ValueError(
-            f"K9: tile {tile} needs {smem} B of shared memory a block, over the "
-            f"{limit} B {torch.cuda.get_device_name(dist.device)} allows")
     dist2 = torch.empty_like(dist)
     u = torch.empty_like(force) if with_u else None
     LB_STEP_TILED.launch(dist.device, dist.data_ptr(), force.data_ptr(), dist2.data_ptr(),

@@ -2,8 +2,6 @@
 
 from __future__ import annotations
 
-import torch
-
 from repro_torch.core.target import require_cuda
 from . import kernel, ref
 
@@ -33,26 +31,16 @@ def rwkv6(r, k, v, w, u, s0=None, *, engine: str = "auto", chunk: int = 64):
         raise ValueError(f"unknown engine {engine!r}; have {ENGINES}")
     if engine == "auto":
         engine = "cuda" if r.device.type == "cuda" else "torch"
-    B, H, T, dk = r.shape
-    dv = v.shape[-1]
+    T, dk, dv = r.shape[2], r.shape[3], v.shape[-1]
     chunk = pick_chunk(chunk, T)
-    if s0 is None:
-        s0 = torch.zeros((B, H, dk, dv), dtype=torch.float32, device=r.device)
-
-    if engine == "scan":
-        o, sT = ref.rwkv6_scan_ref(r, k, v, w, u, s0)
-    elif engine == "torch":
-        o, sT = ref.rwkv6_chunked(r, k, v, w, u, s0, chunk=chunk)
-    else:
+    if engine == "cuda":
         kernel.check_limits(chunk, dk, dv)
         require_cuda("r", r)
-        BH = B * H
-        rr = lambda x, d: x.to(torch.float32, memory_format=torch.contiguous_format).reshape(BH, T, d)
-        ub = u.to(torch.float32).expand(B, H, dk).reshape(BH, dk)
-        o, sT = kernel.rwkv6_cuda(rr(r, dk), rr(k, dk), rr(v, dv), rr(w, dk), ub,
-                                  s0.to(torch.float32).reshape(BH, dk, dv), chunk=chunk)
-        o = o.reshape(B, H, T, dv)
-        sT = sT.reshape(B, H, dk, dv)
+        return kernel.rwkv6_heads_cuda(r, k, v, w, u, s0, chunk=chunk)
+    if engine == "scan":
+        o, sT = ref.rwkv6_scan_ref(r, k, v, w, u, s0)
+    else:
+        o, sT = ref.rwkv6_chunked(r, k, v, w, u, s0, chunk=chunk)
     return o.to(r.dtype), sT
 
 

@@ -75,6 +75,43 @@ def chunk_body(r, k, v, lw, u, s0):
     return o, s1
 
 
+def chunk_body_factored(r, k, v, lw, u, s0, *, sub: int = 16):
+    """chunk_body as K10's output and state passes compute it (csrc/rwkv6.cu),
+    in torch on a batch of heads: the same arguments and returns.
+
+    Lprev_t is L_{t-1} (L_{-1} = 0).  The chunk is cut into sub-chunks of
+    ``sub`` steps.  A's diagonal blocks keep the pairwise form with the
+    reference's clamp.  Left of them, for t in sub-chunk I and s in an
+    earlier one, the decay is factored about b = I * sub - 1 (the last step
+    of sub-chunk I - 1):
+    exp(Lprev_t - L_s) = exp(Lprev_t - L_b) exp(L_b - L_s), each exponent
+    clamped at 0, so A's rows of I left of the diagonal are one product of
+    r exp(Lprev - L_b) and (k exp(L_b - L))^T.  Both factors are at most 1
+    wherever w <= 1.  The kernel works in base 2 (log2, exp2), the same
+    function; here natural units, as chunk_body takes them.
+    """
+    N, C, dk = r.shape
+    Lc = torch.cumsum(lw, dim=1)
+    Lprev = torch.cat([torch.zeros_like(Lc[:, :1]), Lc[:, :-1]], dim=1)
+    inter = (r * torch.exp(Lprev)) @ s0
+    A = torch.zeros((N, C, C), dtype=r.dtype, device=r.device)
+    for i0 in range(0, C, sub):
+        i1 = min(i0 + sub, C)
+        expo = torch.clamp(Lprev[:, i0:i1, None, :] - Lc[:, None, i0:i1, :], max=0.0)
+        diag = torch.einsum("ntd,ntsd,nsd->nts", r[:, i0:i1], torch.exp(expo), k[:, i0:i1])
+        A[:, i0:i1, i0:i1] = torch.tril(diag, diagonal=-1)
+        if i0:
+            Lb = Lc[:, i0 - 1:i0]
+            rh = r[:, i0:i1] * torch.exp(torch.clamp(Lprev[:, i0:i1] - Lb, max=0.0))
+            kh = k[:, :i0] * torch.exp(torch.clamp(Lb - Lc[:, :i0], max=0.0))
+            A[:, i0:i1, :i0] = rh @ kh.transpose(1, 2)
+    bonus = torch.sum(r * u[:, None, :] * k, dim=2, keepdim=True) * v
+    o = inter + A @ v + bonus
+    kd = k * torch.exp(Lc[:, -1:, :] - Lc)
+    s1 = torch.exp(Lc[:, -1])[:, :, None] * s0 + kd.transpose(1, 2) @ v
+    return o, s1
+
+
 def rwkv6_chunked(r, k, v, w, u, s0=None, *, chunk: int = 64):
     """Block-parallel closed form (the torch engine, K10's plain version).
     Same signature and returns as rwkv6_scan_ref; T must be a multiple of

@@ -175,26 +175,30 @@ def test_cuda_engine_step_matches_torch_engine(card):
 # that wrap across lattice edges (a whole axis, an extent of 1, the last tile)
 K9_CASES = [((8, 8, 8), (1, 1, 2)), ((8, 8, 8), (4, 4, 8)), ((8, 8, 8), (8, 8, 8)),
             ((4, 14, 16), (2, 7, 4)), ((4, 14, 16), (1, 14, 16)), ((4, 14, 16), (4, 2, 1)),
-            ((16, 16, 32), (4, 4, 8)), ((16, 16, 32), (1, 4, 32)), ((16, 16, 32), (16, 1, 2))]
+            ((16, 16, 32), (4, 4, 8)), ((16, 16, 32), (1, 4, 32)), ((16, 16, 32), (16, 1, 2)),
+            ((6, 6, 12), (2, 3, 6))]   # bz 6: no multiple of 4
 
 
 @pytest.mark.cuda
 @pytest.mark.parametrize("lat,tile", K9_CASES, ids=str)
 def test_k9_tiled_lb_step(card, lat, tile, rng):
+    """Bitwise K5L, with and without u, at the default block and at blocks
+    of 64 threads, and within tolerance of the tile-by-tile plain version."""
     V = int(np.prod(lat))
     f = _dev(rng, (19, V), card, 0.1, 1.0)
     g = _dev(rng, (3, V), card, 0.01)
     launches = K8.LB_STEP_TILED.launches
-    dist2, u = K8.lb_step_tiled_cuda(f, g, 0.8, lat, tile)
     k5, k5u = K8.lb_step_cuda(f, g, 0.8, lat, 32)
-    # the same collision code as K5L, and streaming only moves its values
-    assert torch.equal(dist2, k5) and torch.equal(u, k5u)
-    only2, none = K8.lb_step_tiled_cuda(f, g, 0.8, lat, tile, with_u=False)
-    assert none is None and torch.equal(only2, k5)
-    assert K8.LB_STEP_TILED.launches - launches == 2
     want2, want_u = K8.lb_step_tiled_plain(f, g, 0.8, lat, tile)
-    _close_field(dist2, want2)
-    _close_field(u, want_u)
+    for block in (K8.K9_BLOCK, 64):
+        dist2, u = K8.lb_step_tiled_cuda(f, g, 0.8, lat, tile, block=block)
+        # the same collision code as K5L, and streaming only moves its values
+        assert torch.equal(dist2, k5) and torch.equal(u, k5u)
+        only2, none = K8.lb_step_tiled_cuda(f, g, 0.8, lat, tile, with_u=False, block=block)
+        assert none is None and torch.equal(only2, k5)
+        _close_field(dist2, want2)
+        _close_field(u, want_u)
+    assert K8.LB_STEP_TILED.launches - launches == 4
 
 
 @pytest.mark.cuda
@@ -223,7 +227,8 @@ WKV_RTOL, WKV_ATOL_REL = 1e-5, 2e-5
 # (B, H, T, dk, dv, chunk): rwkv6-7b's head and chunk, C < 64 with small
 # heads (T 100 runs chunks of 50), uneven dk / dv, odd sizes, chunks of 1
 K10_CASES = [(1, 2, 128, 64, 64, 64), (2, 3, 100, 16, 16, 50), (1, 2, 96, 24, 32, 32),
-             (2, 1, 64, 8, 8, 16), (1, 3, 21, 5, 3, 7), (1, 1, 9, 64, 64, 1)]
+             (2, 1, 64, 8, 8, 16), (1, 3, 21, 5, 3, 7), (1, 1, 9, 64, 64, 1),
+             (1, 4, 640, 64, 64, 64)]   # T / C = 10: the state pass carries over many chunks
 
 
 def _wkv_problem(rng, B, H, T, dk, dv, device):
@@ -246,10 +251,10 @@ def test_k10_wkv(card, B, H, T, dk, dv, chunk, rng):
     BH = B * H
     flat = [x.reshape(BH, T, -1) for x in (r, k, v, w)]
     ub = u.expand(B, H, dk).reshape(BH, dk)
-    launches = K10.WKV.launches
+    launches = (K10.WKV.launches, K10.WKV_STATE.launches)
     o, sT = K10.rwkv6_cuda(*flat, ub, s0.reshape(BH, dk, dv), chunk=chunk)
     torch.cuda.synchronize()
-    assert K10.WKV.launches - launches == 1
+    assert (K10.WKV.launches - launches[0], K10.WKV_STATE.launches - launches[1]) == (1, 1)
     o_p, s_p = K10.rwkv6_plain(*flat, ub, s0.reshape(BH, dk, dv), chunk=chunk)
     _close_wkv(o, o_p)
     _close_wkv(sT, s_p)
@@ -257,6 +262,94 @@ def test_k10_wkv(card, B, H, T, dk, dv, chunk, rng):
     o_s, s_s = wkv_ref.rwkv6_scan_ref(r, k, v, w, u, s0)
     torch.testing.assert_close(o.reshape(B, H, T, dv), o_s, rtol=1e-3, atol=1e-3)
     torch.testing.assert_close(sT.reshape(B, H, dk, dv), s_s, rtol=1e-3, atol=1e-3)
+
+
+def _chunked_f64(r, k, v, w, u, s0, chunk):
+    """ref.rwkv6_chunked's closed form in fp64 on (B, H, T, d) tensors:
+    the accurate value of the function K10 and its plain version compute."""
+    B, H, T, dk = r.shape
+    dv = v.shape[-1]
+    f64 = lambda x, d: x.double().reshape(B * H, -1, d)   # noqa: E731
+    r, k, v = f64(r, dk), f64(k, dk), f64(v, dv)
+    lw = torch.log(torch.clamp(w.double(), min=1e-26)).reshape(B * H, T, dk)
+    uh = u.double().expand(B, H, dk).reshape(B * H, dk)
+    S = s0.double().reshape(B * H, dk, dv)
+    outs = []
+    for c in range(0, T, chunk):
+        o, S = wkv_ref.chunk_body(r[:, c:c + chunk], k[:, c:c + chunk], v[:, c:c + chunk],
+                                  lw[:, c:c + chunk], uh, S)
+        outs.append(o)
+    return torch.cat(outs, 1).reshape(B, H, T, dv), S.reshape(B, H, dk, dv)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16], ids=str)
+def test_k10_heads_on_strided_views(card, dtype, rng):
+    """The model's operands: (B, H, T, d) views permuted from (B, T, H, d),
+    fp32 or bf16, read in place; o in their dtype in (B, T, H, dv) order.
+    fp32 within the K10 tolerance of the plain version, bf16 within one
+    bf16 ulp of it (plus the atol); sT within the tolerance."""
+    B, H, T, d = 2, 4, 256, 64
+    r, k, v, w, u, s0 = _wkv_problem(rng, B, H, T, d, d, card)
+    views = [x.to(dtype).permute(0, 2, 1, 3).contiguous().permute(0, 2, 1, 3)
+             for x in (r, k, v, w)]
+    launches = (K10.WKV.launches, K10.WKV_STATE.launches)
+    o, sT = K10.rwkv6_heads_cuda(*views, u, s0, chunk=64)
+    torch.cuda.synchronize()
+    assert (K10.WKV.launches - launches[0], K10.WKV_STATE.launches - launches[1]) == (1, 1)
+    assert o.dtype == dtype and o.permute(0, 2, 1, 3).is_contiguous()
+    o_p, s_p = wkv_ref.rwkv6_chunked(*views, u, s0, chunk=64)
+    _close_wkv(sT, s_p)
+    if dtype == torch.float32:
+        _close_wkv(o, o_p)
+    else:
+        torch.testing.assert_close(o.float(), o_p, rtol=2.0 ** -7,
+                                   atol=WKV_ATOL_REL * o_p.abs().max().item())
+    o0, _ = K10.rwkv6_heads_cuda(*views, u, None, chunk=64)   # s0 None: zeros
+    o0_p, _ = wkv_ref.rwkv6_chunked(*views, u, None, chunk=64)
+    torch.testing.assert_close(o0.float(), o0_p, rtol=2.0 ** -7,
+                               atol=WKV_ATOL_REL * o0_p.abs().max().item())
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("B,H,T,d,chunk", [(2, 4, 256, 64, 64), (1, 3, 100, 16, 50)], ids=str)
+def test_k10_bf16_instance_at_the_fp32_tolerance(card, B, H, T, d, chunk, rng):
+    """The output pass the model's prefill runs (bf16 views in, the bf16
+    instance) with o stored in fp32, so no bf16 rounding hides its
+    arithmetic: within the K10 tolerance of the plain version on the same
+    bf16 views."""
+    r, k, v, w, u, s0 = _wkv_problem(rng, B, H, T, d, d, card)
+    views = [x.to(torch.bfloat16).permute(0, 2, 1, 3).contiguous().permute(0, 2, 1, 3)
+             for x in (r, k, v, w)]
+    o = K10._heads_out(B, H, T, d, torch.float32, card)
+    launches = K10.WKV.launches
+    sT = K10._launch(*K10._operands(*views), u, 0, u.stride(0), s0, o, chunk)
+    torch.cuda.synchronize()
+    assert K10.WKV.launches - launches == 1
+    o_p, s_p = wkv_ref.rwkv6_chunked(*views, u, s0, chunk=chunk)
+    _close_wkv(o, o_p)
+    _close_wkv(sT, s_p)
+
+
+@pytest.mark.cuda
+def test_k10_at_the_clamp(card, rng):
+    """Decays at the clamp (w = 1e-26, |L| up to 3.8e3 a chunk): K10 within
+    the K10 tolerance of the closed form in fp64 and within 1e-3 of the scan
+    oracle.  The fp32 plain version loses the pairs s = t - 1 to
+    cancellation there (tests/test_torch_rwkv.py), so it is not the yardstick."""
+    B, H, T, d = 1, 4, 512, 64
+    r, k, v, w, u, s0 = _wkv_problem(rng, B, H, T, d, d, card)
+    w = torch.full_like(w, 1e-26)
+    BH = B * H
+    o, sT = K10.rwkv6_cuda(*(x.reshape(BH, T, -1) for x in (r, k, v, w)),
+                           u.expand(B, H, d).reshape(BH, d), s0.reshape(BH, d, d), chunk=64)
+    assert torch.isfinite(o).all() and torch.isfinite(sT).all()
+    o_x, s_x = _chunked_f64(r, k, v, w, u, s0, 64)
+    _close_wkv(o.reshape(B, H, T, d).double(), o_x)
+    _close_wkv(sT.reshape(B, H, d, d).double(), s_x)
+    o_s, s_s = wkv_ref.rwkv6_scan_ref(r, k, v, w, u, s0)
+    torch.testing.assert_close(o.reshape(B, H, T, d), o_s, rtol=1e-3, atol=1e-3)
+    torch.testing.assert_close(sT.reshape(B, H, d, d), s_s, rtol=1e-3, atol=1e-3)
 
 
 @pytest.mark.cuda
@@ -462,6 +555,28 @@ def _milc_inputs(rng, card):
     x, y, p, ap = (_dev(rng, (24, V), card) for _ in range(4))
     u = torch.from_numpy(fields.random_su3_gauge(MILC_LAT, seed=2).reshape(72, -1)).to(card)
     return V, x, y, p, ap, u
+
+
+@pytest.mark.cuda
+def test_wilson_normal_policy_same_bits_run_to_run(card):
+    """K5's policy instance, single and over 4 slots, at (64, 64, 64, 32)
+    (phase 3's lattice: 65,536 blocks): ap and pap bitwise equal over 8
+    runs on the same inputs.  A race between a block's warps or between
+    its slots' folds would show as a run that differs."""
+    from repro_torch.core.plan import CudaPolicy
+
+    lat = (64, 64, 64, 32)
+    V = int(np.prod(lat))
+    gen = torch.Generator(device=card).manual_seed(5)
+    p = torch.randn((24, V), generator=gen, device=card)
+    u16 = K.bf16_pack_cuda(0.3 * torch.randn((72, V), generator=gen, device=card))
+    p4 = torch.stack([p, p.flip(0), p * 0.5, -p])
+    pol = CudaPolicy(True, True)
+    for x, batched in ((p, False), (p4, True)):
+        first = K.wilson_normal_cuda(x, u16, 0.12, lat, 128, batched=batched, policy=pol)
+        for _ in range(8):
+            again = K.wilson_normal_cuda(x, u16, 0.12, lat, 128, batched=batched, policy=pol)
+            assert all(_bits(a, b) for a, b in zip(again, first))
 
 
 @pytest.mark.cuda

@@ -1,7 +1,9 @@
 """Port parity for the RWKV6 WKV op: the port's "torch" (chunked) and
 "scan" engines against the JAX package's "jnp", "scan" and "pallas"
 (interpret mode) engines on the same numpy inputs, the decode step, the
-chunk choice, K10's CPU wrapper and the refusals of the "cuda" engine."""
+chunk choice, K10's CPU wrappers and the refusals of the "cuda" engine;
+the torch emulation of K10's factored chunk (ref.chunk_body_factored)
+against the reference's chunk_body."""
 
 import functools
 
@@ -9,9 +11,11 @@ import pytest
 
 torch = pytest.importorskip("torch")
 
+import jax  # noqa: E402
 import jax.numpy as jnp  # noqa: E402
 import numpy as np  # noqa: E402
 
+from repro.kernels.rwkv6_scan import ref as j_ref  # noqa: E402
 from repro.kernels.rwkv6_scan import rwkv6 as j_rwkv6  # noqa: E402
 from repro.kernels.rwkv6_scan import rwkv6_decode_step as j_decode  # noqa: E402
 from repro_torch.kernels.rwkv6_scan import kernel as K10  # noqa: E402
@@ -171,3 +175,86 @@ def test_refusals(rng):
         K10.rwkv6_cuda(r4[0], k4[0], v4[0], w4[0], u4, s04[0], chunk=16)
     with pytest.raises(ValueError, match="must divide"):
         K10.rwkv6_cuda(r[0], k[0], v[0], w[0], u, s0[0], chunk=24)
+
+
+# K10's factored chunk against the reference's chunk_body, one chunk a head:
+# rwkv6-7b's C = dk = dv = 64, odd sizes (a partial sub-chunk, dk and dv
+# under a tile), and decays from the strong inputs of _problem, at the
+# kernel's clamp (1e-26: the log is -59.9 a step, so a factor taken about
+# a sub-chunk's start would reach e^958) and w = 1 exactly (L = 0).
+# At the clamp |L| reaches 3.8e3 in a chunk, where fp32's spacing is
+# 2.4e-4, and the reference's own chunk_body loses the pairs s = t - 1 to
+# the cancellation in Lprev_t - L_s = (L_t - log w_t) - L_{t-1}: it lies
+# 2.3e-3 from the same closed form in fp64 at C = 64 (max|o| 20.9), beyond
+# the tolerance, and the port's plain chunk_body 3.7e-3.  There the
+# factored chunk (Lprev_t = L_{t-1}, no cancellation) is held to the fp64
+# closed form within the tolerance, and to the reference within the
+# reference's own distance from it plus the tolerance.
+FACTORED_SHAPES = [(64, 64, 64), (7, 5, 3), (50, 16, 16)]
+
+
+@pytest.mark.parametrize("decay", ["strong", "clamp", "one"])
+@pytest.mark.parametrize("C,dk,dv", FACTORED_SHAPES, ids=str)
+def test_factored_chunk_matches_reference_chunk_body(C, dk, dv, decay, rng):
+    N = 3
+    r, k, v, w, u, s0 = _problem(rng, 1, N, C, dk, dv)
+    r, k, v, w, s0 = (x[0] for x in (r, k, v, w, s0))     # u is (N, dk) already
+    w = {"strong": w, "clamp": np.full_like(w, 1e-26), "one": np.ones_like(w)}[decay]
+    lw = np.log(np.maximum(w, np.float32(1e-26))).astype(np.float32)
+    args = (r, k, v, lw, u, s0)
+    got = ref.chunk_body_factored(*_t(*args))
+    assert all(torch.isfinite(x).all() for x in got)
+    want = jax.vmap(j_ref.chunk_body)(*(jnp.asarray(x) for x in args))
+    if decay != "clamp":
+        for g, w_ in zip(got, want):
+            _close(g, w_)
+        # the port's chunk_body, which the plain version runs, on the same inputs
+        for g, p_ in zip(got, ref.chunk_body(*_t(*args))):
+            _close(g, p_)
+        return
+    exact = ref.chunk_body(*(torch.from_numpy(x.astype(np.float64)) for x in args))
+    for g, w_, x in zip(got, want, exact):
+        g, w_, x = g.numpy(), np.asarray(w_), x.numpy()
+        _close(g, x)
+        tol = RTOL * np.abs(w_) + ATOL_REL * np.abs(w_).max()
+        assert (np.abs(g - w_) <= np.abs(w_ - x) + tol).all()
+
+
+def test_heads_wrapper_on_strided_bf16_views(rng):
+    """The "cuda" engine's wrapper on the model's operands, run here through
+    its plain version: bf16 (B, H, T, d) views permuted from (B, T, H, d)
+    give rwkv6_chunked's o cast to bf16, bitwise, in the (B, T, H, dv) order
+    the model merges its heads from; the kernels' operand handling keeps
+    such views as they are and makes mixed or scattered ones uniform."""
+    B, H, T, dk, dv = 2, 3, 40, 16, 8
+    prob = _problem(rng, B, H, T, dk, dv)
+
+    def view(x):   # (B, H, T, d) -> bf16 (B, T, H, d) contiguous -> permuted view
+        return torch.from_numpy(x).to(torch.bfloat16).permute(0, 2, 1, 3).contiguous() \
+            .permute(0, 2, 1, 3)
+
+    r, k, v, w = (view(x) for x in prob[:4])
+    u, s0 = _t(*prob[4:])
+    assert not r.is_contiguous()
+    before = (K10.WKV.launches, K10.WKV_STATE.launches)
+    o, sT = K10.rwkv6_heads_cuda(r, k, v, w, u, s0, chunk=8)
+    o_c, s_c = ref.rwkv6_chunked(r, k, v, w, u, s0, chunk=8)
+    assert o.dtype == torch.bfloat16 and torch.equal(o, o_c.to(torch.bfloat16))
+    assert torch.equal(sT, s_c)
+    assert o.permute(0, 2, 1, 3).is_contiguous()     # _unheads takes it without a copy
+    o_op, s_op = rwkv6(r, k, v, w, u, s0, engine="torch", chunk=8)
+    assert torch.equal(o, o_op) and torch.equal(sT, s_op)
+    o0, _ = K10.rwkv6_heads_cuda(r, k, v, w, u, chunk=8)
+    assert torch.equal(o0, ref.rwkv6_chunked(r, k, v, w, u, chunk=8)[0].to(torch.bfloat16))
+    assert (K10.WKV.launches, K10.WKV_STATE.launches) == before
+    # the operands as the kernels read them: the model's views unchanged
+    xs = K10._operands(r, k, v, w)
+    assert [x.data_ptr() for x in xs] == [x.data_ptr() for x in (r, k, v, w)]
+    assert all(x.dtype == torch.bfloat16 for x in xs)
+    # mixed dtypes: all fp32; r, k, w at different strides: contiguous copies
+    xs = K10._operands(r, k.float(), v, w)
+    assert all(x.dtype == torch.float32 for x in xs)
+    xs = K10._operands(r.contiguous(), k, v, w)
+    assert all(x.is_contiguous() for x in xs)
+    with pytest.raises(ValueError, match="shape"):
+        K10.rwkv6_heads_cuda(r, k, v, w[:, :, :8], u, s0, chunk=8)
