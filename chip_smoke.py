@@ -12,7 +12,8 @@ Phases (any failure raises and exits non-zero; nothing is caught):
 1. require a CUDA card; print its name and power limit (nvidia-smi);
 2. build the hand-written kernels (src/repro_torch/csrc, one nvcc call)
    while the host generates the problem (random SU(3) gauge field and
-   source at ``--lattice``, default (64, 64, 64, 32));
+   source at ``--lattice``, default (64, 64, 64, 32)); print K4's and
+   K5L's ptxas report (registers and spills, one line a kernel);
 3. hold every MILC kernel against its plain PyTorch version on the card at
    that lattice and time both (CUDA events, median of several runs); K2's
    sum and fold also bitwise their tree emulation (core/reduce.py's
@@ -37,10 +38,11 @@ Q3. (after Q1, where ``build/parent`` holds the parent's tree) the parent's
    4 slots (both on the operator's bf16 copy of u): every
    output (K3's fields and partial rows; K5's t, ap and partial rows)
    bitwise the parent's, timed in turns as Q1 (``torch.addcmul`` beside
-   cg_xpay), K5 beside its two-launch design floor; then K5 and K4 (in
-   turns) at (256, 32, 32, 32) and (1024, 16, 16, 32) on random fields,
-   shorter x-reuse distances, and a 1 GiB device copy; its rows join Q1's
-   in the JSON line;
+   cg_xpay), K5 beside its two-launch design floor; K4 in SoA, AoS,
+   aosoa4 and aosoa16, out bitwise the parent's, timed in turns; then K5
+   and K4 (in turns) at (256, 32, 32, 32) and (1024, 16, 16, 32) on random
+   fields, shorter x-reuse distances, and a 1 GiB device copy; its rows
+   join Q1's in the JSON line;
 4. with every launch count set to 0, solve M x = b on the "cuda" engine
    (kappa 0.12, hot 0.6, tol 1e-10, max_iter 2000), check
    |M x - b| / |b| < 1e-3 and that every kernel of the path launched;
@@ -115,6 +117,13 @@ P4. (after L5) with every count set to 0: 10 steps from the L1 state with
 L1. Ludwig ``init_state`` at ``--ludwig`` (default (256, 256, 256), the
    ludwig_small lattice of benchmarks/fig5_scaling.py) on the card;
 L2. every Ludwig kernel against its plain version there, timed as in 3;
+Q5. (after L2, where ``build/parent`` holds the parent's tree) the parent's
+   K5L (lb.cu with its own headers, a library of its own) against this
+   tree's, both launched through their C entry points on L2's dist and
+   force in SoA, AoS, aosoa4 and aosoa16: ludwig_lb_step,
+   lb_collide_propagate and the policy instance, dist2 and u bitwise the
+   parent's, timed in turns (parent, this, this, parent), a call at a
+   time; rows in the redesign JSON line;
 L3. with every launch count set to 0: ``diagnostics``, 10 ``step``s and one
    ``step_timed`` on the "cuda" engine, ``diagnostics`` again; check that
    every value is finite, the mass drifts by less than 1e-4 relative, the
@@ -1665,18 +1674,19 @@ def flash_toolchain():
     K5 (fused_flat.cu, dslash.cu, wilson_normal.cu and wilson_normal_mixed.cu)
     and its K9 and K10 (lb_tiled.cu, rwkv6.cu) as libraries of their own.
     Returns ({"flash": ptxas lines of the bf16 kernels, "k10": of K10's and
-    K9's kernels}, {"flash", "k1_k2", "k3_k5", "k9_k10": the parent
-    library's path} for those built)."""
+    K9's kernels, "k4_k5l": of K4's and K5L's}, {"flash", "k1_k2", "k3_k5",
+    "k9_k10", "k5l" (lb.cu): the parent library's path} for those built)."""
     nvcc = _cuda._nvcc()
     _cuda.BUILD_DIR.mkdir(parents=True, exist_ok=True)
     cmds = [[nvcc, *_cuda.COMPILE_FLAGS, "-Xptxas", "-v", "-cubin", "-o",
              str(_cuda.BUILD_DIR / f"{src}_ptxas.cubin"), str(_cuda.CSRC / f"{src}.cu")]
-            for src in ("flash", "rwkv6", "lb_tiled")]
+            for src in ("flash", "rwkv6", "lb_tiled", "dslash", "lb")]
     csrc = os.path.join(PARENT_SRC, "repro_torch", "csrc")
     libs = {}
     for tag, srcs in (("flash", ("flash.cu",)), ("k1_k2", ("site_local.cu", "reduce.cu")),
                       ("k3_k5", ("fused_flat.cu", "wilson_normal.cu", "wilson_normal_mixed.cu",
-                                 "dslash.cu")), ("k9_k10", ("lb_tiled.cu", "rwkv6.cu"))):
+                                 "dslash.cu")), ("k9_k10", ("lb_tiled.cu", "rwkv6.cu")),
+                      ("k5l", ("lb.cu",))):
         paths = [os.path.join(csrc, f) for f in srcs]
         if all(map(os.path.exists, paths)):
             libs[tag] = _cuda.BUILD_DIR / f"parent_{tag}.so"
@@ -1698,7 +1708,8 @@ def flash_toolchain():
         return lines
 
     return {"flash": report(outs[0], (FLASH_MMA,)),
-            "k10": report(outs[1], ("rwkv6_",)) + report(outs[2], ("lb_tiled",))}, libs
+            "k10": report(outs[1], ("rwkv6_",)) + report(outs[2], ("lb_tiled",)),
+            "k4_k5l": report(outs[3], ("dslash",)) + report(outs[4], ("lb_step",))}, libs
 
 
 def flash_sass(lib):
@@ -2291,9 +2302,11 @@ class K35:
                        ap.data_ptr(), parts.data_ptr(), KAPPA, *lattice, batch, d, d, d, vvl)
         return t, ap, parts
 
-    def dslash(self, psi, u, lattice, vvl):
+    def dslash(self, psi, u, lattice, vvl, lay=SOA):
+        """K4 on psi and u physical in ``lay``."""
         out = torch.empty_like(psi)
-        self._call("rt_dslash", psi.data_ptr(), u.data_ptr(), out.data_ptr(), *lattice, 0, 0, 0,
+        d = lay.descriptor()
+        self._call("rt_dslash", psi.data_ptr(), u.data_ptr(), out.data_ptr(), *lattice, d, d, d,
                    vvl)
         return out
 
@@ -2402,6 +2415,7 @@ def k3_k5_turns(parent, u, b, lattice, vvl):
         del pl, ul
         torch.cuda.empty_cache()
     del p, p1
+    rows.update(k4_turns(this, parent, u32, b, lattice, vvl))
     # the reuse distance: K5 and K4 (in turns) at Q3_REUSE_LATTICES, random fields
     for lat2 in Q3_REUSE_LATTICES:
         V2 = math.prod(lat2)
@@ -2431,48 +2445,137 @@ def k3_k5_turns(parent, u, b, lattice, vvl):
     return rows
 
 
+def k4_turns(this, parent, u, b, lattice, vvl):
+    """Q3: K4 at phase 3's lattice in SoA, AoS, aosoa4 and aosoa16, this
+    tree's design against the parent's: out bitwise the parent's, timed in
+    turns as Q1.  Returns the rows (dslash, dslash@<layout>)."""
+    rows = {}
+    V = b.nsites
+    for spec in ("soa", "aos", "aosoa4", "aosoa16"):
+        lay = parse_layout(spec)
+        pl, ul = lay.pack(b.data), lay.pack(u)
+        name = "dslash" if spec == "soa" else f"dslash@{spec}"
+        log(f"Q3: K4 at {tuple(lattice)} in {spec} in turns with the parent's design:")
+        rows.update(redesign_turns({name: (
+            lambda: this.dslash(pl, ul, lattice, vvl, lay),
+            lambda: parent.dslash(pl, ul, lattice, vvl, lay), None, 480 * V, 1320 * V,
+            _bits_check(name))}))
+        del pl, ul
+        torch.cuda.empty_cache()
+    return rows
+
+
+# -- K5L in turns with the parent's design (Q5) ------------------------------------------
+
+class LbStep:
+    """K5L's entry points of one library (this tree's, or the parent's
+    lb.cu built beside phase 2's build: the same C signatures), launched on
+    the caller's tensors outside the launch counts."""
+
+    def __init__(self, lib, label):
+        self.label, self.fn = label, {}
+        for name in ("rt_lb_step", "rt_lb_step_bf16"):
+            fn = getattr(lib, name)
+            fn.argtypes, fn.restype = list(_cuda.SIGNATURES[name]), ctypes.c_int
+            self.fn[name] = fn
+
+    def step(self, dist, force, tau, lat, vvl, lay, with_u=True, bf16=False):
+        """(dist2, u or None) physical in ``lay``; ``bf16``: the policy
+        instance."""
+        V, dt = math.prod(lat), torch.bfloat16 if bf16 else torch.float32
+        dist2 = torch.empty(lay.physical_shape(19, V), dtype=dt, device=dist.device)
+        u = torch.empty(lay.physical_shape(3, V), dtype=dt, device=dist.device) if with_u else None
+        d = lay.descriptor()
+        name = "rt_lb_step_bf16" if bf16 else "rt_lb_step"
+        rc = self.fn[name](dist.data_ptr(), force.data_ptr(), dist2.data_ptr(),
+                           u.data_ptr() if with_u else None, *lat, *k7.lb_params(float(tau)),
+                           d, d, d, d, vvl, torch.cuda.current_stream().cuda_stream)
+        if rc:
+            raise RuntimeError(f"{self.label} {name}: CUDA error {rc}")
+        return (dist2, u) if with_u else (dist2,)
+
+
+def k5l_turns(parent, state, cfg, vvl):
+    """Q5 (after L2): K5L (ludwig_lb_step, lb_collide_propagate and the
+    policy instance) at L2's lattice and inputs in SoA, AoS, aosoa4 and
+    aosoa16, this tree's against the parent's lb.cu: dist2 and u bitwise,
+    timed in turns (parent, this, this, parent), a call at a time.
+    Returns the rows (name@layout; SoA unsuffixed)."""
+    this = LbStep(_cuda.library(), "this")
+    lat, tau = cfg.lattice, cfg.tau
+    V = math.prod(lat)
+    inp = ludwig_inputs(state, vvl)
+    dist, force = inp["dist"], inp["force"]
+    del inp
+    rows = {}
+    for spec in ("soa", "aos", "aosoa4", "aosoa16"):
+        lay = parse_layout(spec)
+        d, f = lay.pack(dist), lay.pack(force)
+        tag = "" if spec == "soa" else f"@{spec}"
+        cases = {}
+        for name, with_u, bf16, nbytes, flops in (
+                ("lb_step", True, False, 176, FLOPS["lb_step"]),
+                ("lb_collide_propagate", False, False, 164, FLOPS["collide"]),
+                ("lb_step_policy", True, True, 132, FLOPS["lb_step"])):
+            kw = dict(with_u=with_u, bf16=bf16)
+            cases[name + tag] = (
+                lambda kw=kw: this.step(d, f, tau, lat, vvl, lay, **kw),
+                lambda kw=kw: parent.step(d, f, tau, lat, vvl, lay, **kw), None, nbytes * V,
+                flops * V, _all_bits(name + tag))
+        log(f"Q5: K5L at {tuple(lat)} in {spec} in turns with the parent's design:")
+        rows.update(redesign_turns(cases, graphs=False))
+        del d, f, cases
+        torch.cuda.empty_cache()
+    del dist, force
+    torch.cuda.empty_cache()
+    return rows
+
+
 # -- K9 and K10 in turns with the parent's design (Q4) --------------------------------
 
 class ParentK9K10:
-    """The parent's K9 (lb_tiled.cu: the halo'd window pulled through two
-    shared-memory slots) and K10 (rwkv6.cu: one block a head), built with its
-    own headers as a library of their own, launched with their own C
-    signatures outside the launch counts."""
-
-    K9_BLOCK = 512   # the parent's threads a K9 block
+    """The parent's K9 (lb_tiled.cu) and K10 (rwkv6.cu: the state pass and
+    the output pass), built with its own headers as a library of their own,
+    launched through this tree's C signatures outside the launch counts."""
 
     def __init__(self, path):
         lib = ctypes.CDLL(str(path))
-        P, I, F = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
-        self.k9, self.k10 = lib.rt_lb_step_tiled, lib.rt_rwkv6_wkv
-        self.k9.argtypes = [P, P, P, P, I, I, I, I, I, I, F, F, F, F, I, P]
-        self.k10.argtypes = [P] * 8 + [I] * 5 + [P]
-        self.k9.restype = self.k10.restype = ctypes.c_int
+        self.fn = {}
+        for name in ("rt_lb_step_tiled", "rt_rwkv6_state", "rt_rwkv6_output"):
+            fn = getattr(lib, name)
+            fn.argtypes, fn.restype = list(_cuda.SIGNATURES[name]), ctypes.c_int
+            self.fn[name] = fn
 
-    @staticmethod
-    def _check(name, rc):
+    def _call(self, name, *args):
+        rc = self.fn[name](*args, torch.cuda.current_stream().cuda_stream)
         if rc:
             raise RuntimeError(f"parent {name}: CUDA error {rc}")
 
     def lb_step_tiled(self, dist, force, tau, lat, tile, with_u=True):
         dist2 = torch.empty_like(dist)
         u = torch.empty_like(force) if with_u else None
-        self._check("rt_lb_step_tiled", self.k9(
-            dist.data_ptr(), force.data_ptr(), dist2.data_ptr(), u.data_ptr() if with_u else None,
-            *lat, *tile, *k7.lb_params(float(tau)), self.K9_BLOCK,
-            torch.cuda.current_stream().cuda_stream))
+        self._call("rt_lb_step_tiled", dist.data_ptr(), force.data_ptr(), dist2.data_ptr(),
+                   u.data_ptr() if with_u else None, *lat, *tile, *k7.lb_params(float(tau)),
+                   k8.K9_BLOCK)
         return dist2, u
 
     def wkv(self, r, k, v, w, u, s0, chunk):
+        """K10 on fp32 (BH, T, d) tensors, as ``k10.rwkv6_cuda`` launches
+        it: -> o (BH, T, dv), sT (BH, dk, dv)."""
         BH, T, dk = r.shape
         dv = v.shape[-1]
-        o = torch.empty((BH, T, dv), device=r.device)
-        sT = torch.empty((BH, dk, dv), device=r.device)
-        self._check("rt_rwkv6_wkv", self.k10(
-            r.data_ptr(), k.data_ptr(), v.data_ptr(), w.data_ptr(), u.data_ptr(), s0.data_ptr(),
-            o.data_ptr(), sT.data_ptr(), BH, T, chunk, dk, dv,
-            torch.cuda.current_stream().cuda_stream))
-        return o, sT
+        r, k, v, w = (x.float()[:, None].contiguous() for x in (r, k, v, w))
+        o = torch.empty((BH, 1, T, dv), device=r.device)
+        states = torch.empty((BH, T // chunk, dk, dv), device=r.device)
+        sT = torch.empty((BH, 1, dk, dv), device=r.device)
+        strides, vstrides = r.stride()[:3], v.stride()[:3]
+        self._call("rt_rwkv6_state", k.data_ptr(), v.data_ptr(), w.data_ptr(), s0.data_ptr(),
+                   states.data_ptr(), sT.data_ptr(), BH, 1, T, chunk, dk, dv, *strides,
+                   *vstrides, 0)
+        self._call("rt_rwkv6_output", r.data_ptr(), k.data_ptr(), v.data_ptr(), w.data_ptr(),
+                   u.data_ptr(), states.data_ptr(), o.data_ptr(), BH, 1, T, chunk, dk, dv,
+                   *strides, *vstrides, u.stride(0), 0, *o.stride()[:3], 0, 0)
+        return o[:, 0], sT[:, 0]
 
 
 def k9_turns(parent, state, cfg, tile):
@@ -3389,6 +3492,14 @@ def main():
     _cuda.library()
     log(f"build: {build_s:.1f} s ({lib.name}); problem {lattice} generated and "
         f"uploaded in {gen_s:.1f} s")
+    kern = spill = ""
+    for ln in ptxas["k4_k5l"]:   # one line a kernel: its name, registers and spills
+        if ln.startswith("Compiling entry"):
+            kern = ln.split("'")[1] if "'" in ln else ln
+        elif "spill" in ln:
+            spill = ln
+        elif ln.startswith("Used"):
+            log(f"ptxas {kern}: {ln}; {spill}")
 
     # 3. every kernel against its plain version
     log(f"kernels at {lattice}, vvl {vvl} (V = {math.prod(lattice)}):")
@@ -3489,6 +3600,12 @@ def main():
     # Q2. the Ludwig shapes in turns with the parent's K2
     if parent:
         turns.update(ludwig_turns(parent, state, lcfg.target.vvl))
+    # Q5. K5L in every layout in turns with the parent's lb.cu
+    if "k5l" in parent_libs:
+        turns.update(k5l_turns(LbStep(ctypes.CDLL(str(parent_libs["k5l"])), "parent"), state,
+                               lcfg, lcfg.target.vvl))
+    else:
+        log(f"Q5: no parent tree under {PARENT_SRC}; the parent's K5L is not timed")
 
     # L3. the Ludwig step, counted
     after_steps, last, lcounts, l3_ms = run_ludwig(state, lcfg)
@@ -3524,6 +3641,9 @@ def main():
     torch.cuda.empty_cache()
     # Y3. the Ludwig step in every layout x vvl, counted
     ygrid, ylcounts, yxcounts, ystages = ludwig_layouts(state, after_steps, lcfg)
+    log("Y3: step_timed's stages in aos beside soa (ms): " + ", ".join(
+        f"{k} {ystages['aos'][k]:.3f} vs {v:.3f} ({ystages['aos'][k] - v:+.3f})"
+        for k, v in ystages["soa"].items()))
     log(f"Y1-Y3: {time.perf_counter() - t0:.1f} s")
     layouts_line = {"layouts": {
         "card": smi,

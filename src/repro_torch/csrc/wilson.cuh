@@ -1,5 +1,5 @@
 // The Wilson hopping term at one site, shared by dslash.cu (K4) and
-// wilson_normal.cu (K5).
+// wilson_normal.cuh (K5, K5B).
 //
 //   D psi(x) = sum_mu [ (1 - gamma_mu) U_mu(x)        psi(x + mu)
 //                     + (1 + gamma_mu) U_mu^dag(x-mu) psi(x - mu) ]
@@ -16,8 +16,13 @@
 //
 // The neighbours are found by periodic index arithmetic, so neither the
 // 192-component neighbour pack nor the backward-link copy of the TPU path
-// (ops.py:53-54) is ever materialised: each thread reads its 8 neighbour
-// spinors and 4 backward links straight from psi and u.
+// (ops.py:53-54) is ever materialised.  rt_hop_mu, one direction of the
+// hop, takes its two links loaded and reads psi through loaders (ld(comp));
+// rt_wilson_hop runs it with loaders that read each thread's 8 neighbour
+// spinors and 4 backward links straight from psi and u through INDEX (K5,
+// K5B and K4's per-thread loads), and dslash.cu with its own (a warp's
+// staged runs in shared memory): the arithmetic, and so the bits, are the
+// same whatever loads the values.
 //
 // The RB template flags (RBP for psi, RBU for u; false unless a kernel
 // asks) round every value read to bf16 and widen it back in registers:
@@ -94,18 +99,18 @@ struct rt_wf {
   rt_layout L;
 };
 
-// Upper two spin rows of (1 -/+ gamma_mu) psi(site): h[s][color].
-template <int MU, bool PLUS, int K, bool RB, typename T, typename I>
-__device__ __forceinline__ void rt_project(const rt_wf<T>& psi, I V, I site, rt_cplx (&h)[2][3]) {
+// Upper two spin rows of (1 -/+ gamma_mu) psi: h[s][color], complex
+// component comp of psi read through ld(comp) (the loader: a field's
+// global loads here; K4's shared-memory tile in dslash.cu).
+template <int MU, bool PLUS, typename LD>
+__device__ __forceinline__ void rt_project(const LD& ld, rt_cplx (&h)[2][3]) {
   typedef rt_gamma<MU> G;
   const int a0 = PLUS ? rt_neg_unit(G::A0) : G::A0;
   const int a1 = PLUS ? rt_neg_unit(G::A1) : G::A1;
 #pragma unroll
   for (int c = 0; c < 3; ++c) {
-    h[0][c] = rt_cadd(rt_load_c<K, RB, T, I>(psi.p, psi.L, 24, 0 * 3 + c, V, site),
-                      rt_unit(rt_load_c<K, RB, T, I>(psi.p, psi.L, 24, G::J0 * 3 + c, V, site), a0));
-    h[1][c] = rt_cadd(rt_load_c<K, RB, T, I>(psi.p, psi.L, 24, 1 * 3 + c, V, site),
-                      rt_unit(rt_load_c<K, RB, T, I>(psi.p, psi.L, 24, G::J1 * 3 + c, V, site), a1));
+    h[0][c] = rt_cadd(ld(0 * 3 + c), rt_unit(ld(G::J0 * 3 + c), a0));
+    h[1][c] = rt_cadd(ld(1 * 3 + c), rt_unit(ld(G::J1 * 3 + c), a1));
   }
 }
 
@@ -160,29 +165,38 @@ __device__ __forceinline__ void rt_hop_acc(const rt_cplx (&uh)[2][3], const rt_c
   }
 }
 
+// acc += (1 - gamma_mu) mf psi(fwd) + (1 + gamma_mu) mb^dag psi(bwd), the
+// two links loaded, psi(fwd) and psi(bwd) read through the loaders lf, lb.
+template <int MU, typename LF, typename LB>
+__device__ __forceinline__ void rt_hop_mu(const rt_cplx (&mf)[3][3], const rt_cplx (&mb)[3][3],
+                                          const LF& lf, const LB& lb, rt_cplx (&acc)[4][3]) {
+  rt_cplx h[2][3], uh[2][3], hb[2][3], uhb[2][3];
+  rt_project<MU, false>(lf, h);
+  rt_su3_apply<false>(mf, h, uh);
+  rt_project<MU, true>(lb, hb);
+  rt_su3_apply<true>(mb, hb, uhb);
+  rt_hop_acc<rt_gamma<MU>>(uh, uhb, acc);
+}
+
 // acc[b] += (1 - gamma_mu) U_mu(site) psi[b](fwd) + (1 + gamma_mu) U_mu^dag(bwd) psi[b](bwd)
-// for nb <= SB spinors psi[b] of one layout (the slots of K5B; one for K4
-// and K5) against one u: the two links are loaded first, once for every
-// slot, and each slot's adds are in the same order whatever SB is.
+// for nb <= SB spinors psi[b] of one layout (the slots of K5B; one for K4's
+// general path and K5) against one u: the two links are loaded first, once
+// for every slot, and each slot's adds are in the same order whatever SB is.
 template <int MU, int KP, int KU, bool RBP, bool RBU, int SB, typename TP, typename TU,
           typename I>
 __device__ __forceinline__ void rt_hop_dir(const TP* const (&psi)[SB], const rt_layout& lp,
                                            const rt_wf<TU>& u, int nb, I V, I site, I fwd, I bwd,
                                            rt_cplx (&acc)[SB][4][3]) {
-  typedef rt_gamma<MU> G;
   rt_cplx mf[3][3], mb[3][3];
   rt_load_link<MU, KU, RBU>(u, V, site, mf);
   rt_load_link<MU, KU, RBU>(u, V, bwd, mb);
 #pragma unroll
   for (int b = 0; b < SB; ++b) {
     if (b >= nb) break;
-    const rt_wf<TP> pb{psi[b], lp};
-    rt_cplx h[2][3], uh[2][3], hb[2][3], uhb[2][3];
-    rt_project<MU, false, KP, RBP>(pb, V, fwd, h);
-    rt_su3_apply<false>(mf, h, uh);
-    rt_project<MU, true, KP, RBP>(pb, V, bwd, hb);
-    rt_su3_apply<true>(mb, hb, uhb);
-    rt_hop_acc<G>(uh, uhb, acc[b]);
+    const TP* const pb = psi[b];
+    rt_hop_mu<MU>(
+        mf, mb, [&](int comp) { return rt_load_c<KP, RBP, TP, I>(pb, lp, 24, comp, V, fwd); },
+        [&](int comp) { return rt_load_c<KP, RBP, TP, I>(pb, lp, 24, comp, V, bwd); }, acc[b]);
   }
 }
 

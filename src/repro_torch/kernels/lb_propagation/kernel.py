@@ -19,6 +19,14 @@ without u, for ``lb_collide_propagate``.  It streams by push: each site's
 thread collides in registers and writes its post-collision values to the
 neighbours, so the post-collision distributions never reach device memory.
 
+K5L's blocks each take a chunk of vvl consecutive sites.  Where every
+tensor shares one layout, the chunk's dist and force lie in contiguous runs
+(in AoSoA where the SAL divides vvl), which the block moves into shared
+memory as 16-byte vectors before each thread reads its site's 22 values
+there (:func:`lb_step_stages`, :func:`lb_stage_copy`, :func:`lb_stage_read`
+mirror it); every other launch loads site by site.  Offsets are 32-bit where
+19 V < 2^31.  The stores are the push, from registers (:func:`lb_push_sites`).
+
 K5L's policy instance (``bf16=True``, ``rt_lb_step_bf16``) is the same
 kernel under a bf16-storage DtypePolicy: dist and force rounded to bf16 as
 they are loaded, moments, collision and streaming in fp32, dist2 and u
@@ -43,15 +51,17 @@ from typing import Optional, Sequence, Tuple
 
 import torch
 
-from repro_torch._cuda import Kernel, check_field, check_tensor
+from repro_torch._cuda import Kernel, check_field, check_tensor, csrc_define
 from repro_torch.core.fuse import tiled_plain
-from repro_torch.core.layout import resolve_layouts
+from repro_torch.core.layout import Layout, LayoutKind, resolve_layouts
 from repro_torch.core.plan import tile_extents
+from repro_torch.maths import d3q19
 from repro_torch.kernels.lb_collision.kernel import collide_plain, lb_params
 from repro_torch.kernels.lb_collision.ref import moments
 from . import ref
 
 __all__ = ["propagate_cuda", "propagate_plain", "lb_step_cuda", "lb_step_plain",
+           "lb_step_stages", "lb_stage_copy", "lb_stage_read", "lb_push_sites", "LB_MAX_VVL",
            "lb_step_tiled_cuda", "lb_step_tiled_plain", "tiled_walk", "PROPAGATE", "LB_STEP",
            "LB_STEP_BF16", "LB_STEP_TILED"]
 
@@ -60,6 +70,52 @@ LB_STEP = Kernel("lb_step", "rt_lb_step")
 LB_STEP_BF16 = Kernel("lb_step_bf16", "rt_lb_step_bf16")   # K5L's policy instance
 LB_STEP_TILED = Kernel("lb_step_tiled", "rt_lb_step_tiled")
 K9_BLOCK = 256   # threads a K9 block (at most RT_K9_MAX_THREADS in lb_tiled.cu)
+
+
+# K5L's staged loads: the most sites a chunk (lb.cu)
+LB_MAX_VVL = csrc_define("lb.cu", "RT_LB_MAX_VVL")
+
+
+def lb_step_stages(nsites: int, vvl: int, layout: Layout) -> bool:
+    """Whether K5L stages the loads of a launch over ``nsites`` sites in
+    chunks of ``vvl`` with every tensor in ``layout`` (``rt_lb_stages`` of
+    ``csrc/lb.cu``, the fields' alignment aside)."""
+    if vvl % 4 or vvl > LB_MAX_VVL or 19 * nsites >= 2 ** 31:
+        return False
+    if layout.kind is LayoutKind.SOA:
+        return nsites % 4 == 0
+    if layout.kind is LayoutKind.AOSOA:
+        return vvl % layout.sal == 0 and layout.sal & (layout.sal - 1) == 0
+    return True
+
+
+def lb_stage_copy(layout: Layout, ncomp: int, vvl: int, s0: int, nsites: int) -> torch.Tensor:
+    """The device offset of each of the ncomp vvl values K5L stages for the
+    chunk starting at site s0, in their staged order (``rt_lb_vec_at``:
+    float4 e holds staged values [4 e, 4 e + 4)): in SoA, component c's run
+    of vvl floats, c = e / (vvl / 4); else the chunk's one run."""
+    j = torch.arange(ncomp * vvl, dtype=torch.int64)
+    if layout.kind is LayoutKind.SOA:
+        c = (j // 4) // (vvl // 4)
+        return c * nsites + s0 + (j - c * vvl)
+    return ncomp * s0 + j
+
+
+def lb_stage_read(layout: Layout, ncomp: int, vvl: int) -> torch.Tensor:
+    """The staged offset (ncomp, vvl) from which the thread of chunk site l
+    reads component c: INDEX(c, l) of the layout over vvl sites."""
+    c = torch.arange(ncomp, dtype=torch.int64)[:, None]
+    return layout.flat_index(c, torch.arange(vvl, dtype=torch.int64)[None, :], ncomp, vvl)
+
+
+def lb_push_sites(lattice, sites: torch.Tensor) -> torch.Tensor:
+    """The destination of each velocity pushed from each of ``sites``:
+    (19, n) sites s + c_i on the periodic lattice (K5L's stores)."""
+    X, Y, Z = _check_3d(lattice)
+    cv = torch.from_numpy(d3q19.CV.astype("int64"))
+    z, y, x = sites % Z, (sites // Z) % Y, sites // (Y * Z)
+    return ((((x[None] + cv[:, :1]) % X) * Y + (y[None] + cv[:, 1:2]) % Y) * Z
+            + (z[None] + cv[:, 2:]) % Z)
 
 
 def _check_3d(lattice: Sequence[int]) -> Tuple[int, int, int]:

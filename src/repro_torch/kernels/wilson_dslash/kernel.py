@@ -13,18 +13,22 @@ output takes the first input's layout) and returns physical tensors.  Both are b
 compulsory bytes a site); see the sources for what each design leaves on
 the table.
 
-K5's blocks each compute a chunk of vvl consecutive sites and run in a brick
-order with short reuse distances (``csrc/wilson_normal.cuh``);
-:func:`block_chunks` mirrors that order.  K5 addresses a field with 32-bit
-offsets where its gauge field has fewer than 2^31 values (72 V), and with
-64-bit ones, one slot a thread, on a larger lattice.
+K4 and K5 run their blocks, each a chunk of vvl consecutive sites (the
+plan's vvl is the block's thread count), in a brick order with short reuse
+distances (``csrc/wilson_normal.cuh``; K4 in every layout, K5 linear under
+AoS); :func:`block_chunks` mirrors that order.  Both address a field with
+32-bit offsets where its gauge field has fewer than 2^31 values (72 V), and
+with 64-bit ones above.  In AoS and in AoSoA with a SAL of 2 to 16, where T
+is 32 and vvl at most 128, each warp of K4 copies its neighbours' records
+into shared memory as 16-byte pieces, reading whole 32-byte sectors.
 
 K5B, the batch instance (``batched=True``), runs K5's two kernels with a
 thread computing its site for a group of up to NORMAL_SLOTS slots (the
 policy instance: NORMAL_SLOTS_POLICY), each link loaded once for the group:
 p and ap are ``batch`` stacked spinors, u is one gauge field shared by every
 slot, pap is (batch, 24), and each slot's ap and pap are bitwise the single
-launch's on that slot.
+launch's on that slot.  On a lattice with 72 V >= 2^31 K5B computes one
+slot a thread.
 
 K5's policy instance (``policy=``, a ``core.plan.CudaPolicy``;
 ``csrc/wilson_normal_mixed.cu``), single and batched: under bf16 storage u
@@ -54,7 +58,8 @@ from . import ref
 
 __all__ = ["dslash_cuda", "dslash_plain", "wilson_normal_cuda",
            "wilson_normal_plain", "bf16_round", "bf16_round_cuda", "bf16_pack_cuda",
-           "block_chunks", "BRICK_X", "NORMAL_SLOTS", "NORMAL_SLOTS_POLICY", "DSLASH", "WILSON_NORMAL_T",
+           "block_chunks", "BRICK_X", "NORMAL_SLOTS", "NORMAL_SLOTS_POLICY", "DSLASH",
+           "WILSON_NORMAL_T",
            "WILSON_NORMAL_AP", "WILSON_NORMAL_T_B", "WILSON_NORMAL_AP_B",
            "WILSON_NORMAL_T_MIXED", "WILSON_NORMAL_AP_MIXED", "BF16_ROUND", "BF16_PACK"]
 
@@ -116,8 +121,9 @@ def block_chunks(lattice, vvl: int, batch: int = 1, aos: bool = False,
     a thread (NORMAL_SLOTS; NORMAL_SLOTS_POLICY for the policy instance),
     the slot group (slots [slots group, slots (group + 1)); one group for a
     single slot) and the chunk (the vvl consecutive sites [chunk vvl,
-    (chunk + 1) vvl)) it computes, as two int64 tensors; ``aos``: a launch
-    in AoS (linear chunks)."""
+    (chunk + 1) vvl)) it computes, as two int64 tensors; ``aos``: a K5
+    launch in AoS (linear chunks).  K4's launches take the order of
+    ``batch`` 1 in every layout."""
     X, Y, Z, T = _check_4d(lattice)
     nchunks = -(-X * Y * Z * T // vvl)
     groups = -(-batch // slots) if batch > 1 else 1
@@ -165,7 +171,8 @@ def dslash_plain(psi: torch.Tensor, u: torch.Tensor, lattice, layouts=None) -> t
 def dslash_cuda(psi: torch.Tensor, u: torch.Tensor, lattice, vvl: int = 128, *,
                 layouts=None) -> torch.Tensor:
     """K4: D psi of a 24-component psi and a 72-component u on a periodic
-    lattice; ``layouts`` names "psi", "u", "out"."""
+    lattice; ``layouts`` names "psi", "u", "out"; ``vvl``: the sites of a
+    block."""
     if psi.device.type == "cpu":
         return dslash_plain(psi, u, lattice, layouts)
     lat = _check_4d(lattice)

@@ -1,11 +1,20 @@
-"""K5's block order (``csrc/wilson_normal.cuh::rt_order_chunk``, mirrored by
-``kernels/wilson_dslash/kernel.py::block_chunks``), on the CPU.
+"""The kernels' walks over the lattice, mirrored in Python, on the CPU.
 
-The card runs each block on one chunk of vvl consecutive sites and writes
-its partial row at the chunk's index, so the order is right when it is a
-bijection from the linear block indices onto the (slot, chunk) pairs; the
-card tests hold the kernels' fields and sums to the plain version and each
-slot bitwise to its one-slot launch."""
+K5's block order (``csrc/wilson_normal.cuh::rt_order_chunk``, mirrored by
+``kernels/wilson_dslash/kernel.py::block_chunks``): the card runs each block
+on one chunk of vvl consecutive sites and writes its partial row at the
+chunk's index, so the order is right when it is a bijection from the linear
+block indices onto the (slot, chunk) pairs; the card tests hold the kernels'
+fields and sums to the plain version and each slot bitwise to its one-slot
+launch.
+
+K4 (``csrc/dslash.cu``) runs its chunks in the same order in every layout
+(``block_chunks`` with one slot): every site computed exactly once, and
+every neighbour a site reads computed by a block at most a brick's reuse
+distance away.  K5L's staged loads and its push (``csrc/lb.cu``,
+mirrored by ``lb_stage_copy``, ``lb_stage_read`` and ``lb_push_sites``):
+each site's values read from the staged offset that holds them, and every
+(destination, velocity) written exactly once."""
 
 import math
 
@@ -13,6 +22,8 @@ import pytest
 
 torch = pytest.importorskip("torch")
 
+from repro_torch.core import parse_layout  # noqa: E402
+from repro_torch.kernels.lb_propagation import kernel as K8  # noqa: E402
 from repro_torch.kernels.wilson_dslash import kernel as K  # noqa: E402
 
 # the records' lattices (milc_small, the smoke's --small, the reuse-distance
@@ -89,3 +100,106 @@ def test_linear_order_where_vvl_does_not_divide_a_plane():
     group, chunk = K.block_chunks((20, 4, 4, 8), 32, 2 * K.NORMAL_SLOTS, aos=True)
     assert chunk.tolist() == [c for c in range(80) for _ in range(2)]
     assert group.tolist() == [0, 1] * 80
+
+
+# -- K4's block order ----------------------------------------------------------------
+
+# milc_small, a T < 32 lattice past a brick in x (20, 2, 4, 4), thin bricks
+# (6, 10, 4, 12), (2, 4, 4, 8), and (8, 8, 8, 8)
+K4_LATTICES = [(64, 64, 64, 32), (8, 8, 8, 8), (6, 10, 4, 12), (20, 2, 4, 4), (2, 4, 4, 8)]
+
+
+def _coords(lattice, site):
+    X, Y, Z, T = lattice
+    return site // (Y * Z * T), (site // (Z * T)) % Y, (site // T) % Z, site % T
+
+
+def _site(lattice, x, y, z, t):
+    X, Y, Z, T = lattice
+    return ((x % X * Y + y % Y) * Z + z % Z) * T + t % T
+
+
+@pytest.mark.parametrize("vvl", [32, 96, 128])
+@pytest.mark.parametrize("lattice", K4_LATTICES, ids=lambda t: "x".join(map(str, t)))
+def test_dslash_blocks_compute_every_site_once(lattice, vvl):
+    """K4's blocks (one slot, the brick order where vvl divides Y Z T, else
+    linear) compute each site of the lattice exactly once: block i's
+    threads take sites chunk(i) vvl + l, those past V idle."""
+    V = math.prod(lattice)
+    _, chunk = K.block_chunks(lattice, vvl)
+    sites = (chunk[:, None] * vvl + torch.arange(vvl)).reshape(-1)
+    sites = sites[sites < V]
+    assert sites.numel() == V
+    assert torch.equal(torch.sort(sites).values, torch.arange(V))
+
+
+def test_dslash_neighbours_within_the_reuse_distance():
+    """At (64, 64, 64, 32), vvl 128: every neighbour a site reads is
+    computed by a block at most BRICK_X x Z T / vvl = 256 blocks away (~16
+    MB of K4's 480 compulsory bytes a site, within the 50 MB L2), except an
+    x-neighbour across a brick's face (2 of BRICK_X x-planes) and a
+    y-neighbour across the periodic wrap (2 of Y y-rows)."""
+    lat, vvl = (64, 64, 64, 32), 128
+    V = math.prod(lat)
+    _, chunk = K.block_chunks(lat, vvl)
+    pos = torch.empty_like(chunk)
+    pos[chunk] = torch.arange(chunk.numel())        # block position of each chunk
+    site = torch.arange(V)
+    x, y, z, t = _coords(lat, site)
+    far = {}
+    for mu in range(4):
+        for sgn in (1, -1):
+            step = [0, 0, 0, 0]
+            step[mu] = sgn
+            n = _site(lat, x + step[0], y + step[1], z + step[2], t + step[3])
+            dist = (pos[n // vvl] - pos[site // vvl]).abs()
+            far[mu] = far.get(mu, 0) + int((dist > 256).sum())
+    assert 256 * vvl * 480 < 50e6
+    assert far == {0: 2 * V // K.BRICK_X, 1: 2 * V // lat[1], 2: 0, 3: 0}
+
+
+# -- K5L's staged loads and its push --------------------------------------------------
+
+STAGE_LAYOUTS = ["soa", "aos", "aosoa4", "aosoa16"]
+
+
+@pytest.mark.parametrize("lattice", [(256, 256, 256), (8, 8, 8)], ids=["256", "8"])
+@pytest.mark.parametrize("vvl", [32, 64, 128, 256])
+@pytest.mark.parametrize("spec", STAGE_LAYOUTS)
+def test_lb_stage_reads_each_sites_values(lattice, vvl, spec):
+    """A chunk's staged copy (its float4s from the device offsets
+    lb_stage_copy gives) holds, at the offset a thread reads (lb_stage_read),
+    INDEX(c, s0 + l) of the layout for every component of dist (19) and
+    force (3): every chunk at (8, 8, 8), the first, a middle and the last
+    full one at (256, 256, 256)."""
+    lay = parse_layout(spec)
+    V = math.prod(lattice)
+    assert K8.lb_step_stages(V, vvl, lay)
+    full = V // vvl
+    chunks = range(full) if V <= 4096 else (0, full // 2 + 3, full - 1)
+    for ncomp in (19, 3):
+        read = K8.lb_stage_read(lay, ncomp, vvl)
+        c = torch.arange(ncomp)[:, None]
+        for q in chunks:
+            s0 = q * vvl
+            staged = K8.lb_stage_copy(lay, ncomp, vvl, s0, V)
+            assert bool((staged.view(-1, 4)[:, 0] % 4 == 0).all())   # 16-byte aligned float4s
+            assert torch.equal(staged.view(-1, 4) - staged.view(-1, 4)[:, :1],
+                               torch.arange(4).expand(ncomp * vvl // 4, 4))
+            want = lay.flat_index(c, s0 + torch.arange(vvl)[None, :], ncomp, V)
+            assert torch.equal(staged[read], want), (ncomp, q)
+
+
+@pytest.mark.parametrize("lattice", [(256, 256, 256), (8, 8, 8), (3, 5, 7)],
+                         ids=["256", "8", "3x5x7"])
+def test_lb_push_writes_every_destination_once(lattice):
+    """K5L's push: for each velocity the V destinations s + c_i of all
+    sites cover every site (so each once), so every (destination, velocity)
+    of dist2 is written exactly once."""
+    V = math.prod(lattice)
+    block = 1 << 20
+    seen = torch.zeros((19, V), dtype=torch.bool)
+    for s0 in range(0, V, block):
+        dst = K8.lb_push_sites(lattice, torch.arange(s0, min(V, s0 + block)))
+        seen.scatter_(1, dst, True)
+    assert bool(seen.all())

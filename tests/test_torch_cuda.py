@@ -1560,3 +1560,98 @@ def test_wilson_normal_wide_lattice(card, rng):
     assert _bits(papb[0], one[1])
     del apb, papb, one, pb, pw, uw16
     torch.cuda.empty_cache()
+
+# -- K4's block order and AoS loads; K5L's staged loads -------------------------------
+
+DSLASH_LATTICES = [(4, 6, 8, 32), (6, 10, 4, 12), (2, 4, 4, 8), (20, 2, 4, 4), (6, 10, 6, 12),
+                   (3, 5, 7, 6)]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("lat", DSLASH_LATTICES, ids=lambda t: "x".join(map(str, t)))
+def test_dslash_in_every_layout_equals_soa(card, lat, rng):
+    """K4 in its brick order (thin last bricks at X = 6, 20, 3; linear where
+    vvl does not divide Y Z T) within tolerance of the plain version and
+    bitwise the same at vvl 32, 64, 96 and 128; in aos and aosoa2, 4, 8, 16
+    (warp-staged runs where T is 32 and vvl at most 128, else loads through
+    INDEX a thread), in aos with psi one float off 16-byte alignment, in
+    aosoa6 and in mixed layouts bitwise the SoA launch."""
+    V = int(np.prod(lat))
+    u = torch.from_numpy(fields.random_su3_gauge(lat, seed=3).reshape(72, -1)).to(card)
+    psi = _dev(rng, (24, V), card)
+    want = K.dslash_cuda(psi, u, lat, 32)
+    _close_field(want, K.dslash_plain(psi, u, lat))
+    for vvl in (64, 96, 128):
+        assert _bits(K.dslash_cuda(psi, u, lat, vvl), want), vvl
+    for spec in ("aos", "aosoa2", "aosoa4", "aosoa8", "aosoa16", "aosoa6"):
+        lay = parse_layout(spec)
+        if V % lay.sal:
+            continue
+        pl, ul = lay.pack(psi), lay.pack(u)
+        for vvl in (32, 128, 256):
+            _same(K.dslash_cuda(pl, ul, lat, vvl, layouts={"psi": lay, "u": lay}), lay, want,
+                  f"dslash ({spec}, vvl {vvl})")
+    aos = parse_layout("aos")
+    buf = torch.empty(24 * V + 1, device=card)
+    off = buf[1:].view(V, 24)      # 4 bytes past a 16-byte boundary
+    off.copy_(aos.pack(psi))
+    _same(K.dslash_cuda(off, aos.pack(u), lat, 32, layouts={"psi": aos, "u": aos}), aos, want,
+          "dslash (aos, misaligned psi)")
+    a8 = parse_layout("aosoa8")
+    if V % 8 == 0:
+        L = {"psi": aos, "u": SOA, "out": a8}
+        _same(K.dslash_cuda(aos.pack(psi), u, lat, 32, layouts=L), a8, want, "dslash mixed")
+
+
+@pytest.mark.cuda
+def test_dslash_wide_lattice(card, rng):
+    """K4 on a lattice with 72 V >= 2^31 (its 64-bit instantiation): psi and
+    u repeat with period 4 in x, so D psi is bitwise the repeat of the
+    32-bit launch on the (4, 64, 64, 32) lattice they repeat; X = 228 is not
+    a multiple of the brick."""
+    small, reps = (4, 64, 64, 32), 57
+    lat = (small[0] * reps,) + small[1:]
+    assert 72 * int(np.prod(lat)) >= 2 ** 31 > 72 * int(np.prod(small))
+    V = int(np.prod(small))
+    u = _dev(rng, (72, V), card) * 0.2     # bitwise checks need no SU(3) field
+    psi = _dev(rng, (24, V), card)
+    want = K.dslash_cuda(psi, u, small, 128)
+    _close_field(want, K.dslash_plain(psi, u, small))
+    uw, pw = u.repeat(1, reps), psi.repeat(1, reps)
+    got = K.dslash_cuda(pw, uw, lat, 128)
+    assert _bits(got, want.repeat(1, reps))
+
+
+LB_STAGE_LAT = (8, 6, 10)   # 480 sites: a partial last chunk at vvl 64, 128 and 256
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("spec", ["aos", "aosoa4", "aosoa8", "aosoa16", "aosoa32", "aosoa6"])
+def test_lb_step_staged_loads_equal_soa(card, spec, rng):
+    """K5L (ludwig_lb_step, lb_collide_propagate and the policy instance) at
+    vvl 32, 64, 128 and 256 in each layout bitwise its SoA launch at vvl
+    128 (staged chunks, site-by-site partial chunks and, for aosoa6 and
+    where the SAL does not divide vvl, site-by-site launches), and dist2
+    bitwise K8(K7(f)) in that layout."""
+    lay = parse_layout(spec)
+    lat = LB_STAGE_LAT
+    V = int(np.prod(lat))
+    w = torch.tensor([1 / 3] + [1 / 18] * 6 + [1 / 36] * 12)[:, None]
+    dist = (w * (1 + 0.1 * torch.from_numpy(rng.normal(size=(19, V)).astype(np.float32)))).to(card)
+    force = _dev(rng, (3, V), card, scale=1e-3)
+    want = K8.lb_step_cuda(dist, force, 0.8, lat, 128)
+    want16 = K8.lb_step_cuda(dist, force, 0.8, lat, 128, bf16=True)
+    L = {"dist": lay, "force": lay, "dist2": lay, "u": lay}
+    d, f = lay.pack(dist), lay.pack(force)
+    for vvl in (32, 64, 128, 256):
+        d2, u = K8.lb_step_cuda(d, f, 0.8, lat, vvl, layouts=L)
+        _same(d2, lay, want[0], f"lb_step dist2 vvl {vvl}")
+        _same(u, lay, want[1], f"lb_step u vvl {vvl}")
+        only2, none = K8.lb_step_cuda(d, f, 0.8, lat, vvl, with_u=False, layouts=L)
+        assert none is None and torch.equal(only2, d2)
+        b2, bu = K8.lb_step_cuda(d, f, 0.8, lat, vvl, layouts=L, bf16=True)
+        assert _bits(lay.unpack(b2).float(), want16[0].float())
+        assert _bits(lay.unpack(bu).float(), want16[1].float())
+        assert torch.equal(K8.lb_step_cuda(dist, force, 0.8, lat, vvl)[0], want[0])
+    c = K7.collide_cuda(d, f, 0.8, 128, layouts={"dist": lay, "force": lay, "out": lay})
+    assert torch.equal(K8.propagate_cuda(c, lat, 128, layouts={"dist": lay}), d2)
