@@ -12,8 +12,8 @@ Phases (any failure raises and exits non-zero; nothing is caught):
 1. require a CUDA card; print its name and power limit (nvidia-smi);
 2. build the hand-written kernels (src/repro_torch/csrc, one nvcc call)
    while the host generates the problem (random SU(3) gauge field and
-   source at ``--lattice``, default (64, 64, 64, 32)); print K4's and
-   K5L's ptxas report (registers and spills, one line a kernel);
+   source at ``--lattice``, default (64, 64, 64, 32)); print K4's, K7's,
+   K8's and K5L's ptxas report (registers and spills, one line a kernel);
 3. hold every MILC kernel against its plain PyTorch version on the card at
    that lattice and time both (CUDA events, median of several runs); K2's
    sum and fold also bitwise their tree emulation (core/reduce.py's
@@ -117,13 +117,20 @@ P4. (after L5) with every count set to 0: 10 steps from the L1 state with
 L1. Ludwig ``init_state`` at ``--ludwig`` (default (256, 256, 256), the
    ludwig_small lattice of benchmarks/fig5_scaling.py) on the card;
 L2. every Ludwig kernel against its plain version there, timed as in 3;
+   K7's out and K5L's dist2 bitwise the plain version (the collision's
+   roundings are pinned, csrc/d3q19.cuh), K8's out bitwise too and timed
+   beside ``torch.take`` on the 19 V source offsets (built once, outside
+   the timing);
 Q5. (after L2, where ``build/parent`` holds the parent's tree) the parent's
-   K5L (lb.cu with its own headers, a library of its own) against this
-   tree's, both launched through their C entry points on L2's dist and
-   force in SoA, AoS, aosoa4 and aosoa16: ludwig_lb_step,
-   lb_collide_propagate and the policy instance, dist2 and u bitwise the
-   parent's, timed in turns (parent, this, this, parent), a call at a
-   time; rows in the redesign JSON line;
+   K7, K8 and K5L (lb.cu with its own headers, a library of its own)
+   against this tree's, both launched through their C entry points on
+   L2's dist and force in SoA, AoS, aosoa4 and aosoa16: K7, K8 (beside
+   ``torch.take``), ludwig_lb_step, lb_collide_propagate and the policy
+   instance; K8's out and K5L's u bitwise the parent's, K7's out and K5L's
+   dist2 bitwise the plain version on the card and within 1e-5 x max|plain|
+   of the parent's (the policy instance's bf16 dist2 within one bf16 ulp
+   of it: the pin moved the fp32 bits), timed in turns (parent, this,
+   this, parent), a call at a time; rows in the redesign JSON line;
 L3. with every launch count set to 0: ``diagnostics``, 10 ``step``s and one
    ``step_timed`` on the "cuda" engine, ``diagnostics`` again; check that
    every value is finite, the mass drifts by less than 1e-4 relative, the
@@ -142,8 +149,9 @@ Y1. at the full lattices ((64,64,64,32) and (256,256,256)), every lattice
    paper's Fig. 3 sweeps), vvl 128, on phase 3's and L2's inputs repacked
    on the card: every field (unpacked) and every sum bitwise equal to the
    kernel's SoA launch, and within the stated tolerance of its plain
-   version in the same layout; timed beside the SoA row's bound (the
-   layout does not change the bytes);
+   version in the same layout (K7, K8 and K5L's dist2 bitwise); timed
+   beside the SoA row's bound (the layout does not change the bytes), K8
+   beside ``torch.take``;
 Y2. with every count set to 0 before each: the solve of phase 4 from
    phase 2's u and b repacked, in each layout (SoA again, for a like
    comparison): phase 4's iteration count, x bitwise equal to phase 4's,
@@ -153,8 +161,8 @@ Y3. with every count set to 0 before each: 10 steps from the L1 state
    repacked, in each layout and at each vvl of (32, 64, 128, 256) its SAL
    divides (the reference's rule): dist and q bitwise equal to L3's 10
    steps; at vvl 128 ``diagnostics`` equal to SoA's and L4's exhibit
-   bitwise equal to its fused launch, every kernel of both paths
-   launched, and one ``step_timed``; ms a step (the paper's Fig. 3
+   bitwise equal to its fused launch (both timed), every kernel of both
+   paths launched, and one ``step_timed``; ms a step (the paper's Fig. 3
    layout x VVL panel); the
    layouts' numbers are printed as one JSON line before the kernel table;
 T1. on the L1 state, the plan ``default_plan`` picks for the LB half-step
@@ -168,7 +176,9 @@ T1. on the L1 state, the plan ``default_plan`` picks for the LB half-step
 Q4. (after T1 and after R1, where ``build/parent`` holds the parent's tree)
    the parent's K9 and K10 (lb_tiled.cu and rwkv6.cu with its own headers,
    a library of their own) against this tree's: K9 at T1's lattice and
-   tile, dist2 and u bitwise the parent's for both graphs; K10 at R1's two
+   tile, for both graphs u bitwise the parent's and dist2 bitwise the plain
+   LB step on the card and within 1e-5 x max|plain| of the parent's (the
+   collision's pinned roundings moved its bits); K10 at R1's two
    full shapes within R1's tolerance of the parent's; timed in turns
    (parent, this, this, parent), a call at a time; rows in the redesign
    JSON line;
@@ -286,6 +296,7 @@ from repro_torch.kernels.rwkv6_scan import kernel as k10  # noqa: E402
 from repro_torch.kernels.rwkv6_scan import ref as wkv_ref  # noqa: E402
 from repro_torch.kernels.wilson_dslash import kernel as wk  # noqa: E402
 from repro_torch.launch.serve import SolveRequest, SolveServer  # noqa: E402
+from repro_torch.maths import d3q19  # noqa: E402
 from repro_torch.models import attention as model_attention  # noqa: E402
 from repro_torch.models import init_cache, init_params  # noqa: E402
 from repro_torch.train.serve_step import build_prefill, build_serve_step, generate  # noqa: E402
@@ -642,6 +653,23 @@ def check_kernels(u, b, lattice, vvl):
     return rows
 
 
+def take_index(lat, lay, device):
+    """K8's function as one library call: the flat source offset of each
+    physical output of a 19-component field in ``lay``, so that
+    ``torch.take(dist, idx)`` is the periodic pull out_i(r) = dist_i(r -
+    c_i).  19 V int64 offsets (2.5 GB at (256, 256, 256)), built once,
+    outside any timing; the port never calls torch.take."""
+    V = math.prod(lat)
+    cv = torch.from_numpy(d3q19.CV.astype("int64")).to(device)
+    s = torch.arange(V, device=device)
+    z, y, x = s % lat[2], s // lat[2] % lat[1], s // (lat[1] * lat[2])
+    del s
+    src = torch.stack([((x - cv[i, 0]) % lat[0] * lat[1] + (y - cv[i, 1]) % lat[1]) * lat[2]
+                       + (z - cv[i, 2]) % lat[2] for i in range(19)])
+    del x, y, z
+    return lay.pack(lay.flat_index(torch.arange(19, device=device)[:, None], src, 19, V))
+
+
 def ludwig_inputs(state, vvl):
     """L2's inputs (SoA, the same tensors on every call): the state's q and
     its gradients, dist perturbed off equilibrium and a small force, w, h,
@@ -679,25 +707,29 @@ def check_ludwig_kernels(state, cfg, vvl):
         return time_ms(fn, reps=3, warm=1)
 
     c = k7.collide_cuda(dist, force, tau, vvl)
-    err = field_err(c, k7.collide_plain(dist, force, tau), "lb_collide")
+    err = exact_err(c, k7.collide_plain(dist, force, tau), "lb_collide")
     row("lb_collide", err, time_ms(lambda: k7.collide_cuda(dist, force, tau, vvl)),
         slow(lambda: k7.collide_plain(dist, force, tau)), 164 * V, FLOPS["collide"] * V)
 
     p = k8.propagate_cuda(c, lat, vvl)
     err = exact_err(p, k8.propagate_plain(c, lat), "lb_propagate")
+    idx = take_index(lat, SOA, c.device)
+    exact_err(torch.take(c, idx), p, "torch.take against lb_propagate")
     row("lb_propagate", err, time_ms(lambda: k8.propagate_cuda(c, lat, vvl)),
-        slow(lambda: k8.propagate_plain(c, lat)), 152 * V, 0)
+        slow(lambda: k8.propagate_plain(c, lat)), 152 * V, 0,
+        library_ms=time_ms(lambda: torch.take(c, idx)))
+    del idx
 
     d2, u = k8.lb_step_cuda(dist, force, tau, lat, vvl)
     want2, want_u = k8.lb_step_plain(dist, force, tau, lat)
-    err = max(field_err(d2, want2, "lb_step dist2"), field_err(u, want_u, "lb_step u"))
+    err = max(exact_err(d2, want2, "lb_step dist2"), field_err(u, want_u, "lb_step u"))
     exact_err(d2, p, "lb_step dist2 against propagate(collide)")
     row("lb_step", err, time_ms(lambda: k8.lb_step_cuda(dist, force, tau, lat, vvl)),
         slow(lambda: k8.lb_step_plain(dist, force, tau, lat)), 176 * V,
         FLOPS["lb_step"] * V)
 
     d3, _ = k8.lb_step_cuda(dist, force, tau, lat, vvl, with_u=False)
-    err = field_err(d3, want2, "lb_collide_propagate")
+    err = exact_err(d3, want2, "lb_collide_propagate")
     exact_err(d3, d2, "lb_collide_propagate against lb_step")
     row("lb_collide_propagate", err,
         time_ms(lambda: k8.lb_step_cuda(dist, force, tau, lat, vvl, with_u=False)),
@@ -923,26 +955,27 @@ def ludwig_layout_cases(inp, cfg, vvl):
         return lambda o: [(k, x, None) for k, x in zip(kinds, o if isinstance(o, tuple) else (o,))
                           if x is not None]
 
-    def step(with_u, fn, **kw):
-        return lambda t, lay: fields("field", "field")(
+    def step(with_u, fn, kinds, **kw):
+        return lambda t, lay: fields(*kinds)(
             fn(t["dist"], t["force"], tau, lat, with_u=with_u,
                layouts=L(lay, "dist", "force"), **kw))
 
     return {
-        "lb_collide": (lambda t, lay: fields("field")(k7.collide_cuda(
+        "lb_collide": (lambda t, lay: fields("exact")(k7.collide_cuda(
                            t["dist"], t["force"], tau, vvl, layouts=L(lay, "dist", "force"))),
-                       lambda t, lay: fields("field")(k7.collide_plain(
+                       lambda t, lay: fields("exact")(k7.collide_plain(
                            t["dist"], t["force"], tau, L(lay, "dist", "force"))),
                        None, 164 * V, FLOPS["collide"] * V),
         "lb_propagate": (lambda t, lay: fields("exact")(k8.propagate_cuda(
                              t["collided"], lat, vvl, layouts=L(lay, "dist"))),
                          lambda t, lay: fields("exact")(k8.propagate_plain(
                              t["collided"], lat, L(lay, "dist"))),
-                         None, 152 * V, 0),
-        "lb_step": (step(True, k8.lb_step_cuda, vvl=vvl), step(True, k8.lb_step_plain), None,
+                         lambda t, lay: torch.take(t["collided"], t["take_idx"]), 152 * V, 0),
+        "lb_step": (step(True, k8.lb_step_cuda, ("exact", "field"), vvl=vvl),
+                    step(True, k8.lb_step_plain, ("exact", "field")), None,
                     176 * V, FLOPS["lb_step"] * V),
-        "lb_collide_propagate": (step(False, k8.lb_step_cuda, vvl=vvl),
-                                 step(False, k8.lb_step_plain), None, 164 * V,
+        "lb_collide_propagate": (step(False, k8.lb_step_cuda, ("exact",), vvl=vvl),
+                                 step(False, k8.lb_step_plain, ("exact",)), None, 164 * V,
                                  FLOPS["collide"] * V),
         "ludwig_chem_stress": (
             lambda t, lay: fields("field", "field")(lk.chem_stress_cuda(
@@ -1037,7 +1070,8 @@ def check_layout_kernels(u, b, lattice, state, lcfg, vvl):
     lud = run_layout_cases(
         ludwig_layout_cases(inp, lcfg, vvl), inp,
         {"collided": lambda t, lay: k7.collide_cuda(t["dist"], t["force"], lcfg.tau, vvl,
-                                                    layouts={"dist": lay, "force": lay})},
+                                                    layouts={"dist": lay, "force": lay}),
+         "take_idx": lambda t, lay: take_index(lcfg.lattice, lay, t["dist"].device)},
         LAYOUTS)
     del inp
     torch.cuda.empty_cache()
@@ -1082,11 +1116,12 @@ def ludwig_layouts(state, after_steps, cfg):
     """Y3: LUDWIG_STEPS steps from the L1 state repacked, in every layout of
     LAYOUTS and at every vvl of Y3_VVLS its SAL divides, bitwise equal to
     L3's; then, at the default vvl, diagnostics equal to SoA's and the LB
-    exhibit (L4) bitwise equal to its own fused launch, and one
-    ``step_timed``.  Returns ({layout: {vvl: ms a step}}, {layout:
-    step-path counts}, {layout: exhibit counts}, {layout: step_timed's
-    stages in ms})."""
-    grid, counts, xcounts, stages = {}, {}, {}, {}
+    exhibit (L4) bitwise equal to its own fused launch and timed (after its
+    counts are read), and one ``step_timed``.  Returns ({layout: {vvl: ms a
+    step}}, {layout: step-path counts}, {layout: exhibit counts}, {layout:
+    step_timed's stages in ms}, {layout: {"unfused", "fused": exhibit
+    ms}})."""
+    grid, counts, xcounts, stages, exhibit = {}, {}, {}, {}, {}
     d_soa = ludwig.diagnostics(state, cfg)
     V = math.prod(cfg.lattice)
     gen = torch.Generator(device=state.dist.data.device).manual_seed(3)
@@ -1132,16 +1167,21 @@ def ludwig_layouts(state, after_steps, cfg):
                     if k == 0]
             if idle:
                 raise AssertionError(f"{what}: kernels of the path never launched: {idle}")
+            exhibit[lay.name] = {
+                "unfused": time_ms(lambda: propagate(collide(s0.dist, fl, tau=cfg.tau, config=tgt),
+                                                     config=tgt)),
+                "fused": time_ms(lambda: collide_propagate(s0.dist, fl, tau=cfg.tau, config=tgt))}
             del unfused, fused, fl, d
         stages[lay.name] = {k: v * 1e3 for k, v in stages[lay.name].items()}
         log(f"Y3: ludwig {cfg.lattice} in {lay.name}: ms/step " + ", ".join(
             f"vvl {v} {ms:.3f}" for v, ms in grid[lay.name].items())
             + f"; dist and q bitwise L3's; launches {counts[lay.name]}, exhibit "
-            f"{xcounts[lay.name]}; step_timed (ms) " + ", ".join(
+            f"{xcounts[lay.name]} (unfused {exhibit[lay.name]['unfused']:.4f} ms, fused "
+            f"{exhibit[lay.name]['fused']:.4f} ms); step_timed (ms) " + ", ".join(
                 f"{k} {v:.3f}" for k, v in stages[lay.name].items()))
         del s0, s
         torch.cuda.empty_cache()
-    return grid, counts, xcounts, stages
+    return grid, counts, xcounts, stages, exhibit
 
 
 def lb_smem_views(cfg):
@@ -1674,7 +1714,7 @@ def flash_toolchain():
     K5 (fused_flat.cu, dslash.cu, wilson_normal.cu and wilson_normal_mixed.cu)
     and its K9 and K10 (lb_tiled.cu, rwkv6.cu) as libraries of their own.
     Returns ({"flash": ptxas lines of the bf16 kernels, "k10": of K10's and
-    K9's kernels, "k4_k5l": of K4's and K5L's}, {"flash", "k1_k2", "k3_k5",
+    K9's kernels, "k4_k5l": of K4's, K7's, K8's and K5L's}, {"flash", "k1_k2", "k3_k5",
     "k9_k10", "k5l" (lb.cu): the parent library's path} for those built)."""
     nvcc = _cuda._nvcc()
     _cuda.BUILD_DIR.mkdir(parents=True, exist_ok=True)
@@ -1709,7 +1749,8 @@ def flash_toolchain():
 
     return {"flash": report(outs[0], (FLASH_MMA,)),
             "k10": report(outs[1], ("rwkv6_",)) + report(outs[2], ("lb_tiled",)),
-            "k4_k5l": report(outs[3], ("dslash",)) + report(outs[4], ("lb_step",))}, libs
+            "k4_k5l": report(outs[3], ("dslash",))
+            + report(outs[4], ("lb_step", "lb_collide", "lb_propagate"))}, libs
 
 
 def flash_sass(lib):
@@ -2465,19 +2506,41 @@ def k4_turns(this, parent, u, b, lattice, vvl):
     return rows
 
 
-# -- K5L in turns with the parent's design (Q5) ------------------------------------------
+# -- K7, K8 and K5L in turns with the parent's design (Q5) ------------------------------
 
 class LbStep:
-    """K5L's entry points of one library (this tree's, or the parent's
-    lb.cu built beside phase 2's build: the same C signatures), launched on
-    the caller's tensors outside the launch counts."""
+    """K7's, K8's and K5L's entry points of one library (this tree's, or the
+    parent's lb.cu built beside phase 2's build: the same C signatures),
+    launched on the caller's tensors outside the launch counts."""
+
+    SYMBOLS = ("rt_lb_collide", "rt_lb_propagate", "rt_lb_step", "rt_lb_step_bf16")
 
     def __init__(self, lib, label):
         self.label, self.fn = label, {}
-        for name in ("rt_lb_step", "rt_lb_step_bf16"):
+        for name in self.SYMBOLS:
             fn = getattr(lib, name)
             fn.argtypes, fn.restype = list(_cuda.SIGNATURES[name]), ctypes.c_int
             self.fn[name] = fn
+
+    def _call(self, name, *args):
+        rc = self.fn[name](*args, torch.cuda.current_stream().cuda_stream)
+        if rc:
+            raise RuntimeError(f"{self.label} {name}: CUDA error {rc}")
+
+    def collide(self, dist, force, tau, V, vvl, lay):
+        """K7's out, physical in ``lay`` (dist and force in it too)."""
+        out = torch.empty_like(dist)
+        d = lay.descriptor()
+        self._call("rt_lb_collide", dist.data_ptr(), force.data_ptr(), out.data_ptr(), V,
+                   *k7.lb_params(float(tau)), d, d, d, vvl)
+        return (out,)
+
+    def propagate(self, dist, lat, vvl, lay):
+        """K8's out, physical in ``lay``."""
+        out = torch.empty_like(dist)
+        d = lay.descriptor()
+        self._call("rt_lb_propagate", dist.data_ptr(), out.data_ptr(), *lat, d, d, vvl)
+        return (out,)
 
     def step(self, dist, force, tau, lat, vvl, lay, with_u=True, bf16=False):
         """(dist2, u or None) physical in ``lay``; ``bf16``: the policy
@@ -2486,21 +2549,34 @@ class LbStep:
         dist2 = torch.empty(lay.physical_shape(19, V), dtype=dt, device=dist.device)
         u = torch.empty(lay.physical_shape(3, V), dtype=dt, device=dist.device) if with_u else None
         d = lay.descriptor()
-        name = "rt_lb_step_bf16" if bf16 else "rt_lb_step"
-        rc = self.fn[name](dist.data_ptr(), force.data_ptr(), dist2.data_ptr(),
-                           u.data_ptr() if with_u else None, *lat, *k7.lb_params(float(tau)),
-                           d, d, d, d, vvl, torch.cuda.current_stream().cuda_stream)
-        if rc:
-            raise RuntimeError(f"{self.label} {name}: CUDA error {rc}")
+        self._call("rt_lb_step_bf16" if bf16 else "rt_lb_step", dist.data_ptr(),
+                   force.data_ptr(), dist2.data_ptr(), u.data_ptr() if with_u else None, *lat,
+                   *k7.lb_params(float(tau)), d, d, d, d, vvl)
         return (dist2, u) if with_u else (dist2,)
 
 
+def _pinned_check(name, plain, bf16=False):
+    """A collision output after the pin (csrc/d3q19.cuh): output 0 bitwise
+    the plain version on the card and within FIELD_RTOL x max|plain| of the
+    parent's (``bf16``: within one bf16 ulp of it); every other output
+    bitwise the parent's."""
+    def check(old, new):
+        bits_err(new[0], plain, f"{name}: this vs the plain version")
+        (bf16_err if bf16 else field_err)(new[0].float(), old[0].float().reshape(new[0].shape),
+                                          f"{name}: this vs the parent")
+        for k, (o, n) in enumerate(zip(old[1:], new[1:]), 1):
+            bits_err(o.reshape(n.shape), n, f"{name} [{k}]: parent vs this")
+    return check
+
+
 def k5l_turns(parent, state, cfg, vvl):
-    """Q5 (after L2): K5L (ludwig_lb_step, lb_collide_propagate and the
-    policy instance) at L2's lattice and inputs in SoA, AoS, aosoa4 and
-    aosoa16, this tree's against the parent's lb.cu: dist2 and u bitwise,
-    timed in turns (parent, this, this, parent), a call at a time.
-    Returns the rows (name@layout; SoA unsuffixed)."""
+    """Q5 (after L2): K7, K8 and K5L (ludwig_lb_step, lb_collide_propagate
+    and the policy instance) at L2's lattice and inputs in SoA, AoS, aosoa4
+    and aosoa16, this tree's against the parent's lb.cu: K8 and K5L's u
+    bitwise the parent's, K7 and K5L's dist2 bitwise the plain version on
+    the card and within tolerance of the parent's (:func:`_pinned_check`),
+    timed in turns (parent, this, this, parent), a call at a time, K8 beside
+    ``torch.take``.  Returns the rows (name@layout; SoA unsuffixed)."""
     this = LbStep(_cuda.library(), "this")
     lat, tau = cfg.lattice, cfg.tau
     V = math.prod(lat)
@@ -2512,7 +2588,19 @@ def k5l_turns(parent, state, cfg, vvl):
         lay = parse_layout(spec)
         d, f = lay.pack(dist), lay.pack(force)
         tag = "" if spec == "soa" else f"@{spec}"
-        cases = {}
+        c = k7.collide_plain(d, f, tau, {"dist": lay, "force": lay})
+        plain2 = k8.propagate_plain(c, lat, {"dist": lay})
+        plain16 = k8.lb_step_plain(d, f, tau, lat, with_u=False, bf16=True,
+                                   layouts={"dist": lay, "force": lay})[0]
+        idx = take_index(lat, lay, d.device)
+        cases = {
+            "lb_collide" + tag: (lambda: this.collide(d, f, tau, V, vvl, lay),
+                                 lambda: parent.collide(d, f, tau, V, vvl, lay), None, 164 * V,
+                                 FLOPS["collide"] * V, _pinned_check("lb_collide" + tag, c)),
+            "lb_propagate" + tag: (lambda: this.propagate(c, lat, vvl, lay),
+                                   lambda: parent.propagate(c, lat, vvl, lay),
+                                   lambda: torch.take(c, idx), 152 * V, 0,
+                                   _all_bits("lb_propagate" + tag))}
         for name, with_u, bf16, nbytes, flops in (
                 ("lb_step", True, False, 176, FLOPS["lb_step"]),
                 ("lb_collide_propagate", False, False, 164, FLOPS["collide"]),
@@ -2521,10 +2609,10 @@ def k5l_turns(parent, state, cfg, vvl):
             cases[name + tag] = (
                 lambda kw=kw: this.step(d, f, tau, lat, vvl, lay, **kw),
                 lambda kw=kw: parent.step(d, f, tau, lat, vvl, lay, **kw), None, nbytes * V,
-                flops * V, _all_bits(name + tag))
-        log(f"Q5: K5L at {tuple(lat)} in {spec} in turns with the parent's design:")
+                flops * V, _pinned_check(name + tag, plain16 if bf16 else plain2, bf16))
+        log(f"Q5: K7, K8 and K5L at {tuple(lat)} in {spec} in turns with the parent's design:")
         rows.update(redesign_turns(cases, graphs=False))
-        del d, f, cases
+        del d, f, c, plain2, plain16, idx, cases
         torch.cuda.empty_cache()
     del dist, force
     torch.cuda.empty_cache()
@@ -2579,26 +2667,29 @@ class ParentK9K10:
 
 
 def k9_turns(parent, state, cfg, tile):
-    """Q4 (after T1): K9 at T1's lattice and tile, both graphs, bitwise the
-    parent's design, in turns (a call at a time: the wrappers allocate)."""
+    """Q4 (after T1): K9 at T1's lattice and tile, both graphs, u bitwise
+    the parent's design and dist2 bitwise the plain LB step and within
+    tolerance of the parent's (:func:`_pinned_check`), in turns (a call at
+    a time: the wrappers allocate)."""
     lat, tau = cfg.lattice, cfg.tau
     V = math.prod(lat)
     dev = state.dist.data.device
     gen = torch.Generator(device=dev).manual_seed(4)
     dist = state.dist.data * (1.0 + 0.05 * torch.randn((19, V), generator=gen, device=dev))
     force = 1e-3 * torch.randn((3, V), generator=gen, device=dev)
+    plain2 = k8.lb_step_plain(dist, force, tau, lat, with_u=False)[0]
     cases = {
         "lb_step_tiled": (lambda: k8.lb_step_tiled_cuda(dist, force, tau, lat, tile),
                           lambda: parent.lb_step_tiled(dist, force, tau, lat, tile), None,
-                          176 * V, FLOPS["lb_step"] * V, _all_bits("K9 lb_step")),
+                          176 * V, FLOPS["lb_step"] * V, _pinned_check("K9 lb_step", plain2)),
         "lb_collide_propagate_tiled": (
             lambda: k8.lb_step_tiled_cuda(dist, force, tau, lat, tile, with_u=False)[:1],
             lambda: parent.lb_step_tiled(dist, force, tau, lat, tile, with_u=False)[:1], None,
-            164 * V, FLOPS["collide"] * V, _all_bits("K9 lb_collide_propagate")),
+            164 * V, FLOPS["collide"] * V, _pinned_check("K9 lb_collide_propagate", plain2)),
     }
     log(f"Q4: K9 at {lat}, tile {tile}, in turns with the parent's design:")
     rows = redesign_turns(cases, graphs=False)
-    del dist, force, cases
+    del dist, force, cases, plain2
     torch.cuda.empty_cache()
     return rows
 
@@ -3640,17 +3731,18 @@ def main():
     del u, b, x_soa
     torch.cuda.empty_cache()
     # Y3. the Ludwig step in every layout x vvl, counted
-    ygrid, ylcounts, yxcounts, ystages = ludwig_layouts(state, after_steps, lcfg)
+    ygrid, ylcounts, yxcounts, ystages, yexhibit = ludwig_layouts(state, after_steps, lcfg)
     log("Y3: step_timed's stages in aos beside soa (ms): " + ", ".join(
         f"{k} {ystages['aos'][k]:.3f} vs {v:.3f} ({ystages['aos'][k] - v:+.3f})"
         for k, v in ystages["soa"].items()))
     log(f"Y1-Y3: {time.perf_counter() - t0:.1f} s")
     layouts_line = {"layouts": {
         "card": smi,
-        "kernels": {lay: {n: {k: r[k] for k in ("ms", "bound_ms", "ratio_to_soa")}
+        "kernels": {lay: {n: {k: r[k] for k in ("ms", "bound_ms", "ratio_to_soa", "library_ms")}
                           for n, r in rows.items()} for lay, rows in yrows.items()},
         "milc_ms_per_iteration": {lay: v[1] for lay, v in ymilc.items()},
-        "ludwig_ms_per_step": ygrid, "ludwig_step_timed_ms": ystages}}
+        "ludwig_ms_per_step": ygrid, "ludwig_step_timed_ms": ystages,
+        "ludwig_lb_exhibit_ms": yexhibit}}
 
     # T1. the tiled kernel at the budget's plan
     trows, tplan = check_tiled_kernel(state, lcfg, lcfg.target.vvl, ptxas["k10"])

@@ -224,6 +224,19 @@ static inline bool rt_aligned(const void* p) {
   return (reinterpret_cast<unsigned long long>(p) & 15ull) == 0;
 }
 
+// Opt a kernel in to smem bytes of dynamic shared memory (above 48 KB it
+// must).  The opt-in only grows, so it is set once for the largest size
+// seen (one device a process), smem_set the caller's record of it.
+template <typename K>
+static int rt_smem_optin(K kernel, int smem, int& smem_set) {
+  if (smem <= smem_set) return 0;
+  const cudaError_t e =
+      cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
+  if (e != cudaSuccess) return static_cast<int>(e);
+  smem_set = smem;
+  return 0;
+}
+
 // Blocks needed to give each of n items one thread.
 static inline unsigned int rt_grid(long long n, int block) {
   return static_cast<unsigned int>((n + block - 1) / block);

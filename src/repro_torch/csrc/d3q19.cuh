@@ -13,8 +13,17 @@
 // weights w_i are fp32(w_i) here; omega = 1/tau and pref * w_i (three
 // values, one per weight class) are computed in double by the host and
 // passed as fp32, which is what the reference's weak-typed Python floats
-// become.  nvcc contracts a*b + c into fused multiply-adds, so the result
-// agrees with the plain version to a tolerance, not bitwise.
+// become.
+//
+// Every multiply, add and divide is written as its round-to-nearest
+// intrinsic (__fmul_rn, __fadd_rn, __fsub_rn, __fdiv_rn), which ptxas never
+// contracts into a fused multiply-add.  Written as operators, ptxas fused
+// the unrounded products into FMAs as the code around each call allowed, so
+// the bits depended on the kernel that inlined the function (K5L's grouped
+// stores moved dist2 by an ulp; PERF.md).  Pinned, every caller rounds each
+// operation once, in the reference's order, as the plain version's
+// single-rounded torch ops do: K7, K5L (both instances) and K9 equal their
+// plain versions bitwise on the card (tests/test_torch_cuda.py).
 #pragma once
 
 #include "common.cuh"
@@ -75,7 +84,7 @@ __device__ __forceinline__ float rt_cdot(int i, const float (&v)[3]) {
     const int c = rt_cv(i, a);
     if (c == 0) continue;
     const float term = c == 1 ? v[a] : -v[a];
-    out = started ? out + term : term;
+    out = started ? __fadd_rn(out, term) : term;
     started = true;
   }
   return out;
@@ -85,7 +94,7 @@ __device__ __forceinline__ float rt_cdot(int i, const float (&v)[3]) {
 __device__ __forceinline__ float rt_density(const float (&f)[RT_NVEL]) {
   float rho = f[0];
 #pragma unroll
-  for (int i = 1; i < RT_NVEL; ++i) rho += f[i];
+  for (int i = 1; i < RT_NVEL; ++i) rho = __fadd_rn(rho, f[i]);
   return rho;
 }
 
@@ -101,13 +110,18 @@ __device__ __forceinline__ void rt_momentum(const float (&f)[RT_NVEL], float (&m
       const int c = rt_cv(i, a);
       if (c == 0) continue;
       const float term = c == 1 ? f[i] : -f[i];
-      mom[a] = started[a] ? mom[a] + term : term;
+      mom[a] = started[a] ? __fadd_rn(mom[a], term) : term;
       started[a] = true;
     }
   }
 }
 
-// Post-collision distributions of one site (collide_chunk).
+// Post-collision distributions of one site (collide_chunk), each operation
+// rounded once in the reference's order:
+//   u    = (mom + 0.5 frc) / rho
+//   feq  = ((w rho) (((1 + 3 cu) + (4.5 cu) cu) - 1.5 usq))
+//   fi   = pw (3 (cf - uf) + (9 cu) cf)
+//   out  = (f - omega (f - feq)) + fi
 __device__ __forceinline__ void rt_collide_site(const float (&f)[RT_NVEL], const float (&frc)[3],
                                                 const rt_lb_params& p,
                                                 float (&out)[RT_NVEL]) {
@@ -116,15 +130,23 @@ __device__ __forceinline__ void rt_collide_site(const float (&f)[RT_NVEL], const
   rt_momentum(f, mom);
   float u[3];
 #pragma unroll
-  for (int a = 0; a < 3; ++a) u[a] = (mom[a] + 0.5f * frc[a]) / rho;
-  const float usq = u[0] * u[0] + u[1] * u[1] + u[2] * u[2];
-  const float uf = u[0] * frc[0] + u[1] * frc[1] + u[2] * frc[2];
+  for (int a = 0; a < 3; ++a) u[a] = __fdiv_rn(__fadd_rn(mom[a], __fmul_rn(0.5f, frc[a])), rho);
+  const float usq = __fadd_rn(__fadd_rn(__fmul_rn(u[0], u[0]), __fmul_rn(u[1], u[1])),
+                              __fmul_rn(u[2], u[2]));
+  const float uf = __fadd_rn(__fadd_rn(__fmul_rn(u[0], frc[0]), __fmul_rn(u[1], frc[1])),
+                             __fmul_rn(u[2], frc[2]));
+  const float usq15 = __fmul_rn(1.5f, usq);
 #pragma unroll
   for (int i = 0; i < RT_NVEL; ++i) {
     const float cu = rt_cdot(i, u);
     const float cf = rt_cdot(i, frc);
-    const float feq = rt_w(i) * rho * (1.0f + 3.0f * cu + 4.5f * cu * cu - 1.5f * usq);
-    const float fi = p.pw[rt_wclass(i)] * (3.0f * (cf - uf) + 9.0f * cu * cf);
-    out[i] = f[i] - p.omega * (f[i] - feq) + fi;
+    const float poly = __fsub_rn(__fadd_rn(__fadd_rn(1.0f, __fmul_rn(3.0f, cu)),
+                                           __fmul_rn(__fmul_rn(4.5f, cu), cu)),
+                                 usq15);
+    const float feq = __fmul_rn(__fmul_rn(rt_w(i), rho), poly);
+    const float fi = __fmul_rn(p.pw[rt_wclass(i)],
+                               __fadd_rn(__fmul_rn(3.0f, __fsub_rn(cf, uf)),
+                                         __fmul_rn(__fmul_rn(9.0f, cu), cf)));
+    out[i] = __fadd_rn(__fsub_rn(f[i], __fmul_rn(p.omega, __fsub_rn(f[i], feq))), fi);
   }
 }

@@ -629,24 +629,12 @@ static int rt_fa_smem_bytes(int ld) {
   return static_cast<int>(sizeof(float)) * RT_FA_BQ * (2 * ld + (ld > RT_FA_LDP ? ld : RT_FA_LDP));
 }
 
-// The dynamic shared memory opt-in only grows, so it is set once for the
-// largest size seen (one device a process).
-template <typename K>
-static int rt_fa_optin(K kernel, int smem, int& smem_set) {
-  if (smem <= smem_set) return 0;
-  const cudaError_t e =
-      cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
-  if (e != cudaSuccess) return static_cast<int>(e);
-  smem_set = smem;
-  return 0;
-}
-
 template <bool ONLINE>
 static int rt_fa_launch_f32(const void* q, const void* k, const void* v, void* o, int B,
                             const RtFaArgs& a, cudaStream_t stream) {
   const int smem = rt_fa_smem_bytes(a.ld);
   static int smem_set = 0;
-  if (const int e = rt_fa_optin(rt_flash_f32_kernel<ONLINE>, smem, smem_set)) return e;
+  if (const int e = rt_smem_optin(rt_flash_f32_kernel<ONLINE>, smem, smem_set)) return e;
   const dim3 grid(B * a.H, (a.S + RT_FA_BQ - 1) / RT_FA_BQ);
   rt_flash_f32_kernel<ONLINE><<<grid, RT_FA_THREADS, smem, stream>>>(
       static_cast<const float*>(q), static_cast<const float*>(k), static_cast<const float*>(v),
@@ -658,7 +646,8 @@ template <bool ONLINE, int DK>
 static int rt_fa_launch_mma(const void* q, const void* k, const void* v, void* o, int B,
                             const RtFaArgs& a, cudaStream_t stream) {
   static int smem_set = 0;
-  if (const int e = rt_fa_optin(rt_flash_mma_kernel<ONLINE, DK>, RT_FM_SMEM, smem_set)) return e;
+  if (const int e = rt_smem_optin(rt_flash_mma_kernel<ONLINE, DK>, RT_FM_SMEM, smem_set))
+    return e;
   const dim3 grid(B * a.H, (a.S + RT_FA_BQ - 1) / RT_FA_BQ);
   rt_flash_mma_kernel<ONLINE, DK><<<grid, RT_FM_THREADS, RT_FM_SMEM, stream>>>(
       static_cast<const __nv_bfloat16*>(q), static_cast<const __nv_bfloat16*>(k),

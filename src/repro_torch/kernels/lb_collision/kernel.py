@@ -2,13 +2,21 @@
 plain PyTorch version.
 
 K7 replaces ``kernels/lb_collision/kernel.py::collide_pallas`` of the JAX
-package: one thread per site over fp32 fields, dist, force and out each in
-its own layout (SoA, AoS or AoSoA, addressed through INDEX inside the
-kernel; the TPU kernel takes force's layout apart from dist's), bound by
-device-memory bytes (164 compulsory bytes a site).  The wrapper takes
-physical tensors and ``layouts`` ("dist", "force", "out"; an input not
-named is SoA, out takes dist's layout).  On a CPU tensor it returns the
-plain version; on a CUDA tensor it launches the kernel or raises.
+package over fp32 fields, dist, force and out each in its own layout (SoA,
+AoS or AoSoA, addressed through INDEX inside the kernel; the TPU kernel
+takes force's layout apart from dist's), bound by device-memory bytes (164
+compulsory bytes a site).  A block takes a chunk of vvl consecutive sites,
+a thread a site.  Where the three tensors share one layout (AoSoA: its SAL
+dividing vvl), the chunk's values lie in contiguous runs, which move
+through shared memory as 16-byte vectors both ways
+(``kernels/lb_propagation/kernel.py``: ``lb_stage_copy``,
+``lb_stage_read``); every other launch, and a last partial chunk, loads
+and stores site by site.  The collision's roundings are pinned
+(``csrc/d3q19.cuh``), so K7 equals the plain version bitwise on the card.
+The wrapper takes physical tensors and ``layouts`` ("dist", "force",
+"out"; an input not named is SoA, out takes dist's layout).  On a CPU
+tensor it returns the plain version; on a CUDA tensor it launches the
+kernel or raises.
 """
 
 from __future__ import annotations

@@ -5,7 +5,14 @@ LB step), both in ``csrc/lb.cu``, and K9 (the tiled LB step,
 K8 replaces ``kernels/lb_propagation/kernel.py::propagate_pallas`` of the
 JAX package: a pull gather ``out_i(r) = f_i(r - c_i)`` with the periodic
 wrap inside the kernel, so the halo'd copy the TPU path stages is never
-built.  It moves data only and equals its plain version bitwise.
+built.  It moves data only and equals its plain version bitwise.  In SoA
+(and AoSoA with a SAL above K8_MAX_SAL) a thread takes a site and every
+velocity's loads coalesce.  In AoS and small-SAL AoSoA a block stages the
+rows of source records a tile of K8_TY x K8_W sites pulls from, walks
+K8_XS x-planes with the next plane's copy in flight, and stores whole
+records through an out stage (:func:`k8_tiles`, :func:`k8_row_copies`,
+:func:`k8_stage_reads`, :func:`k8_tiled_emulate` mirror it); any other
+launch goes site by site.
 
 K8 and K5L take every layout (SoA, AoS, AoSoA): each tensor comes with its
 layout, the kernels address it through INDEX, and the wrappers take
@@ -62,6 +69,7 @@ from . import ref
 
 __all__ = ["propagate_cuda", "propagate_plain", "lb_step_cuda", "lb_step_plain",
            "lb_step_stages", "lb_stage_copy", "lb_stage_read", "lb_push_sites", "LB_MAX_VVL",
+           "k8_tiles", "k8_block_tile", "k8_row_copies", "k8_stage_reads", "k8_tiled_emulate",
            "lb_step_tiled_cuda", "lb_step_tiled_plain", "tiled_walk", "PROPAGATE", "LB_STEP",
            "LB_STEP_BF16", "LB_STEP_TILED"]
 
@@ -72,14 +80,15 @@ LB_STEP_TILED = Kernel("lb_step_tiled", "rt_lb_step_tiled")
 K9_BLOCK = 256   # threads a K9 block (at most RT_K9_MAX_THREADS in lb_tiled.cu)
 
 
-# K5L's staged loads: the most sites a chunk (lb.cu)
+# K5L's and K7's staged chunks: the most sites a chunk (lb.cu)
 LB_MAX_VVL = csrc_define("lb.cu", "RT_LB_MAX_VVL")
 
 
 def lb_step_stages(nsites: int, vvl: int, layout: Layout) -> bool:
-    """Whether K5L stages the loads of a launch over ``nsites`` sites in
-    chunks of ``vvl`` with every tensor in ``layout`` (``rt_lb_stages`` of
-    ``csrc/lb.cu``, the fields' alignment aside)."""
+    """Whether K5L stages the loads (and K7 its loads and stores) of a
+    launch over ``nsites`` sites in chunks of ``vvl`` with every tensor in
+    ``layout`` (``rt_lb_stages`` of ``csrc/lb.cu``, the fields' alignment
+    aside)."""
     if vvl % 4 or vvl > LB_MAX_VVL or 19 * nsites >= 2 ** 31:
         return False
     if layout.kind is LayoutKind.SOA:
@@ -116,6 +125,119 @@ def lb_push_sites(lattice, sites: torch.Tensor) -> torch.Tensor:
     z, y, x = sites % Z, (sites // Z) % Y, sites // (Y * Z)
     return ((((x[None] + cv[:, :1]) % X) * Y + (y[None] + cv[:, 1:2]) % Y) * Z
             + (z[None] + cv[:, 2:]) % Z)
+
+
+# K8's staged tiles (lb.cu): TY y-rows x W z-sites a tile, XS x-planes a block
+K8_TY = csrc_define("lb.cu", "RT_K8_TY")
+K8_W = csrc_define("lb.cu", "RT_K8_W")
+K8_XS = csrc_define("lb.cu", "RT_K8_XS")
+K8_MAX_SAL = csrc_define("lb.cu", "RT_K8_MAX_SAL")
+K8_SLOTS = csrc_define("lb.cu", "RT_K8_SLOTS")   # plane slots of a block's ring
+K8_EDGE = csrc_define("lb.cu", "RT_K8_EDGE")
+K8_ROW = (K8_W * 19 + 2 * K8_EDGE + 3) & ~3   # floats of a staged row (RT_K8_ROW)
+K8_EDGE_VELOCITIES = (5, 11, 13, 15, 17)      # c_z = +1; each one more has c_z = -1
+
+
+def k8_tiles(lattice, layout: Layout) -> bool:
+    """Whether K8 runs a launch with dist and out in ``layout`` on staged
+    tiles (``rt_k8_tiles`` of ``csrc/lb.cu``, the fields' alignment aside):
+    AoS, or AoSoA with a power-of-two SAL of at most K8_MAX_SAL; Z a
+    multiple of K8_W, Y of K8_TY; 19 V < 2^31."""
+    X, Y, Z = _check_3d(lattice)
+    if layout.kind is LayoutKind.AOSOA:
+        if layout.sal > min(K8_MAX_SAL, K8_W) or layout.sal & (layout.sal - 1):
+            return False
+    elif layout.kind is not LayoutKind.AOS:
+        return False
+    return Z % K8_W == 0 and Y % K8_TY == 0 and 19 * X * Y * Z < 2 ** 31
+
+
+def k8_block_tile(lattice, block: int) -> Tuple[int, int, int, int]:
+    """(x0, y0, z0, xs): the tile of K8 block ``block`` and the x-planes it
+    walks."""
+    X, Y, Z = lattice
+    ntz, nty = Z // K8_W, Y // K8_TY
+    z0 = block % ntz * K8_W
+    y0 = block // ntz % nty * K8_TY
+    x0 = block // (ntz * nty) * K8_XS
+    return x0, y0, z0, min(K8_XS, X - x0)
+
+
+def k8_row_copies(lattice, layout: Layout, x0: int, y0: int, z0: int, pi: int, q: int):
+    """(run, edges) of staged row q of plane pi (x = x0 - 1 + pi, y = y0 -
+    1 + q, both periodic): ``run``, the device float where the row's W
+    records z0 .. z0 + W - 1 start (W 19 floats, one 16-byte aligned run,
+    copied to the row's floats [0, 19 W)); ``edges``, the device offsets of
+    the 2 K8_EDGE values copied after it: the c_z = +1 velocities of record
+    z0 - 1, then the c_z = -1 ones of record z0 + W (periodic)."""
+    X, Y, Z = lattice
+    V = X * Y * Z
+    rs = ((x0 - 1 + pi) % X * Y + (y0 - 1 + q) % Y) * Z
+    left = [layout.flat_index(i, rs + (z0 - 1) % Z, 19, V) for i in K8_EDGE_VELOCITIES]
+    right = [layout.flat_index(i + 1, rs + (z0 + K8_W) % Z, 19, V) for i in K8_EDGE_VELOCITIES]
+    return (rs + z0) * 19, left + right
+
+
+def k8_stage_reads(layout: Layout, j: int) -> torch.Tensor:
+    """The stage offset from which each thread of a block reads each
+    velocity i at step j (x = x0 + j), (19, TY * W): in the row of its
+    source (x - c_x, y - c_y), INDEX over the row's W sites of z - c_z, or
+    i's edge value where z - c_z leaves the tile."""
+    t = torch.arange(K8_TY * K8_W, dtype=torch.int64)
+    tz, ty = t % K8_W, t // K8_W
+    offset = torch.zeros((19, t.numel()), dtype=torch.int64)
+    for i in range(19):
+        cx, cy, cz = (int(c) for c in d3q19.CV[i])
+        row = (((j + 1 - cx) % K8_SLOTS) * (K8_TY + 2) + ty + 1 - cy) * K8_ROW
+        zs = tz - cz
+        inside = (zs >= 0) & (zs < K8_W)
+        edge = 0
+        if cz:
+            edge = K8_W * 19 + (cz < 0) * K8_EDGE + K8_EDGE_VELOCITIES.index(i - (cz < 0))
+        offset[i] = row + torch.where(inside, layout.flat_index(i, zs % K8_W, 19, K8_W), edge)
+    return offset
+
+
+def k8_tiled_emulate(flat: torch.Tensor, lattice, layout: Layout) -> torch.Tensor:
+    """K8's staged tiles run on a flat dist in ``layout``, block by block and
+    step by step as the kernel does (its row copies, reads, out stage and
+    stores), returning the flat out: propagate_plain's bits when the address
+    maps are right.  A slot is NaN before each plane's copy, so a read of a
+    float the copy does not write shows."""
+    X, Y, Z = _check_3d(lattice)
+    R, run = K8_TY + 2, K8_W * 19
+    out = torch.full_like(flat, float("nan"))
+    written = torch.zeros(flat.numel(), dtype=torch.int64)
+    t = torch.arange(K8_TY * K8_W)
+    for b in range((Z // K8_W) * (Y // K8_TY) * -(-X // K8_XS)):
+        x0, y0, z0, xs = k8_block_tile(lattice, b)
+        stage = torch.full((K8_SLOTS * R * K8_ROW,), float("nan"), dtype=flat.dtype)
+
+        def load(pi):
+            slot = (pi % K8_SLOTS) * R * K8_ROW
+            stage[slot:slot + R * K8_ROW] = float("nan")
+            for q in range(R):
+                lo, edges = k8_row_copies(lattice, layout, x0, y0, z0, pi, q)
+                at = slot + q * K8_ROW
+                assert lo % 4 == 0 and at % 4 == 0
+                stage[at:at + run] = flat[lo:lo + run]
+                stage[at + run:at + run + 2 * K8_EDGE] = flat[torch.tensor(edges)]
+
+        for pi in range(3):
+            load(pi)
+        for j in range(xs):
+            if j + 3 <= xs + 1:
+                load(j + 3)
+            o = stage[k8_stage_reads(layout, j)]
+            ost = torch.empty(K8_TY * run, dtype=flat.dtype)
+            for i in range(19):
+                ost[t // K8_W * run + layout.flat_index(i, t % K8_W, 19, K8_W)] = o[i]
+            for r in range(K8_TY):
+                dst = (((x0 + j) * Y + y0 + r) * Z + z0) * 19
+                out[dst:dst + run] = ost[r * run:(r + 1) * run]
+                written[dst:dst + run] += 1
+    assert bool((written == 1).all()), "K8's tiles write every output exactly once"
+    return out
 
 
 def _check_3d(lattice: Sequence[int]) -> Tuple[int, int, int]:

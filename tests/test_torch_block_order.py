@@ -14,7 +14,11 @@ every neighbour a site reads computed by a block at most a brick's reuse
 distance away.  K5L's staged loads and its push (``csrc/lb.cu``,
 mirrored by ``lb_stage_copy``, ``lb_stage_read`` and ``lb_push_sites``):
 each site's values read from the staged offset that holds them, and every
-(destination, velocity) written exactly once."""
+(destination, velocity) written exactly once.  K7's out stage (the same
+maps, run backwards): every output of a chunk stored exactly once.  K8's
+staged tiles (``k8_row_segment``, ``k8_stage_reads``, ``k8_tiled_emulate``):
+each velocity read from the staged record of its source on the periodic
+lattice, and the emulated kernel bitwise the plain version."""
 
 import math
 
@@ -203,3 +207,92 @@ def test_lb_push_writes_every_destination_once(lattice):
         dst = K8.lb_push_sites(lattice, torch.arange(s0, min(V, s0 + block)))
         seen.scatter_(1, dst, True)
     assert bool(seen.all())
+
+
+# -- K7's out stage and K8's staged tiles ---------------------------------------------
+
+@pytest.mark.parametrize("vvl", [32, 64, 128, 256])
+@pytest.mark.parametrize("spec", STAGE_LAYOUTS)
+def test_k7_out_stage_writes_each_output_once(spec, vvl):
+    """K7's staged chunk writes its outputs back through the stage: thread
+    l puts component c at the staged offset lb_stage_read gives, and the
+    block stores staged float4 e at lb_stage_copy's device offsets.  Every
+    (c, s) of a chunk reaches INDEX(c, s) exactly once, at (8, 8, 8) and
+    at the first, a middle and the last chunk of (256, 256, 256)."""
+    lay = parse_layout(spec)
+    for lattice in ((8, 8, 8), (256, 256, 256)):
+        V = math.prod(lattice)
+        full = V // vvl
+        read = K8.lb_stage_read(lay, 19, vvl)
+        assert torch.equal(torch.sort(read.reshape(-1)).values, torch.arange(19 * vvl))
+        for q in range(full) if V <= 4096 else (0, full // 2 + 1, full - 1):
+            s0 = q * vvl
+            dev = K8.lb_stage_copy(lay, 19, vvl, s0, V)[read]
+            want = lay.flat_index(torch.arange(19)[:, None], s0 + torch.arange(vvl)[None, :],
+                                  19, V)
+            assert torch.equal(dev, want), q
+
+
+# lattices K8 stages: extents 1, 2, 3 on x (its wrap onto itself), a last
+# x-slab that is partial (X not a multiple of K8_XS), several z-tiles, and
+# the wrap along every axis
+K8_TILE_LATTICES = [(1, 4, 32), (2, 8, 32), (3, 4, 64), (K8.K8_XS + 2, 8, 64), (5, 12, 96)]
+K8_TILE_LAYOUTS = ["aos"] + [f"aosoa{n}" for n in (2, 4, 8, 16, 32) if n <= K8.K8_MAX_SAL]
+
+
+@pytest.mark.parametrize("spec", K8_TILE_LAYOUTS)
+@pytest.mark.parametrize("lattice", K8_TILE_LATTICES, ids=lambda t: "x".join(map(str, t)))
+def test_k8_tiles_emulate_propagate(lattice, spec):
+    """K8's staged tiles run in Python (k8_tiled_emulate: the kernel's row
+    segments, stage, reads, out stage and stores, every output written
+    exactly once) equal propagate_plain bitwise; unstaged floats of the
+    stage are NaN, so a read outside the staged runs would show."""
+    lay = parse_layout(spec)
+    V = math.prod(lattice)
+    assert K8.k8_tiles(lattice, lay)
+    d = lay.pack(torch.randn((19, V), generator=torch.Generator().manual_seed(V)))
+    got = K8.k8_tiled_emulate(d.reshape(-1), lattice, lay)
+    assert torch.equal(got, K8.propagate_plain(d, lattice, {"dist": lay}).reshape(-1))
+
+
+@pytest.mark.parametrize("spec", K8_TILE_LAYOUTS)
+@pytest.mark.parametrize("lattice", K8_TILE_LATTICES[:3], ids=lambda t: "x".join(map(str, t)))
+def test_k8_stage_reads_hold_each_source(lattice, spec):
+    """Each (velocity i, site s) of a tile step reads, at the stage offset
+    k8_stage_reads gives, the float that the plane's row copies
+    (k8_row_copies: a 16-byte aligned run of the tile's W records and the
+    edge values) put there from INDEX(i, s - c_i) on the periodic lattice:
+    the stage covers every source, the wrap along every axis included."""
+    lay = parse_layout(spec)
+    X, Y, Z = lattice
+    V = X * Y * Z
+    R, run = K8.K8_TY + 2, K8.K8_W * 19
+    cv = torch.from_numpy(K8.d3q19.CV.astype("int64"))
+    t = torch.arange(K8.K8_TY * K8.K8_W)
+    for b in range((Z // K8.K8_W) * (Y // K8.K8_TY) * -(-X // K8.K8_XS)):
+        x0, y0, z0, xs = K8.k8_block_tile(lattice, b)
+        # the device float behind each stage offset of the planes of step j
+        held = torch.full((K8.K8_SLOTS * R * K8.K8_ROW,), -1, dtype=torch.int64)
+        for j in range(xs):
+            for pi in range(j, j + 3):
+                for q in range(R):
+                    lo, edges = K8.k8_row_copies(lattice, lay, x0, y0, z0, pi, q)
+                    assert lo % 4 == 0 and len(edges) == 2 * K8.K8_EDGE
+                    at = ((pi % K8.K8_SLOTS) * R + q) * K8.K8_ROW
+                    held[at:at + K8.K8_ROW] = -1
+                    held[at:at + run] = torch.arange(lo, lo + run)
+                    held[at + run:at + run + len(edges)] = torch.tensor(edges)
+            off = K8.k8_stage_reads(lay, j)
+            x, y, z = x0 + j, y0 + t // K8.K8_W, z0 + t % K8.K8_W
+            for i in range(19):
+                src = (((x - cv[i, 0]) % X * Y + (y - cv[i, 1]) % Y) * Z + (z - cv[i, 2]) % Z)
+                assert torch.equal(held[off[i]], lay.flat_index(i, src, 19, V)), (b, j, i)
+
+
+@pytest.mark.parametrize("lattice,spec", [
+    ((4, 4, 32), "soa"), ((4, 4, 32), f"aosoa{2 * K8.K8_MAX_SAL}"), ((4, 4, 40), "aos"),
+    ((4, 6, 32), "aos"), ((4, 4, 36), "aosoa4"), ((2, 1, 3), "aos")])
+def test_k8_tiles_refused(lattice, spec):
+    """SoA and SALs above K8_MAX_SAL, Z not a multiple of K8_W and Y not
+    of K8_TY take K8's site-by-site path."""
+    assert not K8.k8_tiles(lattice, parse_layout(spec))

@@ -1655,3 +1655,96 @@ def test_lb_step_staged_loads_equal_soa(card, spec, rng):
         assert torch.equal(K8.lb_step_cuda(dist, force, 0.8, lat, vvl)[0], want[0])
     c = K7.collide_cuda(d, f, 0.8, 128, layouts={"dist": lay, "force": lay, "out": lay})
     assert torch.equal(K8.propagate_cuda(c, lat, 128, layouts={"dist": lay}), d2)
+
+
+# -- K7's staged chunks, K8's staged tiles and the collision's pinned roundings --------
+
+K7_LAYOUTS = ["aos", "aosoa2", "aosoa4", "aosoa8", "aosoa16", "aosoa32", "aosoa6"]
+
+
+def _lb_dist(rng, card, V):
+    w = torch.tensor([1 / 3] + [1 / 18] * 6 + [1 / 36] * 12)[:, None]
+    return (w * (1 + 0.1 * torch.from_numpy(rng.normal(size=(19, V)).astype(np.float32)))).to(card)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("spec", K7_LAYOUTS)
+def test_k7_in_every_layout_bitwise_soa_and_plain(card, spec, rng):
+    """K7 at vvl 32, 64, 128 and 256 on LB_STAGE_LAT (a partial last chunk
+    at 64, 128 and 256): staged chunks where the SAL divides vvl, site by
+    site elsewhere, each launch bitwise the SoA launch at vvl 128, which is
+    bitwise collide_plain on the card (the collision's pinned roundings);
+    force in SoA beside dist in the layout (mixed: site by site) and dist
+    one float off 16-byte alignment (site by site) bitwise the same."""
+    lay = parse_layout(spec)
+    lat = LB_STAGE_LAT
+    V = int(np.prod(lat))
+    dist, force = _lb_dist(rng, card, V), _dev(rng, (3, V), card, scale=1e-3)
+    want = K7.collide_cuda(dist, force, 0.8, 128)
+    assert _bits(want, K7.collide_plain(dist, force, 0.8))
+    d, f = lay.pack(dist), lay.pack(force)
+    L = {"dist": lay, "force": lay, "out": lay}
+    for vvl in (32, 64, 128, 256):
+        _same(K7.collide_cuda(d, f, 0.8, vvl, layouts=L), lay, want, f"collide vvl {vvl}")
+        assert _bits(K7.collide_cuda(dist, force, 0.8, vvl), want), vvl
+    _same(K7.collide_cuda(d, force, 0.8, 64, layouts={"dist": lay, "force": SOA, "out": lay}),
+          lay, want, "collide, force in SoA")
+    _same(K7.collide_cuda(_misaligned(d), f, 0.8, 128, layouts=L), lay, want,
+          "collide, dist misaligned")
+    assert _bits(K7.collide_plain(d, f, 0.8, L), K7.collide_cuda(d, f, 0.8, 128, layouts=L))
+
+
+# K8's tiles: extents 1, 2 and 3 on x, a last x-slab that is partial (X 9,
+# 5), whole tiles on y and z (staged) or not (Y 6, Z 40: site by site)
+K8_LATTICES = [(1, 4, 32), (2, 8, 64), (3, 4, 32), (9, 4, 32), (5, 8, 96), (16, 12, 64),
+               (4, 6, 32), (3, 4, 40), (2, 1, 3)]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("lat", K8_LATTICES, ids=lambda t: "x".join(map(str, t)))
+def test_k8_in_every_layout_bitwise_plain(card, lat, rng):
+    """K8 in soa and every layout of K7_LAYOUTS that tiles the lattice, at
+    vvl 32, 64, 128 and 256, bitwise propagate_plain; in aos also with dist
+    one float off 16-byte alignment, and in mixed layouts."""
+    V = int(np.prod(lat))
+    dist = _lb_dist(rng, card, V)
+    want = K8.propagate_plain(dist, lat)
+    for spec in ["soa"] + K7_LAYOUTS:
+        lay = parse_layout(spec)
+        if not lay.fits(V):
+            continue
+        d = lay.pack(dist)
+        for vvl in (32, 64, 128, 256):
+            _same(K8.propagate_cuda(d, lat, vvl, layouts={"dist": lay}), lay, want,
+                  f"propagate vvl {vvl}")
+        assert _bits(K8.propagate_cuda(d, lat, 128, layouts={"dist": lay}),
+                     K8.propagate_plain(d, lat, {"dist": lay}))
+    aos = parse_layout("aos")
+    _same(K8.propagate_cuda(_misaligned(aos.pack(dist)), lat, 128, layouts={"dist": aos}), aos,
+          want, "propagate, dist misaligned")
+    _same(K8.propagate_cuda(aos.pack(dist), lat, 128, layouts={"dist": aos, "out": SOA}), SOA,
+          want, "propagate, aos to soa")
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("spec", ["soa", "aos", "aosoa4", "aosoa16"])
+def test_pinned_collision_bitwise_plain(card, spec, rng):
+    """With the collision's roundings pinned (csrc/d3q19.cuh), K5L's dist2
+    and u, its policy instance's bf16 dist2 and u, and (in SoA) K9's dist2
+    and u are bitwise their plain versions on the card."""
+    lay = parse_layout(spec)
+    lat = (8, 8, 16)
+    V = int(np.prod(lat))
+    dist, force = _lb_dist(rng, card, V), _dev(rng, (3, V), card, scale=1e-3)
+    d, f = lay.pack(dist), lay.pack(force)
+    L = {"dist": lay, "force": lay, "dist2": lay, "u": lay}
+    for bf16 in (False, True):
+        got = K8.lb_step_cuda(d, f, 0.8, lat, 128, layouts=L, bf16=bf16)
+        want = K8.lb_step_plain(d, f, 0.8, lat, layouts=L, bf16=bf16)
+        for g, w in zip(got, want):
+            assert _bits(g.float(), w.float()), (spec, bf16)
+    if spec == "soa":
+        for tile in ((1, 4, 8), (8, 8, 16)):
+            got = K8.lb_step_tiled_cuda(dist, force, 0.8, lat, tile)
+            want = K8.lb_step_tiled_plain(dist, force, 0.8, lat, tile)
+            assert _bits(got[0], want[0]) and _bits(got[1], want[1]), tile

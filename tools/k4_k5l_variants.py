@@ -35,7 +35,8 @@ from pathlib import Path
 import torch
 
 ROOT = Path(__file__).resolve().parents[1]
-# name -> (tree, source, {define: value}); tree "this" or "parent"
+# name -> (tree, source, {define: value}[, this tree's headers copied over
+# the tree's]); tree "this" or "parent"
 K4_VARIANTS = {"parent": ("parent", "dslash.cu", {}), "this": ("this", "dslash.cu", {}),
                "ws_4_blocks": ("this", "dslash.cu", {"RT_DSLASH_WS_MIN_BLOCKS": 4})}
 K5L_VARIANTS = {"parent": ("parent", "lb.cu", {}), "this": ("this", "lb.cu", {})}
@@ -64,10 +65,12 @@ def build(_cuda, variants, parent_csrc):
     """Compile every variant at once; returns ({name: CDLL}, {name: ptxas
     lines of its kernels})."""
     procs, libs = {}, {}
-    for name, (tree, src, defines) in variants.items():
+    for name, (tree, src, defines, *headers) in variants.items():
         csrc = _cuda.BUILD_DIR / f"variant_{name}"
         shutil.rmtree(csrc, ignore_errors=True)
         shutil.copytree(_cuda.CSRC if tree == "this" else parent_csrc, csrc)
+        for header in headers:
+            shutil.copy(_cuda.CSRC / header, csrc / header)
         path = csrc / src
         text = path.read_text()
         for key, value in defines.items():
@@ -97,12 +100,13 @@ def build(_cuda, variants, parent_csrc):
     return dlls, ptxas
 
 
-def turns(runs, label):
-    """runs: {variant: fn -> outputs}; the outputs bitwise the first
-    variant's, then each timed in turns; returns {variant: [ms, ms]}."""
+def turns(runs, label, check=True):
+    """runs: {variant: fn -> outputs}; with ``check`` the outputs bitwise
+    the first variant's; then each timed in turns; returns {variant: [ms,
+    ms]}."""
     names = list(runs)
-    ref = runs[names[0]]()
-    for n in names[1:]:
+    ref = runs[names[0]]() if check else ()
+    for n in names[1:] if check else ():
         for k, (a, b) in enumerate(zip(runs[n](), ref)):
             if not torch.equal(a.contiguous().view(torch.int16), b.contiguous().view(torch.int16)):
                 raise AssertionError(f"{label}: {n} output {k} not bitwise {names[0]}'s")

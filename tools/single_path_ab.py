@@ -1,8 +1,10 @@
 """Time the MILC single solve's path on the card: its kernels and one CG
 iteration, through the port found under ``--src``, so that two versions of
-the port (two checkouts' ``src``) can be compared in one call.
+the port (two checkouts' ``src``) can be compared in one call; with
+``--ludwig``, also the Ludwig step.
 
   python3 tools/single_path_ab.py [--src DIR] [--fold sum] [--lattice 64 64 64 32]
+                                  [--ludwig 256 256 256]
 
 The gauge field and source are random normal numbers drawn on the card (a
 timing needs no SU(3) field, and drawing one on the host takes minutes at
@@ -13,8 +15,11 @@ has it) by ``sum`` over the last axis, to time what the fold costs.
 
 Kernels: CUDA events, median of 10.  The CG iteration: the median over
 ``--reps`` solves (after one warm-up solve) of a solve's wall time, set-up
-included, over its iterations.  Prints the card's name and power limit, then
-one JSON line.  Needs a CUDA device; exits with 1 without one.
+included, over its iterations.  The Ludwig step (``--ludwig``): from
+``init_state`` (seed 0) in SoA and repacked in AoS, one warm-up step, then
+``--reps`` runs of 10 synchronised steps, ms a step each.  Prints the
+card's name and power limit, then one JSON line.  Needs a CUDA device;
+exits with 1 without one.
 """
 
 from __future__ import annotations
@@ -59,6 +64,34 @@ def host_us(fn, reps: int = 1000) -> float:
     return (time.perf_counter() - t0) / reps * 1e6
 
 
+def ludwig_steps(lattice, reps, steps=10):
+    """{layout: [ms a step, one value a run of ``steps`` steps]} for the
+    Ludwig step from init_state in SoA and AoS."""
+    from repro_torch.apps.ludwig import LudwigConfig, LudwigState, init_state, step
+    from repro_torch.core import TargetConfig, parse_layout
+
+    cfg = LudwigConfig(lattice=lattice, target=TargetConfig("cuda", device="cuda"))
+    state = init_state(cfg, seed=0)
+    out = {}
+    for spec in ("soa", "aos"):
+        lay = parse_layout(spec)
+        lcfg = LudwigConfig(lattice=lattice, layout=lay, target=cfg.target)
+        s = LudwigState(dist=state.dist.as_layout(lay), q=state.q.as_layout(lay))
+        s = step(s, lcfg)
+        runs = []
+        for _ in range(reps):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            for _ in range(steps):
+                s = step(s, lcfg)
+            torch.cuda.synchronize()
+            runs.append((time.perf_counter() - t0) / steps * 1e3)
+        out[spec] = runs
+        del s
+        torch.cuda.empty_cache()
+    return out
+
+
 def main():
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     ap.add_argument("--src", default=str(Path(__file__).resolve().parents[1] / "src"),
@@ -68,6 +101,7 @@ def main():
     ap.add_argument("--iterations", type=int, default=26)
     ap.add_argument("--reps", type=int, default=5)
     ap.add_argument("--label", default="")
+    ap.add_argument("--ludwig", type=int, nargs=3, default=None)
     args = ap.parse_args()
     if not torch.cuda.is_available():
         print("no CUDA device", file=sys.stderr)
@@ -129,6 +163,11 @@ def main():
            "ms_per_iteration": statistics.median(solve_s) / args.iterations * 1e3,
            "ms_per_iteration_all": [s / args.iterations * 1e3 for s in solve_s],
            "host_us_per_fold_call": fold_us}
+    if args.ludwig:
+        del u, b, rr
+        torch.cuda.empty_cache()
+        out["ludwig"] = list(args.ludwig)
+        out["ludwig_ms_per_step"] = ludwig_steps(tuple(args.ludwig), args.reps)
     print(json.dumps(out), flush=True)
 
 
