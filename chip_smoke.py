@@ -165,6 +165,41 @@ Y3. with every count set to 0 before each: 10 steps from the L1 state
    paths launched, and one ``step_timed``; ms a step (the paper's Fig. 3
    layout x VVL panel); the
    layouts' numbers are printed as one JSON line before the kernel table;
+V1. (after Y2 and after Y3) the block view at full width, with every count
+   set to 0 before each: the MILC solve of Y2 in V1_MILC_LAYOUT (aosoa8,
+   whose SAL ``block_view_ok`` accepts for the ring-2 halos of p and u)
+   under ``LoweringPlan("cuda", vvl=128, bx=1, view="block")``: iterations
+   and x bitwise Y2's (phase 4's), |M x - b| / |b| < 1e-3, every kernel of
+   the path launched; one block-view CG iteration's launches (the operator
+   graph, the update chain, the xpay) under torch.profiler show only the
+   hand kernels (no copy or elementwise kernel of a relayout); 10 Ludwig
+   steps in V1_LUDWIG_LAYOUT (aosoa4) under the same plan bitwise L3's,
+   every kernel of the step launched; the LB step graph in aosoa16 (SAL 16
+   does not divide the halo'd inner plane, 258 x 258) under the block plan
+   raises before any launch;
+RS1. (after Y2) split reductions at full width, with every count set to 0
+   before each window: the solve of phase 4 in SoA under
+   ``LoweringPlan("cuda", vvl=128, bx=1, rsplit=RSPLIT)``: |M x - b| /
+   |b| < 1e-3, iterations within +-1 of phase 4's, x within rel-L2 1e-4,
+   rr, pap and the standalone sums folded through K2S (the unsplit fold
+   never launched), a second run bitwise the first; ``solve_batched`` of
+   two copies of b under the plan, each slot bitwise the split solve
+   (K2S batched); the refined solve (storage bfloat16) under the plan,
+   within P2's checks (K2S compensated folds pap's pairs); K2S single,
+   batched (4 slots) and compensated bitwise ``fold_tree_split`` run on
+   the card at rsplit 2, 4 and 16 on phase 3's partial tables and at 1 and
+   3 rows; cg_update's and wilson_normal's field outputs bitwise the
+   unsplit launch; K2's int32 sum (one component past 2^31, wrapping) and
+   max of a 24-component field at ``--lattice`` in SoA, AoS and aosoa16
+   bitwise ``torch.sum(dtype=int32)``/``amax``, also under rsplit 4; its
+   bf16 sum and max of the LB step's bf16 dist2 (P4's storage) at
+   ``--ludwig`` bitwise its tree on the widened field and the sum within
+   one bf16 ulp of the fp64 sum rounded; in a counted window of their own,
+   the standalone ``target_sum``/``target_max`` of those fields (no driver
+   path reduces them); every new kernel timed (CUDA events, median of 10)
+   beside its bound, its plain version and ``torch.sum``/``amax`` on the
+   same tensor (the folds also from a CUDA graph); one JSON line before
+   the kernel table;
 T1. on the L1 state, the plan ``default_plan`` picks for the LB half-step
    under a 227 KiB shared-memory budget (at (256, 256, 256): bx 1, by 4,
    bz 64); K9's shared memory a block (none) and its blocks an SM (from
@@ -248,9 +283,11 @@ A3. ``generate`` serves 4 requests, a 16-token prompt then 16 greedy tokens,
    beside the bound of reading the weights and the cache once; one decode
    step traced; on the fp32 copy, the decode's logits after the prompt
    within rel-L2 1e-3 of the prefill's at the last prompt position;
-6. print the layouts' JSON line, the kernel table of every path (the
-   layout instances as kernel@layout rows, with Y2's and Y3's launches;
-   the batch instances with S2's) as one JSON line, then the result line.
+6. print the layouts' JSON line, the serving, redesign, mixed-precision
+   and V1/RS1 lines, the kernel table of every path (the layout instances
+   as kernel@layout rows, with Y2's and Y3's launches; the batch instances
+   with S2's; K2S and K2's int32 and bf16 instances with RS1's windows) as
+   one JSON line, then the result line.
 """
 
 from __future__ import annotations
@@ -277,6 +314,7 @@ from repro_torch.apps.ludwig import LudwigConfig, init_state, step  # noqa: E402
 from repro_torch.apps.ludwig import driver as ludwig  # noqa: E402
 from repro_torch.apps.ludwig import kernel as lk  # noqa: E402
 from repro_torch.apps.milc import MilcConfig, init_problem, residual_check, solve  # noqa: E402
+from repro_torch.apps.milc import cg as cg_mod  # noqa: E402
 from repro_torch.apps.milc import fields as milc_fields  # noqa: E402
 from repro_torch.apps.milc.cg import (batched_cg_active, batched_cg_iteration,  # noqa: E402
                                       batched_cg_state, make_fused_normal, make_wilson_op)
@@ -284,7 +322,7 @@ from repro_torch.apps.milc.driver import solve_batched  # noqa: E402
 from repro_torch.configs import get_arch  # noqa: E402
 from repro_torch.core import (SOA, BatchedField, DtypePolicy, Field, TargetConfig,  # noqa: E402
                               parse_layout)
-from repro_torch.core.plan import CudaPolicy  # noqa: E402
+from repro_torch.core.plan import CudaPolicy, LoweringPlan, block_view_ok  # noqa: E402
 from repro_torch.core import fuse, plan, reduce, target  # noqa: E402
 from repro_torch.kernels.flash_attention import kernel as kf  # noqa: E402
 from repro_torch.kernels.lb_collision import collide  # noqa: E402
@@ -320,7 +358,10 @@ KERNELS = [target.G5, target.MUL, target.AXPY, reduce.REDUCE_SUM,
            reduce.REDUCE_SUM_B, reduce.REDUCE_MAX_B, reduce.REDUCE_FOLD_B,
            wk.WILSON_NORMAL_T_MIXED, wk.WILSON_NORMAL_AP_MIXED, fuse.CG_UPDATE_AP16,
            fuse.CG_UPDATE_MASKED_AP16, reduce.REDUCE_SUM_C, reduce.REDUCE_FOLD_C,
-           k8.LB_STEP_BF16, wk.BF16_ROUND, wk.BF16_PACK]
+           k8.LB_STEP_BF16, wk.BF16_ROUND, wk.BF16_PACK, reduce.REDUCE_FOLD_S,
+           reduce.REDUCE_FOLD_SB, reduce.REDUCE_FOLD_SC, reduce.REDUCE_SUM_I32,
+           reduce.REDUCE_MAX_I32, reduce.REDUCE_FOLD_I32, reduce.REDUCE_SUM_BF16,
+           reduce.REDUCE_MAX_BF16, reduce.REDUCE_FOLD_BF16]
 
 # flops a site, counted from the sources (all these kernels are bound by bytes)
 FLOPS = {"collide": 450, "lb_step": 462, "chem_stress": 600, "lc_update": 320, "fed": 160}
@@ -481,6 +522,31 @@ P4_REL, P4_ENGINE_REL = 1e-2, 1e-3
 LAYOUT_SPECS = ("soa", "aos", "aosoa4", "aosoa8", "aosoa16", "aosoa64", "aosoa128")
 LAYOUTS = [parse_layout(n) for n in LAYOUT_SPECS]
 Y3_VVLS = (32, 64, 128, 256)
+
+# V1: the block view's layouts (SAL dividing every halo'd inner plane)
+V1_MILC_LAYOUT, V1_LUDWIG_LAYOUT, V1_MISALIGNED = "aosoa8", "aosoa4", "aosoa16"
+# RS1: split reductions.  Each window's kernels, as PATH's: the split solve
+# (the solve's path with K2S for the unsplit fold), the split batched solve,
+# the split refined solve, and the standalone int32 and bf16 reductions
+RSPLIT = 4
+RS_FACTORS, RS_SMALL_ROWS = (2, 4, 16), (1, 3)
+RS_PATH = {**{n: v for n, v in PATH.items() if n != "reduce_fold"},
+           "reduce_fold_split": ([reduce.REDUCE_FOLD_S], "reduce.cu",
+                                 "src/repro/core/reduce.py:106")}
+RS_BATCH_PATH = {"reduce_fold_split_batched": ([reduce.REDUCE_FOLD_SB], "reduce.cu",
+                                               "src/repro/core/fuse.py:209")}
+RS_COMP_PATH = {"reduce_fold_split_comp": ([reduce.REDUCE_FOLD_SC], "reduce.cu",
+                                           "src/repro/core/fuse.py:209")}
+RS_DTYPE_PATH = {
+    "reduce_sum_i32": ([reduce.REDUCE_SUM_I32], "reduce.cu", "src/repro/core/reduce.py:106"),
+    "reduce_max_i32": ([reduce.REDUCE_MAX_I32], "reduce.cu", "src/repro/core/reduce.py:106"),
+    "reduce_fold_i32": ([reduce.REDUCE_FOLD_I32], "reduce.cu", "src/repro/core/reduce.py:106"),
+    "reduce_sum_bf16": ([reduce.REDUCE_SUM_BF16], "reduce.cu", "src/repro/core/reduce.py:106"),
+    "reduce_max_bf16": ([reduce.REDUCE_MAX_BF16], "reduce.cu", "src/repro/core/reduce.py:106"),
+    "reduce_fold_bf16": ([reduce.REDUCE_FOLD_BF16], "reduce.cu",
+                         "src/repro/core/reduce.py:106"),
+}
+RS_WRAP_COMP = 3   # the int32 field's component whose sum passes 2^31
 
 T1_SLICE_TILES = (4, 4, 2)  # tiles a side of the sub-lattice tiled_plain runs on in T1
 T3_BUDGET, T3_TILE = 6512, (1, 1, 2)   # T3's budget and the tile it picks
@@ -3522,6 +3588,336 @@ def mixed_ludwig(state, after_steps, cfg, l3_ms, small):
                 engine_rel=erels, mass=[m0, m1]), counts, sum_counts
 
 
+# -- the block view (V1) and split reductions (RS1) ----------------------------------
+
+def halo_inner(lattice, ring):
+    """The site count of one x-plane of a lattice halo'd by ``ring``."""
+    return math.prod(s + 2 * ring for s in lattice[1:])
+
+
+def check_block_view(graph, outputs, lattice, lay):
+    """block_view_ok for ``graph``'s external inputs at the rings its width
+    analysis gives them, every input and output in ``lay``."""
+    rings = graph.halo_widths(outputs)
+    views = [(lay, halo_inner(lattice, r)) for r in rings.values()]
+    ok = block_view_ok(views, [lay] * len(outputs), math.prod(lattice[1:]))
+    log(f"V1: block_view_ok({lay.name}, rings {rings}, halo'd inner planes "
+        f"{[v for _, v in views]}) = {ok}")
+    if not ok:
+        raise AssertionError(f"V1: {lay.name} is not block-aligned for {graph.name}")
+
+
+def view_block_milc(cfg, u, b, x_soa, iterations):
+    """V1's MILC half: the solve in V1_MILC_LAYOUT under the block plan,
+    bitwise phase 4's (and so Y2's in that layout), then one iteration's
+    launches under torch.profiler."""
+    from torch.profiler import ProfilerActivity, profile
+
+    lay = parse_layout(V1_MILC_LAYOUT)
+    normal = cg_mod.wilson_normal_graph(cfg.kappa)
+    check_block_view(normal, ("ap", "pap"), cfg.lattice, lay)
+    block = LoweringPlan("cuda", vvl=cfg.target.vvl, bx=1, view="block")
+    vcfg = dataclasses.replace(cfg, layout=lay,
+                               target=dataclasses.replace(cfg.target, plan_policy=block))
+    ul, bl = u.as_layout(lay), b.as_layout(lay)
+    reset_counts()
+    res, solve_s = solve_timed(vcfg, ul, bl)
+    counts = path_counts(PATH)
+    rc = residual_check(vcfg, ul, bl, res.x)
+    ms_it = solve_s / max(res.iterations, 1) * 1e3
+    log(f"V1: solve {cfg.lattice} in {lay.name} under {block.describe()}: {res.iterations} "
+        f"iterations, {ms_it:.3f} ms/iter, |Mx-b|/|b| = {rc:.3e}; launches {counts}")
+    if res.iterations != iterations:
+        raise AssertionError(f"V1: {res.iterations} iterations, phase 4 took {iterations}")
+    exact_err(res.x.canonical(), x_soa, "V1: x against phase 4's (Y2's)")
+    if not rc < 1e-3:
+        raise AssertionError(f"V1: residual_check {rc} >= 1e-3")
+    idle = [n for n, c in counts.items() if c == 0]
+    if idle:
+        raise AssertionError(f"V1: kernels of the path never launched: {idle}")
+    # one CG iteration's launches under the block plan: the hand kernels alone
+    alpha = torch.tensor(0.37, device=bl.device)
+    neg = -alpha
+    upd, xpay = cg_mod.cg_update_graph(24), cg_mod.cg_xpay_graph(24)
+    hand = ("wilson_normal", "cg_update", "cg_xpay", "reduce_fold")
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        o = normal.launch({"p": bl, "u": ul}, config=vcfg.target, outputs=("ap", "pap"))
+        n = upd.launch({"x": res.x, "r": bl, "p": bl, "ap": o["ap"]},
+                       scalars={"alpha": alpha, "neg_alpha": neg}, config=vcfg.target,
+                       outputs=("x_new", "r_new", "rr"))
+        xpay.launch({"x": bl, "y": n["r_new"]}, scalars={"a": alpha}, config=vcfg.target)
+        torch.cuda.synchronize()
+    names = [e.key for e in prof.key_averages()
+             if e.device_type == torch.autograd.DeviceType.CUDA]
+    log(f"V1: one block-view CG iteration's device kernels: {names}")
+    if not names or not all(any(h in nm for h in hand) for nm in names) or not all(
+            any(h in nm for nm in names) for h in hand):
+        raise AssertionError(f"V1: the block-view iteration ran other kernels than the hand "
+                             f"ones {hand}: {names}")
+    del ul, bl, res, o, n
+    torch.cuda.empty_cache()
+    return dict(layout=lay.name, plan=block.describe(), ms_per_iteration=ms_it,
+                iterations=iterations, kernels=names)
+
+
+def view_block_ludwig(state, after_steps, cfg):
+    """V1's Ludwig half: LUDWIG_STEPS steps in V1_LUDWIG_LAYOUT under the
+    block plan, bitwise L3's; the misaligned layout refused before a launch."""
+    lay = parse_layout(V1_LUDWIG_LAYOUT)
+    lb = ludwig.lb_step_graph(cfg)
+    check_block_view(lb, ("dist2", "u"), cfg.lattice, lay)
+    block = LoweringPlan("cuda", vvl=cfg.target.vvl, bx=1, view="block")
+    vcfg = dataclasses.replace(cfg, layout=lay,
+                               target=dataclasses.replace(cfg.target, plan_policy=block))
+    s = ludwig.LudwigState(dist=state.dist.as_layout(lay), q=state.q.as_layout(lay))
+    reset_counts()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for _ in range(LUDWIG_STEPS):
+        s = step(s, vcfg)
+    torch.cuda.synchronize()
+    ms = (time.perf_counter() - t0) / LUDWIG_STEPS * 1e3
+    counts = path_counts(LUDWIG_PATH)
+    exact_err(s.dist.canonical(), after_steps.dist.data, "V1: dist against L3's")
+    exact_err(s.q.canonical(), after_steps.q.data, "V1: q against L3's")
+    # the step's kernels (ludwig_fed and K2 run in diagnostics, not in a step)
+    idle = [n for n, c in counts.items() if c == 0 and n in ("lb_step", "ludwig_chem_stress",
+                                                             "ludwig_lc_update")]
+    if idle:
+        raise AssertionError(f"V1: kernels of the step never launched: {idle}")
+    bad = parse_layout(V1_MISALIGNED)
+    fins = {"dist": state.dist.as_layout(bad),
+            "force": Field.from_canonical("force", torch.zeros((3, state.dist.nsites),
+                                                               device=state.dist.device),
+                                          cfg.lattice, bad)}
+    launches = k8.LB_STEP.launches
+    try:
+        lb.launch(fins, config=vcfg.target, outputs=("dist2", "u"))
+    except ValueError as e:
+        if "halo'd inner-plane" not in str(e) or k8.LB_STEP.launches != launches:
+            raise
+        log(f"V1: {bad.name} under the block plan refused before a launch: {e}")
+    else:
+        raise AssertionError(f"V1: a misaligned block view ({bad.name}) did not raise")
+    log(f"V1: ludwig {cfg.lattice} in {lay.name} under {block.describe()}: {ms:.3f} ms/step, "
+        f"dist and q bitwise L3's; launches {counts}")
+    del s, fins
+    torch.cuda.empty_cache()
+    return dict(layout=lay.name, ms_per_step=ms)
+
+
+def split_fold_cases(tbl, vvl):
+    """RS1's K2S checks: single, 4 slots and compensated on ``tbl`` (rows,
+    ncomp) and on its first 1 and 3 rows, bitwise fold_tree_split on the
+    card at every factor of RS_FACTORS."""
+    slots = torch.stack([tbl, tbl * 0.5, -tbl, tbl * 3.0])
+    pairs = torch.stack([tbl, tbl * 2.0 ** -30], dim=-1)
+    for t, sl, pr in ((tbl, slots, pairs),) + tuple(
+            (tbl[:r], slots[:, :r].contiguous(), pairs[:r]) for r in RS_SMALL_ROWS):
+        for rs in RS_FACTORS:
+            what = f"RS1 K2S, {t.shape[0]} rows, rsplit {rs}"
+            tree_err(reduce.fold_partials(t, "sum", rsplit=rs),
+                     reduce.fold_tree_split(t, rsplit=rs), what)
+            tree_err(reduce.fold_partials_batched(sl, "sum", rsplit=rs),
+                     reduce.fold_tree_split(sl, rsplit=rs), f"{what}, {SLOTS} slots")
+            tree_err(reduce.fold_partials(pr, "sum", compensated=True, rsplit=rs),
+                     reduce.fold_tree_split(pr, compensated=True, rsplit=rs),
+                     f"{what}, compensated")
+            exact_err(reduce.fold_partials(t, "max", rsplit=rs), t.amax(dim=0), f"{what}, max")
+    log(f"RS1: K2S (single, {SLOTS} slots, compensated) bitwise fold_tree_split at rsplit "
+        f"{RS_FACTORS} on {tuple(tbl.shape)} and {RS_SMALL_ROWS} rows")
+    return slots, pairs
+
+
+def split_reductions(cfg, u, b, x_soa, iterations, vvl, state, lcfg):
+    """RS1 (see the module docstring); returns (rows, line, counts)."""
+    rows, line, counts = {}, {}, {}
+    split = LoweringPlan("cuda", vvl=vvl, bx=1, rsplit=RSPLIT)
+    scfg = dataclasses.replace(cfg, target=dataclasses.replace(cfg.target, plan_policy=split))
+    # the split solve
+    reset_counts()
+    res, solve_s = solve_timed(scfg, u, b)
+    counts.update(path_counts(RS_PATH))
+    unsplit = reduce.REDUCE_FOLD.launches
+    rc = residual_check(scfg, u, b, res.x)
+    rel = rel_l2(res.x.data, x_soa)
+    ms_it = solve_s / max(res.iterations, 1) * 1e3
+    log(f"RS1: solve {cfg.lattice} under {split.describe()}: {res.iterations} iterations "
+        f"(phase 4: {iterations}), {ms_it:.3f} ms/iter, |Mx-b|/|b| = {rc:.3e}, x rel-L2 "
+        f"{rel:.3e} from phase 4's; launches {counts}, the unsplit fold {unsplit}")
+    if abs(res.iterations - iterations) > 1 or not rel <= 1e-4 or not rc < 1e-3:
+        raise AssertionError("RS1: the split solve is off phase 4's")
+    if unsplit:
+        raise AssertionError(f"RS1: the unsplit fold ran {unsplit} times in the split solve")
+    idle = [n for n, c in counts.items() if c == 0]
+    if idle:
+        raise AssertionError(f"RS1: kernels of the split path never launched: {idle}")
+    again = solve(scfg, u, b)
+    exact_err(again.x.data, res.x.data, "RS1: the split solve run twice")
+    # the split batched solve: each slot bitwise the split solve
+    reset_counts()
+    bres = solve_batched(scfg, u, [b, b])
+    counts.update(path_counts(RS_BATCH_PATH))
+    for k in range(2):
+        exact_err(bres.x.element(k).data, res.x.data, f"RS1: batched slot {k} vs the split solve")
+        if int(bres.iterations[k]) != res.iterations:
+            raise AssertionError(f"RS1: batched slot {k} took {int(bres.iterations[k])} "
+                                 f"iterations, the split solve {res.iterations}")
+    # the split refined solve: K5's policy pap folded by K2S compensated
+    reset_counts()
+    rres, rs_s = solve_timed(dataclasses.replace(scfg, storage="bfloat16"), u, b)
+    counts.update(path_counts(RS_COMP_PATH))
+    rrc = residual_check(cfg, u, b, rres.x)
+    rrel = rel_l2(rres.x.data, x_soa)
+    log(f"RS1: solve_batched of 2 x b bitwise the split solve; refined split solve "
+        f"{rres.iterations} inner iterations, {rs_s:.3f} s, |Mx-b|/|b| = {rrc:.3e}, x rel-L2 "
+        f"{rrel:.3e}; launches {counts}")
+    if not rrc < 1e-3 or not rrel < MIXED_REL_X:
+        raise AssertionError("RS1: the refined split solve is off phase 4's")
+    idle = [n for n in (*RS_BATCH_PATH, *RS_COMP_PATH) if counts[n] == 0]
+    if idle:
+        raise AssertionError(f"RS1: kernels never launched: {idle}")
+    line.update(solve_ms_per_iteration=ms_it, iterations=res.iterations, x_rel_l2=rel,
+                residual_check=rc, refined_iterations=rres.iterations, refined_s=rs_s)
+    del res, again, bres, rres
+    torch.cuda.empty_cache()
+
+    # K2S on phase 3's partial tables, timed
+    inp = milc_inputs(u, b, vvl)
+    tbl = inp["partials"]
+    slots, pairs = split_fold_cases(tbl, vvl)
+    nc = tbl.shape[1]
+    folds = {}
+    for name, fn, plain, lib, nbytes in (
+            ("reduce_fold_split", lambda: reduce.fold_partials(tbl, "sum", rsplit=RSPLIT),
+             lambda: reduce.split_plain(tbl, "sum", RSPLIT), lambda: torch.sum(tbl, dim=0),
+             tbl.numel() * 4 + 4 * nc),
+            ("reduce_fold_split_batched",
+             lambda: reduce.fold_partials_batched(slots, "sum", rsplit=RSPLIT),
+             lambda: torch.stack([reduce.split_plain(t, "sum", RSPLIT) for t in slots]),
+             lambda: torch.sum(slots, dim=1), slots.numel() * 4 + 4 * SLOTS * nc),
+            ("reduce_fold_split_comp",
+             lambda: reduce.fold_partials(pairs, "sum", compensated=True, rsplit=RSPLIT),
+             lambda: reduce.compensated_plain(pairs, dim=(0, 2)),
+             lambda: torch.sum(pairs.double(), dim=(0, 2)), pairs.numel() * 4 + 4 * nc)):
+        add_row(rows, name, 0.0, time_ms(fn), time_ms(plain), nbytes, nbytes // 4,
+                library_ms=time_ms(lib))
+        unsplit = ((lambda: reduce.fold_partials(tbl, "sum")) if name == "reduce_fold_split"
+                   else (lambda: reduce.fold_partials_batched(slots, "sum"))
+                   if name.endswith("batched")
+                   else (lambda: reduce.fold_partials(pairs, "sum", compensated=True)))
+        folds[name] = dict(graph_ms=graph_ms(fn), graph_library_ms=graph_ms(lib),
+                           unsplit_ms=time_ms(unsplit), unsplit_graph_ms=graph_ms(unsplit))
+        log(f"  {name}: from a CUDA graph {folds[name]['graph_ms']:.4f} ms (torch.sum "
+            f"{folds[name]['graph_library_ms']:.4f}); the unsplit fold a call "
+            f"{folds[name]['unsplit_ms']:.4f} ms, from a graph "
+            f"{folds[name]['unsplit_graph_ms']:.4f}")
+    # the fused kernels' field outputs do not change with the split
+    psi, uu, y, p, ap, alpha = (inp[n] for n in ("psi", "u", "y", "p", "ap", "alpha"))
+    whole = fuse.cg_update(psi, y, p, ap, alpha, -alpha, vvl)
+    parts = fuse.cg_update(psi, y, p, ap, alpha, -alpha, vvl, rsplit=RSPLIT)
+    exact_err(parts[0], whole[0], "RS1: cg_update x_new split vs unsplit")
+    exact_err(parts[1], whole[1], "RS1: cg_update r_new split vs unsplit")
+    sum_err(parts[2], whole[2], whole[1] * whole[1], "RS1: cg_update rr split vs unsplit")
+    wn = wk.wilson_normal_cuda(psi, uu, KAPPA, cfg.lattice, vvl)
+    ws = wk.wilson_normal_cuda(psi, uu, KAPPA, cfg.lattice, vvl, rsplit=RSPLIT)
+    exact_err(ws[0], wn[0], "RS1: wilson_normal ap split vs unsplit")
+    sum_err(ws[1], wn[1], psi * wn[0], "RS1: wilson_normal pap split vs unsplit")
+    log("RS1: cg_update's and wilson_normal's field outputs bitwise the unsplit launch")
+    del inp, tbl, slots, pairs, whole, parts, wn, ws, psi, uu, y, p, ap
+    torch.cuda.empty_cache()
+
+    # the int32 and bf16 instances
+    V, dev = math.prod(cfg.lattice), b.data.device
+    gen = torch.Generator(device=dev).manual_seed(5)
+    xi = torch.randint(-2**24, 2**24, (24, V), generator=gen, device=dev, dtype=torch.int32)
+    xi[RS_WRAP_COMP] = 2**30 + 7
+    want_i = {"sum": xi.sum(dim=1, dtype=torch.int32), "max": xi.amax(dim=1)}
+    wide = int(xi[RS_WRAP_COMP].double().sum())
+    if int(want_i["sum"][RS_WRAP_COMP]) == wide:
+        raise AssertionError("RS1: the int32 field's sum does not pass 2^31")
+    for spec in ("soa", "aos", "aosoa16"):
+        lay = parse_layout(spec)
+        xl = lay.pack(xi)
+        for op, w in want_i.items():
+            exact_err(reduce.reduce_sites(xl, op, vvl, layouts={"x": lay}), w,
+                      f"RS1: int32 {op} in {spec}")
+            exact_err(reduce.reduce_sites(xl, op, vvl, layouts={"x": lay}, rsplit=RSPLIT), w,
+                      f"RS1: int32 {op} in {spec}, rsplit {RSPLIT}")
+        del xl
+    log(f"RS1: int32 sum (component {RS_WRAP_COMP}: {wide} wraps to "
+        f"{int(want_i['sum'][RS_WRAP_COMP])}) and max bitwise torch's in soa, aos, aosoa16, "
+        f"unsplit and at rsplit {RSPLIT}")
+    itbl = torch.randint(-2**30, 2**30, (reduce.partial_rows(V), 24), generator=gen, device=dev,
+                         dtype=torch.int32)
+    nb = 96 * V
+    for op, lib in (("sum", lambda: torch.sum(xi, dim=1, dtype=torch.int32)),
+                    ("max", lambda: torch.amax(xi, dim=1))):
+        add_row(rows, f"reduce_{op}_i32", 0.0, time_ms(lambda: reduce.reduce_sites(xi, op, vvl)),
+                time_ms(lambda: reduce.reduce_plain(xi, op)), nb, 24 * V,
+                library_ms=time_ms(lib))
+    exact_err(reduce.fold_partials(itbl, "sum"), itbl.sum(dim=0, dtype=torch.int32),
+              "RS1: int32 fold")
+    add_row(rows, "reduce_fold_i32", 0.0, time_ms(lambda: reduce.fold_partials(itbl, "sum")),
+            time_ms(lambda: reduce.reduce_plain(itbl, "sum", dim=0)), itbl.numel() * 4 + 96,
+            itbl.numel(), library_ms=time_ms(lambda: torch.sum(itbl, dim=0, dtype=torch.int32)))
+    # a bf16 field: the LB step's dist2 under bf16 storage (P4's)
+    bcfg = dataclasses.replace(lcfg, storage="bfloat16")
+    force = Field.from_canonical("force", torch.zeros((3, state.dist.nsites), device=dev),
+                                 bcfg.lattice)
+    d16 = ludwig.lb_step_graph(bcfg).launch(
+        {"dist": state.dist, "force": force}, config=ludwig._lb_target(bcfg),
+        outputs=("dist2",))["dist2"].data
+    if d16.dtype != torch.bfloat16:
+        raise AssertionError(f"RS1: the bf16 LB step wrote {d16.dtype}")
+    LV = state.dist.nsites
+    got = reduce.reduce_sites(d16, "sum", vvl)
+    tree_err(got, reduce.reduce_tree(d16), "RS1: bf16 sum")
+    want = d16.double().sum(dim=1).to(torch.bfloat16)
+    err = (got.double() - want.double()).abs()
+    ulp = torch.pow(2.0, torch.floor(torch.log2(want.double().abs())) - 7)
+    if not bool((err <= ulp).all()):
+        raise AssertionError(f"RS1: bf16 sum {err.max().item()} from the fp64 sum, beyond an ulp")
+    exact_err(reduce.reduce_sites(d16, "max", vvl), d16.amax(dim=1), "RS1: bf16 max")
+    log(f"RS1: bf16 sum of the bf16 dist2 at {bcfg.lattice} bitwise its tree, within one ulp "
+        f"of the fp64 sum rounded (max err {err.max().item():.3e}); max bitwise amax")
+    nb16 = 19 * 2 * LV
+    add_row(rows, "reduce_sum_bf16", err.max().item(),
+            time_ms(lambda: reduce.reduce_sites(d16, "sum", vvl)),
+            time_ms(lambda: reduce.reduce_plain(d16, "sum")), nb16, 19 * LV,
+            library_ms=time_ms(lambda: torch.sum(d16, dim=1)))
+    add_row(rows, "reduce_max_bf16", 0.0, time_ms(lambda: reduce.reduce_sites(d16, "max", vvl)),
+            time_ms(lambda: reduce.reduce_plain(d16, "max")), nb16, 19 * LV,
+            library_ms=time_ms(lambda: torch.amax(d16, dim=1)))
+    ftbl = torch.randn((reduce.partial_rows(LV), 19), generator=gen, device=dev)
+    tree_err(reduce.fold_partials(ftbl, "sum", out_dtype=torch.bfloat16),
+             reduce.fold_tree(ftbl).to(torch.bfloat16), "RS1: bf16 fold")
+    add_row(rows, "reduce_fold_bf16", 0.0,
+            time_ms(lambda: reduce.fold_partials(ftbl, "sum", out_dtype=torch.bfloat16)),
+            time_ms(lambda: reduce.reduce_plain(ftbl, "sum", dim=0).to(torch.bfloat16)),
+            ftbl.numel() * 4 + 2 * 19, ftbl.numel(),
+            library_ms=time_ms(lambda: torch.sum(ftbl, dim=0)))
+    # the standalone reductions of those fields, counted (no driver path runs them)
+    fi = Field.from_canonical("xi", xi, cfg.lattice)
+    f16 = Field("dist2", 19, bcfg.lattice, SOA, d16)
+    tgt = cfg.target
+    reset_counts()
+    for f in (fi, f16):
+        reduce.target_sum(f, tgt)
+        reduce.target_max(f, tgt)
+    counts.update(path_counts(RS_DTYPE_PATH))
+    idle = [n for n in RS_DTYPE_PATH if counts[n] == 0]
+    if idle:
+        raise AssertionError(f"RS1: kernels of the standalone reductions never launched: {idle}")
+    log(f"RS1: the standalone int32 and bf16 reductions' window: "
+        f"{path_counts(RS_DTYPE_PATH)}")
+    del xi, itbl, d16, ftbl, fi, f16, force
+    torch.cuda.empty_cache()
+    line["folds"] = folds   # the rows themselves go into the kernel table
+    return rows, line, counts
+
+
 def table_rows(path, counts, rows):
     return [dict(name=name, route="cuda", source=f"src/repro_torch/csrc/{src}",
                  replaces=rep, launches=counts[name], **rows[name])
@@ -3728,6 +4124,13 @@ def main():
     yrows = check_layout_kernels(u, b, lattice, state, lcfg, vvl)
     # Y2. the MILC solve in every layout, counted
     ymilc = solve_layouts(cfg, u, b, x_soa, iterations)
+    # V1 (MILC). the block view at full width, counted
+    t1 = time.perf_counter()
+    v1 = {"milc": view_block_milc(cfg, u, b, x_soa, iterations)}
+    # RS1. split reductions at full width, counted
+    srows, split_line, scounts_rs = split_reductions(cfg, u, b, x_soa, iterations, vvl, state,
+                                                     lcfg)
+    v1_rs1_s = time.perf_counter() - t1
     del u, b, x_soa
     torch.cuda.empty_cache()
     # Y3. the Ludwig step in every layout x vvl, counted
@@ -3735,7 +4138,11 @@ def main():
     log("Y3: step_timed's stages in aos beside soa (ms): " + ", ".join(
         f"{k} {ystages['aos'][k]:.3f} vs {v:.3f} ({ystages['aos'][k] - v:+.3f})"
         for k, v in ystages["soa"].items()))
-    log(f"Y1-Y3: {time.perf_counter() - t0:.1f} s")
+    # V1 (Ludwig). the block view's steps, counted
+    t1 = time.perf_counter()
+    v1["ludwig"] = view_block_ludwig(state, after_steps, lcfg)
+    v1_rs1_s += time.perf_counter() - t1
+    log(f"Y1-Y3: {time.perf_counter() - t0 - v1_rs1_s:.1f} s; V1, RS1: {v1_rs1_s:.1f} s")
     layouts_line = {"layouts": {
         "card": smi,
         "kernels": {lay: {n: {k: r[k] for k in ("ms", "bound_ms", "ratio_to_soa", "library_ms")}
@@ -3812,12 +4219,17 @@ def main():
              + table_rows(MIXED_PATH, p2counts, mrows)
              + table_rows(MIXED_SERVE_PATH, p3counts, mrows)
              + table_rows(MIXED_LUDWIG_PATH, p4counts, lmrows)
-             + table_rows(MIXED_SUM_PATH, sumcounts, lmrows))
+             + table_rows(MIXED_SUM_PATH, sumcounts, lmrows)
+             + table_rows({**RS_BATCH_PATH, **RS_COMP_PATH, **RS_DTYPE_PATH,
+                           "reduce_fold_split": RS_PATH["reduce_fold_split"]},
+                          scounts_rs, srows))
     print(json.dumps(layouts_line))
     print(json.dumps(serve_line))
     if turns:
         print(json.dumps({"redesign": {"card": smi, "kernels": turns}}))
     print(json.dumps(mixed_line))
+    print(json.dumps({"view_block": {"card": smi, **v1},
+                      "split_reductions": {"card": smi, "rsplit": RSPLIT, **split_line}}))
     print(json.dumps({"kernels": table}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

@@ -31,7 +31,8 @@ from pathlib import Path
 import torch
 
 __all__ = ["Kernel", "build", "library", "check_tensor", "check_field", "check_batched_field",
-           "smem_per_block_optin", "csrc_define", "CSRC", "BUILD_DIR", "NVCC_FLAGS"]
+           "reduce_dtype", "REDUCE_DTYPES", "smem_per_block_optin", "csrc_define", "CSRC",
+           "BUILD_DIR", "NVCC_FLAGS"]
 
 CSRC = Path(__file__).resolve().parent / "csrc"
 BUILD_DIR = Path(__file__).resolve().parents[2] / "build" / "repro_torch"
@@ -60,6 +61,9 @@ SIGNATURES = {
     "rt_reduce_fold_batched": (_P, _P, _P, _L, _I, _I, _I, _P),
     "rt_reduce_partials_comp": (_P, _P, _I, _L, _I, _D, _P),
     "rt_reduce_fold_comp": (_P, _P, _P, _L, _I, _I, _P),
+    "rt_reduce_partials_i32": (_P, _P, _I, _L, _I, _I, _D, _P),
+    "rt_reduce_partials_bf16": (_P, _P, _I, _L, _I, _I, _D, _P),
+    "rt_reduce_fold_split": (_P, _P, _P, _L, _I, _I, _I, _I, _I, _P),
     "rt_cg_update": (_P, _P, _P, _P, _P, _P, _P, _P, _P, _L, *(_D,) * 6, _I, _P),
     "rt_cg_xpay": (_P, _P, _P, _P, _I, _L, _D, _D, _D, _I, _P),
     "rt_cg_update_masked": (*(_P,) * 10, _L, _I, _L, _L, _L, _L, *(_D,) * 6, _I, _P),
@@ -172,6 +176,8 @@ def library() -> ctypes.CDLL:
     lib.rt_smem_per_block_optin.restype = ctypes.c_int
     lib.rt_reduce_fold_scratch.argtypes = [_L, _I]
     lib.rt_reduce_fold_scratch.restype = ctypes.c_longlong
+    lib.rt_reduce_fold_split_scratch.argtypes = [_L, _I, _I]
+    lib.rt_reduce_fold_split_scratch.restype = ctypes.c_longlong
     chunk = csrc_define("reduce.cu", "RT_REDUCE_CHUNK")
     if lib.rt_reduce_chunk() != chunk:
         raise RuntimeError(f"{lib._name}: rt_reduce_chunk() is {lib.rt_reduce_chunk()}, "
@@ -217,6 +223,20 @@ def check_tensor(name: str, t: torch.Tensor, shape, device: torch.device,
         raise ValueError(f"{name}: shape {tuple(t.shape)}, expected {tuple(shape)}")
     if not t.is_contiguous():
         raise ValueError(f"{name}: not contiguous")
+
+
+# the field dtypes K2 (csrc/reduce.cu) reduces; every other kernel takes fp32
+# fields (bf16 ones where a policy instance says so)
+REDUCE_DTYPES = (torch.float32, torch.int32, torch.bfloat16)
+
+
+def reduce_dtype(name: str, t: torch.Tensor) -> torch.dtype:
+    """The dtype of a field K2 is to reduce: fp32, int32 or bf16; raise
+    ValueError for any other (no field is cast to reach a kernel)."""
+    if t.dtype not in REDUCE_DTYPES:
+        raise ValueError(f"{name}: dtype {t.dtype}; K2 reduces "
+                         f"{', '.join(str(d) for d in REDUCE_DTYPES)} fields")
+    return t.dtype
 
 
 def check_field(name: str, t: torch.Tensor, layout, ncomp: int, nsites: int,

@@ -503,7 +503,9 @@ def cg_batched(apply_a_dot, rhs: BatchedField, *, config: TargetConfig, tol: flo
 # -- the hand-written kernels behind these bodies and graphs on "cuda" --------------
 #
 # Each impl hands its kernel the input tensors with their layouts and the
-# output layouts; the kernel writes each output in its layout.
+# output layouts; the kernel writes each output in its layout.  The impls of
+# the graphs with a reduction (rr, pap) fold their partial rows in the plan's
+# ``rsplit`` segments.
 
 def _lays(ins, names, out_layouts):
     """The wrapper's layouts: body argument -> wrapper name for the inputs,
@@ -528,11 +530,11 @@ def _axpy_cuda(ins, params, vvl, out_layouts):
     return {"out": site_axpy(params["a"], ins["x"][0], ins["y"][0], vvl, layouts=lays)}
 
 
-def _cg_update_cuda(graph, ins, scalars, *, lattice, vvl, out_layouts):
+def _cg_update_cuda(graph, ins, scalars, *, lattice, vvl, out_layouts, rsplit=1):
     lays = _lays(ins, {n: n for n in ("x", "r", "p", "ap")}, out_layouts)
     x_new, r_new, rr = fuse.cg_update(ins["x"][0], ins["r"][0], ins["p"][0], ins["ap"][0],
                                       scalars["alpha"], scalars["neg_alpha"], vvl,
-                                      layouts=lays)
+                                      layouts=lays, rsplit=rsplit)
     return {"x_new": x_new, "r_new": r_new, "rr": rr}
 
 
@@ -550,10 +552,11 @@ def _normal_kappa(graph) -> float:
     return kappa
 
 
-def _wilson_normal_cuda(graph, ins, scalars, *, lattice, vvl, out_layouts, policy=None):
+def _wilson_normal_cuda(graph, ins, scalars, *, lattice, vvl, out_layouts, policy=None,
+                        rsplit=1):
     lays = _lays(ins, {"p": "p", "u": "u"}, out_layouts)
     ap, pap = wilson_normal_cuda(ins["p"][0], ins["u"][0], _normal_kappa(graph), lattice, vvl,
-                                 layouts=lays, policy=policy)
+                                 layouts=lays, policy=policy, rsplit=rsplit)
     return {"ap": ap, "pap": pap}
 
 
@@ -561,22 +564,22 @@ def _wilson_normal_cuda(graph, ins, scalars, *, lattice, vvl, out_layouts, polic
 # ``in_batched`` says, and its scalars as (batch,) device vectors.
 
 def _wilson_normal_batched_cuda(graph, ins, scalars, *, lattice, vvl, out_layouts, batch,
-                                in_batched, policy=None):
+                                in_batched, policy=None, rsplit=1):
     if not in_batched["p"] or in_batched["u"]:
         raise ValueError("wilson_normal's batch instance takes a BatchedField p and one "
                          "gauge Field u shared by every slot")
     lays = _lays(ins, {"p": "p", "u": "u"}, out_layouts)
     ap, pap = wilson_normal_cuda(ins["p"][0], ins["u"][0], _normal_kappa(graph), lattice, vvl,
-                                 layouts=lays, batched=True, policy=policy)
+                                 layouts=lays, batched=True, policy=policy, rsplit=rsplit)
     return {"ap": ap, "pap": pap}
 
 
 def _cg_update_masked_cuda(graph, ins, scalars, *, lattice, vvl, out_layouts, batch,
-                           in_batched):
+                           in_batched, rsplit=1):
     lays = _lays(ins, {n: n for n in ("x", "r", "p", "ap")}, out_layouts)
     x_new, r_new, rr = fuse.cg_update_masked(
         ins["x"][0], ins["r"][0], ins["p"][0], ins["ap"][0], scalars["alpha"],
-        scalars["neg_alpha"], scalars["m"], vvl, layouts=lays)
+        scalars["neg_alpha"], scalars["m"], vvl, layouts=lays, rsplit=rsplit)
     return {"x_new": x_new, "r_new": r_new, "rr": rr}
 
 

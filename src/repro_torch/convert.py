@@ -25,7 +25,7 @@ import torch
 from repro_torch.apps.ludwig.driver import LudwigState
 from repro_torch.core.field import BatchedField, Field, resolve_device
 from repro_torch.core.layout import parse_layout
-from repro_torch.core.plan import DtypePolicy, LoweringPlan
+from repro_torch.core.plan import VIEW_AUTO, DtypePolicy, LoweringPlan
 
 __all__ = ["to_field", "from_field", "to_batched_field", "from_batched_field",
            "to_ludwig_state", "from_ludwig_state", "to_plan", "to_lm_params"]
@@ -93,29 +93,21 @@ def from_ludwig_state(state: LudwigState) -> Tuple[np.ndarray, np.ndarray, Tuple
 
 def to_plan(ref: Mapping) -> LoweringPlan:
     """The port's plan for a JAX package ``LoweringPlan.to_json()``: engine
-    "pallas" -> "cuda" and "jnp" -> "torch"; vvl, bx, by, bz and the dtype
-    policy kept; interpret dropped.  Raises for what the port has not yet
-    ported: a split reduction, the native AoSoA stencil view and the
-    sharded halo strategies."""
+    "pallas" -> "cuda" and "jnp" -> "torch"; vvl, bx, by, bz, the view, the
+    split factor and the dtype policy kept; interpret dropped.  Raises for
+    the sharded halo strategies, which are not yet ported."""
     engine = ref.get("engine", "jnp")
     if engine not in _ENGINES:
         raise ValueError(f"unknown reference engine {engine!r}; have {list(_ENGINES)}")
-    bx = int(ref.get("bx", 0))
-    missing = []
-    if int(ref.get("rsplit", 1)) != 1:
-        missing.append(f"rsplit={ref['rsplit']} (split reductions)")
-    if bx and ref.get("view", "auto") == "block":
-        missing.append("view='block' (the native AoSoA stencil lowering)")
     if ref.get("halo", "periodic") != "periodic":
-        missing.append(f"halo={ref['halo']!r} (the sharded path)")
-    if missing:
         raise ValueError(f"reference plan {dict(ref)} uses what is not yet ported: "
-                         + "; ".join(missing))
+                         f"halo={ref['halo']!r} (the sharded path)")
     dt = ref.get("dtypes")
     dtypes = None if dt is None else DtypePolicy(
         **{k: str(dt.get(k, "")) for k in ("storage", "compute", "accumulate")}).validate()
-    return LoweringPlan(_ENGINES[engine], vvl=int(ref.get("vvl", 0)), bx=bx,
-                        by=int(ref.get("by", 0)), bz=int(ref.get("bz", 0)), dtypes=dtypes)
+    return LoweringPlan(_ENGINES[engine], vvl=int(ref.get("vvl", 0)), bx=int(ref.get("bx", 0)),
+                        by=int(ref.get("by", 0)), bz=int(ref.get("bz", 0)), dtypes=dtypes,
+                        view=str(ref.get("view", VIEW_AUTO)), rsplit=int(ref.get("rsplit", 1)))
 
 
 def _lm_leaf(a, device) -> torch.Tensor:

@@ -62,6 +62,16 @@ empty policy runs exactly the policy-free kernels.
 :func:`tiled_plain` is the tiled lowering in torch ops, tile by tile in the
 tiled kernels' order: the plain version every tiled kernel is held against.
 
+A plan's ``view`` resolves per launch (``core.plan.adapt_plan``).  On
+"cuda" an explicit ``view="block"`` stencil launch is checked as the JAX
+package checks it (:func:`_block_geometry`, before any device is touched)
+and then runs the same kernels as "staged-nd": they read every layout in
+place.  The torch engine ignores the view: its stencils always pad
+canonical views.  A plan's ``rsplit`` reaches every registered kernel that
+folds partial rows (``rsplit=``), which folds them in that many segments
+combined in index order (``core.reduce``); the field outputs do not change.
+:meth:`ReduceSpec.combine_partials` is that stage-2 combine in torch ops.
+
 Only ``halo="periodic"`` (single device) is ported; the sharded ``"pre"``
 and ``"overlap"`` strategies raise.  This module also holds K3, the flat
 fused CG kernels (``csrc/fused_flat.cu``) that replace the JAX package's
@@ -83,9 +93,9 @@ import torch
 
 from .._cuda import Kernel, check_field, check_tensor
 from .field import BatchedField, Field
-from .layout import Layout, resolve_layouts
-from .plan import (SMEM_PER_BLOCK_OPTIN, DtypePolicy, LoweringPlan, cuda_policy,
-                   default_plan, estimate_smem_bytes, launch_policy, policy_plan,
+from .layout import Layout, LayoutKind, resolve_layouts
+from .plan import (SMEM_PER_BLOCK_OPTIN, VIEW_BLOCK, DtypePolicy, LoweringPlan, adapt_plan,
+                   cuda_policy, default_plan, estimate_smem_bytes, launch_policy, policy_plan,
                    resolve_accumulate)
 from .reduce import compensated_plain, fold_partials, fold_partials_batched
 from .stencil import halo_pad, tile_boxes
@@ -127,9 +137,30 @@ class ReduceSpec:
         """The monoid combine fn — how any two partials merge."""
         return _RED_COMBINE[self.op]
 
+    def init(self, shape, dtype, device=None) -> torch.Tensor:
+        """An identity-filled accumulator (dtype-aware: an integer max starts
+        at iinfo.min, not a float -inf cast)."""
+        if self.op == "max":
+            fill = (torch.iinfo(dtype).min if not dtype.is_floating_point
+                    else float("-inf"))
+            return torch.full(shape, fill, dtype=dtype, device=device)
+        return torch.zeros(shape, dtype=dtype, device=device)
+
     def fold(self, x: torch.Tensor, axis: int = -1) -> torch.Tensor:
         """Fold along ``axis`` (the site axis)."""
         return _RED_FOLD[self.op](x, axis)
+
+    def combine_partials(self, parts: torch.Tensor, axis: int = 0) -> torch.Tensor:
+        """The stage-2 combine of a split reduction: fold the stage-1
+        partials along ``axis`` by a sequential combine in index order
+        (((p0 + p1) + p2) + ...; ``torch.maximum`` keeps NaN), so the bits
+        are fixed for a fixed partial count.  Exact for max and integer
+        sums; fp sums reassociate within tolerance of the unsplit fold."""
+        parts = torch.movedim(parts, axis, 0)
+        acc = parts[0]
+        for k in range(1, parts.shape[0]):
+            acc = self.combine(acc, parts[k])
+        return acc
 
 
 
@@ -147,6 +178,57 @@ def kahan_fold(x: torch.Tensor, axis: int = -1) -> torch.Tensor:
         c = (t - s) - y
         s = t
     return s
+
+
+def _kahan_combine(acc: torch.Tensor, part: torch.Tensor) -> torch.Tensor:
+    """The JAX package's Kahan combine of a widened ``(..., ncomp, 2)``
+    accumulator (column 0 the running sum, column 1 the running
+    compensation) with a ``(..., ncomp, 1)`` partial, step for step.  The
+    cuda engine's compensated folds combine (hi, lo) pairs instead
+    (``csrc/comp.cuh``); both are held to the fp64 oracle."""
+    s, c = acc[..., 0:1], acc[..., 1:2]
+    y = part - c
+    t = s + y
+    return torch.cat([t, (t - s) - y], dim=-1)
+
+
+def _block_geometry(ordered_ins: Sequence[str], in_layouts: Sequence[Layout],
+                    in_rings: Sequence[int], out_layouts: Mapping[str, Layout],
+                    field_outputs: Sequence[str], lattice: Tuple[int, ...]) -> None:
+    """The launch-time check of an untiled stencil launch under
+    ``view="block"`` (the JAX package's ``_block_geometry``, periodic
+    halos; the form of ``core.plan.block_view_ok`` that names the offender):
+    raises for an AoSoA input whose SAL does not divide its halo'd
+    inner-plane count, for a launch with no AoSoA layout at all, and for an
+    AoSoA output whose SAL does not divide the interior inner-plane count.
+    The cuda kernels read every layout in place, so on the card the check
+    is all the view changes.  (A tiled block plan never gets here: its
+    validation refuses it.)"""
+    aosoa_in_play = False
+    for name, lay, ring in zip(ordered_ins, in_layouts, in_rings):
+        if lay.kind is not LayoutKind.AOSOA:
+            continue
+        aosoa_in_play = True
+        inner_h = math.prod(s + 2 * ring for s in lattice[1:])
+        if inner_h % lay.sal:
+            raise ValueError(
+                f"view='block': AoSoA(sal={lay.sal}) input {name!r} has halo'd "
+                f"inner-plane site count {inner_h} not divisible by sal; x-slab windows "
+                f"would split short arrays; use view='staged-nd' or a conforming sal "
+                f"(core.plan.block_view_ok)")
+    if not aosoa_in_play and not any(
+            out_layouts[o].kind is LayoutKind.AOSOA for o in field_outputs):
+        raise ValueError(
+            "view='block' lowers AoSoA tiles natively, but no input or output "
+            "layout of this launch is AoSoA; use view='staged-nd'")
+    inner = math.prod(lattice[1:])
+    bad = [o for o in field_outputs
+           if out_layouts[o].kind is LayoutKind.AOSOA and inner % out_layouts[o].sal]
+    if bad:
+        raise ValueError(
+            f"view='block': AoSoA output(s) {bad} have sal not dividing the interior "
+            f"inner-plane site count {inner}; slab rows would split short arrays; "
+            f"use view='staged-nd' or a conforming sal")
 
 
 def _stage_in_cast(storage_dt, compute_dt):
@@ -243,7 +325,9 @@ def register_cuda_graph(graph: "LaunchGraph", impl: Optional[Callable],
     graph that only the serving path launches, batched.  ``policy``: impl
     and batched have a policy instance and take ``policy=`` (a
     ``core.plan.CudaPolicy``) under a non-empty DtypePolicy; the launch
-    raises for a policy on any other graph."""
+    raises for a policy on any other graph.  impl and batched of a graph
+    with a terminal reduction also take ``rsplit=`` (the plan's split
+    factor), which their partial folds take."""
     _CUDA_GRAPHS[graph.structure()] = _CudaEntry(impl, tuple(outputs), tiled, batched, policy)
 
 
@@ -590,12 +674,20 @@ class LaunchGraph:
         if plan is None:
             plan = policy_plan(config)
         if plan is None:
+            # a default plan's view stays "auto": never the block view's check
             plan = default_plan(config, nsites=nsites, layouts=all_layouts,
                                 stencil=stencil, lattice=lattice, smem_views=smem_views,
                                 batch=batch)
         else:
+            plan = adapt_plan(plan, stencil=stencil)
             plan.validate(nsites=nsites, lattice=lattice, layouts=all_layouts,
                           stencil=stencil, batch=batch)
+        if stencil and plan.view == VIEW_BLOCK:
+            # the view's alignment, checked before any device is touched
+            need = self._required_rings(outputs)
+            _block_geometry(ordered_ins, [ins[n].layout for n in ordered_ins],
+                            [need.get(n, 0) for n in ordered_ins], out_layouts,
+                            field_outputs, lattice)
         # the config's policy applies where the plan carries none of its own
         _, dtypes = launch_policy(config, plan)
         if dtypes is not plan.dtypes:
@@ -753,6 +845,8 @@ class LaunchGraph:
         else:
             impl, produces = entry.impl, entry.outputs
             kw = dict(lattice=lattice, vvl=plan.vvl)
+        if not plan.tiled and self._reduce_outputs():
+            kw["rsplit"] = plan.rsplit   # the impl's partial folds (K2S where > 1)
         extra = [o for o in outputs if o not in produces]
         if extra:
             raise ValueError(
@@ -1032,12 +1126,13 @@ def cg_update_plain(x, r, p, ap, alpha, neg_alpha, layouts=None):
     return lay["x_new"].pack(x_new), lay["r_new"].pack(r_new), (r_new * r_new).sum(dim=1)
 
 
-def cg_update(x, r, p, ap, alpha, neg_alpha, vvl: int = 128, *, layouts=None):
+def cg_update(x, r, p, ap, alpha, neg_alpha, vvl: int = 128, *, layouts=None, rsplit: int = 1):
     """24-component fields x, r, p, ap (physical, in ``layouts``; names
     "x", "r", "p", "ap", "x_new", "r_new") and 0-d device scalars alpha,
     neg_alpha -> (x_new, r_new, rr (24,)).  One launch plus the partial
-    fold.  ap may be bf16 (the refined solve's operator output): the
-    kernel's ap16 instance widens it as it loads it."""
+    fold (``rsplit`` segments, K2S where > 1).  ap may be bf16 (the refined
+    solve's operator output): the kernel's ap16 instance widens it as it
+    loads it."""
     if x.device.type == "cpu":
         return cg_update_plain(x, r, p, ap, alpha, neg_alpha, layouts)
     lay = resolve_layouts(layouts, _CG_IN, _CG_OUT)
@@ -1054,7 +1149,7 @@ def cg_update(x, r, p, ap, alpha, neg_alpha, vvl: int = 128, *, layouts=None):
                      ap.data_ptr(), alpha.data_ptr(), neg_alpha.data_ptr(),
                      x_new.data_ptr(), r_new.data_ptr(), partials.data_ptr(),
                      nsites, *desc, *(lay[n].descriptor() for n in _CG_OUT), vvl)
-    return x_new, r_new, fold_partials(partials, "sum")
+    return x_new, r_new, fold_partials(partials, "sum", rsplit=rsplit)
 
 
 def cg_xpay_plain(x, y, a, layouts=None):
@@ -1109,12 +1204,14 @@ def cg_update_masked_plain(x, r, p, ap, alpha, neg_alpha, m, layouts=None):
     return torch.stack(xs), torch.stack(rs), torch.stack(rrs)
 
 
-def cg_update_masked(x, r, p, ap, alpha, neg_alpha, m, vvl: int = 128, *, layouts=None):
+def cg_update_masked(x, r, p, ap, alpha, neg_alpha, m, vvl: int = 128, *, layouts=None,
+                     rsplit: int = 1):
     """K3B: the masked CG update over ``batch = m.shape[0]`` slots of
     24-component fields x, r, p, ap (stacked or shared; ``layouts`` names
     "x", "r", "p", "ap", "x_new", "r_new") with (batch,) device vectors
     alpha, neg_alpha, m -> (x_new, r_new, rr (batch, 24)).  One launch plus
-    the per-slot partial fold.  ap may be bf16, as in :func:`cg_update`."""
+    the per-slot partial fold (``rsplit`` as in :func:`cg_update`).  ap may
+    be bf16, as in :func:`cg_update`."""
     if x.device.type == "cpu":
         return cg_update_masked_plain(x, r, p, ap, alpha, neg_alpha, m, layouts)
     lay = resolve_layouts(layouts, _CG_IN, _CG_OUT)
@@ -1133,7 +1230,7 @@ def cg_update_masked(x, r, p, ap, alpha, neg_alpha, m, vvl: int = 128, *, layout
         neg_alpha.data_ptr(), m.data_ptr(), x_new.data_ptr(), r_new.data_ptr(),
         partials.data_ptr(), nsites, batch, *(st for _, st in ops), *(d for d, _ in ops),
         *(lay[n].descriptor() for n in _CG_OUT), vvl)
-    return x_new, r_new, fold_partials_batched(partials, "sum")
+    return x_new, r_new, fold_partials_batched(partials, "sum", rsplit=rsplit)
 
 
 def cg_xpay_masked_plain(x, y, a, m, layouts=None):

@@ -132,6 +132,51 @@ class Layout:
         nblk, ncomp, sal = physical.shape
         return physical.permute(1, 0, 2).reshape(ncomp, nblk * sal)
 
+    # -- site blocks (the JAX package's pallas BlockSpec support) --------------
+    #
+    # A block covers ``vvl`` consecutive sites of every component.  The CUDA
+    # kernels address a field through INDEX and need none of these; the
+    # block view's validation and the tests use them to hold the port's
+    # layouts to the JAX package's blocks bitwise.
+
+    def block_shape(self, ncomp: int, vvl: int) -> Tuple[int, ...]:
+        """Physical shape of one block of ``vvl`` sites x all components;
+        AoSoA needs sal | vvl, so a block is a whole number of short
+        arrays."""
+        if self.kind is LayoutKind.SOA:
+            return (ncomp, vvl)
+        if self.kind is LayoutKind.AOS:
+            return (vvl, ncomp)
+        if vvl % self.sal:
+            raise ValueError(f"AoSoA(sal={self.sal}): sal must divide vvl={vvl}")
+        return (vvl // self.sal, ncomp, self.sal)
+
+    def block_index_map(self):
+        """Block i of a 1-D site-block grid, in units of :meth:`block_shape`."""
+        if self.kind is LayoutKind.SOA:
+            return lambda i: (0, i)
+        if self.kind is LayoutKind.AOS:
+            return lambda i: (i, 0)
+        return lambda i: (i, 0, 0)
+
+    def block_to_canonical(self, block, ncomp: int, vvl: int):
+        """A physical block -> its canonical (ncomp, vvl) chunk."""
+        if self.kind is LayoutKind.SOA:
+            return block
+        if self.kind is LayoutKind.AOS:
+            return block.T
+        return block.permute(1, 0, 2).reshape(ncomp, vvl)
+
+    def canonical_to_block(self, chunk, ncomp: int, vvl: int):
+        """A canonical (ncomp, vvl) chunk -> its physical block."""
+        if self.kind is LayoutKind.SOA:
+            return chunk
+        if self.kind is LayoutKind.AOS:
+            return chunk.T
+        if vvl % self.sal:
+            raise ValueError(f"AoSoA(sal={self.sal}): sal must divide vvl={vvl}")
+        return chunk.reshape(ncomp, vvl // self.sal, self.sal).permute(1, 0, 2)
+
     @property
     def name(self) -> str:
         if self.kind is LayoutKind.AOSOA:

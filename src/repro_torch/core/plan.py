@@ -44,9 +44,23 @@ wilson_normal and ludwig_lb_step kernels and of K2's sum (``cuda_policy``
 says which policies they take); a policy on any other graph, or on a tiled
 plan, raises.
 
-Not yet ported: split reductions (rsplit), canonical views, the halo
-strategies of the sharded path, the autotuned plan policy and its dtype
-twins.
+``rsplit`` splits a launch's terminal reductions: the stage-1 partial rows
+fold in ``rsplit`` segments, each by K2's fold tree, and a stage-2 combine
+adds the segments in index order (``core.reduce``, K2S).  Field outputs and
+the partial rows themselves do not change with it; max and integer sums
+stay exact.  The torch engine has no grid to split and refuses it, as the
+JAX package's jnp engine does.
+
+``view`` is the JAX package's canonical-view axis of a stencil launch:
+"staged-nd" stages canonical views around the kernel, "block" the native
+AoSoA tiles (:func:`block_view_ok` states the alignment it needs), "auto"
+resolves per launch (:func:`adapt_plan`).  The cuda kernels read every
+layout in place through INDEX, so on the card a block-view launch runs the
+same kernels as a staged-nd one; the view is validated exactly as the JAX
+package validates it, and a misaligned explicit "block" raises.
+
+Not yet ported: the halo strategies of the sharded path, the autotuned plan
+policy and its dtype twins.
 """
 
 from __future__ import annotations
@@ -62,7 +76,8 @@ from .layout import Layout, LayoutKind
 
 __all__ = ["LoweringPlan", "DtypePolicy", "ACCUM_COMPENSATED", "dtype_itemsize",
            "resolve_accumulate", "cuda_policy", "CudaPolicy", "divisors", "choose_vvl", "sal_alignment", "choose_slab",
-           "choose_tiles",
+           "choose_tiles", "block_view_ok", "adapt_plan", "VIEW_AUTO", "VIEW_BLOCK",
+           "VIEW_STAGED_ND",
            "tile_extents", "estimate_smem_bytes", "resolved_smem_bytes",
            "default_plan", "plan_for_launch", "policy_plan", "ENGINES", "WARP",
            "MAX_BLOCK", "SMEM_ENV", "SMEM_PER_BLOCK_OPTIN"]
@@ -79,6 +94,13 @@ SMEM_ENV = "TARGETDP_TORCH_SMEM_BYTES"
 # (cudaDevAttrMaxSharedMemoryPerBlockOptin); the tiled kernels check the
 # device's own value again at their first launch
 SMEM_PER_BLOCK_OPTIN = 232448
+
+VIEW_BLOCK = "block"
+VIEW_STAGED_ND = "staged-nd"
+# the dataclass default, resolved per launch by adapt_plan (site-local ->
+# block, stencil -> staged-nd); the native AoSoA stencil view is always an
+# explicit view=VIEW_BLOCK
+VIEW_AUTO = "auto"
 
 
 # -- dtype policy (the mixed-precision lowering axis) ------------------------------
@@ -243,6 +265,30 @@ def sal_alignment(layouts: Sequence[Layout]) -> int:
     return align
 
 
+def block_view_ok(in_views: Sequence[Tuple[Layout, int]], out_layouts: Sequence[Layout],
+                  interior_inner: int) -> bool:
+    """Whether a stencil launch can lower natively on AoSoA blocks
+    (``view="block"``), the JAX package's rule.
+
+    in_views        (layout, halo'd inner-plane site count) per external
+                    input: ``prod(halo'd lattice[1:])``.
+    out_layouts     layout per field output.
+    interior_inner  ``prod(lattice[1:])``.
+
+    True iff at least one input is AoSoA and every AoSoA layout in play is
+    block-aligned: an input's SAL divides its halo'd inner-plane count, an
+    output's SAL the interior one."""
+    if not any(lay.kind is LayoutKind.AOSOA for lay, _ in in_views):
+        return False
+    for lay, halo_inner in in_views:
+        if lay.kind is LayoutKind.AOSOA and halo_inner % lay.sal:
+            return False
+    for lay in out_layouts:
+        if lay.kind is LayoutKind.AOSOA and interior_inner % lay.sal:
+            return False
+    return True
+
+
 @functools.lru_cache(maxsize=4096)
 def choose_slab(x_dim: int, inner_sites: int, vvl: int, site_bytes: int = 0,
                 smem_bytes: Optional[int] = None) -> int:
@@ -370,6 +416,12 @@ class LoweringPlan:
     bz: int = 0
     # the mixed-precision policy (None: the policy-free lowering)
     dtypes: Optional[DtypePolicy] = None
+    # the canonical-view strategy of a stencil launch (see the module
+    # docstring); "auto" resolves per launch (adapt_plan)
+    view: str = VIEW_AUTO
+    # the split-reduction factor: terminal reductions fold their partial
+    # rows in rsplit segments, combined in index order (cuda engine only)
+    rsplit: int = 1
 
     @property
     def tiled(self) -> bool:
@@ -397,7 +449,11 @@ class LoweringPlan:
             return self.engine + dt + fp
         knob = f"bx={self.bx}" if self.bx else f"vvl={self.vvl}"
         tile = (f"/ty{self.by}" if self.by else "") + (f"/tz{self.bz}" if self.bz else "")
-        return f"cuda/{knob}{tile}{dt}{fp}"
+        # the view is named on stencil (bx) plans, the split whenever it is
+        # in play, as in the JAX package's labels
+        view = "/block" if (self.bx and self.view == VIEW_BLOCK) else ""
+        rs = f"/rs{self.rsplit}" if self.rsplit > 1 else ""
+        return f"cuda/{knob}{tile}{view}{rs}{dt}{fp}"
 
     def validate(
         self,
@@ -413,6 +469,10 @@ class LoweringPlan:
         Returns self (chainable)."""
         if self.engine not in ENGINES:
             raise ValueError(f"unknown engine {self.engine!r}; have {ENGINES}")
+        if self.view not in (VIEW_AUTO, VIEW_BLOCK, VIEW_STAGED_ND):
+            raise ValueError(f"unknown canonical-view strategy {self.view!r}")
+        if self.rsplit < 1:
+            raise ValueError(f"rsplit must be >= 1, got {self.rsplit}")
         if self.dtypes is not None:
             self.dtypes.validate()
         if batch and self.tiled:
@@ -425,11 +485,21 @@ class LoweringPlan:
                 f"tile extents must be >= 0 (0 = whole axis), got bx={self.bx} "
                 f"by={self.by} bz={self.bz}")
         if self.engine == "torch":
+            if self.rsplit > 1:
+                raise ValueError(
+                    "rsplit > 1 splits the cuda reduction grid into stage-1 partial "
+                    "segments; the torch engine folds whole-lattice tensors and has "
+                    "no grid to split")
             if self.tiled:
                 raise ValueError(
                     "by/bz tile the cuda stencil grid; the torch engine runs "
                     "whole-lattice ops and has no grid to tile")
             return self
+        if self.tiled and self.view == VIEW_BLOCK:
+            raise ValueError(
+                f"tiled plan {self.describe()} with view='block': tiles on AoSoA "
+                f"fields are still to be ported (ROADMAP item 17); use "
+                f"view='staged-nd' on SoA fields")
         if self.tiled:
             odd = sorted({lay.name for lay in layouts if lay.kind is not LayoutKind.SOA})
             if odd:
@@ -445,8 +515,26 @@ class LoweringPlan:
                 raise ValueError(
                     f"site-local lowering takes no y/z tiles (by={self.by}, "
                     f"bz={self.bz}); tiles partition the halo'd stencil grid")
+            if self.view not in (VIEW_AUTO, VIEW_BLOCK):
+                raise ValueError(
+                    "site-local lowering packs/unpacks per-block inside the "
+                    "kernel (view='block')")
         else:
             self._validate_tiles(lattice)
+            if (self.rsplit > 1 and self.bx and lattice is not None
+                    and (lattice[0] // self.bx) % self.rsplit):
+                raise ValueError(
+                    f"rsplit={self.rsplit} must divide the x-slab count "
+                    f"{lattice[0] // self.bx} (bx={self.bx} over lattice[0]="
+                    f"{lattice[0]}) so every stage-1 partial covers a whole "
+                    f"number of slabs")
+            if self.view == VIEW_BLOCK and layouts and not any(
+                    lay.kind is LayoutKind.AOSOA for lay in layouts):
+                raise ValueError(
+                    "view='block' lowers stencil graphs natively on AoSoA tiles, "
+                    "but no launch layout is AoSoA; use view='staged-nd' (the "
+                    "per-input block alignment is checked at launch, where halo "
+                    "rings are known)")
         if self.tiled:
             return self  # the tiled kernels choose their own block size
         if self.vvl < WARP or self.vvl % WARP or self.vvl > MAX_BLOCK:
@@ -455,6 +543,14 @@ class LoweringPlan:
                 f"{WARP} in [{WARP}, {MAX_BLOCK}]")
         if nsites is not None and nsites % self.vvl:
             raise ValueError(f"vvl={self.vvl} must divide nsites={nsites}")
+        # an untiled stencil plan without an x-slab splits the kernels'
+        # site blocks, as a site-local one does
+        if (self.rsplit > 1 and nsites is not None and not (stencil and self.bx)
+                and (nsites // self.vvl) % self.rsplit):
+            raise ValueError(
+                f"rsplit={self.rsplit} must divide the site-block count "
+                f"{nsites // self.vvl} (vvl={self.vvl} over nsites={nsites}) so "
+                f"every stage-1 partial covers a whole number of blocks")
         for lay in layouts:
             if lay.kind is LayoutKind.AOSOA and self.vvl % lay.sal:
                 raise ValueError(
@@ -480,6 +576,50 @@ class LoweringPlan:
         if self.bx and lattice is not None and lattice[0] % self.bx:
             raise ValueError(
                 f"bx={self.bx} must divide the leading lattice dim {lattice[0]}")
+
+
+def adapt_plan(plan: LoweringPlan, *, stencil: bool) -> LoweringPlan:
+    """Fit an explicit plan to a concrete launch (single device, periodic
+    halo).  The view follows the JAX package's ``adapt_plan``: a site-local
+    launch is always "block"; a stencil launch keeps an explicit view on the
+    cuda engine (an explicit "block" that cannot lower fails loudly at
+    launch), and "auto", or any view on the torch engine, resolves to
+    "staged-nd".
+
+    One difference: an untiled plan's x-slab ``bx`` is dropped for a
+    site-local launch, so one explicit stencil plan (``bx`` set) can drive
+    every launch of a solve or a step.  The JAX package's site-local
+    validation raises on it; the port's untiled kernels ignore ``bx``
+    anyway.  A tiled plan keeps it and still raises there."""
+    if not stencil:
+        view = VIEW_BLOCK
+    elif plan.engine != "cuda" or plan.view == VIEW_AUTO:
+        view = VIEW_STAGED_ND
+    else:
+        view = plan.view
+    bx = plan.bx if (stencil or plan.tiled) else 0
+    if (view, bx) == (plan.view, plan.bx):
+        return plan
+    return dataclasses.replace(plan, view=view, bx=bx)
+
+
+def _rsplit_factors(nblocks: int, cap: int = 16, k: int = 2):
+    """Split-reduction factors worth sweeping for a grid of ``nblocks``
+    blocks: up to ``k`` divisors > 1, preferring those <= ``cap``, evenly
+    spread; empty for a single block (the JAX package's rule)."""
+    rs = [r for r in divisors(nblocks) if r > 1]
+    capped = [r for r in rs if r <= cap]
+    return _spread(capped or rs[:1], k)
+
+
+def _spread(values, k: int):
+    """A deterministic evenly spaced subset of size <= k (both ends kept)."""
+    if len(values) <= k:
+        return list(values)
+    if k <= 1:
+        return [values[-1]]
+    idx = {round(i * (len(values) - 1) / (k - 1)) for i in range(k)}
+    return [values[i] for i in sorted(idx)]
 
 
 def _site_bytes(smem_views) -> int:
@@ -555,5 +695,7 @@ def plan_for_launch(config, nsites: int, layouts: Sequence[Layout]) -> LoweringP
     ``config.plan_policy`` (validated) or :func:`default_plan`."""
     plan = policy_plan(config)
     if plan is not None:
+        if plan.bx and not plan.tiled:   # adapt_plan's site-local fit
+            plan = dataclasses.replace(plan, bx=0)
         return plan.validate(nsites=nsites, layouts=layouts)
     return default_plan(config, nsites=nsites, layouts=layouts)

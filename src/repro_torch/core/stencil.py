@@ -12,7 +12,7 @@ from typing import List, Sequence, Tuple
 
 import torch
 
-__all__ = ["shift_periodic", "halo_pad", "interior", "tile_boxes"]
+__all__ = ["shift_periodic", "halo_pad", "halo_pad_physical", "interior", "tile_boxes"]
 
 
 def tile_boxes(lattice: Sequence[int], bx: int, by: int = 0,
@@ -73,6 +73,28 @@ def halo_pad(x_nd: torch.Tensor, width: int, site_dims: Sequence[int]) -> torch.
         idx = torch.arange(-width, n + width, device=out.device) % n
         out = out.index_select(d, idx)
     return out
+
+
+def halo_pad_physical(data: torch.Tensor, layout, ncomp: int, lattice: Sequence[int],
+                      width: int) -> torch.Tensor:
+    """Halo-pad a *physical* tensor by periodic wrap: the physical tensor
+    over the padded lattice, in the same layout.  The padded sites
+    re-linearize, so an AoSoA field is re-blocked over the padded site
+    count, which must stay a multiple of SAL (``Layout.pack`` raises a
+    ValueError otherwise; ``core.plan.block_view_ok`` states the alignment
+    a block-view launch needs).
+
+    The JAX package stages a block-view stencil launch's inputs through
+    it.  Nothing on the port's single-device path needs it: the cuda
+    kernels read every layout in place through INDEX and wrap the lattice
+    themselves, and the torch engine pads canonical views.  The sharded
+    path (ROADMAP item 24) will pad pre-exchanged halos with it."""
+    if width < 1:
+        return data
+    lattice = tuple(int(s) for s in lattice)
+    nd = layout.unpack(data).reshape((ncomp,) + lattice)
+    padded = halo_pad(nd, width, range(1, nd.ndim))
+    return layout.pack(padded.reshape(ncomp, -1))
 
 
 def interior(x_halo: torch.Tensor, width: int, site_dims: Sequence[int]) -> torch.Tensor:

@@ -216,20 +216,21 @@ def wilson_normal_plain(p: torch.Tensor, u: torch.Tensor, kappa: float,
 
 def wilson_normal_cuda(p: torch.Tensor, u: torch.Tensor, kappa: float, lattice,
                        vvl: int = 128, *, layouts=None, batched: bool = False,
-                       policy: Optional[CudaPolicy] = None) -> Tuple[torch.Tensor, torch.Tensor]:
+                       policy: Optional[CudaPolicy] = None,
+                       rsplit: int = 1) -> Tuple[torch.Tensor, torch.Tensor]:
     """K5: (ap, pap (24,)) = (M^dag M p, per-component p . ap), in two
-    launches and the fold of the pap partials; ``layouts`` names "p", "u",
-    "ap" (the intermediate t is SoA).  ``batched`` (K5B): p is ``batch``
-    stacked spinors and u shared -> (ap stacked, pap (batch, 24)).
-    ``policy``: the policy instance (see the module docstring); under bf16
-    storage ``u`` is its bf16 copy."""
+    launches and the fold of the pap partials (``rsplit`` segments, K2S
+    where > 1); ``layouts`` names "p", "u", "ap" (the intermediate t is
+    SoA).  ``batched`` (K5B): p is ``batch`` stacked spinors and u shared ->
+    (ap stacked, pap (batch, 24)).  ``policy``: the policy instance (see the
+    module docstring); under bf16 storage ``u`` is its bf16 copy."""
     if p.device.type == "cpu":
         return wilson_normal_plain(p, u, kappa, lattice, layouts, batched=batched,
                                    policy=policy)
     if policy is not None and any(policy):
-        return _wilson_normal_mixed(p, u, kappa, lattice, vvl, layouts, batched, policy)
+        return _wilson_normal_mixed(p, u, kappa, lattice, vvl, layouts, batched, policy, rsplit)
     if batched:
-        return _wilson_normal_batched(p, u, kappa, lattice, vvl, layouts)
+        return _wilson_normal_batched(p, u, kappa, lattice, vvl, layouts, rsplit)
     lat = _check_4d(lattice)
     _check_normal(vvl)
     V = math.prod(lat)
@@ -244,10 +245,10 @@ def wilson_normal_cuda(p: torch.Tensor, u: torch.Tensor, kappa: float, lattice,
     WILSON_NORMAL_AP.launch(p.device, p.data_ptr(), t.data_ptr(), u.data_ptr(),
                             ap.data_ptr(), partials.data_ptr(), float(kappa),
                             *lat, lp, lu, lay["ap"].descriptor(), vvl)
-    return ap, fold_partials(partials, "sum")
+    return ap, fold_partials(partials, "sum", rsplit=rsplit)
 
 
-def _wilson_normal_batched(p, u, kappa, lattice, vvl, layouts):
+def _wilson_normal_batched(p, u, kappa, lattice, vvl, layouts, rsplit=1):
     """K5B: K5 over ``p.shape[0]`` stacked spinors p against one shared u."""
     lat = _check_4d(lattice)
     _check_normal(vvl)
@@ -264,10 +265,10 @@ def _wilson_normal_batched(p, u, kappa, lattice, vvl, layouts):
     WILSON_NORMAL_AP_B.launch(p.device, p.data_ptr(), t.data_ptr(), u.data_ptr(), ap.data_ptr(),
                               partials.data_ptr(), float(kappa), *lat, batch, lp, lu,
                               lay["ap"].descriptor(), vvl)
-    return ap, fold_partials_batched(partials, "sum")
+    return ap, fold_partials_batched(partials, "sum", rsplit=rsplit)
 
 
-def _wilson_normal_mixed(p, u, kappa, lattice, vvl, layouts, batched, policy):
+def _wilson_normal_mixed(p, u, kappa, lattice, vvl, layouts, batched, policy, rsplit=1):
     """K5's policy instance over one spinor p or ``p.shape[0]`` stacked ones
     (``batched``) against one shared u (under bf16 storage its bf16 copy)."""
     lat = _check_4d(lattice)
@@ -304,5 +305,5 @@ def _wilson_normal_mixed(p, u, kappa, lattice, vvl, layouts, batched, policy):
     WILSON_NORMAL_AP_MIXED.launch(p.device, p.data_ptr(), t.data_ptr(), u.data_ptr(),
                                   ap.data_ptr(), partials.data_ptr(), float(kappa), *lat, batch,
                                   int(bf16), int(comp), lp, lu, lay["ap"].descriptor(), vvl)
-    pap = fold_partials_batched(partials, "sum", compensated=comp)
+    pap = fold_partials_batched(partials, "sum", compensated=comp, rsplit=rsplit)
     return ap, (pap if batched else pap[0])

@@ -1748,3 +1748,190 @@ def test_pinned_collision_bitwise_plain(card, spec, rng):
             got = K8.lb_step_tiled_cuda(dist, force, 0.8, lat, tile)
             want = K8.lb_step_tiled_plain(dist, force, 0.8, lat, tile)
             assert _bits(got[0], want[0]) and _bits(got[1], want[1]), tile
+
+
+# -- split reductions (K2S), K2's int32 and bf16 instances, the block view ----------
+
+def _bits16(a, b):
+    """Bitwise equality of bf16 tensors."""
+    return torch.equal(a.contiguous().view(torch.int16), b.contiguous().view(torch.int16))
+
+
+def _bf16_ulp(v):
+    """The spacing of bf16 numbers at each (finite, normal) value of v, in fp64."""
+    e = torch.floor(torch.log2(v.double().abs().clamp_min(2.0 ** -126)))
+    return torch.pow(2.0, e - 7)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("nrows", [1, 3, 64, 1345, 4096])
+def test_k2s_bitwise_fold_tree_split(card, nrows, rng):
+    """K2S (single, batched, compensated) bitwise core/reduce.py's
+    fold_tree_split run on the card, at rsplit 1, 2, 4 and 16: empty
+    segments (R 1 and 3), segments on either side of the one-launch limit
+    (R 1345 at rsplit 2: 672 and 673 rows), segments that take level 1 (R
+    4096); rsplit 1 bitwise the unsplit fold; its scratch the size
+    core/reduce.py allocates."""
+    from repro_torch import _cuda
+
+    p = _dev(rng, (nrows, 24), card, scale=10.0)
+    pairs = torch.stack([p, p * 2.0 ** -30], dim=-1)
+    ip = torch.from_numpy(rng.integers(-2**31, 2**31 - 1, size=(nrows, 24),
+                                       dtype=np.int64).astype(np.int32)).to(card)
+    for rs in (1, 2, 4, 16):
+        for op in ("sum", "max"):
+            got = reduce.fold_partials(p, op, rsplit=rs)
+            assert _bits(got, reduce.fold_tree_split(p, op, rsplit=rs)), (rs, op)
+            rows = reduce.fold_partials_batched(torch.stack([p * 2, p]), op, rsplit=rs)
+            assert _bits(rows[1], got), (rs, op)
+            gi = reduce.fold_partials(ip, op, rsplit=rs)
+            assert gi.dtype == torch.int32
+            assert torch.equal(gi, reduce.fold_tree_split(ip, op, rsplit=rs)), (rs, op)
+            assert torch.equal(gi, ip.sum(dim=0, dtype=torch.int32) if op == "sum"
+                               else ip.amax(dim=0)), (rs, op)
+        got_c = reduce.fold_partials(pairs, "sum", compensated=True, rsplit=rs)
+        assert _bits(got_c, reduce.fold_tree_split(pairs, "sum", True, rsplit=rs)), rs
+        rows_c = reduce.fold_partials_batched(torch.stack([pairs, pairs * 2]), "sum",
+                                              compensated=True, rsplit=rs)
+        assert _bits(rows_c[0], got_c), rs
+        assert _cuda.library().rt_reduce_fold_split_scratch(nrows, 24, rs) == \
+            reduce.fold_scratch(nrows, 24, rs)
+        if rs == 1:
+            assert _bits(got_c, reduce.fold_tree(pairs, compensated=True))
+            assert _bits(reduce.fold_partials(p, "sum"), reduce.fold_tree(p))
+    launches = reduce.REDUCE_FOLD_S.launches
+    reduce.fold_partials(p, "sum", rsplit=4)
+    assert reduce.REDUCE_FOLD_S.launches == launches + 1
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("spec", ["soa", "aos", "aosoa4", "aosoa16", "aosoa12"])
+def test_k2_int32_and_bf16_instances(card, spec, rng):
+    """K2's int32 instance (sum wrapping past 2^31, max) bitwise torch's sum
+    and amax, and its bf16 instance (sum, max) bitwise reduce_tree on the
+    widened field rounded once and within one bf16 ulp of the fp64 sum
+    rounded, in the layout, at a tail, misaligned, batched, and under
+    rsplit 4 bitwise the unsplit result."""
+    lay = parse_layout(spec)
+    for ncomp, nsites in ((24, 8208), (19, 4128)):
+        xi = torch.from_numpy(rng.integers(-2**24, 2**24, size=(ncomp, nsites),
+                                           dtype=np.int64).astype(np.int32)).to(card)
+        xi[3] = 2**30 + 7   # its sum wraps
+        li = lay.pack(xi)
+        L = {"x": lay}
+        want = xi.sum(dim=1, dtype=torch.int32)
+        assert int(want[3]) != (2**30 + 7) * nsites
+        for op, w in (("sum", want), ("max", xi.amax(dim=1))):
+            got = reduce.reduce_sites(li, op, layouts=L)
+            assert got.dtype == torch.int32 and torch.equal(got, w), (spec, op)
+            assert torch.equal(reduce.reduce_sites(li, op, layouts=L, rsplit=4), w)
+            assert torch.equal(reduce.reduce_sites(_misaligned(li), op, layouts=L), w)
+            rows = reduce.reduce_sites_batched(torch.stack([li, li]), op, layouts=L, rsplit=2)
+            assert torch.equal(rows[1], w), (spec, op)
+        xb = _dev(rng, (ncomp, nsites), card, scale=3.0, offset=1.0).to(torch.bfloat16)
+        lb = lay.pack(xb)
+        tree = reduce.reduce_tree(xb)
+        got = reduce.reduce_sites(lb, "sum", layouts=L)
+        assert got.dtype == torch.bfloat16 and _bits16(got, tree), spec
+        assert _bits16(reduce.reduce_sites(_misaligned(lb), "sum", layouts=L), tree)
+        assert _bits16(reduce.reduce_sites(lb, "sum", layouts=L, rsplit=4),
+                       reduce.reduce_tree(xb, rsplit=4))
+        want = xb.double().sum(dim=1).to(torch.bfloat16)
+        assert bool(((got.double() - want.double()).abs() <= _bf16_ulp(want)).all()), spec
+        assert _bits16(reduce.reduce_sites(lb, "max", layouts=L), xb.amax(dim=1))
+        rows = reduce.reduce_sites_batched(torch.stack([lb, lb]), "sum", layouts=L)
+        assert _bits16(rows[0], got) and _bits16(rows[1], got)
+
+
+@pytest.mark.cuda
+def test_split_launches_keep_field_bits(card, rng):
+    """Under rsplit the fused kernels' field outputs are bitwise the unsplit
+    launch's and the sums within SUM_RTOL of the plain ones: cg_update,
+    cg_update_masked, wilson_normal (single, batched, the policy instance)
+    through the wrappers, and the graphs under an explicit split plan; a
+    target_sum under it bitwise the kernel's split fold."""
+    lat = (4, 4, 8, 8)
+    V = int(np.prod(lat))
+    x, r, p, ap = (_dev(rng, (24, V), card) for _ in range(4))
+    a = torch.tensor(0.3, device=card)
+    base = fuse.cg_update(x, r, p, ap, a, -a, 32)
+    for rs in (2, 4, 16):
+        got = fuse.cg_update(x, r, p, ap, a, -a, 32, rsplit=rs)
+        assert _bits(got[0], base[0]) and _bits(got[1], base[1])
+        _close_sum(got[2], base[2], base[1] * base[1])
+        m = torch.ones(2, device=card)
+        gm = fuse.cg_update_masked(x, r, p, ap, a.repeat(2), -a.repeat(2), m, 32, rsplit=rs)
+        assert _bits(gm[0][1], base[0]) and _bits(gm[2][0], got[2])
+    u = torch.from_numpy(fields.random_su3_gauge(lat, seed=1).reshape(72, -1)).to(card)
+    ap0, pap0 = K.wilson_normal_cuda(p, u, 0.12, lat, 32)
+    for rs in (2, 8):
+        ap1, pap1 = K.wilson_normal_cuda(p, u, 0.12, lat, 32, rsplit=rs)
+        assert _bits(ap1, ap0)
+        _close_sum(pap1, pap0, p * ap0)
+        apb, papb = K.wilson_normal_cuda(torch.stack([p, p]), u, 0.12, lat, 32, batched=True,
+                                         rsplit=rs)
+        assert _bits(apb[0], ap0) and _bits(papb[1], pap1)
+    from repro_torch.core.plan import CudaPolicy, LoweringPlan
+
+    apc, papc = K.wilson_normal_cuda(p, u, 0.12, lat, 32, policy=CudaPolicy(False, True))
+    apc2, papc2 = K.wilson_normal_cuda(p, u, 0.12, lat, 32, policy=CudaPolicy(False, True),
+                                       rsplit=4)
+    assert _bits(apc2, apc)
+    _close_sum(papc2, papc, p * apc)
+    fp = Field.from_canonical("p", p, lat)
+    fu = Field.from_canonical("u", u, lat)
+    split = TargetConfig("cuda", device="cuda",
+                         plan_policy=LoweringPlan("cuda", vvl=32, bx=1, rsplit=4))
+    whole = TargetConfig("cuda", device="cuda", vvl=32)
+    g = CG.wilson_normal_graph(0.12)
+    launches = reduce.REDUCE_FOLD_S.launches
+    o4 = g.launch({"p": fp, "u": fu}, config=split, outputs=("ap", "pap"))
+    o1 = g.launch({"p": fp, "u": fu}, config=whole, outputs=("ap", "pap"))
+    assert reduce.REDUCE_FOLD_S.launches == launches + 1
+    assert _bits(o4["ap"].data, o1["ap"].data)
+    _close_sum(o4["pap"], o1["pap"], p * o1["ap"].data)
+    prod = fp.with_data(p * p)
+    assert _bits(reduce.target_sum(prod, split), reduce.reduce_tree(p * p, rsplit=4))
+
+
+@pytest.mark.cuda
+def test_block_view_launch_bitwise_staged(card, rng):
+    """An explicit view="block" launch of wilson_normal (aosoa8, ring-2
+    halos) and of the LB step (aosoa4, 8, 16) runs the same kernels as
+    "staged-nd": every output bitwise; a misaligned block view raises
+    before any launch."""
+    from repro_torch.core.plan import LoweringPlan
+
+    lat = (4, 4, 4, 4)
+    lay = parse_layout("aosoa8")
+    V = int(np.prod(lat))
+    p = _dev(rng, (24, V), card)
+    u = torch.from_numpy(fields.random_su3_gauge(lat, seed=1).reshape(72, -1)).to(card)
+    ins = {"p": Field.from_canonical("p", p, lat, lay), "u": Field.from_canonical("u", u, lat, lay)}
+    cfg = TargetConfig("cuda", device="cuda")
+    g = CG.wilson_normal_graph(0.12)
+    outs = [g.launch(ins, config=cfg, outputs=("ap", "pap"),
+                     plan=LoweringPlan("cuda", vvl=128, bx=1, view=v))
+            for v in ("staged-nd", "block")]
+    assert _bits(outs[0]["ap"].data, outs[1]["ap"].data)
+    assert _bits(outs[0]["pap"], outs[1]["pap"])
+    llat = (4, 14, 16)
+    LV = int(np.prod(llat))
+    dist, force = _lb_dist(rng, card, LV), _dev(rng, (3, LV), card, scale=1e-3)
+    lcfg = LudwigConfig(lattice=llat, target=cfg)
+    for spec in ("aosoa4", "aosoa8", "aosoa16"):
+        ll = parse_layout(spec)
+        fins = {"dist": Field.from_canonical("dist", dist, llat, ll),
+                "force": Field.from_canonical("force", force, llat, ll)}
+        res = [LD.lb_step_graph(lcfg).launch(fins, config=cfg, outputs=("dist2", "u"),
+                                             plan=LoweringPlan("cuda", vvl=32, bx=1, view=v))
+               for v in ("staged-nd", "block")]
+        for o in ("dist2", "u"):
+            assert _bits(res[0][o].data, res[1][o].data), (spec, o)
+    a64 = parse_layout("aosoa64")   # 64 does not divide the halo'd inner plane, 16 x 18
+    bad = {n: f.as_layout(a64) for n, f in fins.items()}
+    launches = K8.LB_STEP.launches
+    with pytest.raises(ValueError, match="halo'd inner-plane"):
+        LD.lb_step_graph(lcfg).launch(bad, config=cfg, outputs=("dist2", "u"),
+                                      plan=LoweringPlan("cuda", vvl=128, bx=1, view="block"))
+    assert K8.LB_STEP.launches == launches

@@ -249,15 +249,18 @@ def test_to_plan_maps_and_refuses():
     assert got == LoweringPlan("cuda", bx=1, by=4, bz=64)
     assert convert.to_plan(JPlan("jnp").to_json()) == LoweringPlan("torch")
     assert convert.to_plan(JPlan("pallas", vvl=128, view="block").to_json()) == \
-        LoweringPlan("cuda", 128)
+        LoweringPlan("cuda", 128, view="block")
     # a dtype policy carries across (mixed precision is ported)
     pol = jplan.DtypePolicy(storage="bfloat16", compute="float32", accumulate="float64")
     got = convert.to_plan(JPlan("pallas", vvl=128, dtypes=pol).to_json())
     assert got == LoweringPlan("cuda", 128, dtypes=pplan.DtypePolicy(*dataclasses.astuple(pol)))
     assert got.describe() == "cuda/vvl=128/dt=bf16:f32:f64"
-    for bad, what in ((JPlan("pallas", bx=2, rsplit=2), "rsplit"),
-                      (JPlan("pallas", bx=2, view="block"), "view"),
-                      (JPlan("pallas", bx=2, halo="pre"), "halo")):
+    # the split factor and the block view carry across (both are ported)
+    got = convert.to_plan(JPlan("pallas", bx=2, rsplit=2, view="block").to_json())
+    assert got == LoweringPlan("cuda", bx=2, rsplit=2, view="block")
+    assert got.describe() == "cuda/bx=2/block/rs2"
+    for bad, what in ((JPlan("pallas", bx=2, halo="pre"), "halo"),
+                      (JPlan("pallas", bx=2, halo="overlap"), "halo")):
         with pytest.raises(ValueError, match=what):
             convert.to_plan(bad.to_json())
 
