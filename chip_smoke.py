@@ -1,7 +1,7 @@
 """Drive the PyTorch/CUDA port on one GPU: the MILC Wilson-CG solve and its
-batched serving, both also in mixed precision, the Ludwig LC-LB timestep,
-untiled, under a shared-memory budget, in every data layout and with bf16
-LB storage, RWKV6-7B and starcoder2-7b serving (prefill and greedy
+batched serving, both also in mixed precision and under a shared-memory
+budget, the Ludwig LC-LB timestep, untiled, under a shared-memory budget,
+in every data layout and with bf16 LB storage, RWKV6-7B and starcoder2-7b serving (prefill and greedy
 decode).
 
     python3 chip_smoke.py [--lattice X Y Z T] [--small X Y Z T]
@@ -14,6 +14,25 @@ Phases (any failure raises and exits non-zero; nothing is caught):
    while the host generates the problem (random SU(3) gauge field and
    source at ``--lattice``, default (64, 64, 64, 32)); print K4's, K7's,
    K8's and K5L's ptxas report (registers and spills, one line a kernel);
+C1. (after L4) K3C, the fused LC chain (molecular field, BE rhs, Q update)
+   at ``--ludwig`` in SoA and AoS on the L1 state's q and lap q and random
+   w and adv: within 1e-6 x max|plain| of its plain version, against the
+   K3L pair's composition (bitwise or not, logged), timed beside its bound
+   and the K3L pair; the lc_chain graph's launch in each layout counted;
+T4. (after RS1) the solve of phase 4 under ``TargetConfig(smem_bytes=227 *
+   1024)``, counted: the plan's ``describe()`` (at (64, 64, 64, 32) the
+   finest tile, (1, 1, 1) with t whole), K5T twice an iteration and K5
+   never, iterations within 1 and x within rel-L2 1e-5 of phase 4's,
+   |M x - b| / |b| < 1e-3; K5T's t and ap bitwise K5's on phase 3's
+   inputs, pap within rtol 1e-6 of its plain version and bitwise on a
+   rerun (bitwise K5's logged), timed beside K5, its bound and the
+   two-launch floor;
+T5. under the same budget: ``solve_batched`` on S2's four sources (K5T
+   batched, each slot bitwise the budgeted solve of its source) and the
+   refined solve (K5T's policy instance), each counted; K5T batched (4
+   slots, each bitwise its single launch) and its policy instance (ap
+   bitwise K5's policy instance) against their plain versions, timed
+   beside K5B and K5's policy instance;
 3. hold every MILC kernel against its plain PyTorch version on the card at
    that lattice and time both (CUDA events, median of several runs); K2's
    sum and fold also bitwise their tree emulation (core/reduce.py's
@@ -207,7 +226,10 @@ T1. on the L1 state, the plan ``default_plan`` picks for the LB half-step
    against the plain LB step (``lb_step_plain``) on the whole lattice
    within 1e-5 x max|plain|, timed beside K5L; then against
    ``tiled_plain``, the tile-by-tile plain version, on a slice of 4 x 4 x 2
-   tiles ((4, 16, 128) there), logged;
+   tiles ((4, 16, 128) there), logged; then K9 in AoS and aosoa4, on
+   aosoa4 through the LB graph under the tiled plan in view="block", and
+   its bf16 policy instance, each bitwise K5L's launch in that layout or
+   policy and the plain LB step, timed beside K5L;
 Q4. (after T1 and after R1, where ``build/parent`` holds the parent's tree)
    the parent's K9 and K10 (lb_tiled.cu and rwkv6.cu with its own headers,
    a library of their own) against this tree's: K9 at T1's lattice and
@@ -222,7 +244,11 @@ T2. with every count set to 0: 10 steps from the L1 state with
    L3's first 10 steps bitwise, K9 must have launched and K5L not; ms a
    step beside L3's; then
    ``collide_propagate`` under the budget, bitwise equal to the untiled one,
-   through K9 alone;
+   through K9 alone; 10 steps under the budget from the L1 state in AoS
+   and in aosoa4 (bitwise L3's, K9 alone), the LB half-step's graph on
+   aosoa4 under the tiled block plan (bitwise untiled), and 3 steps with
+   bf16 LB storage under the budget, bitwise 3 untiled bf16 steps (K9's
+   policy instance alone), each window counted;
 T3. at ``--ludwig-small``, 5 steps on the "cuda" engine under a budget of
    6512 B, which tiles the LB half-step at (1, 1, 2), against 5 untiled
    steps of the "torch" engine, within L5's tolerance;
@@ -283,8 +309,9 @@ A3. ``generate`` serves 4 requests, a 16-token prompt then 16 greedy tokens,
    beside the bound of reading the weights and the cache once; one decode
    step traced; on the fp32 copy, the decode's logits after the prompt
    within rel-L2 1e-3 of the prefill's at the last prompt position;
-6. print the layouts' JSON line, the serving, redesign, mixed-precision
-   and V1/RS1 lines, the kernel table of every path (the layout instances
+6. print the layouts' JSON line, the serving, redesign, mixed-precision,
+   V1/RS1 and tiled (T1, T2, T4, T5, C1) lines, the kernel table of every
+   path (the layout instances
    as kernel@layout rows, with Y2's and Y3's launches; the batch instances
    with S2's; K2S and K2's int32 and bf16 instances with RS1's windows) as
    one JSON line, then the result line.
@@ -361,10 +388,13 @@ KERNELS = [target.G5, target.MUL, target.AXPY, reduce.REDUCE_SUM,
            k8.LB_STEP_BF16, wk.BF16_ROUND, wk.BF16_PACK, reduce.REDUCE_FOLD_S,
            reduce.REDUCE_FOLD_SB, reduce.REDUCE_FOLD_SC, reduce.REDUCE_SUM_I32,
            reduce.REDUCE_MAX_I32, reduce.REDUCE_FOLD_I32, reduce.REDUCE_SUM_BF16,
-           reduce.REDUCE_MAX_BF16, reduce.REDUCE_FOLD_BF16]
+           reduce.REDUCE_MAX_BF16, reduce.REDUCE_FOLD_BF16, k8.LB_STEP_TILED_BF16,
+           wk.WILSON_NORMAL_T_TILED, wk.WILSON_NORMAL_AP_TILED, wk.WILSON_NORMAL_T_TILED_MIXED,
+           wk.WILSON_NORMAL_AP_TILED_MIXED, lk.LC_CHAIN]
 
 # flops a site, counted from the sources (all these kernels are bound by bytes)
-FLOPS = {"collide": 450, "lb_step": 462, "chem_stress": 600, "lc_update": 320, "fed": 160}
+FLOPS = {"collide": 450, "lb_step": 462, "chem_stress": 600, "lc_update": 320, "fed": 160,
+         "lc_chain": 440}
 
 # the solve's path: name -> (counters, source, TPU kernel it replaces)
 PATH = {
@@ -550,6 +580,32 @@ RS_WRAP_COMP = 3   # the int32 field's component whose sum passes 2^31
 
 T1_SLICE_TILES = (4, 4, 2)  # tiles a side of the sub-lattice tiled_plain runs on in T1
 T3_BUDGET, T3_TILE = 6512, (1, 1, 2)   # T3's budget and the tile it picks
+# K9 off SoA and under the bf16 policy (T1, T2): its rows and their windows
+T1_LAYOUTS = ("aos", "aosoa4")
+T2_BF16_STEPS = 3
+TILED_LAYOUT_PATH = {
+    **{f"lb_step_tiled@{n}": ([k8.LB_STEP_TILED], "lb_tiled.cu", "src/repro/core/fuse.py:1804")
+       for n in T1_LAYOUTS + ("aosoa4/block",)},
+    "lb_step_tiled_bf16": ([k8.LB_STEP_TILED_BF16], "lb_tiled.cu", "src/repro/core/fuse.py:1804"),
+}
+# K5T (T4: the budgeted solve; T5: the budgeted serving and refined solves)
+NORMAL_TILED_PATH = {
+    "wilson_normal_tiled": ([wk.WILSON_NORMAL_T_TILED, wk.WILSON_NORMAL_AP_TILED],
+                            "wilson_normal.cu", "src/repro/core/fuse.py:1804"),
+}
+NORMAL_TILED_POLICY_PATH = {
+    "wilson_normal_tiled_policy": ([wk.WILSON_NORMAL_T_TILED_MIXED,
+                                    wk.WILSON_NORMAL_AP_TILED_MIXED], "wilson_normal_mixed.cu",
+                                   "src/repro/core/fuse.py:1804"),
+}
+NORMAL_TILED_SERVE_PATH = {
+    "wilson_normal_tiled_batched": NORMAL_TILED_PATH["wilson_normal_tiled"],
+    **NORMAL_TILED_POLICY_PATH,
+}
+# K3C, the fused LC chain (the benchmarks' Fig. 3 exhibit), in SoA and AoS
+LC_CHAIN_PATH = {n: ([lk.LC_CHAIN], "ludwig_flat.cu", "src/repro/core/fuse.py:1411")
+                 for n in ("ludwig_lc_chain", "ludwig_lc_chain@aos")}
+LC_CHAIN_RTOL = 1e-6   # K3C against its plain version: max|err| <= LC_CHAIN_RTOL max|plain|
 
 
 def log(msg: str) -> None:
@@ -1265,7 +1321,7 @@ def k9_blocks_per_sm(ptxas, dev, block):
     regs, entry = None, False
     for ln in ptxas:
         if "Compiling entry" in ln:
-            entry = "lb_tiled" in ln
+            entry = "lb_tiled_kernelILi0ELb0E" in ln   # the SoA fp32 instantiation
         elif entry and "Used" in ln:
             regs = int(re.search(r"Used (\d+) registers", ln).group(1))
             break
@@ -1419,6 +1475,380 @@ def ludwig_tiled_small(small):
             f"max abs diff {err:.3e}")
         if not torch.allclose(a, b, rtol=ENGINE_RTOL, atol=ENGINE_ATOL):
             raise AssertionError(f"tiled cuda and torch engines disagree on {name}")
+
+
+# -- the tiled lowering's further instances: K9 off SoA and under bf16 (T1, T2),
+# -- K5T (T4, T5) and the fused LC chain (K3C) ---------------------------------------
+
+def check_tiled_layouts(state, cfg, vvl, tile):
+    """T1 (continued): K9 in AoS and aosoa4, on aosoa4 through the graph
+    under view="block", and K9's bf16 policy instance, each on T1's inputs
+    bitwise K5L's launch in that layout or policy and the plain LB step's
+    (the pinned collision), timed beside K5L.  Returns (rows, {row: K5L's
+    ms})."""
+    lat, tau = cfg.lattice, cfg.tau
+    V = math.prod(lat)
+    dev = state.dist.data.device
+    gen = torch.Generator(device=dev).manual_seed(4)
+    dist = state.dist.data * (1.0 + 0.05 * torch.randn((19, V), generator=gen, device=dev))
+    force = 1e-3 * torch.randn((3, V), generator=gen, device=dev)
+    rows, k5l = {}, {}
+    cases = [(spec, False) for spec in T1_LAYOUTS] + [("soa", True)]
+    for spec, bf16 in cases:
+        lay = parse_layout(spec)
+        L = {"dist": lay, "force": lay, "dist2": lay, "u": lay}
+        d, f = lay.pack(dist), lay.pack(force)
+        name = "lb_step_tiled_bf16" if bf16 else f"lb_step_tiled@{spec}"
+        k5 = k8.lb_step_cuda(d, f, tau, lat, vvl, layouts=L, bf16=bf16)
+        k9 = k8.lb_step_tiled_cuda(d, f, tau, lat, tile, layouts=L, bf16=bf16)
+        want = k8.lb_step_plain(d, f, tau, lat, layouts=L, bf16=bf16)
+        for o, g, w, p in zip(("dist2", "u"), k9, k5, want):
+            exact_err(g.float(), w.float(), f"T1 {name} {o} against K5L's")
+            exact_err(g.float(), p.float(), f"T1 {name} {o} against lb_step_plain")
+        del k5, k9, want
+        ms = time_ms(lambda: k8.lb_step_tiled_cuda(d, f, tau, lat, tile, layouts=L, bf16=bf16))
+        k5l[name] = time_ms(lambda: k8.lb_step_cuda(d, f, tau, lat, vvl, layouts=L, bf16=bf16))
+        plain_ms = time_ms(lambda: k8.lb_step_plain(d, f, tau, lat, layouts=L, bf16=bf16),
+                           reps=3, warm=1)
+        add_row(rows, name, 0.0, ms, plain_ms, (132 if bf16 else 176) * V, FLOPS["lb_step"] * V)
+        log(f"  {name}: bitwise K5L's launch in {spec}{' (bf16)' if bf16 else ''} and the "
+            f"plain LB step; K5L {k5l[name]:.4f} ms")
+        if spec == "aosoa4":
+            # the LB half-step's graph under the tiled plan in the native AoSoA view
+            bplan = LoweringPlan("cuda", bx=tile[0], by=tile[1], bz=tile[2], view="block")
+            g = ludwig.lb_step_graph(cfg)
+            ins = {"dist": Field("dist", 19, lat, lay, d), "force": Field("force", 3, lat, lay, f)}
+
+            def block_launch():
+                return g.launch(ins, config=cfg.target, outputs=("dist2", "u"), plan=bplan,
+                                out_layouts={"dist2": lay, "u": lay})
+
+            out = block_launch()
+            for o in ("dist2", "u"):
+                exact_err(out[o].data, k8.lb_step_cuda(d, f, tau, lat, vvl, layouts=L)[
+                    0 if o == "dist2" else 1], f"T1 view='block' {o} against K5L's")
+            del out
+            bname = "lb_step_tiled@aosoa4/block"
+            k5l[bname] = k5l[name]
+            add_row(rows, bname, 0.0, time_ms(block_launch), plain_ms, 176 * V,
+                    FLOPS["lb_step"] * V)
+            log(f"  {bname}: plan {bplan.describe()}, bitwise K5L's launch in aosoa4")
+        del d, f
+    del dist, force
+    torch.cuda.empty_cache()
+    return rows, k5l
+
+
+def run_tiled_layouts(state, after_steps, cfg, tile):
+    """T2 (continued), each window counted: LUDWIG_STEPS steps under the
+    budget from the L1 state repacked into AoS and aosoa4, bitwise L3's
+    (K9 in that layout, K5L never); one LB half-step on aosoa4 through the
+    graph under the tiled plan in view="block"; T2_BF16_STEPS steps with
+    bf16 LB storage under the budget, bitwise as many bf16 steps untiled
+    (K9's policy instance, K5L's never).  Returns ({row: launches}, {row:
+    ms a step})."""
+    counts, step_ms = {}, {}
+    btarget = dataclasses.replace(cfg.target, smem_bytes=SMEM_BUDGET)
+    for spec in T1_LAYOUTS:
+        lay = parse_layout(spec)
+        lcfg = dataclasses.replace(cfg, layout=lay, target=btarget)
+        s = ludwig.LudwigState(dist=state.dist.as_layout(lay), q=state.q.as_layout(lay))
+        reset_counts()
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        for _ in range(LUDWIG_STEPS):
+            s = step(s, lcfg)
+        torch.cuda.synchronize()
+        name = f"lb_step_tiled@{spec}"
+        step_ms[name] = (time.perf_counter() - t0) / LUDWIG_STEPS * 1e3
+        counts[name] = k8.LB_STEP_TILED.launches
+        exact_err(s.dist.canonical(), after_steps.dist.data, f"T2 {spec}: dist against L3's")
+        exact_err(s.q.canonical(), after_steps.q.data, f"T2 {spec}: q against L3's")
+        if counts[name] != LUDWIG_STEPS or k8.LB_STEP.launches:
+            raise AssertionError(f"T2 {spec}: K9 launched {counts[name]} times, K5L "
+                                 f"{k8.LB_STEP.launches}")
+        log(f"T2: ludwig {cfg.lattice} in {spec} under the budget: {step_ms[name]:.3f} ms/step, "
+            f"bitwise L3's; K9 launches {counts[name]}")
+        del s
+    lay = parse_layout("aosoa4")
+    V = math.prod(cfg.lattice)
+    gen = torch.Generator(device=state.dist.data.device).manual_seed(3)
+    force = Field.from_canonical(
+        "force", 1e-3 * torch.randn((3, V), generator=gen, device=state.dist.data.device),
+        cfg.lattice, lay)
+    ins = {"dist": state.dist.as_layout(lay), "force": force}
+    g = ludwig.lb_step_graph(cfg)
+    want = g.launch(ins, config=cfg.target, outputs=("dist2", "u"))
+    reset_counts()
+    got = g.launch(ins, config=cfg.target, outputs=("dist2", "u"),
+                   plan=LoweringPlan("cuda", bx=tile[0], by=tile[1], bz=tile[2], view="block"))
+    counts["lb_step_tiled@aosoa4/block"] = k8.LB_STEP_TILED.launches
+    for o in ("dist2", "u"):
+        exact_err(got[o].data, want[o].data, f"T2 view='block' {o} against the untiled launch")
+    if counts["lb_step_tiled@aosoa4/block"] != 1 or k8.LB_STEP.launches:
+        raise AssertionError("T2: the block-view LB half-step did not run K9 alone")
+    del ins, force, want, got
+    runs = {}
+    for budget in (None, SMEM_BUDGET):
+        bcfg = dataclasses.replace(cfg, storage="bfloat16", target=dataclasses.replace(
+            cfg.target, smem_bytes=budget))
+        s = state
+        reset_counts()
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        for _ in range(T2_BF16_STEPS):
+            s = step(s, bcfg)
+        torch.cuda.synchronize()
+        runs[budget] = (s, (time.perf_counter() - t0) / T2_BF16_STEPS * 1e3,
+                        k8.LB_STEP_TILED_BF16.launches, k8.LB_STEP_BF16.launches)
+    (s0, ms0, _, u0), (s1, ms1, t1, u1) = runs[None], runs[SMEM_BUDGET]
+    exact_err(s1.dist.data, s0.dist.data, "T2 bf16: tiled dist against untiled")
+    exact_err(s1.q.data, s0.q.data, "T2 bf16: tiled q against untiled")
+    if (t1, u1, u0) != (T2_BF16_STEPS, 0, T2_BF16_STEPS):
+        raise AssertionError(f"T2 bf16: K9 bf16 launches {t1}, K5L bf16 {u1} (untiled {u0})")
+    counts["lb_step_tiled_bf16"], step_ms["lb_step_tiled_bf16"] = t1, ms1
+    log(f"T2: {T2_BF16_STEPS} bf16-storage steps under the budget: {ms1:.3f} ms/step "
+        f"(untiled {ms0:.3f}), bitwise the untiled bf16 steps; K9 bf16 launches {t1}")
+    del runs, s0, s1
+    torch.cuda.empty_cache()
+    return counts, step_ms
+
+
+def normal_t_launch(kernel, p, u, lat, tile=None):
+    """t of K5's (tile None) or K5T's t kernel alone on SoA p and u, at
+    block 128 (fp32, one slot)."""
+    t = torch.empty((24, p.shape[-1]), device=p.device)
+    d = SOA.descriptor()
+    args = (*lat, d, d, 128) if tile is None else (*lat, 1, *tile, d, d, 128)
+    kernel.launch(p.device, p.data_ptr(), u.data_ptr(), t.data_ptr(), KAPPA, *args)
+    return t
+
+
+def check_tiled_normal(cfg, u, b, x_soa, iterations, solve_s, vvl):
+    """T4: the MILC solve at ``cfg.lattice`` under the 227 KiB budget, on
+    K5T; then K5T on phase 3's inputs against K5 and its plain version,
+    timed.  Returns (rows, counts, summary, plan tile)."""
+    lat = cfg.lattice
+    V = math.prod(lat)
+    bcfg = dataclasses.replace(cfg, target=dataclasses.replace(cfg.target,
+                                                               smem_bytes=SMEM_BUDGET))
+    views = (((24, 2, 4), (72, 2, 4)), ((24, 4),))
+    p_ = plan.default_plan(bcfg.target, nsites=V, layouts=[SOA], stencil=True, lattice=lat,
+                           smem_views=views)
+    tile = (p_.bx, p_.by, p_.bz)
+    log(f"T4: budget {SMEM_BUDGET} B -> plan {p_.describe()} at {lat} (the reference's window "
+        f"model {plan.estimate_smem_bytes(p_, lattice=lat, in_views=views[0])} B; K5T stages "
+        f"none)")
+    if not p_.tiled:
+        raise AssertionError(f"T4: plan {p_} is not tiled")
+    reset_counts()
+    res, dt = solve_timed(bcfg, u, b)
+    counts = path_counts(NORMAL_TILED_PATH)
+    untiled = path_counts(PATH)["wilson_normal"]
+    rc = residual_check(bcfg, u, b, res.x)
+    rel = (torch.linalg.norm(res.x.data - x_soa) / torch.linalg.norm(x_soa)).item()
+    log(f"T4: solve {lat} under the budget: {res.iterations} iterations (phase 4: "
+        f"{iterations}), {dt:.3f} s ({dt / max(res.iterations, 1) * 1e3:.3f} ms/iter; phase 4: "
+        f"{solve_s:.3f} s), |Mx-b|/|b| = {rc:.3e}, x rel-L2 {rel:.3e} from phase 4's "
+        f"(bitwise: {bool(torch.equal(res.x.data, x_soa))}); K5T launches {counts}, K5 {untiled}")
+    if abs(res.iterations - iterations) > 1 or not rel <= 1e-5 or not rc < 1e-3:
+        raise AssertionError("T4: the budgeted solve is off phase 4's")
+    if counts["wilson_normal_tiled"] != 2 * res.iterations or untiled:
+        raise AssertionError("T4: the budgeted solve did not run K5T twice an iteration, K5 never")
+    summary = dict(plan=p_.describe(), iterations=res.iterations, s=dt, residual_check=rc,
+                   x_rel=rel, x_bitwise=bool(torch.equal(res.x.data, x_soa)))
+    del res
+    inp = milc_inputs(u, b, vvl)
+    p, uu = inp["p"], inp["u"]
+    exact_err(normal_t_launch(wk.WILSON_NORMAL_T_TILED, p, uu, lat, tile),
+              normal_t_launch(wk.WILSON_NORMAL_T, p, uu, lat), "T4: K5T's t against K5's")
+    ap, pap = wk.wilson_normal_tiled_cuda(p, uu, KAPPA, lat, tile)
+    ap5, pap5 = wk.wilson_normal_cuda(p, uu, KAPPA, lat, vvl)
+    exact_err(ap, ap5, "T4: K5T's ap against K5's")
+    want_ap, want = wk.wilson_normal_tiled_plain(p, uu, KAPPA, lat, tile)
+    err = max(field_err(ap, want_ap, "T4: K5T's ap against its plain version"),
+              sum_err(pap, want, p * want_ap, "T4: K5T's pap against its plain version"))
+    if not torch.allclose(pap, want, rtol=1e-6, atol=0.0):
+        raise AssertionError(f"T4: K5T's pap beyond rtol 1e-6 of its plain version: "
+                             f"{(pap - want).abs().max().item()}")
+    exact_err(wk.wilson_normal_tiled_cuda(p, uu, KAPPA, lat, tile)[1], pap,
+              "T4: K5T's pap on a rerun")
+    pap_bits = bool(torch.equal(pap, pap5))
+    ms = time_ms(lambda: wk.wilson_normal_tiled_cuda(p, uu, KAPPA, lat, tile))
+    k5_ms = time_ms(lambda: wk.wilson_normal_cuda(p, uu, KAPPA, lat, vvl))
+    plain_ms = time_ms(lambda: wk.wilson_normal_tiled_plain(p, uu, KAPPA, lat, tile), reps=3,
+                       warm=1)
+    rows = {}
+    add_row(rows, "wilson_normal_tiled", err, ms, plain_ms, 480 * V, NORMAL_FLOPS * V)
+    floor = 1056 * V / HBM_BYTES_PER_S * 1e3
+    log(f"  K5T at {lat}, tile {tile}: t and ap bitwise K5's, pap within rtol 1e-6 of its "
+        f"plain version and bitwise on a rerun (bitwise K5's: {pap_bits}); {ms:.4f} ms against "
+        f"K5 {k5_ms:.4f} ms, the bound {rows['wilson_normal_tiled']['bound_ms']:.4f} ms and "
+        f"the two-launch floor {floor:.4f} ms")
+    summary.update(k5t_ms=ms, k5_ms=k5_ms, floor_ms=floor, pap_bitwise_k5=pap_bits)
+    del inp, p, uu, ap, ap5, want_ap, want
+    torch.cuda.empty_cache()
+    return rows, counts, summary, tile
+
+
+def check_tiled_normal_serving(cfg, u, b, tile, vvl, seed):
+    """T5: under the 227 KiB budget, solve_batched on S2's four sources (K5T
+    batched, each slot bitwise the budgeted solve of its source) and the
+    refined solve (K5T's policy instance), each counted; K5T batched (4
+    slots) and its policy instance timed beside K5B and K5's policy
+    instance on phase 3's inputs.  Returns (rows, {row: launches},
+    summary)."""
+    lat = cfg.lattice
+    V = math.prod(lat)
+    bcfg = dataclasses.replace(cfg, target=dataclasses.replace(cfg.target,
+                                                               smem_bytes=SMEM_BUDGET))
+    bs = serve_sources(cfg, u, seed)
+    reset_counts()
+    res, dt = solve_timed_batched(bcfg, u, bs)
+    counts = {"wilson_normal_tiled_batched": path_counts(NORMAL_TILED_PATH)["wilson_normal_tiled"]}
+    its = res.iterations.tolist()
+    if counts["wilson_normal_tiled_batched"] != 2 * max(its) or wk.WILSON_NORMAL_AP_B.launches:
+        raise AssertionError(f"T5: solve_batched launched K5T {counts}, K5B "
+                             f"{wk.WILSON_NORMAL_AP_B.launches}")
+    for i in range(3):
+        one = solve(bcfg, u, bs[i])
+        same_outcome(res.x.element(i), its[i], res.residual[i], one, f"T5 slot {i}")
+    log(f"T5: solve_batched {lat}, {SLOTS} slots under the budget: iterations {its}, {dt:.3f} s; "
+        f"each slot bitwise the budgeted solve of its source; K5T launches {counts}")
+    summary = dict(batched_iterations=its, batched_s=dt)
+    del res, bs
+    mcfg = dataclasses.replace(bcfg, storage="bfloat16")
+    reset_counts()
+    res, rdt = solve_timed(mcfg, u, b)
+    counts["wilson_normal_tiled_policy"] = path_counts(
+        NORMAL_TILED_POLICY_PATH)["wilson_normal_tiled_policy"]
+    rc = residual_check(cfg, u, b, res.x)
+    log(f"T5: refined solve {lat} (bf16 storage) under the budget: {res.iterations} inner "
+        f"iterations, {rdt:.3f} s, |Mx-b|/|b| = {rc:.3e}; K5T policy launches "
+        f"{counts['wilson_normal_tiled_policy']}, K5 policy {wk.WILSON_NORMAL_AP_MIXED.launches}")
+    if not rc < 1e-3 or not counts["wilson_normal_tiled_policy"] or \
+            wk.WILSON_NORMAL_AP_MIXED.launches:
+        raise AssertionError("T5: the budgeted refined solve is off or missed K5T's policy "
+                             "instance")
+    summary.update(refined_iterations=res.iterations, refined_s=rdt, refined_residual=rc)
+    del res
+    inp = batch_inputs(lat, SOA)
+    rows = {}
+    pb, uu = inp["p"], u.data
+    ap, pap = wk.wilson_normal_tiled_cuda(pb, uu, KAPPA, lat, tile, batched=True)
+    for s_ in range(pb.shape[0]):
+        one = wk.wilson_normal_tiled_cuda(pb[s_], uu, KAPPA, lat, tile)
+        exact_err(ap[s_], one[0], f"T5: K5T batched ap slot {s_} against its single launch")
+        exact_err(pap[s_], one[1], f"T5: K5T batched pap slot {s_} against its single launch")
+    want_ap, want = wk.wilson_normal_tiled_plain(pb, uu, KAPPA, lat, tile, batched=True)
+    err = max(field_err(ap, want_ap, "T5: K5T batched ap against its plain version"),
+              sum_err(pap, want, (pb * want_ap).reshape(pb.shape[0], 24, -1),
+                      "T5: K5T batched pap against its plain version"))
+    ms = time_ms(lambda: wk.wilson_normal_tiled_cuda(pb, uu, KAPPA, lat, tile, batched=True))
+    k5b_ms = time_ms(lambda: wk.wilson_normal_cuda(pb, uu, KAPPA, lat, vvl, batched=True))
+    plain_ms = time_ms(lambda: wk.wilson_normal_tiled_plain(pb, uu, KAPPA, lat, tile,
+                                                            batched=True), reps=2, warm=1)
+    nb = pb.shape[0]
+    add_row(rows, "wilson_normal_tiled_batched", err, ms, plain_ms, (192 * nb + 288) * V,
+            NORMAL_FLOPS * nb * V)
+    del ap, pap, want_ap, want
+    pol = CudaPolicy(True, True)
+    p1 = pb[0].contiguous()
+    u16 = wk.bf16_pack_cuda(uu)
+    ap_m, pap_m = wk.wilson_normal_tiled_cuda(p1, u16, KAPPA, lat, tile, policy=pol)
+    ap5_m, _ = wk.wilson_normal_cuda(p1, u16, KAPPA, lat, vvl, policy=pol)
+    exact_err(ap_m.float(), ap5_m.float(), "T5: K5T policy ap against K5's policy instance")
+    want_ap, want = wk.wilson_normal_tiled_plain(p1, uu, KAPPA, lat, tile, policy=pol)
+    err_m = max(bf16_err(ap_m, want_ap, "T5: K5T policy ap against its plain version"),
+                sum_err(pap_m, want, wk.bf16_round(p1) * want_ap.float(),
+                        "T5: K5T policy pap against plain"))
+    ms_m = time_ms(lambda: wk.wilson_normal_tiled_cuda(p1, u16, KAPPA, lat, tile, policy=pol))
+    k5m_ms = time_ms(lambda: wk.wilson_normal_cuda(p1, u16, KAPPA, lat, vvl, policy=pol))
+    plain_m = time_ms(lambda: wk.wilson_normal_tiled_plain(p1, uu, KAPPA, lat, tile, policy=pol),
+                      reps=3, warm=1)
+    add_row(rows, "wilson_normal_tiled_policy", err_m, ms_m, plain_m, 288 * V, NORMAL_FLOPS * V)
+    log(f"  K5T batched ({nb} slots) {ms:.4f} ms against K5B {k5b_ms:.4f} ms; K5T policy "
+        f"{ms_m:.4f} ms against K5's policy instance {k5m_ms:.4f} ms")
+    summary.update(k5t_batched_ms=ms, k5b_ms=k5b_ms, k5t_policy_ms=ms_m, k5_policy_ms=k5m_ms)
+    del inp, pb, uu, u16, p1, ap_m, ap5_m, want_ap, want
+    torch.cuda.empty_cache()
+    return rows, counts, summary
+
+
+def solve_timed_batched(cfg, u, bs):
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    res = solve_batched(cfg, u, bs)
+    torch.cuda.synchronize()
+    return res, time.perf_counter() - t0
+
+
+def check_lc_chain(state, cfg, vvl):
+    """The K3C row (after L4): the fused LC chain at the Ludwig lattice in
+    SoA and AoS against its plain version (within LC_CHAIN_RTOL x
+    max|plain|), against the K3L pair's composition (chem_stress's h fed to
+    lc_update: bitwise or not, logged), timed beside its bound and the K3L
+    pair; the lc_chain graph's launch in each layout counted.  Returns
+    (rows, counts, summary)."""
+    lat = cfg.lattice
+    V = math.prod(lat)
+    dev = state.q.data.device
+    gen = torch.Generator(device=dev).manual_seed(6)
+    q = state.q.data
+    _, lapq_nd = ludwig.stage_gradients(state.q.canonical_nd())
+    arrs = {"q": q, "lapq": lapq_nd.reshape(5, V),
+            "w": 1e-2 * torch.randn((9, V), generator=gen, device=dev),
+            "adv": 1e-2 * torch.randn((5, V), generator=gen, device=dev)}
+    kw = dict(a0=cfg.a0, gamma=cfg.gamma, kappa=cfg.kappa, gamma_rot=cfg.gamma_rot, xi=cfg.xi,
+              dt=cfg.dt)
+    names = ("q", "lapq", "w", "adv")
+    rows, counts, summary = {}, {}, {}
+    g = ludwig.lc_chain_graph(cfg)
+    for spec in ("soa", "aos"):
+        lay = parse_layout(spec)
+        L = {**{n: lay for n in names}, "q_new": lay}
+        phys = [lay.pack(arrs[n]) for n in names]
+        got = lk.lc_chain_cuda(*phys, vvl=vvl, layouts=L, **kw)
+        want = lk.lc_chain_plain(*phys, layouts=L, **kw)
+        err = (got - want).abs().max().item()
+        if not err <= LC_CHAIN_RTOL * want.abs().max().item():
+            raise AssertionError(f"K3C in {spec}: max abs err {err} beyond {LC_CHAIN_RTOL} x "
+                                 f"max|plain|")
+        dq = lay.pack(torch.zeros((15, V), device=dev))
+        lcs = {"q": lay, "lapq": lay, "dq": lay, "h": lay, "sigma": lay}
+        llu = {"q": lay, "h": lay, "w": lay, "adv": lay, "q_new": lay}
+
+        def k3l_pair():
+            h, _ = lk.chem_stress_cuda(phys[0], phys[1], dq, a0=cfg.a0, gamma=cfg.gamma,
+                                       kappa_m=cfg.kappa, kappa_s=cfg.kappa, xi=cfg.xi,
+                                       vvl=vvl, layouts=lcs)
+            return lk.lc_update_cuda(phys[0], h, phys[2], phys[3], gamma_rot=cfg.gamma_rot,
+                                     xi=cfg.xi, dt=cfg.dt, vvl=vvl, layouts=llu)
+
+        pair = k3l_pair()
+        bits = bool(torch.equal(got, pair))
+        pair_err = (got - pair).abs().max().item()
+        ms = time_ms(lambda: lk.lc_chain_cuda(*phys, vvl=vvl, layouts=L, **kw))
+        pair_ms = time_ms(k3l_pair)
+        plain_ms = time_ms(lambda: lk.lc_chain_plain(*phys, layouts=L, **kw), reps=3, warm=1)
+        name = "ludwig_lc_chain" if spec == "soa" else "ludwig_lc_chain@aos"
+        add_row(rows, name, err, ms, plain_ms, 116 * V, FLOPS["lc_chain"] * V)
+        summary[spec] = dict(ms=ms, k3l_pair_ms=pair_ms, bitwise_k3l_pair=bits,
+                             k3l_pair_max_abs_diff=pair_err)
+        ins = {n: Field(n, a.shape[0], lat, lay, p_) for (n, a), p_ in zip(arrs.items(), phys)}
+        reset_counts()
+        out = g.launch(ins, config=cfg.target, outputs=("q_new",), out_layouts={"q_new": lay})
+        counts[name] = lk.LC_CHAIN.launches
+        exact_err(out["q_new"].data, got, f"K3C in {spec}: the graph's launch against the "
+                                         f"wrapper's")
+        if counts[name] != 1:
+            raise AssertionError(f"K3C in {spec}: the lc_chain graph launched it "
+                                 f"{counts[name]} times")
+        log(f"  K3C in {spec}: bitwise the K3L pair's composition: {bits} (max abs diff "
+            f"{pair_err:.3e}); the K3L pair {pair_ms:.4f} ms")
+        del got, want, dq, pair, out, phys, ins
+    torch.cuda.empty_cache()
+    return rows, counts, summary
 
 
 def wkv_work(BH, T, C, dk, dv):
@@ -1780,13 +2210,15 @@ def flash_toolchain():
     K5 (fused_flat.cu, dslash.cu, wilson_normal.cu and wilson_normal_mixed.cu)
     and its K9 and K10 (lb_tiled.cu, rwkv6.cu) as libraries of their own.
     Returns ({"flash": ptxas lines of the bf16 kernels, "k10": of K10's and
-    K9's kernels, "k4_k5l": of K4's, K7's, K8's and K5L's}, {"flash", "k1_k2", "k3_k5",
+    K9's kernels, "k4_k5l": of K4's, K7's, K8's and K5L's, "k5t_k3c": of K5's
+    and K5T's (SoA, one slot, fp32) and K3C's}, {"flash", "k1_k2", "k3_k5",
     "k9_k10", "k5l" (lb.cu): the parent library's path} for those built)."""
     nvcc = _cuda._nvcc()
     _cuda.BUILD_DIR.mkdir(parents=True, exist_ok=True)
     cmds = [[nvcc, *_cuda.COMPILE_FLAGS, "-Xptxas", "-v", "-cubin", "-o",
              str(_cuda.BUILD_DIR / f"{src}_ptxas.cubin"), str(_cuda.CSRC / f"{src}.cu")]
-            for src in ("flash", "rwkv6", "lb_tiled", "dslash", "lb")]
+            for src in ("flash", "rwkv6", "lb_tiled", "dslash", "lb", "wilson_normal",
+                        "ludwig_flat")]
     csrc = os.path.join(PARENT_SRC, "repro_torch", "csrc")
     libs = {}
     for tag, srcs in (("flash", ("flash.cu",)), ("k1_k2", ("site_local.cu", "reduce.cu")),
@@ -1813,10 +2245,14 @@ def flash_toolchain():
                 lines.append(ln.split("ptxas info    : ")[-1].strip())
         return lines
 
+    # K5 and K5T's two kernels (SoA, one slot, fp32: K5T is K5's with a walk)
+    k5t = ("wilson_normal_t_kernelILi0EiLi1ELb0EfEvPKf",
+           "wilson_normal_ap_kernelILi0EiLi1ELb0EfLb0EfEvPKf")
     return {"flash": report(outs[0], (FLASH_MMA,)),
             "k10": report(outs[1], ("rwkv6_",)) + report(outs[2], ("lb_tiled",)),
             "k4_k5l": report(outs[3], ("dslash",))
-            + report(outs[4], ("lb_step", "lb_collide", "lb_propagate"))}, libs
+            + report(outs[4], ("lb_step", "lb_collide", "lb_propagate")),
+            "k5t_k3c": report(outs[5], k5t) + report(outs[6], ("lc_chain",))}, libs
 
 
 def flash_sass(lib):
@@ -2695,9 +3131,15 @@ class ParentK9K10:
     def __init__(self, path):
         lib = ctypes.CDLL(str(path))
         self.fn = {}
+        # a parent whose K9 takes layout descriptors has its bf16 instance beside it;
+        # an older one takes SoA fields and no descriptors
+        self.layouts = hasattr(lib, "rt_lb_step_tiled_bf16")
         for name in ("rt_lb_step_tiled", "rt_rwkv6_state", "rt_rwkv6_output"):
             fn = getattr(lib, name)
-            fn.argtypes, fn.restype = list(_cuda.SIGNATURES[name]), ctypes.c_int
+            sig = _cuda.SIGNATURES[name]
+            if name == "rt_lb_step_tiled" and not self.layouts:
+                sig = sig[:14] + sig[18:]
+            fn.argtypes, fn.restype = list(sig), ctypes.c_int
             self.fn[name] = fn
 
     def _call(self, name, *args):
@@ -2708,9 +3150,10 @@ class ParentK9K10:
     def lb_step_tiled(self, dist, force, tau, lat, tile, with_u=True):
         dist2 = torch.empty_like(dist)
         u = torch.empty_like(force) if with_u else None
+        soa = (SOA.descriptor(),) * 4 if self.layouts else ()
         self._call("rt_lb_step_tiled", dist.data_ptr(), force.data_ptr(), dist2.data_ptr(),
                    u.data_ptr() if with_u else None, *lat, *tile, *k7.lb_params(float(tau)),
-                   k8.K9_BLOCK)
+                   *soa, k8.K9_BLOCK)
         return dist2, u
 
     def wkv(self, r, k, v, w, u, s0, chunk):
@@ -3980,7 +4423,7 @@ def main():
     log(f"build: {build_s:.1f} s ({lib.name}); problem {lattice} generated and "
         f"uploaded in {gen_s:.1f} s")
     kern = spill = ""
-    for ln in ptxas["k4_k5l"]:   # one line a kernel: its name, registers and spills
+    for ln in ptxas["k4_k5l"] + ptxas["k5t_k3c"]:   # a line a kernel: registers, spills
         if ln.startswith("Compiling entry"):
             kern = ln.split("'")[1] if "'" in ln else ln
         elif "spill" in ln:
@@ -4101,6 +4544,9 @@ def main():
     xcounts = lb_exhibit(last, lcfg)
     del last
     torch.cuda.empty_cache()
+    # C1. K3C, the fused LC chain, in SoA and AoS, each graph launch counted
+    log(f"C1: K3C (the fused LC chain) at {lcfg.lattice}:")
+    crows, ccounts, k3c = check_lc_chain(state, lcfg, lcfg.target.vvl)
 
     # L5. the cuda engine against the torch engine, both on the card
     ludwig_engines(tuple(args.ludwig_small))
@@ -4131,6 +4577,12 @@ def main():
     srows, split_line, scounts_rs = split_reductions(cfg, u, b, x_soa, iterations, vvl, state,
                                                      lcfg)
     v1_rs1_s = time.perf_counter() - t1
+    # T4. the solve under the 227 KiB budget on K5T, counted; T5. the budgeted
+    # serving and refined solves, counted
+    t1 = time.perf_counter()
+    nrows, ncounts, t4, k5t_tile = check_tiled_normal(cfg, u, b, x_soa, iterations, solve_s, vvl)
+    nsrows, nscounts, t5 = check_tiled_normal_serving(cfg, u, b, k5t_tile, vvl, args.seed)
+    log(f"T4, T5: {time.perf_counter() - t1:.1f} s")
     del u, b, x_soa
     torch.cuda.empty_cache()
     # Y3. the Ludwig step in every layout x vvl, counted
@@ -4151,8 +4603,10 @@ def main():
         "ludwig_ms_per_step": ygrid, "ludwig_step_timed_ms": ystages,
         "ludwig_lb_exhibit_ms": yexhibit}}
 
-    # T1. the tiled kernel at the budget's plan
+    # T1. the tiled kernel at the budget's plan, in SoA, then off SoA and in bf16
     trows, tplan = check_tiled_kernel(state, lcfg, lcfg.target.vvl, ptxas["k10"])
+    ttile = (tplan.bx, tplan.by, tplan.bz)
+    tlrows, k5l_ms = check_tiled_layouts(state, lcfg, lcfg.target.vvl, ttile)
     # Q4. K9 in turns with the parent's design, where its tree is unpacked
     parent_k9_k10 = (ParentK9K10(parent_libs["k9_k10"]) if "k9_k10" in parent_libs else None)
     if parent_k9_k10:
@@ -4162,6 +4616,7 @@ def main():
 
     # T2. the Ludwig step under the budget, counted
     tcounts, txcounts, _ = run_tiled(state, after_steps, lcfg, l3_ms)
+    tlcounts, tl_step_ms = run_tiled_layouts(state, after_steps, lcfg, ttile)
     log(f"max memory allocated over L1-T2: {torch.cuda.max_memory_allocated() / 2**30:.2f} GiB")
     del state, after_steps
     torch.cuda.empty_cache()
@@ -4210,6 +4665,10 @@ def main():
              + table_rows(LB_EXHIBIT_PATH, xcounts, lrows)
              + table_rows(TILED_PATH, tcounts, trows)
              + table_rows(TILED_EXHIBIT_PATH, txcounts, trows)
+             + table_rows(TILED_LAYOUT_PATH, tlcounts, tlrows)
+             + table_rows(NORMAL_TILED_PATH, ncounts, nrows)
+             + table_rows(NORMAL_TILED_SERVE_PATH, nscounts, nsrows)
+             + table_rows(LC_CHAIN_PATH, ccounts, crows)
              + table_rows(RWKV_PATH, rcounts, rrows)
              + table_rows(FLASH_PATH, acounts, arows)
              + layout_table_rows(PATH, {lay: v[0] for lay, v in ymilc.items()}, yrows)
@@ -4230,6 +4689,10 @@ def main():
     print(json.dumps(mixed_line))
     print(json.dumps({"view_block": {"card": smi, **v1},
                       "split_reductions": {"card": smi, "rsplit": RSPLIT, **split_line}}))
+    print(json.dumps({"tiled": {
+        "card": smi, "solve": t4, "serving_and_refined": t5, "lc_chain": k3c,
+        "k9": {n: {"ms": r["ms"], "k5l_ms": k5l_ms[n], "bound_ms": r["bound_ms"],
+                   "ms_per_step": tl_step_ms.get(n)} for n, r in tlrows.items()}}}))
     print(json.dumps({"kernels": table}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

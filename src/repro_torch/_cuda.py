@@ -81,14 +81,22 @@ SIGNATURES = {
     "rt_wilson_normal_t_mixed": (_P, _P, _P, _F, _I, _I, _I, _I, _I, _D, _D, _I, _P),
     "rt_wilson_normal_ap_mixed": (_P, _P, _P, _P, _P, _F, _I, _I, _I, _I, _I, _I, _I, _D, _D, _D,
                                   _I, _P),
+    "rt_wilson_normal_t_tiled": (_P, _P, _P, _F, *(_I,) * 8, _D, _D, _I, _P),
+    "rt_wilson_normal_ap_tiled": (_P, _P, _P, _P, _P, _F, *(_I,) * 8, _D, _D, _D, _I, _P),
+    "rt_wilson_normal_t_tiled_mixed": (_P, _P, _P, _F, *(_I,) * 8, _D, _D, _I, _P),
+    "rt_wilson_normal_ap_tiled_mixed": (_P, _P, _P, _P, _P, _F, *(_I,) * 10, _D, _D, _D, _I, _P),
     "rt_lb_collide": (_P, _P, _P, _L, _F, _F, _F, _F, _D, _D, _D, _I, _P),
     "rt_lb_propagate": (_P, _P, _I, _I, _I, _D, _D, _I, _P),
     "rt_lb_step": (_P, _P, _P, _P, _I, _I, _I, _F, _F, _F, _F, _D, _D, _D, _D, _I, _P),
     "rt_lb_step_bf16": (_P, _P, _P, _P, _I, _I, _I, _F, _F, _F, _F, _D, _D, _D, _D, _I, _P),
-    "rt_lb_step_tiled": (_P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _F, _F, _F, _F, _I, _P),
+    "rt_lb_step_tiled": (_P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _F, _F, _F, _F, *(_D,) * 4, _I,
+                         _P),
+    "rt_lb_step_tiled_bf16": (_P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _F, _F, _F, _F,
+                              *(_D,) * 4, _I, _P),
     "rt_ludwig_chem_stress": (_P, _P, _P, _P, _P, _L, _F, _F, _F, _F, _F, _F, _F,
                               *(_D,) * 5, _I, _P),
     "rt_ludwig_lc_update": (_P, _P, _P, _P, _P, _L, _F, _F, _F, _F, *(_D,) * 5, _I, _P),
+    "rt_ludwig_lc_chain": (_P, _P, _P, _P, _P, _L, *(_F,) * 8, *(_D,) * 5, _I, _P),
     "rt_ludwig_fed": (_P, _P, _P, _L, _F, _F, _F, _F, _D, _D, _D, _I, _P),
     "rt_rwkv6_state": (*(_P,) * 6, *(_I,) * 6, *(_L,) * 6, _I, _P),
     "rt_rwkv6_output": (*(_P,) * 7, *(_I,) * 6, *(_L,) * 11, _I, _I, _P),

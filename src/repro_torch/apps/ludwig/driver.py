@@ -23,14 +23,14 @@ any Pallas kernel.
 
 A shared-memory budget in ``LudwigConfig.target`` (``smem_bytes``, or
 ``$TARGETDP_TORCH_SMEM_BYTES``) tiles the LB half-step, the step's one
-stencil graph, which then runs as K9 (``csrc/lb_tiled.cu``).
+stencil graph, which then runs as K9 (``csrc/lb_tiled.cu``) in the state's
+layout, with no driver change beyond the config.
 
 ``LudwigConfig.storage`` ("bfloat16", or "float32") runs the LB half-step
 under a storage DtypePolicy (compute fp32, accumulate float64): dist and
 force are read as stored in that dtype and dist2 and u come back in it; on
-"cuda" that is K5L's policy instance.  The carried state stays fp32.  A
-policy with a budget raises on "cuda" (the policy x tile composition is
-still to be ported).
+"cuda" that is K5L's policy instance, and K9's under a budget.  The carried
+state stays fp32.
 
 Not yet ported: the plan tuner (``tune_step_graphs``) and the sharded
 driver (``make_sharded_step``, ``run_steps``).
@@ -186,8 +186,8 @@ def lc_update_graph(cfg: LudwigConfig) -> LaunchGraph:
 
 def lc_chain_graph(cfg: LudwigConfig) -> LaunchGraph:
     """The 3-kernel LC chain (molecular field -> BE rhs -> Q update) fused
-    into one launch — the benchmarks' fused-vs-unfused exhibit.  Not on the
-    step's path: the "cuda" engine has no kernel for it and raises."""
+    into one launch — the benchmarks' fused-vs-unfused exhibit (on "cuda",
+    K3C).  Not on the step's path."""
     g = _add_mol_field(LaunchGraph("ludwig_lc_chain"), cfg)
     return _add_q_update(_add_be_rhs(g, cfg), cfg)
 
@@ -364,11 +364,23 @@ def _lb_step_cuda(graph, ins, scalars, *, lattice, vvl, out_layouts, policy=None
     return {"dist2": dist2, "u": u}
 
 
-def _lb_step_tiled_cuda(graph, ins, scalars, *, lattice, plan, out_layouts):
-    # a tiled plan takes SoA fields only (core.plan refuses the others)
+def _lc_chain_cuda(graph, ins, scalars, *, lattice, vvl, out_layouts):
+    mol, be, upd = graph.stage_params()
+    t, lays = _split(ins, out_layouts)
+    q_new = lck.lc_chain_cuda(t["q"], t["lapq"], t["w"], t["adv"], a0=mol["a0"],
+                              gamma=mol["gamma"], kappa=mol["kappa"],
+                              gamma_rot=be["gamma_rot"], xi=be["xi"], dt=upd["dt"], vvl=vvl,
+                              layouts=lays)
+    return {"q_new": q_new}
+
+
+def _lb_step_tiled_cuda(graph, ins, scalars, *, lattice, plan, out_layouts, policy=None):
+    # policy: a bf16 storage runs K9's policy instance
     tau = graph.stage_params()[1]["tau"]
-    dist2, u = lbk.lb_step_tiled_cuda(ins["dist"][0], ins["force"][0], tau, lattice,
-                                      (plan.bx, plan.by, plan.bz))
+    t, lays = _split(ins, out_layouts)
+    dist2, u = lbk.lb_step_tiled_cuda(t["dist"], t["force"], tau, lattice,
+                                      (plan.bx, plan.by, plan.bz), with_u="u" in out_layouts,
+                                      layouts=lays, bf16=bool(policy and policy.bf16))
     return {"dist2": dist2, "u": u}
 
 
@@ -380,6 +392,7 @@ def _fed_cuda(ins, params, vvl, out_layouts):
 
 register_cuda_graph(chem_stress_graph(LudwigConfig()), _chem_stress_cuda, ("h", "sigma"))
 register_cuda_graph(lc_update_graph(LudwigConfig()), _lc_update_cuda, ("q_new",))
+register_cuda_graph(lc_chain_graph(LudwigConfig()), _lc_chain_cuda, ("q_new",))
 register_cuda_graph(lb_step_graph(LudwigConfig()), _lb_step_cuda, ("dist2", "u"),
                     tiled=_lb_step_tiled_cuda, policy=True)
 register_cuda_body(_fed_body, _fed_cuda)

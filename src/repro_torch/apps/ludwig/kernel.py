@@ -3,11 +3,14 @@ each beside its plain PyTorch version (the ``lc.py`` chunk bodies):
 
   K3L  chem_stress  q, lapq, dq -> h, sigma  (the ludwig_chem_stress graph)
        lc_update    q, h, w, adv -> q_new    (the ludwig_lc_update graph)
+  K3C  lc_chain     q, lapq, w, adv -> q_new (the ludwig_lc_chain graph: the
+                    molecular field, the BE rhs and the Q update, h and rhs
+                    in registers)
   K1L  fed          q, dq -> free-energy density (diagnostics)
 
-K3L replaces ``core/fuse.py::LaunchGraph._build_flat`` of the JAX package
-for the two flat Ludwig graphs, K1L ``core/target.py::TargetKernel.
-_run_pallas`` for the free-energy body.  Each is one launch, one thread per
+K3L and K3C replace ``core/fuse.py::LaunchGraph._build_flat`` of the JAX
+package for the three flat Ludwig graphs, K1L ``core/target.py::
+TargetKernel._run_pallas`` for the free-energy body.  Each is one launch, one thread per
 site, over fp32 fields, each in its own layout (SoA, AoS or AoSoA,
 addressed through INDEX inside the kernel; one launch may mix layouts).
 Each wrapper takes physical tensors and ``layouts`` (names as in its
@@ -32,11 +35,12 @@ from repro_torch.core.layout import resolve_layouts
 from . import lc
 
 __all__ = ["chem_stress_cuda", "chem_stress_plain", "lc_update_cuda",
-           "lc_update_plain", "fed_cuda", "fed_plain", "CHEM_STRESS",
-           "LC_UPDATE", "FED"]
+           "lc_update_plain", "lc_chain_cuda", "lc_chain_plain", "fed_cuda", "fed_plain",
+           "CHEM_STRESS", "LC_UPDATE", "LC_CHAIN", "FED"]
 
 CHEM_STRESS = Kernel("ludwig_chem_stress", "rt_ludwig_chem_stress")
 LC_UPDATE = Kernel("ludwig_lc_update", "rt_ludwig_lc_update")
+LC_CHAIN = Kernel("ludwig_lc_chain", "rt_ludwig_lc_chain")
 FED = Kernel("ludwig_fed", "rt_ludwig_fed")
 
 
@@ -63,6 +67,7 @@ def _empty(lay, name, ncomp, V, like):
 
 _CS = {"q": 5, "lapq": 5, "dq": 15}
 _LU = {"q": 5, "h": 5, "w": 9, "adv": 5}
+_LC = {"q": 5, "lapq": 5, "w": 9, "adv": 5}
 _FED = {"q": 5, "dq": 15}
 
 
@@ -112,6 +117,35 @@ def lc_update_cuda(q, h, w, adv, *, gamma_rot, xi, dt, vvl: int = 128,
     q_new = _empty(lay, "q_new", 5, V, q)
     LC_UPDATE.launch(q.device, *ptrs, q_new.data_ptr(), V, gamma_rot, xi, -2.0 * xi, dt,
                      *descs, lay["q_new"].descriptor(), vvl)
+    return q_new
+
+
+def lc_chain_plain(q, lapq, w, adv, *, a0, gamma, kappa, gamma_rot, xi, dt, layouts=None
+                   ) -> torch.Tensor:
+    """q_new = q_update(q, beris_edwards_rhs(q, molecular_field(q, lapq), w),
+    adv)."""
+    lay, _ = _fields(dict(q=q, lapq=lapq, w=w, adv=adv), layouts, ("q_new",))
+    q, lapq, w, adv = (lay[n].unpack(t) for n, t in
+                       (("q", q), ("lapq", lapq), ("w", w), ("adv", adv)))
+    h = lc.molecular_field_chunk(q, lapq, a0=a0, gamma=gamma, kappa=kappa)
+    rhs = lc.beris_edwards_rhs_chunk(q, h, w, gamma_rot=gamma_rot, xi=xi)
+    return lay["q_new"].pack(lc.q_update_chunk(q, rhs, adv, dt=dt))
+
+
+def lc_chain_cuda(q, lapq, w, adv, *, a0, gamma, kappa, gamma_rot, xi, dt, vvl: int = 128,
+                  layouts=None) -> torch.Tensor:
+    """K3C: q_new (5 components) of q, lapq, adv (5) and w (9), in one
+    launch."""
+    if q.device.type == "cpu":
+        return lc_chain_plain(q, lapq, w, adv, a0=a0, gamma=gamma, kappa=kappa,
+                              gamma_rot=gamma_rot, xi=xi, dt=dt, layouts=layouts)
+    named = dict(q=q, lapq=lapq, w=w, adv=adv)
+    lay, V = _fields(named, layouts, ("q_new",))
+    ptrs, descs = _launch_args(named, _LC, lay, V)
+    q_new = _empty(lay, "q_new", 5, V, q)
+    LC_CHAIN.launch(q.device, *ptrs, q_new.data_ptr(), V, -a0 * (1.0 - gamma / 3.0), a0 * gamma,
+                    -a0 * gamma, kappa, gamma_rot, xi, -2.0 * xi, dt, *descs,
+                    lay["q_new"].descriptor(), vvl)
     return q_new
 
 

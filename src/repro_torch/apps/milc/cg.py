@@ -43,6 +43,11 @@ policy-free operator), and ``cg_batched(refine_every > 0)`` with
 slot at a time).  On "cuda" the operator's policy instance is K5's
 (``csrc/wilson_normal_mixed.cu``) and the update chains take its bf16 ap
 (K3's and K3B's ap16 instances).
+
+A shared-memory budget (``TargetConfig.smem_bytes``) tiles the fused
+operator as the JAX package's VMEM budget does; on "cuda" the tiled plan
+runs K5T (``kernels/wilson_dslash/kernel.py::wilson_normal_tiled_cuda``),
+single, batched and under the refined solve's policy.
 """
 
 from __future__ import annotations
@@ -58,7 +63,8 @@ from repro_torch.core.plan import cuda_policy, launch_policy
 from repro_torch.core.reduce import fold_components
 from repro_torch.core.target import register_cuda_body, site_axpy, site_g5, site_mul
 from repro_torch.kernels.wilson_dslash import dslash
-from repro_torch.kernels.wilson_dslash.kernel import bf16_pack_cuda, wilson_normal_cuda
+from repro_torch.kernels.wilson_dslash.kernel import (bf16_pack_cuda, wilson_normal_cuda,
+                                                      wilson_normal_tiled_cuda)
 from repro_torch.kernels.wilson_dslash.ops import dslash_stencil_body
 
 
@@ -560,6 +566,19 @@ def _wilson_normal_cuda(graph, ins, scalars, *, lattice, vvl, out_layouts, polic
     return {"ap": ap, "pap": pap}
 
 
+def _wilson_normal_tiled_cuda(graph, ins, scalars, *, lattice, plan, out_layouts, policy=None,
+                              rsplit=1, batch=0, in_batched=None):
+    # K5T, single or (batch set) over stacked p against one shared u
+    if batch and (not in_batched["p"] or in_batched["u"]):
+        raise ValueError("wilson_normal's batch instance takes a BatchedField p and one "
+                         "gauge Field u shared by every slot")
+    lays = _lays(ins, {"p": "p", "u": "u"}, out_layouts)
+    ap, pap = wilson_normal_tiled_cuda(ins["p"][0], ins["u"][0], _normal_kappa(graph), lattice,
+                                       (plan.bx, plan.by, plan.bz), layouts=lays,
+                                       batched=bool(batch), policy=policy, rsplit=rsplit)
+    return {"ap": ap, "pap": pap}
+
+
 # The batch instances (K5B, K3B): each takes its inputs stacked or shared as
 # ``in_batched`` says, and its scalars as (batch,) device vectors.
 
@@ -600,7 +619,8 @@ register_cuda_body(_axpy_body, _axpy_cuda)
 register_cuda_graph(cg_update_graph(24), _cg_update_cuda, ("x_new", "r_new", "rr"))
 register_cuda_graph(cg_xpay_graph(24), _cg_xpay_cuda, ("out",))
 register_cuda_graph(wilson_normal_graph(0.0), _wilson_normal_cuda, ("ap", "pap"),
-                    batched=_wilson_normal_batched_cuda, policy=True)
+                    batched=_wilson_normal_batched_cuda, policy=True,
+                    tiled=_wilson_normal_tiled_cuda, tiled_batched=_wilson_normal_tiled_cuda)
 register_cuda_graph(masked_cg_update_graph(24), None, ("x_new", "r_new", "rr"),
                     batched=_cg_update_masked_cuda)
 register_cuda_graph(masked_xpay_graph(24), None, ("out",), batched=_cg_xpay_masked_cuda)

@@ -6,8 +6,16 @@ SU(3) gauge background with CG on the normal equations, one source
 (:func:`solve_batched`).  ``MilcConfig.storage`` (or ``refine_k``) selects
 mixed precision: the operator launches run under a storage DtypePolicy and
 restarts against the policy-free operator recover the working tolerance
-(``cg_refined``; batched, ``cg_batched(refine_every=)``).  The sharded
-solvers of the JAX package are not yet ported.
+(``cg_refined``; batched, ``cg_batched(refine_every=)``).
+
+A shared-memory budget (``TargetConfig.smem_bytes`` or
+``$TARGETDP_TORCH_SMEM_BYTES``) reaches the fused per-iteration operator
+with no driver change beyond the config: when its whole-staged M^dag M
+footprint exceeds the budget, the planning layer tiles the operator's y/z
+axes as the JAX package's does (``core.plan.choose_tiles``), and on "cuda"
+the tiled plan runs K5T (the operator's blocks walking the tiles) in
+:func:`solve`, :func:`solve_batched` and the refined solve alike.  The
+sharded solvers of the JAX package are not yet ported.
 """
 
 from __future__ import annotations

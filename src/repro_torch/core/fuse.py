@@ -35,11 +35,13 @@ Engines:
              Stage params are not part of the signature: the kernel reads
              them from the graph.  A tiled plan (by or bz set, see
              ``core.plan``) runs the graph's registered tiled kernel
-             instead, and raises when there is none or when its two window
-             slots exceed the shared memory one block may hold: it never
-             falls back to the untiled kernel or to torch ops.  A batched
-             launch runs the graph's registered batched kernel (the slot a
-             grid axis) and raises when there is none.
+             instead (K9, K5T: they walk the tiles in the reference's
+             order, in every layout), and raises when there is none or
+             when the shared memory it stages a block exceeds what one
+             block may hold: it never falls back to the untiled kernel or
+             to torch ops.  A batched launch runs the graph's registered
+             batched kernel (the slot a grid axis), under a tiled plan its
+             tiled batched kernel, and raises when there is none.
 
 On "torch" a batched launch runs the single launch slot by slot and stacks
 the results, so each slot is the single launch's bits by construction.
@@ -54,10 +56,10 @@ reductions are exempt.  On "torch" the bodies run on the cast inputs and a
 policy sum folds its fp32 source, compensated sums in fp64 rounded once
 (the plain version every compensated sum is held to).  On "cuda" the graph's
 registered kernels must have a policy instance (``register_cuda_graph(...,
-policy=True)``: wilson_normal, its batch instance and ludwig_lb_step) and
-the policy must be one they take (``core.plan.cuda_policy``); anything else,
-and any policy on a tiled plan, raises before a device is touched.  The
-empty policy runs exactly the policy-free kernels.
+policy=True)``: wilson_normal and ludwig_lb_step, untiled and tiled, and
+wilson_normal's batch instances) and the policy must be one they take
+(``core.plan.cuda_policy``); anything else raises before a device is
+touched.  The empty policy runs exactly the policy-free kernels.
 
 :func:`tiled_plain` is the tiled lowering in torch ops, tile by tile in the
 tiled kernels' order: the plain version every tiled kernel is held against.
@@ -67,8 +69,10 @@ A plan's ``view`` resolves per launch (``core.plan.adapt_plan``).  On
 package checks it (:func:`_block_geometry`, before any device is touched)
 and then runs the same kernels as "staged-nd": they read every layout in
 place.  The torch engine ignores the view: its stencils always pad
-canonical views.  A plan's ``rsplit`` reaches every registered kernel that
-folds partial rows (``rsplit=``), which folds them in that many segments
+canonical views; a tiled block plan is checked as the reference checks
+it, per tile (an AoSoA input is required, the output alignment is not).
+A plan's ``rsplit`` reaches every registered kernel that folds partial rows
+(``rsplit=``), tiled or not, which folds them in that many segments
 combined in index order (``core.reduce``); the field outputs do not change.
 :meth:`ReduceSpec.combine_partials` is that stage-2 combine in torch ops.
 
@@ -95,8 +99,7 @@ from .._cuda import Kernel, check_field, check_tensor
 from .field import BatchedField, Field
 from .layout import Layout, LayoutKind, resolve_layouts
 from .plan import (SMEM_PER_BLOCK_OPTIN, VIEW_BLOCK, DtypePolicy, LoweringPlan, adapt_plan,
-                   cuda_policy, default_plan, estimate_smem_bytes, launch_policy, policy_plan,
-                   resolve_accumulate)
+                   cuda_policy, default_plan, launch_policy, policy_plan, resolve_accumulate)
 from .reduce import compensated_plain, fold_partials, fold_partials_batched
 from .stencil import halo_pad, tile_boxes
 from .target import (TargetConfig, TargetKernel, batch_operand, operand_shape, operand_slot,
@@ -194,16 +197,18 @@ def _kahan_combine(acc: torch.Tensor, part: torch.Tensor) -> torch.Tensor:
 
 def _block_geometry(ordered_ins: Sequence[str], in_layouts: Sequence[Layout],
                     in_rings: Sequence[int], out_layouts: Mapping[str, Layout],
-                    field_outputs: Sequence[str], lattice: Tuple[int, ...]) -> None:
-    """The launch-time check of an untiled stencil launch under
-    ``view="block"`` (the JAX package's ``_block_geometry``, periodic
-    halos; the form of ``core.plan.block_view_ok`` that names the offender):
-    raises for an AoSoA input whose SAL does not divide its halo'd
-    inner-plane count, for a launch with no AoSoA layout at all, and for an
-    AoSoA output whose SAL does not divide the interior inner-plane count.
-    The cuda kernels read every layout in place, so on the card the check
-    is all the view changes.  (A tiled block plan never gets here: its
-    validation refuses it.)"""
+                    field_outputs: Sequence[str], lattice: Tuple[int, ...],
+                    tiled: bool = False) -> None:
+    """The launch-time check of a stencil launch under ``view="block"``
+    (the JAX package's ``_block_geometry``, periodic halos; the form of
+    ``core.plan.block_view_ok`` that names the offender): raises for an
+    AoSoA input whose SAL does not divide its halo'd inner-plane count, for
+    a launch with no AoSoA layout at all, and for an AoSoA output whose SAL
+    does not divide the interior inner-plane count.  Under a ``tiled``
+    plan, as in the reference, the view needs an AoSoA input and the
+    outputs are not checked (its tiles write canonical tiles).  The cuda
+    kernels read every layout in place, so on the card the check is all the
+    view changes."""
     aosoa_in_play = False
     for name, lay, ring in zip(ordered_ins, in_layouts, in_rings):
         if lay.kind is not LayoutKind.AOSOA:
@@ -216,6 +221,13 @@ def _block_geometry(ordered_ins: Sequence[str], in_layouts: Sequence[Layout],
                 f"inner-plane site count {inner_h} not divisible by sal; x-slab windows "
                 f"would split short arrays; use view='staged-nd' or a conforming sal "
                 f"(core.plan.block_view_ok)")
+    if tiled:
+        if not aosoa_in_play:
+            raise ValueError(
+                "view='block' under a tiled plan (by/bz) lowers AoSoA inputs "
+                "natively, but no input layout of this launch is AoSoA; use "
+                "view='staged-nd'")
+        return
     if not aosoa_in_play and not any(
             out_layouts[o].kind is LayoutKind.AOSOA for o in field_outputs):
         raise ValueError(
@@ -297,7 +309,9 @@ class _CudaEntry(NamedTuple):
     outputs: Tuple[str, ...]        # what the kernels produce
     tiled: Optional[Callable]       # the tiled kernel
     batched: Optional[Callable]     # the batch instance
-    policy: bool                    # impl and batched take a DtypePolicy
+    policy: bool                    # every kernel of the entry takes a DtypePolicy
+    tiled_batched: Optional[Callable]   # the tiled kernel's batch instance
+    tiled_smem: int                 # shared memory the tiled kernels stage a block
 
 
 # LaunchGraph.structure() -> its kernels
@@ -308,27 +322,34 @@ def register_cuda_graph(graph: "LaunchGraph", impl: Optional[Callable],
                         outputs: Sequence[str],
                         tiled: Optional[Callable] = None,
                         batched: Optional[Callable] = None,
-                        policy: bool = False) -> None:
+                        policy: bool = False,
+                        tiled_batched: Optional[Callable] = None,
+                        tiled_smem: int = 0) -> None:
     """Run ``impl(graph, ins, scalars, lattice=, vvl=, out_layouts=)`` for
     every graph of ``graph``'s structure on the cuda engine,
     ``tiled(graph, ins, scalars, lattice=, plan=, out_layouts=)`` under a
-    tiled plan and ``batched(graph, ins, scalars, lattice=, vvl=,
-    out_layouts=, batch=, in_batched=)`` for a batched launch.  ``ins``
-    maps value names to (physical tensor, Layout), ``scalars`` to 0-d
-    device tensors (``(batch,)`` ones for ``batched``), ``out_layouts`` each
-    requested field output to its Layout, ``in_batched`` each input to
+    tiled plan, ``batched(graph, ins, scalars, lattice=, vvl=,
+    out_layouts=, batch=, in_batched=)`` for a batched launch and
+    ``tiled_batched(graph, ins, scalars, lattice=, plan=, out_layouts=,
+    batch=, in_batched=)`` for a batched launch under a tiled plan.
+    ``ins`` maps value names to (physical tensor, Layout), ``scalars`` to
+    0-d device tensors (``(batch,)`` ones when batched), ``out_layouts``
+    each requested field output to its Layout, ``in_batched`` each input to
     whether it is a stack of ``batch`` fields (else one shared field); each
     returns every name in ``outputs``: fields as physical tensors the kernel
     wrote in their layouts (``(batch,) + physical`` when batched),
-    reductions (ncomp,) (``(batch, ncomp)``).  A tiled plan only ever sees
-    SoA fields (the planner refuses others).  ``impl`` may be None for a
-    graph that only the serving path launches, batched.  ``policy``: impl
-    and batched have a policy instance and take ``policy=`` (a
+    reductions (ncomp,) (``(batch, ncomp)``).  ``impl`` may be None for a
+    graph that only the serving path launches, batched.  ``policy``: every
+    kernel registered here has a policy instance and takes ``policy=`` (a
     ``core.plan.CudaPolicy``) under a non-empty DtypePolicy; the launch
-    raises for a policy on any other graph.  impl and batched of a graph
-    with a terminal reduction also take ``rsplit=`` (the plan's split
-    factor), which their partial folds take."""
-    _CUDA_GRAPHS[graph.structure()] = _CudaEntry(impl, tuple(outputs), tiled, batched, policy)
+    raises for a policy on any other graph.  The kernels of a graph with a
+    terminal reduction also take ``rsplit=`` (the plan's split factor),
+    which their partial folds take.  ``tiled_smem``: the shared memory, in
+    bytes, the tiled kernels stage a block (the window the reference DMAs,
+    where a kernel stages one); a tiled launch raises where it exceeds
+    what one block may opt in to."""
+    _CUDA_GRAPHS[graph.structure()] = _CudaEntry(impl, tuple(outputs), tiled, batched, policy,
+                                                 tiled_batched, int(tiled_smem))
 
 
 def _slot_scalar(v, b: int):
@@ -676,18 +697,17 @@ class LaunchGraph:
         if plan is None:
             # a default plan's view stays "auto": never the block view's check
             plan = default_plan(config, nsites=nsites, layouts=all_layouts,
-                                stencil=stencil, lattice=lattice, smem_views=smem_views,
-                                batch=batch)
+                                stencil=stencil, lattice=lattice, smem_views=smem_views)
         else:
             plan = adapt_plan(plan, stencil=stencil)
             plan.validate(nsites=nsites, lattice=lattice, layouts=all_layouts,
-                          stencil=stencil, batch=batch)
+                          stencil=stencil)
         if stencil and plan.view == VIEW_BLOCK:
             # the view's alignment, checked before any device is touched
             need = self._required_rings(outputs)
             _block_geometry(ordered_ins, [ins[n].layout for n in ordered_ins],
                             [need.get(n, 0) for n in ordered_ins], out_layouts,
-                            field_outputs, lattice)
+                            field_outputs, lattice, tiled=plan.tiled)
         # the config's policy applies where the plan carries none of its own
         _, dtypes = launch_policy(config, plan)
         if dtypes is not plan.dtypes:
@@ -707,7 +727,7 @@ class LaunchGraph:
         else:
             # the kernels' field outputs, already in their layouts
             vals = self._launch_cuda(ins, ordered_ins, scalars, ordered_scalars,
-                                     outputs, lattice, plan, first, smem_views,
+                                     outputs, lattice, plan, first,
                                      {o: out_layouts[o] for o in field_outputs},
                                      batch, in_batch, policy)
 
@@ -809,34 +829,28 @@ class LaunchGraph:
         return {o: res[o] for o in outputs}
 
     def _launch_cuda(self, ins, ordered_ins, scalars, ordered_scalars, outputs, lattice,
-                     plan, first, smem_views, out_layouts, batch, in_batch,
+                     plan, first, out_layouts, batch, in_batch,
                      policy: _Policy) -> Dict[str, torch.Tensor]:
         entry = _CUDA_GRAPHS.get(self.structure())
         pkw = {}
         if policy.pol:
-            if plan.tiled:
-                raise ValueError(
-                    f"cuda engine: graph {self.name!r} under a dtype policy "
-                    f"({policy.pol.tag()}) on the tiled plan {plan.describe()}: the "
-                    f"policy x tile composition is not yet ported (ROADMAP item 17)")
             if entry is None or not entry.policy:
                 raise ValueError(
                     f"cuda engine: graph {self.name!r} has no policy instance of its "
                     f"kernels; a dtype policy ({policy.pol.tag()}) on it is not yet "
                     f"ported (use engine='torch', or no policy)")
             pkw = dict(policy=cuda_policy(policy.pol))
-        if batch:
+        if plan.tiled:
+            impl, produces = self._tiled_entry(entry, plan, lattice, batch)
+            kw = dict(lattice=lattice, plan=plan)
+        elif batch:
             if entry is None or entry.batched is None:
                 raise ValueError(
                     f"cuda engine: no hand-written batched CUDA kernel is registered "
                     f"for the signature of graph {self.name!r} (register one with "
                     f"register_cuda_graph(..., batched=), or use engine='torch')")
             impl, produces = entry.batched, entry.outputs
-            kw = dict(lattice=lattice, vvl=plan.vvl, batch=batch,
-                      in_batched={n: bool(in_batch[n]) for n in ordered_ins})
-        elif plan.tiled:
-            impl, produces = self._tiled_entry(entry, plan, lattice, smem_views)
-            kw = dict(lattice=lattice, plan=plan)
+            kw = dict(lattice=lattice, vvl=plan.vvl)
         elif entry is None or entry.impl is None:
             raise ValueError(
                 f"cuda engine: no hand-written CUDA kernel is registered for "
@@ -845,8 +859,10 @@ class LaunchGraph:
         else:
             impl, produces = entry.impl, entry.outputs
             kw = dict(lattice=lattice, vvl=plan.vvl)
-        if not plan.tiled and self._reduce_outputs():
-            kw["rsplit"] = plan.rsplit   # the impl's partial folds (K2S where > 1)
+        if batch:
+            kw.update(batch=batch, in_batched={n: bool(in_batch[n]) for n in ordered_ins})
+        if self._reduce_outputs():
+            kw["rsplit"] = plan.rsplit   # the kernel's partial folds (K2S where > 1)
         extra = [o for o in outputs if o not in produces]
         if extra:
             raise ValueError(
@@ -867,25 +883,26 @@ class LaunchGraph:
         return impl(self, {n: (ins[n].data, ins[n].layout) for n in ordered_ins}, svals,
                     out_layouts=out_layouts, **kw, **pkw)
 
-    def _tiled_entry(self, entry, plan, lattice, smem_views):
-        """(tiled impl, outputs) for a tiled plan, after the plan-time checks:
-        the two window slots must fit one block's shared memory, and the
-        graph must have a registered tiled kernel."""
-        window = estimate_smem_bytes(plan, lattice=lattice, in_views=smem_views[0])
-        what = (f"tiled plan {plan.describe(footprint=window)} on lattice "
-                f"{tuple(lattice)} ({window} B of window slots a block; the "
-                f"limit is {SMEM_PER_BLOCK_OPTIN} B)")
-        if window > SMEM_PER_BLOCK_OPTIN:
+    def _tiled_entry(self, entry, plan, lattice, batch):
+        """(tiled impl, outputs) for a tiled plan (its batch instance for a
+        batched launch), after the plan-time checks: the graph must have
+        that kernel, and the shared memory it stages a block must fit what
+        one block may opt in to."""
+        what = (f"tiled plan {plan.describe()} on lattice {tuple(lattice)} (the limit "
+                f"is {SMEM_PER_BLOCK_OPTIN} B of shared memory a block)")
+        impl = None if entry is None else (entry.tiled_batched if batch else entry.tiled)
+        if impl is None:
+            kind = "tiled batched" if batch else "tiled"
             raise ValueError(
-                f"cuda engine: graph {self.name!r} under {what}: the two halo'd "
-                f"windows exceed the shared memory one block may opt in to on "
-                f"the H100; choose smaller tiles")
-        if entry is None or entry.tiled is None:
+                f"cuda engine: no hand-written {kind} kernel is registered for graph "
+                f"{self.name!r} under {what}; its tiled lowering is still to be "
+                f"ported (ROADMAP queue 2)")
+        if entry.tiled_smem > SMEM_PER_BLOCK_OPTIN:
             raise ValueError(
-                f"cuda engine: no hand-written tiled kernel is registered for "
-                f"graph {self.name!r} under {what}; its tiled lowering is still "
-                f"to be ported (ROADMAP queue 2, item 8)")
-        return entry.tiled, entry.outputs
+                f"cuda engine: graph {self.name!r} under {what}: its tiled kernel "
+                f"stages {entry.tiled_smem} B a block, which exceeds the shared memory "
+                f"one block may opt in to on the H100")
+        return impl, entry.outputs
 
     def _run_stages(self, values: Dict[str, torch.Tensor]) -> Tuple[
             Dict[str, torch.Tensor], Dict[str, torch.Tensor]]:

@@ -19,13 +19,12 @@ graphs, the tiles:
                   the tiles in the reference's grid order.  A plan without
                   them runs the untiled kernel, which ignores bx.
 
-Every layout (SoA, AoS, AoSoA) runs untiled.  A tiled plan takes SoA
-fields only: the tiled kernel (K9) addresses SoA alone (ROADMAP queue 2).
+Every layout (SoA, AoS, AoSoA) runs untiled and tiled: the tiled kernels
+(K9, K5T) address every field through INDEX, as the untiled ones do.
 
 A batched launch (BatchedField inputs) plans per lattice: the slot is one
 more grid axis of the same kernel, so vvl and the tiles describe one batch
-element.  A batched launch runs untiled; a tiled plan with a batch raises
-(the batch x tile composition is still to be ported).
+element, untiled or tiled.
 
 The shared-memory budget (``TargetConfig.smem_bytes`` or
 ``$TARGETDP_TORCH_SMEM_BYTES``) makes :func:`default_plan` tile a stencil
@@ -40,9 +39,9 @@ makes precision a lowering decision: the storage dtype fields are staged
 in and written in, the compute dtype of the arithmetic, and the accumulate
 dtype of terminal sums.  The footprint model prices a policy's launch at
 its storage itemsize.  The cuda engine has policy instances of the
-wilson_normal and ludwig_lb_step kernels and of K2's sum (``cuda_policy``
-says which policies they take); a policy on any other graph, or on a tiled
-plan, raises.
+wilson_normal and ludwig_lb_step kernels, untiled and tiled, and of K2's
+sum (``cuda_policy`` says which policies they take); a policy on any other
+graph raises.
 
 ``rsplit`` splits a launch's terminal reductions: the stage-1 partial rows
 fold in ``rsplit`` segments, each by K2's fold tree, and a stage-2 combine
@@ -462,10 +461,9 @@ class LoweringPlan:
         lattice: Optional[Tuple[int, ...]] = None,
         layouts: Sequence[Layout] = (),
         stencil: bool = False,
-        batch: int = 0,
     ) -> "LoweringPlan":
-        """Check this plan against a concrete launch (``batch`` slots, 0 for
-        a single lattice); raises ValueError with the violated rule.
+        """Check this plan against a concrete launch (one lattice of it, for
+        a batched launch); raises ValueError with the violated rule.
         Returns self (chainable)."""
         if self.engine not in ENGINES:
             raise ValueError(f"unknown engine {self.engine!r}; have {ENGINES}")
@@ -475,11 +473,6 @@ class LoweringPlan:
             raise ValueError(f"rsplit must be >= 1, got {self.rsplit}")
         if self.dtypes is not None:
             self.dtypes.validate()
-        if batch and self.tiled:
-            raise ValueError(
-                f"tiled plan {self.describe()} on a batched launch ({batch} slots): "
-                f"the batch x tile composition is still to be ported (ROADMAP "
-                f"item 17); a batched launch runs untiled")
         if min(self.bx, self.by, self.bz) < 0:
             raise ValueError(
                 f"tile extents must be >= 0 (0 = whole axis), got bx={self.bx} "
@@ -495,19 +488,6 @@ class LoweringPlan:
                     "by/bz tile the cuda stencil grid; the torch engine runs "
                     "whole-lattice ops and has no grid to tile")
             return self
-        if self.tiled and self.view == VIEW_BLOCK:
-            raise ValueError(
-                f"tiled plan {self.describe()} with view='block': tiles on AoSoA "
-                f"fields are still to be ported (ROADMAP item 17); use "
-                f"view='staged-nd' on SoA fields")
-        if self.tiled:
-            odd = sorted({lay.name for lay in layouts if lay.kind is not LayoutKind.SOA})
-            if odd:
-                raise ValueError(
-                    f"tiled plan {self.describe()}: the tiled kernel copies each "
-                    f"window row as a contiguous z-run, which only SoA fields "
-                    f"have; layouts {odd} run untiled (their tiled instance is "
-                    f"still to be ported, ROADMAP queue 2)")
         if not stencil:
             if self.bx:
                 raise ValueError(f"site-local lowering takes no x-slab (bx={self.bx})")
@@ -632,7 +612,7 @@ def _site_bytes(smem_views) -> int:
 
 def default_plan(config, *, nsites: int, layouts: Sequence[Layout],
                  stencil: bool = False, lattice: Optional[Tuple[int, ...]] = None,
-                 smem_views=None, batch: int = 0) -> LoweringPlan:
+                 smem_views=None) -> LoweringPlan:
     """The heuristic plan.  The torch engine lowers whole-lattice; the cuda
     engine takes the largest block size <= ``config.vvl`` that divides the
     lattice and is a multiple of a warp and of every AoSoA SAL the launch
@@ -641,8 +621,7 @@ def default_plan(config, *, nsites: int, layouts: Sequence[Layout],
     and its footprint descriptor ``smem_views = (in_views, out_views)``
     also gets bx from :func:`choose_slab` and (by, bz) from
     :func:`choose_tiles`; without a budget the plan is the untiled one.  A
-    batched launch (``batch`` slots) plans one lattice and raises when the
-    budget would tile it."""
+    batched launch plans one lattice."""
     if config.engine == "torch":
         return LoweringPlan("torch")
     if config.engine != "cuda":
@@ -659,7 +638,7 @@ def default_plan(config, *, nsites: int, layouts: Sequence[Layout],
         by, bz = choose_tiles(lattice, bx, in_views=smem_views[0],
                               out_views=smem_views[1], smem_bytes=budget)
         return LoweringPlan("cuda", vvl=vvl, bx=bx, by=by, bz=bz).validate(
-            nsites=nsites, lattice=lattice, layouts=layouts, stencil=True, batch=batch)
+            nsites=nsites, lattice=lattice, layouts=layouts, stencil=True)
     return LoweringPlan("cuda", vvl=vvl).validate(nsites=nsites, layouts=layouts)
 
 

@@ -15,7 +15,22 @@
 //   rt_ludwig_fed          fed = free_energy_density(q, dq), one value a site,
 //                          folded by reduce.cu's two passes.
 //
-// Neither flat graph has a terminal reduction, so each is one launch, one
+// K3C replaces the same _build_flat fused_kernel for the benchmarks' third
+// flat graph, ludwig_lc_chain (the paper's Fig. 3 fused LC chain):
+//
+//   rt_ludwig_lc_chain     h = molecular_field(q, lapq), rhs =
+//                          beris_edwards_rhs(q, h, w), q_new = q_update(q,
+//                          rhs, adv); h and rhs stay in registers.  It is
+//                          the K3L pair's device functions in one kernel:
+//                          the rhs reads h's 5 stored components, as the
+//                          graph's rhs stage reads the h value the first
+//                          stage produced.  Once inlined, nvcc may contract
+//                          h's last multiply into the rhs's first add, so
+//                          q_new is held to its plain version within a
+//                          tolerance; whether it is bitwise the K3L pair's
+//                          composition is measured on the card (PERF.md).
+//
+// No flat graph has a terminal reduction, so each is one launch, one
 // thread per site, fields only.  Every tensor comes with its own layout
 // descriptor (SoA, AoS or AoSoA) and is loaded and stored through INDEX
 // (rt_load_q, rt_store_q5 and rt_at, common.cuh), so one launch may mix
@@ -35,6 +50,8 @@
 // Bound on the H100: bytes.  Compulsory traffic a site: chem_stress reads
 // 5 + 5 + 15 and writes 5 + 9 values (156 B) for about 600 flops;
 // lc_update reads 5 + 5 + 9 + 5 and writes 5 (116 B) for about 320 flops;
+// lc_chain reads q, lapq, w, adv (5 + 5 + 9 + 5) and writes 5 (116 B: 0.581
+// ms at (256, 256, 256) on 3.35 TB/s) for about 440 flops;
 // fed reads 5 + 15 and writes 1 (84 B) for about 160 flops.  The heaviest,
 // chem_stress, is under 4 flop/byte, far below the ~20 flop/byte fp32
 // ridge.
@@ -271,6 +288,35 @@ __global__ void ludwig_lc_update_kernel(const float* __restrict__ q, const float
                    rt_traceless_sym(rt_q5_to_mat(q0[0], q0[1], q0[2], q0[3], q0[4])));
 }
 
+// q, lapq, w, adv -> q_new: layouts a ... e (K3C).  The molecular field of
+// chem_stress, then lc_update's body with the h it would have stored.
+template <int K>
+__global__ void ludwig_lc_chain_kernel(const float* __restrict__ q,
+                                       const float* __restrict__ lapq,
+                                       const float* __restrict__ w, const float* __restrict__ adv,
+                                       float* __restrict__ q_new, long long V, rt_mol_params mp,
+                                       rt_update_params p, rt_lc_layouts L) {
+  const long long s = blockIdx.x * (long long)blockDim.x + threadIdx.x;
+  if (s >= V) return;
+  const rt_m3 Q = rt_load_q<K>(q, L.a, 5, V, s, 0);
+  const rt_m3 H = rt_molecular_field(Q, rt_load_q<K>(lapq, L.b, 5, V, s, 0), mp);
+  // the rhs stage reads h's 5 components (zz = -xx - yy), as chem_stress stores them
+  const rt_m3 Hs = rt_q5_to_mat(H.m[0][0], H.m[0][1], H.m[0][2], H.m[1][1], H.m[1][2]);
+  rt_m3 W;
+#pragma unroll
+  for (int a = 0; a < 3; ++a)
+#pragma unroll
+    for (int b = 0; b < 3; ++b) W.m[a][b] = w[rt_at<K>(L.c, a * 3 + b, s, 9, V)];
+  const rt_m3 rhs = rt_beris_edwards_rhs(Q, Hs, W, p);
+  float q0[5];
+  const float r5[5] = {rhs.m[0][0], rhs.m[0][1], rhs.m[0][2], rhs.m[1][1], rhs.m[1][2]};
+#pragma unroll
+  for (int c = 0; c < 5; ++c)
+    q0[c] = q[rt_at<K>(L.a, c, s, 5, V)] + p.dt * (r5[c] - adv[rt_at<K>(L.d, c, s, 5, V)]);
+  rt_store_q5<K>(q_new, L.e, V, s,
+                 rt_traceless_sym(rt_q5_to_mat(q0[0], q0[1], q0[2], q0[3], q0[4])));
+}
+
 // q, dq -> fed: layouts a, b, c (fed has one component, so its address is
 // s in every layout).
 template <int K>
@@ -342,6 +388,24 @@ int rt_ludwig_lc_update(const float* q, const float* h, const float* w, const fl
   const rt_update_params p{gamma_rot, xi, neg_two_xi, dt};
   RT_WITH_CLASS(k, ludwig_lc_update_kernel<RT_K><<<rt_grid(V, block), block, 0, stream>>>(
                        q, h, w, adv, q_new, V, p, L));
+  RT_LAUNCH_RESULT();
+}
+
+// K3C.  q, lapq, adv, q_new: 5 x V; w: 9 x V (as rt_ludwig_lc_update's); in
+// the layouts of descriptors lq, llap, lw, ladv, lqn.
+int rt_ludwig_lc_chain(const float* q, const float* lapq, const float* w, const float* adv,
+                       float* q_new, long long V, float c_q, float c_b, float c_t, float kappa_m,
+                       float gamma_rot, float xi, float neg_two_xi, float dt, int lq, int llap,
+                       int lw, int ladv, int lqn, int block, cudaStream_t stream) {
+  const int desc[5] = {lq, llap, lw, ladv, lqn};
+  rt_lc_layouts L;
+  const int k = rt_lc_decode(desc, 5, &L);
+  if (k < 0) return RT_BAD_LAYOUT;
+  if (V == 0) return 0;
+  const rt_mol_params mp{c_q, c_b, c_t, kappa_m};
+  const rt_update_params p{gamma_rot, xi, neg_two_xi, dt};
+  RT_WITH_CLASS(k, ludwig_lc_chain_kernel<RT_K><<<rt_grid(V, block), block, 0, stream>>>(
+                       q, lapq, w, adv, q_new, V, mp, p, L));
   RT_LAUNCH_RESULT();
 }
 

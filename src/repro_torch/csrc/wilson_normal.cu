@@ -52,11 +52,57 @@
 // (SB = 1).  Design floor at B = 4, u read once: 1,056 + 1,440 B a site,
 // 6.25 ms.
 //
+// K5T, the tiled instance (_build_nd's dma_kernel :1804, pallas_call
+// :1914, for the wilson_normal graph under a tiled plan): the same two
+// kernels with their blocks taking the sites in the plan's tile walk
+// (wilson_normal.cuh, rt_walk), single and batched.  The TPU kernel
+// DMAs each tile's halo'd window (ring 2, t whole) into VMEM and
+// recomputes t on the window's ring; here t stays a whole-lattice scratch
+// written by the first launch, so nothing is recomputed and no window is
+// staged: K5T holds no shared memory beyond the partials' fold (3 KB), so
+// no budget limits it.  t and ap are bitwise K5's; pap's partial rows are
+// the walk's units, folded by K2 in walk order.  At the finest tile the
+// walk is the linear order (the order K5 left for its brick order at
+// 5.25 against 4.30 ms, PERF.md §6).
+//
 // The two kernels are templates in wilson_normal.cuh, whose policy flags
 // this file leaves off; wilson_normal_mixed.cu instantiates the policy
 // instance from the same templates.
 
 #include "wilson_normal.cuh"
+
+// The t launch of K5 (no tile) or K5T (a tile), checked.
+static int rt_normal_t(const float* p, const float* u, float* t, float kappa, int X, int Y, int Z,
+                       int T, int batch, const int (&tile)[3], int lp, int lu, int block,
+                       cudaStream_t stream) {
+  const rt_lattice lat{X, Y, Z, T};
+  const rt_layout L[2] = {rt_make_layout(lp), rt_make_layout(lu)};
+  const int k = rt_launch_class(L, 2);
+  if (k < 0 || !rt_normal_block_ok(block)) return RT_BAD_LAYOUT;
+  if (tile[0] && !rt_normal_tile_ok(lat, tile)) return static_cast<int>(cudaErrorInvalidValue);
+  if ((long long)X * Y * Z * T == 0 || batch == 0) return 0;
+  RT_NORMAL_DISPATCH(k, lat, batch, RT_NORMAL_SLOTS,
+                     (rt_launch_normal_t<RT_K, RT_IDX, RT_SB, false, float>(
+                         p, u, t, kappa, lat, L, batch, block, tile, stream)))
+  RT_LAUNCH_RESULT();
+}
+
+// The ap launch, likewise.
+static int rt_normal_ap(const float* p, const float* t, const float* u, float* ap,
+                        float* partials, float kappa, int X, int Y, int Z, int T, int batch,
+                        const int (&tile)[3], int lp, int lu, int lap, int block,
+                        cudaStream_t stream) {
+  const rt_lattice lat{X, Y, Z, T};
+  const rt_layout L[3] = {rt_make_layout(lp), rt_make_layout(lu), rt_make_layout(lap)};
+  const int k = rt_launch_class(L, 3);
+  if (k < 0 || !rt_normal_block_ok(block)) return RT_BAD_LAYOUT;
+  if (tile[0] && !rt_normal_tile_ok(lat, tile)) return static_cast<int>(cudaErrorInvalidValue);
+  if ((long long)X * Y * Z * T == 0 || batch == 0) return 0;
+  RT_NORMAL_DISPATCH(k, lat, batch, RT_NORMAL_SLOTS,
+                     (rt_launch_normal_ap<RT_K, RT_IDX, RT_SB, false, float, false, float>(
+                         p, t, u, ap, partials, kappa, lat, L, batch, block, tile, stream)))
+  RT_LAUNCH_RESULT();
+}
 
 extern "C" {
 
@@ -66,15 +112,7 @@ extern "C" {
 int rt_wilson_normal_t_batched(const float* p, const float* u, float* t, float kappa, int X,
                                int Y, int Z, int T, int batch, int lp, int lu, int block,
                                cudaStream_t stream) {
-  const rt_lattice lat{X, Y, Z, T};
-  const rt_layout L[2] = {rt_make_layout(lp), rt_make_layout(lu)};
-  const int k = rt_launch_class(L, 2);
-  if (k < 0 || !rt_normal_block_ok(block)) return RT_BAD_LAYOUT;
-  if ((long long)X * Y * Z * T == 0 || batch == 0) return 0;
-  RT_NORMAL_DISPATCH(k, lat, batch, RT_NORMAL_SLOTS,
-                     (rt_launch_normal_t<RT_K, RT_IDX, RT_SB, false, float>(
-                         p, u, t, kappa, lat, L, batch, block, stream)))
-  RT_LAUNCH_RESULT();
+  return rt_normal_t(p, u, t, kappa, X, Y, Z, T, batch, RT_NO_TILE, lp, lu, block, stream);
 }
 
 // p, ap: batch spinors, u: one 72 x V field, in the layouts of descriptors
@@ -84,16 +122,10 @@ int rt_wilson_normal_ap_batched(const float* p, const float* t, const float* u, 
                                 float* partials, float kappa, int X, int Y, int Z, int T,
                                 int batch, int lp, int lu, int lap, int block,
                                 cudaStream_t stream) {
-  const rt_lattice lat{X, Y, Z, T};
-  const rt_layout L[3] = {rt_make_layout(lp), rt_make_layout(lu), rt_make_layout(lap)};
-  const int k = rt_launch_class(L, 3);
-  if (k < 0 || !rt_normal_block_ok(block)) return RT_BAD_LAYOUT;
-  if ((long long)X * Y * Z * T == 0 || batch == 0) return 0;
-  RT_NORMAL_DISPATCH(k, lat, batch, RT_NORMAL_SLOTS,
-                     (rt_launch_normal_ap<RT_K, RT_IDX, RT_SB, false, float, false, float>(
-                         p, t, u, ap, partials, kappa, lat, L, batch, block, stream)))
-  RT_LAUNCH_RESULT();
+  return rt_normal_ap(p, t, u, ap, partials, kappa, X, Y, Z, T, batch, RT_NO_TILE, lp, lu, lap,
+                      block, stream);
 }
+
 // p: 24 x V, u: 72 x V in the layouts of descriptors lp, lu; t: (24, V) SoA.
 int rt_wilson_normal_t(const float* p, const float* u, float* t, float kappa, int X, int Y,
                        int Z, int T, int lp, int lu, int block, cudaStream_t stream) {
@@ -107,6 +139,29 @@ int rt_wilson_normal_ap(const float* p, const float* t, const float* u, float* a
                         int lap, int block, cudaStream_t stream) {
   return rt_wilson_normal_ap_batched(p, t, u, ap, partials, kappa, X, Y, Z, T, 1, lp, lu, lap,
                                      block, stream);
+}
+
+// K5T: as rt_wilson_normal_t_batched, the blocks walking the tile (bx, by,
+// bz), each >= 1 and dividing its dim (T whole); cudaErrorInvalidValue for
+// any other.
+int rt_wilson_normal_t_tiled(const float* p, const float* u, float* t, float kappa, int X, int Y,
+                             int Z, int T, int batch, int bx, int by, int bz, int lp, int lu,
+                             int block, cudaStream_t stream) {
+  const int tile[3] = {bx, by, bz};
+  if (bx < 1) return static_cast<int>(cudaErrorInvalidValue);
+  return rt_normal_t(p, u, t, kappa, X, Y, Z, T, batch, tile, lp, lu, block, stream);
+}
+
+// K5T: as rt_wilson_normal_ap_batched, walking the tile; partials: (batch,
+// ceil(V / block), 24), row q the walk positions [q block, (q + 1) block).
+int rt_wilson_normal_ap_tiled(const float* p, const float* t, const float* u, float* ap,
+                              float* partials, float kappa, int X, int Y, int Z, int T, int batch,
+                              int bx, int by, int bz, int lp, int lu, int lap, int block,
+                              cudaStream_t stream) {
+  const int tile[3] = {bx, by, bz};
+  if (bx < 1) return static_cast<int>(cudaErrorInvalidValue);
+  return rt_normal_ap(p, t, u, ap, partials, kappa, X, Y, Z, T, batch, tile, lp, lu, lap, block,
+                      stream);
 }
 
 }  // extern "C"

@@ -32,7 +32,9 @@
 //
 // With every flag off the kernels compile to the policy-free code: RB's
 // rounding and COMP's branch are compile-time, and rt_st to a float is a
-// plain store.  Both kernels run their blocks in the order of rt_order
+// plain store.  K5T, the tiled plan's instance, is the same kernels with
+// a walk in their block order (rt_walk, set at run time: no instantiation
+// of its own).  Both kernels run their blocks in the order of rt_order
 // (below) and address a slot's fields with 32-bit offsets where they fit.
 #pragma once
 
@@ -87,12 +89,52 @@ __device__ __forceinline__ rt_layout rt_soa() { return rt_layout{RT_SOA, 1, -1};
 // 700 W), hence RT_NORMAL_SLOTS_POLICY.  Each slot's adds are K5's, in its
 // order, so each slot is bitwise the one-slot launch (SB = 1).  A lattice
 // with 72 V >= 2^31 takes the 64-bit instantiation, one slot a thread.
+// K5T: the tiled plan's walk (rt_order.w, bx 0 for the untiled order).
+// As a template flag it doubled the kernels' instances in both translation
+// units and took the library's build past 200 s on the H100's machine; set
+// at run time it costs one uniform branch a thread.  Under a plan with tiles (bx, by, bz)
+// (T whole) the sites are walked in the reference's grid order, tile
+// t = (i nty + j) ntz + k (x-slab outermost, z-tile fastest), and in a
+// tile x, y, z, then t fastest; block q of a slot group takes the `block`
+// consecutive walk positions [q block, (q + 1) block), one a thread, and
+// writes its partial row at q, so K2's fold adds the rows in walk order.
+// Each site's hop is K5's (the same adds whatever the order), so t and ap
+// are bitwise K5's; pap's fold follows the walk, and equals K5's bitwise
+// where the walk is the linear order (bx = 1 with z whole, or by = bz = 1:
+// the budget's finest tile at (64, 64, 64, 32)).  Threads past V take no
+// site.  kernels/wilson_dslash/kernel.py::normal_walk mirrors the walk.
+struct rt_walk {
+  int bx, by, bz;   // the tile (each divides its dim)
+  int Y, Z, T;
+  int nty, ntz;     // tiles along y and along z
+  int tsites;       // bx by bz T
+};
+
 struct rt_order {
-  int nq;       // chunks an x-plane, 0: linear order
+  int nq;       // chunks an x-plane, 0: linear order (and under a walk)
   int X;
   int groups;   // slot groups (1 for the single instance)
   int slots;    // slots of the launch
+  rt_walk w;    // K5T's walk; w.bx 0: none
 };
+
+// The site at walk position g (< V).
+template <typename I>
+__device__ __forceinline__ I rt_walk_site(const rt_walk& w, I g) {
+  const I t = g / w.tsites;
+  I l = g - t * w.tsites;
+  const I lt = l % w.T;
+  l /= w.T;
+  const I lz = l % w.bz;
+  l /= w.bz;
+  const I ly = l % w.by;
+  const I lx = l / w.by;
+  const I tz = t % w.ntz;
+  const I r = t / w.ntz;
+  const I ty = r % w.nty;
+  const I tx = r / w.nty;
+  return (((tx * w.bx + lx) * w.Y + ty * w.by + ly) * w.Z + tz * w.bz + lz) * w.T + lt;
+}
 
 __device__ __forceinline__ int rt_order_chunk(const rt_order& o, int i, int& group) {
   group = i % o.groups;
@@ -128,6 +170,15 @@ __device__ __forceinline__ I rt_normal_site(const rt_order& o, int& chunk, int& 
   return (I)chunk * blockDim.x + threadIdx.x;
 }
 
+// K5's and K5T's site (K5T: chunk is the walk unit, a site >= V where the
+// thread has none).
+template <typename I>
+__device__ __forceinline__ I rt_normal_walk_site(const rt_order& o, I V, int& chunk,
+                                                 int& group) {
+  const I g = rt_normal_site<I>(o, chunk, group);
+  return o.w.bx && g < V ? rt_walk_site<I>(o.w, g) : g;
+}
+
 // Fields stored as TU: u's storage (float, or __nv_bfloat16: the policy
 // instance's copy of u made once per operator).  A slot's base is offset in
 // 64 bits, sites and offsets inside it are of type I.
@@ -138,7 +189,7 @@ __global__ void wilson_normal_t_kernel(const float* __restrict__ p, const TU* __
   constexpr bool RBU = RB && !rt_is_bf16<TU>::value;
   const I V = (I)L.X * L.Y * L.Z * L.T;
   int chunk, group;
-  const I s = rt_normal_site<I>(o, chunk, group);
+  const I s = rt_normal_walk_site<I>(o, V, chunk, group);
   if (s >= V) return;
   long long off[SB];
   const int nb = rt_slot_offsets<SB>(24LL * V, o, group, off);
@@ -190,7 +241,7 @@ __global__ void wilson_normal_ap_kernel(const float* __restrict__ p, const float
   const I V = (I)L.X * L.Y * L.Z * L.T;
   const long long nchunks = gridDim.x / o.groups;
   int chunk, group;
-  const I s = rt_normal_site<I>(o, chunk, group);
+  const I s = rt_normal_walk_site<I>(o, V, chunk, group);
   long long off[SB];
   const int nb = rt_slot_offsets<SB>(24LL * V, o, group, off);
   const float* ts[SB];
@@ -229,11 +280,25 @@ __global__ void wilson_normal_ap_kernel(const float* __restrict__ p, const float
 
 // The block order of a launch of `block` threads over `batch` slots, sb a
 // thread, in layout class k (see rt_order): one group for a single slot.
-static inline rt_order rt_make_order(const rt_lattice& L, int block, int batch, int k, int sb) {
+// A tile (bx, by, bz) with bx > 0 sets K5T's walk (the chunks then in
+// linear order); bx 0 is the untiled launch.
+static constexpr int RT_NO_TILE[3] = {0, 0, 0};
+static inline rt_order rt_make_order(const rt_lattice& L, int block, int batch, int k, int sb,
+                                     const int (&tile)[3] = RT_NO_TILE) {
   const long long plane = (long long)L.Y * L.Z * L.T;
   const int groups = batch > 1 ? (batch + sb - 1) / sb : 1;
-  return rt_order{k != RT_K_AOS && plane % block == 0 ? (int)(plane / block) : 0, L.X, groups,
-                  batch};
+  const int bx = tile[0], by = tile[1], bz = tile[2];
+  const rt_walk w{bx, by, bz, L.Y, L.Z, L.T, bx ? L.Y / by : 0, bx ? L.Z / bz : 0,
+                  bx * by * bz * L.T};
+  const bool brick = !bx && k != RT_K_AOS && plane % block == 0;
+  return rt_order{brick ? (int)(plane / block) : 0, L.X, groups, batch, w};
+}
+
+// Whether (bx, by, bz) tiles the lattice for K5T: each >= 1 and dividing
+// its dim.
+static inline bool rt_normal_tile_ok(const rt_lattice& L, const int (&tile)[3]) {
+  return tile[0] >= 1 && tile[1] >= 1 && tile[2] >= 1 && L.X % tile[0] == 0 &&
+         L.Y % tile[1] == 0 && L.Z % tile[2] == 0;
 }
 
 // Whether K5 takes the block: whole warps within the bound.
@@ -254,12 +319,12 @@ static inline unsigned rt_normal_grid(const rt_lattice& L, int block, const rt_o
 }
 
 // The t launch of `batch` slots in layout class K with sites of type I, SB
-// slots a thread.
+// slots a thread, walking `tile` where its bx is set.
 template <int K, typename I, int SB, bool RB, typename TU>
 static void rt_launch_normal_t(const float* p, const TU* u, float* t, float kappa,
                                const rt_lattice& lat, const rt_layout (&L)[2], int batch,
-                               int block, cudaStream_t stream) {
-  const rt_order o = rt_make_order(lat, block, batch, K, SB);
+                               int block, const int (&tile)[3], cudaStream_t stream) {
+  const rt_order o = rt_make_order(lat, block, batch, K, SB, tile);
   wilson_normal_t_kernel<K, I, SB, RB, TU>
       <<<rt_normal_grid(lat, block, o), block, 0, stream>>>(p, u, t, kappa, lat, L[0], L[1], o);
 }
@@ -269,12 +334,13 @@ template <int K, typename I, int SB, bool RB, typename TAP, bool COMP, typename 
 static void rt_launch_normal_ap(const float* p, const float* t, const TU* u, TAP* ap,
                                 float* partials, float kappa, const rt_lattice& lat,
                                 const rt_layout (&L)[3], int batch, int block,
-                                cudaStream_t stream) {
-  const rt_order o = rt_make_order(lat, block, batch, K, SB);
+                                const int (&tile)[3], cudaStream_t stream) {
+  const rt_order o = rt_make_order(lat, block, batch, K, SB, tile);
   wilson_normal_ap_kernel<K, I, SB, RB, TAP, COMP, TU>
       <<<rt_normal_grid(lat, block, o), block, 0, stream>>>(p, t, u, ap, partials, kappa, lat,
                                                             L[0], L[1], L[2], o);
 }
+
 
 // Run the launch statement(s) with RT_K the layout class k, and the site
 // type RT_IDX and slots a thread RT_SB of the instantiation it takes: 32-bit

@@ -42,7 +42,11 @@
 //                              pairs.  Without either it refuses: the
 //                              caller runs the policy-free kernels (the
 //                              empty policy is the policy-free code).
-// Both run the slots as K5B does (rt_order), one slot a thread
+//   rt_wilson_normal_t_tiled_mixed, rt_wilson_normal_ap_tiled_mixed
+//                              K5T's policy instance: the same under a
+//                              tiled plan, the blocks walking its tile
+//                              (wilson_normal.cuh, rt_walk).
+// All run the slots as K5B does (rt_order), one slot a thread
 // (RT_NORMAL_SLOTS_POLICY), so a launch of one slot and a launch of many run
 // one instantiation, and each slot is bitwise the one-slot launch on that
 // slot.
@@ -61,6 +65,60 @@
 
 #include "wilson_normal.cuh"
 
+// The policy t launch, untiled (tile[0] 0) or walking the tile.
+static int rt_normal_t_mixed(const float* p, const __nv_bfloat16* u, float* t, float kappa,
+                             int X, int Y, int Z, int T, int batch, const int (&tile)[3], int lp,
+                             int lu, int block, cudaStream_t stream) {
+  const rt_lattice lat{X, Y, Z, T};
+  const rt_layout L[2] = {rt_make_layout(lp), rt_make_layout(lu)};
+  const int k = rt_launch_class(L, 2);
+  if (k < 0 || !rt_normal_block_ok(block)) return RT_BAD_LAYOUT;
+  if (tile[0] && !rt_normal_tile_ok(lat, tile)) return static_cast<int>(cudaErrorInvalidValue);
+  if ((long long)X * Y * Z * T == 0 || batch == 0) return 0;
+  RT_NORMAL_DISPATCH(k, lat, batch, RT_NORMAL_SLOTS_POLICY,
+                     (rt_launch_normal_t<RT_K, RT_IDX, RT_SB, true, __nv_bfloat16>(
+                         p, u, t, kappa, lat, L, batch, block, tile, stream)))
+  RT_LAUNCH_RESULT();
+}
+
+// The policy ap launch of one instantiation: BF (bf16 u, p rounded, bf16
+// ap) and COMP, untiled or walking the tile.
+template <bool BF, bool COMP>
+static void rt_normal_ap_mixed_launch(int k, const rt_lattice& lat, int batch, const float* p,
+                                      const float* t, const void* u, void* ap, float* partials,
+                                      float kappa, const rt_layout (&L)[3], int block,
+                                      const int (&tile)[3], cudaStream_t stream) {
+  typedef typename rt_storage<BF>::type TS;
+  const TS* us = static_cast<const TS*>(u);
+  TS* aps = static_cast<TS*>(ap);
+  RT_NORMAL_DISPATCH(k, lat, batch, RT_NORMAL_SLOTS_POLICY,
+                     (rt_launch_normal_ap<RT_K, RT_IDX, RT_SB, BF, TS, COMP, TS>(
+                         p, t, us, aps, partials, kappa, lat, L, batch, block, tile, stream)))
+}
+
+static int rt_normal_ap_mixed(const float* p, const float* t, const void* u, void* ap,
+                              float* partials, float kappa, int X, int Y, int Z, int T, int batch,
+                              int bf16, int comp, const int (&tile)[3], int lp, int lu, int lap,
+                              int block, cudaStream_t stream) {
+  const rt_lattice lat{X, Y, Z, T};
+  const rt_layout L[3] = {rt_make_layout(lp), rt_make_layout(lu), rt_make_layout(lap)};
+  const int k = rt_launch_class(L, 3);
+  if (k < 0 || !rt_normal_block_ok(block)) return RT_BAD_LAYOUT;
+  if (tile[0] && !rt_normal_tile_ok(lat, tile)) return static_cast<int>(cudaErrorInvalidValue);
+  if ((long long)X * Y * Z * T == 0 || batch == 0) return 0;
+  if (!bf16 && !comp) return static_cast<int>(cudaErrorInvalidValue);  // wilson_normal.cu's
+  if (bf16 && comp)
+    rt_normal_ap_mixed_launch<true, true>(k, lat, batch, p, t, u, ap, partials, kappa, L, block,
+                                          tile, stream);
+  else if (bf16)
+    rt_normal_ap_mixed_launch<true, false>(k, lat, batch, p, t, u, ap, partials, kappa, L, block,
+                                           tile, stream);
+  else
+    rt_normal_ap_mixed_launch<false, true>(k, lat, batch, p, t, u, ap, partials, kappa, L,
+                                           block, tile, stream);
+  RT_LAUNCH_RESULT();
+}
+
 extern "C" {
 
 // p: batch spinors in the layout of descriptor lp, u: one 72 x V field of
@@ -68,15 +126,7 @@ extern "C" {
 int rt_wilson_normal_t_mixed(const float* p, const __nv_bfloat16* u, float* t, float kappa,
                              int X, int Y, int Z, int T, int batch, int lp, int lu, int block,
                              cudaStream_t stream) {
-  const rt_lattice lat{X, Y, Z, T};
-  const rt_layout L[2] = {rt_make_layout(lp), rt_make_layout(lu)};
-  const int k = rt_launch_class(L, 2);
-  if (k < 0 || !rt_normal_block_ok(block)) return RT_BAD_LAYOUT;
-  if ((long long)X * Y * Z * T == 0 || batch == 0) return 0;
-  RT_NORMAL_DISPATCH(k, lat, batch, RT_NORMAL_SLOTS_POLICY,
-                     (rt_launch_normal_t<RT_K, RT_IDX, RT_SB, true, __nv_bfloat16>(
-                         p, u, t, kappa, lat, L, batch, block, stream)))
-  RT_LAUNCH_RESULT();
+  return rt_normal_t_mixed(p, u, t, kappa, X, Y, Z, T, batch, RT_NO_TILE, lp, lu, block, stream);
 }
 
 // p: batch spinors, u: one 72 x V field (bf16 when bf16, else fp32), ap:
@@ -87,32 +137,29 @@ int rt_wilson_normal_ap_mixed(const float* p, const float* t, const void* u, voi
                               float* partials, float kappa, int X, int Y, int Z, int T,
                               int batch, int bf16, int comp, int lp, int lu, int lap, int block,
                               cudaStream_t stream) {
-  const rt_lattice lat{X, Y, Z, T};
-  const rt_layout L[3] = {rt_make_layout(lp), rt_make_layout(lu), rt_make_layout(lap)};
-  const int k = rt_launch_class(L, 3);
-  if (k < 0 || !rt_normal_block_ok(block)) return RT_BAD_LAYOUT;
-  if ((long long)X * Y * Z * T == 0 || batch == 0) return 0;
-  if (!bf16 && !comp) return static_cast<int>(cudaErrorInvalidValue);  // wilson_normal.cu's
-  const __nv_bfloat16* u16 = static_cast<const __nv_bfloat16*>(u);
-  __nv_bfloat16* ap16 = static_cast<__nv_bfloat16*>(ap);
-  const float* u32 = static_cast<const float*>(u);
-  float* ap32 = static_cast<float*>(ap);
-  if (bf16 && comp) {
-    RT_NORMAL_DISPATCH(k, lat, batch, RT_NORMAL_SLOTS_POLICY,
-                       (rt_launch_normal_ap<RT_K, RT_IDX, RT_SB, true, __nv_bfloat16, true,
-                                            __nv_bfloat16>(p, t, u16, ap16, partials, kappa,
-                                                           lat, L, batch, block, stream)))
-  } else if (bf16) {
-    RT_NORMAL_DISPATCH(k, lat, batch, RT_NORMAL_SLOTS_POLICY,
-                       (rt_launch_normal_ap<RT_K, RT_IDX, RT_SB, true, __nv_bfloat16, false,
-                                            __nv_bfloat16>(p, t, u16, ap16, partials, kappa,
-                                                           lat, L, batch, block, stream)))
-  } else {
-    RT_NORMAL_DISPATCH(k, lat, batch, RT_NORMAL_SLOTS_POLICY,
-                       (rt_launch_normal_ap<RT_K, RT_IDX, RT_SB, false, float, true, float>(
-                           p, t, u32, ap32, partials, kappa, lat, L, batch, block, stream)))
-  }
-  RT_LAUNCH_RESULT();
+  return rt_normal_ap_mixed(p, t, u, ap, partials, kappa, X, Y, Z, T, batch, bf16, comp,
+                            RT_NO_TILE, lp, lu, lap, block, stream);
+}
+
+// K5T's policy instance: as rt_wilson_normal_t_mixed, walking the tile
+// (bx, by, bz), each >= 1 and dividing its dim.
+int rt_wilson_normal_t_tiled_mixed(const float* p, const __nv_bfloat16* u, float* t, float kappa,
+                                   int X, int Y, int Z, int T, int batch, int bx, int by, int bz,
+                                   int lp, int lu, int block, cudaStream_t stream) {
+  const int tile[3] = {bx, by, bz};
+  if (bx < 1) return static_cast<int>(cudaErrorInvalidValue);
+  return rt_normal_t_mixed(p, u, t, kappa, X, Y, Z, T, batch, tile, lp, lu, block, stream);
+}
+
+// K5T's policy instance: as rt_wilson_normal_ap_mixed, walking the tile.
+int rt_wilson_normal_ap_tiled_mixed(const float* p, const float* t, const void* u, void* ap,
+                                    float* partials, float kappa, int X, int Y, int Z, int T,
+                                    int batch, int bx, int by, int bz, int bf16, int comp, int lp,
+                                    int lu, int lap, int block, cudaStream_t stream) {
+  const int tile[3] = {bx, by, bz};
+  if (bx < 1) return static_cast<int>(cudaErrorInvalidValue);
+  return rt_normal_ap_mixed(p, t, u, ap, partials, kappa, X, Y, Z, T, batch, bf16, comp, tile,
+                            lp, lu, lap, block, stream);
 }
 
 }  // extern "C"

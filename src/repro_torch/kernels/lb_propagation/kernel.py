@@ -14,11 +14,10 @@ records through an out stage (:func:`k8_tiles`, :func:`k8_row_copies`,
 :func:`k8_stage_reads`, :func:`k8_tiled_emulate` mirror it); any other
 launch goes site by site.
 
-K8 and K5L take every layout (SoA, AoS, AoSoA): each tensor comes with its
-layout, the kernels address it through INDEX, and the wrappers take
+K8, K5L and K9 take every layout (SoA, AoS, AoSoA): each tensor comes with
+its layout, the kernels address it through INDEX, and the wrappers take
 physical tensors and ``layouts`` (names as in each signature; an input not
-named is SoA, an output takes the first input's layout).  K9 takes SoA
-only; the planner refuses a tiled plan on any other layout.
+named is SoA, an output takes the first input's layout).
 
 K5L replaces ``core/fuse.py::LaunchGraph._build_nd`` for the
 ``ludwig_lb_step`` graph (moments, collision, streaming -> dist2 and u) and,
@@ -43,9 +42,12 @@ K9 replaces the same function's ``dma_kernel`` for both graphs under a
 tiled plan: it walks the sites tile by tile in the reference's grid order
 (:func:`tiled_walk`), collides each once and streams it by push, as K5L
 does, so no halo'd window is copied or collided; each thread loads its
-site's values straight into registers, with no shared memory.  Its plain
-version is ``core.fuse.tiled_plain`` on the collide -> propagate graph,
-and its fields equal K5L's bitwise.
+site's values straight into registers through INDEX, with no shared
+memory.  Its plain version is ``core.fuse.tiled_plain`` on the collide ->
+propagate graph, and its fields equal K5L's bitwise in every layout.  Its
+policy instance (``bf16=True``, ``rt_lb_step_tiled_bf16``) rounds dist and
+force to bf16 as they are loaded and writes dist2 and u in bf16, bitwise
+K5L's policy instance.
 
 On a CPU tensor each wrapper returns its plain version; on a CUDA tensor it
 launches its kernel or raises.
@@ -58,7 +60,7 @@ from typing import Optional, Sequence, Tuple
 
 import torch
 
-from repro_torch._cuda import Kernel, check_field, check_tensor, csrc_define
+from repro_torch._cuda import Kernel, check_field, csrc_define
 from repro_torch.core.fuse import tiled_plain
 from repro_torch.core.layout import Layout, LayoutKind, resolve_layouts
 from repro_torch.core.plan import tile_extents
@@ -71,12 +73,13 @@ __all__ = ["propagate_cuda", "propagate_plain", "lb_step_cuda", "lb_step_plain",
            "lb_step_stages", "lb_stage_copy", "lb_stage_read", "lb_push_sites", "LB_MAX_VVL",
            "k8_tiles", "k8_block_tile", "k8_row_copies", "k8_stage_reads", "k8_tiled_emulate",
            "lb_step_tiled_cuda", "lb_step_tiled_plain", "tiled_walk", "PROPAGATE", "LB_STEP",
-           "LB_STEP_BF16", "LB_STEP_TILED"]
+           "LB_STEP_BF16", "LB_STEP_TILED", "LB_STEP_TILED_BF16"]
 
 PROPAGATE = Kernel("lb_propagate", "rt_lb_propagate")
 LB_STEP = Kernel("lb_step", "rt_lb_step")
 LB_STEP_BF16 = Kernel("lb_step_bf16", "rt_lb_step_bf16")   # K5L's policy instance
 LB_STEP_TILED = Kernel("lb_step_tiled", "rt_lb_step_tiled")
+LB_STEP_TILED_BF16 = Kernel("lb_step_tiled_bf16", "rt_lb_step_tiled_bf16")   # K9's policy instance
 K9_BLOCK = 256   # threads a K9 block (at most RT_K9_MAX_THREADS in lb_tiled.cu)
 
 
@@ -344,37 +347,50 @@ def tiled_walk(lattice, tile: Sequence[int]) -> torch.Tensor:
 
 
 def lb_step_tiled_plain(dist: torch.Tensor, force: torch.Tensor, tau: float, lattice,
-                        tile: Sequence[int], with_u: bool = True
-                        ) -> Tuple[torch.Tensor, Optional[torch.Tensor]]:
+                        tile: Sequence[int], with_u: bool = True, layouts=None,
+                        bf16: bool = False) -> Tuple[torch.Tensor, Optional[torch.Tensor]]:
     """The collide -> propagate graph tile by tile (``tiled_plain``), and
-    (with_u) the half-force velocity, which is site-local."""
+    (with_u) the half-force velocity, which is site-local; ``layouts`` and
+    ``bf16`` as in :func:`lb_step_plain`."""
     from .ops import collide_propagate_graph  # ops imports this module
 
     lat = _check_3d(lattice)
-    nd = {"dist": dist.reshape((19,) + lat), "force": force.reshape((3,) + lat)}
+    lay = resolve_layouts(layouts, _STEP_IN, _STEP_OUT)
+    d, f = lay["dist"].unpack(dist), lay["force"].unpack(force)
+    if bf16:
+        d, f = (t.to(torch.bfloat16).to(t.dtype) for t in (d, f))
+    out = torch.bfloat16 if bf16 else d.dtype
+    nd = {"dist": d.reshape((19,) + lat), "force": f.reshape((3,) + lat)}
     dist2 = tiled_plain(collide_propagate_graph(float(tau)), nd, lat,
                         *tile_extents(lat, *tile))["dist2"]
-    return dist2.reshape(19, -1), (moments_velocity(dist, force) if with_u else None)
+    return (lay["dist2"].pack(dist2.reshape(19, -1).to(out)),
+            lay["u"].pack(moments_velocity(d, f).to(out)) if with_u else None)
 
 
 def lb_step_tiled_cuda(dist: torch.Tensor, force: torch.Tensor, tau: float, lattice,
-                       tile: Sequence[int], with_u: bool = True, block: int = K9_BLOCK
+                       tile: Sequence[int], with_u: bool = True, block: int = K9_BLOCK, *,
+                       layouts=None, bf16: bool = False
                        ) -> Tuple[torch.Tensor, Optional[torch.Tensor]]:
     """K9: :func:`lb_step_cuda`'s outputs computed tile by tile, ``tile`` =
-    (bx, by, bz) with 0 for a whole axis.  Raises when the tile does not
-    divide the lattice."""
+    (bx, by, bz) with 0 for a whole axis; ``layouts`` names "dist",
+    "force", "dist2", "u"; ``bf16``: the policy instance.  Raises when the
+    tile does not divide the lattice."""
     lat = _check_3d(lattice)
     tile = tile_extents(lat, *tile)
     if any(e < 1 or s % e for s, e in zip(lat, tile)):
         raise ValueError(f"K9: tile {tile} does not divide the lattice {lat}")
     if dist.device.type == "cpu":
-        return lb_step_tiled_plain(dist, force, tau, lat, tile, with_u)
+        return lb_step_tiled_plain(dist, force, tau, lat, tile, with_u, layouts, bf16)
     V = math.prod(lat)
-    check_tensor("dist", dist, (19, V), dist.device)
-    check_tensor("force", force, (3, V), dist.device)
-    dist2 = torch.empty_like(dist)
-    u = torch.empty_like(force) if with_u else None
-    LB_STEP_TILED.launch(dist.device, dist.data_ptr(), force.data_ptr(), dist2.data_ptr(),
-                         u.data_ptr() if with_u else None, *lat, *tile,
-                         *lb_params(float(tau)), block)
+    lay = resolve_layouts(layouts, _STEP_IN, _STEP_OUT)
+    ld = check_field("dist", dist, lay["dist"], 19, V, dist.device)
+    lf = check_field("force", force, lay["force"], 3, V, dist.device)
+    out = torch.bfloat16 if bf16 else dist.dtype
+    dist2 = torch.empty(lay["dist2"].physical_shape(19, V), dtype=out, device=dist.device)
+    u = (torch.empty(lay["u"].physical_shape(3, V), dtype=out, device=dist.device)
+         if with_u else None)
+    (LB_STEP_TILED_BF16 if bf16 else LB_STEP_TILED).launch(
+        dist.device, dist.data_ptr(), force.data_ptr(), dist2.data_ptr(),
+        u.data_ptr() if with_u else None, *lat, *tile, *lb_params(float(tau)), ld, lf,
+        lay["dist2"].descriptor(), lay["u"].descriptor(), block)
     return dist2, u

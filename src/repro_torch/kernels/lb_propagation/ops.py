@@ -78,10 +78,11 @@ def _collide_propagate_cuda(graph, ins, scalars, *, lattice, vvl, out_layouts):
 
 
 def _collide_propagate_tiled_cuda(graph, ins, scalars, *, lattice, plan, out_layouts):
-    # a tiled plan takes SoA fields only (core.plan refuses the others)
     tau = graph.stage_params()[0]["tau"]
-    dist2, _ = kernel.lb_step_tiled_cuda(ins["dist"][0], ins["force"][0], tau, lattice,
-                                         (plan.bx, plan.by, plan.bz), with_u=False)
+    (d, ld), (f, lf) = ins["dist"], ins["force"]
+    dist2, _ = kernel.lb_step_tiled_cuda(d, f, tau, lattice, (plan.bx, plan.by, plan.bz),
+                                         with_u=False,
+                                         layouts={"dist": ld, "force": lf, **out_layouts})
     return {"dist2": dist2}
 
 

@@ -39,6 +39,16 @@ pap takes the fp32 ap; under a compensated accumulate pap's partials are
 (hi, lo) pairs folded by K2's compensated pass 2.  A policy asking for
 neither runs the policy-free kernels.
 
+K5T, the tiled instance (:func:`wilson_normal_tiled_cuda`; the
+``wilson_normal`` graph under a tiled plan), single, batched and policy:
+K5's two kernels with their blocks taking NORMAL_TILED_BLOCK consecutive
+positions of the plan's tile walk (:func:`normal_walk`: tiles in the
+reference's grid order, t whole in a tile) instead of the brick order's
+chunks, and pap's partial rows folded by K2 in walk order.  t and ap are
+bitwise K5's; pap is held to its plain version
+(:func:`wilson_normal_tiled_plain`) within a tolerance, and is K5's bits
+where the walk is the linear order.
+
 On a CPU tensor each wrapper returns its plain version (unpack, torch ops,
 pack); on a CUDA tensor it launches its kernel or raises.
 """
@@ -57,7 +67,10 @@ from repro_torch.core.reduce import compensated_plain, fold_partials, fold_parti
 from . import ref
 
 __all__ = ["dslash_cuda", "dslash_plain", "wilson_normal_cuda",
-           "wilson_normal_plain", "bf16_round", "bf16_round_cuda", "bf16_pack_cuda",
+           "wilson_normal_plain", "wilson_normal_tiled_cuda", "wilson_normal_tiled_plain",
+           "normal_walk", "NORMAL_TILED_BLOCK", "WILSON_NORMAL_T_TILED",
+           "WILSON_NORMAL_AP_TILED", "WILSON_NORMAL_T_TILED_MIXED",
+           "WILSON_NORMAL_AP_TILED_MIXED", "bf16_round", "bf16_round_cuda", "bf16_pack_cuda",
            "block_chunks", "BRICK_X", "NORMAL_SLOTS", "NORMAL_SLOTS_POLICY", "DSLASH",
            "WILSON_NORMAL_T",
            "WILSON_NORMAL_AP", "WILSON_NORMAL_T_B", "WILSON_NORMAL_AP_B",
@@ -71,6 +84,14 @@ WILSON_NORMAL_AP_B = Kernel("wilson_normal_ap_batched", "rt_wilson_normal_ap_bat
 # the policy instance, single and batched (one slot a grid row)
 WILSON_NORMAL_T_MIXED = Kernel("wilson_normal_t_mixed", "rt_wilson_normal_t_mixed")
 WILSON_NORMAL_AP_MIXED = Kernel("wilson_normal_ap_mixed", "rt_wilson_normal_ap_mixed")
+# K5T, the tiled instance (every slot count), and its policy instance
+WILSON_NORMAL_T_TILED = Kernel("wilson_normal_t_tiled", "rt_wilson_normal_t_tiled")
+WILSON_NORMAL_AP_TILED = Kernel("wilson_normal_ap_tiled", "rt_wilson_normal_ap_tiled")
+WILSON_NORMAL_T_TILED_MIXED = Kernel("wilson_normal_t_tiled_mixed",
+                                     "rt_wilson_normal_t_tiled_mixed")
+WILSON_NORMAL_AP_TILED_MIXED = Kernel("wilson_normal_ap_tiled_mixed",
+                                      "rt_wilson_normal_ap_tiled_mixed")
+NORMAL_TILED_BLOCK = 128   # K5T's walk positions a block (K5's default vvl)
 
 
 def bf16_round(x: torch.Tensor) -> torch.Tensor:
@@ -205,13 +226,19 @@ def wilson_normal_plain(p: torch.Tensor, u: torch.Tensor, kappa: float,
     bf16, comp = policy or (False, False)
     lat = _check_4d(lattice)
     lay = resolve_layouts(layouts, _NORMAL_IN, _NORMAL_OUT)
+    p, ap = _normal_canonical(p, u, kappa, lat, lay, bf16)
+    pap = compensated_plain(p * ap) if comp else (p * ap).sum(dim=1)
+    return lay["ap"].pack(ap.to(torch.bfloat16) if bf16 else ap), pap
+
+
+def _normal_canonical(p, u, kappa, lat, lay, bf16):
+    """(p, ap) canonical in fp32: p as the kernels read it (rounded to
+    bf16 under ``bf16``) and ap = M^dag M p before any rounding."""
     p, u = lay["p"].unpack(p), lay["u"].unpack(u).to(p.dtype)
     if bf16:
         p, u = bf16_round(p), bf16_round(u)
     t = _m_g5(p, _dslash_canonical(p, u, lat), kappa)
-    ap = _m_g5(t, _dslash_canonical(t, u, lat), kappa)
-    pap = compensated_plain(p * ap) if comp else (p * ap).sum(dim=1)
-    return lay["ap"].pack(ap.to(torch.bfloat16) if bf16 else ap), pap
+    return p, _m_g5(t, _dslash_canonical(t, u, lat), kappa)
 
 
 def wilson_normal_cuda(p: torch.Tensor, u: torch.Tensor, kappa: float, lattice,
@@ -305,5 +332,120 @@ def _wilson_normal_mixed(p, u, kappa, lattice, vvl, layouts, batched, policy, rs
     WILSON_NORMAL_AP_MIXED.launch(p.device, p.data_ptr(), t.data_ptr(), u.data_ptr(),
                                   ap.data_ptr(), partials.data_ptr(), float(kappa), *lat, batch,
                                   int(bf16), int(comp), lp, lu, lay["ap"].descriptor(), vvl)
+    pap = fold_partials_batched(partials, "sum", compensated=comp, rsplit=rsplit)
+    return ap, (pap if batched else pap[0])
+
+
+# -- K5T: the tiled wilson_normal ---------------------------------------------------------
+
+def _check_tile(lat, tile) -> Tuple[int, int, int]:
+    """The tile (bx, by, bz) with 0 a whole axis, checked to divide the
+    lattice (t is whole in every tile)."""
+    ext = tuple(int(e) or n for e, n in zip(tile, lat[:3]))
+    if len(tile) != 3 or any(e < 1 or n % e for e, n in zip(ext, lat)):
+        raise ValueError(f"K5T: tile {tuple(tile)} does not divide the lattice {lat}")
+    return ext
+
+
+def normal_walk(lattice, tile) -> torch.Tensor:
+    """The site ((x Y + y) Z + z) T + t at each position g of K5T's walk
+    (``rt_walk_site`` of ``csrc/wilson_normal.cuh``): tiles (bx, by, bz) in
+    the reference's grid order (x-slab outermost, z-tile fastest), and in a
+    tile x, y, z, then t fastest.  Position g is computed by thread g %
+    NORMAL_TILED_BLOCK of the block whose partial row is g //
+    NORMAL_TILED_BLOCK."""
+    X, Y, Z, T = lat = _check_4d(lattice)
+    bx, by, bz = _check_tile(lat, tile)
+    g = torch.arange(X * Y * Z * T, dtype=torch.int64)
+    tsites = bx * by * bz * T
+    t, l = g // tsites, g % tsites
+    lt, l = l % T, l // T
+    lz, l = l % bz, l // bz
+    ly, lx = l % by, l // by
+    tz, r = t % (Z // bz), t // (Z // bz)
+    ty, tx = r % (Y // by), r // (Y // by)
+    return (((tx * bx + lx) * Y + ty * by + ly) * Z + tz * bz + lz) * T + lt
+
+
+def _tile_order_sum(prod: torch.Tensor, lat, tile) -> torch.Tensor:
+    """(24, V) canonical products -> (24,): each tile's sum, the tiles'
+    partials folded in tile order (the reference's per-tile contract)."""
+    X, Y, Z, T = lat
+    bx, by, bz = tile
+    tiles = prod.reshape(24, X // bx, bx, Y // by, by, Z // bz, bz, T)
+    per = tiles.permute(0, 1, 3, 5, 2, 4, 6, 7).reshape(24, -1, bx * by * bz * T).sum(dim=2)
+    return per.sum(dim=1)
+
+
+def wilson_normal_tiled_plain(p: torch.Tensor, u: torch.Tensor, kappa: float, lattice, tile,
+                              layouts=None, *, batched: bool = False,
+                              policy: Optional[CudaPolicy] = None
+                              ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """:func:`wilson_normal_plain` under the tile ``tile`` (bx, by, bz; 0 a
+    whole axis): the same fields, and pap the sum of each tile's partial,
+    the tiles in the reference's grid order (compensated sums, which round
+    once, need no order)."""
+    if batched:
+        outs = [wilson_normal_tiled_plain(pb, u, kappa, lattice, tile, layouts, policy=policy)
+                for pb in p]
+        return torch.stack([a for a, _ in outs]), torch.stack([s for _, s in outs])
+    lat = _check_4d(lattice)
+    ext = _check_tile(lat, tile)
+    bf16, comp = policy or (False, False)
+    lay = resolve_layouts(layouts, _NORMAL_IN, _NORMAL_OUT)
+    p, ap = _normal_canonical(p, u, kappa, lat, lay, bf16)
+    # pap takes the fp32 ap, before the write's rounding
+    pap = compensated_plain(p * ap) if comp else _tile_order_sum(p * ap, lat, ext)
+    return lay["ap"].pack(ap.to(torch.bfloat16) if bf16 else ap), pap
+
+
+def wilson_normal_tiled_cuda(p: torch.Tensor, u: torch.Tensor, kappa: float, lattice, tile,
+                             block: int = NORMAL_TILED_BLOCK, *, layouts=None,
+                             batched: bool = False, policy: Optional[CudaPolicy] = None,
+                             rsplit: int = 1) -> Tuple[torch.Tensor, torch.Tensor]:
+    """K5T: :func:`wilson_normal_cuda`'s (ap, pap) with the blocks walking
+    the tile ``tile`` (bx, by, bz; 0 a whole axis), ``block`` walk positions
+    a block; ``batched`` and ``policy`` as there (under bf16 storage ``u``
+    is its bf16 copy).  Raises when the tile does not divide the
+    lattice."""
+    lat = _check_4d(lattice)
+    ext = _check_tile(lat, tile)
+    if p.device.type == "cpu":
+        return wilson_normal_tiled_plain(p, u, kappa, lat, ext, layouts, batched=batched,
+                                         policy=policy)
+    _check_normal(block)
+    V = math.prod(lat)
+    lay = resolve_layouts(layouts, _NORMAL_IN, _NORMAL_OUT)
+    bf16, comp = policy or (False, False)
+    mixed = bf16 or comp
+    if bf16 and u.dtype != torch.bfloat16:
+        raise ValueError(f"wilson_normal under bf16 storage reads the bf16 copy of u "
+                         f"(bf16_pack_cuda, made once per operator), got {u.dtype}")
+    batch = p.shape[0] if batched else 1
+    lp = (check_batched_field("p", p, lay["p"], 24, V, batch, p.device) if batched
+          else check_field("p", p, lay["p"], 24, V, p.device))
+    lu = check_field("u", u, lay["u"], 72, V, p.device, torch.bfloat16 if bf16 else torch.float32)
+    lead = (batch,) if batched else ()
+    t = torch.empty((batch, 24, V), dtype=torch.float32, device=p.device)
+    ap = torch.empty(lead + lay["ap"].physical_shape(24, V),
+                     dtype=torch.bfloat16 if bf16 else torch.float32, device=p.device)
+    partials = torch.empty((batch, -(-V // block), 24) + ((2,) if comp else ()),
+                           dtype=torch.float32, device=p.device)
+    args = (*lat, batch, *ext)
+    if bf16:
+        WILSON_NORMAL_T_TILED_MIXED.launch(p.device, p.data_ptr(), u.data_ptr(), t.data_ptr(),
+                                           float(kappa), *args, lp, lu, block)
+    else:
+        WILSON_NORMAL_T_TILED.launch(p.device, p.data_ptr(), u.data_ptr(), t.data_ptr(),
+                                     float(kappa), *args, lp, lu, block)
+    if mixed:
+        WILSON_NORMAL_AP_TILED_MIXED.launch(
+            p.device, p.data_ptr(), t.data_ptr(), u.data_ptr(), ap.data_ptr(),
+            partials.data_ptr(), float(kappa), *args, int(bf16), int(comp), lp, lu,
+            lay["ap"].descriptor(), block)
+    else:
+        WILSON_NORMAL_AP_TILED.launch(p.device, p.data_ptr(), t.data_ptr(), u.data_ptr(),
+                                      ap.data_ptr(), partials.data_ptr(), float(kappa), *args,
+                                      lp, lu, lay["ap"].descriptor(), block)
     pap = fold_partials_batched(partials, "sum", compensated=comp, rsplit=rsplit)
     return ap, (pap if batched else pap[0])

@@ -22,6 +22,11 @@ through the policy-free operator; the bucket keeps each slot's rhs for
 that.  Admission and the update chain run without the policy, so every
 outcome is bitwise ``solve_batched``'s one-slot run of its source.
 
+A shared-memory budget on the server's config (``TargetConfig.smem_bytes``)
+tiles the operator launch as it tiles ``driver.solve``'s, with no change
+here: on "cuda" the batched operator runs K5T's batch instance, and every
+outcome is the budgeted ``solve``'s, bit for bit.
+
 The JAX package's serve telemetry (``telemetry.inc/sample/span`` around
 admission, ticks and drains, and the ``--trace`` option) is left out: the
 port has no ``core/telemetry.py`` yet (ROADMAP item 20), which adds it here

@@ -312,12 +312,27 @@ def test_batch_kernels_plain_versions_equal_single_ones_per_slot(spec, rng):
 
 
 def test_batched_launches_refused_where_the_port_refuses_them(rng):
-    """A tiled plan with a batch, a batched cuda launch of a graph with no
-    batch instance, and a cuda launch of CPU fields all raise."""
+    """A tiled plan with a batch runs a graph's tiled batch instance (K5T's
+    for wilson_normal: the launch passes the plan checks and refuses CPU
+    fields) and raises for a graph without one (a stencil test graph, the
+    Ludwig LB step); a batched cuda launch of a graph with no batch
+    instance, and a cuda launch of CPU fields, raise."""
     bx = _mkb("x", _arr(rng, 2, 3, *LAT), SOA)
     sten = LaunchGraph("bsten").add_stencil(_sten, {"x": "x"}, {"s": 3}, width=1)
-    with pytest.raises(ValueError, match="batch x tile"):
-        sten.launch({"x": bx}, plan=LoweringPlan("cuda", vvl=32, bx=1, by=2))
+    tiled = LoweringPlan("cuda", vvl=32, bx=1, by=2)
+    with pytest.raises(ValueError, match="no hand-written tiled batched kernel"):
+        sten.launch({"x": bx}, plan=tiled)
+    from repro_torch.apps.ludwig import LudwigConfig
+    from repro_torch.apps.ludwig import driver as LD
+
+    lb = {n: _mkb(n, _arr(rng, 2, nc, *LAT), SOA) for n, nc in (("dist", 19), ("force", 3))}
+    with pytest.raises(ValueError, match="no hand-written tiled batched kernel.*ludwig_lb_step"):
+        LD.lb_step_graph(LudwigConfig()).launch(lb, plan=tiled, outputs=("dist2", "u"))
+    lat4 = (2, 2, 4, 4)
+    u = Field.from_numpy("u", _arr(rng, 72, *lat4), lat4)
+    p = _mkb("p", _arr(rng, 2, 24, *lat4), SOA, lat4)
+    with pytest.raises(ValueError, match="CUDA device"):
+        CG.make_fused_normal(u, 0.12, TargetConfig("cuda", device="cpu", plan_policy=tiled))(p)
     with pytest.raises(ValueError, match="no hand-written batched CUDA kernel"):
         sten.launch({"x": bx}, config=TargetConfig("cuda", vvl=64))
     # the masked graphs have only a batch instance
@@ -329,3 +344,40 @@ def test_batched_launches_refused_where_the_port_refuses_them(rng):
     by = _mkb("y", _arr(rng, 2, 24, *LAT), SOA)
     with pytest.raises(ValueError, match="CUDA device"):
         CG.batched_dot(by, by, TargetConfig("cuda", vvl=64))
+
+
+@pytest.mark.parametrize("spec", ["soa", "aos"])
+def test_k5t_batched_plain_against_reference_batched_tiled_launch(spec, rng):
+    """K5T's batch instance, plain: 2 stacked spinors against one u under a
+    tile, against the reference's batched tiled wilson_normal launch
+    (pallas, interpret) and each slot bitwise the single K5T and K5B plain
+    versions' fields."""
+    from repro.core import LoweringPlan as JPlan
+
+    lat, tile = (4, 4, 4, 8), (2, 2, 2)
+    lay = parse_layout(spec)
+    from repro_torch.apps.milc import fields as PF
+
+    u_np = PF.random_su3_gauge(lat, seed=3, hot=0.6)
+    ps = _arr(rng, 2, 24, *lat)
+    u = lay.pack(torch.from_numpy(u_np).reshape(72, -1))
+    q = torch.stack([lay.pack(torch.from_numpy(p).reshape(24, -1)) for p in ps])
+    L = {"p": lay, "u": lay, "ap": lay}
+    ap, pap = K.wilson_normal_tiled_cuda(q, u, 0.12, lat, tile, layouts=L, batched=True)
+    k5b_ap, _ = K.wilson_normal_cuda(q, u, 0.12, lat, layouts=L, batched=True)
+    assert torch.equal(ap, k5b_ap)
+    for b in range(2):
+        one = K.wilson_normal_tiled_cuda(q[b], u, 0.12, lat, tile, layouts=L)
+        assert torch.equal(ap[b], one[0]) and torch.equal(pap[b], one[1])
+    jout = JCG.wilson_normal_graph(0.12).launch(
+        {"p": JBatchedField.from_canonical("p", jnp.asarray(ps), lat, j_parse_layout(spec)),
+         "u": JField.from_numpy("u", u_np, lat, j_parse_layout(spec))},
+        config=JTargetConfig("pallas", vvl=128), outputs=("ap", "pap"),
+        plan=JPlan("pallas", bx=2, by=2, bz=2, interpret=True))
+    for b in range(2):
+        want = np.asarray(jout["ap"].element(b).to_numpy()).reshape(24, -1)
+        got = lay.unpack(ap[b]).numpy()
+        np.testing.assert_allclose(got, want, rtol=FIELD_RTOL, atol=FIELD_RTOL * np.abs(want).max())
+        jp = np.asarray(jout["pap"])[b]
+        terms = np.abs(ps[b].reshape(24, -1) * want).sum(axis=1)
+        assert (np.abs(pap[b].numpy() - jp) <= 1e-5 * terms).all()

@@ -165,8 +165,8 @@ def test_cuda_engine_refuses_unregistered_bodies_and_layouts(rng):
         # the layout is accepted: what refuses is the CPU tensor
         with pytest.raises(ValueError, match="CUDA device"):
             PCG.g5(f, CUDA_ON_CPU)
-    # the reference's rules refuse before any launch: SAL must divide vvl,
-    # and a tiled plan takes SoA fields only
+    # the reference's rules refuse before any launch: SAL must divide vvl;
+    # a tiled plan takes every layout (K9 in AoS: the CPU fields refuse)
     f = PField.from_numpy("f", px.to_numpy(), LAT, aosoa(64))
     with pytest.raises(ValueError, match="multiple of AoSoA sal=64"):
         PCG.g5(f, TargetConfig("cuda", device="cpu", plan_policy=LoweringPlan("cuda", 32)))
@@ -175,7 +175,7 @@ def test_cuda_engine_refuses_unregistered_bodies_and_layouts(rng):
     lat = (4, 4, 4)
     dist, force = (PField.from_numpy(n, rng.normal(size=(c,) + lat).astype(np.float32), lat,
                                      AOS) for n, c in (("dist", 19), ("force", 3)))
-    with pytest.raises(ValueError, match="ROADMAP"):
+    with pytest.raises(ValueError, match="CUDA device"):
         collide_propagate(dist, force, tau=0.8,
                           config=TargetConfig("cuda", device="cpu", smem_bytes=6512))
     with pytest.raises(ValueError, match="produces"):

@@ -22,6 +22,7 @@ from repro_torch.apps.milc import MilcConfig, fields, init_problem, residual_che
 from repro_torch.apps.milc import cg as CG  # noqa: E402
 from repro_torch.core import (SOA, DtypePolicy, Field, TargetConfig, fuse, parse_layout,  # noqa: E402
                               reduce, target)
+from repro_torch.core import plan as pplan  # noqa: E402
 from repro_torch.kernels.flash_attention import flash_attention  # noqa: E402
 from repro_torch.kernels.flash_attention import kernel as KF  # noqa: E402
 from repro_torch.kernels.lb_collision import kernel as K7  # noqa: E402
@@ -1730,8 +1731,8 @@ def test_k8_in_every_layout_bitwise_plain(card, lat, rng):
 @pytest.mark.parametrize("spec", ["soa", "aos", "aosoa4", "aosoa16"])
 def test_pinned_collision_bitwise_plain(card, spec, rng):
     """With the collision's roundings pinned (csrc/d3q19.cuh), K5L's dist2
-    and u, its policy instance's bf16 dist2 and u, and (in SoA) K9's dist2
-    and u are bitwise their plain versions on the card."""
+    and u, its policy instance's bf16 dist2 and u, and K9's and its policy
+    instance's dist2 and u are bitwise their plain versions on the card."""
     lay = parse_layout(spec)
     lat = (8, 8, 16)
     V = int(np.prod(lat))
@@ -1743,11 +1744,11 @@ def test_pinned_collision_bitwise_plain(card, spec, rng):
         want = K8.lb_step_plain(d, f, 0.8, lat, layouts=L, bf16=bf16)
         for g, w in zip(got, want):
             assert _bits(g.float(), w.float()), (spec, bf16)
-    if spec == "soa":
         for tile in ((1, 4, 8), (8, 8, 16)):
-            got = K8.lb_step_tiled_cuda(dist, force, 0.8, lat, tile)
-            want = K8.lb_step_tiled_plain(dist, force, 0.8, lat, tile)
-            assert _bits(got[0], want[0]) and _bits(got[1], want[1]), tile
+            got = K8.lb_step_tiled_cuda(d, f, 0.8, lat, tile, layouts=L, bf16=bf16)
+            want = K8.lb_step_tiled_plain(d, f, 0.8, lat, tile, layouts=L, bf16=bf16)
+            for g, w in zip(got, want):
+                assert _bits(g.float(), w.float()), (spec, bf16, tile)
 
 
 # -- split reductions (K2S), K2's int32 and bf16 instances, the block view ----------
@@ -1935,3 +1936,168 @@ def test_block_view_launch_bitwise_staged(card, rng):
         LD.lb_step_graph(lcfg).launch(bad, config=cfg, outputs=("dist2", "u"),
                                       plan=LoweringPlan("cuda", vvl=128, bx=1, view="block"))
     assert K8.LB_STEP.launches == launches
+
+
+
+# -- K3C (the fused LC chain), K5T (the tiled wilson_normal), K9 off SoA ---------------
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("spec", ["soa", "aos", "aosoa4"])
+def test_k3c_lc_chain(card, spec, rng):
+    """K3C within 1e-6 x max|plain| of its plain version in a layout, and
+    bitwise its SoA launch repacked."""
+    lay = parse_layout(spec)
+    lat = (8, 8, 16)
+    V = int(np.prod(lat))
+    arrs = {n: _dev(rng, (nc, V), card, sc) for n, nc, sc in
+            (("q", 5, 0.05), ("lapq", 5, 0.02), ("w", 9, 0.01), ("adv", 5, 0.01))}
+    kw = dict(a0=0.01, gamma=3.0, kappa=0.01, gamma_rot=0.3, xi=0.7, dt=1.0)
+    L = {**{n: lay for n in arrs}, "q_new": lay}
+    launches = LK.LC_CHAIN.launches
+    got = LK.lc_chain_cuda(*(lay.pack(arrs[n]) for n in ("q", "lapq", "w", "adv")),
+                           layouts=L, **kw)
+    want = LK.lc_chain_plain(*(arrs[n] for n in ("q", "lapq", "w", "adv")), **kw)
+    assert LK.LC_CHAIN.launches - launches == 1
+    got_c = lay.unpack(got)
+    assert (got_c - want).abs().max() <= 1e-6 * want.abs().max()
+    soa = LK.lc_chain_cuda(*(arrs[n] for n in ("q", "lapq", "w", "adv")), **kw)
+    assert _bits(got_c, soa)
+
+
+K5T_LAT = (8, 8, 8, 16)
+K5T_TILES = [(1, 1, 1), (2, 4, 2), (8, 2, 0), (1, 0, 4)]
+
+
+def _normal_t(kernel, p, u, lat, lay, tile=None, batch=1):
+    """t of K5's (tile None) or K5T's t kernel, launched alone."""
+    V = int(np.prod(lat))
+    t = torch.empty((batch, 24, V), device=p.device)
+    lp, lu = lay.descriptor(), lay.descriptor()
+    if tile is None:
+        kernel.launch(p.device, p.data_ptr(), u.data_ptr(), t.data_ptr(), 0.12, *lat, lp, lu, 128)
+    else:
+        kernel.launch(p.device, p.data_ptr(), u.data_ptr(), t.data_ptr(), 0.12, *lat, batch,
+                      *tile, lp, lu, 128)
+    return t
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("spec", ["soa", "aos", "aosoa4"])
+@pytest.mark.parametrize("tile", K5T_TILES, ids=str)
+def test_k5t_tiled_normal(card, spec, tile, rng):
+    """K5T single, over 2 slots and under the refined solve's policy: t and
+    ap bitwise K5's (the policy instance's), pap within 1e-6 x sum|terms| of
+    the tile-ordered plain version and bitwise on a rerun; where the walk is
+    the linear order, pap bitwise K5's; each slot bitwise the single
+    launch."""
+    lay = parse_layout(spec)
+    lat, V = K5T_LAT, int(np.prod(K5T_LAT))
+    u = lay.pack(torch.from_numpy(fields.random_su3_gauge(lat, seed=1, hot=0.6)).reshape(72, -1)
+                 .to(card))
+    p = lay.pack(_dev(rng, (24, V), card))
+    L = {"p": lay, "u": lay, "ap": lay}
+    ext = tuple(e or n for e, n in zip(tile, lat))
+    t5 = _normal_t(K.WILSON_NORMAL_T, p, u, lat, lay)
+    t9 = _normal_t(K.WILSON_NORMAL_T_TILED, p, u, lat, lay, ext)
+    assert _bits(t5, t9)
+    launches = K.WILSON_NORMAL_AP_TILED.launches
+    ap, pap = K.wilson_normal_tiled_cuda(p, u, 0.12, lat, tile, layouts=L)
+    assert K.WILSON_NORMAL_AP_TILED.launches - launches == 1
+    ap5, pap5 = K.wilson_normal_cuda(p, u, 0.12, lat, 128, layouts=L)
+    assert _bits(ap, ap5)
+    want_ap, want = K.wilson_normal_tiled_plain(p, u, 0.12, lat, tile, L)
+    terms = lay.unpack(p) * lay.unpack(want_ap)
+    assert bool(((pap - want).abs() <= 1e-6 * terms.abs().sum(dim=1)).all())
+    assert _bits(K.wilson_normal_tiled_cuda(p, u, 0.12, lat, tile, layouts=L)[1], pap)
+    if torch.equal(K.normal_walk(lat, tile), torch.arange(V)):
+        assert _bits(pap, pap5)
+    # two slots, each the single launch
+    p2 = torch.stack([p, lay.pack(_dev(rng, (24, V), card))])
+    ap2, pap2 = K.wilson_normal_tiled_cuda(p2, u, 0.12, lat, tile, layouts=L, batched=True)
+    for b in range(2):
+        one = K.wilson_normal_tiled_cuda(p2[b], u, 0.12, lat, tile, layouts=L)
+        assert _bits(ap2[b], one[0]) and _bits(pap2[b], one[1])
+    # the policy instance: a bf16 u copy, ap in bf16, compensated pap
+    pol = pplan.cuda_policy(DtypePolicy(storage="bfloat16", compute="float32",
+                                        accumulate="float64"))
+    u16 = K.bf16_pack_cuda(u)
+    ap_m, pap_m = K.wilson_normal_tiled_cuda(p, u16, 0.12, lat, tile, layouts=L, policy=pol)
+    ap5_m, _ = K.wilson_normal_cuda(p, u16, 0.12, lat, 128, layouts=L, policy=pol)
+    assert _bits16(ap_m, ap5_m)
+    want_ap, want = K.wilson_normal_tiled_plain(p, u, 0.12, lat, tile, L, policy=pol)
+    terms = K.bf16_round(lay.unpack(p)) * lay.unpack(want_ap).float()
+    assert bool(((pap_m - want).abs() <= 1e-6 * terms.abs().sum(dim=1)).all())
+    assert _bits(K.wilson_normal_tiled_cuda(p, u16, 0.12, lat, tile, layouts=L,
+                                            policy=pol)[1], pap_m)
+    ap2m, pap2m = K.wilson_normal_tiled_cuda(p2, u16, 0.12, lat, tile, layouts=L, batched=True,
+                                             policy=pol)
+    assert _bits16(ap2m[0], ap_m) and _bits(pap2m[0], pap_m)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("spec", ["aos", "aosoa4", "aosoa16"])
+@pytest.mark.parametrize("bf16", [False, True], ids=["fp32", "bf16"])
+def test_k9_in_every_layout_and_bf16(card, spec, bf16, rng):
+    """K9 in a layout (and its policy instance) bitwise K5L's launch in
+    that layout and policy, with and without u; under view='block' on
+    aosoa4 through the graph, bitwise the untiled launch."""
+    lay = parse_layout(spec)
+    lat = (8, 8, 16)
+    V = int(np.prod(lat))
+    d, f = lay.pack(_lb_dist(rng, card, V)), lay.pack(_dev(rng, (3, V), card, scale=1e-3))
+    L = {"dist": lay, "force": lay, "dist2": lay, "u": lay}
+    k5 = K8.lb_step_cuda(d, f, 0.8, lat, 128, layouts=L, bf16=bf16)
+    counter = K8.LB_STEP_TILED_BF16 if bf16 else K8.LB_STEP_TILED
+    for tile in ((1, 4, 8), (8, 8, 16), (2, 2, 4)):
+        launches = counter.launches
+        got = K8.lb_step_tiled_cuda(d, f, 0.8, lat, tile, layouts=L, bf16=bf16)
+        only, none = K8.lb_step_tiled_cuda(d, f, 0.8, lat, tile, layouts=L, bf16=bf16,
+                                           with_u=False)
+        assert counter.launches - launches == 2 and none is None
+        for g, w in zip(got + (only,), k5 + (k5[0],)):
+            assert _bits(g.float(), w.float()), (tile, g.dtype)
+    if spec == "aosoa4" and not bf16:
+        from repro_torch.core import LoweringPlan
+        from repro_torch.kernels.lb_propagation.ops import collide_propagate
+
+        fd, ff = Field("dist", 19, lat, lay, d), Field("force", 3, lat, lay, f)
+        cfg = TargetConfig("cuda", device="cuda")
+        want = collide_propagate(fd, ff, tau=0.8, config=cfg)
+        launches = K8.LB_STEP_TILED.launches
+        got = collide_propagate(fd, ff, tau=0.8, config=cfg,
+                                plan=LoweringPlan("cuda", bx=1, by=4, bz=8, view="block"))
+        assert K8.LB_STEP_TILED.launches - launches == 1 and _bits(got.data, want.data)
+
+
+@pytest.mark.cuda
+def test_budgeted_solves_run_k5t(card):
+    """The MILC solve, solve_batched and the refined solve under the H100's
+    227 KiB budget (the finest tile) run K5T, twice an iteration: the solve
+    within 1 iteration and x rel-L2 1e-5 of the untiled one, each batched
+    slot bitwise the budgeted solve of its source, the refined solve within
+    x rel-L2 1e-4."""
+    from repro_torch.apps.milc.driver import solve_batched
+
+    kw = dict(lattice=(8, 8, 8, 8), kappa=0.12, tol=1e-10, max_iter=1000)
+    cfg = MilcConfig(target=TargetConfig("cuda", device="cuda"), **kw)
+    bud = MilcConfig(target=TargetConfig("cuda", device="cuda", smem_bytes=227 * 1024), **kw)
+    u, b = init_problem(cfg, seed=0)
+    base = solve(cfg, u, b)
+    t0, a0 = K.WILSON_NORMAL_T_TILED.launches, K.WILSON_NORMAL_AP_TILED.launches
+    res = solve(bud, u, b)
+    assert K.WILSON_NORMAL_T_TILED.launches - t0 == res.iterations
+    assert K.WILSON_NORMAL_AP_TILED.launches - a0 == res.iterations
+    assert abs(res.iterations - base.iterations) <= 1
+    rel = (torch.linalg.norm(res.x.data - base.x.data) / torch.linalg.norm(base.x.data)).item()
+    assert rel <= 1e-5 and residual_check(bud, u, b, res.x) < 1e-3
+    b2 = b.with_data(torch.flip(b.data, dims=(1,)))
+    bat = solve_batched(bud, u, [b, b2])
+    for k, src in enumerate((b, b2)):
+        one = res if k == 0 else solve(bud, u, src)
+        assert _bits(bat.x.element(k).data, one.x.data)
+        assert int(bat.iterations[k]) == one.iterations
+    m0 = K.WILSON_NORMAL_AP_TILED_MIXED.launches
+    ref = solve(dataclasses.replace(bud, storage="bfloat16"), u, b)
+    assert K.WILSON_NORMAL_AP_TILED_MIXED.launches > m0
+    rel = (torch.linalg.norm(ref.x.data - base.x.data) / torch.linalg.norm(base.x.data)).item()
+    assert rel <= 1e-4

@@ -396,6 +396,36 @@ def test_wilson_normal_policy_plain_vs_reference(milc_fields, lays):
     assert torch.equal(apb[0], ap) and torch.equal(papb[0], pap)
 
 
+@pytest.mark.parametrize("tile", [(1, 1, 1), (2, 2, 4)], ids=str)
+def test_k5t_policy_plain_vs_reference_tiled_launch(milc_fields, tile):
+    """K5T's policy instance, plain (wilson_normal_tiled_plain under the
+    refined solve's policy): ap bitwise K5's policy plain version and
+    within one bf16 ulp of the reference's tiled launch under the policy
+    (interpret); pap (compensated, which needs no order) bitwise K5's and
+    within the oracle bound; two slots each bitwise the single one."""
+    u, ps = milc_fields
+    pol = pplan.cuda_policy(BF16)
+    pt = torch.from_numpy(ps[0]).reshape(24, -1)
+    ut = torch.from_numpy(u).reshape(72, -1)
+    ap, pap = WK.wilson_normal_tiled_cuda(pt, ut, KAPPA, MILC_LAT, tile, policy=pol)
+    k5 = WK.wilson_normal_plain(pt, ut, KAPPA, MILC_LAT, policy=pol)
+    assert ap.dtype == torch.bfloat16
+    assert torch.equal(ap, k5[0]) and torch.equal(pap, k5[1])
+    jout = JCG.wilson_normal_graph(KAPPA).launch(
+        {"p": JField.from_numpy("p", ps[0], MILC_LAT), "u": JField.from_numpy("u", u, MILC_LAT)},
+        config=JTC("pallas", dtypes=J_BF16), outputs=("ap", "pap"),
+        plan=JPlan("pallas", bx=tile[0], by=tile[1], bz=tile[2], interpret=True, dtypes=J_BF16))
+    assert _within_bf16_ulp(ap.float().numpy(), _jnp(jout["ap"]).reshape(24, -1)) <= 1.0
+    ap32, _ = WK.wilson_normal_plain(WK.bf16_round(pt), WK.bf16_round(ut), KAPPA, MILC_LAT)
+    terms = WK.bf16_round(pt).numpy() * ap32.numpy()
+    assert _oracle_err(pap.numpy(), terms) <= 1.0
+    assert _oracle_err(np.asarray(jout["pap"]), terms) <= 4.0
+    pb = torch.stack([pt, torch.from_numpy(ps[1]).reshape(24, -1)])
+    apb, papb = WK.wilson_normal_tiled_cuda(pb, ut, KAPPA, MILC_LAT, tile, batched=True,
+                                            policy=pol)
+    assert torch.equal(apb[0], ap) and torch.equal(papb[0], pap)
+
+
 def test_wilson_normal_policy_reads_a_bf16_u_copy(milc_fields):
     """Under bf16 storage K5's policy instance reads u as a bf16 copy made
     once per operator (``bf16_pack_cuda``; its plain version on the CPU):
@@ -669,9 +699,11 @@ def test_refined_server_drain_bitwise_one_slot_runs(refined_batch):
 
 
 def test_policy_refusals_before_any_device_check():
-    """On the cuda engine a policy on a graph without a policy instance and
-    a policy on a tiled plan raise before the fields' device is looked at
-    (these fields lie on the CPU); the empty policy is no policy."""
+    """On the cuda engine a policy on a graph without a policy instance
+    raises before the fields' device is looked at (these fields lie on the
+    CPU); a policy on a tiled plan runs K5T's policy instance, so its launch
+    passes the plan checks and refuses the CPU fields; the empty policy is
+    no policy."""
     rng = np.random.default_rng(3)
     fx = Field.from_numpy("x", rng.normal(size=(3,) + LAT).astype(np.float32), LAT)
     g, _ = _dot_graphs()
@@ -682,7 +714,7 @@ def test_policy_refusals_before_any_device_check():
     p = Field.from_numpy("p", PF.random_spinor((2, 2, 4, 4), seed=1), (2, 2, 4, 4))
     tiled = TargetConfig("cuda", device="cpu",
                          plan_policy=LoweringPlan("cuda", vvl=32, bx=1, by=1, dtypes=BF16))
-    with pytest.raises(ValueError, match="tile composition is not yet ported"):
+    with pytest.raises(ValueError, match="CUDA device"):
         PCG.make_fused_normal(u, 0.1, tiled)(p)
     for pol in (BF16, DtypePolicy()):   # a policy it has, and the empty one
         with pytest.raises(ValueError, match="CUDA device"):

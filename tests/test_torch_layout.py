@@ -137,10 +137,16 @@ def test_plan_rules():
     assert PP.default_plan(narrow, nsites=512, layouts=[PL.SOA, PL.aosoa(128)]).vvl == 128
     with pytest.raises(ValueError, match="multiple of AoSoA sal=64"):
         PP.LoweringPlan("cuda", 32).validate(nsites=512, layouts=[PL.aosoa(64)])
-    # a tiled plan copies contiguous z-runs: SoA only, refused at planning
-    with pytest.raises(ValueError, match="ROADMAP"):
-        PP.LoweringPlan("cuda", bx=1, by=2).validate(
-            lattice=(4, 4, 4), layouts=[PL.SOA, PL.AOS], stencil=True)
+    # a tiled plan takes every layout (its kernels address each field through
+    # INDEX): it passes the plan checks, and its launch then refuses CPU fields
+    tiled = PP.LoweringPlan("cuda", bx=1, by=2)
+    tiled.validate(lattice=(4, 4, 4), layouts=[PL.SOA, PL.AOS], stencil=True)
+    from repro_torch.kernels.lb_propagation.ops import collide_propagate
+
+    dist, force = (PField.from_canonical(n, torch.ones((nc, 64)), (4, 4, 4), PL.AOS)
+                   for n, nc in (("dist", 19), ("force", 3)))
+    with pytest.raises(ValueError, match="CUDA device"):
+        collide_propagate(dist, force, tau=0.8, config=cuda, plan=tiled)
     for bad in (PP.LoweringPlan("cuda", 48), PP.LoweringPlan("cuda", 2048),
                 PP.LoweringPlan("cuda", 0), PP.LoweringPlan("gpu", 128)):
         with pytest.raises(ValueError):

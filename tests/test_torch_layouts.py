@@ -309,20 +309,18 @@ def test_planner_accepts_and_refuses_the_reference_grid(spec):
 
 @pytest.mark.parametrize("spec", SPECS)
 def test_tiled_plans_take_soa_only(spec):
-    """A shared-memory budget tiles the LB half-step; on a non-SoA field the
-    planner refuses the tiled plan before any launch, naming ROADMAP."""
+    """A shared-memory budget tiles the LB half-step in every layout (K9
+    addresses each field through INDEX): the same tiled plan as SoA's."""
     lat = (32, 32, 32)
     cfg = TargetConfig("cuda", device="cpu", smem_bytes=6512)
     views = (((19, 1, 4), (3, 1, 4)), ((19, 4), (3, 4)))
     lay = parse_layout(spec)
-    kw = dict(nsites=int(np.prod(lat)), layouts=[lay, lay], stencil=True, lattice=lat,
-              smem_views=views)
-    if spec == "soa":
-        assert PP.default_plan(cfg, **kw).tiled
-    else:
-        with pytest.raises(ValueError, match="ROADMAP"):
-            PP.default_plan(cfg, **kw)
-    assert not PP.default_plan(TargetConfig("cuda", device="cpu"), **kw).tiled
+    kw = dict(nsites=int(np.prod(lat)), stencil=True, lattice=lat, smem_views=views)
+    got = PP.default_plan(cfg, layouts=[lay, lay], **kw)
+    soa = PP.default_plan(cfg, layouts=[SOA, SOA], **kw)
+    assert got.tiled and (got.bx, got.by, got.bz) == (soa.bx, soa.by, soa.bz) == (1, 1, 2)
+    assert not PP.default_plan(TargetConfig("cuda", device="cpu"), layouts=[lay, lay],
+                               **kw).tiled
 
 
 # -- the drivers --------------------------------------------------------------------------

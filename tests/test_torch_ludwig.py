@@ -272,15 +272,21 @@ def test_cuda_engine_and_storage_refused():
         step(s, cuda)
     with pytest.raises(ValueError, match="CUDA device"):
         PD.diagnostics(s, cuda)
-    with pytest.raises(ValueError, match="no hand-written CUDA kernel"):
+    # the fused LC chain runs K3C, which refuses CPU fields
+    with pytest.raises(ValueError, match="CUDA device"):
         PD.lc_chain_graph(cfg).launch(
             {"q": s.q, "lapq": s.q, "w": PField.from_canonical(
                 "w", torch.zeros((9, s.q.nsites)), s.q.lattice), "adv": s.q},
             config=cuda.target, outputs=("q_new",))
+    budget = dataclasses.replace(cuda, target=TargetConfig("cuda", device="cpu",
+                                                           smem_bytes=2048))
     for fn in (step, PD.step_timed):
-        # the bf16 LB storage runs on the card alone under the cuda engine
-        with pytest.raises(ValueError, match="CUDA device"):
-            fn(s, dataclasses.replace(cuda, storage="bfloat16"))
+        # the bf16 LB storage runs on the card alone under the cuda engine,
+        # untiled and under a budget that tiles the LB half-step (K9's
+        # policy instance)
+        for c in (cuda, budget):
+            with pytest.raises(ValueError, match="CUDA device"):
+                fn(s, dataclasses.replace(c, storage="bfloat16"))
     # a storage the LB kernel has no instance for raises before any device check
     f16 = dataclasses.replace(cuda, storage="float16")
     force = PField.from_canonical("force", torch.zeros((3, s.q.nsites)), s.q.lattice)
@@ -295,3 +301,41 @@ def test_default_config_runs_on_the_card_or_raises(monkeypatch):
     assert cfg.target.engine == "cuda" and cfg.target.device == "cuda"
     with pytest.raises(RuntimeError, match="is_available"):
         init_state(cfg)
+
+
+@pytest.mark.parametrize("spec", ["soa", "aos", "aosoa4"])
+def test_k3c_lc_chain_plain_matches_reference(spec, rng):
+    """K3C's plain version (the fused LC chain: molecular field, BE rhs and
+    Q update) against the reference's ludwig_lc_chain launch on jnp and on
+    pallas (interpret) within the chunk tolerance; bitwise the port's graph
+    on the torch engine and the K3L pair's plain versions composed."""
+    lat = (4, 4, 8)
+    n = int(np.prod(lat))
+    arrs = _chunks(rng, n)
+    names = ("q", "lapq", "w", "adv")
+    lay, jlay = parse_layout(spec), j_parse_layout(spec)
+    cfg, jcfg = LudwigConfig(lattice=lat), JLudwigConfig(lattice=lat)
+    kw = dict(a0=cfg.a0, gamma=cfg.gamma, kappa=cfg.kappa, gamma_rot=cfg.gamma_rot, xi=cfg.xi,
+              dt=cfg.dt)
+    phys = {k: lay.pack(torch.from_numpy(arrs[k])) for k in names}
+    lays = {**{k: lay for k in names}, "q_new": lay}
+    got = LK.lc_chain_cuda(*(phys[k] for k in names), layouts=lays, **kw)
+    assert LK.LC_CHAIN.launches == 0
+    got_c = lay.unpack(got).numpy()
+    for engine in ("jnp", "pallas"):
+        jout = JD.lc_chain_graph(jcfg).launch(
+            {k: JField.from_numpy(k, arrs[k].reshape((-1,) + lat), lat, jlay) for k in names},
+            config=JTC(engine), outputs=("q_new",))["q_new"]
+        _close(got_c, np.asarray(jout.to_numpy()).reshape(5, -1))
+    g = PD.lc_chain_graph(cfg).launch(
+        {k: PField.from_canonical(k, torch.from_numpy(arrs[k]), lat, lay) for k in names},
+        config=TORCH, outputs=("q_new",))["q_new"]
+    assert torch.equal(g.data, got)
+    h, _ = LK.chem_stress_plain(phys["q"], phys["lapq"], lay.pack(torch.zeros((15, n))),
+                                a0=cfg.a0, gamma=cfg.gamma, kappa_m=cfg.kappa, kappa_s=cfg.kappa,
+                                xi=cfg.xi, layouts={"q": lay, "lapq": lay, "dq": lay, "h": lay,
+                                                    "sigma": lay})
+    pair = LK.lc_update_plain(phys["q"], h, phys["w"], phys["adv"], gamma_rot=cfg.gamma_rot,
+                              xi=cfg.xi, dt=cfg.dt,
+                              layouts={"q": lay, "h": lay, "w": lay, "adv": lay, "q_new": lay})
+    assert torch.equal(pair, got)

@@ -190,8 +190,9 @@ def test_scheduler_rejects_unregistered_shape():
 def test_what_is_not_yet_ported_raises():
     """Mixed-precision serving runs (test_torch_dtype.py holds it to the JAX
     package); what stays unported raises: a policy on the masked update
-    chain or a tiled plan on the cuda engine (before any device check), and
-    the tuned plan policy."""
+    chain on the cuda engine (before any device check), and the tuned plan
+    policy.  A policy on a tiled plan runs K5T's policy instance: it passes
+    the plan checks and refuses the CPU fields."""
     from repro_torch.core import DtypePolicy, LoweringPlan
 
     cfg = _cfg(lattice=(2, 2, 2, 4))
@@ -209,7 +210,7 @@ def test_what_is_not_yet_ported_raises():
         CG.fused_masked_cg_update(rhs, rhs, rhs, rhs, torch.ones(2), torch.ones(2), cuda)
     tiled = TargetConfig("cuda", device="cpu",
                          plan_policy=LoweringPlan("cuda", vvl=32, bx=1, by=1, dtypes=bf16))
-    with pytest.raises(ValueError, match="tile composition is not yet ported"):
+    with pytest.raises(ValueError, match="CUDA device"):
         CG.make_fused_normal(u, cfg.kappa, tiled)(b)
     with pytest.raises(ValueError, match="tuned"):
         serve.main(["--solve", "--engine", "torch", "--device", "cpu", "--plan-policy", "tuned"])

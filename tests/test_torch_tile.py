@@ -5,9 +5,12 @@ and default_plan) against the JAX package's VMEM planner on the same
 inputs; the JAX package's tests/test_tile.py plan tests on the port;
 ``tiled_plain`` against the JAX package's interpret-mode tiled launch and
 against the port's own untiled torch engine (fields bitwise, sums to a
-tolerance, max exact); K9's wrapper on the CPU; and the cuda engine's
-refusals of tiled plans, which come before any device check and so need
-no card.
+tolerance, max exact), also under the block view, with a batch and split;
+the plain versions of K9 (in every layout and bf16) and of K5T (the tiled
+wilson_normal: single, batched; its walk), against the reference's tiled
+launches; a budgeted MILC solve on K5T's plain version against the
+reference's tiled solve; and the cuda engine's checks of tiled plans,
+which come before any device check and so need no card.
 """
 
 import dataclasses
@@ -40,7 +43,7 @@ from repro_torch.apps.ludwig import driver as PD  # noqa: E402
 from repro_torch.apps.milc import cg as PCG  # noqa: E402
 from repro_torch.core import Field, LaunchGraph, LoweringPlan, SOA, TargetConfig  # noqa: E402
 from repro_torch.core import plan as pplan  # noqa: E402
-from repro_torch.core.fuse import tiled_plain  # noqa: E402
+from repro_torch.core.fuse import register_cuda_graph, tiled_plain  # noqa: E402
 from repro_torch.core.stencil import tile_boxes  # noqa: E402
 from repro_torch.kernels.lb_propagation import kernel as K8  # noqa: E402
 from repro_torch.maths.d3q19 import CV as D3Q19_CV  # noqa: E402
@@ -445,6 +448,246 @@ def test_budgeted_step_on_torch_engine_matches_reference_tiled_step():
                                    atol=1e-7)
 
 
+# -- tests/test_tile.py's other launches: the block view, a batch, rsplit ------------
+
+def _ref_tile_g(x, lat, plan, jlay=J_SOA, batched=False):
+    """tests/test_tile.py's graph launched by the reference (interpret) on x
+    ((3,) + lat canonical, or (batch, 3) + lat): canonical z, zt, zm."""
+    from repro.core.field import BatchedField as JBatchedField
+
+    f = (JBatchedField.from_canonical("x", x, lat, jlay) if batched
+         else JField.from_numpy("x", x, lat, jlay))
+    out = _tile_g(JLaunchGraph).launch({"x": f}, config=PCFG, outputs=("z", "zt", "zm"),
+                                       plan=plan)
+    z = out["z"]
+    zc = (np.stack([np.asarray(z.element(b).to_numpy()) for b in range(x.shape[0])])
+          if batched else np.asarray(z.to_numpy()))
+    return {"z": zc, "zt": np.asarray(out["zt"]), "zm": np.asarray(out["zm"])}
+
+
+def _plain_tile_g(x, tile):
+    out = tiled_plain(_tile_g(LaunchGraph), {"x": torch.from_numpy(x)}, LAT, *tile,
+                      outputs=("z", "zt", "zm"))
+    return {o: v.numpy() for o, v in out.items()}
+
+
+def _untiled_tile_g(x, lay=SOA):
+    out = _tile_g(LaunchGraph).launch({"x": Field.from_numpy("x", x, LAT, lay)}, config=TORCH,
+                                      outputs=("z", "zt", "zm"))
+    return {"z": out["z"].canonical_nd().numpy(), "zt": out["zt"].numpy(),
+            "zm": out["zm"].numpy()}
+
+
+def test_tiled_block_view_matches_reference_and_untiled(rng):
+    """tests/test_tile.py's block-view case: the reference's tiled launch on
+    aosoa4 under view='block' (interpret) against tiled_plain (fields
+    bitwise on the port's own untiled aosoa4 launch); the cuda engine takes
+    the same tiled block plan on aosoa4 to its device check."""
+    from repro.core import aosoa as j_aosoa
+    from repro_torch.core import parse_layout
+
+    x = rng.normal(size=(3,) + LAT).astype(np.float32)
+    plan = JPlan("pallas", bx=2, by=2, bz=4, interpret=True, view="block")
+    want = _ref_tile_g(x, LAT, plan, j_aosoa(4))
+    got = _plain_tile_g(x, (2, 2, 4))
+    g = _tile_g(LaunchGraph)
+    _check(got, want, g, False)
+    _check(got, _untiled_tile_g(x, parse_layout("aosoa4")), g, True)
+    with pytest.raises(ValueError, match="no hand-written tiled kernel"):
+        g.launch({"x": Field.from_numpy("x", x, LAT, parse_layout("aosoa4"))},
+                 config=CUDA_ON_CPU, plan=convert.to_plan(plan.to_json()))
+
+
+def test_tiled_batched_matches_reference_and_untiled(rng):
+    """tests/test_tile.py's batched case: the reference's batched tiled
+    launch against tiled_plain slot by slot, and the port's untiled
+    batched launch on the torch engine (fields bitwise)."""
+    xs = rng.normal(size=(4, 3) + LAT).astype(np.float32)
+    want = _ref_tile_g(xs, LAT, JPlan("pallas", bx=2, by=2, bz=4, interpret=True), batched=True)
+    per = [_plain_tile_g(x, (2, 2, 4)) for x in xs]
+    got = {o: np.stack([r[o] for r in per]) for o in ("z", "zt", "zm")}
+    g = _tile_g(LaunchGraph)
+    _check(got, want, g, False)
+    from repro_torch.core import BatchedField
+
+    out = g.launch({"x": BatchedField.from_canonical("x", torch.from_numpy(xs), LAT, SOA)},
+                   config=TORCH, outputs=("z", "zt", "zm"))
+    untiled = {"z": np.stack([out["z"].element(b).canonical_nd().numpy() for b in range(4)]),
+               "zt": out["zt"].numpy(), "zm": out["zm"].numpy()}
+    _check(got, untiled, g, True)
+
+
+def test_tiled_composes_with_rsplit(rng):
+    """tests/test_tile.py's rsplit case: the reference's tiled launch split
+    in 2 against tiled_plain at bx 1 (sums to the tolerance)."""
+    x = rng.normal(size=(3,) + LAT).astype(np.float32)
+    want = _ref_tile_g(x, LAT, JPlan("pallas", bx=1, by=2, bz=4, rsplit=2, interpret=True))
+    got = _plain_tile_g(x, (1, 2, 4))
+    g = _tile_g(LaunchGraph)
+    _check(got, want, g, False)
+    _check(got, _untiled_tile_g(x), g, True)
+
+
+# -- K5T, the tiled wilson_normal, and K9 off SoA: their plain versions ------------
+
+MILC_LAT = (4, 4, 4, 8)
+K5T_TILES = [(1, 1, 1), (2, 2, 2), (4, 2, 0), (1, 0, 2), (2, 4, 4)]
+
+
+@pytest.mark.parametrize("tile", K5T_TILES, ids=str)
+def test_k5t_plain_matches_tiled_plain_and_reference(tile, rng):
+    """K5T's plain version (wilson_normal_tiled_plain) against tiled_plain
+    on the wilson_normal graph (fields bitwise, pap to the tolerance) and
+    the reference's tiled launch (interpret); its fields bitwise K5's plain
+    version; two slots each bitwise the single launch.  The CPU wrapper is
+    the plain version, launching nothing."""
+    from repro_torch.kernels.wilson_dslash import kernel as WK
+
+    arrs = _milc_arrays(rng, MILC_LAT)
+    p, u = (torch.from_numpy(arrs[n].reshape(arrs[n].shape[0], -1)) for n in ("p", "u"))
+    before = WK.WILSON_NORMAL_AP_TILED.launches
+    ap, pap = WK.wilson_normal_tiled_cuda(p, u, 0.12, MILC_LAT, tile)
+    assert WK.WILSON_NORMAL_AP_TILED.launches == before
+    g = PCG.wilson_normal_graph(0.12)
+    ext = pplan.tile_extents(MILC_LAT, *tile)[:3]
+    tp = tiled_plain(g, {n: torch.from_numpy(a) for n, a in arrs.items()}, MILC_LAT, *ext,
+                     outputs=("ap", "pap"))
+    _check({"ap": ap.numpy(), "pap": pap.numpy()},
+           {"ap": tp["ap"].reshape(24, -1).numpy(), "pap": tp["pap"].numpy()}, g, True)
+    k5_ap, _ = WK.wilson_normal_plain(p, u, 0.12, MILC_LAT)
+    assert torch.equal(ap, k5_ap)
+    jout = JCG.wilson_normal_graph(0.12).launch(
+        {n: JField.from_numpy(n, a, MILC_LAT) for n, a in arrs.items()}, config=PCFG,
+        outputs=("ap", "pap"), plan=JPlan("pallas", bx=ext[0], by=tile[1], bz=tile[2],
+                                          interpret=True))
+    _check({"ap": ap.numpy(), "pap": pap.numpy()},
+           {"ap": np.asarray(jout["ap"].to_numpy()).reshape(24, -1),
+            "pap": np.asarray(jout["pap"])}, g, False)
+    p2 = torch.stack([p, torch.flip(p, dims=(1,))])
+    ap2, pap2 = WK.wilson_normal_tiled_cuda(p2, u, 0.12, MILC_LAT, tile, batched=True)
+    for b in range(2):
+        one = WK.wilson_normal_tiled_cuda(p2[b], u, 0.12, MILC_LAT, tile)
+        assert torch.equal(ap2[b], one[0]) and torch.equal(pap2[b], one[1])
+    with pytest.raises(ValueError, match="does not divide"):
+        WK.wilson_normal_tiled_cuda(p, u, 0.12, MILC_LAT, (3, 1, 1))
+
+
+@pytest.mark.parametrize("tile", K5T_TILES + [(4, 4, 4)], ids=str)
+def test_k5t_walk_and_partial_rows(tile, rng):
+    """K5T's walk mirrored (normal_walk, rt_walk_site of
+    csrc/wilson_normal.cuh): every site once, the tiles in the reference's
+    grid order with t whole inside a tile; at a tile whose walk is the
+    linear order, the linear order.  pap folded as K5T folds it (a block's
+    partial row over NORMAL_TILED_BLOCK consecutive walk positions, the
+    rows in walk order) is the plain version's within the tolerance."""
+    from repro_torch.kernels.wilson_dslash import kernel as WK
+
+    X, Y, Z, T = MILC_LAT
+    V = X * Y * Z * T
+    site = WK.normal_walk(MILC_LAT, tile)
+    assert torch.equal(site.sort().values, torch.arange(V))
+    bx, by, bz = pplan.tile_extents(MILC_LAT, *tile)[:3]
+    x, y, z = site // (Y * Z * T), (site // (Z * T)) % Y, (site // T) % Z
+    t = ((x // bx) * (Y // by) + y // by) * (Z // bz) + z // bz
+    assert torch.equal(t, torch.arange(V) // (bx * by * bz * T))
+    if by * bz == 1 or (bx == 1 and bz == Z):
+        assert torch.equal(site, torch.arange(V))
+    arrs = _milc_arrays(rng, MILC_LAT)
+    p, u = (torch.from_numpy(arrs[n].reshape(arrs[n].shape[0], -1)) for n in ("p", "u"))
+    ap, pap = WK.wilson_normal_tiled_plain(p, u, 0.12, MILC_LAT, tile)
+    prod = (p * ap)[:, site]
+    rows = prod.reshape(24, -1, WK.NORMAL_TILED_BLOCK).sum(dim=2)
+    np.testing.assert_allclose(rows.sum(dim=1).numpy(), pap.numpy(), rtol=SUM_RTOL,
+                               atol=SUM_RTOL * (p * ap).abs().sum(dim=1).max().item())
+
+
+@pytest.mark.parametrize("spec", ["aos", "aosoa4", "aosoa16"])
+@pytest.mark.parametrize("bf16", [False, True], ids=["fp32", "bf16"])
+def test_k9_plain_in_every_layout_and_bf16(spec, bf16, rng):
+    """K9's plain version in a layout and under bf16 storage: bitwise the
+    untiled plain LB step in that layout and policy, and the SoA instance
+    repacked; against the reference's tiled launch on those fields
+    (interpret; under the bf16 policy in fp32 within one bf16 ulp)."""
+    from repro.core import DtypePolicy as JDtypePolicy
+    from repro.core import parse_layout as j_parse_layout
+    from repro_torch.core import parse_layout
+
+    lat, tile = (4, 14, 16), (2, 7, 4)
+    lay, jlay = parse_layout(spec), j_parse_layout(spec)
+    arrs = _lb_arrays(rng, lat)
+    d, f = (lay.pack(torch.from_numpy(arrs[n].reshape(arrs[n].shape[0], -1)))
+            for n in ("dist", "force"))
+    L = {"dist": lay, "force": lay, "dist2": lay, "u": lay}
+    got = K8.lb_step_tiled_cuda(d, f, 0.8, lat, tile, layouts=L, bf16=bf16)
+    want = K8.lb_step_plain(d, f, 0.8, lat, layouts=L, bf16=bf16)
+    soa = K8.lb_step_tiled_cuda(lay.unpack(d), lay.unpack(f), 0.8, lat, tile, bf16=bf16)
+    for gt, w, s in zip(got, want, soa):
+        assert gt.dtype == (torch.bfloat16 if bf16 else torch.float32)
+        assert torch.equal(gt, w) and torch.equal(gt, lay.pack(s))
+    pol = (JDtypePolicy(storage="bfloat16", compute="float32", accumulate="float64") if bf16
+           else None)
+    jg = JD.lb_step_graph(JLudwigConfig())
+    jout = jg.launch({n: JField.from_numpy(n, a, lat, jlay) for n, a in arrs.items()},
+                     config=dataclasses.replace(PCFG, dtypes=pol), outputs=("dist2", "u"),
+                     plan=JPlan("pallas", bx=2, by=7, bz=4, interpret=True, dtypes=pol))
+    for o, gt in zip(("dist2", "u"), got):
+        w = np.asarray(jout[o].to_numpy()).astype(np.float32)
+        g_ = lay.unpack(gt).float().numpy().reshape(w.shape)
+        if bf16:
+            ulp = np.abs(w).astype(np.float32).view(np.int32) & 0x7F800000
+            ulp = ulp.view(np.float32) * 2.0 ** -7
+            assert (np.abs(g_ - w) <= ulp + 1e-30).all(), o
+        else:
+            np.testing.assert_allclose(g_, w, rtol=FIELD_RTOL, atol=FIELD_RTOL * np.abs(w).max())
+
+
+def test_budgeted_solve_on_k5t_plain_matches_reference_tiled_solve():
+    """The MILC slice on the CPU: the reference's solve under a VMEM budget
+    (its wilson_normal launches tiled, interpret) against the port's solve
+    whose operator is K5T's plain version on the tile the port's planner
+    picks from the same budget: the same plan (describe()), iterations
+    within 1, x within rel-L2 1e-5; and the port's untiled solve likewise."""
+    from repro.apps.milc import MilcConfig as JMilcConfig
+    from repro.apps.milc import init_problem as j_init
+    from repro.apps.milc import solve as j_solve
+    from repro_torch.apps.milc import MilcConfig, init_problem, solve
+    from repro_torch.core.reduce import fold_components
+    from repro_torch.kernels.wilson_dslash import kernel as WK
+
+    lat, budget = MILC_LAT, H100_BUDGET
+    kw = dict(lattice=lat, kappa=0.12, tol=1e-10, max_iter=500)
+    jcfg = JMilcConfig(target=dataclasses.replace(PCFG, vmem_bytes=budget), **kw)
+    cfg = MilcConfig(target=TORCH, **kw)
+    n = math.prod(lat)
+    jplan_ = jplan.default_plan(jcfg.target, nsites=n, layouts=[J_SOA], stencil=True,
+                                lattice=lat, vmem_views=MILC_VIEWS)
+    plan = pplan.default_plan(TargetConfig("cuda", device="cpu", smem_bytes=budget), nsites=n,
+                              layouts=[SOA], stencil=True, lattice=lat, smem_views=MILC_VIEWS)
+    assert plan.tiled
+    assert plan.describe() == convert.to_plan(jplan_.to_json()).describe() == \
+        jplan_.describe().replace("pallas/", "cuda/").replace("/interpret", "")
+    ju, jb = j_init(jcfg, seed=0)
+    jres = j_solve(jcfg, ju, jb)
+    u, b = init_problem(cfg, seed=0)
+    _, apply_mdag, apply_normal = PCG.make_wilson_op(u, cfg.kappa, cfg.target)
+    tile = (plan.bx, plan.by, plan.bz)
+    ud = u.data
+
+    def k5t(pf):
+        ap, pap = WK.wilson_normal_tiled_cuda(pf.data, ud, cfg.kappa, lat, tile)
+        return pf.with_data(ap), fold_components(pap)
+
+    res = PCG.cg(apply_normal, apply_mdag(b), config=TORCH, tol=cfg.tol, max_iter=cfg.max_iter,
+                 apply_a_dot=k5t)
+    untiled = solve(cfg, u, b)
+    jx = np.asarray(jres.x.to_numpy()).reshape(24, -1)
+    for r in (res, untiled):
+        assert abs(r.iterations - int(jres.iterations)) <= 1
+        x = r.x.canonical().numpy()
+        assert np.linalg.norm(x - jx) / np.linalg.norm(jx) <= 1e-5
+    assert abs(res.iterations - untiled.iterations) <= 1
+
+
 # -- the cuda engine's refusals of tiled plans (no card needed) ---------------------
 
 def test_cuda_engine_refuses_unregistered_tiled_graphs(rng):
@@ -456,9 +699,9 @@ def test_cuda_engine_refuses_unregistered_tiled_graphs(rng):
     lat = (4, 4, 4, 8)
     arrs = _milc_arrays(rng, lat)
     p, u = (Field.from_numpy(n, arrs[n], lat) for n in ("p", "u"))
-    # wilson_normal keeps the whole t axis and a ring of 2 in every window, so
-    # even a small lattice's window is over the limit before the registry is asked
-    with pytest.raises(ValueError, match="wilson_normal.*exceed the shared memory"):
+    # wilson_normal's tiled kernel (K5T) stages no window: its launch passes
+    # the plan checks and then refuses the CPU tensors
+    with pytest.raises(ValueError, match="CUDA device"):
         PCG.wilson_normal_graph(0.12).launch({"p": p, "u": u}, config=CUDA_ON_CPU,
                                              outputs=("ap", "pap"), plan=plan)
     # a registered graph under a tiled plan passes both checks and then
@@ -468,24 +711,36 @@ def test_cuda_engine_refuses_unregistered_tiled_graphs(rng):
         collide_propagate(d, f, tau=0.8, config=CUDA_ON_CPU, plan=plan)
 
 
+def _staging_probe(v, gather):
+    return {"z": gather("x", (1, 0, 0))}
+
+
 def test_cuda_engine_refuses_windows_over_the_block_limit():
-    """The MILC instance at (64, 64, 64, 32): the H100 budget's finest tile
-    needs 15x the shared memory a block may hold.  Meta tensors: the plan
-    checks need shapes only."""
+    """The MILC instance at (64, 64, 64, 32): the H100 budget's finest tile,
+    whose reference window is 15x the shared memory a block may hold, runs
+    K5T, which stages none; so does an LB tile whose window is over the
+    limit (K9).  A tiled kernel that stages more than a block may hold is
+    refused.  Meta tensors: the plan checks need shapes only."""
     lat = (64, 64, 64, 32)
     n = math.prod(lat)
     p, u = (Field(name, nc, lat, SOA, torch.empty((nc, n), device="meta"))
             for name, nc in (("p", 24), ("u", 72)))
     budget = TargetConfig("cuda", device="cpu", smem_bytes=H100_BUDGET)
-    with pytest.raises(ValueError, match=r"cuda/bx=1/ty1/tz1.*3456000 B.*limit is 232448 B"):
+    with pytest.raises(ValueError, match="CUDA device"):
         PCG.make_fused_normal(u, 0.12, budget)(p)
-    # an explicit LB tile whose window is over the limit, on a registered graph
+    assert pplan.estimate_smem_bytes(LoweringPlan("cuda", bx=1, by=1, bz=1), lattice=lat,
+                                     in_views=MILC_VIEWS[0]) == 3456000
     lat = (4, 64, 64)
     d, f = (Field(name, nc, lat, SOA, torch.empty((nc, math.prod(lat)), device="meta"))
             for name, nc in (("dist", 19), ("force", 3)))
-    with pytest.raises(ValueError, match="exceed the shared memory"):
-        collide_propagate(d, f, tau=0.8, config=CUDA_ON_CPU,
-                          plan=LoweringPlan("cuda", bx=4, by=32, bz=0))
-    # the budget's own tile passes the plan checks
-    with pytest.raises(ValueError, match="CUDA device"):
-        collide_propagate(d, f, tau=0.8, config=budget)
+    for plan in (LoweringPlan("cuda", bx=4, by=32, bz=0), None):
+        with pytest.raises(ValueError, match="CUDA device"):
+            collide_propagate(d, f, tau=0.8, config=budget if plan is None else CUDA_ON_CPU,
+                              plan=plan)
+    # the gate: a tiled kernel registered as staging more than a block may hold
+    g = LaunchGraph("staging_probe").add_stencil(_staging_probe, {"x": "x"}, {"z": 3})
+    register_cuda_graph(g, None, ("z",), tiled=lambda *a, **k: None,
+                        tiled_smem=pplan.SMEM_PER_BLOCK_OPTIN + 4)
+    x = Field("x", 3, lat, SOA, torch.empty((3, math.prod(lat)), device="meta"))
+    with pytest.raises(ValueError, match=r"stages 232452 B a block, which exceeds"):
+        g.launch({"x": x}, config=CUDA_ON_CPU, plan=LoweringPlan("cuda", bx=1, by=4))

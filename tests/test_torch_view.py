@@ -133,10 +133,23 @@ def test_describe_json_validate_and_adapt_mirror_the_reference():
                                                  layouts=[JL.aosoa(4)])
     PP.LoweringPlan("cuda", vvl=32, bx=2, view="block").validate(
         stencil=True, lattice=LAT, layouts=[parse_layout("aosoa4")])
-    # a tiled block plan: tiles on AoSoA are still to be ported
-    with pytest.raises(ValueError, match="item 17"):
-        PP.LoweringPlan("cuda", bx=2, by=2, view="block").validate(
-            stencil=True, lattice=LAT, layouts=[parse_layout("aosoa4")])
+    # a tiled block plan passes the plan checks as the reference's does; its
+    # launch on AoSoA fields then refuses CPU tensors, and one with no AoSoA
+    # input is refused as the reference refuses it
+    tiled = PP.LoweringPlan("cuda", bx=2, by=2, view="block")
+    tiled.validate(stencil=True, lattice=LAT, layouts=[parse_layout("aosoa4")])
+    JPlan("pallas", bx=2, by=2, view="block").validate(stencil=True, lattice=LAT,
+                                                       layouts=[JL.aosoa(4)])
+    rng = np.random.default_rng(0)
+    cuda = TargetConfig("cuda", device="cpu")
+    for spec, match in (("aosoa4", "CUDA device"), ("soa", "no input layout of this launch")):
+        ins = {n: Field.from_numpy(n, rng.normal(size=(nc,) + LAT).astype(np.float32), LAT,
+                                   parse_layout(spec))
+               for n, nc in (("dist", 19), ("force", 3))}
+        with pytest.raises(ValueError, match=match):
+            collide_propagate_graph(0.8).launch(
+                ins, config=cuda, outputs=("dist2",), plan=tiled,
+                out_layouts={"dist2": parse_layout("aosoa4")})
     # adapt_plan's view resolution
     for view in ("auto", "block", "staged-nd"):
         for stencil in (False, True):
