@@ -26,13 +26,17 @@ T4. (after RS1) the solve of phase 4 under ``TargetConfig(smem_bytes=227 *
    |M x - b| / |b| < 1e-3; K5T's t and ap bitwise K5's on phase 3's
    inputs, pap within rtol 1e-6 of its plain version and bitwise on a
    rerun (bitwise K5's logged), timed beside K5, its bound and the
-   two-launch floor;
+   two-launch floor; the same checks at the explicit tile K5T_WALK_TILE,
+   whose walk is not the identity;
 T5. under the same budget: ``solve_batched`` on S2's four sources (K5T
    batched, each slot bitwise the budgeted solve of its source) and the
-   refined solve (K5T's policy instance), each counted; K5T batched (4
-   slots, each bitwise its single launch) and its policy instance (ap
-   bitwise K5's policy instance) against their plain versions, timed
-   beside K5B and K5's policy instance;
+   refined solve (K5T's policy instance), each counted, the refined solve
+   within 1 iteration and rel-L2 1e-5 of P2's untiled one (bitwise
+   logged); K5T batched (4 slots, each bitwise its single launch) and its
+   policy instance (ap bitwise K5's policy instance) against their plain
+   versions, timed beside K5B and K5's policy instance; at K5T_WALK_TILE
+   each batched slot bitwise its single launch and K5's, and the policy
+   ap bitwise K5's policy instance;
 3. hold every MILC kernel against its plain PyTorch version on the card at
    that lattice and time both (CUDA events, median of several runs); K2's
    sum and fold also bitwise their tree emulation (core/reduce.py's
@@ -589,6 +593,7 @@ TILED_LAYOUT_PATH = {
     "lb_step_tiled_bf16": ([k8.LB_STEP_TILED_BF16], "lb_tiled.cu", "src/repro/core/fuse.py:1804"),
 }
 # K5T (T4: the budgeted solve; T5: the budgeted serving and refined solves)
+K5T_WALK_TILE = (2, 4, 8)   # T4/T5 also run K5T here: at the budget's tile the walk is linear
 NORMAL_TILED_PATH = {
     "wilson_normal_tiled": ([wk.WILSON_NORMAL_T_TILED, wk.WILSON_NORMAL_AP_TILED],
                             "wilson_normal.cu", "src/repro/core/fuse.py:1804"),
@@ -1660,20 +1665,27 @@ def check_tiled_normal(cfg, u, b, x_soa, iterations, solve_s, vvl):
     del res
     inp = milc_inputs(u, b, vvl)
     p, uu = inp["p"], inp["u"]
-    exact_err(normal_t_launch(wk.WILSON_NORMAL_T_TILED, p, uu, lat, tile),
-              normal_t_launch(wk.WILSON_NORMAL_T, p, uu, lat), "T4: K5T's t against K5's")
-    ap, pap = wk.wilson_normal_tiled_cuda(p, uu, KAPPA, lat, tile)
+    t5 = normal_t_launch(wk.WILSON_NORMAL_T, p, uu, lat)
     ap5, pap5 = wk.wilson_normal_cuda(p, uu, KAPPA, lat, vvl)
-    exact_err(ap, ap5, "T4: K5T's ap against K5's")
-    want_ap, want = wk.wilson_normal_tiled_plain(p, uu, KAPPA, lat, tile)
-    err = max(field_err(ap, want_ap, "T4: K5T's ap against its plain version"),
-              sum_err(pap, want, p * want_ap, "T4: K5T's pap against its plain version"))
-    if not torch.allclose(pap, want, rtol=1e-6, atol=0.0):
-        raise AssertionError(f"T4: K5T's pap beyond rtol 1e-6 of its plain version: "
-                             f"{(pap - want).abs().max().item()}")
-    exact_err(wk.wilson_normal_tiled_cuda(p, uu, KAPPA, lat, tile)[1], pap,
-              "T4: K5T's pap on a rerun")
-    pap_bits = bool(torch.equal(pap, pap5))
+    err = 0.0
+    for tl in (tile, K5T_WALK_TILE):
+        what = f"T4: K5T at tile {tl}"
+        exact_err(normal_t_launch(wk.WILSON_NORMAL_T_TILED, p, uu, lat, tl), t5,
+                  f"{what}: t against K5's")
+        ap, pap = wk.wilson_normal_tiled_cuda(p, uu, KAPPA, lat, tl)
+        exact_err(ap, ap5, f"{what}: ap against K5's")
+        want_ap, want = wk.wilson_normal_tiled_plain(p, uu, KAPPA, lat, tl)
+        err = max(err, field_err(ap, want_ap, f"{what}: ap against its plain version"),
+                  sum_err(pap, want, p * want_ap, f"{what}: pap against its plain version"))
+        if not torch.allclose(pap, want, rtol=1e-6, atol=0.0):
+            raise AssertionError(f"{what}: pap beyond rtol 1e-6 of its plain version: "
+                                 f"{(pap - want).abs().max().item()}")
+        exact_err(wk.wilson_normal_tiled_cuda(p, uu, KAPPA, lat, tl)[1], pap,
+                  f"{what}: pap on a rerun")
+        if tl == tile:
+            pap_bits = bool(torch.equal(pap, pap5))
+    log(f"  K5T at tile {K5T_WALK_TILE}: t and ap bitwise K5's, pap within rtol 1e-6 of its "
+        f"plain version and bitwise on a rerun")
     ms = time_ms(lambda: wk.wilson_normal_tiled_cuda(p, uu, KAPPA, lat, tile))
     k5_ms = time_ms(lambda: wk.wilson_normal_cuda(p, uu, KAPPA, lat, vvl))
     plain_ms = time_ms(lambda: wk.wilson_normal_tiled_plain(p, uu, KAPPA, lat, tile), reps=3,
@@ -1686,18 +1698,19 @@ def check_tiled_normal(cfg, u, b, x_soa, iterations, solve_s, vvl):
         f"K5 {k5_ms:.4f} ms, the bound {rows['wilson_normal_tiled']['bound_ms']:.4f} ms and "
         f"the two-launch floor {floor:.4f} ms")
     summary.update(k5t_ms=ms, k5_ms=k5_ms, floor_ms=floor, pap_bitwise_k5=pap_bits)
-    del inp, p, uu, ap, ap5, want_ap, want
+    del inp, p, uu, t5, ap, pap, ap5, want_ap, want
     torch.cuda.empty_cache()
     return rows, counts, summary, tile
 
 
-def check_tiled_normal_serving(cfg, u, b, tile, vvl, seed):
+def check_tiled_normal_serving(cfg, u, b, tile, vvl, seed, refined):
     """T5: under the 227 KiB budget, solve_batched on S2's four sources (K5T
     batched, each slot bitwise the budgeted solve of its source) and the
-    refined solve (K5T's policy instance), each counted; K5T batched (4
-    slots) and its policy instance timed beside K5B and K5's policy
-    instance on phase 3's inputs.  Returns (rows, {row: launches},
-    summary)."""
+    refined solve (K5T's policy instance), each counted, the refined solve
+    held against ``refined`` (P2's untiled refined solve: iterations, x on
+    the host); K5T batched (4 slots) and its policy instance timed beside
+    K5B and K5's policy instance on phase 3's inputs, and checked again at
+    K5T_WALK_TILE.  Returns (rows, {row: launches}, summary)."""
     lat = cfg.lattice
     V = math.prod(lat)
     bcfg = dataclasses.replace(cfg, target=dataclasses.replace(cfg.target,
@@ -1723,15 +1736,23 @@ def check_tiled_normal_serving(cfg, u, b, tile, vvl, seed):
     counts["wilson_normal_tiled_policy"] = path_counts(
         NORMAL_TILED_POLICY_PATH)["wilson_normal_tiled_policy"]
     rc = residual_check(cfg, u, b, res.x)
+    its_p2, x_p2 = refined
+    x_p2 = x_p2.to(res.x.data.device)
+    rel = (torch.linalg.norm(res.x.data - x_p2) / torch.linalg.norm(x_p2)).item()
+    bits = bool(torch.equal(res.x.data, x_p2))
     log(f"T5: refined solve {lat} (bf16 storage) under the budget: {res.iterations} inner "
-        f"iterations, {rdt:.3f} s, |Mx-b|/|b| = {rc:.3e}; K5T policy launches "
+        f"iterations (P2 untiled: {its_p2}), {rdt:.3f} s, |Mx-b|/|b| = {rc:.3e}, x rel-L2 "
+        f"{rel:.3e} from P2's (bitwise: {bits}); K5T policy launches "
         f"{counts['wilson_normal_tiled_policy']}, K5 policy {wk.WILSON_NORMAL_AP_MIXED.launches}")
     if not rc < 1e-3 or not counts["wilson_normal_tiled_policy"] or \
             wk.WILSON_NORMAL_AP_MIXED.launches:
         raise AssertionError("T5: the budgeted refined solve is off or missed K5T's policy "
                              "instance")
-    summary.update(refined_iterations=res.iterations, refined_s=rdt, refined_residual=rc)
-    del res
+    if abs(res.iterations - its_p2) > 1 or not rel <= 1e-5:
+        raise AssertionError("T5: the budgeted refined solve is off P2's untiled one")
+    summary.update(refined_iterations=res.iterations, refined_s=rdt, refined_residual=rc,
+                   refined_x_rel_p2=rel, refined_x_bitwise_p2=bits)
+    del res, x_p2
     inp = batch_inputs(lat, SOA)
     rows = {}
     pb, uu = inp["p"], u.data
@@ -1751,7 +1772,15 @@ def check_tiled_normal_serving(cfg, u, b, tile, vvl, seed):
     nb = pb.shape[0]
     add_row(rows, "wilson_normal_tiled_batched", err, ms, plain_ms, (192 * nb + 288) * V,
             NORMAL_FLOPS * nb * V)
-    del ap, pap, want_ap, want
+    ap, pap = wk.wilson_normal_tiled_cuda(pb, uu, KAPPA, lat, K5T_WALK_TILE, batched=True)
+    for s_ in range(nb):
+        what = f"T5: K5T batched at tile {K5T_WALK_TILE}, slot {s_}"
+        one = wk.wilson_normal_tiled_cuda(pb[s_], uu, KAPPA, lat, K5T_WALK_TILE)
+        exact_err(ap[s_], one[0], f"{what}: ap against its single launch")
+        exact_err(pap[s_], one[1], f"{what}: pap against its single launch")
+        exact_err(one[0], wk.wilson_normal_cuda(pb[s_], uu, KAPPA, lat, vvl)[0],
+                  f"{what}: ap against K5's")
+    del ap, pap, one, want_ap, want
     pol = CudaPolicy(True, True)
     p1 = pb[0].contiguous()
     u16 = wk.bf16_pack_cuda(uu)
@@ -1762,6 +1791,13 @@ def check_tiled_normal_serving(cfg, u, b, tile, vvl, seed):
     err_m = max(bf16_err(ap_m, want_ap, "T5: K5T policy ap against its plain version"),
                 sum_err(pap_m, want, wk.bf16_round(p1) * want_ap.float(),
                         "T5: K5T policy pap against plain"))
+    # the compensated pap's plain version takes no tile: the same want holds
+    apx_m, papx_m = wk.wilson_normal_tiled_cuda(p1, u16, KAPPA, lat, K5T_WALK_TILE, policy=pol)
+    exact_err(apx_m.float(), ap5_m.float(),
+              f"T5: K5T policy at tile {K5T_WALK_TILE}: ap against K5's policy instance")
+    err_m = max(err_m, sum_err(papx_m, want, wk.bf16_round(p1) * want_ap.float(),
+                               f"T5: K5T policy at tile {K5T_WALK_TILE}: pap against plain"))
+    del apx_m, papx_m
     ms_m = time_ms(lambda: wk.wilson_normal_tiled_cuda(p1, u16, KAPPA, lat, tile, policy=pol))
     k5m_ms = time_ms(lambda: wk.wilson_normal_cuda(p1, u16, KAPPA, lat, vvl, policy=pol))
     plain_m = time_ms(lambda: wk.wilson_normal_tiled_plain(p1, uu, KAPPA, lat, tile, policy=pol),
@@ -3865,7 +3901,8 @@ def mixed_solve(cfg, u, b, x_full, iterations, full_s):
     """P2: the refined solve (storage bfloat16) on phase 2's u and b, with
     every count set to 0: |Mx - b|/|b| < 1e-3, x within MIXED_REL_X of
     phase 4's x, every kernel of MIXED_PATH and the policy-free
-    wilson_normal (the restarts' true residual) launched."""
+    wilson_normal (the restarts' true residual) launched.  Returns
+    (summary, counts, x on the host), x for T5's budgeted refined solve."""
     mcfg = dataclasses.replace(cfg, storage="bfloat16")
     reset_counts()
     res, dt = solve_timed(mcfg, u, b)
@@ -3888,9 +3925,10 @@ def mixed_solve(cfg, u, b, x_full, iterations, full_s):
         raise AssertionError(f"P2: kernels of the refined path never launched: {idle}")
     summary = dict(iterations=res.iterations, restarts=restarts, s=dt, full_iterations=iterations,
                    full_s=full_s, residual_check=rc, x_rel=rel)
+    x = res.x.data.cpu()
     del res
     torch.cuda.empty_cache()
-    return summary, counts
+    return summary, counts, x
 
 
 def mixed_serving(su, small, seed):
@@ -4507,7 +4545,7 @@ def main():
     log(f"P1: the policy instances at {lattice}, vvl {vvl}:")
     mrows, mextra = check_mixed_milc(u, b, lattice, vvl)
     # P2. the refined solve, counted
-    p2, p2counts = mixed_solve(cfg, u, b, x_soa, iterations, solve_s)
+    p2, p2counts, x_p2 = mixed_solve(cfg, u, b, x_soa, iterations, solve_s)
     # P3. refined serving at --small, counted
     p3, p3counts = mixed_serving(su, small, args.seed)
     del su
@@ -4581,7 +4619,9 @@ def main():
     # serving and refined solves, counted
     t1 = time.perf_counter()
     nrows, ncounts, t4, k5t_tile = check_tiled_normal(cfg, u, b, x_soa, iterations, solve_s, vvl)
-    nsrows, nscounts, t5 = check_tiled_normal_serving(cfg, u, b, k5t_tile, vvl, args.seed)
+    nsrows, nscounts, t5 = check_tiled_normal_serving(cfg, u, b, k5t_tile, vvl, args.seed,
+                                                      (p2["iterations"], x_p2))
+    del x_p2
     log(f"T4, T5: {time.perf_counter() - t1:.1f} s")
     del u, b, x_soa
     torch.cuda.empty_cache()

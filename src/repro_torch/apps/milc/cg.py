@@ -620,7 +620,7 @@ register_cuda_graph(cg_update_graph(24), _cg_update_cuda, ("x_new", "r_new", "rr
 register_cuda_graph(cg_xpay_graph(24), _cg_xpay_cuda, ("out",))
 register_cuda_graph(wilson_normal_graph(0.0), _wilson_normal_cuda, ("ap", "pap"),
                     batched=_wilson_normal_batched_cuda, policy=True,
-                    tiled=_wilson_normal_tiled_cuda, tiled_batched=_wilson_normal_tiled_cuda)
+                    tiled=_wilson_normal_tiled_cuda, tiled_batch=True)
 register_cuda_graph(masked_cg_update_graph(24), None, ("x_new", "r_new", "rr"),
                     batched=_cg_update_masked_cuda)
 register_cuda_graph(masked_xpay_graph(24), None, ("out",), batched=_cg_xpay_masked_cuda)

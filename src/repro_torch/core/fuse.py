@@ -36,9 +36,8 @@ Engines:
              them from the graph.  A tiled plan (by or bz set, see
              ``core.plan``) runs the graph's registered tiled kernel
              instead (K9, K5T: they walk the tiles in the reference's
-             order, in every layout), and raises when there is none or
-             when the shared memory it stages a block exceeds what one
-             block may hold: it never falls back to the untiled kernel or
+             order, in every layout, and stage no window), and raises when
+             there is none: it never falls back to the untiled kernel or
              to torch ops.  A batched launch runs the graph's registered
              batched kernel (the slot a grid axis), under a tiled plan its
              tiled batched kernel, and raises when there is none.
@@ -98,8 +97,8 @@ import torch
 from .._cuda import Kernel, check_field, check_tensor
 from .field import BatchedField, Field
 from .layout import Layout, LayoutKind, resolve_layouts
-from .plan import (SMEM_PER_BLOCK_OPTIN, VIEW_BLOCK, DtypePolicy, LoweringPlan, adapt_plan,
-                   cuda_policy, default_plan, launch_policy, policy_plan, resolve_accumulate)
+from .plan import (VIEW_BLOCK, DtypePolicy, LoweringPlan, adapt_plan, cuda_policy, default_plan,
+                   launch_policy, policy_plan, resolve_accumulate)
 from .reduce import compensated_plain, fold_partials, fold_partials_batched
 from .stencil import halo_pad, tile_boxes
 from .target import (TargetConfig, TargetKernel, batch_operand, operand_shape, operand_slot,
@@ -310,8 +309,7 @@ class _CudaEntry(NamedTuple):
     tiled: Optional[Callable]       # the tiled kernel
     batched: Optional[Callable]     # the batch instance
     policy: bool                    # every kernel of the entry takes a DtypePolicy
-    tiled_batched: Optional[Callable]   # the tiled kernel's batch instance
-    tiled_smem: int                 # shared memory the tiled kernels stage a block
+    tiled_batch: bool               # the tiled kernel has a batch instance
 
 
 # LaunchGraph.structure() -> its kernels
@@ -323,15 +321,14 @@ def register_cuda_graph(graph: "LaunchGraph", impl: Optional[Callable],
                         tiled: Optional[Callable] = None,
                         batched: Optional[Callable] = None,
                         policy: bool = False,
-                        tiled_batched: Optional[Callable] = None,
-                        tiled_smem: int = 0) -> None:
+                        tiled_batch: bool = False) -> None:
     """Run ``impl(graph, ins, scalars, lattice=, vvl=, out_layouts=)`` for
     every graph of ``graph``'s structure on the cuda engine,
     ``tiled(graph, ins, scalars, lattice=, plan=, out_layouts=)`` under a
-    tiled plan, ``batched(graph, ins, scalars, lattice=, vvl=,
-    out_layouts=, batch=, in_batched=)`` for a batched launch and
-    ``tiled_batched(graph, ins, scalars, lattice=, plan=, out_layouts=,
-    batch=, in_batched=)`` for a batched launch under a tiled plan.
+    tiled plan and ``batched(graph, ins, scalars, lattice=, vvl=,
+    out_layouts=, batch=, in_batched=)`` for a batched launch; with
+    ``tiled_batch`` set, ``tiled`` also takes ``batch=, in_batched=`` for
+    a batched launch under a tiled plan.
     ``ins`` maps value names to (physical tensor, Layout), ``scalars`` to
     0-d device tensors (``(batch,)`` ones when batched), ``out_layouts``
     each requested field output to its Layout, ``in_batched`` each input to
@@ -344,12 +341,9 @@ def register_cuda_graph(graph: "LaunchGraph", impl: Optional[Callable],
     ``core.plan.CudaPolicy``) under a non-empty DtypePolicy; the launch
     raises for a policy on any other graph.  The kernels of a graph with a
     terminal reduction also take ``rsplit=`` (the plan's split factor),
-    which their partial folds take.  ``tiled_smem``: the shared memory, in
-    bytes, the tiled kernels stage a block (the window the reference DMAs,
-    where a kernel stages one); a tiled launch raises where it exceeds
-    what one block may opt in to."""
+    which their partial folds take."""
     _CUDA_GRAPHS[graph.structure()] = _CudaEntry(impl, tuple(outputs), tiled, batched, policy,
-                                                 tiled_batched, int(tiled_smem))
+                                                 bool(tiled_batch))
 
 
 def _slot_scalar(v, b: int):
@@ -884,25 +878,15 @@ class LaunchGraph:
                     out_layouts=out_layouts, **kw, **pkw)
 
     def _tiled_entry(self, entry, plan, lattice, batch):
-        """(tiled impl, outputs) for a tiled plan (its batch instance for a
-        batched launch), after the plan-time checks: the graph must have
-        that kernel, and the shared memory it stages a block must fit what
-        one block may opt in to."""
-        what = (f"tiled plan {plan.describe()} on lattice {tuple(lattice)} (the limit "
-                f"is {SMEM_PER_BLOCK_OPTIN} B of shared memory a block)")
-        impl = None if entry is None else (entry.tiled_batched if batch else entry.tiled)
-        if impl is None:
+        """(tiled impl, outputs) for a tiled plan, batched or not; raises
+        where the graph has no such kernel."""
+        if entry is None or entry.tiled is None or (batch and not entry.tiled_batch):
             kind = "tiled batched" if batch else "tiled"
             raise ValueError(
                 f"cuda engine: no hand-written {kind} kernel is registered for graph "
-                f"{self.name!r} under {what}; its tiled lowering is still to be "
-                f"ported (ROADMAP queue 2)")
-        if entry.tiled_smem > SMEM_PER_BLOCK_OPTIN:
-            raise ValueError(
-                f"cuda engine: graph {self.name!r} under {what}: its tiled kernel "
-                f"stages {entry.tiled_smem} B a block, which exceeds the shared memory "
-                f"one block may opt in to on the H100")
-        return impl, entry.outputs
+                f"{self.name!r} under tiled plan {plan.describe()} on lattice "
+                f"{tuple(lattice)}; its tiled lowering is still to be ported (ROADMAP queue 2)")
+        return entry.tiled, entry.outputs
 
     def _run_stages(self, values: Dict[str, torch.Tensor]) -> Tuple[
             Dict[str, torch.Tensor], Dict[str, torch.Tensor]]:

@@ -43,7 +43,7 @@ from repro_torch.apps.ludwig import driver as PD  # noqa: E402
 from repro_torch.apps.milc import cg as PCG  # noqa: E402
 from repro_torch.core import Field, LaunchGraph, LoweringPlan, SOA, TargetConfig  # noqa: E402
 from repro_torch.core import plan as pplan  # noqa: E402
-from repro_torch.core.fuse import register_cuda_graph, tiled_plain  # noqa: E402
+from repro_torch.core.fuse import tiled_plain  # noqa: E402
 from repro_torch.core.stencil import tile_boxes  # noqa: E402
 from repro_torch.kernels.lb_propagation import kernel as K8  # noqa: E402
 from repro_torch.maths.d3q19 import CV as D3Q19_CV  # noqa: E402
@@ -694,7 +694,7 @@ def test_cuda_engine_refuses_unregistered_tiled_graphs(rng):
     x = Field.from_numpy("x", rng.normal(size=(3,) + LAT).astype(np.float32), LAT)
     plan = LoweringPlan("cuda", bx=2, by=2, bz=4)
     with pytest.raises(ValueError, match=r"no hand-written tiled kernel.*cuda/bx=2/ty2/tz4.*"
-                                         r"232448 B.*ROADMAP"):
+                                         r"ROADMAP"):
         _tile_g(LaunchGraph).launch({"x": x}, config=CUDA_ON_CPU, plan=plan)
     lat = (4, 4, 4, 8)
     arrs = _milc_arrays(rng, lat)
@@ -711,16 +711,11 @@ def test_cuda_engine_refuses_unregistered_tiled_graphs(rng):
         collide_propagate(d, f, tau=0.8, config=CUDA_ON_CPU, plan=plan)
 
 
-def _staging_probe(v, gather):
-    return {"z": gather("x", (1, 0, 0))}
-
-
 def test_cuda_engine_refuses_windows_over_the_block_limit():
     """The MILC instance at (64, 64, 64, 32): the H100 budget's finest tile,
     whose reference window is 15x the shared memory a block may hold, runs
     K5T, which stages none; so does an LB tile whose window is over the
-    limit (K9).  A tiled kernel that stages more than a block may hold is
-    refused.  Meta tensors: the plan checks need shapes only."""
+    limit (K9).  Meta tensors: the plan checks need shapes only."""
     lat = (64, 64, 64, 32)
     n = math.prod(lat)
     p, u = (Field(name, nc, lat, SOA, torch.empty((nc, n), device="meta"))
@@ -737,10 +732,3 @@ def test_cuda_engine_refuses_windows_over_the_block_limit():
         with pytest.raises(ValueError, match="CUDA device"):
             collide_propagate(d, f, tau=0.8, config=budget if plan is None else CUDA_ON_CPU,
                               plan=plan)
-    # the gate: a tiled kernel registered as staging more than a block may hold
-    g = LaunchGraph("staging_probe").add_stencil(_staging_probe, {"x": "x"}, {"z": 3})
-    register_cuda_graph(g, None, ("z",), tiled=lambda *a, **k: None,
-                        tiled_smem=pplan.SMEM_PER_BLOCK_OPTIN + 4)
-    x = Field("x", 3, lat, SOA, torch.empty((3, math.prod(lat)), device="meta"))
-    with pytest.raises(ValueError, match=r"stages 232452 B a block, which exceeds"):
-        g.launch({"x": x}, config=CUDA_ON_CPU, plan=LoweringPlan("cuda", bx=1, by=4))
