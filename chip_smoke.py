@@ -1,6 +1,7 @@
 """Drive the PyTorch/CUDA port on one GPU: the MILC Wilson-CG solve and its
-batched serving, both also in mixed precision and under a shared-memory
-budget, the Ludwig LC-LB timestep, untiled, under a shared-memory budget,
+batched serving, both also in mixed precision, under a shared-memory budget
+and under the plan autotuner's winners, the flat chains' policy instances, the
+Ludwig LC-LB timestep, untiled, tuned, under a shared-memory budget,
 in every data layout and with bf16 LB storage, RWKV6-7B and starcoder2-7b serving (prefill and greedy
 decode).
 
@@ -117,6 +118,27 @@ P1. the mixed-precision policy instances against their plain versions, at
    on the bf16 copy of u, as the operator runs it) beside the policy-free
    kernel, the bound of the bytes the kernel moves and the bytes of the
    reference's traffic model;
+U1. (after P1-P3, and after P4 at ``--ludwig``) the flat chains' policy
+   instances at vvl 128 in soa and aosoa16 against their plain versions:
+   K3's (cg_update) at ``--lattice`` on phase 3's inputs, K3L's
+   (ludwig_chem_stress, ludwig_lc_update) at ``--ludwig`` on L2's: bf16
+   fields within one bf16 ulp, rr within the oracle bound of the kernel's
+   own fp32 r_new, the accumulate-only policy's fields bitwise the
+   policy-free kernels', the same bits run to run, bf16 inputs bitwise their
+   fp32 sources pre-rounded; timed in SoA beside the policy-free kernels;
+U2. (after T5) with ``$TARGETDP_TORCH_TUNE_PATH`` a fresh temporary file:
+   ``tune_solve_graphs(convergence_cost=True)`` at ``--lattice`` and
+   ``tune_step_graphs`` at ``--ludwig``, counted (the policy instances'
+   launches), each graph's candidates' µs, failed, rejected and winner
+   printed, no candidate failing; a second call of each cached with no sweep
+   launch; a ``plan_policy="tuned"`` solve and 10 tuned Ludwig steps,
+   counted, running their winners' kernels (phase 4's solve, iterations
+   within 1 and x within rel-L2 1e-5, and L3's steps bitwise where no winner
+   carries a dtype policy; else finite, logged); a recorded bf16 operator
+   winner driving a ``storage="bfloat16"`` solve to |M x - b| / |b| < 1e-3;
+   a ``SolveServer`` drain at ``--small`` under "tuned" bitwise the default
+   drain.  U1's and U2's numbers print as one JSON line before the kernel
+   table;
 P2. with every count set to 0: ``solve`` with ``storage="bfloat16"`` (the
    refined solve) on phase 2's u and b: |Mx - b|/|b| < 1e-3, x within
    rel-L2 1e-4 of phase 4's, K5's policy and policy-free instances, K3 fed
@@ -314,11 +336,13 @@ A3. ``generate`` serves 4 requests, a 16-token prompt then 16 greedy tokens,
    step traced; on the fp32 copy, the decode's logits after the prompt
    within rel-L2 1e-3 of the prefill's at the last prompt position;
 6. print the layouts' JSON line, the serving, redesign, mixed-precision,
-   V1/RS1 and tiled (T1, T2, T4, T5, C1) lines, the kernel table of every
+   V1/RS1, tiled (T1, T2, T4, T5, C1) and autotune (U1, U2) lines, the
+   kernel table of every
    path (the layout instances
    as kernel@layout rows, with Y2's and Y3's launches; the batch instances
-   with S2's; K2S and K2's int32 and bf16 instances with RS1's windows) as
-   one JSON line, then the result line.
+   with S2's; K2S and K2's int32 and bf16 instances with RS1's windows; the
+   flat chains' policy instances with U2's sweep window) as one JSON line,
+   then the result line.
 """
 
 from __future__ import annotations
@@ -331,9 +355,11 @@ import json
 import math
 import os
 import re
+import shutil
 import statistics
 import subprocess
 import sys
+import tempfile
 import time
 
 import torch
@@ -349,12 +375,12 @@ from repro_torch.apps.milc import cg as cg_mod  # noqa: E402
 from repro_torch.apps.milc import fields as milc_fields  # noqa: E402
 from repro_torch.apps.milc.cg import (batched_cg_active, batched_cg_iteration,  # noqa: E402
                                       batched_cg_state, make_fused_normal, make_wilson_op)
-from repro_torch.apps.milc.driver import solve_batched  # noqa: E402
+from repro_torch.apps.milc.driver import solve_batched, tune_solve_graphs  # noqa: E402
 from repro_torch.configs import get_arch  # noqa: E402
 from repro_torch.core import (SOA, BatchedField, DtypePolicy, Field, TargetConfig,  # noqa: E402
                               parse_layout)
 from repro_torch.core.plan import CudaPolicy, LoweringPlan, block_view_ok  # noqa: E402
-from repro_torch.core import fuse, plan, reduce, target  # noqa: E402
+from repro_torch.core import fuse, plan, reduce, target, tune  # noqa: E402
 from repro_torch.kernels.flash_attention import kernel as kf  # noqa: E402
 from repro_torch.kernels.lb_collision import collide  # noqa: E402
 from repro_torch.kernels.lb_collision import kernel as k7  # noqa: E402
@@ -394,7 +420,8 @@ KERNELS = [target.G5, target.MUL, target.AXPY, reduce.REDUCE_SUM,
            reduce.REDUCE_MAX_I32, reduce.REDUCE_FOLD_I32, reduce.REDUCE_SUM_BF16,
            reduce.REDUCE_MAX_BF16, reduce.REDUCE_FOLD_BF16, k8.LB_STEP_TILED_BF16,
            wk.WILSON_NORMAL_T_TILED, wk.WILSON_NORMAL_AP_TILED, wk.WILSON_NORMAL_T_TILED_MIXED,
-           wk.WILSON_NORMAL_AP_TILED_MIXED, lk.LC_CHAIN]
+           wk.WILSON_NORMAL_AP_TILED_MIXED, lk.LC_CHAIN, fuse.CG_UPDATE_POLICY,
+           lk.CHEM_STRESS_POLICY, lk.LC_UPDATE_POLICY]
 
 # flops a site, counted from the sources (all these kernels are bound by bytes)
 FLOPS = {"collide": 450, "lb_step": 462, "chem_stress": 600, "lc_update": 320, "fed": 160,
@@ -611,6 +638,18 @@ NORMAL_TILED_SERVE_PATH = {
 LC_CHAIN_PATH = {n: ([lk.LC_CHAIN], "ludwig_flat.cu", "src/repro/core/fuse.py:1411")
                  for n in ("ludwig_lc_chain", "ludwig_lc_chain@aos")}
 LC_CHAIN_RTOL = 1e-6   # K3C against its plain version: max|err| <= LC_CHAIN_RTOL max|plain|
+# U1/U2: the flat chains' policy instances (K3, K3L), launched on the
+# autotuner's path: its sweep probes and times every graph's dtype twin and
+# the accuracy gate's baseline (U2's counted window)
+FLAT_POLICY_PATH = {
+    "cg_update_policy": ([fuse.CG_UPDATE_POLICY], "fused_flat.cu", "src/repro/core/fuse.py:1411"),
+    "ludwig_chem_stress_policy": ([lk.CHEM_STRESS_POLICY], "ludwig_flat.cu",
+                                  "src/repro/core/fuse.py:1411"),
+    "ludwig_lc_update_policy": ([lk.LC_UPDATE_POLICY], "ludwig_flat.cu",
+                                "src/repro/core/fuse.py:1411"),
+}
+U1_LAYOUTS = ("soa", "aosoa16")
+U2_DRAIN_REQUESTS, U2_DRAIN_SLOTS = 3, 2
 
 
 def log(msg: str) -> None:
@@ -4399,6 +4438,329 @@ def split_reductions(cfg, u, b, x_soa, iterations, vvl, state, lcfg):
     return rows, line, counts
 
 
+# -- U1, U2: the flat chains' policy instances and the plan autotuner -------------------
+
+def check_flat_policy_milc(u, b, lattice, vvl):
+    """U1 at the MILC lattice: K3's policy instance against its plain version
+    in U1_LAYOUTS: under bf16 storage x_new and r_new within one bf16 ulp, rr
+    within the oracle bound of the fp32 r_new's squares (the kernel's own:
+    the accumulate-only instance on the pre-rounded inputs); under the
+    accumulate-only policy the fields bitwise the policy-free kernel's; the
+    same bits run to run; bf16 inputs bitwise their fp32 sources
+    pre-rounded.  Timed in SoA beside the policy-free kernel.  Returns
+    (rows, extra)."""
+    V = math.prod(lattice)
+    inp = milc_inputs(u, b, vvl)
+    psi, y, p, ap, alpha, neg_alpha = (inp[n] for n in ("psi", "y", "p", "ap", "alpha",
+                                                        "neg_alpha"))
+    pol, acc = CudaPolicy(True, True), CudaPolicy(False, True)
+    rows, extra = {}, {}
+    for spec in U1_LAYOUTS:
+        lay = parse_layout(spec)
+        cl = {n: lay for n in ("x", "r", "p", "ap", "x_new", "r_new")}
+        ins = [t if lay == SOA else lay.pack(t) for t in (psi, y, p, ap)]
+        got = fuse.cg_update(*ins, alpha, neg_alpha, vvl, layouts=cl, policy=pol)
+        want = fuse.cg_update_plain(*ins, alpha, neg_alpha, cl, policy=pol)
+        if got[0].dtype != torch.bfloat16 or got[1].dtype != torch.bfloat16:
+            raise AssertionError(f"U1 {spec} cg_update policy: fields not in bf16")
+        err = max(bf16_err(lay.unpack(got[k]), lay.unpack(want[k]), f"U1 {spec} cg_update "
+                           f"policy {('x_new', 'r_new')[k]}") for k in range(2))
+        own = fuse.cg_update(*(wk.bf16_round(t) for t in ins), alpha, neg_alpha, vvl,
+                             layouts=cl, policy=acc)
+        r32 = lay.unpack(own[1])
+        oracle_err(got[2], r32 * r32, f"U1 {spec} cg_update policy rr")
+        oracle_err(want[2], r32 * r32, f"U1 {spec} cg_update plain policy rr")
+        free = fuse.cg_update(*ins, alpha, neg_alpha, vvl, layouts=cl)
+        a32 = fuse.cg_update(*ins, alpha, neg_alpha, vvl, layouts=cl, policy=acc)
+        for k in range(2):
+            bits_err(a32[k], free[k], f"U1 {spec} cg_update accumulate-only field {k}")
+        rf = lay.unpack(free[1])
+        oracle_err(a32[2], rf * rf, f"U1 {spec} cg_update accumulate-only rr")
+        again = fuse.cg_update(*ins, alpha, neg_alpha, vvl, layouts=cl, policy=pol)
+        g16 = fuse.cg_update(*(t.to(torch.bfloat16) for t in ins), alpha, neg_alpha, vvl,
+                             layouts=cl, policy=pol)
+        for k in range(3):
+            bits_err(again[k].float(), got[k].float(), f"U1 {spec} cg_update policy run to run")
+            bits_err(g16[k].float(), got[k].float(), f"U1 {spec} cg_update policy, bf16 inputs")
+        log(f"  U1 {spec}: cg_update policy x_new, r_new within one bf16 ulp, rr within the "
+            f"oracle bound; accumulate-only fields bitwise the policy-free K3; run to run "
+            f"and bf16 inputs bitwise")
+        del got, want, own, free, a32, again, g16, r32, rf
+        if lay == SOA:
+            free_ms = time_ms(lambda: fuse.cg_update(psi, y, p, ap, alpha, neg_alpha, vvl))
+            add_row(rows, "cg_update_policy", err,
+                    time_ms(lambda: fuse.cg_update(psi, y, p, ap, alpha, neg_alpha, vvl,
+                                                   policy=pol)),
+                    time_ms(lambda: fuse.cg_update_plain(psi, y, p, ap, alpha, neg_alpha,
+                                                         policy=pol)),
+                    (4 * 24 * 4 + 2 * 24 * 2) * V, 24 * 6 * V)
+            parts = {f"{'bf16' if bf else 'fp32'}_{'comp' if cp else 'plain'}_ms":
+                     time_ms(lambda bf=bf, cp=cp: fuse.cg_update(
+                         psi, y, p, ap, alpha, neg_alpha, vvl, policy=CudaPolicy(bf, cp)))
+                     for bf, cp in ((True, False), (False, True))}
+            extra["cg_update_policy"] = dict(policy_free_ms=free_ms,
+                                             policy_free_bound_ms=576 * V / HBM_BYTES_PER_S * 1e3,
+                                             **parts)
+            log(f"    cg_update_policy: policy-free K3 {free_ms:.4f} ms; bf16 storage alone, "
+                f"the compensated rr alone {parts}")
+        del ins
+        torch.cuda.empty_cache()
+    return rows, extra
+
+
+def check_flat_policy_ludwig(state, cfg, vvl):
+    """U1 at the Ludwig lattice: K3L's policy instances (chem_stress,
+    lc_update) against their plain versions in U1_LAYOUTS on L2's inputs,
+    with U1's MILC checks (the accumulate-only policy runs the policy-free
+    kernels: these graphs have no sums).  Timed in SoA beside the
+    policy-free kernels.  Returns (rows, extra)."""
+    V = state.q.nsites
+    inp = ludwig_inputs(state, vvl)
+    pol, acc = CudaPolicy(True, True), CudaPolicy(False, True)
+    cs_kw = dict(a0=cfg.a0, gamma=cfg.gamma, kappa_m=cfg.kappa, kappa_s=cfg.kappa, xi=cfg.xi)
+    lu_kw = dict(gamma_rot=cfg.gamma_rot, xi=cfg.xi, dt=cfg.dt)
+    cases = (
+        ("ludwig_chem_stress_policy", ("q", "lapq", "dq"), ("h", "sigma"), lk.chem_stress_cuda,
+         lk.chem_stress_plain, cs_kw, (25 * 4 + 14 * 2), 156, FLOPS["chem_stress"]),
+        ("ludwig_lc_update_policy", ("q", "h", "w", "adv"), ("q_new",), lk.lc_update_cuda,
+         lk.lc_update_plain, lu_kw, (24 * 4 + 5 * 2), 116, FLOPS["lc_update"]))
+    rows, extra = {}, {}
+    for name, names, outs, kern, plain_fn, kw, nbytes, free_bytes, flops in cases:
+        for spec in U1_LAYOUTS:
+            lay = parse_layout(spec)
+            lays = {n: lay for n in names + outs}
+            ins = [inp[n] if lay == SOA else lay.pack(inp[n]) for n in names]
+
+            def fields(r):
+                return r if isinstance(r, tuple) else (r,)
+
+            got = fields(kern(*ins, vvl=vvl, layouts=lays, policy=pol, **kw))
+            want = fields(plain_fn(*ins, layouts=lays, policy=pol, **kw))
+            if any(t.dtype != torch.bfloat16 for t in got):
+                raise AssertionError(f"U1 {spec} {name}: fields not in bf16")
+            err = max(bf16_err(lay.unpack(g), lay.unpack(w), f"U1 {spec} {name} {o}")
+                      for g, w, o in zip(got, want, outs))
+            for g, a in zip(got, fields(kern(*ins, vvl=vvl, layouts=lays, policy=pol, **kw))):
+                bits_err(a.float(), g.float(), f"U1 {spec} {name} run to run")
+            g16 = fields(kern(*(t.to(torch.bfloat16) for t in ins), vvl=vvl, layouts=lays,
+                              policy=pol, **kw))
+            for g, a in zip(got, g16):
+                bits_err(a.float(), g.float(), f"U1 {spec} {name}, bf16 inputs")
+            free = fields(kern(*ins, vvl=vvl, layouts=lays, **kw))
+            for f, a in zip(free, fields(kern(*ins, vvl=vvl, layouts=lays, policy=acc, **kw))):
+                bits_err(a, f, f"U1 {spec} {name} accumulate-only")
+            log(f"  U1 {spec}: {name} fields within one bf16 ulp; accumulate-only bitwise the "
+                f"policy-free K3L; run to run and bf16 inputs bitwise")
+            del got, want, g16, free
+            if lay == SOA:
+                free_ms = time_ms(lambda: kern(*ins, vvl=vvl, **kw))
+                add_row(rows, name, err, time_ms(lambda: kern(*ins, vvl=vvl, policy=pol, **kw)),
+                        time_ms(lambda: plain_fn(*ins, policy=pol, **kw), reps=3, warm=1),
+                        nbytes * V, flops * V)
+                extra[name] = dict(policy_free_ms=free_ms,
+                                   policy_free_bound_ms=free_bytes * V / HBM_BYTES_PER_S * 1e3)
+                log(f"    {name}: policy-free K3L {free_ms:.4f} ms")
+            del ins
+            torch.cuda.empty_cache()
+    return rows, extra
+
+
+def winners_line(results):
+    """A tuner's results as {graph: {winner, candidates' µs, failed, rejected}},
+    logged."""
+    out = {}
+    for gname, (plan_, info) in results.items():
+        out[gname] = {"winner": plan_.describe(), "timings_us": info.get("timings_us"),
+                      "failed": info.get("failed"), "rejected": info.get("rejected"),
+                      "default": info["default"].describe() if "default" in info else None}
+        log(f"  U2 {gname}: winner {plan_.describe()} (default "
+            f"{out[gname]['default']}); µs {info.get('timings_us')}; failed "
+            f"{info.get('failed')}; rejected {info.get('rejected')}")
+    return out
+
+
+def tuned_phase(cfg, u, b, x_soa, iterations, solve_s, state, after_steps, lcfg, l3_ms, small,
+                seed):
+    """U2: the plan autotuner on the card, with $TARGETDP_TORCH_TUNE_PATH a
+    fresh temporary file.  Counted: tune_solve_graphs (convergence cost) at
+    the MILC lattice and tune_step_graphs at the Ludwig lattice, every
+    candidate lowering (failed empty), the policy instances launched; a
+    second call of each cached with no sweep launch; a plan_policy="tuned"
+    solve and 10 tuned Ludwig steps, counted, running their winners'
+    kernels and, where no winner carries a dtype policy, phase 4's solve
+    (iterations within 1, x within rel-L2 1e-5) and L3's steps bitwise;
+    a recorded bf16 winner for wilson_normal driving a storage="bfloat16"
+    solve to |M x - b| / |b| < 1e-3; a SolveServer drain at ``small`` under
+    "tuned" bitwise the default drain.  Returns (the sweep window's counts,
+    the phase's line)."""
+    tmp = tempfile.mkdtemp(prefix="targetdp_tune_")
+    os.environ[tune.ENV_VAR] = os.path.join(tmp, "tune.json")
+    tune.clear_table_cache()
+    tune.reset_stats()
+    line = {}
+    try:
+        reset_counts()
+        t0 = time.perf_counter()
+        mres = tune_solve_graphs(cfg, u, b, convergence_cost=True)
+        t1 = time.perf_counter()
+        lres = ludwig.tune_step_graphs(lcfg, state)
+        torch.cuda.synchronize()
+        t2 = time.perf_counter()
+        sweep_counts = path_counts(FLAT_POLICY_PATH)
+        sweeps = tune.stats()["sweep_launches"]
+        log(f"U2: tune_solve_graphs at {cfg.lattice} {t1 - t0:.2f} s, tune_step_graphs at "
+            f"{lcfg.lattice} {t2 - t1:.2f} s, {sweeps} sweep launches; the policy instances' "
+            f"launches {sweep_counts}")
+        line["winners"] = {**winners_line(mres), **winners_line(lres)}
+        line["sweep_s"] = {"milc": t1 - t0, "ludwig": t2 - t1}
+        failed = {g: info["failed"] for g, (_, info) in {**mres, **lres}.items() if info["failed"]}
+        if failed:
+            raise AssertionError(f"U2: candidates failed to lower: {failed}")
+        idle = [n for n, c in sweep_counts.items() if c == 0]
+        if idle:
+            raise AssertionError(f"U2: policy instances never launched by the sweep: {idle}")
+        again = {**tune_solve_graphs(cfg, u, b, convergence_cost=True),
+                 **ludwig.tune_step_graphs(lcfg, state)}
+        if not all(info["cached"] for _, info in again.values()) or \
+                tune.stats()["sweep_launches"] != sweeps:
+            raise AssertionError("U2: a second tune was not a cached table hit")
+        log("U2: the second tune_solve_graphs and tune_step_graphs: cached, no sweep launch")
+        op, upd = mres["wilson_normal"][0], mres["cg_update"][0]
+
+        # the tuned solve, counted, beside a default solve in the same window
+        tcfg = dataclasses.replace(cfg, target=dataclasses.replace(cfg.target,
+                                                                   plan_policy="tuned"))
+        dres, ddt = solve_timed(cfg, u, b)
+        dms_it = ddt / max(dres.iterations, 1) * 1e3
+        del dres
+        reset_counts()
+        tune.reset_stats()
+        res, dt = solve_timed(tcfg, u, b)
+        counts = {k.name: k.launches for k in KERNELS if k.launches}
+        rel = (torch.linalg.norm(res.x.data.float() - x_soa)
+               / torch.linalg.norm(x_soa)).item()
+        ms_it = dt / max(res.iterations, 1) * 1e3
+        log(f"U2: tuned solve: {res.iterations} iterations (phase 4: {iterations}), {dt:.3f} s, "
+            f"{ms_it:.3f} ms/iter (phase 4: {solve_s / iterations * 1e3:.3f}; a default solve "
+            f"just before: {dms_it:.3f}), residual "
+            f"{float(res.residual):.3e}, x rel-L2 {rel:.3e} from phase 4's; table hits "
+            f"{tune.stats()['hits']}; launches {counts}")
+        want = ([wk.WILSON_NORMAL_AP_TILED_MIXED if op.dtypes else wk.WILSON_NORMAL_AP_TILED]
+                if op.tiled else [wk.WILSON_NORMAL_AP_MIXED if op.dtypes else wk.WILSON_NORMAL_AP])
+        # a bf16 ap (an operator winner with bf16 storage) keys the update
+        # chain off the table: it then runs the ap16 instance by default
+        want.append(fuse.CG_UPDATE_AP16 if op.dtypes else
+                    (fuse.CG_UPDATE_POLICY if upd.dtypes else fuse.CG_UPDATE))
+        idle = [k.name for k in want if not k.launches]
+        if idle or not tune.stats()["hits"]:
+            raise AssertionError(f"U2: the tuned solve did not run its winners' kernels {idle} "
+                                 f"(hits {tune.stats()['hits']})")
+        if not torch.isfinite(res.x.data.float()).all() or not math.isfinite(float(res.residual)):
+            raise AssertionError("U2: the tuned solve is not finite")
+        if not (op.dtypes or upd.dtypes):
+            if abs(res.iterations - iterations) > 1 or not rel <= 1e-5:
+                raise AssertionError("U2: the tuned solve is off phase 4's")
+        line["solve"] = dict(iterations=res.iterations, phase4_iterations=iterations,
+                             ms_per_iteration=ms_it, default_ms_per_iteration=dms_it,
+                             phase4_ms_per_iteration=solve_s / iterations * 1e3,
+                             residual=float(res.residual), x_rel_l2=rel, launches=counts)
+        del res
+
+        # 10 tuned Ludwig steps, counted
+        tl = dataclasses.replace(lcfg, target=dataclasses.replace(lcfg.target,
+                                                                  plan_policy="tuned"))
+        lplans = {g: p_ for g, (p_, _) in lres.items()}
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        s = state
+        for _ in range(LUDWIG_STEPS):
+            s = step(s, lcfg)
+        torch.cuda.synchronize()
+        dstep_ms = (time.perf_counter() - t0) / LUDWIG_STEPS * 1e3
+        reset_counts()
+        tune.reset_stats()
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        s = state
+        for _ in range(LUDWIG_STEPS):
+            s = step(s, tl)
+        torch.cuda.synchronize()
+        step_ms = (time.perf_counter() - t0) / LUDWIG_STEPS * 1e3
+        counts = {k.name: k.launches for k in KERNELS if k.launches}
+        lb = lplans["ludwig_lb_step"]
+        want = [((k8.LB_STEP_TILED_BF16 if lb.dtypes else k8.LB_STEP_TILED) if lb.tiled
+                 else (k8.LB_STEP_BF16 if lb.dtypes else k8.LB_STEP)),
+                lk.CHEM_STRESS_POLICY if lplans["ludwig_chem_stress"].dtypes else lk.CHEM_STRESS,
+                lk.LC_UPDATE_POLICY if lplans["ludwig_lc_update"].dtypes else lk.LC_UPDATE]
+        idle = [k.name for k in want if not k.launches]
+        log(f"U2: 10 tuned Ludwig steps {step_ms:.3f} ms/step (L3: {l3_ms:.3f}; 10 default "
+            f"steps just before: {dstep_ms:.3f}); table hits "
+            f"{tune.stats()['hits']}; launches {counts}")
+        if idle or tune.stats()["hits"] != 3 * LUDWIG_STEPS:
+            raise AssertionError(f"U2: the tuned steps did not run their winners' kernels {idle} "
+                                 f"(hits {tune.stats()['hits']})")
+        if any(p_.dtypes for p_ in lplans.values()):
+            diag = {k: v.tolist() for k, v in ludwig.diagnostics(s, lcfg).items()}
+            log(f"U2: a Ludwig winner carries a dtype policy: diagnostics after 10 steps {diag}")
+            for t in (s.q.data, s.dist.data):
+                if not torch.isfinite(t).all():
+                    raise AssertionError("U2: the tuned steps are not finite")
+            line["steps_bitwise_l3"] = False
+            line["steps_diagnostics"] = diag
+        else:
+            exact_err(s.dist.data, after_steps.dist.data, "U2 tuned steps' dist vs L3's")
+            exact_err(s.q.data, after_steps.q.data, "U2 tuned steps' q vs L3's")
+            log("U2: the tuned steps are bitwise L3's")
+            line["steps_bitwise_l3"] = True
+        line["steps"] = dict(ms_per_step=step_ms, default_ms_per_step=dstep_ms,
+                             l3_ms_per_step=l3_ms, launches=counts)
+        del s
+
+        # a recorded bf16 winner drives the refined solve
+        g = cg_mod.wilson_normal_graph(float(cfg.kappa))
+        key = g.plan_key({"p": b, "u": u}, config=cfg.target, outputs=("ap", "pap"))
+        tune.record(key, dataclasses.replace(mres["wilson_normal"][1]["default"], dtypes=BF16))
+        rcfg = dataclasses.replace(tcfg, storage="bfloat16")
+        reset_counts()
+        tune.reset_stats()
+        res, dt = solve_timed(rcfg, u, b)
+        rc = residual_check(cfg, u, b, res.x)
+        log(f"U2: a recorded bf16 operator winner: refined solve {res.iterations} iterations, "
+            f"{dt:.3f} s, |Mx-b|/|b| = {rc:.3e}; table hits {tune.stats()['hits']}; "
+            f"K5's policy instance {wk.WILSON_NORMAL_AP_MIXED.launches} launches, bf16 copies "
+            f"of u {wk.BF16_PACK.launches}")
+        if not rc < 1e-3 or not tune.stats()["hits"] or not wk.WILSON_NORMAL_AP_MIXED.launches:
+            raise AssertionError("U2: the recorded bf16 winner did not drive the refined solve")
+        line["recorded_bf16"] = dict(iterations=res.iterations, seconds=dt, residual_check=rc,
+                                     bf16_packs=wk.BF16_PACK.launches)
+        del res
+
+        # a SolveServer drain at --small under "tuned", bitwise the default drain
+        scfg = dataclasses.replace(cfg, lattice=small)
+        su, _ = init_problem(scfg, seed=0)
+        srcs = [spinor(small, seed + 40 + i) for i in range(U2_DRAIN_REQUESTS)]
+        outs = []
+        for target_ in (cfg.target, tcfg.target):
+            server = SolveServer(target_, slots=U2_DRAIN_SLOTS, tol=cfg.tol, max_iter=cfg.max_iter)
+            server.register(su, cfg.kappa)
+            for i, sb in enumerate(srcs):
+                server.submit(SolveRequest(i, sb))
+            outs.append(server.run())
+        for rid, out in outs[1].items():
+            exact_err(out.x.data, outs[0][rid].x.data, f"U2 tuned drain request {rid}")
+            if out.iterations != outs[0][rid].iterations:
+                raise AssertionError(f"U2 tuned drain request {rid}: iterations differ")
+        log(f"U2: a SolveServer drain at {small} under plan_policy='tuned': "
+            f"{len(outs[1])} outcomes bitwise the default drain's")
+        del su, srcs, outs
+    finally:
+        os.environ.pop(tune.ENV_VAR, None)
+        tune.clear_table_cache()
+        shutil.rmtree(tmp, ignore_errors=True)
+    torch.cuda.empty_cache()
+    return sweep_counts, line
+
+
 def table_rows(path, counts, rows):
     return [dict(name=name, route="cuda", source=f"src/repro_torch/csrc/{src}",
                  replaces=rep, launches=counts[name], **rows[name])
@@ -4551,6 +4913,11 @@ def main():
     del su
     torch.cuda.empty_cache()
     log(f"P1-P3: {time.perf_counter() - t0:.1f} s")
+    # U1. the flat chains' policy instances, at the MILC lattice
+    t0 = time.perf_counter()
+    log(f"U1: K3's policy instance at {lattice}, vvl {vvl}:")
+    urows, uextra = check_flat_policy_milc(u, b, lattice, vvl)
+    log(f"U1 (MILC): {time.perf_counter() - t0:.1f} s")
 
     # L1. the Ludwig state at full size
     lcfg = LudwigConfig(lattice=tuple(args.ludwig), target=TargetConfig("cuda", device="cuda"))
@@ -4596,6 +4963,13 @@ def main():
     p4, p4counts, sumcounts = mixed_ludwig(state, after_steps, lcfg, l3_ms,
                                            tuple(args.ludwig_small))
     log(f"P1 (Ludwig), P4: {time.perf_counter() - t0:.1f} s")
+    # U1 at the Ludwig lattice
+    t0 = time.perf_counter()
+    log(f"U1: K3L's policy instances at {lcfg.lattice}, vvl {lcfg.target.vvl}:")
+    ulrows, ulextra = check_flat_policy_ludwig(state, lcfg, lcfg.target.vvl)
+    urows.update(ulrows)
+    uextra.update(ulextra)
+    log(f"U1 (Ludwig): {time.perf_counter() - t0:.1f} s")
     mixed_line = {"mixed_precision": {
         "card": smi,
         "kernels": {n: {**{k: r[k] for k in ("ms", "bound_ms", "plain_ms", "library_ms")},
@@ -4623,6 +4997,11 @@ def main():
                                                       (p2["iterations"], x_p2))
     del x_p2
     log(f"T4, T5: {time.perf_counter() - t1:.1f} s")
+    # U2. the plan autotuner: sweeps, cached tables, the tuned solve and steps
+    t1 = time.perf_counter()
+    ucounts, u2 = tuned_phase(cfg, u, b, x_soa, iterations, solve_s, state, after_steps, lcfg,
+                              l3_ms, small, args.seed)
+    log(f"U2: {time.perf_counter() - t1:.1f} s")
     del u, b, x_soa
     torch.cuda.empty_cache()
     # Y3. the Ludwig step in every layout x vvl, counted
@@ -4721,7 +5100,8 @@ def main():
              + table_rows(MIXED_SUM_PATH, sumcounts, lmrows)
              + table_rows({**RS_BATCH_PATH, **RS_COMP_PATH, **RS_DTYPE_PATH,
                            "reduce_fold_split": RS_PATH["reduce_fold_split"]},
-                          scounts_rs, srows))
+                          scounts_rs, srows)
+             + table_rows(FLAT_POLICY_PATH, ucounts, urows))
     print(json.dumps(layouts_line))
     print(json.dumps(serve_line))
     if turns:
@@ -4733,6 +5113,9 @@ def main():
         "card": smi, "solve": t4, "serving_and_refined": t5, "lc_chain": k3c,
         "k9": {n: {"ms": r["ms"], "k5l_ms": k5l_ms[n], "bound_ms": r["bound_ms"],
                    "ms_per_step": tl_step_ms.get(n)} for n, r in tlrows.items()}}}))
+    print(json.dumps({"autotune": {
+        "card": smi, "flat_policy": {n: {**{k: r[k] for k in ("ms", "plain_ms", "bound_ms")},
+                                         **uextra[n]} for n, r in urows.items()}, **u2}}))
     print(json.dumps({"kernels": table}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

@@ -27,10 +27,12 @@ import re
 import shutil
 import subprocess
 from pathlib import Path
+from typing import Tuple
 
 import torch
 
-__all__ = ["Kernel", "build", "library", "check_tensor", "check_field", "check_batched_field",
+__all__ = ["Kernel", "build", "library", "check_tensor", "check_field", "check_typed_field",
+           "check_batched_field",
            "reduce_dtype", "REDUCE_DTYPES", "smem_per_block_optin", "csrc_define", "CSRC",
            "BUILD_DIR", "NVCC_FLAGS"]
 
@@ -71,6 +73,7 @@ SIGNATURES = {
     "rt_bf16_round": (_P, _P, _L, _I, _P),
     "rt_bf16_pack": (_P, _P, _L, _I, _P),
     "rt_cg_update_ap16": (_P, _P, _P, _P, _P, _P, _P, _P, _P, _L, *(_D,) * 6, _I, _P),
+    "rt_cg_update_policy": (*(_P,) * 9, _L, _I, _I, _I, _I, *(_D,) * 6, _I, _P),
     "rt_cg_update_masked_ap16": (*(_P,) * 10, _L, _I, _L, _L, _L, _L, *(_D,) * 6, _I, _P),
     "rt_dslash": (_P, _P, _P, _I, _I, _I, _I, _D, _D, _D, _I, _P),
     "rt_wilson_normal_t": (_P, _P, _P, _F, _I, _I, _I, _I, _D, _D, _I, _P),
@@ -96,6 +99,8 @@ SIGNATURES = {
     "rt_ludwig_chem_stress": (_P, _P, _P, _P, _P, _L, _F, _F, _F, _F, _F, _F, _F,
                               *(_D,) * 5, _I, _P),
     "rt_ludwig_lc_update": (_P, _P, _P, _P, _P, _L, _F, _F, _F, _F, *(_D,) * 5, _I, _P),
+    "rt_ludwig_chem_stress_policy": (*(_P,) * 5, _L, *(_F,) * 7, _I, _I, _I, *(_D,) * 5, _I, _P),
+    "rt_ludwig_lc_update_policy": (*(_P,) * 5, _L, *(_F,) * 4, _I, _I, _I, *(_D,) * 5, _I, _P),
     "rt_ludwig_lc_chain": (_P, _P, _P, _P, _P, _L, *(_F,) * 8, *(_D,) * 5, _I, _P),
     "rt_ludwig_fed": (_P, _P, _P, _L, _F, _F, _F, _F, _D, _D, _D, _I, _P),
     "rt_rwkv6_state": (*(_P,) * 6, *(_I,) * 6, *(_L,) * 6, _I, _P),
@@ -256,6 +261,14 @@ def check_field(name: str, t: torch.Tensor, layout, ncomp: int, nsites: int,
     check_tensor(f"{name} ({layout.name})", t, layout.physical_shape(ncomp, nsites), device,
                  dtype)
     return layout.descriptor()
+
+
+def check_typed_field(name: str, t: torch.Tensor, layout, ncomp: int, nsites: int,
+                      device: torch.device) -> Tuple[int, bool]:
+    """:func:`check_field` for an operand of a policy instance, which takes
+    fp32 or bf16: (the layout's descriptor, whether ``t`` is bf16)."""
+    dt = torch.bfloat16 if t.dtype == torch.bfloat16 else torch.float32
+    return check_field(name, t, layout, ncomp, nsites, device, dt), dt == torch.bfloat16
 
 
 def check_batched_field(name: str, t: torch.Tensor, layout, ncomp: int, nsites: int, batch: int,

@@ -32,8 +32,17 @@ force are read as stored in that dtype and dist2 and u come back in it; on
 "cuda" that is K5L's policy instance, and K9's under a budget.  The carried
 state stays fp32.
 
-Not yet ported: the plan tuner (``tune_step_graphs``) and the sharded
-driver (``make_sharded_step``, ``run_steps``).
+:func:`tune_step_graphs` autotunes the step's three launch graphs
+(``core.tune``) and persists the winners; ``plan_policy="tuned"`` in
+``LudwigConfig.target`` then runs them with no driver change.  A winner with
+a storage policy writes its fields in bf16; the stages widen them (exactly)
+back to the order parameter's dtype where they leave the launch (h, sigma
+before the force divergence, q_new), as the LB half-step does for dist2 and
+u, so the carried state and every stage input keep their dtype and the
+step's later launches keep their table keys.  The JAX package lets bf16
+outputs go on through jnp's promotion.
+
+Not yet ported: the sharded driver (``make_sharded_step``, ``run_steps``).
 """
 
 from __future__ import annotations
@@ -213,8 +222,11 @@ def stage_chemical_stress(state_q: Field, dq_nd, lapq_nd, cfg: LudwigConfig):
         config=cfg.target, outputs=("h", "sigma"),
     )({"q": state_q, "lapq": _mkfield("lapq", lapq_nd, cfg),
        "dq": _mkfield("dq", dq_nd, cfg)})
-    force_nd = gr.divergence(out["sigma"].canonical_nd())
-    return out["h"], force_nd
+    h = out["h"]
+    if h.dtype != state_q.dtype:
+        h = h.with_data(h.data.to(state_q.dtype))
+    force_nd = gr.divergence(out["sigma"].canonical_nd().to(state_q.dtype))
+    return h, force_nd
 
 
 def stage_advection(q_nd, u_nd):
@@ -227,6 +239,8 @@ def stage_lc_update(state_q: Field, h: Field, w_nd, adv_nd, cfg: LudwigConfig) -
         config=cfg.target, outputs=("q_new",),
     )({"q": state_q, "h": h, "w": _mkfield("w", w_nd, cfg),
        "adv": _mkfield("adv", adv_nd, cfg)})["q_new"]
+    if q_new.dtype != state_q.dtype:
+        q_new = q_new.with_data(q_new.data.to(state_q.dtype))
     # keep the Field name stable across steps
     return dataclasses.replace(q_new, name=state_q.name)
 
@@ -303,6 +317,45 @@ def step_timed(state: LudwigState, cfg: LudwigConfig) -> Tuple[LudwigState, Dict
     return LudwigState(dist=dist2, q=q_new), t
 
 
+# -- plan autotuning -------------------------------------------------------------------
+
+def tune_step_graphs(cfg: LudwigConfig, state: LudwigState, **tune_kw):
+    """Autotune every launch graph a timestep runs (the chem-stress chain,
+    the fused LB half-step, the LC update chain) and persist the winners,
+    so that a later run with ``cfg.target.plan_policy="tuned"`` (the same
+    driver code) picks them up from the table: the paper's §3.2.2
+    per-architecture tuning as a layer, not an edit.
+
+    Returns {graph name: (plan, info)} from ``core.tune.autotune_graph``; a
+    warm table returns each at once (``info["cached"]``)."""
+    from repro_torch.core import tune
+
+    q_nd = state.q.canonical_nd()
+    dq_nd, lapq_nd = stage_gradients(q_nd)
+    results = {}
+    g = chem_stress_graph(cfg)
+    results[g.name] = tune.autotune_graph(
+        g, {"q": state.q, "lapq": _mkfield("lapq", lapq_nd, cfg),
+            "dq": _mkfield("dq", dq_nd, cfg)},
+        config=cfg.target, outputs=("h", "sigma"), **tune_kw)
+    h, force_nd = stage_chemical_stress(state.q, dq_nd, lapq_nd, cfg)
+    force = _mkfield("force", force_nd, cfg)
+    g = lb_step_graph(cfg)
+    results[g.name] = tune.autotune_graph(g, {"dist": state.dist, "force": force},
+                                          config=cfg.target, outputs=("dist2", "u"), **tune_kw)
+    lb = g.launch({"dist": state.dist, "force": force}, config=cfg.target,
+                  outputs=("dist2", "u"))
+    u_nd = lb["u"].canonical_nd().to(q_nd.dtype)
+    w_nd = _w_tensor(u_nd)
+    adv_nd = stage_advection(q_nd, u_nd)
+    g = lc_update_graph(cfg)
+    results[g.name] = tune.autotune_graph(
+        g, {"q": state.q, "h": h, "w": _mkfield("w", w_nd, cfg),
+            "adv": _mkfield("adv", adv_nd, cfg)},
+        config=cfg.target, outputs=("q_new",), **tune_kw)
+    return results
+
+
 # -- diagnostics ---------------------------------------------------------------------
 
 def diagnostics(state: LudwigState, cfg: LudwigConfig) -> Dict[str, torch.Tensor]:
@@ -335,22 +388,24 @@ def _split(ins, out_layouts):
     return {n: t for n, (t, _) in ins.items()}, lays
 
 
-def _chem_stress_cuda(graph, ins, scalars, *, lattice, vvl, out_layouts):
+def _chem_stress_cuda(graph, ins, scalars, *, lattice, vvl, out_layouts, policy=None):
+    # policy: K3L's policy instance (bf16 storage; the graph has no sums)
     mol, stress = graph.stage_params()
     t, lays = _split(ins, out_layouts)
     h, sigma = lck.chem_stress_cuda(
         t["q"], t["lapq"], t["dq"], a0=mol["a0"], gamma=mol["gamma"],
         kappa_m=mol["kappa"], kappa_s=stress["kappa"], xi=stress["xi"], vvl=vvl,
-        layouts=lays)
+        layouts=lays, policy=policy)
     return {"h": h, "sigma": sigma}
 
 
-def _lc_update_cuda(graph, ins, scalars, *, lattice, vvl, out_layouts):
+def _lc_update_cuda(graph, ins, scalars, *, lattice, vvl, out_layouts, policy=None):
+    # policy: K3L's policy instance (bf16 storage; the graph has no sums)
     be, upd = graph.stage_params()
     t, lays = _split(ins, out_layouts)
     q_new = lck.lc_update_cuda(t["q"], t["h"], t["w"], t["adv"],
                                gamma_rot=be["gamma_rot"], xi=be["xi"], dt=upd["dt"],
-                               vvl=vvl, layouts=lays)
+                               vvl=vvl, layouts=lays, policy=policy)
     return {"q_new": q_new}
 
 
@@ -390,8 +445,9 @@ def _fed_cuda(ins, params, vvl, out_layouts):
                                 kappa=params["kappa"], vvl=vvl, layouts=lays)}
 
 
-register_cuda_graph(chem_stress_graph(LudwigConfig()), _chem_stress_cuda, ("h", "sigma"))
-register_cuda_graph(lc_update_graph(LudwigConfig()), _lc_update_cuda, ("q_new",))
+register_cuda_graph(chem_stress_graph(LudwigConfig()), _chem_stress_cuda, ("h", "sigma"),
+                    policy=True)
+register_cuda_graph(lc_update_graph(LudwigConfig()), _lc_update_cuda, ("q_new",), policy=True)
 register_cuda_graph(lc_chain_graph(LudwigConfig()), _lc_chain_cuda, ("q_new",))
 register_cuda_graph(lb_step_graph(LudwigConfig()), _lb_step_cuda, ("dist2", "u"),
                     tiled=_lb_step_tiled_cuda, policy=True)

@@ -8,6 +8,14 @@ each beside its plain PyTorch version (the ``lc.py`` chunk bodies):
                     in registers)
   K1L  fed          q, dq -> free-energy density (diagnostics)
 
+K3L's policy instances (``policy=``, a ``core.plan.CudaPolicy``; the same
+kernels with their typed loads and stores): each input fp32 or bf16, a bf16
+one widened as loaded (exactly), an fp32 one rounded to bf16 first under
+bf16 storage, the fields written in bf16 there.  The wrappers run them for
+a policy asking for bf16 storage and for any bf16 input; a policy asking
+for a compensated sum alone changes nothing (these graphs have no sums).
+The plain versions take the same ``policy``.
+
 K3L and K3C replace ``core/fuse.py::LaunchGraph._build_flat`` of the JAX
 package for the three flat Ludwig graphs, K1L ``core/target.py::
 TargetKernel._run_pallas`` for the free-energy body.  Each is one launch, one thread per
@@ -26,20 +34,26 @@ pack); on a CUDA tensor it launches its kernel or raises.
 
 from __future__ import annotations
 
-from typing import Tuple
+from typing import Optional, Tuple
 
 import torch
 
-from repro_torch._cuda import Kernel, check_field
+from repro_torch._cuda import Kernel, check_field, check_typed_field
+from repro_torch.core.fuse import policy_stage_in
 from repro_torch.core.layout import resolve_layouts
+from repro_torch.core.plan import CudaPolicy
 from . import lc
 
 __all__ = ["chem_stress_cuda", "chem_stress_plain", "lc_update_cuda",
            "lc_update_plain", "lc_chain_cuda", "lc_chain_plain", "fed_cuda", "fed_plain",
-           "CHEM_STRESS", "LC_UPDATE", "LC_CHAIN", "FED"]
+           "CHEM_STRESS", "LC_UPDATE", "LC_CHAIN", "FED", "CHEM_STRESS_POLICY",
+           "LC_UPDATE_POLICY"]
 
 CHEM_STRESS = Kernel("ludwig_chem_stress", "rt_ludwig_chem_stress")
 LC_UPDATE = Kernel("ludwig_lc_update", "rt_ludwig_lc_update")
+# K3L's policy instances
+CHEM_STRESS_POLICY = Kernel("ludwig_chem_stress_policy", "rt_ludwig_chem_stress_policy")
+LC_UPDATE_POLICY = Kernel("ludwig_lc_update_policy", "rt_ludwig_lc_update_policy")
 LC_CHAIN = Kernel("ludwig_lc_chain", "rt_ludwig_lc_chain")
 FED = Kernel("ludwig_fed", "rt_ludwig_fed")
 
@@ -61,8 +75,34 @@ def _launch_args(named, ncomps, lay, V):
     return [t.data_ptr() for t in named.values()], descs
 
 
-def _empty(lay, name, ncomp, V, like):
-    return torch.empty(lay[name].physical_shape(ncomp, V), dtype=like.dtype, device=like.device)
+def _empty(lay, name, ncomp, V, like, dtype=None):
+    return torch.empty(lay[name].physical_shape(ncomp, V), dtype=dtype or like.dtype,
+                       device=like.device)
+
+
+def _typed(named, policy) -> Tuple[bool, bool]:
+    """(run the policy instance, bf16 storage) of a K3L call: the instance
+    runs under bf16 storage and for any bf16 input."""
+    bf16 = bool(policy and policy.bf16)
+    return bf16 or any(t.dtype == torch.bfloat16 for t in named.values()), bf16
+
+
+def _typed_args(named, ncomps, lay, V):
+    """:func:`_launch_args` for the policy instances: each input fp32 or
+    bf16; also the bitmask of the bf16 ones, in argument order."""
+    device = next(iter(named.values())).device
+    ops = [check_typed_field(n, t, lay[n], ncomps[n], V, device) for n, t in named.items()]
+    return ([t.data_ptr() for t in named.values()], [d for d, _ in ops],
+            sum(1 << k for k, (_, is16) in enumerate(ops) if is16))
+
+
+def _plain_in(lay, named, bf16):
+    """The canonical inputs of a plain version as its kernel reads them."""
+    return [policy_stage_in(lay[n].unpack(t), bf16) for n, t in named.items()]
+
+
+def _plain_out(t, bf16):
+    return t.to(torch.bfloat16) if bf16 else t
 
 
 _CS = {"q": 5, "lapq": 5, "dq": 15}
@@ -71,48 +111,76 @@ _LC = {"q": 5, "lapq": 5, "w": 9, "adv": 5}
 _FED = {"q": 5, "dq": 15}
 
 
-def chem_stress_plain(q, lapq, dq, *, a0, gamma, kappa_m, kappa_s, xi, layouts=None
-                      ) -> Tuple[torch.Tensor, torch.Tensor]:
-    """h = molecular_field(q, lapq), sigma = stress(q, h, dq)."""
-    lay, _ = _fields(dict(q=q, lapq=lapq, dq=dq), layouts, ("h", "sigma"))
-    q, lapq, dq = (lay[n].unpack(t) for n, t in (("q", q), ("lapq", lapq), ("dq", dq)))
+def chem_stress_plain(q, lapq, dq, *, a0, gamma, kappa_m, kappa_s, xi, layouts=None,
+                      policy: Optional[CudaPolicy] = None) -> Tuple[torch.Tensor, torch.Tensor]:
+    """h = molecular_field(q, lapq), sigma = stress(q, h, dq).  ``policy``:
+    the policy instance's (inputs rounded to bf16 under bf16 storage, a
+    bf16 input widened, the fields returned in bf16 there)."""
+    named = dict(q=q, lapq=lapq, dq=dq)
+    lay, _ = _fields(named, layouts, ("h", "sigma"))
+    _, bf16 = _typed(named, policy)
+    q, lapq, dq = _plain_in(lay, named, bf16)
     h = lc.molecular_field_chunk(q, lapq, a0=a0, gamma=gamma, kappa=kappa_m)
-    return lay["h"].pack(h), lay["sigma"].pack(lc.stress_chunk(q, h, dq, kappa=kappa_s, xi=xi))
+    sigma = lc.stress_chunk(q, h, dq, kappa=kappa_s, xi=xi)
+    return lay["h"].pack(_plain_out(h, bf16)), lay["sigma"].pack(_plain_out(sigma, bf16))
 
 
 def chem_stress_cuda(q, lapq, dq, *, a0, gamma, kappa_m, kappa_s, xi, vvl: int = 128,
-                     layouts=None) -> Tuple[torch.Tensor, torch.Tensor]:
-    """K3L: (h (5 components), sigma (9)) of q (5), lapq (5), dq (15)."""
+                     layouts=None, policy: Optional[CudaPolicy] = None
+                     ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """K3L: (h (5 components), sigma (9)) of q (5), lapq (5), dq (15);
+    ``policy`` as in the module docstring."""
     if q.device.type == "cpu":
         return chem_stress_plain(q, lapq, dq, a0=a0, gamma=gamma, kappa_m=kappa_m,
-                                 kappa_s=kappa_s, xi=xi, layouts=layouts)
+                                 kappa_s=kappa_s, xi=xi, layouts=layouts, policy=policy)
     named = dict(q=q, lapq=lapq, dq=dq)
     lay, V = _fields(named, layouts, ("h", "sigma"))
+    coef = (-a0 * (1.0 - gamma / 3.0), a0 * gamma, -a0 * gamma, kappa_m, -xi, 2.0 * xi, kappa_s)
+    typed, bf16 = _typed(named, policy)
+    if typed:
+        ptrs, descs, in16 = _typed_args(named, _CS, lay, V)
+        out_dt = torch.bfloat16 if bf16 else torch.float32
+        h, sigma = _empty(lay, "h", 5, V, q, out_dt), _empty(lay, "sigma", 9, V, q, out_dt)
+        CHEM_STRESS_POLICY.launch(q.device, *ptrs, h.data_ptr(), sigma.data_ptr(), V, *coef,
+                                  in16, int(bf16), int(bf16), *descs, lay["h"].descriptor(),
+                                  lay["sigma"].descriptor(), vvl)
+        return h, sigma
     ptrs, descs = _launch_args(named, _CS, lay, V)
     h, sigma = _empty(lay, "h", 5, V, q), _empty(lay, "sigma", 9, V, q)
-    CHEM_STRESS.launch(q.device, *ptrs, h.data_ptr(), sigma.data_ptr(), V,
-                       -a0 * (1.0 - gamma / 3.0), a0 * gamma, -a0 * gamma, kappa_m,
-                       -xi, 2.0 * xi, kappa_s, *descs, lay["h"].descriptor(),
-                       lay["sigma"].descriptor(), vvl)
+    CHEM_STRESS.launch(q.device, *ptrs, h.data_ptr(), sigma.data_ptr(), V, *coef, *descs,
+                       lay["h"].descriptor(), lay["sigma"].descriptor(), vvl)
     return h, sigma
 
 
-def lc_update_plain(q, h, w, adv, *, gamma_rot, xi, dt, layouts=None) -> torch.Tensor:
-    """q_new = q_update(q, beris_edwards_rhs(q, h, w), adv)."""
-    lay, _ = _fields(dict(q=q, h=h, w=w, adv=adv), layouts, ("q_new",))
-    q, h, w, adv = (lay[n].unpack(t) for n, t in (("q", q), ("h", h), ("w", w), ("adv", adv)))
+def lc_update_plain(q, h, w, adv, *, gamma_rot, xi, dt, layouts=None,
+                    policy: Optional[CudaPolicy] = None) -> torch.Tensor:
+    """q_new = q_update(q, beris_edwards_rhs(q, h, w), adv); ``policy`` as
+    in :func:`chem_stress_plain`."""
+    named = dict(q=q, h=h, w=w, adv=adv)
+    lay, _ = _fields(named, layouts, ("q_new",))
+    _, bf16 = _typed(named, policy)
+    q, h, w, adv = _plain_in(lay, named, bf16)
     rhs = lc.beris_edwards_rhs_chunk(q, h, w, gamma_rot=gamma_rot, xi=xi)
-    return lay["q_new"].pack(lc.q_update_chunk(q, rhs, adv, dt=dt))
+    return lay["q_new"].pack(_plain_out(lc.q_update_chunk(q, rhs, adv, dt=dt), bf16))
 
 
 def lc_update_cuda(q, h, w, adv, *, gamma_rot, xi, dt, vvl: int = 128,
-                   layouts=None) -> torch.Tensor:
-    """K3L: q_new (5 components) of q, h, adv (5) and w (9)."""
+                   layouts=None, policy: Optional[CudaPolicy] = None) -> torch.Tensor:
+    """K3L: q_new (5 components) of q, h, adv (5) and w (9); ``policy`` as
+    in the module docstring."""
     if q.device.type == "cpu":
         return lc_update_plain(q, h, w, adv, gamma_rot=gamma_rot, xi=xi, dt=dt,
-                               layouts=layouts)
+                               layouts=layouts, policy=policy)
     named = dict(q=q, h=h, w=w, adv=adv)
     lay, V = _fields(named, layouts, ("q_new",))
+    typed, bf16 = _typed(named, policy)
+    if typed:
+        ptrs, descs, in16 = _typed_args(named, _LU, lay, V)
+        q_new = _empty(lay, "q_new", 5, V, q, torch.bfloat16 if bf16 else torch.float32)
+        LC_UPDATE_POLICY.launch(q.device, *ptrs, q_new.data_ptr(), V, gamma_rot, xi, -2.0 * xi,
+                                dt, in16, int(bf16), int(bf16), *descs,
+                                lay["q_new"].descriptor(), vvl)
+        return q_new
     ptrs, descs = _launch_args(named, _LU, lay, V)
     q_new = _empty(lay, "q_new", 5, V, q)
     LC_UPDATE.launch(q.device, *ptrs, q_new.data_ptr(), V, gamma_rot, xi, -2.0 * xi, dt,

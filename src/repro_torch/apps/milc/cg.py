@@ -52,6 +52,7 @@ single, batched and under the refined solve's policy.
 
 from __future__ import annotations
 
+import weakref
 from typing import Callable, NamedTuple, Optional, Tuple
 
 import torch
@@ -146,7 +147,13 @@ def fused_cg_update(x: Field, r: Field, p: Field, ap: Field, alpha,
                     config: TargetConfig):
     """x_new = x + alpha p,  r_new = r - alpha ap,  rr = sum (r_new)^2 as
     ONE fused launch.  Returns (x_new, r_new, rr) with rr a per-component
-    (ncomp,) sum (``rr.sum()`` is |r_new|^2)."""
+    (ncomp,) sum (``rr.sum()`` is |r_new|^2).
+
+    A plan with a storage policy (a tuned bf16 winner) writes x_new and
+    r_new in bf16; they are widened (exactly) back to x's and r's dtype
+    here, so the solve's carried x and r keep their dtype and every
+    iteration launches with the same table key.  The JAX package lets them
+    go on in bf16."""
     out = cg_update_graph(x.ncomp).launch(
         {"x": x, "r": r, "p": p, "ap": ap},
         scalars={"alpha": alpha, "neg_alpha": -alpha},
@@ -154,7 +161,8 @@ def fused_cg_update(x: Field, r: Field, p: Field, ap: Field, alpha,
         outputs=("x_new", "r_new", "rr"),
         out_layouts={"x_new": x.layout, "r_new": r.layout},
     )
-    return x.with_data(out["x_new"].data), r.with_data(out["r_new"].data), out["rr"]
+    return (x.with_data(out["x_new"].data.to(x.dtype)), r.with_data(out["r_new"].data.to(r.dtype)),
+            out["rr"])
 
 
 def masked_cg_update_graph(ncomp: int) -> LaunchGraph:
@@ -269,11 +277,14 @@ def make_fused_normal(u: Field, kappa: float, config: TargetConfig):
     rounding of the policy's stage-in, so the same bits), which K5's policy
     instance reads in place of the fp32 field (144 fewer bytes a site a
     launch) and which its wrapper requires.  The torch engine rounds u in
-    its stage-in cast."""
+    its stage-in cast.  Under ``plan_policy="tuned"`` the operator binds
+    the fp32 u, the field the table's keys name, and the launch makes the
+    copy where the looked-up plan asks for it (once: ``_policy_u``)."""
     bound = wilson_normal_graph(float(kappa)).bind(
         config=config, outputs=("ap", "pap"))
     engine, dtypes = launch_policy(config)
-    if engine == "cuda" and cuda_policy(dtypes).bf16:
+    if (engine == "cuda" and cuda_policy(dtypes).bf16
+            and getattr(config, "plan_policy", "default") != "tuned"):
         u = u.with_data(bf16_pack_cuda(u.data))
 
     def apply(p):
@@ -536,11 +547,12 @@ def _axpy_cuda(ins, params, vvl, out_layouts):
     return {"out": site_axpy(params["a"], ins["x"][0], ins["y"][0], vvl, layouts=lays)}
 
 
-def _cg_update_cuda(graph, ins, scalars, *, lattice, vvl, out_layouts, rsplit=1):
+def _cg_update_cuda(graph, ins, scalars, *, lattice, vvl, out_layouts, rsplit=1, policy=None):
+    # policy: K3's policy instance (bf16 storage, a compensated rr)
     lays = _lays(ins, {n: n for n in ("x", "r", "p", "ap")}, out_layouts)
     x_new, r_new, rr = fuse.cg_update(ins["x"][0], ins["r"][0], ins["p"][0], ins["ap"][0],
                                       scalars["alpha"], scalars["neg_alpha"], vvl,
-                                      layouts=lays, rsplit=rsplit)
+                                      layouts=lays, rsplit=rsplit, policy=policy)
     return {"x_new": x_new, "r_new": r_new, "rr": rr}
 
 
@@ -558,10 +570,33 @@ def _normal_kappa(graph) -> float:
     return kappa
 
 
+# the last fp32 gauge tensor packed by _policy_u: (weak reference, its
+# version when packed, its bf16 copy)
+_U16 = [None]
+
+
+def _policy_u(u: torch.Tensor, policy) -> torch.Tensor:
+    """The u a wilson_normal kernel reads under ``policy``: the bf16 copy
+    under bf16 storage.  ``make_fused_normal`` binds it once per operator
+    where its config shows the policy; a launch handed the fp32 field (a
+    tuned or swept plan's policy) packs it here, once for as long as the
+    same tensor holds the same values (its ``_version``), so a sweep or a
+    tuned solve packs u once."""
+    if policy is None or not policy.bf16 or u.dtype == torch.bfloat16:
+        return u
+    hit = _U16[0]
+    if hit is not None and hit[0]() is u and hit[1] == u._version:
+        return hit[2]
+    u16 = bf16_pack_cuda(u)
+    _U16[0] = (weakref.ref(u, lambda _: _U16.__setitem__(0, None)), u._version, u16)
+    return u16
+
+
 def _wilson_normal_cuda(graph, ins, scalars, *, lattice, vvl, out_layouts, policy=None,
                         rsplit=1):
     lays = _lays(ins, {"p": "p", "u": "u"}, out_layouts)
-    ap, pap = wilson_normal_cuda(ins["p"][0], ins["u"][0], _normal_kappa(graph), lattice, vvl,
+    ap, pap = wilson_normal_cuda(ins["p"][0], _policy_u(ins["u"][0], policy),
+                                 _normal_kappa(graph), lattice, vvl,
                                  layouts=lays, policy=policy, rsplit=rsplit)
     return {"ap": ap, "pap": pap}
 
@@ -573,7 +608,8 @@ def _wilson_normal_tiled_cuda(graph, ins, scalars, *, lattice, plan, out_layouts
         raise ValueError("wilson_normal's batch instance takes a BatchedField p and one "
                          "gauge Field u shared by every slot")
     lays = _lays(ins, {"p": "p", "u": "u"}, out_layouts)
-    ap, pap = wilson_normal_tiled_cuda(ins["p"][0], ins["u"][0], _normal_kappa(graph), lattice,
+    ap, pap = wilson_normal_tiled_cuda(ins["p"][0], _policy_u(ins["u"][0], policy),
+                                       _normal_kappa(graph), lattice,
                                        (plan.bx, plan.by, plan.bz), layouts=lays,
                                        batched=bool(batch), policy=policy, rsplit=rsplit)
     return {"ap": ap, "pap": pap}
@@ -588,7 +624,8 @@ def _wilson_normal_batched_cuda(graph, ins, scalars, *, lattice, vvl, out_layout
         raise ValueError("wilson_normal's batch instance takes a BatchedField p and one "
                          "gauge Field u shared by every slot")
     lays = _lays(ins, {"p": "p", "u": "u"}, out_layouts)
-    ap, pap = wilson_normal_cuda(ins["p"][0], ins["u"][0], _normal_kappa(graph), lattice, vvl,
+    ap, pap = wilson_normal_cuda(ins["p"][0], _policy_u(ins["u"][0], policy),
+                                 _normal_kappa(graph), lattice, vvl,
                                  layouts=lays, batched=True, policy=policy, rsplit=rsplit)
     return {"ap": ap, "pap": pap}
 
@@ -616,7 +653,7 @@ def _dot_prod_cuda(graph, ins, scalars, *, lattice, vvl, out_layouts, batch, in_
 register_cuda_body(_g5_body, _g5_cuda)
 register_cuda_body(_mul_body, _mul_cuda)
 register_cuda_body(_axpy_body, _axpy_cuda)
-register_cuda_graph(cg_update_graph(24), _cg_update_cuda, ("x_new", "r_new", "rr"))
+register_cuda_graph(cg_update_graph(24), _cg_update_cuda, ("x_new", "r_new", "rr"), policy=True)
 register_cuda_graph(cg_xpay_graph(24), _cg_xpay_cuda, ("out",))
 register_cuda_graph(wilson_normal_graph(0.0), _wilson_normal_cuda, ("ap", "pap"),
                     batched=_wilson_normal_batched_cuda, policy=True,

@@ -14,14 +14,19 @@ with no driver change beyond the config: when its whole-staged M^dag M
 footprint exceeds the budget, the planning layer tiles the operator's y/z
 axes as the JAX package's does (``core.plan.choose_tiles``), and on "cuda"
 the tiled plan runs K5T (the operator's blocks walking the tiles) in
-:func:`solve`, :func:`solve_batched` and the refined solve alike.  The
-sharded solvers of the JAX package are not yet ported.
+:func:`solve`, :func:`solve_batched` and the refined solve alike.
+
+:func:`tune_solve_graphs` autotunes the two graphs a CG iteration launches
+(``core.tune``) and persists the winners, which a later
+``plan_policy="tuned"`` solve loads; :func:`solver_cost_model` ranks the
+operator's candidates by measured time to solution.  The sharded solvers of
+the JAX package are not yet ported.
 """
 
 from __future__ import annotations
 
 import dataclasses
-from typing import Tuple
+from typing import Optional, Tuple
 
 import torch
 
@@ -130,6 +135,69 @@ def solve_batched(cfg: MilcConfig, u: Field, bs) -> BatchedCGResult:
                       config=cfg.target, tol=cfg.tol, max_iter=cfg.max_iter, refine_every=rk,
                       apply_a_dot_hi=(make_fused_normal(u, cfg.kappa, _hi_target(cfg))
                                       if rk > 0 else None))
+
+
+def solver_cost_model(cfg: MilcConfig, u: Field, b: Field, *, tol: float = 1e-6,
+                      cap: Optional[int] = None):
+    """The convergence-aware tuner cost of the fused normal-operator graph:
+    a callable mapping a candidate plan to its measured iterations to
+    ``tol`` (memoised per plan), so that ``core.tune.autotune_graph`` ranks
+    the candidates by time an iteration x iterations, time to solution,
+    rather than by one launch's time.  Dtype-policy candidates are measured
+    through the refined solve (how they would deploy), against
+    ``apply_a_dot_hi`` on the policy-free default operator
+    (:func:`_hi_target`); full-precision ones through plain CG."""
+    _, apply_mdag, _ = make_wilson_op(u, cfg.kappa, cfg.target)
+    rhs = apply_mdag(b)
+    cap = cap or cfg.max_iter
+    hi_op = make_fused_normal(u, cfg.kappa, _hi_target(cfg))
+    cache = {}
+
+    def iterations(plan):
+        op = make_fused_normal(u, cfg.kappa, dataclasses.replace(cfg.target, plan_policy=plan))
+        if plan.dtypes:
+            res = cg_refined(op, rhs, config=cfg.target, tol=tol, max_iter=cap,
+                             refine_k=cfg.refine_k or 50, reliable=cfg.reliable or 1e-4,
+                             apply_a_dot_hi=hi_op)
+        else:
+            res = cg(None, rhs, config=cfg.target, tol=tol, max_iter=cap, apply_a_dot=op)
+        return float(max(int(res.iterations), 1))
+
+    def cost(plan):
+        if plan not in cache:
+            cache[plan] = iterations(plan)
+        return cache[plan]
+
+    return cost
+
+
+def tune_solve_graphs(cfg: MilcConfig, u: Field, b: Field, convergence_cost: bool = False,
+                      **tune_kw):
+    """Autotune the two launch graphs a CG iteration runs, the fused normal
+    operator (M^dag M p and <p, M^dag M p>) and the fused update chain (with
+    |r|^2), and persist the winners, so that a later solve under
+    ``cfg.target.plan_policy="tuned"`` loads them instead of sweeping.
+    Returns {graph name: (plan, info)}.
+
+    ``convergence_cost=True`` ranks the operator's candidates by measured
+    time to solution (:func:`solver_cost_model`); the update chain ranks on
+    its launch time alone, as in the JAX package."""
+    from repro_torch.core import tune
+
+    from .cg import cg_update_graph, wilson_normal_graph
+
+    results = {}
+    g = wilson_normal_graph(float(cfg.kappa))
+    op_kw = dict(tune_kw)
+    if convergence_cost and "cost_model" not in op_kw:
+        op_kw["cost_model"] = solver_cost_model(cfg, u, b)
+    results[g.name] = tune.autotune_graph(g, {"p": b, "u": u}, config=cfg.target,
+                                          outputs=("ap", "pap"), **op_kw)
+    g = cg_update_graph(b.ncomp)
+    results[g.name] = tune.autotune_graph(
+        g, {"x": b, "r": b, "p": b, "ap": b}, scalars={"alpha": 0.3, "neg_alpha": -0.3},
+        config=cfg.target, outputs=("x_new", "r_new", "rr"), **tune_kw)
+    return results
 
 
 def residual_check(cfg: MilcConfig, u: Field, b: Field, x: Field) -> float:

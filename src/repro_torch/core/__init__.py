@@ -7,6 +7,7 @@ Engines / launch       ->  core.target   (engine "torch" or "cuda")
 Reductions             ->  core.reduce   (targetDoubleSum ...)
 Stencils               ->  core.stencil
 Kernel fusion          ->  core.fuse     (LaunchGraph)
+Plan autotuner         ->  core.tune     (plan_policy="tuned")
 """
 
 from .layout import (  # noqa: F401

@@ -11,6 +11,7 @@ slots).
 from __future__ import annotations
 
 import dataclasses
+import functools
 import math
 from typing import Tuple
 
@@ -19,7 +20,7 @@ import torch
 
 from .layout import Layout, SOA
 
-__all__ = ["Field", "BatchedField", "resolve_device"]
+__all__ = ["Field", "BatchedField", "resolve_device", "backend_name"]
 
 
 def resolve_device(device) -> torch.device:
@@ -32,6 +33,21 @@ def resolve_device(device) -> torch.device:
             f"false; pass device='cpu' (e.g. TargetConfig('torch', "
             f"device='cpu')) to run on the CPU")
     return dev
+
+
+def backend_name(device) -> str:
+    """The backend a launch on ``device`` runs on, as the tune table names
+    it: the CUDA device's name (``torch.cuda.get_device_name``, asked once
+    a device), or the device type ("cpu")."""
+    dev = torch.device(device)
+    if dev.type != "cuda":
+        return dev.type
+    return _cuda_device_name(torch.cuda.current_device() if dev.index is None else dev.index)
+
+
+@functools.lru_cache(maxsize=None)
+def _cuda_device_name(index: int) -> str:
+    return torch.cuda.get_device_name(index)
 
 
 @dataclasses.dataclass

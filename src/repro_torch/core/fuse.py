@@ -83,22 +83,24 @@ and K3B, its batch instances for the serving chains (``cg_update_masked``,
 ``cg_xpay_masked``), each beside its plain PyTorch version; the third,
 ``dot_prod``, is ``target.site_mul`` with a batch.  The update chains also
 take a bf16 ap (the refined solve's operator output; their ap16
-instances), with fp32 x, r, p and outputs.
+instances), with fp32 x, r, p and outputs, and cg_update has a policy
+instance (any input fp32 or bf16, bf16 storage, a compensated rr).
 """
 
 from __future__ import annotations
 
 import dataclasses
+import logging
 import math
 from typing import Callable, Dict, List, Mapping, NamedTuple, Optional, Sequence, Tuple, Union
 
 import torch
 
-from .._cuda import Kernel, check_field, check_tensor
-from .field import BatchedField, Field
+from .._cuda import Kernel, check_field, check_tensor, check_typed_field
+from .field import BatchedField, Field, backend_name
 from .layout import Layout, LayoutKind, resolve_layouts
 from .plan import (VIEW_BLOCK, DtypePolicy, LoweringPlan, adapt_plan, cuda_policy, default_plan,
-                   launch_policy, policy_plan, resolve_accumulate)
+                   graph_plan_key, launch_policy, policy_plan, resolve_accumulate)
 from .reduce import compensated_plain, fold_partials, fold_partials_batched
 from .stencil import halo_pad, tile_boxes
 from .target import (TargetConfig, TargetKernel, batch_operand, operand_shape, operand_slot,
@@ -107,7 +109,9 @@ from .target import (TargetConfig, TargetKernel, batch_operand, operand_shape, o
 __all__ = ["LaunchGraph", "BoundLaunch", "ReduceSpec", "register_cuda_graph",
            "tiled_plain", "kahan_fold", "cg_update", "cg_xpay", "CG_UPDATE", "CG_XPAY",
            "cg_update_masked", "cg_xpay_masked", "CG_UPDATE_MASKED", "CG_XPAY_MASKED",
-           "CG_UPDATE_AP16", "CG_UPDATE_MASKED_AP16"]
+           "CG_UPDATE_AP16", "CG_UPDATE_MASKED_AP16", "CG_UPDATE_POLICY", "policy_stage_in"]
+
+log = logging.getLogger(__name__)
 
 _RED_COMBINE = {"sum": torch.add, "max": torch.maximum}
 _RED_FOLD = {"sum": lambda x, dim: x.sum(dim=dim),
@@ -523,6 +527,43 @@ class LaunchGraph:
         need = self._required_rings(tuple(outputs))
         return {n: need.get(n, 0) for n in self.external_inputs()}
 
+    def plan_signature(self) -> tuple:
+        """The process-stable structural signature the tune table keys on:
+        the graph's name and every stage's kind, kernel *name*, width,
+        monoid, wiring, output specs and params (repr), never a function
+        object (which does not survive the process boundary the table must
+        cross; :meth:`structure` holds them)."""
+        sig = []
+        for st in self._stages:
+            name = st.kernel.name if st.kernel is not None else st.op
+            outs = tuple((b, v, nc, None if dt is None else str(dt)) for b, v, nc, dt in st.outs)
+            sig.append((st.kind, name, st.width, st.op, st.ins, outs,
+                        tuple((k, repr(v)) for k, v in st.params)))
+        return (self.name, tuple(sig))
+
+    def plan_key(self, ins: Mapping[str, Field], *, config: Optional[TargetConfig] = None,
+                 outputs: Optional[Sequence[str]] = None) -> str:
+        """The tune table's key of launching this graph with ``ins``
+        (``core.plan.graph_plan_key``): the signature, each input's name,
+        width, dtype, layout and lattice, the lattice, the engine, the
+        outputs, the backend (the CUDA device's name, or "cpu") and, for a
+        batched launch, the batch size and which inputs are batched."""
+        config = config or TargetConfig()
+        ordered = [n for n in self.external_inputs() if n in ins]
+        if outputs is None:
+            outputs = [v for (_, v, _, _) in self._stages[-1].outs]
+        first = ins[ordered[0]] if ordered else next(iter(ins.values()))
+        inputs = tuple((n, ins[n].ncomp, str(ins[n].dtype).replace("torch.", ""),
+                        ins[n].layout.name, tuple(ins[n].lattice)) for n in ordered)
+        batch = max((ins[n].batch if isinstance(ins[n], BatchedField) else 0 for n in ordered),
+                    default=0)
+        batch_key = 0
+        if batch:
+            batch_key = (batch,) + tuple(int(isinstance(ins[n], BatchedField)) for n in ordered)
+        return graph_plan_key(self.plan_signature(), engine=config.engine, halo="periodic",
+                              outputs=tuple(outputs), inputs=inputs, lattice=tuple(first.lattice),
+                              backend=backend_name(first.device), batch=batch_key)
+
     def bytes_moved(self, ins_ncomp: Mapping[str, int], nsites: int,
                     outputs: Optional[Sequence[str]] = None,
                     itemsize: int = 4, dtypes: Optional[DtypePolicy] = None) -> Dict[str, int]:
@@ -686,27 +727,53 @@ class LaunchGraph:
 
         all_layouts = ([ins[n].layout for n in ordered_ins]
                        + [out_layouts[o] for o in field_outputs])
-        if plan is None:
+
+        def default():
+            # a default plan's view stays "auto": never the block view's check
+            return default_plan(config, nsites=nsites, layouts=all_layouts,
+                                stencil=stencil, lattice=lattice, smem_views=smem_views)
+
+        from_table = False
+        if plan is None and getattr(config, "plan_policy", "default") == "tuned":
+            from . import tune
+            plan = tune.lookup(self.plan_key(ins, config=config, outputs=outputs))
+            from_table = plan is not None
+        elif plan is None:
             plan = policy_plan(config)
         if plan is None:
-            # a default plan's view stays "auto": never the block view's check
-            plan = default_plan(config, nsites=nsites, layouts=all_layouts,
-                                stencil=stencil, lattice=lattice, smem_views=smem_views)
+            plan = default()
         else:
-            plan = adapt_plan(plan, stencil=stencil)
-            plan.validate(nsites=nsites, lattice=lattice, layouts=all_layouts,
-                          stencil=stencil)
-        if stencil and plan.view == VIEW_BLOCK:
-            # the view's alignment, checked before any device is touched
-            need = self._required_rings(outputs)
-            _block_geometry(ordered_ins, [ins[n].layout for n in ordered_ins],
-                            [need.get(n, 0) for n in ordered_ins], out_layouts,
-                            field_outputs, lattice, tiled=plan.tiled)
+            try:
+                plan = adapt_plan(plan, stencil=stencil)
+                plan.validate(nsites=nsites, lattice=lattice, layouts=all_layouts,
+                              stencil=stencil)
+                if stencil and plan.view == VIEW_BLOCK:
+                    # the view's alignment, checked before any device is touched
+                    need = self._required_rings(outputs)
+                    _block_geometry(ordered_ins, [ins[n].layout for n in ordered_ins],
+                                    [need.get(n, 0) for n in ordered_ins], out_layouts,
+                                    field_outputs, lattice, tiled=plan.tiled)
+            except ValueError:
+                if not from_table:
+                    raise
+                # a table entry must never break a launch: the default plan
+                log.warning("tuned plan %s does not fit the launch of graph %r (lattice %s); "
+                            "using the default plan", plan.describe(), self.name, lattice,
+                            exc_info=True)
+                plan = default()
         # the config's policy applies where the plan carries none of its own
         _, dtypes = launch_policy(config, plan)
         if dtypes is not plan.dtypes:
             plan = dataclasses.replace(plan, dtypes=dtypes)
         policy = self._resolve_policy(plan, outputs, red_names, out_info, first)
+        if plan.engine == "cuda" and not policy.pol:
+            wide = [o for o in field_outputs
+                    if out_info[o][1].is_floating_point and out_info[o][1] != torch.float32]
+            if wide:
+                raise ValueError(
+                    f"cuda engine: a policy-free launch of graph {self.name!r} writes float32 "
+                    f"fields, but its outputs {wide} would be {first.dtype} (the first "
+                    f"input's dtype); pass a float32 first input or a dtype policy")
 
         if plan.engine == "torch" and batch:
             vals = self._launch_torch_batched(ins, in_batch, scalars, batch, outputs,
@@ -1102,6 +1169,10 @@ CG_XPAY = Kernel("cg_xpay", "rt_cg_xpay")
 # the policy's bf16 storage); x, r, p and the outputs stay fp32
 CG_UPDATE_AP16 = Kernel("cg_update_ap16", "rt_cg_update_ap16")
 CG_UPDATE_MASKED_AP16 = Kernel("cg_update_masked_ap16", "rt_cg_update_masked_ap16")
+# K3's policy instance: any of x, r, p, ap fp32 or bf16, rounded to bf16 at
+# load under bf16 storage, x_new and r_new in bf16 there, rr compensated
+# under a compensated accumulate
+CG_UPDATE_POLICY = Kernel("cg_update_policy", "rt_cg_update_policy")
 
 
 _CG_IN, _CG_OUT = ("x", "r", "p", "ap"), ("x_new", "r_new")
@@ -1113,30 +1184,71 @@ def _ap_dtype(ap: torch.Tensor) -> torch.dtype:
     return torch.bfloat16 if ap.dtype == torch.bfloat16 else torch.float32
 
 
-def cg_update_plain(x, r, p, ap, alpha, neg_alpha, layouts=None):
+def policy_stage_in(t: torch.Tensor, bf16: bool) -> torch.Tensor:
+    """An input of a policy instance's plain version as its kernel reads it:
+    fp32, a bf16 input widened (exactly), rounded to bf16 first under
+    ``bf16`` storage (the identity on a bf16 input)."""
+    return (t.to(torch.bfloat16) if bf16 else t).float()
+
+
+def cg_update_plain(x, r, p, ap, alpha, neg_alpha, layouts=None, policy=None):
     """x + alpha p, r + neg_alpha ap, and the per-component sum of the new
     residual squared — the cg_update graph's arithmetic in torch ops, on
     fields in ``layouts`` (names "x", "r", "p", "ap", "x_new", "r_new").  A
-    bf16 ap is widened to r's fp32 (exact), as the graph's type promotion
-    does."""
+    bf16 input is widened to fp32 (exact), as the graph's type promotion
+    does for ap.  ``policy`` (a ``core.plan.CudaPolicy``): under bf16
+    storage the inputs are rounded to bf16 first and x_new, r_new come back
+    in bf16; rr folds the fp32 r_new, in fp64 rounded once where
+    compensated."""
+    bf16, comp = policy or (False, False)
     lay = resolve_layouts(layouts, _CG_IN, _CG_OUT)
-    x, r, p, ap = (lay[n].unpack(t) for n, t in zip(_CG_IN, (x, r, p, ap)))
-    ap = ap.to(r.dtype)
+    x, r, p, ap = (policy_stage_in(lay[n].unpack(t), bf16) for n, t in zip(_CG_IN, (x, r, p, ap)))
     x_new = x + alpha * p
     r_new = r + neg_alpha * ap
-    return lay["x_new"].pack(x_new), lay["r_new"].pack(r_new), (r_new * r_new).sum(dim=1)
+    rr = compensated_plain(r_new * r_new, dim=1) if comp else (r_new * r_new).sum(dim=1)
+    if bf16:
+        x_new, r_new = x_new.to(torch.bfloat16), r_new.to(torch.bfloat16)
+    return lay["x_new"].pack(x_new), lay["r_new"].pack(r_new), rr
 
 
-def cg_update(x, r, p, ap, alpha, neg_alpha, vvl: int = 128, *, layouts=None, rsplit: int = 1):
+def _cg_update_policy(x, r, p, ap, alpha, neg_alpha, vvl, lay, rsplit, bf16, comp):
+    """K3's policy instance (see CG_UPDATE_POLICY)."""
+    _, nsites = lay["x"].logical_shape(x.shape)
+    ops = [check_typed_field(n, t, lay[n], 24, nsites, x.device)
+           for n, t in zip(_CG_IN, (x, r, p, ap))]
+    for name, t in (("alpha", alpha), ("neg_alpha", neg_alpha)):
+        check_tensor(name, t, (), x.device)
+    out_dt = torch.bfloat16 if bf16 else torch.float32
+    x_new, r_new = (torch.empty(lay[n].physical_shape(24, nsites), dtype=out_dt, device=x.device)
+                    for n in _CG_OUT)
+    partials = torch.empty((-(-nsites // vvl), 24) + ((2,) if comp else ()), dtype=torch.float32,
+                           device=x.device)
+    in16 = sum(1 << k for k, (_, is16) in enumerate(ops) if is16)
+    CG_UPDATE_POLICY.launch(x.device, x.data_ptr(), r.data_ptr(), p.data_ptr(), ap.data_ptr(),
+                            alpha.data_ptr(), neg_alpha.data_ptr(), x_new.data_ptr(),
+                            r_new.data_ptr(), partials.data_ptr(), nsites, in16, int(bf16),
+                            int(bf16), int(comp), *(d for d, _ in ops),
+                            *(lay[n].descriptor() for n in _CG_OUT), vvl)
+    return x_new, r_new, fold_partials(partials, "sum", compensated=comp, rsplit=rsplit)
+
+
+def cg_update(x, r, p, ap, alpha, neg_alpha, vvl: int = 128, *, layouts=None, rsplit: int = 1,
+              policy=None):
     """24-component fields x, r, p, ap (physical, in ``layouts``; names
     "x", "r", "p", "ap", "x_new", "r_new") and 0-d device scalars alpha,
     neg_alpha -> (x_new, r_new, rr (24,)).  One launch plus the partial
     fold (``rsplit`` segments, K2S where > 1).  ap may be bf16 (the refined
     solve's operator output): the kernel's ap16 instance widens it as it
-    loads it."""
+    loads it.  ``policy`` (a ``core.plan.CudaPolicy``) asking for bf16
+    storage or a compensated sum, or an x, r or p in bf16, runs the policy
+    instance (CG_UPDATE_POLICY; :func:`cg_update_plain` its plain
+    version)."""
     if x.device.type == "cpu":
-        return cg_update_plain(x, r, p, ap, alpha, neg_alpha, layouts)
+        return cg_update_plain(x, r, p, ap, alpha, neg_alpha, layouts, policy)
     lay = resolve_layouts(layouts, _CG_IN, _CG_OUT)
+    bf16, comp = policy or (False, False)
+    if bf16 or comp or any(t.dtype == torch.bfloat16 for t in (x, r, p)):
+        return _cg_update_policy(x, r, p, ap, alpha, neg_alpha, vvl, lay, rsplit, bf16, comp)
     _, nsites = lay["x"].logical_shape(x.shape)
     ap_dt = _ap_dtype(ap)
     desc = [check_field(n, t, lay[n], 24, nsites, x.device, dt)

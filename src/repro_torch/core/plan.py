@@ -39,8 +39,9 @@ makes precision a lowering decision: the storage dtype fields are staged
 in and written in, the compute dtype of the arithmetic, and the accumulate
 dtype of terminal sums.  The footprint model prices a policy's launch at
 its storage itemsize.  The cuda engine has policy instances of the
-wilson_normal and ludwig_lb_step kernels, untiled and tiled, and of K2's
-sum (``cuda_policy`` says which policies they take); a policy on any other
+wilson_normal and ludwig_lb_step kernels, untiled and tiled, of the flat
+chains cg_update, ludwig_chem_stress and ludwig_lc_update, and of K2's sum
+(``cuda_policy`` says which policies they take); a policy on any other
 graph raises.
 
 ``rsplit`` splits a launch's terminal reductions: the stage-1 partial rows
@@ -58,14 +59,23 @@ layout in place through INDEX, so on the card a block-view launch runs the
 same kernels as a staged-nd one; the view is validated exactly as the JAX
 package validates it, and a misaligned explicit "block" raises.
 
-Not yet ported: the halo strategies of the sharded path, the autotuned plan
-policy and its dtype twins.
+The plan autotuner (``core.tune``) sweeps :func:`candidate_plans`, the JAX
+package's candidate set on the cuda engine: block sizes (site-local) or
+x-slabs (stencil), ``view="block"``, ``rsplit``, tiled and dtype-policy
+twins, pruned by the shared-memory budget.  Under ``plan_policy="tuned"`` a
+LaunchGraph launch runs the persisted winner for its :func:`graph_plan_key`;
+site-local launches and standalone reductions carry no graph key and plan
+with the default heuristics.
+
+Not yet ported: the halo strategies of the sharded path (and with them the
+tuner's ``halo="overlap"`` twins).
 """
 
 from __future__ import annotations
 
 import dataclasses
 import functools
+import hashlib
 import logging
 import math
 import os
@@ -78,7 +88,8 @@ __all__ = ["LoweringPlan", "DtypePolicy", "ACCUM_COMPENSATED", "dtype_itemsize",
            "choose_tiles", "block_view_ok", "adapt_plan", "VIEW_AUTO", "VIEW_BLOCK",
            "VIEW_STAGED_ND",
            "tile_extents", "estimate_smem_bytes", "resolved_smem_bytes",
-           "default_plan", "plan_for_launch", "policy_plan", "ENGINES", "WARP",
+           "default_plan", "plan_for_launch", "policy_plan", "candidate_plans",
+           "graph_plan_key", "ENGINES", "WARP",
            "MAX_BLOCK", "SMEM_ENV", "SMEM_PER_BLOCK_OPTIN"]
 
 log = logging.getLogger(__name__)
@@ -643,18 +654,17 @@ def default_plan(config, *, nsites: int, layouts: Sequence[Layout],
 
 
 def policy_plan(config) -> Optional[LoweringPlan]:
-    """The explicit plan of ``config.plan_policy``, or None for "default"."""
+    """The explicit plan of ``config.plan_policy``, or None for "default"
+    and "tuned" (a LaunchGraph launch looks "tuned" up in the table,
+    ``core.tune``; every other launch plans with the default heuristics,
+    as in the JAX package)."""
     policy = getattr(config, "plan_policy", "default")
     if isinstance(policy, LoweringPlan):
         return policy
-    if policy == "tuned":
+    if policy not in ("default", "tuned"):
         raise ValueError(
-            "plan_policy='tuned' (the plan autotuner, ROADMAP item 19) is not "
-            "yet ported; use 'default' or an explicit LoweringPlan")
-    if policy != "default":
-        raise ValueError(
-            f"unknown plan_policy {policy!r}; use 'default' or an explicit "
-            f"LoweringPlan")
+            f"unknown plan_policy {policy!r}; use 'default', 'tuned' or an "
+            f"explicit LoweringPlan")
     return None
 
 
@@ -671,10 +681,157 @@ def launch_policy(config, plan: Optional[LoweringPlan] = None) -> Tuple[str, Opt
 
 def plan_for_launch(config, nsites: int, layouts: Sequence[Layout]) -> LoweringPlan:
     """Plan one site-local launch: the explicit plan of
-    ``config.plan_policy`` (validated) or :func:`default_plan`."""
+    ``config.plan_policy`` (validated) or :func:`default_plan` (also under
+    "tuned": a single launch has no graph signature to key the table on)."""
     plan = policy_plan(config)
     if plan is not None:
         if plan.bx and not plan.tiled:   # adapt_plan's site-local fit
             plan = dataclasses.replace(plan, bx=0)
         return plan.validate(nsites=nsites, layouts=layouts)
     return default_plan(config, nsites=nsites, layouts=layouts)
+
+
+# -- the autotuner's candidate set --------------------------------------------------
+
+def _dtype_twin_policies(in_dtype: Optional[str]):
+    """Dtype-policy twins worth sweeping for a launch whose float inputs
+    share ``in_dtype`` (the JAX package's rule): narrower storage, fp32
+    compute and float64 accumulation (compensated fp32, resolve_accumulate).
+    The tuner's accuracy gate rejects any twin that drifts past it."""
+    if in_dtype == "float32":
+        return [DtypePolicy(storage="bfloat16", compute="float32", accumulate="float64")]
+    if in_dtype == "float64":
+        return [DtypePolicy(storage="float32", compute="float32", accumulate="float64")]
+    return []
+
+
+def candidate_plans(config, *, nsites: int, layouts: Sequence[Layout],
+                    stencil: bool = False, lattice: Optional[Tuple[int, ...]] = None,
+                    max_candidates: int = 8, block_view: Optional[bool] = None,
+                    reduce: bool = False, smem_views=None,
+                    in_dtype: Optional[str] = None) -> Tuple[LoweringPlan, ...]:
+    """The autotuner's sweep set for one launch, deterministically: the JAX
+    package's ``candidate_plans`` on the cuda engine, the default plan
+    first.  The torch engine has nothing to sweep: its one candidate is the
+    default plan.
+
+    Site-local: vvl over the divisors of nsites that are whole warps and
+    multiples of every AoSoA SAL in play, up to 8x the heuristic budget
+    (and a block's 1024 threads), evenly spread.  Stencil: bx over the
+    divisors of the leading lattice dim, up to 8x the slab budget, on the
+    default's vvl.  The untiled kernels run vvl blocks whatever bx says, so
+    the untiled bx candidates launch the default's kernel (the min_gain
+    hysteresis keeps the default among them); they stay in the set, which
+    is the reference's.  For the same reason an untiled default stencil
+    plan carries the reference's slab ``choose_slab(lattice[0], ...)``
+    here, the bx its split and view twins derive from.
+
+    Twins, as in the reference: two ``view="block"`` ones (the default slab
+    and the widest swept) where ``block_view`` (None: an AoSoA layout is in
+    play); ``rsplit`` ones on a launch with a terminal reduction
+    (``reduce``); up to two tiled ones on a stencil lattice with a y (and
+    z) axis; and the dtype-policy twins of ``in_dtype``
+    (:func:`_dtype_twin_policies`).  The sharded path's ``halo="overlap"``
+    twins are not ported.  With a shared-memory budget and the launch's
+    footprint descriptor ``smem_views``, a stencil candidate whose
+    estimated footprint exceeds the budget is dropped and logged; if no
+    untiled slab fits, the set is tiled only."""
+    default = default_plan(config, nsites=nsites, layouts=layouts, stencil=stencil,
+                           lattice=lattice, smem_views=smem_views)
+    if default.engine != "cuda":
+        return (default,)
+    if stencil:
+        inner = math.prod(lattice[1:])
+        budget = max(int(config.vvl), inner)
+        smem_budget = resolved_smem_bytes(config)
+        if not default.bx:
+            default = dataclasses.replace(
+                default, bx=choose_slab(lattice[0], inner, config.vvl))
+        untiled_default = (dataclasses.replace(default, by=0, bz=0) if default.tiled
+                           else default)
+
+        def over_budget(c):
+            if not (smem_budget and smem_views):
+                return False
+            fp = estimate_smem_bytes(c, lattice=lattice, in_views=smem_views[0],
+                                     out_views=smem_views[1])
+            if fp <= smem_budget:
+                return False
+            log.info("candidate %s skipped: estimated per-block shared memory %d B "
+                     "exceeds budget %d B", c.describe(footprint=fp), fp, smem_budget)
+            return True
+
+        bxs = [bx for bx in divisors(lattice[0])
+               if bx * inner <= 8 * budget
+               and not over_budget(dataclasses.replace(untiled_default, bx=bx))]
+        bxs = bxs or ([] if default.tiled else [default.bx])
+        if block_view is None:
+            block_view = any(lay.kind is LayoutKind.AOSOA for lay in layouts)
+        # split twins off the default geometry (or the narrowest swept slab
+        # when the default lowers the whole extent as one slab)
+        red_twins = []
+        if reduce:
+            base = default
+            if bxs and lattice[0] // base.bx < 2 and min(bxs) < base.bx:
+                base = dataclasses.replace(default, bx=min(bxs))
+            red_twins = [dataclasses.replace(base, rsplit=r)
+                         for r in _rsplit_factors(lattice[0] // base.bx)]
+        # tiled twins: the default slab with y split, and with y and z split
+        tile_twins = []
+        if len(lattice) > 1 and len(divisors(lattice[1])) > 1:
+            t1 = dataclasses.replace(default, by=divisors(lattice[1])[-2], bz=0)
+            tile_twins.append(t1)
+            if len(lattice) > 2 and len(divisors(lattice[2])) > 1:
+                tile_twins.append(dataclasses.replace(t1, bz=divisors(lattice[2])[-2]))
+        tile_twins = [t for t in tile_twins if t != default and not over_budget(t)]
+        dtype_twins = [dataclasses.replace(default, dtypes=p)
+                       for p in _dtype_twin_policies(in_dtype)]
+        dtype_twins = [t for t in dtype_twins if not over_budget(t)]
+        n_twins = ((2 if block_view else 0) + len(red_twins) + len(tile_twins)
+                   + len(dtype_twins))
+        spread_bxs = _spread(bxs, max(1, max_candidates - n_twins))
+        cands = [dataclasses.replace(untiled_default, bx=bx) for bx in spread_bxs]
+        if block_view:
+            cands += [dataclasses.replace(default, bx=bx, view=VIEW_BLOCK)
+                      for bx in sorted({default.bx, *spread_bxs[-1:]})[:2]]
+        cands += red_twins + tile_twins + dtype_twins
+    else:
+        align = sal_alignment(layouts)
+        align = align * WARP // math.gcd(align, WARP)
+        cap = min(8 * max(int(config.vvl), 128), MAX_BLOCK)
+        vs = [v for v in divisors(nsites) if v % align == 0 and v <= cap] or [default.vvl]
+        red_twins = []
+        if reduce:
+            base = default
+            if nsites // base.vvl < 2 and vs[0] < base.vvl:
+                base = dataclasses.replace(default, vvl=vs[0])
+            red_twins = [dataclasses.replace(base, rsplit=r)
+                         for r in _rsplit_factors(nsites // base.vvl)]
+        dtype_twins = [dataclasses.replace(default, dtypes=p)
+                       for p in _dtype_twin_policies(in_dtype)]
+        k = max(1, max_candidates - len(red_twins) - len(dtype_twins))
+        cands = [dataclasses.replace(default, vvl=v) for v in _spread(vs, k)]
+        cands += red_twins + dtype_twins
+    out = [default]
+    for c in cands:
+        if c not in out:
+            out.append(c)
+    for c in out:
+        c.validate(nsites=nsites, lattice=lattice, layouts=layouts, stencil=stencil)
+    return tuple(out[:max_candidates + 1])
+
+
+def graph_plan_key(signature, *, engine: str, halo: str, outputs: Sequence[str], inputs,
+                   lattice: Tuple[int, ...], backend: str, batch=0) -> str:
+    """The tune table's key of one launch: (graph signature, input names,
+    widths, dtypes, layouts and lattices, lattice, engine, halo, outputs,
+    backend, batch) hashed, behind a readable prefix.  The signature must be
+    process-stable: kernel names and wiring, never function objects
+    (``LaunchGraph.plan_signature``).  ``batch`` is the batched launch's
+    (batch size, per-input batched flags); 0 for a single launch."""
+    parts = (signature, engine, halo, tuple(outputs), tuple(inputs), tuple(lattice), backend)
+    if batch:
+        parts = parts + (batch,)
+    digest = hashlib.sha256(repr(parts).encode()).hexdigest()[:16]
+    name = signature[0] if isinstance(signature, tuple) and signature else "g"
+    return f"{name}|{backend}|{engine}|{digest}"

@@ -47,8 +47,11 @@ class TargetConfig:
     device       where the drivers place the Fields they create ("cuda" or
                  "cpu"); a CUDA device with no card present raises.
     vvl          sites per CUDA block (the paper's Virtual Vector Length).
-    plan_policy  "default" (core.plan.default_plan) or an explicit
-                 LoweringPlan for every launch; "tuned" is not yet ported.
+    plan_policy  "default" (core.plan.default_plan), "tuned" (each
+                 LaunchGraph launch runs the autotuner's persisted winner,
+                 core.tune; a miss, a site-local launch or a standalone
+                 reduction plans by default) or an explicit LoweringPlan for
+                 every launch.
     smem_bytes   shared-memory byte budget of a stencil launch's block.  None
                  defers to $TARGETDP_TORCH_SMEM_BYTES, 0 means unbounded; a
                  budget makes the default plans tile stencil launches whose

@@ -82,8 +82,32 @@
 // promotes bf16 x fp32 to fp32, so the outputs stay fp32 and only ap's load
 // widens (exactly).  The same kernel with TAP = __nv_bfloat16: 48 fewer
 // bytes a site (528 against 576).
+//
+// K3's policy instance (rt_cg_update_policy): the cg_update graph under a
+// DtypePolicy (core/fuse.py::_build_flat under _stage_in_cast :349, output
+// dtypes :960-985) and under the policy-free launch whose inputs are not
+// all fp32.  Each of x, r, p, ap is fp32 or bf16 (bit k of in16: x, r, p,
+// ap).  A bf16 input is widened as it is loaded (exactly); an fp32 one is
+// rounded to bf16 first where rb is set (the policy's bf16 storage: the
+// stage-in round, __float2bfloat16_rn as torch's .to(bfloat16)), so a bf16
+// input is read as it comes, the round being the identity on it.  The
+// arithmetic is fp32 and the same rt_xpay as the policy-free kernels;
+// OUT16 writes x_new and r_new in bf16 (one rounding of the fp32 result),
+// and r_new^2 folds from the fp32 r_new, as the reference's reduction
+// reads the compute-dtype value.  COMP folds the partial rows as (hi, lo)
+// pairs (comp.cuh), folded by reduce.cu's compensated pass 2.  With rb,
+// OUT16 and COMP off and every input fp32 it is the policy-free kernel's
+// arithmetic, so under the accumulate-only policy (COMP alone) x_new and
+// r_new are bitwise the policy-free kernel's.  Same-layout launches take
+// the vector path (float4s of fp32 operands, 8-byte runs of four bf16; a
+// launch whose inputs are all fp32, the sweep's and the tuned solve's,
+// loads them with no type branch), which folds a compensated rr one pair
+// add an element (rt_cg_table_partials_comp); the rest the one-thread-a-
+// site path, with comp.cuh's tree fold.  Bound: bytes; fp32 in and bf16
+// out, 4 x 96 + 2 x 48 = 480 B a site (576 policy-free).
 
 #include "bf16.cuh"
+#include "comp.cuh"
 
 #define RT_SPINOR 24
 #define RT_XPAY_THREADS 256
@@ -256,6 +280,254 @@ __global__ void cg_update_vec_kernel(const float* __restrict__ x, const float* _
   for (int c = 0; c < RT_SPINOR; ++c)
     sq[c] = (int)threadIdx.x < ns ? rt_cg_sq[c * vvl + threadIdx.x] : 0.0f;
   rt_block_partials<RT_SPINOR>(sq, RT_OP_SUM, partials + (long long)blockIdx.x * RT_SPINOR);
+}
+
+// -- K3's policy instance ------------------------------------------------------------
+
+// Value i of an fp32 or bf16 (is16) operand as fp32: a bf16 one widened, an
+// fp32 one rounded to bf16 first where rb.
+__device__ __forceinline__ float rt_ldt(const void* __restrict__ p, long long i, bool is16,
+                                        bool rb) {
+  if (is16) return __bfloat162float(static_cast<const __nv_bfloat16*>(p)[i]);
+  const float v = static_cast<const float*>(p)[i];
+  return rb ? rt_bf16_if<true>(v) : v;
+}
+
+// Four consecutive values of such an operand from element o (16-byte
+// aligned fp32, 8-byte aligned bf16).
+__device__ __forceinline__ float4 rt_ld4t(const void* __restrict__ p, int o, bool is16, bool rb) {
+  if (is16) return rt_ld4(static_cast<const __nv_bfloat16*>(p) + o);
+  float4 v = rt_ld4(static_cast<const float*>(p) + o);
+  if (rb)
+    v = make_float4(rt_bf16_if<true>(v.x), rt_bf16_if<true>(v.y), rt_bf16_if<true>(v.z),
+                    rt_bf16_if<true>(v.w));
+  return v;
+}
+
+// The same loads where the launch's inputs are all fp32 (!ANY16): no branch
+// on the type, so the loads issue back to back.
+template <bool ANY16>
+__device__ __forceinline__ float rt_ldt(const void* __restrict__ p, long long i, bool is16,
+                                        bool rb) {
+  if (ANY16) return rt_ldt(p, i, is16, rb);
+  const float v = static_cast<const float*>(p)[i];
+  return rb ? rt_bf16_if<true>(v) : v;
+}
+template <bool ANY16>
+__device__ __forceinline__ float4 rt_ld4t(const void* __restrict__ p, int o, bool is16, bool rb) {
+  return rt_ld4t(p, o, ANY16 && is16, rb);
+}
+
+// A store of one value or four (from element o) in the output type: bf16
+// (rounded) where OUT16, else fp32.
+template <bool OUT16>
+__device__ __forceinline__ void rt_stt(void* __restrict__ p, long long i, float v) {
+  if (OUT16) rt_st(static_cast<__nv_bfloat16*>(p), i, v);
+  else static_cast<float*>(p)[i] = v;
+}
+template <bool OUT16>
+__device__ __forceinline__ void rt_st4t(void* __restrict__ p, int o, float4 v) {
+  if (OUT16) {
+    const __nv_bfloat162 lo = __halves2bfloat162(__float2bfloat16_rn(v.x),
+                                                 __float2bfloat16_rn(v.y));
+    const __nv_bfloat162 hi = __halves2bfloat162(__float2bfloat16_rn(v.z),
+                                                 __float2bfloat16_rn(v.w));
+    *reinterpret_cast<uint2*>(static_cast<__nv_bfloat16*>(p) + o) =
+        make_uint2(*reinterpret_cast<const unsigned*>(&lo),
+                   *reinterpret_cast<const unsigned*>(&hi));
+  } else {
+    *reinterpret_cast<float4*>(static_cast<float*>(p) + o) = v;
+  }
+}
+
+// The block's partial row from its threads' r_new^2: plain, or (hi, lo)
+// pairs where COMP (a row of 2 x 24 floats).
+template <bool COMP>
+__device__ __forceinline__ void rt_cg_partials(const float (&sq)[RT_SPINOR],
+                                               float* __restrict__ partials) {
+  if (COMP) rt_block_partials_comp<RT_SPINOR>(sq, partials + (long long)blockIdx.x * 2 * RT_SPINOR);
+  else rt_block_partials<RT_SPINOR>(sq, RT_OP_SUM, partials + (long long)blockIdx.x * RT_SPINOR);
+}
+
+// The policy instance's one-thread-a-site path (any layouts, any vvl).
+template <int K, bool OUT16, bool COMP>
+__global__ void cg_update_policy_kernel(const void* __restrict__ x, const void* __restrict__ r,
+                                        const void* __restrict__ p, const void* __restrict__ ap,
+                                        const float* __restrict__ alpha,
+                                        const float* __restrict__ neg_alpha,
+                                        void* __restrict__ x_new, void* __restrict__ r_new,
+                                        float* __restrict__ partials, long long nsites,
+                                        rt_cg_layouts L, unsigned in16, bool rb) {
+  const long long s = blockIdx.x * (long long)blockDim.x + threadIdx.x;
+  const bool live = s < nsites;
+  const float a = alpha[0];
+  const float na = neg_alpha[0];
+  float sq[RT_SPINOR];
+#pragma unroll
+  for (int c = 0; c < RT_SPINOR; ++c) {
+    sq[c] = 0.0f;
+    if (live) {
+      const float xn = rt_xpay(rt_ldt(x, rt_at<K>(L.x, c, s, RT_SPINOR, nsites), in16 & 1u, rb),
+                               a, rt_ldt(p, rt_at<K>(L.p, c, s, RT_SPINOR, nsites), in16 & 4u, rb));
+      const float rn = rt_xpay(rt_ldt(r, rt_at<K>(L.r, c, s, RT_SPINOR, nsites), in16 & 2u, rb),
+                               na, rt_ldt(ap, rt_at<K>(L.ap, c, s, RT_SPINOR, nsites), in16 & 8u, rb));
+      rt_stt<OUT16>(x_new, rt_at<K>(L.x_new, c, s, RT_SPINOR, nsites), xn);
+      rt_stt<OUT16>(r_new, rt_at<K>(L.r_new, c, s, RT_SPINOR, nsites), rn);
+      sq[c] = rn * rn;
+    }
+  }
+  rt_cg_partials<COMP>(sq, partials);
+}
+
+// The compensated partial row of a block's (24, vvl) table of r_new^2 (row
+// stride S, n live sites): thread t folds component t % 24 over the sites
+// t / 24, t / 24 + G, ... in order as a (hi, lo) pair (G = blockDim.x / 24
+// threads a component), then thread c combines its component's G pairs in
+// order.  One pair add an element: the tree fold of rt_block_partials_comp,
+// 5 shuffled pair adds a component a thread, costs ~1,400 instructions a
+// site and held this path at 1.36x the policy-free kernel's time (H100 80GB
+// HBM3, 700 W, milc_small; PERF.md).
+__device__ __forceinline__ void rt_cg_table_partials_comp(const float* __restrict__ tab, int S,
+                                                          int n, float* __restrict__ row) {
+  __shared__ rt_pair part[RT_CG_MAX_VVL];
+  const int G = blockDim.x / RT_SPINOR;
+  const int t = threadIdx.x, c = t % RT_SPINOR, g = t / RT_SPINOR;
+  if (g < G) {
+    rt_pair acc{0.0f, 0.0f};
+    for (int l = g; l < n; l += G) acc = rt_pair_add(acc, rt_pair{tab[c * S + l], 0.0f});
+    part[g * RT_SPINOR + c] = acc;
+  }
+  __syncthreads();
+  if (t < RT_SPINOR) {
+    rt_pair acc = part[t];
+    for (int k = 1; k < G; ++k) acc = rt_pair_add(acc, part[k * RT_SPINOR + t]);
+    row[2 * t] = acc.hi;
+    row[2 * t + 1] = acc.lo;
+  }
+}
+
+// The policy instance's vector path: cg_update_vec_kernel's chunks and
+// shared r_new^2 table (a row a component, padded to vvl + 1 against bank
+// conflicts) with typed loads and stores; ANY16: some input is bf16.
+template <int K, bool OUT16, bool COMP, bool ANY16>
+__global__ void cg_update_policy_vec_kernel(const void* __restrict__ x, const void* __restrict__ r,
+                                            const void* __restrict__ p,
+                                            const void* __restrict__ ap,
+                                            const float* __restrict__ alpha,
+                                            const float* __restrict__ neg_alpha,
+                                            void* __restrict__ x_new, void* __restrict__ r_new,
+                                            float* __restrict__ partials, int nsites, rt_layout L,
+                                            unsigned in16, bool rb) {
+  extern __shared__ float rt_cg_sq[];
+  const int shift = K == RT_K_AOSOA ? L.shift : 0;
+  const int vvl = blockDim.x;
+  const int S = vvl + 1;
+  const int s0 = blockIdx.x * vvl;
+  const int ns = min(vvl, nsites - s0);
+  const float a = alpha[0];
+  const float na = neg_alpha[0];
+  const bool x16 = in16 & 1u, r16 = in16 & 2u, p16 = in16 & 4u, ap16 = in16 & 8u;
+  const int base = K == RT_K_SOA ? s0 : s0 * RT_SPINOR;
+  if (ns == vvl) {
+    float4 xv[RT_CG_VECS], rv[RT_CG_VECS], pv[RT_CG_VECS], apv[RT_CG_VECS];
+    int cs[RT_CG_VECS], ls[RT_CG_VECS], offs[RT_CG_VECS];
+#pragma unroll
+    for (int k = 0; k < RT_CG_VECS; ++k) {
+      rt_cg_elem<K>(4 * (threadIdx.x + k * vvl), vvl, nsites, shift, cs[k], ls[k], offs[k]);
+      const int o = base + offs[k];
+      xv[k] = rt_ld4t<ANY16>(x, o, x16, rb);
+      rv[k] = rt_ld4t<ANY16>(r, o, r16, rb);
+      pv[k] = rt_ld4t<ANY16>(p, o, p16, rb);
+      apv[k] = rt_ld4t<ANY16>(ap, o, ap16, rb);
+    }
+#pragma unroll
+    for (int k = 0; k < RT_CG_VECS; ++k) {
+      xv[k] = make_float4(rt_xpay(xv[k].x, a, pv[k].x), rt_xpay(xv[k].y, a, pv[k].y),
+                          rt_xpay(xv[k].z, a, pv[k].z), rt_xpay(xv[k].w, a, pv[k].w));
+      rv[k] = make_float4(rt_xpay(rv[k].x, na, apv[k].x), rt_xpay(rv[k].y, na, apv[k].y),
+                          rt_xpay(rv[k].z, na, apv[k].z), rt_xpay(rv[k].w, na, apv[k].w));
+      const int o = base + offs[k];
+      rt_st4t<OUT16>(x_new, o, xv[k]);
+      rt_st4t<OUT16>(r_new, o, rv[k]);
+      const float q[4] = {rv[k].x, rv[k].y, rv[k].z, rv[k].w};
+#pragma unroll
+      for (int i = 0; i < 4; ++i) {
+        int c = cs[k], l = ls[k], off;
+        if (i) rt_cg_elem<K>(4 * (threadIdx.x + k * vvl) + i, vvl, nsites, shift, c, l, off);
+        rt_cg_sq[c * S + l] = q[i] * q[i];
+      }
+    }
+  } else {
+    for (int e = threadIdx.x; e < RT_SPINOR * ns; e += vvl) {
+      const int c = e / ns, l = e - c * ns;
+      const int xi = rt_at<K, int>(L, c, s0 + l, RT_SPINOR, nsites);
+      const float xn = rt_xpay(rt_ldt<ANY16>(x, xi, x16, rb), a, rt_ldt<ANY16>(p, xi, p16, rb));
+      const float rn = rt_xpay(rt_ldt<ANY16>(r, xi, r16, rb), na,
+                               rt_ldt<ANY16>(ap, xi, ap16, rb));
+      rt_stt<OUT16>(x_new, xi, xn);
+      rt_stt<OUT16>(r_new, xi, rn);
+      rt_cg_sq[c * S + l] = rn * rn;
+    }
+  }
+  __syncthreads();
+  if (COMP) {
+    rt_cg_table_partials_comp(rt_cg_sq, S, ns, partials + (long long)blockIdx.x * 2 * RT_SPINOR);
+    return;
+  }
+  float sq[RT_SPINOR];
+#pragma unroll
+  for (int c = 0; c < RT_SPINOR; ++c)
+    sq[c] = (int)threadIdx.x < ns ? rt_cg_sq[c * S + threadIdx.x] : 0.0f;
+  rt_block_partials<RT_SPINOR>(sq, RT_OP_SUM, partials + (long long)blockIdx.x * RT_SPINOR);
+}
+
+// Whether p is aligned for the vector path's runs of an operand: 16 bytes
+// (four fp32) or 8 (four bf16).
+static inline bool rt_aligned_t(const void* p, bool is16) {
+  return (reinterpret_cast<unsigned long long>(p) & (is16 ? 7ull : 15ull)) == 0;
+}
+
+template <bool OUT16, bool COMP>
+static int rt_cg_update_policy_launch(const void* x, const void* r, const void* p,
+                                      const void* ap, const float* alpha,
+                                      const float* neg_alpha, void* x_new, void* r_new,
+                                      float* partials, long long nsites, unsigned in16, bool rb,
+                                      const int* desc, int block, cudaStream_t stream) {
+  rt_layout L[6];
+  for (int k = 0; k < 6; ++k) L[k] = rt_make_layout(desc[k]);
+  const int k = rt_launch_class(L, 6);
+  if (k < 0) return RT_BAD_LAYOUT;
+  if (nsites == 0) return 0;
+  const rt_cg_layouts cl{L[0], L[1], L[2], L[3], L[4], L[5]};
+  bool vec = k != RT_K_ANY && block % 32 == 0 && block <= RT_CG_MAX_VVL &&
+             block % L[0].sal == 0 && RT_SPINOR * nsites < (1LL << 31) &&
+             (k != RT_K_SOA || nsites % 4 == 0);
+  const void* ins[4] = {x, r, p, ap};
+  for (int i = 0; i < 4; ++i) vec = vec && rt_aligned_t(ins[i], in16 & (1u << i));
+  vec = vec && rt_aligned_t(x_new, OUT16) && rt_aligned_t(r_new, OUT16);
+  if (vec) {
+    const size_t smem = sizeof(float) * RT_SPINOR * (block + 1);
+    const unsigned grid = rt_grid(nsites, block);
+#define RT_CG_POL_VEC(KK, A16)                                                                 \
+  cg_update_policy_vec_kernel<KK, OUT16, COMP, A16><<<grid, block, smem, stream>>>(            \
+      x, r, p, ap, alpha, neg_alpha, x_new, r_new, partials, (int)nsites, L[0], in16, rb)
+    if (in16) {
+      if (k == RT_K_SOA) RT_CG_POL_VEC(RT_K_SOA, true);
+      else if (k == RT_K_AOS) RT_CG_POL_VEC(RT_K_AOS, true);
+      else RT_CG_POL_VEC(RT_K_AOSOA, true);
+    } else {
+      if (k == RT_K_SOA) RT_CG_POL_VEC(RT_K_SOA, false);
+      else if (k == RT_K_AOS) RT_CG_POL_VEC(RT_K_AOS, false);
+      else RT_CG_POL_VEC(RT_K_AOSOA, false);
+    }
+#undef RT_CG_POL_VEC
+    RT_LAUNCH_RESULT();
+  }
+  RT_WITH_CLASS(k, cg_update_policy_kernel<RT_K, OUT16, COMP><<<rt_grid(nsites, block), block, 0,
+                                                                stream>>>(
+                       x, r, p, ap, alpha, neg_alpha, x_new, r_new, partials, nsites, cl, in16,
+                       rb))
+  RT_LAUNCH_RESULT();
 }
 
 // cg_xpay's vector path (see the header); the slot is blockIdx.y, sx, sy:
@@ -443,6 +715,30 @@ static int rt_xpay_launch(const float* x, const float* y, const float* a, const 
 }
 
 extern "C" {
+
+// K3's policy instance.  x, r, p, ap: fp32 or bf16 (bit 0 ... 3 of in16)
+// 24 x nsites fields; rb: round fp32 inputs to bf16 at load; out16: x_new,
+// r_new in bf16 (else fp32); comp: partials (ceil(nsites / block), 24, 2)
+// (hi, lo) pairs (else (ceil(nsites / block), 24)); layouts and scalars as
+// rt_cg_update's.
+int rt_cg_update_policy(const void* x, const void* r, const void* p, const void* ap,
+                        const float* alpha, const float* neg_alpha, void* x_new, void* r_new,
+                        float* partials, long long nsites, int in16, int rb, int out16, int comp,
+                        int lx, int lr, int lp, int lap, int lxn, int lrn, int block,
+                        cudaStream_t stream) {
+  const int desc[6] = {lx, lr, lp, lap, lxn, lrn};
+#define RT_CG_POL(O16, C)                                                                      \
+  return rt_cg_update_policy_launch<O16, C>(x, r, p, ap, alpha, neg_alpha, x_new, r_new,     \
+                                            partials, nsites, (unsigned)in16, rb != 0, desc,  \
+                                            block, stream)
+  if (out16) {
+    if (comp) RT_CG_POL(true, true);
+    RT_CG_POL(true, false);
+  }
+  if (comp) RT_CG_POL(false, true);
+  RT_CG_POL(false, false);
+#undef RT_CG_POL
+}
 
 // x, r, p, ap, x_new, r_new: 24 x nsites fields, each in the layout of its
 // descriptor (lx ... lrn); alpha, neg_alpha: one fp32 on the device each;

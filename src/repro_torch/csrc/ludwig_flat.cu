@@ -30,6 +30,25 @@
 //                          tolerance; whether it is bitwise the K3L pair's
 //                          composition is measured on the card (PERF.md).
 //
+// K3L's policy instances (rt_ludwig_chem_stress_policy,
+// rt_ludwig_lc_update_policy) are the same two kernels with POL set: the
+// ludwig_chem_stress and ludwig_lc_update graphs under a DtypePolicy
+// (_build_flat under _stage_in_cast :349, output dtypes :960-985), and
+// under the policy-free launch whose inputs are not all fp32.  Each input
+// is fp32 or bf16 (bit k of in16, in argument order); a bf16 input is
+// widened as it is loaded (exactly), an fp32 one rounded to bf16 first
+// where rb is set (the policy's bf16 storage: __float2bfloat16_rn, torch's
+// .to(bfloat16)), so a bf16 input is read as it comes, the round being the
+// identity on it; a launch whose inputs are all fp32 (the sweep's twin, a
+// tuned step's launches) takes an instance with no type branch on its
+// loads.  The arithmetic is the fp32 device functions below,
+// unchanged; OUT16 writes the fields in bf16 (one rounding of the fp32
+// result), and the stress reads h's fp32 values, as the reference's stress
+// stage reads the compute-dtype h.  With POL off the loads and stores are
+// the fp32 ones, so the policy-free kernels compile as before.  Bound:
+// bytes; fp32 in and bf16 out, chem_stress 100 + 28 = 128 B a site (156
+// policy-free), lc_update 96 + 10 = 106 B (116).
+//
 // No flat graph has a terminal reduction, so each is one launch, one
 // thread per site, fields only.  Every tensor comes with its own layout
 // descriptor (SoA, AoS or AoSoA) and is loaded and stored through INDEX
@@ -61,7 +80,7 @@
 // with no spills, so registers do not limit occupancy at 128 threads a
 // block.
 
-#include "common.cuh"
+#include "bf16.cuh"
 
 struct rt_m3 {
   float m[3][3];
@@ -92,6 +111,46 @@ __device__ __forceinline__ void rt_store_q5(float* __restrict__ x, const rt_layo
   x[rt_at<K>(L, 2, s, 5, V)] = a.m[0][2];
   x[rt_at<K>(L, 3, s, 5, V)] = a.m[1][1];
   x[rt_at<K>(L, 4, s, 5, V)] = a.m[1][2];
+}
+
+// Value i of an input: fp32 where !POL; else fp32 or bf16 (is16, looked at
+// only where the launch has a bf16 input: ANY16), a bf16 one widened and an
+// fp32 one rounded to bf16 first where rb.
+template <bool POL, bool ANY16>
+__device__ __forceinline__ float rt_lc_ld(const void* __restrict__ x, long long i, bool is16,
+                                          bool rb) {
+  if (POL && ANY16 && is16) return __bfloat162float(static_cast<const __nv_bfloat16*>(x)[i]);
+  const float v = static_cast<const float*>(x)[i];
+  return POL && rb ? rt_bf16_if<true>(v) : v;
+}
+
+// A store in the output type: bf16 (rounded) where OUT16, else fp32.
+template <bool OUT16>
+__device__ __forceinline__ void rt_lc_st(void* __restrict__ x, long long i, float v) {
+  if (OUT16) rt_st(static_cast<__nv_bfloat16*>(x), i, v);
+  else static_cast<float*>(x)[i] = v;
+}
+
+// rt_load_q and rt_store_q5 through rt_lc_ld and rt_lc_st.
+template <int K, bool POL, bool ANY16>
+__device__ __forceinline__ rt_m3 rt_load_qt(const void* __restrict__ x, const rt_layout& L,
+                                            int ncomp, long long V, long long s, int comp0,
+                                            bool is16, bool rb) {
+  float q[5];
+#pragma unroll
+  for (int c = 0; c < 5; ++c)
+    q[c] = rt_lc_ld<POL, ANY16>(x, rt_at<K>(L, comp0 + c, s, ncomp, V), is16, rb);
+  return rt_q5_to_mat(q[0], q[1], q[2], q[3], q[4]);
+}
+
+template <int K, bool OUT16>
+__device__ __forceinline__ void rt_store_q5t(void* __restrict__ x, const rt_layout& L,
+                                             long long V, long long s, const rt_m3& a) {
+  rt_lc_st<OUT16>(x, rt_at<K>(L, 0, s, 5, V), a.m[0][0]);
+  rt_lc_st<OUT16>(x, rt_at<K>(L, 1, s, 5, V), a.m[0][1]);
+  rt_lc_st<OUT16>(x, rt_at<K>(L, 2, s, 5, V), a.m[0][2]);
+  rt_lc_st<OUT16>(x, rt_at<K>(L, 3, s, 5, V), a.m[1][1]);
+  rt_lc_st<OUT16>(x, rt_at<K>(L, 4, s, 5, V), a.m[1][2]);
 }
 
 // sum(a[i][k] * b[k][j] for k in range(3)), as Python's sum adds them.
@@ -240,52 +299,62 @@ struct rt_lc_layouts {
   rt_layout a, b, c, d, e;
 };
 
-// q, lapq, dq -> h, sigma: layouts a ... e.
-template <int K>
-__global__ void ludwig_chem_stress_kernel(const float* __restrict__ q,
-                                          const float* __restrict__ lapq,
-                                          const float* __restrict__ dq, float* __restrict__ h,
-                                          float* __restrict__ sigma, long long V,
+// q, lapq, dq -> h, sigma: layouts a ... e.  POL, OUT16, ANY16, in16 (q
+// 1, lapq 2, dq 4) and rb: the policy instance (see the header).
+template <int K, bool POL = false, bool OUT16 = false, bool ANY16 = false>
+__global__ void ludwig_chem_stress_kernel(const void* __restrict__ q,
+                                          const void* __restrict__ lapq,
+                                          const void* __restrict__ dq, void* __restrict__ h,
+                                          void* __restrict__ sigma, long long V,
                                           rt_mol_params mp, rt_stress_params sp,
-                                          rt_lc_layouts L) {
+                                          rt_lc_layouts L, unsigned in16, bool rb) {
   const long long s = blockIdx.x * (long long)blockDim.x + threadIdx.x;
   if (s >= V) return;
-  const rt_m3 Q = rt_load_q<K>(q, L.a, 5, V, s, 0);
-  const rt_m3 H = rt_molecular_field(Q, rt_load_q<K>(lapq, L.b, 5, V, s, 0), mp);
-  rt_store_q5<K>(h, L.d, V, s, H);
+  const bool q16 = in16 & 1u, lap16 = in16 & 2u, dq16 = in16 & 4u;
+  const rt_m3 Q = rt_load_qt<K, POL, ANY16>(q, L.a, 5, V, s, 0, q16, rb);
+  const rt_m3 H =
+      rt_molecular_field(Q, rt_load_qt<K, POL, ANY16>(lapq, L.b, 5, V, s, 0, lap16, rb), mp);
+  rt_store_q5t<K, OUT16>(h, L.d, V, s, H);
   // the graph's stress stage reads the 5 stored components of h back
   const rt_m3 Hs = rt_q5_to_mat(H.m[0][0], H.m[0][1], H.m[0][2], H.m[1][1], H.m[1][2]);
-  const rt_m3 dQ[3] = {rt_load_q<K>(dq, L.c, 15, V, s, 0), rt_load_q<K>(dq, L.c, 15, V, s, 5),
-                       rt_load_q<K>(dq, L.c, 15, V, s, 10)};
+  const rt_m3 dQ[3] = {rt_load_qt<K, POL, ANY16>(dq, L.c, 15, V, s, 0, dq16, rb),
+                       rt_load_qt<K, POL, ANY16>(dq, L.c, 15, V, s, 5, dq16, rb),
+                       rt_load_qt<K, POL, ANY16>(dq, L.c, 15, V, s, 10, dq16, rb)};
   float sig[9];
   rt_stress(Q, Hs, dQ, sp, sig);
 #pragma unroll
-  for (int c = 0; c < 9; ++c) sigma[rt_at<K>(L.e, c, s, 9, V)] = sig[c];
+  for (int c = 0; c < 9; ++c) rt_lc_st<OUT16>(sigma, rt_at<K>(L.e, c, s, 9, V), sig[c]);
 }
 
-// q, h, w, adv -> q_new: layouts a ... e.
-template <int K>
-__global__ void ludwig_lc_update_kernel(const float* __restrict__ q, const float* __restrict__ h,
-                                        const float* __restrict__ w, const float* __restrict__ adv,
-                                        float* __restrict__ q_new, long long V,
-                                        rt_update_params p, rt_lc_layouts L) {
+// q, h, w, adv -> q_new: layouts a ... e.  POL, OUT16, ANY16, in16 (q 1, h
+// 2, w 4, adv 8) and rb: the policy instance (see the header).
+template <int K, bool POL = false, bool OUT16 = false, bool ANY16 = false>
+__global__ void ludwig_lc_update_kernel(const void* __restrict__ q, const void* __restrict__ h,
+                                        const void* __restrict__ w, const void* __restrict__ adv,
+                                        void* __restrict__ q_new, long long V,
+                                        rt_update_params p, rt_lc_layouts L, unsigned in16,
+                                        bool rb) {
   const long long s = blockIdx.x * (long long)blockDim.x + threadIdx.x;
   if (s >= V) return;
-  const rt_m3 Q = rt_load_q<K>(q, L.a, 5, V, s, 0);
+  const bool q16 = in16 & 1u, h16 = in16 & 2u, w16 = in16 & 4u, adv16 = in16 & 8u;
+  const rt_m3 Q = rt_load_qt<K, POL, ANY16>(q, L.a, 5, V, s, 0, q16, rb);
   rt_m3 W;
 #pragma unroll
   for (int a = 0; a < 3; ++a)
 #pragma unroll
-    for (int b = 0; b < 3; ++b) W.m[a][b] = w[rt_at<K>(L.c, a * 3 + b, s, 9, V)];
-  const rt_m3 rhs = rt_beris_edwards_rhs(Q, rt_load_q<K>(h, L.b, 5, V, s, 0), W, p);
+    for (int b = 0; b < 3; ++b)
+      W.m[a][b] = rt_lc_ld<POL, ANY16>(w, rt_at<K>(L.c, a * 3 + b, s, 9, V), w16, rb);
+  const rt_m3 rhs =
+      rt_beris_edwards_rhs(Q, rt_load_qt<K, POL, ANY16>(h, L.b, 5, V, s, 0, h16, rb), W, p);
   // q0 = q5 + dt (rhs5 - adv5) on the 5 stored components, then projected
   float q0[5];
   const float r5[5] = {rhs.m[0][0], rhs.m[0][1], rhs.m[0][2], rhs.m[1][1], rhs.m[1][2]};
 #pragma unroll
   for (int c = 0; c < 5; ++c)
-    q0[c] = q[rt_at<K>(L.a, c, s, 5, V)] + p.dt * (r5[c] - adv[rt_at<K>(L.d, c, s, 5, V)]);
-  rt_store_q5<K>(q_new, L.e, V, s,
-                   rt_traceless_sym(rt_q5_to_mat(q0[0], q0[1], q0[2], q0[3], q0[4])));
+    q0[c] = rt_lc_ld<POL, ANY16>(q, rt_at<K>(L.a, c, s, 5, V), q16, rb) +
+            p.dt * (r5[c] - rt_lc_ld<POL, ANY16>(adv, rt_at<K>(L.d, c, s, 5, V), adv16, rb));
+  rt_store_q5t<K, OUT16>(q_new, L.e, V, s,
+                         rt_traceless_sym(rt_q5_to_mat(q0[0], q0[1], q0[2], q0[3], q0[4])));
 }
 
 // q, lapq, w, adv -> q_new: layouts a ... e (K3C).  The molecular field of
@@ -370,7 +439,7 @@ int rt_ludwig_chem_stress(const float* q, const float* lapq, const float* dq, fl
   const rt_mol_params mp{c_q, c_b, c_t, kappa_m};
   const rt_stress_params sp{neg_xi, two_xi, kappa_s};
   RT_WITH_CLASS(k, ludwig_chem_stress_kernel<RT_K><<<rt_grid(V, block), block, 0, stream>>>(
-                       q, lapq, dq, h, sigma, V, mp, sp, L));
+                       q, lapq, dq, h, sigma, V, mp, sp, L, 0u, false));
   RT_LAUNCH_RESULT();
 }
 
@@ -387,7 +456,56 @@ int rt_ludwig_lc_update(const float* q, const float* h, const float* w, const fl
   if (V == 0) return 0;
   const rt_update_params p{gamma_rot, xi, neg_two_xi, dt};
   RT_WITH_CLASS(k, ludwig_lc_update_kernel<RT_K><<<rt_grid(V, block), block, 0, stream>>>(
-                       q, h, w, adv, q_new, V, p, L));
+                       q, h, w, adv, q_new, V, p, L, 0u, false));
+  RT_LAUNCH_RESULT();
+}
+
+// K3L's policy instances: rt_ludwig_chem_stress's and rt_ludwig_lc_update's
+// arguments, each field fp32 or bf16 (bit k of in16, in argument order), rb:
+// round fp32 inputs to bf16 at load, out16: write the fields in bf16.
+int rt_ludwig_chem_stress_policy(const void* q, const void* lapq, const void* dq, void* h,
+                                 void* sigma, long long V, float c_q, float c_b, float c_t,
+                                 float kappa_m, float neg_xi, float two_xi, float kappa_s,
+                                 int in16, int rb, int out16, int lq, int llap, int ldq, int lh,
+                                 int lsig, int block, cudaStream_t stream) {
+  const int desc[5] = {lq, llap, ldq, lh, lsig};
+  rt_lc_layouts L;
+  const int k = rt_lc_decode(desc, 5, &L);
+  if (k < 0) return RT_BAD_LAYOUT;
+  if (V == 0) return 0;
+  const rt_mol_params mp{c_q, c_b, c_t, kappa_m};
+  const rt_stress_params sp{neg_xi, two_xi, kappa_s};
+#define RT_CS_POL(O16, A16)                                                                    \
+  RT_WITH_CLASS(k, ludwig_chem_stress_kernel<RT_K, true, O16, A16><<<rt_grid(V, block), block, 0, \
+                                                                     stream>>>(                  \
+                       q, lapq, dq, h, sigma, V, mp, sp, L, (unsigned)in16, rb != 0))
+  if (out16 && in16) RT_CS_POL(true, true)
+  else if (out16) RT_CS_POL(true, false)
+  else if (in16) RT_CS_POL(false, true)
+  else RT_CS_POL(false, false)
+#undef RT_CS_POL
+  RT_LAUNCH_RESULT();
+}
+
+int rt_ludwig_lc_update_policy(const void* q, const void* h, const void* w, const void* adv,
+                               void* q_new, long long V, float gamma_rot, float xi,
+                               float neg_two_xi, float dt, int in16, int rb, int out16, int lq,
+                               int lh, int lw, int ladv, int lqn, int block, cudaStream_t stream) {
+  const int desc[5] = {lq, lh, lw, ladv, lqn};
+  rt_lc_layouts L;
+  const int k = rt_lc_decode(desc, 5, &L);
+  if (k < 0) return RT_BAD_LAYOUT;
+  if (V == 0) return 0;
+  const rt_update_params p{gamma_rot, xi, neg_two_xi, dt};
+#define RT_LU_POL(O16, A16)                                                                    \
+  RT_WITH_CLASS(k, ludwig_lc_update_kernel<RT_K, true, O16, A16><<<rt_grid(V, block), block, 0,   \
+                                                                   stream>>>(                    \
+                       q, h, w, adv, q_new, V, p, L, (unsigned)in16, rb != 0))
+  if (out16 && in16) RT_LU_POL(true, true)
+  else if (out16) RT_LU_POL(true, false)
+  else if (in16) RT_LU_POL(false, true)
+  else RT_LU_POL(false, false)
+#undef RT_LU_POL
   RT_LAUNCH_RESULT();
 }
 

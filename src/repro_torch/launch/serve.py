@@ -30,8 +30,11 @@ outcome is the budgeted ``solve``'s, bit for bit.
 The JAX package's serve telemetry (``telemetry.inc/sample/span`` around
 admission, ticks and drains, and the ``--trace`` option) is left out: the
 port has no ``core/telemetry.py`` yet (ROADMAP item 20), which adds it here
-when it lands.  ``--plan-policy tuned`` (the plan autotuner, item 19)
-raises.
+when it lands.  ``--plan-policy tuned`` runs every launch whose plan the
+tuner persisted (``core.tune``, the port's own table) with that plan; the
+serving launches are batched, and batched keys carry the batch, so they
+miss a table swept on single launches and plan by default, as in the JAX
+package.
 
   PYTHONPATH=src python -m repro_torch.launch.serve --solve --requests 6 --slots 2
   PYTHONPATH=src python -m repro_torch.launch.serve --solve --engine torch --device cpu
@@ -283,8 +286,9 @@ def main(argv=None):
                          "active iterations a slot's residual is recomputed exactly "
                          "(b - A x) and its search direction restarted; 0 disables")
     ap.add_argument("--plan-policy", default="default", choices=["default", "tuned"],
-                    help="lowering-plan policy of the serving launches ('tuned', the "
-                         "autotuner, is not yet ported and raises)")
+                    help="lowering-plan policy of the serving launches: 'default' "
+                         "heuristics, or 'tuned' picks persisted autotune winners "
+                         "(core.tune's table; a miss plans by default)")
     args = ap.parse_args(argv)
     if args.solve:
         _main_solve(args)

@@ -1118,7 +1118,155 @@ def test_cg_update_bf16_ap_instances(card, spec, rng):
     with pytest.raises(ValueError, match="bfloat16|float32"):
         fuse.cg_update(xs, ys, ps, ap16.half(), a, -a, 128, layouts=lays)
     with pytest.raises(ValueError, match="float32"):
-        fuse.cg_update(xs, ys, ps.to(torch.bfloat16), ap16, a, -a, 128, layouts=lays)
+        fuse.cg_update(xs, ys, ps.double(), ap16, a, -a, 128, layouts=lays)
+    # a bf16 p runs K3's policy instance (widened at load, fp32 out)
+    got16 = fuse.cg_update(xs, ys, ps.to(torch.bfloat16), ap16, a, -a, 128, layouts=lays)
+    assert got16[0].dtype == torch.float32
+    w16 = fuse.cg_update(xs, ys, ps.to(torch.bfloat16).float(), ap16.float(), a, -a, 128,
+                         layouts=lays)
+    for k in range(3):
+        assert _bits(got16[k], w16[k])
+
+
+# -- E: K3's and K3L's policy instances (the flat chains under a DtypePolicy) -------
+
+def _flat_lc_inputs(rng, card, V):
+    mk = lambda c, s: _dev(rng, (c, V), card, scale=s)  # noqa: E731
+    return dict(q=mk(5, 0.05), lapq=mk(5, 0.02), dq=mk(15, 0.02), h=mk(5, 0.01), w=mk(9, 0.01),
+                adv=mk(5, 0.01))
+
+
+LC_ARGS = dict(a0=0.01, gamma=3.0, kappa_m=0.01, kappa_s=0.01, xi=0.7)
+LU_ARGS = dict(gamma_rot=0.3, xi=0.7, dt=1.0)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("spec", POLICY_LAYOUTS)
+@pytest.mark.parametrize("vvl", [128, 1024])
+def test_cg_update_policy_instance(card, spec, vvl, rng):
+    """E: K3's policy instance in each layout, on the vector path (vvl 128)
+    and the one-thread-a-site path (1024): under bf16 storage x_new and
+    r_new in bf16 within one bf16 ulp of the plain version and rr within
+    the fp64 oracle bound of the fp32 r_new's squares; under the
+    accumulate-only policy the fields bitwise the policy-free kernel's; the
+    same bits run to run; bf16 inputs bitwise their fp32 sources under the
+    policy; a split fold; mixed layouts bitwise SoA."""
+    from repro_torch.core.plan import CudaPolicy
+
+    lay = parse_layout(spec)
+    V = 4 * 1024
+    x, y, p, ap = (_dev(rng, (24, V), card) for _ in range(4))
+    lays = {n: lay for n in ("x", "r", "p", "ap", "x_new", "r_new")}
+    xs, ys, ps, aps = (lay.pack(t) for t in (x, y, p, ap))
+    a = torch.tensor(0.37, device=card)
+    pol = CudaPolicy(True, True)
+    xn, rn, rr = fuse.cg_update(xs, ys, ps, aps, a, -a, vvl, layouts=lays, policy=pol)
+    assert xn.dtype == rn.dtype == torch.bfloat16 and rr.dtype == torch.float32
+    wx, wr, _ = fuse.cg_update_plain(xs, ys, ps, aps, a, -a, lays, policy=pol)
+    _within_bf16_ulp(lay.unpack(xn), lay.unpack(wx))
+    _within_bf16_ulp(lay.unpack(rn), lay.unpack(wr))
+    r32 = torch.addcmul(K.bf16_round(y), -a, K.bf16_round(ap))
+    _oracle_sum(rr, r32 * r32)
+    again = fuse.cg_update(xs, ys, ps, aps, a, -a, vvl, layouts=lays, policy=pol)
+    assert _bits16(again[0], xn) and _bits16(again[1], rn) and _bits(again[2], rr)
+    ins16 = [t.to(torch.bfloat16) for t in (xs, ys, ps, aps)]
+    got16 = fuse.cg_update(*ins16, a, -a, vvl, layouts=lays, policy=pol)
+    assert _bits16(got16[0], xn) and _bits16(got16[1], rn) and _bits(got16[2], rr)
+    split = fuse.cg_update(xs, ys, ps, aps, a, -a, vvl, layouts=lays, policy=pol, rsplit=2)
+    assert _bits16(split[1], rn)
+    _oracle_sum(split[2], r32 * r32)
+    acc = CudaPolicy(False, True)
+    x0, r0, rr0 = fuse.cg_update(xs, ys, ps, aps, a, -a, vvl, layouts=lays)
+    xa, ra, rra = fuse.cg_update(xs, ys, ps, aps, a, -a, vvl, layouts=lays, policy=acc)
+    assert _bits(xa, x0) and _bits(ra, r0)
+    r0c = lay.unpack(r0)
+    _oracle_sum(rra, r0c * r0c)
+    if spec != "soa":   # SoA inputs, outputs in the layout: the general path
+        mixed = dict(lays, x=SOA, r=SOA, p=SOA, ap=SOA)
+        mx = fuse.cg_update(x, y, p, ap, a, -a, vvl, layouts=mixed, policy=pol)
+        assert _bits16(mx[0], xn) and _bits16(mx[1], rn)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("spec", POLICY_LAYOUTS)
+def test_ludwig_flat_policy_instances(card, spec, rng):
+    """E: K3L's policy instances in each layout: under bf16 storage h, sigma
+    and q_new in bf16 within one bf16 ulp of the plain versions; the same
+    bits run to run; bf16 inputs bitwise their fp32 sources; the
+    accumulate-only policy runs the policy-free kernels (no sums); a
+    policy-free launch fed a bf16 h is bitwise the one fed h widened."""
+    from repro_torch.core.plan import CudaPolicy
+
+    lay = parse_layout(spec)
+    V = int(np.prod(LB_LAT))
+    t = {n: lay.pack(v) for n, v in _flat_lc_inputs(rng, card, V).items()}
+    cs = {n: lay for n in ("q", "lapq", "dq", "h", "sigma")}
+    lu = {n: lay for n in ("q", "h", "w", "adv", "q_new")}
+    pol = CudaPolicy(True, True)
+    h, sig = LK.chem_stress_cuda(t["q"], t["lapq"], t["dq"], **LC_ARGS, layouts=cs, policy=pol)
+    qn = LK.lc_update_cuda(t["q"], t["h"], t["w"], t["adv"], **LU_ARGS, layouts=lu, policy=pol)
+    wh, ws = LK.chem_stress_plain(t["q"], t["lapq"], t["dq"], **LC_ARGS, layouts=cs, policy=pol)
+    wq = LK.lc_update_plain(t["q"], t["h"], t["w"], t["adv"], **LU_ARGS, layouts=lu, policy=pol)
+    for got, want in ((h, wh), (sig, ws), (qn, wq)):
+        assert got.dtype == torch.bfloat16
+        _within_bf16_ulp(lay.unpack(got), lay.unpack(want))
+    h2, s2 = LK.chem_stress_cuda(t["q"], t["lapq"], t["dq"], **LC_ARGS, layouts=cs, policy=pol)
+    assert _bits16(h2, h) and _bits16(s2, sig)
+    t16 = {n: v.to(torch.bfloat16) for n, v in t.items()}
+    h16, s16 = LK.chem_stress_cuda(t16["q"], t16["lapq"], t16["dq"], **LC_ARGS, layouts=cs,
+                                   policy=pol)
+    q16 = LK.lc_update_cuda(t16["q"], t16["h"], t16["w"], t16["adv"], **LU_ARGS, layouts=lu,
+                            policy=pol)
+    assert _bits16(h16, h) and _bits16(s16, sig) and _bits16(q16, qn)
+    acc = CudaPolicy(False, True)
+    h0, s0 = LK.chem_stress_cuda(t["q"], t["lapq"], t["dq"], **LC_ARGS, layouts=cs)
+    ha, sa = LK.chem_stress_cuda(t["q"], t["lapq"], t["dq"], **LC_ARGS, layouts=cs, policy=acc)
+    assert _bits(ha, h0) and _bits(sa, s0)
+    hb = t["h"].to(torch.bfloat16)
+    qb = LK.lc_update_cuda(t["q"], hb, t["w"], t["adv"], **LU_ARGS, layouts=lu)
+    qw = LK.lc_update_cuda(t["q"], hb.float(), t["w"], t["adv"], **LU_ARGS, layouts=lu)
+    assert qb.dtype == torch.float32 and _bits(qb, qw)
+
+
+@pytest.mark.cuda
+def test_flat_policy_graphs_on_the_cuda_engine(card, rng):
+    """The three graphs under a storage policy on the cuda engine: each
+    launch runs its policy instance (its count moves) and gives the torch
+    engine's launch under the policy within one bf16 ulp, rr within the
+    oracle bound."""
+    from repro_torch.core import LoweringPlan
+
+    bf16 = DtypePolicy(storage="bfloat16", compute="float32", accumulate="float64")
+    lat = LB_LAT
+    V = int(np.prod(lat))
+    cuda = TargetConfig("cuda", plan_policy=LoweringPlan("cuda", vvl=128, dtypes=bf16))
+    torch_cfg = TargetConfig("torch", plan_policy=LoweringPlan("torch", dtypes=bf16))
+    lcfg = LudwigConfig(lattice=lat)
+    arrs = _flat_lc_inputs(rng, card, V)
+    ins = {n: Field.from_canonical(n, arrs[n], lat) for n in arrs}
+    for graph, names, outs, kern in (
+            (LD.chem_stress_graph(lcfg), ("q", "lapq", "dq"), ("h", "sigma"), LK.CHEM_STRESS_POLICY),
+            (LD.lc_update_graph(lcfg), ("q", "h", "w", "adv"), ("q_new",), LK.LC_UPDATE_POLICY)):
+        n0 = kern.launches
+        got = graph.launch({n: ins[n] for n in names}, config=cuda, outputs=outs)
+        assert kern.launches == n0 + 1
+        want = graph.launch({n: ins[n] for n in names}, config=torch_cfg, outputs=outs)
+        for o in outs:
+            assert got[o].dtype == torch.bfloat16
+            _within_bf16_ulp(got[o].canonical(), want[o].canonical())
+    f24 = {n: Field.from_canonical(n, _dev(rng, (24, V), card), lat) for n in ("x", "r", "p", "ap")}
+    sc = {"alpha": 0.3, "neg_alpha": -0.3}
+    n0 = fuse.CG_UPDATE_POLICY.launches
+    got = CG.cg_update_graph(24).launch(f24, scalars=sc, config=cuda,
+                                        outputs=("x_new", "r_new", "rr"))
+    assert fuse.CG_UPDATE_POLICY.launches == n0 + 1
+    want = CG.cg_update_graph(24).launch(f24, scalars=sc, config=torch_cfg,
+                                         outputs=("x_new", "r_new", "rr"))
+    for o in ("x_new", "r_new"):
+        _within_bf16_ulp(got[o].canonical(), want[o].canonical())
+    r32 = torch.addcmul(K.bf16_round(f24["r"].canonical()), torch.tensor(-0.3, device=card),
+                        K.bf16_round(f24["ap"].canonical()))
+    _oracle_sum(got["rr"], r32 * r32)
 
 
 @pytest.mark.cuda

@@ -1,8 +1,9 @@
 """Port parity for mixed precision (the DtypePolicy lowering axis): the
 policy and its accumulate resolution, Kahan folding, tests/test_dtype.py's
 contracts on the port's torch engine, the plain versions of the cuda
-engine's policy instances (K5/K5B, K5L, K3/K3B fed a bf16 ap, K2's
-compensated sum) against the JAX package's launches under the same policy,
+engine's policy instances (K5/K5B, K5L, K3/K3B fed a bf16 ap, K3's and
+K3L's policy instances, K2's compensated sum) against the JAX package's
+launches under the same policy,
 the refined MILC solve, Ludwig's bf16 LB storage, refined serving, and the
 refusals of what is not yet ported.
 
@@ -42,6 +43,7 @@ from repro_torch.core import LoweringPlan, TargetConfig, aosoa, target_max, targ
 from repro_torch.core import fuse as PFU  # noqa: E402
 from repro_torch.core import plan as pplan  # noqa: E402
 from repro_torch.core import reduce as PR  # noqa: E402
+from repro_torch.apps.ludwig import kernel as LK  # noqa: E402
 from repro_torch.kernels.lb_propagation import kernel as K8  # noqa: E402
 from repro_torch.kernels.wilson_dslash import kernel as WK  # noqa: E402
 from repro_torch.launch import serve  # noqa: E402
@@ -539,6 +541,147 @@ def test_cg_update_bf16_ap_plain_vs_reference():
     assert torch.equal(rm[1], st[1][1])
 
 
+# -- the flat chains' policy instances (K3 cg_update, K3L chem_stress, lc_update) ---
+
+LC_ARGS = dict(a0=0.01, gamma=3.0, kappa_m=0.01, kappa_s=0.01, xi=0.7)
+LU_ARGS = dict(gamma_rot=0.3, xi=0.7, dt=1.0)
+
+
+def _flat_arrays(seed=11, n=128):
+    rng = np.random.default_rng(seed)
+    mk = lambda c, s: (s * rng.normal(size=(c, n))).astype(np.float32)  # noqa: E731
+    return dict(x=mk(24, 1.0), r=mk(24, 1.0), p=mk(24, 1.0), ap=mk(24, 1.0), q=mk(5, 0.05),
+                lapq=mk(5, 0.02), dq=mk(15, 0.02), h=mk(5, 0.01), w=mk(9, 0.01),
+                adv=mk(5, 0.01))
+
+
+def _ref_flat(graph, arrays, names, outs, pol, scalars=None, bf16_in=()):
+    """The JAX package's launch of a flat graph (jnp) under ``pol``; the
+    inputs named in ``bf16_in`` arrive in bf16."""
+    jins = {n: JField.from_numpy(n, arrays[n], LAT, dtype=jnp.bfloat16 if n in bf16_in else None)
+            for n in names}
+    cfg = JTC("jnp", plan_policy=JPlan("jnp", dtypes=pol)) if pol else JTC("jnp")
+    return graph.launch(jins, config=cfg, outputs=outs, scalars=scalars)
+
+
+def _t(a, bf16=False):
+    t = torch.from_numpy(np.ascontiguousarray(a))
+    return t.to(torch.bfloat16) if bf16 else t
+
+
+@pytest.mark.parametrize("pol,jpol", [(BF16, J_BF16), (ACC64, J_ACC64)], ids=["bf16", "acc64"])
+def test_cg_update_policy_plain_vs_reference(pol, jpol):
+    """K3's policy instance, plain: under bf16 storage x_new and r_new in bf16
+    within one bf16 ulp of the JAX package's cg_update launch under the
+    policy, rr within the fp64 oracle bound of the fp32 r_new's squares;
+    under the accumulate-only policy the fields bitwise the policy-free
+    plain version.  The port's torch-engine graph launch under the policy
+    is the plain version bitwise; bf16 inputs are taken as the reference
+    takes them: bitwise their fp32 sources under the policy."""
+    a = _flat_arrays()
+    alpha = 0.37
+    at = torch.tensor(alpha)
+    cpol = pplan.cuda_policy(pol)
+    ins = [_t(a[n]) for n in ("x", "r", "p", "ap")]
+    xn, rn, rr = PFU.cg_update_plain(*ins, at, -at, policy=cpol)
+    jout = _ref_flat(JCG.cg_update_graph(24), a, ("x", "r", "p", "ap"), ("x_new", "r_new", "rr"),
+                     jpol, {"alpha": alpha, "neg_alpha": -alpha})
+    r32 = torch.from_numpy(a["r"]).to(torch.bfloat16).float() if cpol.bf16 else _t(a["r"])
+    ap32 = torch.from_numpy(a["ap"]).to(torch.bfloat16).float() if cpol.bf16 else _t(a["ap"])
+    terms = (r32 + (-at) * ap32) ** 2
+    assert _oracle_err(rr.numpy(), terms.numpy()) <= 1.0
+    assert _oracle_err(np.asarray(jout["rr"]), terms.numpy()) <= 1.0
+    if cpol.bf16:
+        assert xn.dtype == rn.dtype == torch.bfloat16
+        for got, o in ((xn, "x_new"), (rn, "r_new")):
+            assert _within_bf16_ulp(got.float().numpy(), _jnp(jout[o]).reshape(24, -1)) <= 1.0
+    else:
+        x0, r0, _ = PFU.cg_update_plain(*ins, at, -at)
+        assert torch.equal(xn, x0) and torch.equal(rn, r0)
+    out = PCG.cg_update_graph(24).launch(
+        {n: Field.from_canonical(n, t, LAT) for n, t in zip(("x", "r", "p", "ap"), ins)},
+        scalars={"alpha": alpha, "neg_alpha": -alpha}, config=_torch_plan(pol),
+        outputs=("x_new", "r_new", "rr"))
+    assert torch.equal(out["x_new"].canonical(), xn) and torch.equal(out["r_new"].canonical(), rn)
+    assert torch.equal(out["rr"], rr)
+    if cpol.bf16:
+        ins16 = [t.to(torch.bfloat16) for t in ins]
+        got = PFU.cg_update_plain(*ins16, at, -at, policy=cpol)
+        for g, w in zip(got, (xn, rn, rr)):
+            assert torch.equal(g, w)
+        j16 = _ref_flat(JCG.cg_update_graph(24), a, ("x", "r", "p", "ap"), ("x_new", "r_new"),
+                        jpol, {"alpha": alpha, "neg_alpha": -alpha}, bf16_in=("x", "r", "p", "ap"))
+        assert _within_bf16_ulp(got[1].float().numpy(), _jnp(j16["r_new"]).reshape(24, -1)) <= 1.0
+
+
+@pytest.mark.parametrize("pol,jpol", [(BF16, J_BF16), (ACC64, J_ACC64)], ids=["bf16", "acc64"])
+def test_ludwig_flat_policy_plain_vs_reference(pol, jpol):
+    """K3L's policy instances, plain: under bf16 storage h, sigma and q_new
+    in bf16 within one bf16 ulp of the JAX package's launches under the
+    policy (jnp), and bitwise the port's torch-engine launches; under the
+    accumulate-only policy (these graphs have no sums) bitwise the
+    policy-free plain versions.  A bf16 input is taken as the reference
+    takes it: bitwise its fp32 source under the policy."""
+    a = _flat_arrays()
+    cpol = pplan.cuda_policy(pol)
+    jcfg = JLudwigConfig(a0=0.01, gamma=3.0, kappa=0.01, xi=0.7, gamma_rot=0.3)
+    pcfg = LudwigConfig(a0=0.01, gamma=3.0, kappa=0.01, xi=0.7, gamma_rot=0.3)
+    cs_in = ("q", "lapq", "dq")
+    h, sig = LK.chem_stress_plain(*(_t(a[n]) for n in cs_in), **LC_ARGS, policy=cpol)
+    lu_in = ("q", "h", "w", "adv")
+    qn = LK.lc_update_plain(*(_t(a[n]) for n in lu_in), **LU_ARGS, policy=cpol)
+    jcs = _ref_flat(JLD.chem_stress_graph(jcfg), a, cs_in, ("h", "sigma"), jpol)
+    jlu = _ref_flat(JLD.lc_update_graph(jcfg), a, lu_in, ("q_new",), jpol)
+    pcs = PLD.chem_stress_graph(pcfg).launch(
+        {n: Field.from_canonical(n, _t(a[n]), LAT) for n in cs_in}, config=_torch_plan(pol),
+        outputs=("h", "sigma"))
+    plu = PLD.lc_update_graph(pcfg).launch(
+        {n: Field.from_canonical(n, _t(a[n]), LAT) for n in lu_in}, config=_torch_plan(pol),
+        outputs=("q_new",))
+    for got, ref, port, nc in ((h, jcs["h"], pcs["h"], 5), (sig, jcs["sigma"], pcs["sigma"], 9),
+                               (qn, jlu["q_new"], plu["q_new"], 5)):
+        assert got.dtype == (torch.bfloat16 if cpol.bf16 else torch.float32)
+        assert torch.equal(port.canonical(), got)
+        assert _within_bf16_ulp(got.float().numpy(), _jnp(ref).reshape(nc, -1)) <= 1.0
+    if not cpol.bf16:
+        h0, s0 = LK.chem_stress_plain(*(_t(a[n]) for n in cs_in), **LC_ARGS)
+        q0 = LK.lc_update_plain(*(_t(a[n]) for n in lu_in), **LU_ARGS)
+        assert torch.equal(h, h0) and torch.equal(sig, s0) and torch.equal(qn, q0)
+        return
+    h16, s16 = LK.chem_stress_plain(*(_t(a[n], True) for n in cs_in), **LC_ARGS, policy=cpol)
+    q16 = LK.lc_update_plain(*(_t(a[n], True) for n in lu_in), **LU_ARGS, policy=cpol)
+    assert torch.equal(h16, h) and torch.equal(s16, sig) and torch.equal(q16, qn)
+    j16 = _ref_flat(JLD.lc_update_graph(jcfg), a, lu_in, ("q_new",), jpol, bf16_in=lu_in)
+    assert _within_bf16_ulp(q16.float().numpy(), _jnp(j16["q_new"]).reshape(5, -1)) <= 1.0
+
+
+def test_flat_chains_take_a_bf16_input_without_a_policy():
+    """A policy-free K3/K3L fed a bf16 field (h from a chem_stress winner
+    with bf16 storage, x and r from an update-chain one) widens it exactly
+    at load and computes in fp32 (the wrappers' policy instance with its
+    round and its bf16 writes off): the plain version is bitwise the one
+    fed the widened field, and within the bf16 rounding of its
+    intermediates of the JAX package's jnp promotion, whose products of a
+    bf16 operand with a Python-float coefficient stay in bf16."""
+    a = _flat_arrays()
+    h16 = _t(a["h"], True)
+    got = LK.lc_update_plain(_t(a["q"]), h16, _t(a["w"]), _t(a["adv"]), **LU_ARGS)
+    wide = LK.lc_update_plain(_t(a["q"]), h16.float(), _t(a["w"]), _t(a["adv"]), **LU_ARGS)
+    assert got.dtype == torch.float32 and torch.equal(got, wide)
+    jcfg = JLudwigConfig(a0=0.01, gamma=3.0, kappa=0.01, xi=0.7, gamma_rot=0.3)
+    ref = _ref_flat(JLD.lc_update_graph(jcfg), a, ("q", "h", "w", "adv"), ("q_new",), None,
+                    bf16_in=("h",))["q_new"]
+    ref = _jnp(ref).reshape(5, -1)
+    # the reference's bf16 products: |gamma_rot h| dt rounded to bf16, 2^-8 relative
+    bound = 2.0 ** -8 * LU_ARGS["gamma_rot"] * np.abs(a["h"]).max() * 4 + 1e-7
+    assert np.max(np.abs(got.numpy() - ref)) <= bound
+    at = torch.tensor(0.37)
+    x16, r16 = _t(a["x"], True), _t(a["r"], True)
+    xn, rn, rr = PFU.cg_update_plain(x16, r16, _t(a["p"]), _t(a["ap"]), at, -at)
+    w = PFU.cg_update_plain(x16.float(), r16.float(), _t(a["p"]), _t(a["ap"]), at, -at)
+    assert xn.dtype == torch.float32 and all(torch.equal(g, v) for g, v in zip((xn, rn, rr), w))
+
+
 def test_compensated_sum_plain_vs_reference():
     """K2's compensated instance, plain (fp64 rounded once): within the
     oracle bound on the adversarial fixtures and random fields, as is the
@@ -719,3 +862,25 @@ def test_policy_refusals_before_any_device_check():
     for pol in (BF16, DtypePolicy()):   # a policy it has, and the empty one
         with pytest.raises(ValueError, match="CUDA device"):
             PCG.make_fused_normal(u, 0.1, dataclasses.replace(cuda, dtypes=pol))(p)
+    # the flat chains with policy instances (cg_update, ludwig_chem_stress,
+    # ludwig_lc_update) pass the plan checks and refuse the CPU fields; the
+    # update chain's p update (cg_xpay) has none and refuses the policy
+    f24 = {n: Field.from_numpy(n, rng.normal(size=(24,) + LAT).astype(np.float32), LAT)
+           for n in ("x", "r", "p", "ap")}
+    with pytest.raises(ValueError, match="CUDA device"):
+        PCG.fused_cg_update(f24["x"], f24["r"], f24["p"], f24["ap"], 0.3, cuda)
+    with pytest.raises(ValueError, match="no policy instance.*not yet ported"):
+        PCG.fused_xpay(f24["r"], 0.3, f24["p"], cuda)
+    lcfg = LudwigConfig(lattice=LAT, target=cuda)
+    q5, q9, q15 = (Field.from_numpy("q", rng.normal(size=(nc,) + LAT).astype(np.float32), LAT)
+                   for nc in (5, 9, 15))
+    for graph, ins, outs in (
+            (PLD.chem_stress_graph(lcfg), {"q": q5, "lapq": q5, "dq": q15}, ("h", "sigma")),
+            (PLD.lc_update_graph(lcfg), {"q": q5, "h": q5, "w": q9, "adv": q5}, ("q_new",))):
+        with pytest.raises(ValueError, match="CUDA device"):
+            graph.launch(ins, config=cuda, outputs=outs)
+    # a policy-free cuda launch whose fields would come back in bf16 raises
+    f16 = {n: f.with_data(f.data.to(torch.bfloat16)) for n, f in f24.items()}
+    with pytest.raises(ValueError, match="policy-free launch"):
+        PCG.fused_cg_update(f16["x"], f16["r"], f16["p"], f16["ap"], 0.3,
+                            TargetConfig("cuda", device="cpu"))

@@ -187,12 +187,14 @@ def test_scheduler_rejects_unregistered_shape():
         server.submit(SolveRequest(rid=0, b=_sources(cfg, 1)[0]))
 
 
-def test_what_is_not_yet_ported_raises():
+def test_what_is_not_yet_ported_raises(monkeypatch, tmp_path, capsys):
     """Mixed-precision serving runs (test_torch_dtype.py holds it to the JAX
     package); what stays unported raises: a policy on the masked update
-    chain on the cuda engine (before any device check), and the tuned plan
-    policy.  A policy on a tiled plan runs K5T's policy instance: it passes
-    the plan checks and refuses the CPU fields."""
+    chain on the cuda engine (before any device check).  A policy on a
+    tiled plan runs K5T's policy instance: it passes the plan checks and
+    refuses the CPU fields.  The tuned plan policy is ported (core.tune):
+    the CLI serves under it, its batched launches missing the table and
+    planning by default (test_torch_tune.py holds the outcomes)."""
     from repro_torch.core import DtypePolicy, LoweringPlan
 
     cfg = _cfg(lattice=(2, 2, 2, 4))
@@ -212,8 +214,15 @@ def test_what_is_not_yet_ported_raises():
                          plan_policy=LoweringPlan("cuda", vvl=32, bx=1, by=1, dtypes=bf16))
     with pytest.raises(ValueError, match="CUDA device"):
         CG.make_fused_normal(u, cfg.kappa, tiled)(b)
-    with pytest.raises(ValueError, match="tuned"):
-        serve.main(["--solve", "--engine", "torch", "--device", "cpu", "--plan-policy", "tuned"])
+    from repro_torch.core import tune
+
+    monkeypatch.setenv(tune.ENV_VAR, str(tmp_path / "tune.json"))
+    tune.clear_table_cache()
+    tune.reset_stats()
+    serve.main(["--solve", "--engine", "torch", "--device", "cpu", "--plan-policy", "tuned",
+                "--requests", "2", "--slots", "1", "--steps", "20"])
+    assert "2 solves" in capsys.readouterr().out
+    assert tune.stats()["lookups"] > 0 and tune.stats()["hits"] == 0
 
 
 def test_default_engine_is_the_card():

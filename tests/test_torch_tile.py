@@ -268,10 +268,20 @@ def test_to_plan_maps_and_refuses():
             convert.to_plan(bad.to_json())
 
 
-def test_plan_policy():
+def test_plan_policy(monkeypatch, tmp_path):
+    from repro_torch.core import tune
+
+    monkeypatch.setenv(tune.ENV_VAR, str(tmp_path / "tune.json"))
+    tune.clear_table_cache()
     x = Field.from_numpy("x", np.ones((3,) + LAT, np.float32), LAT)
     g = _tile_g(LaunchGraph)
-    with pytest.raises(ValueError, match="not yet ported"):
+    # "tuned" (core.tune) runs: a table miss plans by default, on the torch
+    # engine bitwise the default policy, on the cuda engine refused as the
+    # default plan is (this graph has no kernel)
+    tuned = g.launch({"x": x}, config=dataclasses.replace(TORCH, plan_policy="tuned"),
+                     outputs=("z",))
+    assert torch.equal(tuned["z"].data, g.launch({"x": x}, config=TORCH, outputs=("z",))["z"].data)
+    with pytest.raises(ValueError, match="no hand-written CUDA kernel"):
         g.launch({"x": x}, config=TargetConfig("cuda", device="cpu", plan_policy="tuned"))
     with pytest.raises(ValueError, match="unknown plan_policy"):
         pplan.plan_for_launch(TargetConfig(plan_policy="fast"), 128, [SOA])
