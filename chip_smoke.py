@@ -2,8 +2,9 @@
 batched serving, both also in mixed precision, under a shared-memory budget
 and under the plan autotuner's winners, the flat chains' policy instances, the
 Ludwig LC-LB timestep, untiled, tuned, under a shared-memory budget,
-in every data layout and with bf16 LB storage, RWKV6-7B and starcoder2-7b serving (prefill and greedy
-decode).
+in every data layout and with bf16 LB storage, the decomposed lattice on a one-rank
+mesh (the sharded solve and step), RWKV6-7B and starcoder2-7b serving (prefill and
+greedy decode).
 
     python3 chip_smoke.py [--lattice X Y Z T] [--small X Y Z T]
                           [--ludwig X Y Z] [--ludwig-small X Y Z] [--seed N]
@@ -187,6 +188,31 @@ L4. with every count set to 0: the paper's unfused LB half-step
 L5. at ``--ludwig-small`` (default (32, 32, 32)) 5 steps on the "cuda" and
    the "torch" engine, both on the card: q and dist within rtol 1e-4,
    atol 1e-6;
+D1. the kernels on pre-exchanged halos at the full lattices, each against
+   its plain version and timed (CUDA events, median of 10) beside its
+   bound: after phase 5, K4H (``dslash_halo``, width 1) within FIELD_RTOL
+   and K5H (the wilson_normal graph's "pre" kernel) within FIELD_RTOL of
+   their plain versions on phase 2's b and u wrap-padded, each also
+   against K4's and K5's periodic fields (bitwise or not, logged) and
+   timed beside them; after L5, K8H (``propagate_halo`` at width 1, one
+   counted call, and width 2) bitwise its plain version and K8's periodic
+   launch, beside ``torch.take`` on its 19 source offsets, and K5LH (the
+   ludwig_lb_step graph's "pre" kernel) bitwise its plain version and
+   K5L's periodic launch, on L2's kind of inputs wrap-padded;
+D2. (after D1's MILC half) on a one-rank mesh of four axes, every lattice
+   dim decomposed over one (each exchange the self-exchange), with every
+   count set to 0 before each: ``make_sharded_solver`` at ``--lattice``
+   under ``halo=None`` (K4H twice an iteration) and ``"pre"`` (K5H an
+   iteration): phase 4's iterations +-1, x within rel-L2 1e-4 of phase 4's,
+   every kernel of the path launched; ms an iteration beside phase 4's;
+   first, the solve's halo'd spinor at widths 1 and 2 two ways, bitwise
+   and timed: ``exchange_padded`` against ``exchange(halo_pad(...))``;
+D3. (after D1's Ludwig half) 5 ``make_sharded_step`` steps at
+   ``--ludwig`` on a one-rank mesh of three axes from the L1 state,
+   counted (K5LH every step): bitwise equal to 5 ``step``s from it
+   (within rtol 1e-4, atol 1e-6 with the difference logged where not
+   bitwise); ms a step beside them; the D phases' numbers are printed as
+   one JSON line before the kernel table;
 Y1. at the full lattices ((64,64,64,32) and (256,256,256)), every lattice
    kernel of both paths (K1 g5 and the product, K2's sum and fold, K3,
    K4, K5; K7, K8, K5L, K3L, K1L) in each layout of LAYOUT_SPECS (soa,
@@ -336,7 +362,8 @@ A3. ``generate`` serves 4 requests, a 16-token prompt then 16 greedy tokens,
    step traced; on the fp32 copy, the decode's logits after the prompt
    within rel-L2 1e-3 of the prefill's at the last prompt position;
 6. print the layouts' JSON line, the serving, redesign, mixed-precision,
-   V1/RS1, tiled (T1, T2, T4, T5, C1) and autotune (U1, U2) lines, the
+   V1/RS1, tiled (T1, T2, T4, T5, C1), autotune (U1, U2) and decomposed
+   (D1-D3) lines, the
    kernel table of every
    path (the layout instances
    as kernel@layout rows, with Y2's and Y3's launches; the batch instances
@@ -375,7 +402,8 @@ from repro_torch.apps.milc import cg as cg_mod  # noqa: E402
 from repro_torch.apps.milc import fields as milc_fields  # noqa: E402
 from repro_torch.apps.milc.cg import (batched_cg_active, batched_cg_iteration,  # noqa: E402
                                       batched_cg_state, make_fused_normal, make_wilson_op)
-from repro_torch.apps.milc.driver import solve_batched, tune_solve_graphs  # noqa: E402
+from repro_torch.apps.milc.driver import (make_domain, make_sharded_solver,  # noqa: E402
+                                          solve_batched, tune_solve_graphs)
 from repro_torch.configs import get_arch  # noqa: E402
 from repro_torch.core import (SOA, BatchedField, DtypePolicy, Field, TargetConfig,  # noqa: E402
                               parse_layout)
@@ -385,7 +413,11 @@ from repro_torch.kernels.flash_attention import kernel as kf  # noqa: E402
 from repro_torch.kernels.lb_collision import collide  # noqa: E402
 from repro_torch.kernels.lb_collision import kernel as k7  # noqa: E402
 from repro_torch.kernels.lb_propagation import kernel as k8  # noqa: E402
-from repro_torch.kernels.lb_propagation import propagate  # noqa: E402
+from repro_torch.core.halo import exchange, exchange_padded  # noqa: E402
+from repro_torch.core.stencil import halo_pad  # noqa: E402
+from repro_torch.kernels.lb_propagation import propagate, propagate_halo  # noqa: E402
+from repro_torch.lattice import Domain  # noqa: E402
+from repro_torch.launch.mesh import Mesh  # noqa: E402
 from repro_torch.kernels.lb_propagation.ops import collide_propagate  # noqa: E402
 from repro_torch.kernels.rwkv6_scan import kernel as k10  # noqa: E402
 from repro_torch.kernels.rwkv6_scan import ref as wkv_ref  # noqa: E402
@@ -421,7 +453,8 @@ KERNELS = [target.G5, target.MUL, target.AXPY, reduce.REDUCE_SUM,
            reduce.REDUCE_MAX_BF16, reduce.REDUCE_FOLD_BF16, k8.LB_STEP_TILED_BF16,
            wk.WILSON_NORMAL_T_TILED, wk.WILSON_NORMAL_AP_TILED, wk.WILSON_NORMAL_T_TILED_MIXED,
            wk.WILSON_NORMAL_AP_TILED_MIXED, lk.LC_CHAIN, fuse.CG_UPDATE_POLICY,
-           lk.CHEM_STRESS_POLICY, lk.LC_UPDATE_POLICY]
+           lk.CHEM_STRESS_POLICY, lk.LC_UPDATE_POLICY, wk.DSLASH_HALO, wk.WILSON_NORMAL_PRE_T,
+           wk.WILSON_NORMAL_PRE_AP, k8.PROPAGATE_HALO, k8.LB_STEP_PRE]
 
 # flops a site, counted from the sources (all these kernels are bound by bytes)
 FLOPS = {"collide": 450, "lb_step": 462, "chem_stress": 600, "lc_update": 320, "fed": 160,
@@ -4761,6 +4794,257 @@ def tuned_phase(cfg, u, b, x_soa, iterations, solve_s, state, after_steps, lcfg,
     return sweep_counts, line
 
 
+# the decomposed lattice (D1-D3): a one-rank mesh on the card, every lattice
+# dim decomposed over an axis of size 1, so every exchange is the self-exchange
+D_MILC_AXES, D_LUDWIG_AXES = ("x", "y", "z", "t"), ("x", "y", "z")
+D_STEPS = 5
+D_REL_X = 1e-4                       # D2: x within rel-L2 of phase 4's
+D_STEP_RTOL, D_STEP_ATOL = 1e-4, 1e-6   # D3 where the steps are not bitwise
+DECOMP_PATH = {
+    "dslash_halo": ([wk.DSLASH_HALO], "wilson_halo.cu",
+                    "src/repro/kernels/wilson_dslash/kernel.py:27"),
+    "wilson_normal_pre": ([wk.WILSON_NORMAL_PRE_T, wk.WILSON_NORMAL_PRE_AP], "wilson_halo.cu",
+                          "src/repro/core/fuse.py:1721"),
+    "lb_propagate_halo": ([k8.PROPAGATE_HALO], "lb_halo.cu",
+                          "src/repro/kernels/lb_propagation/kernel.py:30"),
+    "lb_step_pre": ([k8.LB_STEP_PRE], "lb_halo.cu", "src/repro/core/fuse.py:1721"),
+}
+# D2's paths: the sharded solve's kernels under each schedule (the rhs runs
+# K4H and g5 under both)
+_D2_COMMON = ("cg_update", "cg_xpay", "g5", "mul", "reduce_sum", "reduce_fold")
+D2_PATHS = {
+    None: {"dslash_halo": DECOMP_PATH["dslash_halo"], **{n: PATH[n] for n in _D2_COMMON}},
+    "pre": {"wilson_normal_pre": DECOMP_PATH["wilson_normal_pre"],
+            "dslash_halo": DECOMP_PATH["dslash_halo"], **{n: PATH[n] for n in _D2_COMMON}},
+}
+D3_PATH = {"lb_step_pre": DECOMP_PATH["lb_step_pre"],
+           **{n: LUDWIG_PATH[n] for n in ("ludwig_chem_stress", "ludwig_lc_update")}}
+
+
+def one_rank_mesh(axes):
+    """A mesh of one rank on this card: no process group."""
+    return Mesh((1,) * len(axes), axes, rank=0, world_size=1, local_rank=0, device="cuda")
+
+
+def wrap_pad(t_nd, w):
+    return halo_pad(t_nd, w, range(1, t_nd.dim())).contiguous()
+
+
+def face_sites(lat):
+    """The sites of one width-1 face of each lattice dim, summed."""
+    V = math.prod(lat)
+    return sum(V // s for s in lat)
+
+
+def edge_sites(lat):
+    """The sites of one width-1 edge (sites one step out along two dims) of
+    each pair of lattice dims, summed."""
+    V = math.prod(lat)
+    return sum(V // (lat[i] * lat[j]) for i in range(len(lat)) for j in range(i + 1, len(lat)))
+
+
+def check_halo_milc(u, b, lattice, vvl):
+    """D1 (MILC): K4H and K5H at the solve's lattice, on b and u
+    wrap-padded (the one-rank exchange's values)."""
+    V = math.prod(lattice)
+    V1, V2 = math.prod(s + 2 for s in lattice), math.prod(s + 4 for s in lattice)
+    F, E = face_sites(lattice), edge_sites(lattice)
+    rows = {}
+    psi_nd, u_nd = b.canonical_nd(), u.canonical_nd()
+    psi_h, u_h = wrap_pad(psi_nd, 1), wrap_pad(u_nd, 1)
+    got = wk.dslash_halo_cuda(psi_h, u_h, 1, vvl)
+    err = field_err(got, wk.dslash_halo_plain(psi_h, u_h, 1), "dslash_halo")
+    k4 = wk.dslash_cuda(b.data, u.data, lattice, vvl)
+    log(f"  K4H against K4's periodic D psi: bitwise {torch.equal(got.reshape(24, -1), k4)}, "
+        f"max abs diff {(got.reshape(24, -1) - k4).abs().max().item():.3e}; K4 "
+        f"{time_ms(lambda: wk.dslash_cuda(b.data, u.data, lattice, vvl)):.4f} ms")
+    add_row(rows, "dslash_halo", err, time_ms(lambda: wk.dslash_halo_cuda(psi_h, u_h, 1, vvl)),
+            time_ms(lambda: wk.dslash_halo_plain(psi_h, u_h, 1), reps=3, warm=1),
+            # the values D psi depends on: psi on the interior and its 8 faces,
+            # u's 4 links on the interior and link mu on mu's low face
+            4 * (24 * (V + 2 * F) + 72 * V + 18 * F + 24 * V), 1320 * V)
+    del psi_h, u_h, got, k4
+    torch.cuda.empty_cache()
+
+    p_h, u_h = wrap_pad(psi_nd, 2).reshape(24, -1), wrap_pad(u_nd, 2).reshape(72, -1)
+    got = wk.wilson_normal_pre_cuda(p_h, u_h, KAPPA, lattice, vvl)
+    err = field_err(got, wk.wilson_normal_pre_plain(p_h, u_h, KAPPA, lattice), "wilson_normal_pre")
+    k5, _ = wk.wilson_normal_cuda(b.data, u.data, KAPPA, lattice, vvl)
+    floor = bound((24 + 72) * 4 * V2 + 2 * 24 * 4 * V1 + 72 * 4 * V2 + 24 * 4 * V, 0)[0]
+    log(f"  K5H against K5's periodic ap: bitwise {torch.equal(got, k5)}, max abs diff "
+        f"{(got - k5).abs().max().item():.3e}; K5 "
+        f"{time_ms(lambda: wk.wilson_normal_cuda(b.data, u.data, KAPPA, lattice, vvl)):.4f} ms; "
+        f"K5H's two-launch floor {floor:.4f} ms (t over {V1} sites, {V1 / V:.3f} V)")
+    add_row(rows, "wilson_normal_pre", err,
+            time_ms(lambda: wk.wilson_normal_pre_cuda(p_h, u_h, KAPPA, lattice, vvl)),
+            time_ms(lambda: wk.wilson_normal_pre_plain(p_h, u_h, KAPPA, lattice), reps=3, warm=1),
+            # ap needs t on the interior and its 8 faces (S, V + 2F sites); t
+            # there needs p on S's faces and edges (V + 4F + 4E), u's 4 links on
+            # S, link mu a step below S along mu (F more sites) and two links on
+            # S's edges (72 values an edge of each pair of dims)
+            4 * (24 * (V + 4 * F + 4 * E) + 72 * (V + 2 * F) + 18 * F + 72 * E + 24 * V),
+            (1320 + 48) * (V + 2 * F + V))
+    del p_h, u_h, got, k5
+    torch.cuda.empty_cache()
+    return rows, floor
+
+
+def halo_paths(dom, x):
+    """D2: the sharded solve's halo'd spinor (``exchange_padded``: one copy
+    into the halo'd array, then the exchange) against the JAX package's
+    ``exchange(halo_pad(x))`` (a wrap-pad a site dim, then the exchange),
+    at widths 1 (None's dslash) and 2 ("pre"'s p): bitwise, and timed."""
+    dec, mesh, dims = dom.decomposed, dom.mesh, range(1, x.dim())
+    out = {}
+    for w in (1, 2):
+        def one():
+            return exchange_padded(x, dec, width=w, mesh=mesh)
+
+        def two():
+            return exchange(halo_pad(x, w, dims), dec, width=w, mesh=mesh)
+
+        exact_err(one(), two(), f"exchange_padded width {w}")
+        out[w] = dict(exchange_padded=time_ms(one), pad_then_exchange=time_ms(two))
+        log(f"D2 the spinor's halo at width {w}: exchange_padded "
+            f"{out[w]['exchange_padded']:.4f} ms, exchange(halo_pad) "
+            f"{out[w]['pad_then_exchange']:.4f} ms (bitwise)")
+    torch.cuda.empty_cache()
+    return out
+
+
+def sharded_milc(cfg, u, b, x_soa, iterations, solve_s):
+    """D2: the one-rank sharded solves, counted."""
+    dom = make_domain(cfg, one_rank_mesh(D_MILC_AXES), D_MILC_AXES)
+    ul, bl = dom.scatter(u.canonical_nd()), dom.scatter(b.canonical_nd())
+    x_ref = x_soa.reshape((24,) + tuple(cfg.lattice))
+    out, counts = {"halo_ms": halo_paths(dom, bl)}, {}
+    for halo in (None, "pre"):
+        solver = make_sharded_solver(cfg, dom, halo)
+        reset_counts()
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        x, it, res = solver(ul, bl)
+        torch.cuda.synchronize()
+        sec = time.perf_counter() - t0
+        counts[halo] = path_counts(D2_PATHS[halo])
+        rel = (torch.linalg.norm(x - x_ref) / torch.linalg.norm(x_ref)).item()
+        log(f"D2 sharded solve {cfg.lattice}, halo={halo!r}, one rank: {it} iterations (phase 4: "
+            f"{iterations}), {sec:.3f} s, {sec / max(it, 1) * 1e3:.3f} ms/iter (phase 4 "
+            f"{solve_s / iterations * 1e3:.3f}), x rel-L2 {rel:.3e} from phase 4's, residual "
+            f"{float(res):.3e}; launches {counts[halo]}")
+        if not torch.isfinite(x).all():
+            raise AssertionError(f"D2 halo={halo!r}: non-finite x")
+        if abs(it - iterations) > 1 or not rel < D_REL_X:
+            raise AssertionError(f"D2 halo={halo!r}: {it} iterations, x rel-L2 {rel}")
+        idle = [n for n, c in counts[halo].items() if c == 0]
+        if idle:
+            raise AssertionError(f"D2 halo={halo!r}: kernels of the path never launched: {idle}")
+        out[str(halo)] = dict(iterations=it, seconds=sec, ms_per_iteration=sec / it * 1e3,
+                              x_rel_l2=rel, residual=float(res))
+        del x, solver
+        torch.cuda.empty_cache()
+    out["phase4_ms_per_iteration"] = solve_s / iterations * 1e3
+    return out, counts
+
+
+def check_halo_ludwig(state, cfg, vvl):
+    """D1 (Ludwig): K8H (one call through ``propagate_halo``, counted) and
+    K5LH at the step's lattice, on L2's kind of inputs wrap-padded."""
+    lat, tau = tuple(cfg.lattice), cfg.tau
+    V, Vh = math.prod(lat), math.prod(s + 2 for s in lat)
+    # the sites the collision must reach: the interior, its faces and edges
+    # (D3Q19 has no corner velocity)
+    Vc = V + 2 * face_sites(lat) + 4 * edge_sites(lat)
+    dev = state.dist.data.device
+    gen = torch.Generator(device=dev).manual_seed(4)
+    dist = state.dist.canonical() * (1.0 + 0.05 * torch.randn((19, V), generator=gen, device=dev))
+    force = 1e-3 * torch.randn((3, V), generator=gen, device=dev)
+    dh = wrap_pad(dist.reshape((19,) + lat), 1)
+    rows = {}
+    reset_counts()
+    got = propagate_halo(dh, config=cfg.target, width=1)
+    pcounts = path_counts({"lb_propagate_halo": DECOMP_PATH["lb_propagate_halo"]})
+    err = exact_err(got, k8.propagate_halo_plain(dh, 1), "lb_propagate_halo")
+    exact_err(got.reshape(19, -1), k8.propagate_cuda(dist, lat, vvl), "K8H against K8")
+    # torch.take on the 19 source offsets of each output in the halo'd array
+    cv = torch.from_numpy(d3q19.CV.astype("int64")).to(dev)
+    s_ = torch.arange(V, device=dev)
+    z, y, x = s_ % lat[2], s_ // lat[2] % lat[1], s_ // (lat[1] * lat[2])
+    del s_
+    idx = torch.stack([i * Vh + ((x + 1 - cv[i, 0]) * (lat[1] + 2) + (y + 1 - cv[i, 1]))
+                       * (lat[2] + 2) + (z + 1 - cv[i, 2]) for i in range(19)])
+    del x, y, z
+    exact_err(torch.take(dh, idx), got.reshape(19, -1), "torch.take against lb_propagate_halo")
+    add_row(rows, "lb_propagate_halo", err, time_ms(lambda: k8.propagate_halo_cuda(dh, 1, vvl)),
+            time_ms(lambda: k8.propagate_halo_plain(dh, 1), reps=3, warm=1),
+            # velocity i reads an interior-sized window: K8's traffic
+            19 * 4 * 2 * V, 0, library_ms=time_ms(lambda: torch.take(dh, idx)))
+    del idx, got
+    dh2 = wrap_pad(dist.reshape((19,) + lat), 2)
+    exact_err(k8.propagate_halo_cuda(dh2, 2, vvl), k8.propagate_halo_plain(dh2, 2),
+              "lb_propagate_halo width 2")
+    log("  K8H at width 2 bitwise its plain version")
+    del dh2
+    fh = wrap_pad(force.reshape((3,) + lat), 1).reshape(3, -1)
+    dh = dh.reshape(19, -1)
+    got = k8.lb_step_pre_cuda(dh, fh, tau, lat, vvl)
+    want = k8.lb_step_pre_plain(dh, fh, tau, lat)
+    err = max(exact_err(got[0], want[0], "lb_step_pre dist2"),
+              exact_err(got[1], want[1], "lb_step_pre u"))
+    per = k8.lb_step_cuda(dist, force, tau, lat, vvl)
+    exact_err(got[0], per[0], "K5LH dist2 against K5L")
+    exact_err(got[1], per[1], "K5LH u against K5L")
+    log(f"  K5LH bitwise K5L's periodic launch; K5L "
+        f"{time_ms(lambda: k8.lb_step_cuda(dist, force, tau, lat, vvl)):.4f} ms")
+    add_row(rows, "lb_step_pre", err, time_ms(lambda: k8.lb_step_pre_cuda(dh, fh, tau, lat, vvl)),
+            time_ms(lambda: k8.lb_step_pre_plain(dh, fh, tau, lat), reps=3, warm=1),
+            22 * 4 * (Vc + V), FLOPS["lb_step"] * Vc)
+    del dist, force, dh, fh, got, want, per
+    torch.cuda.empty_cache()
+    return rows, pcounts
+
+
+def sharded_ludwig(state, cfg):
+    """D3: D_STEPS one-rank sharded steps from the L1 state, counted,
+    against as many single-device steps."""
+    dom = Domain(tuple(cfg.lattice), one_rank_mesh(D_LUDWIG_AXES), D_LUDWIG_AXES, halo=2)
+    sstep = ludwig.make_sharded_step(cfg, dom)
+    s = state
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for _ in range(D_STEPS):
+        s = step(s, cfg)
+    torch.cuda.synchronize()
+    single_ms = (time.perf_counter() - t0) / D_STEPS * 1e3
+    d, q = dom.scatter(state.dist.canonical_nd()), dom.scatter(state.q.canonical_nd())
+    reset_counts()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for _ in range(D_STEPS):
+        d, q = sstep(d, q)
+    torch.cuda.synchronize()
+    sharded_ms = (time.perf_counter() - t0) / D_STEPS * 1e3
+    counts = path_counts(D3_PATH)
+    bits = {n: torch.equal(a, b_) for n, a, b_ in (("dist", d, s.dist.canonical_nd()),
+                                                  ("q", q, s.q.canonical_nd()))}
+    diffs = {n: (a - b_).abs().max().item() for n, a, b_ in (("dist", d, s.dist.canonical_nd()),
+                                                            ("q", q, s.q.canonical_nd()))}
+    log(f"D3 {D_STEPS} sharded steps {cfg.lattice}, one rank: {sharded_ms:.3f} ms/step against "
+        f"{single_ms:.3f} single; bitwise {bits}, max abs diff {diffs}; launches {counts}")
+    for n, a, b_ in (("dist", d, s.dist.canonical_nd()), ("q", q, s.q.canonical_nd())):
+        if not torch.isfinite(a).all():
+            raise AssertionError(f"D3: non-finite {n}")
+        if not bits[n] and not torch.allclose(a, b_, rtol=D_STEP_RTOL, atol=D_STEP_ATOL):
+            raise AssertionError(f"D3: sharded {n} differs from the single steps by {diffs[n]}")
+    idle = [n for n, c in counts.items() if c == 0]
+    if idle:
+        raise AssertionError(f"D3: kernels of the sharded step never launched: {idle}")
+    del d, q, s
+    torch.cuda.empty_cache()
+    return dict(steps=D_STEPS, ms_per_step=sharded_ms, single_ms_per_step=single_ms,
+                bitwise=bits, max_abs_diff=diffs), counts
+
+
 def table_rows(path, counts, rows):
     return [dict(name=name, route="cuda", source=f"src/repro_torch/csrc/{src}",
                  replaces=rep, launches=counts[name], **rows[name])
@@ -4886,6 +5170,14 @@ def main():
     del sb, rc_, rt_
     torch.cuda.empty_cache()
 
+    # D1 (MILC). K4H and K5H against their plain versions; D2. the sharded solves
+    t0 = time.perf_counter()
+    log(f"D1: K4H and K5H at {lattice}, vvl {vvl}:")
+    drows, k5h_floor = check_halo_milc(u, b, lattice, vvl)
+    d2, d2counts = sharded_milc(cfg, u, b, x_soa, iterations, solve_s)
+    d2["wilson_normal_pre_design_floor_ms"] = k5h_floor
+    log(f"D1 (MILC), D2: {time.perf_counter() - t0:.1f} s")
+
     # S1. the batch instances against their plain versions and single launches
     t0 = time.perf_counter()
     brows = check_batch_kernels(u, lattice, vvl)
@@ -4955,6 +5247,22 @@ def main():
 
     # L5. the cuda engine against the torch engine, both on the card
     ludwig_engines(tuple(args.ludwig_small))
+
+    # D1 (Ludwig). K8H and K5LH against their plain versions; D3. the sharded steps
+    t0 = time.perf_counter()
+    log(f"D1: K8H and K5LH at {lcfg.lattice}, vvl {lcfg.target.vvl}:")
+    lhrows, d1counts = check_halo_ludwig(state, lcfg, lcfg.target.vvl)
+    drows.update(lhrows)
+    d3, d3counts = sharded_ludwig(state, lcfg)
+    log(f"D1 (Ludwig), D3: {time.perf_counter() - t0:.1f} s")
+    dcounts = {"dslash_halo": d2counts[None]["dslash_halo"],
+               "wilson_normal_pre": d2counts["pre"]["wilson_normal_pre"],
+               "lb_propagate_halo": d1counts["lb_propagate_halo"],
+               "lb_step_pre": d3counts["lb_step_pre"]}
+    decomp_line = {"decomposed": {
+        "card": smi, "sharded_solve": d2, "sharded_step": d3,
+        "kernels": {n: {k: r[k] for k in ("ms", "plain_ms", "bound_ms", "library_ms")}
+                    for n, r in drows.items()}}}
 
     # P1 at the Ludwig lattice, and P4. the bf16 LB step, counted
     t0 = time.perf_counter()
@@ -5101,7 +5409,8 @@ def main():
              + table_rows({**RS_BATCH_PATH, **RS_COMP_PATH, **RS_DTYPE_PATH,
                            "reduce_fold_split": RS_PATH["reduce_fold_split"]},
                           scounts_rs, srows)
-             + table_rows(FLAT_POLICY_PATH, ucounts, urows))
+             + table_rows(FLAT_POLICY_PATH, ucounts, urows)
+             + table_rows(DECOMP_PATH, dcounts, drows))
     print(json.dumps(layouts_line))
     print(json.dumps(serve_line))
     if turns:
@@ -5116,6 +5425,7 @@ def main():
     print(json.dumps({"autotune": {
         "card": smi, "flat_policy": {n: {**{k: r[k] for k in ("ms", "plain_ms", "bound_ms")},
                                          **uextra[n]} for n, r in urows.items()}, **u2}}))
+    print(json.dumps(decomp_line))
     print(json.dumps({"kernels": table}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

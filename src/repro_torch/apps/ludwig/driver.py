@@ -42,7 +42,12 @@ u, so the carried state and every stage input keep their dtype and the
 step's later launches keep their table keys.  The JAX package lets bf16
 outputs go on through jnp's promotion.
 
-Not yet ported: the sharded driver (``make_sharded_step``, ``run_steps``).
+:func:`make_sharded_step` is the step on a decomposed lattice (a rank's
+block of a ``lattice.Domain``, one process a rank): halo exchanges, then
+the same periodic stencils on the halo'd local arrays and crops, the LB
+half-step as the fused graph's ``halo="pre"`` launch (K5LH on "cuda").
+Not yet ported: ``run_steps`` (with ``core/schedule.py``, ROADMAP item 21)
+and the ``"overlap"`` schedule (item 23).
 """
 
 from __future__ import annotations
@@ -58,8 +63,10 @@ from repro_torch.core import (
     DtypePolicy, Field, LaunchGraph, Layout, SOA, TargetConfig, launch, target_sum,
     tileable_layout,
 )
+from repro_torch.core import halo as halo_mod
+from repro_torch.core import stencil
 from repro_torch.core.field import resolve_device
-from repro_torch.core.fuse import register_cuda_graph
+from repro_torch.core.fuse import check_pre_rings, register_cuda_graph
 from repro_torch.core.target import register_cuda_body
 from repro_torch.kernels.lb_collision import ref as lbref
 from repro_torch.kernels.lb_collision.ops import collide_kernel
@@ -317,6 +324,82 @@ def step_timed(state: LudwigState, cfg: LudwigConfig) -> Tuple[LudwigState, Dict
     return LudwigState(dist=dist2, q=q_new), t
 
 
+# -- sharded driver -------------------------------------------------------------------
+
+def make_sharded_step(cfg: LudwigConfig, domain, halo: str = "pre"):
+    """Build this rank's sharded step: ``step(dist_local, q_local) ->
+    (dist_local, q_local)``, canonical (19, *local_shape) and (5, ...)
+    blocks (``domain.scatter``).
+
+    Inside: Q's width-2 exchange and the periodic gradients on the halo'd
+    array (each wrap read lands on an exchanged halo, as the exchanges are
+    dimension-ordered), the chemical stress at the halo'd lattice, the
+    force divergence and crop; then width-1 exchanges of dist and force and
+    the fused LB half-step's ``halo="pre"`` launch (the collision
+    recomputed on the ring from the neighbours' pre-collision values), u's
+    exchange, advection and the Beris-Edwards update on the interior.
+    Every site computes what the single-device step computes there, so the
+    sharded steps are bitwise the single ones.
+
+    ``halo``: "pre"; "overlap" and None (the planned choice) are not yet
+    ported (ROADMAP item 23)."""
+    if halo not in (None, "pre", "overlap"):
+        raise ValueError(f"halo must be None, 'pre' or 'overlap', got {halo!r}")
+    if halo != "pre":
+        raise ValueError(f"halo={halo!r} (the overlap schedule) is not yet ported (ROADMAP "
+                         f"item 23); use halo='pre'")
+    WQ = 2  # q halo: grad/lap (1) + stress divergence (1)
+    dec, mesh = domain.decomposed, domain.mesh
+
+    def halo_of(x, w):
+        # the halo'd block, exchange(pad(x)): for non-decomposed dims the
+        # wrap IS the (local-)periodic halo; decomposed dims' come from the
+        # neighbours
+        return halo_mod.exchange_padded(x, dec, width=w, mesh=mesh)
+
+    def crop(x, w):
+        return stencil.interior(x, w, (1, 2, 3))
+
+    def mk(name, arr):
+        return _mkfield(name, arr, cfg)
+
+    tgt = cfg.target
+    chem_step = chem_stress_graph(cfg).bind(config=tgt, outputs=("h", "sigma"))
+    lb_pre_step = lb_step_graph(cfg).bind(config=_lb_target(cfg), outputs=("dist2", "u"),
+                                          halo="pre")
+    lc_step = lc_update_graph(cfg).bind(config=tgt, outputs=("q_new",))
+
+    def local_step(dist_nd: torch.Tensor, q_nd: torch.Tensor):
+        # ---- Q stencils on the width-2 halo
+        qh = halo_of(q_nd, WQ)
+        cs = chem_step({"q": mk("q", qh), "lapq": mk("lapq", gr.laplacian(qh)),
+                        "dq": mk("dq", gr.grad_central(qh))})
+        h_nd = crop(cs["h"].canonical_nd().to(q_nd.dtype), WQ)
+        # interior force: ring-1 divergence reads ring-2 gradients, which
+        # wrap locally, so the true force halo is exchanged below
+        force_nd = crop(gr.divergence(cs["sigma"].canonical_nd().to(q_nd.dtype)), WQ)
+
+        # ---- the fused LB half-step on pre-exchanged halos: the
+        # pre-collision dist and the force are exchanged, and the launch
+        # collides the ring too
+        lb = lb_pre_step({"dist": mk("dist", halo_of(dist_nd, 1)),
+                          "force": mk("force", halo_of(force_nd, 1))})
+        dist2_nd = lb["dist2"].canonical_nd().to(dist_nd.dtype)
+        u_nd = lb["u"].canonical_nd().to(q_nd.dtype)
+
+        # ---- hydrodynamics: velocity gradients and advection from u's halo
+        uh = halo_of(u_nd, 1)
+        w_nd = crop(_w_tensor(uh), 1)
+        adv_nd = crop(gr.advective_divergence(crop(qh, WQ - 1), uh), 1)
+
+        # ---- Beris-Edwards update on the interior
+        q_new = lc_step({"q": mk("q", q_nd), "h": mk("h", h_nd), "w": mk("w", w_nd),
+                         "adv": mk("adv", adv_nd)})["q_new"]
+        return dist2_nd, q_new.canonical_nd().to(q_nd.dtype)
+
+    return local_step
+
+
 # -- plan autotuning -------------------------------------------------------------------
 
 def tune_step_graphs(cfg: LudwigConfig, state: LudwigState, **tune_kw):
@@ -439,6 +522,15 @@ def _lb_step_tiled_cuda(graph, ins, scalars, *, lattice, plan, out_layouts, poli
     return {"dist2": dist2, "u": u}
 
 
+def _lb_step_pre_cuda(graph, ins, scalars, *, lattice, rings, vvl, out_layouts):
+    # K5LH: dist2 and u on the interior from dist and force padded by 1
+    check_pre_rings(graph, rings, {"dist": 1, "force": 1})
+    dist2, u = lbk.lb_step_pre_cuda(ins["dist"][0], ins["force"][0],
+                                    graph.stage_params()[1]["tau"], lattice, vvl,
+                                    with_u="u" in out_layouts)
+    return {"dist2": dist2, "u": u}
+
+
 def _fed_cuda(ins, params, vvl, out_layouts):
     t, lays = _split(ins, out_layouts)
     return {"fed": lck.fed_cuda(t["q"], t["dq"], a0=params["a0"], gamma=params["gamma"],
@@ -450,5 +542,5 @@ register_cuda_graph(chem_stress_graph(LudwigConfig()), _chem_stress_cuda, ("h", 
 register_cuda_graph(lc_update_graph(LudwigConfig()), _lc_update_cuda, ("q_new",), policy=True)
 register_cuda_graph(lc_chain_graph(LudwigConfig()), _lc_chain_cuda, ("q_new",))
 register_cuda_graph(lb_step_graph(LudwigConfig()), _lb_step_cuda, ("dist2", "u"),
-                    tiled=_lb_step_tiled_cuda, policy=True)
+                    tiled=_lb_step_tiled_cuda, policy=True, pre=_lb_step_pre_cuda)
 register_cuda_body(_fed_body, _fed_cuda)

@@ -5,7 +5,8 @@ Central second-order differences, matching Ludwig's default finite
 differences, as periodic torch ops over ``core.stencil.shift_periodic``.
 The JAX package computes these with jnp ops outside any Pallas kernel, so
 they have no hand-written kernel on either engine.  The halo'd-window
-variants belong to the sharded path and are not yet ported.
+variants (``*_halo``) read displaced interior windows of an exchanged
+halo'd array (``core.stencil.shifted_window``).
 """
 
 from __future__ import annotations
@@ -13,6 +14,9 @@ from __future__ import annotations
 import torch
 
 from repro_torch.core import stencil
+
+
+_SITE_DIMS3 = (1, 2, 3)
 
 
 def _sh(x, disp):
@@ -72,3 +76,26 @@ def advective_divergence(q_nd: torch.Tensor, u_nd: torch.Tensor) -> torch.Tensor
         flux_hi = _sh(flux_lo, _e(a, -1))                  # face (r+1/2)
         out = out + (flux_hi - flux_lo)
     return out
+
+
+# -- halo'd-window variants (the sharded path; width-2 halos for fluxes) -----
+
+def grad_central_halo(x_halo: torch.Tensor, width: int) -> torch.Tensor:
+    """:func:`grad_central` on the interior of a halo'd (n, X+2w, Y+2w,
+    Z+2w) array whose halos are exchanged -> (3*n, X, Y, Z)."""
+    w = width
+    outs = []
+    for a in range(3):
+        outs.append(0.5 * (stencil.shifted_window(x_halo, _e(a, -1), w, _SITE_DIMS3)
+                           - stencil.shifted_window(x_halo, _e(a, 1), w, _SITE_DIMS3)))
+    return torch.cat(outs, dim=0)
+
+
+def laplacian_halo(x_halo: torch.Tensor, width: int) -> torch.Tensor:
+    """:func:`laplacian` on the interior of a halo'd array."""
+    w = width
+    acc = -6.0 * stencil.shifted_window(x_halo, (0, 0, 0), w, _SITE_DIMS3)
+    for a in range(3):
+        acc = (acc + stencil.shifted_window(x_halo, _e(a, 1), w, _SITE_DIMS3)
+               + stencil.shifted_window(x_halo, _e(a, -1), w, _SITE_DIMS3))
+    return acc

@@ -44,6 +44,12 @@ slot at a time).  On "cuda" the operator's policy instance is K5's
 (``csrc/wilson_normal_mixed.cu``) and the update chains take its bf16 ap
 (K3's and K3B's ap16 instances).
 
+On a decomposed lattice (``driver.make_sharded_solver``) the solve runs on
+a rank's block: ``cg``'s inner products are all-reduced over the mesh
+(``psum_axes``), the operator reaches its neighbours through pre-exchanged
+halos (``make_wilson_op(dslash_fn=)``, or the fused operator's
+``halo="pre"`` launch, K5H on "cuda").
+
 A shared-memory budget (``TargetConfig.smem_bytes``) tiles the fused
 operator as the JAX package's VMEM budget does; on "cuda" the tiled plan
 runs K5T (``kernels/wilson_dslash/kernel.py::wilson_normal_tiled_cuda``),
@@ -65,6 +71,7 @@ from repro_torch.core.reduce import fold_components
 from repro_torch.core.target import register_cuda_body, site_axpy, site_g5, site_mul
 from repro_torch.kernels.wilson_dslash import dslash
 from repro_torch.kernels.wilson_dslash.kernel import (bf16_pack_cuda, wilson_normal_cuda,
+                                                      wilson_normal_pre_cuda,
                                                       wilson_normal_tiled_cuda)
 from repro_torch.kernels.wilson_dslash.ops import dslash_stencil_body
 
@@ -294,11 +301,15 @@ def make_fused_normal(u: Field, kappa: float, config: TargetConfig):
     return apply
 
 
-def make_wilson_op(u: Field, kappa: float, config: TargetConfig):
-    """Returns apply_m, apply_mdag, apply_normal (M^dag M)."""
+def make_wilson_op(u: Field, kappa: float, config: TargetConfig,
+                   dslash_fn: Optional[Callable[[Field], Field]] = None):
+    """Returns apply_m, apply_mdag, apply_normal (M^dag M).  ``dslash_fn``
+    replaces the periodic D psi (the sharded solver's exchange and
+    ``dslash_halo``)."""
+    _dslash = dslash_fn or (lambda psi: dslash(psi, u, config=config))
 
     def apply_m(psi: Field) -> Field:
-        d = dslash(psi, u, config=config)
+        d = _dslash(psi)
         return psi.with_canonical(psi.canonical() - kappa * d.canonical())
 
     def apply_mdag(psi: Field) -> Field:
@@ -323,29 +334,37 @@ def cg(
     config: TargetConfig,
     tol: float = 1e-8,
     max_iter: int = 500,
+    psum_axes: Tuple[str, ...] = (),
     apply_a_dot: Optional[Callable[[Field], Tuple[Field, torch.Tensor]]] = None,
+    mesh=None,
 ) -> CGResult:
     """Standard CG on a positive-definite operator, as a host loop.
 
     apply_a_dot, when given, computes (A p, <p, A p>) in one fused launch
     (see make_fused_normal) — the iteration then runs two fused launches:
-    operator+dot, and update-chain+residual-norm, plus the p update."""
-    b2 = dot(b, b, config)
+    operator+dot, and update-chain+residual-norm, plus the p update.
+
+    psum_axes: on a decomposed lattice (``b`` a rank's block), every inner
+    product is summed over these axes of ``mesh`` (``launch.mesh.Mesh``), an
+    all-reduce of the 0-d device scalar.  Every rank then holds the same rr
+    and b2, so the convergence test stops every rank on one iteration."""
+    psum = _psum(psum_axes, mesh)
+    b2 = psum(dot(b, b, config))
     x = b.with_data(torch.zeros_like(b.data))
     r = b
     p = b
-    rr = dot(r, r, config)
+    rr = psum(dot(r, r, config))
     it = 0
     # the convergence test is the one host synchronisation per iteration
     while it < max_iter and bool(rr / b2 > tol):
         if apply_a_dot is not None:
             ap, pap = apply_a_dot(p)
-            alpha = rr / pap
+            alpha = rr / psum(pap)
         else:
             ap = apply_a(p)
-            alpha = rr / dot(p, ap, config)
+            alpha = rr / psum(dot(p, ap, config))
         x, r, rr_vec = fused_cg_update(x, r, p, ap, alpha, config)
-        rr_new = fold_components(rr_vec)
+        rr_new = psum(fold_components(rr_vec))
         beta = rr_new / rr
         p = fused_xpay(r, beta, p, config)
         rr = rr_new
@@ -353,9 +372,19 @@ def cg(
     return CGResult(x=x, iterations=it, residual=rr / b2)
 
 
+def _psum(psum_axes: Tuple[str, ...], mesh) -> Callable[[torch.Tensor], torch.Tensor]:
+    """The sum over ``psum_axes`` of ``mesh`` (the identity for none)."""
+    if not psum_axes:
+        return lambda d: d
+    if mesh is None:
+        raise ValueError(f"psum_axes {tuple(psum_axes)} need the mesh that holds them")
+    return lambda d: mesh.all_reduce(d, psum_axes)
+
+
 def cg_refined(apply_a_dot, b: Field, *, config: TargetConfig, tol: float = 1e-8,
                max_iter: int = 500, refine_k: int = 50, reliable: float = 1e-4,
-               apply_a_dot_hi=None) -> CGResult:
+               apply_a_dot_hi=None, psum_axes: Tuple[str, ...] = (),
+               mesh=None) -> CGResult:
     """Iterative-refinement CG: low-precision inner solves inside restarts
     that recover the working precision (the JAX package's "portable-LQCD
     production recipe").
@@ -368,12 +397,14 @@ def cg_refined(apply_a_dot, b: Field, *, config: TargetConfig, tol: float = 1e-8
     ``apply_a_dot_hi`` (default ``apply_a_dot``; pass the policy-free
     operator).  |r|^2 is a plain fp32 sum outside any kernel, as in the
     reference.  ``iterations`` counts the inner iterations, the
-    bandwidth-bound work, as :func:`cg` counts its own."""
+    bandwidth-bound work, as :func:`cg` counts its own.  ``psum_axes`` and
+    ``mesh`` as :func:`cg`'s."""
     hi = apply_a_dot_hi or apply_a_dot
+    psum = _psum(psum_axes, mesh)
 
     def norm2(f: Field) -> torch.Tensor:
         c = f.canonical().to(torch.float32)
-        return torch.sum(c * c)
+        return psum(torch.sum(c * c))
 
     b2 = norm2(b)
     x = b.with_data(torch.zeros_like(b.data))
@@ -381,7 +412,7 @@ def cg_refined(apply_a_dot, b: Field, *, config: TargetConfig, tol: float = 1e-8
     # the convergence test is the outer loop's host synchronisation
     while it < max_iter and bool(rr / b2 > tol):
         inner = cg(None, r, config=config, tol=reliable, max_iter=refine_k,
-                   apply_a_dot=apply_a_dot)
+                   apply_a_dot=apply_a_dot, psum_axes=psum_axes, mesh=mesh)
         x = x.with_data(x.data + inner.x.data.to(x.dtype))
         ax, _ = hi(x)
         r = b.with_data(b.data - ax.data.to(b.dtype))
@@ -601,6 +632,13 @@ def _wilson_normal_cuda(graph, ins, scalars, *, lattice, vvl, out_layouts, polic
     return {"ap": ap, "pap": pap}
 
 
+def _wilson_normal_pre_cuda(graph, ins, scalars, *, lattice, rings, vvl, out_layouts):
+    # K5H: ap on the interior from p and u padded by 2 (their rings)
+    fuse.check_pre_rings(graph, rings, {"p": 2, "u": 2})
+    return {"ap": wilson_normal_pre_cuda(ins["p"][0], ins["u"][0], _normal_kappa(graph),
+                                         lattice, vvl)}
+
+
 def _wilson_normal_tiled_cuda(graph, ins, scalars, *, lattice, plan, out_layouts, policy=None,
                               rsplit=1, batch=0, in_batched=None):
     # K5T, single or (batch set) over stacked p against one shared u
@@ -657,7 +695,8 @@ register_cuda_graph(cg_update_graph(24), _cg_update_cuda, ("x_new", "r_new", "rr
 register_cuda_graph(cg_xpay_graph(24), _cg_xpay_cuda, ("out",))
 register_cuda_graph(wilson_normal_graph(0.0), _wilson_normal_cuda, ("ap", "pap"),
                     batched=_wilson_normal_batched_cuda, policy=True,
-                    tiled=_wilson_normal_tiled_cuda, tiled_batch=True)
+                    tiled=_wilson_normal_tiled_cuda, tiled_batch=True,
+                    pre=_wilson_normal_pre_cuda, pre_outputs=("ap",))
 register_cuda_graph(masked_cg_update_graph(24), None, ("x_new", "r_new", "rr"),
                     batched=_cg_update_masked_cuda)
 register_cuda_graph(masked_xpay_graph(24), None, ("out",), batched=_cg_xpay_masked_cuda)

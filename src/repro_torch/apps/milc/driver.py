@@ -19,8 +19,17 @@ the tiled plan runs K5T (the operator's blocks walking the tiles) in
 :func:`tune_solve_graphs` autotunes the two graphs a CG iteration launches
 (``core.tune``) and persists the winners, which a later
 ``plan_policy="tuned"`` solve loads; :func:`solver_cost_model` ranks the
-operator's candidates by measured time to solution.  The sharded solvers of
-the JAX package are not yet ported.
+operator's candidates by measured time to solution.
+
+The sharded solve (:func:`make_sharded_solver`, :func:`solve_sharded`)
+runs on a decomposed lattice (``lattice.Domain`` over a ``launch.mesh.Mesh``,
+one process a rank): each rank solves on its block, its inner products
+all-reduced over the mesh.  Its per-iteration schedules, as the JAX
+package's: ``halo=None`` exchanges the spinor once for each dslash
+(``dslash_halo``, K4H on "cuda", unfused); ``halo="pre"`` exchanges p once
+at width 2 and runs the fused normal operator on the pre-exchanged halos
+(K5H), <p, Ap> from ``dot`` on the assembled Fields.  ``"overlap"`` is not
+yet ported (ROADMAP item 23).
 """
 
 from __future__ import annotations
@@ -30,9 +39,13 @@ from typing import Optional, Tuple
 
 import torch
 
-from repro_torch.core import BatchedField, DtypePolicy, Field, Layout, SOA, TargetConfig
-from .cg import (BatchedCGResult, CGResult, cg, cg_batched, cg_refined, make_fused_normal,
-                 make_wilson_op)
+from repro_torch.core import (BatchedField, DtypePolicy, Field, Layout, SOA, TargetConfig,
+                              tileable_layout)
+from repro_torch.core import halo as halo_mod
+from repro_torch.kernels.wilson_dslash import dslash_halo
+from repro_torch.lattice import Domain
+from .cg import (BatchedCGResult, CGResult, cg, cg_batched, cg_refined, dot, make_fused_normal,
+                 make_wilson_op, wilson_normal_graph)
 from . import fields
 
 
@@ -207,3 +220,80 @@ def residual_check(cfg: MilcConfig, u: Field, b: Field, x: Field) -> float:
     num = torch.linalg.norm(mx.canonical() - b.canonical())
     den = torch.linalg.norm(b.canonical())
     return float(num / den)
+
+
+# -- sharded solve -----------------------------------------------------------------
+
+def make_domain(cfg: MilcConfig, mesh, dim_axes) -> Domain:
+    return Domain(global_shape=cfg.lattice, mesh=mesh, dim_axes=dim_axes, halo=1)
+
+
+def make_sharded_solver(cfg: MilcConfig, domain: Domain, halo: Optional[str] = None):
+    """Build the sharded CG solver of this rank: ``solver(u_local,
+    b_local) -> (x_local, iterations, residual)``, each array this rank's
+    canonical (ncomp, *local_shape) block (``domain.scatter``), iterations
+    an int and residual |r|^2 / |b|^2, the same on every rank.
+
+    ``halo`` selects the per-iteration schedule: None (an exchange for each
+    dslash, unfused) or "pre" (the fused normal operator on one width-2
+    exchange); "overlap" is not yet ported (ROADMAP item 23)."""
+    if halo not in (None, "pre", "overlap"):
+        raise ValueError(f"halo must be None, 'pre' or 'overlap', got {halo!r}")
+    if halo == "overlap":
+        raise ValueError("halo='overlap' (the interior/boundary split schedule) is not yet "
+                         "ported (ROADMAP item 23); use None or 'pre'")
+    mesh = domain.mesh
+    dec = domain.decomposed
+    axes = tuple(ax for _, ax, _ in dec) if mesh is not None else ()
+    tgt = cfg.target
+    WN = 2  # fused normal-operator ring: two width-1 dslash stages
+
+    def halo_of(x, w=1):
+        # the halo'd block, exchange(pad(x)): the decomposed dims' halos from
+        # the neighbours, the others' by the local periodic wrap
+        return halo_mod.exchange_padded(x, dec, width=w, mesh=mesh)
+
+    def mkF(name, arr):
+        lat = tuple(arr.shape[1:])
+        return Field.from_canonical(name, arr, lat, tileable_layout(cfg.layout, lat))
+
+    normal_pre = wilson_normal_graph(float(cfg.kappa)).bind(config=tgt, outputs=("ap",),
+                                                           halo="pre")
+
+    def solver(u_loc: torch.Tensor, b_loc: torch.Tensor):
+        u_h = halo_of(u_loc)  # the gauge halo, once a solve
+
+        def dslash_fn(psi: Field) -> Field:
+            psi_h = halo_of(psi.canonical_nd())
+            out = dslash_halo(psi_h, u_h, config=tgt, width=1)
+            return psi.with_canonical(out.reshape(psi.ncomp, -1))
+
+        _, apply_mdag, apply_normal = make_wilson_op(mkF("u", u_loc), cfg.kappa, tgt,
+                                                     dslash_fn=dslash_fn)
+        rhs = apply_mdag(mkF("b", b_loc))
+        apply_a_dot = None
+        if halo == "pre":
+            # M^dag M as one halo'd launch an iteration; the gauge field's
+            # ring-2 halo is exchanged once here
+            uF_h = mkF("u", halo_of(u_loc, WN))
+
+            def apply_a_dot(p: Field):
+                pF = mkF("p", halo_of(p.canonical_nd(), WN))
+                ap = p.with_data(normal_pre({"p": pF, "u": uF_h},
+                                            out_layouts={"ap": p.layout})["ap"].data)
+                # <p, Ap> from the assembled Fields, not a fused reduction:
+                # its value does not depend on how ap was produced
+                return ap, dot(p, ap, tgt)
+
+        res = cg(apply_normal, rhs, config=tgt, tol=cfg.tol, max_iter=cfg.max_iter,
+                 psum_axes=axes, apply_a_dot=apply_a_dot, mesh=mesh)
+        return res.x.canonical_nd(), res.iterations, res.residual
+
+    return solver
+
+
+def solve_sharded(cfg: MilcConfig, domain: Domain, u_local: torch.Tensor,
+                  b_local: torch.Tensor, halo: Optional[str] = None):
+    """One-shot form of :func:`make_sharded_solver` (loops should build the
+    solver once): (x_local, iterations, residual)."""
+    return make_sharded_solver(cfg, domain, halo)(u_local, b_local)

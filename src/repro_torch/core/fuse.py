@@ -75,9 +75,19 @@ A plan's ``rsplit`` reaches every registered kernel that folds partial rows
 combined in index order (``core.reduce``); the field outputs do not change.
 :meth:`ReduceSpec.combine_partials` is that stage-2 combine in torch ops.
 
-Only ``halo="periodic"`` (single device) is ported; the sharded ``"pre"``
-and ``"overlap"`` strategies raise.  This module also holds K3, the flat
-fused CG kernels (``csrc/fused_flat.cu``) that replace the JAX package's
+``halo`` says where the stencil inputs' halos come from.  ``"periodic"``
+(single device) pads them inside the launch.  ``"pre"`` (the sharded
+path, ``core.halo``) takes each input already padded by its ring and
+exchanged by the caller: the output lattice is the interior, each input's
+lattice less twice its ring.  The torch engine stages the caller's arrays
+as they are; the cuda engine runs the graph's registered ``"pre"`` kernel
+(``register_cuda_graph(..., pre=)``: K5H for wilson_normal, K5LH for
+ludwig_lb_step) and raises for any other graph.  Not yet ported under
+``"pre"``: tiles, ``rsplit``, ``view="block"``, a batch and a DtypePolicy
+(ROADMAP item 24, queue 2 (e), (f)); ``"overlap"`` raises (item 23).
+
+This module also holds K3, the flat fused CG kernels
+(``csrc/fused_flat.cu``) that replace the JAX package's
 ``LaunchGraph._build_flat`` for the ``cg_update`` and ``cg_xpay`` graphs,
 and K3B, its batch instances for the serving chains (``cg_update_masked``,
 ``cg_xpay_masked``), each beside its plain PyTorch version; the third,
@@ -99,8 +109,9 @@ import torch
 from .._cuda import Kernel, check_field, check_tensor, check_typed_field
 from .field import BatchedField, Field, backend_name
 from .layout import Layout, LayoutKind, resolve_layouts
-from .plan import (VIEW_BLOCK, DtypePolicy, LoweringPlan, adapt_plan, cuda_policy, default_plan,
-                   graph_plan_key, launch_policy, policy_plan, resolve_accumulate)
+from .plan import (VIEW_BLOCK, DtypePolicy, LoweringPlan, adapt_plan, check_pre_plan,
+                   cuda_policy, default_plan, graph_plan_key, launch_policy, policy_plan,
+                   resolve_accumulate)
 from .reduce import compensated_plain, fold_partials, fold_partials_batched
 from .stencil import halo_pad, tile_boxes
 from .target import (TargetConfig, TargetKernel, batch_operand, operand_shape, operand_slot,
@@ -109,7 +120,8 @@ from .target import (TargetConfig, TargetKernel, batch_operand, operand_shape, o
 __all__ = ["LaunchGraph", "BoundLaunch", "ReduceSpec", "register_cuda_graph",
            "tiled_plain", "kahan_fold", "cg_update", "cg_xpay", "CG_UPDATE", "CG_XPAY",
            "cg_update_masked", "cg_xpay_masked", "CG_UPDATE_MASKED", "CG_XPAY_MASKED",
-           "CG_UPDATE_AP16", "CG_UPDATE_MASKED_AP16", "CG_UPDATE_POLICY", "policy_stage_in"]
+           "CG_UPDATE_AP16", "CG_UPDATE_MASKED_AP16", "CG_UPDATE_POLICY", "policy_stage_in",
+           "check_pre_rings"]
 
 log = logging.getLogger(__name__)
 
@@ -314,6 +326,8 @@ class _CudaEntry(NamedTuple):
     batched: Optional[Callable]     # the batch instance
     policy: bool                    # every kernel of the entry takes a DtypePolicy
     tiled_batch: bool               # the tiled kernel has a batch instance
+    pre: Optional[Callable]         # the kernel on pre-exchanged halos (halo="pre")
+    pre_outputs: Tuple[str, ...]    # what that kernel produces
 
 
 # LaunchGraph.structure() -> its kernels
@@ -325,7 +339,9 @@ def register_cuda_graph(graph: "LaunchGraph", impl: Optional[Callable],
                         tiled: Optional[Callable] = None,
                         batched: Optional[Callable] = None,
                         policy: bool = False,
-                        tiled_batch: bool = False) -> None:
+                        tiled_batch: bool = False,
+                        pre: Optional[Callable] = None,
+                        pre_outputs: Optional[Sequence[str]] = None) -> None:
     """Run ``impl(graph, ins, scalars, lattice=, vvl=, out_layouts=)`` for
     every graph of ``graph``'s structure on the cuda engine,
     ``tiled(graph, ins, scalars, lattice=, plan=, out_layouts=)`` under a
@@ -345,9 +361,23 @@ def register_cuda_graph(graph: "LaunchGraph", impl: Optional[Callable],
     ``core.plan.CudaPolicy``) under a non-empty DtypePolicy; the launch
     raises for a policy on any other graph.  The kernels of a graph with a
     terminal reduction also take ``rsplit=`` (the plan's split factor),
-    which their partial folds take."""
-    _CUDA_GRAPHS[graph.structure()] = _CudaEntry(impl, tuple(outputs), tiled, batched, policy,
-                                                 bool(tiled_batch))
+    which their partial folds take.  ``pre(graph, ins, scalars, lattice=,
+    rings=, vvl=, out_layouts=)`` runs a ``halo="pre"`` launch: ``ins`` are
+    the caller's halo'd tensors, ``rings`` each input's ring, ``lattice``
+    the interior the outputs cover; it returns ``pre_outputs`` (default
+    ``outputs``).  The ``"pre"`` kernels take no policy."""
+    _CUDA_GRAPHS[graph.structure()] = _CudaEntry(
+        impl, tuple(outputs), tiled, batched, policy, bool(tiled_batch), pre,
+        tuple(pre_outputs if pre_outputs is not None else outputs))
+
+
+def check_pre_rings(graph: "LaunchGraph", rings: Mapping[str, int],
+                    want: Mapping[str, int]) -> None:
+    """The check of a ``"pre"`` kernel's impl: each input padded by the ring
+    its kernel takes (``want``); raises before any launch."""
+    if dict(rings) != dict(want):
+        raise ValueError(f"cuda engine: graph {graph.name!r}'s halo='pre' kernel takes rings "
+                         f"{dict(want)}, got {dict(rings)}")
 
 
 def _slot_scalar(v, b: int):
@@ -542,17 +572,22 @@ class LaunchGraph:
         return (self.name, tuple(sig))
 
     def plan_key(self, ins: Mapping[str, Field], *, config: Optional[TargetConfig] = None,
-                 outputs: Optional[Sequence[str]] = None) -> str:
+                 outputs: Optional[Sequence[str]] = None, halo: str = "periodic",
+                 lattice: Optional[Sequence[int]] = None) -> str:
         """The tune table's key of launching this graph with ``ins``
         (``core.plan.graph_plan_key``): the signature, each input's name,
-        width, dtype, layout and lattice, the lattice, the engine, the
-        outputs, the backend (the CUDA device's name, or "cpu") and, for a
-        batched launch, the batch size and which inputs are batched."""
+        width, dtype, layout and lattice, the lattice (the interior under
+        ``halo="pre"``; default the first input's), the engine, the halo
+        strategy ("pre" and "overlap" share keys, as in the JAX package),
+        the outputs, the backend (the CUDA device's name, or "cpu") and, for
+        a batched launch, the batch size and which inputs are batched."""
         config = config or TargetConfig()
         ordered = [n for n in self.external_inputs() if n in ins]
         if outputs is None:
             outputs = [v for (_, v, _, _) in self._stages[-1].outs]
         first = ins[ordered[0]] if ordered else next(iter(ins.values()))
+        if lattice is None:
+            lattice = first.lattice
         inputs = tuple((n, ins[n].ncomp, str(ins[n].dtype).replace("torch.", ""),
                         ins[n].layout.name, tuple(ins[n].lattice)) for n in ordered)
         batch = max((ins[n].batch if isinstance(ins[n], BatchedField) else 0 for n in ordered),
@@ -560,8 +595,9 @@ class LaunchGraph:
         batch_key = 0
         if batch:
             batch_key = (batch,) + tuple(int(isinstance(ins[n], BatchedField)) for n in ordered)
-        return graph_plan_key(self.plan_signature(), engine=config.engine, halo="periodic",
-                              outputs=tuple(outputs), inputs=inputs, lattice=tuple(first.lattice),
+        return graph_plan_key(self.plan_signature(), engine=config.engine,
+                              halo="pre" if halo == "overlap" else halo,
+                              outputs=tuple(outputs), inputs=inputs, lattice=tuple(lattice),
                               backend=backend_name(first.device), batch=batch_key)
 
     def bytes_moved(self, ins_ncomp: Mapping[str, int], nsites: int,
@@ -629,8 +665,10 @@ class LaunchGraph:
                     tensor, or, in a batched launch, a (batch,) per-slot
                     vector; the cuda kernels read it on the device).
         out_layouts graph output name -> Layout (default: first input's).
-        halo        "periodic" (single device); "pre"/"overlap" are not yet
-                    ported.
+        halo        "periodic" (single device: the launch pads the stencil
+                    inputs) or "pre" (each input comes padded by its ring,
+                    ``halo_widths()``, and exchanged; the outputs cover the
+                    interior).  "overlap" is not yet ported.
         plan        explicit LoweringPlan for this launch (overrides
                     config.plan_policy).
         """
@@ -638,15 +676,18 @@ class LaunchGraph:
             raise ValueError("LaunchGraph has no stages")
         if not ins:
             raise ValueError("fused launch needs at least one input Field")
-        if halo in ("pre", "overlap"):
-            raise ValueError(
-                f"halo={halo!r} (the sharded path) is not yet ported; only "
-                f"halo='periodic' is")
-        if halo != "periodic":
-            raise ValueError(f"halo must be 'periodic', got {halo!r}")
+        if halo not in ("periodic", "pre", "overlap"):
+            raise ValueError(f"halo must be 'periodic', 'pre' or 'overlap', got {halo!r}")
         config = config or TargetConfig()
         scalars = dict(scalars or {})
         stencil = self.has_stencil
+        if halo != "periodic" and not stencil:
+            raise ValueError(f"halo={halo!r} only applies to graphs with stencil stages")
+        if halo == "overlap":
+            raise ValueError(
+                "halo='overlap' (the interior/boundary split schedule of core/overlap.py) "
+                "is not yet ported (ROADMAP item 23); use halo='pre'")
+        pre = halo == "pre"
 
         first = next(iter(ins.values()))
         # the leading batch axis: BatchedField inputs stack `batch`
@@ -654,6 +695,10 @@ class LaunchGraph:
         # slot (one gauge field serving many right-hand sides)
         in_batch = {n: f.batch if isinstance(f, BatchedField) else 0 for n, f in ins.items()}
         batch = max(in_batch.values(), default=0)
+        if batch and pre:
+            raise ValueError(
+                f"a batched launch of graph {self.name!r} under halo='pre' is not yet "
+                f"ported (ROADMAP queue 2 (f))")
         if batch:
             bad_b = {n: b for n, b in in_batch.items() if b not in (0, batch)}
             if bad_b:
@@ -693,12 +738,25 @@ class LaunchGraph:
         red_names = set(self._reduce_outputs())
         field_outputs = tuple(o for o in outputs if o not in red_names)
 
-        lattice = first.lattice
-        bad = {k: f.lattice for k, f in ins.items() if f.lattice != lattice}
-        if bad:
-            raise ValueError(
-                f"all Fields in a fused launch must share nsites and lattice "
-                f"shape: {first.name!r} has {lattice}, mismatched {bad}")
+        need = self._required_rings(outputs) if stencil else {}
+        if pre:
+            # the interior: each input's lattice less twice its ring
+            rings = {n: need.get(n, 0) for n in ordered_ins}
+            interiors = {n: tuple(s - 2 * r for s in ins[n].lattice) for n, r in rings.items()}
+            lattice = interiors[ordered_ins[0]]
+            bad = {n: lat for n, lat in interiors.items() if lat != lattice}
+            if bad or any(s < 1 for s in lattice):
+                raise ValueError(
+                    f"pre-halo'd inputs disagree on the interior lattice (lattice - 2*ring "
+                    f"per input, rings {rings}): "
+                    f"{ {n: ins[n].lattice for n in ordered_ins} }")
+        else:
+            lattice = first.lattice
+            bad = {k: f.lattice for k, f in ins.items() if f.lattice != lattice}
+            if bad:
+                raise ValueError(
+                    f"all Fields in a fused launch must share nsites and lattice "
+                    f"shape: {first.name!r} has {lattice}, mismatched {bad}")
         nsites = int(math.prod(lattice))
 
         out_layouts = dict(out_layouts or {})
@@ -719,7 +777,6 @@ class LaunchGraph:
         # itemsize) per field output
         smem_views = None
         if stencil:
-            need = self._required_rings(outputs)
             smem_views = (
                 tuple((ins[n].ncomp, need.get(n, 0), ins[n].data.element_size())
                       for n in ordered_ins),
@@ -730,13 +787,15 @@ class LaunchGraph:
 
         def default():
             # a default plan's view stays "auto": never the block view's check
-            return default_plan(config, nsites=nsites, layouts=all_layouts,
-                                stencil=stencil, lattice=lattice, smem_views=smem_views)
+            p = default_plan(config, nsites=nsites, layouts=all_layouts, stencil=stencil,
+                             lattice=lattice, smem_views=smem_views, bounded=pre)
+            return check_pre_plan(p) if pre else p
 
         from_table = False
         if plan is None and getattr(config, "plan_policy", "default") == "tuned":
             from . import tune
-            plan = tune.lookup(self.plan_key(ins, config=config, outputs=outputs))
+            plan = tune.lookup(self.plan_key(ins, config=config, outputs=outputs, halo=halo,
+                                             lattice=lattice))
             from_table = plan is not None
         elif plan is None:
             plan = policy_plan(config)
@@ -744,12 +803,13 @@ class LaunchGraph:
             plan = default()
         else:
             try:
-                plan = adapt_plan(plan, stencil=stencil)
-                plan.validate(nsites=nsites, lattice=lattice, layouts=all_layouts,
-                              stencil=stencil)
+                plan = adapt_plan(plan, stencil=stencil, halo=halo)
+                # the "pre" kernels check their last block's bounds: vvl need
+                # not divide the interior
+                plan.validate(nsites=None if pre else nsites, lattice=lattice,
+                              layouts=all_layouts, stencil=stencil)
                 if stencil and plan.view == VIEW_BLOCK:
                     # the view's alignment, checked before any device is touched
-                    need = self._required_rings(outputs)
                     _block_geometry(ordered_ins, [ins[n].layout for n in ordered_ins],
                                     [need.get(n, 0) for n in ordered_ins], out_layouts,
                                     field_outputs, lattice, tiled=plan.tiled)
@@ -780,7 +840,7 @@ class LaunchGraph:
                                               out_layouts, plan, red_names)
         elif plan.engine == "torch":
             vals = self._launch_torch(ins, ordered_ins, scalars, ordered_scalars,
-                                      outputs, stencil, lattice, first, policy)
+                                      outputs, stencil, lattice, first, policy, pre)
             vals = {o: vals[o].to(out_info[o][1]) for o in outputs}
             # the bodies' canonical field outputs, packed into their layouts
             vals.update({o: out_layouts[o].pack(vals[o].reshape(out_info[o][0], nsites))
@@ -790,7 +850,8 @@ class LaunchGraph:
             vals = self._launch_cuda(ins, ordered_ins, scalars, ordered_scalars,
                                      outputs, lattice, plan, first,
                                      {o: out_layouts[o] for o in field_outputs},
-                                     batch, in_batch, policy)
+                                     batch, in_batch, policy,
+                                     {n: need.get(n, 0) for n in ordered_ins} if pre else None)
 
         lead = (batch,) if batch else ()
         out: Dict[str, Union[Field, BatchedField, torch.Tensor]] = {}
@@ -852,7 +913,7 @@ class LaunchGraph:
 
     def _launch_torch(self, ins, ordered_ins, scalars, ordered_scalars,
                       outputs, stencil, lattice, first,
-                      policy: _Policy) -> Dict[str, torch.Tensor]:
+                      policy: _Policy, pre: bool = False) -> Dict[str, torch.Tensor]:
         cast = policy.cast or (lambda d: d)
         sdt = policy.scalar_dt or first.dtype
         specs = self.reduce_specs()
@@ -876,7 +937,8 @@ class LaunchGraph:
         for n in ordered_ins:
             ring = need.get(n, 0)
             nd = cast(ins[n].canonical_nd())
-            values[n] = (halo_pad(nd, ring, site_dims) if ring else nd, ring)
+            # "pre": the caller's halo'd array as it is, never padded again
+            values[n] = (halo_pad(nd, ring, site_dims) if ring and not pre else nd, ring)
         values.update({n: (scalar(n), None) for n in ordered_scalars})
         values, partials = self._run_stages_nd(values, len(lattice))
         for o, (dt, comp) in policy.acc_fold.items():
@@ -891,39 +953,26 @@ class LaunchGraph:
 
     def _launch_cuda(self, ins, ordered_ins, scalars, ordered_scalars, outputs, lattice,
                      plan, first, out_layouts, batch, in_batch,
-                     policy: _Policy) -> Dict[str, torch.Tensor]:
+                     policy: _Policy, rings=None) -> Dict[str, torch.Tensor]:
         entry = _CUDA_GRAPHS.get(self.structure())
         pkw = {}
-        if policy.pol:
-            if entry is None or not entry.policy:
-                raise ValueError(
-                    f"cuda engine: graph {self.name!r} has no policy instance of its "
-                    f"kernels; a dtype policy ({policy.pol.tag()}) on it is not yet "
-                    f"ported (use engine='torch', or no policy)")
-            pkw = dict(policy=cuda_policy(policy.pol))
-        if plan.tiled:
-            impl, produces = self._tiled_entry(entry, plan, lattice, batch)
-            kw = dict(lattice=lattice, plan=plan)
-        elif batch:
-            if entry is None or entry.batched is None:
-                raise ValueError(
-                    f"cuda engine: no hand-written batched CUDA kernel is registered "
-                    f"for the signature of graph {self.name!r} (register one with "
-                    f"register_cuda_graph(..., batched=), or use engine='torch')")
-            impl, produces = entry.batched, entry.outputs
-            kw = dict(lattice=lattice, vvl=plan.vvl)
-        elif entry is None or entry.impl is None:
-            raise ValueError(
-                f"cuda engine: no hand-written CUDA kernel is registered for "
-                f"the signature of graph {self.name!r} (register one with "
-                f"register_cuda_graph, or use engine='torch')")
+        if rings is not None:
+            impl, produces, kw = self._pre_entry(
+                entry, policy, lattice, rings, plan,
+                {**{n: ins[n].layout for n in ordered_ins}, **out_layouts})
         else:
-            impl, produces = entry.impl, entry.outputs
-            kw = dict(lattice=lattice, vvl=plan.vvl)
+            if policy.pol:
+                if entry is None or not entry.policy:
+                    raise ValueError(
+                        f"cuda engine: graph {self.name!r} has no policy instance of its "
+                        f"kernels; a dtype policy ({policy.pol.tag()}) on it is not yet "
+                        f"ported (use engine='torch', or no policy)")
+                pkw = dict(policy=cuda_policy(policy.pol))
+            impl, produces, kw = self._periodic_entry(entry, plan, lattice, batch)
+            if self._reduce_outputs():
+                kw["rsplit"] = plan.rsplit   # the kernel's partial folds (K2S where > 1)
         if batch:
             kw.update(batch=batch, in_batched={n: bool(in_batch[n]) for n in ordered_ins})
-        if self._reduce_outputs():
-            kw["rsplit"] = plan.rsplit   # the kernel's partial folds (K2S where > 1)
         extra = [o for o in outputs if o not in produces]
         if extra:
             raise ValueError(
@@ -943,6 +992,48 @@ class LaunchGraph:
             svals[n] = (v.broadcast_to((batch,)) if batch else v.reshape(())).contiguous()
         return impl(self, {n: (ins[n].data, ins[n].layout) for n in ordered_ins}, svals,
                     out_layouts=out_layouts, **kw, **pkw)
+
+    def _pre_entry(self, entry, policy: _Policy, lattice, rings, plan, layouts):
+        """(impl, outputs, keywords) of a halo="pre" launch: the graph's
+        kernel on pre-exchanged halos; raises where there is none, for a
+        policy and for a field that is not SoA (the "pre" kernels read and
+        write SoA)."""
+        if entry is None or entry.pre is None:
+            raise ValueError(
+                f"cuda engine: no hand-written halo='pre' kernel is registered for "
+                f"graph {self.name!r} (register one with register_cuda_graph(..., pre=)); "
+                f"its pre-exchanged lowering is still to be ported (ROADMAP item 24)")
+        if policy.pol:
+            raise ValueError(
+                f"cuda engine: a dtype policy ({policy.pol.tag()}) on graph {self.name!r} "
+                f"under halo='pre' is not yet ported (ROADMAP queue 2 (e))")
+        off = {n: lay.name for n, lay in layouts.items() if lay.kind is not LayoutKind.SOA}
+        if off:
+            raise ValueError(
+                f"cuda engine: graph {self.name!r}'s halo='pre' kernel reads and writes SoA "
+                f"fields, got {off} (other layouts under 'pre' are still to be ported, "
+                f"ROADMAP item 24)")
+        return entry.pre, entry.pre_outputs, dict(lattice=lattice, rings=rings, vvl=plan.vvl)
+
+    def _periodic_entry(self, entry, plan, lattice, batch):
+        """(impl, outputs, keywords) of a periodic launch: the tiled, the
+        batched or the single kernel; raises where the graph has none."""
+        if plan.tiled:
+            impl, produces = self._tiled_entry(entry, plan, lattice, batch)
+            return impl, produces, dict(lattice=lattice, plan=plan)
+        if batch:
+            if entry is None or entry.batched is None:
+                raise ValueError(
+                    f"cuda engine: no hand-written batched CUDA kernel is registered "
+                    f"for the signature of graph {self.name!r} (register one with "
+                    f"register_cuda_graph(..., batched=), or use engine='torch')")
+            return entry.batched, entry.outputs, dict(lattice=lattice, vvl=plan.vvl)
+        if entry is None or entry.impl is None:
+            raise ValueError(
+                f"cuda engine: no hand-written CUDA kernel is registered for "
+                f"the signature of graph {self.name!r} (register one with "
+                f"register_cuda_graph, or use engine='torch')")
+        return entry.impl, entry.outputs, dict(lattice=lattice, vvl=plan.vvl)
 
     def _tiled_entry(self, entry, plan, lattice, batch):
         """(tiled impl, outputs) for a tiled plan, batched or not; raises

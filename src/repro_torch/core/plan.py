@@ -67,8 +67,10 @@ LaunchGraph launch runs the persisted winner for its :func:`graph_plan_key`;
 site-local launches and standalone reductions carry no graph key and plan
 with the default heuristics.
 
-Not yet ported: the halo strategies of the sharded path (and with them the
-tuner's ``halo="overlap"`` twins).
+Under ``halo="pre"`` (the sharded path's pre-exchanged halos) a plan is
+untiled, unsplit and in the staged view: :func:`check_pre_plan` refuses
+the rest, which is still to be ported with ``halo="overlap"`` and the
+tuner's overlap twins (ROADMAP items 23, 24).
 """
 
 from __future__ import annotations
@@ -85,8 +87,8 @@ from .layout import Layout, LayoutKind
 
 __all__ = ["LoweringPlan", "DtypePolicy", "ACCUM_COMPENSATED", "dtype_itemsize",
            "resolve_accumulate", "cuda_policy", "CudaPolicy", "divisors", "choose_vvl", "sal_alignment", "choose_slab",
-           "choose_tiles", "block_view_ok", "adapt_plan", "VIEW_AUTO", "VIEW_BLOCK",
-           "VIEW_STAGED_ND",
+           "choose_tiles", "block_view_ok", "adapt_plan", "check_pre_plan", "VIEW_AUTO",
+           "VIEW_BLOCK", "VIEW_STAGED_ND",
            "tile_extents", "estimate_smem_bytes", "resolved_smem_bytes",
            "default_plan", "plan_for_launch", "policy_plan", "candidate_plans",
            "graph_plan_key", "ENGINES", "WARP",
@@ -569,9 +571,29 @@ class LoweringPlan:
                 f"bx={self.bx} must divide the leading lattice dim {lattice[0]}")
 
 
-def adapt_plan(plan: LoweringPlan, *, stencil: bool) -> LoweringPlan:
-    """Fit an explicit plan to a concrete launch (single device, periodic
-    halo).  The view follows the JAX package's ``adapt_plan``: a site-local
+def check_pre_plan(plan: LoweringPlan) -> LoweringPlan:
+    """Raise for what a ``halo="pre"`` launch does not run yet: a tiled
+    plan, a split reduction, the block view; return the plan."""
+    what = []
+    if plan.tiled:
+        what.append("tiles (by/bz)")
+    if plan.rsplit > 1:
+        what.append(f"rsplit={plan.rsplit}")
+    if plan.view == VIEW_BLOCK:
+        what.append("view='block'")
+    if what:
+        raise ValueError(
+            f"plan {plan.describe()} under halo='pre' uses what is not yet ported there: "
+            f"{', '.join(what)} (ROADMAP item 24); use an untiled, unsplit, staged plan")
+    return plan
+
+
+def adapt_plan(plan: LoweringPlan, *, stencil: bool, halo: str = "periodic") -> LoweringPlan:
+    """Fit an explicit plan to a concrete launch.  ``halo`` is the call
+    site's strategy, which is authoritative, as in the JAX package:
+    "periodic", or "pre", under which :func:`check_pre_plan` refuses what
+    is not yet ported; "overlap" raises (ROADMAP item 23).  The view
+    follows the JAX package's ``adapt_plan``: a site-local
     launch is always "block"; a stencil launch keeps an explicit view on the
     cuda engine (an explicit "block" that cannot lower fails loudly at
     launch), and "auto", or any view on the torch engine, resolves to
@@ -582,6 +604,9 @@ def adapt_plan(plan: LoweringPlan, *, stencil: bool) -> LoweringPlan:
     every launch of a solve or a step.  The JAX package's site-local
     validation raises on it; the port's untiled kernels ignore ``bx``
     anyway.  A tiled plan keeps it and still raises there."""
+    if halo not in ("periodic", "pre"):
+        raise ValueError(f"halo={halo!r} is not ported (ROADMAP item 23); the port runs "
+                         f"'periodic' and 'pre'")
     if not stencil:
         view = VIEW_BLOCK
     elif plan.engine != "cuda" or plan.view == VIEW_AUTO:
@@ -589,9 +614,9 @@ def adapt_plan(plan: LoweringPlan, *, stencil: bool) -> LoweringPlan:
     else:
         view = plan.view
     bx = plan.bx if (stencil or plan.tiled) else 0
-    if (view, bx) == (plan.view, plan.bx):
-        return plan
-    return dataclasses.replace(plan, view=view, bx=bx)
+    if (view, bx) != (plan.view, plan.bx):
+        plan = dataclasses.replace(plan, view=view, bx=bx)
+    return check_pre_plan(plan) if halo == "pre" else plan
 
 
 def _rsplit_factors(nblocks: int, cap: int = 16, k: int = 2):
@@ -623,12 +648,15 @@ def _site_bytes(smem_views) -> int:
 
 def default_plan(config, *, nsites: int, layouts: Sequence[Layout],
                  stencil: bool = False, lattice: Optional[Tuple[int, ...]] = None,
-                 smem_views=None) -> LoweringPlan:
+                 smem_views=None, bounded: bool = False) -> LoweringPlan:
     """The heuristic plan.  The torch engine lowers whole-lattice; the cuda
     engine takes the largest block size <= ``config.vvl`` that divides the
     lattice and is a multiple of a warp and of every AoSoA SAL the launch
     touches (falling back to that multiple itself, as the JAX package's
-    ``resolve_vvl`` does).  A cuda stencil launch with a shared-memory budget
+    ``resolve_vvl`` does).  ``bounded``: the launch's kernels check the
+    bounds of their last block (the ``halo="pre"`` kernels), so where no
+    such multiple divides the lattice the block is ``config.vvl`` rounded
+    down to one.  A cuda stencil launch with a shared-memory budget
     and its footprint descriptor ``smem_views = (in_views, out_views)``
     also gets bx from :func:`choose_slab` and (by, bz) from
     :func:`choose_tiles`; without a budget the plan is the untiled one.  A
@@ -638,8 +666,12 @@ def default_plan(config, *, nsites: int, layouts: Sequence[Layout],
     if config.engine != "cuda":
         raise ValueError(f"unknown engine {config.engine!r}; have {ENGINES}")
     align = sal_alignment(layouts)
-    vvl = choose_vvl(nsites, max(config.vvl, WARP),
-                     multiple_of=align * WARP // math.gcd(align, WARP))
+    mult = align * WARP // math.gcd(align, WARP)
+    if bounded and nsites % mult:
+        vvl = max(mult, min(config.vvl, MAX_BLOCK) // mult * mult)
+    else:
+        vvl = choose_vvl(nsites, max(config.vvl, WARP), multiple_of=mult)
+    checked = None if bounded else nsites
     budget = resolved_smem_bytes(config) if stencil else None
     if budget and smem_views:
         if lattice is None:
@@ -649,8 +681,8 @@ def default_plan(config, *, nsites: int, layouts: Sequence[Layout],
         by, bz = choose_tiles(lattice, bx, in_views=smem_views[0],
                               out_views=smem_views[1], smem_bytes=budget)
         return LoweringPlan("cuda", vvl=vvl, bx=bx, by=by, bz=bz).validate(
-            nsites=nsites, lattice=lattice, layouts=layouts, stencil=True)
-    return LoweringPlan("cuda", vvl=vvl).validate(nsites=nsites, layouts=layouts)
+            nsites=checked, lattice=lattice, layouts=layouts, stencil=True)
+    return LoweringPlan("cuda", vvl=vvl).validate(nsites=checked, layouts=layouts)
 
 
 def policy_plan(config) -> Optional[LoweringPlan]:
@@ -679,16 +711,18 @@ def launch_policy(config, plan: Optional[LoweringPlan] = None) -> Tuple[str, Opt
     return plan.engine, plan.dtypes if plan.dtypes is not None else config.dtypes
 
 
-def plan_for_launch(config, nsites: int, layouts: Sequence[Layout]) -> LoweringPlan:
+def plan_for_launch(config, nsites: int, layouts: Sequence[Layout],
+                    bounded: bool = False) -> LoweringPlan:
     """Plan one site-local launch: the explicit plan of
     ``config.plan_policy`` (validated) or :func:`default_plan` (also under
-    "tuned": a single launch has no graph signature to key the table on)."""
+    "tuned": a single launch has no graph signature to key the table on).
+    ``bounded`` as :func:`default_plan`'s: vvl need not divide nsites."""
     plan = policy_plan(config)
     if plan is not None:
         if plan.bx and not plan.tiled:   # adapt_plan's site-local fit
             plan = dataclasses.replace(plan, bx=0)
-        return plan.validate(nsites=nsites, layouts=layouts)
-    return default_plan(config, nsites=nsites, layouts=layouts)
+        return plan.validate(nsites=None if bounded else nsites, layouts=layouts)
+    return default_plan(config, nsites=nsites, layouts=layouts, bounded=bounded)
 
 
 # -- the autotuner's candidate set --------------------------------------------------

@@ -12,7 +12,8 @@ from typing import List, Sequence, Tuple
 
 import torch
 
-__all__ = ["shift_periodic", "halo_pad", "halo_pad_physical", "interior", "tile_boxes"]
+__all__ = ["shift_periodic", "halo_pad", "halo_pad_physical", "interior", "shifted_window",
+           "tile_boxes"]
 
 
 def tile_boxes(lattice: Sequence[int], bx: int, by: int = 0,
@@ -85,10 +86,11 @@ def halo_pad_physical(data: torch.Tensor, layout, ncomp: int, lattice: Sequence[
     a block-view launch needs).
 
     The JAX package stages a block-view stencil launch's inputs through
-    it.  Nothing on the port's single-device path needs it: the cuda
-    kernels read every layout in place through INDEX and wrap the lattice
-    themselves, and the torch engine pads canonical views.  The sharded
-    path (ROADMAP item 24) will pad pre-exchanged halos with it."""
+    it.  Nothing in the port needs it: the cuda kernels read every layout
+    in place through INDEX and wrap the lattice themselves, the torch
+    engine pads canonical views, and the sharded path pads canonical
+    views before its exchange (the block view under ``halo="pre"`` is
+    still to be ported, ROADMAP item 24)."""
     if width < 1:
         return data
     lattice = tuple(int(s) for s in lattice)
@@ -102,4 +104,18 @@ def interior(x_halo: torch.Tensor, width: int, site_dims: Sequence[int]) -> torc
     idx = [slice(None)] * x_halo.ndim
     for d in site_dims:
         idx[d] = slice(width, x_halo.shape[d] - width)
+    return x_halo[tuple(idx)]
+
+
+def shifted_window(x_halo: torch.Tensor, disp: Sequence[int], width: int,
+                   site_dims: Sequence[int]) -> torch.Tensor:
+    """Interior-shaped window of a halo'd array displaced by -disp:
+    out(r) = x(r - disp) for every interior site r.  Reads reach at most
+    ``width`` into the halo, so max|disp| <= width (a view, no copy)."""
+    idx = [slice(None)] * x_halo.ndim
+    for d, dim in enumerate(site_dims):
+        s = int(disp[d])
+        if abs(s) > width:
+            raise ValueError(f"|disp|={abs(s)} exceeds halo width {width}")
+        idx[dim] = slice(width - s, x_halo.shape[dim] - width - s)
     return x_halo[tuple(idx)]

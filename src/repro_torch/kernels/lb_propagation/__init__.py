@@ -1,1 +1,1 @@
-from .ops import propagate  # noqa: F401
+from .ops import propagate, propagate_halo  # noqa: F401

@@ -49,6 +49,14 @@ policy instance (``bf16=True``, ``rt_lb_step_tiled_bf16``) rounds dist and
 force to bf16 as they are loaded and writes dist2 and u in bf16, bitwise
 K5L's policy instance.
 
+K8H (:func:`propagate_halo_cuda`, ``csrc/lb_halo.cu``) is K8 on a
+pre-exchanged halo of any width: a pull from the halo'd array at its own
+strides, bitwise its plain version.  K5LH (:func:`lb_step_pre_cuda`) is
+the ``ludwig_lb_step`` graph under ``halo="pre"``: dist2 and u on the
+interior from dist and force padded by 1, the ring's sites collided too
+(the push from every site of the halo'd box keeps what lands inside).
+Both take fp32 SoA fields.
+
 On a CPU tensor each wrapper returns its plain version; on a CUDA tensor it
 launches its kernel or raises.
 """
@@ -60,7 +68,7 @@ from typing import Optional, Sequence, Tuple
 
 import torch
 
-from repro_torch._cuda import Kernel, check_field, csrc_define
+from repro_torch._cuda import Kernel, check_field, check_tensor, csrc_define
 from repro_torch.core.fuse import tiled_plain
 from repro_torch.core.layout import Layout, LayoutKind, resolve_layouts
 from repro_torch.core.plan import tile_extents
@@ -73,11 +81,16 @@ __all__ = ["propagate_cuda", "propagate_plain", "lb_step_cuda", "lb_step_plain",
            "lb_step_stages", "lb_stage_copy", "lb_stage_read", "lb_push_sites", "LB_MAX_VVL",
            "k8_tiles", "k8_block_tile", "k8_row_copies", "k8_stage_reads", "k8_tiled_emulate",
            "lb_step_tiled_cuda", "lb_step_tiled_plain", "tiled_walk", "PROPAGATE", "LB_STEP",
-           "LB_STEP_BF16", "LB_STEP_TILED", "LB_STEP_TILED_BF16"]
+           "LB_STEP_BF16", "LB_STEP_TILED", "LB_STEP_TILED_BF16", "propagate_halo_cuda",
+           "propagate_halo_plain", "lb_step_pre_cuda", "lb_step_pre_plain", "PROPAGATE_HALO",
+           "LB_STEP_PRE"]
 
 PROPAGATE = Kernel("lb_propagate", "rt_lb_propagate")
 LB_STEP = Kernel("lb_step", "rt_lb_step")
 LB_STEP_BF16 = Kernel("lb_step_bf16", "rt_lb_step_bf16")   # K5L's policy instance
+# K8H and K5LH, on pre-exchanged halos (csrc/lb_halo.cu)
+PROPAGATE_HALO = Kernel("lb_propagate_halo", "rt_lb_propagate_halo")
+LB_STEP_PRE = Kernel("lb_step_pre", "rt_lb_step_pre")
 LB_STEP_TILED = Kernel("lb_step_tiled", "rt_lb_step_tiled")
 LB_STEP_TILED_BF16 = Kernel("lb_step_tiled_bf16", "rt_lb_step_tiled_bf16")   # K9's policy instance
 K9_BLOCK = 256   # threads a K9 block (at most RT_K9_MAX_THREADS in lb_tiled.cu)
@@ -393,4 +406,71 @@ def lb_step_tiled_cuda(dist: torch.Tensor, force: torch.Tensor, tau: float, latt
         dist.device, dist.data_ptr(), force.data_ptr(), dist2.data_ptr(),
         u.data_ptr() if with_u else None, *lat, *tile, *lb_params(float(tau)), ld, lf,
         lay["dist2"].descriptor(), lay["u"].descriptor(), block)
+    return dist2, u
+
+
+# -- K8H and K5LH: on pre-exchanged halos ------------------------------------------------
+
+def _halo_lattice(shape, ncomp: int, width: int, what: str) -> Tuple[int, int, int]:
+    lat = tuple(int(s) - 2 * width for s in shape[1:])
+    if width < 1 or shape[0] != ncomp or len(lat) != 3 or min(lat) < 1:
+        raise ValueError(f"{what}: {tuple(shape)} is not a ({ncomp}, ...) field over a 3-D "
+                         f"lattice padded by width {width}")
+    return lat
+
+
+def propagate_halo_plain(dist_h: torch.Tensor, width: int = 1) -> torch.Tensor:
+    """dist_h (19, X+2w, Y+2w, Z+2w) canonical, halos exchanged -> the
+    interior's streamed (19, X, Y, Z)."""
+    _halo_lattice(dist_h.shape, 19, width, "propagate_halo")
+    return ref.propagate_halo_ref(dist_h, width)
+
+
+def propagate_halo_cuda(dist_h: torch.Tensor, width: int = 1, vvl: int = 128) -> torch.Tensor:
+    """K8H: :func:`propagate_halo_plain` in one launch (``vvl`` interior
+    sites a block, a site a thread)."""
+    if dist_h.device.type == "cpu":
+        return propagate_halo_plain(dist_h, width)
+    lat = _halo_lattice(dist_h.shape, 19, width, "propagate_halo")
+    check_tensor("dist_h", dist_h, tuple(dist_h.shape), dist_h.device)
+    out = torch.empty((19,) + lat, dtype=dist_h.dtype, device=dist_h.device)
+    PROPAGATE_HALO.launch(dist_h.device, dist_h.data_ptr(), out.data_ptr(), *lat, int(width),
+                          vvl)
+    return out
+
+
+def lb_step_pre_plain(dist_h: torch.Tensor, force_h: torch.Tensor, tau: float, lattice,
+                      with_u: bool = True) -> Tuple[torch.Tensor, Optional[torch.Tensor]]:
+    """(dist2, u or None) on the interior ``lattice``, SoA (19, V) and
+    (3, V), from dist_h (19, Vh) and force_h (3, Vh), SoA over the interior
+    padded by 1 (halos exchanged): the collision on the whole halo'd box,
+    the streaming's pull from it, and u from the interior's moments."""
+    lat = _check_3d(lattice)
+    hl = tuple(s + 2 for s in lat)
+    post = collide_plain(dist_h, force_h, tau).reshape((19,) + hl)
+    dist2 = ref.propagate_halo_ref(post, 1).reshape(19, -1)
+    if not with_u:
+        return dist2, None
+
+    def inner(a):
+        return a.reshape((a.shape[0],) + hl)[:, 1:-1, 1:-1, 1:-1].reshape(a.shape[0], -1)
+
+    return dist2, moments_velocity(inner(dist_h), inner(force_h))
+
+
+def lb_step_pre_cuda(dist_h: torch.Tensor, force_h: torch.Tensor, tau: float, lattice,
+                     vvl: int = 128, with_u: bool = True
+                     ) -> Tuple[torch.Tensor, Optional[torch.Tensor]]:
+    """K5LH: :func:`lb_step_pre_plain` in one launch (``vvl`` sites of the
+    halo'd box a block)."""
+    if dist_h.device.type == "cpu":
+        return lb_step_pre_plain(dist_h, force_h, tau, lattice, with_u)
+    lat = _check_3d(lattice)
+    Vh, V = math.prod(s + 2 for s in lat), math.prod(lat)
+    check_tensor("dist_h", dist_h, (19, Vh), dist_h.device)
+    check_tensor("force_h", force_h, (3, Vh), dist_h.device)
+    dist2 = torch.empty((19, V), dtype=dist_h.dtype, device=dist_h.device)
+    u = torch.empty((3, V), dtype=dist_h.dtype, device=dist_h.device) if with_u else None
+    LB_STEP_PRE.launch(dist_h.device, dist_h.data_ptr(), force_h.data_ptr(), dist2.data_ptr(),
+                       u.data_ptr() if with_u else None, *lat, *lb_params(float(tau)), vvl)
     return dist2, u

@@ -4,17 +4,18 @@ collision -> propagation LB step.
 Propagation is a stencil (site-neighbour gather).  The fused step runs it
 as a stencil stage of a ``core.fuse.LaunchGraph``; on the "cuda" engine the
 graph runs as K5L, one launch in which the post-collision distributions
-never reach device memory, and under a tiled plan as K9.  The halo'd form of the sharded path
-(``propagate_halo``) is not yet ported.
+never reach device memory, and under a tiled plan as K9.  The halo'd form of
+the sharded path, :func:`propagate_halo`, runs K8H on "cuda".
 """
 
 from __future__ import annotations
 
+import math
 from typing import Optional
 
 import torch
 
-from repro_torch.core import Field, LaunchGraph, LoweringPlan, TargetConfig
+from repro_torch.core import SOA, Field, LaunchGraph, LoweringPlan, TargetConfig
 from repro_torch.core.fuse import register_cuda_graph
 from repro_torch.core.plan import plan_for_launch
 from repro_torch.core.target import require_cuda
@@ -32,6 +33,20 @@ def propagate(dist: Field, *, config: TargetConfig) -> Field:
     require_cuda("dist", dist.data)
     return dist.with_data(kernel.propagate_cuda(
         dist.data, dist.lattice, vvl=plan.vvl, layouts={"dist": dist.layout, "out": dist.layout}))
+
+
+def propagate_halo(dist_halo: torch.Tensor, *, config: TargetConfig,
+                   width: int = 1) -> torch.Tensor:
+    """The halo'd-array form of the sharded path: dist_halo (19, X+2w,
+    Y+2w, Z+2w) canonical with its halos exchanged -> the interior's
+    streamed (19, X, Y, Z)."""
+    nsites = math.prod(s - 2 * width for s in dist_halo.shape[1:])
+    # the halo kernels check their last block's bounds: vvl need not divide
+    plan = plan_for_launch(config, nsites, [SOA], bounded=True)
+    if plan.engine == "torch":
+        return kernel.propagate_halo_plain(dist_halo, width)
+    require_cuda("dist_halo", dist_halo)
+    return kernel.propagate_halo_cuda(dist_halo, width, vvl=plan.vvl)
 
 
 def propagate_body(v, gather):

@@ -1,1 +1,1 @@
-from .ops import dslash, wilson_matvec  # noqa: F401
+from .ops import dslash, dslash_halo, wilson_matvec  # noqa: F401

@@ -49,6 +49,14 @@ bitwise K5's; pap is held to its plain version
 (:func:`wilson_normal_tiled_plain`) within a tolerance, and is K5's bits
 where the walk is the linear order.
 
+K4H (:func:`dslash_halo_cuda`, ``csrc/wilson_halo.cu``) is K4 on
+pre-exchanged halos: D psi on the interior of a spinor and a gauge field
+padded by ``width`` a side, read at the halo'd arrays' own strides.  K5H
+(:func:`wilson_normal_pre_cuda`) is the ``wilson_normal`` graph under
+``halo="pre"``: ap = M^dag M p on the interior from p and u padded by 2,
+in two launches (t on ring 1, then ap), with no pap (the sharded solve
+takes <p, Ap> from ``dot``).  Both take fp32 SoA fields.
+
 On a CPU tensor each wrapper returns its plain version (unpack, torch ops,
 pack); on a CUDA tensor it launches its kernel or raises.
 """
@@ -64,6 +72,7 @@ from repro_torch._cuda import Kernel, check_batched_field, check_field, check_te
 from repro_torch.core.layout import resolve_layouts
 from repro_torch.core.plan import CudaPolicy
 from repro_torch.core.reduce import compensated_plain, fold_partials, fold_partials_batched
+from repro_torch.core.stencil import shifted_window
 from . import ref
 
 __all__ = ["dslash_cuda", "dslash_plain", "wilson_normal_cuda",
@@ -74,7 +83,10 @@ __all__ = ["dslash_cuda", "dslash_plain", "wilson_normal_cuda",
            "block_chunks", "BRICK_X", "NORMAL_SLOTS", "NORMAL_SLOTS_POLICY", "DSLASH",
            "WILSON_NORMAL_T",
            "WILSON_NORMAL_AP", "WILSON_NORMAL_T_B", "WILSON_NORMAL_AP_B",
-           "WILSON_NORMAL_T_MIXED", "WILSON_NORMAL_AP_MIXED", "BF16_ROUND", "BF16_PACK"]
+           "WILSON_NORMAL_T_MIXED", "WILSON_NORMAL_AP_MIXED", "BF16_ROUND", "BF16_PACK",
+           "dslash_halo_cuda", "dslash_halo_plain", "wilson_normal_pre_cuda",
+           "wilson_normal_pre_plain", "DSLASH_HALO", "WILSON_NORMAL_PRE_T",
+           "WILSON_NORMAL_PRE_AP"]
 
 DSLASH = Kernel("dslash", "rt_dslash")
 WILSON_NORMAL_T = Kernel("wilson_normal_t", "rt_wilson_normal_t")
@@ -92,6 +104,10 @@ WILSON_NORMAL_T_TILED_MIXED = Kernel("wilson_normal_t_tiled_mixed",
 WILSON_NORMAL_AP_TILED_MIXED = Kernel("wilson_normal_ap_tiled_mixed",
                                       "rt_wilson_normal_ap_tiled_mixed")
 NORMAL_TILED_BLOCK = 128   # K5T's walk positions a block (K5's default vvl)
+# K4H and K5H, on pre-exchanged halos (csrc/wilson_halo.cu)
+DSLASH_HALO = Kernel("dslash_halo", "rt_dslash_halo")
+WILSON_NORMAL_PRE_T = Kernel("wilson_normal_pre_t", "rt_wilson_normal_pre_t")
+WILSON_NORMAL_PRE_AP = Kernel("wilson_normal_pre_ap", "rt_wilson_normal_pre_ap")
 
 
 def bf16_round(x: torch.Tensor) -> torch.Tensor:
@@ -449,3 +465,103 @@ def wilson_normal_tiled_cuda(p: torch.Tensor, u: torch.Tensor, kappa: float, lat
                                       lp, lu, lay["ap"].descriptor(), block)
     pap = fold_partials_batched(partials, "sum", compensated=comp, rsplit=rsplit)
     return ap, (pap if batched else pap[0])
+
+
+# -- K4H and K5H: on pre-exchanged halos --------------------------------------------------
+
+_DIMS4 = (1, 2, 3, 4)
+
+
+def _grow(lat, w: int) -> Tuple[int, ...]:
+    return tuple(s + 2 * w for s in lat)
+
+
+def _hop_box(psi: torch.Tensor, wp: int, u: torch.Tensor, wu: int) -> torch.Tensor:
+    """D psi (24, *box) on the box that the canonical psi (24, ...) covers
+    less ``wp`` sites a side and u (72, ...) less ``wu``: the reference's
+    ``dslash_halo`` (its periodic gathers, cropped) as displaced windows."""
+    packs = []
+    for mu in range(4):
+        e = [0, 0, 0, 0]
+        e[mu] = 1
+        packs.append(shifted_window(psi, [-x for x in e], wp, _DIMS4))   # psi(x + mu)
+        packs.append(shifted_window(psi, e, wp, _DIMS4))                 # psi(x - mu)
+    nbrs = torch.cat(packs, dim=0)
+    u_fwd = shifted_window(u, (0, 0, 0, 0), wu, _DIMS4)
+    u_bwd = torch.cat([shifted_window(u[mu * 18:(mu + 1) * 18],
+                                      (0,) * mu + (1,) + (0,) * (3 - mu), wu, _DIMS4)
+                       for mu in range(4)], dim=0)
+    box = tuple(u_fwd.shape[1:])
+
+    def flat(a):
+        return a.reshape(a.shape[0], -1)
+
+    return ref.dslash_site_chunk(flat(u_fwd), flat(u_bwd), flat(nbrs)).reshape((24,) + box)
+
+
+def _halo_shapes(psi_h: torch.Tensor, u_h: torch.Tensor, width: int) -> Tuple[int, ...]:
+    """The interior lattice of a halo'd (24, ...) spinor and (72, ...)
+    gauge field padded by ``width``; raises where they do not match."""
+    hl = tuple(psi_h.shape[1:])
+    lat = tuple(s - 2 * width for s in hl)
+    if (width < 1 or psi_h.shape[0] != 24 or tuple(u_h.shape) != (72,) + hl
+            or len(lat) != 4 or min(lat) < 1):
+        raise ValueError(f"dslash_halo: psi_h {tuple(psi_h.shape)} and u_h "
+                         f"{tuple(u_h.shape)} are not a (24, ...) spinor and a (72, ...) gauge "
+                         f"field over one 4-D lattice padded by width {width}")
+    return lat
+
+
+def dslash_halo_plain(psi_h: torch.Tensor, u_h: torch.Tensor, width: int = 1) -> torch.Tensor:
+    """psi_h (24, X+2w, ...), u_h (72, ...) canonical, halos exchanged ->
+    interior D psi (24, X, Y, Z, T)."""
+    _halo_shapes(psi_h, u_h, width)
+    return _hop_box(psi_h, width, u_h, width)
+
+
+def dslash_halo_cuda(psi_h: torch.Tensor, u_h: torch.Tensor, width: int = 1,
+                     vvl: int = 128) -> torch.Tensor:
+    """K4H: :func:`dslash_halo_plain` in one launch (``vvl`` sites a block)."""
+    if psi_h.device.type == "cpu":
+        return dslash_halo_plain(psi_h, u_h, width)
+    lat = _halo_shapes(psi_h, u_h, width)
+    hl = _grow(lat, width)
+    check_tensor("psi_h", psi_h, (24,) + hl, psi_h.device)
+    check_tensor("u_h", u_h, (72,) + hl, psi_h.device)
+    out = torch.empty((24,) + lat, dtype=psi_h.dtype, device=psi_h.device)
+    DSLASH_HALO.launch(psi_h.device, psi_h.data_ptr(), u_h.data_ptr(), out.data_ptr(), *lat,
+                       int(width), vvl)
+    return out
+
+
+def wilson_normal_pre_plain(p_h: torch.Tensor, u_h: torch.Tensor, kappa: float,
+                            lattice) -> torch.Tensor:
+    """ap = M^dag M p (24, V), SoA, on the interior ``lattice`` from p_h
+    (24, Vh) and u_h (72, Vh), SoA over the interior padded by 2 (halos
+    exchanged): t on ring 1, then ap, as the graph's plain lowering under
+    ``halo="pre"`` computes them."""
+    lat = _check_4d(lattice)
+    hl = _grow(lat, 2)
+    p_nd, u_nd = p_h.reshape((24,) + hl), u_h.reshape((72,) + hl)
+    t = _m_g5(shifted_window(p_nd, (0, 0, 0, 0), 1, _DIMS4), _hop_box(p_nd, 1, u_nd, 1), kappa)
+    ap = _m_g5(shifted_window(t, (0, 0, 0, 0), 1, _DIMS4), _hop_box(t, 1, u_nd, 2), kappa)
+    return ap.reshape(24, -1)
+
+
+def wilson_normal_pre_cuda(p_h: torch.Tensor, u_h: torch.Tensor, kappa: float, lattice,
+                           vvl: int = 128) -> torch.Tensor:
+    """K5H: :func:`wilson_normal_pre_plain` in two launches (``vvl`` sites a
+    block), t (24 x ring-1 box, SoA, fp32) between them."""
+    if p_h.device.type == "cpu":
+        return wilson_normal_pre_plain(p_h, u_h, kappa, lattice)
+    lat = _check_4d(lattice)
+    Vh = math.prod(_grow(lat, 2))
+    check_tensor("p_h", p_h, (24, Vh), p_h.device)
+    check_tensor("u_h", u_h, (72, Vh), p_h.device)
+    t = torch.empty((24, math.prod(_grow(lat, 1))), dtype=p_h.dtype, device=p_h.device)
+    ap = torch.empty((24, math.prod(lat)), dtype=p_h.dtype, device=p_h.device)
+    WILSON_NORMAL_PRE_T.launch(p_h.device, p_h.data_ptr(), u_h.data_ptr(), t.data_ptr(),
+                               float(kappa), *lat, vvl)
+    WILSON_NORMAL_PRE_AP.launch(p_h.device, t.data_ptr(), u_h.data_ptr(), ap.data_ptr(),
+                                float(kappa), *lat, vvl)
+    return ap

@@ -3,9 +3,11 @@ stencil-stage body that lets dslash join fused launch graphs (core.fuse)."""
 
 from __future__ import annotations
 
+import math
+
 import torch
 
-from repro_torch.core import Field, TargetConfig
+from repro_torch.core import SOA, Field, TargetConfig
 from repro_torch.core.plan import plan_for_launch
 from repro_torch.core.target import require_cuda
 from . import kernel, ref
@@ -52,6 +54,22 @@ def dslash(psi: Field, u: Field, *, config: TargetConfig) -> Field:
     return psi.with_data(kernel.dslash_cuda(
         psi.data, u.data, psi.lattice, vvl=plan.vvl,
         layouts={"psi": psi.layout, "u": u.layout, "out": psi.layout}))
+
+
+def dslash_halo(psi_h: torch.Tensor, u_h: torch.Tensor, *, config: TargetConfig,
+                width: int = 1) -> torch.Tensor:
+    """The halo'd-array form of the sharded path: psi_h (24, X+2w, ...) and
+    u_h (72, ...) canonical with their halos exchanged -> the interior
+    D psi (24, X, Y, Z, T).  On "cuda" K4H, from the halo'd arrays in place
+    of the reference's gather + ``dslash_site_pallas``."""
+    nsites = math.prod(s - 2 * width for s in psi_h.shape[1:])
+    # the halo kernels check their last block's bounds: vvl need not divide
+    plan = plan_for_launch(config, nsites, [SOA], bounded=True)
+    if plan.engine == "torch":
+        return kernel.dslash_halo_plain(psi_h, u_h, width)
+    require_cuda("psi_h", psi_h)
+    require_cuda("u_h", u_h)
+    return kernel.dslash_halo_cuda(psi_h, u_h, width, vvl=plan.vvl)
 
 
 def wilson_matvec(psi: Field, u: Field, *, kappa: float, config: TargetConfig) -> Field:

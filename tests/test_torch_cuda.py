@@ -2249,3 +2249,165 @@ def test_budgeted_solves_run_k5t(card):
     assert K.WILSON_NORMAL_AP_TILED_MIXED.launches > m0
     rel = (torch.linalg.norm(ref.x.data - base.x.data) / torch.linalg.norm(base.x.data)).item()
     assert rel <= 1e-4
+
+
+# -- the decomposed lattice: K4H, K8H, K5H, K5LH on pre-exchanged halos -----------------
+
+def _wrap(t, w):
+    from repro_torch.core.stencil import halo_pad
+    return halo_pad(t, w, range(1, t.dim())).contiguous()
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("width", [1, 2])
+@pytest.mark.parametrize("lat", [(4, 4, 4, 8), (6, 5, 3, 32), (5, 3, 3, 7)], ids=str)
+def test_k4h_dslash_halo(card, lat, width, rng):
+    """K4H on random halo'd fields against its plain version (FIELD_RTOL),
+    also through ``dslash_halo`` (on an interior no warp multiple divides,
+    (5, 3, 3, 7), too), and on wrap-padded fields against K4's periodic SoA
+    launch."""
+    from repro_torch.kernels.wilson_dslash import dslash_halo
+    hl = tuple(s + 2 * width for s in lat)
+    psi, u = _dev(rng, (24,) + hl, card), _dev(rng, (72,) + hl, card)
+    n0 = K.DSLASH_HALO.launches
+    got = K.dslash_halo_cuda(psi, u, width)
+    assert K.DSLASH_HALO.launches == n0 + 1
+    _close_field(got, K.dslash_halo_plain(psi, u, width))
+    op = dslash_halo(psi, u, config=TargetConfig("cuda", device="cuda"), width=width)
+    assert K.DSLASH_HALO.launches == n0 + 2 and torch.equal(op, got)
+    if int(np.prod(lat)) % 32:
+        return   # the periodic K4 launch is held at lattices a warp multiple divides
+    p0, u0 = _dev(rng, (24,) + lat, card), _dev(rng, (72,) + lat, card)
+    per = K.dslash_cuda(p0.reshape(24, -1), u0.reshape(72, -1), lat, 128)
+    _close_field(K.dslash_halo_cuda(_wrap(p0, width), _wrap(u0, width), width).reshape(24, -1),
+                 per)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("width", [1, 2])
+@pytest.mark.parametrize("lat", [(8, 8, 8), (5, 7, 3)], ids=str)
+def test_k8h_propagate_halo_bitwise(card, lat, width, rng):
+    """K8H bitwise its plain version at width 1 and 2, also through
+    ``propagate_halo`` (whose (5, 7, 3) interior no warp multiple divides),
+    and on a wrap-padded array bitwise K8's periodic launch."""
+    from repro_torch.kernels.lb_propagation import propagate_halo
+    hl = tuple(s + 2 * width for s in lat)
+    f = _dev(rng, (19,) + hl, card)
+    want = K8.propagate_halo_plain(f, width)
+    assert torch.equal(K8.propagate_halo_cuda(f, width), want)
+    n0 = K8.PROPAGATE_HALO.launches
+    got = propagate_halo(f, config=TargetConfig("cuda", device="cuda"), width=width)
+    assert K8.PROPAGATE_HALO.launches == n0 + 1 and torch.equal(got, want)
+    f0 = _dev(rng, (19,) + lat, card)
+    assert torch.equal(K8.propagate_halo_cuda(_wrap(f0, width), width).reshape(19, -1),
+                       K8.propagate_cuda(f0.reshape(19, -1), lat))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("lat", [(4, 4, 4, 8), (6, 4, 2, 32)], ids=str)
+def test_k5h_wilson_normal_pre(card, lat, rng):
+    """K5H (the wilson_normal graph under halo="pre", two launches) against
+    its plain version, on random halo'd inputs and on wrap-padded ones
+    against K5's periodic ap; the graph's "pre" launch on the cuda engine
+    runs K5H and nothing else."""
+    hl = tuple(s + 4 for s in lat)
+    Vh = int(np.prod(hl))
+    p, u = _dev(rng, (24, Vh), card), _dev(rng, (72, Vh), card)
+    _close_field(K.wilson_normal_pre_cuda(p, u, 0.12, lat),
+                 K.wilson_normal_pre_plain(p, u, 0.12, lat))
+    p0, u0 = _dev(rng, (24,) + lat, card), _dev(rng, (72,) + lat, card)
+    ap, _ = K.wilson_normal_cuda(p0.reshape(24, -1), u0.reshape(72, -1), 0.12, lat, 128)
+    ph, uh = _wrap(p0, 2).reshape(24, -1), _wrap(u0, 2).reshape(72, -1)
+    _close_field(K.wilson_normal_pre_cuda(ph, uh, 0.12, lat), ap)
+    n = (K.WILSON_NORMAL_PRE_T.launches, K.WILSON_NORMAL_PRE_AP.launches,
+         K.WILSON_NORMAL_T.launches)
+    out = CG.wilson_normal_graph(0.12).launch(
+        {"p": Field.from_canonical("p", ph, hl), "u": Field.from_canonical("u", uh, hl)},
+        config=TargetConfig("cuda", device="cuda"), outputs=("ap",), halo="pre")
+    assert (K.WILSON_NORMAL_PRE_T.launches - n[0], K.WILSON_NORMAL_PRE_AP.launches - n[1],
+            K.WILSON_NORMAL_T.launches - n[2]) == (1, 1, 0)
+    _close_field(out["ap"].data, ap)
+
+
+@pytest.mark.cuda
+def test_k5h_graph_pre_launch_on_an_interior_no_warp_multiple_divides(card, rng):
+    """The wilson_normal graph's "pre" launch at the interior (3, 5, 3, 7)
+    (315 sites): the planner's block size need not divide it, K5H runs
+    and agrees with its plain version (FIELD_RTOL)."""
+    lat = (3, 5, 3, 7)
+    hl = tuple(s + 4 for s in lat)
+    Vh = int(np.prod(hl))
+    p, u = _dev(rng, (24, Vh), card), _dev(rng, (72, Vh), card)
+    n0 = K.WILSON_NORMAL_PRE_AP.launches
+    out = CG.wilson_normal_graph(0.12).launch(
+        {"p": Field.from_canonical("p", p, hl), "u": Field.from_canonical("u", u, hl)},
+        config=TargetConfig("cuda", device="cuda"), outputs=("ap",), halo="pre")
+    assert K.WILSON_NORMAL_PRE_AP.launches == n0 + 1
+    _close_field(out["ap"].data, K.wilson_normal_pre_plain(p, u, 0.12, lat))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("lat", [(8, 8, 8), (5, 7, 3), (16, 4, 33)], ids=str)
+def test_k5lh_lb_step_pre_bitwise(card, lat, rng):
+    """K5LH's dist2 and u bitwise its plain version (the collision's pinned
+    roundings hold on the ring), and on wrap-padded inputs bitwise K5L's
+    periodic launch; the graph's "pre" launch runs K5LH."""
+    hl = tuple(s + 2 for s in lat)
+    Vh = int(np.prod(hl))
+    d, f = _lb_dist(rng, card, Vh), _dev(rng, (3, Vh), card, scale=1e-3)
+    got = K8.lb_step_pre_cuda(d, f, 0.8, lat)
+    want = K8.lb_step_pre_plain(d, f, 0.8, lat)
+    assert _bits(got[0], want[0]) and _bits(got[1], want[1])
+    V = int(np.prod(lat))
+    d0, f0 = _lb_dist(rng, card, V), _dev(rng, (3, V), card, scale=1e-3)
+    per = K8.lb_step_cuda(d0, f0, 0.8, lat, 128)
+    dh = _wrap(d0.reshape((19,) + lat), 1).reshape(19, -1)
+    fh = _wrap(f0.reshape((3,) + lat), 1).reshape(3, -1)
+    pre = K8.lb_step_pre_cuda(dh, fh, 0.8, lat)
+    assert _bits(pre[0], per[0]) and _bits(pre[1], per[1])
+    n0, n1 = K8.LB_STEP_PRE.launches, K8.LB_STEP.launches
+    out = LD.lb_step_graph(LudwigConfig(lattice=lat)).launch(
+        {"dist": Field.from_canonical("dist", dh, hl),
+         "force": Field.from_canonical("force", fh, hl)},
+        config=TargetConfig("cuda", device="cuda"), outputs=("dist2", "u"), halo="pre")
+    assert (K8.LB_STEP_PRE.launches - n0, K8.LB_STEP.launches - n1) == (1, 0)
+    assert _bits(out["dist2"].data, per[0]) and _bits(out["u"].data, per[1])
+
+
+@pytest.mark.cuda
+def test_one_rank_sharded_paths_on_the_card(card):
+    """A one-rank mesh on the card: 3 sharded Ludwig steps bitwise the cuda
+    engine's single steps; the sharded MILC solve under None and "pre"
+    within 1 iteration and x rel-L2 1e-5 of the single solve."""
+    from repro_torch.apps.ludwig.driver import make_sharded_step
+    from repro_torch.apps.milc.driver import make_domain, make_sharded_solver
+    from repro_torch.lattice import Domain
+    from repro_torch.launch.mesh import Mesh
+
+    tgt = TargetConfig("cuda", device="cuda")
+    cfg = LudwigConfig(lattice=(16, 8, 8), target=tgt)
+    st = init_state(cfg, seed=0)
+    mesh = Mesh((1, 1, 1), ("x", "y", "z"), rank=0, world_size=1, local_rank=0)
+    dom = Domain(cfg.lattice, mesh, ("x", "y", "z"), halo=2)
+    sstep = make_sharded_step(cfg, dom)
+    d, q = dom.scatter(st.dist.canonical_nd()), dom.scatter(st.q.canonical_nd())
+    s = st
+    n0 = K8.LB_STEP_PRE.launches
+    for _ in range(3):
+        s = step(s, cfg)
+        d, q = sstep(d, q)
+    assert K8.LB_STEP_PRE.launches - n0 == 3
+    assert _bits(d, s.dist.canonical_nd()) and _bits(q, s.q.canonical_nd())
+    mc = MilcConfig(lattice=(8, 8, 8, 8), kappa=0.12, tol=1e-10, max_iter=1000, target=tgt)
+    u, b = init_problem(mc, seed=0)
+    base = solve(mc, u, b)
+    m4 = Mesh((1, 1, 1, 1), ("x", "y", "z", "t"), rank=0, world_size=1, local_rank=0)
+    md = make_domain(mc, m4, ("x", "y", "z", "t"))
+    for halo in (None, "pre"):
+        n0 = K.WILSON_NORMAL_PRE_AP.launches
+        x, it, _ = make_sharded_solver(mc, md, halo)(md.scatter(u.canonical_nd()),
+                                                    md.scatter(b.canonical_nd()))
+        assert K.WILSON_NORMAL_PRE_AP.launches - n0 == (it if halo else 0)
+        assert abs(it - base.iterations) <= 1
+        ref = base.x.canonical_nd()
+        assert (torch.linalg.norm(x - ref) / torch.linalg.norm(ref)).item() <= 1e-5

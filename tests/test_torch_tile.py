@@ -262,10 +262,12 @@ def test_to_plan_maps_and_refuses():
     got = convert.to_plan(JPlan("pallas", bx=2, rsplit=2, view="block").to_json())
     assert got == LoweringPlan("cuda", bx=2, rsplit=2, view="block")
     assert got.describe() == "cuda/bx=2/block/rs2"
-    for bad, what in ((JPlan("pallas", bx=2, halo="pre"), "halo"),
-                      (JPlan("pallas", bx=2, halo="overlap"), "halo")):
-        with pytest.raises(ValueError, match=what):
-            convert.to_plan(bad.to_json())
+    # the halo is the call site's: "pre" maps to the same plan; "overlap"
+    # (a plan's strategy in the reference) is not yet ported
+    assert convert.to_plan(JPlan("pallas", bx=2, halo="pre").to_json()) == \
+        LoweringPlan("cuda", bx=2)
+    with pytest.raises(ValueError, match="halo"):
+        convert.to_plan(JPlan("pallas", bx=2, halo="overlap").to_json())
 
 
 def test_plan_policy(monkeypatch, tmp_path):
