@@ -198,21 +198,38 @@ D1. the kernels on pre-exchanged halos at the full lattices, each against
    counted call, and width 2) bitwise its plain version and K8's periodic
    launch, beside ``torch.take`` on its 19 source offsets, and K5LH (the
    ludwig_lb_step graph's "pre" kernel) bitwise its plain version and
-   K5L's periodic launch, on L2's kind of inputs wrap-padded;
+   K5L's periodic launch, on L2's kind of inputs wrap-padded; K5HO and
+   K5LHO (K5H and K5LH on one box, the ``halo="overlap"`` sub-launches) on
+   every box of the full lattices' splits (every dim decomposed: the
+   interior (60,60,60,28) and 8 slabs of width 2; the interior
+   (254,254,254) and 6 slabs of width 1), K5HO within FIELD_RTOL and K5LHO
+   bitwise of their plain versions, each box bitwise the whole "pre"
+   launch's sites, the assembled outputs bitwise K5H's and K5LH's; the
+   interior box and the slabs timed beside the bytes each box depends on;
 D2. (after D1's MILC half) on a one-rank mesh of four axes, every lattice
    dim decomposed over one (each exchange the self-exchange), with every
    count set to 0 before each: ``make_sharded_solver`` at ``--lattice``
    under ``halo=None`` (K4H twice an iteration) and ``"pre"`` (K5H an
-   iteration): phase 4's iterations +-1, x within rel-L2 1e-4 of phase 4's,
-   every kernel of the path launched; ms an iteration beside phase 4's;
-   first, the solve's halo'd spinor at widths 1 and 2 two ways, bitwise
-   and timed: ``exchange_padded`` against ``exchange(halo_pad(...))``;
+   iteration) and ``"overlap"`` (K5HO on 9 boxes an iteration, p's
+   exchange on a side stream beside the interior box; no K5H): phase 4's
+   iterations +-1, x within rel-L2 1e-4 of phase 4's, every kernel of the
+   path launched, "overlap" with "pre"'s iterations and x bitwise; ms an
+   iteration beside phase 4's; first, the solve's halo'd spinor at widths
+   1 and 2 two ways, bitwise and timed: ``exchange_padded`` against
+   ``exchange(halo_pad(...))``; after V1 (whose kernel check wants the
+   run's first profiler session), a torch.profiler trace of 3 overlap
+   operators (fill, then ``overlap_launch``), the last one read: the
+   interior box's kernels and the exchange's copies, their intervals and
+   streams, and the ms during which both ran (a serial schedule is
+   recorded, not failed);
 D3. (after D1's Ludwig half) 5 ``make_sharded_step`` steps at
    ``--ludwig`` on a one-rank mesh of three axes from the L1 state,
    counted (K5LH every step): bitwise equal to 5 ``step``s from it
    (within rtol 1e-4, atol 1e-6 with the difference logged where not
-   bitwise); ms a step beside them; the D phases' numbers are printed as
-   one JSON line before the kernel table;
+   bitwise); then 5 steps under ``halo="overlap"`` (K5LHO on 7 boxes a
+   step, no K5LH), bitwise the "pre" and the single steps; ms a step
+   beside them; the D phases' numbers are printed as one JSON line before
+   the kernel table;
 Y1. at the full lattices ((64,64,64,32) and (256,256,256)), every lattice
    kernel of both paths (K1 g5 and the product, K2's sum and fold, K3,
    K4, K5; K7, K8, K5L, K3L, K1L) in each layout of LAYOUT_SPECS (soa,
@@ -413,7 +430,8 @@ from repro_torch.kernels.flash_attention import kernel as kf  # noqa: E402
 from repro_torch.kernels.lb_collision import collide  # noqa: E402
 from repro_torch.kernels.lb_collision import kernel as k7  # noqa: E402
 from repro_torch.kernels.lb_propagation import kernel as k8  # noqa: E402
-from repro_torch.core.halo import exchange, exchange_padded  # noqa: E402
+from repro_torch.core.halo import exchange, exchange_padded, fill_padded  # noqa: E402
+from repro_torch.core.overlap import overlap_launch, split_boxes  # noqa: E402
 from repro_torch.core.stencil import halo_pad  # noqa: E402
 from repro_torch.kernels.lb_propagation import propagate, propagate_halo  # noqa: E402
 from repro_torch.lattice import Domain  # noqa: E402
@@ -454,7 +472,8 @@ KERNELS = [target.G5, target.MUL, target.AXPY, reduce.REDUCE_SUM,
            wk.WILSON_NORMAL_T_TILED, wk.WILSON_NORMAL_AP_TILED, wk.WILSON_NORMAL_T_TILED_MIXED,
            wk.WILSON_NORMAL_AP_TILED_MIXED, lk.LC_CHAIN, fuse.CG_UPDATE_POLICY,
            lk.CHEM_STRESS_POLICY, lk.LC_UPDATE_POLICY, wk.DSLASH_HALO, wk.WILSON_NORMAL_PRE_T,
-           wk.WILSON_NORMAL_PRE_AP, k8.PROPAGATE_HALO, k8.LB_STEP_PRE]
+           wk.WILSON_NORMAL_PRE_AP, k8.PROPAGATE_HALO, k8.LB_STEP_PRE, wk.WILSON_NORMAL_BOX_T,
+           wk.WILSON_NORMAL_BOX_AP, k8.LB_STEP_BOX]
 
 # flops a site, counted from the sources (all these kernels are bound by bytes)
 FLOPS = {"collide": 450, "lb_step": 462, "chem_stress": 600, "lc_update": 320, "fed": 160,
@@ -4798,6 +4817,7 @@ def tuned_phase(cfg, u, b, x_soa, iterations, solve_s, state, after_steps, lcfg,
 # dim decomposed over an axis of size 1, so every exchange is the self-exchange
 D_MILC_AXES, D_LUDWIG_AXES = ("x", "y", "z", "t"), ("x", "y", "z")
 D_STEPS = 5
+TRACE_RUNS = 3        # D2's trace: overlap operators in the session, the last one read
 D_REL_X = 1e-4                       # D2: x within rel-L2 of phase 4's
 D_STEP_RTOL, D_STEP_ATOL = 1e-4, 1e-6   # D3 where the steps are not bitwise
 DECOMP_PATH = {
@@ -4808,6 +4828,10 @@ DECOMP_PATH = {
     "lb_propagate_halo": ([k8.PROPAGATE_HALO], "lb_halo.cu",
                           "src/repro/kernels/lb_propagation/kernel.py:30"),
     "lb_step_pre": ([k8.LB_STEP_PRE], "lb_halo.cu", "src/repro/core/fuse.py:1721"),
+    # the halo="overlap" split's sub-launches: K5H and K5LH on one box
+    "wilson_normal_box": ([wk.WILSON_NORMAL_BOX_T, wk.WILSON_NORMAL_BOX_AP], "wilson_halo.cu",
+                          "src/repro/core/fuse.py:1721"),
+    "lb_step_box": ([k8.LB_STEP_BOX], "lb_halo.cu", "src/repro/core/fuse.py:1721"),
 }
 # D2's paths: the sharded solve's kernels under each schedule (the rhs runs
 # K4H and g5 under both)
@@ -4816,9 +4840,15 @@ D2_PATHS = {
     None: {"dslash_halo": DECOMP_PATH["dslash_halo"], **{n: PATH[n] for n in _D2_COMMON}},
     "pre": {"wilson_normal_pre": DECOMP_PATH["wilson_normal_pre"],
             "dslash_halo": DECOMP_PATH["dslash_halo"], **{n: PATH[n] for n in _D2_COMMON}},
+    "overlap": {"wilson_normal_box": DECOMP_PATH["wilson_normal_box"],
+                "dslash_halo": DECOMP_PATH["dslash_halo"], **{n: PATH[n] for n in _D2_COMMON}},
 }
-D3_PATH = {"lb_step_pre": DECOMP_PATH["lb_step_pre"],
-           **{n: LUDWIG_PATH[n] for n in ("ludwig_chem_stress", "ludwig_lc_update")}}
+_D3_COMMON = {n: LUDWIG_PATH[n] for n in ("ludwig_chem_stress", "ludwig_lc_update")}
+D3_PATH = {"lb_step_pre": DECOMP_PATH["lb_step_pre"], **_D3_COMMON}
+D3_OVERLAP_PATH = {"lb_step_box": DECOMP_PATH["lb_step_box"], **_D3_COMMON}
+# the kernels the split must not run: the whole "pre" launches
+D2_NOT_OVERLAP = {"wilson_normal_pre": DECOMP_PATH["wilson_normal_pre"]}
+D3_NOT_OVERLAP = {"lb_step_pre": DECOMP_PATH["lb_step_pre"]}
 
 
 def one_rank_mesh(axes):
@@ -4843,12 +4873,42 @@ def edge_sites(lat):
     return sum(V // (lat[i] * lat[j]) for i in range(len(lat)) for j in range(i + 1, len(lat)))
 
 
+def wilson_normal_pre_bytes(lat):
+    """The bytes the M^dag M of a halo'd launch over ``lat`` (the whole
+    interior or one box of its split) must move: ap needs t on the box and
+    its 8 faces (S, V + 2F sites); t there needs p on S's faces and edges
+    (V + 4F + 4E), u's 4 links on S, link mu a step below S along mu (F more
+    sites) and two links on S's edges (72 values an edge of each pair of
+    dims); ap's sites are written once."""
+    V, F, E = math.prod(lat), face_sites(lat), edge_sites(lat)
+    return 4 * (24 * (V + 4 * F + 4 * E) + 72 * (V + 2 * F) + 18 * F + 72 * E + 24 * V)
+
+
+def wilson_normal_pre_ops(lat):
+    """The flops of that M^dag M: t on S, then ap on the box."""
+    V, F = math.prod(lat), face_sites(lat)
+    return (1320 + 48) * (V + 2 * F + V)
+
+
+def lb_step_pre_sites(lat):
+    """The sites a halo'd LB half-step over ``lat`` (the whole interior or
+    one box of its split) must collide: the box, its faces and edges
+    (D3Q19 has no corner velocity)."""
+    return math.prod(lat) + 2 * face_sites(lat) + 4 * edge_sites(lat)
+
+
+def lb_step_pre_bytes(lat):
+    """Its bytes: dist and force read on the collided sites, dist2 and u
+    written on the box's."""
+    return 22 * 4 * (lb_step_pre_sites(lat) + math.prod(lat))
+
+
 def check_halo_milc(u, b, lattice, vvl):
     """D1 (MILC): K4H and K5H at the solve's lattice, on b and u
     wrap-padded (the one-rank exchange's values)."""
     V = math.prod(lattice)
     V1, V2 = math.prod(s + 2 for s in lattice), math.prod(s + 4 for s in lattice)
-    F, E = face_sites(lattice), edge_sites(lattice)
+    F = face_sites(lattice)
     rows = {}
     psi_nd, u_nd = b.canonical_nd(), u.canonical_nd()
     psi_h, u_h = wrap_pad(psi_nd, 1), wrap_pad(u_nd, 1)
@@ -4878,15 +4938,149 @@ def check_halo_milc(u, b, lattice, vvl):
     add_row(rows, "wilson_normal_pre", err,
             time_ms(lambda: wk.wilson_normal_pre_cuda(p_h, u_h, KAPPA, lattice, vvl)),
             time_ms(lambda: wk.wilson_normal_pre_plain(p_h, u_h, KAPPA, lattice), reps=3, warm=1),
-            # ap needs t on the interior and its 8 faces (S, V + 2F sites); t
-            # there needs p on S's faces and edges (V + 4F + 4E), u's 4 links on
-            # S, link mu a step below S along mu (F more sites) and two links on
-            # S's edges (72 values an edge of each pair of dims)
-            4 * (24 * (V + 4 * F + 4 * E) + 72 * (V + 2 * F) + 18 * F + 72 * E + 24 * V),
-            (1320 + 48) * (V + 2 * F + V))
+            wilson_normal_pre_bytes(lattice), wilson_normal_pre_ops(lattice))
     del p_h, u_h, got, k5
     torch.cuda.empty_cache()
     return rows, floor
+
+
+def split_of(lat, ring):
+    """The overlap split of ``lat`` for ``ring`` with every dim decomposed:
+    [interior, boundary slabs...], each as (origin, extents)."""
+    interior, boundary = split_boxes(lat, ring, range(len(lat)))
+    return [(tuple(a for a, _ in bx), tuple(b - a for a, b in bx)) for bx in [interior] + boundary]
+
+
+def box_sl(o, e):
+    return (slice(None),) + tuple(slice(a, a + b) for a, b in zip(o, e))
+
+
+def check_box_milc(u, b, lattice, vvl):
+    """D1 (MILC): K5HO on each box of the full lattice's overlap split (ring
+    2, every dim decomposed: the interior and 8 slabs of width 2), on b and
+    u wrap-padded: each box within FIELD_RTOL of its plain version and
+    bitwise K5H's sites there, the assembled ap bitwise K5H's; the interior
+    box and the slabs together timed beside the bytes each box depends on
+    (counted as K5H's are)."""
+    p_h, u_h = wrap_pad(b.canonical_nd(), 2).reshape(24, -1), wrap_pad(u.canonical_nd(), 2).reshape(72, -1)
+    whole = wk.wilson_normal_pre_cuda(p_h, u_h, KAPPA, lattice, vvl).reshape((24,) + lattice)
+    boxes = split_of(lattice, 2)
+    ap = torch.full((24, math.prod(lattice)), float("nan"), device=p_h.device)
+    err = 0.0
+    for o, e in boxes:
+        wk.wilson_normal_box_cuda(p_h, u_h, KAPPA, lattice, o, e, ap, vvl)
+        got = ap.reshape((24,) + lattice)[box_sl(o, e)]
+        err = max(err, field_err(got.reshape(24, -1),
+                                 wk.wilson_normal_box_plain(p_h, u_h, KAPPA, lattice, o, e),
+                                 f"wilson_normal_box {o} {e}"))
+        exact_err(got, whole[box_sl(o, e)], f"K5HO box {o} {e} against K5H")
+    exact_err(ap.reshape((24,) + lattice), whole, "K5HO assembled against K5H")
+
+    def run(bs):
+        for o, e in bs:
+            wk.wilson_normal_box_cuda(p_h, u_h, KAPPA, lattice, o, e, ap, vvl)
+
+    def plain():
+        for o, e in boxes:
+            wk.wilson_normal_box_plain(p_h, u_h, KAPPA, lattice, o, e)
+
+    # each box's bytes counted as K5H's are on the whole interior
+    nb = [wilson_normal_pre_bytes(e) for _, e in boxes]
+    extra = dict(interior_ms=time_ms(lambda: run(boxes[:1])),
+                 slabs_ms=time_ms(lambda: run(boxes[1:])),
+                 interior_bound_ms=bound(nb[0], 0)[0], slabs_bound_ms=bound(sum(nb[1:]), 0)[0],
+                 k5h_ms=time_ms(lambda: wk.wilson_normal_pre_cuda(p_h, u_h, KAPPA, lattice, vvl)),
+                 boxes=[[list(o), list(e)] for o, e in boxes],
+                 box_ms=[time_ms(lambda bx=bx: run([bx])) for bx in boxes],
+                 box_bound_ms=[bound(n, 0)[0] for n in nb])
+    rows = {}
+    add_row(rows, "wilson_normal_box", err, time_ms(lambda: run(boxes)),
+            time_ms(plain, reps=3, warm=1), sum(nb),
+            sum(wilson_normal_pre_ops(e) for _, e in boxes))
+    log(f"  K5HO bitwise K5H on every box and assembled; interior {boxes[0][1]} "
+        f"{extra['interior_ms']:.4f} ms (bound {extra['interior_bound_ms']:.4f}), "
+        f"{len(boxes) - 1} slabs {extra['slabs_ms']:.4f} ms (bound "
+        f"{extra['slabs_bound_ms']:.4f}), K5H {extra['k5h_ms']:.4f} ms; a box: "
+        + ", ".join(f"{e} {ms:.4f}" for (_, e), ms in zip(boxes, extra["box_ms"])))
+    del p_h, u_h, whole, ap
+    torch.cuda.empty_cache()
+    return rows, extra
+
+
+def overlap_trace(cfg, u, b):
+    """D2: a torch.profiler trace of "overlap" iterations' operator on the
+    one-rank mesh (p filled, then ``overlap_launch``), the last of TRACE_RUNS
+    read (a profiler session may drop its first kernels): the interior box's
+    kernels and the exchange's copies (the kernels on the other stream),
+    their intervals, streams, and the ms during which both ran.  A trace
+    with no box kernel is recorded as not measured."""
+    from torch.profiler import ProfilerActivity, profile
+
+    dom = make_domain(cfg, one_rank_mesh(D_MILC_AXES), D_MILC_AXES)
+    ul, bl = dom.scatter(u.canonical_nd()), dom.scatter(b.canonical_nd())
+    dec, mesh = dom.decomposed, dom.mesh
+    nbox = len(split_of(tuple(cfg.lattice), 2))
+    graph = cg_mod.wilson_normal_graph(KAPPA)
+    u_h = exchange_padded(ul, dec, width=2, mesh=mesh)
+    uF = Field.from_canonical("u", u_h, tuple(u_h.shape[1:]))
+
+    def one():
+        p_h = fill_padded(bl, dec, width=2)
+        return overlap_launch(graph, {"p": Field.from_canonical("p", p_h, tuple(p_h.shape[1:])),
+                                      "u": uF}, decomposed=dec, config=cfg.target,
+                              outputs=("ap",), halo="overlap", exchanged=("u",), mesh=mesh)
+
+    one()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        for _ in range(TRACE_RUNS):
+            one()
+            torch.cuda.synchronize()
+    tmp = tempfile.mkdtemp(prefix="overlap_trace_")
+    try:
+        path = os.path.join(tmp, "trace.json")
+        prof.export_chrome_trace(path)
+        with open(path) as f:
+            events = json.load(f).get("traceEvents", [])
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
+    dev = [e for e in events if e.get("ph") == "X" and e.get("cat") in
+           ("kernel", "gpu_memcpy", "gpu_memset") and "stream" in e.get("args", {})]
+    dev.sort(key=lambda e: e["ts"])
+    boxk = [e for e in dev if "wilson_normal_pre" in e["name"]]
+    if len(boxk) < 2 * nbox:
+        log(f"D2 trace: {len(dev)} device events, {len(boxk)} box kernels of the last run's "
+            f"{2 * nbox}: the overlap is not measured")
+        del ul, bl, u_h, uF
+        torch.cuda.empty_cache()
+        return dict(measured=False, device_events=len(dev), box_kernels=len(boxk))
+    # the last run: its 2 nbox box kernels, and what ran after the run before
+    last = boxk[-2 * nbox:]
+    since = boxk[-2 * nbox - 1]["ts"] + boxk[-2 * nbox - 1]["dur"] if len(boxk) > 2 * nbox else 0
+    main = last[0]["args"]["stream"]
+    interior = last[:2]   # the interior box's t and ap launches come first
+    side = [e for e in dev if e["args"]["stream"] != main and e["ts"] >= since]
+
+    def hull(es):
+        return (min(e["ts"] for e in es), max(e["ts"] + e["dur"] for e in es))
+
+    ti = hull(interior)
+    out = dict(measured=True, device_events=len(dev), main_stream=main,
+               interior_kernels=[e["name"][:60] for e in interior],
+               interior_us=[ti[0], ti[1]], interior_ms=(ti[1] - ti[0]) / 1e3)
+    if side:
+        ts = hull(side)
+        both = max(0.0, min(ti[1], ts[1]) - max(ti[0], ts[0]))
+        out.update(exchange_streams=sorted({e["args"]["stream"] for e in side}),
+                   exchange_events=len(side), exchange_us=[ts[0], ts[1]],
+                   exchange_ms=(ts[1] - ts[0]) / 1e3,
+                   exchange_busy_ms=sum(e["dur"] for e in side) / 1e3, both_ms=both / 1e3)
+    else:
+        out.update(exchange_streams=[], exchange_events=0, both_ms=0.0)
+    log(f"D2 trace of an overlap iteration's operator: {out}")
+    del ul, bl, u_h, uF
+    torch.cuda.empty_cache()
+    return out
 
 
 def halo_paths(dom, x):
@@ -4913,12 +5107,14 @@ def halo_paths(dom, x):
 
 
 def sharded_milc(cfg, u, b, x_soa, iterations, solve_s):
-    """D2: the one-rank sharded solves, counted."""
+    """D2: the one-rank sharded solves, counted; "overlap" also against
+    "pre" (iterations, x bitwise) and traced."""
     dom = make_domain(cfg, one_rank_mesh(D_MILC_AXES), D_MILC_AXES)
     ul, bl = dom.scatter(u.canonical_nd()), dom.scatter(b.canonical_nd())
     x_ref = x_soa.reshape((24,) + tuple(cfg.lattice))
     out, counts = {"halo_ms": halo_paths(dom, bl)}, {}
-    for halo in (None, "pre"):
+    x_pre = None
+    for halo in (None, "pre", "overlap"):
         solver = make_sharded_solver(cfg, dom, halo)
         reset_counts()
         torch.cuda.synchronize()
@@ -4927,6 +5123,7 @@ def sharded_milc(cfg, u, b, x_soa, iterations, solve_s):
         torch.cuda.synchronize()
         sec = time.perf_counter() - t0
         counts[halo] = path_counts(D2_PATHS[halo])
+        whole = path_counts(D2_NOT_OVERLAP)
         rel = (torch.linalg.norm(x - x_ref) / torch.linalg.norm(x_ref)).item()
         log(f"D2 sharded solve {cfg.lattice}, halo={halo!r}, one rank: {it} iterations (phase 4: "
             f"{iterations}), {sec:.3f} s, {sec / max(it, 1) * 1e3:.3f} ms/iter (phase 4 "
@@ -4941,9 +5138,25 @@ def sharded_milc(cfg, u, b, x_soa, iterations, solve_s):
             raise AssertionError(f"D2 halo={halo!r}: kernels of the path never launched: {idle}")
         out[str(halo)] = dict(iterations=it, seconds=sec, ms_per_iteration=sec / it * 1e3,
                               x_rel_l2=rel, residual=float(res))
+        if halo == "pre":
+            x_pre, it_pre = x, it
+        if halo == "overlap":
+            # the split's boxes, never the whole launch; "pre"'s trajectory
+            if any(whole.values()):
+                raise AssertionError(f"D2 overlap: the whole 'pre' kernels ran: {whole}")
+            if it != it_pre or not torch.equal(x, x_pre):
+                raise AssertionError(f"D2 overlap: {it} iterations against 'pre''s {it_pre}, "
+                                     f"x bitwise {torch.equal(x, x_pre)}")
+            out["overlap"]["bitwise_pre"] = True
+            log(f"D2 overlap: 'pre''s {it_pre} iterations and x bitwise; "
+                f"{out['overlap']['ms_per_iteration']:.3f} ms/iter against 'pre' "
+                f"{out['pre']['ms_per_iteration']:.3f} and phase 4 "
+                f"{solve_s / iterations * 1e3:.3f}")
         del x, solver
         torch.cuda.empty_cache()
+    del x_pre
     out["phase4_ms_per_iteration"] = solve_s / iterations * 1e3
+    torch.cuda.empty_cache()
     return out, counts
 
 
@@ -4952,9 +5165,6 @@ def check_halo_ludwig(state, cfg, vvl):
     K5LH at the step's lattice, on L2's kind of inputs wrap-padded."""
     lat, tau = tuple(cfg.lattice), cfg.tau
     V, Vh = math.prod(lat), math.prod(s + 2 for s in lat)
-    # the sites the collision must reach: the interior, its faces and edges
-    # (D3Q19 has no corner velocity)
-    Vc = V + 2 * face_sites(lat) + 4 * edge_sites(lat)
     dev = state.dist.data.device
     gen = torch.Generator(device=dev).manual_seed(4)
     dist = state.dist.canonical() * (1.0 + 0.05 * torch.randn((19, V), generator=gen, device=dev))
@@ -4998,10 +5208,72 @@ def check_halo_ludwig(state, cfg, vvl):
         f"{time_ms(lambda: k8.lb_step_cuda(dist, force, tau, lat, vvl)):.4f} ms")
     add_row(rows, "lb_step_pre", err, time_ms(lambda: k8.lb_step_pre_cuda(dh, fh, tau, lat, vvl)),
             time_ms(lambda: k8.lb_step_pre_plain(dh, fh, tau, lat), reps=3, warm=1),
-            22 * 4 * (Vc + V), FLOPS["lb_step"] * Vc)
+            lb_step_pre_bytes(lat), FLOPS["lb_step"] * lb_step_pre_sites(lat))
     del dist, force, dh, fh, got, want, per
     torch.cuda.empty_cache()
     return rows, pcounts
+
+
+def check_box_ludwig(state, cfg, vvl):
+    """D1 (Ludwig): K5LHO on each box of the full lattice's overlap split
+    (ring 1, every dim decomposed: the interior and 6 slabs), on L2's kind
+    of inputs wrap-padded: each box bitwise its plain version and K5LH's
+    sites there, the assembled dist2 and u bitwise K5LH's; the interior box
+    and the slabs together timed beside the bytes each box depends on
+    (counted as K5LH's are)."""
+    lat, tau = tuple(cfg.lattice), cfg.tau
+    V = math.prod(lat)
+    dev = state.dist.data.device
+    gen = torch.Generator(device=dev).manual_seed(5)
+    dist = state.dist.canonical() * (1.0 + 0.05 * torch.randn((19, V), generator=gen, device=dev))
+    force = 1e-3 * torch.randn((3, V), generator=gen, device=dev)
+    dh = wrap_pad(dist.reshape((19,) + lat), 1).reshape(19, -1)
+    fh = wrap_pad(force.reshape((3,) + lat), 1).reshape(3, -1)
+    del dist, force
+    w2, wu = k8.lb_step_pre_cuda(dh, fh, tau, lat, vvl)
+    boxes = split_of(lat, 1)
+    d2 = torch.full((19, V), float("nan"), device=dev)
+    u = torch.full((3, V), float("nan"), device=dev)
+    for o, e in boxes:
+        k8.lb_step_box_cuda(dh, fh, tau, lat, o, e, d2, u, vvl)
+        pd, pu = k8.lb_step_box_plain(dh, fh, tau, lat, o, e)
+        for got, want, full, n in ((d2, pd, w2, "dist2"), (u, pu, wu, "u")):
+            g = got.reshape((got.shape[0],) + lat)[box_sl(o, e)]
+            exact_err(g.reshape(got.shape[0], -1), want, f"lb_step_box {n} {o} {e}")
+            exact_err(g, full.reshape((got.shape[0],) + lat)[box_sl(o, e)],
+                      f"K5LHO {n} box {o} {e} against K5LH")
+    exact_err(d2, w2, "K5LHO dist2 assembled against K5LH")
+    exact_err(u, wu, "K5LHO u assembled against K5LH")
+
+    def run(bs):
+        for o, e in bs:
+            k8.lb_step_box_cuda(dh, fh, tau, lat, o, e, d2, u, vvl)
+
+    def plain():
+        for o, e in boxes:
+            k8.lb_step_box_plain(dh, fh, tau, lat, o, e)
+
+    # each box's bytes counted as K5LH's are on the whole interior
+    nb = [lb_step_pre_bytes(e) for _, e in boxes]
+    extra = dict(interior_ms=time_ms(lambda: run(boxes[:1])),
+                 slabs_ms=time_ms(lambda: run(boxes[1:])),
+                 interior_bound_ms=bound(nb[0], 0)[0], slabs_bound_ms=bound(sum(nb[1:]), 0)[0],
+                 k5lh_ms=time_ms(lambda: k8.lb_step_pre_cuda(dh, fh, tau, lat, vvl)),
+                 boxes=[[list(o), list(e)] for o, e in boxes],
+                 box_ms=[time_ms(lambda bx=bx: run([bx])) for bx in boxes],
+                 box_bound_ms=[bound(n, 0)[0] for n in nb])
+    rows = {}
+    add_row(rows, "lb_step_box", 0.0, time_ms(lambda: run(boxes)),
+            time_ms(plain, reps=3, warm=1), sum(nb),
+            FLOPS["lb_step"] * sum(lb_step_pre_sites(e) for _, e in boxes))
+    log(f"  K5LHO bitwise its plain version and K5LH on every box and assembled; interior "
+        f"{boxes[0][1]} {extra['interior_ms']:.4f} ms (bound {extra['interior_bound_ms']:.4f}), "
+        f"{len(boxes) - 1} slabs {extra['slabs_ms']:.4f} ms (bound "
+        f"{extra['slabs_bound_ms']:.4f}), K5LH {extra['k5lh_ms']:.4f} ms; a box: "
+        + ", ".join(f"{e} {ms:.4f}" for (_, e), ms in zip(boxes, extra["box_ms"])))
+    del dh, fh, w2, wu, d2, u
+    torch.cuda.empty_cache()
+    return rows, extra
 
 
 def sharded_ludwig(state, cfg):
@@ -5039,10 +5311,34 @@ def sharded_ludwig(state, cfg):
     idle = [n for n, c in counts.items() if c == 0]
     if idle:
         raise AssertionError(f"D3: kernels of the sharded step never launched: {idle}")
-    del d, q, s
+    # the LB half-step under "overlap": the split's boxes, the exchange of
+    # dist and force beside the interior box; bitwise the "pre" steps
+    ostep = ludwig.make_sharded_step(cfg, dom, "overlap")
+    od, oq = dom.scatter(state.dist.canonical_nd()), dom.scatter(state.q.canonical_nd())
+    reset_counts()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for _ in range(D_STEPS):
+        od, oq = ostep(od, oq)
+    torch.cuda.synchronize()
+    overlap_ms = (time.perf_counter() - t0) / D_STEPS * 1e3
+    ocounts = path_counts(D3_OVERLAP_PATH)
+    whole = path_counts(D3_NOT_OVERLAP)
+    obits = {"dist": torch.equal(od, d), "q": torch.equal(oq, q)}
+    log(f"D3 {D_STEPS} overlap steps {cfg.lattice}, one rank: {overlap_ms:.3f} ms/step against "
+        f"'pre' {sharded_ms:.3f} and single {single_ms:.3f}; bitwise 'pre' {obits}; launches "
+        f"{ocounts}")
+    if not all(obits.values()) or not all(bits.values()):
+        raise AssertionError(f"D3 overlap: not bitwise the 'pre' steps {obits} and the single "
+                             f"steps {bits}")
+    if any(whole.values()) or not all(ocounts.values()):
+        raise AssertionError(f"D3 overlap: whole 'pre' kernels {whole}, path {ocounts}")
+    counts.update(ocounts)
+    del d, q, s, od, oq
     torch.cuda.empty_cache()
     return dict(steps=D_STEPS, ms_per_step=sharded_ms, single_ms_per_step=single_ms,
-                bitwise=bits, max_abs_diff=diffs), counts
+                bitwise=bits, max_abs_diff=diffs, overlap_ms_per_step=overlap_ms,
+                overlap_bitwise_pre=obits), counts
 
 
 def table_rows(path, counts, rows):
@@ -5174,8 +5470,12 @@ def main():
     t0 = time.perf_counter()
     log(f"D1: K4H and K5H at {lattice}, vvl {vvl}:")
     drows, k5h_floor = check_halo_milc(u, b, lattice, vvl)
+    log(f"D1: K5HO on the overlap split of {lattice}, vvl {vvl}:")
+    brows_o, box_milc = check_box_milc(u, b, lattice, vvl)
+    drows.update(brows_o)
     d2, d2counts = sharded_milc(cfg, u, b, x_soa, iterations, solve_s)
     d2["wilson_normal_pre_design_floor_ms"] = k5h_floor
+    d2["k5ho_split"] = box_milc
     log(f"D1 (MILC), D2: {time.perf_counter() - t0:.1f} s")
 
     # S1. the batch instances against their plain versions and single launches
@@ -5253,12 +5553,18 @@ def main():
     log(f"D1: K8H and K5LH at {lcfg.lattice}, vvl {lcfg.target.vvl}:")
     lhrows, d1counts = check_halo_ludwig(state, lcfg, lcfg.target.vvl)
     drows.update(lhrows)
+    log(f"D1: K5LHO on the overlap split of {lcfg.lattice}, vvl {lcfg.target.vvl}:")
+    lbrows, box_ludwig = check_box_ludwig(state, lcfg, lcfg.target.vvl)
+    drows.update(lbrows)
     d3, d3counts = sharded_ludwig(state, lcfg)
+    d3["k5lho_split"] = box_ludwig
     log(f"D1 (Ludwig), D3: {time.perf_counter() - t0:.1f} s")
     dcounts = {"dslash_halo": d2counts[None]["dslash_halo"],
                "wilson_normal_pre": d2counts["pre"]["wilson_normal_pre"],
                "lb_propagate_halo": d1counts["lb_propagate_halo"],
-               "lb_step_pre": d3counts["lb_step_pre"]}
+               "lb_step_pre": d3counts["lb_step_pre"],
+               "wilson_normal_box": d2counts["overlap"]["wilson_normal_box"],
+               "lb_step_box": d3counts["lb_step_box"]}
     decomp_line = {"decomposed": {
         "card": smi, "sharded_solve": d2, "sharded_step": d3,
         "kernels": {n: {k: r[k] for k in ("ms", "plain_ms", "bound_ms", "library_ms")}
@@ -5293,6 +5599,9 @@ def main():
     # V1 (MILC). the block view at full width, counted
     t1 = time.perf_counter()
     v1 = {"milc": view_block_milc(cfg, u, b, x_soa, iterations)}
+    # D2's trace of the overlap operator, after V1's strict kernel list (the
+    # run's first profiler session, as before the trace existed)
+    d2["overlap_trace"] = overlap_trace(cfg, u, b)
     # RS1. split reductions at full width, counted
     srows, split_line, scounts_rs = split_reductions(cfg, u, b, x_soa, iterations, vvl, state,
                                                      lcfg)

@@ -1,5 +1,6 @@
 """The port's decomposed lattice: the sharded MILC solve and Ludwig step on
-a mesh of ranks, each held against the single-device path.
+a mesh of ranks, each schedule (the MILC solve's None, "pre" and "overlap",
+the Ludwig step's "pre" and "overlap") held against the single-device path.
 
 One process a rank.  Under torchrun the mesh reads RANK, WORLD_SIZE and
 LOCAL_RANK; alone, the mesh has one rank and every exchange is the
@@ -53,7 +54,7 @@ def main():
     u, b = init_problem(mc, seed=0)
     single = solve(mc, u, b)
     dom = make_domain(mc, mesh, names + (None,) * (4 - len(names)))
-    for halo in (None, "pre"):
+    for halo in (None, "pre", "overlap"):
         t0 = time.perf_counter()
         x, it, _ = make_sharded_solver(mc, dom, halo)(dom.scatter(u.canonical_nd()),
                                                      dom.scatter(b.canonical_nd()))
@@ -67,17 +68,19 @@ def main():
     lc = LudwigConfig(lattice=tuple(args.ludwig), target=tgt)
     st = init_state(lc, seed=0)
     dom = Domain(lc.lattice, mesh, names + (None,) * (3 - len(names)), halo=2)
-    sstep = make_sharded_step(lc, dom)
-    d, q = dom.scatter(st.dist.canonical_nd()), dom.scatter(st.q.canonical_nd())
     s = st
     for _ in range(args.steps):
         s = step(s, lc)
-        d, q = sstep(d, q)
-    same = (torch.equal(dom.gather(d), s.dist.canonical_nd())
-            and torch.equal(dom.gather(q), s.q.canonical_nd()))
-    if lead:
-        print(f"ludwig {lc.lattice} on {shape} ranks ({math.prod(shape)}): {args.steps} sharded "
-              f"steps bitwise the single-device steps: {same}")
+    for halo in ("pre", "overlap"):
+        sstep = make_sharded_step(lc, dom, halo)
+        d, q = dom.scatter(st.dist.canonical_nd()), dom.scatter(st.q.canonical_nd())
+        for _ in range(args.steps):
+            d, q = sstep(d, q)
+        same = (torch.equal(dom.gather(d), s.dist.canonical_nd())
+                and torch.equal(dom.gather(q), s.q.canonical_nd()))
+        if lead:
+            print(f"ludwig {lc.lattice} on {shape} ranks ({math.prod(shape)}), halo={halo!r}: "
+                  f"{args.steps} sharded steps bitwise the single-device steps: {same}")
     if dist.is_initialized():
         dist.destroy_process_group()
 

@@ -45,9 +45,11 @@ outputs go on through jnp's promotion.
 :func:`make_sharded_step` is the step on a decomposed lattice (a rank's
 block of a ``lattice.Domain``, one process a rank): halo exchanges, then
 the same periodic stencils on the halo'd local arrays and crops, the LB
-half-step as the fused graph's ``halo="pre"`` launch (K5LH on "cuda").
-Not yet ported: ``run_steps`` (with ``core/schedule.py``, ROADMAP item 21)
-and the ``"overlap"`` schedule (item 23).
+half-step as the fused graph's ``halo="pre"`` launch (K5LH on "cuda"), or
+under ``halo="overlap"`` through ``core.overlap`` (K5LHO a box on "cuda",
+dist's and force's exchange beside the interior box), or under ``halo=None``
+as the planning layer chooses.  Not yet ported: ``run_steps`` (with
+``core/schedule.py``, ROADMAP item 21).
 """
 
 from __future__ import annotations
@@ -65,6 +67,7 @@ from repro_torch.core import (
 )
 from repro_torch.core import halo as halo_mod
 from repro_torch.core import stencil
+from repro_torch.core.overlap import overlap_launch
 from repro_torch.core.field import resolve_device
 from repro_torch.core.fuse import check_pre_rings, register_cuda_graph
 from repro_torch.core.target import register_cuda_body
@@ -341,13 +344,13 @@ def make_sharded_step(cfg: LudwigConfig, domain, halo: str = "pre"):
     Every site computes what the single-device step computes there, so the
     sharded steps are bitwise the single ones.
 
-    ``halo``: "pre"; "overlap" and None (the planned choice) are not yet
-    ported (ROADMAP item 23)."""
+    ``halo`` schedules the LB half-step's exchange: "pre" (exchange, then
+    the launch), "overlap" (the interior/boundary split of
+    ``core.overlap``: dist's and force's exchange beside the interior box)
+    or None (the planning layer's choice: the default policy keeps "pre",
+    a tuned table may pick "overlap").  All three are bitwise one another."""
     if halo not in (None, "pre", "overlap"):
         raise ValueError(f"halo must be None, 'pre' or 'overlap', got {halo!r}")
-    if halo != "pre":
-        raise ValueError(f"halo={halo!r} (the overlap schedule) is not yet ported (ROADMAP "
-                         f"item 23); use halo='pre'")
     WQ = 2  # q halo: grad/lap (1) + stress divergence (1)
     dec, mesh = domain.decomposed, domain.mesh
 
@@ -365,8 +368,7 @@ def make_sharded_step(cfg: LudwigConfig, domain, halo: str = "pre"):
 
     tgt = cfg.target
     chem_step = chem_stress_graph(cfg).bind(config=tgt, outputs=("h", "sigma"))
-    lb_pre_step = lb_step_graph(cfg).bind(config=_lb_target(cfg), outputs=("dist2", "u"),
-                                          halo="pre")
+    lb_graph = lb_step_graph(cfg)
     lc_step = lc_update_graph(cfg).bind(config=tgt, outputs=("q_new",))
 
     def local_step(dist_nd: torch.Tensor, q_nd: torch.Tensor):
@@ -380,10 +382,14 @@ def make_sharded_step(cfg: LudwigConfig, domain, halo: str = "pre"):
         force_nd = crop(gr.divergence(cs["sigma"].canonical_nd().to(q_nd.dtype)), WQ)
 
         # ---- the fused LB half-step on pre-exchanged halos: the
-        # pre-collision dist and the force are exchanged, and the launch
-        # collides the ring too
-        lb = lb_pre_step({"dist": mk("dist", halo_of(dist_nd, 1)),
-                          "force": mk("force", halo_of(force_nd, 1))})
+        # pre-collision dist and the force are filled, overlap_launch
+        # exchanges them (under "overlap", beside the interior box) and the
+        # launch collides the ring too
+        lb = overlap_launch(
+            lb_graph, {"dist": mk("dist", halo_mod.fill_padded(dist_nd, dec, width=1)),
+                       "force": mk("force", halo_mod.fill_padded(force_nd, dec, width=1))},
+            decomposed=dec, config=_lb_target(cfg), outputs=("dist2", "u"), halo=halo,
+            mesh=mesh)
         dist2_nd = lb["dist2"].canonical_nd().to(dist_nd.dtype)
         u_nd = lb["u"].canonical_nd().to(q_nd.dtype)
 
@@ -531,6 +537,13 @@ def _lb_step_pre_cuda(graph, ins, scalars, *, lattice, rings, vvl, out_layouts):
     return {"dist2": dist2, "u": u}
 
 
+def _lb_step_box_cuda(graph, ins, scalars, *, lattice, rings, vvl, origin, extents, outs):
+    # K5LHO: dist2 and u on one box of the interior, into the whole interior's
+    check_pre_rings(graph, rings, {"dist": 1, "force": 1})
+    lbk.lb_step_box_cuda(ins["dist"][0], ins["force"][0], graph.stage_params()[1]["tau"],
+                         lattice, origin, extents, outs["dist2"], outs.get("u"), vvl)
+
+
 def _fed_cuda(ins, params, vvl, out_layouts):
     t, lays = _split(ins, out_layouts)
     return {"fed": lck.fed_cuda(t["q"], t["dq"], a0=params["a0"], gamma=params["gamma"],
@@ -542,5 +555,6 @@ register_cuda_graph(chem_stress_graph(LudwigConfig()), _chem_stress_cuda, ("h", 
 register_cuda_graph(lc_update_graph(LudwigConfig()), _lc_update_cuda, ("q_new",), policy=True)
 register_cuda_graph(lc_chain_graph(LudwigConfig()), _lc_chain_cuda, ("q_new",))
 register_cuda_graph(lb_step_graph(LudwigConfig()), _lb_step_cuda, ("dist2", "u"),
-                    tiled=_lb_step_tiled_cuda, policy=True, pre=_lb_step_pre_cuda)
+                    tiled=_lb_step_tiled_cuda, policy=True, pre=_lb_step_pre_cuda,
+                    box=_lb_step_box_cuda)
 register_cuda_body(_fed_body, _fed_cuda)

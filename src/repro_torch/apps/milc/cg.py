@@ -70,8 +70,8 @@ from repro_torch.core.plan import cuda_policy, launch_policy
 from repro_torch.core.reduce import fold_components
 from repro_torch.core.target import register_cuda_body, site_axpy, site_g5, site_mul
 from repro_torch.kernels.wilson_dslash import dslash
-from repro_torch.kernels.wilson_dslash.kernel import (bf16_pack_cuda, wilson_normal_cuda,
-                                                      wilson_normal_pre_cuda,
+from repro_torch.kernels.wilson_dslash.kernel import (bf16_pack_cuda, wilson_normal_box_cuda,
+                                                      wilson_normal_cuda, wilson_normal_pre_cuda,
                                                       wilson_normal_tiled_cuda)
 from repro_torch.kernels.wilson_dslash.ops import dslash_stencil_body
 
@@ -639,6 +639,14 @@ def _wilson_normal_pre_cuda(graph, ins, scalars, *, lattice, rings, vvl, out_lay
                                          lattice, vvl)}
 
 
+def _wilson_normal_box_cuda(graph, ins, scalars, *, lattice, rings, vvl, origin, extents,
+                            outs):
+    # K5HO: ap on one box of the interior, into the whole interior's ap
+    fuse.check_pre_rings(graph, rings, {"p": 2, "u": 2})
+    wilson_normal_box_cuda(ins["p"][0], ins["u"][0], _normal_kappa(graph), lattice, origin,
+                           extents, outs["ap"], vvl)
+
+
 def _wilson_normal_tiled_cuda(graph, ins, scalars, *, lattice, plan, out_layouts, policy=None,
                               rsplit=1, batch=0, in_batched=None):
     # K5T, single or (batch set) over stacked p against one shared u
@@ -696,7 +704,8 @@ register_cuda_graph(cg_xpay_graph(24), _cg_xpay_cuda, ("out",))
 register_cuda_graph(wilson_normal_graph(0.0), _wilson_normal_cuda, ("ap", "pap"),
                     batched=_wilson_normal_batched_cuda, policy=True,
                     tiled=_wilson_normal_tiled_cuda, tiled_batch=True,
-                    pre=_wilson_normal_pre_cuda, pre_outputs=("ap",))
+                    pre=_wilson_normal_pre_cuda, pre_outputs=("ap",),
+                    box=_wilson_normal_box_cuda)
 register_cuda_graph(masked_cg_update_graph(24), None, ("x_new", "r_new", "rr"),
                     batched=_cg_update_masked_cuda)
 register_cuda_graph(masked_xpay_graph(24), None, ("out",), batched=_cg_xpay_masked_cuda)

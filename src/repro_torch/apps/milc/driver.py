@@ -28,8 +28,10 @@ all-reduced over the mesh.  Its per-iteration schedules, as the JAX
 package's: ``halo=None`` exchanges the spinor once for each dslash
 (``dslash_halo``, K4H on "cuda", unfused); ``halo="pre"`` exchanges p once
 at width 2 and runs the fused normal operator on the pre-exchanged halos
-(K5H), <p, Ap> from ``dot`` on the assembled Fields.  ``"overlap"`` is not
-yet ported (ROADMAP item 23).
+(K5H), <p, Ap> from ``dot`` on the assembled Fields; ``halo="overlap"``
+runs the same operator under the interior/boundary split of
+``core.overlap`` (K5HO a box on "cuda"), p's exchange beside the interior
+box, so its trajectory is bitwise "pre"'s.
 """
 
 from __future__ import annotations
@@ -42,6 +44,7 @@ import torch
 from repro_torch.core import (BatchedField, DtypePolicy, Field, Layout, SOA, TargetConfig,
                               tileable_layout)
 from repro_torch.core import halo as halo_mod
+from repro_torch.core.overlap import overlap_launch
 from repro_torch.kernels.wilson_dslash import dslash_halo
 from repro_torch.lattice import Domain
 from .cg import (BatchedCGResult, CGResult, cg, cg_batched, cg_refined, dot, make_fused_normal,
@@ -235,13 +238,11 @@ def make_sharded_solver(cfg: MilcConfig, domain: Domain, halo: Optional[str] = N
     an int and residual |r|^2 / |b|^2, the same on every rank.
 
     ``halo`` selects the per-iteration schedule: None (an exchange for each
-    dslash, unfused) or "pre" (the fused normal operator on one width-2
-    exchange); "overlap" is not yet ported (ROADMAP item 23)."""
+    dslash, unfused), "pre" (the fused normal operator on one width-2
+    exchange) or "overlap" (that operator under the interior/boundary
+    split, p's exchange beside the interior: ``core.overlap``)."""
     if halo not in (None, "pre", "overlap"):
         raise ValueError(f"halo must be None, 'pre' or 'overlap', got {halo!r}")
-    if halo == "overlap":
-        raise ValueError("halo='overlap' (the interior/boundary split schedule) is not yet "
-                         "ported (ROADMAP item 23); use None or 'pre'")
     mesh = domain.mesh
     dec = domain.decomposed
     axes = tuple(ax for _, ax, _ in dec) if mesh is not None else ()
@@ -257,8 +258,7 @@ def make_sharded_solver(cfg: MilcConfig, domain: Domain, halo: Optional[str] = N
         lat = tuple(arr.shape[1:])
         return Field.from_canonical(name, arr, lat, tileable_layout(cfg.layout, lat))
 
-    normal_pre = wilson_normal_graph(float(cfg.kappa)).bind(config=tgt, outputs=("ap",),
-                                                           halo="pre")
+    normal = wilson_normal_graph(float(cfg.kappa))
 
     def solver(u_loc: torch.Tensor, b_loc: torch.Tensor):
         u_h = halo_of(u_loc)  # the gauge halo, once a solve
@@ -272,17 +272,24 @@ def make_sharded_solver(cfg: MilcConfig, domain: Domain, halo: Optional[str] = N
                                                      dslash_fn=dslash_fn)
         rhs = apply_mdag(mkF("b", b_loc))
         apply_a_dot = None
-        if halo == "pre":
-            # M^dag M as one halo'd launch an iteration; the gauge field's
+        if halo is not None:
+            # M^dag M as one halo'd graph an iteration; the gauge field's
             # ring-2 halo is exchanged once here
             uF_h = mkF("u", halo_of(u_loc, WN))
 
             def apply_a_dot(p: Field):
-                pF = mkF("p", halo_of(p.canonical_nd(), WN))
-                ap = p.with_data(normal_pre({"p": pF, "u": uF_h},
-                                            out_layouts={"ap": p.layout})["ap"].data)
+                # p filled (the block and its undecomposed wrap); its
+                # exchange runs inside (under "overlap", beside the interior
+                # box)
+                pF = mkF("p", halo_mod.fill_padded(p.canonical_nd(), dec, width=WN))
+                out = overlap_launch(normal, {"p": pF, "u": uF_h}, decomposed=dec, config=tgt,
+                                     outputs=("ap",), halo=halo, exchanged=("u",),
+                                     out_layouts={"ap": p.layout}, mesh=mesh)
+                ap = p.with_data(out["ap"].data)
                 # <p, Ap> from the assembled Fields, not a fused reduction:
-                # its value does not depend on how ap was produced
+                # its value does not depend on how ap was produced (one
+                # launch or the split's boxes), so "pre" and "overlap" take
+                # the same trajectory
                 return ap, dot(p, ap, tgt)
 
         res = cg(apply_normal, rhs, config=tgt, tol=cfg.tol, max_iter=cfg.max_iter,

@@ -94,22 +94,18 @@ def from_ludwig_state(state: LudwigState) -> Tuple[np.ndarray, np.ndarray, Tuple
 def to_plan(ref: Mapping) -> LoweringPlan:
     """The port's plan for a JAX package ``LoweringPlan.to_json()``: engine
     "pallas" -> "cuda" and "jnp" -> "torch"; vvl, bx, by, bz, the view, the
-    split factor and the dtype policy kept; interpret dropped.  The halo
-    strategy is the call site's in both packages, so "periodic" and "pre"
-    map to the same plan; "overlap", which a plan carries in the JAX
-    package, is not yet ported and raises."""
+    split factor, the dtype policy and the halo strategy kept; interpret
+    dropped."""
     engine = ref.get("engine", "jnp")
     if engine not in _ENGINES:
         raise ValueError(f"unknown reference engine {engine!r}; have {list(_ENGINES)}")
-    if ref.get("halo", "periodic") not in ("periodic", "pre"):
-        raise ValueError(f"reference plan {dict(ref)} uses what is not yet ported: "
-                         f"halo={ref['halo']!r} (ROADMAP item 23)")
     dt = ref.get("dtypes")
     dtypes = None if dt is None else DtypePolicy(
         **{k: str(dt.get(k, "")) for k in ("storage", "compute", "accumulate")}).validate()
     return LoweringPlan(_ENGINES[engine], vvl=int(ref.get("vvl", 0)), bx=int(ref.get("bx", 0)),
                         by=int(ref.get("by", 0)), bz=int(ref.get("bz", 0)), dtypes=dtypes,
-                        view=str(ref.get("view", VIEW_AUTO)), rsplit=int(ref.get("rsplit", 1)))
+                        view=str(ref.get("view", VIEW_AUTO)), rsplit=int(ref.get("rsplit", 1)),
+                        halo=str(ref.get("halo", "periodic")))
 
 
 def _lm_leaf(a, device) -> torch.Tensor:

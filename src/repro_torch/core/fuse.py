@@ -82,9 +82,14 @@ exchanged by the caller: the output lattice is the interior, each input's
 lattice less twice its ring.  The torch engine stages the caller's arrays
 as they are; the cuda engine runs the graph's registered ``"pre"`` kernel
 (``register_cuda_graph(..., pre=)``: K5H for wilson_normal, K5LH for
-ludwig_lb_step) and raises for any other graph.  Not yet ported under
-``"pre"``: tiles, ``rsplit``, ``view="block"``, a batch and a DtypePolicy
-(ROADMAP item 24, queue 2 (e), (f)); ``"overlap"`` raises (item 23).
+ludwig_lb_step) and raises for any other graph.  ``"overlap"`` (or a "pre"
+launch whose plan chose it) takes the same inputs and runs the
+interior/boundary split of ``core.overlap``: on "torch" a "pre" launch a
+box, on "cuda" the graph's box kernel (``register_cuda_graph(...,
+box=)``: K5HO, K5LHO) a box, writing in place into outputs allocated once.
+Not yet ported under ``"pre"`` and ``"overlap"``: tiles, ``rsplit``,
+``view="block"``, a batch and a DtypePolicy (ROADMAP item 24, queue 2 (e),
+(f)).
 
 This module also holds K3, the flat fused CG kernels
 (``csrc/fused_flat.cu``) that replace the JAX package's
@@ -108,10 +113,11 @@ import torch
 
 from .._cuda import Kernel, check_field, check_tensor, check_typed_field
 from .field import BatchedField, Field, backend_name
+from .layout import SOA as SOA_LAYOUT
 from .layout import Layout, LayoutKind, resolve_layouts
 from .plan import (VIEW_BLOCK, DtypePolicy, LoweringPlan, adapt_plan, check_pre_plan,
                    cuda_policy, default_plan, graph_plan_key, launch_policy, policy_plan,
-                   resolve_accumulate)
+                   resolve_accumulate, sub_lattice_plan)
 from .reduce import compensated_plain, fold_partials, fold_partials_batched
 from .stencil import halo_pad, tile_boxes
 from .target import (TargetConfig, TargetKernel, batch_operand, operand_shape, operand_slot,
@@ -328,6 +334,7 @@ class _CudaEntry(NamedTuple):
     tiled_batch: bool               # the tiled kernel has a batch instance
     pre: Optional[Callable]         # the kernel on pre-exchanged halos (halo="pre")
     pre_outputs: Tuple[str, ...]    # what that kernel produces
+    box: Optional[Callable]         # that kernel on one box of the interior (halo="overlap")
 
 
 # LaunchGraph.structure() -> its kernels
@@ -341,7 +348,8 @@ def register_cuda_graph(graph: "LaunchGraph", impl: Optional[Callable],
                         policy: bool = False,
                         tiled_batch: bool = False,
                         pre: Optional[Callable] = None,
-                        pre_outputs: Optional[Sequence[str]] = None) -> None:
+                        pre_outputs: Optional[Sequence[str]] = None,
+                        box: Optional[Callable] = None) -> None:
     """Run ``impl(graph, ins, scalars, lattice=, vvl=, out_layouts=)`` for
     every graph of ``graph``'s structure on the cuda engine,
     ``tiled(graph, ins, scalars, lattice=, plan=, out_layouts=)`` under a
@@ -365,10 +373,16 @@ def register_cuda_graph(graph: "LaunchGraph", impl: Optional[Callable],
     rings=, vvl=, out_layouts=)`` runs a ``halo="pre"`` launch: ``ins`` are
     the caller's halo'd tensors, ``rings`` each input's ring, ``lattice``
     the interior the outputs cover; it returns ``pre_outputs`` (default
-    ``outputs``).  The ``"pre"`` kernels take no policy."""
+    ``outputs``).  ``box(graph, ins, scalars, lattice=, rings=, vvl=,
+    origin=, extents=, outs=)`` runs that kernel on one box of the
+    interior (a ``halo="overlap"`` sub-launch): ``ins`` and ``rings`` as
+    for ``pre``, the box at ``origin`` with ``extents`` sites a dim, and
+    ``outs`` the field outputs' SoA tensors over the whole interior, of
+    which it writes the box's sites.  The ``"pre"`` and box kernels take no
+    policy."""
     _CUDA_GRAPHS[graph.structure()] = _CudaEntry(
         impl, tuple(outputs), tiled, batched, policy, bool(tiled_batch), pre,
-        tuple(pre_outputs if pre_outputs is not None else outputs))
+        tuple(pre_outputs if pre_outputs is not None else outputs), box)
 
 
 def check_pre_rings(graph: "LaunchGraph", rings: Mapping[str, int],
@@ -666,9 +680,11 @@ class LaunchGraph:
                     vector; the cuda kernels read it on the device).
         out_layouts graph output name -> Layout (default: first input's).
         halo        "periodic" (single device: the launch pads the stencil
-                    inputs) or "pre" (each input comes padded by its ring,
+                    inputs), "pre" (each input comes padded by its ring,
                     ``halo_widths()``, and exchanged; the outputs cover the
-                    interior).  "overlap" is not yet ported.
+                    interior) or "overlap" ("pre"'s inputs under the
+                    interior/boundary split, ``core.overlap``; a plan that
+                    chose "overlap" also upgrades a "pre" launch).
         plan        explicit LoweringPlan for this launch (overrides
                     config.plan_policy).
         """
@@ -683,11 +699,8 @@ class LaunchGraph:
         stencil = self.has_stencil
         if halo != "periodic" and not stencil:
             raise ValueError(f"halo={halo!r} only applies to graphs with stencil stages")
-        if halo == "overlap":
-            raise ValueError(
-                "halo='overlap' (the interior/boundary split schedule of core/overlap.py) "
-                "is not yet ported (ROADMAP item 23); use halo='pre'")
-        pre = halo == "pre"
+        # "overlap" takes "pre"'s inputs
+        pre = halo != "periodic"
 
         first = next(iter(ins.values()))
         # the leading batch axis: BatchedField inputs stack `batch`
@@ -697,7 +710,7 @@ class LaunchGraph:
         batch = max(in_batch.values(), default=0)
         if batch and pre:
             raise ValueError(
-                f"a batched launch of graph {self.name!r} under halo='pre' is not yet "
+                f"a batched launch of graph {self.name!r} under halo={halo!r} is not yet "
                 f"ported (ROADMAP queue 2 (f))")
         if batch:
             bad_b = {n: b for n, b in in_batch.items() if b not in (0, batch)}
@@ -788,8 +801,9 @@ class LaunchGraph:
         def default():
             # a default plan's view stays "auto": never the block view's check
             p = default_plan(config, nsites=nsites, layouts=all_layouts, stencil=stencil,
-                             lattice=lattice, smem_views=smem_views, bounded=pre)
-            return check_pre_plan(p) if pre else p
+                             lattice=lattice, smem_views=smem_views, bounded=pre, halo=halo)
+            # under "overlap" the sub-launches' plans meet the check
+            return check_pre_plan(p) if halo == "pre" else p
 
         from_table = False
         if plan is None and getattr(config, "plan_policy", "default") == "tuned":
@@ -834,6 +848,12 @@ class LaunchGraph:
                     f"cuda engine: a policy-free launch of graph {self.name!r} writes float32 "
                     f"fields, but its outputs {wide} would be {first.dtype} (the first "
                     f"input's dtype); pass a float32 first input or a dtype policy")
+
+        if stencil and plan.halo == "overlap":
+            # the split: interior and boundary sub-launches (core.overlap)
+            from . import overlap
+            return overlap.execute_split(self, ins, config=config, outputs=outputs,
+                                         scalars=scalars, out_layouts=out_layouts, plan=plan)
 
         if plan.engine == "torch" and batch:
             vals = self._launch_torch_batched(ins, in_batch, scalars, batch, outputs,
@@ -1003,17 +1023,93 @@ class LaunchGraph:
                 f"cuda engine: no hand-written halo='pre' kernel is registered for "
                 f"graph {self.name!r} (register one with register_cuda_graph(..., pre=)); "
                 f"its pre-exchanged lowering is still to be ported (ROADMAP item 24)")
-        if policy.pol:
+        self._pre_checks(policy.pol, layouts, "'pre'")
+        return entry.pre, entry.pre_outputs, dict(lattice=lattice, rings=rings, vvl=plan.vvl)
+
+    def _pre_checks(self, pol, layouts, halo: str) -> None:
+        """Raise for what the "pre" and box kernels do not take: a dtype
+        policy, a field that is not SoA."""
+        if pol:
             raise ValueError(
-                f"cuda engine: a dtype policy ({policy.pol.tag()}) on graph {self.name!r} "
-                f"under halo='pre' is not yet ported (ROADMAP queue 2 (e))")
+                f"cuda engine: a dtype policy ({pol.tag()}) on graph {self.name!r} "
+                f"under halo={halo} is not yet ported (ROADMAP queue 2 (e))")
         off = {n: lay.name for n, lay in layouts.items() if lay.kind is not LayoutKind.SOA}
         if off:
             raise ValueError(
-                f"cuda engine: graph {self.name!r}'s halo='pre' kernel reads and writes SoA "
-                f"fields, got {off} (other layouts under 'pre' are still to be ported, "
+                f"cuda engine: graph {self.name!r}'s halo={halo} kernel reads and writes SoA "
+                f"fields, got {off} (other layouts there are still to be ported, "
                 f"ROADMAP item 24)")
-        return entry.pre, entry.pre_outputs, dict(lattice=lattice, rings=rings, vvl=plan.vvl)
+
+    def _launch_cuda_boxes(self, ins, *, rings, lattice, interior, boundary, config, outputs,
+                           scalars, out_layouts, plan, start=None, between=None):
+        """The cuda engine's ``halo="overlap"`` split (``core.overlap``): the
+        field outputs allocated once at the interior ``lattice`` (SoA),
+        ``start()`` (the fill's mark), the graph's box kernel on the
+        ``interior`` box, then ``between()`` (the exchange, which returns
+        the boundary's inputs), then on each ``boundary`` box in order; each
+        box writes its sites in place.  Nothing but the launch runs between
+        ``start()`` and ``between()``, so that the interior is on the card
+        before the exchange's copies are issued beside it.
+        Raises, before any launch, where the graph has no box kernel and for
+        what its "pre" launch refuses (a policy, a layout other than SoA, an
+        output the kernel does not write)."""
+        entry = _CUDA_GRAPHS.get(self.structure())
+        ext = list(rings)
+        out_layouts = dict(out_layouts or {})
+        red_names = set(self._reduce_outputs())
+        prod = self._produced()
+        first = ins[ext[0]]
+        field_outputs = [o for o in outputs if o not in red_names]
+        for o in field_outputs:
+            out_layouts.setdefault(o, first.layout)
+        if entry is None or entry.box is None:
+            raise ValueError(
+                f"cuda engine: no hand-written box kernel is registered for graph "
+                f"{self.name!r} (register one with register_cuda_graph(..., box=)); its "
+                f"halo='overlap' split is still to be ported")
+        _, dtypes = launch_policy(config, plan)
+        self._pre_checks(dtypes, {**{n: ins[n].layout for n in ext},
+                                  **{o: out_layouts[o] for o in field_outputs}}, "'overlap'")
+        extra = [o for o in outputs if o not in entry.pre_outputs]
+        if extra:
+            raise ValueError(
+                f"cuda engine: the kernel for graph {self.name!r} produces "
+                f"{list(entry.pre_outputs)}, not {extra}")
+        boxes = [interior] + list(boundary)
+        vvls = []
+        for box in boxes:
+            box_lat = tuple(e - s for s, e in box)
+            sub = check_pre_plan(adapt_plan(
+                sub_lattice_plan(plan, config, box_lat, halo="pre"), stencil=True, halo="pre"))
+            vvls.append(sub.validate(lattice=box_lat, stencil=True,
+                                     layouts=[ins[n].layout for n in ext]).vvl)
+        for n in ext:
+            require_cuda(f"input {n!r}", ins[n].data)
+        svals = {}
+        for n, v in (scalars or {}).items():
+            if isinstance(v, torch.Tensor):
+                require_cuda(f"scalar {n!r}", v)
+                svals[n] = v.to(first.dtype).reshape(()).contiguous()
+            else:
+                svals[n] = torch.tensor(float(v), dtype=first.dtype, device=first.device)
+        nsites = math.prod(lattice)
+        outs = {o: torch.empty((int(prod[o][0]), nsites), dtype=torch.float32,
+                               device=first.device) for o in field_outputs}
+
+        def run(i, source):
+            entry.box(self, {n: (source[n].data, source[n].layout) for n in ext}, svals,
+                      lattice=lattice, rings=rings, vvl=vvls[i],
+                      origin=tuple(s for s, _ in boxes[i]),
+                      extents=tuple(e - s for s, e in boxes[i]), outs=outs)
+
+        if start is not None:
+            start()
+        run(0, ins)
+        source = between() if between is not None else ins
+        for i in range(1, len(boxes)):
+            run(i, source)
+        return {o: Field(o, outs[o].shape[0], tuple(lattice), SOA_LAYOUT, outs[o])
+                for o in field_outputs}
 
     def _periodic_entry(self, entry, plan, lattice, batch):
         """(impl, outputs, keywords) of a periodic launch: the tiled, the

@@ -67,10 +67,16 @@ LaunchGraph launch runs the persisted winner for its :func:`graph_plan_key`;
 site-local launches and standalone reductions carry no graph key and plan
 with the default heuristics.
 
-Under ``halo="pre"`` (the sharded path's pre-exchanged halos) a plan is
-untiled, unsplit and in the staged view: :func:`check_pre_plan` refuses
-the rest, which is still to be ported with ``halo="overlap"`` and the
-tuner's overlap twins (ROADMAP items 23, 24).
+``halo`` is the JAX package's halo-strategy axis: "periodic" (one
+device), "pre" (the sharded path's pre-exchanged halos) or "overlap" (the
+same inputs under the interior/boundary split of ``core.overlap``, whose
+sub-launches are "pre" launches on sub-lattices, :func:`sub_lattice_plan`).
+The call site's strategy is authoritative, except that a plan which chose
+"overlap" upgrades a "pre" launch (:func:`adapt_plan`); the tuner proposes
+two "overlap" twins of a sharded "pre" launch on more than one rank.  Under
+"pre" a plan is untiled, unsplit and in the staged view:
+:func:`check_pre_plan` refuses the rest, which is still to be ported
+(ROADMAP item 24).
 """
 
 from __future__ import annotations
@@ -87,7 +93,8 @@ from .layout import Layout, LayoutKind
 
 __all__ = ["LoweringPlan", "DtypePolicy", "ACCUM_COMPENSATED", "dtype_itemsize",
            "resolve_accumulate", "cuda_policy", "CudaPolicy", "divisors", "choose_vvl", "sal_alignment", "choose_slab",
-           "choose_tiles", "block_view_ok", "adapt_plan", "check_pre_plan", "VIEW_AUTO",
+           "choose_tiles", "block_view_ok", "adapt_plan", "check_pre_plan", "sub_lattice_plan",
+           "HALOS", "VIEW_AUTO",
            "VIEW_BLOCK", "VIEW_STAGED_ND",
            "tile_extents", "estimate_smem_bytes", "resolved_smem_bytes",
            "default_plan", "plan_for_launch", "policy_plan", "candidate_plans",
@@ -97,6 +104,7 @@ __all__ = ["LoweringPlan", "DtypePolicy", "ACCUM_COMPENSATED", "dtype_itemsize",
 log = logging.getLogger(__name__)
 
 ENGINES = ("torch", "cuda")
+HALOS = ("periodic", "pre", "overlap")
 WARP = 32          # a CUDA block is a whole number of warps
 MAX_BLOCK = 1024   # the most threads one CUDA block may hold
 # the port's own shared-memory budget variable ($TARGETDP_VMEM_BYTES is the
@@ -434,6 +442,8 @@ class LoweringPlan:
     # the split-reduction factor: terminal reductions fold their partial
     # rows in rsplit segments, combined in index order (cuda engine only)
     rsplit: int = 1
+    # the halo strategy of a stencil launch (see the module docstring)
+    halo: str = "periodic"
 
     @property
     def tiled(self) -> bool:
@@ -456,7 +466,8 @@ class LoweringPlan:
         :func:`estimate_smem_bytes`) appends the shared memory a block
         needs."""
         fp = f" [~{footprint / 1024:.0f}KiB/block]" if footprint else ""
-        dt = f"/dt={self.dtypes.tag()}" if self.dtypes else ""
+        dt = ("/overlap" if self.halo == "overlap" else "") + (
+            f"/dt={self.dtypes.tag()}" if self.dtypes else "")
         if self.engine != "cuda":
             return self.engine + dt + fp
         knob = f"bx={self.bx}" if self.bx else f"vvl={self.vvl}"
@@ -482,6 +493,12 @@ class LoweringPlan:
             raise ValueError(f"unknown engine {self.engine!r}; have {ENGINES}")
         if self.view not in (VIEW_AUTO, VIEW_BLOCK, VIEW_STAGED_ND):
             raise ValueError(f"unknown canonical-view strategy {self.view!r}")
+        if self.halo not in HALOS:
+            raise ValueError(f"halo must be 'periodic', 'pre' or 'overlap', got {self.halo!r}")
+        if self.halo == "overlap" and not stencil:
+            raise ValueError(
+                "halo='overlap' applies only to stencil graphs: a site-local graph has no "
+                "halo exchange to overlap (add a stencil stage or use the default halo)")
         if self.rsplit < 1:
             raise ValueError(f"rsplit must be >= 1, got {self.rsplit}")
         if self.dtypes is not None:
@@ -590,23 +607,25 @@ def check_pre_plan(plan: LoweringPlan) -> LoweringPlan:
 
 def adapt_plan(plan: LoweringPlan, *, stencil: bool, halo: str = "periodic") -> LoweringPlan:
     """Fit an explicit plan to a concrete launch.  ``halo`` is the call
-    site's strategy, which is authoritative, as in the JAX package:
-    "periodic", or "pre", under which :func:`check_pre_plan` refuses what
-    is not yet ported; "overlap" raises (ROADMAP item 23).  The view
-    follows the JAX package's ``adapt_plan``: a site-local
-    launch is always "block"; a stencil launch keeps an explicit view on the
-    cuda engine (an explicit "block" that cannot lower fails loudly at
-    launch), and "auto", or any view on the torch engine, resolves to
-    "staged-nd".
+    site's strategy, which is authoritative, as in the JAX package, with one
+    exception: "pre" and "overlap" take the same inputs, so a plan that
+    chose "overlap" (a tuned winner) upgrades a stencil launch called under
+    "pre" to the split schedule.  Under "pre" :func:`check_pre_plan`
+    refuses what is not yet ported; under "overlap" the sub-launches' plans
+    (:func:`sub_lattice_plan`) meet it.  The view follows the JAX package's
+    ``adapt_plan``: a site-local launch is always "block"; a stencil launch
+    keeps an explicit view on the cuda engine (an explicit "block" that
+    cannot lower fails loudly at launch), and "auto", or any view on the
+    torch engine, resolves to "staged-nd".
 
     One difference: an untiled plan's x-slab ``bx`` is dropped for a
     site-local launch, so one explicit stencil plan (``bx`` set) can drive
     every launch of a solve or a step.  The JAX package's site-local
     validation raises on it; the port's untiled kernels ignore ``bx``
     anyway.  A tiled plan keeps it and still raises there."""
-    if halo not in ("periodic", "pre"):
-        raise ValueError(f"halo={halo!r} is not ported (ROADMAP item 23); the port runs "
-                         f"'periodic' and 'pre'")
+    if halo not in HALOS:
+        raise ValueError(f"halo must be 'periodic', 'pre' or 'overlap', got {halo!r}")
+    eff = "overlap" if (halo == "pre" and plan.halo == "overlap" and stencil) else halo
     if not stencil:
         view = VIEW_BLOCK
     elif plan.engine != "cuda" or plan.view == VIEW_AUTO:
@@ -614,9 +633,37 @@ def adapt_plan(plan: LoweringPlan, *, stencil: bool, halo: str = "periodic") -> 
     else:
         view = plan.view
     bx = plan.bx if (stencil or plan.tiled) else 0
-    if (view, bx) != (plan.view, plan.bx):
-        plan = dataclasses.replace(plan, view=view, bx=bx)
-    return check_pre_plan(plan) if halo == "pre" else plan
+    if (view, bx, eff) != (plan.view, plan.bx, plan.halo):
+        plan = dataclasses.replace(plan, view=view, bx=bx, halo=eff)
+    return check_pre_plan(plan) if eff == "pre" else plan
+
+
+def sub_lattice_plan(plan: LoweringPlan, config, lattice: Tuple[int, ...], *,
+                     halo: str = "pre") -> LoweringPlan:
+    """Fit a stencil plan to a sub-lattice, the JAX package's rule: how
+    ``core.overlap`` plans its interior and boundary sub-launches.  The
+    engine, block size and policy stay; ``bx`` stays where it divides the
+    sub-lattice's leading extent, else the largest conforming slab is
+    chosen again; the view drops to "staged-nd" (the sub-launches' windows
+    are SoA) and ``rsplit`` to 1 (the split combines per-box partials
+    itself).  The y/z tiles are kept where they still divide the
+    sub-lattice, else dropped to the whole axis (a thin slab, usually); a
+    sub-plan that keeps tiles meets :func:`check_pre_plan` at its launch."""
+
+    def _tiles(lat):
+        by = plan.by if (plan.by and len(lat) > 1 and lat[1] % plan.by == 0) else 0
+        bz = plan.bz if (plan.bz and len(lat) > 2 and lat[2] % plan.bz == 0) else 0
+        return by, bz
+
+    if plan.engine != "cuda":
+        return dataclasses.replace(plan, halo=halo, rsplit=1)
+    by, bz = _tiles(lattice)
+    if plan.bx >= 1 and lattice[0] % plan.bx == 0:
+        return dataclasses.replace(plan, halo=halo, view=VIEW_STAGED_ND, rsplit=1, by=by, bz=bz)
+    bx = choose_slab(lattice[0], int(math.prod(lattice[1:])),
+                     max(int(getattr(config, "vvl", 128)), 1))
+    return dataclasses.replace(plan, halo=halo, bx=bx, view=VIEW_STAGED_ND, rsplit=1, by=by,
+                               bz=bz)
 
 
 def _rsplit_factors(nblocks: int, cap: int = 16, k: int = 2):
@@ -648,7 +695,8 @@ def _site_bytes(smem_views) -> int:
 
 def default_plan(config, *, nsites: int, layouts: Sequence[Layout],
                  stencil: bool = False, lattice: Optional[Tuple[int, ...]] = None,
-                 smem_views=None, bounded: bool = False) -> LoweringPlan:
+                 smem_views=None, bounded: bool = False,
+                 halo: str = "periodic") -> LoweringPlan:
     """The heuristic plan.  The torch engine lowers whole-lattice; the cuda
     engine takes the largest block size <= ``config.vvl`` that divides the
     lattice and is a multiple of a warp and of every AoSoA SAL the launch
@@ -660,9 +708,10 @@ def default_plan(config, *, nsites: int, layouts: Sequence[Layout],
     and its footprint descriptor ``smem_views = (in_views, out_views)``
     also gets bx from :func:`choose_slab` and (by, bz) from
     :func:`choose_tiles`; without a budget the plan is the untiled one.  A
-    batched launch plans one lattice."""
+    batched launch plans one lattice.  The plan carries the launch's
+    ``halo`` strategy, as the JAX package's does."""
     if config.engine == "torch":
-        return LoweringPlan("torch")
+        return LoweringPlan("torch", halo=halo)
     if config.engine != "cuda":
         raise ValueError(f"unknown engine {config.engine!r}; have {ENGINES}")
     align = sal_alignment(layouts)
@@ -680,9 +729,10 @@ def default_plan(config, *, nsites: int, layouts: Sequence[Layout],
                          _site_bytes(smem_views), budget)
         by, bz = choose_tiles(lattice, bx, in_views=smem_views[0],
                               out_views=smem_views[1], smem_bytes=budget)
-        return LoweringPlan("cuda", vvl=vvl, bx=bx, by=by, bz=bz).validate(
+        return LoweringPlan("cuda", vvl=vvl, bx=bx, by=by, bz=bz, halo=halo).validate(
             nsites=checked, lattice=lattice, layouts=layouts, stencil=True)
-    return LoweringPlan("cuda", vvl=vvl).validate(nsites=checked, layouts=layouts)
+    return LoweringPlan("cuda", vvl=vvl, halo=halo).validate(nsites=checked, layouts=layouts,
+                                                            stencil=stencil)
 
 
 def policy_plan(config) -> Optional[LoweringPlan]:
@@ -739,10 +789,18 @@ def _dtype_twin_policies(in_dtype: Optional[str]):
     return []
 
 
+def _world_size() -> int:
+    """The ranks of the default process group (a mesh's), 1 without one."""
+    import torch.distributed as dist
+
+    return dist.get_world_size() if dist.is_available() and dist.is_initialized() else 1
+
+
 def candidate_plans(config, *, nsites: int, layouts: Sequence[Layout],
                     stencil: bool = False, lattice: Optional[Tuple[int, ...]] = None,
-                    max_candidates: int = 8, block_view: Optional[bool] = None,
-                    reduce: bool = False, smem_views=None,
+                    halo: str = "periodic", max_candidates: int = 8,
+                    devices: Optional[int] = None, block_view: Optional[bool] = None,
+                    batch: int = 0, reduce: bool = False, smem_views=None,
                     in_dtype: Optional[str] = None) -> Tuple[LoweringPlan, ...]:
     """The autotuner's sweep set for one launch, deterministically: the JAX
     package's ``candidate_plans`` on the cuda engine, the default plan
@@ -765,13 +823,17 @@ def candidate_plans(config, *, nsites: int, layouts: Sequence[Layout],
     play); ``rsplit`` ones on a launch with a terminal reduction
     (``reduce``); up to two tiled ones on a stencil lattice with a y (and
     z) axis; and the dtype-policy twins of ``in_dtype``
-    (:func:`_dtype_twin_policies`).  The sharded path's ``halo="overlap"``
-    twins are not ported.  With a shared-memory budget and the launch's
+    (:func:`_dtype_twin_policies`).  A sharded stencil launch (``halo=
+    "pre"``, more than one rank and no ``batch``) also gets two
+    ``halo="overlap"`` twins, the default slab and the widest swept one;
+    ``devices`` defaults to the world size of the default process group
+    (the mesh's), so one card proposes none.  Every candidate carries the
+    launch's ``halo``.  With a shared-memory budget and the launch's
     footprint descriptor ``smem_views``, a stencil candidate whose
     estimated footprint exceeds the budget is dropped and logged; if no
     untiled slab fits, the set is tiled only."""
     default = default_plan(config, nsites=nsites, layouts=layouts, stencil=stencil,
-                           lattice=lattice, smem_views=smem_views)
+                           lattice=lattice, smem_views=smem_views, halo=halo)
     if default.engine != "cuda":
         return (default,)
     if stencil:
@@ -799,6 +861,9 @@ def candidate_plans(config, *, nsites: int, layouts: Sequence[Layout],
                if bx * inner <= 8 * budget
                and not over_budget(dataclasses.replace(untiled_default, bx=bx))]
         bxs = bxs or ([] if default.tiled else [default.bx])
+        if devices is None:
+            devices = _world_size()
+        with_overlap = halo == "pre" and devices > 1 and not batch
         if block_view is None:
             block_view = any(lay.kind is LayoutKind.AOSOA for lay in layouts)
         # split twins off the default geometry (or the narrowest swept slab
@@ -821,13 +886,15 @@ def candidate_plans(config, *, nsites: int, layouts: Sequence[Layout],
         dtype_twins = [dataclasses.replace(default, dtypes=p)
                        for p in _dtype_twin_policies(in_dtype)]
         dtype_twins = [t for t in dtype_twins if not over_budget(t)]
-        n_twins = ((2 if block_view else 0) + len(red_twins) + len(tile_twins)
-                   + len(dtype_twins))
+        n_twins = ((2 if with_overlap else 0) + (2 if block_view else 0) + len(red_twins)
+                   + len(tile_twins) + len(dtype_twins))
         spread_bxs = _spread(bxs, max(1, max_candidates - n_twins))
         cands = [dataclasses.replace(untiled_default, bx=bx) for bx in spread_bxs]
+        twin_bxs = sorted({default.bx, *spread_bxs[-1:]})[:2]
+        if with_overlap:
+            cands += [dataclasses.replace(default, bx=bx, halo="overlap") for bx in twin_bxs]
         if block_view:
-            cands += [dataclasses.replace(default, bx=bx, view=VIEW_BLOCK)
-                      for bx in sorted({default.bx, *spread_bxs[-1:]})[:2]]
+            cands += [dataclasses.replace(default, bx=bx, view=VIEW_BLOCK) for bx in twin_bxs]
         cands += red_twins + tile_twins + dtype_twins
     else:
         align = sal_alignment(layouts)

@@ -13,7 +13,7 @@ from typing import List, Sequence, Tuple
 import torch
 
 __all__ = ["shift_periodic", "halo_pad", "halo_pad_physical", "interior", "shifted_window",
-           "tile_boxes"]
+           "tile_boxes", "box_slices"]
 
 
 def tile_boxes(lattice: Sequence[int], bx: int, by: int = 0,
@@ -119,3 +119,17 @@ def shifted_window(x_halo: torch.Tensor, disp: Sequence[int], width: int,
             raise ValueError(f"|disp|={abs(s)} exceeds halo width {width}")
         idx[dim] = slice(width - s, x_halo.shape[dim] - width - s)
     return x_halo[tuple(idx)]
+
+
+def box_slices(lattice: Sequence[int], origin: Sequence[int], extents: Sequence[int],
+               ring: int = 0) -> Tuple[slice, ...]:
+    """The site slices of a box of ``lattice`` (``origin`` and ``extents``
+    per dim) grown by ``ring`` a side, in the coordinates of the lattice
+    padded by ``ring`` (with ring 0: the box itself): the window a
+    sub-launch over the box reads from a halo'd array.  Raises where the
+    box does not lie inside the lattice."""
+    lat, o, e = (tuple(int(v) for v in a) for a in (lattice, origin, extents))
+    if (len(o) != len(lat) or len(e) != len(lat) or min(o) < 0 or min(e) < 1
+            or any(a + b > L for a, b, L in zip(o, e, lat))):
+        raise ValueError(f"box at origin {o} of extents {e} does not lie in lattice {lat}")
+    return tuple(slice(a, a + b + 2 * ring) for a, b in zip(o, e))

@@ -146,7 +146,7 @@ def lookup(key: str, path: Optional[str] = None) -> Optional[LoweringPlan]:
     try:
         plan = LoweringPlan.from_json(dict(entry["plan"]))
         # structural sanity only; the launch validates against its lattice
-        plan.validate(stencil=plan.bx > 0 or plan.tiled)
+        plan.validate(stencil=plan.bx > 0 or plan.tiled or plan.halo == "overlap")
     except (KeyError, TypeError, ValueError):
         return None
     _STATS["hits"] += 1
@@ -232,38 +232,50 @@ def _sweep(graph, ins, launch_kw, cands, iters: int, warmup: int):
     return times, failed
 
 
-def _interior_lattice(ins) -> Tuple[int, ...]:
-    """The lattice a launch's plans are made for: the first input's (the
-    periodic halo pads inside the launch; the pre-exchanged halos of the
-    sharded path, whose interior is smaller, are not ported)."""
-    return tuple(next(iter(ins.values())).lattice)
+def _interior_lattice(graph, ins, outputs=None, halo: str = "periodic") -> Tuple[int, ...]:
+    """The lattice a launch's plans are made for: the first input's, less
+    its ring twice where the caller exchanged the halos (``halo="pre"`` or
+    ``"overlap"``), as ``LaunchGraph.launch`` derives it, so that the
+    tuner's keys and the tuned launches' lookups agree."""
+    name = next(iter(ins))
+    lattice = tuple(ins[name].lattice)
+    if graph.has_stencil and halo in ("pre", "overlap"):
+        ring = graph.halo_widths(tuple(outputs) if outputs is not None else None).get(name, 0)
+        lattice = tuple(s - 2 * ring for s in lattice)
+    return lattice
 
 
-def block_view_for(graph, ins, outputs=None) -> bool:
+def block_view_for(graph, ins, outputs=None, halo: str = "periodic") -> bool:
     """Whether this launch can lower on the native AoSoA view
     (``core.plan.block_view_ok``): each input's halo'd inner-plane count
-    from the graph's ring analysis, the outputs in the first input's
-    layout, so the sweep proposes ``view="block"`` only where it lowers."""
+    from the graph's ring analysis (the input's own lattice where the
+    caller exchanged the halos), the outputs in the first input's layout,
+    so the sweep proposes ``view="block"`` only where it lowers."""
     if not graph.has_stencil:
         return False
     outs = tuple(outputs) if outputs is not None else None
     rings = graph.halo_widths(outs)
-    in_views = [(f.layout, math.prod(s + 2 * rings.get(n, 0) for s in f.lattice[1:]))
+    pre = halo in ("pre", "overlap")
+    in_views = [(f.layout, math.prod(s + (0 if pre else 2 * rings.get(n, 0))
+                                     for s in f.lattice[1:]))
                 for n, f in ins.items()]
-    interior = _interior_lattice(ins)
+    interior = _interior_lattice(graph, ins, outs, halo)
     first = next(iter(ins.values()))
     return plan_mod.block_view_ok(in_views, [first.layout], math.prod(interior[1:]))
 
 
 def plan_candidates_for(graph, ins, *, config, outputs: Optional[Sequence[str]] = None,
-                        max_candidates: int = 8) -> Tuple[LoweringPlan, ...]:
-    """The candidate plans of launching ``graph`` with ``ins``, the default
-    plan first: the sweep set of :func:`autotune_graph`.  A stencil launch
-    passes its footprint descriptor (the same one the launch gives the
-    default planner, so the sweep prunes what a launch would tile), the
-    precise block-view verdict and whether the graph ends in a reduction;
-    every launch passes its first input's dtype for the dtype twins."""
-    lattice = _interior_lattice(ins)
+                        halo: str = "periodic", max_candidates: int = 8
+                        ) -> Tuple[LoweringPlan, ...]:
+    """The candidate plans of launching ``graph`` with ``ins`` under
+    ``halo``, the default plan first: the sweep set of
+    :func:`autotune_graph`.  A stencil launch passes its footprint
+    descriptor (the same one the launch gives the default planner, so the
+    sweep prunes what a launch would tile), the precise block-view verdict
+    and whether the graph ends in a reduction; every launch passes its
+    first input's dtype for the dtype twins and its batch size (a batch
+    gets no overlap twins)."""
+    lattice = _interior_lattice(graph, ins, outputs, halo)
     first = next(iter(ins.values()))
     smem_views = None
     if graph.has_stencil:
@@ -276,11 +288,13 @@ def plan_candidates_for(graph, ins, *, config, outputs: Optional[Sequence[str]] 
                           for o in names if o not in red and o in prod)
         smem_views = (tuple((f.ncomp, rings.get(n, 0), f.data.element_size())
                             for n, f in ins.items()), out_views)
+    batch = max((f.batch if isinstance(f, BatchedField) else 0 for f in ins.values()), default=0)
     return plan_mod.candidate_plans(
         config, nsites=math.prod(lattice), layouts=[f.layout for f in ins.values()],
-        stencil=graph.has_stencil, lattice=lattice, max_candidates=max_candidates,
-        block_view=block_view_for(graph, ins, outputs), reduce=bool(graph._reduce_outputs()),
-        smem_views=smem_views, in_dtype=str(first.dtype).replace("torch.", ""))
+        stencil=graph.has_stencil, lattice=lattice, halo=halo, max_candidates=max_candidates,
+        block_view=block_view_for(graph, ins, outputs, halo), batch=batch,
+        reduce=bool(graph._reduce_outputs()), smem_views=smem_views,
+        in_dtype=str(first.dtype).replace("torch.", ""))
 
 
 # -- the accuracy gate ---------------------------------------------------------------
@@ -351,6 +365,7 @@ def _gate_policy_candidates(graph, ins, launch_kw, cands, default, accuracy_gate
 
 def autotune_graph(graph, ins, *, config, outputs: Optional[Sequence[str]] = None,
                    scalars: Optional[Mapping] = None, out_layouts: Optional[Mapping] = None,
+                   halo: str = "periodic",
                    iters: int = 3, warmup: int = 1, max_candidates: int = 8,
                    min_gain: float = 0.05, force: bool = False, save: bool = True,
                    path: Optional[str] = None, accuracy_gate: Optional[float] = None,
@@ -371,18 +386,21 @@ def autotune_graph(graph, ins, *, config, outputs: Optional[Sequence[str]] = Non
     (``accuracy_gate`` overrides the per-policy default: bf16/f16 storage
     1e-2, fp32 storage 1e-5, else 1e-6).  ``cost_model`` maps a candidate
     to a multiplier of its measured time (a solver's iterations to
-    tolerance, so that candidates rank by time to solution)."""
-    lattice = _interior_lattice(ins)
-    key = graph.plan_key(ins, config=config, outputs=outputs)
+    tolerance, so that candidates rank by time to solution).  ``halo`` is
+    the launch's strategy ("pre": the sharded path's halo'd inputs, whose
+    sweep on more than one rank includes the "overlap" twins)."""
+    lattice = _interior_lattice(graph, ins, outputs, halo)
+    key = graph.plan_key(ins, config=config, outputs=outputs, halo=halo, lattice=lattice)
     if not force:
         hit = lookup(key, path)
         if hit is not None:
             return hit, {"key": key, "cached": True}
 
-    cands = plan_candidates_for(graph, ins, config=config, outputs=outputs,
+    cands = plan_candidates_for(graph, ins, config=config, outputs=outputs, halo=halo,
                                 max_candidates=max_candidates)
     default = cands[0]
-    launch_kw = dict(config=config, outputs=outputs, scalars=scalars, out_layouts=out_layouts)
+    launch_kw = dict(config=config, outputs=outputs, scalars=scalars, out_layouts=out_layouts,
+                     halo=halo)
     _STATS["tunes"] += 1
     cands, rejected = _gate_policy_candidates(graph, ins, launch_kw, cands, default,
                                               accuracy_gate)

@@ -30,6 +30,17 @@
 //   (Z+2) threads, 1.02x the interior at (256, 256, 256).  On wrap-padded
 //   inputs dist2 and u equal K5L's SoA launch bitwise.
 //
+// K5LHO rt_lb_step_box replaces the same _build_nd fused_kernel as
+//   core/overlap.py's sub-launches call it under halo="overlap": K5LH on
+//   one box of the interior (a per-axis origin and extents), read in place
+//   from the whole halo'd dist and force.  One thread a site of the box
+//   grown by 1: each collides its site (the box's own ring too, as each
+//   reference sub-launch recomputes it) and pushes only into the box; the
+//   box's sites write u.  dist2 and u are the whole interior's, so the
+//   split's sub-launches assemble them in place.  Each site's arithmetic is
+//   the whole launch's: every box gives the whole "pre" launch's bits on
+//   its sites, and the whole entry point is the one-box case.
+//
 // Bound on the H100: bytes.  K8H reads 19 values a halo'd site and writes
 // 19 an interior site; K5LH reads 22 a halo'd site and writes 22 an
 // interior site.  Fields are fp32 and SoA; offsets are 32-bit where 19 of
@@ -68,39 +79,47 @@ __global__ void lb_propagate_halo_kernel(const float* __restrict__ f, float* __r
   }
 }
 
-// K5LH: one thread a site s of the halo'd box H = L + 2 (ring 1).
+// K5LH and K5LHO: one thread a site of the box (origin org, extents b, in
+// the interior L) grown by 1, which starts at org in the halo'd array
+// (ring 1).
 template <typename I>
 __global__ void lb_step_pre_kernel(const float* __restrict__ f, const float* __restrict__ force,
                                    float* __restrict__ dist2, float* __restrict__ u, rt_box3 L,
-                                   rt_lb_params p) {
-  const int HX = L.X + 2, HY = L.Y + 2, HZ = L.Z + 2;
-  const I Vh = (I)HX * HY * HZ;
+                                   rt_box3 org, rt_box3 b, rt_lb_params p) {
+  const int GX = b.X + 2, GY = b.Y + 2, GZ = b.Z + 2;
   const I s = (I)blockIdx.x * blockDim.x + threadIdx.x;
-  if (s >= Vh) return;
-  const int z = (int)(s % HZ);
-  const int y = (int)((s / HZ) % HY);
-  const int x = (int)(s / ((I)HY * HZ));
+  if (s >= (I)GX * GY * GZ) return;
+  // the site's place in the grown box, then in the halo'd array
+  const int gz = (int)(s % GZ);
+  const int gy = (int)((s / GZ) % GY);
+  const int gx = (int)(s / ((I)GY * GZ));
+  const int x = org.X + gx, y = org.Y + gy, z = org.Z + gz;
+  const int HY = L.Y + 2, HZ = L.Z + 2;
+  const I Vh = (I)(L.X + 2) * HY * HZ;
+  const I a = ((I)x * HY + y) * HZ + z;
   float fl[RT_NVEL], fr[3], o[RT_NVEL];
 #pragma unroll
-  for (int i = 0; i < RT_NVEL; ++i) fl[i] = f[(I)i * Vh + s];
+  for (int i = 0; i < RT_NVEL; ++i) fl[i] = f[(I)i * Vh + a];
 #pragma unroll
-  for (int a = 0; a < 3; ++a) fr[a] = force[(I)a * Vh + s];
+  for (int k = 0; k < 3; ++k) fr[k] = force[(I)k * Vh + a];
   const I V = (I)L.X * L.Y * L.Z;
-  const bool inside = x >= 1 && x <= L.X && y >= 1 && y <= L.Y && z >= 1 && z <= L.Z;
+  const bool inside = gx >= 1 && gx <= b.X && gy >= 1 && gy <= b.Y && gz >= 1 && gz <= b.Z;
   if (u != nullptr && inside) {
     const float rho = rt_density(fl);
     float mom[3];
     rt_momentum(fl, mom);
     const I r = ((I)(x - 1) * L.Y + (y - 1)) * L.Z + (z - 1);
 #pragma unroll
-    for (int a = 0; a < 3; ++a) u[(I)a * V + r] = mom[a] / rho + 0.5f * fr[a] / rho;
+    for (int k = 0; k < 3; ++k) u[(I)k * V + r] = mom[k] / rho + 0.5f * fr[k] / rho;
   }
   rt_collide_site(fl, fr, p, o);
 #pragma unroll
   for (int i = 0; i < RT_NVEL; ++i) {
-    const int dx = x + rt_cv(i, 0), dy = y + rt_cv(i, 1), dz = z + rt_cv(i, 2);
-    if (dx < 1 || dx > L.X || dy < 1 || dy > L.Y || dz < 1 || dz > L.Z) continue;
-    dist2[(I)i * V + ((I)(dx - 1) * L.Y + (dy - 1)) * L.Z + (dz - 1)] = o[i];
+    // the destination's place in the grown box: inside the box, or skipped
+    const int dx = gx + rt_cv(i, 0), dy = gy + rt_cv(i, 1), dz = gz + rt_cv(i, 2);
+    if (dx < 1 || dx > b.X || dy < 1 || dy > b.Y || dz < 1 || dz > b.Z) continue;
+    dist2[(I)i * V + ((I)(org.X + dx - 1) * L.Y + (org.Y + dy - 1)) * L.Z + (org.Z + dz - 1)] =
+        o[i];
   }
 }
 
@@ -123,23 +142,37 @@ int rt_lb_propagate_halo(const float* f, float* out, int X, int Y, int Z, int wi
   RT_LAUNCH_RESULT();
 }
 
-// f: 19 x Vh, force: 3 x Vh over the interior (X, Y, Z) padded by 1 a side;
-// dist2: 19 x X Y Z; u: 3 x X Y Z or null (then not written); all SoA.
+// K5LHO: f: 19 x Vh, force: 3 x Vh over the interior (X, Y, Z) padded by 1
+// a side; the box at origin (ox, oy, oz) of the interior, of extents (bx,
+// by, bz); dist2: 19 x X Y Z; u: 3 x X Y Z or null (then not written); all
+// SoA; only the box's sites of dist2 and u are written.
+int rt_lb_step_box(const float* f, const float* force, float* dist2, float* u, int X, int Y,
+                   int Z, int ox, int oy, int oz, int bx, int by, int bz, float omega, float pw0,
+                   float pw1, float pw2, int block, cudaStream_t stream) {
+  if (block < 1 || block > 1024) return RT_BAD_LAYOUT;
+  if ((long long)X * Y * Z == 0) return 0;
+  if (ox < 0 || oy < 0 || oz < 0 || bx < 1 || by < 1 || bz < 1 || ox + bx > X || oy + by > Y ||
+      oz + bz > Z)
+    return RT_BAD_LAYOUT;
+  const rt_box3 L{X, Y, Z};
+  const rt_box3 H{X + 2, Y + 2, Z + 2};
+  const long long Vg = (long long)(bx + 2) * (by + 2) * (bz + 2);
+  const rt_lb_params p = rt_make_lb_params(omega, pw0, pw1, pw2);
+  if (rt_lb_halo_narrow(H))
+    lb_step_pre_kernel<int><<<rt_grid(Vg, block), block, 0, stream>>>(
+        f, force, dist2, u, L, rt_box3{ox, oy, oz}, rt_box3{bx, by, bz}, p);
+  else
+    lb_step_pre_kernel<long long><<<rt_grid(Vg, block), block, 0, stream>>>(
+        f, force, dist2, u, L, rt_box3{ox, oy, oz}, rt_box3{bx, by, bz}, p);
+  RT_LAUNCH_RESULT();
+}
+
+// K5LH: the one-box case of rt_lb_step_box (the whole interior).
 int rt_lb_step_pre(const float* f, const float* force, float* dist2, float* u, int X, int Y,
                    int Z, float omega, float pw0, float pw1, float pw2, int block,
                    cudaStream_t stream) {
-  if (block < 1 || block > 1024) return RT_BAD_LAYOUT;
-  if ((long long)X * Y * Z == 0) return 0;
-  const rt_box3 L{X, Y, Z};
-  const rt_box3 H{X + 2, Y + 2, Z + 2};
-  const long long Vh = (long long)H.X * H.Y * H.Z;
-  const rt_lb_params p = rt_make_lb_params(omega, pw0, pw1, pw2);
-  if (rt_lb_halo_narrow(H))
-    lb_step_pre_kernel<int><<<rt_grid(Vh, block), block, 0, stream>>>(f, force, dist2, u, L, p);
-  else
-    lb_step_pre_kernel<long long><<<rt_grid(Vh, block), block, 0, stream>>>(f, force, dist2, u,
-                                                                            L, p);
-  RT_LAUNCH_RESULT();
+  return rt_lb_step_box(f, force, dist2, u, X, Y, Z, 0, 0, 0, X, Y, Z, omega, pw0, pw1, pw2,
+                        block, stream);
 }
 
 }  // extern "C"

@@ -28,6 +28,18 @@
 //   The sharded solve takes <p, Ap> from core dot on the assembled Fields
 //   (as the JAX package's does), so K5H writes no partial rows.
 //
+// K5HO rt_wilson_normal_box_t / _ap replaces the same _build_nd
+//   fused_kernel as core/overlap.py's sub-launches call it under
+//   halo="overlap": K5H on one box of the interior (a per-axis origin and
+//   extents), the box's window read in place from the whole ring-2 halo'd
+//   p and u.  The t kernel covers the box grown by 1 into a scratch buffer
+//   of the box's own (SoA over the grown box); the ap kernel writes the
+//   box's sites of the whole-interior ap, so the split's sub-launches
+//   assemble ap in place.  Each site's arithmetic is the whole launch's, so
+//   every box gives the whole "pre" launch's bits on its sites; the whole
+//   entry points are the one-box case.  A boundary slab of width 2
+//   recomputes t over its grown box, 2.3x its volume at (64, 64, 64, 32).
+//
 // Both kernels and K4H share wilson.cuh's hop (rt_hop_mu, the direction
 // order and the adds of rt_wilson_hop), fed by loaders that read a halo'd
 // SoA array; on wrap-padded inputs their fields equal K4's and K5's SoA
@@ -49,10 +61,9 @@
 #include "wilson_normal.cuh"
 
 // A box of sites in an array: the box's extents, the array's extents and
-// the box's origin in the array (the same offset on every axis).
+// the box's origin in the array, per axis.
 struct rt_hbox {
-  rt_lattice box, arr;
-  int off;
+  rt_lattice box, arr, org;
 };
 
 // The brick order over the box's planes of whole chunks (see the header).
@@ -83,17 +94,30 @@ __device__ __forceinline__ bool rt_horder_site(const rt_horder& o, I& s) {
   return true;
 }
 
+// The coordinates of box site s (linear over the box).
+template <typename I>
+__device__ __forceinline__ rt_lattice rt_hcoord(const rt_lattice& box, I s) {
+  rt_lattice c;
+  c.T = (int)(s % box.T);
+  I r = s / box.T;
+  c.Z = (int)(r % box.Z);
+  r /= box.Z;
+  c.Y = (int)(r % box.Y);
+  c.X = (int)(r / box.Y);
+  return c;
+}
+
+// The array site of box coordinates c.
+template <typename I>
+__device__ __forceinline__ I rt_hidx(const rt_hbox& b, const rt_lattice& c) {
+  return (((I)(c.X + b.org.X) * b.arr.Y + (c.Y + b.org.Y)) * b.arr.Z + (c.Z + b.org.Z)) *
+             b.arr.T + (c.T + b.org.T);
+}
+
 // The array site of box site s.
 template <typename I>
 __device__ __forceinline__ I rt_hsite(const rt_hbox& b, I s) {
-  const I t = s % b.box.T;
-  I r = s / b.box.T;
-  const I z = r % b.box.Z;
-  r /= b.box.Z;
-  const I y = r % b.box.Y;
-  const I x = r / b.box.Y;
-  const int o = b.off;
-  return (((x + o) * b.arr.Y + (y + o)) * b.arr.Z + (z + o)) * b.arr.T + (t + o);
+  return rt_hidx<I>(b, rt_hcoord<I>(b.box, s));
 }
 
 template <typename I>
@@ -168,8 +192,9 @@ __global__ void dslash_halo_kernel(const float* __restrict__ psi, const float* _
   for (int c = 0; c < 24; ++c) out[(I)c * V + s] = d[c];
 }
 
-// K5H's t kernel: t (SoA over the ring-1 box bt.box) = g5(p - kappa D p),
-// p and u SoA over bt.arr (ring 2; bt.off 1).
+// K5H's t kernel: t (SoA over the box bt.box, the computed box grown by 1)
+// = g5(p - kappa D p), p and u SoA over bt.arr (ring 2; bt.org the grown
+// box's origin there).
 template <typename I>
 __global__ void wilson_normal_pre_t_kernel(const float* __restrict__ p,
                                            const float* __restrict__ u, float* __restrict__ t,
@@ -185,29 +210,44 @@ __global__ void wilson_normal_pre_t_kernel(const float* __restrict__ p,
     t[(I)c * V + s] = rt_g5_sign(c) * (p[(I)c * Va + a] - kappa * d[c]);
 }
 
-// K5H's ap kernel: ap (SoA over the interior b.box) = g5(t - kappa D t),
-// t SoA over the ring-1 box (origin 1 in t's array), u over b.arr (ring 2;
-// b.off 2).
+// K5H's ap kernel: ap (SoA over bap.arr, the interior; the box at
+// bap.org) = g5(t - kappa D t) on the box, t SoA over the box grown by 1
+// (bt: origin 1 in t's array), u over b.arr (ring 2; b.org the box's
+// origin + 2).
 template <typename I>
 __global__ void wilson_normal_pre_ap_kernel(const float* __restrict__ t,
                                             const float* __restrict__ u, float* __restrict__ ap,
-                                            float kappa, rt_hbox b, rt_hbox bt, rt_horder o) {
+                                            float kappa, rt_hbox b, rt_hbox bt, rt_hbox bap,
+                                            rt_horder o) {
   I s;
   if (!rt_horder_site<I>(o, s)) return;
-  const I a = rt_hsite<I>(b, s);    // u's site
-  const I at = rt_hsite<I>(bt, s);  // t's site
+  const rt_lattice c = rt_hcoord<I>(b.box, s);
+  const I a = rt_hidx<I>(b, c);     // u's site
+  const I at = rt_hidx<I>(bt, c);   // t's site
+  const I ao = rt_hidx<I>(bap, c);  // ap's site
   float d[24];
   rt_halo_hop<I>(t, bt.arr, at, u, b.arr, a, d);
-  const I V = rt_hvol<I>(b.box), Vt = rt_hvol<I>(bt.arr);
+  const I V = rt_hvol<I>(bap.arr), Vt = rt_hvol<I>(bt.arr);
 #pragma unroll
-  for (int c = 0; c < 24; ++c)
-    ap[(I)c * V + s] = rt_g5_sign(c) * (t[(I)c * Vt + at] - kappa * d[c]);
+  for (int k = 0; k < 24; ++k)
+    ap[(I)k * V + ao] = rt_g5_sign(k) * (t[(I)k * Vt + at] - kappa * d[k]);
 }
 
 // -- host side ------------------------------------------------------------------------
 
 static inline rt_lattice rt_grow(const rt_lattice& L, int w) {
   return rt_lattice{L.X + 2 * w, L.Y + 2 * w, L.Z + 2 * w, L.T + 2 * w};
+}
+
+static inline rt_lattice rt_shift(const rt_lattice& o, int w) {
+  return rt_lattice{o.X + w, o.Y + w, o.Z + w, o.T + w};
+}
+
+// Whether the box (origin o, extents b) lies inside L.
+static inline bool rt_box_in(const rt_lattice& L, const rt_lattice& o, const rt_lattice& b) {
+  return o.X >= 0 && o.Y >= 0 && o.Z >= 0 && o.T >= 0 && b.X >= 1 && b.Y >= 1 && b.Z >= 1 &&
+         b.T >= 1 && o.X + b.X <= L.X && o.Y + b.Y <= L.Y && o.Z + b.Z <= L.Z &&
+         o.T + b.T <= L.T;
 }
 
 // Whether every offset of a 72-component field over L fits an int.
@@ -228,7 +268,7 @@ int rt_dslash_halo(const float* psi_h, const float* u_h, float* out, int X, int 
   if (width < 1 || block < 1 || block > 1024) return RT_BAD_LAYOUT;
   if ((long long)X * Y * Z * T == 0) return 0;
   const rt_lattice box{X, Y, Z, T};
-  const rt_hbox b{box, rt_grow(box, width), width};
+  const rt_hbox b{box, rt_grow(box, width), rt_lattice{width, width, width, width}};
   const rt_horder o = rt_make_horder(box, block);
   if (rt_halo_narrow(b.arr))
     dslash_halo_kernel<int><<<rt_horder_grid(o), block, 0, stream>>>(psi_h, u_h, out, b, o);
@@ -237,41 +277,64 @@ int rt_dslash_halo(const float* psi_h, const float* u_h, float* out, int X, int 
   RT_LAUNCH_RESULT();
 }
 
-// K5H's t launch: p_h: 24 x Vh, u_h: 72 x Vh over the interior (X, Y, Z, T)
-// padded by 2 a side; t: 24 x (X+2)(Y+2)(Z+2)(T+2); all SoA.
-int rt_wilson_normal_pre_t(const float* p_h, const float* u_h, float* t, float kappa, int X,
-                           int Y, int Z, int T, int block, cudaStream_t stream) {
+// K5HO's t launch: p_h: 24 x Vh, u_h: 72 x Vh over the interior (X, Y, Z,
+// T) padded by 2 a side; the box at origin (ox, oy, oz, ot) of the
+// interior, of extents (bx, by, bz, bt); t: 24 x (bx+2)(by+2)(bz+2)(bt+2),
+// the box grown by 1; all SoA.
+int rt_wilson_normal_box_t(const float* p_h, const float* u_h, float* t, float kappa, int X,
+                           int Y, int Z, int T, int ox, int oy, int oz, int ot, int bx, int by,
+                           int bz, int bt, int block, cudaStream_t stream) {
   if (block < 1 || block > 1024) return RT_BAD_LAYOUT;
   if ((long long)X * Y * Z * T == 0) return 0;
-  const rt_lattice in{X, Y, Z, T};
-  const rt_hbox bt{rt_grow(in, 1), rt_grow(in, 2), 1};
-  const rt_horder o = rt_make_horder(bt.box, block);
-  if (rt_halo_narrow(bt.arr))
+  const rt_lattice in{X, Y, Z, T}, org{ox, oy, oz, ot}, box{bx, by, bz, bt};
+  if (!rt_box_in(in, org, box)) return RT_BAD_LAYOUT;
+  // the grown box starts one site before the box, at org + 1 in p's array
+  const rt_hbox b{rt_grow(box, 1), rt_grow(in, 2), rt_shift(org, 1)};
+  const rt_horder o = rt_make_horder(b.box, block);
+  if (rt_halo_narrow(b.arr))
     wilson_normal_pre_t_kernel<int><<<rt_horder_grid(o), block, 0, stream>>>(p_h, u_h, t, kappa,
-                                                                            bt, o);
+                                                                            b, o);
   else
     wilson_normal_pre_t_kernel<long long><<<rt_horder_grid(o), block, 0, stream>>>(
-        p_h, u_h, t, kappa, bt, o);
+        p_h, u_h, t, kappa, b, o);
   RT_LAUNCH_RESULT();
 }
 
-// K5H's ap launch: t from rt_wilson_normal_pre_t, u_h as there; ap: 24 x
-// X Y Z T, SoA.
-int rt_wilson_normal_pre_ap(const float* t, const float* u_h, float* ap, float kappa, int X,
-                            int Y, int Z, int T, int block, cudaStream_t stream) {
+// K5HO's ap launch: t from rt_wilson_normal_box_t on the same box, u_h as
+// there; ap: 24 x X Y Z T, SoA, written on the box's sites only.
+int rt_wilson_normal_box_ap(const float* t, const float* u_h, float* ap, float kappa, int X,
+                            int Y, int Z, int T, int ox, int oy, int oz, int ot, int bx, int by,
+                            int bz, int bt, int block, cudaStream_t stream) {
   if (block < 1 || block > 1024) return RT_BAD_LAYOUT;
   if ((long long)X * Y * Z * T == 0) return 0;
-  const rt_lattice in{X, Y, Z, T};
-  const rt_hbox b{in, rt_grow(in, 2), 2};
-  const rt_hbox bt{in, rt_grow(in, 1), 1};
-  const rt_horder o = rt_make_horder(in, block);
+  const rt_lattice in{X, Y, Z, T}, org{ox, oy, oz, ot}, box{bx, by, bz, bt};
+  if (!rt_box_in(in, org, box)) return RT_BAD_LAYOUT;
+  const rt_hbox b{box, rt_grow(in, 2), rt_shift(org, 2)};
+  const rt_hbox bt_{box, rt_grow(box, 1), rt_lattice{1, 1, 1, 1}};
+  const rt_hbox bap{box, in, org};
+  const rt_horder o = rt_make_horder(box, block);
   if (rt_halo_narrow(b.arr))
-    wilson_normal_pre_ap_kernel<int><<<rt_horder_grid(o), block, 0, stream>>>(t, u_h, ap, kappa,
-                                                                             b, bt, o);
+    wilson_normal_pre_ap_kernel<int><<<rt_horder_grid(o), block, 0, stream>>>(
+        t, u_h, ap, kappa, b, bt_, bap, o);
   else
     wilson_normal_pre_ap_kernel<long long><<<rt_horder_grid(o), block, 0, stream>>>(
-        t, u_h, ap, kappa, b, bt, o);
+        t, u_h, ap, kappa, b, bt_, bap, o);
   RT_LAUNCH_RESULT();
+}
+
+// K5H's t launch: the one-box case of rt_wilson_normal_box_t (the whole
+// interior); t: 24 x (X+2)(Y+2)(Z+2)(T+2).
+int rt_wilson_normal_pre_t(const float* p_h, const float* u_h, float* t, float kappa, int X,
+                           int Y, int Z, int T, int block, cudaStream_t stream) {
+  return rt_wilson_normal_box_t(p_h, u_h, t, kappa, X, Y, Z, T, 0, 0, 0, 0, X, Y, Z, T, block,
+                                stream);
+}
+
+// K5H's ap launch: the one-box case of rt_wilson_normal_box_ap.
+int rt_wilson_normal_pre_ap(const float* t, const float* u_h, float* ap, float kappa, int X,
+                            int Y, int Z, int T, int block, cudaStream_t stream) {
+  return rt_wilson_normal_box_ap(t, u_h, ap, kappa, X, Y, Z, T, 0, 0, 0, 0, X, Y, Z, T, block,
+                                 stream);
 }
 
 }  // extern "C"

@@ -55,7 +55,12 @@ strides, bitwise its plain version.  K5LH (:func:`lb_step_pre_cuda`) is
 the ``ludwig_lb_step`` graph under ``halo="pre"``: dist2 and u on the
 interior from dist and force padded by 1, the ring's sites collided too
 (the push from every site of the halo'd box keeps what lands inside).
-Both take fp32 SoA fields.
+K5LHO (:func:`lb_step_box_cuda`) is K5LH on one box of the interior, the
+sub-launch of the ``halo="overlap"`` split: the box grown by 1 collides
+(each box its own ring) and pushes into the box, read in place from the
+whole halo'd dist and force and written into the box's sites of the
+whole-interior dist2 and u, each bitwise the whole launch's.  All take
+fp32 SoA fields.
 
 On a CPU tensor each wrapper returns its plain version; on a CUDA tensor it
 launches its kernel or raises.
@@ -72,6 +77,7 @@ from repro_torch._cuda import Kernel, check_field, check_tensor, csrc_define
 from repro_torch.core.fuse import tiled_plain
 from repro_torch.core.layout import Layout, LayoutKind, resolve_layouts
 from repro_torch.core.plan import tile_extents
+from repro_torch.core.stencil import box_slices
 from repro_torch.maths import d3q19
 from repro_torch.kernels.lb_collision.kernel import collide_plain, lb_params
 from repro_torch.kernels.lb_collision.ref import moments
@@ -83,7 +89,7 @@ __all__ = ["propagate_cuda", "propagate_plain", "lb_step_cuda", "lb_step_plain",
            "lb_step_tiled_cuda", "lb_step_tiled_plain", "tiled_walk", "PROPAGATE", "LB_STEP",
            "LB_STEP_BF16", "LB_STEP_TILED", "LB_STEP_TILED_BF16", "propagate_halo_cuda",
            "propagate_halo_plain", "lb_step_pre_cuda", "lb_step_pre_plain", "PROPAGATE_HALO",
-           "LB_STEP_PRE"]
+           "LB_STEP_PRE", "lb_step_box_cuda", "lb_step_box_plain", "LB_STEP_BOX"]
 
 PROPAGATE = Kernel("lb_propagate", "rt_lb_propagate")
 LB_STEP = Kernel("lb_step", "rt_lb_step")
@@ -91,6 +97,8 @@ LB_STEP_BF16 = Kernel("lb_step_bf16", "rt_lb_step_bf16")   # K5L's policy instan
 # K8H and K5LH, on pre-exchanged halos (csrc/lb_halo.cu)
 PROPAGATE_HALO = Kernel("lb_propagate_halo", "rt_lb_propagate_halo")
 LB_STEP_PRE = Kernel("lb_step_pre", "rt_lb_step_pre")
+# K5LHO, K5LH on one box of the interior (the halo="overlap" sub-launches)
+LB_STEP_BOX = Kernel("lb_step_box", "rt_lb_step_box")
 LB_STEP_TILED = Kernel("lb_step_tiled", "rt_lb_step_tiled")
 LB_STEP_TILED_BF16 = Kernel("lb_step_tiled_bf16", "rt_lb_step_tiled_bf16")   # K9's policy instance
 K9_BLOCK = 256   # threads a K9 block (at most RT_K9_MAX_THREADS in lb_tiled.cu)
@@ -473,4 +481,49 @@ def lb_step_pre_cuda(dist_h: torch.Tensor, force_h: torch.Tensor, tau: float, la
     u = torch.empty((3, V), dtype=dist_h.dtype, device=dist_h.device) if with_u else None
     LB_STEP_PRE.launch(dist_h.device, dist_h.data_ptr(), force_h.data_ptr(), dist2.data_ptr(),
                        u.data_ptr() if with_u else None, *lat, *lb_params(float(tau)), vvl)
+    return dist2, u
+
+
+def lb_step_box_plain(dist_h: torch.Tensor, force_h: torch.Tensor, tau: float, lattice, origin,
+                      extents, with_u: bool = True
+                      ) -> Tuple[torch.Tensor, Optional[torch.Tensor]]:
+    """(dist2, u or None), SoA over the box at ``origin`` (``extents``
+    sites a dim) of the interior ``lattice``, from dist_h (19, Vh) and
+    force_h (3, Vh) over the whole interior padded by 1: the "pre" lowering
+    on the box's window (the box padded by 1), as the reference's
+    sub-launch computes it."""
+    lat = _check_3d(lattice)
+    win = (slice(None),) + box_slices(lat, origin, extents, 1)
+    hl = tuple(s + 2 for s in lat)
+    return lb_step_pre_plain(dist_h.reshape((19,) + hl)[win].reshape(19, -1),
+                             force_h.reshape((3,) + hl)[win].reshape(3, -1),
+                             tau, tuple(int(e) for e in extents), with_u)
+
+
+def lb_step_box_cuda(dist_h: torch.Tensor, force_h: torch.Tensor, tau: float, lattice, origin,
+                     extents, dist2: torch.Tensor, u: Optional[torch.Tensor] = None,
+                     vvl: int = 128) -> Tuple[torch.Tensor, Optional[torch.Tensor]]:
+    """K5LHO: :func:`lb_step_box_plain` written into the box's sites of
+    ``dist2`` (19, V) and, where given, ``u`` (3, V), the whole interior's
+    SoA outputs, in one launch (``vvl`` sites of the grown box a block).
+    Returns ``(dist2, u)``."""
+    lat = _check_3d(lattice)
+    sl = box_slices(lat, origin, extents)
+    if dist_h.device.type == "cpu":
+        d2, ub = lb_step_box_plain(dist_h, force_h, tau, lat, origin, extents, u is not None)
+        box = tuple(extents)
+        dist2.reshape((19,) + lat)[(slice(None),) + sl] = d2.reshape((19,) + box)
+        if u is not None:
+            u.reshape((3,) + lat)[(slice(None),) + sl] = ub.reshape((3,) + box)
+        return dist2, u
+    Vh, V = math.prod(s + 2 for s in lat), math.prod(lat)
+    check_tensor("dist_h", dist_h, (19, Vh), dist_h.device)
+    check_tensor("force_h", force_h, (3, Vh), dist_h.device)
+    check_tensor("dist2", dist2, (19, V), dist_h.device)
+    if u is not None:
+        check_tensor("u", u, (3, V), dist_h.device)
+    o, e = tuple(s.start for s in sl), tuple(s.stop - s.start for s in sl)
+    LB_STEP_BOX.launch(dist_h.device, dist_h.data_ptr(), force_h.data_ptr(), dist2.data_ptr(),
+                       u.data_ptr() if u is not None else None, *lat, *o, *e,
+                       *lb_params(float(tau)), vvl)
     return dist2, u

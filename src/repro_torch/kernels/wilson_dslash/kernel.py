@@ -55,7 +55,11 @@ padded by ``width`` a side, read at the halo'd arrays' own strides.  K5H
 (:func:`wilson_normal_pre_cuda`) is the ``wilson_normal`` graph under
 ``halo="pre"``: ap = M^dag M p on the interior from p and u padded by 2,
 in two launches (t on ring 1, then ap), with no pap (the sharded solve
-takes <p, Ap> from ``dot``).  Both take fp32 SoA fields.
+takes <p, Ap> from ``dot``).  K5HO (:func:`wilson_normal_box_cuda`) is K5H
+on one box of the interior, the sub-launch of the ``halo="overlap"``
+split: it reads the box's window in place from the whole halo'd p and u
+and writes the box's sites of the whole-interior ap, each bitwise the whole
+launch's.  All take fp32 SoA fields.
 
 On a CPU tensor each wrapper returns its plain version (unpack, torch ops,
 pack); on a CUDA tensor it launches its kernel or raises.
@@ -72,7 +76,7 @@ from repro_torch._cuda import Kernel, check_batched_field, check_field, check_te
 from repro_torch.core.layout import resolve_layouts
 from repro_torch.core.plan import CudaPolicy
 from repro_torch.core.reduce import compensated_plain, fold_partials, fold_partials_batched
-from repro_torch.core.stencil import shifted_window
+from repro_torch.core.stencil import box_slices, shifted_window
 from . import ref
 
 __all__ = ["dslash_cuda", "dslash_plain", "wilson_normal_cuda",
@@ -86,7 +90,8 @@ __all__ = ["dslash_cuda", "dslash_plain", "wilson_normal_cuda",
            "WILSON_NORMAL_T_MIXED", "WILSON_NORMAL_AP_MIXED", "BF16_ROUND", "BF16_PACK",
            "dslash_halo_cuda", "dslash_halo_plain", "wilson_normal_pre_cuda",
            "wilson_normal_pre_plain", "DSLASH_HALO", "WILSON_NORMAL_PRE_T",
-           "WILSON_NORMAL_PRE_AP"]
+           "WILSON_NORMAL_PRE_AP", "wilson_normal_box_cuda", "wilson_normal_box_plain",
+           "WILSON_NORMAL_BOX_T", "WILSON_NORMAL_BOX_AP"]
 
 DSLASH = Kernel("dslash", "rt_dslash")
 WILSON_NORMAL_T = Kernel("wilson_normal_t", "rt_wilson_normal_t")
@@ -108,6 +113,9 @@ NORMAL_TILED_BLOCK = 128   # K5T's walk positions a block (K5's default vvl)
 DSLASH_HALO = Kernel("dslash_halo", "rt_dslash_halo")
 WILSON_NORMAL_PRE_T = Kernel("wilson_normal_pre_t", "rt_wilson_normal_pre_t")
 WILSON_NORMAL_PRE_AP = Kernel("wilson_normal_pre_ap", "rt_wilson_normal_pre_ap")
+# K5HO, K5H on one box of the interior (the halo="overlap" sub-launches)
+WILSON_NORMAL_BOX_T = Kernel("wilson_normal_box_t", "rt_wilson_normal_box_t")
+WILSON_NORMAL_BOX_AP = Kernel("wilson_normal_box_ap", "rt_wilson_normal_box_ap")
 
 
 def bf16_round(x: torch.Tensor) -> torch.Tensor:
@@ -564,4 +572,43 @@ def wilson_normal_pre_cuda(p_h: torch.Tensor, u_h: torch.Tensor, kappa: float, l
                                float(kappa), *lat, vvl)
     WILSON_NORMAL_PRE_AP.launch(p_h.device, t.data_ptr(), u_h.data_ptr(), ap.data_ptr(),
                                 float(kappa), *lat, vvl)
+    return ap
+
+
+def wilson_normal_box_plain(p_h: torch.Tensor, u_h: torch.Tensor, kappa: float, lattice,
+                            origin, extents) -> torch.Tensor:
+    """ap (24, prod(extents)), SoA over the box, of the box at ``origin``
+    (``extents`` sites a dim) of the interior ``lattice``, from p_h (24,
+    Vh) and u_h (72, Vh) over the whole interior padded by 2: the "pre"
+    lowering on the box's window (the box padded by 2), as the reference's
+    sub-launch computes it."""
+    lat = _check_4d(lattice)
+    win = (slice(None),) + box_slices(lat, origin, extents, 2)
+    hl = _grow(lat, 2)
+    return wilson_normal_pre_plain(p_h.reshape((24,) + hl)[win], u_h.reshape((72,) + hl)[win],
+                                   kappa, tuple(int(e) for e in extents))
+
+
+def wilson_normal_box_cuda(p_h: torch.Tensor, u_h: torch.Tensor, kappa: float, lattice, origin,
+                           extents, ap: torch.Tensor, vvl: int = 128) -> torch.Tensor:
+    """K5HO: :func:`wilson_normal_box_plain` written into the box's sites of
+    ``ap`` (24, V), the whole interior's SoA output, in two launches (``vvl``
+    sites a block): t over the box grown by 1 into a scratch buffer of the
+    box's own, then ap.  Returns ``ap``."""
+    lat = _check_4d(lattice)
+    sl = box_slices(lat, origin, extents)
+    if p_h.device.type == "cpu":
+        ap.reshape((24,) + lat)[(slice(None),) + sl] = wilson_normal_box_plain(
+            p_h, u_h, kappa, lat, origin, extents).reshape((24,) + tuple(extents))
+        return ap
+    Vh = math.prod(_grow(lat, 2))
+    check_tensor("p_h", p_h, (24, Vh), p_h.device)
+    check_tensor("u_h", u_h, (72, Vh), p_h.device)
+    check_tensor("ap", ap, (24, math.prod(lat)), p_h.device)
+    o, e = tuple(s.start for s in sl), tuple(s.stop - s.start for s in sl)
+    t = torch.empty((24, math.prod(_grow(e, 1))), dtype=p_h.dtype, device=p_h.device)
+    WILSON_NORMAL_BOX_T.launch(p_h.device, p_h.data_ptr(), u_h.data_ptr(), t.data_ptr(),
+                               float(kappa), *lat, *o, *e, vvl)
+    WILSON_NORMAL_BOX_AP.launch(p_h.device, t.data_ptr(), u_h.data_ptr(), ap.data_ptr(),
+                                float(kappa), *lat, *o, *e, vvl)
     return ap

@@ -133,9 +133,10 @@ def test_bind_and_graph_errors(rng):
         g.add(PCG._mul_body, {"x": "x", "y": "y"}, {"out": 24})
     with pytest.raises(ValueError, match="follow a reduction"):
         LaunchGraph().add_reduce("x").add(PCG._mul_body, {"x": "x", "y": "x"}, {"out": 1})
-    # "pre" is ported (tests/test_torch_halo.py); "overlap" is not
-    with pytest.raises(ValueError, match="not yet ported"):
-        PCG.wilson_normal_graph(0.1).launch({"p": px, "u": px}, config=TORCH, halo="overlap")
+    # "pre" and "overlap" (tests/test_torch_halo.py, tests/test_torch_overlap.py)
+    # apply to stencil graphs only
+    with pytest.raises(ValueError, match="stencil"):
+        g.launch({"x": px, "y": py}, config=TORCH, halo="overlap")
 
 
 # -- the cuda engine's refusals (no card needed) --------------------------------

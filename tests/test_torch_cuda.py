@@ -2411,3 +2411,191 @@ def test_one_rank_sharded_paths_on_the_card(card):
         assert abs(it - base.iterations) <= 1
         ref = base.x.canonical_nd()
         assert (torch.linalg.norm(x - ref) / torch.linalg.norm(ref)).item() <= 1e-5
+
+
+# -- the overlap schedule: K5HO and K5LHO on boxes, the exchange on a side stream --------
+
+def _split(lat, ring, dims=None):
+    from repro_torch.core.overlap import split_boxes
+    interior, boundary = split_boxes(lat, ring, range(len(lat)) if dims is None else dims)
+    return [(tuple(a for a, _ in bx), tuple(b - a for a, b in bx)) for bx in [interior] + boundary]
+
+
+def _box(t, lat, o, e):
+    return t.reshape((t.shape[0],) + tuple(lat))[
+        (slice(None),) + tuple(slice(a, a + b) for a, b in zip(o, e))]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("lat,dims", [((8, 8, 8, 8), None), ((6, 5, 7, 32), (0, 2)),
+                                      ((5, 9, 6, 7), (1, 3))], ids=str)
+def test_k5ho_wilson_normal_box(card, lat, dims, rng):
+    """K5HO on every box of a split: each box within FIELD_RTOL of its
+    plain version and bitwise K5H's sites there (the same arithmetic a
+    site), the assembled ap bitwise K5H's, two launches a box."""
+    hl = tuple(s + 4 for s in lat)
+    Vh, V = int(np.prod(hl)), int(np.prod(lat))
+    p, u = _dev(rng, (24, Vh), card), _dev(rng, (72, Vh), card)
+    whole = K.wilson_normal_pre_cuda(p, u, 0.12, lat)
+    ap = torch.full((24, V), float("nan"), device=card)
+    boxes = _split(lat, 2, dims)
+    n0 = (K.WILSON_NORMAL_BOX_T.launches, K.WILSON_NORMAL_BOX_AP.launches)
+    for o, e in boxes:
+        K.wilson_normal_box_cuda(p, u, 0.12, lat, o, e, ap)
+        got = _box(ap, lat, o, e)
+        _close_field(got.reshape(24, -1), K.wilson_normal_box_plain(p, u, 0.12, lat, o, e))
+        assert _bits(got, _box(whole, lat, o, e))
+    assert (K.WILSON_NORMAL_BOX_T.launches - n0[0],
+            K.WILSON_NORMAL_BOX_AP.launches - n0[1]) == (len(boxes), len(boxes))
+    assert _bits(ap, whole)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("lat,dims", [((8, 8, 8), None), ((5, 7, 3), (0, 1)),
+                                      ((16, 4, 33), (2,))], ids=str)
+def test_k5lho_lb_step_box_bitwise(card, lat, dims, rng):
+    """K5LHO on every box of a split: dist2 and u bitwise its plain version
+    and K5LH's sites there, the assembled outputs bitwise K5LH's."""
+    hl = tuple(s + 2 for s in lat)
+    Vh, V = int(np.prod(hl)), int(np.prod(lat))
+    d, f = _lb_dist(rng, card, Vh), _dev(rng, (3, Vh), card, scale=1e-3)
+    w2, wu = K8.lb_step_pre_cuda(d, f, 0.8, lat)
+    d2 = torch.full((19, V), float("nan"), device=card)
+    u = torch.full((3, V), float("nan"), device=card)
+    for o, e in _split(lat, 1, dims):
+        K8.lb_step_box_cuda(d, f, 0.8, lat, o, e, d2, u)
+        pd, pu = K8.lb_step_box_plain(d, f, 0.8, lat, o, e)
+        assert _bits(_box(d2, lat, o, e).reshape(19, -1), pd)
+        assert _bits(_box(u, lat, o, e).reshape(3, -1), pu)
+        assert _bits(_box(d2, lat, o, e), _box(w2, lat, o, e))
+    assert _bits(d2, w2) and _bits(u, wu)
+
+
+@pytest.mark.cuda
+def test_overlap_graph_launches_run_only_the_box_kernels(card, rng):
+    """The graphs' "overlap" launches on the cuda engine (execute_split:
+    every dim split) run the box kernels, never K5H or K5LH, and are
+    bitwise their "pre" launches; pap under "overlap" raises, as under
+    "pre"."""
+    tgt = TargetConfig("cuda", device="cuda")
+    lat = (6, 6, 6, 8)
+    hl = tuple(s + 4 for s in lat)
+    p, u = (_dev(rng, (n, int(np.prod(hl))), card) for n in (24, 72))
+    ins = {"p": Field.from_canonical("p", p, hl), "u": Field.from_canonical("u", u, hl)}
+    g = CG.wilson_normal_graph(0.12)
+    pre = g.launch(ins, config=tgt, outputs=("ap",), halo="pre")["ap"]
+    n = (K.WILSON_NORMAL_PRE_AP.launches, K.WILSON_NORMAL_BOX_AP.launches)
+    ov = g.launch(ins, config=tgt, outputs=("ap",), halo="overlap")["ap"]
+    assert (K.WILSON_NORMAL_PRE_AP.launches - n[0], K.WILSON_NORMAL_BOX_AP.launches - n[1]) == \
+        (0, 9)
+    assert _bits(ov.data, pre.data)
+    with pytest.raises(ValueError, match="produces"):
+        g.launch(ins, config=tgt, outputs=("ap", "pap"), halo="overlap")
+    lat3 = (8, 6, 10)
+    hl3 = tuple(s + 2 for s in lat3)
+    Vh = int(np.prod(hl3))
+    lins = {"dist": Field.from_canonical("dist", _lb_dist(rng, card, Vh), hl3),
+            "force": Field.from_canonical("force", _dev(rng, (3, Vh), card, scale=1e-3), hl3)}
+    lg = LD.lb_step_graph(LudwigConfig(lattice=lat3))
+    pre = lg.launch(lins, config=tgt, outputs=("dist2", "u"), halo="pre")
+    n = (K8.LB_STEP_PRE.launches, K8.LB_STEP_BOX.launches)
+    ov = lg.launch(lins, config=tgt, outputs=("dist2", "u"), halo="overlap")
+    assert (K8.LB_STEP_PRE.launches - n[0], K8.LB_STEP_BOX.launches - n[1]) == (0, 7)
+    assert _bits(ov["dist2"].data, pre["dist2"].data) and _bits(ov["u"].data, pre["u"].data)
+
+
+@pytest.mark.cuda
+def test_two_stream_overlap_launch_bitwise_pre_over_20_repeats(card, rng):
+    """overlap_launch on a one-rank mesh of four axes: p filled, its
+    exchange on the side stream beside the interior box (K5HO), 20 times,
+    each time on a freshly allocated halo'd p that is dropped afterwards
+    (a tensor reused early by the caching allocator would show as wrong
+    bits), and the same for the LB graph: bitwise the "pre" launch on the
+    exchanged arrays every time."""
+    from repro_torch.core import halo as H
+    from repro_torch.core.overlap import overlap_launch
+    from repro_torch.launch.mesh import Mesh
+
+    tgt = TargetConfig("cuda", device="cuda")
+    mesh = Mesh((1, 1, 1, 1), ("x", "y", "z", "t"), rank=0, world_size=1, local_rank=0)
+    dec = tuple((d + 1, ax, 1) for d, ax in enumerate(("x", "y", "z", "t")))
+    lat = (12, 10, 8, 16)
+    g = CG.wilson_normal_graph(0.12)
+    u0 = _dev(rng, (72,) + lat, card)
+    uh = H.exchange_padded(u0, dec, width=2, mesh=mesh)
+    uF = Field.from_canonical("u", uh, tuple(uh.shape[1:]))
+    n0 = K.WILSON_NORMAL_BOX_AP.launches
+    for i in range(20):
+        p0 = _dev(rng, (24,) + lat, card)
+        want = g.launch({"p": Field.from_canonical("p", H.exchange_padded(p0, dec, width=2,
+                                                                          mesh=mesh),
+                                                   tuple(uh.shape[1:])), "u": uF},
+                        config=tgt, outputs=("ap",), halo="pre")["ap"]
+        ph = H.fill_padded(p0, dec, width=2)
+        got = overlap_launch(g, {"p": Field.from_canonical("p", ph, tuple(ph.shape[1:])),
+                                 "u": uF}, decomposed=dec, config=tgt, outputs=("ap",),
+                             halo="overlap", exchanged=("u",), mesh=mesh)["ap"]
+        del ph
+        torch.empty_like(uh).fill_(float("nan"))   # reuse freed blocks, if any are free
+        assert _bits(got.data, want.data), i
+    assert K.WILSON_NORMAL_BOX_AP.launches - n0 == 20 * 9
+    m3 = Mesh((1, 1, 1), ("x", "y", "z"), rank=0, world_size=1, local_rank=0)
+    dec3 = tuple((d + 1, ax, 1) for d, ax in enumerate(("x", "y", "z")))
+    lat3 = (32, 16, 24)
+    lg = LD.lb_step_graph(LudwigConfig(lattice=lat3))
+    for i in range(20):
+        d0 = _lb_dist(rng, card, int(np.prod(lat3))).reshape((19,) + lat3)
+        f0 = _dev(rng, (3,) + lat3, card, scale=1e-3)
+        hl = tuple(s + 2 for s in lat3)
+        want = lg.launch({"dist": Field.from_canonical("dist", H.exchange_padded(
+                              d0, dec3, width=1, mesh=m3), hl),
+                          "force": Field.from_canonical("force", H.exchange_padded(
+                              f0, dec3, width=1, mesh=m3), hl)},
+                         config=tgt, outputs=("dist2", "u"), halo="pre")
+        got = overlap_launch(lg, {"dist": Field.from_canonical(
+                                      "dist", H.fill_padded(d0, dec3, width=1), hl),
+                                  "force": Field.from_canonical(
+                                      "force", H.fill_padded(f0, dec3, width=1), hl)},
+                             decomposed=dec3, config=tgt, outputs=("dist2", "u"),
+                             halo="overlap", mesh=m3)
+        assert _bits(got["dist2"].data, want["dist2"].data), i
+        assert _bits(got["u"].data, want["u"].data), i
+
+
+@pytest.mark.cuda
+def test_one_rank_overlap_paths_on_the_card(card):
+    """A one-rank mesh on the card: the sharded MILC solve under "overlap"
+    with "pre"'s iterations and x bitwise, K5HO's ap launches 9 an
+    iteration and no K5H; 3 sharded Ludwig steps under "overlap" bitwise
+    the "pre" steps, K5LHO 7 launches a step and no K5LH."""
+    from repro_torch.apps.ludwig.driver import make_sharded_step
+    from repro_torch.apps.milc.driver import make_domain, make_sharded_solver
+    from repro_torch.lattice import Domain
+    from repro_torch.launch.mesh import Mesh
+
+    tgt = TargetConfig("cuda", device="cuda")
+    mc = MilcConfig(lattice=(8, 8, 8, 8), kappa=0.12, tol=1e-10, max_iter=1000, target=tgt)
+    u, b = init_problem(mc, seed=0)
+    m4 = Mesh((1, 1, 1, 1), ("x", "y", "z", "t"), rank=0, world_size=1, local_rank=0)
+    md = make_domain(mc, m4, ("x", "y", "z", "t"))
+    ul, bl = md.scatter(u.canonical_nd()), md.scatter(b.canonical_nd())
+    xp, itp, _ = make_sharded_solver(mc, md, "pre")(ul, bl)
+    n = (K.WILSON_NORMAL_PRE_AP.launches, K.WILSON_NORMAL_BOX_AP.launches)
+    x, it, _ = make_sharded_solver(mc, md, "overlap")(ul, bl)
+    assert it == itp and _bits(x, xp)
+    assert (K.WILSON_NORMAL_PRE_AP.launches - n[0],
+            K.WILSON_NORMAL_BOX_AP.launches - n[1]) == (0, 9 * it)
+    cfg = LudwigConfig(lattice=(16, 8, 8), target=tgt)
+    st = init_state(cfg, seed=0)
+    mesh = Mesh((1, 1, 1), ("x", "y", "z"), rank=0, world_size=1, local_rank=0)
+    dom = Domain(cfg.lattice, mesh, ("x", "y", "z"), halo=2)
+    out = {}
+    for halo in ("pre", "overlap"):
+        sstep = make_sharded_step(cfg, dom, halo)
+        d, q = dom.scatter(st.dist.canonical_nd()), dom.scatter(st.q.canonical_nd())
+        n = (K8.LB_STEP_PRE.launches, K8.LB_STEP_BOX.launches)
+        for _ in range(3):
+            d, q = sstep(d, q)
+        out[halo] = (d, q, K8.LB_STEP_PRE.launches - n[0], K8.LB_STEP_BOX.launches - n[1])
+    assert out["pre"][2:] == (3, 0) and out["overlap"][2:] == (0, 21)
+    assert _bits(out["overlap"][0], out["pre"][0]) and _bits(out["overlap"][1], out["pre"][1])

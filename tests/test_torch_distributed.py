@@ -9,13 +9,19 @@ port's own single-device ``step`` on the torch engine for 3 sharded Ludwig
 steps (bitwise) and the JAX package's ``step`` (its test_distributed
 tolerance); the JAX package's ``solve`` for the sharded MILC solve under
 ``halo=None`` and ``"pre"``, and its ``cg_refined`` for the refined solve
-on the sharded operator (iterations +-1, x within rel-L2 1e-5); its
-production mesh, ``batch_axes`` and ``dp_size`` for the port's.  One
+on the sharded operator (iterations +-1, x within rel-L2 1e-5); the
+comms/compute overlap schedule (``halo="overlap"``) bitwise "pre", for 3
+Ludwig steps at (8, 8, 8) (and the planned ``halo=None``) and the MILC
+solve at (10, 10, 4, 4), whose blocks leave a real interior for ring 2
+on every mesh, that solve also against the JAX package's (iterations
++-1, x within rel-L2 1e-5); its production mesh, ``batch_axes`` and
+``dp_size`` for the port's.  One
 rank runs in this process (a mesh of one rank starts no process group);
 2 and 4 ranks run once each, every case in one spawn, the results saved by
 rank 0.
 """
 
+import dataclasses
 import os
 
 import numpy as np
@@ -42,6 +48,9 @@ from repro_torch.launch.mesh import Mesh  # noqa: E402
 TORCH = TargetConfig("torch", device="cpu")
 LUDWIG_LAT, LUDWIG_STEPS = (8, 8, 8), 3
 MILC_LAT, MILC_KAPPA = (8, 4, 4, 4), 0.10
+# the overlap cases' MILC lattice: blocks of (5, 5, 4, 4) on the 2 x 2 mesh
+# keep an interior of (1, 1, 4, 4) for the operator's ring 2
+OVERLAP_MILC_LAT = (10, 10, 4, 4)
 # the JAX package's tests/test_distributed.py tolerance for sharded steps
 STEP_RTOL, STEP_ATOL = 5e-5, 1e-7
 MILC_REL_X = 1e-5
@@ -109,6 +118,12 @@ def _cases(mesh: Mesh) -> dict:
     for _ in range(LUDWIG_STEPS):
         d, q = sstep(d, q)
     out["ludwig"] = (dom.gather(d), dom.gather(q))
+    for halo in ("overlap", None):
+        sstep = make_sharded_step(cfg, dom, halo)
+        d, q = dom.scatter(st.dist.canonical_nd()), dom.scatter(st.q.canonical_nd())
+        for _ in range(LUDWIG_STEPS):
+            d, q = sstep(d, q)
+        out[("ludwig", halo)] = (dom.gather(d), dom.gather(q))
 
     mc = MilcConfig(lattice=MILC_LAT, kappa=MILC_KAPPA, tol=1e-10, max_iter=2000, target=TORCH)
     u, b = init_problem(mc, seed=0)
@@ -118,6 +133,14 @@ def _cases(mesh: Mesh) -> dict:
         xl, it, res = make_sharded_solver(mc, dom, halo)(ul, bl)
         out[("milc", halo)] = (dom.gather(xl), int(it), float(res))
     out["refined"] = _refined_solve(mc, dom, ul, bl)
+
+    mc = dataclasses.replace(mc, lattice=OVERLAP_MILC_LAT)
+    u, b = init_problem(mc, seed=0)
+    dom = make_domain(mc, mesh, _dim_axes(names, 4))
+    ul, bl = dom.scatter(u.canonical_nd()), dom.scatter(b.canonical_nd())
+    for halo in ("pre", "overlap"):
+        xl, it, res = make_sharded_solver(mc, dom, halo)(ul, bl)
+        out[("milc_wide", halo)] = (dom.gather(xl), int(it), float(res))
     return out
 
 
@@ -190,6 +213,20 @@ def reference_solve():
 
 
 @pytest.fixture(scope="module")
+def reference_solve_wide():
+    """The JAX package's solve at the overlap cases' lattice."""
+    from repro.apps.milc import MilcConfig as JMilcConfig
+    from repro.apps.milc import init_problem as j_init_problem
+    from repro.apps.milc import solve as j_solve
+
+    jc = JMilcConfig(lattice=OVERLAP_MILC_LAT, kappa=MILC_KAPPA, tol=1e-10, max_iter=2000)
+    u, b = j_init_problem(jc, seed=0)
+    res = j_solve(jc, u, b)
+    return (np.asarray(res.x.to_numpy()).reshape((24,) + OVERLAP_MILC_LAT),
+            int(res.iterations))
+
+
+@pytest.fixture(scope="module")
 def reference_refined():
     """The JAX package's ``cg_refined`` on its fused normal operator, at
     REFINE_K: (x canonical-nd, iterations)."""
@@ -234,6 +271,33 @@ def test_sharded_milc_solve_matches_the_reference(runs, reference_solve, world, 
     iteration count and residual are the same (they were all-reduced)."""
     x, it, res = runs(world)[("milc", halo)]
     jx, jit_ = reference_solve
+    assert abs(it - jit_) <= 1, (it, jit_)
+    rel = np.linalg.norm(x.numpy() - jx) / np.linalg.norm(jx)
+    assert rel < MILC_REL_X, rel
+    assert res <= 1e-10
+
+
+@pytest.mark.parametrize("halo", ["overlap", None])
+@pytest.mark.parametrize("world", [1, 2, 4])
+def test_sharded_ludwig_steps_under_the_overlap_schedule(runs, world, halo):
+    """3 sharded steps at (8, 8, 8) with the LB half-step under "overlap"
+    (the split, the exchange between its interior and boundary boxes) and
+    under the planned choice (the default policy: "pre"): bitwise the
+    "pre" steps, which are bitwise the single-device step."""
+    d, q = runs(world)[("ludwig", halo)]
+    pd, pq = runs(world)["ludwig"]
+    assert torch.equal(d, pd) and torch.equal(q, pq)
+
+
+@pytest.mark.parametrize("world", [1, 2, 4])
+def test_sharded_milc_solve_under_the_overlap_schedule(runs, reference_solve_wide, world):
+    """The sharded solve at (10, 10, 4, 4) under "overlap": "pre"'s
+    iterations and x bitwise (<p, Ap> from the assembled fields), and the
+    JAX package's solve's iteration count +-1, x within rel-L2 1e-5."""
+    x, it, res = runs(world)[("milc_wide", "overlap")]
+    px, pit, pres = runs(world)[("milc_wide", "pre")]
+    assert it == pit and res == pres and torch.equal(x, px)
+    jx, jit_ = reference_solve_wide
     assert abs(it - jit_) <= 1, (it, jit_)
     rel = np.linalg.norm(x.numpy() - jx) / np.linalg.norm(jx)
     assert rel < MILC_REL_X, rel

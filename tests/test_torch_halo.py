@@ -338,16 +338,23 @@ def test_pre_halo_refusals_match_the_reference(rng):
 
 
 def test_pre_refusals_on_the_cuda_engine(rng):
-    """Raised before any device is touched: "overlap" (item 23); a graph
-    with no "pre" kernel; pap, which K5H does not write; a tiled plan,
-    rsplit and the block view under "pre"; a batched "pre" launch; CPU
-    tensors (the cuda engine never runs the plain version)."""
+    """Raised before any device is touched: under "overlap" (a real
+    interior) pap, which K5HO does not write, CPU tensors and a graph with
+    no box kernel; a graph with no "pre" kernel; pap, which K5H does not
+    write; a tiled plan, rsplit and the block view under "pre"; a batched
+    "pre" launch; CPU tensors (the cuda engine never runs the plain
+    version)."""
+    hv = (9, 9, 9, 9)   # interior (5, 5, 5, 5): an interior box of 1 site
+    pv = Field.from_numpy("p", rng.normal(size=(24, 9 ** 4)).astype(np.float32), hv)
+    uv = Field.from_numpy("u", rng.normal(size=(72, 9 ** 4)).astype(np.float32), hv)
+    g = PCG.wilson_normal_graph(0.1)
+    with pytest.raises(ValueError, match="produces"):
+        g.launch({"p": pv, "u": uv}, config=CUDA_ON_CPU, outputs=("ap", "pap"), halo="overlap")
+    with pytest.raises(ValueError, match="CUDA device"):
+        g.launch({"p": pv, "u": uv}, config=CUDA_ON_CPU, outputs=("ap",), halo="overlap")
     hl = (8, 8, 8, 6)   # interior (4, 4, 4, 2): 128 sites
     p = Field.from_numpy("p", rng.normal(size=(24, 8 ** 3 * 6)).astype(np.float32), hl)
     u = Field.from_numpy("u", rng.normal(size=(72, 8 ** 3 * 6)).astype(np.float32), hl)
-    g = PCG.wilson_normal_graph(0.1)
-    with pytest.raises(ValueError, match="item 23"):
-        g.launch({"p": p, "u": u}, config=CUDA_ON_CPU, halo="overlap")
     with pytest.raises(ValueError, match="produces"):
         g.launch({"p": p, "u": u}, config=CUDA_ON_CPU, outputs=("ap", "pap"), halo="pre")
     with pytest.raises(ValueError, match="CUDA device"):
@@ -368,6 +375,8 @@ def test_pre_refusals_on_the_cuda_engine(rng):
                                         params=dict(c=0.0))
     with pytest.raises(ValueError, match="halo='pre' kernel"):
         cp.launch({"x": f3}, config=CUDA_ON_CPU, halo="pre")
+    with pytest.raises(ValueError, match="box kernel"):
+        cp.launch({"x": f3}, config=CUDA_ON_CPU, halo="overlap")
     from repro_torch.core import BatchedField
     bp = BatchedField.stack([p, p])
     with pytest.raises(ValueError, match="batched"):
@@ -435,8 +444,11 @@ def test_dslash_halo_and_propagate_halo_refuse_cpu_tensors_on_cuda(rng):
 
 def test_sharded_schedules_launch_what_they_name(monkeypatch):
     """The sharded solve under "pre" runs the wilson_normal graph's "pre"
-    launch once an iteration (and no dslash in the loop), under None never;
-    the sharded step runs the LB graph's "pre" launch once a step."""
+    launch once an iteration (and no dslash in the loop), under None never,
+    and under "overlap" at this thin block (interior 0 along x and y for
+    ring 2) falls back to it, once an iteration; the sharded step runs the
+    LB graph's "pre" launch once a step, under "overlap" once a box (an
+    interior and two x-slabs, on the torch engine)."""
     from repro_torch.apps.ludwig import init_state
     from repro_torch.apps.milc import MilcConfig, init_problem
     from repro_torch.apps.milc.driver import make_domain, make_sharded_solver
@@ -452,7 +464,7 @@ def test_sharded_schedules_launch_what_they_name(monkeypatch):
     mc = MilcConfig(lattice=(4, 4, 4, 4), kappa=0.1, tol=1e-8, max_iter=200, target=TORCH)
     u, b = init_problem(mc, seed=0)
     dom = make_domain(mc, _mesh("x", "y"), ("x", "y", None, None))
-    for halo in (None, "pre"):
+    for halo in (None, "pre", "overlap"):
         calls.clear()
         _, it, _ = make_sharded_solver(mc, dom, halo)(dom.scatter(u.canonical_nd()),
                                                      dom.scatter(b.canonical_nd()))
@@ -464,7 +476,11 @@ def test_sharded_schedules_launch_what_they_name(monkeypatch):
     PLD.make_sharded_step(cfg, ldom)(ldom.scatter(st.dist.canonical_nd()),
                                      ldom.scatter(st.q.canonical_nd()))
     assert calls.count(("ludwig_lb_step", "pre")) == 1
-    with pytest.raises(ValueError, match="item 23"):
-        PLD.make_sharded_step(cfg, ldom, halo="overlap")
-    with pytest.raises(ValueError, match="item 23"):
-        make_sharded_solver(mc, dom, "overlap")
+    calls.clear()
+    PLD.make_sharded_step(cfg, ldom, halo="overlap")(ldom.scatter(st.dist.canonical_nd()),
+                                                     ldom.scatter(st.q.canonical_nd()))
+    assert calls.count(("ludwig_lb_step", "pre")) == 3
+    with pytest.raises(ValueError, match="halo must be"):
+        PLD.make_sharded_step(cfg, ldom, halo="ring")
+    with pytest.raises(ValueError, match="halo must be"):
+        make_sharded_solver(mc, dom, "ring")

@@ -262,12 +262,15 @@ def test_to_plan_maps_and_refuses():
     got = convert.to_plan(JPlan("pallas", bx=2, rsplit=2, view="block").to_json())
     assert got == LoweringPlan("cuda", bx=2, rsplit=2, view="block")
     assert got.describe() == "cuda/bx=2/block/rs2"
-    # the halo is the call site's: "pre" maps to the same plan; "overlap"
-    # (a plan's strategy in the reference) is not yet ported
+    # the halo strategy carries across ("overlap" is ported), and an
+    # unknown one is refused by the plan's validation
     assert convert.to_plan(JPlan("pallas", bx=2, halo="pre").to_json()) == \
-        LoweringPlan("cuda", bx=2)
+        LoweringPlan("cuda", bx=2, halo="pre")
+    got = convert.to_plan(JPlan("pallas", bx=2, halo="overlap").to_json())
+    assert got == LoweringPlan("cuda", bx=2, halo="overlap")
+    assert got.describe() == "cuda/bx=2/overlap"
     with pytest.raises(ValueError, match="halo"):
-        convert.to_plan(JPlan("pallas", bx=2, halo="overlap").to_json())
+        convert.to_plan({"engine": "pallas", "bx": 2, "halo": "ring"}).validate(stencil=True)
 
 
 def test_plan_policy(monkeypatch, tmp_path):

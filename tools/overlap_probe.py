@@ -1,0 +1,182 @@
+"""Time the sharded MILC operator's halo schedules on one card, and count
+the caching allocator's device allocations and syncs a call: where the
+"overlap" schedule's time goes beside "pre".
+
+  python3 tools/overlap_probe.py [--src DIR] [--lattice 64 64 64 32] [--reps 20]
+
+``--src`` is the ``src`` directory whose ``repro_torch`` is imported (default:
+this checkout's), so that two trees can be timed in one process each, in
+turns.  On a one-rank mesh of four axes, every lattice dim decomposed over
+one rank (each exchange the self-exchange), on random p (24, *lattice) and
+u (72, *lattice) (the kernels' time does not depend on the values; u is
+exchanged once, at width 2):
+
+  exchange   p's halo'd array at width 2 (``exchange_padded``) alone
+  pre        that, then the "pre" launch of the normal operator (K5H)
+  split      the "overlap" split on the exchanged p: its box kernels alone
+  overlap    ``fill_padded``, then ``overlap_launch(halo="overlap")``:
+             the exchange beside the interior box
+
+Each variant is warmed up 3 times, then run ``--reps`` times with the card
+synchronised after the last (host wall time a call, as a solve sees it),
+the variants in order, then in reverse.  Beside each: the allocator's
+``num_device_alloc`` and ``num_sync_all_streams`` a call (its
+``memory_stats``, where this PyTorch has them).  Then a torch.profiler
+trace of one "overlap" call: each device event's stream, start and
+duration relative to the call's first, and the ms during which the
+interior box's kernels and the other stream's copies both ran.  Prints the
+card's name and power limit, a line a variant, then one JSON line.  Needs
+a CUDA device; exits with 1 without one.
+"""
+
+from __future__ import annotations
+
+import argparse
+import json
+import os
+import shutil
+import subprocess
+import sys
+import tempfile
+import time
+from pathlib import Path
+
+KAPPA = 0.12
+AXES = ("x", "y", "z", "t")
+
+
+def stats():
+    import torch
+    s = torch.cuda.memory_stats()
+    return {k: s.get(k) for k in ("num_device_alloc", "num_sync_all_streams", "num_alloc_retries")}
+
+
+def main() -> int:
+    ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
+    ap.add_argument("--src", default=str(Path(__file__).resolve().parents[1] / "src"))
+    ap.add_argument("--lattice", type=int, nargs=4, default=(64, 64, 64, 32))
+    ap.add_argument("--reps", type=int, default=20)
+    args = ap.parse_args()
+    import torch
+    if not torch.cuda.is_available():
+        print("overlap_probe: no CUDA device", file=sys.stderr)
+        return 1
+    sys.path.insert(0, os.path.abspath(args.src))
+    from repro_torch.apps.milc.cg import wilson_normal_graph
+    from repro_torch.core import halo
+    from repro_torch.core.field import Field
+    from repro_torch.core.overlap import overlap_launch
+    from repro_torch.core.target import TargetConfig
+    from repro_torch.launch.mesh import Mesh
+
+    card = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
+                           "--format=csv,noheader"], capture_output=True, text=True).stdout.strip()
+    print(card)
+    lat = tuple(args.lattice)
+    tgt = TargetConfig("cuda", device="cuda")
+    mesh = Mesh((1,) * 4, AXES, rank=0, world_size=1, local_rank=0, device="cuda")
+    dec = tuple((d + 1, ax, 1) for d, ax in enumerate(AXES))
+    gen = torch.Generator(device="cuda").manual_seed(0)
+    p = torch.randn((24,) + lat, generator=gen, device="cuda")
+    u = torch.randn((72,) + lat, generator=gen, device="cuda") * 0.3
+    uh = halo.exchange_padded(u, dec, width=2, mesh=mesh)
+    hl = tuple(uh.shape[1:])
+    uF = Field.from_canonical("u", uh, hl)
+    g = wilson_normal_graph(KAPPA)
+    ph_ex = halo.exchange_padded(p, dec, width=2, mesh=mesh)
+
+    def v_exchange():
+        return halo.exchange_padded(p, dec, width=2, mesh=mesh)
+
+    def v_pre():
+        ph = halo.exchange_padded(p, dec, width=2, mesh=mesh)
+        return g.launch({"p": Field.from_canonical("p", ph, hl), "u": uF}, config=tgt,
+                        outputs=("ap",), halo="pre")["ap"]
+
+    def v_split():
+        return g.launch({"p": Field.from_canonical("p", ph_ex, hl), "u": uF}, config=tgt,
+                        outputs=("ap",), halo="overlap")["ap"]
+
+    def v_overlap():
+        ph = halo.fill_padded(p, dec, width=2)
+        return overlap_launch(g, {"p": Field.from_canonical("p", ph, hl), "u": uF},
+                              decomposed=dec, config=tgt, outputs=("ap",), halo="overlap",
+                              exchanged=("u",), mesh=mesh)["ap"]
+
+    variants = {"exchange": v_exchange, "pre": v_pre, "split": v_split, "overlap": v_overlap}
+    want = v_pre().data.clone()
+    got = v_overlap().data
+    bitwise = bool(torch.equal(got, want))
+    print(f"overlap bitwise pre: {bitwise}")
+    res = {n: [] for n in variants}
+    per_call = {}
+    for order in (list(variants), list(reversed(list(variants)))):
+        for n in order:
+            f = variants[n]
+            for _ in range(3):
+                f()
+            torch.cuda.synchronize()
+            s0 = stats()
+            t0 = time.perf_counter()
+            for _ in range(args.reps):
+                f()
+            torch.cuda.synchronize()
+            ms = (time.perf_counter() - t0) / args.reps * 1e3
+            s1 = stats()
+            res[n].append(ms)
+            per_call[n] = {k: (None if s0[k] is None else (s1[k] - s0[k]) / args.reps)
+                           for k in s0}
+            print(f"{n:9s} {ms:.4f} ms a call; a call: {per_call[n]}")
+
+    from torch.profiler import ProfilerActivity, profile
+    v_overlap()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        v_overlap()
+        torch.cuda.synchronize()
+        v_overlap()
+        torch.cuda.synchronize()
+    tmp = tempfile.mkdtemp(prefix="overlap_probe_")
+    try:
+        path = os.path.join(tmp, "trace.json")
+        prof.export_chrome_trace(path)
+        with open(path) as fh:
+            events = json.load(fh).get("traceEvents", [])
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
+    dev = sorted((e for e in events if e.get("ph") == "X" and e.get("cat") in
+                  ("kernel", "gpu_memcpy", "gpu_memset") and "stream" in e.get("args", {})),
+                 key=lambda e: e["ts"])
+    boxk = [i for i, e in enumerate(dev) if "wilson_normal_pre" in e["name"]]
+    trace = {"device_events": len(dev)}
+    if len(boxk) >= 2:
+        # the last call: from the first of its 18 box kernels (9 boxes, t and ap)
+        first = boxk[-18] if len(boxk) >= 18 else boxk[0]
+        prev_end = max((e["ts"] + e["dur"] for e in dev[:first]), default=dev[first]["ts"])
+        start = dev[first]["ts"]
+        call = [e for e in dev if e["ts"] + e["dur"] > prev_end]
+        main_stream = dev[first]["args"]["stream"]
+        interior = [dev[boxk[-18]], dev[boxk[-17]]] if len(boxk) >= 18 else dev[first:first + 2]
+        side = [e for e in call if e["args"]["stream"] != main_stream]
+        ti = (interior[0]["ts"], interior[1]["ts"] + interior[1]["dur"])
+        trace.update(events=[[e["args"]["stream"], round(e["ts"] - start, 3), round(e["dur"], 3),
+                              e["name"][:40]] for e in call])
+        if side:
+            ts = (min(e["ts"] for e in side), max(e["ts"] + e["dur"] for e in side))
+            trace.update(interior_ms=(ti[1] - ti[0]) / 1e3,
+                         side_ms=(ts[1] - ts[0]) / 1e3,
+                         side_busy_ms=sum(e["dur"] for e in side) / 1e3,
+                         both_ms=max(0.0, min(ti[1], ts[1]) - max(ti[0], ts[0])) / 1e3)
+        for e in trace["events"]:
+            print("  trace", e)
+        print(f"trace: {({k: v for k, v in trace.items() if k != 'events'})}")
+    print(json.dumps({"overlap_probe": {"card": card, "src": args.src, "lattice": list(lat),
+                                        "reps": args.reps, "bitwise_pre": bitwise,
+                                        "ms": res, "per_call": per_call,
+                                        "trace": {k: v for k, v in trace.items()
+                                                  if k != "events"}}}))
+    return 0
+
+
+if __name__ == "__main__":
+    sys.exit(main())
