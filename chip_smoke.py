@@ -198,20 +198,22 @@ D1. the kernels on pre-exchanged halos at the full lattices, each against
    counted call, and width 2) bitwise its plain version and K8's periodic
    launch, beside ``torch.take`` on its 19 source offsets, and K5LH (the
    ludwig_lb_step graph's "pre" kernel) bitwise its plain version and
-   K5L's periodic launch, on L2's kind of inputs wrap-padded; K5HO and
-   K5LHO (K5H and K5LH on one box, the ``halo="overlap"`` sub-launches) on
-   every box of the full lattices' splits (every dim decomposed: the
-   interior (60,60,60,28) and 8 slabs of width 2; the interior
-   (254,254,254) and 6 slabs of width 1), K5HO within FIELD_RTOL and K5LHO
-   bitwise of their plain versions, each box bitwise the whole "pre"
-   launch's sites, the assembled outputs bitwise K5H's and K5LH's; the
-   interior box and the slabs timed beside the bytes each box depends on;
+   K5L's periodic launch, on L2's kind of inputs wrap-padded; K5HO (K5H's
+   kernels on box tables: the interior's t and ap, then the shell's t and
+   the boundary's ap, T-slabs paired) on the full MILC lattice's split
+   (every dim decomposed: the interior (60,60,60,28) and 8 slabs of width
+   2) within FIELD_RTOL of the plain box-table schedule and bitwise K5H,
+   each part and each paired entry timed beside its byte bound and its
+   sector bound, the split and K5H in turns; K5LHO (K5LH on one box) on
+   every box of the Ludwig split (the interior (254,254,254) and 6 slabs
+   of width 1) bitwise its plain version and K5LH's sites, timed beside the
+   bytes each box depends on;
 D2. (after D1's MILC half) on a one-rank mesh of four axes, every lattice
    dim decomposed over one (each exchange the self-exchange), with every
    count set to 0 before each: ``make_sharded_solver`` at ``--lattice``
    under ``halo=None`` (K4H twice an iteration) and ``"pre"`` (K5H an
-   iteration) and ``"overlap"`` (K5HO on 9 boxes an iteration, p's
-   exchange on a side stream beside the interior box; no K5H): phase 4's
+   iteration) and ``"overlap"`` (K5HO's four kernels an iteration, p's
+   exchange on a side stream beside the interior's two; no K5H): phase 4's
    iterations +-1, x within rel-L2 1e-4 of phase 4's, every kernel of the
    path launched, "overlap" with "pre"'s iterations and x bitwise; ms an
    iteration beside phase 4's; first, the solve's halo'd spinor at widths
@@ -4846,6 +4848,8 @@ D2_PATHS = {
 _D3_COMMON = {n: LUDWIG_PATH[n] for n in ("ludwig_chem_stress", "ludwig_lc_update")}
 D3_PATH = {"lb_step_pre": DECOMP_PATH["lb_step_pre"], **_D3_COMMON}
 D3_OVERLAP_PATH = {"lb_step_box": DECOMP_PATH["lb_step_box"], **_D3_COMMON}
+# K5HO's kernels an operator: the interior's t and ap, the boundary's
+D2_OVERLAP_KERNELS = 4
 # the kernels the split must not run: the whole "pre" launches
 D2_NOT_OVERLAP = {"wilson_normal_pre": DECOMP_PATH["wilson_normal_pre"]}
 D3_NOT_OVERLAP = {"lb_step_pre": DECOMP_PATH["lb_step_pre"]}
@@ -4888,6 +4892,23 @@ def wilson_normal_pre_ops(lat):
     """The flops of that M^dag M: t on S, then ap on the box."""
     V, F = math.prod(lat), face_sites(lat)
     return (1320 + 48) * (V + 2 * F + V)
+
+
+def split_reread_bytes(lattice, tables, device):
+    """The bytes K5HO's split of one M^dag M moves beyond K5H's: the p and
+    u values both of its phases read (before the exchange: t on the
+    interior's grown box and ap on the interior; after it: t on the shell
+    and ap on the boundary), which one launch over the whole interior reads
+    once.  t stays out, as in K5H's bound: the split computes each t site
+    once and reads it where K5H does."""
+    def phase(t_part, ap_part):
+        _, p_sites, t_links = wk.table_reads(lattice, "t", tables[t_part][1], device)
+        _, _, ap_links = wk.table_reads(lattice, "ap", tables[ap_part][1], device)
+        return p_sites, [a | b_ for (a, _), (b_, _) in zip(t_links, ap_links)]
+
+    p1, l1 = phase("interior t", "interior ap")
+    p2, l2 = phase("shell t", "boundary ap")
+    return 4 * (24 * int((p1 & p2).sum()) + 18 * sum(int((a & b_).sum()) for a, b_ in zip(l1, l2)))
 
 
 def lb_step_pre_sites(lat):
@@ -4956,53 +4977,80 @@ def box_sl(o, e):
 
 
 def check_box_milc(u, b, lattice, vvl):
-    """D1 (MILC): K5HO on each box of the full lattice's overlap split (ring
-    2, every dim decomposed: the interior and 8 slabs of width 2), on b and
-    u wrap-padded: each box within FIELD_RTOL of its plain version and
-    bitwise K5H's sites there, the assembled ap bitwise K5H's; the interior
-    box and the slabs together timed beside the bytes each box depends on
-    (counted as K5H's are)."""
+    """D1 (MILC): K5HO on the full lattice's overlap split (ring 2, every
+    dim decomposed: the interior and 8 slabs), on b and u wrap-padded: the
+    interior's two launches (t on its grown box, ap on it), then the
+    boundary's (t on the shell, ap on the 8 boxes, the T-slabs paired),
+    within FIELD_RTOL of the plain box-table schedule and bitwise K5H on
+    every site, t written on every ring-1 site; each part and each paired
+    entry timed beside its byte bound and its sector bound (the 32-byte
+    sectors its values lie in); the split timed against K5H in turns."""
     p_h, u_h = wrap_pad(b.canonical_nd(), 2).reshape(24, -1), wrap_pad(u.canonical_nd(), 2).reshape(72, -1)
-    whole = wk.wilson_normal_pre_cuda(p_h, u_h, KAPPA, lattice, vvl).reshape((24,) + lattice)
+    whole = wk.wilson_normal_pre_cuda(p_h, u_h, KAPPA, lattice, vvl)
     boxes = split_of(lattice, 2)
-    ap = torch.full((24, math.prod(lattice)), float("nan"), device=p_h.device)
-    err = 0.0
-    for o, e in boxes:
-        wk.wilson_normal_box_cuda(p_h, u_h, KAPPA, lattice, o, e, ap, vvl)
-        got = ap.reshape((24,) + lattice)[box_sl(o, e)]
-        err = max(err, field_err(got.reshape(24, -1),
-                                 wk.wilson_normal_box_plain(p_h, u_h, KAPPA, lattice, o, e),
-                                 f"wilson_normal_box {o} {e}"))
-        exact_err(got, whole[box_sl(o, e)], f"K5HO box {o} {e} against K5H")
-    exact_err(ap.reshape((24,) + lattice), whole, "K5HO assembled against K5H")
+    V, V1 = math.prod(lattice), math.prod(s + 2 for s in lattice)
+    t = torch.full((24, V1), float("nan"), device=p_h.device)
+    ap = torch.full((24, V), float("nan"), device=p_h.device)
 
-    def run(bs):
-        for o, e in bs:
-            wk.wilson_normal_box_cuda(p_h, u_h, KAPPA, lattice, o, e, ap, vvl)
+    def run():
+        wk.wilson_normal_interior_cuda(p_h, u_h, KAPPA, lattice, boxes[0], t, ap, vvl)
+        wk.wilson_normal_boundary_cuda(p_h, u_h, KAPPA, lattice, boxes[0], boxes[1:], t, ap, vvl)
 
-    def plain():
-        for o, e in boxes:
-            wk.wilson_normal_box_plain(p_h, u_h, KAPPA, lattice, o, e)
+    n0 = (wk.WILSON_NORMAL_BOX_T.launches, wk.WILSON_NORMAL_BOX_AP.launches)
+    run()
+    torch.cuda.synchronize()
+    if (wk.WILSON_NORMAL_BOX_T.launches - n0[0], wk.WILSON_NORMAL_BOX_AP.launches - n0[1]) != (2, 2):
+        raise AssertionError("K5HO: a split is not two t and two ap launches")
+    if bool(t.isnan().any()):
+        raise AssertionError("K5HO: t not written on every ring-1 site")
+    plain = wk.wilson_normal_split_plain(p_h, u_h, KAPPA, lattice, boxes[0], boxes[1:])
+    err = field_err(ap, plain, "wilson_normal_box")
+    exact_err(ap, whole, "K5HO's split against K5H")
+    del plain
 
-    # each box's bytes counted as K5H's are on the whole interior
-    nb = [wilson_normal_pre_bytes(e) for _, e in boxes]
-    extra = dict(interior_ms=time_ms(lambda: run(boxes[:1])),
-                 slabs_ms=time_ms(lambda: run(boxes[1:])),
-                 interior_bound_ms=bound(nb[0], 0)[0], slabs_bound_ms=bound(sum(nb[1:]), 0)[0],
-                 k5h_ms=time_ms(lambda: wk.wilson_normal_pre_cuda(p_h, u_h, KAPPA, lattice, vvl)),
-                 boxes=[[list(o), list(e)] for o, e in boxes],
-                 box_ms=[time_ms(lambda bx=bx: run([bx])) for bx in boxes],
-                 box_bound_ms=[bound(n, 0)[0] for n in nb])
+    def one(kern, ents, src, dst):
+        tb, n = wk._table(ents)
+        kern.launch(p_h.device, src.data_ptr(), u_h.data_ptr(), dst.data_ptr(), float(KAPPA),
+                    *lattice, tb, n, vvl)
+
+    tables = wk.split_tables(lattice, boxes[0], boxes[1:])
+    parts = dict(tables)
+    for i, (et_, ea) in enumerate(zip(tables["shell t"][1], tables["boundary ap"][1])):
+        parts[f"shell t {i}"] = ("t", [et_])
+        parts[f"boundary ap {i}"] = ("ap", [ea])
+    part_rows = {}
+    for name, (kind, ents) in parts.items():
+        kern, src, dst = ((wk.WILSON_NORMAL_BOX_T, p_h, t) if kind == "t"
+                          else (wk.WILSON_NORMAL_BOX_AP, t, ap))
+        nb, ns = wk.table_footprint(lattice, kind, ents, p_h.device)
+        part_rows[name] = dict(
+            ms=time_ms(lambda: one(kern, ents, src, dst)), bound_ms=bound(nb, 0)[0],
+            sector_bound_ms=bound(32 * ns, 0)[0],
+            entries=[[list(a), list(b_), c, d] for a, b_, c, d in ents])
+    exact_err(ap, whole, "K5HO's parts against K5H")
+    turns = {"k5h": [], "split": []}
+    for name in ("k5h", "split", "split", "k5h"):
+        turns[name].append(time_ms(run if name == "split" else
+                                   (lambda: wk.wilson_normal_pre_cuda(p_h, u_h, KAPPA, lattice,
+                                                                      vvl))))
+    # the split computes K5H's function (each t site once): K5H's bytes and
+    # flops, and the p and u values its two phases both read
+    reread = split_reread_bytes(lattice, tables, p_h.device)
+    extra = dict(parts=part_rows, k5h_ms=turns["k5h"], split_ms_turns=turns["split"],
+                 reread_bound_ms=bound(reread, 0)[0],
+                 launches_a_split=4, boxes=[[list(o_), list(e_)] for o_, e_ in boxes],
+                 split_ratio=statistics.median(turns["split"]) / statistics.median(turns["k5h"]))
     rows = {}
-    add_row(rows, "wilson_normal_box", err, time_ms(lambda: run(boxes)),
-            time_ms(plain, reps=3, warm=1), sum(nb),
-            sum(wilson_normal_pre_ops(e) for _, e in boxes))
-    log(f"  K5HO bitwise K5H on every box and assembled; interior {boxes[0][1]} "
-        f"{extra['interior_ms']:.4f} ms (bound {extra['interior_bound_ms']:.4f}), "
-        f"{len(boxes) - 1} slabs {extra['slabs_ms']:.4f} ms (bound "
-        f"{extra['slabs_bound_ms']:.4f}), K5H {extra['k5h_ms']:.4f} ms; a box: "
-        + ", ".join(f"{e} {ms:.4f}" for (_, e), ms in zip(boxes, extra["box_ms"])))
-    del p_h, u_h, whole, ap
+    add_row(rows, "wilson_normal_box", err, statistics.median(turns["split"]),
+            time_ms(lambda: wk.wilson_normal_split_plain(p_h, u_h, KAPPA, lattice, boxes[0],
+                                                         boxes[1:]), reps=3, warm=1),
+            wilson_normal_pre_bytes(lattice) + reread, wilson_normal_pre_ops(lattice))
+    log(f"  K5HO bitwise K5H; split {turns['split']} ms against K5H {turns['k5h']} (ratio "
+        f"{extra['split_ratio']:.3f}); the phases' re-read {extra['reread_bound_ms']:.4f} ms; "
+        f"parts (ms, bound, sector bound): "
+        + ", ".join(f"{n} {r['ms']:.4f} {r['bound_ms']:.4f} {r['sector_bound_ms']:.4f}"
+                    for n, r in part_rows.items()))
+    del p_h, u_h, whole, t, ap
     torch.cuda.empty_cache()
     return rows, extra
 
@@ -5019,7 +5067,7 @@ def overlap_trace(cfg, u, b):
     dom = make_domain(cfg, one_rank_mesh(D_MILC_AXES), D_MILC_AXES)
     ul, bl = dom.scatter(u.canonical_nd()), dom.scatter(b.canonical_nd())
     dec, mesh = dom.decomposed, dom.mesh
-    nbox = len(split_of(tuple(cfg.lattice), 2))
+    nk = D2_OVERLAP_KERNELS
     graph = cg_mod.wilson_normal_graph(KAPPA)
     u_h = exchange_padded(ul, dec, width=2, mesh=mesh)
     uF = Field.from_canonical("u", u_h, tuple(u_h.shape[1:]))
@@ -5047,18 +5095,18 @@ def overlap_trace(cfg, u, b):
     dev = [e for e in events if e.get("ph") == "X" and e.get("cat") in
            ("kernel", "gpu_memcpy", "gpu_memset") and "stream" in e.get("args", {})]
     dev.sort(key=lambda e: e["ts"])
-    boxk = [e for e in dev if "wilson_normal_pre" in e["name"]]
-    if len(boxk) < 2 * nbox:
+    boxk = [e for e in dev if "wilson_normal_box" in e["name"]]
+    if len(boxk) < nk:
         log(f"D2 trace: {len(dev)} device events, {len(boxk)} box kernels of the last run's "
-            f"{2 * nbox}: the overlap is not measured")
+            f"{nk}: the overlap is not measured")
         del ul, bl, u_h, uF
         torch.cuda.empty_cache()
         return dict(measured=False, device_events=len(dev), box_kernels=len(boxk))
-    # the last run: its 2 nbox box kernels, and what ran after the run before
-    last = boxk[-2 * nbox:]
-    since = boxk[-2 * nbox - 1]["ts"] + boxk[-2 * nbox - 1]["dur"] if len(boxk) > 2 * nbox else 0
+    # the last run: its nk box kernels, and what ran after the run before
+    last = boxk[-nk:]
+    since = boxk[-nk - 1]["ts"] + boxk[-nk - 1]["dur"] if len(boxk) > nk else 0
     main = last[0]["args"]["stream"]
-    interior = last[:2]   # the interior box's t and ap launches come first
+    interior = last[:2]   # the interior's t and ap launches come first
     side = [e for e in dev if e["args"]["stream"] != main and e["ts"] >= since]
 
     def hull(es):
@@ -5141,9 +5189,15 @@ def sharded_milc(cfg, u, b, x_soa, iterations, solve_s):
         if halo == "pre":
             x_pre, it_pre = x, it
         if halo == "overlap":
-            # the split's boxes, never the whole launch; "pre"'s trajectory
+            # the split's boxes, never the whole launch, four kernels an
+            # operator; "pre"'s trajectory
             if any(whole.values()):
                 raise AssertionError(f"D2 overlap: the whole 'pre' kernels ran: {whole}")
+            nk = counts[halo]["wilson_normal_box"]
+            if nk > D2_OVERLAP_KERNELS * it:
+                raise AssertionError(f"D2 overlap: {nk} K5HO launches in {it} iterations, more "
+                                     f"than {D2_OVERLAP_KERNELS} an operator")
+            out["overlap"]["k5ho_launches"] = nk
             if it != it_pre or not torch.equal(x, x_pre):
                 raise AssertionError(f"D2 overlap: {it} iterations against 'pre''s {it_pre}, "
                                      f"x bitwise {torch.equal(x, x_pre)}")

@@ -537,11 +537,14 @@ def _lb_step_pre_cuda(graph, ins, scalars, *, lattice, rings, vvl, out_layouts):
     return {"dist2": dist2, "u": u}
 
 
-def _lb_step_box_cuda(graph, ins, scalars, *, lattice, rings, vvl, origin, extents, outs):
-    # K5LHO: dist2 and u on one box of the interior, into the whole interior's
+def _lb_step_box_cuda(graph, ins, scalars, *, lattice, rings, vvls, part, interior, boxes,
+                      outs, scratch):
+    # K5LHO: dist2 and u on each box of the call, one launch a box, into the
+    # whole interior's
     check_pre_rings(graph, rings, {"dist": 1, "force": 1})
-    lbk.lb_step_box_cuda(ins["dist"][0], ins["force"][0], graph.stage_params()[1]["tau"],
-                         lattice, origin, extents, outs["dist2"], outs.get("u"), vvl)
+    for (origin, extents), vvl in zip(boxes, vvls):
+        lbk.lb_step_box_cuda(ins["dist"][0], ins["force"][0], graph.stage_params()[1]["tau"],
+                             lattice, origin, extents, outs["dist2"], outs.get("u"), vvl)
 
 
 def _fed_cuda(ins, params, vvl, out_layouts):

@@ -58,6 +58,7 @@ single, batched and under the refined solve's policy.
 
 from __future__ import annotations
 
+import math
 import weakref
 from typing import Callable, NamedTuple, Optional, Tuple
 
@@ -70,7 +71,9 @@ from repro_torch.core.plan import cuda_policy, launch_policy
 from repro_torch.core.reduce import fold_components
 from repro_torch.core.target import register_cuda_body, site_axpy, site_g5, site_mul
 from repro_torch.kernels.wilson_dslash import dslash
-from repro_torch.kernels.wilson_dslash.kernel import (bf16_pack_cuda, wilson_normal_box_cuda,
+from repro_torch.kernels.wilson_dslash.kernel import (bf16_pack_cuda,
+                                                      wilson_normal_boundary_cuda,
+                                                      wilson_normal_interior_cuda,
                                                       wilson_normal_cuda, wilson_normal_pre_cuda,
                                                       wilson_normal_tiled_cuda)
 from repro_torch.kernels.wilson_dslash.ops import dslash_stencil_body
@@ -639,12 +642,21 @@ def _wilson_normal_pre_cuda(graph, ins, scalars, *, lattice, rings, vvl, out_lay
                                          lattice, vvl)}
 
 
-def _wilson_normal_box_cuda(graph, ins, scalars, *, lattice, rings, vvl, origin, extents,
-                            outs):
-    # K5HO: ap on one box of the interior, into the whole interior's ap
+def _wilson_normal_box_cuda(graph, ins, scalars, *, lattice, rings, vvls, part, interior, boxes,
+                            outs, scratch):
+    # K5HO: the interior (t on its grown box, then ap), then the whole
+    # boundary (t on the shell, then ap on every box), one launch a kernel,
+    # into one ring-1 t array the split keeps in scratch
     fuse.check_pre_rings(graph, rings, {"p": 2, "u": 2})
-    wilson_normal_box_cuda(ins["p"][0], ins["u"][0], _normal_kappa(graph), lattice, origin,
-                           extents, outs["ap"], vvl)
+    p, u = ins["p"][0], ins["u"][0]
+    if "t" not in scratch:
+        scratch["t"] = torch.empty((24, math.prod(s + 2 for s in lattice)), dtype=p.dtype,
+                                   device=p.device)
+    args = (p, u, _normal_kappa(graph), lattice, interior)
+    if part == "interior":
+        wilson_normal_interior_cuda(*args, scratch["t"], outs["ap"], vvls[0])
+    else:
+        wilson_normal_boundary_cuda(*args, boxes, scratch["t"], outs["ap"], vvls[0])
 
 
 def _wilson_normal_tiled_cuda(graph, ins, scalars, *, lattice, plan, out_layouts, policy=None,

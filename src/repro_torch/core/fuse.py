@@ -86,7 +86,8 @@ ludwig_lb_step) and raises for any other graph.  ``"overlap"`` (or a "pre"
 launch whose plan chose it) takes the same inputs and runs the
 interior/boundary split of ``core.overlap``: on "torch" a "pre" launch a
 box, on "cuda" the graph's box kernel (``register_cuda_graph(...,
-box=)``: K5HO, K5LHO) a box, writing in place into outputs allocated once.
+box=)``: K5HO, K5LHO) on the interior and then on the whole boundary,
+writing in place into outputs allocated once.
 Not yet ported under ``"pre"`` and ``"overlap"``: tiles, ``rsplit``,
 ``view="block"``, a batch and a DtypePolicy (ROADMAP item 24, queue 2 (e),
 (f)).
@@ -334,7 +335,7 @@ class _CudaEntry(NamedTuple):
     tiled_batch: bool               # the tiled kernel has a batch instance
     pre: Optional[Callable]         # the kernel on pre-exchanged halos (halo="pre")
     pre_outputs: Tuple[str, ...]    # what that kernel produces
-    box: Optional[Callable]         # that kernel on one box of the interior (halo="overlap")
+    box: Optional[Callable]         # that kernel on the split's boxes (halo="overlap")
 
 
 # LaunchGraph.structure() -> its kernels
@@ -373,13 +374,18 @@ def register_cuda_graph(graph: "LaunchGraph", impl: Optional[Callable],
     rings=, vvl=, out_layouts=)`` runs a ``halo="pre"`` launch: ``ins`` are
     the caller's halo'd tensors, ``rings`` each input's ring, ``lattice``
     the interior the outputs cover; it returns ``pre_outputs`` (default
-    ``outputs``).  ``box(graph, ins, scalars, lattice=, rings=, vvl=,
-    origin=, extents=, outs=)`` runs that kernel on one box of the
-    interior (a ``halo="overlap"`` sub-launch): ``ins`` and ``rings`` as
-    for ``pre``, the box at ``origin`` with ``extents`` sites a dim, and
-    ``outs`` the field outputs' SoA tensors over the whole interior, of
-    which it writes the box's sites.  The ``"pre"`` and box kernels take no
-    policy."""
+    ``outputs``).  ``box(graph, ins, scalars, lattice=, rings=, vvls=,
+    part=, interior=, boxes=, outs=, scratch=)`` runs that kernel on boxes
+    of the interior (the ``halo="overlap"`` split), called twice a split:
+    ``part="interior"`` with ``boxes`` the interior box alone, then
+    ``part="boundary"`` with every boundary box; ``ins`` and ``rings`` as
+    for ``pre``, each box an (origin, extents) pair, ``vvls`` each box's
+    block size, ``interior`` the interior box in both calls, ``outs`` the
+    field outputs' SoA tensors over the whole interior, of which it writes
+    the boxes' sites, and ``scratch`` a dict the split passes to both calls
+    (what the boundary reuses of the interior's launches).  A kernel may
+    launch once a box or once a call.  The ``"pre"`` and box kernels take
+    no policy."""
     _CUDA_GRAPHS[graph.structure()] = _CudaEntry(
         impl, tuple(outputs), tiled, batched, policy, bool(tiled_batch), pre,
         tuple(pre_outputs if pre_outputs is not None else outputs), box)
@@ -1046,10 +1052,11 @@ class LaunchGraph:
         field outputs allocated once at the interior ``lattice`` (SoA),
         ``start()`` (the fill's mark), the graph's box kernel on the
         ``interior`` box, then ``between()`` (the exchange, which returns
-        the boundary's inputs), then on each ``boundary`` box in order; each
-        box writes its sites in place.  Nothing but the launch runs between
-        ``start()`` and ``between()``, so that the interior is on the card
-        before the exchange's copies are issued beside it.
+        the boundary's inputs), then the box kernel on the whole
+        ``boundary`` (in order) in one call; each box writes its sites in
+        place.  Nothing but the launch runs between ``start()`` and
+        ``between()``, so that the interior is on the card before the
+        exchange's copies are issued beside it.
         Raises, before any launch, where the graph has no box kernel and for
         what its "pre" launch refuses (a policy, a layout other than SoA, an
         output the kernel does not write)."""
@@ -1096,18 +1103,20 @@ class LaunchGraph:
         outs = {o: torch.empty((int(prod[o][0]), nsites), dtype=torch.float32,
                                device=first.device) for o in field_outputs}
 
-        def run(i, source):
+        oe = [(tuple(s for s, _ in b), tuple(e - s for s, e in b)) for b in boxes]
+        scratch: Dict = {}
+
+        def run(part, idx, source):
             entry.box(self, {n: (source[n].data, source[n].layout) for n in ext}, svals,
-                      lattice=lattice, rings=rings, vvl=vvls[i],
-                      origin=tuple(s for s, _ in boxes[i]),
-                      extents=tuple(e - s for s, e in boxes[i]), outs=outs)
+                      lattice=lattice, rings=rings, vvls=[vvls[i] for i in idx], part=part,
+                      interior=oe[0], boxes=[oe[i] for i in idx], outs=outs, scratch=scratch)
 
         if start is not None:
             start()
-        run(0, ins)
+        run("interior", [0], ins)
         source = between() if between is not None else ins
-        for i in range(1, len(boxes)):
-            run(i, source)
+        if len(boxes) > 1:
+            run("boundary", range(1, len(boxes)), source)
         return {o: Field(o, outs[o].shape[0], tuple(lattice), SOA_LAYOUT, outs[o])
                 for o in field_outputs}
 

@@ -33,10 +33,16 @@ graph on the box's window (a slice of the input's canonical view), planned
 by ``core.plan.sub_lattice_plan``, and the outputs are assembled in torch
 ops, as the reference assembles them.  On "cuda" no window is copied and
 nothing is assembled after the fact: the field outputs are allocated once
-at the interior lattice, and each box's sub-launch is the graph's box
-kernel (``register_cuda_graph(..., box=)``: K5HO for wilson_normal, K5LHO
-for ludwig_lb_step), which reads its window in place from the whole
-halo'd inputs and writes its box's sites of the outputs.  The box kernels
+at the interior lattice, and the graph's box kernel
+(``register_cuda_graph(..., box=)``) runs on the interior, then on the
+whole boundary, reading windows in place from the whole halo'd inputs and
+writing its boxes' sites of the outputs.  For wilson_normal (K5HO) each
+part is one launch a kernel over a table of boxes: t on the interior's box
+grown by 1, then ap on the interior; after the exchange, t on the rest of
+the ring-1 array (the shell), then ap on every boundary box, the two
+T-slabs taken as one box; t lives in one ring-1 array, so no site of it is
+computed twice, and an operator issues four kernels.  ludwig_lb_step's
+K5LHO runs one launch a box.  The box kernels
 take no policy, read and write SoA and write no partial rows: a cuda
 "overlap" launch that asks for a reduction, a policy or another layout
 raises where the "pre" one raises, and a graph with no box kernel raises;

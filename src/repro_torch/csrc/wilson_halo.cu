@@ -1,5 +1,5 @@
-// K4H and K5H: the Wilson hopping term on pre-exchanged halos (the sharded
-// MILC solve, apps/milc/driver.py::make_sharded_solver).
+// K4H, K5H and K5HO: the Wilson hopping term on pre-exchanged halos (the
+// sharded MILC solve, apps/milc/driver.py::make_sharded_solver).
 //
 // K4H rt_dslash_halo replaces kernels/wilson_dslash/kernel.py::
 //   dslash_site_pallas (pallas_call :53) as kernels/wilson_dslash/ops.py::
@@ -12,33 +12,36 @@
 //   the halo'd arrays at their own strides (a neighbour is a site +- a
 //   stride, never wrapped), so nothing is gathered.
 //
-// K5H rt_wilson_normal_pre_t / _ap replaces core/fuse.py::LaunchGraph.
-//   _build_nd (fused_kernel :1721, pallas_call :1914) for the
-//   wilson_normal graph under halo="pre": ap = M^dag M p on the interior
-//   from p and u padded by 2.  As K5 it is two kernels, because a site's
-//   ap needs t = g5(p - kappa D p) at its 8 neighbours and a block cannot
-//   see another's t:
+// K5H rt_wilson_normal_pre_t / _ap and K5HO rt_wilson_normal_t_boxes /
+//   _ap_boxes replace core/fuse.py::LaunchGraph._build_nd (fused_kernel
+//   :1721, pallas_call :1914) for the wilson_normal graph under halo="pre"
+//   (:794-870) and on the halo="overlap" split's boxes (:986-992,
+//   core/overlap.py:83-406): ap = M^dag M p on the interior from p and u
+//   padded by 2.  Each is two kernels, as K5, because a site's ap needs t =
+//   g5(p - kappa D p) at its 8 neighbours and a block cannot see another's
+//   t.  K5H's kernels run on the whole arrays; K5HO's take a table of at
+//   most RT_HTAB_MAX boxes and run it in one launch (rt_htab: a box's
+//   origin, extents and block range; blockIdx -> box by the prefix of block
+//   counts):
 //
-//     t kernel   t = g5(p - kappa D p) on ring 1, the (X+2)(Y+2)(Z+2)(T+2)
-//                sites around the interior (1.17x the interior at
-//                (64, 64, 64, 32)), from p and u at ring 2; t is SoA over
-//                that box, fp32
-//     ap kernel  ap = g5(t - kappa D t) on the interior, from t and u
+//     t kernel   t = g5(p - kappa D p) on boxes of ring 1, the
+//                (X+2)(Y+2)(Z+2)(T+2) sites around the interior, written
+//                into one ring-1 array (SoA, fp32), from p and u at ring 2
+//     ap kernel  ap = g5(t - kappa D t) on boxes of the interior, from t
+//                and u, written into the whole interior's ap
 //
-//   The sharded solve takes <p, Ap> from core dot on the assembled Fields
-//   (as the JAX package's does), so K5H writes no partial rows.
-//
-// K5HO rt_wilson_normal_box_t / _ap replaces the same _build_nd
-//   fused_kernel as core/overlap.py's sub-launches call it under
-//   halo="overlap": K5H on one box of the interior (a per-axis origin and
-//   extents), the box's window read in place from the whole ring-2 halo'd
-//   p and u.  The t kernel covers the box grown by 1 into a scratch buffer
-//   of the box's own (SoA over the grown box); the ap kernel writes the
-//   box's sites of the whole-interior ap, so the split's sub-launches
-//   assemble ap in place.  Each site's arithmetic is the whole launch's, so
-//   every box gives the whole "pre" launch's bits on its sites; the whole
-//   entry points are the one-box case.  A boundary slab of width 2
-//   recomputes t over its grown box, 2.3x its volume at (64, 64, 64, 32).
+//   K5H launches the whole-array kernels (wilson_normal_pre_*) on the
+//   whole ring-1 array, then the whole interior: a table's site map cost
+//   them 5-8% (tools/k5h_designs.py, H100 80GB HBM3, 700.00 W).  K5HO is
+//   the split of one operator in four launches of the table kernels
+//   (wilson_normal_box_*), no t site computed twice: after the fill, t on
+//   the interior box grown by 1 (it reads p at owned sites only) and ap on
+//   the interior; after the exchange, t on the shell (the ring-1 array less
+//   that grown box, at most 8 boxes carved in split_boxes' order) and ap on
+//   every boundary box.  Every site's
+//   arithmetic is the whole launch's, so the split gives the "pre" launch's
+//   bits.  The sharded solve takes <p, Ap> from core dot on the assembled
+//   Fields (as the JAX package's does), so no partial rows.
 //
 // Both kernels and K4H share wilson.cuh's hop (rt_hop_mu, the direction
 // order and the adds of rt_wilson_hop), fed by loaders that read a halo'd
@@ -48,17 +51,40 @@
 // Bound on the H100: bytes.  K4H moves (24 + 72) 4 bytes a halo'd site in
 // and 96 an interior site out; K5H the same at ring 2 (1.35x the interior
 // at (64, 64, 64, 32)), plus t's traffic, which the design floor counts
-// and the bound does not.
+// and the bound does not.  A thin box is bound by the 32-byte sectors its
+// values lie in (kernel.py::table_footprint): T is the fastest axis of
+// every SoA array, so the split's two T-slabs (rows of 2 sites in rows of
+// 34-36) use 2 of a sector's 8 floats (sectors over 3.35 TB/s: 0.85 ms for
+// their t and ap at (64, 64, 64, 32), bytes 0.34), and a warp's load of one
+// component touches 8 or more 128-byte lines where a whole row's touches
+// 1-2.  They take 5.1-5.3 ms of the split's 11.0 (H100 80GB HBM3, 700.00
+// W).  Pairing the two slabs (below) is 1.6-1.7x faster than one box a
+// slab; a thread walking its row's T sites, a warp along z (32 lines a
+// load), was 3.6x slower than the pairing (PERF.md section 6,
+// tools/k5h_designs.py).
 //
-// Block order: the computed box's x-planes of P sites each split into
-// ceil(P / block) chunks (the last one partial: no warp multiple divides
-// the halo'd planes, 66 x 66 x 34 sites at ring 1), run in K5's brick
-// order (wilson_normal.cuh::rt_order_chunk: x fastest in a brick of
-// RT_BRICK_X planes), so that a site is read again as an x-neighbour one
-// block later.  Fields are fp32 and SoA; offsets are 32-bit where every
-// one fits (72 values of the largest box).
+// Block order and thread map: a box's x-planes each split into chunks of
+// `block` thread slots, run in K5's brick order (wilson_normal.cuh::
+// rt_order_chunk: x fastest in a brick of RT_BRICK_X planes), so that a
+// site is read again as an x-neighbour one block later.  A row of at most
+// RT_HROW_LANES_MAX sites takes a power-of-two run of slots (the rest idle),
+// so that a warp never straddles two rows a gap apart (the interior's rows
+// of 28 and 30 in arrays of 32-36); longer rows are cut linearly.  The two
+// T-slabs of a table are taken as one box with a gap (tsplit, tgap: a
+// row's 2 lo sites, then its 2 hi), so that a warp's 32 sites hold 8 rows
+// and one row's hi slab shares a line with the next row's lo slab.  Fields
+// are fp32 and SoA; offsets are 32-bit where every one fits (72 values of
+// the largest box).
+//
+// A one-launch K5H that streamed x-planes of a tile's t through a shared-
+// memory ring (t never in HBM) took 7.87-13.08 ms against this design's
+// 5.53-5.64 (H100 80GB HBM3, 700.00 W) and was deleted (PERF.md section
+// 6).
 
 #include "wilson_normal.cuh"
+
+#define RT_HTAB_MAX 8            // boxes of a table launch
+#define RT_HROW_LANES_MAX 32     // rows up to this long take whole runs of lanes
 
 // A box of sites in an array: the box's extents, the array's extents and
 // the box's origin in the array, per axis.
@@ -78,11 +104,10 @@ static inline rt_horder rt_make_horder(const rt_lattice& box, int block) {
   return rt_horder{(int)((P + block - 1) / block), box.X, P};
 }
 
-// This thread's site of the box (linear over the box), false where it has
-// none.
+// The site (linear over the box) of this thread of block i of the box's
+// grid, false where it has none.
 template <typename I>
-__device__ __forceinline__ bool rt_horder_site(const rt_horder& o, I& s) {
-  const int i = blockIdx.x;
+__device__ __forceinline__ bool rt_horder_site(const rt_horder& o, int i, I& s) {
   const int per = RT_BRICK_X * o.nq;
   const int brick = i / per;
   const int x0 = RT_BRICK_X * brick;
@@ -92,6 +117,50 @@ __device__ __forceinline__ bool rt_horder_site(const rt_horder& o, I& s) {
   if (q >= (I)o.P) return false;
   s = (I)(x0 + r % w) * (I)o.P + q;
   return true;
+}
+
+// A table of at most RT_HTAB_MAX boxes launched as one grid: box k at
+// origin org[k] of the array it is computed in, of extents ext[k]; its T
+// index j lies at T = j, or j + tgap[k] from j = tsplit[k] on (two T-slabs
+// of one row range taken as one box: tsplit the first slab's width, tgap
+// the T sites between them; tsplit = ext.T for a plain box); its blocks are
+// [start[k], start[k + 1]) of the grid, nq[k] chunks an x-plane (the brick
+// order of rt_horder over the box's thread slots).  A row of ext.T <= 32
+// sites takes lanes[k] slots (ext.T rounded up to a power of two), so that
+// no warp holds parts of two rows a lane run apart (the rest of its slots
+// idle); a row longer than RT_HROW_LANES_MAX is cut linearly (lanes 0).
+struct rt_htab {
+  int n;
+  rt_lattice org[RT_HTAB_MAX], ext[RT_HTAB_MAX];
+  int tsplit[RT_HTAB_MAX], tgap[RT_HTAB_MAX], nq[RT_HTAB_MAX], lanes[RT_HTAB_MAX];
+  int start[RT_HTAB_MAX + 1];
+};
+
+// The slots a row of T sites takes (see rt_htab): 0 for a linear cut.
+static inline int rt_row_lanes(int T) {
+  if (T > RT_HROW_LANES_MAX) return 0;
+  int g = 1;
+  while (g < T) g *= 2;
+  return g;
+}
+
+// One box of a table, as a thread reads it.
+struct rt_hent {
+  rt_lattice org, ext;
+  int tsplit, tgap, nq, lanes, start;
+};
+
+// The box of block i of a table's grid (start[] ascending, start[0] = 0),
+// selected with constant indices only: a run-time index into the
+// parameter struct would have the compiler copy it to local memory.
+__device__ __forceinline__ rt_hent rt_htab_entry(const rt_htab& tb, int i) {
+  rt_hent h{tb.org[0], tb.ext[0], tb.tsplit[0], tb.tgap[0], tb.nq[0], tb.lanes[0], tb.start[0]};
+#pragma unroll
+  for (int j = 1; j < RT_HTAB_MAX; ++j)
+    if (j < tb.n && i >= tb.start[j])
+      h = rt_hent{tb.org[j], tb.ext[j], tb.tsplit[j], tb.tgap[j], tb.nq[j], tb.lanes[j],
+                  tb.start[j]};
+  return h;
 }
 
 // The coordinates of box site s (linear over the box).
@@ -123,6 +192,29 @@ __device__ __forceinline__ I rt_hsite(const rt_hbox& b, I s) {
 template <typename I>
 __device__ __forceinline__ I rt_hvol(const rt_lattice& L) {
   return (I)L.X * L.Y * L.Z * L.T;
+}
+
+// This thread's site of a table launch: its coordinates c in the array the
+// boxes are given in (the box's origin added, the gap applied), false
+// where it has none.
+template <typename I>
+__device__ __forceinline__ bool rt_htab_site(const rt_htab& tb, rt_lattice& c) {
+  const rt_hent h = rt_htab_entry(tb, (int)blockIdx.x);
+  const rt_lattice e = h.ext;
+  const int g = h.lanes;
+  const long long P = (long long)e.Y * e.Z * (g ? g : e.T);   // slots an x-plane
+  const rt_horder o{h.nq, e.X, P};
+  I s;
+  if (!rt_horder_site<I>(o, (int)blockIdx.x - h.start, s)) return false;
+  if (g) {   // slot -> site: row s / g, lane s % g (g a power of two)
+    const int lane = (int)(s & (I)(g - 1));
+    if (lane >= e.T) return false;
+    s = (s >> (__ffs(g) - 1)) * e.T + lane;
+  }
+  c = rt_hcoord<I>(e, s);
+  if (c.T >= h.tsplit) c.T += h.tgap;
+  c = rt_lattice{c.X + h.org.X, c.Y + h.org.Y, c.Z + h.org.Z, c.T + h.org.T};
+  return true;
 }
 
 // The stride of axis MU in an array of extents e.
@@ -183,7 +275,7 @@ template <typename I>
 __global__ void dslash_halo_kernel(const float* __restrict__ psi, const float* __restrict__ u,
                                    float* __restrict__ out, rt_hbox b, rt_horder o) {
   I s;
-  if (!rt_horder_site<I>(o, s)) return;
+  if (!rt_horder_site<I>(o, (int)blockIdx.x, s)) return;
   const I a = rt_hsite<I>(b, s);
   float d[24];
   rt_halo_hop<I>(psi, b.arr, a, u, b.arr, a, d);
@@ -192,15 +284,14 @@ __global__ void dslash_halo_kernel(const float* __restrict__ psi, const float* _
   for (int c = 0; c < 24; ++c) out[(I)c * V + s] = d[c];
 }
 
-// K5H's t kernel: t (SoA over the box bt.box, the computed box grown by 1)
-// = g5(p - kappa D p), p and u SoA over bt.arr (ring 2; bt.org the grown
-// box's origin there).
+// K5H's t kernel: t on the whole ring-1 array (extents bt.box, SoA) =
+// g5(p - kappa D p), p and u SoA over bt.arr (ring 2; bt.org 1).
 template <typename I>
 __global__ void wilson_normal_pre_t_kernel(const float* __restrict__ p,
                                            const float* __restrict__ u, float* __restrict__ t,
                                            float kappa, rt_hbox bt, rt_horder o) {
   I s;
-  if (!rt_horder_site<I>(o, s)) return;
+  if (!rt_horder_site<I>(o, (int)blockIdx.x, s)) return;
   const I a = rt_hsite<I>(bt, s);
   float d[24];
   rt_halo_hop<I>(p, bt.arr, a, u, bt.arr, a, d);
@@ -210,17 +301,16 @@ __global__ void wilson_normal_pre_t_kernel(const float* __restrict__ p,
     t[(I)c * V + s] = rt_g5_sign(c) * (p[(I)c * Va + a] - kappa * d[c]);
 }
 
-// K5H's ap kernel: ap (SoA over bap.arr, the interior; the box at
-// bap.org) = g5(t - kappa D t) on the box, t SoA over the box grown by 1
-// (bt: origin 1 in t's array), u over b.arr (ring 2; b.org the box's
-// origin + 2).
+// K5H's ap kernel: ap on the whole interior (bap.arr, SoA) = g5(t - kappa
+// D t), t over the ring-1 array (bt: origin 1), u over b.arr (ring 2; b.org
+// 2).
 template <typename I>
 __global__ void wilson_normal_pre_ap_kernel(const float* __restrict__ t,
                                             const float* __restrict__ u, float* __restrict__ ap,
                                             float kappa, rt_hbox b, rt_hbox bt, rt_hbox bap,
                                             rt_horder o) {
   I s;
-  if (!rt_horder_site<I>(o, s)) return;
+  if (!rt_horder_site<I>(o, (int)blockIdx.x, s)) return;
   const rt_lattice c = rt_hcoord<I>(b.box, s);
   const I a = rt_hidx<I>(b, c);     // u's site
   const I at = rt_hidx<I>(bt, c);   // t's site
@@ -233,14 +323,51 @@ __global__ void wilson_normal_pre_ap_kernel(const float* __restrict__ t,
     ap[(I)k * V + ao] = rt_g5_sign(k) * (t[(I)k * Vt + at] - kappa * d[k]);
 }
 
+// K5HO's t kernel on a table of boxes of the ring-1 array (extents et; p
+// and u over ep, ring 2, where t's site c is p's c + 1): t = g5(p - kappa
+// D p) on each box's sites, written into the one ring-1 t array (SoA).
+template <typename I>
+__global__ void wilson_normal_box_t_kernel(const float* __restrict__ p,
+                                           const float* __restrict__ u, float* __restrict__ t,
+                                           float kappa, rt_lattice et, rt_lattice ep,
+                                           const rt_htab tb) {
+  rt_lattice c;
+  if (!rt_htab_site<I>(tb, c)) return;
+  const I a = rt_hidx<I>(rt_hbox{ep, ep, rt_lattice{1, 1, 1, 1}}, c);
+  const I st = rt_hidx<I>(rt_hbox{et, et, rt_lattice{0, 0, 0, 0}}, c);
+  float d[24];
+  rt_halo_hop<I>(p, ep, a, u, ep, a, d);
+  const I V = rt_hvol<I>(et), Va = rt_hvol<I>(ep);
+#pragma unroll
+  for (int k = 0; k < 24; ++k)
+    t[(I)k * V + st] = rt_g5_sign(k) * (p[(I)k * Va + a] - kappa * d[k]);
+}
+
+// K5HO's ap kernel on a table of boxes of the interior (extents in): ap =
+// g5(t - kappa D t) on each box's sites, t over the ring-1 array (extents
+// et, site c + 1), u over ring 2 (eu, c + 2); ap SoA over the interior.
+template <typename I>
+__global__ void wilson_normal_box_ap_kernel(const float* __restrict__ t,
+                                            const float* __restrict__ u, float* __restrict__ ap,
+                                            float kappa, rt_lattice in, rt_lattice et,
+                                            rt_lattice eu, const rt_htab tb) {
+  rt_lattice c;
+  if (!rt_htab_site<I>(tb, c)) return;
+  const I a = rt_hidx<I>(rt_hbox{eu, eu, rt_lattice{2, 2, 2, 2}}, c);   // u's site
+  const I at = rt_hidx<I>(rt_hbox{et, et, rt_lattice{1, 1, 1, 1}}, c);  // t's site
+  const I ao = rt_hidx<I>(rt_hbox{in, in, rt_lattice{0, 0, 0, 0}}, c);  // ap's site
+  float d[24];
+  rt_halo_hop<I>(t, et, at, u, eu, a, d);
+  const I V = rt_hvol<I>(in), Vt = rt_hvol<I>(et);
+#pragma unroll
+  for (int k = 0; k < 24; ++k)
+    ap[(I)k * V + ao] = rt_g5_sign(k) * (t[(I)k * Vt + at] - kappa * d[k]);
+}
+
 // -- host side ------------------------------------------------------------------------
 
 static inline rt_lattice rt_grow(const rt_lattice& L, int w) {
   return rt_lattice{L.X + 2 * w, L.Y + 2 * w, L.Z + 2 * w, L.T + 2 * w};
-}
-
-static inline rt_lattice rt_shift(const rt_lattice& o, int w) {
-  return rt_lattice{o.X + w, o.Y + w, o.Z + w, o.T + w};
 }
 
 // Whether the box (origin o, extents b) lies inside L.
@@ -257,6 +384,38 @@ static inline bool rt_halo_narrow(const rt_lattice& L) {
 
 static inline unsigned rt_horder_grid(const rt_horder& o) {
   return (unsigned)((long long)o.nq * o.X);
+}
+
+// A table from `boxes` (RT_HBOX_INTS ints a box: origin, extents, tsplit,
+// tgap) of boxes inside L, `block` threads a block; false for a table the
+// kernels do not take (too many boxes, a box outside L, a gap that leaves
+// L, a grid past 2^31 blocks).
+#define RT_HBOX_INTS 10
+static bool rt_make_htab(const int* boxes, int nbox, const rt_lattice& L, int block,
+                         rt_htab& tb) {
+  if (nbox < 1 || nbox > RT_HTAB_MAX) return false;
+  tb.n = nbox;
+  long long start = 0;
+  for (int k = 0; k < nbox; ++k) {
+    const int* b = boxes + RT_HBOX_INTS * k;
+    tb.org[k] = rt_lattice{b[0], b[1], b[2], b[3]};
+    tb.ext[k] = rt_lattice{b[4], b[5], b[6], b[7]};
+    tb.tsplit[k] = b[8];
+    tb.tgap[k] = b[9];
+    if (b[8] < 1 || b[8] > b[7] || b[9] < 0 || (b[8] == b[7] && b[9] != 0)) return false;
+    // the box with its gap spans T from org.T to org.T + ext.T + tgap
+    const rt_lattice span{b[4], b[5], b[6], b[7] + b[9]};
+    if (!rt_box_in(L, tb.org[k], span)) return false;
+    tb.start[k] = (int)start;
+    tb.lanes[k] = rt_row_lanes(b[7]);
+    const int g = tb.lanes[k];
+    const rt_horder o = rt_make_horder(rt_lattice{b[4], b[5], b[6], g ? g : b[7]}, block);
+    tb.nq[k] = o.nq;
+    start += rt_horder_grid(o);
+    if (start >= (1LL << 31)) return false;
+  }
+  tb.start[nbox] = (int)start;
+  return true;
 }
 
 extern "C" {
@@ -277,64 +436,83 @@ int rt_dslash_halo(const float* psi_h, const float* u_h, float* out, int X, int 
   RT_LAUNCH_RESULT();
 }
 
-// K5HO's t launch: p_h: 24 x Vh, u_h: 72 x Vh over the interior (X, Y, Z,
-// T) padded by 2 a side; the box at origin (ox, oy, oz, ot) of the
-// interior, of extents (bx, by, bz, bt); t: 24 x (bx+2)(by+2)(bz+2)(bt+2),
-// the box grown by 1; all SoA.
-int rt_wilson_normal_box_t(const float* p_h, const float* u_h, float* t, float kappa, int X,
-                           int Y, int Z, int T, int ox, int oy, int oz, int ot, int bx, int by,
-                           int bz, int bt, int block, cudaStream_t stream) {
-  if (block < 1 || block > 1024) return RT_BAD_LAYOUT;
-  if ((long long)X * Y * Z * T == 0) return 0;
-  const rt_lattice in{X, Y, Z, T}, org{ox, oy, oz, ot}, box{bx, by, bz, bt};
-  if (!rt_box_in(in, org, box)) return RT_BAD_LAYOUT;
-  // the grown box starts one site before the box, at org + 1 in p's array
-  const rt_hbox b{rt_grow(box, 1), rt_grow(in, 2), rt_shift(org, 1)};
-  const rt_horder o = rt_make_horder(b.box, block);
-  if (rt_halo_narrow(b.arr))
-    wilson_normal_pre_t_kernel<int><<<rt_horder_grid(o), block, 0, stream>>>(p_h, u_h, t, kappa,
-                                                                            b, o);
-  else
-    wilson_normal_pre_t_kernel<long long><<<rt_horder_grid(o), block, 0, stream>>>(
-        p_h, u_h, t, kappa, b, o);
-  RT_LAUNCH_RESULT();
-}
-
-// K5HO's ap launch: t from rt_wilson_normal_box_t on the same box, u_h as
-// there; ap: 24 x X Y Z T, SoA, written on the box's sites only.
-int rt_wilson_normal_box_ap(const float* t, const float* u_h, float* ap, float kappa, int X,
-                            int Y, int Z, int T, int ox, int oy, int oz, int ot, int bx, int by,
-                            int bz, int bt, int block, cudaStream_t stream) {
-  if (block < 1 || block > 1024) return RT_BAD_LAYOUT;
-  if ((long long)X * Y * Z * T == 0) return 0;
-  const rt_lattice in{X, Y, Z, T}, org{ox, oy, oz, ot}, box{bx, by, bz, bt};
-  if (!rt_box_in(in, org, box)) return RT_BAD_LAYOUT;
-  const rt_hbox b{box, rt_grow(in, 2), rt_shift(org, 2)};
-  const rt_hbox bt_{box, rt_grow(box, 1), rt_lattice{1, 1, 1, 1}};
-  const rt_hbox bap{box, in, org};
-  const rt_horder o = rt_make_horder(box, block);
-  if (rt_halo_narrow(b.arr))
-    wilson_normal_pre_ap_kernel<int><<<rt_horder_grid(o), block, 0, stream>>>(
-        t, u_h, ap, kappa, b, bt_, bap, o);
-  else
-    wilson_normal_pre_ap_kernel<long long><<<rt_horder_grid(o), block, 0, stream>>>(
-        t, u_h, ap, kappa, b, bt_, bap, o);
-  RT_LAUNCH_RESULT();
-}
-
-// K5H's t launch: the one-box case of rt_wilson_normal_box_t (the whole
-// interior); t: 24 x (X+2)(Y+2)(Z+2)(T+2).
+// K5H's t launch: p_h: 24 x Vh, u_h: 72 x Vh over the interior (X, Y, Z, T)
+// padded by 2 a side; t: 24 x (X+2)(Y+2)(Z+2)(T+2), the whole ring-1
+// array; all SoA.
 int rt_wilson_normal_pre_t(const float* p_h, const float* u_h, float* t, float kappa, int X,
                            int Y, int Z, int T, int block, cudaStream_t stream) {
-  return rt_wilson_normal_box_t(p_h, u_h, t, kappa, X, Y, Z, T, 0, 0, 0, 0, X, Y, Z, T, block,
-                                stream);
+  if (block < 1 || block > 1024) return RT_BAD_LAYOUT;
+  if ((long long)X * Y * Z * T == 0) return 0;
+  const rt_lattice in{X, Y, Z, T}, et = rt_grow(in, 1), ep = rt_grow(in, 2);
+  const rt_hbox bt{et, ep, rt_lattice{1, 1, 1, 1}};
+  const rt_horder o = rt_make_horder(et, block);
+  if (rt_halo_narrow(ep))
+    wilson_normal_pre_t_kernel<int><<<rt_horder_grid(o), block, 0, stream>>>(p_h, u_h, t, kappa,
+                                                                            bt, o);
+  else
+    wilson_normal_pre_t_kernel<long long><<<rt_horder_grid(o), block, 0, stream>>>(
+        p_h, u_h, t, kappa, bt, o);
+  RT_LAUNCH_RESULT();
 }
 
-// K5H's ap launch: the one-box case of rt_wilson_normal_box_ap.
+// K5H's ap launch: t from rt_wilson_normal_pre_t, u_h as there; ap: 24 x X
+// Y Z T, SoA.
 int rt_wilson_normal_pre_ap(const float* t, const float* u_h, float* ap, float kappa, int X,
                             int Y, int Z, int T, int block, cudaStream_t stream) {
-  return rt_wilson_normal_box_ap(t, u_h, ap, kappa, X, Y, Z, T, 0, 0, 0, 0, X, Y, Z, T, block,
-                                 stream);
+  if (block < 1 || block > 1024) return RT_BAD_LAYOUT;
+  if ((long long)X * Y * Z * T == 0) return 0;
+  const rt_lattice in{X, Y, Z, T}, et = rt_grow(in, 1), ep = rt_grow(in, 2);
+  const rt_hbox b{in, ep, rt_lattice{2, 2, 2, 2}}, bt{in, et, rt_lattice{1, 1, 1, 1}},
+      bap{in, in, rt_lattice{0, 0, 0, 0}};
+  const rt_horder o = rt_make_horder(in, block);
+  if (rt_halo_narrow(ep))
+    wilson_normal_pre_ap_kernel<int><<<rt_horder_grid(o), block, 0, stream>>>(t, u_h, ap, kappa,
+                                                                             b, bt, bap, o);
+  else
+    wilson_normal_pre_ap_kernel<long long><<<rt_horder_grid(o), block, 0, stream>>>(
+        t, u_h, ap, kappa, b, bt, bap, o);
+  RT_LAUNCH_RESULT();
+}
+
+// K5HO's t launch: p_h and u_h as for rt_wilson_normal_pre_t; t: the
+// ring-1 array, written on the boxes' sites; boxes: nbox boxes of the
+// ring-1 array (RT_HBOX_INTS ints each).
+int rt_wilson_normal_t_boxes(const float* p_h, const float* u_h, float* t, float kappa, int X,
+                             int Y, int Z, int T, const int* boxes, int nbox, int block,
+                             cudaStream_t stream) {
+  if (block < 1 || block > 1024) return RT_BAD_LAYOUT;
+  if ((long long)X * Y * Z * T == 0) return 0;
+  const rt_lattice in{X, Y, Z, T}, et = rt_grow(in, 1), ep = rt_grow(in, 2);
+  rt_htab tb;
+  if (!rt_make_htab(boxes, nbox, et, block, tb)) return RT_BAD_LAYOUT;
+  const unsigned grid = (unsigned)tb.start[nbox];
+  if (rt_halo_narrow(ep))
+    wilson_normal_box_t_kernel<int><<<grid, block, 0, stream>>>(p_h, u_h, t, kappa, et, ep, tb);
+  else
+    wilson_normal_box_t_kernel<long long><<<grid, block, 0, stream>>>(p_h, u_h, t, kappa, et, ep,
+                                                                      tb);
+  RT_LAUNCH_RESULT();
+}
+
+// K5HO's ap launch: t from rt_wilson_normal_t_boxes (the ring-1 array, its
+// sites around the boxes computed), u_h as there; ap: 24 x X Y Z T, SoA,
+// written on the boxes' sites (boxes of the interior).
+int rt_wilson_normal_ap_boxes(const float* t, const float* u_h, float* ap, float kappa, int X,
+                              int Y, int Z, int T, const int* boxes, int nbox, int block,
+                              cudaStream_t stream) {
+  if (block < 1 || block > 1024) return RT_BAD_LAYOUT;
+  if ((long long)X * Y * Z * T == 0) return 0;
+  const rt_lattice in{X, Y, Z, T}, et = rt_grow(in, 1), ep = rt_grow(in, 2);
+  rt_htab tb;
+  if (!rt_make_htab(boxes, nbox, in, block, tb)) return RT_BAD_LAYOUT;
+  const unsigned grid = (unsigned)tb.start[nbox];
+  if (rt_halo_narrow(ep))
+    wilson_normal_box_ap_kernel<int><<<grid, block, 0, stream>>>(t, u_h, ap, kappa, in, et, ep,
+                                                                 tb);
+  else
+    wilson_normal_box_ap_kernel<long long><<<grid, block, 0, stream>>>(t, u_h, ap, kappa, in, et,
+                                                                       ep, tb);
+  RT_LAUNCH_RESULT();
 }
 
 }  // extern "C"

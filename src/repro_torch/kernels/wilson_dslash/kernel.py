@@ -55,11 +55,16 @@ padded by ``width`` a side, read at the halo'd arrays' own strides.  K5H
 (:func:`wilson_normal_pre_cuda`) is the ``wilson_normal`` graph under
 ``halo="pre"``: ap = M^dag M p on the interior from p and u padded by 2,
 in two launches (t on ring 1, then ap), with no pap (the sharded solve
-takes <p, Ap> from ``dot``).  K5HO (:func:`wilson_normal_box_cuda`) is K5H
-on one box of the interior, the sub-launch of the ``halo="overlap"``
-split: it reads the box's window in place from the whole halo'd p and u
-and writes the box's sites of the whole-interior ap, each bitwise the whole
-launch's.  All take fp32 SoA fields.
+takes <p, Ap> from ``dot``).  K5HO is the same two kernels on tables of
+boxes, the ``halo="overlap"`` split: :func:`wilson_normal_interior_cuda`
+computes t on the interior box grown by 1 and ap on the interior,
+:func:`wilson_normal_boundary_cuda` t on the rest of the ring-1 array (the
+shell, :func:`shell_boxes`) and ap on every boundary box, one launch a
+kernel each, into one ring-1 t array and the whole-interior ap, so that no
+t site is computed twice and every site is bitwise the whole launch's.  The
+two T-slabs of a table are taken as one box (:func:`pair_t_slabs`;
+:func:`split_tables` gives the four launches' tables).  All take fp32 SoA
+fields.
 
 On a CPU tensor each wrapper returns its plain version (unpack, torch ops,
 pack); on a CUDA tensor it launches its kernel or raises.
@@ -67,8 +72,9 @@ pack); on a CUDA tensor it launches its kernel or raises.
 
 from __future__ import annotations
 
+import ctypes
 import math
-from typing import Optional, Sequence, Tuple
+from typing import List, Optional, Sequence, Tuple
 
 import torch
 
@@ -90,8 +96,10 @@ __all__ = ["dslash_cuda", "dslash_plain", "wilson_normal_cuda",
            "WILSON_NORMAL_T_MIXED", "WILSON_NORMAL_AP_MIXED", "BF16_ROUND", "BF16_PACK",
            "dslash_halo_cuda", "dslash_halo_plain", "wilson_normal_pre_cuda",
            "wilson_normal_pre_plain", "DSLASH_HALO", "WILSON_NORMAL_PRE_T",
-           "WILSON_NORMAL_PRE_AP", "wilson_normal_box_cuda", "wilson_normal_box_plain",
-           "WILSON_NORMAL_BOX_T", "WILSON_NORMAL_BOX_AP"]
+           "WILSON_NORMAL_PRE_AP", "wilson_normal_box_plain", "wilson_normal_interior_cuda",
+           "wilson_normal_boundary_cuda", "wilson_normal_split_plain", "split_tables",
+           "shell_boxes", "pair_t_slabs", "table_entries", "HTAB_MAX", "WILSON_NORMAL_BOX_T",
+           "WILSON_NORMAL_BOX_AP", "table_reads", "table_footprint"]
 
 DSLASH = Kernel("dslash", "rt_dslash")
 WILSON_NORMAL_T = Kernel("wilson_normal_t", "rt_wilson_normal_t")
@@ -113,9 +121,9 @@ NORMAL_TILED_BLOCK = 128   # K5T's walk positions a block (K5's default vvl)
 DSLASH_HALO = Kernel("dslash_halo", "rt_dslash_halo")
 WILSON_NORMAL_PRE_T = Kernel("wilson_normal_pre_t", "rt_wilson_normal_pre_t")
 WILSON_NORMAL_PRE_AP = Kernel("wilson_normal_pre_ap", "rt_wilson_normal_pre_ap")
-# K5HO, K5H on one box of the interior (the halo="overlap" sub-launches)
-WILSON_NORMAL_BOX_T = Kernel("wilson_normal_box_t", "rt_wilson_normal_box_t")
-WILSON_NORMAL_BOX_AP = Kernel("wilson_normal_box_ap", "rt_wilson_normal_box_ap")
+# K5HO: K5H's site arithmetic on the halo="overlap" split's box tables
+WILSON_NORMAL_BOX_T = Kernel("wilson_normal_box_t", "rt_wilson_normal_t_boxes")
+WILSON_NORMAL_BOX_AP = Kernel("wilson_normal_box_ap", "rt_wilson_normal_ap_boxes")
 
 
 def bf16_round(x: torch.Tensor) -> torch.Tensor:
@@ -556,6 +564,212 @@ def wilson_normal_pre_plain(p_h: torch.Tensor, u_h: torch.Tensor, kappa: float,
     return ap.reshape(24, -1)
 
 
+# A box table entry: (origin, extents, tsplit, tgap), the box's T index j at
+# T = j, or j + tgap from j = tsplit on (csrc/wilson_halo.cu's rt_htab)
+Entry = Tuple[Tuple[int, ...], Tuple[int, ...], int, int]
+
+
+HTAB_MAX = 8   # boxes a table launch takes (csrc's RT_HTAB_MAX; a test holds the two equal)
+
+
+def table_entries(boxes) -> List[Entry]:
+    """Box table entries of (origin, extents) boxes, no gaps."""
+    return [(tuple(int(v) for v in o), tuple(int(v) for v in e), int(e[3]), 0)
+            for o, e in boxes]
+
+
+def pair_t_slabs(boxes) -> List[Entry]:
+    """Table entries of (origin, extents) boxes, two consecutive boxes that
+    differ only in T (a lo and a hi T-slab of one x, y, z range: a split's
+    last two boxes) taken as one entry with a gap between them, so that a
+    warp's sites of the two slabs share the 32-byte sectors where one row's
+    hi slab meets the next row's lo slab."""
+    out: List[Entry] = []
+    ents = table_entries(boxes)
+    i = 0
+    while i < len(ents):
+        o, e, _, _ = ents[i]
+        if i + 1 < len(ents):
+            o2, e2, _, _ = ents[i + 1]
+            if o[:3] == o2[:3] and e[:3] == e2[:3] and o2[3] > o[3] + e[3]:
+                out.append((o, e[:3] + (e[3] + e2[3],), e[3], o2[3] - o[3] - e[3]))
+                i += 2
+                continue
+        out.append(ents[i])
+        i += 1
+    return out
+
+
+def shell_boxes(lattice, origin, extents) -> List[Tuple[Tuple[int, ...], Tuple[int, ...]]]:
+    """The ring-1 array of ``lattice`` (its extents + 2) less the box at
+    ``origin``, ``extents`` of the interior grown by 1 (in ring-1
+    coordinates: at ``origin``, extents + 2), as (origin, extents) boxes of
+    the ring-1 array carved in ``core.overlap.split_boxes``' order: two
+    slabs a dim the grown box does not span, the earlier such dims cut to
+    its range, a disjoint cover; at most 8 boxes."""
+    lat = tuple(int(v) + 2 for v in lattice)
+    go, ge = tuple(int(v) for v in origin), tuple(int(v) + 2 for v in extents)
+    rng = [(0, L) for L in lat]
+    out = []
+    for d, L in enumerate(lat):
+        if go[d] == 0 and ge[d] == L:
+            continue
+        for a, b in ((0, go[d]), (go[d] + ge[d], L)):
+            if b > a:
+                box = list(rng)
+                box[d] = (a, b)
+                out.append((tuple(s for s, _ in box), tuple(e - s for s, e in box)))
+        rng[d] = (go[d], go[d] + ge[d])
+    return out
+
+
+def _entry_mask(shape, entries: Sequence[Entry], device) -> torch.Tensor:
+    m = torch.zeros(shape, dtype=torch.bool, device=device)
+    for o, e, ts, tg in entries:
+        xyz = tuple(slice(a, a + b) for a, b in zip(o[:3], e[:3]))
+        m[xyz + (slice(o[3], o[3] + ts),)] = True
+        if ts < e[3]:
+            m[xyz + (slice(o[3] + ts + tg, o[3] + e[3] + tg),)] = True
+    return m
+
+
+def _placed(m: torch.Tensor, shape, off: int, disp) -> torch.Tensor:
+    """m's sites moved into an array of ``shape`` at offset ``off`` + disp."""
+    out = torch.zeros(shape, dtype=torch.bool, device=m.device)
+    out[tuple(slice(off + d, off + d + n) for d, n in zip(disp, m.shape))] = m
+    return out
+
+
+def _sectors(parts) -> int:
+    """32-byte sectors of one SoA fp32 field read at each (mask, comps) of
+    ``parts``: its planes ``comps`` at the mask's sites (a sector that
+    straddles two planes counted once)."""
+    V = parts[0][0].numel()
+    if V % 8 == 0:
+        return sum(len(c) * int(m.reshape(-1, 8).any(dim=1).sum()) for m, c in parts)
+    idx = [(m.reshape(-1).nonzero().reshape(-1), c) for m, c in parts]
+    return int(torch.unique(torch.cat([(k * V + i) // 8 for i, c in idx for k in c])).numel())
+
+
+def table_reads(lattice, kind: str, entries: Sequence[Entry], device="cpu"):
+    """The values a table launch reads and writes, as masks: (out, spinor,
+    links) with ``out`` the computed sites of its output array, ``spinor``
+    the sites of the spinor it reads (each computed site and its 8
+    neighbours) and ``links`` (mask, components) of u, one a direction (u
+    at the site and a step below it).  ``kind`` "t": t on ring-1 boxes
+    (array extents + 2) from p and u (ring 2); "ap": ap on interior boxes
+    from t (ring 1) and u; u's masks are over ring 2 in both."""
+    lat = _check_4d(lattice)
+    et, ep = _grow(lat, 1), _grow(lat, 2)
+    if kind not in ("t", "ap"):
+        raise ValueError(f"kind must be 't' or 'ap', got {kind!r}")
+    # the computed array, the spinor it reads (at the site + 1) and u's offset
+    out, src, u_off = (et, ep, 1) if kind == "t" else (lat, et, 2)
+    m = _entry_mask(out, entries, device)
+    units = [tuple(1 if d == mu else 0 for d in range(4)) for mu in range(4)]
+    reads = _placed(m, src, 1, (0, 0, 0, 0))
+    for e in units:
+        reads |= _placed(m, src, 1, e) | _placed(m, src, 1, tuple(-v for v in e))
+    u_site = _placed(m, ep, u_off, (0, 0, 0, 0))
+    links = [(u_site | _placed(m, ep, u_off, tuple(-v for v in e)), range(18 * mu, 18 * mu + 18))
+             for mu, e in enumerate(units)]
+    return m, reads, links
+
+
+def table_footprint(lattice, kind: str, entries: Sequence[Entry], device="cpu"):
+    """(bytes, sectors) a table launch must move: each value it reads or
+    writes once (:func:`table_reads`), in bytes, and the 32-byte sectors
+    those values lie in (SoA fp32).  A thin box's sectors hold few of its
+    values, so its sector bound (sectors x 32 B over the memory rate) says
+    what the layout lets it reach."""
+    m, reads, links = table_reads(lattice, kind, entries, device)
+    nbytes = 4 * (24 * int(reads.sum()) + 24 * int(m.sum())
+                  + sum(18 * int(link.sum()) for link, _ in links))
+    sectors = _sectors([(reads, range(24))]) + _sectors([(m, range(24))]) + _sectors(links)
+    return nbytes, sectors
+
+
+def _oe(box):
+    o, e = box
+    return tuple(int(v) for v in o), tuple(int(v) for v in e)
+
+
+def split_tables(lattice, interior, boundary) -> dict:
+    """K5HO's four launches on the overlap split of ``lattice`` (the
+    ``interior`` box and the ``boundary`` boxes, each (origin, extents)):
+    {"interior t", "interior ap", "shell t", "boundary ap"} -> (kind,
+    table entries), in launch order; the shell's and the boundary's
+    T-slabs paired."""
+    o, e = _oe(interior)
+    shell = shell_boxes(lattice, o, e)
+    return {"interior t": ("t", table_entries([(o, _grow(e, 1))])),
+            "interior ap": ("ap", table_entries([(o, e)])),
+            "shell t": ("t", pair_t_slabs(shell)),
+            "boundary ap": ("ap", pair_t_slabs([_oe(b) for b in boundary]))}
+
+
+def _table(entries: Sequence[Entry]):
+    """The C table of ``entries`` (10 ints an entry); raises for more
+    boxes than a launch takes."""
+    if not 1 <= len(entries) <= HTAB_MAX:
+        raise ValueError(f"a box table launch takes 1 to {HTAB_MAX} boxes, got {len(entries)}")
+    vals = [v for o, e, ts, tg in entries for v in (*o, *e, ts, tg)]
+    return (ctypes.c_int * len(vals))(*vals), len(entries)
+
+
+def _t_box_plain(p_nd, u_nd, kappa, lat, org, ext):
+    """t = g5(p - kappa D p) (24, *ext) on the ring-1 box at ``org``, from
+    p and u over ``lat`` padded by 2 (canonical)."""
+    sl = (slice(None),) + box_slices(_grow(lat, 1), org, ext, 1)
+    pw, uw = p_nd[sl], u_nd[sl]
+    return _m_g5(shifted_window(pw, (0, 0, 0, 0), 1, _DIMS4), _hop_box(pw, 1, uw, 1), kappa)
+
+
+def _ap_box_plain(t_nd, u_nd, kappa, lat, org, ext):
+    """ap = g5(t - kappa D t) (24, *ext) on the interior box at ``org``,
+    from t over ``lat`` padded by 1 and u padded by 2 (canonical)."""
+    tw = t_nd[(slice(None),) + box_slices(lat, org, ext, 1)]
+    uw = u_nd[(slice(None),) + tuple(slice(a + 1, a + b + 3) for a, b in zip(org, ext))]
+    return _m_g5(shifted_window(tw, (0, 0, 0, 0), 1, _DIMS4), _hop_box(tw, 1, uw, 1), kappa)
+
+
+def _put(dst_nd, org, ext, val):
+    dst_nd[(slice(None),) + tuple(slice(a, a + b) for a, b in zip(org, ext))] = val
+
+
+def _tables_plain(p_h, u_h, kappa, lat, t_boxes, ap_boxes, t, ap):
+    hl = _grow(lat, 2)
+    p_nd, u_nd = p_h.reshape((24,) + hl), u_h.reshape((72,) + hl)
+    t_nd = t.reshape((24,) + _grow(lat, 1))
+    for o, e in t_boxes:
+        _put(t_nd, o, e, _t_box_plain(p_nd, u_nd, kappa, lat, o, e))
+    ap_nd = ap.reshape((24,) + lat)
+    for o, e in ap_boxes:
+        _put(ap_nd, o, e, _ap_box_plain(t_nd, u_nd, kappa, lat, o, e))
+
+
+def _check_halo_operands(p_h, u_h, lat, t, ap):
+    Vh = math.prod(_grow(lat, 2))
+    check_tensor("p_h", p_h, (24, Vh), p_h.device)
+    check_tensor("u_h", u_h, (72, Vh), p_h.device)
+    check_tensor("t", t, (24, math.prod(_grow(lat, 1))), p_h.device)
+    check_tensor("ap", ap, (24, math.prod(lat)), p_h.device)
+
+
+def _launch_tables(p_h, u_h, kappa, lat, t_entries, ap_entries, t, ap, vvl):
+    """K5HO's two kernels on box tables: t on the ``t_entries`` boxes of
+    the ring-1 array ``t``, then ap on the ``ap_entries`` boxes of the
+    interior, written into ``ap``; one launch each.  CUDA tensors only."""
+    _check_halo_operands(p_h, u_h, lat, t, ap)
+    tt, nt = _table(t_entries)
+    ta, na = _table(ap_entries)
+    WILSON_NORMAL_BOX_T.launch(p_h.device, p_h.data_ptr(), u_h.data_ptr(), t.data_ptr(),
+                               float(kappa), *lat, tt, nt, vvl)
+    WILSON_NORMAL_BOX_AP.launch(p_h.device, t.data_ptr(), u_h.data_ptr(), ap.data_ptr(),
+                                float(kappa), *lat, ta, na, vvl)
+    return ap
+
+
 def wilson_normal_pre_cuda(p_h: torch.Tensor, u_h: torch.Tensor, kappa: float, lattice,
                            vvl: int = 128) -> torch.Tensor:
     """K5H: :func:`wilson_normal_pre_plain` in two launches (``vvl`` sites a
@@ -563,11 +777,9 @@ def wilson_normal_pre_cuda(p_h: torch.Tensor, u_h: torch.Tensor, kappa: float, l
     if p_h.device.type == "cpu":
         return wilson_normal_pre_plain(p_h, u_h, kappa, lattice)
     lat = _check_4d(lattice)
-    Vh = math.prod(_grow(lat, 2))
-    check_tensor("p_h", p_h, (24, Vh), p_h.device)
-    check_tensor("u_h", u_h, (72, Vh), p_h.device)
     t = torch.empty((24, math.prod(_grow(lat, 1))), dtype=p_h.dtype, device=p_h.device)
     ap = torch.empty((24, math.prod(lat)), dtype=p_h.dtype, device=p_h.device)
+    _check_halo_operands(p_h, u_h, lat, t, ap)
     WILSON_NORMAL_PRE_T.launch(p_h.device, p_h.data_ptr(), u_h.data_ptr(), t.data_ptr(),
                                float(kappa), *lat, vvl)
     WILSON_NORMAL_PRE_AP.launch(p_h.device, t.data_ptr(), u_h.data_ptr(), ap.data_ptr(),
@@ -589,26 +801,57 @@ def wilson_normal_box_plain(p_h: torch.Tensor, u_h: torch.Tensor, kappa: float, 
                                    kappa, tuple(int(e) for e in extents))
 
 
-def wilson_normal_box_cuda(p_h: torch.Tensor, u_h: torch.Tensor, kappa: float, lattice, origin,
-                           extents, ap: torch.Tensor, vvl: int = 128) -> torch.Tensor:
-    """K5HO: :func:`wilson_normal_box_plain` written into the box's sites of
-    ``ap`` (24, V), the whole interior's SoA output, in two launches (``vvl``
-    sites a block): t over the box grown by 1 into a scratch buffer of the
-    box's own, then ap.  Returns ``ap``."""
+def wilson_normal_interior_cuda(p_h: torch.Tensor, u_h: torch.Tensor, kappa: float, lattice,
+                                interior, t: torch.Tensor, ap: torch.Tensor,
+                                vvl: int = 128) -> torch.Tensor:
+    """K5HO's interior: t on the ``interior`` box ((origin, extents) of the
+    interior ``lattice``) grown by 1 into the ring-1 array ``t``, then ap
+    on the box into ``ap`` (24, V), one launch each; it reads p only at
+    owned sites where the interior is a split's.  On CPU tensors the plain
+    version.  Returns ``ap``."""
     lat = _check_4d(lattice)
-    sl = box_slices(lat, origin, extents)
+    o, e = _oe(interior)
+    box_slices(lat, o, e)
     if p_h.device.type == "cpu":
-        ap.reshape((24,) + lat)[(slice(None),) + sl] = wilson_normal_box_plain(
-            p_h, u_h, kappa, lat, origin, extents).reshape((24,) + tuple(extents))
+        _tables_plain(p_h, u_h, kappa, lat, [(o, _grow(e, 1))], [(o, e)], t, ap)
         return ap
-    Vh = math.prod(_grow(lat, 2))
-    check_tensor("p_h", p_h, (24, Vh), p_h.device)
-    check_tensor("u_h", u_h, (72, Vh), p_h.device)
-    check_tensor("ap", ap, (24, math.prod(lat)), p_h.device)
-    o, e = tuple(s.start for s in sl), tuple(s.stop - s.start for s in sl)
-    t = torch.empty((24, math.prod(_grow(e, 1))), dtype=p_h.dtype, device=p_h.device)
-    WILSON_NORMAL_BOX_T.launch(p_h.device, p_h.data_ptr(), u_h.data_ptr(), t.data_ptr(),
-                               float(kappa), *lat, *o, *e, vvl)
-    WILSON_NORMAL_BOX_AP.launch(p_h.device, t.data_ptr(), u_h.data_ptr(), ap.data_ptr(),
-                                float(kappa), *lat, *o, *e, vvl)
+    tabs = split_tables(lat, (o, e), [])
+    return _launch_tables(p_h, u_h, kappa, lat, tabs["interior t"][1], tabs["interior ap"][1], t,
+                          ap, vvl)
+
+
+def wilson_normal_boundary_cuda(p_h: torch.Tensor, u_h: torch.Tensor, kappa: float, lattice,
+                                interior, boundary, t: torch.Tensor, ap: torch.Tensor,
+                                vvl: int = 128) -> torch.Tensor:
+    """K5HO's boundary, after :func:`wilson_normal_interior_cuda` on the same
+    ``interior`` and ``t``: t on the shell (:func:`shell_boxes`), then ap on
+    every ``boundary`` box, each kernel one launch over its table, the
+    T-slabs paired (:func:`pair_t_slabs`).  On CPU tensors the plain
+    version.  Returns ``ap``."""
+    lat = _check_4d(lattice)
+    o, e = _oe(interior)
+    bnd = [_oe(b) for b in boundary]
+    for bo, be in bnd:
+        box_slices(lat, bo, be)
+    if p_h.device.type == "cpu":
+        _tables_plain(p_h, u_h, kappa, lat, shell_boxes(lat, o, e), bnd, t, ap)
+        return ap
+    tabs = split_tables(lat, (o, e), bnd)
+    return _launch_tables(p_h, u_h, kappa, lat, tabs["shell t"][1], tabs["boundary ap"][1], t,
+                          ap, vvl)
+
+
+def wilson_normal_split_plain(p_h: torch.Tensor, u_h: torch.Tensor, kappa: float, lattice,
+                              interior, boundary) -> torch.Tensor:
+    """The box-table schedule in torch ops: t once into one ring-1 array
+    (the interior's grown box, then the shell), ap on the interior, then on
+    the boundary boxes; returns ap (24, V)."""
+    lat = _check_4d(lattice)
+    t = torch.full((24, math.prod(_grow(lat, 1))), float("nan"), dtype=p_h.dtype,
+                   device=p_h.device)
+    ap = torch.full((24, math.prod(lat)), float("nan"), dtype=p_h.dtype, device=p_h.device)
+    o, e = _oe(interior)
+    _tables_plain(p_h, u_h, kappa, lat, [(o, _grow(e, 1))], [(o, e)], t, ap)
+    _tables_plain(p_h, u_h, kappa, lat, shell_boxes(lat, o, e), [_oe(b) for b in boundary], t,
+                  ap)
     return ap

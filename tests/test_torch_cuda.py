@@ -2304,7 +2304,8 @@ def test_k8h_propagate_halo_bitwise(card, lat, width, rng):
 
 
 @pytest.mark.cuda
-@pytest.mark.parametrize("lat", [(4, 4, 4, 8), (6, 4, 2, 32)], ids=str)
+@pytest.mark.parametrize("lat", [(4, 4, 4, 8), (6, 4, 2, 32), (5, 7, 3, 9), (9, 6, 10, 18)],
+                         ids=str)
 def test_k5h_wilson_normal_pre(card, lat, rng):
     """K5H (the wilson_normal graph under halo="pre", two launches) against
     its plain version, on random halo'd inputs and on wrap-padded ones
@@ -2426,28 +2427,59 @@ def _box(t, lat, o, e):
         (slice(None),) + tuple(slice(a, a + b) for a, b in zip(o, e))]
 
 
+def _k5ho_split(p, u, lat, boxes, t=None, ap=None):
+    """K5HO's two parts on a split (interior, then boundary) into fresh
+    NaN-filled t and ap."""
+    V = int(np.prod(lat))
+    t = torch.full((24, int(np.prod([s + 2 for s in lat]))), float("nan"), device=p.device)
+    ap = torch.full((24, V), float("nan"), device=p.device)
+    K.wilson_normal_interior_cuda(p, u, 0.12, lat, boxes[0], t, ap)
+    if len(boxes) > 1:
+        K.wilson_normal_boundary_cuda(p, u, 0.12, lat, boxes[0], boxes[1:], t, ap)
+    return t, ap
+
+
 @pytest.mark.cuda
 @pytest.mark.parametrize("lat,dims", [((8, 8, 8, 8), None), ((6, 5, 7, 32), (0, 2)),
                                       ((5, 9, 6, 7), (1, 3))], ids=str)
 def test_k5ho_wilson_normal_box(card, lat, dims, rng):
-    """K5HO on every box of a split: each box within FIELD_RTOL of its
-    plain version and bitwise K5H's sites there (the same arithmetic a
-    site), the assembled ap bitwise K5H's, two launches a box."""
+    """K5HO on a split's box tables: each box within FIELD_RTOL of its plain
+    version and bitwise K5H's sites there (the same arithmetic a site), the
+    assembled ap bitwise K5H's, t computed on every ring-1 site; two
+    launches a part, four a split."""
     hl = tuple(s + 4 for s in lat)
-    Vh, V = int(np.prod(hl)), int(np.prod(lat))
+    Vh = int(np.prod(hl))
     p, u = _dev(rng, (24, Vh), card), _dev(rng, (72, Vh), card)
     whole = K.wilson_normal_pre_cuda(p, u, 0.12, lat)
-    ap = torch.full((24, V), float("nan"), device=card)
     boxes = _split(lat, 2, dims)
     n0 = (K.WILSON_NORMAL_BOX_T.launches, K.WILSON_NORMAL_BOX_AP.launches)
+    t, ap = _k5ho_split(p, u, lat, boxes)
+    assert (K.WILSON_NORMAL_BOX_T.launches - n0[0],
+            K.WILSON_NORMAL_BOX_AP.launches - n0[1]) == (2, 2)
     for o, e in boxes:
-        K.wilson_normal_box_cuda(p, u, 0.12, lat, o, e, ap)
         got = _box(ap, lat, o, e)
         _close_field(got.reshape(24, -1), K.wilson_normal_box_plain(p, u, 0.12, lat, o, e))
         assert _bits(got, _box(whole, lat, o, e))
-    assert (K.WILSON_NORMAL_BOX_T.launches - n0[0],
-            K.WILSON_NORMAL_BOX_AP.launches - n0[1]) == (len(boxes), len(boxes))
-    assert _bits(ap, whole)
+    assert _bits(ap, whole) and not t.isnan().any()
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("lat", [(6, 7, 5, 6), (10, 10, 4, 4)], ids=str)
+def test_k5ho_box_tables_bitwise_k5h_on_every_split(card, lat, rng):
+    """K5HO bitwise K5H on every site for every split of 1-4 decomposed dims
+    that leaves an interior (the shell's and the boundary's T-slabs paired
+    where T is split)."""
+    import itertools
+    hl = tuple(s + 4 for s in lat)
+    Vh = int(np.prod(hl))
+    p, u = _dev(rng, (24, Vh), card), _dev(rng, (72, Vh), card)
+    whole = K.wilson_normal_pre_cuda(p, u, 0.12, lat)
+    for r in range(1, 5):
+        for dims in itertools.combinations(range(4), r):
+            if any(lat[d] < 5 for d in dims):   # ring 2 leaves no interior
+                continue
+            t, ap = _k5ho_split(p, u, lat, _split(lat, 2, dims))
+            assert _bits(ap, whole) and not t.isnan().any(), dims
 
 
 @pytest.mark.cuda
@@ -2487,7 +2519,7 @@ def test_overlap_graph_launches_run_only_the_box_kernels(card, rng):
     n = (K.WILSON_NORMAL_PRE_AP.launches, K.WILSON_NORMAL_BOX_AP.launches)
     ov = g.launch(ins, config=tgt, outputs=("ap",), halo="overlap")["ap"]
     assert (K.WILSON_NORMAL_PRE_AP.launches - n[0], K.WILSON_NORMAL_BOX_AP.launches - n[1]) == \
-        (0, 9)
+        (0, 2)
     assert _bits(ov.data, pre.data)
     with pytest.raises(ValueError, match="produces"):
         g.launch(ins, config=tgt, outputs=("ap", "pap"), halo="overlap")
@@ -2505,16 +2537,26 @@ def test_overlap_graph_launches_run_only_the_box_kernels(card, rng):
 
 
 @pytest.mark.cuda
-def test_two_stream_overlap_launch_bitwise_pre_over_20_repeats(card, rng):
+def test_two_stream_overlap_launch_bitwise_pre_over_20_repeats(card, rng, monkeypatch):
     """overlap_launch on a one-rank mesh of four axes: p filled, its
     exchange on the side stream beside the interior box (K5HO), 20 times,
     each time on a freshly allocated halo'd p that is dropped afterwards
     (a tensor reused early by the caching allocator would show as wrong
     bits), and the same for the LB graph: bitwise the "pre" launch on the
-    exchanged arrays every time."""
+    exchanged arrays every time; the interior's two kernels are issued
+    before the exchange starts, the boundary's two after it."""
     from repro_torch.core import halo as H
     from repro_torch.core.overlap import overlap_launch
     from repro_torch.launch.mesh import Mesh
+
+    at_start = []
+    start = H.start_exchange
+
+    def spy(*a, **kw):
+        at_start.append((K.WILSON_NORMAL_BOX_T.launches, K.WILSON_NORMAL_BOX_AP.launches))
+        return start(*a, **kw)
+
+    monkeypatch.setattr(H, "start_exchange", spy)
 
     tgt = TargetConfig("cuda", device="cuda")
     mesh = Mesh((1, 1, 1, 1), ("x", "y", "z", "t"), rank=0, world_size=1, local_rank=0)
@@ -2526,6 +2568,7 @@ def test_two_stream_overlap_launch_bitwise_pre_over_20_repeats(card, rng):
     uF = Field.from_canonical("u", uh, tuple(uh.shape[1:]))
     n0 = K.WILSON_NORMAL_BOX_AP.launches
     for i in range(20):
+        n = (K.WILSON_NORMAL_BOX_T.launches, K.WILSON_NORMAL_BOX_AP.launches)
         p0 = _dev(rng, (24,) + lat, card)
         want = g.launch({"p": Field.from_canonical("p", H.exchange_padded(p0, dec, width=2,
                                                                           mesh=mesh),
@@ -2538,7 +2581,10 @@ def test_two_stream_overlap_launch_bitwise_pre_over_20_repeats(card, rng):
         del ph
         torch.empty_like(uh).fill_(float("nan"))   # reuse freed blocks, if any are free
         assert _bits(got.data, want.data), i
-    assert K.WILSON_NORMAL_BOX_AP.launches - n0 == 20 * 9
+        assert at_start[-1] == (n[0] + 1, n[1] + 1), i     # the interior came first
+        assert (K.WILSON_NORMAL_BOX_T.launches, K.WILSON_NORMAL_BOX_AP.launches) == \
+            (n[0] + 2, n[1] + 2), i
+    assert K.WILSON_NORMAL_BOX_AP.launches - n0 == 20 * 2
     m3 = Mesh((1, 1, 1), ("x", "y", "z"), rank=0, world_size=1, local_rank=0)
     dec3 = tuple((d + 1, ax, 1) for d, ax in enumerate(("x", "y", "z")))
     lat3 = (32, 16, 24)
@@ -2565,8 +2611,8 @@ def test_two_stream_overlap_launch_bitwise_pre_over_20_repeats(card, rng):
 @pytest.mark.cuda
 def test_one_rank_overlap_paths_on_the_card(card):
     """A one-rank mesh on the card: the sharded MILC solve under "overlap"
-    with "pre"'s iterations and x bitwise, K5HO's ap launches 9 an
-    iteration and no K5H; 3 sharded Ludwig steps under "overlap" bitwise
+    with "pre"'s iterations and x bitwise, K5HO's four kernels an iteration
+    and no K5H; 3 sharded Ludwig steps under "overlap" bitwise
     the "pre" steps, K5LHO 7 launches a step and no K5LH."""
     from repro_torch.apps.ludwig.driver import make_sharded_step
     from repro_torch.apps.milc.driver import make_domain, make_sharded_solver
@@ -2580,11 +2626,13 @@ def test_one_rank_overlap_paths_on_the_card(card):
     md = make_domain(mc, m4, ("x", "y", "z", "t"))
     ul, bl = md.scatter(u.canonical_nd()), md.scatter(b.canonical_nd())
     xp, itp, _ = make_sharded_solver(mc, md, "pre")(ul, bl)
-    n = (K.WILSON_NORMAL_PRE_AP.launches, K.WILSON_NORMAL_BOX_AP.launches)
+    n = (K.WILSON_NORMAL_PRE_AP.launches, K.WILSON_NORMAL_BOX_T.launches,
+         K.WILSON_NORMAL_BOX_AP.launches)
     x, it, _ = make_sharded_solver(mc, md, "overlap")(ul, bl)
     assert it == itp and _bits(x, xp)
-    assert (K.WILSON_NORMAL_PRE_AP.launches - n[0],
-            K.WILSON_NORMAL_BOX_AP.launches - n[1]) == (0, 9 * it)
+    # four K5HO kernels an operator: interior t and ap, shell t, boundary ap
+    assert (K.WILSON_NORMAL_PRE_AP.launches - n[0], K.WILSON_NORMAL_BOX_T.launches - n[1],
+            K.WILSON_NORMAL_BOX_AP.launches - n[2]) == (0, 2 * it, 2 * it)
     cfg = LudwigConfig(lattice=(16, 8, 8), target=tgt)
     st = init_state(cfg, seed=0)
     mesh = Mesh((1, 1, 1), ("x", "y", "z"), rank=0, world_size=1, local_rank=0)

@@ -26,6 +26,7 @@ import pytest
 
 torch = pytest.importorskip("torch")
 
+import jax  # noqa: E402
 import jax.numpy as jnp  # noqa: E402
 
 from repro.apps.ludwig import driver as JLD  # noqa: E402
@@ -93,6 +94,16 @@ def _padded(arr, width=1, name="x", site_dims=SITE_DIMS):
 
 def _padded_field(rng, lat=LAT, ncomp=3, width=1, name="x"):
     return _padded(rng.normal(size=(ncomp, *lat)).astype(np.float32), width, name)[0]
+
+
+@pytest.fixture(autouse=True, scope="module")
+def _cold_reference_caches():
+    """Drop JAX's compiled kernels when this file is done: the JAX package's
+    tests/test_overlap.py counts the pallas_calls its split constructs,
+    which the reference launches here would otherwise leave compiled for a
+    later file in the same process."""
+    yield
+    jax.clear_caches()
 
 
 @pytest.fixture
@@ -487,7 +498,6 @@ def test_wilson_normal_box_plain_on_each_box(lat, dims, rng):
     g, jg = PCG.wilson_normal_graph(kappa), JCG.wilson_normal_graph(kappa)
     ph, uh = pF.canonical(), uF.canonical()
     whole = wk.wilson_normal_pre_plain(ph, uh, kappa, lat)
-    ap = torch.full(whole.shape, float("nan"))
     for box in _boxes(lat, 2, dims):
         o, e = [s for s, _ in box], [b - a for a, b in box]
         got = wk.wilson_normal_box_plain(ph, uh, kappa, lat, o, e)
@@ -499,7 +509,12 @@ def test_wilson_normal_box_plain_on_each_box(lat, dims, rng):
         jwin = {n: joverlap._window(f, box, 2) for n, f in (("p", jpF), ("u", juF))}
         jsub = jg.launch(jwin, config=JTC("jnp"), outputs=("ap",), halo="pre")["ap"]
         _close(got.numpy(), np.asarray(jsub.canonical()))
-        wk.wilson_normal_box_cuda(ph, uh, kappa, lat, o, e, ap)
+    interior, boundary = overlap.split_boxes(lat, 2, dims)
+    oe = [([a for a, _ in bx], [b - a for a, b in bx]) for bx in [interior] + boundary]
+    t = torch.full((24, int(np.prod([s + 2 for s in lat]))), float("nan"))
+    ap = torch.full(whole.shape, float("nan"))
+    wk.wilson_normal_interior_cuda(ph, uh, kappa, lat, oe[0], t, ap)
+    wk.wilson_normal_boundary_cuda(ph, uh, kappa, lat, oe[0], oe[1:], t, ap)
     assert torch.equal(ap, whole)
 
 

@@ -3,6 +3,8 @@ the caching allocator's device allocations and syncs a call: where the
 "overlap" schedule's time goes beside "pre".
 
   python3 tools/overlap_probe.py [--src DIR] [--lattice 64 64 64 32] [--reps 20]
+  python3 tools/overlap_probe.py [--src DIR] --ludwig 256 256 256 [--reps 20]
+  python3 tools/overlap_probe.py [--src DIR] --solve [--lattice 64 64 64 32]
 
 ``--src`` is the ``src`` directory whose ``repro_torch`` is imported (default:
 this checkout's), so that two trees can be timed in one process each, in
@@ -25,8 +27,23 @@ the variants in order, then in reverse.  Beside each: the allocator's
 trace of one "overlap" call: each device event's stream, start and
 duration relative to the call's first, and the ms during which the
 interior box's kernels and the other stream's copies both ran.  Prints the
-card's name and power limit, a line a variant, then one JSON line.  Needs
-a CUDA device; exits with 1 without one.
+card's name and power limit, a line a variant, then one JSON line.
+
+With ``--ludwig X Y Z`` it times the sharded Ludwig step instead (the
+steps chip_smoke.py's D3 times): from ``init_state(seed=0)`` on a one-rank
+mesh of three axes, ``make_sharded_step`` under "pre" and "overlap", one
+step to warm up, then ``--reps`` steps with the card synchronised after
+the last (host wall time a step), "pre" then "overlap", then in reverse;
+the two schedules' last states compared bitwise.
+
+With ``--solve`` it times the sharded MILC solve instead (the solves
+chip_smoke.py's D2 times): ``init_problem(seed=0)`` at ``--lattice`` on
+the one-rank mesh, ``make_sharded_solver`` under "pre" and "overlap",
+each solved once after ``torch.cuda.empty_cache()`` (cold, as D2 runs it)
+and once more (warm), ms an iteration by the host clock with the card
+synchronised, with the allocator's counts a solve; "pre" then "overlap",
+then in reverse; x compared bitwise.  Needs a CUDA device; exits with 1
+without one.
 """
 
 from __future__ import annotations
@@ -43,6 +60,7 @@ from pathlib import Path
 
 KAPPA = 0.12
 AXES = ("x", "y", "z", "t")
+BOX_KERNELS = 4    # K5HO's kernels an operator: the interior's t and ap, the boundary's
 
 
 def stats():
@@ -51,11 +69,92 @@ def stats():
     return {k: s.get(k) for k in ("num_device_alloc", "num_sync_all_streams", "num_alloc_retries")}
 
 
+def ludwig_steps(lat, reps, card) -> dict:
+    """The sharded Ludwig step's ms under "pre" and "overlap" (see the
+    module's docstring)."""
+    import torch
+    from repro_torch.apps.ludwig import LudwigConfig, init_state
+    from repro_torch.apps.ludwig import driver as ludwig
+    from repro_torch.core.target import TargetConfig
+    from repro_torch.launch.mesh import Mesh
+    from repro_torch.lattice import Domain
+
+    axes = AXES[:3]
+    cfg = LudwigConfig(lattice=lat, target=TargetConfig("cuda", device="cuda"))
+    state = init_state(cfg, seed=0)
+    dom = Domain(lat, Mesh((1,) * 3, axes, rank=0, world_size=1, local_rank=0, device="cuda"),
+                 axes, halo=2)
+    d0, q0 = dom.scatter(state.dist.canonical_nd()), dom.scatter(state.q.canonical_nd())
+    steps = {h: ludwig.make_sharded_step(cfg, dom, h) for h in ("pre", "overlap")}
+    res, last = {h: [] for h in steps}, {}
+    for order in (list(steps), list(steps)[::-1]):
+        for h in order:
+            steps[h](d0, q0)
+            torch.cuda.synchronize()
+            d, q = d0, q0
+            t0 = time.perf_counter()
+            for _ in range(reps):
+                d, q = steps[h](d, q)
+            torch.cuda.synchronize()
+            res[h].append((time.perf_counter() - t0) / reps * 1e3)
+            last[h] = (d, q)
+            print(f"ludwig {h:8s} {res[h][-1]:.4f} ms a step")
+    bitwise = all(torch.equal(a, b) for a, b in zip(last["pre"], last["overlap"]))
+    print(f"ludwig overlap bitwise pre: {bitwise}")
+    return {"card": card, "lattice": list(lat), "reps": reps, "bitwise_pre": bitwise,
+            "ms_a_step": res}
+
+
+def sharded_solves(lat, card) -> dict:
+    """The sharded MILC solve's ms an iteration under "pre" and "overlap",
+    cold and warm (see the module's docstring)."""
+    import torch
+    from repro_torch.apps.milc import MilcConfig, init_problem
+    from repro_torch.apps.milc.driver import make_domain, make_sharded_solver
+    from repro_torch.core.target import TargetConfig
+    from repro_torch.launch.mesh import Mesh
+
+    cfg = MilcConfig(lattice=lat, kappa=KAPPA, tol=1e-10, hot=0.6, max_iter=2000,
+                     target=TargetConfig("cuda", device="cuda"))
+    u, b = init_problem(cfg, seed=0)
+    dom = make_domain(cfg, Mesh((1,) * 4, AXES, rank=0, world_size=1, local_rank=0,
+                                device="cuda"), AXES)
+    ul, bl = dom.scatter(u.canonical_nd()), dom.scatter(b.canonical_nd())
+    res, xs = {h: {"cold": [], "warm": []} for h in ("pre", "overlap")}, {}
+    allocs = {}
+    for order in (list(res), list(res)[::-1]):
+        for h in order:
+            solver = make_sharded_solver(cfg, dom, h)
+            torch.cuda.empty_cache()
+            for run in ("cold", "warm"):
+                torch.cuda.synchronize()
+                s0 = stats()
+                t0 = time.perf_counter()
+                x, it, _ = solver(ul, bl)
+                torch.cuda.synchronize()
+                ms = (time.perf_counter() - t0) / it * 1e3
+                s1 = stats()
+                res[h][run].append(ms)
+                allocs[f"{h} {run}"] = {k: None if s0[k] is None else s1[k] - s0[k] for k in s0}
+                print(f"solve {h:8s} {run}: {ms:.4f} ms an iteration, {it} iterations; "
+                      f"a solve: {allocs[f'{h} {run}']}")
+            xs[h] = x
+            del solver
+    bitwise = bool(torch.equal(xs["pre"], xs["overlap"]))
+    print(f"solve overlap bitwise pre: {bitwise}")
+    return {"card": card, "lattice": list(lat), "bitwise_pre": bitwise, "ms_an_iteration": res,
+            "allocator": allocs}
+
+
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--src", default=str(Path(__file__).resolve().parents[1] / "src"))
     ap.add_argument("--lattice", type=int, nargs=4, default=(64, 64, 64, 32))
     ap.add_argument("--reps", type=int, default=20)
+    ap.add_argument("--ludwig", type=int, nargs=3, default=None,
+                    help="time the sharded Ludwig step at this lattice instead")
+    ap.add_argument("--solve", action="store_true",
+                    help="time the sharded MILC solve at --lattice instead")
     args = ap.parse_args()
     import torch
     if not torch.cuda.is_available():
@@ -72,6 +171,14 @@ def main() -> int:
     card = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
                            "--format=csv,noheader"], capture_output=True, text=True).stdout.strip()
     print(card)
+    if args.ludwig:
+        out = ludwig_steps(tuple(args.ludwig), args.reps, card)
+        print(json.dumps({"overlap_probe": {"src": args.src, "ludwig": out}}))
+        return 0
+    if args.solve:
+        out = sharded_solves(tuple(args.lattice), card)
+        print(json.dumps({"overlap_probe": {"src": args.src, "solve": out}}))
+        return 0
     lat = tuple(args.lattice)
     tgt = TargetConfig("cuda", device="cuda")
     mesh = Mesh((1,) * 4, AXES, rank=0, world_size=1, local_rank=0, device="cuda")
@@ -147,16 +254,17 @@ def main() -> int:
     dev = sorted((e for e in events if e.get("ph") == "X" and e.get("cat") in
                   ("kernel", "gpu_memcpy", "gpu_memset") and "stream" in e.get("args", {})),
                  key=lambda e: e["ts"])
-    boxk = [i for i, e in enumerate(dev) if "wilson_normal_pre" in e["name"]]
+    boxk = [i for i, e in enumerate(dev) if "wilson_normal_box" in e["name"]]
     trace = {"device_events": len(dev)}
-    if len(boxk) >= 2:
-        # the last call: from the first of its 18 box kernels (9 boxes, t and ap)
-        first = boxk[-18] if len(boxk) >= 18 else boxk[0]
+    if len(boxk) >= BOX_KERNELS:
+        # the last call: from the first of its box kernels (the interior's t
+        # and ap, then the boundary's)
+        first = boxk[-BOX_KERNELS]
         prev_end = max((e["ts"] + e["dur"] for e in dev[:first]), default=dev[first]["ts"])
         start = dev[first]["ts"]
         call = [e for e in dev if e["ts"] + e["dur"] > prev_end]
         main_stream = dev[first]["args"]["stream"]
-        interior = [dev[boxk[-18]], dev[boxk[-17]]] if len(boxk) >= 18 else dev[first:first + 2]
+        interior = [dev[boxk[-BOX_KERNELS]], dev[boxk[-BOX_KERNELS + 1]]]
         side = [e for e in call if e["args"]["stream"] != main_stream]
         ti = (interior[0]["ts"], interior[1]["ts"] + interior[1]["dur"])
         trace.update(events=[[e["args"]["stream"], round(e["ts"] - start, 3), round(e["dur"], 3),
