@@ -207,7 +207,16 @@ D1. the kernels on pre-exchanged halos at the full lattices, each against
    sector bound, the split and K5H in turns; K5LHO (K5LH on one box) on
    every box of the Ludwig split (the interior (254,254,254) and 6 slabs
    of width 1) bitwise its plain version and K5LH's sites, timed beside the
-   bytes each box depends on;
+   bytes each box depends on; the sharded plans' kernels: K5TH (K5H's
+   kernels in K5T's tile walk) at the 227 KiB budget's tile of the "pre"
+   launch and at K5T_WALK_TILE, tiled K5HO (the ap tables' rows in each
+   box's sub-plan tiles of the outer plan K5HO_OUTER) on the full split,
+   each bitwise K5H, within FIELD_RTOL of its plain version and timed in
+   turns with K5H beside its bound; K9H (K5LH's template under a tile and
+   in any layout) at the budget's tile, with and without u (both LB
+   graphs), at K9H_COARSE_TILE bitwise its tiled plain version, and in
+   aosoa4 read and written in place, each bitwise K5LH and its plain
+   version, timed in turns with K5LH beside its bound;
 D2. (after D1's MILC half) on a one-rank mesh of four axes, every lattice
    dim decomposed over one (each exchange the self-exchange), with every
    count set to 0 before each: ``make_sharded_solver`` at ``--lattice``
@@ -223,15 +232,26 @@ D2. (after D1's MILC half) on a one-rank mesh of four axes, every lattice
    operators (fill, then ``overlap_launch``), the last one read: the
    interior box's kernels and the exchange's copies, their intervals and
    streams, and the ms during which both ran (a serial schedule is
-   recorded, not failed);
+   recorded, not failed); then, counted, the solve under the 227 KiB
+   budget under "pre" (K5TH an iteration, no K5H) and "overlap" (the
+   reference's default overlap plan: untiled K5HO), each with "pre"'s
+   iterations and x bitwise, and 3 applications of the operator through
+   ``overlap_launch`` under the explicit tiled plan K5HO_OUTER (tiled
+   K5HO's two ap launches each), bitwise its "pre" launch: no driver path
+   runs tiled K5HO, since the solver's default overlap plan is untiled and
+   an explicit tiled plan_policy would tile its site-local launches too,
+   which refuse a tile;
 D3. (after D1's Ludwig half) 5 ``make_sharded_step`` steps at
    ``--ludwig`` on a one-rank mesh of three axes from the L1 state,
    counted (K5LH every step): bitwise equal to 5 ``step``s from it
    (within rtol 1e-4, atol 1e-6 with the difference logged where not
    bitwise); then 5 steps under ``halo="overlap"`` (K5LHO on 7 boxes a
-   step, no K5LH), bitwise the "pre" and the single steps; ms a step
-   beside them; the D phases' numbers are printed as one JSON line before
-   the kernel table;
+   step, no K5LH), bitwise the "pre" and the single steps; 5 steps under
+   the 227 KiB budget (K9H in the budget's tiles every step, no K5LH) and
+   5 in aosoa4 under an explicit view="block" plan, "pre" and "overlap"
+   (K9H reading and writing AoSoA in place), each after one untimed step
+   and bitwise the SoA "pre" steps; ms a step beside them; the D phases' numbers are printed as one
+   JSON line before the kernel table;
 Y1. at the full lattices ((64,64,64,32) and (256,256,256)), every lattice
    kernel of both paths (K1 g5 and the product, K2's sum and fold, K3,
    K4, K5; K7, K8, K5L, K3L, K1L) in each layout of LAYOUT_SPECS (soa,
@@ -475,7 +495,9 @@ KERNELS = [target.G5, target.MUL, target.AXPY, reduce.REDUCE_SUM,
            wk.WILSON_NORMAL_AP_TILED_MIXED, lk.LC_CHAIN, fuse.CG_UPDATE_POLICY,
            lk.CHEM_STRESS_POLICY, lk.LC_UPDATE_POLICY, wk.DSLASH_HALO, wk.WILSON_NORMAL_PRE_T,
            wk.WILSON_NORMAL_PRE_AP, k8.PROPAGATE_HALO, k8.LB_STEP_PRE, wk.WILSON_NORMAL_BOX_T,
-           wk.WILSON_NORMAL_BOX_AP, k8.LB_STEP_BOX]
+           wk.WILSON_NORMAL_BOX_AP, k8.LB_STEP_BOX, k8.LB_STEP_HALO,
+           wk.WILSON_NORMAL_PRE_T_TILED, wk.WILSON_NORMAL_PRE_AP_TILED,
+           wk.WILSON_NORMAL_BOX_AP_TILED]
 
 # flops a site, counted from the sources (all these kernels are bound by bytes)
 FLOPS = {"collide": 450, "lb_step": 462, "chem_stress": 600, "lc_update": 320, "fed": 160,
@@ -4834,7 +4856,23 @@ DECOMP_PATH = {
     "wilson_normal_box": ([wk.WILSON_NORMAL_BOX_T, wk.WILSON_NORMAL_BOX_AP], "wilson_halo.cu",
                           "src/repro/core/fuse.py:1721"),
     "lb_step_box": ([k8.LB_STEP_BOX], "lb_halo.cu", "src/repro/core/fuse.py:1721"),
+    # the sharded plans: tiled "pre" launches and their layouts (K9H, K5TH)
+    # and tiled overlap boxes (tiled K5HO), the TPU's tiled dma_kernel
+    "lb_step_halo": ([k8.LB_STEP_HALO], "lb_halo.cu", "src/repro/core/fuse.py:1804"),
+    "lb_step_halo@aosoa4": ([k8.LB_STEP_HALO], "lb_halo.cu", "src/repro/core/fuse.py:1721"),
+    "wilson_normal_pre_tiled": ([wk.WILSON_NORMAL_PRE_T_TILED, wk.WILSON_NORMAL_PRE_AP_TILED],
+                                "wilson_halo.cu", "src/repro/core/fuse.py:1804"),
+    "wilson_normal_box_tiled": ([wk.WILSON_NORMAL_BOX_AP_TILED], "wilson_halo.cu",
+                                "src/repro/core/fuse.py:1804"),
 }
+# D2's budgeted and tuned solves, D3's budgeted and block-view steps
+K5HO_OUTER = LoweringPlan("cuda", vvl=128, bx=2, by=4, bz=4, halo="overlap")
+K9H_COARSE_TILE = (16, 64, 0)   # 64 tiles at (256, 256, 256): the tiled plain version's loop
+D3_BLOCK_PLAN = LoweringPlan("cuda", vvl=64, bx=1, view="block")
+D2_PRE_TILED = {"wilson_normal_pre_tiled": DECOMP_PATH["wilson_normal_pre_tiled"]}
+D2_BOX_TILED = {"wilson_normal_box_tiled": DECOMP_PATH["wilson_normal_box_tiled"]}
+D_OPERATORS = 3       # D2's tiled overlap operators
+D3_TILED = {"lb_step_halo": DECOMP_PATH["lb_step_halo"]}
 # D2's paths: the sharded solve's kernels under each schedule (the rhs runs
 # K4H and g5 under both)
 _D2_COMMON = ("cg_update", "cg_xpay", "g5", "mul", "reduce_sum", "reduce_fold")
@@ -5208,6 +5246,71 @@ def sharded_milc(cfg, u, b, x_soa, iterations, solve_s):
                 f"{solve_s / iterations * 1e3:.3f}")
         del x, solver
         torch.cuda.empty_cache()
+    # the sharded plans: the budget tiles the operator's "pre" launch
+    # (K5TH); "overlap" takes the reference's untiled default
+    bcfg = dataclasses.replace(cfg, target=dataclasses.replace(cfg.target,
+                                                               smem_bytes=SMEM_BUDGET))
+    for name, c, halo, path, forbidden in (
+            ("pre_budget", bcfg, "pre", {**D2_PATHS["pre"], **D2_PRE_TILED},
+             {"wilson_normal_pre": DECOMP_PATH["wilson_normal_pre"]}),
+            ("overlap_budget", bcfg, "overlap", D2_PATHS["overlap"], D2_NOT_OVERLAP)):
+        solver = make_sharded_solver(c, dom, halo)
+        reset_counts()
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        x, it, res = solver(ul, bl)
+        torch.cuda.synchronize()
+        sec = time.perf_counter() - t0
+        counts[name] = {n: v for n, v in path_counts(path).items() if n not in forbidden}
+        whole = path_counts(forbidden)
+        log(f"D2 sharded solve {cfg.lattice}, {name}, one rank: {it} iterations, "
+            f"{sec / max(it, 1) * 1e3:.3f} ms/iter ('pre' {out['pre']['ms_per_iteration']:.3f}); "
+            f"launches {counts[name]}, not {whole}")
+        idle = [n for n, v in counts[name].items() if v == 0]
+        if idle or any(whole.values()):
+            raise AssertionError(f"D2 {name}: idle {idle}, forbidden kernels ran {whole}")
+        if it != it_pre or not torch.equal(x, x_pre):
+            raise AssertionError(f"D2 {name}: {it} iterations against 'pre''s {it_pre}, "
+                                 f"x bitwise {torch.equal(x, x_pre)}")
+        out[name] = dict(iterations=it, seconds=sec, ms_per_iteration=sec / it * 1e3,
+                         bitwise_pre=True)
+        del x, solver
+        torch.cuda.empty_cache()
+    # tiled K5HO through the operator's entry point: overlap_launch under an
+    # explicit tiled plan, D_OPERATORS times on p filled afresh, bitwise its
+    # "pre" launch.  No driver path runs tiled K5HO: the solver's default
+    # overlap plan is the reference's untiled one, and an explicit tiled
+    # plan_policy would also tile the solve's site-local launches, which
+    # refuse a tile (core.plan.adapt_plan)
+    dec, hl = dom.decomposed, tuple(s_ + 4 for s_ in cfg.lattice)
+    normal = cg_mod.wilson_normal_graph(float(cfg.kappa))
+    uF = Field.from_canonical("u", exchange_padded(ul, dec, width=2, mesh=dom.mesh), hl)
+
+    def operator(halo, op_plan=None):
+        pF = Field.from_canonical("p", fill_padded(x_pre, dec, width=2), hl)
+        return overlap_launch(normal, {"p": pF, "u": uF}, decomposed=dec, config=cfg.target,
+                              outputs=("ap",), halo=halo, exchanged=("u",), plan=op_plan,
+                              mesh=dom.mesh)["ap"].data
+
+    want = operator("pre")
+    reset_counts()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for _ in range(D_OPERATORS):
+        got = operator("overlap", K5HO_OUTER)
+    torch.cuda.synchronize()
+    sec = time.perf_counter() - t0
+    counts["tiled_overlap"] = path_counts(D2_BOX_TILED)
+    log(f"D2 {D_OPERATORS} operators under {K5HO_OUTER.describe()}: "
+        f"{sec / D_OPERATORS * 1e3:.3f} ms an operator, launches {counts['tiled_overlap']}")
+    exact_err(got, want, "D2 tiled overlap operator against 'pre'")
+    if counts["tiled_overlap"]["wilson_normal_box_tiled"] != 2 * D_OPERATORS:
+        raise AssertionError(f"D2 tiled overlap: {counts['tiled_overlap']} tiled K5HO launches, "
+                             f"not two an operator")
+    out["tiled_overlap_operator"] = dict(plan=K5HO_OUTER.describe(), operators=D_OPERATORS,
+                                         ms_per_operator=sec / D_OPERATORS * 1e3,
+                                         bitwise_pre=True)
+    del uF, got, want
     del x_pre
     out["phase4_ms_per_iteration"] = solve_s / iterations * 1e3
     torch.cuda.empty_cache()
@@ -5330,6 +5433,175 @@ def check_box_ludwig(state, cfg, vvl):
     return rows, extra
 
 
+def budget_pre_tile(lattice, in_views, out_views):
+    """The tile of a "pre" launch's default plan at ``lattice`` under the
+    227 KiB budget, from its footprint descriptor."""
+    p = plan.default_plan(TargetConfig("cuda", device="cuda", smem_bytes=SMEM_BUDGET),
+                          nsites=math.prod(lattice), layouts=[SOA], stencil=True,
+                          lattice=lattice, smem_views=(in_views, out_views), bounded=True,
+                          halo="pre")
+    if not p.tiled:
+        raise AssertionError(f"the 227 KiB budget does not tile the 'pre' launch at {lattice}")
+    return (p.bx, p.by, p.bz)
+
+
+def in_turns(fns, reps=10):
+    """Each fn timed (time_ms) in the order a, b, b, a: name -> [ms, ms]."""
+    out = {n: [] for n in fns}
+    names = list(fns)
+    for n in names + names[::-1]:
+        out[n].append(time_ms(fns[n], reps=reps))
+    return out
+
+
+def check_tiled_halo_milc(u, b, lattice, vvl):
+    """D1 (MILC): K5TH at the budget's tile of the wilson_normal "pre"
+    launch and at K5T_WALK_TILE, and tiled K5HO on the full split under
+    K5HO_OUTER's sub-plan tiles: each bitwise K5H, within FIELD_RTOL of its
+    plain version, timed in turns with K5H beside its bound (K5H's bytes;
+    tiled K5HO K5HO's, with the re-read of its two phases)."""
+    p_h = wrap_pad(b.canonical_nd(), 2).reshape(24, -1)
+    u_h = wrap_pad(u.canonical_nd(), 2).reshape(72, -1)
+    whole = wk.wilson_normal_pre_cuda(p_h, u_h, KAPPA, lattice, vvl)
+    plain = wk.wilson_normal_pre_plain(p_h, u_h, KAPPA, lattice)
+    plain_ms = time_ms(lambda: wk.wilson_normal_pre_plain(p_h, u_h, KAPPA, lattice), reps=3,
+                       warm=1)
+    tile = budget_pre_tile(lattice, ((24, 2, 4), (72, 2, 4)), ((24, 4),))
+    rows, extra = {}, {"k5th": {}}
+    errs = {}
+    for name, tl in (("budget", tile), ("walk", K5T_WALK_TILE)):
+        n0 = (wk.WILSON_NORMAL_PRE_T_TILED.launches, wk.WILSON_NORMAL_PRE_AP_TILED.launches)
+        got = wk.wilson_normal_pre_cuda(p_h, u_h, KAPPA, lattice, vvl, tile=tl)
+        if (wk.WILSON_NORMAL_PRE_T_TILED.launches - n0[0],
+                wk.WILSON_NORMAL_PRE_AP_TILED.launches - n0[1]) != (1, 1):
+            raise AssertionError("K5TH: not one t and one ap launch")
+        exact_err(got, whole, f"K5TH at tile {tl} against K5H")
+        errs[name] = field_err(got, plain, f"K5TH at tile {tl}")
+        turns = in_turns({"k5h": lambda: wk.wilson_normal_pre_cuda(p_h, u_h, KAPPA, lattice, vvl),
+                          "k5th": lambda tl=tl: wk.wilson_normal_pre_cuda(p_h, u_h, KAPPA,
+                                                                         lattice, vvl, tile=tl)})
+        extra["k5th"][name] = dict(tile=list(tl), ms_turns=turns["k5th"], k5h_ms=turns["k5h"])
+        log(f"  K5TH at tile {tl} bitwise K5H: {turns['k5th']} ms against K5H {turns['k5h']}")
+    add_row(rows, "wilson_normal_pre_tiled", errs["budget"],
+            statistics.median(extra["k5th"]["budget"]["ms_turns"]), plain_ms,
+            wilson_normal_pre_bytes(lattice), wilson_normal_pre_ops(lattice))
+    del got
+
+    boxes = split_of(lattice, 2)
+    cfg = TargetConfig("cuda", device="cuda", vvl=vvl)
+    tiles = [plan.plan_tile(plan.sub_lattice_plan(K5HO_OUTER, cfg, e)) for _, e in boxes]
+    V, V1 = math.prod(lattice), math.prod(s + 2 for s in lattice)
+    t = torch.full((24, V1), float("nan"), device=p_h.device)
+    ap = torch.full((24, V), float("nan"), device=p_h.device)
+
+    def run(tl):
+        wk.wilson_normal_interior_cuda(p_h, u_h, KAPPA, lattice, boxes[0], t, ap, vvl,
+                                       tile=tl[0])
+        wk.wilson_normal_boundary_cuda(p_h, u_h, KAPPA, lattice, boxes[0], boxes[1:], t, ap,
+                                       vvl, tiles=tl[1:])
+
+    n0 = (wk.WILSON_NORMAL_BOX_T.launches, wk.WILSON_NORMAL_BOX_AP_TILED.launches)
+    run(tiles)
+    torch.cuda.synchronize()
+    if (wk.WILSON_NORMAL_BOX_T.launches - n0[0],
+            wk.WILSON_NORMAL_BOX_AP_TILED.launches - n0[1]) != (2, 2):
+        raise AssertionError("tiled K5HO: a split is not two t and two tiled ap launches")
+    if bool(t.isnan().any()):
+        raise AssertionError("tiled K5HO: t not written on every ring-1 site")
+    exact_err(ap, whole, "tiled K5HO's split against K5H")
+    split_plain = wk.wilson_normal_split_plain(p_h, u_h, KAPPA, lattice, boxes[0], boxes[1:])
+    err = field_err(ap, split_plain, "wilson_normal_box_tiled")
+    del split_plain
+    untiled = [None] * len(boxes)
+    turns = in_turns({"k5h": lambda: wk.wilson_normal_pre_cuda(p_h, u_h, KAPPA, lattice, vvl),
+                      "tiled_split": lambda: run(tiles), "split": lambda: run(untiled)})
+    tables = wk.split_tables(lattice, boxes[0], boxes[1:])
+    reread = split_reread_bytes(lattice, tables, p_h.device)
+    add_row(rows, "wilson_normal_box_tiled", err, statistics.median(turns["tiled_split"]),
+            time_ms(lambda: wk.wilson_normal_split_plain(p_h, u_h, KAPPA, lattice, boxes[0],
+                                                         boxes[1:]), reps=3, warm=1),
+            wilson_normal_pre_bytes(lattice) + reread, wilson_normal_pre_ops(lattice))
+    extra["tiled_k5ho"] = dict(outer=K5HO_OUTER.describe(), tiles=[list(x) if x else None
+                                                                  for x in tiles],
+                               ms_turns={k: v for k, v in turns.items()})
+    log(f"  tiled K5HO ({K5HO_OUTER.describe()}: tiles {tiles}) bitwise K5H; turns {turns}")
+    del p_h, u_h, whole, plain, t, ap
+    torch.cuda.empty_cache()
+    return rows, extra
+
+
+def check_tiled_halo_ludwig(state, cfg, vvl):
+    """D1 (Ludwig): K9H at the budget's tile of the ludwig_lb_step "pre"
+    launch with u and without (lb_collide_propagate), at K9H_COARSE_TILE
+    against its tiled plain version, and untiled in aosoa4 (in place), on
+    L2's kind of inputs wrap-padded: dist2 and u bitwise K5LH's (unpacked)
+    and the plain version's, timed in turns with K5LH beside K5LH's bytes."""
+    lat, tau = tuple(cfg.lattice), cfg.tau
+    V = math.prod(lat)
+    dev = state.dist.data.device
+    gen = torch.Generator(device=dev).manual_seed(6)
+    dist = state.dist.canonical() * (1.0 + 0.05 * torch.randn((19, V), generator=gen, device=dev))
+    force = 1e-3 * torch.randn((3, V), generator=gen, device=dev)
+    dh = wrap_pad(dist.reshape((19,) + lat), 1).reshape(19, -1)
+    fh = wrap_pad(force.reshape((3,) + lat), 1).reshape(3, -1)
+    del dist, force
+    w2, wu = k8.lb_step_pre_cuda(dh, fh, tau, lat, vvl)
+    pd, pu = k8.lb_step_pre_plain(dh, fh, tau, lat)
+    exact_err(w2, pd, "K5LH dist2 against its plain version")
+    plain_ms = time_ms(lambda: k8.lb_step_pre_plain(dh, fh, tau, lat), reps=3, warm=1)
+    del pd, pu
+    tile = budget_pre_tile(lat, ((19, 1, 4), (3, 1, 4)), ((19, 4), (3, 4)))
+    rows, extra = {}, {}
+    n0 = k8.LB_STEP_HALO.launches
+    g2, gu = k8.lb_step_pre_cuda(dh, fh, tau, lat, vvl, tile=tile)
+    c2, _ = k8.lb_step_pre_cuda(dh, fh, tau, lat, vvl, False, tile=tile)
+    if k8.LB_STEP_HALO.launches - n0 != 2:
+        raise AssertionError("K9H: not one launch a call")
+    err = max(exact_err(g2, w2, "K9H dist2 at the budget's tile against K5LH"),
+              exact_err(gu, wu, "K9H u at the budget's tile against K5LH"),
+              exact_err(c2, w2, "K9H without u at the budget's tile against K5LH"))
+    del g2, gu, c2
+    coarse = tuple(e or n for e, n in zip(K9H_COARSE_TILE, lat))
+    g2, gu = k8.lb_step_pre_cuda(dh, fh, tau, lat, vvl, tile=coarse)
+    p2, pu = k8.lb_step_pre_plain(dh, fh, tau, lat, tile=coarse)
+    exact_err(g2, p2, f"K9H dist2 at {coarse} against its tiled plain version")
+    exact_err(gu, pu, f"K9H u at {coarse} against its tiled plain version")
+    exact_err(g2, w2, f"K9H dist2 at {coarse} against K5LH")
+    del g2, gu, p2, pu
+    turns = in_turns({"k5lh": lambda: k8.lb_step_pre_cuda(dh, fh, tau, lat, vvl),
+                      "k9h": lambda: k8.lb_step_pre_cuda(dh, fh, tau, lat, vvl, tile=tile),
+                      "k9h_no_u": lambda: k8.lb_step_pre_cuda(dh, fh, tau, lat, vvl, False,
+                                                              tile=tile)})
+    add_row(rows, "lb_step_halo", err, statistics.median(turns["k9h"]), plain_ms,
+            lb_step_pre_bytes(lat), FLOPS["lb_step"] * lb_step_pre_sites(lat))
+    a4 = parse_layout("aosoa4")
+    lays = {n: a4 for n in ("dist", "force", "dist2", "u")}
+    da, fa = a4.pack(dh), a4.pack(fh)
+    g2, gu = k8.lb_step_pre_cuda(da, fa, tau, lat, vvl, layouts=lays)
+    err4 = max(exact_err(a4.unpack(g2), w2, "K9H dist2 in aosoa4 against K5LH"),
+               exact_err(a4.unpack(gu), wu, "K9H u in aosoa4 against K5LH"))
+    p2, pu = k8.lb_step_pre_plain(da, fa, tau, lat, layouts=lays)
+    exact_err(g2, p2, "K9H dist2 in aosoa4 against its plain version")
+    del g2, gu, p2, pu
+    t4 = in_turns({"k5lh": lambda: k8.lb_step_pre_cuda(dh, fh, tau, lat, vvl),
+                   "k9h_aosoa4": lambda: k8.lb_step_pre_cuda(da, fa, tau, lat, vvl,
+                                                             layouts=lays)})
+    add_row(rows, "lb_step_halo@aosoa4", err4, statistics.median(t4["k9h_aosoa4"]),
+            time_ms(lambda: k8.lb_step_pre_plain(da, fa, tau, lat, layouts=lays), reps=3,
+                    warm=1),
+            lb_step_pre_bytes(lat), FLOPS["lb_step"] * lb_step_pre_sites(lat))
+    # lb_collide_propagate: dist2 alone, 19 values written a site
+    nb_no_u = 22 * 4 * lb_step_pre_sites(lat) + 19 * 4 * V
+    extra = dict(tile=list(tile), coarse_tile=list(coarse), ms_turns=turns,
+                 aosoa4_ms_turns=t4, no_u_bound_ms=bound(nb_no_u, 0)[0])
+    log(f"  K9H at the budget's tile {tile} and {coarse}, with and without u, and in aosoa4 "
+        f"bitwise K5LH and its plain versions; turns {turns}, aosoa4 {t4}; without u beside "
+        f"{extra['no_u_bound_ms']:.4f} ms")
+    del dh, fh, da, fa, w2, wu
+    torch.cuda.empty_cache()
+    return rows, extra
+
+
 def sharded_ludwig(state, cfg):
     """D3: D_STEPS one-rank sharded steps from the L1 state, counted,
     against as many single-device steps."""
@@ -5388,11 +5660,49 @@ def sharded_ludwig(state, cfg):
     if any(whole.values()) or not all(ocounts.values()):
         raise AssertionError(f"D3 overlap: whole 'pre' kernels {whole}, path {ocounts}")
     counts.update(ocounts)
-    del d, q, s, od, oq
+    del od, oq
+    # the sharded plans: the 227 KiB budget tiles the LB half-step's "pre"
+    # launch (K9H, never K5LH); aosoa4 under an explicit view="block" plan
+    # runs K9H on AoSoA in place under "pre" and on the split's boxes
+    plans = {}
+    acfg = dataclasses.replace(cfg, layout=parse_layout("aosoa4"), target=dataclasses.replace(
+        cfg.target, plan_policy=D3_BLOCK_PLAN))
+    for name, c, halo in (
+            ("budget", dataclasses.replace(cfg, target=dataclasses.replace(
+                cfg.target, smem_bytes=SMEM_BUDGET)), "pre"),
+            ("aosoa4_block", acfg, "pre"), ("aosoa4_block_overlap", acfg, "overlap")):
+        pstep = ludwig.make_sharded_step(c, dom, halo)
+        pd_, pq = dom.scatter(state.dist.canonical_nd()), dom.scatter(state.q.canonical_nd())
+        # one untimed step: a layout's first step pays its first launches
+        # and allocations (the cold aosoa4 "pre" steps read 117 ms a step
+        # against 49 warm on an H100 80GB HBM3 at 700 W)
+        pstep(pd_, pq)
+        reset_counts()
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        for _ in range(D_STEPS):
+            pd_, pq = pstep(pd_, pq)
+        torch.cuda.synchronize()
+        ms = (time.perf_counter() - t0) / D_STEPS * 1e3
+        pc = path_counts(D3_TILED)
+        whole = path_counts({**D3_NOT_OVERLAP, "lb_step_box": DECOMP_PATH["lb_step_box"]})
+        pbits = {"dist": torch.equal(pd_, d), "q": torch.equal(pq, q)}
+        log(f"D3 {D_STEPS} steps {cfg.lattice}, {name}: {ms:.3f} ms/step against 'pre' "
+            f"{sharded_ms:.3f}; bitwise the SoA 'pre' steps {pbits}; K9H launches "
+            f"{pc['lb_step_halo']}, K5LH and K5LHO {whole}")
+        if not all(pbits.values()) or any(whole.values()) or not pc["lb_step_halo"]:
+            raise AssertionError(f"D3 {name}: bitwise {pbits}, K9H {pc}, K5LH/K5LHO {whole}")
+        plans[name] = dict(ms_per_step=ms, bitwise_pre=pbits, k9h_launches=pc["lb_step_halo"])
+        row = {"budget": "lb_step_halo", "aosoa4_block": "lb_step_halo@aosoa4"}.get(name)
+        if row:
+            counts[row] = pc["lb_step_halo"]
+        del pd_, pq, pstep
+        torch.cuda.empty_cache()
+    del d, q, s
     torch.cuda.empty_cache()
     return dict(steps=D_STEPS, ms_per_step=sharded_ms, single_ms_per_step=single_ms,
                 bitwise=bits, max_abs_diff=diffs, overlap_ms_per_step=overlap_ms,
-                overlap_bitwise_pre=obits), counts
+                overlap_bitwise_pre=obits, plans=plans), counts
 
 
 def table_rows(path, counts, rows):
@@ -5527,9 +5837,13 @@ def main():
     log(f"D1: K5HO on the overlap split of {lattice}, vvl {vvl}:")
     brows_o, box_milc = check_box_milc(u, b, lattice, vvl)
     drows.update(brows_o)
+    log(f"D1: K5TH and tiled K5HO at {lattice}, vvl {vvl}:")
+    trows_d, tiled_milc = check_tiled_halo_milc(u, b, lattice, vvl)
+    drows.update(trows_d)
     d2, d2counts = sharded_milc(cfg, u, b, x_soa, iterations, solve_s)
     d2["wilson_normal_pre_design_floor_ms"] = k5h_floor
     d2["k5ho_split"] = box_milc
+    d2["sharded_plans"] = tiled_milc
     log(f"D1 (MILC), D2: {time.perf_counter() - t0:.1f} s")
 
     # S1. the batch instances against their plain versions and single launches
@@ -5610,15 +5924,25 @@ def main():
     log(f"D1: K5LHO on the overlap split of {lcfg.lattice}, vvl {lcfg.target.vvl}:")
     lbrows, box_ludwig = check_box_ludwig(state, lcfg, lcfg.target.vvl)
     drows.update(lbrows)
+    log(f"D1: K9H at {lcfg.lattice}, vvl {lcfg.target.vvl}:")
+    k9hrows, tiled_ludwig = check_tiled_halo_ludwig(state, lcfg, lcfg.target.vvl)
+    drows.update(k9hrows)
     d3, d3counts = sharded_ludwig(state, lcfg)
     d3["k5lho_split"] = box_ludwig
+    d3["k9h"] = tiled_ludwig
     log(f"D1 (Ludwig), D3: {time.perf_counter() - t0:.1f} s")
     dcounts = {"dslash_halo": d2counts[None]["dslash_halo"],
                "wilson_normal_pre": d2counts["pre"]["wilson_normal_pre"],
                "lb_propagate_halo": d1counts["lb_propagate_halo"],
                "lb_step_pre": d3counts["lb_step_pre"],
                "wilson_normal_box": d2counts["overlap"]["wilson_normal_box"],
-               "lb_step_box": d3counts["lb_step_box"]}
+               "lb_step_box": d3counts["lb_step_box"],
+               "lb_step_halo": d3counts["lb_step_halo"],
+               "lb_step_halo@aosoa4": d3counts["lb_step_halo@aosoa4"],
+               "wilson_normal_pre_tiled":
+                   d2counts["pre_budget"]["wilson_normal_pre_tiled"],
+               "wilson_normal_box_tiled":
+                   d2counts["tiled_overlap"]["wilson_normal_box_tiled"]}
     decomp_line = {"decomposed": {
         "card": smi, "sharded_solve": d2, "sharded_step": d3,
         "kernels": {n: {k: r[k] for k in ("ms", "plain_ms", "bound_ms", "library_ms")}

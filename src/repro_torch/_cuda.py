@@ -91,12 +91,16 @@ SIGNATURES = {
     "rt_dslash_halo": (_P, _P, _P, _I, _I, _I, _I, _I, _I, _P),
     "rt_wilson_normal_pre_t": (_P, _P, _P, _F, _I, _I, _I, _I, _I, _P),
     "rt_wilson_normal_pre_ap": (_P, _P, _P, _F, _I, _I, _I, _I, _I, _P),
-    # the box tables' _P is a host array of 10 ints a box (csrc/wilson_halo.cu)
+    "rt_wilson_normal_pre_t_tiled": (_P, _P, _P, _F, *(_I,) * 7, _I, _P),
+    "rt_wilson_normal_pre_ap_tiled": (_P, _P, _P, _F, *(_I,) * 7, _I, _P),
+    # the box tables' _P is a host array of 13 ints a box (csrc/wilson_halo.cu)
     "rt_wilson_normal_t_boxes": (_P, _P, _P, _F, _I, _I, _I, _I, _P, _I, _I, _P),
     "rt_wilson_normal_ap_boxes": (_P, _P, _P, _F, _I, _I, _I, _I, _P, _I, _I, _P),
+    "rt_wilson_normal_ap_boxes_tiled": (_P, _P, _P, _F, _I, _I, _I, _I, _P, _I, _I, _P),
     "rt_lb_propagate_halo": (_P, _P, _I, _I, _I, _I, _I, _P),
     "rt_lb_step_pre": (_P, _P, _P, _P, _I, _I, _I, _F, _F, _F, _F, _I, _P),
     "rt_lb_step_box": (_P, _P, _P, _P, *(_I,) * 9, _F, _F, _F, _F, _I, _P),
+    "rt_lb_step_halo": (_P, _P, _P, _P, *(_I,) * 12, _F, _F, _F, _F, *(_D,) * 4, _I, _P),
     "rt_lb_collide": (_P, _P, _P, _L, _F, _F, _F, _F, _D, _D, _D, _I, _P),
     "rt_lb_propagate": (_P, _P, _I, _I, _I, _D, _D, _I, _P),
     "rt_lb_step": (_P, _P, _P, _P, _I, _I, _I, _F, _F, _F, _F, _D, _D, _D, _D, _I, _P),

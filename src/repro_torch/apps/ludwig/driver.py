@@ -48,8 +48,11 @@ the same periodic stencils on the halo'd local arrays and crops, the LB
 half-step as the fused graph's ``halo="pre"`` launch (K5LH on "cuda"), or
 under ``halo="overlap"`` through ``core.overlap`` (K5LHO a box on "cuda",
 dist's and force's exchange beside the interior box), or under ``halo=None``
-as the planning layer chooses.  Not yet ported: ``run_steps`` (with
-``core/schedule.py``, ROADMAP item 21).
+as the planning layer chooses; its fields are in ``cfg.layout`` (SoA where
+the layout does not tile a halo'd block), and under a shared-memory budget
+or an explicit plan the half-step's launch tiles, splits or takes the block
+view (K9H on "cuda"), bitwise the untiled SoA steps.  Not yet ported:
+``run_steps`` (with ``core/schedule.py``, ROADMAP item 21).
 """
 
 from __future__ import annotations
@@ -70,6 +73,7 @@ from repro_torch.core import stencil
 from repro_torch.core.overlap import overlap_launch
 from repro_torch.core.field import resolve_device
 from repro_torch.core.fuse import check_pre_rings, register_cuda_graph
+from repro_torch.core.plan import plan_tile
 from repro_torch.core.target import register_cuda_body
 from repro_torch.kernels.lb_collision import ref as lbref
 from repro_torch.kernels.lb_collision.ops import collide_kernel
@@ -528,23 +532,27 @@ def _lb_step_tiled_cuda(graph, ins, scalars, *, lattice, plan, out_layouts, poli
     return {"dist2": dist2, "u": u}
 
 
-def _lb_step_pre_cuda(graph, ins, scalars, *, lattice, rings, vvl, out_layouts):
-    # K5LH: dist2 and u on the interior from dist and force padded by 1
+def _lb_step_pre_cuda(graph, ins, scalars, *, lattice, rings, plan, out_layouts):
+    # K5LH (K9H under a tiled plan or off SoA): dist2 and u on the interior
+    # from dist and force padded by 1, in their layouts
     check_pre_rings(graph, rings, {"dist": 1, "force": 1})
-    dist2, u = lbk.lb_step_pre_cuda(ins["dist"][0], ins["force"][0],
-                                    graph.stage_params()[1]["tau"], lattice, vvl,
-                                    with_u="u" in out_layouts)
+    t, lays = _split(ins, out_layouts)
+    dist2, u = lbk.lb_step_pre_cuda(t["dist"], t["force"], graph.stage_params()[1]["tau"],
+                                    lattice, plan.vvl, with_u="u" in out_layouts,
+                                    tile=plan_tile(plan), layouts=lays)
     return {"dist2": dist2, "u": u}
 
 
-def _lb_step_box_cuda(graph, ins, scalars, *, lattice, rings, vvls, part, interior, boxes,
-                      outs, scratch):
-    # K5LHO: dist2 and u on each box of the call, one launch a box, into the
-    # whole interior's
+def _lb_step_box_cuda(graph, ins, scalars, *, lattice, rings, vvls, tiles, part, interior, boxes,
+                      outs, out_layouts, scratch):
+    # K5LHO (K9H under a box's tile or off SoA): dist2 and u on each box of
+    # the call, one launch a box, into the whole interior's
     check_pre_rings(graph, rings, {"dist": 1, "force": 1})
-    for (origin, extents), vvl in zip(boxes, vvls):
-        lbk.lb_step_box_cuda(ins["dist"][0], ins["force"][0], graph.stage_params()[1]["tau"],
-                             lattice, origin, extents, outs["dist2"], outs.get("u"), vvl)
+    t, lays = _split(ins, out_layouts)
+    for (origin, extents), vvl, tile in zip(boxes, vvls, tiles):
+        lbk.lb_step_box_cuda(t["dist"], t["force"], graph.stage_params()[1]["tau"], lattice,
+                             origin, extents, outs["dist2"], outs.get("u"), vvl, tile=tile,
+                             layouts=lays)
 
 
 def _fed_cuda(ins, params, vvl, out_layouts):
@@ -559,5 +567,5 @@ register_cuda_graph(lc_update_graph(LudwigConfig()), _lc_update_cuda, ("q_new",)
 register_cuda_graph(lc_chain_graph(LudwigConfig()), _lc_chain_cuda, ("q_new",))
 register_cuda_graph(lb_step_graph(LudwigConfig()), _lb_step_cuda, ("dist2", "u"),
                     tiled=_lb_step_tiled_cuda, policy=True, pre=_lb_step_pre_cuda,
-                    box=_lb_step_box_cuda)
+                    box=_lb_step_box_cuda, pre_layouts=True)
 register_cuda_body(_fed_body, _fed_cuda)

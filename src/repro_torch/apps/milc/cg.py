@@ -67,7 +67,7 @@ import torch
 from repro_torch.core import BatchedField, Field, LaunchGraph, TargetConfig, launch, target_sum
 from repro_torch.core import fuse
 from repro_torch.core.fuse import register_cuda_graph
-from repro_torch.core.plan import cuda_policy, launch_policy
+from repro_torch.core.plan import cuda_policy, launch_policy, plan_tile
 from repro_torch.core.reduce import fold_components
 from repro_torch.core.target import register_cuda_body, site_axpy, site_g5, site_mul
 from repro_torch.kernels.wilson_dslash import dslash
@@ -635,18 +635,20 @@ def _wilson_normal_cuda(graph, ins, scalars, *, lattice, vvl, out_layouts, polic
     return {"ap": ap, "pap": pap}
 
 
-def _wilson_normal_pre_cuda(graph, ins, scalars, *, lattice, rings, vvl, out_layouts):
-    # K5H: ap on the interior from p and u padded by 2 (their rings)
+def _wilson_normal_pre_cuda(graph, ins, scalars, *, lattice, rings, plan, out_layouts):
+    # K5H (K5TH under a tiled plan): ap on the interior from p and u padded
+    # by 2 (their rings)
     fuse.check_pre_rings(graph, rings, {"p": 2, "u": 2})
     return {"ap": wilson_normal_pre_cuda(ins["p"][0], ins["u"][0], _normal_kappa(graph),
-                                         lattice, vvl)}
+                                         lattice, plan.vvl, tile=plan_tile(plan))}
 
 
-def _wilson_normal_box_cuda(graph, ins, scalars, *, lattice, rings, vvls, part, interior, boxes,
-                            outs, scratch):
+def _wilson_normal_box_cuda(graph, ins, scalars, *, lattice, rings, vvls, tiles, part, interior,
+                            boxes, outs, out_layouts, scratch):
     # K5HO: the interior (t on its grown box, then ap), then the whole
     # boundary (t on the shell, then ap on every box), one launch a kernel,
-    # into one ring-1 t array the split keeps in scratch
+    # into one ring-1 t array the split keeps in scratch; the ap tables'
+    # rows in the walks of the boxes' sub-plan tiles (tiled K5HO)
     fuse.check_pre_rings(graph, rings, {"p": 2, "u": 2})
     p, u = ins["p"][0], ins["u"][0]
     if "t" not in scratch:
@@ -654,9 +656,10 @@ def _wilson_normal_box_cuda(graph, ins, scalars, *, lattice, rings, vvls, part, 
                                    device=p.device)
     args = (p, u, _normal_kappa(graph), lattice, interior)
     if part == "interior":
-        wilson_normal_interior_cuda(*args, scratch["t"], outs["ap"], vvls[0])
+        wilson_normal_interior_cuda(*args, scratch["t"], outs["ap"], vvls[0], tile=tiles[0])
     else:
-        wilson_normal_boundary_cuda(*args, boxes, scratch["t"], outs["ap"], vvls[0])
+        wilson_normal_boundary_cuda(*args, boxes, scratch["t"], outs["ap"], vvls[0],
+                                    tiles=tiles)
 
 
 def _wilson_normal_tiled_cuda(graph, ins, scalars, *, lattice, plan, out_layouts, policy=None,

@@ -240,7 +240,9 @@ def make_sharded_solver(cfg: MilcConfig, domain: Domain, halo: Optional[str] = N
     ``halo`` selects the per-iteration schedule: None (an exchange for each
     dslash, unfused), "pre" (the fused normal operator on one width-2
     exchange) or "overlap" (that operator under the interior/boundary
-    split, p's exchange beside the interior: ``core.overlap``)."""
+    split, p's exchange beside the interior: ``core.overlap``).  Under a
+    shared-memory budget (``TargetConfig.smem_bytes``) the operator's "pre"
+    launch tiles (K5TH on "cuda"), bitwise the untiled solve."""
     if halo not in (None, "pre", "overlap"):
         raise ValueError(f"halo must be None, 'pre' or 'overlap', got {halo!r}")
     mesh = domain.mesh

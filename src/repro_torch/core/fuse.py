@@ -82,15 +82,22 @@ exchanged by the caller: the output lattice is the interior, each input's
 lattice less twice its ring.  The torch engine stages the caller's arrays
 as they are; the cuda engine runs the graph's registered ``"pre"`` kernel
 (``register_cuda_graph(..., pre=)``: K5H for wilson_normal, K5LH for
-ludwig_lb_step) and raises for any other graph.  ``"overlap"`` (or a "pre"
-launch whose plan chose it) takes the same inputs and runs the
+ludwig_lb_step and lb_collide_propagate), which walks a tiled plan's tile
+itself (K5TH, K9H), and raises for any other graph.  ``"overlap"``
+(or a "pre" launch whose plan chose it) takes the same inputs and runs the
 interior/boundary split of ``core.overlap``: on "torch" a "pre" launch a
 box, on "cuda" the graph's box kernel (``register_cuda_graph(...,
 box=)``: K5HO, K5LHO) on the interior and then on the whole boundary,
-writing in place into outputs allocated once.
-Not yet ported under ``"pre"`` and ``"overlap"``: tiles, ``rsplit``,
-``view="block"``, a batch and a DtypePolicy (ROADMAP item 24, queue 2 (e),
-(f)).
+each box's sites in the walk of its sub-plan's tiles (tiled K5HO, K9H),
+writing in place into outputs allocated once in their layouts.  Under
+both, a plan's ``rsplit`` leaves the field outputs as they are (no "pre"
+or box kernel folds partial rows), and an explicit ``view="block"`` is
+checked on the halo'd lattices as the JAX package checks it and then runs
+the same kernels.  The LB graphs' kernels take every layout (K9H;
+``pre_layouts=True``), wilson_normal's SoA only.  Still to be ported there,
+raising before any launch (ROADMAP queue 2): wilson_normal off SoA and in
+the block view, a DtypePolicy, a batch, and a reduction output (pap) with
+its per-split and per-box partials.
 
 This module also holds K3, the flat fused CG kernels
 (``csrc/fused_flat.cu``) that replace the JAX package's
@@ -116,9 +123,9 @@ from .._cuda import Kernel, check_field, check_tensor, check_typed_field
 from .field import BatchedField, Field, backend_name
 from .layout import SOA as SOA_LAYOUT
 from .layout import Layout, LayoutKind, resolve_layouts
-from .plan import (VIEW_BLOCK, DtypePolicy, LoweringPlan, adapt_plan, check_pre_plan,
-                   cuda_policy, default_plan, graph_plan_key, launch_policy, policy_plan,
-                   resolve_accumulate, sub_lattice_plan)
+from .plan import (VIEW_BLOCK, DtypePolicy, LoweringPlan, adapt_plan, cuda_policy, default_plan,
+                   graph_plan_key, launch_policy, plan_tile, policy_plan, resolve_accumulate,
+                   sub_lattice_plan)
 from .reduce import compensated_plain, fold_partials, fold_partials_batched
 from .stencil import halo_pad, tile_boxes
 from .target import (TargetConfig, TargetKernel, batch_operand, operand_shape, operand_slot,
@@ -336,10 +343,15 @@ class _CudaEntry(NamedTuple):
     pre: Optional[Callable]         # the kernel on pre-exchanged halos (halo="pre")
     pre_outputs: Tuple[str, ...]    # what that kernel produces
     box: Optional[Callable]         # that kernel on the split's boxes (halo="overlap")
+    pre_layouts: bool               # the "pre" and box kernels take every layout
 
 
 # LaunchGraph.structure() -> its kernels
 _CUDA_GRAPHS: Dict[tuple, _CudaEntry] = {}
+# what a "pre" or box kernel's missing output is: no such kernel writes a
+# reduction's partial rows yet
+_PRE_REDUCE = (" (a reduction under halo='pre' or 'overlap' is still to be ported, "
+               "ROADMAP queue 2 (g))")
 
 
 def register_cuda_graph(graph: "LaunchGraph", impl: Optional[Callable],
@@ -350,7 +362,8 @@ def register_cuda_graph(graph: "LaunchGraph", impl: Optional[Callable],
                         tiled_batch: bool = False,
                         pre: Optional[Callable] = None,
                         pre_outputs: Optional[Sequence[str]] = None,
-                        box: Optional[Callable] = None) -> None:
+                        box: Optional[Callable] = None,
+                        pre_layouts: bool = False) -> None:
     """Run ``impl(graph, ins, scalars, lattice=, vvl=, out_layouts=)`` for
     every graph of ``graph``'s structure on the cuda engine,
     ``tiled(graph, ins, scalars, lattice=, plan=, out_layouts=)`` under a
@@ -371,24 +384,30 @@ def register_cuda_graph(graph: "LaunchGraph", impl: Optional[Callable],
     raises for a policy on any other graph.  The kernels of a graph with a
     terminal reduction also take ``rsplit=`` (the plan's split factor),
     which their partial folds take.  ``pre(graph, ins, scalars, lattice=,
-    rings=, vvl=, out_layouts=)`` runs a ``halo="pre"`` launch: ``ins`` are
-    the caller's halo'd tensors, ``rings`` each input's ring, ``lattice``
-    the interior the outputs cover; it returns ``pre_outputs`` (default
-    ``outputs``).  ``box(graph, ins, scalars, lattice=, rings=, vvls=,
-    part=, interior=, boxes=, outs=, scratch=)`` runs that kernel on boxes
-    of the interior (the ``halo="overlap"`` split), called twice a split:
-    ``part="interior"`` with ``boxes`` the interior box alone, then
-    ``part="boundary"`` with every boundary box; ``ins`` and ``rings`` as
-    for ``pre``, each box an (origin, extents) pair, ``vvls`` each box's
-    block size, ``interior`` the interior box in both calls, ``outs`` the
-    field outputs' SoA tensors over the whole interior, of which it writes
-    the boxes' sites, and ``scratch`` a dict the split passes to both calls
-    (what the boundary reuses of the interior's launches).  A kernel may
-    launch once a box or once a call.  The ``"pre"`` and box kernels take
-    no policy."""
+    rings=, plan=, out_layouts=)`` runs a ``halo="pre"`` launch: ``ins``
+    are the caller's halo'd tensors, ``rings`` each input's ring,
+    ``lattice`` the interior the outputs cover, ``plan`` the launch's (its
+    vvl the block size; under a tiled plan it walks ``plan``'s tile,
+    ``core.plan.plan_tile``); it returns ``pre_outputs`` (default
+    ``outputs``).  ``box(graph, ins,
+    scalars, lattice=, rings=, vvls=, tiles=, part=, interior=, boxes=,
+    outs=, out_layouts=, scratch=)`` runs that kernel on boxes of the
+    interior (the ``halo="overlap"`` split), called
+    twice a split: ``part="interior"`` with ``boxes`` the interior box
+    alone, then ``part="boundary"`` with every boundary box; ``ins`` and
+    ``rings`` as for ``pre``, each box an (origin, extents) pair, ``vvls``
+    each box's block size, ``tiles`` each box's sub-plan tile (bx, by, bz)
+    or None where the sub-plan is untiled, ``interior`` the interior box in
+    both calls, ``outs`` the field outputs' physical tensors over the whole
+    interior in ``out_layouts``, of which it writes the boxes' sites, and
+    ``scratch`` a dict the split passes to both calls (what the boundary
+    reuses of the interior's launches).  A kernel may launch once a box or
+    once a call.  The ``"pre"`` and box kernels take no policy; with
+    ``pre_layouts`` set they take every layout, else SoA fields only."""
     _CUDA_GRAPHS[graph.structure()] = _CudaEntry(
         impl, tuple(outputs), tiled, batched, policy, bool(tiled_batch), pre,
-        tuple(pre_outputs if pre_outputs is not None else outputs), box)
+        tuple(pre_outputs if pre_outputs is not None else outputs), box,
+        bool(pre_layouts))
 
 
 def check_pre_rings(graph: "LaunchGraph", rings: Mapping[str, int],
@@ -806,10 +825,8 @@ class LaunchGraph:
 
         def default():
             # a default plan's view stays "auto": never the block view's check
-            p = default_plan(config, nsites=nsites, layouts=all_layouts, stencil=stencil,
-                             lattice=lattice, smem_views=smem_views, bounded=pre, halo=halo)
-            # under "overlap" the sub-launches' plans meet the check
-            return check_pre_plan(p) if halo == "pre" else p
+            return default_plan(config, nsites=nsites, layouts=all_layouts, stencil=stencil,
+                                lattice=lattice, smem_views=smem_views, bounded=pre, halo=halo)
 
         from_table = False
         if plan is None and getattr(config, "plan_policy", "default") == "tuned":
@@ -1003,7 +1020,7 @@ class LaunchGraph:
         if extra:
             raise ValueError(
                 f"cuda engine: the kernel for graph {self.name!r} produces "
-                f"{list(produces)}, not {extra}")
+                f"{list(produces)}, not {extra}" + (_PRE_REDUCE if rings is not None else ""))
         for n in ordered_ins:
             require_cuda(f"input {n!r}", ins[n].data)
         sdt = policy.scalar_dt or first.dtype
@@ -1021,45 +1038,47 @@ class LaunchGraph:
 
     def _pre_entry(self, entry, policy: _Policy, lattice, rings, plan, layouts):
         """(impl, outputs, keywords) of a halo="pre" launch: the graph's
-        kernel on pre-exchanged halos; raises where there is none, for a
-        policy and for a field that is not SoA (the "pre" kernels read and
-        write SoA)."""
+        kernel on pre-exchanged halos, which walks a tiled plan's tile;
+        raises where there is none and for what it does not take
+        (:meth:`_pre_checks`)."""
         if entry is None or entry.pre is None:
             raise ValueError(
                 f"cuda engine: no hand-written halo='pre' kernel is registered for "
                 f"graph {self.name!r} (register one with register_cuda_graph(..., pre=)); "
                 f"its pre-exchanged lowering is still to be ported (ROADMAP item 24)")
-        self._pre_checks(policy.pol, layouts, "'pre'")
-        return entry.pre, entry.pre_outputs, dict(lattice=lattice, rings=rings, vvl=plan.vvl)
+        self._pre_checks(entry, policy.pol, layouts, "'pre'")
+        return entry.pre, entry.pre_outputs, dict(lattice=lattice, rings=rings, plan=plan)
 
-    def _pre_checks(self, pol, layouts, halo: str) -> None:
-        """Raise for what the "pre" and box kernels do not take: a dtype
-        policy, a field that is not SoA."""
+    def _pre_checks(self, entry, pol, layouts, halo: str) -> None:
+        """Raise for what the graph's "pre" and box kernels do not take: a
+        dtype policy, and a field that is not SoA where they read and write
+        SoA only (``register_cuda_graph(..., pre_layouts=False)``)."""
         if pol:
             raise ValueError(
                 f"cuda engine: a dtype policy ({pol.tag()}) on graph {self.name!r} "
                 f"under halo={halo} is not yet ported (ROADMAP queue 2 (e))")
         off = {n: lay.name for n, lay in layouts.items() if lay.kind is not LayoutKind.SOA}
-        if off:
+        if off and not entry.pre_layouts:
             raise ValueError(
                 f"cuda engine: graph {self.name!r}'s halo={halo} kernel reads and writes SoA "
-                f"fields, got {off} (other layouts there are still to be ported, "
-                f"ROADMAP item 24)")
+                f"fields, got {off} (other layouts and the block view there are still to "
+                f"be ported, ROADMAP queue 2 (g))")
 
     def _launch_cuda_boxes(self, ins, *, rings, lattice, interior, boundary, config, outputs,
                            scalars, out_layouts, plan, start=None, between=None):
         """The cuda engine's ``halo="overlap"`` split (``core.overlap``): the
-        field outputs allocated once at the interior ``lattice`` (SoA),
-        ``start()`` (the fill's mark), the graph's box kernel on the
-        ``interior`` box, then ``between()`` (the exchange, which returns
-        the boundary's inputs), then the box kernel on the whole
-        ``boundary`` (in order) in one call; each box writes its sites in
-        place.  Nothing but the launch runs between ``start()`` and
-        ``between()``, so that the interior is on the card before the
-        exchange's copies are issued beside it.
-        Raises, before any launch, where the graph has no box kernel and for
-        what its "pre" launch refuses (a policy, a layout other than SoA, an
-        output the kernel does not write)."""
+        field outputs allocated once at the interior ``lattice`` in their
+        ``out_layouts``, ``start()`` (the fill's mark), the graph's box
+        kernel on the ``interior`` box, then ``between()`` (the exchange,
+        which returns the boundary's inputs), then the box kernel on the
+        whole ``boundary`` (in order) in one call; each box writes its sites
+        in place, in the order of its sub-plan's tiles where
+        :func:`~repro_torch.core.plan.sub_lattice_plan` keeps them.  Nothing
+        but the launch runs between ``start()`` and ``between()``, so that
+        the interior is on the card before the exchange's copies are issued
+        beside it.  Raises, before any launch, where the graph has no box
+        kernel and for what its "pre" launch refuses (a policy, a layout its
+        kernels do not take, an output the kernel does not write)."""
         entry = _CUDA_GRAPHS.get(self.structure())
         ext = list(rings)
         out_layouts = dict(out_layouts or {})
@@ -1075,21 +1094,23 @@ class LaunchGraph:
                 f"{self.name!r} (register one with register_cuda_graph(..., box=)); its "
                 f"halo='overlap' split is still to be ported")
         _, dtypes = launch_policy(config, plan)
-        self._pre_checks(dtypes, {**{n: ins[n].layout for n in ext},
-                                  **{o: out_layouts[o] for o in field_outputs}}, "'overlap'")
+        self._pre_checks(entry, dtypes, {**{n: ins[n].layout for n in ext},
+                                         **{o: out_layouts[o] for o in field_outputs}},
+                         "'overlap'")
         extra = [o for o in outputs if o not in entry.pre_outputs]
         if extra:
             raise ValueError(
                 f"cuda engine: the kernel for graph {self.name!r} produces "
-                f"{list(entry.pre_outputs)}, not {extra}")
+                f"{list(entry.pre_outputs)}, not {extra}" + _PRE_REDUCE)
         boxes = [interior] + list(boundary)
-        vvls = []
+        vvls, tiles = [], []
         for box in boxes:
             box_lat = tuple(e - s for s, e in box)
-            sub = check_pre_plan(adapt_plan(
-                sub_lattice_plan(plan, config, box_lat, halo="pre"), stencil=True, halo="pre"))
+            sub = adapt_plan(sub_lattice_plan(plan, config, box_lat, halo="pre"), stencil=True,
+                             halo="pre")
             vvls.append(sub.validate(lattice=box_lat, stencil=True,
                                      layouts=[ins[n].layout for n in ext]).vvl)
+            tiles.append(plan_tile(sub))
         for n in ext:
             require_cuda(f"input {n!r}", ins[n].data)
         svals = {}
@@ -1100,16 +1121,18 @@ class LaunchGraph:
             else:
                 svals[n] = torch.tensor(float(v), dtype=first.dtype, device=first.device)
         nsites = math.prod(lattice)
-        outs = {o: torch.empty((int(prod[o][0]), nsites), dtype=torch.float32,
-                               device=first.device) for o in field_outputs}
+        outs = {o: torch.empty(out_layouts[o].physical_shape(int(prod[o][0]), nsites),
+                               dtype=torch.float32, device=first.device) for o in field_outputs}
 
         oe = [(tuple(s for s, _ in b), tuple(e - s for s, e in b)) for b in boxes]
         scratch: Dict = {}
 
         def run(part, idx, source):
             entry.box(self, {n: (source[n].data, source[n].layout) for n in ext}, svals,
-                      lattice=lattice, rings=rings, vvls=[vvls[i] for i in idx], part=part,
-                      interior=oe[0], boxes=[oe[i] for i in idx], outs=outs, scratch=scratch)
+                      lattice=lattice, rings=rings, vvls=[vvls[i] for i in idx],
+                      tiles=[tiles[i] for i in idx], part=part, interior=oe[0],
+                      boxes=[oe[i] for i in idx], outs=outs,
+                      out_layouts={o: out_layouts[o] for o in field_outputs}, scratch=scratch)
 
         if start is not None:
             start()
@@ -1117,7 +1140,7 @@ class LaunchGraph:
         source = between() if between is not None else ins
         if len(boxes) > 1:
             run("boundary", range(1, len(boxes)), source)
-        return {o: Field(o, outs[o].shape[0], tuple(lattice), SOA_LAYOUT, outs[o])
+        return {o: Field(o, int(prod[o][0]), tuple(lattice), out_layouts[o], outs[o])
                 for o in field_outputs}
 
     def _periodic_entry(self, entry, plan, lattice, batch):

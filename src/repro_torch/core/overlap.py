@@ -8,8 +8,10 @@ schedule a planned lowering strategy (``LoweringPlan.halo == "overlap"``);
 this module is its port:
 
 1. **fill** the halo'd arrays (``core.halo.fill_padded``: the block and the
-   wrap of the dims that are not decomposed, by the caller), and mark the
-   fill's end (``core.halo.fill_event``),
+   wrap of the dims that are not decomposed, by the caller), take the
+   canonical arrays the exchange fills (a copy of a Field that is not SoA),
+   and mark the end of both (``core.halo.fill_event``): the exchange on the
+   side stream waits for that mark alone,
 2. run the graph's **interior** sub-launch, over the sites further than the
    ring from every decomposed face, which reads only owned sites,
 3. **start** the exchange of the decomposed dims (``core.halo.
@@ -41,12 +43,21 @@ part is one launch a kernel over a table of boxes: t on the interior's box
 grown by 1, then ap on the interior; after the exchange, t on the rest of
 the ring-1 array (the shell), then ap on every boundary box, the two
 T-slabs taken as one box; t lives in one ring-1 array, so no site of it is
-computed twice, and an operator issues four kernels.  ludwig_lb_step's
-K5LHO runs one launch a box.  The box kernels
-take no policy, read and write SoA and write no partial rows: a cuda
-"overlap" launch that asks for a reduction, a policy or another layout
-raises where the "pre" one raises, and a graph with no box kernel raises;
-nothing else ever runs in their place.
+computed twice, and an operator issues four kernels.  The LB graphs' K5LHO
+(K9H off SoA or under a tile) runs one launch a box, in every layout.  A
+box whose sub-plan keeps the outer plan's tiles (``core.plan.
+sub_lattice_plan``, as the reference's sub-launches keep them) walks its
+sites in that tile order (K9H; K5HO's ap tables).  The box kernels take no
+policy and write no partial rows, and wilson_normal's read and write SoA:
+a cuda "overlap" launch that asks for a reduction, a policy or a layout
+its kernels do not take raises where the "pre" one raises, and a graph
+with no box kernel raises; nothing else ever runs in their place.
+
+Plans.  An explicit plan (or a tuned one) is the outer plan of the split;
+with none, the default "overlap" plan is the reference's: the untiled
+default of the interior lattice (no shared-memory budget is priced, so it
+does not tile), whose sub-plans take their slabs from
+``sub_lattice_plan``.
 
 Numerics.  Every site of a box is computed by the same arithmetic as in
 the whole ``halo="pre"`` launch, so field outputs are bitwise the "pre"
@@ -315,19 +326,23 @@ def overlap_launch(graph, ins: Mapping[str, Field], *,
                 config, nsites=math.prod(lattice), layouts=[ins[n].layout for n in ext],
                 stencil=True, lattice=lattice, bounded=True, halo="pre")
         if ring >= 1 and split_boxes(lattice, ring, dims)[0] is not None:
-            ready = []
+            ready, views = [], {}
 
             def start() -> None:
-                # the fill is on the current stream: the exchange waits for
-                # it alone, not for the interior issued next
+                # the arrays the exchange fills: the data itself in SoA, a
+                # copy in any other layout, made here so that the mark below
+                # covers it; the fill and the copies are on the current
+                # stream, and the exchange waits for them alone, not for the
+                # interior issued next
+                views.update({n: ins[n].canonical_nd() for n in todo})
                 ready.append(halo_mod.fill_event(ins[ext[0]].data))
 
             def finish() -> Mapping[str, Field]:
                 log.debug("overlap/exchange graph=%s inputs=%s pre_exchanged=%s dims=%s",
                           getattr(graph, "name", "?"), todo,
                           [n for n in ext if n in exchanged], dims)
-                pending = {n: halo_mod.start_exchange(ins[n].canonical_nd(), decomposed,
-                                                      width=rings[n], mesh=mesh, after=ready[0])
+                pending = {n: halo_mod.start_exchange(views[n], decomposed, width=rings[n],
+                                                      mesh=mesh, after=ready[0])
                            for n in todo}
                 done = dict(ins)
                 for n, p in pending.items():

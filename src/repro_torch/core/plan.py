@@ -74,9 +74,13 @@ sub-launches are "pre" launches on sub-lattices, :func:`sub_lattice_plan`).
 The call site's strategy is authoritative, except that a plan which chose
 "overlap" upgrades a "pre" launch (:func:`adapt_plan`); the tuner proposes
 two "overlap" twins of a sharded "pre" launch on more than one rank.  Under
-"pre" a plan is untiled, unsplit and in the staged view:
-:func:`check_pre_plan` refuses the rest, which is still to be ported
-(ROADMAP item 24).
+"pre" and "overlap" every plan axis runs: tiles (the graph's "pre" and
+box kernels walk them), ``rsplit`` (no "pre" kernel folds partial rows, so it
+leaves the field outputs as they are) and the block view (checked on the
+halo'd lattices, then the same kernels, which read every layout in place).
+What the cuda engine's "pre" and box kernels do not take raises at launch,
+naming ROADMAP: a DtypePolicy, a batch, a reduction output, and
+wilson_normal off SoA (``core.fuse``).
 """
 
 from __future__ import annotations
@@ -93,7 +97,7 @@ from .layout import Layout, LayoutKind
 
 __all__ = ["LoweringPlan", "DtypePolicy", "ACCUM_COMPENSATED", "dtype_itemsize",
            "resolve_accumulate", "cuda_policy", "CudaPolicy", "divisors", "choose_vvl", "sal_alignment", "choose_slab",
-           "choose_tiles", "block_view_ok", "adapt_plan", "check_pre_plan", "sub_lattice_plan",
+           "choose_tiles", "block_view_ok", "adapt_plan", "sub_lattice_plan", "plan_tile",
            "HALOS", "VIEW_AUTO",
            "VIEW_BLOCK", "VIEW_STAGED_ND",
            "tile_extents", "estimate_smem_bytes", "resolved_smem_bytes",
@@ -588,31 +592,13 @@ class LoweringPlan:
                 f"bx={self.bx} must divide the leading lattice dim {lattice[0]}")
 
 
-def check_pre_plan(plan: LoweringPlan) -> LoweringPlan:
-    """Raise for what a ``halo="pre"`` launch does not run yet: a tiled
-    plan, a split reduction, the block view; return the plan."""
-    what = []
-    if plan.tiled:
-        what.append("tiles (by/bz)")
-    if plan.rsplit > 1:
-        what.append(f"rsplit={plan.rsplit}")
-    if plan.view == VIEW_BLOCK:
-        what.append("view='block'")
-    if what:
-        raise ValueError(
-            f"plan {plan.describe()} under halo='pre' uses what is not yet ported there: "
-            f"{', '.join(what)} (ROADMAP item 24); use an untiled, unsplit, staged plan")
-    return plan
-
-
 def adapt_plan(plan: LoweringPlan, *, stencil: bool, halo: str = "periodic") -> LoweringPlan:
     """Fit an explicit plan to a concrete launch.  ``halo`` is the call
     site's strategy, which is authoritative, as in the JAX package, with one
     exception: "pre" and "overlap" take the same inputs, so a plan that
     chose "overlap" (a tuned winner) upgrades a stencil launch called under
-    "pre" to the split schedule.  Under "pre" :func:`check_pre_plan`
-    refuses what is not yet ported; under "overlap" the sub-launches' plans
-    (:func:`sub_lattice_plan`) meet it.  The view follows the JAX package's
+    "pre" to the split schedule; under "overlap" the sub-launches are
+    planned by :func:`sub_lattice_plan`.  The view follows the JAX package's
     ``adapt_plan``: a site-local launch is always "block"; a stencil launch
     keeps an explicit view on the cuda engine (an explicit "block" that
     cannot lower fails loudly at launch), and "auto", or any view on the
@@ -635,7 +621,13 @@ def adapt_plan(plan: LoweringPlan, *, stencil: bool, halo: str = "periodic") -> 
     bx = plan.bx if (stencil or plan.tiled) else 0
     if (view, bx, eff) != (plan.view, plan.bx, plan.halo):
         plan = dataclasses.replace(plan, view=view, bx=bx, halo=eff)
-    return check_pre_plan(plan) if eff == "pre" else plan
+    return plan
+
+
+def plan_tile(plan: Optional[LoweringPlan]) -> Optional[Tuple[int, int, int]]:
+    """A plan's tile (bx, by, bz; 0 a whole axis) where it is tiled, else
+    None: what the tiled "pre" kernels take."""
+    return (plan.bx, plan.by, plan.bz) if plan is not None and plan.tiled else None
 
 
 def sub_lattice_plan(plan: LoweringPlan, config, lattice: Tuple[int, ...], *,
@@ -647,8 +639,9 @@ def sub_lattice_plan(plan: LoweringPlan, config, lattice: Tuple[int, ...], *,
     chosen again; the view drops to "staged-nd" (the sub-launches' windows
     are SoA) and ``rsplit`` to 1 (the split combines per-box partials
     itself).  The y/z tiles are kept where they still divide the
-    sub-lattice, else dropped to the whole axis (a thin slab, usually); a
-    sub-plan that keeps tiles meets :func:`check_pre_plan` at its launch."""
+    sub-lattice, else dropped to the whole axis (a thin slab, usually); the
+    cuda engine's box kernels walk a box's sites in the tiles its sub-plan
+    keeps."""
 
     def _tiles(lat):
         by = plan.by if (plan.by and len(lat) > 1 and lat[1] % plan.by == 0) else 0
@@ -832,8 +825,10 @@ def candidate_plans(config, *, nsites: int, layouts: Sequence[Layout],
     footprint descriptor ``smem_views``, a stencil candidate whose
     estimated footprint exceeds the budget is dropped and logged; if no
     untiled slab fits, the set is tiled only."""
+    # the "pre" kernels check their last block's bounds, as the launch plans
+    bounded = halo in ("pre", "overlap")
     default = default_plan(config, nsites=nsites, layouts=layouts, stencil=stencil,
-                           lattice=lattice, smem_views=smem_views, halo=halo)
+                           lattice=lattice, smem_views=smem_views, bounded=bounded, halo=halo)
     if default.engine != "cuda":
         return (default,)
     if stencil:
@@ -918,7 +913,8 @@ def candidate_plans(config, *, nsites: int, layouts: Sequence[Layout],
         if c not in out:
             out.append(c)
     for c in out:
-        c.validate(nsites=nsites, lattice=lattice, layouts=layouts, stencil=stencil)
+        c.validate(nsites=None if bounded else nsites, lattice=lattice, layouts=layouts,
+                   stencil=stencil)
     return tuple(out[:max_candidates + 1])
 
 

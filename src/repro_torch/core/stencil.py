@@ -13,7 +13,7 @@ from typing import List, Sequence, Tuple
 import torch
 
 __all__ = ["shift_periodic", "halo_pad", "halo_pad_physical", "interior", "shifted_window",
-           "tile_boxes", "box_slices"]
+           "tile_boxes", "box_slices", "shell_order"]
 
 
 def tile_boxes(lattice: Sequence[int], bx: int, by: int = 0,
@@ -133,3 +133,26 @@ def box_slices(lattice: Sequence[int], origin: Sequence[int], extents: Sequence[
             or any(a + b > L for a, b, L in zip(o, e, lat))):
         raise ValueError(f"box at origin {o} of extents {e} does not lie in lattice {lat}")
     return tuple(slice(a, a + b + 2 * ring) for a, b in zip(o, e))
+
+
+def shell_order(extents: Sequence[int]) -> torch.Tensor:
+    """The sites of a box's ring of width 1, as the walks of the "pre"
+    kernels take them after the box (K9H's ``rt_k9h_ring_site``, K5TH's
+    ``rt_ring1_shell_site``): each an index, linear over the box grown by 1
+    (extents + 2), for each axis d in turn its lo face, then its hi one,
+    each over the box's range of the axes before d and the grown range of
+    the axes after it, the later axes fastest."""
+    n = [int(e) for e in extents]
+    g = [e + 2 for e in n]
+    strides = [math.prod(g[k + 1:]) for k in range(len(g))]
+    out = []
+    for d in range(len(n)):
+        axes = [torch.arange(1, n[k] + 1) if k < d else torch.arange(g[k])
+                for k in range(len(n)) if k != d]
+        grids = torch.meshgrid(*axes, indexing="ij") if axes else ()
+        rest = sum((c.reshape(-1) * strides[k] for c, k in
+                    zip(grids, [k for k in range(len(n)) if k != d])),
+                   torch.zeros(1, dtype=torch.int64))
+        for face in (0, n[d] + 1):
+            out.append(rest + face * strides[d])
+    return torch.cat(out)

@@ -247,3 +247,29 @@ static inline unsigned int rt_grid(long long n, int block) {
 
 // Returned by an entry point for a descriptor that names no layout.
 #define RT_BAD_LAYOUT static_cast<int>(cudaErrorInvalidValue)
+
+// The coordinates, in the box grown by 1, of position r (< the ring's
+// sites) of the ring of width 1 around an X Y Z box: the lo x face, then
+// the hi one, each over the grown y and z; the y faces over the box's x
+// range and the grown z; the z faces over the box's x and y ranges; in a
+// face the later axes fastest (core/stencil.py::shell_order mirrors it).
+template <typename I>
+__device__ __forceinline__ int3 rt_shell3_site(int X, int Y, int Z, I r) {
+  const int GY = Y + 2, GZ = Z + 2;
+  const I fx = (I)GY * GZ, fy = (I)X * GZ, fz = (I)X * Y;
+  if (r < 2 * fx) {
+    const int gx = r < fx ? 0 : X + 1;
+    const I q = r < fx ? r : r - fx;
+    return make_int3(gx, (int)(q / GZ), (int)(q % GZ));
+  }
+  r -= 2 * fx;
+  if (r < 2 * fy) {
+    const int gy = r < fy ? 0 : Y + 1;
+    const I q = r < fy ? r : r - fy;
+    return make_int3(1 + (int)(q / GZ), gy, (int)(q % GZ));
+  }
+  r -= 2 * fy;
+  const int gz = r < fz ? 0 : Z + 1;
+  const I q = r < fz ? r : r - fz;
+  return make_int3(1 + (int)(q / Y), 1 + (int)(q % Y), gz);
+}

@@ -150,3 +150,53 @@ __device__ __forceinline__ void rt_collide_site(const float (&f)[RT_NVEL], const
     out[i] = __fadd_rn(__fsub_rn(f[i], __fmul_rn(p.omega, __fsub_rn(f[i], feq))), fi);
   }
 }
+
+// -- K9's tile walk and launch layouts (lb_tiled.cu's K9, lb_halo.cu's K9H) --
+
+// A lattice (or a box) cut into tiles walked in the reference's grid order:
+// tile t = (i nty + j) ntz + k (x-slab outermost, z-tile fastest), and in a
+// tile x, y, then z fastest.
+struct rt_tiling {
+  int X, Y, Z;     // the lattice
+  int bx, by, bz;  // tile extents (each divides its dim)
+  int nty, ntz;    // tiles along y and along z
+  int tsites;      // bx * by * bz
+  int V;           // X * Y * Z
+};
+
+static inline rt_tiling rt_make_tiling(int X, int Y, int Z, int bx, int by, int bz) {
+  rt_tiling T;
+  T.X = X, T.Y = Y, T.Z = Z;
+  T.bx = bx, T.by = by, T.bz = bz;
+  T.nty = Y / by, T.ntz = Z / bz;
+  T.tsites = bx * by * bz;
+  T.V = X * Y * Z;
+  return T;
+}
+
+// Whether (bx, by, bz) tiles an (X, Y, Z) lattice of fewer than 2^31 sites.
+static inline bool rt_tiling_ok(int X, int Y, int Z, int bx, int by, int bz) {
+  return X >= 1 && Y >= 1 && Z >= 1 && bx >= 1 && by >= 1 && bz >= 1 && X % bx == 0 &&
+         Y % by == 0 && Z % bz == 0 && (long long)X * Y * Z < (1LL << 31);
+}
+
+// Lattice coordinates of walk position g.
+__device__ __forceinline__ int3 rt_tile_site(const rt_tiling& T, int g) {
+  const int t = g / T.tsites;
+  int l = g - t * T.tsites;
+  const int lz = l % T.bz;
+  l /= T.bz;
+  const int ly = l % T.by;
+  const int lx = l / T.by;
+  const int tz = t % T.ntz;
+  const int r = t / T.ntz;
+  const int ty = r % T.nty;
+  const int tx = r / T.nty;
+  return make_int3(tx * T.bx + lx, ty * T.by + ly, tz * T.bz + lz);
+}
+
+// Layouts of a K9 or K9H launch's tensors: dist in, force in, dist2 out, u
+// out.
+struct rt_k9_layouts {
+  rt_layout f, force, out, u;
+};

@@ -61,34 +61,6 @@
 
 #define RT_K9_MAX_THREADS 1024
 
-struct rt_tiling {
-  int X, Y, Z;     // the lattice
-  int bx, by, bz;  // tile extents (each divides its dim)
-  int nty, ntz;    // tiles along y and along z
-  int tsites;      // bx * by * bz
-  int V;           // X * Y * Z
-};
-
-// Layouts of a K9 launch's tensors: dist in, force in, dist2 out, u out.
-struct rt_k9_layouts {
-  rt_layout f, force, out, u;
-};
-
-// Lattice coordinates of walk position g.
-__device__ __forceinline__ int3 rt_tile_site(const rt_tiling& T, int g) {
-  const int t = g / T.tsites;
-  int l = g - t * T.tsites;
-  const int lz = l % T.bz;
-  l /= T.bz;
-  const int ly = l % T.by;
-  const int lx = l / T.by;
-  const int tz = t % T.ntz;
-  const int r = t / T.ntz;
-  const int ty = r % T.nty;
-  const int tx = r / T.nty;
-  return make_int3(tx * T.bx + lx, ty * T.by + ly, tz * T.bz + lz);
-}
-
 __device__ __forceinline__ long long rt_site_index(const rt_tiling& T, int3 c) {
   return ((long long)c.x * T.Y + c.y) * T.Z + c.z;
 }
@@ -150,8 +122,7 @@ static int rt_lb_step_tiled_launch(const float* f, const float* force,
                                    typename rt_storage<BF>::type* u, int X, int Y, int Z, int bx,
                                    int by, int bz, float omega, float pw0, float pw1, float pw2,
                                    const int (&desc)[4], int block, cudaStream_t stream) {
-  if (X < 1 || Y < 1 || Z < 1 || bx < 1 || by < 1 || bz < 1 || X % bx || Y % by || Z % bz ||
-      (long long)X * Y * Z >= (1LL << 31) || block < 32 || block % 32 ||
+  if (!rt_tiling_ok(X, Y, Z, bx, by, bz) || block < 32 || block % 32 ||
       block > RT_K9_MAX_THREADS)
     return static_cast<int>(cudaErrorInvalidValue);
   const rt_layout L[4] = {rt_make_layout(desc[0]), rt_make_layout(desc[1]),
@@ -159,12 +130,7 @@ static int rt_lb_step_tiled_launch(const float* f, const float* force,
   const int k = rt_launch_class(L, u != nullptr ? 4 : 3);
   if (k < 0) return RT_BAD_LAYOUT;
   const rt_k9_layouts ll{L[0], L[1], L[2], L[3]};
-  rt_tiling T;
-  T.X = X, T.Y = Y, T.Z = Z;
-  T.bx = bx, T.by = by, T.bz = bz;
-  T.nty = Y / by, T.ntz = Z / bz;
-  T.tsites = bx * by * bz;
-  T.V = X * Y * Z;
+  const rt_tiling T = rt_make_tiling(X, Y, Z, bx, by, bz);
   const rt_lb_params p = rt_make_lb_params(omega, pw0, pw1, pw2);
   const int nunits = (T.V + block - 1) / block;
   RT_WITH_CLASS(k, lb_tiled_kernel<RT_K, BF><<<nunits, block, 0, stream>>>(f, force, dist2, u,

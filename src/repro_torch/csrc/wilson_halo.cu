@@ -43,6 +43,33 @@
 //   bits.  The sharded solve takes <p, Ap> from core dot on the assembled
 //   Fields (as the JAX package's does), so no partial rows.
 //
+// K5TH rt_wilson_normal_pre_t_tiled / _ap_tiled replace the tiled plan's
+//   dma_kernel (core/fuse.py:1804, pallas_call :1914) for wilson_normal
+//   under halo="pre": K5H's two kernels, their sites walked in K5T's tile
+//   order (wilson_normal.cuh::rt_walk_site; T whole in every tile) instead
+//   of the brick order, one thread a site, blocks cut linearly.  The ap
+//   launch walks the interior; the t launch walks the ring-1 array by its
+//   rows, each whole along T: the interior's rows in the walk (each placed
+//   1 in), then the rows of the shell (rt_ring1_walk_site).  A first
+//   design walked the interior's sites and then the shell's axis by axis:
+//   its T faces (a site a row, SoA's fastest axis) took K5TH to 11.77 ms
+//   against this design's 6.20 at (64, 64, 64, 32) (chip_smoke.py D1, H100
+//   80GB HBM3, 700.00 W).  kernels/wilson_dslash/kernel.py::normal_walk(ring=1)
+//   mirrors the walk.  The reference's tiled program stages
+//   each tile's halo'd window and recomputes t on the tile's ring; here, as
+//   in K5T, nothing is staged and t is computed once a site, so the tile
+//   only orders the sites.  Each site's arithmetic is K5H's, so ap is
+//   K5H's bits.  K5H's own entry points stay for the untiled plan: the walk
+//   is a site map, which cost the whole-array launches 5-8% (above).
+//
+// Tiled K5HO: a table box may carry its sub-plan's tile (core/plan.py::
+//   sub_lattice_plan keeps the outer plan's y/z tiles where they divide the
+//   box); its rows then run in that tile's walk (rt_htab).  The split's
+//   ap tables carry them (kernel.py::split_tables); the t tables cover the
+//   grown interior and the shell, which are no sub-launch's boxes, and stay
+//   in the brick order.  Four launches an operator, the T-slab pairing
+//   kept; the bits are K5H's.
+//
 // Both kernels and K4H share wilson.cuh's hop (rt_hop_mu, the direction
 // order and the adds of rt_wilson_hop), fed by loaders that read a halo'd
 // SoA array; on wrap-padded inputs their fields equal K4's and K5's SoA
@@ -129,10 +156,18 @@ __device__ __forceinline__ bool rt_horder_site(const rt_horder& o, int i, I& s) 
 // sites takes lanes[k] slots (ext.T rounded up to a power of two), so that
 // no warp holds parts of two rows a lane run apart (the rest of its slots
 // idle); a row longer than RT_HROW_LANES_MAX is cut linearly (lanes 0).
+//
+// A box with a tile (tx[k] > 0: its sub-plan's (tx, ty, tz), each dividing
+// the box's x, y, z extent; T whole) runs its rows in that tile's walk
+// (wilson_normal.cuh::rt_walk_site over the box's x, y, z): its thread
+// slots, lanes[k] (or ext.T) a row, are cut linearly into blocks, and slot
+// row j is the j-th (x, y, z) of the walk.  Rows keep their T sites
+// together, so the lanes and the T-slab pairing are the untiled box's.
 struct rt_htab {
   int n;
   rt_lattice org[RT_HTAB_MAX], ext[RT_HTAB_MAX];
   int tsplit[RT_HTAB_MAX], tgap[RT_HTAB_MAX], nq[RT_HTAB_MAX], lanes[RT_HTAB_MAX];
+  int tx[RT_HTAB_MAX], ty[RT_HTAB_MAX], tz[RT_HTAB_MAX];
   int start[RT_HTAB_MAX + 1];
 };
 
@@ -147,19 +182,20 @@ static inline int rt_row_lanes(int T) {
 // One box of a table, as a thread reads it.
 struct rt_hent {
   rt_lattice org, ext;
-  int tsplit, tgap, nq, lanes, start;
+  int tsplit, tgap, nq, lanes, start, tx, ty, tz;
 };
 
 // The box of block i of a table's grid (start[] ascending, start[0] = 0),
 // selected with constant indices only: a run-time index into the
 // parameter struct would have the compiler copy it to local memory.
 __device__ __forceinline__ rt_hent rt_htab_entry(const rt_htab& tb, int i) {
-  rt_hent h{tb.org[0], tb.ext[0], tb.tsplit[0], tb.tgap[0], tb.nq[0], tb.lanes[0], tb.start[0]};
+  rt_hent h{tb.org[0], tb.ext[0], tb.tsplit[0], tb.tgap[0], tb.nq[0], tb.lanes[0], tb.start[0],
+            tb.tx[0], tb.ty[0], tb.tz[0]};
 #pragma unroll
   for (int j = 1; j < RT_HTAB_MAX; ++j)
     if (j < tb.n && i >= tb.start[j])
       h = rt_hent{tb.org[j], tb.ext[j], tb.tsplit[j], tb.tgap[j], tb.nq[j], tb.lanes[j],
-                  tb.start[j]};
+                  tb.start[j], tb.tx[j], tb.ty[j], tb.tz[j]};
   return h;
 }
 
@@ -202,16 +238,27 @@ __device__ __forceinline__ bool rt_htab_site(const rt_htab& tb, rt_lattice& c) {
   const rt_hent h = rt_htab_entry(tb, (int)blockIdx.x);
   const rt_lattice e = h.ext;
   const int g = h.lanes;
-  const long long P = (long long)e.Y * e.Z * (g ? g : e.T);   // slots an x-plane
-  const rt_horder o{h.nq, e.X, P};
-  I s;
-  if (!rt_horder_site<I>(o, (int)blockIdx.x - h.start, s)) return false;
-  if (g) {   // slot -> site: row s / g, lane s % g (g a power of two)
-    const int lane = (int)(s & (I)(g - 1));
-    if (lane >= e.T) return false;
-    s = (s >> (__ffs(g) - 1)) * e.T + lane;
+  if (h.tx) {   // the box's tile walk: slots cut linearly, rows in walk order
+    const int w = g ? g : e.T;   // slots a row
+    const I q = (I)((int)blockIdx.x - h.start) * blockDim.x + threadIdx.x;
+    const I row = q / w;
+    const int lane = (int)(q - row * w);
+    if (row >= (I)e.X * e.Y * e.Z || lane >= e.T) return false;
+    const rt_walk wk{h.tx, h.ty, h.tz, e.Y, e.Z, 1, e.Y / h.ty, e.Z / h.tz, h.tx * h.ty * h.tz};
+    const I xyz = rt_walk_site<I>(wk, row);   // ((x Y + y) Z + z) over the box
+    c = rt_lattice{(int)(xyz / ((I)e.Y * e.Z)), (int)((xyz / e.Z) % e.Y), (int)(xyz % e.Z), lane};
+  } else {
+    const long long P = (long long)e.Y * e.Z * (g ? g : e.T);   // slots an x-plane
+    const rt_horder o{h.nq, e.X, P};
+    I s;
+    if (!rt_horder_site<I>(o, (int)blockIdx.x - h.start, s)) return false;
+    if (g) {   // slot -> site: row s / g, lane s % g (g a power of two)
+      const int lane = (int)(s & (I)(g - 1));
+      if (lane >= e.T) return false;
+      s = (s >> (__ffs(g) - 1)) * e.T + lane;
+    }
+    c = rt_hcoord<I>(e, s);
   }
-  c = rt_hcoord<I>(e, s);
   if (c.T >= h.tsplit) c.T += h.tgap;
   c = rt_lattice{c.X + h.org.X, c.Y + h.org.Y, c.Z + h.org.Z, c.T + h.org.T};
   return true;
@@ -284,14 +331,49 @@ __global__ void dslash_halo_kernel(const float* __restrict__ psi, const float* _
   for (int c = 0; c < 24; ++c) out[(I)c * V + s] = d[c];
 }
 
-// K5H's t kernel: t on the whole ring-1 array (extents bt.box, SoA) =
-// g5(p - kappa D p), p and u SoA over bt.arr (ring 2; bt.org 1).
+// K5TH's walk over the ring-1 array of the interior `in` (extents et = in +
+// 2), by its (x, y, z) rows, each whole along T (et.T sites, T the fastest
+// axis): first the interior's rows in K5T's tile walk (w: rt_walk_site over
+// the interior's x, y, z, T 1), each placed 1 in, then the other rows (the
+// ring of the x, y, z box grown by 1, common.cuh::rt_shell3_site).  A warp
+// takes consecutive T sites of one row or two, so every load coalesces as
+// in K5H.  The site (linear over the ring-1 array) of this thread's
+// position, false past the array.
 template <typename I>
+__device__ __forceinline__ bool rt_ring1_walk_site(const rt_walk& w, const rt_lattice& in,
+                                                   const rt_lattice& et, I& s) {
+  const I g = (I)blockIdx.x * blockDim.x + threadIdx.x;
+  if (g >= rt_hvol<I>(et)) return false;
+  const I row = g / et.T;
+  const int lane = (int)(g - row * et.T);
+  const I nin = (I)in.X * in.Y * in.Z;
+  int3 r;
+  if (row < nin) {
+    const I xyz = rt_walk_site<I>(w, row);   // ((x Y + y) Z + z) over the interior
+    r = make_int3((int)(xyz / ((I)in.Y * in.Z)) + 1, (int)((xyz / in.Z) % in.Y) + 1,
+                  (int)(xyz % in.Z) + 1);
+  } else {
+    r = rt_shell3_site<I>(in.X, in.Y, in.Z, row - nin);
+  }
+  s = (((I)r.x * et.Y + r.y) * et.Z + r.z) * et.T + lane;
+  return true;
+}
+
+// K5H's t kernel: t on the whole ring-1 array (extents bt.box, SoA) =
+// g5(p - kappa D p), p and u SoA over bt.arr (ring 2; bt.org 1).  W: K5TH,
+// the sites in rt_ring1_walk_site's order (w over the interior), else in
+// the brick order o.
+template <typename I, bool W>
 __global__ void wilson_normal_pre_t_kernel(const float* __restrict__ p,
                                            const float* __restrict__ u, float* __restrict__ t,
-                                           float kappa, rt_hbox bt, rt_horder o) {
+                                           float kappa, rt_hbox bt, rt_horder o, rt_walk w) {
   I s;
-  if (!rt_horder_site<I>(o, (int)blockIdx.x, s)) return;
+  if (W) {
+    const rt_lattice e = bt.box;
+    if (!rt_ring1_walk_site<I>(w, rt_lattice{e.X - 2, e.Y - 2, e.Z - 2, e.T - 2}, e, s)) return;
+  } else if (!rt_horder_site<I>(o, (int)blockIdx.x, s)) {
+    return;
+  }
   const I a = rt_hsite<I>(bt, s);
   float d[24];
   rt_halo_hop<I>(p, bt.arr, a, u, bt.arr, a, d);
@@ -303,14 +385,21 @@ __global__ void wilson_normal_pre_t_kernel(const float* __restrict__ p,
 
 // K5H's ap kernel: ap on the whole interior (bap.arr, SoA) = g5(t - kappa
 // D t), t over the ring-1 array (bt: origin 1), u over b.arr (ring 2; b.org
-// 2).
-template <typename I>
+// 2).  W: K5TH, the interior's sites in K5T's tile walk w, else in the
+// brick order o.
+template <typename I, bool W>
 __global__ void wilson_normal_pre_ap_kernel(const float* __restrict__ t,
                                             const float* __restrict__ u, float* __restrict__ ap,
                                             float kappa, rt_hbox b, rt_hbox bt, rt_hbox bap,
-                                            rt_horder o) {
+                                            rt_horder o, rt_walk w) {
   I s;
-  if (!rt_horder_site<I>(o, (int)blockIdx.x, s)) return;
+  if (W) {
+    const I g = (I)blockIdx.x * blockDim.x + threadIdx.x;
+    if (g >= rt_hvol<I>(b.box)) return;
+    s = rt_walk_site<I>(w, g);
+  } else if (!rt_horder_site<I>(o, (int)blockIdx.x, s)) {
+    return;
+  }
   const rt_lattice c = rt_hcoord<I>(b.box, s);
   const I a = rt_hidx<I>(b, c);     // u's site
   const I at = rt_hidx<I>(bt, c);   // t's site
@@ -387,10 +476,11 @@ static inline unsigned rt_horder_grid(const rt_horder& o) {
 }
 
 // A table from `boxes` (RT_HBOX_INTS ints a box: origin, extents, tsplit,
-// tgap) of boxes inside L, `block` threads a block; false for a table the
-// kernels do not take (too many boxes, a box outside L, a gap that leaves
-// L, a grid past 2^31 blocks).
-#define RT_HBOX_INTS 10
+// tgap, the tile tx, ty, tz or 0 0 0) of boxes inside L, `block` threads a
+// block; false for a table the kernels do not take (too many boxes, a box
+// outside L, a gap that leaves L, a tile that does not divide its box, a
+// grid past 2^31 blocks).
+#define RT_HBOX_INTS 13
 static bool rt_make_htab(const int* boxes, int nbox, const rt_lattice& L, int block,
                          rt_htab& tb) {
   if (nbox < 1 || nbox > RT_HTAB_MAX) return false;
@@ -409,13 +499,115 @@ static bool rt_make_htab(const int* boxes, int nbox, const rt_lattice& L, int bl
     tb.start[k] = (int)start;
     tb.lanes[k] = rt_row_lanes(b[7]);
     const int g = tb.lanes[k];
-    const rt_horder o = rt_make_horder(rt_lattice{b[4], b[5], b[6], g ? g : b[7]}, block);
-    tb.nq[k] = o.nq;
-    start += rt_horder_grid(o);
+    tb.tx[k] = b[10], tb.ty[k] = b[11], tb.tz[k] = b[12];
+    if (b[10] || b[11] || b[12]) {
+      const int tile[3] = {b[10], b[11], b[12]};
+      if (!rt_normal_tile_ok(tb.ext[k], tile)) return false;
+      tb.nq[k] = 0;
+      start += rt_grid((long long)b[4] * b[5] * b[6] * (g ? g : b[7]), block);
+    } else {
+      const rt_horder o = rt_make_horder(rt_lattice{b[4], b[5], b[6], g ? g : b[7]}, block);
+      tb.nq[k] = o.nq;
+      start += rt_horder_grid(o);
+    }
     if (start >= (1LL << 31)) return false;
   }
   tb.start[nbox] = (int)start;
   return true;
+}
+
+// K5H's walk (none: the brick order) or K5TH's under `tile` (bx > 0), with
+// T sites a row: the interior's T for the ap launch, 1 for the t launch's
+// row walk.
+static inline rt_walk rt_pre_walk(const rt_lattice& in, const int (&tile)[3], int T) {
+  const int bx = tile[0], by = tile[1], bz = tile[2];
+  return bx ? rt_walk{bx, by, bz, in.Y, in.Z, T, in.Y / by, in.Z / bz, bx * by * bz * T}
+            : rt_walk{};
+}
+
+// K5H's (tile[0] 0) or K5TH's t launch.
+static int rt_pre_t_launch(const float* p_h, const float* u_h, float* t, float kappa,
+                           const rt_lattice& in, const int (&tile)[3], int block,
+                           cudaStream_t stream) {
+  if (block < 1 || block > 1024) return RT_BAD_LAYOUT;
+  if ((long long)in.X * in.Y * in.Z * in.T == 0) return 0;
+  const rt_lattice et = rt_grow(in, 1), ep = rt_grow(in, 2);
+  const rt_hbox bt{et, ep, rt_lattice{1, 1, 1, 1}};
+  const rt_horder o = rt_make_horder(et, block);
+  const rt_walk w = rt_pre_walk(in, tile, 1);
+  const unsigned grid = w.bx ? rt_grid((long long)et.X * et.Y * et.Z * et.T, block)
+                             : rt_horder_grid(o);
+  const bool narrow = rt_halo_narrow(ep);
+  if (w.bx && narrow)
+    wilson_normal_pre_t_kernel<int, true><<<grid, block, 0, stream>>>(p_h, u_h, t, kappa, bt, o,
+                                                                      w);
+  else if (w.bx)
+    wilson_normal_pre_t_kernel<long long, true><<<grid, block, 0, stream>>>(p_h, u_h, t, kappa,
+                                                                            bt, o, w);
+  else if (narrow)
+    wilson_normal_pre_t_kernel<int, false><<<grid, block, 0, stream>>>(p_h, u_h, t, kappa, bt,
+                                                                       o, w);
+  else
+    wilson_normal_pre_t_kernel<long long, false><<<grid, block, 0, stream>>>(p_h, u_h, t, kappa,
+                                                                             bt, o, w);
+  RT_LAUNCH_RESULT();
+}
+
+// K5H's (tile[0] 0) or K5TH's ap launch.
+static int rt_pre_ap_launch(const float* t, const float* u_h, float* ap, float kappa,
+                            const rt_lattice& in, const int (&tile)[3], int block,
+                            cudaStream_t stream) {
+  if (block < 1 || block > 1024) return RT_BAD_LAYOUT;
+  if ((long long)in.X * in.Y * in.Z * in.T == 0) return 0;
+  const rt_lattice et = rt_grow(in, 1), ep = rt_grow(in, 2);
+  const rt_hbox b{in, ep, rt_lattice{2, 2, 2, 2}}, bt{in, et, rt_lattice{1, 1, 1, 1}},
+      bap{in, in, rt_lattice{0, 0, 0, 0}};
+  const rt_horder o = rt_make_horder(in, block);
+  const rt_walk w = rt_pre_walk(in, tile, in.T);
+  const unsigned grid = w.bx ? rt_grid((long long)in.X * in.Y * in.Z * in.T, block)
+                             : rt_horder_grid(o);
+  const bool narrow = rt_halo_narrow(ep);
+  if (w.bx && narrow)
+    wilson_normal_pre_ap_kernel<int, true><<<grid, block, 0, stream>>>(t, u_h, ap, kappa, b, bt,
+                                                                       bap, o, w);
+  else if (w.bx)
+    wilson_normal_pre_ap_kernel<long long, true><<<grid, block, 0, stream>>>(t, u_h, ap, kappa,
+                                                                             b, bt, bap, o, w);
+  else if (narrow)
+    wilson_normal_pre_ap_kernel<int, false><<<grid, block, 0, stream>>>(t, u_h, ap, kappa, b,
+                                                                        bt, bap, o, w);
+  else
+    wilson_normal_pre_ap_kernel<long long, false><<<grid, block, 0, stream>>>(t, u_h, ap, kappa,
+                                                                              b, bt, bap, o, w);
+  RT_LAUNCH_RESULT();
+}
+
+// Whether a box of the table (RT_HBOX_INTS ints a box) carries a tile.
+static bool rt_htab_tiled(const int* boxes, int nbox) {
+  for (int k = 0; k < nbox; ++k) {
+    const int* b = boxes + RT_HBOX_INTS * k;
+    if (b[10] || b[11] || b[12]) return true;
+  }
+  return false;
+}
+
+// K5HO's ap launch on the interior `in` (tiled or not).
+static int rt_ap_boxes_launch(const float* t, const float* u_h, float* ap, float kappa,
+                              const rt_lattice& in, const int* boxes, int nbox, int block,
+                              cudaStream_t stream) {
+  if (block < 1 || block > 1024) return RT_BAD_LAYOUT;
+  if ((long long)in.X * in.Y * in.Z * in.T == 0) return 0;
+  const rt_lattice et = rt_grow(in, 1), ep = rt_grow(in, 2);
+  rt_htab tb;
+  if (!rt_make_htab(boxes, nbox, in, block, tb)) return RT_BAD_LAYOUT;
+  const unsigned grid = (unsigned)tb.start[nbox];
+  if (rt_halo_narrow(ep))
+    wilson_normal_box_ap_kernel<int><<<grid, block, 0, stream>>>(t, u_h, ap, kappa, in, et, ep,
+                                                                 tb);
+  else
+    wilson_normal_box_ap_kernel<long long><<<grid, block, 0, stream>>>(t, u_h, ap, kappa, in, et,
+                                                                       ep, tb);
+  RT_LAUNCH_RESULT();
 }
 
 extern "C" {
@@ -441,37 +633,37 @@ int rt_dslash_halo(const float* psi_h, const float* u_h, float* out, int X, int 
 // array; all SoA.
 int rt_wilson_normal_pre_t(const float* p_h, const float* u_h, float* t, float kappa, int X,
                            int Y, int Z, int T, int block, cudaStream_t stream) {
-  if (block < 1 || block > 1024) return RT_BAD_LAYOUT;
-  if ((long long)X * Y * Z * T == 0) return 0;
-  const rt_lattice in{X, Y, Z, T}, et = rt_grow(in, 1), ep = rt_grow(in, 2);
-  const rt_hbox bt{et, ep, rt_lattice{1, 1, 1, 1}};
-  const rt_horder o = rt_make_horder(et, block);
-  if (rt_halo_narrow(ep))
-    wilson_normal_pre_t_kernel<int><<<rt_horder_grid(o), block, 0, stream>>>(p_h, u_h, t, kappa,
-                                                                            bt, o);
-  else
-    wilson_normal_pre_t_kernel<long long><<<rt_horder_grid(o), block, 0, stream>>>(
-        p_h, u_h, t, kappa, bt, o);
-  RT_LAUNCH_RESULT();
+  return rt_pre_t_launch(p_h, u_h, t, kappa, rt_lattice{X, Y, Z, T}, RT_NO_TILE, block,
+                         stream);
 }
 
 // K5H's ap launch: t from rt_wilson_normal_pre_t, u_h as there; ap: 24 x X
 // Y Z T, SoA.
 int rt_wilson_normal_pre_ap(const float* t, const float* u_h, float* ap, float kappa, int X,
                             int Y, int Z, int T, int block, cudaStream_t stream) {
-  if (block < 1 || block > 1024) return RT_BAD_LAYOUT;
-  if ((long long)X * Y * Z * T == 0) return 0;
-  const rt_lattice in{X, Y, Z, T}, et = rt_grow(in, 1), ep = rt_grow(in, 2);
-  const rt_hbox b{in, ep, rt_lattice{2, 2, 2, 2}}, bt{in, et, rt_lattice{1, 1, 1, 1}},
-      bap{in, in, rt_lattice{0, 0, 0, 0}};
-  const rt_horder o = rt_make_horder(in, block);
-  if (rt_halo_narrow(ep))
-    wilson_normal_pre_ap_kernel<int><<<rt_horder_grid(o), block, 0, stream>>>(t, u_h, ap, kappa,
-                                                                             b, bt, bap, o);
-  else
-    wilson_normal_pre_ap_kernel<long long><<<rt_horder_grid(o), block, 0, stream>>>(
-        t, u_h, ap, kappa, b, bt, bap, o);
-  RT_LAUNCH_RESULT();
+  return rt_pre_ap_launch(t, u_h, ap, kappa, rt_lattice{X, Y, Z, T}, RT_NO_TILE, block,
+                          stream);
+}
+
+// K5TH's t launch: rt_wilson_normal_pre_t's arrays, the ring-1 array's
+// sites walked as rt_ring1_walk_site says under the tile (bx, by, bz), each
+// >= 1 and dividing its dim (T whole).
+int rt_wilson_normal_pre_t_tiled(const float* p_h, const float* u_h, float* t, float kappa,
+                                 int X, int Y, int Z, int T, int bx, int by, int bz, int block,
+                                 cudaStream_t stream) {
+  const int tile[3] = {bx, by, bz};
+  if (!rt_normal_tile_ok(rt_lattice{X, Y, Z, T}, tile)) return RT_BAD_LAYOUT;
+  return rt_pre_t_launch(p_h, u_h, t, kappa, rt_lattice{X, Y, Z, T}, tile, block, stream);
+}
+
+// K5TH's ap launch: rt_wilson_normal_pre_ap's arrays, the interior's sites
+// in K5T's walk under the tile (bx, by, bz).
+int rt_wilson_normal_pre_ap_tiled(const float* t, const float* u_h, float* ap, float kappa,
+                                  int X, int Y, int Z, int T, int bx, int by, int bz, int block,
+                                  cudaStream_t stream) {
+  const int tile[3] = {bx, by, bz};
+  if (!rt_normal_tile_ok(rt_lattice{X, Y, Z, T}, tile)) return RT_BAD_LAYOUT;
+  return rt_pre_ap_launch(t, u_h, ap, kappa, rt_lattice{X, Y, Z, T}, tile, block, stream);
 }
 
 // K5HO's t launch: p_h and u_h as for rt_wilson_normal_pre_t; t: the
@@ -496,23 +688,24 @@ int rt_wilson_normal_t_boxes(const float* p_h, const float* u_h, float* t, float
 
 // K5HO's ap launch: t from rt_wilson_normal_t_boxes (the ring-1 array, its
 // sites around the boxes computed), u_h as there; ap: 24 x X Y Z T, SoA,
-// written on the boxes' sites (boxes of the interior).
+// written on the boxes' sites (boxes of the interior), no box tiled.
 int rt_wilson_normal_ap_boxes(const float* t, const float* u_h, float* ap, float kappa, int X,
                               int Y, int Z, int T, const int* boxes, int nbox, int block,
                               cudaStream_t stream) {
-  if (block < 1 || block > 1024) return RT_BAD_LAYOUT;
-  if ((long long)X * Y * Z * T == 0) return 0;
-  const rt_lattice in{X, Y, Z, T}, et = rt_grow(in, 1), ep = rt_grow(in, 2);
-  rt_htab tb;
-  if (!rt_make_htab(boxes, nbox, in, block, tb)) return RT_BAD_LAYOUT;
-  const unsigned grid = (unsigned)tb.start[nbox];
-  if (rt_halo_narrow(ep))
-    wilson_normal_box_ap_kernel<int><<<grid, block, 0, stream>>>(t, u_h, ap, kappa, in, et, ep,
-                                                                 tb);
-  else
-    wilson_normal_box_ap_kernel<long long><<<grid, block, 0, stream>>>(t, u_h, ap, kappa, in, et,
-                                                                       ep, tb);
-  RT_LAUNCH_RESULT();
+  if (rt_htab_tiled(boxes, nbox)) return RT_BAD_LAYOUT;
+  return rt_ap_boxes_launch(t, u_h, ap, kappa, rt_lattice{X, Y, Z, T}, boxes, nbox, block,
+                            stream);
+}
+
+// Tiled K5HO's ap launch: as rt_wilson_normal_ap_boxes, at least one box
+// carrying its sub-plan's tile, whose sites it walks in that tile's order.
+int rt_wilson_normal_ap_boxes_tiled(const float* t, const float* u_h, float* ap, float kappa,
+                                    int X, int Y, int Z, int T, const int* boxes, int nbox,
+                                    int block, cudaStream_t stream) {
+  if (!rt_htab_tiled(boxes, nbox)) return RT_BAD_LAYOUT;
+  return rt_ap_boxes_launch(t, u_h, ap, kappa, rt_lattice{X, Y, Z, T}, boxes, nbox, block,
+                            stream);
 }
 
 }  // extern "C"
+

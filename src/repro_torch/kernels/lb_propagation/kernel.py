@@ -59,8 +59,14 @@ K5LHO (:func:`lb_step_box_cuda`) is K5LH on one box of the interior, the
 sub-launch of the ``halo="overlap"`` split: the box grown by 1 collides
 (each box its own ring) and pushes into the box, read in place from the
 whole halo'd dist and force and written into the box's sites of the
-whole-interior dist2 and u, each bitwise the whole launch's.  All take
-fp32 SoA fields.
+whole-interior dist2 and u, each bitwise the whole launch's.  Both are
+the untiled SoA instances of K9H (``rt_lb_step_halo``): the same kernel
+under a tile (the box's sites in K9's tile order, then its ring:
+:func:`tiled_walk` with ``ring=1``) and in any layout (every value through
+INDEX, AoSoA read and written in place), which :func:`lb_step_pre_cuda` and
+:func:`lb_step_box_cuda` launch under a tiled plan or off SoA; with
+``with_u=False`` (no u) they run ``lb_collide_propagate``.  All take fp32
+fields.
 
 On a CPU tensor each wrapper returns its plain version; on a CUDA tensor it
 launches its kernel or raises.
@@ -77,7 +83,7 @@ from repro_torch._cuda import Kernel, check_field, check_tensor, csrc_define
 from repro_torch.core.fuse import tiled_plain
 from repro_torch.core.layout import Layout, LayoutKind, resolve_layouts
 from repro_torch.core.plan import tile_extents
-from repro_torch.core.stencil import box_slices
+from repro_torch.core.stencil import box_slices, shell_order, tile_boxes
 from repro_torch.maths import d3q19
 from repro_torch.kernels.lb_collision.kernel import collide_plain, lb_params
 from repro_torch.kernels.lb_collision.ref import moments
@@ -89,7 +95,8 @@ __all__ = ["propagate_cuda", "propagate_plain", "lb_step_cuda", "lb_step_plain",
            "lb_step_tiled_cuda", "lb_step_tiled_plain", "tiled_walk", "PROPAGATE", "LB_STEP",
            "LB_STEP_BF16", "LB_STEP_TILED", "LB_STEP_TILED_BF16", "propagate_halo_cuda",
            "propagate_halo_plain", "lb_step_pre_cuda", "lb_step_pre_plain", "PROPAGATE_HALO",
-           "LB_STEP_PRE", "lb_step_box_cuda", "lb_step_box_plain", "LB_STEP_BOX"]
+           "LB_STEP_PRE", "lb_step_box_cuda", "lb_step_box_plain", "LB_STEP_BOX",
+           "LB_STEP_HALO"]
 
 PROPAGATE = Kernel("lb_propagate", "rt_lb_propagate")
 LB_STEP = Kernel("lb_step", "rt_lb_step")
@@ -99,6 +106,9 @@ PROPAGATE_HALO = Kernel("lb_propagate_halo", "rt_lb_propagate_halo")
 LB_STEP_PRE = Kernel("lb_step_pre", "rt_lb_step_pre")
 # K5LHO, K5LH on one box of the interior (the halo="overlap" sub-launches)
 LB_STEP_BOX = Kernel("lb_step_box", "rt_lb_step_box")
+# K9H: the template whose untiled SoA instances K5LH and K5LHO are, under a
+# tile or off SoA
+LB_STEP_HALO = Kernel("lb_step_halo", "rt_lb_step_halo")
 LB_STEP_TILED = Kernel("lb_step_tiled", "rt_lb_step_tiled")
 LB_STEP_TILED_BF16 = Kernel("lb_step_tiled_bf16", "rt_lb_step_tiled_bf16")   # K9's policy instance
 K9_BLOCK = 256   # threads a K9 block (at most RT_K9_MAX_THREADS in lb_tiled.cu)
@@ -349,11 +359,14 @@ def lb_step_cuda(dist: torch.Tensor, force: torch.Tensor, tau: float, lattice,
     return dist2, u
 
 
-def tiled_walk(lattice, tile: Sequence[int]) -> torch.Tensor:
+def tiled_walk(lattice, tile: Sequence[int], ring: int = 0) -> torch.Tensor:
     """The site (x * Y + y) * Z + z at each position g of K9's walk
-    (``rt_tile_site`` in lb_tiled.cu): tiles in the reference's grid order,
+    (``rt_tile_site`` in d3q19.cuh): tiles in the reference's grid order,
     z-tile fastest, and in a tile x, y, then z fastest.  Position g is
-    computed by thread g % block of the block's unit g // block."""
+    computed by thread g % block of the block's unit g // block.  With
+    ``ring`` 1, K9H's tiled walk over the lattice (a box) grown by 1
+    (lb_halo.cu): the box's walk, each site placed 1 in, then the ring
+    (``core.stencil.shell_order``), sites linear over the grown box."""
     lat = _check_3d(lattice)
     bx, by, bz = tile_extents(lat, *tile)
     X, Y, Z = lat
@@ -364,7 +377,12 @@ def tiled_walk(lattice, tile: Sequence[int]) -> torch.Tensor:
     nty, ntz = Y // by, Z // bz
     tz, r = t % ntz, t // ntz
     ty, tx = r % nty, r // nty
-    return ((tx * bx + lx) * Y + ty * by + ly) * Z + tz * bz + lz
+    x, y, z = tx * bx + lx, ty * by + ly, tz * bz + lz
+    if not ring:
+        return (x * Y + y) * Z + z
+    if ring != 1:
+        raise ValueError(f"K9H's walk grows the box by 1, not {ring}")
+    return torch.cat([((x + 1) * (Y + 2) + y + 1) * (Z + 2) + z + 1, shell_order(lat)])
 
 
 def lb_step_tiled_plain(dist: torch.Tensor, force: torch.Tensor, tau: float, lattice,
@@ -447,13 +465,11 @@ def propagate_halo_cuda(dist_h: torch.Tensor, width: int = 1, vvl: int = 128) ->
     return out
 
 
-def lb_step_pre_plain(dist_h: torch.Tensor, force_h: torch.Tensor, tau: float, lattice,
-                      with_u: bool = True) -> Tuple[torch.Tensor, Optional[torch.Tensor]]:
-    """(dist2, u or None) on the interior ``lattice``, SoA (19, V) and
-    (3, V), from dist_h (19, Vh) and force_h (3, Vh), SoA over the interior
-    padded by 1 (halos exchanged): the collision on the whole halo'd box,
-    the streaming's pull from it, and u from the interior's moments."""
-    lat = _check_3d(lattice)
+def _pre_canonical(dist_h, force_h, tau, lat, with_u):
+    """(dist2 (19, V), u (3, V) or None), canonical, on the interior ``lat``
+    from canonical dist_h (19, Vh) and force_h (3, Vh) over it padded by 1:
+    the collision on the whole halo'd box, the streaming's pull from it, and
+    u from the interior's moments."""
     hl = tuple(s + 2 for s in lat)
     post = collide_plain(dist_h, force_h, tau).reshape((19,) + hl)
     dist2 = ref.propagate_halo_ref(post, 1).reshape(19, -1)
@@ -466,64 +482,178 @@ def lb_step_pre_plain(dist_h: torch.Tensor, force_h: torch.Tensor, tau: float, l
     return dist2, moments_velocity(inner(dist_h), inner(force_h))
 
 
-def lb_step_pre_cuda(dist_h: torch.Tensor, force_h: torch.Tensor, tau: float, lattice,
-                     vvl: int = 128, with_u: bool = True
-                     ) -> Tuple[torch.Tensor, Optional[torch.Tensor]]:
-    """K5LH: :func:`lb_step_pre_plain` in one launch (``vvl`` sites of the
-    halo'd box a block)."""
-    if dist_h.device.type == "cpu":
-        return lb_step_pre_plain(dist_h, force_h, tau, lattice, with_u)
+def _box_canonical(dist_h, force_h, tau, lat, origin, extents, with_u):
+    """:func:`_pre_canonical` on the box at ``origin`` (``extents``) of the
+    interior ``lat``: its window, the box padded by 1, cut from the whole
+    halo'd inputs, as the reference's sub-launch and tile read it."""
+    win = (slice(None),) + box_slices(lat, origin, extents, 1)
+    hl = tuple(s + 2 for s in lat)
+    return _pre_canonical(dist_h.reshape((19,) + hl)[win].reshape(19, -1),
+                          force_h.reshape((3,) + hl)[win].reshape(3, -1), tau,
+                          tuple(int(e) for e in extents), with_u)
+
+
+def _pre_tiled_canonical(dist_h, force_h, tau, lat, tile, with_u):
+    """:func:`_pre_canonical` tile by tile, the reference's tiled lowering
+    on pre-exchanged halos: each tile's halo'd window cut from the whole
+    arrays, its sites written (tiles in :func:`core.stencil.tile_boxes`'
+    order)."""
+    dist2 = torch.empty((19,) + lat, dtype=dist_h.dtype, device=dist_h.device)
+    u = torch.empty((3,) + lat, dtype=dist_h.dtype, device=dist_h.device) if with_u else None
+    for box in tile_boxes(lat, *tile):
+        o, e = tuple(a for a, _ in box), tuple(b for _, b in box)
+        d2, ub = _box_canonical(dist_h, force_h, tau, lat, o, e, with_u)
+        sl = (slice(None),) + box_slices(lat, o, e)
+        dist2[sl] = d2.reshape((19,) + e)
+        if with_u:
+            u[sl] = ub.reshape((3,) + e)
+    return dist2.reshape(19, -1), (u.reshape(3, -1) if with_u else None)
+
+
+def _pre_tile(lat, tile) -> Optional[Tuple[int, int, int]]:
+    """A "pre" launch's tile (bx, by, bz; 0 a whole axis) checked to divide
+    ``lat``, or None untiled."""
+    if tile is None:
+        return None
+    ext = tile_extents(lat, *tile)
+    if len(tile) != 3 or any(e < 1 or s % e for s, e in zip(lat, ext)):
+        raise ValueError(f"K9H: tile {tuple(tile)} does not divide the box {lat}")
+    return ext
+
+
+def lb_step_pre_plain(dist_h: torch.Tensor, force_h: torch.Tensor, tau: float, lattice,
+                      with_u: bool = True, *, tile=None, layouts=None
+                      ) -> Tuple[torch.Tensor, Optional[torch.Tensor]]:
+    """(dist2, u or None) on the interior ``lattice`` from dist_h (19 x Vh)
+    and force_h (3 x Vh) over the interior padded by 1 (halos exchanged),
+    physical in ``layouts`` (names "dist", "force" over the halo'd sites,
+    "dist2", "u" over the interior; SoA by default): the collision on the
+    whole halo'd box, the streaming's pull from it, and u from the
+    interior's moments.  ``tile`` (bx, by, bz; 0 a whole axis): the same
+    tile by tile, each tile's window cut from the halo'd arrays."""
     lat = _check_3d(lattice)
-    Vh, V = math.prod(s + 2 for s in lat), math.prod(lat)
-    check_tensor("dist_h", dist_h, (19, Vh), dist_h.device)
-    check_tensor("force_h", force_h, (3, Vh), dist_h.device)
-    dist2 = torch.empty((19, V), dtype=dist_h.dtype, device=dist_h.device)
-    u = torch.empty((3, V), dtype=dist_h.dtype, device=dist_h.device) if with_u else None
-    LB_STEP_PRE.launch(dist_h.device, dist_h.data_ptr(), force_h.data_ptr(), dist2.data_ptr(),
-                       u.data_ptr() if with_u else None, *lat, *lb_params(float(tau)), vvl)
+    lay = resolve_layouts(layouts, _STEP_IN, _STEP_OUT)
+    d, f = lay["dist"].unpack(dist_h), lay["force"].unpack(force_h)
+    ext = _pre_tile(lat, tile)
+    if ext is None:
+        dist2, u = _pre_canonical(d, f, tau, lat, with_u)
+    else:
+        dist2, u = _pre_tiled_canonical(d, f, tau, lat, ext, with_u)
+    return lay["dist2"].pack(dist2), (lay["u"].pack(u) if with_u else None)
+
+
+def _halo_operands(dist_h, force_h, lat, lay):
+    """K5LH's SoA checks (lay None), else K9H's descriptors of dist_h and
+    force_h over the halo'd sites."""
+    Vh = math.prod(s + 2 for s in lat)
+    if lay is None:
+        check_tensor("dist_h", dist_h, (19, Vh), dist_h.device)
+        check_tensor("force_h", force_h, (3, Vh), dist_h.device)
+        return None
+    return (check_field("dist", dist_h, lay["dist"], 19, Vh, dist_h.device),
+            check_field("force", force_h, lay["force"], 3, Vh, dist_h.device))
+
+
+def _k9h_launch(dist_h, force_h, dist2, u, tau, lat, origin, extents, tile, lay, descs, vvl):
+    LB_STEP_HALO.launch(dist_h.device, dist_h.data_ptr(), force_h.data_ptr(), dist2.data_ptr(),
+                        u.data_ptr() if u is not None else None, *lat, *origin, *extents,
+                        *(tile or (0, 0, 0)), *lb_params(float(tau)), *descs,
+                        lay["dist2"].descriptor(), lay["u"].descriptor(), vvl)
+
+
+def _soa_untiled(lay, tile) -> bool:
+    return tile is None and all(lay[n].kind is LayoutKind.SOA for n in _STEP_IN + _STEP_OUT)
+
+
+def lb_step_pre_cuda(dist_h: torch.Tensor, force_h: torch.Tensor, tau: float, lattice,
+                     vvl: int = 128, with_u: bool = True, *, tile=None, layouts=None
+                     ) -> Tuple[torch.Tensor, Optional[torch.Tensor]]:
+    """:func:`lb_step_pre_plain` in one launch (``vvl`` threads a block):
+    K5LH where every field is SoA and the plan untiled, else K9H (the same
+    template under the tile's walk and the layouts' addressing)."""
+    if dist_h.device.type == "cpu":
+        return lb_step_pre_plain(dist_h, force_h, tau, lattice, with_u, tile=tile,
+                                 layouts=layouts)
+    lat = _check_3d(lattice)
+    V = math.prod(lat)
+    lay = resolve_layouts(layouts, _STEP_IN, _STEP_OUT)
+    ext = _pre_tile(lat, tile)
+    dev = dist_h.device
+    dist2 = torch.empty(lay["dist2"].physical_shape(19, V), dtype=dist_h.dtype, device=dev)
+    u = (torch.empty(lay["u"].physical_shape(3, V), dtype=dist_h.dtype, device=dev)
+         if with_u else None)
+    if _soa_untiled(lay, ext):
+        _halo_operands(dist_h, force_h, lat, None)
+        LB_STEP_PRE.launch(dev, dist_h.data_ptr(), force_h.data_ptr(), dist2.data_ptr(),
+                           u.data_ptr() if with_u else None, *lat, *lb_params(float(tau)), vvl)
+    else:
+        _k9h_launch(dist_h, force_h, dist2, u, tau, lat, (0, 0, 0), lat, ext, lay,
+                    _halo_operands(dist_h, force_h, lat, lay), vvl)
     return dist2, u
 
 
 def lb_step_box_plain(dist_h: torch.Tensor, force_h: torch.Tensor, tau: float, lattice, origin,
-                      extents, with_u: bool = True
+                      extents, with_u: bool = True, *, tile=None, layouts=None
                       ) -> Tuple[torch.Tensor, Optional[torch.Tensor]]:
-    """(dist2, u or None), SoA over the box at ``origin`` (``extents``
-    sites a dim) of the interior ``lattice``, from dist_h (19, Vh) and
-    force_h (3, Vh) over the whole interior padded by 1: the "pre" lowering
-    on the box's window (the box padded by 1), as the reference's
-    sub-launch computes it."""
+    """(dist2, u or None), canonical (SoA) over the box at ``origin``
+    (``extents`` sites a dim) of the interior ``lattice``, from dist_h and
+    force_h over the whole interior padded by 1, physical in ``layouts``
+    (names as in :func:`lb_step_pre_plain`; only the inputs' are read): the
+    "pre" lowering on the box's window (the box padded by 1), as the
+    reference's sub-launch computes it, tile by tile under ``tile`` (the
+    box's sub-plan's)."""
     lat = _check_3d(lattice)
-    win = (slice(None),) + box_slices(lat, origin, extents, 1)
+    lay = resolve_layouts(layouts, _STEP_IN, _STEP_OUT)
+    d, f = lay["dist"].unpack(dist_h), lay["force"].unpack(force_h)
+    box = tuple(int(e) for e in extents)
+    win = (slice(None),) + box_slices(lat, origin, box, 1)
     hl = tuple(s + 2 for s in lat)
-    return lb_step_pre_plain(dist_h.reshape((19,) + hl)[win].reshape(19, -1),
-                             force_h.reshape((3,) + hl)[win].reshape(3, -1),
-                             tau, tuple(int(e) for e in extents), with_u)
+    dw = d.reshape((19,) + hl)[win].reshape(19, -1)
+    fw = f.reshape((3,) + hl)[win].reshape(3, -1)
+    ext = _pre_tile(box, tile)
+    if ext is None:
+        return _pre_canonical(dw, fw, tau, box, with_u)
+    return _pre_tiled_canonical(dw, fw, tau, box, ext, with_u)
 
 
 def lb_step_box_cuda(dist_h: torch.Tensor, force_h: torch.Tensor, tau: float, lattice, origin,
                      extents, dist2: torch.Tensor, u: Optional[torch.Tensor] = None,
-                     vvl: int = 128) -> Tuple[torch.Tensor, Optional[torch.Tensor]]:
-    """K5LHO: :func:`lb_step_box_plain` written into the box's sites of
-    ``dist2`` (19, V) and, where given, ``u`` (3, V), the whole interior's
-    SoA outputs, in one launch (``vvl`` sites of the grown box a block).
-    Returns ``(dist2, u)``."""
+                     vvl: int = 128, *, tile=None, layouts=None
+                     ) -> Tuple[torch.Tensor, Optional[torch.Tensor]]:
+    """:func:`lb_step_box_plain` written into the box's sites of ``dist2``
+    (19 x V) and, where given, ``u`` (3 x V), the whole interior's outputs
+    in ``layouts``, in one launch (``vvl`` threads a block): K5LHO where
+    every field is SoA and the box untiled, else K9H.  Returns ``(dist2,
+    u)``."""
     lat = _check_3d(lattice)
     sl = box_slices(lat, origin, extents)
+    lay = resolve_layouts(layouts, _STEP_IN, _STEP_OUT)
+    V = math.prod(lat)
     if dist_h.device.type == "cpu":
-        d2, ub = lb_step_box_plain(dist_h, force_h, tau, lat, origin, extents, u is not None)
-        box = tuple(extents)
-        dist2.reshape((19,) + lat)[(slice(None),) + sl] = d2.reshape((19,) + box)
-        if u is not None:
-            u.reshape((3,) + lat)[(slice(None),) + sl] = ub.reshape((3,) + box)
+        d2, ub = lb_step_box_plain(dist_h, force_h, tau, lat, origin, extents, u is not None,
+                                   tile=tile, layouts=layouts)
+        box = tuple(int(e) for e in extents)
+        for out, val, n, nc in ((dist2, d2, "dist2", 19), (u, ub, "u", 3)):
+            if out is None:
+                continue
+            canon = lay[n].unpack(out).reshape((nc,) + lat).clone()
+            canon[(slice(None),) + sl] = val.reshape((nc,) + box)
+            out.copy_(lay[n].pack(canon.reshape(nc, V)))
         return dist2, u
-    Vh, V = math.prod(s + 2 for s in lat), math.prod(lat)
-    check_tensor("dist_h", dist_h, (19, Vh), dist_h.device)
-    check_tensor("force_h", force_h, (3, Vh), dist_h.device)
-    check_tensor("dist2", dist2, (19, V), dist_h.device)
-    if u is not None:
-        check_tensor("u", u, (3, V), dist_h.device)
     o, e = tuple(s.start for s in sl), tuple(s.stop - s.start for s in sl)
-    LB_STEP_BOX.launch(dist_h.device, dist_h.data_ptr(), force_h.data_ptr(), dist2.data_ptr(),
-                       u.data_ptr() if u is not None else None, *lat, *o, *e,
-                       *lb_params(float(tau)), vvl)
+    ext = _pre_tile(e, tile)
+    if _soa_untiled(lay, ext):
+        _halo_operands(dist_h, force_h, lat, None)
+        check_tensor("dist2", dist2, (19, V), dist_h.device)
+        if u is not None:
+            check_tensor("u", u, (3, V), dist_h.device)
+        LB_STEP_BOX.launch(dist_h.device, dist_h.data_ptr(), force_h.data_ptr(),
+                           dist2.data_ptr(), u.data_ptr() if u is not None else None, *lat, *o,
+                           *e, *lb_params(float(tau)), vvl)
+        return dist2, u
+    descs = _halo_operands(dist_h, force_h, lat, lay)
+    check_field("dist2", dist2, lay["dist2"], 19, V, dist_h.device)
+    if u is not None:
+        check_field("u", u, lay["u"], 3, V, dist_h.device)
+    _k9h_launch(dist_h, force_h, dist2, u, tau, lat, o, e, ext, lay, descs, vvl)
     return dist2, u

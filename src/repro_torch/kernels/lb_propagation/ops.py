@@ -6,6 +6,13 @@ as a stencil stage of a ``core.fuse.LaunchGraph``; on the "cuda" engine the
 graph runs as K5L, one launch in which the post-collision distributions
 never reach device memory, and under a tiled plan as K9.  The halo'd form of
 the sharded path, :func:`propagate_halo`, runs K8H on "cuda".
+
+On "cuda" the fused graph is registered under every halo strategy: on
+pre-exchanged halos (``halo="pre"``) it runs K5LH, under a tiled plan or
+off SoA K9H, and on the ``halo="overlap"`` split's boxes K5LHO (K9H under
+a box's tile or off SoA), in every layout and so in the block view.  A
+DtypePolicy or a batch under "pre" and "overlap" still raises (ROADMAP
+queue 2).
 """
 
 from __future__ import annotations
@@ -16,8 +23,8 @@ from typing import Optional
 import torch
 
 from repro_torch.core import SOA, Field, LaunchGraph, LoweringPlan, TargetConfig
-from repro_torch.core.fuse import register_cuda_graph
-from repro_torch.core.plan import plan_for_launch
+from repro_torch.core.fuse import check_pre_rings, register_cuda_graph
+from repro_torch.core.plan import plan_for_launch, plan_tile
 from repro_torch.core.target import require_cuda
 from repro_torch.kernels.lb_collision.ops import collide_kernel
 from repro_torch.maths import d3q19
@@ -101,5 +108,29 @@ def _collide_propagate_tiled_cuda(graph, ins, scalars, *, lattice, plan, out_lay
     return {"dist2": dist2}
 
 
+def _collide_propagate_pre_cuda(graph, ins, scalars, *, lattice, rings, plan, out_layouts):
+    # K5LH, or K9H under a tiled plan or off SoA: dist2 on the interior from
+    # dist and force padded by 1
+    check_pre_rings(graph, rings, {"dist": 1, "force": 1})
+    tau = graph.stage_params()[0]["tau"]
+    (d, ld), (f, lf) = ins["dist"], ins["force"]
+    dist2, _ = kernel.lb_step_pre_cuda(d, f, tau, lattice, plan.vvl, with_u=False,
+                                       tile=plan_tile(plan),
+                                       layouts={"dist": ld, "force": lf, **out_layouts})
+    return {"dist2": dist2}
+
+
+def _collide_propagate_box_cuda(graph, ins, scalars, *, lattice, rings, vvls, tiles, part,
+                                interior, boxes, outs, out_layouts, scratch):
+    # K5LHO (K9H under a box's tile or off SoA), one launch a box
+    check_pre_rings(graph, rings, {"dist": 1, "force": 1})
+    tau = graph.stage_params()[0]["tau"]
+    (d, ld), (f, lf) = ins["dist"], ins["force"]
+    for (origin, extents), vvl, tile in zip(boxes, vvls, tiles):
+        kernel.lb_step_box_cuda(d, f, tau, lattice, origin, extents, outs["dist2"], None, vvl,
+                                tile=tile, layouts={"dist": ld, "force": lf, **out_layouts})
+
+
 register_cuda_graph(collide_propagate_graph(0.0), _collide_propagate_cuda, ("dist2",),
-                    tiled=_collide_propagate_tiled_cuda)
+                    tiled=_collide_propagate_tiled_cuda, pre=_collide_propagate_pre_cuda,
+                    box=_collide_propagate_box_cuda, pre_layouts=True)

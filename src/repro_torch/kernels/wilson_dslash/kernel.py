@@ -63,8 +63,12 @@ shell, :func:`shell_boxes`) and ap on every boundary box, one launch a
 kernel each, into one ring-1 t array and the whole-interior ap, so that no
 t site is computed twice and every site is bitwise the whole launch's.  The
 two T-slabs of a table are taken as one box (:func:`pair_t_slabs`;
-:func:`split_tables` gives the four launches' tables).  All take fp32 SoA
-fields.
+:func:`split_tables` gives the four launches' tables, :func:`split_tiles`
+the tiles of the ap tables' boxes under a tiled plan: tiled K5HO walks
+each such box's rows in its sub-plan's tile order).  K5TH
+(:func:`wilson_normal_pre_cuda` with ``tile``) is K5H's two kernels walking
+K5T's order (:func:`normal_walk`; the t launch over the ring-1 array with
+``ring=1``).  All take fp32 SoA fields.
 
 On a CPU tensor each wrapper returns its plain version (unpack, torch ops,
 pack); on a CUDA tensor it launches its kernel or raises.
@@ -82,7 +86,7 @@ from repro_torch._cuda import Kernel, check_batched_field, check_field, check_te
 from repro_torch.core.layout import resolve_layouts
 from repro_torch.core.plan import CudaPolicy
 from repro_torch.core.reduce import compensated_plain, fold_partials, fold_partials_batched
-from repro_torch.core.stencil import box_slices, shifted_window
+from repro_torch.core.stencil import box_slices, shell_order, shifted_window, tile_boxes
 from . import ref
 
 __all__ = ["dslash_cuda", "dslash_plain", "wilson_normal_cuda",
@@ -99,7 +103,9 @@ __all__ = ["dslash_cuda", "dslash_plain", "wilson_normal_cuda",
            "WILSON_NORMAL_PRE_AP", "wilson_normal_box_plain", "wilson_normal_interior_cuda",
            "wilson_normal_boundary_cuda", "wilson_normal_split_plain", "split_tables",
            "shell_boxes", "pair_t_slabs", "table_entries", "HTAB_MAX", "WILSON_NORMAL_BOX_T",
-           "WILSON_NORMAL_BOX_AP", "table_reads", "table_footprint"]
+           "WILSON_NORMAL_BOX_AP", "table_reads", "table_footprint",
+           "WILSON_NORMAL_PRE_T_TILED", "WILSON_NORMAL_PRE_AP_TILED",
+           "WILSON_NORMAL_BOX_AP_TILED", "split_tiles"]
 
 DSLASH = Kernel("dslash", "rt_dslash")
 WILSON_NORMAL_T = Kernel("wilson_normal_t", "rt_wilson_normal_t")
@@ -121,9 +127,16 @@ NORMAL_TILED_BLOCK = 128   # K5T's walk positions a block (K5's default vvl)
 DSLASH_HALO = Kernel("dslash_halo", "rt_dslash_halo")
 WILSON_NORMAL_PRE_T = Kernel("wilson_normal_pre_t", "rt_wilson_normal_pre_t")
 WILSON_NORMAL_PRE_AP = Kernel("wilson_normal_pre_ap", "rt_wilson_normal_pre_ap")
-# K5HO: K5H's site arithmetic on the halo="overlap" split's box tables
+# K5TH: K5H's two kernels walking K5T's tile order (a tiled "pre" plan)
+WILSON_NORMAL_PRE_T_TILED = Kernel("wilson_normal_pre_t_tiled", "rt_wilson_normal_pre_t_tiled")
+WILSON_NORMAL_PRE_AP_TILED = Kernel("wilson_normal_pre_ap_tiled",
+                                    "rt_wilson_normal_pre_ap_tiled")
+# K5HO: K5H's site arithmetic on the halo="overlap" split's box tables; tiled
+# K5HO the ap launch on a table where a box carries its sub-plan's tile
 WILSON_NORMAL_BOX_T = Kernel("wilson_normal_box_t", "rt_wilson_normal_t_boxes")
 WILSON_NORMAL_BOX_AP = Kernel("wilson_normal_box_ap", "rt_wilson_normal_ap_boxes")
+WILSON_NORMAL_BOX_AP_TILED = Kernel("wilson_normal_box_ap_tiled",
+                                    "rt_wilson_normal_ap_boxes_tiled")
 
 
 def bf16_round(x: torch.Tensor) -> torch.Tensor:
@@ -379,13 +392,17 @@ def _check_tile(lat, tile) -> Tuple[int, int, int]:
     return ext
 
 
-def normal_walk(lattice, tile) -> torch.Tensor:
+def normal_walk(lattice, tile, ring: int = 0) -> torch.Tensor:
     """The site ((x Y + y) Z + z) T + t at each position g of K5T's walk
     (``rt_walk_site`` of ``csrc/wilson_normal.cuh``): tiles (bx, by, bz) in
     the reference's grid order (x-slab outermost, z-tile fastest), and in a
     tile x, y, z, then t fastest.  Position g is computed by thread g %
     NORMAL_TILED_BLOCK of the block whose partial row is g //
-    NORMAL_TILED_BLOCK."""
+    NORMAL_TILED_BLOCK.  With ``ring`` 1, K5TH's t walk over the ring-1
+    array (``csrc/wilson_halo.cu::rt_ring1_walk_site``), sites linear over
+    it: its (x, y, z) rows, each whole along T (T + 2 sites), the
+    interior's rows in the walk (T 1), each placed 1 in, then the other
+    rows (``core.stencil.shell_order`` of the x, y, z box)."""
     X, Y, Z, T = lat = _check_4d(lattice)
     bx, by, bz = _check_tile(lat, tile)
     g = torch.arange(X * Y * Z * T, dtype=torch.int64)
@@ -396,7 +413,15 @@ def normal_walk(lattice, tile) -> torch.Tensor:
     ly, lx = l % by, l // by
     tz, r = t % (Z // bz), t // (Z // bz)
     ty, tx = r % (Y // by), r // (Y // by)
-    return (((tx * bx + lx) * Y + ty * by + ly) * Z + tz * bz + lz) * T + lt
+    x, y, z = tx * bx + lx, ty * by + ly, tz * bz + lz
+    if not ring:
+        return ((x * Y + y) * Z + z) * T + lt
+    if ring != 1:
+        raise ValueError(f"K5TH's t walk covers ring 1, not {ring}")
+    xyz = normal_walk((X, Y, Z, 1), tile)
+    inner = ((xyz // (Y * Z) + 1) * (Y + 2) + (xyz // Z) % Y + 1) * (Z + 2) + xyz % Z + 1
+    rows = torch.cat([inner, shell_order((X, Y, Z))])
+    return (rows[:, None] * (T + 2) + torch.arange(T + 2)).reshape(-1)
 
 
 def _tile_order_sum(prod: torch.Tensor, lat, tile) -> torch.Tensor:
@@ -550,17 +575,31 @@ def dslash_halo_cuda(psi_h: torch.Tensor, u_h: torch.Tensor, width: int = 1,
     return out
 
 
+def _pre_canonical(p_nd, u_nd, kappa):
+    """ap (24, *interior) from canonical p_nd (24, *halo'd) and u_nd (72,
+    *halo'd) padded by 2: t on ring 1, then ap."""
+    t = _m_g5(shifted_window(p_nd, (0, 0, 0, 0), 1, _DIMS4), _hop_box(p_nd, 1, u_nd, 1), kappa)
+    return _m_g5(shifted_window(t, (0, 0, 0, 0), 1, _DIMS4), _hop_box(t, 1, u_nd, 2), kappa)
+
+
 def wilson_normal_pre_plain(p_h: torch.Tensor, u_h: torch.Tensor, kappa: float,
-                            lattice) -> torch.Tensor:
+                            lattice, tile=None) -> torch.Tensor:
     """ap = M^dag M p (24, V), SoA, on the interior ``lattice`` from p_h
     (24, Vh) and u_h (72, Vh), SoA over the interior padded by 2 (halos
     exchanged): t on ring 1, then ap, as the graph's plain lowering under
-    ``halo="pre"`` computes them."""
+    ``halo="pre"`` computes them.  ``tile`` (bx, by, bz; 0 a whole axis, T
+    whole): the reference's tiled lowering, each tile's window (the tile
+    padded by 2) cut from the halo'd arrays and t recomputed on its ring."""
     lat = _check_4d(lattice)
     hl = _grow(lat, 2)
     p_nd, u_nd = p_h.reshape((24,) + hl), u_h.reshape((72,) + hl)
-    t = _m_g5(shifted_window(p_nd, (0, 0, 0, 0), 1, _DIMS4), _hop_box(p_nd, 1, u_nd, 1), kappa)
-    ap = _m_g5(shifted_window(t, (0, 0, 0, 0), 1, _DIMS4), _hop_box(t, 1, u_nd, 2), kappa)
+    if tile is None:
+        return _pre_canonical(p_nd, u_nd, kappa).reshape(24, -1)
+    ap = torch.empty((24,) + lat, dtype=p_h.dtype, device=p_h.device)
+    for box in tile_boxes(lat, *_check_tile(lat, tile)):
+        o, e = tuple(a for a, _ in box), tuple(b for _, b in box)
+        win = (slice(None),) + box_slices(lat, o, e, 2)
+        ap[(slice(None),) + box_slices(lat, o, e)] = _pre_canonical(p_nd[win], u_nd[win], kappa)
     return ap.reshape(24, -1)
 
 
@@ -578,13 +617,9 @@ def table_entries(boxes) -> List[Entry]:
             for o, e in boxes]
 
 
-def pair_t_slabs(boxes) -> List[Entry]:
-    """Table entries of (origin, extents) boxes, two consecutive boxes that
-    differ only in T (a lo and a hi T-slab of one x, y, z range: a split's
-    last two boxes) taken as one entry with a gap between them, so that a
-    warp's sites of the two slabs share the 32-byte sectors where one row's
-    hi slab meets the next row's lo slab."""
-    out: List[Entry] = []
+def _paired(boxes) -> List[Tuple[Entry, int]]:
+    """:func:`pair_t_slabs`' entries, each with the index of its first box."""
+    out: List[Tuple[Entry, int]] = []
     ents = table_entries(boxes)
     i = 0
     while i < len(ents):
@@ -592,12 +627,21 @@ def pair_t_slabs(boxes) -> List[Entry]:
         if i + 1 < len(ents):
             o2, e2, _, _ = ents[i + 1]
             if o[:3] == o2[:3] and e[:3] == e2[:3] and o2[3] > o[3] + e[3]:
-                out.append((o, e[:3] + (e[3] + e2[3],), e[3], o2[3] - o[3] - e[3]))
+                out.append(((o, e[:3] + (e[3] + e2[3],), e[3], o2[3] - o[3] - e[3]), i))
                 i += 2
                 continue
-        out.append(ents[i])
+        out.append((ents[i], i))
         i += 1
     return out
+
+
+def pair_t_slabs(boxes) -> List[Entry]:
+    """Table entries of (origin, extents) boxes, two consecutive boxes that
+    differ only in T (a lo and a hi T-slab of one x, y, z range: a split's
+    last two boxes) taken as one entry with a gap between them, so that a
+    warp's sites of the two slabs share the 32-byte sectors where one row's
+    hi slab meets the next row's lo slab."""
+    return [e for e, _ in _paired(boxes)]
 
 
 def shell_boxes(lattice, origin, extents) -> List[Tuple[Tuple[int, ...], Tuple[int, ...]]]:
@@ -708,12 +752,33 @@ def split_tables(lattice, interior, boundary) -> dict:
             "boundary ap": ("ap", pair_t_slabs([_oe(b) for b in boundary]))}
 
 
-def _table(entries: Sequence[Entry]):
-    """The C table of ``entries`` (10 ints an entry); raises for more
-    boxes than a launch takes."""
+def split_tiles(interior, boundary, tiles) -> dict:
+    """The tiles of :func:`split_tables`' entries: {"interior ap",
+    "boundary ap"} -> a tile (bx, by, bz) or None an entry, from ``tiles``,
+    the sub-plan tile (0 a whole axis) or None of each box, the interior
+    first (a paired entry takes its first slab's: the two slabs' sub-plans
+    are alike).  The t tables' boxes (the grown interior, the shell) are
+    no sub-launch's and run in the brick order."""
+    def ext(box, tile):
+        if tile is None:
+            return None
+        e = _oe(box)[1]
+        return tuple(int(t) or n for t, n in zip(tile, e[:3]))
+
+    bnd = [_oe(b) for b in boundary]
+    return {"interior ap": [ext(interior, tiles[0])],
+            "boundary ap": [ext(bnd[i], tiles[1 + i]) for _, i in _paired(bnd)]}
+
+
+def _table(entries: Sequence[Entry], tiles=None):
+    """The C table of ``entries`` (13 ints an entry: origin, extents,
+    tsplit, tgap and the tile or 0 0 0), ``tiles`` each entry's tile or
+    None; raises for more boxes than a launch takes."""
     if not 1 <= len(entries) <= HTAB_MAX:
         raise ValueError(f"a box table launch takes 1 to {HTAB_MAX} boxes, got {len(entries)}")
-    vals = [v for o, e, ts, tg in entries for v in (*o, *e, ts, tg)]
+    tiles = list(tiles) if tiles is not None else [None] * len(entries)
+    vals = [v for (o, e, ts, tg), tl in zip(entries, tiles)
+            for v in (*o, *e, ts, tg, *(tl or (0, 0, 0)))]
     return (ctypes.c_int * len(vals))(*vals), len(entries)
 
 
@@ -756,34 +821,46 @@ def _check_halo_operands(p_h, u_h, lat, t, ap):
     check_tensor("ap", ap, (24, math.prod(lat)), p_h.device)
 
 
-def _launch_tables(p_h, u_h, kappa, lat, t_entries, ap_entries, t, ap, vvl):
+def _launch_tables(p_h, u_h, kappa, lat, t_entries, ap_entries, t, ap, vvl, ap_tiles=None):
     """K5HO's two kernels on box tables: t on the ``t_entries`` boxes of
     the ring-1 array ``t``, then ap on the ``ap_entries`` boxes of the
-    interior, written into ``ap``; one launch each.  CUDA tensors only."""
+    interior (``ap_tiles`` their tiles, tiled K5HO where one is set),
+    written into ``ap``; one launch each.  CUDA tensors only."""
     _check_halo_operands(p_h, u_h, lat, t, ap)
     tt, nt = _table(t_entries)
-    ta, na = _table(ap_entries)
+    ta, na = _table(ap_entries, ap_tiles)
     WILSON_NORMAL_BOX_T.launch(p_h.device, p_h.data_ptr(), u_h.data_ptr(), t.data_ptr(),
                                float(kappa), *lat, tt, nt, vvl)
-    WILSON_NORMAL_BOX_AP.launch(p_h.device, t.data_ptr(), u_h.data_ptr(), ap.data_ptr(),
-                                float(kappa), *lat, ta, na, vvl)
+    ap_kernel = (WILSON_NORMAL_BOX_AP_TILED if ap_tiles and any(ap_tiles)
+                 else WILSON_NORMAL_BOX_AP)
+    ap_kernel.launch(p_h.device, t.data_ptr(), u_h.data_ptr(), ap.data_ptr(), float(kappa), *lat,
+                     ta, na, vvl)
     return ap
 
 
 def wilson_normal_pre_cuda(p_h: torch.Tensor, u_h: torch.Tensor, kappa: float, lattice,
-                           vvl: int = 128) -> torch.Tensor:
+                           vvl: int = 128, tile=None) -> torch.Tensor:
     """K5H: :func:`wilson_normal_pre_plain` in two launches (``vvl`` sites a
-    block), t (24 x ring-1 box, SoA, fp32) between them."""
+    block), t (24 x ring-1 box, SoA, fp32) between them; under ``tile``
+    (bx, by, bz; 0 a whole axis) K5TH, the same two kernels walking the
+    tile order."""
     if p_h.device.type == "cpu":
-        return wilson_normal_pre_plain(p_h, u_h, kappa, lattice)
+        return wilson_normal_pre_plain(p_h, u_h, kappa, lattice, tile)
     lat = _check_4d(lattice)
     t = torch.empty((24, math.prod(_grow(lat, 1))), dtype=p_h.dtype, device=p_h.device)
     ap = torch.empty((24, math.prod(lat)), dtype=p_h.dtype, device=p_h.device)
     _check_halo_operands(p_h, u_h, lat, t, ap)
-    WILSON_NORMAL_PRE_T.launch(p_h.device, p_h.data_ptr(), u_h.data_ptr(), t.data_ptr(),
-                               float(kappa), *lat, vvl)
-    WILSON_NORMAL_PRE_AP.launch(p_h.device, t.data_ptr(), u_h.data_ptr(), ap.data_ptr(),
-                                float(kappa), *lat, vvl)
+    if tile is None:
+        WILSON_NORMAL_PRE_T.launch(p_h.device, p_h.data_ptr(), u_h.data_ptr(), t.data_ptr(),
+                                   float(kappa), *lat, vvl)
+        WILSON_NORMAL_PRE_AP.launch(p_h.device, t.data_ptr(), u_h.data_ptr(), ap.data_ptr(),
+                                    float(kappa), *lat, vvl)
+        return ap
+    ext = _check_tile(lat, tile)
+    WILSON_NORMAL_PRE_T_TILED.launch(p_h.device, p_h.data_ptr(), u_h.data_ptr(), t.data_ptr(),
+                                     float(kappa), *lat, *ext, vvl)
+    WILSON_NORMAL_PRE_AP_TILED.launch(p_h.device, t.data_ptr(), u_h.data_ptr(), ap.data_ptr(),
+                                      float(kappa), *lat, *ext, vvl)
     return ap
 
 
@@ -803,12 +880,13 @@ def wilson_normal_box_plain(p_h: torch.Tensor, u_h: torch.Tensor, kappa: float, 
 
 def wilson_normal_interior_cuda(p_h: torch.Tensor, u_h: torch.Tensor, kappa: float, lattice,
                                 interior, t: torch.Tensor, ap: torch.Tensor,
-                                vvl: int = 128) -> torch.Tensor:
+                                vvl: int = 128, tile=None) -> torch.Tensor:
     """K5HO's interior: t on the ``interior`` box ((origin, extents) of the
     interior ``lattice``) grown by 1 into the ring-1 array ``t``, then ap
-    on the box into ``ap`` (24, V), one launch each; it reads p only at
-    owned sites where the interior is a split's.  On CPU tensors the plain
-    version.  Returns ``ap``."""
+    on the box into ``ap`` (24, V), one launch each, the ap launch's rows
+    in the walk of ``tile`` (the box's sub-plan's; tiled K5HO) where given;
+    it reads p only at owned sites where the interior is a split's.  On CPU
+    tensors the plain version.  Returns ``ap``."""
     lat = _check_4d(lattice)
     o, e = _oe(interior)
     box_slices(lat, o, e)
@@ -816,18 +894,20 @@ def wilson_normal_interior_cuda(p_h: torch.Tensor, u_h: torch.Tensor, kappa: flo
         _tables_plain(p_h, u_h, kappa, lat, [(o, _grow(e, 1))], [(o, e)], t, ap)
         return ap
     tabs = split_tables(lat, (o, e), [])
+    tiles = split_tiles((o, e), [], [tile])
     return _launch_tables(p_h, u_h, kappa, lat, tabs["interior t"][1], tabs["interior ap"][1], t,
-                          ap, vvl)
+                          ap, vvl, tiles["interior ap"])
 
 
 def wilson_normal_boundary_cuda(p_h: torch.Tensor, u_h: torch.Tensor, kappa: float, lattice,
                                 interior, boundary, t: torch.Tensor, ap: torch.Tensor,
-                                vvl: int = 128) -> torch.Tensor:
+                                vvl: int = 128, tiles=None) -> torch.Tensor:
     """K5HO's boundary, after :func:`wilson_normal_interior_cuda` on the same
     ``interior`` and ``t``: t on the shell (:func:`shell_boxes`), then ap on
     every ``boundary`` box, each kernel one launch over its table, the
-    T-slabs paired (:func:`pair_t_slabs`).  On CPU tensors the plain
-    version.  Returns ``ap``."""
+    T-slabs paired (:func:`pair_t_slabs`), the ap rows of a box in the walk
+    of its sub-plan's tile where ``tiles`` (one a box, or None) gives one
+    (tiled K5HO).  On CPU tensors the plain version.  Returns ``ap``."""
     lat = _check_4d(lattice)
     o, e = _oe(interior)
     bnd = [_oe(b) for b in boundary]
@@ -837,8 +917,9 @@ def wilson_normal_boundary_cuda(p_h: torch.Tensor, u_h: torch.Tensor, kappa: flo
         _tables_plain(p_h, u_h, kappa, lat, shell_boxes(lat, o, e), bnd, t, ap)
         return ap
     tabs = split_tables(lat, (o, e), bnd)
+    etiles = split_tiles((o, e), bnd, [None] + list(tiles or [None] * len(bnd)))
     return _launch_tables(p_h, u_h, kappa, lat, tabs["shell t"][1], tabs["boundary ap"][1], t,
-                          ap, vvl)
+                          ap, vvl, etiles["boundary ap"])
 
 
 def wilson_normal_split_plain(p_h: torch.Tensor, u_h: torch.Tensor, kappa: float, lattice,

@@ -2503,6 +2503,180 @@ def test_k5lho_lb_step_box_bitwise(card, lat, dims, rng):
     assert _bits(d2, w2) and _bits(u, wu)
 
 
+# -- the sharded plans: K9H, K5TH and tiled K5HO -----------------------------------------
+
+K9H_LAYOUTS = ("soa", "aos", "aosoa4")
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("spec", K9H_LAYOUTS)
+@pytest.mark.parametrize("lat,tile", [((8, 8, 8), (1, 4, 8)), ((4, 6, 8), (2, 3, 4)),
+                                      ((16, 4, 32), (16, 4, 32))], ids=str)
+def test_k9h_lb_step_halo_bitwise(card, lat, tile, spec, rng):
+    """K9H (lb_step_halo) on the whole interior, untiled and at ``tile``,
+    in ``spec`` (every field), with u (ludwig_lb_step) and without
+    (lb_collide_propagate): dist2 and u bitwise K5LH's, unpacked, and
+    bitwise its plain version in that layout; on every box of a split, in
+    the box's tiles, the assembled outputs bitwise K5LH's."""
+    lay = parse_layout(spec)
+    lays = {n: lay for n in ("dist", "force", "dist2", "u")}
+    hl = tuple(s + 2 for s in lat)
+    Vh, V = int(np.prod(hl)), int(np.prod(lat))
+    d, f = _lb_dist(rng, card, Vh), _dev(rng, (3, Vh), card, scale=1e-3)
+    w2, wu = K8.lb_step_pre_cuda(d, f, 0.8, lat)
+    dl, fl = lay.pack(d), lay.pack(f)
+    for tl in (None, tile):
+        for with_u in (True, False):
+            if tl is None and spec == "soa":
+                continue   # K5LH itself
+            n0 = K8.LB_STEP_HALO.launches
+            g2, gu = K8.lb_step_pre_cuda(dl, fl, 0.8, lat, 64, with_u, tile=tl, layouts=lays)
+            assert K8.LB_STEP_HALO.launches == n0 + 1
+            assert _bits(lay.unpack(g2), w2) and (not with_u or _bits(lay.unpack(gu), wu))
+            p2, pu = K8.lb_step_pre_plain(dl, fl, 0.8, lat, with_u, tile=tl, layouts=lays)
+            assert _bits(g2, p2) and (not with_u or _bits(gu, pu))
+    d2 = torch.full(lay.physical_shape(19, V), float("nan"), device=card)
+    u = torch.full(lay.physical_shape(3, V), float("nan"), device=card)
+    for o, e in _split(lat, 1):
+        bt = tuple(next(x for x in range(2, n + 1) if n % x == 0) if n > 1 else 1 for n in e)
+        K8.lb_step_box_cuda(dl, fl, 0.8, lat, o, e, d2, u, 64, tile=bt, layouts=lays)
+    assert _bits(lay.unpack(d2), w2) and _bits(lay.unpack(u), wu)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("lat,tile", [((8, 8, 8, 8), (1, 1, 1)), ((8, 8, 8, 8), (2, 4, 8)),
+                                      ((6, 5, 5, 5), (3, 5, 1)), ((4, 8, 8, 32), (2, 4, 8))],
+                         ids=str)
+def test_k5th_wilson_normal_pre_tiled_bitwise_k5h(card, lat, tile, rng):
+    """K5TH (K5H's kernels walking the tile order: ap the interior, t the
+    ring-1 array) bitwise K5H at the budget's tile (1, 1, 1) and at
+    K5T_WALK_TILE-like tiles whose walk is not the identity, within
+    FIELD_RTOL of its plain version (the tiles' windows); two launches."""
+    hl = tuple(s + 4 for s in lat)
+    Vh = int(np.prod(hl))
+    p, u = _dev(rng, (24, Vh), card), _dev(rng, (72, Vh), card)
+    whole = K.wilson_normal_pre_cuda(p, u, 0.12, lat)
+    n0 = (K.WILSON_NORMAL_PRE_T_TILED.launches, K.WILSON_NORMAL_PRE_AP_TILED.launches)
+    got = K.wilson_normal_pre_cuda(p, u, 0.12, lat, tile=tile)
+    assert (K.WILSON_NORMAL_PRE_T_TILED.launches - n0[0],
+            K.WILSON_NORMAL_PRE_AP_TILED.launches - n0[1]) == (1, 1)
+    assert _bits(got, whole)
+    _close_field(got, K.wilson_normal_pre_plain(p, u, 0.12, lat, tile))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("lat", [(6, 7, 5, 6), (10, 10, 4, 4)], ids=str)
+def test_tiled_k5ho_box_tables_bitwise_k5h_on_every_split(card, lat, rng):
+    """Tiled K5HO: the ap tables' rows in each box's sub-plan tiles (an
+    outer plan with y and z tiles), bitwise K5H on every split of 1-4
+    decomposed dims; four launches a split, the two ap launches tiled."""
+    import itertools
+    hl = tuple(s + 4 for s in lat)
+    Vh = int(np.prod(hl))
+    p, u = _dev(rng, (24, Vh), card), _dev(rng, (72, Vh), card)
+    whole = K.wilson_normal_pre_cuda(p, u, 0.12, lat)
+    outer = pplan.LoweringPlan("cuda", vvl=64, bx=1, by=lat[1], bz=1, halo="overlap")
+    cfg = TargetConfig("cuda", device="cuda", vvl=64)
+    for r in range(1, 5):
+        for dims in itertools.combinations(range(4), r):
+            if any(lat[d] < 5 for d in dims):
+                continue
+            boxes = _split(lat, 2, dims)
+            tiles = [pplan.plan_tile(pplan.sub_lattice_plan(outer, cfg, e)) for _, e in boxes]
+            t = torch.full((24, int(np.prod([s + 2 for s in lat]))), float("nan"), device=card)
+            ap = torch.full((24, int(np.prod(lat))), float("nan"), device=card)
+            n0 = (K.WILSON_NORMAL_BOX_T.launches, K.WILSON_NORMAL_BOX_AP_TILED.launches)
+            K.wilson_normal_interior_cuda(p, u, 0.12, lat, boxes[0], t, ap, tile=tiles[0])
+            K.wilson_normal_boundary_cuda(p, u, 0.12, lat, boxes[0], boxes[1:], t, ap,
+                                          tiles=tiles[1:])
+            assert (K.WILSON_NORMAL_BOX_T.launches - n0[0],
+                    K.WILSON_NORMAL_BOX_AP_TILED.launches - n0[1]) == (2, 2), dims
+            assert _bits(ap, whole) and not t.isnan().any(), dims
+
+
+@pytest.mark.cuda
+def test_k9h_k5th_graph_launches_under_plans(card, rng):
+    """The graphs' "pre" launches on the cuda engine under a tiled plan, in
+    aosoa4 under the block view and with rsplit run K9H (both LB graphs)
+    and K5TH, never K5LH or K5H, bitwise the untiled SoA launches; under
+    "overlap" with tiles, tiled K5HO and K9H on the boxes."""
+    from repro_torch.kernels.lb_propagation.ops import collide_propagate_graph
+    tgt = TargetConfig("cuda", device="cuda", vvl=64)
+    lat = (8, 8, 16)
+    hl = tuple(s + 2 for s in lat)
+    Vh = int(np.prod(hl))
+    d, f = _lb_dist(rng, card, Vh), _dev(rng, (3, Vh), card, scale=1e-3)
+    a4 = parse_layout("aosoa4")
+    for g, outs in ((LD.lb_step_graph(LudwigConfig(lattice=lat)), ("dist2", "u")),
+                    (collide_propagate_graph(0.8), ("dist2",))):
+        base = g.launch({"dist": Field.from_canonical("dist", d, hl),
+                         "force": Field.from_canonical("force", f, hl)}, config=tgt,
+                        outputs=outs, halo="pre")
+        for lay, plan in ((SOA, pplan.LoweringPlan("cuda", vvl=64, bx=1, by=2, bz=8)),
+                          (a4, pplan.LoweringPlan("cuda", vvl=64, bx=1, view="block")),
+                          (a4, pplan.LoweringPlan("cuda", vvl=64, bx=2, by=4, rsplit=2)),
+                          (a4, pplan.LoweringPlan("cuda", vvl=64, bx=1, by=4, bz=8,
+                                                  halo="overlap"))):
+            n = (K8.LB_STEP_HALO.launches, K8.LB_STEP_PRE.launches, K8.LB_STEP_BOX.launches)
+            halo = plan.halo if plan.halo == "overlap" else "pre"
+            out = g.launch({"dist": Field.from_canonical("dist", d, hl, lay),
+                            "force": Field.from_canonical("force", f, hl, lay)}, config=tgt,
+                           outputs=outs, halo=halo, plan=plan)
+            assert K8.LB_STEP_HALO.launches > n[0], plan.describe()
+            assert (K8.LB_STEP_PRE.launches, K8.LB_STEP_BOX.launches) == n[1:], plan.describe()
+            for o in outs:
+                assert out[o].layout == lay and _bits(out[o].canonical(), base[o].canonical())
+    lat = (8, 8, 8, 8)
+    hl = tuple(s + 4 for s in lat)
+    p, u = (_dev(rng, (n, int(np.prod(hl))), card) for n in (24, 72))
+    ins = {"p": Field.from_canonical("p", p, hl), "u": Field.from_canonical("u", u, hl)}
+    g = CG.wilson_normal_graph(0.12)
+    pre = g.launch(ins, config=tgt, outputs=("ap",), halo="pre")["ap"]
+    n = (K.WILSON_NORMAL_PRE_AP_TILED.launches, K.WILSON_NORMAL_PRE_AP.launches)
+    budget = dataclasses.replace(tgt, smem_bytes=227 * 1024)
+    got = g.launch(ins, config=budget, outputs=("ap",), halo="pre")["ap"]
+    assert (K.WILSON_NORMAL_PRE_AP_TILED.launches - n[0], K.WILSON_NORMAL_PRE_AP.launches - n[1]) \
+        == (1, 0)
+    assert _bits(got.data, pre.data)
+    n = K.WILSON_NORMAL_BOX_AP_TILED.launches
+    ov = g.launch(ins, config=tgt, outputs=("ap",), halo="overlap",
+                  plan=pplan.LoweringPlan("cuda", vvl=64, bx=2, by=8, bz=4, halo="overlap"))["ap"]
+    assert K.WILSON_NORMAL_BOX_AP_TILED.launches - n == 2 and _bits(ov.data, pre.data)
+
+
+@pytest.mark.cuda
+def test_k9h_sharded_steps_in_aosoa4_under_pre_and_overlap(card):
+    """One-rank sharded Ludwig steps in aosoa4 under an explicit block-view
+    plan, "pre" and "overlap" (the AoSoA inputs' canonical copies made
+    before the fill's mark, which the side stream's exchange waits for):
+    3 steps each bitwise the SoA "pre" steps, K9H on every LB launch."""
+    from repro_torch.apps.ludwig.driver import make_sharded_step
+    from repro_torch.lattice import Domain
+    from repro_torch.launch.mesh import Mesh
+
+    tgt = TargetConfig("cuda", device="cuda")
+    cfg = LudwigConfig(lattice=(16, 8, 8), target=tgt)
+    st = init_state(cfg, seed=0)
+    mesh = Mesh((1, 1, 1), ("x", "y", "z"), rank=0, world_size=1, local_rank=0)
+    dom = Domain(cfg.lattice, mesh, ("x", "y", "z"), halo=2)
+
+    def run(c, halo):
+        sstep = make_sharded_step(c, dom, halo)
+        d, q = dom.scatter(st.dist.canonical_nd()), dom.scatter(st.q.canonical_nd())
+        for _ in range(3):
+            d, q = sstep(d, q)
+        return d, q
+
+    d0, q0 = run(cfg, "pre")
+    a4 = dataclasses.replace(cfg, layout=parse_layout("aosoa4"), target=dataclasses.replace(
+        tgt, plan_policy=pplan.LoweringPlan("cuda", vvl=64, bx=1, view="block")))
+    for halo in ("pre", "overlap"):
+        n0 = K8.LB_STEP_HALO.launches
+        d, q = run(a4, halo)
+        assert K8.LB_STEP_HALO.launches - n0 >= 3, halo
+        assert _bits(d, d0) and _bits(q, q0), halo
+
+
 @pytest.mark.cuda
 def test_overlap_graph_launches_run_only_the_box_kernels(card, rng):
     """The graphs' "overlap" launches on the cuda engine (execute_split:

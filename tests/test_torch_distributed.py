@@ -14,13 +14,21 @@ comms/compute overlap schedule (``halo="overlap"``) bitwise "pre", for 3
 Ludwig steps at (8, 8, 8) (and the planned ``halo=None``) and the MILC
 solve at (10, 10, 4, 4), whose blocks leave a real interior for ring 2
 on every mesh, that solve also against the JAX package's (iterations
-+-1, x within rel-L2 1e-5); its production mesh, ``batch_axes`` and
++-1, x within rel-L2 1e-5); the sharded plans on the cuda engine's
+planning (CPU fields, the kernels' plain versions): 3 Ludwig steps under
+a shared-memory budget that tiles the LB half-step and in aosoa(4) under
+the block view, bitwise the untiled SoA steps (bitwise the single-device
+step), and the "pre" solve under the budget at the unbudgeted one's
+iterations, x bitwise; on the torch engine the steps and the "pre" solve
+under a 227 KiB budget in aosoa(4), bitwise its SoA "pre" runs; its
+production mesh, ``batch_axes`` and
 ``dp_size`` for the port's.  One
 rank runs in this process (a mesh of one rank starts no process group);
 2 and 4 ranks run once each, every case in one spawn, the results saved by
 rank 0.
 """
 
+import contextlib
 import dataclasses
 import os
 
@@ -37,7 +45,7 @@ from repro_torch.apps.ludwig.driver import make_sharded_step  # noqa: E402
 from repro_torch.apps.milc import MilcConfig, init_problem  # noqa: E402
 from repro_torch.apps.milc import cg as PCG  # noqa: E402
 from repro_torch.apps.milc.driver import make_domain, make_sharded_solver  # noqa: E402
-from repro_torch.core import Field, TargetConfig  # noqa: E402
+from repro_torch.core import Field, LoweringPlan, TargetConfig, aosoa  # noqa: E402
 from repro_torch.core import halo as halo_mod  # noqa: E402
 from repro_torch.core.stencil import halo_pad  # noqa: E402
 from repro_torch.lattice import Domain  # noqa: E402
@@ -58,6 +66,33 @@ REFINE_K = 5   # the refined solve's inner cap: several restarts at MILC_LAT
 # each world's mesh: its shape and axis names; the lattice's first dims
 # map to the axes in order
 MESHES = {1: ((1,), ("mx",)), 2: ((2,), ("mx",)), 4: ((2, 2), ("mx", "my"))}
+# the sharded plans' cases: the cuda engine's planning on CPU fields, whose
+# kernel wrappers run their plain versions; a shared-memory budget that
+# tiles the LB half-step's "pre" launch on every world's block ((1, 2, 4),
+# (1, 2, 4) and (2, 1, 4) tiles) and wilson_normal's ((1, 1, 1))
+CUDA_CPU = TargetConfig("cuda", device="cpu", vvl=64)
+PLAN_BUDGET = 16384
+BLOCK_PLAN = LoweringPlan("cuda", vvl=64, bx=1, view="block")
+
+
+@contextlib.contextmanager
+def _device_check_lifted():
+    """The cuda engine's device check lifted in every module that makes it,
+    restored on exit (world 1 runs in the test's own process)."""
+    from repro_torch.core import fuse, reduce, target
+    from repro_torch.kernels.lb_collision import ops as k7ops
+    from repro_torch.kernels.lb_propagation import ops as k8ops
+    from repro_torch.kernels.wilson_dslash import ops as k4ops
+
+    mods = (fuse, reduce, target, k7ops, k8ops, k4ops)
+    saved = [m.require_cuda for m in mods]
+    for m in mods:
+        m.require_cuda = lambda *a, **k: None
+    try:
+        yield
+    finally:
+        for m, f in zip(mods, saved):
+            m.require_cuda = f
 
 
 def _dim_axes(names, ndim):
@@ -141,6 +176,58 @@ def _cases(mesh: Mesh) -> dict:
     for halo in ("pre", "overlap"):
         xl, it, res = make_sharded_solver(mc, dom, halo)(ul, bl)
         out[("milc_wide", halo)] = (dom.gather(xl), int(it), float(res))
+    out.update(_plan_cases(mesh))
+    return out
+
+
+def _plan_cases(mesh: Mesh) -> dict:
+    """The sharded plans on the cuda engine's planning (CPU fields): 3
+    Ludwig steps untiled in SoA, under PLAN_BUDGET and in aosoa(4) under
+    the block view; the "pre" solve at MILC_LAT without and under the
+    budget.  On the torch engine: the steps and the "pre" solve under the
+    227 KiB budget in aosoa(4)."""
+    names = mesh.axis_names
+    out = {}
+    torch_a4 = dict(layout=aosoa(4), target=dataclasses.replace(TORCH, smem_bytes=227 * 1024))
+    cfg = LudwigConfig(lattice=LUDWIG_LAT, target=TORCH)
+    st = init_state(cfg, seed=0)
+    dom = Domain(LUDWIG_LAT, mesh, _dim_axes(names, 3), halo=2)
+    sstep = make_sharded_step(dataclasses.replace(cfg, **torch_a4), dom, "pre")
+    d, q = dom.scatter(st.dist.canonical_nd()), dom.scatter(st.q.canonical_nd())
+    for _ in range(LUDWIG_STEPS):
+        d, q = sstep(d, q)
+    out[("ludwig_plan", "torch_aosoa4_budget")] = (dom.gather(d), dom.gather(q))
+    mc = MilcConfig(lattice=MILC_LAT, kappa=MILC_KAPPA, tol=1e-10, max_iter=2000, target=TORCH)
+    u, b = init_problem(mc, seed=0)
+    dom = make_domain(mc, mesh, _dim_axes(names, 4))
+    xl, it, res = make_sharded_solver(dataclasses.replace(mc, **torch_a4), dom, "pre")(
+        dom.scatter(u.canonical_nd()), dom.scatter(b.canonical_nd()))
+    out[("milc_plan", "torch_aosoa4_budget")] = (dom.gather(xl), int(it), float(res))
+    with _device_check_lifted():
+        base = LudwigConfig(lattice=LUDWIG_LAT, target=CUDA_CPU)
+        st = init_state(LudwigConfig(lattice=LUDWIG_LAT, target=TORCH), seed=0)
+        dom = Domain(LUDWIG_LAT, mesh, _dim_axes(names, 3), halo=2)
+        for key, cfg in (
+                ("soa", base),
+                ("budget", dataclasses.replace(
+                    base, target=dataclasses.replace(CUDA_CPU, smem_bytes=PLAN_BUDGET))),
+                ("aosoa4_block", dataclasses.replace(
+                    base, layout=aosoa(4),
+                    target=dataclasses.replace(CUDA_CPU, plan_policy=BLOCK_PLAN)))):
+            sstep = make_sharded_step(cfg, dom, "pre")
+            d, q = dom.scatter(st.dist.canonical_nd()), dom.scatter(st.q.canonical_nd())
+            for _ in range(LUDWIG_STEPS):
+                d, q = sstep(d, q)
+            out[("ludwig_plan", key)] = (dom.gather(d), dom.gather(q))
+        mc = MilcConfig(lattice=MILC_LAT, kappa=MILC_KAPPA, tol=1e-10, max_iter=2000,
+                        target=CUDA_CPU)
+        u, b = init_problem(dataclasses.replace(mc, target=TORCH), seed=0)
+        dom = make_domain(mc, mesh, _dim_axes(names, 4))
+        ul, bl = dom.scatter(u.canonical_nd()), dom.scatter(b.canonical_nd())
+        for key, m in (("unbudgeted", mc), ("budget", dataclasses.replace(
+                mc, target=dataclasses.replace(CUDA_CPU, smem_bytes=PLAN_BUDGET)))):
+            xl, it, res = make_sharded_solver(m, dom, "pre")(ul, bl)
+            out[("milc_plan", key)] = (dom.gather(xl), int(it), float(res))
     return out
 
 
@@ -359,3 +446,34 @@ def test_one_rank_exchange_goes_through_the_exchange_and_refuses_thin_extents():
         halo_mod.exchange_dim(torch.zeros(1, 5), axis_name="a", axis_size=1, dim=1, width=2)
     with pytest.raises(ValueError, match="mesh"):
         halo_mod.exchange_dim(torch.zeros(1, 9), axis_name="a", axis_size=2, dim=1, width=1)
+
+
+@pytest.mark.parametrize("world", [1, 2, 4])
+def test_sharded_plans_bitwise_the_untiled_soa_runs(runs, single_steps, world):
+    """The cuda engine's planning on CPU fields (the kernels' plain
+    versions): 3 sharded Ludwig steps under a budget that tiles the LB
+    half-step (K9H's tiled walk) and in aosoa(4) under the block view
+    (K9H's addressing), bitwise the untiled SoA steps, which are bitwise the
+    single-device step; the "pre" solve under the budget (K5TH) at the
+    unbudgeted solve's iterations, x bitwise.  On the torch engine the
+    steps and the "pre" solve under the 227 KiB budget in aosoa(4) are
+    bitwise its SoA "pre" runs."""
+    r = runs(world)
+    d, q = r[("ludwig_plan", "soa")]
+    (pd, pq), _ = single_steps
+    assert torch.equal(d, pd) and torch.equal(q, pq)
+    for key in ("budget", "aosoa4_block"):
+        kd, kq = r[("ludwig_plan", key)]
+        assert torch.equal(kd, d) and torch.equal(kq, q), key
+    x, it, res = r[("milc_plan", "unbudgeted")]
+    bx, bit, bres = r[("milc_plan", "budget")]
+    assert bit == it and bres == res and torch.equal(bx, x)
+    assert res <= 1e-10
+    # the torch engine under the 227 KiB budget in aosoa(4): bitwise its SoA
+    # "pre" steps and solve
+    td, tq = r[("ludwig_plan", "torch_aosoa4_budget")]
+    sd, sq = r["ludwig"]
+    assert torch.equal(td, sd) and torch.equal(tq, sq)
+    tx, tit, tres = r[("milc_plan", "torch_aosoa4_budget")]
+    px, pit, pres = r[("milc", "pre")]
+    assert tit == pit and tres == pres and torch.equal(tx, px)

@@ -7,7 +7,10 @@
 ``test_view.py``, ``test_plan.py`` and ``test_property.py`` (its hypothesis
 properties as parametrised grids), the candidate sets held to the JAX
 package's on a grid of configs, lattices, layouts and budgets, the table key
-stable across processes, and the MILC and Ludwig drivers' tuners.
+stable across processes, and the MILC and Ludwig drivers' tuners.  The
+serve CLI under the tuned policy and the tuned bf16 update-chain winner
+against the reference's are in tests/test_torch_tune_serve.py and
+tests/test_torch_tune_bf16_update.py.
 
 The torch engine has one candidate, its default plan.  Sweeps of several
 candidates run the cuda engine's planning on CPU fields with the device
@@ -53,7 +56,6 @@ from repro_torch.core import fuse as PFU  # noqa: E402
 from repro_torch.core import plan as PP  # noqa: E402
 from repro_torch.core import tune  # noqa: E402
 from repro_torch.kernels.lb_propagation.ops import collide_propagate_graph  # noqa: E402
-from repro_torch.launch import serve  # noqa: E402
 
 LAT = (4, 4, 8)  # 128 sites, as tests/test_tune.py
 TORCH = TargetConfig("torch", device="cpu")
@@ -910,64 +912,6 @@ def test_tuned_bf16_flat_winners_keep_the_carried_state(tune_env):
                 u, b)
     assert res.x.dtype == torch.float32 and tune.stats()["hits"] == 2 * res.iterations
     assert np.isfinite(float(res.residual))
-
-
-def test_serve_cli_under_the_tuned_policy(tune_env, capsys):
-    """The serving CLI under --plan-policy tuned with a populated table: its
-    batched launches miss (batched keys carry the batch) and plan by
-    default, so every outcome is the default CLI's."""
-    cfg = MilcConfig(lattice=(8, 8, 8, 8), target=TORCH)
-    u, b = init_problem(cfg, seed=0)
-    PMD.tune_solve_graphs(cfg, u, b, iters=1, warmup=0)
-    argv = ["--solve", "--engine", "torch", "--device", "cpu", "--requests", "2", "--slots",
-            "2", "--steps", "30"]
-    serve.main(argv)
-    want = capsys.readouterr().out
-    tune.reset_stats()
-    serve.main(argv + ["--plan-policy", "tuned"])
-    got = capsys.readouterr().out
-    assert tune.stats()["lookups"] > 0 and tune.stats()["hits"] == 0
-    assert got.splitlines()[1:] == want.splitlines()[1:]
-
-
-def test_tuned_bf16_update_winner_misses_the_working_tolerance_as_the_reference(
-        tune_env, tmp_path, monkeypatch):
-    """The hazard of ranking the update chain on raw time (as the JAX package
-    does): a bf16 winner for cg_update rounds x and r to bf16 every
-    iteration, so a tuned solve meets its recursive tolerance with x a bf16
-    rounding off the solution.  At (8,8,8,8) both packages stop at 26
-    iterations with |M x - b| / |b| ~ 8.8e-3 (the default solve's 1.5e-5),
-    the port's x within the bf16 accuracy gate (1e-2; measured 2.0e-3, a
-    bf16 rounding) of the reference's (ROADMAP queue 3)."""
-    from repro.apps.milc import MilcConfig as JMilcConfig
-    from repro.apps.milc import driver as JMD
-    from repro.core import LoweringPlan as JPlan
-
-    cfg = MilcConfig(lattice=(8, 8, 8, 8), kappa=0.12, tol=1e-10, max_iter=400, target=TORCH)
-    u, b = init_problem(cfg, seed=0)
-    key = PCG.cg_update_graph(24).plan_key({n: b for n in ("x", "r", "p", "ap")}, config=TORCH,
-                                           outputs=("x_new", "r_new", "rr"))
-    tune.record(key, LoweringPlan("torch", dtypes=BF16))
-    tuned = dataclasses.replace(cfg, target=dataclasses.replace(TORCH, plan_policy="tuned"))
-    res = solve(tuned, u, b)
-    assert float(res.residual) <= cfg.tol
-    assert PMD.residual_check(cfg, u, b, res.x) > 1e-3 > PMD.residual_check(cfg, u, b,
-                                                                             solve(cfg, u, b).x)
-    monkeypatch.setenv(JT.ENV_VAR, str(tmp_path / "reference_table.json"))
-    JT.clear_table_cache()
-    jcfg = JMilcConfig(lattice=(8, 8, 8, 8), kappa=0.12, tol=1e-10, max_iter=400,
-                       target=JTC("jnp"))
-    ju, jb = JMD.init_problem(jcfg, seed=0)
-    jkey = JCG.cg_update_graph(24).plan_key({n: jb for n in ("x", "r", "p", "ap")},
-                                            config=JTC("jnp"), outputs=("x_new", "r_new", "rr"))
-    JT.record(jkey, JPlan("jnp", dtypes=JP.DtypePolicy("bfloat16", "float32", "float64")))
-    jres = JMD.solve(dataclasses.replace(jcfg, target=JTC("jnp", plan_policy="tuned")), ju, jb)
-    JT.clear_table_cache()
-    assert jres.iterations == res.iterations
-    jx = np.asarray(jres.x.to_numpy(), np.float64)
-    assert JMD.residual_check(jcfg, ju, jb, jres.x.with_data(jres.x.data.astype(np.float32))) > 1e-3
-    x = res.x.canonical_nd().double().numpy()
-    assert np.linalg.norm(x - jx) / np.linalg.norm(jx) < tune._accuracy_gate_for(BF16)
 
 
 def test_tuned_bf16_lb_winner_drifts_the_mass_as_bf16_storage(tune_env):

@@ -34,7 +34,13 @@ steps chip_smoke.py's D3 times): from ``init_state(seed=0)`` on a one-rank
 mesh of three axes, ``make_sharded_step`` under "pre" and "overlap", one
 step to warm up, then ``--reps`` steps with the card synchronised after
 the last (host wall time a step), "pre" then "overlap", then in reverse;
-the two schedules' last states compared bitwise.
+the two schedules' last states compared bitwise.  Before the steps, the
+kernels those steps run, timed alone on random halo'd dist (19) and force
+(3) at the same lattice, SoA, vvl 128 (CUDA events, median of --reps,
+after 3 warm-up calls): K5LH (``lb_step_pre_cuda``, the whole interior,
+with u) and K5LHO (``lb_step_box_cuda`` on each box of the "overlap"
+split, every dim decomposed, the boxes one after another: the sum a step),
+the two outputs compared bitwise.
 
 With ``--solve`` it times the sharded MILC solve instead (the solves
 chip_smoke.py's D2 times): ``init_problem(seed=0)`` at ``--lattice`` on
@@ -67,6 +73,55 @@ def stats():
     import torch
     s = torch.cuda.memory_stats()
     return {k: s.get(k) for k in ("num_device_alloc", "num_sync_all_streams", "num_alloc_retries")}
+
+
+def ludwig_kernels(lat, reps) -> dict:
+    """K5LH's and K5LHO's ms at the Ludwig lattice (see the module's
+    docstring)."""
+    import math
+    import statistics
+    import torch
+    from repro_torch.core.overlap import split_boxes
+    from repro_torch.kernels.lb_propagation import kernel as k8
+
+    tau = 0.8
+    V, Vh = math.prod(lat), math.prod(s + 2 for s in lat)
+    gen = torch.Generator(device="cuda").manual_seed(0)
+    dh = 1.0 + 0.1 * torch.randn((19, Vh), generator=gen, device="cuda")
+    fh = 0.01 * torch.randn((3, Vh), generator=gen, device="cuda")
+    interior, boundary = split_boxes(lat, 1, range(3))
+    boxes = [(tuple(a for a, _ in bx), tuple(c - a for a, c in bx))
+             for bx in [interior] + boundary]
+    d2 = torch.empty((19, V), device="cuda")
+    u = torch.empty((3, V), device="cuda")
+
+    def k5lh():
+        return k8.lb_step_pre_cuda(dh, fh, tau, lat, 128)
+
+    def k5lho():
+        for o, e in boxes:
+            k8.lb_step_box_cuda(dh, fh, tau, lat, o, e, d2, u, 128)
+        return d2, u
+
+    def median_ms(fn):
+        for _ in range(3):
+            fn()
+        times = []
+        for _ in range(reps):
+            a, b = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+            a.record()
+            fn()
+            b.record()
+            b.synchronize()
+            times.append(a.elapsed_time(b))
+        return statistics.median(times)
+
+    out = {"K5LH": median_ms(k5lh), "K5LHO": median_ms(k5lho), "boxes": len(boxes)}
+    want = k5lh()
+    out["bitwise"] = bool(torch.equal(k5lho()[0], want[0]) and torch.equal(u, want[1]))
+    print(f"kernels K5LH {out['K5LH']:.4f} ms, K5LHO on {len(boxes)} boxes {out['K5LHO']:.4f} ms, "
+          f"bitwise {out['bitwise']}")
+    return out
 
 
 def ludwig_steps(lat, reps, card) -> dict:
@@ -172,7 +227,8 @@ def main() -> int:
                            "--format=csv,noheader"], capture_output=True, text=True).stdout.strip()
     print(card)
     if args.ludwig:
-        out = ludwig_steps(tuple(args.ludwig), args.reps, card)
+        out = {"kernels": ludwig_kernels(tuple(args.ludwig), args.reps),
+               **ludwig_steps(tuple(args.ludwig), args.reps, card)}
         print(json.dumps({"overlap_probe": {"src": args.src, "ludwig": out}}))
         return 0
     if args.solve:
